@@ -1,0 +1,63 @@
+"""Public API of the PyTorch port: ``load`` / ``featurize`` / ``transcribe``
+(the greedy CTC slice of the JAX package's ``api.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .utils.config import ExperimentConfig, FrontendConfig
+
+
+def load(
+    checkpoint: Optional[str] = None,
+    config: Optional[Union[str, ExperimentConfig]] = None,
+    device="cuda",
+):
+    """Model bundle (config + model + tokenizer) on `device`: random init
+    from seed 0 without a checkpoint, else a directory with params.npz
+    (models/convert.py layout), config.yaml and vocab.json."""
+    from .models.bundle import ModelBundle
+
+    return ModelBundle.load(checkpoint=checkpoint, config=config, device=device)
+
+
+def featurize(
+    wav: Union[str, np.ndarray, Sequence[np.ndarray]],
+    cfg: Optional[FrontendConfig] = None,
+    sample_rate: Optional[int] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Audio (path, PCM array, or list thereof) at cfg.sample_rate ->
+    log-mel features [B, num_mels, frames] on `device` (K1 on a card)."""
+    from .frontend import audio_io, features
+
+    cfg = cfg or FrontendConfig()
+    if isinstance(wav, str) or hasattr(wav, "__fspath__"):
+        wav, sample_rate = audio_io.read_wav(wav)
+    if sample_rate is not None and sample_rate != cfg.sample_rate:
+        raise NotImplementedError(
+            f"{sample_rate} Hz audio: resampling comes with the auxiliary-modules slice"
+        )
+    if isinstance(wav, np.ndarray) and wav.ndim == 1:
+        wavs = [wav]
+    else:
+        wavs = [np.asarray(w, dtype=np.float32) for w in wav]
+    batch = np.stack([features.pad_or_trim(w, cfg) for w in wavs])
+    return features.featurize_batch(torch.from_numpy(batch).to(device), cfg)
+
+
+def transcribe(
+    bundle,
+    audio,
+    sample_rate: Optional[int] = None,
+    decode_cfg=None,
+    timestamps: bool = False,
+):
+    """Audio -> one greedy transcript per input; with ``timestamps=True``,
+    one ``[{"token", "start", "end"}, ...]`` list per input instead."""
+    if timestamps:
+        return bundle.transcribe_timed(audio, sample_rate=sample_rate)
+    return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg)

@@ -1,0 +1,144 @@
+"""Conv-subsampled transformer encoder with a CTC head (the flagship), the
+PyTorch twin of the JAX package's ``models/ctc_model.py``.
+
+Two stride-2 convs subsample the 100 Hz log-mel 4x (3000 -> 750 frames at
+30 s), sinusoidal positions are added, then pre-LN blocks, a final LN and a
+linear head over the character vocabulary. Parameters f32, compute in
+``cfg.dtype`` (bf16 by default), logits f32. The conv subsampler stays
+plain PyTorch (cuDNN), as XLA owned it in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.fused_head import fused_head_argmax, head_argmax_plain, head_logits
+from ..ops.numerics import full_f32
+from ..utils.config import CTCModelConfig
+from .layers import LayerNorm, TransformerBlock, lecun_normal_, sinusoidal_positions
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class Conv(nn.Module):
+    """Conv1d parameters in torch layout: weight [out, in, k], bias [out]."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, gen: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(
+            lecun_normal_(torch.empty(c_in, c_out, k), c_in * k, gen).permute(1, 0, 2).contiguous()
+        )
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+
+class ConvSubsampler(nn.Module):
+    """log2(factor) stride-2 convs (k=3, padding 1) + exact-erf GELU:
+    [B, mels, T] -> [B, ceil(T / factor), d_model]."""
+
+    def __init__(self, num_mels, d_model, channels, factor, gen):
+        super().__init__()
+        n = max(factor, 2).bit_length() - 1
+        if (1 << n) != factor:
+            raise ValueError(f"subsample_factor must be a power of 2, got {factor}")
+        c_in = num_mels
+        for i in range(n):
+            c_out = d_model if i == n - 1 else channels
+            self.add_module(f"conv{i + 1}", Conv(c_in, c_out, 3, gen))
+            c_in = c_out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, mels, T] in the compute dtype. Each conv rounds its output
+        to that dtype before the bias add, as flax nn.Conv does."""
+        dt = x.dtype
+        for conv in self.children():
+            with full_f32():
+                x = F.conv1d(x, conv.weight.to(dt), None, stride=2, padding=1)
+            x = F.gelu(x + conv.bias.to(dt)[None, :, None], approximate="none")
+        return x.transpose(1, 2).contiguous()
+
+
+class CTCHead(nn.Module):
+    """kernel [d, V], bias [V]: compute-dtype operands, f32 logits."""
+
+    def __init__(self, d_model: int, vocab_size: int, gen: torch.Generator):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            lecun_normal_(torch.empty(d_model, vocab_size), d_model, gen)
+        )
+        self.bias = nn.Parameter(torch.zeros(vocab_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return head_logits(x, self.kernel, self.bias)
+
+    def argmax_ids(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        """Greedy ids [B, T] int32; K4 for bf16 activations, never storing
+        the [B, T, V] logits on the card."""
+        if kernels and x.dtype == torch.bfloat16:
+            return fused_head_argmax(x, self.kernel, self.bias)
+        return head_argmax_plain(x, self.kernel, self.bias)
+
+
+class CTCEncoderModel(nn.Module):
+    """forward -> (log_probs [B, T', V] f32 | argmax ids [B, T'], lengths [B])."""
+
+    def __init__(self, cfg: CTCModelConfig, device="cpu", seed: int = 0):
+        super().__init__()
+        if cfg.adapter.kind != "none":
+            raise NotImplementedError("adapters come with the adapter fine-tune slice")
+        if cfg.attention_left_context >= 0 or cfg.attention_right_context >= 0:
+            raise NotImplementedError("banded attention comes with the streaming slice")
+        if cfg.position_mode not in ("sinusoidal", "none"):
+            raise ValueError(f"unknown position_mode {cfg.position_mode!r}")
+        if cfg.dtype not in DTYPES:
+            raise ValueError(f"unknown compute dtype {cfg.dtype!r}")
+        self.cfg = cfg
+        gen = torch.Generator().manual_seed(seed)
+        self.subsample = ConvSubsampler(
+            cfg.num_mels, cfg.d_model, cfg.conv_channels, cfg.subsample_factor, gen
+        )
+        self.blocks = nn.ModuleList(
+            TransformerBlock(cfg.d_model, cfg.num_heads, cfg.mlp_dim, gen, cfg.gelu_form)
+            for _ in range(cfg.num_layers)
+        )
+        self.final_ln = LayerNorm(cfg.d_model)
+        self.ctc_head = CTCHead(cfg.d_model, cfg.vocab_size, gen)
+        self.to(device)
+
+    def forward(
+        self,
+        features: torch.Tensor,  # [B, num_mels, T] log-mel
+        feature_lengths: Optional[torch.Tensor] = None,  # [B] valid frames
+        head_mode: str = "log_probs",  # "log_probs" | "argmax_ids"
+        kernels: bool = True,
+    ):
+        cfg = self.cfg
+        dt = DTYPES[cfg.dtype]
+        B, _, T = features.shape
+        if T > cfg.max_frames:
+            raise ValueError(
+                f"input has {T} frames > max_frames={cfg.max_frames}; raise "
+                "CTCModelConfig.max_frames or chunk the audio"
+            )
+        if head_mode not in ("log_probs", "argmax_ids"):
+            raise ValueError(f"unknown head_mode {head_mode!r}")
+        if feature_lengths is None:
+            feature_lengths = torch.full((B,), T, dtype=torch.int32)
+        out_lengths = feature_lengths.to(features.device, torch.int32)
+        f = cfg.subsample_factor
+        while f > 1:  # ceil-halving through the stride-2 convs (pad 1)
+            out_lengths = (out_lengths + 1) // 2
+            f //= 2
+
+        x = self.subsample(features.to(dt))
+        if cfg.position_mode == "sinusoidal":
+            x = x + sinusoidal_positions(x.shape[1], cfg.d_model, dt, str(x.device))[None]
+        for block in self.blocks:
+            x = block(x, out_lengths, kernels)
+        x = self.final_ln(x)
+        if head_mode == "argmax_ids":
+            return self.ctc_head.argmax_ids(x, kernels), out_lengths
+        return torch.log_softmax(self.ctc_head(x), dim=-1), out_lengths
