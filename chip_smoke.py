@@ -6,20 +6,39 @@
 Phases, one JSON line each (any failed check raises; the script then exits
 non-zero and prints no result line):
 
-1. device  - the card's name and power limit from nvidia-smi;
-2. build   - compile the four CUDA kernels from csrc/ with nvcc (sm_90a);
-3. kernels - each kernel against its plain PyTorch version at main-path
-             shapes, with the bars stated below;
-4. e2e     - api.load of the full-width flagship (12 x d512, 4 heads of 128,
-             mlp 2048, V 4336, random init from seed 0) and api.transcribe of
-             six requests (0.5 s to 42 s; the last is chunked in two), plain
-             and with timestamps; every kernel's launch count must rise; the
-             same requests through the plain versions on the card must agree;
-5. timing  - seconds per batch of 32 x 30 s through the kernel path and the
-             plain path, and each kernel alone against its plain version.
+1. device   - the card's name and power limit from nvidia-smi;
+2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a), one
+              nvcc per source, all started together;
+3. kernels  - each kernel against its plain PyTorch version at main-path
+              shapes, with the bars stated below: K1-K4; K6 (out, lse) and
+              K8 (dQ, dK, dV) at B=16, T'=750, 8 heads of 64 and 4 of 128,
+              plus a causal case; K7 (both WF-folded sublayers);
+4. e2e      - main path 1, serving: api.load of the full-width flagship
+              (12 x d512, 4 heads of 128, mlp 2048, V 4336, random init
+              from seed 0) and api.transcribe of six requests (0.5 s to
+              42 s; the last is chunked in two), plain and with timestamps;
+              the same requests through the plain versions must agree;
+5. finetune - main path 2, training: api.fine_tune on
+              configs/adapter_finetune.yaml at full width (WF rank 8, 8
+              heads of 64) over a synthetic manifest of sixteen 30 s WAVs
+              whose transcripts use 4334 distinct characters (V = 4336), B=16
+              from the 30 s bucket (T'=750, so K6/K8 run), a few steps and
+              the checkpoint; the backbone must stay bitwise frozen; then one
+              step without dropout or SpecAugment on the kernel path against
+              the plain path (loss and adapter gradients);
+6. adapted  - main path 3, serving the fine-tuned checkpoint: api.load +
+              api.transcribe of the six requests through K7, held against
+              the plain path;
+7. timing   - seconds per batch of 32 x 30 s through the kernel path and the
+              plain path; train steps/s at B=16 x 30 s (this config) and
+              B=16 x 10 s (flagship defaults + WF rank 8) on both paths; each
+              kernel alone against its plain version and, for K6/K8, the
+              library's fused attention (examples/torch_kernel_yardsticks.py).
 
-Then a line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
-There is no CPU path: without CUDA the script exits non-zero at once.
+Each main path runs with every launch count set to 0 just before it and read
+just after; a kernel of that path that never launched fails the run. Then a
+line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. There is
+no CPU path: without CUDA the script exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -29,6 +48,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,17 +73,56 @@ ULP_BAR = 2.0
 # clear the margin, or the comparison would be hollow.
 ARGMAX_MARGIN = 0.05
 MIN_COVERAGE = 0.5
+# K6: lse (f32) within LSE_BAR absolute of the plain version; out under the
+# K2/K3 ulp bar. K8: each of dQ, dK, dV within GRAD_REL_BAR of that
+# gradient's largest magnitude, against the plain backward in f32 (the
+# kernel rounds P and dS to bf16 for its tensor-core products and writes
+# bf16); keys past kv_len get exactly zero dK and dV.
+LSE_BAR = 1e-3
+GRAD_REL_BAR = 0.01
 
-KERNELS = [  # name, wrapper module, CUDA source, TPU kernel it replaces
-    ("K1 fused_log_mel_raw", "frontend.fused_frontend", "csrc/log_mel.cu",
-     "jiao_liao_speech_recognition_tpu/frontend/pallas_frontend.py:91"),
-    ("K2 fused_attention_sublayer", "ops.fused_attention", "csrc/attention.cu",
-     "jiao_liao_speech_recognition_tpu/ops/fused_attention.py:163"),
-    ("K3 fused_ln_mlp_residual", "ops.fused_mlp", "csrc/mlp.cu",
-     "jiao_liao_speech_recognition_tpu/ops/fused_mlp.py:180"),
-    ("K4 fused_head_argmax", "ops.fused_head", "csrc/head.cu",
-     "jiao_liao_speech_recognition_tpu/ops/fused_head.py:78"),
+TPU = "jiao_liao_speech_recognition_tpu/"
+KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it replaces
+    ("K1", "K1 fused_log_mel_raw", "frontend.fused_frontend", "COUNTER", "csrc/log_mel.cu",
+     TPU + "frontend/pallas_frontend.py:91"),
+    ("K2", "K2 fused_attention_sublayer", "ops.fused_attention", "COUNTER", "csrc/attention.cu",
+     TPU + "ops/fused_attention.py:163"),
+    ("K3", "K3 fused_ln_mlp_residual", "ops.fused_mlp", "COUNTER", "csrc/mlp.cu",
+     TPU + "ops/fused_mlp.py:180"),
+    ("K4", "K4 fused_head_argmax", "ops.fused_head", "COUNTER", "csrc/head.cu",
+     TPU + "ops/fused_head.py:78"),
+    ("K6", "K6 flash_forward", "ops.flash_attention", "COUNTER", "csrc/flash_attention.cu",
+     TPU + "ops/flash_attention.py:667"),
+    ("K8", "K8 flash_backward", "ops.flash_attention", "BWD_COUNTER", "csrc/flash_attention.cu",
+     TPU + "ops/flash_attention.py:340"),
+    ("K7-attn", "K7 fused_attention_sublayer_wf", "ops.fused_attention", "WF_COUNTER",
+     "csrc/attention.cu", TPU + "ops/fused_attention.py:561"),
+    ("K7-mlp", "K7 fused_ln_mlp_residual_wf", "ops.fused_mlp", "WF_COUNTER", "csrc/mlp.cu",
+     TPU + "ops/fused_mlp.py:401"),
 ]
+# main path -> the kernels it must launch
+PATHS = {
+    "serve": ("K1", "K2", "K3", "K4"),
+    "finetune": ("K1", "K6", "K8"),
+    "adapted_serve": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
+}
+# the fine-tune: optimizer steps through api.fine_tune; the one-step
+# kernel-against-plain comparison: loss within FT_LOSS_BAR (relative); the
+# adapter gradients, all as one vector and the median tensor, within
+# FT_GRAD_BAR (relative L2); each single tensor no further from the plain
+# path than the plain path is from the same step in float32, plus
+# FT_GRAD_BAR. A one-ulp change anywhere in 12 bf16 blocks moves a few
+# small adapter gradients (the q_proj inserts: sums over 12,000 frames that
+# nearly cancel) by several percent, and both bf16 paths sit up to ~10%
+# from float32 there; K6 and K8 alone are held to GRAD_REL_BAR above.
+FT_STEPS = 3
+FT_LOSS_BAR = 0.005
+FT_GRAD_BAR = 0.02
+# published H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a
+# kernel is the larger of its bytes over HBM_BYTES_S and its operations over
+# the peak rate of their type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
 PKG = "jiao_liao_speech_recognition_torch"
 SAMPLE_RATE = 16000
 
@@ -243,6 +302,98 @@ def phase_kernels():
     return errs
 
 
+def _flash_inputs(rng, B, T, H, dh, lens, dev):
+    import torch
+
+    def t(s=1.0):
+        return torch.from_numpy((s * rng.randn(B, T, H, dh)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    return t(), t(), t(), torch.tensor(lens, dtype=torch.int32, device=dev), t()
+
+
+def phase_flash():
+    """K6 (out, lse) and K8 (dQ, dK, dV) against their plain versions at the
+    fine-tune shapes: B=16, T'=750, (8 heads of 64) and (4 of 128), ragged
+    lengths; plus one causal case."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(2)
+    B, T = 16, 750
+    lens = [750, 600, 313, 1] * (B // 4)
+    errs = {}
+    for H, dh, causal in ((8, 64, False), (4, 128, False), (8, 64, True)):
+        q, k, v, kl, dout = _flash_inputs(rng, B, T, H, dh, lens, dev)
+        out, lse = fl.flash_forward(q, k, v, kl, causal)
+        out_p, lse_p = fl.flash_forward_plain(q, k, v, kl, causal)
+        dq, dk, dv = fl.flash_backward(q, k, v, kl, out, lse, dout, causal)
+        grads_p = fl.flash_backward_plain(q, k, v, kl, out, lse, dout, causal)
+        torch.cuda.synchronize()
+        ulps, elem_ulps, over1 = bf16_ulp_err(out, out_p)
+        lse_err = float((lse - lse_p).abs().max())
+        rel = {}
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_p):
+            rel[name] = float((got.float() - want).abs().max() / want.abs().max())
+        pad = torch.arange(T, device=dev)[None, :] >= kl[:, None]
+        pad_max = float(torch.maximum(dk.float().abs().amax((2, 3)),
+                                      dv.float().abs().amax((2, 3)))[pad].max())
+        emit({"phase": "kernels", "kernel": "K6/K8", "B": B, "T": T, "heads": H, "dh": dh,
+              "causal": causal, "out_ulps": ulps, "out_elementwise_max_ulps": elem_ulps,
+              "out_share_over_1ulp": over1, "bar_ulps": ULP_BAR, "lse_max_abs_err": lse_err,
+              "lse_bar": LSE_BAR, "grad_rel_err": rel, "grad_bar": GRAD_REL_BAR,
+              "padded_key_grad_max": pad_max})
+        check(ulps <= ULP_BAR, f"K6 out off by {ulps} ulps (H={H}, causal={causal})")
+        check(lse_err <= LSE_BAR, f"K6 lse off by {lse_err}")
+        check(all(r <= GRAD_REL_BAR for r in rel.values()), f"K8 grads off: {rel}")
+        check(pad_max == 0.0, f"K8 padded keys got gradient {pad_max}")
+        if (H, causal) == (8, False):
+            errs["K6"] = float((out.float() - out_p.float()).abs().max())
+            errs["K8"] = max(float((g.float() - w).abs().max()) for g, w in
+                             zip((dq, dk, dv), grads_p))
+    return errs
+
+
+def phase_wf():
+    """K7: both WF-folded sublayers against their plain versions at B=4,
+    T'=750, d=512 (8 heads of 64, mlp 2048), with nonzero inserts."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_mlp
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(3)
+    B, T, d, r, H = 4, 750, 512, 8, 8
+
+    def w(*shape, s=0.05):
+        return torch.from_numpy((s * rng.randn(*shape)).astype(np.float32)).to(dev)
+
+    def insert(d_in, d_out):
+        return {"a": w(d_in, r, s=0.1), "g": 1.0 + w(r, s=0.1), "b": w(r, d_out, s=0.1)}
+
+    x, g, bl, wq, bq, wk, wv, bv, wo, bo, kl = _attn_args(rng, B, T, d, [750, 600, 313, 1], dev)
+    base = {"wq": wq, "bq": bq, "wk": wk, "wv": wv, "bv": bv, "wo": wo, "bo": bo}
+    wf = {n: insert(d, d) for n in "qkvo"}
+    errs = {}
+    got = fused_attention.fused_attention_sublayer_wf(x, g, bl, base, wf, H, 1e-5, 1.0, kl)
+    want = fused_attention.attention_sublayer_wf_plain(x, g, bl, base, wf, H, 1e-5, 1.0, kl)
+    mlp_args = (x, 1.0 + w(d, s=0.1), w(d, s=0.1), w(d, 4 * d), w(4 * d), w(4 * d, d), w(d),
+                insert(d, 4 * d), insert(4 * d, d), 1e-5, "tanh", 1.0)
+    got_m = fused_mlp.fused_ln_mlp_residual_wf(*mlp_args)
+    want_m = fused_mlp.ln_mlp_residual_wf_plain(*mlp_args)
+    torch.cuda.synchronize()
+    for key, a, b in (("K7-attn", got, want), ("K7-mlp", got_m, want_m)):
+        ulps, elem_ulps, over1 = bf16_ulp_err(a, b)
+        errs[key] = float((a.float() - b.float()).abs().max())
+        emit({"phase": "kernels", "kernel": key, "max_abs_err": errs[key], "ulps": ulps,
+              "bar_ulps": ULP_BAR, "elementwise_max_ulps": elem_ulps,
+              "elementwise_share_over_1ulp": over1})
+        check(ulps <= ULP_BAR, f"{key} off by {ulps} bf16 ulps")
+    return errs
+
+
 def make_requests(seed: int = 0):
     """Six requests of 0.5, 3, 7.5, 12, 30 and 42 s: tones and noise."""
     rng = np.random.RandomState(seed)
@@ -255,47 +406,30 @@ def make_requests(seed: int = 0):
     return out
 
 
-def phase_e2e(counters):
+def drive(counters, path, fn):
+    """Run one main path with every launch count at 0 -> (fn's result,
+    launches by kernel key); every kernel of the path must have launched."""
     import torch
 
-    from jiao_liao_speech_recognition_torch import api
-    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
-    from jiao_liao_speech_recognition_torch.utils.config import ExperimentConfig
-
-    cfg = ExperimentConfig()
-    bundle = api.load(config=cfg, device="cuda")
-    m = cfg.ctc_model
-    n_params = sum(p.numel() for p in bundle.model.parameters())
-    # one character per non-special id, so every id decodes to text
-    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(m.vocab_size - 2)])
-    requests = make_requests()
-
-    for c in counters:
+    for c in counters.values():
         c.reset()
-    t0 = time.perf_counter()
-    texts = api.transcribe(bundle, requests)
-    timed = api.transcribe(bundle, requests, timestamps=True)
+    result = fn()
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {c.name: c.launches for c in counters}
+    launches = {key: c.launches for key, c in counters.items()}
+    missing = [key for key in PATHS[path] if launches[key] == 0]
+    check(not missing, f"{path}: kernels never launched: {missing} ({launches})")
+    return result, launches
 
-    emit({"phase": "e2e", "params": n_params, "layers": m.num_layers, "d_model": m.d_model,
-          "heads": m.num_heads, "mlp": m.mlp_dim, "vocab": m.vocab_size,
-          "requests_s": [len(r) / SAMPLE_RATE for r in requests],
-          "text_chars": [len(s) for s in texts], "seconds_both_calls": seconds,
-          "launches": launches})
-    check(len(texts) == len(requests) and all(isinstance(s, str) for s in texts),
-          "one transcript per request")
-    check(sum(len(s) for s in texts) > 0, "random-init model emitted no text at all")
-    check(all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}")
-    joined = ["".join(tok["token"] for tok in utt) for utt in timed]
-    check(joined == texts, "timestamped tokens do not concatenate to the greedy text")
-    check(all(tok["end"] <= len(r) / SAMPLE_RATE + 0.04 for utt, r in zip(timed, requests)
-              for tok in utt), "a timestamp runs past its audio")
 
-    # the same requests through the plain versions on the card
-    fe = cfg.frontend
+def serve_vs_plain(bundle, requests):
+    """The requests' chunks through the kernel path (argmax ids) and the
+    plain path (log-probs) on the card: log-mel within LOGMEL_BAR, ids equal
+    on every frame whose plain top-2 margin exceeds ARGMAX_MARGIN."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+
+    fe, m = bundle.config.frontend, bundle.config.ctc_model
     wavs, alens, _ = bundle._prepare_audio_chunked(requests, None)
     with torch.inference_mode():
         wav = torch.from_numpy(wavs).cuda()
@@ -313,25 +447,235 @@ def phase_e2e(counters):
     mismatch = int(((ids_k != ids_p) & clear).sum())
     agree = float(((ids_k == ids_p) & frames).sum() / frames.sum())
     finite = bool(torch.isfinite(log_probs).all())
-    emit({"phase": "e2e", "vs_plain": {
-        "chunks": int(wavs.shape[0]), "logmel_max_abs_err": logmel_err, "logmel_bar": LOGMEL_BAR,
-        "frames": int(frames.sum()), "coverage": coverage, "margin": ARGMAX_MARGIN,
-        "mismatched_frames": mismatch, "agree_all_frames": agree}})
+    out = {"chunks": int(wavs.shape[0]), "logmel_max_abs_err": logmel_err,
+           "logmel_bar": LOGMEL_BAR, "frames": int(frames.sum()), "coverage": coverage,
+           "margin": ARGMAX_MARGIN, "mismatched_frames": mismatch, "agree_all_frames": agree}
     check(finite and tuple(log_probs.shape) == (wavs.shape[0], 750, m.vocab_size),
           "plain log-probs are not finite [chunks, 750, V]")
-    check(logmel_err <= LOGMEL_BAR, f"e2e log-mel error {logmel_err}")
-    check(coverage >= MIN_COVERAGE and mismatch == 0, "e2e ids disagree with the plain path")
+    check(logmel_err <= LOGMEL_BAR, f"log-mel error {logmel_err}")
+    check(coverage >= MIN_COVERAGE and mismatch == 0, "ids disagree with the plain path")
+    return out
+
+
+def check_texts(requests, texts, timed):
+    check(len(texts) == len(requests) and all(isinstance(s, str) for s in texts),
+          "one transcript per request")
+    check(sum(len(s) for s in texts) > 0, "the model emitted no text at all")
+    joined = ["".join(tok["token"] for tok in utt) for utt in timed]
+    check(joined == texts, "timestamped tokens do not concatenate to the greedy text")
+    check(all(tok["end"] <= len(r) / SAMPLE_RATE + 0.04 for utt, r in zip(timed, requests)
+              for tok in utt), "a timestamp runs past its audio")
+
+
+def phase_e2e(counters):
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig()
+    bundle = api.load(config=cfg, device="cuda")
+    m = cfg.ctc_model
+    n_params = sum(p.numel() for p in bundle.model.parameters())
+    # one character per non-special id, so every id decodes to text
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(m.vocab_size - 2)])
+    requests = make_requests()
+
+    t0 = time.perf_counter()
+    (texts, timed), launches = drive(counters, "serve", lambda: (
+        api.transcribe(bundle, requests), api.transcribe(bundle, requests, timestamps=True)))
+    seconds = time.perf_counter() - t0
+    emit({"phase": "e2e", "params": n_params, "layers": m.num_layers, "d_model": m.d_model,
+          "heads": m.num_heads, "mlp": m.mlp_dim, "vocab": m.vocab_size,
+          "requests_s": [len(r) / SAMPLE_RATE for r in requests],
+          "text_chars": [len(s) for s in texts], "seconds_both_calls": seconds,
+          "launches": launches})
+    check_texts(requests, texts, timed)
+    emit({"phase": "e2e", "vs_plain": serve_vs_plain(bundle, requests)})
     return launches, bundle
 
 
-def phase_timing(bundle):
+def write_corpus(d: Path, n: int = 16, secs: float = 30.0, chars: int = 4334, seed: int = 0):
+    """n seeded WAVs (tone + noise) of `secs` and a manifest whose
+    transcripts together use exactly `chars` distinct characters from
+    U+4E00 on, so the char vocabulary has chars + 2 entries."""
+    from jiao_liao_speech_recognition_torch.data.manifest import ManifestRow, write_manifest
+    from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav
+
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(chars)
+    per = -(-chars // n)
+    t = np.arange(int(secs * SAMPLE_RATE)) / SAMPLE_RATE
+    rows = []
+    for i in range(n):
+        wav = 0.2 * np.sin(2 * np.pi * rng.uniform(150.0, 2000.0) * t) + 0.05 * rng.randn(len(t))
+        path = d / f"u{i:02d}.wav"
+        write_wav(path, wav, SAMPLE_RATE)
+        text = "".join(chr(0x4E00 + int(j)) for j in order[i * per:(i + 1) * per])
+        rows.append(ManifestRow(str(path), text, secs, "synthetic"))
+    write_manifest(rows, d / "train.jsonl")
+    return d / "train.jsonl"
+
+
+def finetune_config(workdir: Path, manifest: Path):
+    from jiao_liao_speech_recognition_torch.utils.config import load_yaml
+
+    cfg = load_yaml(str(Path(__file__).resolve().parent / "configs" / "adapter_finetune.yaml"))
+    cfg.data.train_manifest, cfg.data.eval_manifest = str(manifest), ""
+    cfg.train.checkpoint_dir = str(workdir / "ckpt")
+    cfg.train.metrics_path = str(workdir / "metrics.jsonl")
+    return cfg
+
+
+def phase_finetune(counters, workdir: Path):
+    """api.fine_tune at full width: FT_STEPS steps of B=16 x 30 s; losses
+    finite, K6 and K8 once per block per step, backbone bitwise frozen,
+    adapters moved, the final bundle on disk."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
+    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
+
+    manifest = write_corpus(workdir)
+    cfg = finetune_config(workdir, manifest)
+    t0 = time.perf_counter()
+    (state, bundle), launches = drive(
+        counters, "finetune", lambda: api.fine_tune(cfg, device="cuda", max_steps=FT_STEPS))
+    seconds = time.perf_counter() - t0
+    m = cfg.ctc_model
+    losses = state.info["losses"]
+    init = CTCEncoderModel(m, device="cuda", seed=cfg.train.seed).state_dict()
+    frozen_same = adapters_moved = n_adapters = b_moved = n_b = 0
+    for key, v in bundle.model.state_dict().items():
+        same = torch.equal(v, init[key])
+        if param_is_adapter(key):
+            n_adapters += 1
+            adapters_moved += not same
+            if key.endswith(".b"):
+                n_b += 1
+                b_moved += not same
+        else:
+            frozen_same += same
+    n_frozen = len(init) - n_adapters
+    final = Path(cfg.train.checkpoint_dir) / "final"
+    emit({"phase": "finetune", "config": "configs/adapter_finetune.yaml", "layers": m.num_layers,
+          "d_model": m.d_model, "heads": m.num_heads, "vocab": m.vocab_size,
+          "wf_rank": m.adapter.wf_rank, "batch": cfg.data.batch_size, "steps": state.step,
+          "losses": losses, "seconds_incl_init_and_save": seconds, "launches": launches,
+          "backbone_tensors_unchanged": f"{frozen_same}/{n_frozen}",
+          "adapter_tensors_moved": f"{adapters_moved}/{n_adapters}",
+          "adapter_b_tensors_moved": f"{b_moved}/{n_b}"})
+    check(state.step == FT_STEPS and len(losses) == FT_STEPS, f"{state.step} steps taken")
+    check(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
+    check(m.vocab_size == 4336, f"char vocab {m.vocab_size} != 4336")
+    for key in ("K6", "K8"):
+        check(launches[key] == m.num_layers * FT_STEPS,
+              f"{key} launched {launches[key]} times, not {m.num_layers} x {FT_STEPS}")
+    check(frozen_same == n_frozen, "the frozen backbone moved")
+    check(n_b > 0 and b_moved == n_b, "an adapter B insert did not move")
+    check(all((final / f).exists() for f in ("params.npz", "config.yaml", "vocab.json")),
+          "the final bundle is incomplete")
+    return launches, cfg, final
+
+
+def phase_finetune_vs_plain(cfg):
+    """One step at the fine-tune's shapes with dropout and SpecAugment off
+    and every adapter insert nonzero: loss and adapter gradients on the
+    kernel path (K1, K6, K8) against the plain path, and both against the
+    same step in float32 (plain, einsum attention)."""
+    import copy
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
+    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
+    from jiao_liao_speech_recognition_torch.train import engine
+
+    cfg = copy.deepcopy(cfg)
+    cfg.ctc_model.dropout = cfg.ctc_model.adapter.dropout = 0.0
+    cfg.specaugment.enabled = False
+    manifest = read_manifest(cfg.data.train_manifest)
+    tok = CharTokenizer.build(manifest.texts())
+    batch = engine.batch_to_device(next(BatchIterator(manifest, tok, cfg.data)), "cuda")
+    model = CTCEncoderModel(cfg.ctc_model, device="cuda", seed=cfg.train.seed)
+    params = engine.set_trainable(model, adapters_only=True)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in params:  # nonzero inserts: every adapter gradient is nonzero
+            p.add_(0.02 * torch.randn(p.shape, generator=gen).to(p.device))
+    loss_fn = engine.make_ctc_loss_fn(cfg, model)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.ctc_model.dtype = "float32"
+    model32 = copy.deepcopy(model)
+    model32.cfg = cfg32.ctc_model
+    params32 = [p for p in model32.parameters() if p.requires_grad]
+    loss_fn32 = engine.make_ctc_loss_fn(cfg32, model32)
+
+    runs = {}
+    for run, fn, ps, kernels in (("kernels", loss_fn, params, True),
+                                 ("plain", loss_fn, params, False),
+                                 ("f32", loss_fn32, params32, False)):
+        loss = fn(batch, (0, 0), True, kernels)[0]
+        runs[run] = (float(loss.detach()), torch.autograd.grad(loss, ps))
+    (lk, gk), (lp, gp), (l32, g32) = runs["kernels"], runs["plain"], runs["f32"]
+    del model32, params32
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.float() - b.float())
+                     / torch.linalg.vector_norm(b.float()))
+
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = [rel(a, b) for a, b in zip(gk, gp)]
+    plain_f32 = [rel(a, b) for a, b in zip(gp, g32)]
+    kern_f32 = [rel(a, b) for a, b in zip(gk, g32)]
+    whole = rel(torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in gp]))
+    over = [(r, n, pf) for r, n, pf in zip(grad_rel, names, plain_f32) if r > pf + FT_GRAD_BAR]
+    emit({"phase": "finetune", "vs_plain": {
+        "T_frames": int(batch["audio"].shape[1] // cfg.frontend.hop_length // 4),
+        "loss_kernels": lk, "loss_plain": lp, "loss_f32": l32, "loss_rel_err": loss_rel,
+        "loss_bar": FT_LOSS_BAR, "adapter_tensors": len(grad_rel), "grad_rel_l2_all": whole,
+        "grad_rel_l2_median": statistics.median(grad_rel), "grad_rel_l2_max": max(grad_rel),
+        "grad_bar": FT_GRAD_BAR,
+        "plain_vs_f32_median": statistics.median(plain_f32), "plain_vs_f32_max": max(plain_f32),
+        "kernels_vs_f32_median": statistics.median(kern_f32), "kernels_vs_f32_max": max(kern_f32),
+        "worst": sorted(zip(grad_rel, names, plain_f32), reverse=True)[:4],
+        "tensors_over_bar": len(over)}})
+    check(math.isfinite(lk) and loss_rel <= FT_LOSS_BAR, f"loss {lk} vs plain {lp}")
+    check(whole <= FT_GRAD_BAR and statistics.median(grad_rel) <= FT_GRAD_BAR,
+          f"adapter gradients off by {whole} (all) / {statistics.median(grad_rel)} (median)")
+    check(not over, f"adapter gradients off by more than the bf16 error + bar: {over[:3]}")
+
+
+def phase_adapted(counters, final: Path):
+    """The fine-tuned checkpoint served: K7 in every block."""
+    from jiao_liao_speech_recognition_torch import api
+
+    bundle = api.load(str(final), device="cuda")
+    check(bundle.config.ctc_model.adapter.kind == "wf", "the checkpoint lost its adapter config")
+    requests = make_requests()
+    (texts, timed), launches = drive(counters, "adapted_serve", lambda: (
+        api.transcribe(bundle, requests), api.transcribe(bundle, requests, timestamps=True)))
+    emit({"phase": "adapted", "checkpoint": "fine-tune final", "heads":
+          bundle.config.ctc_model.num_heads, "text_chars": [len(s) for s in texts],
+          "launches": launches})
+    check_texts(requests, texts, timed)
+    emit({"phase": "adapted", "vs_plain": serve_vs_plain(bundle, requests)})
+    return launches, bundle
+
+
+def phase_timing(bundle, adapted):
     """32 x 30 s through both paths (turns: plain, kernels, kernels, plain),
-    then each kernel alone against its plain version at the same shapes."""
+    then each kernel alone against its plain version, its bound and, where
+    one exists, the library call, at the main paths' shapes."""
     import torch
 
     from jiao_liao_speech_recognition_torch.decode.ctc import ctc_greedy_collapse
     from jiao_liao_speech_recognition_torch.frontend import fused_frontend
     from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
     from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_head, fused_mlp
 
     fe = bundle.config.frontend
@@ -363,7 +707,9 @@ def phase_timing(bundle):
           "kernel_path_rtfx": B * 30.0 / kern_s, "plain_path_rtfx": B * 30.0 / plain_s,
           "kernel_path_samples_s": times[True], "plain_path_samples_s": times[False]})
 
-    # kernels alone, B=32, T'=750, flagship weights of block 0
+    # kernels alone at the main paths' shapes: K1-K4 and K7 at B=32, T'=750
+    # (block 0 of the flagship, of the fine-tuned model for K7); K6/K8 at the
+    # fine-tune's B=16, T'=750, 8 heads of 64
     blk = bundle.model.blocks[0]
     sa, ln1, ln2 = blk.self_attn, blk.self_attn_ln, blk.mlp_ln
     x = torch.from_numpy(rng.randn(B, 750, 512).astype(np.float32)).cuda().to(torch.bfloat16)
@@ -374,6 +720,23 @@ def phase_timing(bundle):
     mlp_args = (x, ln2.scale, ln2.bias, blk.mlp.fc1.kernel, blk.mlp.fc1.bias,
                 blk.mlp.fc2.kernel, blk.mlp.fc2.bias, 1e-5, blk.mlp.gelu_form)
     head = bundle.model.ctc_head
+    ablk = adapted.model.blocks[0]
+    asa, aln1, aln2, amlp = ablk.self_attn, ablk.self_attn_ln, ablk.mlp_ln, ablk.mlp
+    wf_scale = float(ablk.adapter.scale)
+    base, inserts = asa.wf_params()
+    wf_attn_args = (x, aln1.scale, aln1.bias, base, inserts, asa.num_heads, aln1.eps, wf_scale,
+                    lens)
+    k2_64_args = (x, aln1.scale, aln1.bias, base["wq"], base["bq"], base["wk"], base["wv"],
+                  base["bv"], base["wo"], base["bo"], lens, asa.num_heads)
+    wf_mlp_args = (x, aln2.scale, aln2.bias, amlp.fc1.kernel, amlp.fc1.bias, amlp.fc2.kernel,
+                   amlp.fc2.bias, {"a": amlp.fc1.adapter_wf.a, "g": amlp.fc1.adapter_wf.g,
+                                   "b": amlp.fc1.adapter_wf.b},
+                   {"a": amlp.fc2.adapter_wf.a, "g": amlp.fc2.adapter_wf.g,
+                    "b": amlp.fc2.adapter_wf.b}, aln2.eps, amlp.gelu_form, wf_scale)
+    Bf, Tf, Hf, dhf = 16, 750, 8, 64
+    q, k, v, kl, dout = _flash_inputs(rng, Bf, Tf, Hf, dhf, [Tf] * Bf, "cuda")
+    with torch.inference_mode():
+        out, lse = fl.flash_forward(q, k, v, kl)
     pairs = {
         "K1": (lambda: fused_frontend.fused_log_mel_raw(bufs[0]),
                lambda: fused_frontend.log_mel_raw_plain(bufs[0])),
@@ -383,15 +746,143 @@ def phase_timing(bundle):
                lambda: fused_mlp.ln_mlp_residual_plain(*mlp_args)),
         "K4": (lambda: fused_head.fused_head_argmax(x, head.kernel, head.bias),
                lambda: fused_head.head_argmax_plain(x, head.kernel, head.bias)),
+        "K6": (lambda: fl.flash_forward(q, k, v, kl),
+               lambda: fl.flash_forward_plain(q, k, v, kl)),
+        "K8": (lambda: fl.flash_backward(q, k, v, kl, out, lse, dout),
+               lambda: fl.flash_backward_plain(q, k, v, kl, out, lse, dout)),
+        # K2 on the fine-tuned model's 8 heads of 64, unfolded: K7-attn's
+        # time less this is the fold's
+        "K2-8x64": (lambda: fused_attention.fused_attention_sublayer(*k2_64_args),
+                    lambda: fused_attention.attention_sublayer_plain(*k2_64_args)),
+        "K7-attn": (lambda: fused_attention.fused_attention_sublayer_wf(*wf_attn_args),
+                    lambda: fused_attention.attention_sublayer_wf_plain(*wf_attn_args)),
+        "K7-mlp": (lambda: fused_mlp.fused_ln_mlp_residual_wf(*wf_mlp_args),
+                   lambda: fused_mlp.ln_mlp_residual_wf_plain(*wf_mlp_args)),
     }
-    ms = {}
+    yard = _yardsticks()
+    lib_fwd, lib_bwd = yard.sdpa_ms(q, k, v, kl, dout)
+    library = {"K6": lib_fwd, "K8": lib_bwd}
+
+    # the least time for each function on these inputs (see bound())
+    d, mlp, V, n_fft, M = 512, blk.mlp.fc1.kernel.shape[1], head.kernel.shape[1], 400, 80
+    T, frames, freqs = 750, L // fe.hop_length, n_fft // 2 + 1
+    keys = float(lens.sum()) * T  # query-key pairs (all keys valid here)
+    act = B * T * d * 2  # one bf16 activation tensor
+    attn_bytes = 2 * act + sum(t.numel() * 4 for t in attn_args[1:10]) + B * 4
+    mlp_bytes = 2 * act + sum(t.numel() * 4 for t in mlp_args[1:7])
+    qkv = Bf * Tf * Hf * dhf * 2
+    pairs_f = float(kl.sum()) * Tf
+
+    def fold_ops(f):  # A * g, (A g) B, + W: f32 outside any kernel
+        d_in, r = f["a"].shape
+        return 2.0 * d_in * r * f["b"].shape[1] + d_in * r + d_in * f["b"].shape[1]
+
+    def insert_bytes(inserts_):
+        return sum(t.numel() * 4 for f in inserts_ for t in f.values())
+
+    work = {
+        "K1": (B * L * 4 + B * M * frames * 4 + n_fft * 2 * freqs * 4 + M * freqs * 4,
+               {"f32": B * frames * (2.0 * n_fft * 2 * freqs + 3 * freqs + 2 * freqs * M)}),
+        "K2": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
+        "K2-8x64": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
+        "K3": (mlp_bytes, {"bf16": 4.0 * B * T * d * mlp}),
+        "K4": (act + d * V * 4 + V * 4 + B * T * 4, {"bf16": 2.0 * B * T * d * V}),
+        "K6": (4 * qkv + Bf * Hf * Tf * 4 + Bf * 4, {"bf16": 4.0 * Hf * dhf * pairs_f}),
+        "K8": (8 * qkv + Bf * Hf * Tf * 4 + Bf * 4, {"bf16": 10.0 * Hf * dhf * pairs_f}),
+        "K7-attn": (attn_bytes + insert_bytes(inserts.values()),
+                    {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys,
+                     "f32": sum(fold_ops(f) for f in inserts.values())}),
+        "K7-mlp": (mlp_bytes + insert_bytes(wf_mlp_args[7:9]),
+                   {"bf16": 4.0 * B * T * d * mlp,
+                    "f32": sum(fold_ops(f) for f in wf_mlp_args[7:9])}),
+    }
+    shapes = {"K2": "B=32, T'=750, 4 x 128", "K2-8x64": "B=32, T'=750, 8 x 64",
+              "K7-attn": "B=32, T'=750, 8 x 64", "K6": "B=16, T'=750, 8 x 64",
+              "K8": "B=16, T'=750, 8 x 64"}
+    rec = {}
     with torch.inference_mode():
         for key, (kern, plain) in pairs.items():
             p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-            ms[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            emit({"phase": "timing", "kernel": key, "shape": "B=32, 30 s / T'=750",
-                  "ms": ms[key][0], "plain_ms": ms[key][1], "turns_ms": [p1, k1, k2, p2]})
-    return ms
+            bound_ms, bound_by = bound(*work[key])
+            rec[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library.get(key)}
+            emit({"phase": "timing", "kernel": key, "shape": shapes.get(key, "B=32, T'=750"),
+                  **rec[key], "turns_ms": [p1, k1, k2, p2]})
+    return rec
+
+
+def _yardsticks():
+    """examples/torch_kernel_yardsticks.py: the library call each kernel is
+    held against (the port itself never calls it)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "torch_kernel_yardsticks.py"
+    spec = importlib.util.spec_from_file_location("torch_kernel_yardsticks", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bound(nbytes: float, ops: dict):
+    """-> (ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_train_rate(ft_cfg):
+    """Train steps/s on the kernel path and the plain path (turns: plain,
+    kernels, kernels, plain; two distinct batches): the fine-tune config at
+    B=16 x 30 s (T'=750: K6/K8), and flagship defaults + WF rank 8 at B=16 x
+    10 s (T'=250: einsum attention, so only K1 differs)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
+    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
+    from jiao_liao_speech_recognition_torch.train import engine
+    from jiao_liao_speech_recognition_torch.utils.config import AdapterConfig, ExperimentConfig
+
+    manifest = read_manifest(ft_cfg.data.train_manifest)
+    it = BatchIterator(manifest, CharTokenizer.build(manifest.texts()), ft_cfg.data)
+    batches30 = [engine.batch_to_device(next(it), "cuda") for _ in range(2)]
+    cfg10 = ExperimentConfig()
+    cfg10.ctc_model.adapter = AdapterConfig(kind="wf", wf_rank=8)
+    cfg10.train.train_adapters_only = True
+    rng = np.random.RandomState(4)
+    B, samples = 16, 10 * SAMPLE_RATE
+    batches10 = [{
+        "audio": torch.from_numpy((0.1 * rng.randn(B, samples)).astype(np.float32)).cuda(),
+        "audio_lengths": torch.full((B,), samples, dtype=torch.int32, device="cuda"),
+        "labels": torch.from_numpy(
+            rng.randint(1, cfg10.ctc_model.vocab_size, (B, 24)).astype(np.int32)).cuda(),
+        "label_lengths": torch.full((B,), 24, dtype=torch.int32, device="cuda"),
+    } for _ in range(2)]
+    out = {}
+    for name, cfg, batches in (("B16x30s_adapter_finetune_yaml", ft_cfg, batches30),
+                               ("B16x10s_flagship_wf8", cfg10, batches10)):
+        model = CTCEncoderModel(cfg.ctc_model, device="cuda", seed=cfg.train.seed)
+        state = engine.init_state(cfg, model)
+        step = engine.make_train_step(engine.make_ctc_loss_fn(cfg, model), cfg.train.optimizer)
+        for kernels in (False, True):
+            for b in batches:
+                step(state, b, kernels)
+        torch.cuda.synchronize()
+        secs = {True: [], False: []}
+        for kernels in (False, True, True, False):
+            t0 = time.perf_counter()
+            for i in range(4):
+                loss = step(state, batches[i % 2], kernels)["loss"]
+            check(math.isfinite(float(loss)), f"{name}: loss not finite")
+            secs[kernels].append((time.perf_counter() - t0) / 4)
+        out[name] = {"kernel_path_steps_s": 1.0 / statistics.median(secs[True]),
+                     "plain_path_steps_s": 1.0 / statistics.median(secs[False]),
+                     "kernel_path_s_per_step": secs[True], "plain_path_s_per_step": secs[False]}
+        emit({"phase": "timing", "train": name, **out[name]})
+        del model, state, step
+    return out
 
 
 def main() -> int:
@@ -407,26 +898,36 @@ def main() -> int:
     try:
         import importlib
 
-        mods = [importlib.import_module(f"{PKG}.{mod}") for _, mod, _, _ in KERNELS]
+        counters = {key: getattr(importlib.import_module(f"{PKG}.{mod}"), attr)
+                    for key, _, mod, attr, _, _ in KERNELS}
     except ImportError as e:
         print(f"chip_smoke.py: the port is not beside this script ({e})", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = [m.COUNTER for m in mods]
 
     phase_device()
     phase_build()
     errs = phase_kernels()
-    launches, bundle = phase_e2e(counters)
-    ms = phase_timing(bundle)
+    errs.update(phase_flash())
+    errs.update(phase_wf())
+    by_path = {}
+    by_path["serve"], bundle = phase_e2e(counters)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["finetune"], ft_cfg, final = phase_finetune(counters, Path(tmp))
+        phase_finetune_vs_plain(ft_cfg)
+        by_path["adapted_serve"], adapted = phase_adapted(counters, final)
+        rec = phase_timing(bundle, adapted)
+        phase_train_rate(ft_cfg)
     table = []
-    for (name, _, src, replaces), counter in zip(KERNELS, counters):
-        key = name.split()[0]
+    for key, name, _, _, src, replaces in KERNELS:
         table.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
-                      "replaces": replaces, "launches": launches[counter.name],
-                      "max_abs_err": errs[key], "ms": ms[key][0], "plain_ms": ms[key][1]})
-    check(all(math.isfinite(r["ms"]) for r in table), "a timing is not finite")
+                      "replaces": replaces,
+                      "launches": sum(launches[key] for launches in by_path.values()),
+                      "launches_by_path": {p: launches[key] for p, launches in by_path.items()},
+                      "max_abs_err": errs[key], **rec[key]})
+    check(all(math.isfinite(r["ms"]) and math.isfinite(r["bound_ms"]) for r in table),
+          "a timing is not finite")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Library yardsticks for the port's flash kernels on one NVIDIA GPU.
+
+    python3 examples/torch_kernel_yardsticks.py [--batch 16 --frames 750 --heads 8 --head-dim 64]
+
+Times PyTorch's fused attention call (``F.scaled_dot_product_attention``
+with a boolean key mask, on [B, H, T, dh] views of the port's [B, T, H, dh]
+tensors), its forward alone and its backward alone, beside K6 (forward with
+lse) and K8 (dQ, dK, dV) on the same bf16 inputs, with CUDA events. The
+port never calls the library kernel: ``chip_smoke.py`` reads ``sdpa_ms``
+from this file for the ``library_ms`` of K6 and K8. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    """Mean device milliseconds per call (CUDA events), after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_ms(q, k, v, kv_lengths, dout, iters: int = 10):
+    """-> (forward ms, backward ms) of the library call on q, k, v, dout
+    [B, T, H, dh] bf16 with keys at or past kv_lengths[b] masked out."""
+    B, Tk = k.shape[0], k.shape[1]
+    mask = (torch.arange(Tk, device=k.device)[None, :] < kv_lengths[:, None].long())
+    mask = mask[:, None, None, :]  # [B, 1, 1, Tk]: one key mask per row
+    qh, kh, vh = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    doh = dout.transpose(1, 2)
+
+    def forward():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    with torch.no_grad():
+        fwd = cuda_ms(forward, iters)
+    out = forward()
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), iters)
+    return fwd, bwd
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--frames", type=int, default=750)
+    ap.add_argument("--heads", type=int, default=8)
+    ap.add_argument("--head-dim", type=int, default=64)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+
+    B, T, H, dh = args.batch, args.frames, args.heads, args.head_dim
+    rng = np.random.RandomState(0)
+    q, k, v, dout = (torch.from_numpy(rng.randn(B, T, H, dh).astype(np.float32))
+                     .cuda().to(torch.bfloat16) for _ in range(4))
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    out, lse = fl.flash_forward(q, k, v, lens)
+    k6 = cuda_ms(lambda: fl.flash_forward(q, k, v, lens))
+    k8 = cuda_ms(lambda: fl.flash_backward(q, k, v, lens, out, lse, dout))
+    lib_fwd, lib_bwd = sdpa_ms(q, k, v, lens, dout)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "B": B, "T": T, "heads": H,
+                      "dh": dh, "k6_ms": k6, "k8_ms": k8, "sdpa_forward_ms": lib_fwd,
+                      "sdpa_backward_ms": lib_bwd}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface. The library is named after a hash
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together), and the objects are linked into one shared library
+with a plain C interface. The library is named after a hash
 of the sources and flags and lives in ``_build/`` beside this file, so an
 edited source rebuilds and an unchanged one loads at once. A file lock
 keeps concurrent processes from building the same library twice.
@@ -28,21 +29,25 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 P = ctypes.c_void_p  # device pointer or stream
 I = ctypes.c_int
+L = ctypes.c_longlong  # element strides
 F = ctypes.c_float
 
-# exported C functions and their argument types (pointers, ints, floats,
-# and the stream last)
+# exported C functions and their argument types (pointers, ints, strides,
+# floats, and the stream last)
 SIGNATURES = {
     "jl_log_mel": [P, P, P, P, I, I, I, I, I, I, I, F, P],
     "jl_ln_qkv": [P, P, P, P, P, P, I, I, I, F, P],
     "jl_attention_out": [P, P, P, P, P, P, I, I, I, I, P],
     "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_head_argmax": [P, P, P, P, I, I, I, I, P],
+    "jl_flash_fwd": [P, L, I, P, L, I, P, L, I, P, P, P, I, I, I, I, I, I, F, P],
+    "jl_flash_bwd": [P, L, I, P, L, I, P, L, I, P, P, P, P, P, P, P, P,
+                     I, I, I, I, I, I, F, P],
 }
 
 
@@ -79,15 +84,29 @@ def build() -> tuple[Path, float]:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
             tmp = so.with_suffix(f".tmp{os.getpid()}")
-            cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (rc={r.returncode}):\n{r.stdout}\n{r.stderr}"
-                )
+            objs = []
+            procs = []
+            for src in (s for s in _sources() if s.suffix == ".cu"):
+                obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+                objs.append(str(obj))
+                cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                procs.append((src.name, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            for name, proc in procs:
+                out, err = proc.communicate()
+                _check_nvcc(name, proc.returncode, out, err)
+            link = [_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *objs]
+            r = subprocess.run(link, capture_output=True, text=True)
+            _check_nvcc("link", r.returncode, r.stdout, r.stderr)
             os.replace(tmp, so)
+            for obj in objs:
+                os.remove(obj)
     return so, time.perf_counter() - t0
+
+
+def _check_nvcc(what: str, rc: int, out: str, err: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed on {what} (rc={rc}):\n{out}\n{err}")
 
 
 @functools.cache
@@ -122,6 +141,20 @@ def check_cuda(name: str, t, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has no
+    backward (a CUDA result would silently carry none)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under torch.no_grad() "
+            "or take the module path"
+        )
 
 
 class LaunchCounter:

@@ -1,5 +1,5 @@
 """Public API of the PyTorch port: ``load`` / ``featurize`` / ``transcribe``
-(the greedy CTC slice of the JAX package's ``api.py``)."""
+/ ``fine_tune`` (the CTC slices of the JAX package's ``api.py``)."""
 
 from __future__ import annotations
 
@@ -61,3 +61,18 @@ def transcribe(
     if timestamps:
         return bundle.transcribe_timed(audio, sample_rate=sample_rate)
     return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg)
+
+
+def fine_tune(config: Union[str, ExperimentConfig], resume: bool = False, device="cuda",
+              max_steps: Optional[int] = None):
+    """Run the (adapter) fine-tuning loop that `config` describes on
+    `device` -> (TrainState, ModelBundle); ``max_steps`` stops this call
+    early (with a checkpoint) without changing the schedule. The final
+    bundle is also saved to ``<train.checkpoint_dir>/final``, which ``load``
+    reads back."""
+    from .train.engine import run_experiment
+    from .utils.config import load_yaml
+
+    if isinstance(config, str):
+        config = load_yaml(config)
+    return run_experiment(config, resume=resume, device=device, max_steps=max_steps)

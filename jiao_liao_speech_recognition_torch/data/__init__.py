@@ -1,1 +1,1 @@
-"""Character tokenizer."""
+"""Character tokenizer, manifests and the host batch pipeline."""

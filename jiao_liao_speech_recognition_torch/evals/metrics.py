@@ -1,0 +1,84 @@
+"""Corpus CER / WER, the twin of the JAX package's ``evals/metrics.py``
+(which the port may not import): the same normalization, the same jieba
+segmentation with the same character/Latin-run fallback, and plain
+Levenshtein distance. error rate = sum(edit distances) / sum(reference
+lengths), as jiwer computes it on lists."""
+
+from __future__ import annotations
+
+import re
+import unicodedata
+from functools import lru_cache
+from typing import Iterable, List, Sequence
+
+import numpy as np
+
+_PUNCT_RE = re.compile(
+    r"[\s!\"#$%&'()*+,\-./:;<=>?@\[\\\]^_`{|}~"
+    r"。，、；：？！「」『』（）《》〈〉【】〔〕…—～·‘’“”　]+"
+)
+
+
+def normalize_text(text: str, *, keep_spaces: bool = False) -> str:
+    """NFKC-fold, lowercase Latin, strip punctuation and whitespace."""
+    text = unicodedata.normalize("NFKC", text).lower()
+    text = _PUNCT_RE.sub(" " if keep_spaces else "", text)
+    if keep_spaces:
+        text = re.sub(r"\s+", " ", text).strip()
+    return text
+
+
+@lru_cache(maxsize=1)
+def _jieba():
+    try:
+        import jieba
+
+        jieba.setLogLevel(60)
+        return jieba
+    except Exception:
+        return None
+
+
+def segment_words(text: str) -> List[str]:
+    """jieba words when jieba is installed, else characters and Latin runs."""
+    jb = _jieba()
+    if jb is not None:
+        return [w for w in jb.cut(text) if w.strip()]
+    return [t for t in re.findall(r"[a-z0-9]+|[^a-z0-9]", text) if t.strip()]
+
+
+def edit_distance(ref: Sequence, hyp: Sequence) -> int:
+    """Levenshtein distance, two-row DP vectorised over the hypothesis."""
+    vocab: dict = {}
+    r = np.array([vocab.setdefault(t, len(vocab)) for t in ref], np.int32)
+    h = np.array([vocab.setdefault(t, len(vocab)) for t in hyp], np.int32)
+    if len(r) == 0:
+        return len(h)
+    if len(h) == 0:
+        return len(r)
+    idx = np.arange(len(h) + 1, dtype=np.int32)
+    prev = idx.copy()
+    for i in range(1, len(r) + 1):
+        t = np.minimum(prev[:-1] + (h != r[i - 1]), prev[1:] + 1)
+        c = np.concatenate((np.array([i], dtype=np.int32), t))
+        prev = idx + np.minimum.accumulate(c - idx)
+    return int(prev[-1])
+
+
+def corpus_cer(references: Iterable[str], hypotheses: Iterable[str]) -> float:
+    errs = total = 0
+    for ref, hyp in zip(references, hypotheses):
+        ref_n, hyp_n = normalize_text(ref), normalize_text(hyp)
+        errs += edit_distance(list(ref_n), list(hyp_n))
+        total += len(ref_n)
+    return errs / max(total, 1)
+
+
+def corpus_wer(references: Iterable[str], hypotheses: Iterable[str]) -> float:
+    errs = total = 0
+    for ref, hyp in zip(references, hypotheses):
+        ref_w = segment_words(normalize_text(ref))
+        hyp_w = segment_words(normalize_text(hyp))
+        errs += edit_distance(ref_w, hyp_w)
+        total += len(ref_w)
+    return errs / max(total, 1)

@@ -24,3 +24,16 @@ def read_wav(path: str | Path) -> Tuple[np.ndarray, int]:
     if ch > 1:
         pcm = pcm.reshape(-1, ch).mean(axis=1)
     return pcm, sr
+
+
+def write_wav(path: str | Path, pcm: np.ndarray, sample_rate: int) -> None:
+    """Write mono float32 PCM to a 16-bit WAV (the JAX package's scaling:
+    clip to [-1, 1], times 32767, truncated)."""
+    pcm16 = np.clip(np.asarray(pcm, dtype=np.float32), -1.0, 1.0)
+    pcm16 = (pcm16 * 32767.0).astype("<i2")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with wave.open(str(path), "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sample_rate)
+        wf.writeframes(pcm16.tobytes())

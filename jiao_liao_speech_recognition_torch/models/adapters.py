@@ -1,0 +1,117 @@
+"""Adapters on a frozen backbone, the twin of the JAX package's
+``models/adapters.py``: the WF adapter (a low-rank insert W + A diag(g) B on
+a backbone Dense), the Att adapter (a small residual attention block) and
+the bottleneck baseline, placed by ``AdapterSlot`` after the attention and
+MLP sublayers. Every adapter parameter lives under a module named
+``adapter_*`` (flax names kept: ``adapter_wf/{a,g,b}``, ``adapter_att/...``,
+``adapter_bn/...``), so ``param_is_adapter`` derives the trainable mask
+from names alone and ``models/convert.py`` stays a rename.
+
+The Att adapter's KV-cached decode comes with the Whisper slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..utils.config import AdapterConfig
+from .layers import Dense, Dropout, LayerNorm, dot_product_attention, lecun_normal_
+
+ADAPTER_PREFIX = "adapter_"
+KINDS = ("none", "bottleneck", "wf", "att")
+
+
+def param_is_adapter(path) -> bool:
+    """True if a parameter path (tuple of names, or a dotted state_dict
+    key) belongs to an adapter."""
+    if isinstance(path, str):
+        path = path.split(".")
+    return any(isinstance(k, str) and k.startswith(ADAPTER_PREFIX) for k in path)
+
+
+class WFAdapter(nn.Module):
+    """Low-rank insert on a frozen Dense: out + scale * ((x A) * g) B, with
+    A [d_in, r] lecun-normal, g [r] ones and B [r, d_out] zeros (identity at
+    init). Operands in the compute dtype, as the JAX module casts them."""
+
+    def __init__(self, cfg: AdapterConfig, d_in: int, d_out: int, gen: torch.Generator):
+        super().__init__()
+        r = cfg.wf_rank
+        self.scale = float(cfg.scale)
+        self.a = nn.Parameter(lecun_normal_(torch.empty(d_in, r), d_in, gen))
+        self.g = nn.Parameter(torch.ones(r))
+        self.b = nn.Parameter(torch.zeros(r, d_out))
+
+    def forward(self, x: torch.Tensor, frozen_out: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        z = torch.matmul(x, self.a.to(dt)) * self.g.to(dt)
+        return frozen_out + self.scale * torch.matmul(z, self.b.to(dt))
+
+
+class BottleneckAdapter(nn.Module):
+    """h + scale * up(dropout(GELU_erf(down(LN(h))))), up zero-initialised."""
+
+    def __init__(self, cfg: AdapterConfig, d: int, gen: torch.Generator):
+        super().__init__()
+        self.scale = float(cfg.scale)
+        self.ln = LayerNorm(d)
+        self.down = Dense(d, cfg.bottleneck_dim, gen)
+        self.up = Dense(cfg.bottleneck_dim, d, gen)
+        nn.init.zeros_(self.up.kernel)
+        self.dropout = Dropout(cfg.dropout)
+
+    def forward(self, h: torch.Tensor, kv_lengths=None, kernels: bool = True) -> torch.Tensor:
+        z = self.down(self.ln(h))
+        z = self.dropout(torch.nn.functional.gelu(z, approximate="none"))
+        return h + self.scale * self.up(z)
+
+
+class AttAdapter(nn.Module):
+    """h + scale * out(MHA(LN(h))) with att_num_heads heads of att_key_dim;
+    one merged qkv projection, out_proj zero-initialised. Attention takes
+    flash (K6, and K8 under autograd) in eval mode, or in training at
+    Tq >= 512, as the JAX module does."""
+
+    def __init__(self, cfg: AdapterConfig, d: int, gen: torch.Generator):
+        super().__init__()
+        self.num_heads, self.key_dim = cfg.att_num_heads, cfg.att_key_dim
+        self.scale = float(cfg.scale)
+        width = self.num_heads * self.key_dim
+        self.ln = LayerNorm(d)
+        self.qkv_proj = Dense(d, 3 * width, gen)
+        self.out_proj = Dense(width, d, gen)
+        nn.init.zeros_(self.out_proj.kernel)
+        self.dropout = Dropout(cfg.dropout) if cfg.dropout > 0 else None
+
+    def forward(self, h: torch.Tensor, kv_lengths=None, kernels: bool = True) -> torch.Tensor:
+        B, T, _ = h.shape
+        H, dk = self.num_heads, self.key_dim
+        q, k, v = self.qkv_proj(self.ln(h)).split(H * dk, dim=-1)
+        out = dot_product_attention(
+            q.reshape(B, T, H, dk), k.reshape(B, T, H, dk), v.reshape(B, T, H, dk),
+            kv_lengths=kv_lengths, use_flash=not self.training or T >= 512, kernels=kernels,
+        )
+        out = self.out_proj(out.reshape(B, T, H * dk))
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return h + self.scale * out
+
+
+class AdapterSlot(nn.Module):
+    """Injection point after a sublayer: holds ``adapter_bn`` or
+    ``adapter_att``. The WF kind lives inside the Dense layers instead, so
+    a block builds no slot for it."""
+
+    def __init__(self, cfg: AdapterConfig, d: int, gen: torch.Generator):
+        super().__init__()
+        if cfg.kind == "bottleneck":
+            self.adapter_bn = BottleneckAdapter(cfg, d, gen)
+        elif cfg.kind == "att":
+            self.adapter_att = AttAdapter(cfg, d, gen)
+        else:
+            raise ValueError(f"no slot adapter for kind {cfg.kind!r}")
+
+    def forward(self, h, kv_lengths=None, kernels: bool = True):
+        inner = self.adapter_bn if hasattr(self, "adapter_bn") else self.adapter_att
+        return inner(h, kv_lengths, kernels)

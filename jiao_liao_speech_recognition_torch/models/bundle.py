@@ -2,7 +2,9 @@
 (the ctc branch of the JAX package's ``models/bundle.py``).
 
 Greedy transcription: 30 s chunks on the host -> log-mel (K1) -> encoder
-(K2, K3 per block) -> head + argmax (K4) -> collapse on the device -> text.
+(K2, K3 per block; K7 for a WF-adapted model; K6 in an Att adapter) ->
+head + argmax (K4) -> collapse on the device -> text. ``save`` writes the
+directory ``load`` reads: params.npz (``p_a/b/c``), config.yaml, vocab.json.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import torch
 from ..data.tokenizer import CharTokenizer
 from ..decode.ctc import ctc_collapse_with_times, ctc_greedy_collapse, ids_to_texts
 from ..frontend import audio_io, features
-from ..utils.config import DecodeConfig, ExperimentConfig, load_yaml
-from .convert import params_to_state_dict, read_npz_params
+from ..utils.config import DecodeConfig, ExperimentConfig, load_yaml, save_yaml
+from .convert import params_to_state_dict, read_npz_params, state_dict_to_params, write_npz_params
 from .ctc_model import CTCEncoderModel
 
 PARAMS_FILE = "params.npz"  # flat p_a/b/c layout (models/convert.py)
@@ -69,6 +71,14 @@ class ModelBundle:
                 tokenizer = CharTokenizer.load(ckpt / "vocab.json")
         model.to(device).eval()
         return cls(config, model, tokenizer)
+
+    def save(self, path: str) -> None:
+        """Write params.npz, config.yaml and vocab.json into `path`."""
+        p = Path(path)
+        p.mkdir(parents=True, exist_ok=True)
+        save_yaml(self.config, str(p / "config.yaml"))
+        self.tokenizer.save(p / "vocab.json")
+        write_npz_params(state_dict_to_params(self.model.state_dict()), p / PARAMS_FILE)
 
     # ------------------------------------------------------------- inference
     def transcribe(

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX/flax CTC parameters -> the port's ``state_dict``.
+"""Weight bridge between JAX/flax CTC parameters and the port's
+``state_dict``, both ways.
 
 Two inputs are read:
 
@@ -10,7 +11,15 @@ Two inputs are read:
 Paths map one to one: ``block_i/...`` -> ``blocks.i...``; the WFDense
 wrapper level ``dense`` is dropped (``q_proj/dense/kernel`` ->
 ``q_proj.kernel``); flax Conv kernels [k, in, out] become torch Conv1d
-weights [out, in, k]. Dense kernels stay [in, out].
+weights [out, in, k]. Dense kernels stay [in, out]. Adapter parameters
+keep their flax names (``q_proj/adapter_wf/a`` -> ``q_proj.adapter_wf.a``,
+``post_attn_slot/adapter_att/qkv_proj/kernel`` -> the same dotted).
+
+The reverse (``state_dict_to_params``) restores the ``dense`` level under
+the backbone's WFDense layers (the four attention projections and fc1/fc2)
+and writes the same two layouts: ``write_npz_params`` (``p_a/b/c``) and
+``adapter_arrays`` (the JAX ``save_adapter_only`` npz: key ``"/".join(path)``,
+adapter leaves only).
 """
 
 from __future__ import annotations
@@ -70,3 +79,50 @@ def read_npz_params(path: str | Path) -> Dict:
             node[parts[-1]] = data[key]
     return params
 
+
+
+WF_DENSE = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")  # flax WFDense layers
+
+
+def flax_path(key: str) -> Tuple[str, ...]:
+    """state_dict key -> flax param path (inverse of ``torch_key``)."""
+    parts = key.split(".")
+    if parts[0] == "blocks":
+        parts = [f"block_{parts[1]}"] + parts[2:]
+        # backbone Dense params of a WFDense sit one level down, under "dense"
+        if len(parts) >= 4 and parts[1] in ("self_attn", "mlp") and parts[2] in WF_DENSE \
+                and parts[3] in ("kernel", "bias"):
+            parts = parts[:3] + ["dense"] + parts[3:]
+    if parts[0] == "subsample" and parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return tuple(parts)
+
+
+def state_dict_to_params(state: Mapping[str, torch.Tensor]) -> Dict:
+    """state_dict -> nested flax param dict of f32 numpy arrays."""
+    params: Dict = {}
+    for key, t in state.items():
+        arr = t.detach().cpu().float().numpy()
+        path = flax_path(key)
+        if path[0] == "subsample" and path[-1] == "kernel":
+            arr = arr.transpose(2, 1, 0)  # [out, in, k] -> [k, in, out]
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return params
+
+
+def write_npz_params(params: Mapping, path: str | Path) -> None:
+    """Nested param dict -> the flat ``p_a/b/c`` npz (read_npz_params' layout)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{"p_" + "/".join(k): v for k, v in flatten_params(params).items()})
+
+
+def adapter_arrays(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Adapter leaves only, keyed ``"/".join(flax path)`` as the JAX
+    ``train/checkpoints.py::save_adapter_only`` writes them."""
+    from .adapters import param_is_adapter
+
+    flat = flatten_params(state_dict_to_params(state))
+    return {"/".join(k): v for k, v in flat.items() if param_is_adapter(k)}

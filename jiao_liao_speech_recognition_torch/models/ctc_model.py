@@ -5,7 +5,10 @@ Two stride-2 convs subsample the 100 Hz log-mel 4x (3000 -> 750 frames at
 30 s), sinusoidal positions are added, then pre-LN blocks, a final LN and a
 linear head over the character vocabulary. Parameters f32, compute in
 ``cfg.dtype`` (bf16 by default), logits f32. The conv subsampler stays
-plain PyTorch (cuDNN), as XLA owned it in the JAX package.
+plain PyTorch (cuDNN), as XLA owned it in the JAX package. Adapters come
+from ``cfg.adapter``; ``model.train()`` turns on dropout (masks seeded per
+forward by ``dropout_seed``) and, with ``cfg.remat``, recomputes each block
+in the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -15,11 +18,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_head import fused_head_argmax, head_argmax_plain, head_logits
 from ..ops.numerics import full_f32
 from ..utils.config import CTCModelConfig
-from .layers import LayerNorm, TransformerBlock, lecun_normal_, sinusoidal_positions
+from .layers import Dropout, LayerNorm, TransformerBlock, lecun_normal_, sinusoidal_positions
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -87,8 +91,6 @@ class CTCEncoderModel(nn.Module):
 
     def __init__(self, cfg: CTCModelConfig, device="cpu", seed: int = 0):
         super().__init__()
-        if cfg.adapter.kind != "none":
-            raise NotImplementedError("adapters come with the adapter fine-tune slice")
         if cfg.attention_left_context >= 0 or cfg.attention_right_context >= 0:
             raise NotImplementedError("banded attention comes with the streaming slice")
         if cfg.position_mode not in ("sinusoidal", "none"):
@@ -100,12 +102,18 @@ class CTCEncoderModel(nn.Module):
         self.subsample = ConvSubsampler(
             cfg.num_mels, cfg.d_model, cfg.conv_channels, cfg.subsample_factor, gen
         )
+        self.dropout = Dropout(cfg.dropout) if cfg.dropout > 0 else None
+        adapter = cfg.adapter if cfg.adapter.kind != "none" else None
         self.blocks = nn.ModuleList(
-            TransformerBlock(cfg.d_model, cfg.num_heads, cfg.mlp_dim, gen, cfg.gelu_form)
+            TransformerBlock(cfg.d_model, cfg.num_heads, cfg.mlp_dim, gen, cfg.gelu_form,
+                             cfg.dropout, adapter, cfg.use_flash_attention, cfg.flash_train_min_q)
             for _ in range(cfg.num_layers)
         )
         self.final_ln = LayerNorm(cfg.d_model)
         self.ctc_head = CTCHead(cfg.d_model, cfg.vocab_size, gen)
+        self._dropouts = [m for m in self.modules() if isinstance(m, Dropout)]
+        for site, m in enumerate(self._dropouts):
+            m.site = site
         self.to(device)
 
     def forward(
@@ -114,6 +122,7 @@ class CTCEncoderModel(nn.Module):
         feature_lengths: Optional[torch.Tensor] = None,  # [B] valid frames
         head_mode: str = "log_probs",  # "log_probs" | "argmax_ids"
         kernels: bool = True,
+        dropout_seed: Optional[int] = None,  # needed in training when dropout > 0
     ):
         cfg = self.cfg
         dt = DTYPES[cfg.dtype]
@@ -136,8 +145,16 @@ class CTCEncoderModel(nn.Module):
         x = self.subsample(features.to(dt))
         if cfg.position_mode == "sinusoidal":
             x = x + sinusoidal_positions(x.shape[1], cfg.d_model, dt, str(x.device))[None]
+        for m in self._dropouts:
+            m.seed = dropout_seed
+        if self.dropout is not None:
+            x = self.dropout(x)
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, out_lengths, kernels)
+            if remat:
+                x = checkpoint(block, x, out_lengths, kernels, use_reentrant=False)
+            else:
+                x = block(x, out_lengths, kernels)
         x = self.final_ln(x)
         if head_mode == "argmax_ids":
             return self.ctc_head.argmax_ids(x, kernels), out_lengths

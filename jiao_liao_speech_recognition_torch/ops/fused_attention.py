@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import LaunchCounter, check_cuda, launch
+from .._build import LaunchCounter, check_cuda, launch, refuse_grad
 from .numerics import dense, full_f32, layer_norm, matmul
 
 COUNTER = LaunchCounter("fused_attention_sublayer")
@@ -62,6 +62,7 @@ def fused_attention_sublayer(
             x, g, bl, wq, bq, wk, wv, bv, wo, bo, kv_lengths, num_heads, eps
         )
     check_cuda("x", x, torch.bfloat16, 3)
+    refuse_grad("fused_attention_sublayer", x, g, bl, wq, bq, wk, wv, bv, wo, bo)
     B, T, d = x.shape
     D = wq.shape[1]
     dh = D // num_heads
@@ -91,4 +92,52 @@ def fused_attention_sublayer(
         wo_b.data_ptr(), bo_b.data_ptr(), out.data_ptr(), B, T, num_heads, dh,
     )
     COUNTER.launches += 1
+    return out
+
+
+# --- K7 (attention half): WF-adapted serving ---------------------------------
+
+WF_COUNTER = LaunchCounter("fused_attention_sublayer_wf")
+WF_PROJECTIONS = (("q", "wq"), ("k", "wk"), ("v", "wv"), ("o", "wo"))
+
+
+def fold_wf(w, f, wf_scale: float):
+    """Effective weight W + wf_scale * A diag(g) B in f32 (the JAX package's
+    _fold_wf, which runs outside any kernel). f = {"a", "g", "b"}."""
+    with full_f32():
+        return w.float() + wf_scale * ((f["a"].float() * f["g"].float()[None, :]) @ f["b"].float())
+
+
+def _folded(base, wf, wf_scale):
+    w = dict(base)
+    for name, key in WF_PROJECTIONS:
+        w[key] = fold_wf(base[key], wf[name], wf_scale)
+    return w
+
+
+def attention_sublayer_wf_plain(x, g, bl, base, wf, num_heads, eps, wf_scale, kv_lengths):
+    """The fold, then attention_sublayer_plain. base = {wq, bq, wk, wv, bv,
+    wo, bo}; wf = {q|k|v|o: {a, g, b}} (the WFDense parameter layout)."""
+    w = _folded(base, wf, wf_scale)
+    return attention_sublayer_plain(
+        x, g, bl, w["wq"], w["bq"], w["wk"], w["wv"], w["bv"], w["wo"], w["bo"],
+        kv_lengths, num_heads, eps,
+    )
+
+
+def fused_attention_sublayer_wf(x, g, bl, base, wf, num_heads, eps, wf_scale, kv_lengths):
+    """K7 wrapper (attention): the fold in f32, then the K2 wrapper. CPU
+    tensors take attention_sublayer_wf_plain; CUDA tensors launch K2 or raise."""
+    if x.device.type == "cpu":
+        return attention_sublayer_wf_plain(
+            x, g, bl, base, wf, num_heads, eps, wf_scale, kv_lengths
+        )
+    refuse_grad("fused_attention_sublayer_wf", x, *base.values(),
+                *(t for f in wf.values() for t in f.values()))
+    w = _folded(base, wf, wf_scale)
+    out = fused_attention_sublayer(
+        x, g, bl, w["wq"], w["bq"], w["wk"], w["wv"], w["bv"], w["wo"], w["bo"],
+        kv_lengths, num_heads, eps,
+    )
+    WF_COUNTER.launches += 1
     return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .._build import LaunchCounter, check_cuda, launch
+from .._build import LaunchCounter, check_cuda, launch, refuse_grad
 from .numerics import full_f32
 
 COUNTER = LaunchCounter("fused_head_argmax")
@@ -37,6 +37,7 @@ def fused_head_argmax(x, kernel, bias):
     if x.device.type == "cpu":
         return head_argmax_plain(x, kernel, bias)
     check_cuda("x", x, torch.bfloat16, 3)
+    refuse_grad("fused_head_argmax", x, kernel, bias)
     B, T, d = x.shape
     V = kernel.shape[1]
     if d % 16 or d > MAX_D or kernel.shape[0] != d or bias.shape != (V,):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import LaunchCounter, check_cuda, launch
+from .._build import LaunchCounter, check_cuda, launch, refuse_grad
 from .numerics import dense, layer_norm
 
 COUNTER = LaunchCounter("fused_ln_mlp_residual")
@@ -53,6 +53,7 @@ def fused_ln_mlp_residual(x, g, bl, w1, b1, w2, b2, eps=1e-5, gelu_form="tanh"):
     if x.device.type == "cpu":
         return ln_mlp_residual_plain(x, g, bl, w1, b1, w2, b2, eps, gelu_form)
     check_cuda("x", x, torch.bfloat16, 3)
+    refuse_grad("fused_ln_mlp_residual", x, g, bl, w1, b1, w2, b2)
     B, T, d = x.shape
     mlp = w1.shape[1]
     if d not in MODEL_WIDTHS or mlp % 128 or tuple(w2.shape) != (mlp, d):
@@ -71,4 +72,38 @@ def fused_ln_mlp_residual(x, g, bl, w1, b1, w2, b2, eps=1e-5, gelu_form="tanh"):
         B * T, d, mlp, int(gelu_form == "erf"), float(eps),
     )
     COUNTER.launches += 1
+    return out
+
+
+# --- K7 (MLP half): WF-adapted serving ---------------------------------------
+
+WF_COUNTER = LaunchCounter("fused_ln_mlp_residual_wf")
+
+
+def ln_mlp_residual_wf_plain(x, g, bl, w1, b1, w2, b2, wf1, wf2, eps, gelu_form, wf_scale):
+    """The fold of both WF inserts (f32), then ln_mlp_residual_plain.
+    wf1 / wf2 = {"a", "g", "b"} (the WFDense parameter layout)."""
+    from .fused_attention import fold_wf
+
+    return ln_mlp_residual_plain(
+        x, g, bl, fold_wf(w1, wf1, wf_scale), b1, fold_wf(w2, wf2, wf_scale), b2,
+        eps, gelu_form,
+    )
+
+
+def fused_ln_mlp_residual_wf(x, g, bl, w1, b1, w2, b2, wf1, wf2, eps, gelu_form, wf_scale):
+    """K7 wrapper (MLP): the fold in f32, then the K3 wrapper. CPU tensors
+    take ln_mlp_residual_wf_plain; CUDA tensors launch K3 or raise."""
+    from .fused_attention import fold_wf
+
+    if x.device.type == "cpu":
+        return ln_mlp_residual_wf_plain(
+            x, g, bl, w1, b1, w2, b2, wf1, wf2, eps, gelu_form, wf_scale
+        )
+    refuse_grad("fused_ln_mlp_residual_wf", x, w1, b1, w2, b2, *wf1.values(), *wf2.values())
+    out = fused_ln_mlp_residual(
+        x, g, bl, fold_wf(w1, wf1, wf_scale), b1, fold_wf(w2, wf2, wf_scale), b2,
+        eps, gelu_form,
+    )
+    WF_COUNTER.launches += 1
     return out

@@ -1,0 +1,369 @@
+"""Fine-tuning engine, the twin of the JAX package's ``train/engine.py`` on
+one card.
+
+* ``make_schedule``: optax's warmup + cosine / linear, constant and noam,
+  as a function of the optimizer's update count.
+* ``make_optimizer``: optax's ``chain(clip_by_global_norm, adamw | adam |
+  sgd)`` inside ``multi_transform``. torch.optim's AdamW takes the same
+  decoupled step (p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)); the
+  global-norm clip runs over the trainable parameters only, as it sits in
+  the "train" branch; frozen parameters get ``requires_grad=False`` (the
+  JAX step's ``stop_gradient``), so no backbone weight gradient is formed.
+* ``grad_accum_steps`` (optax ``MultiSteps``): gradients of k micro-steps
+  are averaged before the clip and the update.
+* ``make_ctc_loss_fn``: K1 featurizes under ``no_grad`` (no gradient flows
+  into it), then SpecAugment, the model in train mode, and the mean of the
+  per-example CTC NLL over label lengths.
+* ``train_loop`` / ``run_experiment`` / ``evaluate_manifest``.
+
+Randomness: one CPU ``torch.Generator`` seeded from ``TrainConfig.seed``
+draws two seeds per step, one for SpecAugment and one for the dropout
+masks; its state is checkpointed, so resume is exact. The data order is
+the JAX package's seeded epoch plan (``data/pipeline.py``).
+"""
+
+from __future__ import annotations
+
+import math
+import signal
+import threading
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..frontend.features import dequantize_pcm, featurize_batch
+from ..frontend.specaugment import spec_augment
+from ..models.adapters import param_is_adapter
+from ..ops.ctc_loss import ctc_loss
+from ..utils.config import ExperimentConfig, OptimizerConfig
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+
+def _linear(init: float, end: float, steps: int, count: float) -> float:
+    """optax.linear_schedule (a constant `init` when steps <= 0)."""
+    if steps <= 0:
+        return init
+    frac = 1.0 - min(max(count, 0.0), steps) / steps
+    return (init - end) * frac + end
+
+
+def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
+    """Learning rate as a function of the update count (0 for the first
+    update), as optax evaluates its schedules."""
+    lr, warm = cfg.learning_rate, cfg.warmup_steps
+    if cfg.schedule == "constant":
+        return lambda step: lr
+    if cfg.schedule == "noam":
+        return lambda step: lr * min((step + 1.0) ** -0.5, (step + 1.0) * warm ** -1.5) * warm ** 0.5
+    if cfg.schedule not in ("cosine", "linear"):
+        raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    rest = max(cfg.total_steps - warm, 1)
+
+    def decay(count: float) -> float:
+        if cfg.schedule == "cosine":
+            count = min(count, rest)
+            return lr * 0.5 * (1.0 + math.cos(math.pi * count / rest))
+        return _linear(lr, 0.0, rest, count)
+
+    def schedule(step: int) -> float:
+        return _linear(0.0, lr, warm, step) if step < warm else decay(step - warm)
+
+    return schedule
+
+
+def adapter_mask(model: torch.nn.Module) -> Dict[str, bool]:
+    """state_dict key -> True for trainable (adapter) parameters."""
+    return {name: param_is_adapter(name) for name, _ in model.named_parameters()}
+
+
+def make_optimizer(cfg: OptimizerConfig, params) -> torch.optim.Optimizer:
+    """The base optimizer over the trainable parameters; the learning rate
+    is set from the schedule before each update (``apply_update``)."""
+    params = list(params)
+    if cfg.name == "adamw":
+        return torch.optim.AdamW(params, lr=0.0, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
+                                 weight_decay=cfg.weight_decay)
+    if cfg.name == "adam":
+        return torch.optim.Adam(params, lr=0.0, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+    if cfg.name == "sgd":
+        return torch.optim.SGD(params, lr=0.0, momentum=cfg.beta1)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place -> the norm before clipping."""
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, factor)
+    return norm
+
+
+def set_trainable(model: torch.nn.Module, adapters_only: bool) -> List[torch.nn.Parameter]:
+    """requires_grad per the frozen-backbone mask -> the trainable params."""
+    mask = adapter_mask(model)
+    out = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name] or not adapters_only)
+        if p.requires_grad:
+            out.append(p)
+    if not out:
+        raise ValueError("no trainable parameters: train_adapters_only with adapter kind 'none'")
+    return out
+
+
+@dataclass
+class TrainState:
+    """What a checkpoint holds: micro-step count, model, optimizer and the
+    generator that draws each step's seeds."""
+
+    step: int
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+    info: Dict[str, Any] = field(default_factory=dict)
+
+    def trainable(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+
+def init_state(config: ExperimentConfig, model: torch.nn.Module) -> TrainState:
+    params = set_trainable(model, config.train.train_adapters_only)
+    opt = make_optimizer(config.train.optimizer, params)
+    gen = torch.Generator().manual_seed(config.train.seed)
+    return TrainState(0, model, opt, gen)
+
+
+def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str, float]:
+    """Clip the trainable gradients, set the scheduled learning rate, take
+    the optimizer step and clear the gradients."""
+    params = [p for p in state.trainable() if p.grad is not None]
+    k = max(cfg.grad_accum_steps, 1)
+    grads = [p.grad for p in params]
+    if k > 1:
+        torch._foreach_mul_(grads, 1.0 / k)
+    norm = clip_by_global_norm_(grads, cfg.grad_clip_norm)
+    lr = schedule(state.step // k - 1)  # updates taken before this one
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    return {"grad_norm": norm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# loss and step
+# ---------------------------------------------------------------------------
+
+
+def make_ctc_loss_fn(config: ExperimentConfig, model) -> Callable:
+    """loss_fn(batch, seeds, train, kernels) -> (loss, metrics); batch is
+    a dict of tensors on the model's device, seeds = (specaugment, dropout)."""
+    fe = config.frontend
+    if config.augment.enabled:
+        raise NotImplementedError("waveform augmentation comes with the auxiliary-modules slice")
+
+    def loss_fn(batch, seeds, train: bool, kernels: bool = True):
+        with torch.no_grad():
+            feats = featurize_batch(dequantize_pcm(batch["audio"]), fe, kernels=kernels)
+        feat_lengths = batch["audio_lengths"] // fe.hop_length
+        if train and config.specaugment.enabled:
+            feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
+                                 config.specaugment)
+        model.train(train)
+        log_probs, out_lens = model(feats, feat_lengths, kernels=kernels,
+                                    dropout_seed=seeds[1] if train else None)
+        nll = ctc_loss(log_probs, out_lens, batch["labels"], batch["label_lengths"])
+        loss = (nll / batch["label_lengths"].clamp_min(1).float()).mean()
+        return loss, {"loss": loss.detach(), "nll_sum": nll.detach().sum()}
+
+    return loss_fn
+
+
+def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
+    """train_step(state, batch, kernels=True) -> metrics (tensors and
+    floats). One micro-step; every grad_accum_steps-th applies the update."""
+    schedule = make_schedule(cfg)
+    k = max(cfg.grad_accum_steps, 1)
+
+    def train_step(state: TrainState, batch, kernels: bool = True):
+        seeds = torch.randint(0, 2**62, (2,), generator=state.generator).tolist()
+        loss, metrics = loss_fn(batch, seeds, True, kernels)
+        (loss / k if k > 1 else loss).backward()
+        state.step += 1
+        if state.step % k == 0:
+            metrics.update(apply_update(state, cfg, schedule))
+        return metrics
+
+    return train_step
+
+
+def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
+    """Host Batch -> dict of tensors on `device` (int16 audio stays int16:
+    the step dequantizes on the card)."""
+    return {
+        "audio": torch.from_numpy(batch.audio).to(device),
+        "audio_lengths": torch.from_numpy(batch.audio_lengths).to(device),
+        "labels": torch.from_numpy(batch.labels).to(device),
+        "label_lengths": torch.from_numpy(batch.label_lengths).to(device),
+    }
+
+
+def build_tokenizer_for(config: ExperimentConfig, manifest):
+    """A char vocab over the manifest texts; resizes the CTC head to it."""
+    from ..data.tokenizer import CharTokenizer
+
+    if config.data.tokenizer_dir or config.data.unigram_vocab:
+        raise NotImplementedError("subword vocabularies come with the Whisper slice")
+    if config.model_family != "ctc":
+        raise NotImplementedError(f"model family {config.model_family!r}: the port trains ctc")
+    tokenizer = CharTokenizer.build(manifest.texts())
+    config.ctc_model.vocab_size = len(tokenizer)
+    return tokenizer
+
+
+# ---------------------------------------------------------------------------
+# loop
+# ---------------------------------------------------------------------------
+
+
+def _log(path: Optional[str], step: int, **metrics) -> None:
+    """Append one jsonl record (the JAX MetricsLogger's format)."""
+    if not path:
+        return
+    import json
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as fh:
+        fh.write(json.dumps({"step": int(step), "ts": time.time(), **metrics}, default=float) + "\n")
+
+
+def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: bool = False,
+               checkpoint_dir: Optional[str] = None, eval_manifest=None,
+               kernels: bool = True, max_steps: Optional[int] = None):
+    """Train on one card until ``optimizer.total_steps`` micro-steps (or
+    ``max_steps`` more in this call): host batches from a prefetch thread,
+    per-step losses, steps/s every ``log_every_steps``, a checkpoint every
+    ``checkpoint_every_steps`` and where the call stops, and on SIGTERM a
+    checkpoint and a clean exit. Returns
+    (state, info) with info = {"terminated", "last_metrics", "losses",
+    "steps_per_sec"}."""
+    from ..data.pipeline import BatchIterator, PrefetchIterator
+    from .checkpoints import TrainCheckpointer
+
+    tc = config.train
+    device = next(model.parameters()).device
+    state = init_state(config, model)
+    step_fn = make_train_step(make_ctc_loss_fn(config, model), tc.optimizer)
+    it = PrefetchIterator(BatchIterator(manifest, tokenizer, config.data,
+                                        sample_rate=config.frontend.sample_rate),
+                          depth=max(config.data.num_host_workers, 1))
+    ckpt = TrainCheckpointer(checkpoint_dir or tc.checkpoint_dir, tc.keep_checkpoints)
+    if resume:
+        extra = ckpt.restore(state)
+        if extra is not None:
+            it.load_state_dict(extra.get("data_iter", it.state_dict()))
+
+    terminated = {"flag": False}
+    old_handler = None
+    if threading.current_thread() is threading.main_thread():
+        old_handler = signal.signal(signal.SIGTERM, lambda *_: terminated.update(flag=True))
+    first_step = state.step
+    total = tc.optimizer.total_steps
+    if max_steps is not None:
+        total = min(total, first_step + max_steps)
+    losses: List[torch.Tensor] = []
+    metrics: Dict[str, Any] = {}
+    t_first = t0 = None
+    try:
+        while state.step < total:
+            batch = batch_to_device(next(it), device)
+            metrics = step_fn(state, batch, kernels)
+            losses.append(metrics["loss"])
+            if t_first is None:  # steps/s counts from the end of the first step
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                t_first = t0 = time.perf_counter()
+            if state.step % tc.log_every_steps == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["steps_per_sec"] = tc.log_every_steps / max(time.perf_counter() - t0, 1e-9)
+                t0 = time.perf_counter()
+                _log(tc.metrics_path, state.step, **m)
+            if eval_manifest is not None and state.step % tc.eval_every_steps == 0:
+                _log(tc.metrics_path, state.step,
+                     **evaluate_manifest(config, model, tokenizer, eval_manifest))
+                model.train()
+            if (state.step % tc.checkpoint_every_steps == 0 or state.step == total
+                    or terminated["flag"]):
+                ckpt.save(state.step, state, {"data_iter": it.state_dict()})
+            if terminated["flag"]:
+                _log(tc.metrics_path, state.step, event="sigterm_checkpoint_and_exit")
+                break
+    finally:
+        it.close()
+        if old_handler is not None:
+            signal.signal(signal.SIGTERM, old_handler)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    steps = state.step - first_step
+    info = {
+        "terminated": terminated["flag"],
+        "last_metrics": {k: float(v) for k, v in metrics.items()},
+        "losses": [float(x) for x in losses],
+        "steps_per_sec": (steps - 1) / (time.perf_counter() - t_first) if steps > 1 else None,
+    }
+    state.info = info
+    model.eval()
+    return state, info
+
+
+def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda",
+                   kernels: bool = True, max_steps: Optional[int] = None):
+    """The fine-tune run: read the manifest, build the char vocab, init the
+    model from ``train.seed``, train, and save the bundle (params.npz,
+    config.yaml, vocab.json) to ``<checkpoint_dir>/final``. -> (state, bundle)."""
+    from ..data.manifest import read_manifest
+    from ..models.bundle import ModelBundle
+    from ..models.ctc_model import CTCEncoderModel
+
+    if config.data.dialect_weights:
+        raise NotImplementedError("dialect mixing comes with the multi-dialect stages slice")
+    manifest = read_manifest(config.data.train_manifest)
+    tokenizer = build_tokenizer_for(config, manifest)
+    model = CTCEncoderModel(config.ctc_model, device=device, seed=config.train.seed)
+    eval_manifest = None
+    if config.data.eval_manifest and Path(config.data.eval_manifest).exists():
+        eval_manifest = read_manifest(config.data.eval_manifest)
+    state, _ = train_loop(config, manifest, tokenizer, model, resume=resume,
+                          eval_manifest=eval_manifest, kernels=kernels, max_steps=max_steps)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    bundle = ModelBundle(config, model, tokenizer)
+    bundle.save(str(Path(config.train.checkpoint_dir) / "final"))
+    if eval_manifest is not None:
+        _log(config.train.metrics_path, state.step,
+             **evaluate_manifest(config, model, tokenizer, eval_manifest))
+    return state, bundle
+
+
+def evaluate_manifest(config, model, tokenizer, manifest, batch_size: int = 16):
+    """Greedy-transcribe a manifest -> corpus CER / WER."""
+    from ..evals.metrics import corpus_cer, corpus_wer
+    from ..models.bundle import ModelBundle
+
+    model.eval()
+    bundle = ModelBundle(config, model, tokenizer)
+    refs, hyps = [], []
+    rows = manifest.rows
+    for i in range(0, len(rows), batch_size):
+        chunk = rows[i : i + batch_size]
+        hyps.extend(bundle.transcribe([r.audio for r in chunk]))
+        refs.extend(r.text for r in chunk)
+    return {"eval_cer": corpus_cer(refs, hyps), "eval_wer": corpus_wer(refs, hyps),
+            "eval_utts": len(refs)}

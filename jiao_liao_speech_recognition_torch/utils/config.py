@@ -1,12 +1,13 @@
 """Config dataclasses for the PyTorch port: twins of the JAX package's.
 
 The port must import nothing of the JAX package (its modules pull in jax
-through their package ``__init__``), so the sections the greedy CTC slice
-reads are restated here with the same field names and defaults:
-``FrontendConfig``, ``AdapterConfig``, ``CTCModelConfig``, ``DecodeConfig``.
-``ExperimentConfig`` holds only those sections plus ``model_family``; the
-sections of later slices (specaugment, augment, whisper, joint, mesh, data,
-train, stages) are ignored when a JAX-written ``config.yaml`` is read.
+through their package ``__init__``), so the sections the ported slices read
+are restated here with the same field names and defaults:
+``FrontendConfig``, ``SpecAugmentConfig``, ``AugmentConfig``,
+``AdapterConfig``, ``CTCModelConfig``, ``DataConfig``, ``OptimizerConfig``,
+``TrainConfig``, ``DecodeConfig``. ``ExperimentConfig`` holds those sections
+plus ``model_family``; the sections of later slices (whisper, joint, mesh,
+stages) are ignored when a JAX-written ``config.yaml`` is read.
 ``tests/test_torch_config.py`` pins every twin field, name and default, to
 ``jiao_liao_speech_recognition_tpu.utils.config``.
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import typing
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Dict, Type, TypeVar
+from typing import Any, Dict, Optional, Tuple, Type, TypeVar
 
 T = TypeVar("T")
 
@@ -44,8 +45,39 @@ class FrontendConfig:
 
 
 @dataclass
+class SpecAugmentConfig:
+    """Time/frequency masking on the log-mel features."""
+
+    enabled: bool = True
+    num_freq_masks: int = 2
+    freq_mask_width: int = 27
+    num_time_masks: int = 2
+    time_mask_fraction: float = 0.05  # max width as a fraction of frames
+    replace_with_zero: bool = True  # else the utterance mean
+
+
+@dataclass
+class AugmentConfig:
+    """Waveform augmentation (not ported yet: enabled=True raises)."""
+
+    enabled: bool = False
+    gain_db: Tuple[float, float] = (-6.0, 6.0)
+    noise_snr_db: Tuple[float, float] = (10.0, 40.0)
+    pitch_semitones: Tuple[float, float] = (-2.0, 2.0)
+    speed_rates: Tuple[float, ...] = (0.9, 1.0, 1.1)
+    probability: float = 0.5
+    lowpass_hz: Tuple[float, float] = (2000.0, 7500.0)
+    lowpass_probability: float = 0.0
+    highpass_hz: Tuple[float, float] = (20.0, 400.0)
+    highpass_probability: float = 0.0
+    bandpass_probability: float = 0.0
+    filter_taps: int = 101
+    time_stretch_rates: Tuple[float, ...] = ()
+
+
+@dataclass
 class AdapterConfig:
-    kind: str = "none"  # none | bottleneck | wf | att (only "none" is ported)
+    kind: str = "none"  # none | bottleneck | wf | att
     bottleneck_dim: int = 64
     wf_rank: int = 8
     att_num_heads: int = 4
@@ -74,12 +106,58 @@ class CTCModelConfig:
     dtype: str = "bfloat16"
     use_flash_attention: bool = True
     flash_train_min_q: int = 512
-    remat: bool = False
+    remat: bool = False  # torch.utils.checkpoint per block in training
     gelu_form: str = "tanh"  # MLP GELU; the conv subsampler always uses erf
     attention_left_context: int = -1
     attention_right_context: int = -1
     position_mode: str = "sinusoidal"
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
+
+
+@dataclass
+class DataConfig:
+    train_manifest: str = ""
+    eval_manifest: str = ""
+    batch_size: int = 16
+    max_audio_seconds: float = 30.0
+    min_audio_seconds: float = 0.3
+    bucket_boundaries_seconds: Tuple[float, ...] = (5.0, 10.0, 20.0, 30.0)
+    max_text_len: int = 128
+    shuffle_seed: int = 0
+    num_host_workers: int = 4
+    tokenizer_dir: str = ""  # subword vocabularies: not ported (raises)
+    unigram_vocab: str = ""  # not ported (raises)
+    dialect_weights: Optional[Dict[str, float]] = None  # not ported (raises)
+    transfer_dtype: str = "float32"  # "float32" | "int16" host->device audio
+
+
+@dataclass
+class OptimizerConfig:
+    name: str = "adamw"  # adamw | adam | sgd
+    learning_rate: float = 1e-4
+    warmup_steps: int = 500
+    total_steps: int = 10000
+    schedule: str = "cosine"  # cosine | linear | constant | noam
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.98
+    grad_clip_norm: float = 1.0
+    grad_accum_steps: int = 1
+
+
+@dataclass
+class TrainConfig:
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    train_adapters_only: bool = False  # frozen backbone, adapter params only
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every_steps: int = 500
+    keep_checkpoints: int = 3
+    log_every_steps: int = 10
+    eval_every_steps: int = 1000
+    seed: int = 0
+    metrics_path: Optional[str] = None
+    use_wandb: bool = False  # not ported (ignored)
+    fast_dropout_rng: bool = True  # a TPU generator switch: ignored here
 
 
 @dataclass
@@ -100,7 +178,11 @@ class DecodeConfig:
 class ExperimentConfig:
     model_family: str = "ctc"
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    specaugment: SpecAugmentConfig = field(default_factory=SpecAugmentConfig)
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
     ctc_model: CTCModelConfig = field(default_factory=CTCModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
 
 
@@ -120,6 +202,27 @@ def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
         else:
             kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def to_dict(cfg: Any) -> Any:
+    """Dataclass -> nested dict of plain values (tuples become lists)."""
+    if is_dataclass(cfg) and not isinstance(cfg, type):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    if isinstance(cfg, dict):
+        return {k: to_dict(v) for k, v in cfg.items()}
+    return cfg
+
+
+def save_yaml(cfg: Any, path: str) -> None:
+    """Write a ``config.yaml`` both packages read (needs PyYAML)."""
+    import yaml
+    from pathlib import Path
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as fh:
+        yaml.safe_dump(to_dict(cfg), fh, sort_keys=False, allow_unicode=True)
 
 
 def load_yaml(path: str, cls: Type[T] = ExperimentConfig) -> T:

@@ -72,7 +72,7 @@ def test_kernel_sources_target_sm90a_only_through_nvcc():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     cus = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cus == ["attention.cu", "head.cu", "log_mel.cu", "mlp.cu"]
+    assert cus == ["attention.cu", "flash_attention.cu", "head.cu", "log_mel.cu", "mlp.cu"]
     for p in _build.CSRC.glob("*.cu"):
         text = p.read_text()
         for name in ("cublas", "cudnn", "cutlass"):

@@ -155,8 +155,8 @@ def test_model_refuses_what_the_slice_does_not_carry():
     model = CTCEncoderModel(tcfg.CTCModelConfig(**dict(TINY, max_frames=100)))
     with pytest.raises(ValueError, match="max_frames"):
         model(torch.zeros(1, 80, 101))
-    with pytest.raises(NotImplementedError):
-        CTCEncoderModel(tcfg.CTCModelConfig(adapter=tcfg.AdapterConfig(kind="wf")))
+    with pytest.raises(NotImplementedError, match="banded"):
+        CTCEncoderModel(tcfg.CTCModelConfig(**dict(TINY, attention_left_context=16)))
 
 
 def test_greedy_collapse_and_times_match_jax():

@@ -181,3 +181,92 @@ def test_wrappers_refuse_a_device_they_have_no_kernel_for(which):
             tfm.fused_ln_mlp_residual(x, v, v, w, v, w, v)
         else:
             tfh.fused_head_argmax(x, w, v)
+
+
+def _wf_insert(rng, d_in, d_out, r=4):
+    """Nonzero inserts (B != 0), so the fold changes the weights."""
+    return {"a": (0.1 * rng.randn(d_in, r)).astype(np.float32),
+            "g": (1.0 + 0.1 * rng.randn(r)).astype(np.float32),
+            "b": (0.1 * rng.randn(r, d_out)).astype(np.float32)}
+
+
+def _jnp_tree(tree):
+    return {k: _jnp_tree(v) if isinstance(v, dict) else jnp.asarray(v) for k, v in tree.items()}
+
+
+def _torch_tree(tree):
+    return {k: _torch_tree(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("heads", [2, 4], ids=["dh128", "dh64"])
+def test_wf_attention_plain_matches_jax_k7(heads):
+    """K7 (attention): the f32 fold then K2's plain version, against the JAX
+    fused_attention_sublayer_wf (fold at "highest" precision, then the
+    interpret-mode K2 kernel), bf16, under the K2 ulp bar."""
+    import jax
+
+    x, params, lens = _attn_inputs(3, 80, 256, [80, 41, 1], seed=40 + heads)
+    g, bl, wq, bq, wk, wv, bv, wo, bo = params
+    base = {"wq": wq, "bq": bq, "wk": wk, "wv": wv, "bv": bv, "wo": wo, "bo": bo}
+    rng = np.random.RandomState(heads)
+    wf = {n: _wf_insert(rng, 256, 256) for n in "qkvo"}
+    with jax.default_matmul_precision("highest"):
+        want = jfa.fused_attention_sublayer_wf(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(g), jnp.asarray(bl), _jnp_tree(base),
+            _jnp_tree(wf), heads, 1e-5, 0.5, jnp.asarray(lens))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    args = (xt, torch.from_numpy(g), torch.from_numpy(bl), _torch_tree(base), _torch_tree(wf),
+            heads, 1e-5, 0.5, torch.from_numpy(lens))
+    got = tfa.attention_sublayer_wf_plain(*args)
+    assert bf16_ulps(got.float().numpy(), np.asarray(want, np.float32)) <= ULP_BAR
+    assert torch.equal(tfa.fused_attention_sublayer_wf(*args), got)
+    # the inserts matter: without them the result moves by many ulps
+    plain = tfa.attention_sublayer_plain(xt, *map(torch.from_numpy, params),
+                                         torch.from_numpy(lens), heads)
+    assert bf16_ulps(plain.float().numpy(), np.asarray(want, np.float32)) > 4 * ULP_BAR
+
+
+def test_wf_mlp_plain_matches_jax_k7():
+    import jax
+
+    x, params = _mlp_inputs(2, 72, 256, 512, seed=50)
+    rng = np.random.RandomState(51)
+    wf1, wf2 = _wf_insert(rng, 256, 512), _wf_insert(rng, 512, 256)
+    with jax.default_matmul_precision("highest"):
+        want = jfm.fused_ln_mlp_residual_wf(
+            jnp.asarray(x, jnp.bfloat16), *map(jnp.asarray, params), _jnp_tree(wf1),
+            _jnp_tree(wf2), 1e-5, "tanh", 1.0)
+    args = (torch.from_numpy(x).to(torch.bfloat16), *map(torch.from_numpy, params),
+            _torch_tree(wf1), _torch_tree(wf2), 1e-5, "tanh", 1.0)
+    got = tfm.ln_mlp_residual_wf_plain(*args)
+    assert bf16_ulps(got.float().numpy(), np.asarray(want, np.float32)) <= ULP_BAR
+    assert torch.equal(tfm.fused_ln_mlp_residual_wf(*args), got)
+    plain = tfm.ln_mlp_residual_plain(args[0], *map(torch.from_numpy, params), 1e-5, "tanh")
+    assert bf16_ulps(plain.float().numpy(), np.asarray(want, np.float32)) > 4 * ULP_BAR
+
+
+@pytest.mark.parametrize("which", ["attention", "mlp", "head", "wf_attention", "wf_mlp"])
+def test_wrappers_refuse_a_gradient_they_have_no_backward_for(which, monkeypatch):
+    """K2/K3/K4/K7 have no backward in the port: off the CPU, a weight that
+    needs a gradient raises before any launch. (A meta tensor stands in for
+    a CUDA one; the device check is stubbed so the call reaches the guard.)"""
+    for mod in (tfa, tfm, tfh):
+        monkeypatch.setattr(mod, "check_cuda", lambda *a: None)
+    x = torch.empty(1, 8, 128, device="meta", dtype=torch.bfloat16)
+    w = torch.zeros(128, 128, requires_grad=True)
+    v = torch.zeros(128)
+    ins = {"a": torch.zeros(128, 4), "g": torch.ones(4), "b": torch.zeros(4, 128)}
+    calls = {
+        "attention": lambda: tfa.fused_attention_sublayer(
+            x, v, v, w, v, w, w, v, w, v, torch.ones(1, dtype=torch.int32), 1),
+        "mlp": lambda: tfm.fused_ln_mlp_residual(x, v, v, w, v, w, v),
+        "head": lambda: tfh.fused_head_argmax(x, w, v),
+        "wf_attention": lambda: tfa.fused_attention_sublayer_wf(
+            x, v, v, {"wq": w, "bq": v, "wk": w, "wv": w, "bv": v, "wo": w, "bo": v},
+            {n: ins for n in "qkvo"}, 1, 1e-5, 1.0, torch.ones(1, dtype=torch.int32)),
+        "wf_mlp": lambda: tfm.fused_ln_mlp_residual_wf(x, v, v, w, v, w, v, ins, ins, 1e-5,
+                                                       "tanh", 1.0),
+    }
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[which]()
