@@ -33,7 +33,20 @@ non-zero and prints no result line):
               plain path; train steps/s at B=16 x 30 s (this config) and
               B=16 x 10 s (flagship defaults + WF rank 8) on both paths; each
               kernel alone against its plain version and, for K6/K8, the
-              library's fused attention (examples/torch_kernel_yardsticks.py).
+              library's fused attention (examples/torch_kernel_yardsticks.py);
+8. whisper  - main path 4, Whisper large-v3 serving (d=1280, 32 + 32
+              blocks, 20 heads of 64, mlp 5120, V=51866, 128 mels; random
+              init from seed 0 on the card): K9, K5, the out-projection +
+              residual kernel (K2h-out), K3 at d=1280, K6 at 20 heads of 64
+              and K1 at 128 mels against their plain versions; api.load +
+              api.transcribe of the six requests (seven 30 s chunks, one
+              batch) through K1, K5, K6, K2h-out, K3 and K9; the encoder
+              held against the plain path (relative L2) and the generated
+              tokens teacher-forced through the plain decoder (the margin
+              rule); then encoder seconds per B=16 x 30 s batch, decode
+              ms per step (building the caches timed apart) and tokens/s at
+              B=16 (max_len 224) on both paths, and K5, K2h-out, K3c, K9
+              (and K6 at this shape) alone.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. Then a
@@ -80,6 +93,11 @@ MIN_COVERAGE = 0.5
 # bf16); keys past kv_len get exactly zero dK and dV.
 LSE_BAR = 1e-3
 GRAD_REL_BAR = 0.01
+# Whisper: the kernel-path encoder output within ENC_REL_BAR (relative L2)
+# of the plain path's: both are bf16 through 32 blocks, and a one-ulp flip
+# of an intermediate in one block moves the rest (ULP_BAR holds each
+# kernel alone). Decoder tokens: the margin rule above, teacher-forced.
+ENC_REL_BAR = 0.05
 
 TPU = "jiao_liao_speech_recognition_tpu/"
 KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it replaces
@@ -99,13 +117,29 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
      "csrc/attention.cu", TPU + "ops/fused_attention.py:561"),
     ("K7-mlp", "K7 fused_ln_mlp_residual_wf", "ops.fused_mlp", "WF_COUNTER", "csrc/mlp.cu",
      TPU + "ops/fused_mlp.py:401"),
+    ("K5", "K5 fused_ln_qkv", "ops.fused_mlp", "QKV_COUNTER", "csrc/attention.cu",
+     TPU + "ops/fused_mlp.py:510"),
+    # K3's d=1280 instance, counted apart
+    ("K3c", "K3c fused_ln_mlp_residual d=1280", "ops.fused_mlp", "K3C_COUNTER", "csrc/mlp.cu",
+     TPU + "ops/fused_mlp.py:294"),
+    # the out-projection + residual of the head-group-split K2h, which the TPU
+    # runs for the large-v3 encoder; on the card K5 -> K6 -> this launch
+    ("K2h-out", "K2h out_proj_residual", "ops.fused_attention", "OUT_COUNTER",
+     "csrc/attention.cu", TPU + "ops/fused_attention.py:387"),
+    ("K9", "K9 grouped_decode_attention", "ops.decode_attention", "COUNTER",
+     "csrc/decode_attention.cu", TPU + "ops/decode_attention.py:151"),
 ]
 # main path -> the kernels it must launch
 PATHS = {
     "serve": ("K1", "K2", "K3", "K4"),
     "finetune": ("K1", "K6", "K8"),
     "adapted_serve": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
+    "whisper_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
 }
+# the Whisper configuration and the shapes of its kernel checks
+WHISPER_PRESET = "large-v3"
+WHISPER_B, WHISPER_T = 16, 1500  # a batch of 30 s chunks, encoder positions
+WHISPER_MAX_LEN = 224
 # the fine-tune: optimizer steps through api.fine_tune; the one-step
 # kernel-against-plain comparison: loss within FT_LOSS_BAR (relative); the
 # adapter gradients, all as one vector and the median tensor, within
@@ -885,6 +919,344 @@ def phase_train_rate(ft_cfg):
     return out
 
 
+# --- main path 4: Whisper large-v3 serving ------------------------------------
+
+
+def whisper_config():
+    from jiao_liao_speech_recognition_torch.utils.config import (
+        ExperimentConfig,
+        FrontendConfig,
+        whisper_preset,
+    )
+
+    w = whisper_preset(WHISPER_PRESET)
+    cfg = ExperimentConfig(model_family="whisper", whisper=w,
+                           frontend=FrontendConfig(num_mels=w.num_mels))
+    cfg.decode.max_decode_len = WHISPER_MAX_LEN
+    return cfg
+
+
+def _ulp_check(key, got, want, **info):
+    import torch
+
+    torch.cuda.synchronize()
+    ulps, elem_ulps, over1 = bf16_ulp_err(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    emit({"phase": "kernels", "kernel": key, **info, "max_abs_err": err, "ulps": ulps,
+          "bar_ulps": ULP_BAR, "elementwise_max_ulps": elem_ulps,
+          "elementwise_share_over_1ulp": over1})
+    check(ulps <= ULP_BAR, f"{key} {info} off by {ulps} bf16 ulps")
+    return err
+
+
+def phase_whisper_kernels():
+    """K1 at 128 mels, K5 and K3 at d=1280, K6 at 20 heads of 64 and K9
+    against their plain versions at the Whisper path's shapes."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend import features, fused_frontend
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_mlp
+
+    cfg = whisper_config()
+    w, fe = cfg.whisper, cfg.frontend
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(6)
+    B, T, d, H = WHISPER_B, WHISPER_T, w.d_model, w.num_heads
+    dh, mlp = d // H, w.mlp_dim
+    errs = {}
+
+    t = np.arange(30 * SAMPLE_RATE) / SAMPLE_RATE
+    wav = torch.from_numpy(np.stack([
+        a * np.sin(2 * np.pi * f * t) + n * rng.randn(len(t))
+        for a, f, n in ((0.3, 440.0, 0.05), (0.0, 1.0, 0.1), (0.02, 300.0, 0.0005))
+    ]).astype(np.float32)).to(dev)
+    mel_args = (fe.n_fft, fe.hop_length, fe.num_mels, fe.mel_scale, fe.log_floor)
+    got = features.normalize_log_mel(fused_frontend.fused_log_mel_raw(wav, *mel_args), fe)
+    want = features.normalize_log_mel(fused_frontend.log_mel_raw_plain(wav, *mel_args), fe)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    emit({"phase": "kernels", "kernel": "K1", "mels": fe.num_mels, "max_abs_err": err,
+          "bar": LOGMEL_BAR})
+    check(err <= LOGMEL_BAR, f"K1 (128 mels) log-mel error {err} > {LOGMEL_BAR}")
+
+    def f32(*shape, s=0.05):
+        return torch.from_numpy((s * rng.randn(*shape)).astype(np.float32)).to(dev)
+
+    x = f32(B, T, d, s=1.0).to(torch.bfloat16)
+    ln = (1.0 + f32(d, s=0.1), f32(d, s=0.1))
+    qkv_args = (x, *ln, *fused_mlp.pack_qkv(f32(d, d), f32(d), f32(d, d), f32(d, d), f32(d)))
+    got = fused_mlp.fused_ln_qkv(*qkv_args)
+    want = fused_mlp.ln_qkv_plain(*qkv_args)
+    errs["K5"] = max(_ulp_check("K5", a, b, part=n, B=B, T=T, d=d)
+                     for n, a, b in zip("qkv", got, want))
+    del got, want
+    out_args = (x, f32(B, T, d, s=1.0).to(torch.bfloat16), f32(d, d), f32(d))
+    errs["K2h-out"] = _ulp_check("K2h-out", fused_attention.out_proj_residual(*out_args),
+                                 fused_attention.out_proj_residual_plain(*out_args), B=B, T=T, d=d)
+    del out_args
+    mlp_args = (x, *ln, f32(d, mlp), f32(mlp), f32(mlp, d), f32(d), 1e-5, "erf")
+    errs["K3c"] = _ulp_check("K3c", fused_mlp.fused_ln_mlp_residual(*mlp_args),
+                             fused_mlp.ln_mlp_residual_plain(*mlp_args), d=d, mlp=mlp, gelu="erf")
+    del x, qkv_args, mlp_args
+
+    q, k, v, kl, _ = _flash_inputs(rng, B, T, H, dh, ([T, 1000, 313, 1] * B)[:B], dev)
+    out, lse = fl.flash_forward(q, k, v, kl)
+    out_p, lse_p = fl.flash_forward_plain(q, k, v, kl)
+    _ulp_check("K6", out, out_p, B=B, T=T, heads=H, dh=dh)
+    lse_err = float((lse - lse_p).abs().max())
+    check(lse_err <= LSE_BAR, f"K6 (whisper shape) lse off by {lse_err}")
+    del q, k, v, out, out_p, lse, lse_p
+
+    tk_cross, tk_self = da.round_tk(T), da.round_tk(WHISPER_MAX_LEN)
+    for tk, lens in ((tk_cross, ([T, 1, 0, tk_cross] * B)[:B]),
+                     (tk_self, list(rng.randint(0, WHISPER_MAX_LEN, B) + 1))):
+        qh = f32(B, H, 1, dh, s=1.0).to(torch.bfloat16)
+        kc, vc = (f32(B, H, tk, dh, s=1.0).to(torch.bfloat16) for _ in range(2))
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = da.grouped_decode_attention(qh, kc, vc, lt)
+        want = da.decode_attention_plain(qh, kc, vc, lt)
+        err = _ulp_check("K9", got, want, Tk=tk, lens=[int(n) for n in lens[:4]])
+        check(bool(torch.isfinite(got).all()), "K9: a row is not finite")
+        errs["K9"] = max(errs.get("K9", 0.0), err)
+    return errs
+
+
+def phase_whisper(counters):
+    """api.load (random init on the card) + api.transcribe of the six
+    requests; the encoder against the plain path; the generated tokens
+    teacher-forced through the plain decoder."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+
+    cfg = whisper_config()
+    w = cfg.whisper
+    t0 = time.perf_counter()
+    bundle = api.load(config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = bundle.model
+    n_params = sum(p.numel() for p in model.parameters())
+    # one character per non-special id, so every id decodes to text
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(w.vocab_size - 2)])
+    requests = make_requests()
+    wg.STEPS.reset()
+    t0 = time.perf_counter()
+    texts, launches = drive(counters, "whisper_serve", lambda: api.transcribe(bundle, requests))
+    seconds = time.perf_counter() - t0
+    steps = wg.STEPS.steps
+    emit({"phase": "whisper", "preset": WHISPER_PRESET, "params": n_params,
+          "d_model": w.d_model, "layers": [w.encoder_layers, w.decoder_layers],
+          "heads": w.num_heads, "mlp": w.mlp_dim, "vocab": w.vocab_size, "mels": w.num_mels,
+          "load_s": load_s, "requests_s": [len(r) / SAMPLE_RATE for r in requests],
+          "text_chars": [len(s) for s in texts], "seconds": seconds, "decode_steps": steps,
+          "launches": launches})
+    check(len(texts) == len(requests) and all(isinstance(s, str) for s in texts),
+          "one transcript per request")
+    check(sum(len(s) for s in texts) > 0, "the model emitted no text at all")
+    L = w.encoder_layers
+    for key in ("K5", "K6", "K2h-out", "K3c"):
+        check(launches[key] == L, f"{key} launched {launches[key]} times, not {L}")
+    check(launches["K2"] == 0 and launches["K3"] == 0, "K2 or K3's d<1280 instances ran")
+    check(launches["K9"] == 2 * w.decoder_layers * steps,
+          f"K9 launched {launches['K9']} times, not 2 x {w.decoder_layers} x {steps}")
+
+    fe = cfg.frontend
+    prompt, eot = wg.resolve_specials(w)
+    wavs, _, _ = bundle._prepare_audio_chunked(requests, None)
+    with torch.inference_mode():
+        wav = torch.from_numpy(wavs).cuda()
+        feats_k = featurize_batch(wav, fe, kernels=True)
+        feats_p = featurize_batch(wav, fe, kernels=False)
+        enc_k = model.encode(feats_k, kernels=True)
+        enc_p = model.encode(feats_p, kernels=False)
+        ids, lens = wg.greedy_from_enc(model, enc_k, None, WHISPER_MAX_LEN, prompt, eot,
+                                       suppress_ids=w.suppress_ids,
+                                       begin_suppress_ids=w.begin_suppress_ids)
+        P = len(prompt)
+        toks = torch.cat([torch.tensor(prompt, device="cuda").expand(ids.shape[0], P), ids], 1)
+        logits = model.decode(toks[:, :-1], enc_k, kernels=False).float()
+        torch.cuda.synchronize()
+    enc_rel = float((enc_k.float() - enc_p.float()).norm() / enc_p.float().norm())
+    # positions P-1 .. P-1+len predict the generated tokens and the EOT
+    pos = torch.arange(toks.shape[1] - 1, device="cuda")[None, :]
+    n_pred = torch.clamp(lens + 1, max=ids.shape[1])
+    scored = (pos >= P - 1) & (pos < P - 1 + n_pred[:, None])
+    plain = logits.argmax(-1)
+    clear = scored & (margins(logits) > ARGMAX_MARGIN)
+    coverage = float(clear.sum() / scored.sum())
+    mismatch = int(((plain != toks[:, 1:]) & clear).sum())
+    emit({"phase": "whisper", "vs_plain": {
+        "chunks": int(wavs.shape[0]), "encoder_rel_l2": enc_rel, "encoder_bar": ENC_REL_BAR,
+        "logmel_max_abs_err": float((feats_k - feats_p).abs().max()),
+        "generated_lengths": [int(n) for n in lens], "positions": int(scored.sum()),
+        "coverage": coverage, "margin": ARGMAX_MARGIN, "mismatched_positions": mismatch,
+        "agree_all_positions": float(((plain == toks[:, 1:]) & scored).sum() / scored.sum()),
+        "logits_finite": bool(torch.isfinite(logits).all())}})
+    check(bool(torch.isfinite(enc_k.float()).all()) and tuple(enc_k.shape) == (
+        wavs.shape[0], w.max_source_positions, w.d_model), "encoder output not finite [N, 1500, d]")
+    check(enc_rel <= ENC_REL_BAR, f"encoder off the plain path by {enc_rel}")
+    check(coverage >= MIN_COVERAGE and mismatch == 0,
+          f"decoder tokens disagree with the plain argmax ({mismatch}, coverage {coverage})")
+    return launches, bundle
+
+
+def phase_whisper_timing(bundle):
+    """Encoder seconds per B=16 x 30 s batch and decode ms per step /
+    tokens/s at B=16 (turns: plain, kernels, kernels, plain), then K5, K3c,
+    K9 (cross and self caches) and K6 at this shape alone, with bounds and
+    library times."""
+    import torch
+    import torch.nn.functional as F
+
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_mlp
+
+    model, w, fe = bundle.model, bundle.config.whisper, bundle.config.frontend
+    B, T, d, H = WHISPER_B, WHISPER_T, w.d_model, w.num_heads
+    dh = d // H
+    prompt, eot = wg.resolve_specials(w)
+    rng = np.random.RandomState(7)
+    with torch.inference_mode():
+        wav = torch.from_numpy((0.1 * rng.randn(B, 30 * SAMPLE_RATE)).astype(np.float32)).cuda()
+        feats = featurize_batch(wav, fe)
+        enc = {}
+        secs = {True: [], False: []}
+        for kernels in (False, True):  # warm both paths
+            enc[kernels] = model.encode(feats, kernels)
+        for kernels in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encode(feats, kernels)
+            torch.cuda.synchronize()
+            secs[kernels].append(time.perf_counter() - t0)
+        # greedy_from_enc builds the caches first (the cross K/V projection
+        # of every decoder block, the same on both paths): timed apart and
+        # taken out of the per-step figure
+        init_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.init_cache(B, enc[True], WHISPER_MAX_LEN)
+            torch.cuda.synchronize()
+            init_s.append(time.perf_counter() - t0)
+        init_cache_s = statistics.median(init_s)
+        dec = {True: [], False: []}
+        for kernels in (False, True, True, False):
+            wg.STEPS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, lens = wg.greedy_from_enc(model, enc[True], None, WHISPER_MAX_LEN, prompt, eot,
+                                           kernels=kernels)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            dec[kernels].append((s, wg.STEPS.steps, int((lens + 1).clamp(max=ids.shape[1]).sum())))
+    out = {"encoder_s_per_batch": {"kernels": statistics.median(secs[True]),
+                                   "plain": statistics.median(secs[False]),
+                                   "samples_kernels": secs[True], "samples_plain": secs[False]}}
+    out["init_cache_s"] = {"median": init_cache_s, "samples": init_s}
+    for kernels, name in ((True, "kernels"), (False, "plain")):
+        runs = dec[kernels]
+        out[f"decode_{name}"] = {
+            "ms_per_step": statistics.median(1e3 * (s - init_cache_s) / n for s, n, _ in runs),
+            "ms_per_step_incl_init_cache": statistics.median(1e3 * s / n for s, n, _ in runs),
+            "tokens_per_s": statistics.median(B * n / s for s, n, _ in runs),
+            "steps": [n for _, n, _ in runs], "seconds": [s for s, _, _ in runs],
+            "generated_incl_eot": [g for _, _, g in runs]}
+    emit({"phase": "timing", "whisper": f"B={B} x 30 s, max_len {WHISPER_MAX_LEN}",
+          "note": "random init rarely emits EOT, so every row decodes ~max_len tokens; "
+                  "ms_per_step leaves out building the caches, tokens_per_s includes it",
+          **out})
+
+    blk = model.encoder.blocks[0]
+    sa, ln1, ln2, m = blk.self_attn, blk.self_attn_ln, blk.mlp_ln, blk.mlp
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.randn(B, T, d).astype(np.float32)).cuda().to(bf)
+    with torch.inference_mode():
+        qkv_args = (x, ln1.scale, ln1.bias, *sa.qkv_weights(bf))
+        out_args = (x, torch.from_numpy(rng.randn(B, T, d).astype(np.float32)).cuda().to(bf),
+                    *sa.out_proj.weights(bf))
+    mlp_args = (x, ln2.scale, ln2.bias, *m.fc1.weights(bf), *m.fc2.weights(bf), 1e-5, "erf")
+    q, k, v, kl, _ = _flash_inputs(rng, B, T, H, dh, [T] * B, "cuda")
+    tk_cross, tk_self = da.round_tk(T), da.round_tk(WHISPER_MAX_LEN)
+    qh = torch.from_numpy(rng.randn(B, H, 1, dh).astype(np.float32)).cuda().to(bf)
+    caches = {tk: [torch.from_numpy(rng.randn(B, H, tk, dh).astype(np.float32)).cuda().to(bf)
+                   for _ in range(2)] for tk in (tk_cross, tk_self)}
+    lens9 = {tk_cross: torch.full((B,), T, dtype=torch.int32, device="cuda"),
+             tk_self: torch.from_numpy(rng.randint(0, WHISPER_MAX_LEN, B) + 1).int().cuda()}
+
+    def k9(tk):
+        return (lambda: da.grouped_decode_attention(qh, *caches[tk], lens9[tk]),
+                lambda: da.decode_attention_plain(qh, *caches[tk], lens9[tk]))
+
+    def sdpa9(tk):  # the library yardstick: a boolean key mask per row
+        return _yardsticks().sdpa_decode_ms(qh, *caches[tk], lens9[tk])
+
+    pairs = {
+        "K5": (lambda: fused_mlp.fused_ln_qkv(*qkv_args),
+               lambda: fused_mlp.ln_qkv_plain(*qkv_args)),
+        "K3c": (lambda: fused_mlp.fused_ln_mlp_residual(*mlp_args),
+                lambda: fused_mlp.ln_mlp_residual_plain(*mlp_args)),
+        "K2h-out": (lambda: fused_attention.out_proj_residual(*out_args),
+                    lambda: fused_attention.out_proj_residual_plain(*out_args)),
+        "K6-whisper": (lambda: fl.flash_forward(q, k, v, kl),
+                       lambda: fl.flash_forward_plain(q, k, v, kl)),
+        "K9": k9(tk_cross),
+        "K9-self": k9(tk_self),
+    }
+    library = {"K6-whisper": _yardsticks().sdpa_ms(q, k, v, kl, q)[0]}  # forward's time
+    with torch.inference_mode():
+        library.update({"K9": sdpa9(tk_cross), "K9-self": sdpa9(tk_self)})
+    act = B * T * d * 2
+
+    def w_bytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def k9_work(tk):  # keys read: the valid prefix (all Tk for a zero length)
+        n = sum(int(t) if 0 < int(t) <= tk else tk for t in lens9[tk].tolist())
+        return (B * H * dh * 2 + B * H * dh * 4 + B * 4 + 2 * n * H * dh * 2,
+                {"bf16": 4.0 * H * dh * n})
+
+    work = {
+        "K5": (act * 4 + w_bytes(qkv_args[1:]), {"bf16": 6.0 * B * T * d * d}),
+        "K3c": (act * 2 + w_bytes(mlp_args[1:7]), {"bf16": 4.0 * B * T * d * w.mlp_dim}),
+        "K2h-out": (act * 3 + w_bytes(out_args[2:]), {"bf16": 2.0 * B * T * d * d}),
+        "K6-whisper": (4 * act + B * H * T * 4 + B * 4, {"bf16": 4.0 * H * dh * B * T * T}),
+        "K9": k9_work(tk_cross),
+        "K9-self": k9_work(tk_self),
+    }
+    shapes = {"K5": f"B={B}, T={T}, d={d} -> 3 x {d}",
+              "K3c": f"B={B}, T={T}, d={d}, mlp {w.mlp_dim}",
+              "K2h-out": f"B={B}, T={T}, d={d} -> {d}, + residual",
+              "K6-whisper": f"B={B}, T={T}, {H} x {dh}",
+              "K9": f"B={B}, {H} x {dh}, Tq=1, Tk={tk_cross} (cross, lengths {T})",
+              "K9-self": f"B={B}, {H} x {dh}, Tq=1, Tk={tk_self} "
+                         f"(self, lengths 1-{WHISPER_MAX_LEN})"}
+    rec = {}
+    with torch.inference_mode():
+        for key, (kern, plain) in pairs.items():
+            p1, k1, k2, p2 = cuda_ms(plain, 3), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain, 3)
+            bound_ms, bound_by = bound(*work[key])
+            rec[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library.get(key)}
+            emit({"phase": "timing", "kernel": key, "shape": shapes[key], **rec[key],
+                  "turns_ms": [p1, k1, k2, p2]})
+        # no single library call is K2h-out's function; for scale, cuBLAS's
+        # product with the residual as its C operand (no bias, one rounding)
+        x2, a2, wo2 = out_args[0].view(B * T, d), out_args[1].view(B * T, d), out_args[2]
+        emit({"phase": "timing", "kernel": "K2h-out", "shape": shapes["K2h-out"],
+              "cublas_addmm_ms": cuda_ms(lambda: torch.addmm(x2, a2, wo2))})
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -911,6 +1283,7 @@ def main() -> int:
     errs = phase_kernels()
     errs.update(phase_flash())
     errs.update(phase_wf())
+    errs.update(phase_whisper_kernels())
     by_path = {}
     by_path["serve"], bundle = phase_e2e(counters)
     with tempfile.TemporaryDirectory() as tmp:
@@ -919,6 +1292,9 @@ def main() -> int:
         by_path["adapted_serve"], adapted = phase_adapted(counters, final)
         rec = phase_timing(bundle, adapted)
         phase_train_rate(ft_cfg)
+    del bundle, adapted
+    by_path["whisper_serve"], whisper = phase_whisper(counters)
+    rec.update(phase_whisper_timing(whisper))
     table = []
     for key, name, _, _, src, replaces in KERNELS:
         table.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

@@ -55,6 +55,17 @@ def sdpa_ms(q, k, v, kv_lengths, dout, iters: int = 10):
     return fwd, bwd
 
 
+def sdpa_decode_ms(qh, k, v, kv_lengths, iters: int = 10) -> float:
+    """-> ms of the library call at decode shapes: qh [B, H, Tq, dh] against
+    head-major k, v [B, H, Tk, dh] (K9's layout), keys at or past
+    kv_lengths[b] masked out by a boolean key mask."""
+    Tk = k.shape[2]
+    mask = (torch.arange(Tk, device=k.device)[None, :] < kv_lengths[:, None].long())
+    mask = mask[:, None, None, :]
+    with torch.no_grad():
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask), iters)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=16)

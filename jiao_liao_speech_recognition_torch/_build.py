@@ -32,6 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
+SMEM_LIMIT = 232448  # shared memory one block may opt into on the H100 (227 KB)
+
 P = ctypes.c_void_p  # device pointer or stream
 I = ctypes.c_int
 L = ctypes.c_longlong  # element strides
@@ -43,11 +45,13 @@ SIGNATURES = {
     "jl_log_mel": [P, P, P, P, I, I, I, I, I, I, I, F, P],
     "jl_ln_qkv": [P, P, P, P, P, P, I, I, I, F, P],
     "jl_attention_out": [P, P, P, P, P, P, I, I, I, I, P],
+    "jl_out_proj_residual": [P, P, P, P, P, I, I, P],
     "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_head_argmax": [P, P, P, P, I, I, I, I, P],
     "jl_flash_fwd": [P, L, I, P, L, I, P, L, I, P, P, P, I, I, I, I, I, I, F, P],
     "jl_flash_bwd": [P, L, I, P, L, I, P, L, I, P, P, P, P, P, P, P, P,
                      I, I, I, I, I, I, F, P],
+    "jl_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
 }
 
 
@@ -129,6 +133,11 @@ def launch(name: str, *args) -> None:
     err = getattr(_library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def align128(n: int) -> int:
+    """csrc/common.cuh's align128: shared-memory carve-outs start 128-aligned."""
+    return -(-n // 128) * 128
 
 
 def check_cuda(name: str, t, dtype, ndim: int) -> None:

@@ -1,5 +1,6 @@
 """Public API of the PyTorch port: ``load`` / ``featurize`` / ``transcribe``
-/ ``fine_tune`` (the CTC slices of the JAX package's ``api.py``)."""
+/ ``fine_tune`` (the CTC and Whisper slices of the JAX package's
+``api.py``)."""
 
 from __future__ import annotations
 
@@ -16,9 +17,12 @@ def load(
     config: Optional[Union[str, ExperimentConfig]] = None,
     device="cuda",
 ):
-    """Model bundle (config + model + tokenizer) on `device`: random init
-    from seed 0 without a checkpoint, else a directory with params.npz
-    (models/convert.py layout), config.yaml and vocab.json."""
+    """Model bundle (config + model + tokenizer) on `device` for the ctc or
+    whisper family (``config.model_family``): random init from seed 0
+    without a checkpoint, else a directory with params.npz
+    (models/convert.py layout), config.yaml and the tokenizer files
+    (vocab.json; merges.txt too for a Whisper BPE tokenizer, as
+    models/whisper_import.import_hf_checkpoint writes them)."""
     from .models.bundle import ModelBundle
 
     return ModelBundle.load(checkpoint=checkpoint, config=config, device=device)
@@ -56,8 +60,9 @@ def transcribe(
     decode_cfg=None,
     timestamps: bool = False,
 ):
-    """Audio -> one greedy transcript per input; with ``timestamps=True``,
-    one ``[{"token", "start", "end"}, ...]`` list per input instead."""
+    """Audio -> one greedy transcript per input (CTC greedy, or Whisper AR
+    greedy); with ``timestamps=True``, one ``[{"token", "start", "end"},
+    ...]`` list per input instead (CTC family only for now)."""
     if timestamps:
         return bundle.transcribe_timed(audio, sample_rate=sample_rate)
     return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg)

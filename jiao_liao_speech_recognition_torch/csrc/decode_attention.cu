@@ -1,0 +1,238 @@
+// K9: decode-step attention over head-major bf16 KV caches.
+//
+// Replaces ops/decode_attention.py::grouped_decode_attention of the JAX
+// package (_grouped_kernel / _attend_head, the bf16 half; the int8 caches
+// of ops/quant.py::int8_decode_attention come with the int8 slice).
+//
+// Function, per (b, h): Tq <= 8 query rows q (bf16) against keys [0, Tk) of
+// k, v [B, H, Tk, dh] (bf16): s = (q . k) * 1/sqrt(dh) in f32; keys at or
+// past min(kv_lens[b], Tk) get finfo(f32).min, so a zero-length row is
+// uniform and finite; p = exp(s - max) / sum, rounded to bf16; out = p . V
+// accumulated in f32, written f32 [B, H, Tq, dh].
+//
+// What bounds it on the H100: device-memory bytes. Every decode step reads
+// the caches end to end (B=16, 20 heads of 64: 125.8 MB of cross K/V at
+// Tk=1536, a 37.6 us bound at 3.35 TB/s) for ~2 flops per byte.
+//
+// Design: one block of 8 warps per (b, h); K is read once (pass 1), V once
+// (pass 2), each key row of dh bf16 by dh/8 lanes with one 16-byte load
+// per lane, consecutive lanes on consecutive bytes and four rows in flight
+// per lane. Pass 1 writes the scores into shared memory ([TQ][Tk] f32);
+// the block then forms the row max, the row sum and the bf16 probabilities
+// there, which is the reference's rounding point (p normalised, then cast,
+// before P.V). Pass 2 accumulates p * v per lane in f32 and reduces over
+// lanes, then warps. Keys past a row's length have p = 0 exactly, so only
+// the valid prefix is read (all Tk keys when the length is 0: the uniform
+// average). Split-K, TMA and cp.async pipelining are later work.
+#include "common.cuh"
+
+#include <float.h>
+
+namespace {
+
+using namespace jl;
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;  // key rows in flight per lane
+
+__device__ inline void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// q [B*H, Tq, DH] bf16, k/v [B*H, Tk, DH] bf16, lens [B] i32 -> out [B*H, Tq, DH] f32
+template <int DH, int TQ>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ lens,
+                        float* __restrict__ out, int H, int Tq, int Tk, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int LPK = DH / 8;   // lanes per key row
+  constexpr int KPW = 32 / LPK; // key rows per warp and step
+  float* s = sm;                        // [TQ][Tk] scores, then probabilities
+  float* red = sm + TQ * Tk;            // [kWarps][TQ] max / sum partials
+  float* acc_s = red + kWarps * TQ;     // [kWarps][TQ][DH] P.V partials
+
+  const int bh = blockIdx.x, b = bh / H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane / LPK, part = lane % LPK;
+  const int len = min(lens[b], Tk);
+  const int n = len > 0 ? len : Tk;  // keys that can carry probability
+  const bf16* kb = k + (size_t)bh * Tk * DH;
+  const bf16* vb = v + (size_t)bh * Tk * DH;
+
+  // pass 1: scores of the valid prefix
+  float qf[TQ][8];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (t < Tq) u = *reinterpret_cast<const uint4*>(q + ((size_t)bh * Tq + t) * DH + part * 8);
+    unpack8(u, qf[t]);
+  }
+  float mx[TQ];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) mx[t] = -FLT_MAX;
+  if (len == 0) {
+    for (int i = threadIdx.x; i < TQ * Tk; i += kThreads) s[i] = -FLT_MAX;
+  } else {
+    constexpr int step = kWarps * KPW;
+    // the loop bound is uniform over the warp (the shuffles need all lanes)
+    for (int base = warp * KPW; base < n; base += step * kUnroll) {
+      const int k0 = base + sub;
+      uint4 raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int key = k0 + u * step;
+        raw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (key < n) raw[u] = *reinterpret_cast<const uint4*>(kb + (size_t)key * DH + part * 8);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int key = k0 + u * step;
+        float kf[8];
+        unpack8(raw[u], kf);
+#pragma unroll
+        for (int t = 0; t < TQ; ++t) {
+          float d = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) d += qf[t][j] * kf[j];
+#pragma unroll
+          for (int o = 1; o < LPK; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+          d *= scale;
+          if (key < n) {
+            mx[t] = fmaxf(mx[t], d);
+            if (part == 0) s[t * Tk + key] = d;
+          }
+        }
+      }
+    }
+  }
+  // row max over the block
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    float m = mx[t];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) red[warp * TQ + t] = m;
+  }
+  __syncthreads();
+  float m_row[TQ], l_row[TQ];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    float m = red[t];
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w * TQ + t]);
+    m_row[t] = m;
+  }
+  __syncthreads();  // every thread has read red
+  // row sum of exp(s - max)
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    float l = 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) l += expf(s[t * Tk + i] - m_row[t]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) red[warp * TQ + t] = l;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    float l = 0.f;
+    for (int w = 0; w < kWarps; ++w) l += red[w * TQ + t];
+    l_row[t] = l;
+  }
+  // normalised probabilities, rounded to bf16, in place
+#pragma unroll
+  for (int t = 0; t < TQ; ++t)
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      s[t * Tk + i] = round_bf16(expf(s[t * Tk + i] - m_row[t]) / l_row[t]);
+  __syncthreads();
+
+  // pass 2: P.V over the same keys
+  float acc[TQ][8];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
+  {
+    constexpr int step = kWarps * KPW;
+    // the loop bound is uniform over the warp (the shuffles need all lanes)
+    for (int base = warp * KPW; base < n; base += step * kUnroll) {
+      const int k0 = base + sub;
+      uint4 raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int key = k0 + u * step;
+        raw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (key < n) raw[u] = *reinterpret_cast<const uint4*>(vb + (size_t)key * DH + part * 8);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int key = k0 + u * step;
+        if (key < n) {
+          float vf[8];
+          unpack8(raw[u], vf);
+#pragma unroll
+          for (int t = 0; t < TQ; ++t) {
+            const float p = s[t * Tk + key];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[t][j] += p * vf[j];
+          }
+        }
+      }
+    }
+  }
+  // lanes holding the same 8 dims (same `part`) -> one sum per warp
+#pragma unroll
+  for (int t = 0; t < TQ; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float a = acc[t][j];
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (sub == 0) acc_s[(warp * TQ + t) * DH + part * 8 + j] = a;
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < Tq * DH; i += kThreads) {
+    const int t = i / DH, d = i % DH;
+    float a = 0.f;
+    for (int w = 0; w < kWarps; ++w) a += acc_s[(w * TQ + t) * DH + d];
+    out[((size_t)bh * Tq + t) * DH + d] = a;
+  }
+}
+
+template <int DH, int TQ>
+int launch(const bf16* q, const bf16* k, const bf16* v, const int* lens, float* out, int B,
+           int H, int Tq, int Tk, float scale, cudaStream_t stream) {
+  const size_t smem = ((size_t)TQ * Tk + kWarps * TQ + (size_t)kWarps * TQ * DH) * 4;
+  cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<DH, TQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_attention_kernel<DH, TQ><<<B * H, kThreads, smem, stream>>>(q, k, v, lens, out, H, Tq,
+                                                                     Tk, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_tq(const bf16* q, const bf16* k, const bf16* v, const int* lens, float* out, int B,
+              int H, int Tq, int Tk, float scale, cudaStream_t stream) {
+  if (Tq == 1) return launch<DH, 1>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
+  if (Tq == 2) return launch<DH, 2>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
+  if (Tq <= 4) return launch<DH, 4>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
+  if (Tq <= 8) return launch<DH, 8>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int jl_decode_attention(const bf16* q, const bf16* k, const bf16* v,
+                                   const int* lens, float* out, int B, int H, int Tq, int Tk,
+                                   int dh, float scale, cudaStream_t stream) {
+  if (dh == 64) return launch_tq<64>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
+  if (dh == 128) return launch_tq<128>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}

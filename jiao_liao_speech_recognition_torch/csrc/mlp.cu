@@ -16,6 +16,16 @@
 // LN(x) nor the hidden state reaches device memory. The end rounds to bf16,
 // adds b2, then the residual, the order of the JAX kernel. GELU is the tanh
 // form or the Abramowitz-Stegun 7.1.26 erf rational of _erf_gelu_f32.
+//
+// d = 1280 (Whisper large-v3, mlp 5120, erf: the TPU's K3c,
+// ops/fused_mlp.py::_fused_ln_mlp_csplit_impl): the f32 accumulator tile
+// [32][D] no longer fits beside the LN tile (272 KB at D = 1280), so the
+// accumulators leave their registers through the LN tile's shared memory,
+// which is free after the last chunk, 16 rows at a time: every width now
+// needs 64 D + 26 KB of shared memory (108 KB at 1280). The add order stays
+// bf16(acc) + b2, then + x (the module path's); K3c adds x first, a one-ulp
+// difference the 2-ulp bar absorbs. At 1280 each thread holds 20
+// accumulator fragments (160 f32 registers).
 #include "common.cuh"
 
 namespace {
@@ -55,12 +65,13 @@ ln_mlp_residual_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
                        int erf_form, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int lda = D + kPad, ldh = HC + kPad, ldc = HC + 4, ldy = D + 4;
+  static_assert(16 * ldy * 4 <= BM * lda * 2, "16 f32 rows must fit the LN tile");
   constexpr int NY = D / 128;  // fc2 column fragments per warp (8 warps x NY x 16 = D)
   size_t off = 0;
   bf16* a = reinterpret_cast<bf16*>(smem + off); off += align128((size_t)BM * lda * 2);
   bf16* hs = reinterpret_cast<bf16*>(smem + off); off += align128((size_t)BM * ldh * 2);
-  float* c = reinterpret_cast<float*>(smem + off); off += align128((size_t)BM * ldc * 4);
-  float* ys = reinterpret_cast<float*>(smem + off);
+  float* c = reinterpret_cast<float*>(smem + off);
+  float* ys = reinterpret_cast<float*>(a);  // [16][ldy] f32, after the last chunk
 
   const int row0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32;
@@ -120,20 +131,22 @@ ln_mlp_residual_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
     __syncthreads();  // hs and c are rewritten by the next chunk
   }
 
+  // epilogue, 16 rows at a time through the LN tile (every chunk is done)
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
     for (int j = 0; j < NY; ++j)
-      wmma::store_matrix_sync(ys + (size_t)(i * 16) * ldy + (warp * NY + j) * 16, y[i][j], ldy,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * D; i += kThreads) {
-    const int r = i / D, col = i % D;
-    if (row0 + r < M) {
-      const size_t at = (size_t)(row0 + r) * D + col;
-      const float yv = round_bf16(round_bf16(ys[r * ldy + col]) + __bfloat162float(b2[col]));
-      out[at] = __float2bfloat16(__bfloat162float(x[at]) + yv);
+      wmma::store_matrix_sync(ys + (warp * NY + j) * 16, y[i][j], ldy, wmma::mem_row_major);
+    __syncthreads();
+    for (int e = threadIdx.x; e < 16 * D; e += kThreads) {
+      const int r = e / D, col = e % D, row = row0 + i * 16 + r;
+      if (row < M) {
+        const size_t at = (size_t)row * D + col;
+        const float yv = round_bf16(round_bf16(ys[r * ldy + col]) + __bfloat162float(b2[col]));
+        out[at] = __float2bfloat16(__bfloat162float(x[at]) + yv);
+      }
     }
+    __syncthreads();
   }
 }
 
@@ -142,8 +155,7 @@ int launch(const bf16* x, const float* g, const float* bl, const bf16* w1, const
            const bf16* w2, const bf16* b2, bf16* out, int M, int mlp, int erf_form, float eps,
            cudaStream_t stream) {
   const size_t smem = align128((size_t)BM * (D + kPad) * 2) +
-                      align128((size_t)BM * (HC + kPad) * 2) +
-                      align128((size_t)BM * (HC + 4) * 4) + (size_t)BM * (D + 4) * 4;
+                      align128((size_t)BM * (HC + kPad) * 2) + (size_t)BM * (HC + 4) * 4;
   cudaError_t err = cudaFuncSetAttribute(ln_mlp_residual_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -163,6 +175,7 @@ extern "C" int jl_ln_mlp_residual(const bf16* x, const float* g, const float* bl
     case 512: return launch<512>(x, g, bl, w1, b1, w2, b2, out, M, mlp, erf_form, eps, stream);
     case 768: return launch<768>(x, g, bl, w1, b1, w2, b2, out, M, mlp, erf_form, eps, stream);
     case 1024: return launch<1024>(x, g, bl, w1, b1, w2, b2, out, M, mlp, erf_form, eps, stream);
+    case 1280: return launch<1280>(x, g, bl, w1, b1, w2, b2, out, M, mlp, erf_form, eps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

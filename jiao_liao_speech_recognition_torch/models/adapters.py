@@ -7,7 +7,7 @@ MLP sublayers. Every adapter parameter lives under a module named
 ``adapter_bn/...``), so ``param_is_adapter`` derives the trainable mask
 from names alone and ``models/convert.py`` stays a rename.
 
-The Att adapter's KV-cached decode comes with the Whisper slice.
+The Att adapter's KV-cached decode comes with a later Whisper slice.
 """
 
 from __future__ import annotations

@@ -1,10 +1,17 @@
 """ModelBundle: config + model + tokenizer, the object behind ``api.load()``
-(the ctc branch of the JAX package's ``models/bundle.py``).
+(the ctc and whisper branches of the JAX package's ``models/bundle.py``).
 
-Greedy transcription: 30 s chunks on the host -> log-mel (K1) -> encoder
+CTC greedy transcription: 30 s chunks on the host -> log-mel (K1) -> encoder
 (K2, K3 per block; K7 for a WF-adapted model; K6 in an Att adapter) ->
-head + argmax (K4) -> collapse on the device -> text. ``save`` writes the
-directory ``load`` reads: params.npz (``p_a/b/c``), config.yaml, vocab.json.
+head + argmax (K4) -> collapse on the device -> text.
+
+Whisper greedy transcription: 30 s chunks -> log-mel (K1) -> encoder (K5,
+K6, the out-projection + residual kernel, K3 per block at d=1280) -> cross K/V cached
+once -> AR decode (K9 twice per block per step) -> tied bf16 logits ->
+argmax -> text (byte-level BPE from merges.txt when the checkpoint has it).
+
+``save`` writes the directory ``load`` reads: params.npz (``p_a/b/c``),
+config.yaml, vocab.json.
 """
 
 from __future__ import annotations
@@ -20,8 +27,17 @@ from ..data.tokenizer import CharTokenizer
 from ..decode.ctc import ctc_collapse_with_times, ctc_greedy_collapse, ids_to_texts
 from ..frontend import audio_io, features
 from ..utils.config import DecodeConfig, ExperimentConfig, load_yaml, save_yaml
-from .convert import params_to_state_dict, read_npz_params, state_dict_to_params, write_npz_params
+from .convert import (
+    params_to_state_dict,
+    read_npz_params,
+    state_dict_to_params,
+    whisper_params_to_state_dict,
+    whisper_state_dict_to_params,
+    write_npz_params,
+)
 from .ctc_model import CTCEncoderModel
+from .layers import cast_for_serving
+from .whisper import WhisperModel
 
 PARAMS_FILE = "params.npz"  # flat p_a/b/c layout (models/convert.py)
 
@@ -29,12 +45,12 @@ PARAMS_FILE = "params.npz"  # flat p_a/b/c layout (models/convert.py)
 @dataclass
 class ModelBundle:
     config: ExperimentConfig
-    model: CTCEncoderModel
-    tokenizer: CharTokenizer
+    model: Union[CTCEncoderModel, WhisperModel]
+    tokenizer: object  # CharTokenizer, or ByteLevelBPE for Whisper checkpoints
 
     @property
     def device(self) -> torch.device:
-        return self.model.ctc_head.kernel.device
+        return next(self.model.parameters()).device
 
     # ------------------------------------------------------------------ load
     @classmethod
@@ -45,9 +61,10 @@ class ModelBundle:
         device="cuda",
     ) -> "ModelBundle":
         """Random init (seed 0), or a checkpoint: a directory holding
-        params.npz (+ config.yaml, vocab.json when present) or an .npz file
-        with an explicit config. Without a vocab.json the tokenizer knows
-        only blank and unk."""
+        params.npz (+ config.yaml, merges.txt + vocab.json for a BPE
+        tokenizer, or a char vocab.json) or an .npz file with an explicit
+        config. Without those files the tokenizer knows only blank and
+        unk. A Whisper model is made and initialised on `device`."""
         if isinstance(config, str):
             config = load_yaml(config)
         ckpt = Path(checkpoint) if checkpoint is not None else None
@@ -57,28 +74,48 @@ class ModelBundle:
             if ckpt is not None:
                 raise ValueError("checkpoint without config.yaml needs an explicit config")
             config = ExperimentConfig()
-        if config.model_family != "ctc":
+        if config.model_family == "whisper":
+            if config.frontend.num_mels != config.whisper.num_mels:
+                raise ValueError(f"frontend.num_mels {config.frontend.num_mels} != "
+                                 f"whisper.num_mels {config.whisper.num_mels}")
+            model = WhisperModel(config.whisper, device=device)
+            to_state = whisper_params_to_state_dict
+        elif config.model_family == "ctc":
+            model = CTCEncoderModel(config.ctc_model, device="cpu")
+            to_state = params_to_state_dict
+        else:
             raise NotImplementedError(
-                f"model family {config.model_family!r}: the port has the ctc family; "
-                "whisper and joint come with later slices"
+                f"model family {config.model_family!r}: the port has the ctc and whisper "
+                "families; joint comes with a later slice"
             )
-        model = CTCEncoderModel(config.ctc_model, device="cpu")
         tokenizer = CharTokenizer([])
         if ckpt is not None:
             npz = ckpt / PARAMS_FILE if ckpt.is_dir() else ckpt
-            model.load_state_dict(params_to_state_dict(read_npz_params(npz)))
-            if ckpt.is_dir() and (ckpt / "vocab.json").exists():
+            model.load_state_dict(to_state(read_npz_params(npz)))
+            if ckpt.is_dir() and (ckpt / "merges.txt").exists():
+                from ..data.bpe import ByteLevelBPE
+
+                tokenizer = ByteLevelBPE.from_hf_dir(ckpt)
+            elif ckpt.is_dir() and (ckpt / "vocab.json").exists():
                 tokenizer = CharTokenizer.load(ckpt / "vocab.json")
         model.to(device).eval()
+        if config.model_family == "whisper" and config.whisper.dtype == "bfloat16":
+            cast_for_serving(model, torch.bfloat16)
         return cls(config, model, tokenizer)
+
+    @property
+    def is_whisper(self) -> bool:
+        return self.config.model_family == "whisper"
 
     def save(self, path: str) -> None:
         """Write params.npz, config.yaml and vocab.json into `path`."""
         p = Path(path)
         p.mkdir(parents=True, exist_ok=True)
         save_yaml(self.config, str(p / "config.yaml"))
-        self.tokenizer.save(p / "vocab.json")
-        write_npz_params(state_dict_to_params(self.model.state_dict()), p / PARAMS_FILE)
+        if hasattr(self.tokenizer, "save"):
+            self.tokenizer.save(p / "vocab.json")
+        to_params = whisper_state_dict_to_params if self.is_whisper else state_dict_to_params
+        write_npz_params(to_params(self.model.state_dict()), p / PARAMS_FILE)
 
     # ------------------------------------------------------------- inference
     def transcribe(
@@ -90,6 +127,11 @@ class ModelBundle:
         """Audio -> text (greedy). Recordings longer than chunk_seconds are
         split into consecutive chunks, decoded in one batch and re-joined."""
         decode_cfg = decode_cfg or self.config.decode
+        if self.is_whisper:
+            wavs, alens, owners = self._prepare_audio_chunked(audio, sample_rate)
+            ids, lens = self._whisper_ids(wavs, decode_cfg)
+            texts = ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(), self.tokenizer)
+            return ["".join(texts[i] for i in group) for group in owners]
         if decode_cfg.strategy not in ("greedy", "ctc_greedy"):
             raise NotImplementedError(
                 f"decode strategy {decode_cfg.strategy!r}: beam search comes with "
@@ -109,6 +151,10 @@ class ModelBundle:
         """Greedy transcription with per-token times: per utterance a list
         of {"token", "start", "end"} (seconds) whose tokens concatenate to
         transcribe()'s text. Chunk k's times are offset by k * chunk_seconds."""
+        if self.is_whisper:
+            raise NotImplementedError(
+                "Whisper timestamps (decode/align.py cross-attention DTW) come with the "
+                "Whisper beam and alignment slice")
         fe = self.config.frontend
         frame_s = fe.hop_length * self.config.ctc_model.subsample_factor / fe.sample_rate
         blank = self.config.decode.ctc_blank_id
@@ -128,6 +174,15 @@ class ModelBundle:
                     })
             out.append(utt)
         return out
+
+    @torch.inference_mode()
+    def _whisper_ids(self, wavs: np.ndarray, decode_cfg: DecodeConfig):
+        """Padded chunks [N, samples] -> generated ids [N, L] and lengths [N]
+        (decode/whisper_generate.py), on the model's device."""
+        from ..decode.whisper_generate import generate
+
+        wav = torch.from_numpy(wavs).to(self.device)
+        return generate(self, features.featurize_batch(wav, self.config.frontend), decode_cfg)
 
     @torch.inference_mode()
     def _frame_ids(self, wavs: np.ndarray, alens: np.ndarray):

@@ -1,5 +1,6 @@
-"""Weight bridge between JAX/flax CTC parameters and the port's
-``state_dict``, both ways.
+"""Weight bridge between JAX/flax CTC and Whisper parameters and the port's
+``state_dict``, both ways (Whisper: ``whisper_params_to_state_dict`` and
+``whisper_state_dict_to_params``, at the end of this file).
 
 Two inputs are read:
 
@@ -126,3 +127,67 @@ def adapter_arrays(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
     flat = flatten_params(state_dict_to_params(state))
     return {"/".join(k): v for k, v in flat.items() if param_is_adapter(k)}
+
+
+# --- Whisper -----------------------------------------------------------------
+# flax tree {encoder: {conv1, conv2, block_i, ln_post}, decoder: {embed_tokens,
+# embed_positions, block_i (+ cross_attn, cross_attn_ln), ln}}: every Dense
+# under its WFDense's "dense" level; Conv kernels [k, in, out].
+
+WHISPER_CONVS = ("conv1", "conv2")
+
+
+def whisper_torch_key(path: Tuple[str, ...]) -> str:
+    parts = []
+    for p in path:
+        if p == "dense":
+            continue
+        parts += ["blocks", p[len("block_"):]] if p.startswith("block_") else [p]
+    if parts[-2] in WHISPER_CONVS and parts[-1] == "kernel":
+        parts[-1] = "weight"
+    return ".".join(parts)
+
+
+def whisper_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX WhisperModel param tree -> state_dict of f32 tensors for the
+    port's WhisperModel."""
+    state = {}
+    for path, arr in flatten_params(params).items():
+        arr = np.array(arr, dtype=np.float32)
+        if path[-2] in WHISPER_CONVS and path[-1] == "kernel":
+            arr = arr.transpose(2, 1, 0)  # [k, in, out] -> [out, in, k]
+        state[whisper_torch_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def whisper_flax_path(key: str) -> Tuple[str, ...]:
+    parts = key.split(".")
+    out = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "blocks":
+            out.append(f"block_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    if out[-2] in WF_DENSE and out[-1] in ("kernel", "bias"):
+        out.insert(len(out) - 1, "dense")
+    if out[-2] in WHISPER_CONVS and out[-1] == "weight":
+        out[-1] = "kernel"
+    return tuple(out)
+
+
+def whisper_state_dict_to_params(state: Mapping[str, torch.Tensor]) -> Dict:
+    """Port WhisperModel state_dict -> nested flax param dict (f32 numpy)."""
+    params: Dict = {}
+    for key, t in state.items():
+        arr = t.detach().cpu().float().numpy()
+        path = whisper_flax_path(key)
+        if path[-2] in WHISPER_CONVS and path[-1] == "kernel":
+            arr = arr.transpose(2, 1, 0)
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return params

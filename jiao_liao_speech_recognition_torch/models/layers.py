@@ -1,5 +1,6 @@
-"""Encoder building blocks, the PyTorch twin of the JAX package's
-``models/layers.py`` (encoder subset: no cross-attention or KV cache).
+"""Transformer building blocks, the PyTorch twin of the JAX package's
+``models/layers.py``: attention with cross-attention inputs and decode
+caches (packed [B, T, d] or head-major [B, H, T, dh]), MLP, pre-LN blocks.
 
 Parameters are f32 and named as in the flax tree (``kernel`` [in, out],
 ``bias``, LayerNorm ``scale``, WF inserts under ``adapter_wf``), so
@@ -12,7 +13,16 @@ gates' decisions, not their TPU conditions:
 * training, or anything under autograd: the module path (Dense layers,
   attention, GELU, dropout), whose attention takes flash (K6 forward, K8
   backward) in bf16 at Tq >= ``flash_train_min_q`` and the einsum
-  formulation otherwise.
+  formulation otherwise;
+* where K2's shared memory does not fit (d=1280), serving attention is K5,
+  K6 and the out-projection plus residual kernel, all three hand-written
+  (the TPU serves this shape with K2's head-group split); decoder blocks
+  (causal mask or cache) keep the module path for attention, with K9 over
+  head-major caches in a decode step.
+
+Serving copies (``cast_for_serving``) of the f32 weights in the compute
+dtype are kept while the weights stay unchanged and rebuilt at their next
+use when a weight changes or moves (``ServingCopy``).
 """
 
 from __future__ import annotations
@@ -27,20 +37,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import flash_attention as flash
+from ..ops.decode_attention import KERNEL_TK, MAX_TQ, grouped_decode_attention
 from ..ops.fused_attention import (
+    attention_sublayer_fits,
     attention_sublayer_plain,
     attention_sublayer_wf_plain,
     fused_attention_sublayer,
     fused_attention_sublayer_wf,
+    out_proj_residual,
 )
 from ..ops.fused_mlp import (
     fused_ln_mlp_residual,
+    fused_ln_qkv,
     fused_ln_mlp_residual_wf,
     ln_mlp_residual_plain,
     ln_mlp_residual_wf_plain,
+    pack_qkv,
 )
 from ..ops.numerics import full_f32, layer_norm
 from ..utils.config import AdapterConfig
+
+FUSED_MIN_T = 64  # decoder blocks fuse their MLP from this many query rows
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> torch.Tensor:
@@ -72,6 +89,29 @@ def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return valid[:, None, None, :]
 
 
+class ServingCopy:
+    """What `build` makes from some parameters (their serving-dtype copy),
+    kept while those parameters stay as they are: an in-place change
+    (load_state_dict, an optimizer step, an edit) moves a tensor's version,
+    and a move to another device or a swap of ``.data`` its storage, so
+    either rebuilds the copy at its next use."""
+
+    def __init__(self):
+        self.key = None
+        self.value = None
+
+    def get(self, dtype: torch.dtype, tensors, build):
+        """-> build()'s result for `dtype` and these tensors as they are now."""
+        key = (dtype, *((t.device, t.data_ptr(), 0 if t.is_inference() else t._version)
+                        for t in tensors if t is not None))
+        if key != self.key:
+            self.value = None  # free the stale copy first
+            with torch.no_grad():
+                self.value = build()
+            self.key = key
+        return self.value
+
+
 class Dense(nn.Module):
     """flax nn.Dense parameters (kernel [in, out], optional bias) and its
     module-path forward: compute-dtype operands, the product rounded to the
@@ -86,11 +126,27 @@ class Dense(nn.Module):
             from .adapters import WFAdapter
 
             self.adapter_wf = WFAdapter(wf, d_in, d_out, gen)
+        self.serve_dtype = None  # set by cast_for_serving
+        self._serve = ServingCopy()
+
+    def cast_for_serving(self, dtype: torch.dtype) -> None:
+        self.serve_dtype = dtype
+        with torch.no_grad():
+            self.weights(dtype)
+
+    def weights(self, dtype: torch.dtype):
+        """(kernel, bias): the serving copies when serving is in `dtype` and
+        autograd is off, else the f32 parameters."""
+        if self.serve_dtype != dtype or torch.is_grad_enabled():
+            return self.kernel, self.bias
+        return self._serve.get(dtype, (self.kernel, self.bias), lambda: (
+            self.kernel.to(dtype), None if self.bias is None else self.bias.to(dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel.to(x.dtype))
-        if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
+        kernel, bias = self.weights(x.dtype)
+        y = torch.matmul(x, kernel.to(x.dtype))
+        if bias is not None:
+            y = y + bias.to(x.dtype)
         if hasattr(self, "adapter_wf"):
             y = self.adapter_wf(x, y)
         return y
@@ -158,9 +214,39 @@ def dot_product_attention(q, k, v, mask=None, use_flash: bool = False, kv_length
         return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dt)
 
 
+def update_cache_rows(cache: torch.Tensor, new: torch.Tensor, index, time_axis: int):
+    """Write one decode step's K/V rows into `cache` at position `index`,
+    in place (the JAX function returns an updated copy; here the caches
+    are large and each step owns them), and return the cache. `index` an
+    int (every row at one position) or a [B] tensor (per-row positions);
+    packed [B, T, d] caches take time_axis=1, head-major [B, H, T, dh]
+    time_axis=2. `new`'s time axis has length 1."""
+    new = new.to(cache.dtype)
+    if isinstance(index, int) or (torch.is_tensor(index) and index.dim() == 0):
+        cache.narrow(time_axis, int(index), 1).copy_(new)
+        return cache
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    index = index.to(cache.device, torch.int64)
+    if time_axis == 1:
+        cache[rows, index] = new[:, 0]
+    elif time_axis == 2:
+        heads = torch.arange(cache.shape[1], device=cache.device)
+        cache[rows[:, None], heads[None, :], index[:, None]] = new[:, :, 0]
+    else:
+        raise ValueError(f"unsupported cache time_axis {time_axis}")
+    return cache
+
+
 class MultiHeadAttention(nn.Module):
-    """Self-attention, Whisper bias convention (k unbiased); WF inserts on
-    all four projections when the adapter kind is "wf"."""
+    """Self- or cross-attention, Whisper bias convention (k unbiased); WF
+    inserts on all four projections when the adapter kind is "wf".
+
+    Decode caches (the JAX module's two layouts): a head-major
+    [B, H, T, dh] cache takes K9 for bf16 caches with kernels=True and
+    threaded lengths, else the einsum formulation; a packed [B, T, d]
+    cache takes the einsum path. Cross-attention (``kv`` given) reads the
+    cache as it is; self-attention writes this step's rows at
+    ``cache_index`` first."""
 
     def __init__(self, d_model: int, num_heads: int, gen: torch.Generator, dropout: float = 0.0,
                  adapter: Optional[AdapterConfig] = None, use_flash: bool = True,
@@ -177,17 +263,96 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = Dense(d_model, d_model, gen, wf=wf)
         self.out_proj = Dense(d_model, d_model, gen, wf=wf)
         self.dropout = Dropout(dropout) if dropout > 0 else None
+        self._qkv = ServingCopy()
 
-    def forward(self, x: torch.Tensor, kv_lengths: torch.Tensor, kernels: bool = True):
-        """Module path: x [B, T, d] (already layer-normed)."""
-        B, T, d = x.shape
+    def qkv_weights(self, dtype: torch.dtype):
+        """K5's packed operands ([d, 3D] kernel, [3D] bias; ops/fused_mlp.pack_qkv)
+        in `dtype`, kept between calls like the Dense serving copies."""
+        q, k, v = self.q_proj, self.k_proj, self.v_proj
+        return self._qkv.get(dtype, (q.kernel, q.bias, k.kernel, v.kernel, v.bias),
+                             lambda: pack_qkv(q.kernel, q.bias, k.kernel, v.kernel, v.bias, dtype))
+
+    def forward(self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None,
+                kernels: bool = True, kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, kv_cache: Optional[dict] = None,
+                cache_index=None, return_kv: bool = False):
+        """Module path: x [B, Tq, d] (already layer-normed); kv [B, Tk, d]
+        for cross-attention; mask broadcastable to [B, H, Tq, Tk] (True =
+        attend); kv_lengths [B] valid keys, the channel the kernels read.
+        -> out, (out, new_cache) with a cache, or {"k", "v"} with return_kv."""
+        B, Tq, d = x.shape
         H = self.num_heads
-        q, k, v = (p(x).reshape(B, T, H, d // H) for p in (self.q_proj, self.k_proj, self.v_proj))
-        use_flash = self.use_flash and (not self.training or T >= self.flash_train_min_q)
-        out = dot_product_attention(q, k, v, kv_lengths=kv_lengths, use_flash=use_flash,
-                                    kernels=kernels)
-        out = self.out_proj(out.reshape(B, T, d))
-        return self.dropout(out) if self.dropout is not None else out
+        dh = d // H
+        kv_in = x if kv is None else kv
+        if return_kv:  # cache precompute: the K/V projections of kv_in only
+            return {"k": self.k_proj(kv_in), "v": self.v_proj(kv_in)}
+        if kv_cache is not None and kv_cache["k"].dim() == 4:
+            out, new_cache = self._head_major(x, kv, mask, kv_cache, cache_index, kv_lengths,
+                                              kernels)
+        else:
+            q = self.q_proj(x)
+            new_cache = None
+            if kv_cache is not None and kv is not None:
+                k, v = kv_cache["k"], kv_cache["v"]
+                new_cache = kv_cache
+            else:
+                k, v = self.k_proj(kv_in), self.v_proj(kv_in)
+                if kv_cache is not None:
+                    k = update_cache_rows(kv_cache["k"], k, cache_index, 1)
+                    v = update_cache_rows(kv_cache["v"], v, cache_index, 1)
+                    new_cache = {"k": k, "v": v}
+            Tk = k.shape[1]
+            if kv_lengths is not None and mask is not None and mask.shape[-2] != 1:
+                kv_lengths = None  # a multi-row (causal) mask carries what lengths cannot
+            use_flash = self.use_flash and (not self.training or Tq >= self.flash_train_min_q)
+            out = dot_product_attention(
+                q.reshape(B, Tq, H, dh), k.reshape(B, Tk, H, dh), v.reshape(B, Tk, H, dh),
+                mask, use_flash=use_flash, kv_lengths=kv_lengths, kernels=kernels,
+            ).reshape(B, Tq, d)
+        out = self.out_proj(out)
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return out if kv_cache is None else (out, new_cache)
+
+    def _head_major(self, x, kv, mask, kv_cache, cache_index, kv_lengths, kernels):
+        """Decode step over [B, H, T, dh] caches -> ([B, Tq, d], new cache)."""
+        B, Tq, d = x.shape
+        H = self.num_heads
+        dh = d // H
+        qh = self.q_proj(x).reshape(B, Tq, H, dh).transpose(1, 2)
+        if kv is not None:  # cross-attention over the precomputed encoder K/V
+            k4, v4 = kv_cache["k"], kv_cache["v"]
+            new_cache = kv_cache
+        else:
+            kh = self.k_proj(x).reshape(B, Tq, H, dh).transpose(1, 2)
+            vh = self.v_proj(x).reshape(B, Tq, H, dh).transpose(1, 2)
+            k4 = update_cache_rows(kv_cache["k"], kh, cache_index, 2)
+            v4 = update_cache_rows(kv_cache["v"], vh, cache_index, 2)
+            new_cache = {"k": k4, "v": v4}
+        Tk = k4.shape[2]
+        # lengths are threaded, never inferred from a mask (the JAX rule)
+        if kv_lengths is not None:
+            kv_lens = torch.broadcast_to(torch.as_tensor(kv_lengths, device=x.device), (B,))
+        elif mask is None:
+            kv_lens = torch.full((B,), min(kv.shape[1], Tk) if kv is not None else Tk,
+                                 dtype=torch.int32, device=x.device)
+        else:
+            kv_lens = None
+        if (kv_lens is not None and kernels and Tq <= MAX_TQ and Tk % KERNEL_TK == 0
+                and k4.dtype == torch.bfloat16):
+            o = grouped_decode_attention(qh, k4, v4, kv_lens).to(x.dtype)
+        else:
+            if kv_lens is not None:
+                kmask = (torch.arange(Tk, device=x.device)[None, :]
+                         < kv_lens.to(torch.int64)[:, None])[:, None, None, :]
+            else:  # a general mask, False-padded out to the cache horizon
+                kmask = F.pad(mask, (0, Tk - mask.shape[-1]), value=False)
+            with full_f32():
+                s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), k4.float()) * (1.0 / math.sqrt(dh))
+                s = torch.where(kmask, s, torch.finfo(torch.float32).min)
+                p = torch.softmax(s, dim=-1).to(x.dtype)
+                o = torch.einsum("bhqk,bhkd->bhqd", p.float(), v4.float()).to(x.dtype)
+        return o.transpose(1, 2).reshape(B, Tq, d), new_cache
 
     def wf_params(self):
         """(base, inserts) in the K7 wrappers' layout."""
@@ -225,12 +390,13 @@ class MLP(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + MHA(LN(x)), adapter slot, x + MLP(LN(x)), slot."""
+    """Pre-LN block: x + MHA(LN(x)), adapter slot, [x + cross-MHA(LN(x), enc)],
+    x + MLP(LN(x)), slot."""
 
     def __init__(
         self, d_model: int, num_heads: int, mlp_dim: int, gen: torch.Generator,
         gelu_form: str = "erf", dropout: float = 0.0, adapter: Optional[AdapterConfig] = None,
-        use_flash: bool = True, flash_train_min_q: int = 512,
+        use_flash: bool = True, flash_train_min_q: int = 512, cross_attention: bool = False,
     ):
         super().__init__()
         from .adapters import KINDS, AdapterSlot
@@ -239,9 +405,14 @@ class TransformerBlock(nn.Module):
         if ad.kind not in KINDS:
             raise ValueError(f"unknown adapter kind {ad.kind!r}")
         self.adapter = ad
+        self.cross_attention = cross_attention
         self.self_attn_ln = LayerNorm(d_model)
         self.self_attn = MultiHeadAttention(d_model, num_heads, gen, dropout, ad, use_flash,
                                             flash_train_min_q)
+        if cross_attention:
+            self.cross_attn_ln = LayerNorm(d_model)
+            self.cross_attn = MultiHeadAttention(d_model, num_heads, gen, dropout, ad, use_flash,
+                                                 flash_train_min_q)
         self.mlp_ln = LayerNorm(d_model)
         self.mlp = MLP(d_model, mlp_dim, gen, gelu_form, dropout, ad)
         slots = ad.kind in ("bottleneck", "att")
@@ -249,40 +420,78 @@ class TransformerBlock(nn.Module):
         self.post_mlp_slot = AdapterSlot(ad, d_model, gen) if slots and ad.after_mlp else None
 
     def forward(
-        self, x: torch.Tensor, kv_lengths: torch.Tensor, kernels: bool = True
-    ) -> torch.Tensor:
-        """x [B, T, d] in the compute dtype; kv_lengths [B] valid frames."""
-        if not self.training and not torch.is_grad_enabled():
+        self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None, kernels: bool = True,
+        mask: Optional[torch.Tensor] = None, enc: Optional[torch.Tensor] = None,
+        enc_mask: Optional[torch.Tensor] = None, self_cache: Optional[dict] = None,
+        cross_cache: Optional[dict] = None, cache_index=None,
+        enc_kv_lengths: Optional[torch.Tensor] = None,
+    ):
+        """x [B, T, d] in the compute dtype; kv_lengths [B] valid keys of the
+        self-attention (frames, or pos + 1 in a decode step); mask a
+        self-attention mask (the decoder's causal one); enc / enc_mask /
+        enc_kv_lengths the cross-attention's keys. -> x, or
+        (x, self_cache, cross_cache, None) when a cache is given (the JAX
+        block's 4-tuple; the last slot is the Att adapter's caches)."""
+        serve = not self.training and not torch.is_grad_enabled()
+        if serve and mask is None and self_cache is None:
             x = self._serve_attention(x, kv_lengths, kernels)
         else:
-            x = x + self.self_attn(self.self_attn_ln(x), kv_lengths, kernels)
+            r = self.self_attn(self.self_attn_ln(x), kv_lengths, kernels, mask=mask,
+                               kv_cache=self_cache, cache_index=cache_index)
+            if self_cache is not None:
+                r, self_cache = r
+            x = x + r
         if self.post_attn_slot is not None:
             x = self.post_attn_slot(x, kv_lengths, kernels)
-        if not self.training and not torch.is_grad_enabled():
+        if self.cross_attention:
+            r = self.cross_attn(self.cross_attn_ln(x), enc_kv_lengths, kernels, kv=enc,
+                                mask=enc_mask, kv_cache=cross_cache)
+            if cross_cache is not None:
+                r, cross_cache = r
+            x = x + r
+        # decode steps (a few query rows) keep the module path, as in the
+        # JAX block's fused-MLP gate (x.shape[1] >= 64)
+        if serve and (not self.cross_attention or x.shape[1] >= FUSED_MIN_T):
             x = self._serve_mlp(x, kernels)
         else:
             x = x + self.mlp(self.mlp_ln(x))
         if self.post_mlp_slot is not None:
             x = self.post_mlp_slot(x, kv_lengths, kernels)
+        if self_cache is not None or cross_cache is not None:
+            return x, self_cache, cross_cache, None
         return x
 
+    def precompute_cross(self, enc: torch.Tensor) -> dict:
+        """The cross-attention's K/V of an encoder output [B, T, d], once
+        per utterance: {"k", "v"} [B, T, d]."""
+        return self.cross_attn(enc, kv=enc, return_kv=True)
+
     def _serve_attention(self, x, kv_lengths, kernels: bool):
-        """One fused sublayer: K2 (K7 with WF inserts) for bf16 with
-        kernels=True, else the plain version."""
+        """Fused self-attention sublayer. bf16 with kernels=True: K2 (K7 with
+        WF inserts) where K2's shared memory fits; else K5, then K6, then
+        the out-projection plus residual kernel (the JAX block's long-context
+        route, with its XLA product a kernel here). Otherwise the plain
+        version of K2."""
         fused = kernels and x.dtype == torch.bfloat16
         sa, ln = self.self_attn, self.self_attn_ln
+        if kv_lengths is None:
+            kv_lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
         if self.adapter.kind == "wf":
             base, inserts = sa.wf_params()
             fn = fused_attention_sublayer_wf if fused else attention_sublayer_wf_plain
             return fn(x, ln.scale, ln.bias, base, inserts, sa.num_heads, ln.eps,
                       float(self.adapter.scale), kv_lengths)
+        wo, bo = sa.out_proj.weights(x.dtype)
+        if fused and not attention_sublayer_fits(x.shape[2], sa.num_heads):
+            q, k, v = fused_ln_qkv(x, ln.scale, ln.bias, *sa.qkv_weights(x.dtype), ln.eps)
+            attn = flash.flash_attention_packed(q, k, v, sa.num_heads, kv_lengths=kv_lengths)
+            return out_proj_residual(x, attn, wo, bo)
+        wq, bq = sa.q_proj.weights(x.dtype)
+        wk, _ = sa.k_proj.weights(x.dtype)
+        wv, bv = sa.v_proj.weights(x.dtype)
         fn = fused_attention_sublayer if fused else attention_sublayer_plain
-        return fn(
-            x, ln.scale, ln.bias,
-            sa.q_proj.kernel, sa.q_proj.bias, sa.k_proj.kernel,
-            sa.v_proj.kernel, sa.v_proj.bias, sa.out_proj.kernel, sa.out_proj.bias,
-            kv_lengths, sa.num_heads, ln.eps,
-        )
+        return fn(x, ln.scale, ln.bias, wq, bq, wk, wv, bv, wo, bo, kv_lengths, sa.num_heads,
+                  ln.eps)
 
     def _serve_mlp(self, x, kernels: bool):
         """One fused sublayer: K3 (K7 with WF inserts) or its plain version."""
@@ -294,5 +503,17 @@ class TransformerBlock(nn.Module):
                       _insert(m.fc1), _insert(m.fc2), ln.eps, m.gelu_form,
                       float(self.adapter.scale))
         fn = fused_ln_mlp_residual if fused else ln_mlp_residual_plain
-        return fn(x, ln.scale, ln.bias, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias,
+        return fn(x, ln.scale, ln.bias, *m.fc1.weights(x.dtype), *m.fc2.weights(x.dtype),
                   ln.eps, m.gelu_form)
+
+
+def cast_for_serving(model: nn.Module, dtype: torch.dtype) -> None:
+    """Serve from a `dtype` copy of every Dense kernel and bias (and of tied
+    embedding tables), made now and kept: without it each decode step casts
+    every frozen f32 weight again. flax's Dense(dtype=bf16) casts the same
+    way, so the numbers do not change. A copy is rebuilt at its next use
+    after its weight changes or moves; training and autograd ignore the
+    copies."""
+    for m in model.modules():
+        if hasattr(m, "cast_for_serving"):
+            m.cast_for_serving(dtype)

@@ -6,6 +6,10 @@
 variant; the design note is in the .cu file). ``attention_sublayer_plain``
 is the same function in plain PyTorch with the kernel's rounding points; the
 wrapper takes it only for tensors on the CPU.
+
+Where K2 does not fit (d = 1280, Whisper large-v3, which the TPU serves with
+the head-group-split kernel), the sublayer is K5 (``ops/fused_mlp.py``),
+the flash kernel and ``out_proj_residual``: three hand-written launches.
 """
 
 from __future__ import annotations
@@ -13,12 +17,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import LaunchCounter, check_cuda, launch, refuse_grad
+from .._build import SMEM_LIMIT, LaunchCounter, align128, check_cuda, launch, refuse_grad
+from .fused_mlp import pack_qkv
 from .numerics import dense, full_f32, layer_norm, matmul
 
 COUNTER = LaunchCounter("fused_attention_sublayer")
 HEAD_WIDTHS = (64, 128)  # the kernel's template instances
-MAX_D = 768  # shared memory holds the [64, D] bf16 head outputs of a tile
+
+
+def attention_out_smem(D: int, dh: int) -> int:
+    """Shared memory of one jl_attention_out block (csrc/attention.cu): q,
+    k, v tiles, f32 scores, bf16 probabilities, the [64, D] bf16 head
+    outputs of all heads and the f32 product tile."""
+    return (3 * align128(64 * (dh + 8) * 2) + align128(64 * 68 * 4) + align128(64 * 72 * 2)
+            + align128(64 * (D + 8) * 2) + 64 * 132 * 4)
+
+
+def attention_sublayer_fits(d: int, num_heads: int) -> bool:
+    """True when K2 takes this shape on the card: dh in HEAD_WIDTHS,
+    d % 128 == 0 and its shared memory within one block's limit (not at
+    d = 1280: 252,928 bytes)."""
+    dh = d // num_heads
+    return (dh * num_heads == d and dh in HEAD_WIDTHS and d % 128 == 0
+            and attention_out_smem(d, dh) <= SMEM_LIMIT)
 
 
 def attention_sublayer_plain(
@@ -55,8 +76,8 @@ def fused_attention_sublayer(
     x, g, bl, wq, bq, wk, wv, bv, wo, bo, kv_lengths, num_heads, eps=1e-5
 ):
     """K2 wrapper. CPU tensors take attention_sublayer_plain; a CUDA tensor
-    launches the kernel (x bf16 [B, T, d], d = D = num_heads * dh with
-    dh in HEAD_WIDTHS, d % 128 == 0, d <= MAX_D) or raises."""
+    launches the kernel (x bf16 [B, T, d], d = D = num_heads * dh and
+    attention_sublayer_fits) or raises."""
     if x.device.type == "cpu":
         return attention_sublayer_plain(
             x, g, bl, wq, bq, wk, wv, bv, wo, bo, kv_lengths, num_heads, eps
@@ -66,16 +87,13 @@ def fused_attention_sublayer(
     B, T, d = x.shape
     D = wq.shape[1]
     dh = D // num_heads
-    if D != d or dh * num_heads != D or dh not in HEAD_WIDTHS:
+    if D != d or not attention_sublayer_fits(d, num_heads):
         raise ValueError(f"unsupported attention shape d={d} D={D} heads={num_heads}")
-    if d % 128 or d > MAX_D:
-        raise ValueError(f"d_model {d}: the kernel takes multiples of 128 up to {MAX_D}")
     if kv_lengths.shape != (B,):
         raise ValueError(f"kv_lengths must be [B]={B}, got {tuple(kv_lengths.shape)}")
     dev = x.device
     bf = torch.bfloat16
-    w_qkv = torch.cat([wq, wk, wv], dim=1).to(dev, bf).contiguous()
-    b_qkv = torch.cat([bq, torch.zeros_like(bq), bv]).to(dev, bf).contiguous()
+    w_qkv, b_qkv = (t.to(dev) for t in pack_qkv(wq, bq, wk, wv, bv))
     g32 = g.to(dev, torch.float32).contiguous()
     bl32 = bl.to(dev, torch.float32).contiguous()
     wo_b = wo.to(dev, bf).contiguous()
@@ -92,6 +110,47 @@ def fused_attention_sublayer(
         wo_b.data_ptr(), bo_b.data_ptr(), out.data_ptr(), B, T, num_heads, dh,
     )
     COUNTER.launches += 1
+    return out
+
+
+# --- the out-projection + residual where K2 does not fit ----------------------
+
+OUT_COUNTER = LaunchCounter("out_proj_residual")
+
+
+def out_proj_smem(D: int) -> int:
+    """Shared memory of one jl_out_proj_residual block: the [64, D + 8] bf16
+    head-output tile and the f32 product tile (198,656 bytes at D = 1280)."""
+    return align128(64 * (D + 8) * 2) + 64 * 132 * 4
+
+
+def out_proj_residual_plain(x, attn, wo, bo):
+    """x + (rounded attn . wo + bo): the module path's order, and the JAX
+    block's long-context route (out-projection and residual after flash)."""
+    return x + dense(attn, wo, bo)
+
+
+def out_proj_residual(x, attn, wo, bo):
+    """Wrapper of jl_out_proj_residual (csrc/attention.cu): the part of
+    K2's second launch that follows the heads, for the K5 -> K6 route. CPU
+    tensors take out_proj_residual_plain; CUDA tensors (x and attn bf16
+    [B, T, D], D % 128 == 0) launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return out_proj_residual_plain(x, attn, wo, bo)
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_cuda("attn", attn, torch.bfloat16, 3)
+    refuse_grad("out_proj_residual", x, attn, wo, bo)
+    B, T, D = x.shape
+    if (attn.shape != x.shape or D % 128 or tuple(wo.shape) != (D, D)
+            or out_proj_smem(D) > SMEM_LIMIT):
+        raise ValueError(f"unsupported out-projection shape x {tuple(x.shape)} "
+                         f"attn {tuple(attn.shape)} wo {tuple(wo.shape)}")
+    dev, bf = x.device, torch.bfloat16
+    wo_b, bo_b = wo.to(dev, bf).contiguous(), bo.to(dev, bf).contiguous()
+    out = torch.empty_like(x)
+    launch("jl_out_proj_residual", attn.data_ptr(), x.data_ptr(), wo_b.data_ptr(),
+           bo_b.data_ptr(), out.data_ptr(), B * T, D)
+    OUT_COUNTER.launches += 1
     return out
 
 

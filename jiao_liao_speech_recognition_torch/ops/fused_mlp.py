@@ -1,10 +1,14 @@
-"""K3: the fused LN + MLP + residual sublayer y = x + fc2(GELU(fc1(LN(x)))).
+"""K3: the fused LN + MLP + residual sublayer y = x + fc2(GELU(fc1(LN(x)))),
+and K5: the fused LN + q/k/v projections.
 
 ``fused_ln_mlp_residual`` is the wrapper of the CUDA kernel in
 ``csrc/mlp.cu`` (which replaces the JAX package's
-``ops/fused_mlp.py::fused_ln_mlp_residual``; the design note is in the .cu
-file). ``ln_mlp_residual_plain`` is the same function in plain PyTorch with
-the kernel's rounding points; the wrapper takes it only for CPU tensors.
+``ops/fused_mlp.py::fused_ln_mlp_residual`` and, at d=1280, its chunked
+K3c; the design note is in the .cu file). ``fused_ln_qkv`` wraps the
+``jl_ln_qkv`` launch of ``csrc/attention.cu`` (the JAX package's
+``fused_ln_qkv``). ``ln_mlp_residual_plain`` and ``ln_qkv_plain`` are the
+same functions in plain PyTorch with the kernels' rounding points; the
+wrappers take them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -12,11 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import LaunchCounter, check_cuda, launch, refuse_grad
+from .._build import SMEM_LIMIT, LaunchCounter, align128, check_cuda, launch, refuse_grad
 from .numerics import dense, layer_norm
 
 COUNTER = LaunchCounter("fused_ln_mlp_residual")
-MODEL_WIDTHS = (256, 512, 768, 1024)  # the kernel's template instances
+# the d=1280 instance (the TPU's chunked K3c) counts its launches apart
+K3C_COUNTER = LaunchCounter("fused_ln_mlp_residual_d1280")
+MODEL_WIDTHS = (256, 512, 768, 1024, 1280)  # the kernel's template instances
 
 
 def gelu_f32(h: torch.Tensor, gelu_form: str) -> torch.Tensor:
@@ -71,7 +77,7 @@ def fused_ln_mlp_residual(x, g, bl, w1, b1, w2, b2, eps=1e-5, gelu_form="tanh"):
         w1b.data_ptr(), b1b.data_ptr(), w2b.data_ptr(), b2b.data_ptr(), out.data_ptr(),
         B * T, d, mlp, int(gelu_form == "erf"), float(eps),
     )
-    COUNTER.launches += 1
+    (K3C_COUNTER if d == 1280 else COUNTER).launches += 1
     return out
 
 
@@ -107,3 +113,62 @@ def fused_ln_mlp_residual_wf(x, g, bl, w1, b1, w2, b2, wf1, wf2, eps, gelu_form,
     )
     WF_COUNTER.launches += 1
     return out
+
+
+# --- K5: LN + q/k/v projections ----------------------------------------------
+
+QKV_COUNTER = LaunchCounter("fused_ln_qkv")
+
+
+def pack_qkv(wq, bq, wk, wv, bv, dtype=torch.bfloat16):
+    """-> ([d, 3D] kernel, [3D] bias) in `dtype`: [Wq | Wk | Wv] and
+    [bq | 0 | bv], the operands K5 takes (k has no bias)."""
+    w = torch.cat([wq.to(dtype), wk.to(dtype), wv.to(dtype)], dim=1).contiguous()
+    b = torch.cat([bq.to(dtype), torch.zeros_like(bq, dtype=dtype), bv.to(dtype)])
+    return w, b
+
+
+def ln_qkv_plain(x, g, bl, w_qkv, b_qkv, eps=1e-5):
+    """The JAX package's _ln_qkv_reference on packed weights (pack_qkv):
+    f32 LayerNorm statistics, then each projection rounded to the compute
+    dtype before its bias (k's is zero)."""
+    D = w_qkv.shape[1] // 3
+    qkv = dense(layer_norm(x, g, bl, eps), w_qkv, b_qkv)
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+
+def ln_qkv_smem(d: int) -> int:
+    """Shared memory of one jl_ln_qkv block: the [64, d + 8] bf16 LN tile
+    and a [64, 132] f32 product tile (csrc/attention.cu)."""
+    return align128(64 * (d + 8) * 2) + 64 * 132 * 4
+
+
+def fused_ln_qkv(x, g, bl, w_qkv, b_qkv, eps=1e-5):
+    """K5 wrapper -> (q, k, v), each [B, T, D], from packed weights
+    (pack_qkv; serving keeps them, ``MultiHeadAttention.qkv_weights``). CPU
+    tensors take ln_qkv_plain; a CUDA tensor launches jl_ln_qkv
+    (csrc/attention.cu, the first launch of K2, which replaces the JAX
+    package's ops/fused_mlp.py::fused_ln_qkv) or raises. The three results
+    are views of one [B, T, 3D] output, which the flash kernel reads with
+    its row stride, so nothing is copied."""
+    if x.device.type == "cpu":
+        return ln_qkv_plain(x, g, bl, w_qkv, b_qkv, eps)
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_cuda("w_qkv", w_qkv, torch.bfloat16, 2)
+    check_cuda("b_qkv", b_qkv, torch.bfloat16, 1)
+    refuse_grad("fused_ln_qkv", x, g, bl, w_qkv, b_qkv)
+    B, T, d = x.shape
+    D = w_qkv.shape[1] // 3
+    if (d % 16 or (3 * D) % 128 or ln_qkv_smem(d) > SMEM_LIMIT
+            or tuple(w_qkv.shape) != (d, 3 * D) or tuple(b_qkv.shape) != (3 * D,)):
+        raise ValueError(f"unsupported LN+QKV shape d={d} w_qkv {tuple(w_qkv.shape)}")
+    dev, bf = x.device, torch.bfloat16
+    g32 = g.to(dev, torch.float32).contiguous()
+    bl32 = bl.to(dev, torch.float32).contiguous()
+    qkv = torch.empty(B, T, 3 * D, device=dev, dtype=bf)
+    launch(
+        "jl_ln_qkv", x.data_ptr(), g32.data_ptr(), bl32.data_ptr(), w_qkv.data_ptr(),
+        b_qkv.data_ptr(), qkv.data_ptr(), B * T, d, 3 * D, float(eps),
+    )
+    QKV_COUNTER.launches += 1
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]

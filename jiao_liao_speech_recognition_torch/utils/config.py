@@ -5,9 +5,10 @@ through their package ``__init__``), so the sections the ported slices read
 are restated here with the same field names and defaults:
 ``FrontendConfig``, ``SpecAugmentConfig``, ``AugmentConfig``,
 ``AdapterConfig``, ``CTCModelConfig``, ``DataConfig``, ``OptimizerConfig``,
-``TrainConfig``, ``DecodeConfig``. ``ExperimentConfig`` holds those sections
-plus ``model_family``; the sections of later slices (whisper, joint, mesh,
-stages) are ignored when a JAX-written ``config.yaml`` is read.
+``TrainConfig``, ``DecodeConfig``, ``WhisperConfig`` (+ ``whisper_preset``).
+``ExperimentConfig`` holds those sections plus ``model_family``; the
+sections of later slices (joint, mesh, stages) are ignored when a
+JAX-written ``config.yaml`` is read.
 ``tests/test_torch_config.py`` pins every twin field, name and default, to
 ``jiao_liao_speech_recognition_tpu.utils.config``.
 """
@@ -115,6 +116,38 @@ class CTCModelConfig:
 
 
 @dataclass
+class WhisperConfig:
+    """Whisper encoder-decoder. Defaults = whisper-tiny shape; large-v3 via
+    ``whisper_preset('large-v3')``."""
+
+    name: str = "whisper_tiny"
+    vocab_size: int = 51865
+    num_mels: int = 80
+    d_model: int = 384
+    encoder_layers: int = 4
+    decoder_layers: int = 4
+    num_heads: int = 6
+    mlp_dim: int = 1536
+    max_source_positions: int = 1500
+    max_target_positions: int = 448
+    dropout: float = 0.0
+    dtype: str = "bfloat16"
+    use_flash_attention: bool = True
+    flash_train_min_q: int = 512
+    remat: bool = False
+    # decode specials: prompt_ids=() -> the zh-transcribe prompt
+    # (decode/whisper_generate.default_prompt), eot_id<0 -> the standard EOT
+    eot_id: int = -1
+    prompt_ids: Tuple[int, ...] = ()
+    # HF generate() suppression: every step / the first generated step
+    suppress_ids: Tuple[int, ...] = ()
+    begin_suppress_ids: Tuple[int, ...] = ()
+    # (layer, head) pairs for timestamp alignment (read, not used yet)
+    alignment_heads: Tuple[Tuple[int, int], ...] = ()
+    adapter: AdapterConfig = field(default_factory=AdapterConfig)
+
+
+@dataclass
 class DataConfig:
     train_manifest: str = ""
     eval_manifest: str = ""
@@ -181,9 +214,33 @@ class ExperimentConfig:
     specaugment: SpecAugmentConfig = field(default_factory=SpecAugmentConfig)
     augment: AugmentConfig = field(default_factory=AugmentConfig)
     ctc_model: CTCModelConfig = field(default_factory=CTCModelConfig)
+    whisper: WhisperConfig = field(default_factory=WhisperConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
+
+
+WHISPER_PRESETS = {
+    "tiny": dict(d_model=384, encoder_layers=4, decoder_layers=4, num_heads=6,
+                 mlp_dim=1536, num_mels=80, vocab_size=51865),
+    "base": dict(d_model=512, encoder_layers=6, decoder_layers=6, num_heads=8,
+                 mlp_dim=2048, num_mels=80, vocab_size=51865),
+    "small": dict(d_model=768, encoder_layers=12, decoder_layers=12, num_heads=12,
+                  mlp_dim=3072, num_mels=80, vocab_size=51865),
+    "medium": dict(d_model=1024, encoder_layers=24, decoder_layers=24, num_heads=16,
+                   mlp_dim=4096, num_mels=80, vocab_size=51865),
+    "large-v2": dict(d_model=1280, encoder_layers=32, decoder_layers=32, num_heads=20,
+                     mlp_dim=5120, num_mels=80, vocab_size=51865),
+    "large-v3": dict(d_model=1280, encoder_layers=32, decoder_layers=32, num_heads=20,
+                     mlp_dim=5120, num_mels=128, vocab_size=51866),
+}
+
+
+def whisper_preset(name: str) -> WhisperConfig:
+    """Shapes of the published Whisper family (HF config.json values)."""
+    if name not in WHISPER_PRESETS:
+        raise KeyError(f"unknown whisper preset {name!r}; have {sorted(WHISPER_PRESETS)}")
+    return WhisperConfig(name=f"whisper_{name}", **WHISPER_PRESETS[name])
 
 
 def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:

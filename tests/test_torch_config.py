@@ -3,6 +3,7 @@ package's (names, order and defaults), and a JAX-written config.yaml
 loads into them."""
 
 import dataclasses
+from pathlib import Path
 
 import pytest
 
@@ -13,7 +14,7 @@ from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E40
 
 # ExperimentConfig sections the ported slices do not read; their twins come
 # with the slices that use them
-LATER_SECTIONS = {"whisper", "joint", "mesh", "stages"}
+LATER_SECTIONS = {"joint", "mesh", "stages"}
 
 
 def _defaults(cls):
@@ -29,7 +30,8 @@ def _defaults(cls):
 
 @pytest.mark.parametrize(
     "name", ["FrontendConfig", "AdapterConfig", "CTCModelConfig", "DecodeConfig",
-             "SpecAugmentConfig", "AugmentConfig", "DataConfig", "OptimizerConfig", "TrainConfig"]
+             "SpecAugmentConfig", "AugmentConfig", "DataConfig", "OptimizerConfig", "TrainConfig",
+             "WhisperConfig"]
 )
 def test_config_twin_matches_jax_dataclass(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
@@ -59,3 +61,17 @@ def test_jax_written_yaml_loads_into_the_twin(tmp_path):
     assert dataclasses.asdict(got.ctc_model) == dataclasses.asdict(cfg.ctc_model)
     assert dataclasses.asdict(got.decode) == dataclasses.asdict(cfg.decode)
     assert got.model_family == "ctc"
+
+
+def test_jax_written_whisper_yaml_loads_into_the_twin(tmp_path):
+    yaml_path = Path(__file__).resolve().parents[1] / "configs" / "whisper_large_v3_adapters.yaml"
+    cfg = jcfg.load_yaml(str(yaml_path))
+    jcfg.save_yaml(cfg, str(tmp_path / "config.yaml"))
+    got = tcfg.load_yaml(str(tmp_path / "config.yaml"))
+    assert got.model_family == "whisper"
+    assert dataclasses.asdict(got.whisper) == dataclasses.asdict(cfg.whisper)
+    large = dataclasses.asdict(tcfg.whisper_preset("large-v3"))
+    assert {k: large[k] for k in ("d_model", "encoder_layers", "decoder_layers", "num_heads",
+                                  "mlp_dim", "num_mels", "vocab_size")} == \
+        {"d_model": 1280, "encoder_layers": 32, "decoder_layers": 32, "num_heads": 20,
+         "mlp_dim": 5120, "num_mels": 128, "vocab_size": 51866}
