@@ -46,7 +46,23 @@ non-zero and prints no result line):
               rule); then encoder seconds per B=16 x 30 s batch, decode
               ms per step (building the caches timed apart) and tokens/s at
               B=16 (max_len 224) on both paths, and K5, K2h-out, K3c, K9
-              (and K6 at this shape) alone.
+              (and K6 at this shape) alone;
+9. int8     - main path 5, int8 Whisper large-v3 serving: K9's int8 half
+              (cross Tk 1536, self Tk 256 and 128), K10 (R 1, 2, 4, 7, 8,
+              16, 64, each of the kernel's row-block instances, at the
+              decoder's three shapes) and K11 (R 7, 8, 16 at V=51866; R 5,
+              40, 64 at a ragged D) against their plain
+              versions; ModelBundle.quantize() of phase 8's bundle and
+              api.transcribe of the six requests (B=7: K9-int8 on the cross
+              caches, K9 on bf16 self caches, K10 256 and K11 once a step,
+              exactly), greedy_from_enc at B=16 (int8 self caches: K9-int8
+              64 a step, K9 none); the generated tokens teacher-forced
+              through the plain int8 decoder's steps (the margin rule) and
+              the int8-vs-bf16 top-1 agreement and logit cosine (printed);
+              then decode ms per step and tokens/s at B=16 (max_len 224) and
+              B=8 (max_len 64) on both paths with peak device memory, and
+              K9-int8, K10, K11 alone beside the bf16 operation each
+              replaces (K9, cuBLAS bf16 products, the bf16 tied logits).
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. Then a
@@ -56,6 +72,7 @@ no CPU path: without CUDA the script exits non-zero at once.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -98,6 +115,11 @@ GRAD_REL_BAR = 0.01
 # of an intermediate in one block moves the rest (ULP_BAR holds each
 # kernel alone). Decoder tokens: the margin rule above, teacher-forced.
 ENC_REL_BAR = 0.05
+# K11: f32 logits, the same bf16 products as the plain version summed in
+# another order (tensor-core k16 steps against cuBLAS): max |kernel - plain|
+# within LOGITS_REL_BAR of max |plain| (2.3e-7 to 4.2e-7 on an H100 at
+# the shapes below). K9-int8 and K10 round to bf16 and take ULP_BAR.
+LOGITS_REL_BAR = 1e-5
 
 TPU = "jiao_liao_speech_recognition_tpu/"
 KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it replaces
@@ -128,6 +150,13 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
      "csrc/attention.cu", TPU + "ops/fused_attention.py:387"),
     ("K9", "K9 grouped_decode_attention", "ops.decode_attention", "COUNTER",
      "csrc/decode_attention.cu", TPU + "ops/decode_attention.py:151"),
+    # K9's int8 half: the same kernel templated on the cache type
+    ("K9-int8", "K9 grouped_decode_attention int8", "ops.decode_attention", "INT8_COUNTER",
+     "csrc/decode_attention.cu", TPU + "ops/quant.py:80"),
+    ("K10", "K10 int8_matmul", "ops.quant", "MATMUL_COUNTER", "csrc/quant.cu",
+     TPU + "ops/quant.py:248"),
+    ("K11", "K11 int8_tied_logits", "ops.quant", "LOGITS_COUNTER", "csrc/quant.cu",
+     TPU + "ops/quant.py:111"),
 ]
 # main path -> the kernels it must launch
 PATHS = {
@@ -135,11 +164,15 @@ PATHS = {
     "finetune": ("K1", "K6", "K8"),
     "adapted_serve": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
     "whisper_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
+    "whisper_int8_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9", "K9-int8", "K10", "K11"),
+    "whisper_int8_b16": ("K9-int8", "K10", "K11"),
 }
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
 WHISPER_B, WHISPER_T = 16, 1500  # a batch of 30 s chunks, encoder positions
 WHISPER_MAX_LEN = 224
+INT8_B16_COUNT_LEN = 32  # the B=16 launch-count run decodes this far
+INT8_BENCH = (8, 64)  # bench.py::bench_large_v3_decode: B=8, max_len 64
 # the fine-tune: optimizer steps through api.fine_tune; the one-step
 # kernel-against-plain comparison: loss within FT_LOSS_BAR (relative); the
 # adapter gradients, all as one vector and the median tensor, within
@@ -156,6 +189,7 @@ FT_GRAD_BAR = 0.02
 # kernel is the larger of its bytes over HBM_BYTES_S and its operations over
 # the peak rate of their type
 HBM_BYTES_S = 3.35e12
+L2_BYTES = 50e6
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
 PKG = "jiao_liao_speech_recognition_torch"
 SAMPLE_RATE = 16000
@@ -188,6 +222,25 @@ def bf16_ulp_err(got, want):
 def margins(logits):
     top2 = logits.topk(2, dim=-1).values
     return top2[..., 0] - top2[..., 1]
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call: the time of the CUDA kernels and
+    copies it issues, from torch.profiler, after a warm call. A short kernel
+    timed with events around a Python loop measures the host's dispatch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and e.device_time_total)
+    check(us > 0, "the profiler saw no device time")
+    return us / 1e3 / iters
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -1257,6 +1310,296 @@ def phase_whisper_timing(bundle):
     return rec
 
 
+# --- main path 5: int8 Whisper large-v3 serving ---------------------------------
+
+
+def _card_randn(seed: int):
+    """-> randn(*shape, s=1.0): seeded normal f32 tensors made on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *shape, s=1.0: torch.randn(*shape, device="cuda", generator=gen) * s
+
+
+def _int8_table(randn, V, D):
+    """A [V, D] table quantized per vocab row: (q int8 [V, D], scale [V])."""
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    q, s = quant.quantize_int8(randn(V, D, s=D ** -0.5).t())
+    return q.t().contiguous(), s
+
+
+def phase_int8_kernels():
+    """K9's int8 half, K10 and K11 against their plain versions at the int8
+    path's shapes: every cache horizon its main path reads, every row count
+    its runs give K10 and K11 (B=7 serving, B=8 timing, B=16) and each of
+    the kernels' row-block instances (and K11 at a ragged D)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    w = whisper_config().whisper
+    randn = _card_randn(8)
+    B, T, d, H = WHISPER_B, WHISPER_T, w.d_model, w.num_heads
+    dh = d // H
+    errs = {}
+    rng = np.random.RandomState(8)
+    horizons = [(da.round_tk(T), [T] * B)]
+    for max_len in (WHISPER_MAX_LEN, INT8_B16_COUNT_LEN):  # self: Tk 256, 128
+        horizons.append((da.round_tk(max_len), list(rng.randint(1, max_len + 1, B - 1)) + [0]))
+    for tk, lens in horizons:
+        qh = randn(B, H, 1, dh).to(torch.bfloat16)
+        (kq, ks), (vq, vs) = (quant.quantize_kv(randn(B, H, tk, dh)) for _ in range(2))
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = da.grouped_decode_attention(qh, kq, vq, lt, k_scale=ks, v_scale=vs)
+        want = da.decode_attention_plain(qh, kq, vq, lt, k_scale=ks, v_scale=vs)
+        err = _ulp_check("K9-int8", got, want, Tk=tk, lens=[int(n) for n in lens[-4:]])
+        check(bool(torch.isfinite(got).all()), "K9-int8: a row is not finite")
+        errs["K9-int8"] = max(errs.get("K9-int8", 0.0), err)
+    # jl_int8_matmul's instances: RB 1 (R=1), 2, 4, 8 (R=7 serving, R=8
+    # timing), 16 (R=16, and R=64 over four row blocks)
+    for R in (1, 2, 4, 7, 8, 16, 64):
+        for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
+            x = randn(R, d_in).to(torch.bfloat16)
+            q, sc = quant.quantize_int8(randn(d_in, d_out, s=d_in ** -0.5))
+            err = _ulp_check("K10", quant.int8_gemv(x, q, sc), quant.int8_matmul_plain(x, q, sc),
+                             R=R, d_in=d_in, d_out=d_out)
+            errs["K10"] = max(errs.get("K10", 0.0), err)
+    # jl_int8_tied_logits' instances: one 16-row tile (R <= 16), two, four
+    for R, D, V in ((7, d, w.vocab_size), (8, d, w.vocab_size), (16, d, w.vocab_size),
+                    (5, 200, 301), (40, 200, 301), (64, 200, 301)):
+        x = randn(R, D).to(torch.bfloat16)
+        q, sv = _int8_table(randn, V, D)
+        got, want = quant.int8_logits(x, q, sv), quant.int8_tied_logits_plain(x, q, sv)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        emit({"phase": "kernels", "kernel": "K11", "R": R, "D": D, "V": V, "max_abs_err": err,
+              "rel_err": rel, "bar_rel": LOGITS_REL_BAR})
+        check(rel <= LOGITS_REL_BAR, f"K11 R={R} D={D} off by {rel} of max |logit|")
+        errs["K11"] = max(errs.get("K11", 0.0), err)
+    return errs
+
+
+def forced_logits(model, toks, enc, kernels):
+    """The decoder's steps fed `toks` [B, L] (teacher forcing through the
+    cached decode path) -> f32 logits [B, L - 1, V]."""
+    import torch
+
+    caches = model.init_cache(toks.shape[0], enc, toks.shape[1])
+    out = []
+    for pos in range(toks.shape[1] - 1):
+        logits, caches = model.decode_step(toks[:, pos:pos + 1], pos, enc, caches, None, kernels)
+        out.append(logits.float())
+    return torch.stack(out, 1)
+
+
+def phase_whisper_int8(counters, bundle):
+    """bundle.quantize() + api.transcribe of the six requests (exact launch
+    counts a step), greedy_from_enc at B=16; the generated tokens through
+    the plain int8 decoder's steps (margin rule); int8 against bf16 logits."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+
+    w, fe = bundle.config.whisper, bundle.config.frontend
+    t0 = time.perf_counter()
+    qb = bundle.quantize()
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    qmodel = qb.model
+    int8_bytes = sum(b.numel() * b.element_size() for b in qmodel.decoder.buffers())
+    requests = make_requests()
+    wg.STEPS.reset()
+    t0 = time.perf_counter()
+    texts, launches = drive(counters, "whisper_int8_serve", lambda: api.transcribe(qb, requests))
+    seconds = time.perf_counter() - t0
+    steps, L = wg.STEPS.steps, w.decoder_layers
+    emit({"phase": "int8", "quantize_s": quantize_s, "decoder_int8_buffer_bytes": int8_bytes,
+          "text_chars": [len(s) for s in texts], "seconds": seconds, "decode_steps": steps,
+          "launches": launches})
+    check(len(texts) == len(requests) and sum(len(s) for s in texts) > 0,
+          "one non-empty transcript per request")
+    want = {"K1": 1, "K5": w.encoder_layers, "K6": w.encoder_layers,
+            "K2h-out": w.encoder_layers, "K3c": w.encoder_layers, "K2": 0, "K3": 0,
+            "K9-int8": L * steps, "K9": L * steps, "K10": 8 * L * steps, "K11": steps}
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    check(not wrong, f"int8 serving launch counts (got, want): {wrong}")
+
+    prompt, eot = wg.resolve_specials(w)
+    always, begin = wg.suppression_masks(w.vocab_size, w.suppress_ids, w.begin_suppress_ids,
+                                         "cuda")
+    rng = np.random.RandomState(9)
+    wavs, _, _ = bundle._prepare_audio_chunked(requests, None)
+    with torch.inference_mode():
+        enc = qmodel.encode(featurize_batch(torch.from_numpy(wavs).cuda(), fe))
+        ids, lens = wg.greedy_from_enc(qmodel, enc, None, WHISPER_MAX_LEN, prompt, eot,
+                                       suppress_ids=w.suppress_ids,
+                                       begin_suppress_ids=w.begin_suppress_ids)
+        P = len(prompt)
+        toks = torch.cat([torch.tensor(prompt, device="cuda").expand(ids.shape[0], P), ids], 1)
+        raw = forced_logits(qmodel, toks, enc, kernels=False)
+        # greedy's suppression, position by position, before its argmax
+        plain = torch.stack([wg.apply_suppression(raw[:, p], p, P, always, begin)
+                             for p in range(raw.shape[1])], 1)
+        bf16 = bundle.model.decode(toks[:, :-1], enc).float()
+        wav16 = torch.from_numpy((0.1 * rng.randn(16, 30 * SAMPLE_RATE)).astype(np.float32)).cuda()
+        enc16 = qmodel.encode(featurize_batch(wav16, fe))
+        wg.STEPS.reset()
+        (_, _), launches16 = drive(counters, "whisper_int8_b16", lambda: wg.greedy_from_enc(
+            qmodel, enc16, None, INT8_B16_COUNT_LEN, prompt, eot))
+        steps16 = wg.STEPS.steps
+        torch.cuda.synchronize()
+    pos = torch.arange(toks.shape[1] - 1, device="cuda")[None, :]
+    n_pred = torch.clamp(lens + 1, max=ids.shape[1])
+    scored = (pos >= P - 1) & (pos < P - 1 + n_pred[:, None])
+    clear = scored & (margins(plain) > ARGMAX_MARGIN)
+    coverage = float(clear.sum() / scored.sum())
+    mismatch = int(((plain.argmax(-1) != toks[:, 1:]) & clear).sum())
+    sel_i8, sel_bf = raw[scored].double(), bf16[scored].double()
+    agree_bf16 = float((sel_i8.argmax(-1) == sel_bf.argmax(-1)).float().mean())
+    cosine = float((sel_i8 * sel_bf).sum() / (sel_i8.norm() * sel_bf.norm()))
+    emit({"phase": "int8", "vs_plain": {
+        "generated_lengths": [int(n) for n in lens], "positions": int(scored.sum()),
+        "coverage": coverage, "margin": ARGMAX_MARGIN, "mismatched_positions": mismatch,
+        "logits_finite": bool(torch.isfinite(raw).all())},
+        "int8_vs_bf16_report": {"top1_agreement": agree_bf16, "logit_cosine": cosine,
+                                "note": "random init: reported, not held to a bar"},
+        "b16": {"steps": steps16, "launches": launches16}})
+    check(bool(torch.isfinite(raw).all()) and tuple(raw.shape) == (
+        ids.shape[0], toks.shape[1] - 1, w.vocab_size), "plain int8 logits not finite [N, L, V]")
+    check(coverage >= MIN_COVERAGE and mismatch == 0,
+          f"int8 tokens disagree with the plain int8 decoder ({mismatch}, coverage {coverage})")
+    want16 = {"K9-int8": 2 * L * steps16, "K9": 0, "K10": 8 * L * steps16, "K11": steps16}
+    wrong = {k: (launches16[k], n) for k, n in want16.items() if launches16[k] != n}
+    check(not wrong, f"B=16 int8 launch counts (got, want): {wrong}")
+    return {"whisper_int8_serve": launches, "whisper_int8_b16": launches16}, qb
+
+
+def phase_int8_timing(qbundle):
+    """Int8 decode ms per step and tokens/s at B=16 (max_len 224) and B=8
+    (max_len 64), turns plain, kernels, kernels, plain, caches timed apart,
+    peak device memory."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+
+    model, w, fe = qbundle.model, qbundle.config.whisper, qbundle.config.frontend
+    prompt, eot = wg.resolve_specials(w)
+    rng = np.random.RandomState(10)
+    for B, max_len in ((WHISPER_B, WHISPER_MAX_LEN), INT8_BENCH):
+        with torch.inference_mode():
+            wav = torch.from_numpy((0.1 * rng.randn(B, 30 * SAMPLE_RATE)).astype(np.float32))
+            enc = model.encode(featurize_batch(wav.cuda(), fe))
+            init_s = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.init_cache(B, enc, max_len)
+                torch.cuda.synchronize()
+                init_s.append(time.perf_counter() - t0)
+            init_cache_s = statistics.median(init_s)
+            wg.greedy_from_enc(model, enc, None, 8, prompt, eot)  # warm
+            runs = {True: [], False: []}
+            for kernels in (False, True, True, False):
+                wg.STEPS.reset()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                ids, lens = wg.greedy_from_enc(model, enc, None, max_len, prompt, eot,
+                                               kernels=kernels)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                runs[kernels].append((s, wg.STEPS.steps, torch.cuda.max_memory_allocated()))
+        out = {"init_cache_s": {"median": init_cache_s, "samples": init_s}}
+        for kernels, name in ((True, "kernels"), (False, "plain")):
+            r = runs[kernels]
+            out[f"decode_{name}"] = {
+                "ms_per_step": statistics.median(1e3 * (s - init_cache_s) / n for s, n, _ in r),
+                "tokens_per_s": statistics.median(B * n / s for s, n, _ in r),
+                "steps": [n for _, n, _ in r], "seconds": [s for s, _, _ in r],
+                "peak_hbm_gb": max(m for _, _, m in r) / 1e9}
+        emit({"phase": "timing", "whisper_int8": f"B={B} x 30 s, max_len {max_len}",
+              "note": "ms_per_step leaves out building the caches, tokens_per_s includes it; "
+                      "peak_hbm_gb: torch.cuda.max_memory_allocated over the decode call, "
+                      "the process's weights included", **out})
+        del enc
+
+
+def phase_int8_kernel_timing():
+    """K9-int8, K10 and K11 alone (device time, so the host's dispatch of
+    these short launches is left out) beside the bf16 operation each
+    replaces, with their bounds."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    w = whisper_config().whisper
+    bf = torch.bfloat16
+    randn = _card_randn(11)
+    B, T, d, H, V = WHISPER_B, WHISPER_T, w.d_model, w.num_heads, w.vocab_size
+    dh = d // H
+    tk = da.round_tk(T)
+
+    def cycle(fns):  # one call of each in turn
+        it = itertools.cycle(fns)
+        return lambda: next(it)()
+
+    qh = randn(B, H, 1, dh).to(bf)
+    (kq, ks), (vq, vs) = (quant.quantize_kv(randn(B, H, tk, dh)) for _ in range(2))
+    kb, vb = (randn(B, H, tk, dh).to(bf) for _ in range(2))
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    x = {n: randn(B, n).to(bf) for n in (d, w.mlp_dim)}
+    table = _int8_table(randn, V, d)
+    table_bf16 = (table[0].float() * table[1][:, None]).to(bf)
+    # the caches and the table exceed the 50 MB L2 on their own; a K10
+    # weight does not, and a decode step streams 0.9 GB between two reads of
+    # one, so each K10 timing cycles through enough copies to exceed it twice
+    pairs = {
+        "K9-int8": (lambda: da.grouped_decode_attention(qh, kq, vq, lens, k_scale=ks, v_scale=vs),
+                    lambda: da.decode_attention_plain(qh, kq, vq, lens, k_scale=ks, v_scale=vs),
+                    lambda: da.grouped_decode_attention(qh, kb, vb, lens)),
+        "K11": (lambda: quant.int8_logits(x[d], *table),
+                lambda: quant.int8_tied_logits_plain(x[d], *table),
+                lambda: torch.matmul(x[d], table_bf16.t())),
+    }
+    for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
+        sets = [quant.quantize_int8(randn(d_in, d_out, s=d_in ** -0.5))
+                for _ in range(math.ceil(2 * L2_BYTES / (d_in * d_out)))]
+        wb = [(q.float() * sc).to(bf) for q, sc in sets]
+        xi = x[d_in]
+        pairs[f"K10 {d_in}x{d_out}"] = (
+            cycle([lambda q=q, sc=sc, xi=xi: quant.int8_gemv(xi, q, sc) for q, sc in sets]),
+            cycle([lambda q=q, sc=sc, xi=xi: quant.int8_matmul_plain(xi, q, sc) for q, sc in sets]),
+            cycle([lambda w2=w2, xi=xi: torch.matmul(xi, w2) for w2 in wb]))
+    n = B * H * T  # keys read by K9: the valid prefix
+    work = {"K9-int8": (B * H * dh * 2 + B * H * dh * 4 + B * 4 + 2 * n * (dh + 4),
+                        {"bf16": 4.0 * n * dh}),
+            "K11": (V * d + V * 4 + B * d * 2 + B * V * 4, {"bf16": 2.0 * B * V * d})}
+    for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
+        work[f"K10 {d_in}x{d_out}"] = (d_in * d_out + d_out * 4 + 2 * B * (d_in + d_out),
+                                       {"bf16": 2.0 * B * d_in * d_out})
+    library = {"K9-int8": "K9 (bf16 caches, same shape)", "K11": "bf16 tied logits (cuBLAS)"}
+    rec = {}
+    with torch.inference_mode():
+        for key, (kern, plain, lib) in pairs.items():
+            turns = [device_ms(plain, 5), device_ms(kern), device_ms(kern), device_ms(plain, 5)]
+            bound_ms, bound_by = bound(*work[key])
+            row = {"ms": (turns[1] + turns[2]) / 2, "plain_ms": (turns[0] + turns[3]) / 2,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": device_ms(lib)}
+            emit({"phase": "timing", "kernel": key, "B": B, **row, "turns_ms": turns,
+                  "ms_with_dispatch": cuda_ms(kern, 50),
+                  "library": library.get(key, "cuBLAS bf16 matmul, same shape")})
+            rec[key] = row
+    # the table's K10 row: the d x d projection, six of a block's eight launches
+    return {"K9-int8": rec["K9-int8"], "K10": rec[f"K10 {d}x{d}"], "K11": rec["K11"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1295,6 +1638,13 @@ def main() -> int:
     del bundle, adapted
     by_path["whisper_serve"], whisper = phase_whisper(counters)
     rec.update(phase_whisper_timing(whisper))
+    errs.update(phase_int8_kernels())
+    int8_paths, qbundle = phase_whisper_int8(counters, whisper)
+    by_path.update(int8_paths)
+    del whisper
+    phase_int8_timing(qbundle)
+    del qbundle
+    rec.update(phase_int8_kernel_timing())
     table = []
     for key, name, _, _, src, replaces in KERNELS:
         table.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

@@ -1,13 +1,16 @@
 """Where the time of Whisper large-v3 greedy serving goes on one GPU.
 
-    python3 examples/torch_profile_whisper.py [--batch 16 --steps 8]
+    python3 examples/torch_profile_whisper.py [--batch 16 --steps 8] [--int8]
 
 Loads large-v3 at full width (random init, seed 0, on the card), encodes
 B x 30 s of noise, builds the head-major caches (max_len 224), warms a few
 decode steps, then runs under torch.profiler: (1) one encoder call, (2)
 `--steps` decode steps. For each it prints the wall clock, the device busy
-time and idle share, device milliseconds by kernel name and the host
-self time of the busiest operators. Needs a CUDA device.
+time and idle share, the number of device kernels launched, device
+milliseconds by kernel name and the host self time of the busiest
+operators. `--int8` decodes with the int8 serving model
+(``ModelBundle.quantize()``: K10 projections, int8 cross caches, int8 self
+caches at batch >= 16, K11 logits). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,11 +38,12 @@ from jiao_liao_speech_recognition_torch.utils.config import (  # noqa: E402
 
 
 def report(name, prof, wall, per, top=18):
-    rows, busy_us = [], 0.0
+    rows, busy_us, launches = [], 0.0, 0
     host = []
     for e in prof.key_averages():
         if e.device_type.name == "CUDA" and e.device_time_total:
             busy_us += e.device_time_total
+            launches += e.count
             rows.append((e.device_time_total, e.count, e.key))
         elif e.self_cpu_time_total:
             host.append((e.self_cpu_time_total, e.count, e.key))
@@ -47,7 +51,8 @@ def report(name, prof, wall, per, top=18):
     host.sort(reverse=True)
     print(json.dumps({"section": name, "device": torch.cuda.get_device_name(0), "per": per,
                       "wall_s": wall, "device_busy_s": busy_us / 1e6,
-                      "device_idle_share": 1.0 - busy_us / 1e6 / wall}), flush=True)
+                      "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+                      "device_kernels": launches}), flush=True)
     for us, count, key in rows[:top]:
         print(f"  device {us / 1e3:10.3f} ms  x{count:6d}  {key[:90]}")
     for us, count, key in host[:8]:
@@ -58,6 +63,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--int8", action="store_true", help="decode with bundle.quantize()")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -67,7 +73,8 @@ def main() -> None:
     w = whisper_preset("large-v3")
     cfg = ExperimentConfig(model_family="whisper", whisper=w,
                            frontend=FrontendConfig(num_mels=w.num_mels))
-    model = api.load(config=cfg, device="cuda").model
+    bundle = api.load(config=cfg, device="cuda")
+    model = (bundle.quantize() if args.int8 else bundle).model
     prompt, eot = wg.resolve_specials(w)
     rng = np.random.RandomState(1)
     wav = torch.from_numpy((0.1 * rng.randn(args.batch, 30 * 16000)).astype(np.float32)).cuda()
@@ -98,7 +105,8 @@ def main() -> None:
                 pos += 1
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report("decode", prof, wall, f"{args.steps} steps at B={args.batch}, positions 4-{pos - 1}")
+        report("decode", prof, wall, f"{args.steps} steps at B={args.batch}, positions 4-{pos - 1}"
+               + (", int8" if args.int8 else ""))
 
 
 if __name__ == "__main__":

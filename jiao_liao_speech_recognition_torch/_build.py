@@ -52,6 +52,9 @@ SIGNATURES = {
     "jl_flash_bwd": [P, L, I, P, L, I, P, L, I, P, P, P, P, P, P, P, P,
                      I, I, I, I, I, I, F, P],
     "jl_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
+    "jl_decode_attention_int8": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    "jl_int8_matmul": [P, P, P, P, P, I, I, I, P],
+    "jl_int8_tied_logits": [P, P, P, P, I, I, I, P],
 }
 
 

@@ -1,23 +1,26 @@
-// K9: decode-step attention over head-major bf16 KV caches.
+// K9: decode-step attention over head-major KV caches, bf16 or int8.
 //
 // Replaces ops/decode_attention.py::grouped_decode_attention of the JAX
-// package (_grouped_kernel / _attend_head, the bf16 half; the int8 caches
-// of ops/quant.py::int8_decode_attention come with the int8 slice).
+// package (_grouped_kernel / _attend_head), both halves: bf16 caches, and
+// the int8 caches of ops/quant.py::int8_decode_attention with f32
+// per-position scales ks, vs [B, H, Tk].
 //
 // Function, per (b, h): Tq <= 8 query rows q (bf16) against keys [0, Tk) of
-// k, v [B, H, Tk, dh] (bf16): s = (q . k) * 1/sqrt(dh) in f32; keys at or
-// past min(kv_lens[b], Tk) get finfo(f32).min, so a zero-length row is
-// uniform and finite; p = exp(s - max) / sum, rounded to bf16; out = p . V
-// accumulated in f32, written f32 [B, H, Tq, dh].
+// k, v [B, H, Tk, dh]: s = (q . k) * 1/sqrt(dh) in f32 (int8: * (ks[t] *
+// 1/sqrt(dh)), the factor formed first); keys at or past min(kv_lens[b],
+// Tk) get finfo(f32).min, so a zero-length row is uniform and finite;
+// p = exp(s - max) / sum (int8: p * vs[t]), rounded to bf16; out = p . V
+// accumulated in f32, written f32 [B, H, Tq, dh]. int8 -> float is exact.
 //
 // What bounds it on the H100: device-memory bytes. Every decode step reads
-// the caches end to end (B=16, 20 heads of 64: 125.8 MB of cross K/V at
-// Tk=1536, a 37.6 us bound at 3.35 TB/s) for ~2 flops per byte.
+// the caches end to end (B=16, 20 heads of 64: 125.8 MB of bf16 cross K/V
+// at Tk=1536, a 37.6 us bound at 3.35 TB/s; int8 half the bytes plus 4 B
+// of scales a key) for ~2 flops per byte.
 //
 // Design: one block of 8 warps per (b, h); K is read once (pass 1), V once
-// (pass 2), each key row of dh bf16 by dh/8 lanes with one 16-byte load
-// per lane, consecutive lanes on consecutive bytes and four rows in flight
-// per lane. Pass 1 writes the scores into shared memory ([TQ][Tk] f32);
+// (pass 2), each key row of dh elements by dh/8 lanes with one 16-byte
+// (bf16) or 8-byte (int8) load per lane, consecutive lanes on consecutive
+// bytes and four rows in flight per lane. Pass 1 writes the scores into shared memory ([TQ][Tk] f32);
 // the block then forms the row max, the row sum and the bf16 probabilities
 // there, which is the reference's rounding point (p normalised, then cast,
 // before P.V). Pass 2 accumulates p * v per lane in f32 and reduces over
@@ -35,6 +38,17 @@ using namespace jl;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // key rows in flight per lane
 
+// the 8 cache elements a lane reads at once: 16 bytes of bf16, 8 of int8
+template <typename T> struct Lane;
+template <> struct Lane<bf16> { using Raw = uint4; static constexpr bool kQuant = false; };
+template <> struct Lane<int8_t> { using Raw = uint2; static constexpr bool kQuant = true; };
+
+__device__ inline void unpack8(const uint2& u, float (&f)[8]) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = static_cast<float>(c[i]);
+}
+
 __device__ inline void unpack8(const uint4& u, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -45,12 +59,16 @@ __device__ inline void unpack8(const uint4& u, float (&f)[8]) {
   }
 }
 
-// q [B*H, Tq, DH] bf16, k/v [B*H, Tk, DH] bf16, lens [B] i32 -> out [B*H, Tq, DH] f32
-template <int DH, int TQ>
+// q [B*H, Tq, DH] bf16, k/v [B*H, Tk, DH] T, ks/vs [B*H, Tk] f32 (int8 only),
+// lens [B] i32 -> out [B*H, Tq, DH] f32
+template <typename T, int DH, int TQ>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const int* __restrict__ lens,
+decode_attention_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
+                        const float* __restrict__ ks, const T* __restrict__ v,
+                        const float* __restrict__ vs, const int* __restrict__ lens,
                         float* __restrict__ out, int H, int Tq, int Tk, float scale) {
+  using Raw = typename Lane<T>::Raw;
+  constexpr bool kQuant = Lane<T>::kQuant;
   extern __shared__ __align__(16) float sm[];
   constexpr int LPK = DH / 8;   // lanes per key row
   constexpr int KPW = 32 / LPK; // key rows per warp and step
@@ -63,8 +81,10 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int sub = lane / LPK, part = lane % LPK;
   const int len = min(lens[b], Tk);
   const int n = len > 0 ? len : Tk;  // keys that can carry probability
-  const bf16* kb = k + (size_t)bh * Tk * DH;
-  const bf16* vb = v + (size_t)bh * Tk * DH;
+  const T* kb = k + (size_t)bh * Tk * DH;
+  const T* vb = v + (size_t)bh * Tk * DH;
+  const float* ksb = kQuant ? ks + (size_t)bh * Tk : nullptr;
+  const float* vsb = kQuant ? vs + (size_t)bh * Tk : nullptr;
 
   // pass 1: scores of the valid prefix
   float qf[TQ][8];
@@ -84,12 +104,17 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the loop bound is uniform over the warp (the shuffles need all lanes)
     for (int base = warp * KPW; base < n; base += step * kUnroll) {
       const int k0 = base + sub;
-      uint4 raw[kUnroll];
+      Raw raw[kUnroll];
+      float sc[kUnroll];  // the score factor: 1/sqrt(dh), times ks[key] for int8
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int key = k0 + u * step;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (key < n) raw[u] = *reinterpret_cast<const uint4*>(kb + (size_t)key * DH + part * 8);
+        raw[u] = Raw{};
+        sc[u] = scale;
+        if (key < n) {
+          raw[u] = *reinterpret_cast<const Raw*>(kb + (size_t)key * DH + part * 8);
+          if constexpr (kQuant) sc[u] = ksb[key] * scale;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -103,7 +128,7 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int j = 0; j < 8; ++j) d += qf[t][j] * kf[j];
 #pragma unroll
           for (int o = 1; o < LPK; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-          d *= scale;
+          d *= sc[u];
           if (key < n) {
             mx[t] = fmaxf(mx[t], d);
             if (part == 0) s[t * Tk + key] = d;
@@ -145,11 +170,14 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int w = 0; w < kWarps; ++w) l += red[w * TQ + t];
     l_row[t] = l;
   }
-  // normalised probabilities, rounded to bf16, in place
+  // normalised probabilities (times vs for int8), rounded to bf16, in place
 #pragma unroll
   for (int t = 0; t < TQ; ++t)
-    for (int i = threadIdx.x; i < n; i += kThreads)
-      s[t * Tk + i] = round_bf16(expf(s[t * Tk + i] - m_row[t]) / l_row[t]);
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      float p = expf(s[t * Tk + i] - m_row[t]) / l_row[t];
+      if constexpr (kQuant) p *= vsb[i];
+      s[t * Tk + i] = round_bf16(p);
+    }
   __syncthreads();
 
   // pass 2: P.V over the same keys
@@ -163,12 +191,12 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the loop bound is uniform over the warp (the shuffles need all lanes)
     for (int base = warp * KPW; base < n; base += step * kUnroll) {
       const int k0 = base + sub;
-      uint4 raw[kUnroll];
+      Raw raw[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int key = k0 + u * step;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (key < n) raw[u] = *reinterpret_cast<const uint4*>(vb + (size_t)key * DH + part * 8);
+        raw[u] = Raw{};
+        if (key < n) raw[u] = *reinterpret_cast<const Raw*>(vb + (size_t)key * DH + part * 8);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -205,25 +233,37 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DH, int TQ>
-int launch(const bf16* q, const bf16* k, const bf16* v, const int* lens, float* out, int B,
-           int H, int Tq, int Tk, float scale, cudaStream_t stream) {
+template <typename T, int DH, int TQ>
+int launch(const bf16* q, const T* k, const float* ks, const T* v, const float* vs,
+           const int* lens, float* out, int B, int H, int Tq, int Tk, float scale,
+           cudaStream_t stream) {
   const size_t smem = ((size_t)TQ * Tk + kWarps * TQ + (size_t)kWarps * TQ * DH) * 4;
-  cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<DH, TQ>,
+  cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<T, DH, TQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decode_attention_kernel<DH, TQ><<<B * H, kThreads, smem, stream>>>(q, k, v, lens, out, H, Tq,
-                                                                     Tk, scale);
+  decode_attention_kernel<T, DH, TQ><<<B * H, kThreads, smem, stream>>>(q, k, ks, v, vs, lens,
+                                                                        out, H, Tq, Tk, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
-int launch_tq(const bf16* q, const bf16* k, const bf16* v, const int* lens, float* out, int B,
-              int H, int Tq, int Tk, float scale, cudaStream_t stream) {
-  if (Tq == 1) return launch<DH, 1>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
-  if (Tq == 2) return launch<DH, 2>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
-  if (Tq <= 4) return launch<DH, 4>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
-  if (Tq <= 8) return launch<DH, 8>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
+template <typename T, int DH>
+int launch_tq(const bf16* q, const T* k, const float* ks, const T* v, const float* vs,
+              const int* lens, float* out, int B, int H, int Tq, int Tk, float scale,
+              cudaStream_t stream) {
+  if (Tq == 1) return launch<T, DH, 1>(q, k, ks, v, vs, lens, out, B, H, Tq, Tk, scale, stream);
+  if (Tq == 2) return launch<T, DH, 2>(q, k, ks, v, vs, lens, out, B, H, Tq, Tk, scale, stream);
+  if (Tq <= 4) return launch<T, DH, 4>(q, k, ks, v, vs, lens, out, B, H, Tq, Tk, scale, stream);
+  if (Tq <= 8) return launch<T, DH, 8>(q, k, ks, v, vs, lens, out, B, H, Tq, Tk, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_dh(const bf16* q, const T* k, const float* ks, const T* v, const float* vs,
+              const int* lens, float* out, int B, int H, int Tq, int Tk, int dh, float scale,
+              cudaStream_t stream) {
+  if (dh == 64) return launch_tq<T, 64>(q, k, ks, v, vs, lens, out, B, H, Tq, Tk, scale, stream);
+  if (dh == 128)
+    return launch_tq<T, 128>(q, k, ks, v, vs, lens, out, B, H, Tq, Tk, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -232,7 +272,12 @@ int launch_tq(const bf16* q, const bf16* k, const bf16* v, const int* lens, floa
 extern "C" int jl_decode_attention(const bf16* q, const bf16* k, const bf16* v,
                                    const int* lens, float* out, int B, int H, int Tq, int Tk,
                                    int dh, float scale, cudaStream_t stream) {
-  if (dh == 64) return launch_tq<64>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
-  if (dh == 128) return launch_tq<128>(q, k, v, lens, out, B, H, Tq, Tk, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_dh<bf16>(q, k, nullptr, v, nullptr, lens, out, B, H, Tq, Tk, dh, scale, stream);
+}
+
+extern "C" int jl_decode_attention_int8(const bf16* q, const int8_t* k, const float* ks,
+                                        const int8_t* v, const float* vs, const int* lens,
+                                        float* out, int B, int H, int Tq, int Tk, int dh,
+                                        float scale, cudaStream_t stream) {
+  return launch_dh<int8_t>(q, k, ks, v, vs, lens, out, B, H, Tq, Tk, dh, scale, stream);
 }

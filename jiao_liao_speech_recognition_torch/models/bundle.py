@@ -9,6 +9,9 @@ Whisper greedy transcription: 30 s chunks -> log-mel (K1) -> encoder (K5,
 K6, the out-projection + residual kernel, K3 per block at d=1280) -> cross K/V cached
 once -> AR decode (K9 twice per block per step) -> tied bf16 logits ->
 argmax -> text (byte-level BPE from merges.txt when the checkpoint has it).
+``quantize()`` gives the int8 serving bundle: the same encoder, a decoder
+of int8 Dense layers (K10, 8 a block a step), int8 cross caches (K9's int8
+half), int8 self caches at batch >= 16, and int8 tied logits (K11, f32).
 
 ``save`` writes the directory ``load`` reads: params.npz (``p_a/b/c``),
 config.yaml, vocab.json.
@@ -16,6 +19,7 @@ config.yaml, vocab.json.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional, Sequence, Union
@@ -36,7 +40,7 @@ from .convert import (
     write_npz_params,
 )
 from .ctc_model import CTCEncoderModel
-from .layers import cast_for_serving
+from .layers import cast_for_serving, quantized_copy
 from .whisper import WhisperModel
 
 PARAMS_FILE = "params.npz"  # flat p_a/b/c layout (models/convert.py)
@@ -116,6 +120,22 @@ class ModelBundle:
             self.tokenizer.save(p / "vocab.json")
         to_params = whisper_state_dict_to_params if self.is_whisper else state_dict_to_params
         write_npz_params(to_params(self.model.state_dict()), p / PARAMS_FILE)
+
+    def quantize(self) -> "ModelBundle":
+        """Weight-only int8 serving (the JAX package's
+        ``ModelBundle.quantize``): a NEW bundle whose decoder's Dense layers
+        are int8 per output channel (cross k/v included) and whose tied
+        table is int8 per vocab row, made on the bundle's device. The
+        encoder is the same module (its tensors shared); this bundle is
+        left as it is. Whisper only."""
+        if not self.is_whisper:
+            raise NotImplementedError(
+                "int8 decode serving targets the whisper family; the CTC/joint encoders "
+                "are compute-bound, not weight-read-bound")
+        model = copy.copy(self.model)
+        model._modules = dict(self.model._modules)
+        model.decoder = quantized_copy(self.model.decoder)
+        return ModelBundle(self.config, model, self.tokenizer)
 
     # ------------------------------------------------------------- inference
     def transcribe(

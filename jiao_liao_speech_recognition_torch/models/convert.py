@@ -132,7 +132,10 @@ def adapter_arrays(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 # --- Whisper -----------------------------------------------------------------
 # flax tree {encoder: {conv1, conv2, block_i, ln_post}, decoder: {embed_tokens,
 # embed_positions, block_i (+ cross_attn, cross_attn_ln), ln}}: every Dense
-# under its WFDense's "dense" level; Conv kernels [k, in, out].
+# under its WFDense's "dense" level; Conv kernels [k, in, out]. A quantized
+# tree (ModelBundle.quantize) has "dense_q" {kernel_q int8, scale, bias} in
+# the decoder and embed_tokens {embedding_q int8, scale}: the level is
+# dropped the same way, and int8 arrays stay int8 both ways.
 
 WHISPER_CONVS = ("conv1", "conv2")
 
@@ -140,7 +143,7 @@ WHISPER_CONVS = ("conv1", "conv2")
 def whisper_torch_key(path: Tuple[str, ...]) -> str:
     parts = []
     for p in path:
-        if p == "dense":
+        if p in ("dense", "dense_q"):
             continue
         parts += ["blocks", p[len("block_"):]] if p.startswith("block_") else [p]
     if parts[-2] in WHISPER_CONVS and parts[-1] == "kernel":
@@ -148,19 +151,27 @@ def whisper_torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+def _array(a) -> np.ndarray:
+    """A writable f32 copy, or int8 for quantized leaves."""
+    a = np.asarray(a)
+    return np.array(a, dtype=np.int8 if a.dtype == np.int8 else np.float32)
+
+
 def whisper_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX WhisperModel param tree -> state_dict of f32 tensors for the
-    port's WhisperModel."""
+    """JAX WhisperModel param tree -> state_dict of f32 (int8 where
+    quantized) tensors for the port's WhisperModel."""
     state = {}
     for path, arr in flatten_params(params).items():
-        arr = np.array(arr, dtype=np.float32)
+        arr = _array(arr)
         if path[-2] in WHISPER_CONVS and path[-1] == "kernel":
             arr = arr.transpose(2, 1, 0)  # [k, in, out] -> [out, in, k]
         state[whisper_torch_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
 
 
-def whisper_flax_path(key: str) -> Tuple[str, ...]:
+def whisper_flax_path(key: str, quantized: bool = False) -> Tuple[str, ...]:
+    """state_dict key -> flax path; `quantized`: the key's layer is an
+    Int8Dense (its leaves go under "dense_q")."""
     parts = key.split(".")
     out = []
     i = 0
@@ -171,7 +182,9 @@ def whisper_flax_path(key: str) -> Tuple[str, ...]:
         else:
             out.append(parts[i])
             i += 1
-    if out[-2] in WF_DENSE and out[-1] in ("kernel", "bias"):
+    if quantized:
+        out.insert(len(out) - 1, "dense_q")
+    elif out[-2] in WF_DENSE and out[-1] in ("kernel", "bias"):
         out.insert(len(out) - 1, "dense")
     if out[-2] in WHISPER_CONVS and out[-1] == "weight":
         out[-1] = "kernel"
@@ -179,11 +192,13 @@ def whisper_flax_path(key: str) -> Tuple[str, ...]:
 
 
 def whisper_state_dict_to_params(state: Mapping[str, torch.Tensor]) -> Dict:
-    """Port WhisperModel state_dict -> nested flax param dict (f32 numpy)."""
+    """Port WhisperModel state_dict -> nested flax param dict (f32 numpy;
+    int8 leaves stay int8)."""
+    int8_layers = {k.rsplit(".", 1)[0] for k in state if k.endswith(".kernel_q")}
     params: Dict = {}
     for key, t in state.items():
-        arr = t.detach().cpu().float().numpy()
-        path = whisper_flax_path(key)
+        arr = _array(t.detach().cpu().to(torch.int8 if t.dtype == torch.int8 else torch.float32))
+        path = whisper_flax_path(key, key.rsplit(".", 1)[0] in int8_layers)
         if path[-2] in WHISPER_CONVS and path[-1] == "kernel":
             arr = arr.transpose(2, 1, 0)
         node = params

@@ -18,7 +18,11 @@ gates' decisions, not their TPU conditions:
   K6 and the out-projection plus residual kernel, all three hand-written
   (the TPU serves this shape with K2's head-group split); decoder blocks
   (causal mask or cache) keep the module path for attention, with K9 over
-  head-major caches in a decode step.
+  head-major caches in a decode step;
+* int8 serving (``quantized_copy``, the JAX package's ``dense_q`` trees):
+  ``Int8Dense`` layers (K10 at decode-step row counts), int8 KV caches with
+  per-position scales read by K9's int8 half; such a block never takes
+  K2, K3 or K5, which read bf16 weights.
 
 Serving copies (``cast_for_serving``) of the f32 weights in the compute
 dtype are kept while the weights stay unchanged and rebuilt at their next
@@ -27,6 +31,7 @@ use when a weight changes or moves (``ServingCopy``).
 
 from __future__ import annotations
 
+import copy
 import math
 from functools import lru_cache
 from typing import Optional
@@ -55,6 +60,7 @@ from ..ops.fused_mlp import (
     pack_qkv,
 )
 from ..ops.numerics import full_f32, layer_norm
+from ..ops.quant import int8_decode_attention, int8_matmul, quantize_int8, quantize_kv
 from ..utils.config import AdapterConfig
 
 FUSED_MIN_T = 64  # decoder blocks fuse their MLP from this many query rows
@@ -115,7 +121,9 @@ class ServingCopy:
 class Dense(nn.Module):
     """flax nn.Dense parameters (kernel [in, out], optional bias) and its
     module-path forward: compute-dtype operands, the product rounded to the
-    compute dtype, then + bias. ``wf`` adds a WF insert (``adapter_wf``)."""
+    compute dtype, then + bias. ``wf`` adds a WF insert (``adapter_wf``).
+    ``forward`` takes ``kernels`` only because its callers also hold
+    Int8Dense layers, whose switch it is; a bf16 Dense runs no kernel."""
 
     def __init__(self, d_in: int, d_out: int, gen: torch.Generator, bias: bool = True,
                  wf: Optional[AdapterConfig] = None):
@@ -142,7 +150,7 @@ class Dense(nn.Module):
         return self._serve.get(dtype, (self.kernel, self.bias), lambda: (
             self.kernel.to(dtype), None if self.bias is None else self.bias.to(dtype)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         kernel, bias = self.weights(x.dtype)
         y = torch.matmul(x, kernel.to(x.dtype))
         if bias is not None:
@@ -150,6 +158,57 @@ class Dense(nn.Module):
         if hasattr(self, "adapter_wf"):
             y = self.adapter_wf(x, y)
         return y
+
+    def quantized(self) -> "Int8Dense":
+        if hasattr(self, "adapter_wf"):
+            raise NotImplementedError("int8 serving of a WF-adapted Dense layer")
+        with torch.no_grad():
+            q, scale = quantize_int8(self.kernel)
+            return Int8Dense(q, scale, None if self.bias is None else self.bias.detach().clone())
+
+
+class Int8Dense(nn.Module):
+    """The int8 serving form of a Dense layer (the JAX package's WFDense
+    ``dense_q`` branch): buffers ``kernel_q`` int8 [in, out] and ``scale``
+    f32 [out] (``quantize_int8``, per output channel) and the f32 ``bias``.
+    y = int8_matmul(x, kernel_q, scale) (K10 at decode-step row counts;
+    x's dtype out), then + bias in x's dtype (kept as a serving copy)."""
+
+    def __init__(self, kernel_q: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("kernel_q", kernel_q)
+        self.register_buffer("scale", scale)
+        self.register_buffer("bias", bias)
+        self._bias = ServingCopy()
+
+    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        y = int8_matmul(x, self.kernel_q, self.scale, kernels)
+        if self.bias is None:
+            return y
+        return y + self._bias.get(x.dtype, (self.bias,), lambda: self.bias.to(x.dtype))
+
+
+def quantized_copy(module: nn.Module) -> nn.Module:
+    """A copy of `module` for int8 serving: every submodule with a
+    ``quantized()`` form (Dense, the tied embedding) is replaced by it; the
+    other parameters and buffers are the same tensors, and serving copies
+    start empty. `module` itself is left as it is."""
+    if hasattr(module, "quantized"):
+        return module.quantized()
+    new = copy.copy(module)
+    new._parameters = dict(module._parameters)
+    new._buffers = dict(module._buffers)
+    new._modules = {n: None if m is None else quantized_copy(m) for n, m in module._modules.items()}
+    for name, value in vars(module).items():
+        if isinstance(value, ServingCopy):
+            setattr(new, name, ServingCopy())
+    return new
+
+
+def is_quantized(module: nn.Module) -> bool:
+    """True when `module` holds int8 Dense layers (ModelBundle.quantize)."""
+    return any(isinstance(m, Int8Dense) for m in module.modules())
 
 
 class LayerNorm(nn.Module):
@@ -220,7 +279,8 @@ def update_cache_rows(cache: torch.Tensor, new: torch.Tensor, index, time_axis: 
     are large and each step owns them), and return the cache. `index` an
     int (every row at one position) or a [B] tensor (per-row positions);
     packed [B, T, d] caches take time_axis=1, head-major [B, H, T, dh]
-    time_axis=2. `new`'s time axis has length 1."""
+    caches and their [B, H, T] scale planes time_axis=2. `new`'s time axis
+    has length 1."""
     new = new.to(cache.dtype)
     if isinstance(index, int) or (torch.is_tensor(index) and index.dim() == 0):
         cache.narrow(time_axis, int(index), 1).copy_(new)
@@ -243,10 +303,12 @@ class MultiHeadAttention(nn.Module):
 
     Decode caches (the JAX module's two layouts): a head-major
     [B, H, T, dh] cache takes K9 for bf16 caches with kernels=True and
-    threaded lengths, else the einsum formulation; a packed [B, T, d]
-    cache takes the einsum path. Cross-attention (``kv`` given) reads the
-    cache as it is; self-attention writes this step's rows at
-    ``cache_index`` first."""
+    threaded lengths, else the einsum formulation; an int8 head-major
+    cache (``k_scale``/``v_scale`` beside ``k``/``v``) takes
+    ``int8_cache_attention``; a packed [B, T, d] cache takes the einsum
+    path. Cross-attention (``kv`` given) reads the cache as it is;
+    self-attention writes this step's rows at ``cache_index`` first (int8:
+    quantized per position)."""
 
     def __init__(self, d_model: int, num_heads: int, gen: torch.Generator, dropout: float = 0.0,
                  adapter: Optional[AdapterConfig] = None, use_flash: bool = True,
@@ -285,18 +347,18 @@ class MultiHeadAttention(nn.Module):
         dh = d // H
         kv_in = x if kv is None else kv
         if return_kv:  # cache precompute: the K/V projections of kv_in only
-            return {"k": self.k_proj(kv_in), "v": self.v_proj(kv_in)}
+            return {"k": self.k_proj(kv_in, kernels), "v": self.v_proj(kv_in, kernels)}
         if kv_cache is not None and kv_cache["k"].dim() == 4:
             out, new_cache = self._head_major(x, kv, mask, kv_cache, cache_index, kv_lengths,
                                               kernels)
         else:
-            q = self.q_proj(x)
+            q = self.q_proj(x, kernels)
             new_cache = None
             if kv_cache is not None and kv is not None:
                 k, v = kv_cache["k"], kv_cache["v"]
                 new_cache = kv_cache
             else:
-                k, v = self.k_proj(kv_in), self.v_proj(kv_in)
+                k, v = self.k_proj(kv_in, kernels), self.v_proj(kv_in, kernels)
                 if kv_cache is not None:
                     k = update_cache_rows(kv_cache["k"], k, cache_index, 1)
                     v = update_cache_rows(kv_cache["v"], v, cache_index, 1)
@@ -309,7 +371,7 @@ class MultiHeadAttention(nn.Module):
                 q.reshape(B, Tq, H, dh), k.reshape(B, Tk, H, dh), v.reshape(B, Tk, H, dh),
                 mask, use_flash=use_flash, kv_lengths=kv_lengths, kernels=kernels,
             ).reshape(B, Tq, d)
-        out = self.out_proj(out)
+        out = self.out_proj(out, kernels)
         if self.dropout is not None:
             out = self.dropout(out)
         return out if kv_cache is None else (out, new_cache)
@@ -319,16 +381,26 @@ class MultiHeadAttention(nn.Module):
         B, Tq, d = x.shape
         H = self.num_heads
         dh = d // H
-        qh = self.q_proj(x).reshape(B, Tq, H, dh).transpose(1, 2)
+        qh = self.q_proj(x, kernels).reshape(B, Tq, H, dh).transpose(1, 2)
         if kv is not None:  # cross-attention over the precomputed encoder K/V
-            k4, v4 = kv_cache["k"], kv_cache["v"]
             new_cache = kv_cache
         else:
-            kh = self.k_proj(x).reshape(B, Tq, H, dh).transpose(1, 2)
-            vh = self.v_proj(x).reshape(B, Tq, H, dh).transpose(1, 2)
-            k4 = update_cache_rows(kv_cache["k"], kh, cache_index, 2)
-            v4 = update_cache_rows(kv_cache["v"], vh, cache_index, 2)
-            new_cache = {"k": k4, "v": v4}
+            kh = self.k_proj(x, kernels).reshape(B, Tq, H, dh).transpose(1, 2)
+            vh = self.v_proj(x, kernels).reshape(B, Tq, H, dh).transpose(1, 2)
+            if "k_scale" in kv_cache:  # int8 self cache: this step's rows quantized
+                (kq, ks), (vq, vs) = quantize_kv(kh), quantize_kv(vh)
+                for name, new in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
+                    update_cache_rows(kv_cache[name], new, cache_index, 2)
+            else:
+                update_cache_rows(kv_cache["k"], kh, cache_index, 2)
+                update_cache_rows(kv_cache["v"], vh, cache_index, 2)
+            new_cache = kv_cache
+        k4, v4 = new_cache["k"], new_cache["v"]
+        if "k_scale" in new_cache:
+            o = int8_cache_attention(qh, k4, new_cache["k_scale"], v4, new_cache["v_scale"],
+                                     kv_lengths, mask, x.dtype,
+                                     t_enc=None if kv is None else kv.shape[1], kernels=kernels)
+            return o.transpose(1, 2).reshape(B, Tq, d), new_cache
         Tk = k4.shape[2]
         # lengths are threaded, never inferred from a mask (the JAX rule)
         if kv_lengths is not None:
@@ -364,6 +436,31 @@ class MultiHeadAttention(nn.Module):
         return base, inserts
 
 
+def int8_cache_attention(qh, kq, ks, vq, vs, kv_lengths, mask, dtype, t_enc=None,
+                         kernels: bool = True):
+    """Decode-step attention over int8 head-major caches (the JAX package's
+    ``layers._int8_cross_attention``): qh [B, H, Tq, dh]; kq/vq int8
+    [B, H, Tk, dh]; ks/vs f32 [B, H, Tk]. Tk may be padded past the valid
+    horizon `t_enc` (scales 0 there). Threaded lengths (or none and no
+    mask: all `t_enc` keys) take K9's int8 half (its plain version with
+    kernels=False). A decode step always threads its lengths and runs one
+    query row, so a bare key mask or more than MAX_TQ rows raise, as K9's
+    wrapper does on the card."""
+    B, Tq = qh.shape[0], qh.shape[2]
+    if kv_lengths is None and mask is not None:
+        raise ValueError("int8 caches are read with threaded lengths, not a bare key mask")
+    if Tq > MAX_TQ:
+        raise ValueError(f"int8 decode attention takes at most {MAX_TQ} query rows, got {Tq}")
+    if kv_lengths is None:  # filled on the device: no host copy, no sync
+        Tk = kq.shape[2]
+        kv_lens = torch.full((B,), Tk if t_enc is None else min(t_enc, Tk), dtype=torch.int32,
+                             device=qh.device)
+    else:
+        kv_lens = torch.broadcast_to(
+            torch.as_tensor(kv_lengths, device=qh.device).to(torch.int32), (B,))
+    return int8_decode_attention(qh, kq, ks, vq, vs, kv_lens, kernels).to(dtype)
+
+
 def _insert(dense: Dense):
     f = dense.adapter_wf
     return {"a": f.a, "g": f.g, "b": f.b}
@@ -382,11 +479,11 @@ class MLP(nn.Module):
         self.gelu_form = gelu_form
         self.dropout = Dropout(dropout) if dropout > 0 else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(self.fc1(x), approximate="tanh" if self.gelu_form == "tanh" else "none")
+    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        h = F.gelu(self.fc1(x, kernels), approximate="tanh" if self.gelu_form == "tanh" else "none")
         if self.dropout is not None:
             h = self.dropout(h)
-        return self.fc2(h)
+        return self.fc2(h, kernels)
 
 
 class TransformerBlock(nn.Module):
@@ -433,7 +530,10 @@ class TransformerBlock(nn.Module):
         (x, self_cache, cross_cache, None) when a cache is given (the JAX
         block's 4-tuple; the last slot is the Att adapter's caches)."""
         serve = not self.training and not torch.is_grad_enabled()
-        if serve and mask is None and self_cache is None:
+        # int8 Dense layers (ModelBundle.quantize) keep the module path: the
+        # fused kernels read bf16 weights
+        fused = serve and not isinstance(self.mlp.fc1, Int8Dense)
+        if fused and mask is None and self_cache is None:
             x = self._serve_attention(x, kv_lengths, kernels)
         else:
             r = self.self_attn(self.self_attn_ln(x), kv_lengths, kernels, mask=mask,
@@ -451,10 +551,10 @@ class TransformerBlock(nn.Module):
             x = x + r
         # decode steps (a few query rows) keep the module path, as in the
         # JAX block's fused-MLP gate (x.shape[1] >= 64)
-        if serve and (not self.cross_attention or x.shape[1] >= FUSED_MIN_T):
+        if fused and (not self.cross_attention or x.shape[1] >= FUSED_MIN_T):
             x = self._serve_mlp(x, kernels)
         else:
-            x = x + self.mlp(self.mlp_ln(x))
+            x = x + self.mlp(self.mlp_ln(x), kernels)
         if self.post_mlp_slot is not None:
             x = self.post_mlp_slot(x, kv_lengths, kernels)
         if self_cache is not None or cross_cache is not None:

@@ -13,6 +13,12 @@ residual kernel (K2 does not fit at d=1280), then K3; a decode step runs K9 for
 self- and cross-attention in every block over head-major caches, whose
 horizon is padded once to a multiple of 128 (``init_cache``). Random init
 happens on the target device from a seeded generator.
+
+An int8 serving model (``ModelBundle.quantize``: ``Int8Dense`` decoder
+layers, ``Int8TiedEmbedding``) runs K10 for its projections, int8 cross
+caches through K9's int8 half, int8 self caches where the JAX package
+keeps them (batch >= HEAD_MAJOR_MIN_BATCH, or ``layout="head_major"``),
+and K11 for f32 logits.
 """
 
 from __future__ import annotations
@@ -26,20 +32,27 @@ from torch import nn
 
 from ..ops.decode_attention import pad_time_to_tk, round_tk
 from ..ops.numerics import full_f32
+from ..ops.quant import int8_tied_logits, quantize_int8, quantize_kv
 from ..utils.config import WhisperConfig
 from .ctc_model import DTYPES, Conv
 from .layers import (
     LayerNorm,
     ServingCopy,
     TransformerBlock,
+    is_quantized,
     length_mask,
     sinusoidal_positions,
 )
 
 # the JAX package's packed/head-major crossover, a measurement of XLA's
-# einsum on the TPU; it decides the CPU default only: on the card K9 reads
-# head-major caches at any batch
+# einsum on the TPU; it decides the CPU default and where int8 self caches
+# are kept: on the card K9 reads bf16 head-major caches at any batch
 HEAD_MAJOR_MIN_BATCH = 16
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """The card's cache layout applies (patchable: tests run it on the CPU)."""
+    return t.device.type == "cuda"
 
 
 def _check_adapter(cfg: WhisperConfig) -> None:
@@ -77,10 +90,38 @@ class TiedEmbedding(nn.Module):
     def forward(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return self.table(dtype)[tokens.long()]
 
-    def attend(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """Logits [..., V] in `dtype` (f32 accumulation)."""
+    def attend(self, x: torch.Tensor, dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
+        """Logits [..., V] in `dtype` (f32 accumulation). `kernels` is
+        Int8TiedEmbedding's switch, taken here for the decoder's one call."""
         with full_f32():
             return torch.matmul(x.to(dtype), self.table(dtype).t())
+
+    def quantized(self) -> "Int8TiedEmbedding":
+        """Per-vocab-row int8 (quantize_int8 of the transposed table)."""
+        with torch.no_grad():
+            q, scale = quantize_int8(self.embedding.t())
+            return Int8TiedEmbedding(q.t().contiguous(), scale)
+
+
+class Int8TiedEmbedding(nn.Module):
+    """The int8 serving form of TiedEmbedding (the JAX package's
+    ``{embedding_q, scale}`` tree): buffers ``embedding_q`` int8 [V, D] and
+    ``scale`` f32 [V]. A lookup dequantizes its rows in f32, then casts;
+    ``attend`` streams the row-major table through K11 and returns f32."""
+
+    def __init__(self, embedding_q: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("embedding_q", embedding_q)
+        self.register_buffer("scale", scale)
+
+    def forward(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        t = tokens.long()
+        return (self.embedding_q[t].float() * self.scale[t][..., None]).to(dtype)
+
+    def attend(self, x: torch.Tensor, dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
+        """f32 logits [..., V] (`dtype` is the bf16 table's, unused here)."""
+        out = int8_tied_logits(x.reshape(-1, x.shape[-1]), self.embedding_q, self.scale, kernels)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 class WhisperEncoder(nn.Module):
@@ -145,7 +186,7 @@ class WhisperDecoder(nn.Module):
         for block in self.blocks:
             x = block(x, None, kernels, mask=causal, enc=enc, enc_mask=enc_mask,
                       enc_kv_lengths=enc_lengths)
-        return self.embed_tokens.attend(self.ln(x), dt)
+        return self.embed_tokens.attend(self.ln(x), dt, kernels)
 
     def init_cache(self, batch: int, enc: torch.Tensor, max_len: Optional[int] = None,
                    layout: Optional[str] = None) -> Dict:
@@ -153,7 +194,11 @@ class WhisperDecoder(nn.Module):
         from the encoder output. Head-major [B, H, T, dh] (horizons padded to
         a multiple of 128, so K9 reads them as they are) on a CUDA device or
         at batch >= HEAD_MAJOR_MIN_BATCH; packed [B, T, d] otherwise, or when
-        `layout` says so ("packed" | "head_major")."""
+        `layout` says so ("packed" | "head_major"). A quantized decoder
+        stores its cross caches int8 head-major at every batch, with f32
+        per-position scales ``k_scale``/``v_scale`` (0 in the padding), and
+        its self caches so where the JAX package does: at batch >=
+        HEAD_MAJOR_MIN_BATCH, or with layout="head_major"."""
         cfg = self.cfg
         dt = DTYPES[cfg.dtype]
         t_cache = cfg.max_target_positions
@@ -161,25 +206,38 @@ class WhisperDecoder(nn.Module):
             t_cache = min(max_len, t_cache)
         H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
         if layout is None:
-            head_major = enc.device.type == "cuda" or batch >= HEAD_MAJOR_MIN_BATCH
+            jax_head_major = batch >= HEAD_MAJOR_MIN_BATCH
+            head_major = _on_card(enc) or jax_head_major
         elif layout in ("packed", "head_major"):
-            head_major = layout == "head_major"
+            head_major = jax_head_major = layout == "head_major"
         else:
             raise ValueError(f"unknown cache layout {layout!r}")
+        int8 = is_quantized(self)
+        int8_self = int8 and jax_head_major
         caches = {}
         for i, block in enumerate(self.blocks):
             cross = block.precompute_cross(enc)
-            if head_major:
+            if head_major or int8:
                 t_enc = cross["k"].shape[1]
-                cross = {n: pad_time_to_tk(a.reshape(batch, t_enc, H, dh).transpose(1, 2), 2)
-                         .contiguous() for n, a in cross.items()}
+                cross = {n: a.reshape(batch, t_enc, H, dh).transpose(1, 2)
+                         for n, a in cross.items()}
+                if int8:
+                    (kq, ks), (vq, vs) = quantize_kv(cross["k"]), quantize_kv(cross["v"])
+                    cross = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+                cross = {n: pad_time_to_tk(a, 2).contiguous() for n, a in cross.items()}
+            if head_major:
                 shape = (batch, H, round_tk(t_cache), dh)
             else:
                 shape = (batch, t_cache, cfg.d_model)
-            zeros = dict(dtype=dt, device=enc.device)
-            caches[f"block_{i}"] = {"self": {"k": torch.zeros(shape, **zeros),
-                                             "v": torch.zeros(shape, **zeros)},
-                                    "cross": cross}
+            dev = enc.device
+            if int8_self:  # zero scales: unwritten rows read as 0, as the bf16 zeros
+                self_cache = {}
+                for n in ("k", "v"):
+                    self_cache[n] = torch.zeros(shape, dtype=torch.int8, device=dev)
+                    self_cache[f"{n}_scale"] = torch.zeros(shape[:-1], device=dev)
+            else:
+                self_cache = {n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}
+            caches[f"block_{i}"] = {"self": self_cache, "cross": cross}
         return caches
 
     def decode_step(self, token: torch.Tensor, pos: int, enc: torch.Tensor, caches: Dict,
@@ -199,7 +257,7 @@ class WhisperDecoder(nn.Module):
                 x, lens, kernels, mask=kmask, enc=enc, enc_mask=enc_mask,
                 self_cache=c["self"], cross_cache=c["cross"], cache_index=pos,
                 enc_kv_lengths=enc_lengths)
-        return self.embed_tokens.attend(self.ln(x), dt)[:, 0], caches
+        return self.embed_tokens.attend(self.ln(x), dt, kernels)[:, 0], caches
 
 
 class WhisperModel(nn.Module):

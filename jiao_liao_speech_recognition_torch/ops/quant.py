@@ -1,0 +1,201 @@
+"""Weight-only int8 serving, the PyTorch twin of the JAX package's
+``ops/quant.py``.
+
+* ``quantize_int8`` / ``quantize_kv``: per-channel and per-position
+  symmetric int8, plain math, bitwise the JAX functions (f32 division by
+  the safe scale, round half to even, clip to +-127; a zero channel keeps
+  scale 0).
+* K10, ``int8_matmul``: y = (x . q) * s for x [.., d_in], q int8
+  [d_in, d_out], s f32 [d_out]. At most ``MAX_KERNEL_ROWS`` rows take
+  ``int8_gemv``, the wrapper of ``jl_int8_matmul`` (``csrc/quant.cu``,
+  which replaces ``_int8_matmul_pallas``); longer inputs take
+  ``int8_matmul_plain``, which is also the JAX package's XLA function
+  (bf16 operands, an f32 product, * s, one rounding).
+* K11, ``int8_tied_logits``: f32 logits (x . q^T) * s against a row-major
+  int8 [V, D] table with per-vocab-row scales. At most ``MAX_KERNEL_ROWS``
+  rows take ``int8_logits`` (``jl_int8_tied_logits``, replacing
+  ``_int8_tied_logits_pallas``); longer inputs take
+  ``int8_tied_logits_dequant``, the JAX package's XLA function, which
+  rounds the dequantized table to bf16 before the product (the kernel
+  scales after it).
+* ``int8_decode_attention``: the shim over K9's int8 half
+  (``ops/decode_attention.py``).
+
+A wrapper takes its kernel's plain version for CPU tensors only; a CUDA
+tensor launches the kernel or raises. ``kernels=False`` picks the plain
+versions on the card too (the comparisons in chip_smoke.py). Products
+outside the kernels leave cuBLAS in f32 (``torch.mm(..., out_dtype=f32)``)
+or are f32 products of bf16 values on the CPU, so each rounds once, as
+XLA's ``preferred_element_type=f32``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .._build import LaunchCounter, check_cuda, launch, refuse_grad
+from .decode_attention import (
+    KERNEL_TK,
+    decode_attention_plain,
+    grouped_decode_attention,
+    pad_time_to_tk,
+)
+from .numerics import full_f32
+
+MATMUL_COUNTER = LaunchCounter("int8_matmul")  # K10
+LOGITS_COUNTER = LaunchCounter("int8_tied_logits")  # K11
+# rows beyond this take the dequantizing product: long (teacher-forced)
+# inputs are compute-bound, where reading the weights once more is cheap
+MAX_KERNEL_ROWS = 64
+
+
+def quantize_int8(w: torch.Tensor):
+    """Per-output-channel int8: w [d_in, d_out] -> (q int8 [d_in, d_out],
+    scale f32 [d_out]) with w ~= q * scale[None, :]."""
+    w = w.float()
+    scale = w.abs().amax(dim=0) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(w / safe[None, :]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_kv(a: torch.Tensor):
+    """Per-position int8 for KV caches: a [..., T, dh] -> (q int8 of a's
+    shape, scale f32 [..., T]) with a ~= q * scale[..., None]."""
+    a = a.float()
+    scale = a.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(a / safe[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 operands with an f32 result, rounded once."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    with full_f32():  # products of bf16 values are exact in f32
+        return a.float() @ b.float()
+
+
+def _rows(x: torch.Tensor) -> int:
+    return math.prod(x.shape[:-1])
+
+
+# --- K10 --------------------------------------------------------------------
+
+
+def _scaled_product(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """f32 (x_bf16 . q_bf16) * scale, not yet rounded (q's int8 values are
+    exact in bf16)."""
+    return _mm_f32(x2.to(torch.bfloat16), q.to(torch.bfloat16)) * scale.float()
+
+
+def int8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x2 [R, d_in] -> bf16 [R, d_out]: the scaled f32 product rounded to
+    bf16 once."""
+    return _scaled_product(x2, q, scale).to(torch.bfloat16)
+
+
+def int8_gemv(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K10 wrapper -> bf16 [R, d_out]. CPU tensors take int8_matmul_plain;
+    CUDA tensors launch the kernel (R <= MAX_KERNEL_ROWS, d_out % 4 == 0)
+    or raise."""
+    if x2.device.type == "cpu":
+        return int8_matmul_plain(x2, q, scale)
+    refuse_grad("int8_gemv", x2)
+    x2 = x2.to(torch.bfloat16).contiguous()
+    check_cuda("q", q, torch.int8, 2)
+    check_cuda("scale", scale, torch.float32, 1)
+    R, d_in = x2.shape
+    d_out = q.shape[1]
+    if not 0 < R <= MAX_KERNEL_ROWS or q.shape[0] != d_in or d_out % 4 or scale.shape[0] != d_out:
+        raise ValueError(f"unsupported int8 matmul shape R={R} q={tuple(q.shape)}")
+    splits = -(-d_in // 256)  # csrc/quant.cu's kChunk
+    part = torch.empty(splits, R, d_out, device=x2.device, dtype=torch.float32)
+    y = torch.empty(R, d_out, device=x2.device, dtype=torch.bfloat16)
+    launch("jl_int8_matmul", x2.data_ptr(), q.data_ptr(), scale.data_ptr(), part.data_ptr(),
+           y.data_ptr(), R, d_in, d_out)
+    MATMUL_COUNTER.launches += 1
+    return y
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                kernels: bool = True) -> torch.Tensor:
+    """y = x . (q * scale) for x [..., d_in] -> [..., d_out] in x.dtype: K10
+    (or its plain version with kernels=False) for at most MAX_KERNEL_ROWS
+    rows, else the plain product (the JAX package's XLA path)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if _rows(x) > MAX_KERNEL_ROWS:
+        y = _scaled_product(x2, q, scale)  # rounded once, to x's dtype
+    else:
+        y = (int8_gemv if kernels else int8_matmul_plain)(x2, q, scale)
+    return y.to(x.dtype).reshape(*lead, q.shape[1])
+
+
+# --- K11 --------------------------------------------------------------------
+
+
+def int8_tied_logits_plain(x2: torch.Tensor, q_vd: torch.Tensor,
+                           scale_v: torch.Tensor) -> torch.Tensor:
+    """x2 [R, D] -> f32 [R, V]: f32 (x_bf16 . q_bf16^T), then * scale_v."""
+    y = _mm_f32(x2.to(torch.bfloat16), q_vd.to(torch.bfloat16).t())
+    return y * scale_v.float()
+
+
+def int8_tied_logits_dequant(x2: torch.Tensor, q_vd: torch.Tensor,
+                             scale_v: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA function: the table dequantized and rounded to
+    bf16 first, then an f32 product -> f32 [R, V]."""
+    w = (q_vd.float() * scale_v.float()[:, None]).to(torch.bfloat16)
+    return _mm_f32(x2.to(torch.bfloat16), w.t())
+
+
+def int8_logits(x2: torch.Tensor, q_vd: torch.Tensor, scale_v: torch.Tensor) -> torch.Tensor:
+    """K11 wrapper -> f32 [R, V]. CPU tensors take int8_tied_logits_plain;
+    CUDA tensors launch the kernel (R <= MAX_KERNEL_ROWS, any D) or raise."""
+    if x2.device.type == "cpu":
+        return int8_tied_logits_plain(x2, q_vd, scale_v)
+    refuse_grad("int8_logits", x2)
+    x2 = x2.to(torch.bfloat16).contiguous()
+    check_cuda("q_vd", q_vd, torch.int8, 2)
+    check_cuda("scale_v", scale_v, torch.float32, 1)
+    R, D = x2.shape
+    V = q_vd.shape[0]
+    if not 0 < R <= MAX_KERNEL_ROWS or q_vd.shape[1] != D or scale_v.shape[0] != V:
+        raise ValueError(f"unsupported int8 logits shape R={R} D={D} table={tuple(q_vd.shape)}")
+    out = torch.empty(R, V, device=x2.device, dtype=torch.float32)
+    launch("jl_int8_tied_logits", x2.data_ptr(), q_vd.data_ptr(), scale_v.data_ptr(),
+           out.data_ptr(), R, V, D)
+    LOGITS_COUNTER.launches += 1
+    return out
+
+
+def int8_tied_logits(x: torch.Tensor, q_vd: torch.Tensor, scale_v: torch.Tensor,
+                     kernels: bool = True) -> torch.Tensor:
+    """f32 logits [R, V] of x [R, D] against the row-major int8 table: K11
+    (or its plain version with kernels=False) for at most MAX_KERNEL_ROWS
+    rows, else int8_tied_logits_dequant. (The JAX package also sends
+    D % 128 != 0 to its XLA path, a TPU lane rule; K11 takes any D.)"""
+    if x.shape[0] > MAX_KERNEL_ROWS:
+        return int8_tied_logits_dequant(x, q_vd, scale_v)
+    return (int8_logits if kernels else int8_tied_logits_plain)(x, q_vd, scale_v)
+
+
+# --- K9, int8 half ------------------------------------------------------------
+
+
+def int8_decode_attention(qh, kq, ks, vq, vs, kv_lens, kernels: bool = True):
+    """Decode-step attention over int8 head-major caches -> f32 [B, H, Tq, dh]:
+    kq/vq int8 [B, H, Tk, dh], ks/vs f32 [B, H, Tk], kv_lens [B]. Pads Tk
+    to 128 if the caller did not (a no-op for caches from init_cache,
+    whose padded scales are 0), the lengths then clamped to the unpadded
+    Tk, and runs K9's int8 half (its plain version with kernels=False)."""
+    Tk = kq.shape[2]
+    if Tk % KERNEL_TK:
+        kv_lens = torch.clamp(torch.as_tensor(kv_lens, device=qh.device), max=Tk)
+        kq, vq, ks, vs = (pad_time_to_tk(a, 2) for a in (kq, vq, ks, vs))
+    fn = grouped_decode_attention if kernels else decode_attention_plain
+    return fn(qh, kq, vq, kv_lens, k_scale=ks, v_scale=vs)

@@ -105,10 +105,14 @@ def test_k9_rejects_an_unpadded_horizon_like_jax():
     with pytest.raises(ValueError, match="128-padded"):
         tda.grouped_decode_attention(torch.from_numpy(q), torch.from_numpy(k),
                                      torch.from_numpy(k), torch.from_numpy(lens))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tda.grouped_decode_attention(torch.from_numpy(q), torch.zeros(1, 2, 128, 64),
-                                     torch.zeros(1, 2, 128, 64), torch.from_numpy(lens),
-                                     k_scale=torch.ones(1, 2, 128))
+    k8, sc = torch.zeros(1, 2, 200, 64, dtype=torch.int8), torch.ones(1, 2, 200)
+    with pytest.raises(ValueError, match="128-padded"):  # int8 caches alike
+        jda.grouped_decode_attention(jnp.asarray(q), jnp.asarray(k8.numpy()),
+                                     jnp.asarray(k8.numpy()), jnp.asarray(lens),
+                                     k_scale=jnp.asarray(sc.numpy()), v_scale=jnp.asarray(sc.numpy()))
+    with pytest.raises(ValueError, match="128-padded"):
+        tda.grouped_decode_attention(torch.from_numpy(q), k8, k8, torch.from_numpy(lens),
+                                     k_scale=sc, v_scale=sc)
 
 
 def test_k9_padding_helpers_match_jax():
