@@ -62,7 +62,21 @@ non-zero and prints no result line):
               then decode ms per step and tokens/s at B=16 (max_len 224) and
               B=8 (max_len 64) on both paths with peak device memory, and
               K9-int8, K10, K11 alone beside the bf16 operation each
-              replaces (K9, cuBLAS bf16 products, the bf16 tied logits).
+              replaces (K9, cuBLAS bf16 products, the bf16 tied logits);
+10. probes  - main path 6, the A/B probes of examples/: P4 (W8A8 LN + MLP +
+              residual on the int8 tensor cores), P1 (bf16x3 log-mel) and P2
+              (head + argmax over 512-column chunks) against their plain
+              versions at the flagship's shapes (P4 at B=32, T'=750 within
+              ULP_BAR; P1 at 32 x 30 s within LOGMEL_BAR on the normalized
+              surface; P2 at B=32, T'=750, V=4336: ids equal to K4's
+              everywhere, to the plain version's under the margin rule, ties
+              to the first index); then each profiler's main() at B=32
+              (examples/torch_profile_w8a8_mlp.py, _frontend_precision.py,
+              _head_kernel.py: each runs its probe beside its partner, K3,
+              K1 or K4, and reports the A/B difference and both times), and
+              each probe alone beside its plain version, its partner and its
+              bound, with the two-call library context of
+              examples/torch_kernel_yardsticks.py.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. Then a
@@ -157,6 +171,13 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
      TPU + "ops/quant.py:248"),
     ("K11", "K11 int8_tied_logits", "ops.quant", "LOGITS_COUNTER", "csrc/quant.cu",
      TPU + "ops/quant.py:111"),
+    # the A/B probes: kernels of the example scripts, not of the JAX package
+    ("P4", "P4 w8a8_ln_mlp_residual", "ops.probes", "W8A8_COUNTER", "csrc/w8a8_mlp.cu",
+     "examples/profile_w8a8_mlp.py:95"),
+    ("P1", "P1 log_mel_bf16x3_raw", "ops.probes", "BF16X3_COUNTER", "csrc/log_mel.cu",
+     "examples/profile_frontend_precision.py:105"),
+    ("P2", "P2 head_argmax_chunked", "ops.probes", "CHUNKED_COUNTER", "csrc/head.cu",
+     "examples/profile_head_kernel.py:113"),
 ]
 # main path -> the kernels it must launch
 PATHS = {
@@ -166,6 +187,7 @@ PATHS = {
     "whisper_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
     "whisper_int8_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9", "K9-int8", "K10", "K11"),
     "whisper_int8_b16": ("K9-int8", "K10", "K11"),
+    "probes": ("K1", "K3", "K4", "P1", "P2", "P4"),
 }
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
@@ -173,6 +195,13 @@ WHISPER_B, WHISPER_T = 16, 1500  # a batch of 30 s chunks, encoder positions
 WHISPER_MAX_LEN = 224
 INT8_B16_COUNT_LEN = 32  # the B=16 launch-count run decodes this far
 INT8_BENCH = (8, 64)  # bench.py::bench_large_v3_decode: B=8, max_len 64
+# the probes' profilers in examples/ and their main()'s arguments at the
+# flagship's B=32 (the probes' own defaults are B=128)
+PROBES = {
+    "P4": ("torch_profile_w8a8_mlp", ["--b", "32", "--t", "750"]),
+    "P1": ("torch_profile_frontend_precision", ["--batch", "32", "--secs", "30"]),
+    "P2": ("torch_profile_head_kernel", ["--batch", "32", "--frames", "750"]),
+}
 # the fine-tune: optimizer steps through api.fine_tune; the one-step
 # kernel-against-plain comparison: loss within FT_LOSS_BAR (relative); the
 # adapter gradients, all as one vector and the median tensor, within
@@ -190,7 +219,7 @@ FT_GRAD_BAR = 0.02
 # the peak rate of their type
 HBM_BYTES_S = 3.35e12
 L2_BYTES = 50e6
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PKG = "jiao_liao_speech_recognition_torch"
 SAMPLE_RATE = 16000
 
@@ -225,22 +254,10 @@ def margins(logits):
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    """Mean device milliseconds per call: the time of the CUDA kernels and
-    copies it issues, from torch.profiler, after a warm call. A short kernel
-    timed with events around a Python loop measures the host's dispatch."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """The port's utils.timing.device_ms, imported once the port is on the path."""
+    from jiao_liao_speech_recognition_torch.utils.timing import device_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type.name == "CUDA" and e.device_time_total)
-    check(us > 0, "the profiler saw no device time")
-    return us / 1e3 / iters
+    return timed(fn, iters)
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -898,16 +915,21 @@ def phase_timing(bundle, adapted):
     return rec
 
 
-def _yardsticks():
-    """examples/torch_kernel_yardsticks.py: the library call each kernel is
-    held against (the port itself never calls it)."""
+def _example(name: str):
+    """The module of examples/<name>.py."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "examples" / "torch_kernel_yardsticks.py"
-    spec = importlib.util.spec_from_file_location("torch_kernel_yardsticks", path)
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _yardsticks():
+    """examples/torch_kernel_yardsticks.py: the library call each kernel is
+    held against (the port itself never calls it)."""
+    return _example("torch_kernel_yardsticks")
 
 
 def bound(nbytes: float, ops: dict):
@@ -1600,6 +1622,165 @@ def phase_int8_kernel_timing():
     return {"K9-int8": rec["K9-int8"], "K10": rec[f"K10 {d}x{d}"], "K11": rec["K11"]}
 
 
+# --- main path 6: the A/B probes of examples/ -----------------------------------
+
+
+def phase_probe_kernels():
+    """P4, P1 and P2 against their plain versions at the flagship's shapes:
+    P4 at B=32, T'=750 and P1 at 32 x 30 s on their profilers' seeded
+    inputs; P2 at B=32, T'=750, V=4336 on K4's check's inputs (logits of
+    O(1), so most frames clear the margin), held to K4's ids everywhere."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.features import normalize_log_mel
+    from jiao_liao_speech_recognition_torch.ops import fused_head, probes
+    from jiao_liao_speech_recognition_torch.utils.config import FrontendConfig
+
+    errs = {}
+    with torch.inference_mode():
+        w8 = _example(PROBES["P4"][0])
+        p, xs = w8.make_inputs(32, 750)
+        _, w8a8 = w8.sublayers(p)
+        got = w8a8(xs[0])
+        errs["P4"] = _ulp_check("P4", got, w8a8(xs[0], kernels=False), B=32, T=750)
+        # tiles over the shared-memory limit: the launch raises, and leaves no
+        # error behind for the next launch's check
+        d2, mlp2 = 1024, 4096
+        zeros = [torch.zeros(*s, device="cuda", dtype=dt) for s, dt in (
+            ((1, 16, d2), torch.bfloat16), ((d2,), None), ((d2,), None),
+            ((d2, mlp2), torch.int8), ((mlp2,), None), ((mlp2,), None),
+            ((mlp2, d2), torch.int8), ((d2,), None), ((d2,), None))]
+        try:
+            probes.w8a8_ln_mlp_residual(*zeros)
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused, f"P4 launched at d={d2} mlp={mlp2}, over the shared-memory limit")
+        check(torch.equal(w8a8(xs[0]), got), "P4 differs after a refused launch")
+        emit({"phase": "kernels", "kernel": "P4", "refused": f"d={d2} mlp={mlp2}"})
+
+        fe = FrontendConfig()
+        wav = _example(PROBES["P1"][0]).make_inputs(32, 30.0)[0]
+        got = normalize_log_mel(probes.log_mel_bf16x3_raw(wav), fe)
+        want = normalize_log_mel(probes.log_mel_bf16x3_raw(wav, kernels=False), fe)
+        torch.cuda.synchronize()
+        errs["P1"] = float((got - want).abs().max())
+        emit({"phase": "kernels", "kernel": "P1", "shape": list(wav.shape),
+              "max_abs_err": errs["P1"], "bar": LOGMEL_BAR})
+        check(errs["P1"] <= LOGMEL_BAR, f"P1 log-mel error {errs['P1']} > {LOGMEL_BAR}")
+
+        randn = _card_randn(12)
+        B, T, d, V = 32, 750, 512, 4336
+        x = randn(B, T, d).to(torch.bfloat16)
+        w, b = randn(d, V, s=d ** -0.5), randn(V, s=0.1)
+        got = probes.head_argmax_chunked(x, w, b)
+        k4 = fused_head.fused_head_argmax(x, w, b)
+        logits = fused_head.head_logits(x, w, b)
+        want = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        clear = margins(logits) > ARGMAX_MARGIN
+        coverage = float(clear.float().mean())
+        mismatch = int(((got != want) & clear).sum())
+        k4_mismatch = int((got != k4).sum())
+        emit({"phase": "kernels", "kernel": "P2", "V": V, "coverage": coverage,
+              "mismatched_frames": mismatch, "margin": ARGMAX_MARGIN,
+              "frames_differing_from_K4": k4_mismatch})
+        check(k4_mismatch == 0, f"P2 ids differ from K4's on {k4_mismatch} frames")
+        check(coverage >= MIN_COVERAGE and mismatch == 0, "P2 ids disagree with the plain argmax")
+        errs["P2"] = float((got - want).abs()[clear].max())  # ids: 0 when all agree
+        for first, second in ((7, 4000), (130, 250)):  # across and inside a 512-column chunk
+            wt, bt = w.clone(), b.clone()
+            wt[:, second] = wt[:, first]
+            bt[first] = bt[second] = 100.0
+            ids = probes.head_argmax_chunked(x, wt, bt)
+            check(bool((ids == first).all()), f"P2 tie {first}/{second}: not the first index")
+        emit({"phase": "kernels", "kernel": "P2", "ties": "first index wins"})
+    return errs
+
+
+def phase_probes(counters):
+    """Main path 6: each probe's profiler, main() at the flagship's B=32
+    (PROBES), with every launch count at 0 just before and read just after;
+    each runs its probe beside its partner and prints its A/B report."""
+    reports = {}
+
+    def run():
+        for key, (script, argv) in PROBES.items():
+            reports[key] = _example(script).main(argv)
+
+    _, launches = drive(counters, "probes", run)
+    for key, report in reports.items():
+        emit({"phase": "probes", "probe": key, "script": f"examples/{PROBES[key][0]}.py",
+              **report})
+    check(all(math.isfinite(v) for r in reports.values() for v in r.values()
+              if isinstance(v, float)), "a probe's report is not finite")
+    check(reports["P2"]["id_mismatches"] == 0, "P2's ids differ from K4's in its profiler")
+    return launches
+
+
+def phase_probe_timing():
+    """P4, P1 and P2 alone (device time; turns: plain, kernel, kernel,
+    plain) beside their bounds and the partner each is measured against (K3,
+    K1, K4 on the same inputs, with its bound), at the profilers' shapes at
+    B=32; then the two-call library context (torch._int_mm pair, addmm +
+    argmax), printed apart from library_ms."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.fused_frontend import fused_log_mel_raw
+    from jiao_liao_speech_recognition_torch.ops import fused_head, probes
+    from jiao_liao_speech_recognition_torch.utils.timing import cycling
+
+    w8 = _example(PROBES["P4"][0])
+    p, xs = w8.make_inputs(32, 750)
+    bf16, w8a8 = w8.sublayers(p)
+    wavs = _example(PROBES["P1"][0]).make_inputs(32, 30.0)
+    hxs, w, bias = _example(PROBES["P2"][0]).make_inputs(32, 750, 4336)
+    pairs = {  # probe: (kernel, plain version, partner), each over two distinct inputs
+        "P4": (cycling(w8a8, xs), cycling(lambda x: w8a8(x, kernels=False), xs),
+               cycling(bf16, xs)),
+        "P1": (cycling(probes.log_mel_bf16x3_raw, wavs),
+               cycling(lambda a: probes.log_mel_bf16x3_raw(a, kernels=False), wavs),
+               cycling(fused_log_mel_raw, wavs)),
+        "P2": (cycling(lambda x: probes.head_argmax_chunked(x, w, bias), hxs),
+               cycling(lambda x: fused_head.head_argmax_plain(x, w, bias), hxs),
+               cycling(lambda x: fused_head.fused_head_argmax(x, w, bias), hxs)),
+    }
+    M, d, mlp, V = 32 * 750, w8.D, w8.MLP, w.shape[1]
+    B, L = wavs[0].shape
+    n_fft, mels = 400, 80
+    frames, freqs = L // 160, n_fft // 2 + 1
+    mlp_bytes = 2 * M * d * 2 + (4 * d + 2 * mlp) * 4
+    logmel_bytes = B * L * 4 + B * mels * frames * 4 + n_fft * 2 * freqs * 4 + mels * freqs * 4
+    head = (M * d * 2 + d * V * 2 + V * 4 + M * 4, {"bf16": 2.0 * M * d * V})
+    mel_ops = B * frames * (3.0 * freqs + 2.0 * freqs * mels)
+    work = {  # probe: (its work, its partner's), as (bytes, {type: operations})
+        "P4": ((mlp_bytes + 2 * d * mlp, {"int8": 4.0 * M * d * mlp}),
+               (mlp_bytes + 4 * d * mlp, {"bf16": 4.0 * M * d * mlp})),
+        "P1": ((logmel_bytes, {"bf16": 3.0 * B * frames * 2 * n_fft * 2 * freqs, "f32": mel_ops}),
+               (logmel_bytes, {"f32": B * frames * 2.0 * n_fft * 2 * freqs + mel_ops})),
+        "P2": (head, head),
+    }
+    partner = {"P4": "K3", "P1": "K1", "P2": "K4"}
+    rec = {}
+    with torch.inference_mode():
+        for key, (kern, plain, other) in pairs.items():
+            turns = [device_ms(plain, 5), device_ms(kern), device_ms(kern), device_ms(plain, 5)]
+            bound_ms, bound_by = bound(*work[key][0])
+            rec[key] = {"ms": (turns[1] + turns[2]) / 2, "plain_ms": (turns[0] + turns[3]) / 2,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            emit({"phase": "timing", "kernel": key, "shape": PROBES[key][1], **rec[key],
+                  "turns_ms": turns, "partner": partner[key], "partner_ms": device_ms(other),
+                  "partner_bound_ms": bound(*work[key][1])[0]})
+        yard = _yardsticks()
+        codes = [torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda")
+                 for shape in ((M, d), (d, mlp), (M, mlp), (mlp, d))]
+        x2 = hxs[0].reshape(M, d)
+        emit({"phase": "timing", "library_context": "two library calls each, not library_ms",
+              "P4_int_mm_pair_ms": yard.int_mm_pair_ms(*codes),
+              "K4_P2_addmm_argmax_ms": yard.addmm_argmax_ms(x2, w, bias.to(torch.bfloat16))})
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1645,6 +1826,9 @@ def main() -> int:
     phase_int8_timing(qbundle)
     del qbundle
     rec.update(phase_int8_kernel_timing())
+    errs.update(phase_probe_kernels())
+    by_path["probes"] = phase_probes(counters)
+    rec.update(phase_probe_timing())
     table = []
     for key, name, _, _, src, replaces in KERNELS:
         table.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

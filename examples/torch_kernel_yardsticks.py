@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Library yardsticks for the port's flash kernels on one NVIDIA GPU.
+"""Library yardsticks for the port's kernels on one NVIDIA GPU.
 
     python3 examples/torch_kernel_yardsticks.py [--batch 16 --frames 750 --heads 8 --head-dim 64]
 
 Times PyTorch's fused attention call (``F.scaled_dot_product_attention``
 with a boolean key mask, on [B, H, T, dh] views of the port's [B, T, H, dh]
 tensors), its forward alone and its backward alone, beside K6 (forward with
-lse) and K8 (dQ, dK, dV) on the same bf16 inputs, with CUDA events. The
-port never calls the library kernel: ``chip_smoke.py`` reads ``sdpa_ms``
-from this file for the ``library_ms`` of K6 and K8. Needs a CUDA device.
+lse) and K8 (dQ, dK, dV) on the same bf16 inputs, with CUDA events. Then,
+as context for the A/B probes at the flagship's 32 x 750 rows:
+the library's two int8 products of P4's MLP (``torch._int_mm``) and the
+head product + argmax of K4 and P2 (``torch.addmm`` then ``torch.argmax``),
+device time. Each of those is two calls, not one call of the kernel's
+function, so it is context and not ``library_ms``. The port never calls a
+library kernel: ``chip_smoke.py`` reads ``sdpa_ms`` for the ``library_ms``
+of K6 and K8, and prints the probe context. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,6 +71,25 @@ def sdpa_decode_ms(qh, k, v, kv_lengths, iters: int = 10) -> float:
         return cuda_ms(lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask), iters)
 
 
+def int_mm_pair_ms(a_codes, w1q, h_codes, w2q, iters: int = 20) -> float:
+    """-> device ms of the library's two int8 products of P4's MLP
+    (``torch._int_mm``, int32 out): LN codes [M, d] by w1q [d, mlp] and
+    hidden codes [M, mlp] by w2q [mlp, d]. Context for P4, not its function:
+    two calls, without LayerNorm, scales, GELU or residual."""
+    from jiao_liao_speech_recognition_torch.utils.timing import device_ms
+
+    return device_ms(lambda: (torch._int_mm(a_codes, w1q), torch._int_mm(h_codes, w2q)), iters)
+
+
+def addmm_argmax_ms(x2, w, bias, iters: int = 20) -> float:
+    """-> device ms of cuBLAS's head product with its bias (``torch.addmm``,
+    the bf16 [rows, V] logits written out) and ``torch.argmax`` over them:
+    the function of K4 and P2 in two library calls."""
+    from jiao_liao_speech_recognition_torch.utils.timing import device_ms
+
+    return device_ms(lambda: torch.argmax(torch.addmm(bias, x2, w), dim=-1), iters)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=16)
@@ -90,6 +114,15 @@ def main() -> None:
     print(json.dumps({"device": torch.cuda.get_device_name(0), "B": B, "T": T, "heads": H,
                       "dh": dh, "k6_ms": k6, "k8_ms": k8, "sdpa_forward_ms": lib_fwd,
                       "sdpa_backward_ms": lib_bwd}))
+    M, d, mlp, V = 32 * 750, 512, 2048, 4336
+    codes = [torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda")
+             for shape in ((M, d), (d, mlp), (M, mlp), (mlp, d))]
+    x2 = torch.randn(M, d, device="cuda").to(torch.bfloat16)
+    w = (0.05 * torch.randn(d, V, device="cuda")).to(torch.bfloat16)
+    bias = (0.01 * torch.randn(V, device="cuda")).to(torch.bfloat16)
+    print(json.dumps({"context": "two library calls each, not one call of the kernel's function",
+                      "rows": M, "p4_int_mm_pair_ms": int_mm_pair_ms(*codes),
+                      "k4_p2_addmm_argmax_ms": addmm_argmax_ms(x2, w, bias)}))
 
 
 if __name__ == "__main__":

@@ -44,20 +44,27 @@ def log_mel_raw_plain(
     return torch.log10(torch.clamp(mel_spec, min=log_floor)).transpose(1, 2)
 
 
+def kernel_basis(n_fft: int, rows: int, f_pad: int) -> np.ndarray:
+    """The windowed DFT basis in the log-mel kernels' layout, f32
+    [rows, 2 f_pad]: columns [0, n_freqs) window * cos, [f_pad, f_pad +
+    n_freqs) -window * sin, zero elsewhere and past n_fft rows."""
+    n_freqs = n_fft // 2 + 1
+    b = _dft_basis(n_fft)
+    basis = np.zeros((rows, 2 * f_pad), np.float32)
+    basis[:n_fft, :n_freqs] = b[:n_freqs].T
+    basis[:n_fft, f_pad : f_pad + n_freqs] = b[n_freqs:].T
+    return basis
+
+
 @lru_cache(maxsize=8)
 def _kernel_constants(n_fft: int, num_mels: int, mel_scale: str, device: str):
     """Basis [n_pad, 2 f_pad] (cos | -sin, zero-padded to the kernel's
     tiles) and mel [num_mels, n_freqs], f32 on `device`."""
-    n_freqs = n_fft // 2 + 1
     n_pad = -(-n_fft // _N_CHUNK) * _N_CHUNK
-    f_pad = -(-n_freqs // _F_TILE) * _F_TILE
-    b = _dft_basis(n_fft)
-    basis = np.zeros((n_pad, 2 * f_pad), np.float32)
-    basis[:n_fft, :n_freqs] = b[:n_freqs].T
-    basis[:n_fft, f_pad : f_pad + n_freqs] = b[n_freqs:].T
+    f_pad = -(-(n_fft // 2 + 1) // _F_TILE) * _F_TILE
     mel = mel_filterbank(num_mels, n_fft, scale=mel_scale)
     return (
-        torch.from_numpy(basis).to(device),
+        torch.from_numpy(kernel_basis(n_fft, n_pad, f_pad)).to(device),
         torch.from_numpy(np.ascontiguousarray(mel)).to(device),
     )
 

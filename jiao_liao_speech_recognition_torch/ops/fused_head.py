@@ -30,17 +30,15 @@ def head_argmax_plain(x, kernel, bias):
     return torch.argmax(head_logits(x, kernel, bias), dim=-1).to(torch.int32)
 
 
-def fused_head_argmax(x, kernel, bias):
-    """K4 wrapper. CPU tensors take head_argmax_plain; a CUDA tensor
-    launches the kernel (x bf16 [B, T, d], d % 16 == 0, d <= MAX_D; kernel
-    [d, V], bias [V]) or raises."""
-    if x.device.type == "cpu":
-        return head_argmax_plain(x, kernel, bias)
+def launch_head_argmax(symbol, counter, x, kernel, bias, max_d):
+    """Check the operands of a head + argmax kernel (K4's ``jl_head_argmax``
+    or P2's ``jl_head_argmax_chunked``: x bf16 [B, T, d], d % 16 == 0,
+    d <= max_d; kernel [d, V], bias [V]), launch it -> int32 ids [B, T]."""
     check_cuda("x", x, torch.bfloat16, 3)
-    refuse_grad("fused_head_argmax", x, kernel, bias)
+    refuse_grad(symbol, x, kernel, bias)
     B, T, d = x.shape
     V = kernel.shape[1]
-    if d % 16 or d > MAX_D or kernel.shape[0] != d or bias.shape != (V,):
+    if d % 16 or d > max_d or kernel.shape[0] != d or tuple(bias.shape) != (V,):
         raise ValueError(f"unsupported head shape d={d} kernel={tuple(kernel.shape)}")
     dev = x.device
     w = kernel.to(dev, torch.bfloat16)
@@ -49,9 +47,16 @@ def fused_head_argmax(x, kernel, bias):
     w = w.contiguous()
     b32 = bias.to(dev, torch.float32).contiguous()
     ids = torch.empty(B, T, device=dev, dtype=torch.int32)
-    launch(
-        "jl_head_argmax", x.data_ptr(), w.data_ptr(), b32.data_ptr(), ids.data_ptr(),
-        B * T, d, V, w.shape[1],
-    )
-    COUNTER.launches += 1
+    launch(symbol, x.data_ptr(), w.data_ptr(), b32.data_ptr(), ids.data_ptr(), B * T, d, V,
+           w.shape[1])
+    counter.launches += 1
     return ids
+
+
+def fused_head_argmax(x, kernel, bias):
+    """K4 wrapper. CPU tensors take head_argmax_plain; a CUDA tensor
+    launches the kernel (x bf16 [B, T, d], d % 16 == 0, d <= MAX_D; kernel
+    [d, V], bias [V]) or raises."""
+    if x.device.type == "cpu":
+        return head_argmax_plain(x, kernel, bias)
+    return launch_head_argmax("jl_head_argmax", COUNTER, x, kernel, bias, MAX_D)

@@ -1,0 +1,196 @@
+"""The A/B probes of ``examples/``: three kernels that the JAX package keeps
+beside a production kernel to measure an alternative to it, ported with
+their plain versions.
+
+* P4, ``w8a8_ln_mlp_residual``: K3's function with int8 products (W8A8),
+  the kernel of ``examples/profile_w8a8_mlp.py``; ``csrc/w8a8_mlp.cu``.
+* P1, ``log_mel_bf16x3_raw``: K1's log-mel with the DFT as three bf16
+  products, the kernel of ``examples/profile_frontend_precision.py``;
+  ``jl_log_mel_bf16x3`` of ``csrc/log_mel.cu``.
+* P2, ``head_argmax_chunked``: K4's head + argmax over 512-column vocabulary
+  chunks, the kernel of ``examples/profile_head_kernel.py``;
+  ``jl_head_argmax_chunked`` of ``csrc/head.cu``.
+
+They are measurement tools: no model, bundle or api function calls this
+module. The port's profilers (``examples/torch_profile_w8a8_mlp.py``,
+``torch_profile_frontend_precision.py``, ``torch_profile_head_kernel.py``)
+run each beside its partner, and chip_smoke.py holds each against its
+plain version. A wrapper takes the plain version for a CPU tensor (or with
+``kernels=False``); a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._build import LaunchCounter, check_cuda, launch, refuse_grad
+from ..frontend.features import _dft_basis, mel_filterbank
+from ..frontend.fused_frontend import kernel_basis
+from .fused_head import head_argmax_plain, launch_head_argmax
+from .fused_mlp import gelu_f32
+from .numerics import full_f32
+
+W8A8_COUNTER = LaunchCounter("w8a8_ln_mlp_residual")  # P4
+BF16X3_COUNTER = LaunchCounter("log_mel_bf16x3_raw")  # P1
+CHUNKED_COUNTER = LaunchCounter("head_argmax_chunked")  # P2
+INV_LN10 = float(np.float32(1.0 / np.log(10.0)))
+
+
+# --- P4: W8A8 LN + MLP + residual -----------------------------------------------
+
+
+def _quantize_rows(a: torch.Tensor):
+    """Per-row dynamic int8 of f32 a [.., n] -> (codes as f32, scale [.., 1]):
+    scale = amax / 127, codes = clip(round(a / safe), +-127), round half to
+    even, safe = 1 where the scale is 0."""
+    scale = a.abs().amax(-1, keepdim=True) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return torch.clamp(torch.round(a / safe), -127, 127), scale
+
+
+def _int_product(codes: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int32 product of int8 codes, rounded to f32 as acc.astype(f32):
+    float64 holds every partial sum exactly (|sum| <= 127^2 K < 2^53), on
+    the CPU and on the card alike."""
+    return (codes.double() @ wq.double()).float()
+
+
+def w8a8_ln_mlp_residual_plain(x, g, bl, w1q, s1, b1, w2q, s2, b2, eps=1e-5, gelu_form="tanh"):
+    """The probe's numerics: x [.., d] bf16; w1q int8 [d, mlp], w2q int8
+    [mlp, d] with per-output-channel f32 scales s1, s2 (ops.quant's
+    quantize_int8); f32 LN, per-row int8 codes before each product,
+    h = acc * (a_s * s1) + b1, GELU in f32, y = acc2 * (h_s * s2) + b2,
+    out = x + bf16(y)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    ln = (xc * torch.rsqrt(var + eps)) * g.float() + bl.float()
+    lq, a_s = _quantize_rows(ln)
+    h = _int_product(lq, w1q) * (a_s * s1.float()) + b1.float()
+    hq, h_s = _quantize_rows(gelu_f32(h, gelu_form))
+    y = _int_product(hq, w2q) * (h_s * s2.float()) + b2.float()
+    return x + y.to(x.dtype)
+
+
+def w8a8_ln_mlp_residual(x, g, bl, w1q, s1, b1, w2q, s2, b2, eps=1e-5, gelu_form="tanh",
+                         kernels=True):
+    """P4 wrapper. CPU tensors (or kernels=False) take the plain version; a
+    CUDA tensor launches the kernel (x bf16 [B, T, d], d and mlp multiples
+    of 512, d <= mlp: the flagship's d 512, mlp 2048) or raises. The kernel
+    sizes its own shared memory (csrc/w8a8_mlp.cu) and its launch raises
+    where a block's tiles pass the card's limit. The weights are transposed
+    for the kernel on each call (1 MB each at the flagship's shape)."""
+    if x.device.type == "cpu" or not kernels:
+        return w8a8_ln_mlp_residual_plain(x, g, bl, w1q, s1, b1, w2q, s2, b2, eps, gelu_form)
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_cuda("w1q", w1q, torch.int8, 2)
+    check_cuda("w2q", w2q, torch.int8, 2)
+    refuse_grad("w8a8_ln_mlp_residual", x, g, bl, s1, b1, s2, b2)
+    B, T, d = x.shape
+    mlp = w1q.shape[1]
+    if (d % 512 or mlp % 512 or d > mlp or tuple(w1q.shape) != (d, mlp)
+            or tuple(w2q.shape) != (mlp, d)):
+        raise ValueError(f"unsupported W8A8 MLP shape d={d} mlp={mlp}")
+    if gelu_form not in ("tanh", "erf"):
+        raise ValueError(f"unknown gelu_form {gelu_form!r} (want 'tanh'|'erf')")
+    g, bl, s1, b1, s2, b2 = (v.to(x.device, torch.float32).contiguous()
+                             for v in (g, bl, s1, b1, s2, b2))
+    w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()  # [n][k]: mma's "col" B operand
+    out = torch.empty_like(x)
+    launch(
+        "jl_w8a8_ln_mlp_residual", x.data_ptr(), g.data_ptr(), bl.data_ptr(), w1t.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), B * T, d, mlp, int(gelu_form == "erf"), float(eps),
+    )
+    W8A8_COUNTER.launches += 1
+    return out
+
+
+# --- P1: log-mel with a bf16x3 DFT ----------------------------------------------
+
+
+def _split_bf16(a: torch.Tensor):
+    """f32 a -> (hi, lo) as f32 tensors of bf16 values: hi = bf16(a),
+    lo = bf16(a - hi)."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def log_mel_bf16x3_plain(wav, n_fft=400, hop=160, num_mels=80, log_floor=1e-10):
+    """K1's framing (reflect pad, hop frames, the final frame dropped) with
+    the probe's DFT: frames and windowed basis split into bf16 hi and lo,
+    proj = hi.hi + lo.hi + hi.lo as f32 products of the bf16 values (each
+    exact, no TF32), power, the f32 mel product, log(max(., floor)) *
+    f32(1/ln 10) -> [B, num_mels, L // hop]."""
+    pad = n_fft // 2
+    x = F.pad(wav.to(torch.float32)[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop)[:, :-1]  # [B, L//hop, n_fft]
+    basis = torch.from_numpy(_dft_basis(n_fft).T.copy()).to(wav.device)  # [n_fft, 2F]
+    mel = torch.from_numpy(mel_filterbank(num_mels, n_fft)).to(wav.device)
+    n_freqs = n_fft // 2 + 1
+    f_hi, f_lo = _split_bf16(frames)
+    b_hi, b_lo = _split_bf16(basis)
+    with full_f32():
+        proj = f_hi @ b_hi + f_lo @ b_hi + f_hi @ b_lo
+        power = proj[..., :n_freqs] ** 2 + proj[..., n_freqs:] ** 2
+        mel_spec = power @ mel.T
+    return (torch.log(torch.clamp(mel_spec, min=log_floor)) * INV_LN10).transpose(1, 2)
+
+
+@lru_cache(maxsize=8)
+def _bf16x3_constants(n_fft: int, num_mels: int, device: str):
+    """Basis hi and lo, bf16 [n_k, 2 f16] (cos | -sin, n_fft and n_freqs
+    rounded up to 16, zero-padded), and mel [num_mels, n_freqs] f32."""
+    n_k, f16 = -(-n_fft // 16) * 16, -(-(n_fft // 2 + 1) // 16) * 16
+    full = torch.from_numpy(kernel_basis(n_fft, n_k, f16)).to(device)
+    hi = full.to(torch.bfloat16)
+    lo = (full - hi.float()).to(torch.bfloat16)
+    mel = torch.from_numpy(np.ascontiguousarray(mel_filterbank(num_mels, n_fft))).to(device)
+    return hi, lo, mel
+
+
+def log_mel_bf16x3_raw(wav, n_fft=400, hop=160, num_mels=80, log_floor=1e-10, kernels=True):
+    """P1 wrapper. CPU tensors (or kernels=False) take log_mel_bf16x3_plain;
+    a CUDA tensor launches the kernel (wav f32 [B, L], L > n_fft // 2,
+    hop % 8 == 0, n_fft // 2 + 1 <= 224) or raises."""
+    if wav.device.type == "cpu" or not kernels:
+        return log_mel_bf16x3_plain(wav, n_fft, hop, num_mels, log_floor)
+    check_cuda("wav", wav, torch.float32, 2)
+    B, L = wav.shape
+    n_freqs = n_fft // 2 + 1
+    if L <= n_fft // 2 or hop % 8 or n_freqs > 224:
+        raise ValueError(f"unsupported bf16x3 log-mel: L={L} n_fft={n_fft} hop={hop}")
+    T = L // hop
+    hi, lo, mel = _bf16x3_constants(n_fft, num_mels, str(wav.device))
+    out = torch.empty(B, num_mels, T, device=wav.device, dtype=torch.float32)
+    launch(
+        "jl_log_mel_bf16x3", wav.data_ptr(), hi.data_ptr(), lo.data_ptr(), mel.data_ptr(),
+        out.data_ptr(), B, L, T, n_fft, hop, n_freqs, num_mels, float(log_floor),
+    )
+    BF16X3_COUNTER.launches += 1
+    return out
+
+
+# --- P2: head + argmax over 512-column chunks -------------------------------------
+
+
+# P2's block holds the [64, d + 8] bf16 row tile beside one chunk's [64, 516]
+# f32 logits (csrc/head.cu): d <= 768 fits the shared-memory limit
+CHUNKED_MAX_D = 768
+
+
+def head_argmax_chunked(x, kernel, bias, kernels=True):
+    """P2 wrapper -> int32 ids [B, T]. P2 computes K4's function, so its
+    plain version is K4's ``head_argmax_plain`` (ops/fused_head.py), which
+    CPU tensors (or kernels=False) take; a CUDA tensor launches the kernel
+    (x bf16 [B, T, d], d % 16 == 0, d <= CHUNKED_MAX_D; kernel [d, V], bias
+    [V]) or raises."""
+    if x.device.type == "cpu" or not kernels:
+        return head_argmax_plain(x, kernel, bias)
+    return launch_head_argmax("jl_head_argmax_chunked", CHUNKED_COUNTER, x, kernel, bias,
+                              CHUNKED_MAX_D)

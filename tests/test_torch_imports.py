@@ -76,7 +76,7 @@ def test_kernel_sources_target_sm90a_only_through_nvcc():
     assert "arch=compute_90a,code=sm_90a" in flags
     cus = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert cus == ["attention.cu", "decode_attention.cu", "flash_attention.cu", "head.cu",
-                   "log_mel.cu", "mlp.cu", "quant.cu"]
+                   "log_mel.cu", "mlp.cu", "quant.cu", "w8a8_mlp.cu"]
     for p in _build.CSRC.glob("*.cu"):
         text = p.read_text()
         for name in ("cublas", "cudnn", "cutlass"):
@@ -88,3 +88,16 @@ def test_kernel_sources_target_sm90a_only_through_nvcc():
             if line.startswith('extern "C" int '):
                 exported.add(line.split()[3].split("(")[0])
     assert exported == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("needle", [
+    "import jax", "from jax",
+    "import jiao_liao_speech_recognition_tpu", "from jiao_liao_speech_recognition_tpu",
+])
+def test_port_examples_import_no_jax(needle):
+    scripts = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(scripts) >= 8
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in scripts
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if needle in line.split("#", 1)[0]]
+    assert not hits, hits

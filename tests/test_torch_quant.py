@@ -314,7 +314,7 @@ def test_init_cache_int8_layouts(jax_bf16, monkeypatch):
     layout="head_major"; tests/test_quant.py's assertions on the JAX side."""
     _, params, _ = jax_bf16
     model = _bundle(params).quantize().model
-    enc = torch.randn(2, 30, 128).to(torch.bfloat16)
+    enc = _t(np.random.RandomState(13).randn(2, 30, 128).astype(np.float32)).to(torch.bfloat16)
     c = model.init_cache(2, enc, 12)["block_0"]
     cross, self_c = c["cross"], c["self"]
     assert set(cross) == {"k", "k_scale", "v", "v_scale"}
@@ -414,7 +414,7 @@ def test_decode_steps_of_the_quantized_model_match_its_teacher_forcing(jax_bf16)
     is the same function as the kernel route's plain versions on the CPU."""
     _, params, _ = jax_bf16
     model = _bundle(params).quantize().model
-    enc_t = torch.randn(2, 30, 128).to(torch.bfloat16)
+    enc_t = _t(np.random.RandomState(12).randn(2, 30, 128).astype(np.float32)).to(torch.bfloat16)
     toks = torch.from_numpy(np.random.RandomState(11).randint(0, 300, (2, 6)))
     with torch.no_grad():
         full = model.decode(toks, enc_t)
