@@ -37,22 +37,25 @@ non-zero and prints no result line):
 8. whisper  - main path 4, Whisper large-v3 serving (d=1280, 32 + 32
               blocks, 20 heads of 64, mlp 5120, V=51866, 128 mels; random
               init from seed 0 on the card): K9, K5, the out-projection +
-              residual kernel (K2h-out), K3 at d=1280, K6 at 20 heads of 64
-              and K1 at 128 mels against their plain versions; api.load +
-              api.transcribe of the six requests (seven 30 s chunks, one
+              residual kernel (K2h-out, a TMA + wgmma GEMM; at B=16 x 1500
+              and at the six requests' ragged B=7), K3 at d=1280, K6 at 20
+              heads of 64 and K1 at 128 mels against their plain versions;
+              api.load + api.transcribe of the six requests (seven 30 s chunks, one
               batch) through K1, K5, K6, K2h-out, K3 and K9; the encoder
               held against the plain path (relative L2) and the generated
               tokens teacher-forced through the plain decoder (the margin
               rule); then encoder seconds per B=16 x 30 s batch, decode
               ms per step (building the caches timed apart) and tokens/s at
-              B=16 (max_len 224) on both paths, and K5, K2h-out, K3c, K9
-              (and K6 at this shape) alone;
+              B=16 (max_len 224) on both paths, and K5, K2h-out (beside
+              cuBLAS addmm, its library_ms), K3c, K9 (and K6 at this shape)
+              alone;
 9. int8     - main path 5, int8 Whisper large-v3 serving: K9's int8 half
-              (cross Tk 1536, self Tk 256 and 128), K10 (R 1, 2, 4, 7, 8,
-              16, 64, each of the kernel's row-block instances, at the
-              decoder's three shapes) and K11 (R 7, 8, 16 at V=51866; R 5,
-              40, 64 at a ragged D) against their plain
-              versions; ModelBundle.quantize() of phase 8's bundle and
+              (cross Tk 1536, self Tk 256 and 128), K10 (one cluster launch
+              with the bias folded in: R 1, 2, 4, 7, 8, 16, 32, 64, each of
+              its 16-row-tile instances, at the decoder's three shapes, with
+              and without a bias, two launches bitwise equal) and K11 (R 7,
+              8, 16 at V=51866; R 5, 40, 64 at a ragged D) against their
+              plain versions; ModelBundle.quantize() of phase 8's bundle and
               api.transcribe of the six requests (B=7: K9-int8 on the cross
               caches, K9 on bf16 self caches, K10 256 and K11 once a step,
               exactly), greedy_from_enc at B=16 (int8 self caches: K9-int8
@@ -161,7 +164,7 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
     # the out-projection + residual of the head-group-split K2h, which the TPU
     # runs for the large-v3 encoder; on the card K5 -> K6 -> this launch
     ("K2h-out", "K2h out_proj_residual", "ops.fused_attention", "OUT_COUNTER",
-     "csrc/attention.cu", TPU + "ops/fused_attention.py:387"),
+     "csrc/out_proj.cu", TPU + "ops/fused_attention.py:387"),
     ("K9", "K9 grouped_decode_attention", "ops.decode_attention", "COUNTER",
      "csrc/decode_attention.cu", TPU + "ops/decode_attention.py:151"),
     # K9's int8 half: the same kernel templated on the cache type
@@ -256,6 +259,14 @@ def margins(logits):
 def device_ms(fn, iters: int = 20) -> float:
     """The port's utils.timing.device_ms, imported once the port is on the path."""
     from jiao_liao_speech_recognition_torch.utils.timing import device_ms as timed
+
+    return timed(fn, iters)
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """The port's utils.timing.queued_ms (device_ms's stand-in when the
+    profiler sees no device time)."""
+    from jiao_liao_speech_recognition_torch.utils.timing import queued_ms as timed
 
     return timed(fn, iters)
 
@@ -1067,9 +1078,14 @@ def phase_whisper_kernels():
     errs["K5"] = max(_ulp_check("K5", a, b, part=n, B=B, T=T, d=d)
                      for n, a, b in zip("qkv", got, want))
     del got, want
-    out_args = (x, f32(B, T, d, s=1.0).to(torch.bfloat16), f32(d, d), f32(d))
-    errs["K2h-out"] = _ulp_check("K2h-out", fused_attention.out_proj_residual(*out_args),
-                                 fused_attention.out_proj_residual_plain(*out_args), B=B, T=T, d=d)
+    # K2h-out at B=16 and at the six requests' seven chunks (a ragged last
+    # 128-row tile)
+    wo, bo = f32(d, d).to(torch.bfloat16), f32(d, s=0.5).to(torch.bfloat16)
+    for b in (B, 7):
+        out_args = (x[:b], f32(b, T, d, s=1.0).to(torch.bfloat16), wo, bo)
+        err = _ulp_check("K2h-out", fused_attention.out_proj_residual(*out_args),
+                         fused_attention.out_proj_residual_plain(*out_args), B=b, T=T, d=d)
+        errs["K2h-out"] = max(errs.get("K2h-out", 0.0), err)
     del out_args
     mlp_args = (x, *ln, f32(d, mlp), f32(mlp), f32(mlp, d), f32(d), 1e-5, "erf")
     errs["K3c"] = _ulp_check("K3c", fused_mlp.fused_ln_mlp_residual(*mlp_args),
@@ -1288,8 +1304,12 @@ def phase_whisper_timing(bundle):
         "K9-self": k9(tk_self),
     }
     library = {"K6-whisper": _yardsticks().sdpa_ms(q, k, v, kl, q)[0]}  # forward's time
+    # K2h-out: cuBLAS's product with the residual as its C operand (one call;
+    # it rounds once and adds no bias, the nearest library function)
+    x2, a2 = out_args[0].view(B * T, d), out_args[1].view(B * T, d)
     with torch.inference_mode():
-        library.update({"K9": sdpa9(tk_cross), "K9-self": sdpa9(tk_self)})
+        library.update({"K9": sdpa9(tk_cross), "K9-self": sdpa9(tk_self),
+                        "K2h-out": cuda_ms(lambda: torch.addmm(x2, a2, out_args[2]), 20)})
     act = B * T * d * 2
 
     def w_bytes(ts):
@@ -1324,11 +1344,6 @@ def phase_whisper_timing(bundle):
                         "bound_by": bound_by, "library_ms": library.get(key)}
             emit({"phase": "timing", "kernel": key, "shape": shapes[key], **rec[key],
                   "turns_ms": [p1, k1, k2, p2]})
-        # no single library call is K2h-out's function; for scale, cuBLAS's
-        # product with the residual as its C operand (no bias, one rounding)
-        x2, a2, wo2 = out_args[0].view(B * T, d), out_args[1].view(B * T, d), out_args[2]
-        emit({"phase": "timing", "kernel": "K2h-out", "shape": shapes["K2h-out"],
-              "cublas_addmm_ms": cuda_ms(lambda: torch.addmm(x2, a2, wo2))})
     return rec
 
 
@@ -1379,15 +1394,20 @@ def phase_int8_kernels():
         err = _ulp_check("K9-int8", got, want, Tk=tk, lens=[int(n) for n in lens[-4:]])
         check(bool(torch.isfinite(got).all()), "K9-int8: a row is not finite")
         errs["K9-int8"] = max(errs.get("K9-int8", 0.0), err)
-    # jl_int8_matmul's instances: RB 1 (R=1), 2, 4, 8 (R=7 serving, R=8
-    # timing), 16 (R=16, and R=64 over four row blocks)
-    for R in (1, 2, 4, 7, 8, 16, 64):
+    # jl_int8_matmul's instances: one 16-row tile (R <= 16: R=7 serving, R=8
+    # timing, R=16), two (R=32), four (R=64); each with and without a bias,
+    # and two launches on the same inputs bitwise equal
+    for R in (1, 2, 4, 7, 8, 16, 32, 64):
         for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
             x = randn(R, d_in).to(torch.bfloat16)
             q, sc = quant.quantize_int8(randn(d_in, d_out, s=d_in ** -0.5))
-            err = _ulp_check("K10", quant.int8_gemv(x, q, sc), quant.int8_matmul_plain(x, q, sc),
-                             R=R, d_in=d_in, d_out=d_out)
-            errs["K10"] = max(errs.get("K10", 0.0), err)
+            for bias in (None, randn(d_out, s=0.5).to(torch.bfloat16)):
+                got = quant.int8_gemv(x, q, sc, bias)
+                again = quant.int8_gemv(x, q, sc, bias)
+                err = _ulp_check("K10", got, quant.int8_matmul_plain(x, q, sc, bias), R=R,
+                                 d_in=d_in, d_out=d_out, bias=bias is not None)
+                check(torch.equal(got, again), f"K10 R={R} {d_in}x{d_out}: two launches differ")
+                errs["K10"] = max(errs.get("K10", 0.0), err)
     # jl_int8_tied_logits' instances: one 16-row tile (R <= 16), two, four
     for R, D, V in ((7, d, w.vocab_size), (8, d, w.vocab_size), (16, d, w.vocab_size),
                     (5, 200, 301), (40, 200, 301), (64, 200, 301)):
@@ -1555,7 +1575,8 @@ def phase_int8_timing(qbundle):
 def phase_int8_kernel_timing():
     """K9-int8, K10 and K11 alone (device time, so the host's dispatch of
     these short launches is left out) beside the bf16 operation each
-    replaces, with their bounds."""
+    replaces, with their bounds; each kernel also by queued_ms, the CUDA-event
+    timing that device_ms falls back on when the profiler sees nothing."""
     import torch
 
     from jiao_liao_speech_recognition_torch.ops import decode_attention as da
@@ -1581,7 +1602,8 @@ def phase_int8_kernel_timing():
     table_bf16 = (table[0].float() * table[1][:, None]).to(bf)
     # the caches and the table exceed the 50 MB L2 on their own; a K10
     # weight does not, and a decode step streams 0.9 GB between two reads of
-    # one, so each K10 timing cycles through enough copies to exceed it twice
+    # one, so each K10 timing cycles through enough copies to exceed it twice;
+    # K10 with a bias, as 224 of a step's 256 launches (k_proj has none)
     pairs = {
         "K9-int8": (lambda: da.grouped_decode_attention(qh, kq, vq, lens, k_scale=ks, v_scale=vs),
                     lambda: da.decode_attention_plain(qh, kq, vq, lens, k_scale=ks, v_scale=vs),
@@ -1594,17 +1616,19 @@ def phase_int8_kernel_timing():
         sets = [quant.quantize_int8(randn(d_in, d_out, s=d_in ** -0.5))
                 for _ in range(math.ceil(2 * L2_BYTES / (d_in * d_out)))]
         wb = [(q.float() * sc).to(bf) for q, sc in sets]
-        xi = x[d_in]
+        xi, bi = x[d_in], randn(d_out, s=0.5).to(bf)
         pairs[f"K10 {d_in}x{d_out}"] = (
-            cycle([lambda q=q, sc=sc, xi=xi: quant.int8_gemv(xi, q, sc) for q, sc in sets]),
-            cycle([lambda q=q, sc=sc, xi=xi: quant.int8_matmul_plain(xi, q, sc) for q, sc in sets]),
+            cycle([lambda q=q, sc=sc, xi=xi, bi=bi: quant.int8_gemv(xi, q, sc, bi)
+                   for q, sc in sets]),
+            cycle([lambda q=q, sc=sc, xi=xi, bi=bi: quant.int8_matmul_plain(xi, q, sc, bi)
+                   for q, sc in sets]),
             cycle([lambda w2=w2, xi=xi: torch.matmul(xi, w2) for w2 in wb]))
     n = B * H * T  # keys read by K9: the valid prefix
     work = {"K9-int8": (B * H * dh * 2 + B * H * dh * 4 + B * 4 + 2 * n * (dh + 4),
                         {"bf16": 4.0 * n * dh}),
             "K11": (V * d + V * 4 + B * d * 2 + B * V * 4, {"bf16": 2.0 * B * V * d})}
     for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
-        work[f"K10 {d_in}x{d_out}"] = (d_in * d_out + d_out * 4 + 2 * B * (d_in + d_out),
+        work[f"K10 {d_in}x{d_out}"] = (d_in * d_out + d_out * 6 + 2 * B * (d_in + d_out),
                                        {"bf16": 2.0 * B * d_in * d_out})
     library = {"K9-int8": "K9 (bf16 caches, same shape)", "K11": "bf16 tied logits (cuBLAS)"}
     rec = {}
@@ -1615,7 +1639,7 @@ def phase_int8_kernel_timing():
             row = {"ms": (turns[1] + turns[2]) / 2, "plain_ms": (turns[0] + turns[3]) / 2,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": device_ms(lib)}
             emit({"phase": "timing", "kernel": key, "B": B, **row, "turns_ms": turns,
-                  "ms_with_dispatch": cuda_ms(kern, 50),
+                  "ms_with_dispatch": cuda_ms(kern, 50), "ms_queued": queued_ms(kern),
                   "library": library.get(key, "cuBLAS bf16 matmul, same shape")})
             rec[key] = row
     # the table's K10 row: the d x d projection, six of a block's eight launches

@@ -30,8 +30,8 @@
 //     reference). The bf16 head outputs of all heads stay in shared memory
 //     and go through one out-projection product, then + x, then + bo.
 // Where launch 2 does not fit (d = 1280), jl_ln_qkv is K5 and the flash
-// kernel takes the attention; jl_out_proj_residual then does the
-// out-projection and the residual (below).
+// kernel takes the attention; jl_out_proj_residual (out_proj.cu) then does
+// the out-projection and the residual.
 #include "common.cuh"
 
 #include <float.h>
@@ -255,46 +255,6 @@ attention_out_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lens,
   }
 }
 
-// attn [M, D] bf16 (the heads' outputs, head-packed), x [M, D] bf16,
-// wo [D, D] bf16, bo [D] bf16 -> out [M, D] = x + (bf16(attn . wo) + bo)
-//
-// The out-projection and residual of the attention sublayer where
-// jl_attention_out does not fit (d = 1280: its [64, D] head-output tile plus
-// the product tile need 252,928 B): after jl_ln_qkv and the flash kernel,
-// this launch finishes what the TPU's head-group-split kernel does in its
-// own body. One block per 64-row tile, staged in shared memory like
-// jl_ln_qkv's LN tile. The add order is the module path's and the JAX
-// block's long-context route's (rounded product + bias, then + x), not
-// jl_attention_out's ((x + product) + bias): a one-ulp difference.
-__global__ void __launch_bounds__(kThreads)
-out_proj_residual_kernel(const bf16* __restrict__ attn, const bf16* __restrict__ x,
-                         const bf16* __restrict__ wo, const bf16* __restrict__ bo,
-                         bf16* __restrict__ out, int M, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = D + kPad, ldc = BN + 4;
-  bf16* a = reinterpret_cast<bf16*>(smem);
-  float* c = reinterpret_cast<float*>(smem + align128((size_t)BM * lda * 2));
-  const int row0 = blockIdx.x * BM;
-
-  load_tile_bf16(attn, D, row0, BM, M, 0, D, a);
-  __syncthreads();
-  for (int n0 = 0; n0 < D; n0 += BN) {
-    FragC acc[2][2];
-    tile_64x128(a, lda, wo, D, n0, D, acc);
-    store_64x128(c, ldc, acc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
-      const int r = i / BN, col = i % BN;
-      if (row0 + r < M) {
-        const size_t at = (size_t)(row0 + r) * D + n0 + col;
-        const float y = round_bf16(round_bf16(c[r * ldc + col]) + __bfloat162float(bo[n0 + col]));
-        out[at] = __float2bfloat16(__bfloat162float(x[at]) + y);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 template <int DH>
 int launch_attention_out(const bf16* qkv, const int* lens, const bf16* x, const bf16* wo,
                          const bf16* bo, bf16* out, int B, int T, int H,
@@ -324,18 +284,6 @@ extern "C" int jl_ln_qkv(const bf16* x, const float* g, const float* bl, const b
   if (err != cudaSuccess) return (int)err;
   ln_qkv_kernel<<<ceil_div(M, BM), kThreads, smem, stream>>>(x, g, bl, w, bias, out, M, d, N,
                                                              eps);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int jl_out_proj_residual(const bf16* attn, const bf16* x, const bf16* wo,
-                                    const bf16* bo, bf16* out, int M, int D,
-                                    cudaStream_t stream) {
-  const size_t smem = align128((size_t)BM * (D + kPad) * 2) + (size_t)BM * (BN + 4) * 4;
-  cudaError_t err = cudaFuncSetAttribute(out_proj_residual_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  out_proj_residual_kernel<<<ceil_div(M, BM), kThreads, smem, stream>>>(attn, x, wo, bo, out, M,
-                                                                        D);
   return (int)cudaGetLastError();
 }
 

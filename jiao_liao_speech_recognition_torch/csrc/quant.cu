@@ -1,23 +1,37 @@
 // K10 and K11: int8 weight-only products of a decode step.
 //
 // K10, jl_int8_matmul, replaces ops/quant.py::int8_matmul of the JAX package
-// (_int8_matmul_pallas / _int8_gemv_kernel): y = (x . q) * s for x bf16
-// [R <= 64, d_in], q int8 [d_in, d_out] (per-output-channel), s f32 [d_out]
-// -> y bf16 [R, d_out]. The product accumulates in f32 (int8 -> float is
-// exact), s is applied once per column and y is rounded to bf16 once.
+// (_int8_matmul_pallas / _int8_gemv_kernel) and the bias add of its caller
+// (models/adapters.py, the dense_q branch): y = bf16(bf16((x . q) * s) + bias)
+// for x bf16 [R <= 64, d_in], q int8 [d_in, d_out] (per-output-channel), s
+// f32 [d_out] and an optional bf16 bias [d_out] (without one, y is the
+// inner rounding). The product accumulates in f32 (int8 -> bf16 is exact).
 //
-// What bounds it on the H100: device-memory bytes. A decode step streams
-// every decoder weight once (large-v3: 256 launches, 0.84 GB of int8) for
-// 2R flops per byte; a 1280 x 1280 matrix is 1.6 MB (0.5 us at 3.35 TB/s),
-// too little for one block per 64 columns (20 blocks) to pull bandwidth.
-// Design: a block owns 32 columns and a 256-row chunk of d_in (grid 40 x 5 at
-// 1280 x 1280, 40 x 20 at 5120 -> 1280): each thread reads 4 columns (one
-// 4-byte load) of 8 rows, all eight loads issued before the FMAs, and keeps
-// up to 16 rows of x's f32 sums in registers (x is staged in shared memory,
-// f32, transposed); the 32 k-lanes reduce by shuffles and shared memory in a
-// fixed order into an f32 partial buffer [chunks, R, d_out], and a second
-// launch sums the chunks in order, scales and rounds. No atomics, so every
-// run sums in the same order. Rows past 16 take more blocks (grid z).
+// What bounds it on the H100: device-memory bytes, and the latency of
+// getting them in flight. A decode step streams every decoder weight once
+// (large-v3: 256 launches, 0.84 GB of int8); a 1280 x 1280 matrix is 1.6 MB
+// (0.5 us at 3.35 TB/s), so the whole matrix has to be requested at once.
+// Design, one launch: a cluster of 8 blocks owns a 64-column strip of q, and
+// block `rank` of it a k-slice of up to 8 x 160 rows (160 at d_in 1280, 640
+// at 5120). Each block's slice is requested whole as soon as the block
+// starts: up to 8 TMA boxes of [160 k][64 bytes], each on its own mbarrier,
+// consumed in order as they land. The products run on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulators): x is the A operand (up to
+// four 16-row tiles staged in shared memory, zero past R), q the B operand.
+// A lane loads one 4-byte word (4 columns) from each of its fragment's four
+// k rows and converts byte j of each to the fragment of column 4g + j of
+// n8 tile j, so a warp's four n8 tiles cover 32 columns with no transposed
+// copy of q; the output columns are permuted back at the store. The four
+// warps split a strip's two 32-column halves and the k16 steps (even, odd);
+// the two k16-step partials add in shared memory, then each rank sends each
+// column of its partial [R, 64] through distributed shared memory to the
+// rank that owns the column (8 of the 64 each); after one cluster barrier a
+// rank sums its eight received partials in rank order, scales, rounds, adds
+// the bias, rounds and stores. No scratch in device memory, no atomics, one
+// launch: every run sums in the same order, so two runs on the same inputs
+// are bitwise equal.
+// Every row count takes the tensor cores (R <= 8 fills half of the 16-row
+// tile): the products are not what bounds the kernel, the bytes are.
 //
 // K11, jl_int8_tied_logits, replaces ops/quant.py::int8_tied_logits
 // (_int8_tied_logits_pallas / _int8_logits_kernel): logits = (x . q^T) * s
@@ -36,6 +50,9 @@
 // A block of 8 warps owns 256 vocab rows (4 n8 tiles a warp); the ragged
 // vocab tail is masked and any D is taken (D % 16 != 0 reads bytes).
 #include "common.cuh"
+#include "tma.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -43,110 +60,7 @@ using namespace jl;
 
 constexpr int kWarps = kThreads / 32;
 
-// --- K10 -----------------------------------------------------------------------
-
-constexpr int kCols = 32;    // output columns per block: 8 lanes x 4
-constexpr int kChunk = 256;  // d_in rows per block: 32 k-lanes x 8
-constexpr int kKIter = kChunk / 32;
-
-template <int RB>
-__global__ void __launch_bounds__(kThreads)
-int8_gemv_partial(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                  float* __restrict__ part, int R, int d_in, int d_out) {
-  __shared__ float xs[kChunk][RB + 1];  // x of this chunk, f32, [k][row]
-  __shared__ float red[kWarps][RB][kCols];
-  const int cl = threadIdx.x % 8, kl = threadIdx.x / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col0 = blockIdx.x * kCols + cl * 4;
-  const int k0 = blockIdx.y * kChunk;
-  const int r0 = blockIdx.z * RB;
-
-  // thread t stages column k0 + t of the RB rows: consecutive threads read
-  // consecutive columns, and all RB loads are issued before the stores
-  static_assert(kChunk == kThreads, "one staged column per thread");
-  const int kx = k0 + threadIdx.x;
-  float val[RB];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-    val[r] = r0 + r < R && kx < d_in ? __bfloat162float(x[(size_t)(r0 + r) * d_in + kx]) : 0.f;
-#pragma unroll
-  for (int r = 0; r < RB; ++r) xs[threadIdx.x][r] = val[r];
-  __syncthreads();
-
-  char4 w[kKIter];
-#pragma unroll
-  for (int it = 0; it < kKIter; ++it) {
-    const int k = k0 + kl + it * 32;
-    w[it] = make_char4(0, 0, 0, 0);
-    if (col0 < d_out && k < d_in)
-      w[it] = *reinterpret_cast<const char4*>(q + (size_t)k * d_out + col0);
-  }
-  float acc[RB][4];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll
-  for (int it = 0; it < kKIter; ++it) {
-    const float w0 = w[it].x, w1 = w[it].y, w2 = w[it].z, w3 = w[it].w;
-    const float* xr = xs[kl + it * 32];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const float xv = xr[r];
-      acc[r][0] = fmaf(xv, w0, acc[r][0]);
-      acc[r][1] = fmaf(xv, w1, acc[r][1]);
-      acc[r][2] = fmaf(xv, w2, acc[r][2]);
-      acc[r][3] = fmaf(xv, w3, acc[r][3]);
-    }
-  }
-  // the four k-lanes of a warp (lanes 8 apart), then the eight warps
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float a = acc[r][c];
-      a += __shfl_xor_sync(0xffffffffu, a, 8);
-      a += __shfl_xor_sync(0xffffffffu, a, 16);
-      if (lane < 8) red[warp][r][cl * 4 + c] = a;
-    }
-  __syncthreads();
-  for (int i = threadIdx.x; i < RB * kCols; i += kThreads) {
-    const int r = i / kCols, c = i % kCols;
-    float a = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kWarps; ++wp) a += red[wp][r][c];
-    const int row = r0 + r, col = blockIdx.x * kCols + c;
-    if (row < R && col < d_out) part[((size_t)blockIdx.y * R + row) * d_out + col] = a;
-  }
-}
-
-__global__ void int8_gemv_finish(const float* __restrict__ part, const float* __restrict__ s,
-                                 bf16* __restrict__ y, int R, int d_out, int chunks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R * d_out) return;
-  float a = 0.f;
-  for (int c = 0; c < chunks; ++c) a += part[(size_t)c * R * d_out + i];
-  y[i] = __float2bfloat16(a * s[i % d_out]);
-}
-
-template <int RB>
-int gemv(const bf16* x, const int8_t* q, const float* s, float* part, bf16* y, int R, int d_in,
-         int d_out, cudaStream_t stream) {
-  const int chunks = ceil_div(d_in, kChunk);
-  const dim3 grid(ceil_div(d_out, kCols), chunks, ceil_div(R, RB));
-  int8_gemv_partial<RB><<<grid, kThreads, 0, stream>>>(x, q, part, R, d_in, d_out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  int8_gemv_finish<<<ceil_div(R * d_out, kThreads), kThreads, 0, stream>>>(part, s, y, R, d_out,
-                                                                           chunks);
-  return (int)cudaGetLastError();
-}
-
-// --- K11 -----------------------------------------------------------------------
-
-constexpr int kNT = 4;                     // n8 vocab tiles per warp
-constexpr int kVocabPerBlock = kWarps * kNT * 8;
-
+// int8 -> bf16 (exact) of two bytes, packed as one B fragment register
 __device__ inline uint32_t bf16x2_of_int8(int8_t lo, int8_t hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
   return *reinterpret_cast<const uint32_t*>(&h);
@@ -160,6 +74,172 @@ __device__ inline void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
+
+// --- K10 -----------------------------------------------------------------------
+
+constexpr int kRanks = 8;        // blocks of a cluster: the k-slices of one strip
+constexpr int kStrip = 64;       // output columns a cluster owns: bytes of a q row a box reads
+constexpr int kRankCols = kStrip / kRanks;  // columns each rank reduces and stores
+constexpr int kChunkRows = 160;  // most k rows of one TMA box
+constexpr int kMaxChunks = 8;
+// a warp covers 32 columns; the warps of a column group split its k16 steps
+constexpr int kGroups = kStrip / 32;
+constexpr int kMatmulWarps = kGroups > 4 ? kGroups : 4;
+constexpr int kParities = kMatmulWarps / kGroups;
+constexpr int kMatmulThreads = 32 * kMatmulWarps;
+
+__device__ inline uint32_t ld_u32(const void* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// one block of the cluster owning columns [n0, n0 + kStrip): rows [k0, k0 +
+// ks) of q in nc chunks of kc rows; MT 16-row tiles of x
+template <int MT>
+__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kMatmulThreads)
+int8_matmul_kernel(const __grid_constant__ CUtensorMap tq, const bf16* __restrict__ x,
+                   const float* __restrict__ s, const bf16* __restrict__ bias,
+                   bf16* __restrict__ y, int R, int d_in, int d_out, int kc, int nc) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to 128 below
+  constexpr int kRows = MT * 16;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ks = kc * nc, ldx = ks + kPad;
+  const int n0 = blockIdx.y * kStrip, k0 = rank * ks;
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* w = smem_raw + (((raw + 127) & ~127u) - raw);  // [nc * kc][kStrip] int8
+  bf16* xs = reinterpret_cast<bf16*>(w + (size_t)ks * kStrip);  // [kRows][ldx]
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(xs) + align128((size_t)kRows * ldx * sizeof(bf16)));
+  float* recv = red + kParities * kRows * kStrip;  // [kRanks][kRows][kRankCols]: received
+  uint64_t* bars = reinterpret_cast<uint64_t*>(recv + kRows * kStrip);
+
+  // the cluster's blocks have all started before any writes into another's
+  // shared memory: this arrival is waited for just before the first write
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < nc; ++c) mbar_init(&bars[c], 1);
+    fence_barrier_init();
+    for (int c = 0; c < nc; ++c) {
+      mbar_arrive_expect_tx(&bars[c], (uint32_t)kc * kStrip);
+      tma_load_2d(w + (size_t)c * kc * kStrip, &tq, n0, k0 + c * kc, &bars[c]);
+    }
+  }
+  // the scale and bias of the one column this thread stores (kMatmulThreads
+  // is a multiple of kRankCols), read now rather than after the reduction
+  static_assert(kMatmulThreads % kRankCols == 0, "one stored column per thread");
+  const int n_out = n0 + rank * kRankCols + threadIdx.x % kRankCols;
+  const float s_out = n_out < d_out ? s[n_out] : 0.f;
+  const float b_out = bias != nullptr && n_out < d_out ? __bfloat162float(bias[n_out]) : 0.f;
+  // x's k-slice, zero past R and d_in (d_in % 8 == 0: a vector is all in or out)
+  const int vecs = ks / 8;
+  for (int i = threadIdx.x; i < kRows * vecs; i += kMatmulThreads) {
+    const int r = i / vecs, k = (i % vecs) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R && k0 + k < d_in)
+      v = *reinterpret_cast<const uint4*>(x + (size_t)r * d_in + k0 + k);
+    *reinterpret_cast<uint4*>(xs + (size_t)r * ldx + k) = v;
+  }
+  __syncthreads();  // xs written; the barriers initialised
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = warp % kGroups, parity = warp / kGroups;
+  const int g = lane / 4, t = lane % 4;  // mma group and thread in group
+  float acc[MT][4][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  const int steps = kc / 16;
+  for (int c = 0; c < nc; ++c) {
+    mbar_wait(&bars[c], 0);
+    const uint8_t* wc = w + (size_t)c * kc * kStrip + group * 32 + 4 * g;
+    for (int st = parity; st < steps; st += kParities) {
+      // fragment rows k = 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of this k16
+      // step, columns 4g .. 4g + 3 of this group
+      const uint8_t* wr = wc + (size_t)(16 * st + 2 * t) * kStrip;
+      const uint32_t w0 = ld_u32(wr), w1 = ld_u32(wr + kStrip);
+      const uint32_t w2 = ld_u32(wr + 8 * kStrip), w3 = ld_u32(wr + 9 * kStrip);
+      const int kx = c * kc + 16 * st + 2 * t;
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const bf16* xr = xs + (size_t)(16 * m + g) * ldx + kx;
+        a[m][0] = ld_u32(xr);
+        a[m][1] = ld_u32(xr + 8 * ldx);
+        a[m][2] = ld_u32(xr + 8);
+        a[m][3] = ld_u32(xr + 8 * ldx + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // n8 tile j: column 4g + j of the group
+        const uint32_t b0 = bf16x2_of_int8(static_cast<int8_t>(w0 >> (8 * j)),
+                                           static_cast<int8_t>(w1 >> (8 * j)));
+        const uint32_t b1 = bf16x2_of_int8(static_cast<int8_t>(w2 >> (8 * j)),
+                                           static_cast<int8_t>(w3 >> (8 * j)));
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          mma_bf16(acc[m][j], a[m][0], a[m][1], a[m][2], a[m][3], b0, b1);
+      }
+    }
+  }
+  // accumulator (g [+ 8], 2t + (e & 1)) of n8 tile j is column 4 (2t + (e & 1)) + j
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * m + g + 8 * (e >> 1);
+        const int col = group * 32 + 8 * t + 4 * (e & 1) + j;
+        red[(parity * kRows + row) * kStrip + col] = acc[m][j][e];
+      }
+  __syncthreads();
+  // this block's partial (its k16-step parities in order), each column sent
+  // to the rank that stores it, into that rank's slot for this rank
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  for (int i = threadIdx.x; i < R * kStrip; i += kMatmulThreads) {
+    const int row = i / kStrip, col = i % kStrip;
+    float p = red[i];
+#pragma unroll
+    for (int q = 1; q < kParities; ++q) p += red[q * kRows * kStrip + i];
+    float* dst = cluster.map_shared_rank(recv, col / kRankCols);
+    dst[(rank * kRows + row) * kRankCols + col % kRankCols] = p;
+  }
+  cluster.sync();  // every rank's partials have landed
+
+  for (int i = threadIdx.x; i < R * kRankCols; i += kMatmulThreads) {
+    const int row = i / kRankCols, c = i % kRankCols;
+    float a = 0.f;
+#pragma unroll
+    for (int q = 0; q < kRanks; ++q) a += recv[(q * kRows + row) * kRankCols + c];
+    if (n_out < d_out) {
+      float v = round_bf16(a * s_out);
+      if (bias != nullptr) v += b_out;
+      y[(size_t)row * d_out + n_out] = __float2bfloat16(v);
+    }
+  }
+}
+
+template <int MT>
+int matmul(const CUtensorMap& tq, const bf16* x, const float* s, const bf16* bias, bf16* y,
+           int R, int d_in, int d_out, int kc, int nc, cudaStream_t stream) {
+  const int ks = kc * nc;
+  const size_t smem = 128 + (size_t)ks * kStrip + align128((size_t)MT * 16 * (ks + kPad) * 2) +
+                      (size_t)(kParities + 1) * MT * 16 * kStrip * 4 + (size_t)nc * 8;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(int8_matmul_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(kRanks, ceil_div(d_out, kStrip));
+  int8_matmul_kernel<MT><<<grid, kMatmulThreads, smem, stream>>>(tq, x, s, bias, y, R, d_in,
+                                                                 d_out, kc, nc);
+  return (int)cudaGetLastError();
+}
+
+// --- K11 -----------------------------------------------------------------------
+
+constexpr int kNT = 4;                     // n8 vocab tiles per warp
+constexpr int kVocabPerBlock = kWarps * kNT * 8;
 
 // x [R, D] bf16, q [V, D] int8, s [V] f32 -> out [R, V] f32; MT 16-row tiles
 template <int MT>
@@ -256,15 +336,23 @@ int logits(const bf16* x, const int8_t* q, const float* s, float* out, int R, in
 
 }  // namespace
 
-// part: f32 scratch [ceil(d_in / 256), R, d_out] (the wrapper allocates it)
-extern "C" int jl_int8_matmul(const bf16* x, const int8_t* q, const float* s, float* part,
+// bias: bf16 [d_out] or null. d_in % 8 == 0, d_out % 16 == 0 (the TMA row
+// pitch), d_in at most 8 x 8 x 160 (less at large R: shared memory).
+extern "C" int jl_int8_matmul(const bf16* x, const int8_t* q, const float* s, const bf16* bias,
                               bf16* y, int R, int d_in, int d_out, cudaStream_t stream) {
-  if (R <= 0 || R > 64 || d_out % 4) return (int)cudaErrorInvalidValue;
-  if (R == 1) return gemv<1>(x, q, s, part, y, R, d_in, d_out, stream);
-  if (R <= 2) return gemv<2>(x, q, s, part, y, R, d_in, d_out, stream);
-  if (R <= 4) return gemv<4>(x, q, s, part, y, R, d_in, d_out, stream);
-  if (R <= 8) return gemv<8>(x, q, s, part, y, R, d_in, d_out, stream);
-  return gemv<16>(x, q, s, part, y, R, d_in, d_out, stream);
+  if (R <= 0 || R > 64 || d_in <= 0 || d_in % 8 || d_out <= 0 || d_out % 16)
+    return (int)cudaErrorInvalidValue;
+  const int per_rank = ceil_div(ceil_div(d_in, kRanks), 16) * 16;
+  const int nc = ceil_div(per_rank, kChunkRows);
+  const int kc = ceil_div(ceil_div(per_rank, nc), 16) * 16;
+  if (nc > kMaxChunks) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq;
+  if (!make_tmap_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, d_out, d_in, d_out, kStrip, kc,
+                    CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  if (R <= 16) return matmul<1>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
+  if (R <= 32) return matmul<2>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
+  return matmul<4>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
 }
 
 extern "C" int jl_int8_tied_logits(const bf16* x, const int8_t* q, const float* s, float* out,

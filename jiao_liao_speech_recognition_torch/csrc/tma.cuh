@@ -1,0 +1,133 @@
+// Hopper's asynchronous copies for the port's kernels: mbarriers, TMA tile
+// loads (cp.async.bulk.tensor) and the host-side tensor maps that describe
+// them. Raw PTX as in the PTX ISA; no CUTLASS.
+//
+// Tensor maps are encoded with the driver's cuTensorMapEncodeTiled, found
+// through the runtime (cudaGetDriverEntryPoint*), so the library needs no
+// link against libcuda.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace jl {
+
+// --- device side ----------------------------------------------------------------
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (and the cluster)
+__device__ inline void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// orders this thread's generic-proxy shared-memory accesses with the async
+// proxy's (TMA, wgmma) before buffers change hands
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic to come
+__device__ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ inline uint64_t global_timer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A wait that has not completed after this long is a fault (a copy that was
+// never issued, a wrong phase): trap, so the launch fails instead of hanging.
+constexpr uint64_t kWaitLimitNs = 4000000000ull;
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.b32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = global_timer_ns();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > kWaitLimitNs) __trap();
+  }
+}
+
+// TMA: the box of `map` at coordinates (c0 innermost, c1) into shared memory
+// at `dst`; completion is counted in bytes on `bar`
+__device__ inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                   uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// --- host side ------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A tiled map over a row-major [outer][inner] tensor (row pitch `row_bytes`,
+// a multiple of 16) with boxes of [box_outer][box_inner]. Reads past the
+// tensor's edge fill the box with zeros. -> false if the driver refused it.
+inline bool make_tmap_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                         uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                         uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace jl

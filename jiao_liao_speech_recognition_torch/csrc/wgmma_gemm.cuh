@@ -1,0 +1,165 @@
+// The mainloop of a TMA-fed wgmma GEMM for Hopper (sm_90a), written to be
+// shared: C[128 x 128 tile] = A . B in f32 for bf16 A [M, K] row-major
+// (K-major) and bf16 B [K, N] row-major (N-major, as the JAX Dense kernels
+// are stored: [in, out]). The caller owns the epilogue.
+//
+// A block runs one output tile with three roles:
+//  * a producer warp (warp 8) that keeps STAGES k-blocks of 64 in flight:
+//    per stage one TMA box of A (128 rows x 64, 16 KB) and two of B (64 x 64
+//    each, 16 KB), all with the 128-byte swizzle, counted on the stage's
+//    "full" mbarrier;
+//  * two consumer warpgroups (warps 0-3 and 4-7), each issuing wgmma
+//    m64n128k16 (bf16 in, f32 accumulators in registers: 64 a thread) on
+//    its 64 rows of the stage, then releasing the stage on its "empty"
+//    mbarrier once the products that read it have completed.
+// B needs no transposed copy: wgmma reads an N-major B through its
+// descriptor (imm-trans-b = 1), whose 64-column blocks lie 8 KB apart (the
+// leading byte offset) and whose 8-row k groups lie 1 KB apart (the stride
+// byte offset). A is K-major: 8-row groups 1 KB apart, a k16 step 32 bytes
+// further into the 128-byte swizzled row.
+#pragma once
+
+#include "tma.cuh"
+
+namespace jl {
+namespace wg {
+
+constexpr int kBM = 128;  // tile rows: two warpgroups of 64
+constexpr int kBN = 128;  // tile columns: one m64n128 product a warpgroup
+constexpr int kBK = 64;   // k per stage: one 128-byte swizzled row of bf16
+constexpr int kConsumerThreads = 256;
+constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
+constexpr uint32_t kABytes = kBM * kBK * 2;
+constexpr uint32_t kBSlabBytes = kBK * 64 * 2;  // 64 k rows x 64 columns
+constexpr uint32_t kStageBytes = kABytes + 2 * kBSlabBytes;
+constexpr int kConsumerBarrier = 1;  // named barrier of the 256 consumer threads
+
+// dynamic shared memory of a block with `stages` stages: the stages, 1 KB to
+// align them for the swizzle, and the 2 x stages barriers
+__host__ __device__ constexpr size_t smem_bytes(int stages) {
+  return (size_t)stages * kStageBytes + 1024 + 2 * stages * sizeof(uint64_t);
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle (layout type 1)
+__device__ inline uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+__device__ inline void consumer_sync() {
+  asm volatile("bar.sync %0, %1;" ::"n"(kConsumerBarrier), "n"(kConsumerThreads) : "memory");
+}
+
+// d[64] += A (64 x 16, K-major) . B (16 x 128, N-major when TRANS_B == 1)
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// accumulator i of a consumer thread (tid in 0..127 of its warpgroup): its
+// row in the warpgroup's 64 and its column in the tile's 128 (the m16n8
+// fragment layout, repeated over 16 n8 column blocks)
+__device__ inline int acc_row(int tid, int i) {
+  return (tid / 32) * 16 + (tid % 32) / 4 + 8 * ((i >> 1) & 1);
+}
+__device__ inline int acc_col(int tid, int i) { return 8 * (i >> 2) + 2 * (tid % 4) + (i & 1); }
+
+// The block's shared memory: STAGES stages (1024-aligned for the swizzle),
+// then the full and empty barriers.
+template <int STAGES>
+struct Pipeline {
+  uint8_t* stages;
+  uint64_t* full;
+  uint64_t* empty;
+
+  __device__ __forceinline__ explicit Pipeline(uint8_t* smem_raw) {
+    const uint32_t raw = smem_u32(smem_raw);
+    stages = smem_raw + (((raw + 1023) & ~1023u) - raw);
+    full = reinterpret_cast<uint64_t*>(stages + (size_t)STAGES * kStageBytes);
+    empty = full + STAGES;
+  }
+
+  // one thread, before the block's first __syncthreads
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+
+  __device__ __forceinline__ uint8_t* a(int s) const {
+    return stages + (size_t)s * kStageBytes;
+  }
+  __device__ __forceinline__ uint8_t* b(int s) const { return a(s) + kABytes; }
+
+  // producer, one thread: k-blocks 0 .. kblocks-1 of the tile at (m0, n0);
+  // ta maps A with 64 x 128 boxes, tb maps B with 64 x 64 boxes
+  __device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap* tb,
+                                          int m0, int n0, int kblocks) const {
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int s = kb % STAGES;
+      if (kb >= STAGES) mbar_wait(&empty[s], ((kb / STAGES) - 1) & 1);
+      mbar_arrive_expect_tx(&full[s], kStageBytes);
+      tma_load_2d(a(s), ta, kb * kBK, m0, &full[s]);
+      tma_load_2d(b(s), tb, n0, kb * kBK, &full[s]);
+      tma_load_2d(b(s) + kBSlabBytes, tb, n0 + 64, kb * kBK, &full[s]);
+    }
+  }
+
+  // consumer warpgroup `wgi` (0 or 1): acc = its 64 rows of A . B over all
+  // k-blocks. Returns with every product complete.
+  __device__ __forceinline__ void consume(float (&acc)[64], int wgi, int kblocks) const {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const bool signals = threadIdx.x % 128 == 0;
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int s = kb % STAGES;
+      mbar_wait(&full[s], (kb / STAGES) & 1);
+      const uint32_t a0 = smem_u32(a(s)) + wgi * 64 * 128;
+      const uint32_t b0 = smem_u32(b(s));
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBK / 16; ++j)
+        mma_m64n128k16<1>(acc, desc_sw128(a0 + 32 * j, 16, 1024),
+                          desc_sw128(b0 + 2048 * j, kBSlabBytes, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done with it
+      if (kb > 0 && signals) mbar_arrive(&empty[(kb - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+  }
+};
+
+}  // namespace wg
+}  // namespace jl

@@ -132,14 +132,16 @@ def resolve_specials(wcfg) -> Tuple[Tuple[int, ...], int]:
 def generate(bundle, mel: torch.Tensor, decode_cfg: DecodeConfig,
              generator: Optional[torch.Generator] = None):
     """The whisper branch of ModelBundle.transcribe: greedy (or temperature
-    sampling) up to min(max_decode_len, max_target_positions)."""
+    sampling) up to min(max_decode_len, max_target_positions). A beam of
+    one is greedy, as in the JAX package."""
     wcfg = bundle.config.whisper
-    if decode_cfg.strategy in ("beam", "beam_device"):
-        raise NotImplementedError(
-            f"whisper decode strategy {decode_cfg.strategy!r}: AR beam search (with the "
-            "bigram LM) comes with the Whisper beam slice")
-    if decode_cfg.strategy != "greedy":
+    if decode_cfg.strategy not in ("greedy", "beam", "beam_device"):
         raise ValueError(f"unknown whisper decode strategy {decode_cfg.strategy!r}")
+    if decode_cfg.strategy != "greedy" and decode_cfg.beam_size > 1:
+        raise NotImplementedError(
+            f"whisper decode strategy {decode_cfg.strategy!r} at beam_size "
+            f"{decode_cfg.beam_size}: AR beam search (with the bigram LM) comes with the "
+            "Whisper beam slice")
     prompt, eot = resolve_specials(wcfg)
     max_len = min(decode_cfg.max_decode_len, wcfg.max_target_positions)
     return greedy_generate(bundle.model, mel, max_len, prompt, eot, decode_cfg.temperature,

@@ -20,6 +20,7 @@ config.yaml, vocab.json.
 from __future__ import annotations
 
 import copy
+import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional, Sequence, Union
@@ -44,6 +45,17 @@ from .layers import cast_for_serving, quantized_copy
 from .whisper import WhisperModel
 
 PARAMS_FILE = "params.npz"  # flat p_a/b/c layout (models/convert.py)
+
+
+def _load_vocab(path: Path) -> CharTokenizer:
+    """A checkpoint's vocab.json: a char vocab, or a unigram one, which the
+    port cannot read yet (the JAX package's data/unigram.py)."""
+    obj = json.loads(path.read_text(encoding="utf-8"))
+    if obj.get("type") == "unigram":
+        raise NotImplementedError(
+            f"{path}: a unigram tokenizer; the port has no data/unigram.py yet "
+            "(the JAX package's UnigramTokenizer)")
+    return CharTokenizer(obj["vocab"])
 
 
 @dataclass
@@ -101,7 +113,7 @@ class ModelBundle:
 
                 tokenizer = ByteLevelBPE.from_hf_dir(ckpt)
             elif ckpt.is_dir() and (ckpt / "vocab.json").exists():
-                tokenizer = CharTokenizer.load(ckpt / "vocab.json")
+                tokenizer = _load_vocab(ckpt / "vocab.json")
         model.to(device).eval()
         if config.model_family == "whisper" and config.whisper.dtype == "bfloat16":
             cast_for_serving(model, torch.bfloat16)

@@ -171,8 +171,9 @@ class Int8Dense(nn.Module):
     """The int8 serving form of a Dense layer (the JAX package's WFDense
     ``dense_q`` branch): buffers ``kernel_q`` int8 [in, out] and ``scale``
     f32 [out] (``quantize_int8``, per output channel) and the f32 ``bias``.
-    y = int8_matmul(x, kernel_q, scale) (K10 at decode-step row counts;
-    x's dtype out), then + bias in x's dtype (kept as a serving copy)."""
+    y = int8_matmul(x, kernel_q, scale, bias) (K10 at decode-step row
+    counts, the bias, kept as a serving copy in x's dtype, added in its
+    epilogue; x's dtype out)."""
 
     def __init__(self, kernel_q: torch.Tensor, scale: torch.Tensor,
                  bias: Optional[torch.Tensor]):
@@ -183,10 +184,9 @@ class Int8Dense(nn.Module):
         self._bias = ServingCopy()
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-        y = int8_matmul(x, self.kernel_q, self.scale, kernels)
-        if self.bias is None:
-            return y
-        return y + self._bias.get(x.dtype, (self.bias,), lambda: self.bias.to(x.dtype))
+        bias = None if self.bias is None else self._bias.get(
+            x.dtype, (self.bias,), lambda: self.bias.to(x.dtype))
+        return int8_matmul(x, self.kernel_q, self.scale, kernels, bias)
 
 
 def quantized_copy(module: nn.Module) -> nn.Module:

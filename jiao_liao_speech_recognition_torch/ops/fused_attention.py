@@ -9,7 +9,8 @@ wrapper takes it only for tensors on the CPU.
 
 Where K2 does not fit (d = 1280, Whisper large-v3, which the TPU serves with
 the head-group-split kernel), the sublayer is K5 (``ops/fused_mlp.py``),
-the flash kernel and ``out_proj_residual``: three hand-written launches.
+the flash kernel and ``out_proj_residual`` (``csrc/out_proj.cu``): three
+hand-written launches.
 """
 
 from __future__ import annotations
@@ -118,12 +119,6 @@ def fused_attention_sublayer(
 OUT_COUNTER = LaunchCounter("out_proj_residual")
 
 
-def out_proj_smem(D: int) -> int:
-    """Shared memory of one jl_out_proj_residual block: the [64, D + 8] bf16
-    head-output tile and the f32 product tile (198,656 bytes at D = 1280)."""
-    return align128(64 * (D + 8) * 2) + 64 * 132 * 4
-
-
 def out_proj_residual_plain(x, attn, wo, bo):
     """x + (rounded attn . wo + bo): the module path's order, and the JAX
     block's long-context route (out-projection and residual after flash)."""
@@ -131,8 +126,9 @@ def out_proj_residual_plain(x, attn, wo, bo):
 
 
 def out_proj_residual(x, attn, wo, bo):
-    """Wrapper of jl_out_proj_residual (csrc/attention.cu): the part of
-    K2's second launch that follows the heads, for the K5 -> K6 route. CPU
+    """Wrapper of jl_out_proj_residual (csrc/out_proj.cu, a TMA-fed wgmma
+    GEMM with the bias and residual in its epilogue): the part of K2's
+    second launch that follows the heads, for the K5 -> K6 route. CPU
     tensors take out_proj_residual_plain; CUDA tensors (x and attn bf16
     [B, T, D], D % 128 == 0) launch the kernel or raise."""
     if x.device.type == "cpu":
@@ -141,8 +137,7 @@ def out_proj_residual(x, attn, wo, bo):
     check_cuda("attn", attn, torch.bfloat16, 3)
     refuse_grad("out_proj_residual", x, attn, wo, bo)
     B, T, D = x.shape
-    if (attn.shape != x.shape or D % 128 or tuple(wo.shape) != (D, D)
-            or out_proj_smem(D) > SMEM_LIMIT):
+    if attn.shape != x.shape or D % 128 or tuple(wo.shape) != (D, D) or bo.shape != (D,):
         raise ValueError(f"unsupported out-projection shape x {tuple(x.shape)} "
                          f"attn {tuple(attn.shape)} wo {tuple(wo.shape)}")
     dev, bf = x.device, torch.bfloat16

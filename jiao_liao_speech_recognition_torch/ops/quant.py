@@ -5,12 +5,13 @@
   symmetric int8, plain math, bitwise the JAX functions (f32 division by
   the safe scale, round half to even, clip to +-127; a zero channel keeps
   scale 0).
-* K10, ``int8_matmul``: y = (x . q) * s for x [.., d_in], q int8
-  [d_in, d_out], s f32 [d_out]. At most ``MAX_KERNEL_ROWS`` rows take
-  ``int8_gemv``, the wrapper of ``jl_int8_matmul`` (``csrc/quant.cu``,
-  which replaces ``_int8_matmul_pallas``); longer inputs take
-  ``int8_matmul_plain``, which is also the JAX package's XLA function
-  (bf16 operands, an f32 product, * s, one rounding).
+* K10, ``int8_matmul``: y = (x . q) * s (+ bias) for x [.., d_in], q
+  int8 [d_in, d_out], s f32 [d_out] and an optional bias [d_out]. At most
+  ``MAX_KERNEL_ROWS`` rows take ``int8_gemv``, the wrapper of
+  ``jl_int8_matmul`` (``csrc/quant.cu``, one launch that replaces
+  ``_int8_matmul_pallas`` and the caller's bias add); longer inputs take
+  the JAX package's XLA function (bf16 operands, an f32 product, * s, one
+  rounding), then the bias, as ``int8_matmul_plain`` does.
 * K11, ``int8_tied_logits``: f32 logits (x . q^T) * s against a row-major
   int8 [V, D] table with per-vocab-row scales. At most ``MAX_KERNEL_ROWS``
   rows take ``int8_logits`` (``jl_int8_tied_logits``, replacing
@@ -92,47 +93,60 @@ def _scaled_product(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
     return _mm_f32(x2.to(torch.bfloat16), q.to(torch.bfloat16)) * scale.float()
 
 
-def int8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """x2 [R, d_in] -> bf16 [R, d_out]: the scaled f32 product rounded to
-    bf16 once."""
-    return _scaled_product(x2, q, scale).to(torch.bfloat16)
+    bf16 once, then + bias (bf16) and rounded again."""
+    y = _scaled_product(x2, q, scale).to(torch.bfloat16)
+    return y if bias is None else y + bias.to(torch.bfloat16)
 
 
-def int8_gemv(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_gemv(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor | None = None) -> torch.Tensor:
     """K10 wrapper -> bf16 [R, d_out]. CPU tensors take int8_matmul_plain;
-    CUDA tensors launch the kernel (R <= MAX_KERNEL_ROWS, d_out % 4 == 0)
-    or raise."""
+    CUDA tensors launch the kernel (R <= MAX_KERNEL_ROWS, d_in % 8 == 0,
+    d_out % 16 == 0, bias bf16 or None) or raise. Allocates only y."""
     if x2.device.type == "cpu":
-        return int8_matmul_plain(x2, q, scale)
+        return int8_matmul_plain(x2, q, scale, bias)
     refuse_grad("int8_gemv", x2)
     x2 = x2.to(torch.bfloat16).contiguous()
+    if x2.data_ptr() % 16:  # the kernel reads x in 16-byte vectors
+        x2 = x2.clone()
     check_cuda("q", q, torch.int8, 2)
     check_cuda("scale", scale, torch.float32, 1)
     R, d_in = x2.shape
     d_out = q.shape[1]
-    if not 0 < R <= MAX_KERNEL_ROWS or q.shape[0] != d_in or d_out % 4 or scale.shape[0] != d_out:
+    if bias is not None:
+        check_cuda("bias", bias, torch.bfloat16, 1)
+    if (not 0 < R <= MAX_KERNEL_ROWS or q.shape[0] != d_in or d_in % 8 or d_out % 16
+            or scale.shape[0] != d_out or (bias is not None and bias.shape[0] != d_out)):
         raise ValueError(f"unsupported int8 matmul shape R={R} q={tuple(q.shape)}")
-    splits = -(-d_in // 256)  # csrc/quant.cu's kChunk
-    part = torch.empty(splits, R, d_out, device=x2.device, dtype=torch.float32)
     y = torch.empty(R, d_out, device=x2.device, dtype=torch.bfloat16)
-    launch("jl_int8_matmul", x2.data_ptr(), q.data_ptr(), scale.data_ptr(), part.data_ptr(),
-           y.data_ptr(), R, d_in, d_out)
+    launch("jl_int8_matmul", x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+           0 if bias is None else bias.data_ptr(), y.data_ptr(), R, d_in, d_out)
     MATMUL_COUNTER.launches += 1
     return y
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                kernels: bool = True) -> torch.Tensor:
-    """y = x . (q * scale) for x [..., d_in] -> [..., d_out] in x.dtype: K10
-    (or its plain version with kernels=False) for at most MAX_KERNEL_ROWS
-    rows, else the plain product (the JAX package's XLA path)."""
+                kernels: bool = True, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """y = x . (q * scale) + bias for x [..., d_in] -> [..., d_out] in
+    x.dtype, the bias (optional) added in x.dtype after the product's
+    rounding, as the JAX package's caller adds it: K10 (or its plain
+    version with kernels=False) for at most MAX_KERNEL_ROWS rows, the bias
+    folded into it for a bf16 x; longer inputs take the plain product."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if _rows(x) > MAX_KERNEL_ROWS:
-        y = _scaled_product(x2, q, scale)  # rounded once, to x's dtype
+        y = _scaled_product(x2, q, scale).to(x.dtype)  # rounded once, to x's dtype
+    elif x.dtype == torch.bfloat16:  # the bias folds into K10's epilogue
+        y = (int8_gemv if kernels else int8_matmul_plain)(x2, q, scale, bias)
+        bias = None
     else:
-        y = (int8_gemv if kernels else int8_matmul_plain)(x2, q, scale)
-    return y.to(x.dtype).reshape(*lead, q.shape[1])
+        y = (int8_gemv if kernels else int8_matmul_plain)(x2, q, scale).to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y.reshape(*lead, q.shape[1])
 
 
 # --- K11 --------------------------------------------------------------------

@@ -3,27 +3,74 @@
 from __future__ import annotations
 
 import itertools
+import sys
+import time
+
+# the card's top SM clock (H100 SXM: 1980 MHz), to turn seconds into the
+# cycles torch.cuda._sleep spins; a lower clock only lengthens the spin
+_SPIN_HZ = 1.98e9
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
     """Mean device milliseconds per call of ``fn``: the CUDA kernels and
     copies it issues, summed by torch.profiler, after one warm call. (A
     short kernel timed with CUDA events around a Python loop measures the
-    host's dispatch.) Raises if the profiler saw no device time."""
+    host's dispatch.) A profiler session has been seen to return no device
+    events at all on the card; such a session is run again, and after
+    ``attempts`` empty ones the calls are timed by ``queued_ms`` instead,
+    with a note on stderr."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    for _ in range(attempts):
+        us = _profiled_us(fn, iters)
+        if us > 0:
+            return us / 1e3 / iters
+    print(f"device_ms: {attempts} profiler sessions saw no device time; "
+          "timing with CUDA events behind a spin kernel", file=sys.stderr)
+    return queued_ms(fn, iters)
+
+
+def _profiled_us(fn, iters: int) -> float:
+    """Device microseconds of ``iters`` calls of ``fn`` in one profiler
+    session (0 if the session saw no device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type.name == "CUDA" and e.device_time_total)
-    if us <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return us / 1e3 / iters
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.device_time_total)
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn`` from CUDA events, with the
+    calls queued behind a spin kernel that outlasts twice the host's time to
+    issue them (1 ms at least): the first call starts only once all are queued, so the events
+    bracket the device's work and not the host's dispatch (unless ``fn``
+    waits on the device, which then counts as with CUDA events alone). It
+    also counts the device's gap of 1-2 us between two queued launches,
+    which the profiler's kernel sum leaves out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(max(2 * host_s, 1e-3) * _SPIN_HZ))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def cycling(fn, inputs):

@@ -132,6 +132,51 @@ def test_k10_long_rows_take_the_jax_xla_function():
     assert tq.MAX_KERNEL_ROWS == jq.MAX_KERNEL_ROWS == 64
 
 
+@pytest.mark.parametrize("rows", [1, 8, 64, 65])
+def test_k10_bias_matches_jax_kernel_then_bias(rows):
+    """K10's bias, folded into the launch: the plain version (<= 64 rows)
+    and int8_matmul (all rows) against the JAX kernel in interpret mode (its
+    XLA function past 64 rows) followed by the JAX caller's
+    + bias.astype(bf16) (models/adapters.py, the dense_q branch)."""
+    rng = np.random.RandomState(20 + rows)
+    x = _bf16(rng.randn(rows, 200))
+    qv, s = jq.quantize_int8(jnp.asarray(0.05 * rng.randn(200, 320), jnp.float32))
+    bias = (0.5 * rng.randn(320)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    y = jq._int8_matmul_pallas(xj, qv, s) if rows <= 64 else jq._int8_matmul_xla(xj, qv, s)
+    want = np.asarray(y + jnp.asarray(bias).astype(jnp.bfloat16), np.float32)
+    xt, bt = _t(x, torch.bfloat16), _t(bias).to(torch.bfloat16)
+    tq.MATMUL_COUNTER.reset()
+    got = tq.int8_matmul(xt, _t(qv), _t(s), bias=bt)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (rows, 320)
+    assert _ulps(got.float().numpy(), want) <= ULP_BAR
+    if rows <= 64:
+        plain = tq.int8_matmul_plain(xt, _t(qv), _t(s), bt)
+        assert torch.equal(plain, got) and torch.equal(tq.int8_gemv(xt, _t(qv), _t(s), bt), got)
+    assert tq.MATMUL_COUNTER.launches == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [3, 70])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_int8_dense_equals_the_product_then_the_bias(dtype, rows, with_bias):
+    """Int8Dense.forward hands its bias to int8_matmul (folded into K10 for
+    bf16 rows) and no longer adds it itself: bit for bit the earlier two
+    steps, int8_matmul without a bias and then + bias in x's dtype."""
+    rng = np.random.RandomState(rows)
+    dt = getattr(torch, dtype)
+    w = _t((0.05 * rng.randn(64, 96)).astype(np.float32))
+    bias = _t((0.3 * rng.randn(96)).astype(np.float32)) if with_bias else None
+    layer = layers.Int8Dense(*tq.quantize_int8(w), bias)
+    x = _t(rng.randn(rows, 64).astype(np.float32)).to(dt)
+    with torch.no_grad():
+        got = layer(x)
+    want = tq.int8_matmul(x, layer.kernel_q, layer.scale)
+    if with_bias:
+        want = want + bias.to(dt)
+    assert got.dtype == dt and torch.equal(got, want)
+
+
 # --- K11 ------------------------------------------------------------------------
 
 

@@ -330,6 +330,33 @@ def test_generate_strategies(jax_f32):
     assert twg.resolve_specials(bundle.config.whisper) == (PROMPT, EOT)
 
 
+@pytest.mark.parametrize("strategy", ["beam", "beam_device"])
+@pytest.mark.parametrize("beam_size", [1, 2])
+def test_generate_beam_of_one_is_greedy(jax_f32, strategy, beam_size):
+    """A beam of one is greedy in both packages (the JAX generate dispatches
+    it so): the same tokens from the same weights and mel. A wider beam
+    still raises in the port."""
+    jm, params = jax_f32
+    wcfg = dict(prompt_ids=PROMPT, eot_id=EOT, **SMALL)
+    dcfg = dict(strategy=strategy, beam_size=beam_size, max_decode_len=12)
+    bundle = type("B", (), {"config": tcfg.ExperimentConfig(
+        model_family="whisper", whisper=tcfg.WhisperConfig(dtype="float32", **wcfg)),
+        "model": _port(params)})()
+    mel = _mel(2, seed=14)
+    if beam_size > 1:
+        with pytest.raises(NotImplementedError, match="beam_size 2"):
+            twg.generate(bundle, torch.from_numpy(mel), tcfg.DecodeConfig(**dcfg))
+        return
+    jbundle = type("B", (), {"config": jcfg.ExperimentConfig(
+        model_family="whisper", whisper=jcfg.WhisperConfig(dtype="float32", **wcfg)),
+        "params": params})()
+    with jax.default_matmul_precision("highest"):
+        want, want_len = jwg.generate(jbundle, jnp.asarray(mel), jcfg.DecodeConfig(**dcfg))
+    got, got_len = twg.generate(bundle, torch.from_numpy(mel), tcfg.DecodeConfig(**dcfg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+
+
 def test_encoder_k5_route_matches_k2_route(jax_f32, monkeypatch):
     """The route the card takes at d=1280 (K5, K6, out-projection +
     residual) and the K2 route compute one function: in bf16 they differ
@@ -472,6 +499,23 @@ def test_bundle_transcribes_whisper_on_the_cpu_and_round_trips(jax_f32, tmp_path
     bad = dataclasses.replace(cfg, frontend=tcfg.FrontendConfig(num_mels=128))
     with pytest.raises(ValueError, match="num_mels"):
         api.load(config=bad, device="cpu")
+
+
+def test_bundle_load_names_the_missing_unigram_tokenizer(tmp_path):
+    """A checkpoint whose vocab.json is the JAX package's unigram tokenizer
+    is refused with a message naming data/unigram.py, not a KeyError; a
+    char vocab.json still loads."""
+    from jiao_liao_speech_recognition_tpu.data.unigram import UnigramTokenizer
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+
+    cfg = tcfg.ExperimentConfig(model_family="whisper", whisper=tcfg.WhisperConfig(
+        dtype="float32", prompt_ids=PROMPT, eot_id=EOT, **SMALL))
+    api.load(config=cfg, device="cpu").save(str(tmp_path))
+    CharTokenizer(["<blank>", "<unk>", "a", "b"]).save(tmp_path / "vocab.json")
+    assert api.load(str(tmp_path), device="cpu").tokenizer.vocab == ["<blank>", "<unk>", "a", "b"]
+    UnigramTokenizer(["a", "b", "ab"], [-1.0, -1.5, -2.0]).save(tmp_path / "vocab.json")
+    with pytest.raises(NotImplementedError, match="data/unigram.py"):
+        api.load(str(tmp_path), device="cpu")
 
 
 def test_whisper_preset_twin_matches_jax():
