@@ -12,7 +12,8 @@ non-zero and prints no result line):
 3. kernels  - each kernel against its plain PyTorch version at main-path
               shapes, with the bars stated below: K1-K4; K6 (out, lse) and
               K8 (dQ, dK, dV) at B=16, T'=750, 8 heads of 64 and 4 of 128,
-              plus a causal case; K7 (both WF-folded sublayers);
+              plus a causal case, each launched twice and bitwise equal;
+              K7 (both WF-folded sublayers);
 4. e2e      - main path 1, serving: api.load of the full-width flagship
               (12 x d512, 4 heads of 128, mlp 2048, V 4336, random init
               from seed 0) and api.transcribe of six requests (0.5 s to
@@ -33,7 +34,9 @@ non-zero and prints no result line):
               plain path; train steps/s at B=16 x 30 s (this config) and
               B=16 x 10 s (flagship defaults + WF rank 8) on both paths; each
               kernel alone against its plain version and, for K6/K8, the
-              library's fused attention (examples/torch_kernel_yardsticks.py);
+              library's fused attention (examples/torch_kernel_yardsticks.py;
+              both sides timed queued behind a spin kernel, with executed and
+              bound-counted TFLOP/s);
 8. whisper  - main path 4, Whisper large-v3 serving (d=1280, 32 + 32
               blocks, 20 heads of 64, mlp 5120, V=51866, 128 mels; random
               init from seed 0 on the card): K9, K5, the out-projection +
@@ -47,8 +50,9 @@ non-zero and prints no result line):
               rule); then encoder seconds per B=16 x 30 s batch, decode
               ms per step (building the caches timed apart) and tokens/s at
               B=16 (max_len 224) on both paths, and K5, K2h-out (beside
-              cuBLAS addmm, its library_ms), K3c, K9 (and K6 at this shape)
-              alone;
+              cuBLAS addmm, its library_ms), K3c, K9 (and K6 at this shape,
+              queued, beside the library's masked call and, as context, its
+              unmasked one) alone;
 9. int8     - main path 5, int8 Whisper large-v3 serving: K9's int8 half
               (cross Tk 1536, self Tk 256 and 128), K10 (one cluster launch
               with the bias folded in: R 1, 2, 4, 7, 8, 16, 32, 64, each of
@@ -430,7 +434,8 @@ def _flash_inputs(rng, B, T, H, dh, lens, dev):
 def phase_flash():
     """K6 (out, lse) and K8 (dQ, dK, dV) against their plain versions at the
     fine-tune shapes: B=16, T'=750, (8 heads of 64) and (4 of 128), ragged
-    lengths; plus one causal case."""
+    lengths; plus one causal case. Each is launched twice on the same inputs
+    and must give the same bits."""
     import torch
 
     from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
@@ -446,7 +451,12 @@ def phase_flash():
         out_p, lse_p = fl.flash_forward_plain(q, k, v, kl, causal)
         dq, dk, dv = fl.flash_backward(q, k, v, kl, out, lse, dout, causal)
         grads_p = fl.flash_backward_plain(q, k, v, kl, out, lse, dout, causal)
+        # a second launch of each on the same inputs: no atomics, so the
+        # same bits
+        again = (*fl.flash_forward(q, k, v, kl, causal),
+                 *fl.flash_backward(q, k, v, kl, out, lse, dout, causal))
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip((out, lse, dq, dk, dv), again))
         ulps, elem_ulps, over1 = bf16_ulp_err(out, out_p)
         lse_err = float((lse - lse_p).abs().max())
         rel = {}
@@ -459,11 +469,12 @@ def phase_flash():
               "causal": causal, "out_ulps": ulps, "out_elementwise_max_ulps": elem_ulps,
               "out_share_over_1ulp": over1, "bar_ulps": ULP_BAR, "lse_max_abs_err": lse_err,
               "lse_bar": LSE_BAR, "grad_rel_err": rel, "grad_bar": GRAD_REL_BAR,
-              "padded_key_grad_max": pad_max})
+              "padded_key_grad_max": pad_max, "two_launches_bitwise_equal": bitwise})
         check(ulps <= ULP_BAR, f"K6 out off by {ulps} ulps (H={H}, causal={causal})")
         check(lse_err <= LSE_BAR, f"K6 lse off by {lse_err}")
         check(all(r <= GRAD_REL_BAR for r in rel.values()), f"K8 grads off: {rel}")
         check(pad_max == 0.0, f"K8 padded keys got gradient {pad_max}")
+        check(bitwise, f"K6/K8 differ between two launches (H={H}, causal={causal})")
         if (H, causal) == (8, False):
             errs["K6"] = float((out.float() - out_p.float()).abs().max())
             errs["K8"] = max(float((g.float() - w).abs().max()) for g, w in
@@ -917,12 +928,23 @@ def phase_timing(bundle, adapted):
     rec = {}
     with torch.inference_mode():
         for key, (kern, plain) in pairs.items():
-            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+            # K6 and K8 take ~0.1-0.3 ms, near the host's time to issue a
+            # call: their launches (and the library's) are timed queued
+            # behind a spin kernel, so the events bracket the device's work
+            timer = (lambda f: queued_ms(f, 20)) if key in ("K6", "K8") else cuda_ms
+            p1, k1, k2, p2 = cuda_ms(plain), timer(kern), timer(kern), cuda_ms(plain)
             bound_ms, bound_by = bound(*work[key])
             rec[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library.get(key)}
+            rate = {}
+            if key in ("K6", "K8"):  # executed and bound-counted tensor-core rates
+                kind = "fwd" if key == "K6" else "bwd"
+                rate = {"ms_events": cuda_ms(kern, 20),
+                        "executed_tflops": tflops(flash_flops(kind, Bf, Tf, [Tf] * Bf, Hf, dhf),
+                                                  rec[key]["ms"]),
+                        "bound_counted_tflops": tflops(work[key][1]["bf16"], rec[key]["ms"])}
             emit({"phase": "timing", "kernel": key, "shape": shapes.get(key, "B=32, T'=750"),
-                  **rec[key], "turns_ms": [p1, k1, k2, p2]})
+                  **rec[key], **rate, "turns_ms": [p1, k1, k2, p2]})
     return rec
 
 
@@ -949,6 +971,29 @@ def bound(nbytes: float, ops: dict):
     t_bytes = nbytes / HBM_BYTES_S
     t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_flops(kind: str, B: int, Tq: int, lens, H: int, dh: int) -> float:
+    """Tensor-core flops that K6 ("fwd") or K8 ("bwd") execute on these
+    shapes: the products of every tile they load (blocks of BLOCK_ROWS rows,
+    forward key tiles of FWD_KEYS, backward tiles of BWD_TILE), padding
+    included; K8 forms S and dP in both launches and runs its P and dS
+    products as hi + lo pairs."""
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+
+    def up(n, m):
+        return -(-n // m) * m
+
+    rows, lens = up(Tq, fl.BLOCK_ROWS), [min(int(n), Tq) for n in lens]
+    if kind == "fwd":
+        return 4.0 * H * dh * sum(rows * up(n, fl.FWD_KEYS) for n in lens)
+    dq = 8.0 * H * dh * sum(rows * up(n, fl.BWD_TILE) for n in lens)  # S, dP, dS.K hi + lo
+    dkv = 12.0 * H * dh * sum(up(n, fl.BLOCK_ROWS) * up(Tq, fl.BWD_TILE) for n in lens)
+    return dq + dkv
+
+
+def tflops(flops: float, ms: float) -> float:
+    return flops / (ms * 1e-3) / 1e12
 
 
 def phase_train_rate(ft_cfg):
@@ -1303,7 +1348,11 @@ def phase_whisper_timing(bundle):
         "K9": k9(tk_cross),
         "K9-self": k9(tk_self),
     }
-    library = {"K6-whisper": _yardsticks().sdpa_ms(q, k, v, kl, q)[0]}  # forward's time
+    # the forward's time, queued as K6-whisper's own launches are below
+    library = {"K6-whisper": _yardsticks().sdpa_ms(q, k, v, kl, q)[0]}
+    # context, not K6's function: every key is valid here, so the library
+    # call without a mask (its fastest form) does the same work
+    sdpa_unmasked = _yardsticks().sdpa_unmasked_ms(q, k, v)
     # K2h-out: cuBLAS's product with the residual as its C operand (one call;
     # it rounds once and adds no bias, the nearest library function)
     x2, a2 = out_args[0].view(B * T, d), out_args[1].view(B * T, d)
@@ -1338,11 +1387,19 @@ def phase_whisper_timing(bundle):
     rec = {}
     with torch.inference_mode():
         for key, (kern, plain) in pairs.items():
-            p1, k1, k2, p2 = cuda_ms(plain, 3), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain, 3)
+            timer = (lambda f: queued_ms(f, 10)) if key == "K6-whisper" else cuda_ms
+            p1, k1, k2, p2 = cuda_ms(plain, 3), timer(kern), timer(kern), cuda_ms(plain, 3)
             bound_ms, bound_by = bound(*work[key])
             rec[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library.get(key)}
-            emit({"phase": "timing", "kernel": key, "shape": shapes[key], **rec[key],
+            extra = {}
+            if key == "K6-whisper":
+                extra = {"ms_events": cuda_ms(kern, 10),
+                         "executed_tflops": tflops(flash_flops("fwd", B, T, [T] * B, H, dh),
+                                                   rec[key]["ms"]),
+                         "bound_counted_tflops": tflops(work[key][1]["bf16"], rec[key]["ms"]),
+                         "sdpa_unmasked_ms": sdpa_unmasked}
+            emit({"phase": "timing", "kernel": key, "shape": shapes[key], **rec[key], **extra,
                   "turns_ms": [p1, k1, k2, p2]})
     return rec
 

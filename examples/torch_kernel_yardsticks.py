@@ -6,7 +6,11 @@
 Times PyTorch's fused attention call (``F.scaled_dot_product_attention``
 with a boolean key mask, on [B, H, T, dh] views of the port's [B, T, H, dh]
 tensors), its forward alone and its backward alone, beside K6 (forward with
-lse) and K8 (dQ, dK, dV) on the same bf16 inputs, with CUDA events. Then,
+lse) and K8 (dQ, dK, dV) on the same bf16 inputs, and the forward without a
+mask (``sdpa_unmasked_ms``: context where every key is valid), all by the
+port's ``utils.timing.queued_ms`` (CUDA events with the calls queued behind
+a spin kernel: events around a Python loop of 0.1-0.3 ms calls read the
+host's dispatch). Then,
 as context for the A/B probes at the flagship's 32 x 750 rows:
 the library's two int8 products of P4's MLP (``torch._int_mm``) and the
 head product + argmax of K4 and P2 (``torch.addmm`` then ``torch.argmax``),
@@ -41,9 +45,12 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sdpa_ms(q, k, v, kv_lengths, dout, iters: int = 10):
+def sdpa_ms(q, k, v, kv_lengths, dout, iters: int = 20):
     """-> (forward ms, backward ms) of the library call on q, k, v, dout
-    [B, T, H, dh] bf16 with keys at or past kv_lengths[b] masked out."""
+    [B, T, H, dh] bf16 with keys at or past kv_lengths[b] masked out
+    (queued_ms)."""
+    from jiao_liao_speech_recognition_torch.utils.timing import queued_ms
+
     B, Tk = k.shape[0], k.shape[1]
     mask = (torch.arange(Tk, device=k.device)[None, :] < kv_lengths[:, None].long())
     mask = mask[:, None, None, :]  # [B, 1, 1, Tk]: one key mask per row
@@ -54,10 +61,24 @@ def sdpa_ms(q, k, v, kv_lengths, dout, iters: int = 10):
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
     with torch.no_grad():
-        fwd = cuda_ms(forward, iters)
-    out = forward()
-    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), iters)
+        fwd = queued_ms(forward, iters)
+    with torch.enable_grad():
+        out = forward()
+        bwd = queued_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                        iters)
     return fwd, bwd
+
+
+def sdpa_unmasked_ms(q, k, v, iters: int = 20) -> float:
+    """-> ms of the library's forward on q, k, v [B, T, H, dh] bf16 with no
+    mask at all (queued_ms): its fastest form, and the same function as K6's
+    only where every key is valid. Context beside ``sdpa_ms``, not a
+    library_ms."""
+    from jiao_liao_speech_recognition_torch.utils.timing import queued_ms
+
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        return queued_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
 
 
 def sdpa_decode_ms(qh, k, v, kv_lengths, iters: int = 10) -> float:
@@ -101,6 +122,7 @@ def main() -> None:
         raise SystemExit("needs a CUDA device")
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+    from jiao_liao_speech_recognition_torch.utils.timing import queued_ms
 
     B, T, H, dh = args.batch, args.frames, args.heads, args.head_dim
     rng = np.random.RandomState(0)
@@ -108,12 +130,13 @@ def main() -> None:
                      .cuda().to(torch.bfloat16) for _ in range(4))
     lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
     out, lse = fl.flash_forward(q, k, v, lens)
-    k6 = cuda_ms(lambda: fl.flash_forward(q, k, v, lens))
-    k8 = cuda_ms(lambda: fl.flash_backward(q, k, v, lens, out, lse, dout))
+    k6 = queued_ms(lambda: fl.flash_forward(q, k, v, lens))
+    k8 = queued_ms(lambda: fl.flash_backward(q, k, v, lens, out, lse, dout))
     lib_fwd, lib_bwd = sdpa_ms(q, k, v, lens, dout)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "B": B, "T": T, "heads": H,
                       "dh": dh, "k6_ms": k6, "k8_ms": k8, "sdpa_forward_ms": lib_fwd,
-                      "sdpa_backward_ms": lib_bwd}))
+                      "sdpa_backward_ms": lib_bwd,
+                      "sdpa_unmasked_forward_ms": sdpa_unmasked_ms(q, k, v)}))
     M, d, mlp, V = 32 * 750, 512, 2048, 4336
     codes = [torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda")
              for shape in ((M, d), (d, mlp), (M, mlp), (mlp, d))]

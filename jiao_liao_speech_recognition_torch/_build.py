@@ -48,8 +48,8 @@ SIGNATURES = {
     "jl_out_proj_residual": [P, P, P, P, P, I, I, P],
     "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_head_argmax": [P, P, P, P, I, I, I, I, P],
-    "jl_flash_fwd": [P, L, I, P, L, I, P, L, I, P, P, P, I, I, I, I, I, I, F, P],
-    "jl_flash_bwd": [P, L, I, P, L, I, P, L, I, P, P, P, P, P, P, P, P,
+    "jl_flash_fwd": [P, L, L, P, L, L, P, L, L, P, P, P, I, I, I, I, I, I, F, P],
+    "jl_flash_bwd": [P, L, L, P, L, L, P, L, L, P, P, P, P, P, P, P, P,
                      I, I, I, I, I, I, F, P],
     "jl_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
     "jl_decode_attention_int8": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],

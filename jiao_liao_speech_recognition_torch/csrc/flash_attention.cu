@@ -23,66 +23,131 @@
 // way, and the sums stay f32. The backward keeps the TPU kernel's f32
 // operands in effect: P (for dV = P^T dO) and dS (for dQ = dS K and
 // dK = dS^T Q) enter their products as a pair of bf16 values, hi = bf16(x)
-// and lo = bf16(x - hi), two mma.sync each, which carries them to ~2^-16.
-// A single rounding is not enough there: each row of dS sums to zero
-// (sum_j P_j (dP_j - delta) = 0) and dO changes sign along the queries, so
-// these products are small differences of large terms.
+// and lo = bf16(x - hi), two products into one accumulator, which carries
+// them to ~2^-16. A single rounding is not enough there: each row of dS
+// sums to zero (sum_j P_j (dP_j - delta) = 0) and dO changes sign along the
+// queries, so these products are small differences of large terms.
 //
-// What bounds it on the H100: tensor-core work. At B=16, T=750, H=8, dh=64
-// the forward is 4*B*H*T^2*dh = 18.4 GFLOP over ~25 MB of q/k/v/out, and
-// the backward needs 10*B*H*T^2*dh (five T x T x dh products), both far
-// above the card's 295 FLOP/byte ridge. This backward executes 20*B*H*T^2*dh:
-// S and dP are formed in both launches, and the three products with P or
-// dS as operand run twice (hi and lo).
+// What bounds it on the H100: tensor-core work. Over `pairs` valid
+// query-key pairs the forward needs 4 H dh pairs flops (S = Q K^T, O = P V)
+// and the backward 10 H dh pairs (S, dP, dQ, dK, dV); at B=16, T=750, 8 x 64
+// that is 18.4 and 46 GFLOP over 25 and 50 MB, far above the card's 295
+// flop/byte ridge. This backward executes 20 H dh pairs: each launch forms
+// S and dP itself (two launches, so no atomics and a repeatable result),
+// and the three products with P or dS as operand run twice (hi and lo).
+// So the design has to win on rate:
 //
-// Design (simple first; wgmma + TMA is later work). Each block has 4 warps
-// and owns 64 rows; each warp owns 16 of them and issues
-// mma.sync.m16n8k16 bf16 -> f32 (the raw PTX form, so the accumulator
-// layout is known and the softmax statistics and the P / dS operands stay
-// in registers: a score accumulator C is, element for element, the A
-// operand of the next product).
-//  * jl_flash_fwd: one block per (64-query tile, b*h). K and V tiles of 64
-//    keys are staged in shared memory; online softmax with the running max
-//    and sum in registers; out and lse written once.
-//  * jl_flash_bwd, two launches and no atomics, so the result is
-//    deterministic: (1) per (64-query tile, b*h): delta for the tile (also
-//    written out for launch 2), then dQ over the key tiles; (2) per (64-key
-//    tile, b*h): dK and dV over the query tiles.
+//  * Every product is a wgmma (sm_90a) on operands that TMA brings into
+//    128-byte-swizzled shared memory through mbarrier-counted stages; no
+//    operand passes through registers on its way in, and no transposed copy
+//    is made. K as stored ([key][dh], dh contiguous) is the K-major B of
+//    S = Q K^T; V, dO, Q and K as B of a "P times rows" product
+//    (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K) are N-major and are
+//    read through the descriptor with imm-trans-b = 1. P and dS never leave
+//    registers: a score accumulator is, element for element, the register-A
+//    fragment of the next product (csrc/wgmma_gemm.cuh).
+//  * Roles: one thread of a producer warpgroup issues every copy (4-D
+//    tensor maps over the strided [B, T, H, dh] views, boxes of 64 columns
+//    x 64 rows; dh = 128 is two column boxes; TMA fills rows past T with
+//    zeros) into a ring of kStages stages with full and empty barriers, and
+//    the warpgroup gives its registers to two consumer warpgroups
+//    (setmaxnreg 40 / 232). Each consumer warpgroup owns 64 of the block's
+//    128 rows, so both share every streamed tile, and each warpgroup's
+//    softmax runs while the other's products occupy the tensor cores. One
+//    block an SM.
+//  * jl_flash_fwd: one block per (128 queries, b*h); key tiles of kFwdKeys
+//    (128 ran faster than 64 at T=1500, 20 x 64, on the H100);
+//    online softmax in registers on exp2 of scores pre-scaled by
+//    scale*log2(e), row statistics reduced over the quad with shuffles;
+//    out staged in the Q tile's shared memory and stored in 16-byte pieces.
+//  * jl_flash_bwd, two launches: (1) per (128 queries, b*h): delta read as
+//    16-byte vectors of O and dO, then dQ over 64-key tiles; it also writes
+//    each row's base-2 lse and delta to a padded scratch [B*H, 2, Tp]
+//    (Tp = Tq rounded up to 128) that (2) streams with bulk copies;
+//    (2) per (128 keys, b*h): dK and dV over 64-query tiles, accumulators
+//    in the consumers' registers. Every sum runs in a fixed order.
+//  * Tile skipping: tiles wholly past kv_len, or past the diagonal when
+//    causal, are never loaded; the producer issues exactly the tiles that
+//    the consumers wait for. Masks are applied in registers only on tiles
+//    that cut kv_len, Tq or the diagonal.
+//  * A stall fails the launch: barrier waits trap after 4 s (csrc/tma.cuh).
+//    A trap in the consumers' code holds them to the entry register count
+//    (168 = 65536 / 384) whatever setmaxnreg grants, which the backward's
+//    consumers outgrow (ptxas then spills and serializes their wgmmas). So
+//    there the consumers wait untimed, and the issuing thread, after its
+//    last copy, waits timed on a barrier that they arrive at when done. The
+//    forward keeps its consumers' waits timed: at dh = 64 it fits in 168,
+//    and on an H100 at both of its timed shapes it ran 2-5% slower with the
+//    backward's scheme and 1-3% slower without its setmaxnreg (which ptxas
+//    then allocates 154 registers under) than as it is (PERF.md).
+//    Its dh = 128 instance spills 56 bytes so.
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace jl;
+using wg::desc_sw128;
 
-constexpr int FT = 128;     // threads per block: 4 warps
-constexpr int TILE = 64;    // rows per block, keys (or queries) per tile
+constexpr int kRows = 128;     // rows a block owns: 64 for each consumer warpgroup
+constexpr int kBox = 64;       // rows of a TMA box and of a streamed backward tile
+constexpr int kFwdKeys = 128;  // keys of a forward tile (the N of S = Q K^T)
+constexpr int kStages = 2;     // streamed tiles in flight
+constexpr int kConsumers = 256;
+// + a producer warpgroup, of which one thread issues every copy: setmaxnreg
+// acts on whole warpgroups (with a lone producer warp, 288 threads, the
+// consumers' setmaxnreg.inc never returned on the H100)
+constexpr int kBlockThreads = kConsumers + 128;
+// setmaxnreg budgets: each of the SM's four register files holds two
+// consumer warps and one producer warp of the block: 2 x 232 + 40 <= 512
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 constexpr float NEG = -1e30f;
+constexpr float LSE_FLOOR = -1e29f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strided {  // [B, T, H, DH] view: element (b, t, h, d)
-  const bf16* p;
-  long long sb;  // batch stride, elements
-  int st;        // time stride, elements
-  __device__ const bf16* row(int b, int t, int h, int dh) const {
-    return p + (size_t)b * sb + (size_t)t * st + (size_t)h * dh;
-  }
-};
+// A tile of `rows` rows x DH bf16 lives in shared memory as DH / 64 chunks
+// of rows x 128 bytes, each filled by 64-row TMA boxes with the 128-byte
+// swizzle: row r of chunk c at c * chunk_bytes(rows) + r * 128.
+__host__ __device__ constexpr uint32_t chunk_bytes(int rows) { return (uint32_t)rows * 128; }
+template <int DH>
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
+  return (uint32_t)rows * DH * 2;
+}
 
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
+// K-major operand: 64 (A) or N (B) rows from row r0 of a tile, k16 step kk of DH
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0, int kk) {
+  return desc_sw128(tile + (kk / 4) * chunk_bytes(rows) + r0 * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// N-major B (imm-trans-b = 1): tile rows [16 kk, 16 kk + 16) as the product's
+// k, all DH columns as its N (64-column chunks chunk_bytes apart)
+__device__ __forceinline__ uint64_t desc_n(uint32_t tile, int rows, int kk) {
+  return desc_sw128(tile + kk * 2048, chunk_bytes(rows), 1024);
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  const uint32_t raw = smem_u32(p);
+  return p + (((raw + 1023) & ~1023u) - raw);
+}
+
+// producer: rows [t0, t0 + rows) of head h, batch b into a tile
+template <int DH>
+__device__ __forceinline__ void load_tile(uint8_t* dst, int rows, const CUtensorMap* map, int h,
+                                          int t0, int b, uint64_t* bar) {
+#pragma unroll
+  for (int c = 0; c < DH / 64; ++c)
+    for (int r = 0; r < rows; r += kBox)
+      tma_load_4d(dst + c * chunk_bytes(rows) + r * 128, map, c * 64, h, t0 + r, b, bar);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ inline uint32_t pack_bf16_raw(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ inline uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
 // (x, y) -> hi = bf16 pair, lo = bf16 pair of the remainders
-__device__ inline void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   const float2 hf = __bfloat1622float2(h);
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
@@ -90,374 +155,495 @@ __device__ inline void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) 
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// d[0..3] += A (16 x 16, row) . B (16 x 8, col), bf16 operands, f32 sums
-__device__ inline void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// The k16 block kk of a score accumulator (64 rows x N) as a register A:
+// the bf16 pairs (8kk, 8kk+1), (8kk+2, 8kk+3), (8kk+4, 8kk+5), (8kk+6, 8kk+7)
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&s)[N], int kk, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) a[e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+template <int N>
+__device__ __forceinline__ void split_a(const float (&s)[N], int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], hi[e], lo[e]);
 }
 
-// rows [t0, t0 + TILE) of one head of a strided tensor -> shared tile
-// dst[TILE][DH + kPad]; rows at or past `valid` are zero-filled
+// Writes a consumer warpgroup's 64 x DH accumulator (times `mul`, rounded to
+// bf16) to rows [t0 + r0, t0 + r0 + 64) of a contiguous [B, T, H, DH] tensor,
+// staged through its own rows [r0, r0 + 64) of a shared tile of `rows` rows
+// that nothing else reads any more (16-byte pieces, swizzled by row so the
+// staging writes do not conflict).
 template <int DH>
-__device__ inline void load_rows(const Strided& src, int b, int h, int t0, int valid,
-                                 bf16* dst) {
-  constexpr int vecs = DH / 8;
-  constexpr int ld = DH + kPad;
-  for (int i = threadIdx.x; i < TILE * vecs; i += FT) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < valid) v = *reinterpret_cast<const uint4*>(src.row(b, t0 + r, h, DH) + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], float mul, uint8_t* tile,
+                                           int rows, int r0, int w, bf16* __restrict__ dst, int b,
+                                           int T, int H, int h, int t0) {
+  const int tid = threadIdx.x % 128, lane = tid % 32, g = lane / 4, t = lane % 4;
+  fence_proxy_async();
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 2) {
+    const int row = r0 + (tid / 32) * 16 + g + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + 2 * t;
+    uint8_t* at = tile + (col / 64) * chunk_bytes(rows) + row * 128 +
+                  ((((col % 64) / 8) ^ (row & 7)) * 16) + (col % 8) * 2;
+    *reinterpret_cast<uint32_t*>(at) = pack_bf16(acc[i] * mul, acc[i + 1] * mul);
   }
-}
-
-// acc[n] (16 rows x 8 cols each, n < N) += A[16 rows of a, K = DH] . B^T where
-// B is `N * 8` rows of b starting at row b0 (both shared, row stride DH + kPad):
-// the "rows times rows" product (Q K^T, dO V^T, K Q^T, V dO^T)
-template <int DH, int N>
-__device__ inline void rows_x_rows(const bf16* a, int a0, const bf16* bm, int b0,
-                                   float (&acc)[N][4]) {
-  constexpr int ld = DH + kPad;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kc = 0; kc < DH; kc += 16) {
-    const bf16* ar = a + (a0 + g) * ld + kc + t * 2;
-    const uint32_t x0 = ld32(ar), x1 = ld32(ar + 8 * ld), x2 = ld32(ar + 8),
-                   x3 = ld32(ar + 8 * ld + 8);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const bf16* br = bm + (b0 + n * 8 + g) * ld + kc + t * 2;
-      mma16816(acc[n], x0, x1, x2, x3, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc[nd] (16 rows x 8 of DH columns) += P . M where P is 16 x (16 * KC) held
-// as score accumulators p[2 * KC][4] (C layout == A layout) and M is rows
-// [m0, m0 + 16 * KC) of a shared tile [*, DH + kPad]: the "P times rows"
-// product (P V, dS K, P^T dO, dS^T Q)
-template <int DH, int KC>
-__device__ inline void p_x_rows(const float (&p)[2 * KC][4], const bf16* m, int m0,
-                                float (&acc)[DH / 8][4]) {
-  constexpr int ld = DH + kPad;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    const uint32_t x0 = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t x1 = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t x2 = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t x3 = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* mr = m + (m0 + kk * 16 + t * 2) * ld + g;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      const bf16* c = mr + nd * 8;
-      mma16816(acc[nd], x0, x1, x2, x3, pack_bf16_raw(c[0], c[ld]),
-               pack_bf16_raw(c[8 * ld], c[9 * ld]));
-    }
-  }
-}
-
-// p_x_rows for an operand that must keep more than bf16's 8 bits (P and dS
-// in the backward): each
-// A fragment is split into hi = bf16(p) and lo = bf16(p - hi), and both
-// products accumulate into acc
-template <int DH, int KC>
-__device__ inline void p_x_rows_split(const float (&p)[2 * KC][4], const bf16* m, int m0,
-                                      float (&acc)[DH / 8][4]) {
-  constexpr int ld = DH + kPad;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    uint32_t hi[4], lo[4];
-    split_bf16(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
-    split_bf16(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
-    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
-    const bf16* mr = m + (m0 + kk * 16 + t * 2) * ld + g;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      const bf16* c = mr + nd * 8;
-      const uint32_t b0 = pack_bf16_raw(c[0], c[ld]), b1 = pack_bf16_raw(c[8 * ld], c[9 * ld]);
-      mma16816(acc[nd], hi[0], hi[1], hi[2], hi[3], b0, b1);
-      mma16816(acc[nd], lo[0], lo[1], lo[2], lo[3], b0, b1);
-    }
+  wg::named_sync(1 + w, 128);
+  constexpr int kPieces = DH / 8;  // 16-byte pieces a row
+  for (int v = tid; v < 64 * kPieces; v += 128) {
+    const int row = r0 + v / kPieces, p = v % kPieces, tt = t0 + row;
+    if (tt >= T) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        tile + (p / 8) * chunk_bytes(rows) + row * 128 + (((p % 8) ^ (row & 7)) * 16));
+    *reinterpret_cast<uint4*>(dst + (((size_t)b * T + tt) * H + h) * DH + p * 8) = val;
   }
 }
 
 // ----------------------------------------------------------------- forward
 
 template <int DH>
-__global__ void __launch_bounds__(FT)
-flash_fwd_kernel(Strided q, Strided k, Strided v, const int* __restrict__ lens,
+struct FwdSmem {
+  static constexpr uint32_t kQ = tile_bytes<DH>(kRows);
+  static constexpr uint32_t kKV = tile_bytes<DH>(kFwdKeys);  // one K or V tile
+  static constexpr uint32_t kStage = 2 * kKV;
+  static constexpr size_t kBytes = 1024 + kQ + kStages * kStage + (1 + 2 * kStages) * 8;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const int* __restrict__ lens,
                  bf16* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
                  int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ld = DH + kPad;
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + TILE * ld;
-  bf16* vs = ks + TILE * ld;
+  using L = FwdSmem<DH>;
+  constexpr int BN = kFwdKeys;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* st = qs + L::kQ;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(st + kStages * L::kStage);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * kRows;
   const int kv_len = max(0, min(lens[b], Tk));
-  int n_tiles = ceil_div(kv_len, TILE);
-  if (causal) n_tiles = min(n_tiles, ceil_div(q0 + TILE, TILE));
+  int n_tiles = ceil_div(kv_len, BN);
+  if (causal) n_tiles = min(n_tiles, ceil_div(q0 + kRows, BN));
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  load_rows<DH>(q, b, h, q0, Tq, qs);
-
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // rows r0 + g and r0 + g + 8
-  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * TILE;
-    __syncthreads();  // previous readers of ks / vs are done (and qs is loaded)
-    load_rows<DH>(k, b, h, k0, Tk, ks);
-    load_rows<DH>(v, b, h, k0, Tk, vs);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    rows_x_rows<DH, 8>(qs, r0, ks, 0, s);
-
-    float mt[2] = {NEG, NEG};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + t * 2 + (i & 1), r = i >> 1;
-        const bool ok = key < kv_len && (!causal || key <= qrow[r]);
-        s[n][i] = ok ? s[n][i] * scale : NEG;
-        mt[r] = fmaxf(mt[r], s[n][i]);
+  // the warpgroup index, broadcast so the compiler sees it uniform: the
+  // setmaxnreg regions below are then the roles' whole branches
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {  // the producer warpgroup
+    wg::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(qbar, L::kQ);
+      load_tile<DH>(qs, kRows, &tq, h, q0, b, qbar);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], L::kStage);
+        load_tile<DH>(st + s * L::kStage, BN, &tk, h, j * BN, b, &full[s]);
+        load_tile<DH>(st + s * L::kStage + L::kKV, BN, &tv, h, j * BN, b, &full[s]);
       }
-    float alpha[2];
+    }
+  } else {  // the two consumer warpgroups (warps 0-7)
+    wg::reg_alloc<kConsumerRegs>();
+    const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+    // this thread's rows in the block: wrow and wrow + 8
+    const int t = tid % 4, wrow = w * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+    const float c = scale * kLog2e;
+    const uint32_t qa = smem_u32(qs);
+    float o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // raw-score max, per-thread partial sums
+
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages, k0 = j * BN;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const uint32_t ks = smem_u32(st + s * L::kStage), vs = ks + L::kKV;
+      float sc[BN / 2];
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wg::mma<0>(sc, desc_k(qa, kRows, w * 64, kk), desc_k(ks, BN, 0, kk), kk > 0);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+
+      if (k0 + BN > kv_len || (causal && k0 + BN - 1 > q0 + w * 64)) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const int q = q0 + wrow + 8 * ((i >> 1) & 1);
+          if (key >= kv_len || (causal && key > q)) sc[i] = NEG;
+        }
+      }
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], sc[i]);
+      float alpha[2], mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        alpha[r] = exp2f((m[r] - mt[r]) * c);
+        m[r] = mt[r];
+        mc[r] = mt[r] * c;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2f(fmaf(sc[i], c, -mc[r]));
+        l[r] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pack_a(sc, kk, pa[kk]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wg::mma<1>(o, pa[kk], desc_n(vs, BN, kk));
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[s]);
+    }
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float mn = fmaxf(m[r], mt[r]);
-      alpha[r] = expf(m[r] - mn);
-      m[r] = mn;
-      l[r] *= alpha[r];  // per-thread partial sums; reduced over the quad at the end
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
+    const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int i = 0; i < DH / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+    store_rows<DH>(o, 1.f, qs, kRows, w * 64, w, out, b, Tq, H, h, q0);
+    if (t == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        s[n][i] = expf(s[n][i] - m[r]);
-        l[r] += s[n][i];
+      for (int r = 0; r < 2; ++r) {
+        const int q = q0 + wrow + 8 * r;
+        const float mn = m[r] <= NEG ? NEG : m[r] * scale;
+        if (q < Tq) lse[(size_t)bh * Tq + q] = mn + logf(fmaxf(l[r], 1e-30f));
       }
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
     }
-    p_x_rows<DH, 4>(s, vs, 0, o);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qrow[r] >= Tq) continue;
-    bf16* orow = out + (((size_t)b * Tq + qrow[r]) * H + h) * DH;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + t * 2) =
-          pack_bf16(o[n][2 * r] * inv[r], o[n][2 * r + 1] * inv[r]);
-    if (t == 0) lse[(size_t)bh * Tq + qrow[r]] = m[r] + logf(fmaxf(l[r], 1e-30f));
   }
 }
 
 // --------------------------------------------------------- backward: dQ
 
-// also writes delta[bh][q] = rowsum(dO * O) for the dK/dV launch
 template <int DH>
-__global__ void __launch_bounds__(FT)
-flash_bwd_dq_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
+struct DqSmem {
+  static constexpr uint32_t kQ = tile_bytes<DH>(kRows);  // the Q and the dO tile
+  static constexpr uint32_t kKV = tile_bytes<DH>(kBox);  // one K or V tile
+  static constexpr uint32_t kStage = 2 * kKV;
+  static constexpr size_t kBytes =
+      1024 + 2 * kQ + kStages * kStage + 2 * kRows * sizeof(float) + (2 + 2 * kStages) * 8;
+};
+
+// also writes stats[bh][0][q] = max(lse, -1e29) * log2(e) and
+// stats[bh][1][q] = delta = rowsum(dO * O) for q < Tp (0 past Tq) for the
+// dK / dV launch
+template <int DH>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const int* __restrict__ lens,
-                    bf16* __restrict__ dq, float* __restrict__ delta, int H, int Tq, int Tk,
-                    int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ld = DH + kPad;
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + TILE * ld;
-  bf16* ks = dos + TILE * ld;
-  bf16* vs = ks + TILE * ld;
-  float* lse_s = reinterpret_cast<float*>(vs + TILE * ld);
-  float* dl_s = lse_s + TILE;
+                    bf16* __restrict__ dq, float* __restrict__ stats, int H, int Tq, int Tk,
+                    int Tp, int causal, float scale) {
+  using L = DqSmem<DH>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* dos = qs + L::kQ;
+  uint8_t* st = dos + L::kQ;
+  float* rows_s = reinterpret_cast<float*>(st + kStages * L::kStage);  // [2][kRows]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(rows_s + 2 * kRows);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+  uint64_t* done = empty + kStages;  // the consumers' last arrival
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * kRows;
   const int kv_len = max(0, min(lens[b], Tk));
-  int n_tiles = ceil_div(kv_len, TILE);
-  if (causal) n_tiles = min(n_tiles, ceil_div(q0 + TILE, TILE));
-
-  load_rows<DH>(q, b, h, q0, Tq, qs);
-  load_rows<DH>(dout, b, h, q0, Tq, dos);
-  {  // delta: two threads per row, DH / 2 products each
-    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-    float acc = 0.f;
-    if (q0 + r < Tq) {
-      const bf16* orow = o.row(b, q0 + r, h, DH) + half * (DH / 2);
-      const bf16* drow = dout.row(b, q0 + r, h, DH) + half * (DH / 2);
-      for (int c = 0; c < DH / 2; ++c)
-        acc += __bfloat162float(drow[c]) * __bfloat162float(orow[c]);
+  int n_tiles = ceil_div(kv_len, kBox);
+  if (causal) n_tiles = min(n_tiles, ceil_div(q0 + kRows, kBox));
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      dl_s[r] = acc;
-      lse_s[r] = q0 + r < Tq ? fmaxf(lse[(size_t)bh * Tq + q0 + r], -1e29f) : 0.f;
-      if (q0 + r < Tq) delta[(size_t)bh * Tq + q0 + r] = acc;
-    }
+    mbar_init(done, 2);
+    fence_barrier_init();
   }
   __syncthreads();
-  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const float lr[2] = {lse_s[r0 + g], lse_s[r0 + g + 8]};
-  const float dr[2] = {dl_s[r0 + g], dl_s[r0 + g + 8]};
 
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * TILE;
-    __syncthreads();
-    load_rows<DH>(k, b, h, k0, Tk, ks);
-    load_rows<DH>(v, b, h, k0, Tk, vs);
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {  // 32 keys at a time
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-      rows_x_rows<DH, 4>(qs, r0, ks, half * 32, s);
-      rows_x_rows<DH, 4>(dos, r0, vs, half * 32, dp);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = k0 + half * 32 + n * 8 + t * 2 + (i & 1), r = i >> 1;
-          const bool ok = key < kv_len && (!causal || key <= qrow[r]);
-          const float p = ok ? expf(s[n][i] * scale - lr[r]) : 0.f;
-          s[n][i] = p * (dp[n][i] - dr[r]);  // dS
-        }
-      p_x_rows_split<DH, 2>(s, ks, half * 32, acc);
+  // the warpgroup index, broadcast so the compiler sees it uniform: the
+  // setmaxnreg regions below are then the roles' whole branches
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {  // the producer warpgroup
+    wg::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(qbar, 2 * L::kQ);
+      load_tile<DH>(qs, kRows, &tq, h, q0, b, qbar);
+      load_tile<DH>(dos, kRows, &tdo, h, q0, b, qbar);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], L::kStage);
+        load_tile<DH>(st + s * L::kStage, kBox, &tk, h, j * kBox, b, &full[s]);
+        load_tile<DH>(st + s * L::kStage + L::kKV, kBox, &tv, h, j * kBox, b, &full[s]);
+      }
+      mbar_wait(done, 0);  // the consumers' waits are untimed: a stall traps here
     }
-  }
+  } else {  // the two consumer warpgroups (warps 0-7)
+    wg::reg_alloc<kConsumerRegs>();
+    const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int t = tid % 4, wrow = w * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+    const float c = scale * kLog2e;
+
+    {  // delta and the base-2 lse of this warpgroup's 64 rows: two threads a row
+      const int row = w * 64 + tid / 2, half = tid % 2, q = q0 + row;
+      float acc = 0.f;
+      if (q < Tq) {
+        const size_t at = (((size_t)b * Tq + q) * H + h) * DH + half * (DH / 2);
+        const uint4* ov = reinterpret_cast<const uint4*>(o + at);
+        const uint4* dv = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qrow[r] >= Tq) continue;
-    bf16* row = dq + (((size_t)b * Tq + qrow[r]) * H + h) * DH;
+        for (int v = 0; v < DH / 16; ++v) {
+          const uint4 a = ov[v], d = dv[v];
+          const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + t * 2) =
-          pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+          for (int e = 0; e < 4; ++e) {
+            const float2 fa = __bfloat1622float2(a2[e]), fd = __bfloat1622float2(d2[e]);
+            acc = fmaf(fa.x, fd.x, acc);
+            acc = fmaf(fa.y, fd.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        const float l2 = q < Tq ? fmaxf(lse[(size_t)bh * Tq + q], LSE_FLOOR) * kLog2e : 0.f;
+        rows_s[row] = l2;
+        rows_s[kRows + row] = acc;
+        stats[(size_t)bh * 2 * Tp + q] = l2;
+        stats[((size_t)bh * 2 + 1) * Tp + q] = acc;
+      }
+    }
+    wg::named_sync(1 + w, 128);
+    const float lr[2] = {rows_s[wrow], rows_s[wrow + 8]};
+    const float dr[2] = {rows_s[kRows + wrow], rows_s[kRows + wrow + 8]};
+    const uint32_t qa = smem_u32(qs), da = smem_u32(dos);
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait_untimed(qbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages, k0 = j * kBox;
+      mbar_wait_untimed(&full[s], (j / kStages) & 1);
+      const uint32_t ks = smem_u32(st + s * L::kStage), vs = ks + L::kKV;
+      float sc[kBox / 2], dp[kBox / 2];
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wg::mma<0>(sc, desc_k(qa, kRows, w * 64, kk), desc_k(ks, kBox, 0, kk), kk > 0);
+        wg::mma<0>(dp, desc_k(da, kRows, w * 64, kk), desc_k(vs, kBox, 0, kk), kk > 0);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+
+      const bool edge = k0 + kBox > kv_len || (causal && k0 + kBox - 1 > q0 + w * 64);
+#pragma unroll
+      for (int i = 0; i < kBox / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2f(fmaf(sc[i], c, -lr[r]));
+        if (edge) {
+          const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1), q = q0 + wrow + 8 * r;
+          if (key >= kv_len || (causal && key > q)) p = 0.f;
+        }
+        sc[i] = p * (dp[i] - dr[r]);  // dS
+      }
+      uint32_t hi[kBox / 16][4], lo[kBox / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk) split_a(sc, kk, hi[kk], lo[kk]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk) {
+        wg::mma<1>(acc, hi[kk], desc_n(ks, kBox, kk));
+        wg::mma<1>(acc, lo[kk], desc_n(ks, kBox, kk));
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[s]);
+    }
+    store_rows<DH>(acc, scale, qs, kRows, w * 64, w, dq, b, Tq, H, h, q0);
+    if (tid == 0) mbar_arrive(done);
   }
 }
 
 // ----------------------------------------------------- backward: dK, dV
 
 template <int DH>
-__global__ void __launch_bounds__(FT)
-flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ lens, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Tq, int Tk, int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ld = DH + kPad;
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + TILE * ld;
-  bf16* qs = vs + TILE * ld;
-  bf16* dos = qs + TILE * ld;
-  float* lse_s = reinterpret_cast<float*>(dos + TILE * ld);
-  float* dl_s = lse_s + TILE;
+struct DkvSmem {
+  static constexpr uint32_t kKV = tile_bytes<DH>(kRows);  // the K and the V tile
+  static constexpr uint32_t kQ = tile_bytes<DH>(kBox);    // one Q or dO tile
+  static constexpr uint32_t kStage = 2 * kQ;
+  static constexpr uint32_t kStats = 2 * kBox * sizeof(float);  // its lse and delta
+  static constexpr size_t kBytes =
+      1024 + 2 * kKV + kStages * (kStage + kStats) + (2 + 2 * kStages) * 8;
+};
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;
+template <int DH>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ stats,
+                     const int* __restrict__ lens, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     int H, int Tq, int Tk, int Tp, int causal, float scale) {
+  using L = DkvSmem<DH>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ks = align_1024(smem_raw);
+  uint8_t* vs = ks + L::kKV;
+  uint8_t* st = vs + L::kKV;
+  float* stats_s = reinterpret_cast<float*>(st + kStages * L::kStage);  // [kStages][2][kBox]
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(stats_s + kStages * 2 * kBox);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kStages;
+  uint64_t* done = empty + kStages;  // the consumers' last arrival
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * kRows;
   const int kv_len = max(0, min(lens[b], Tk));
-  const int krow[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+  const int i0 = causal ? k0 / kBox : 0;  // the first query tile that sees these keys
+  const int n_tiles = k0 < kv_len ? max(0, ceil_div(Tq, kBox) - i0) : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(done, 2);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float ak[DH / 8][4], av[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ak[n][i] = av[n][i] = 0.f;
-
-  if (k0 < kv_len) {  // tiles wholly past kv_len keep exact zeros
-    load_rows<DH>(k, b, h, k0, Tk, ks);
-    load_rows<DH>(v, b, h, k0, Tk, vs);
-    const int n_qt = ceil_div(Tq, TILE);
-    for (int jq = causal ? k0 / TILE : 0; jq < n_qt; ++jq) {
-      const int q0 = jq * TILE;
-      __syncthreads();
-      load_rows<DH>(q, b, h, q0, Tq, qs);
-      load_rows<DH>(dout, b, h, q0, Tq, dos);
-      for (int r = threadIdx.x; r < TILE; r += FT) {
-        const bool in = q0 + r < Tq;
-        lse_s[r] = in ? fmaxf(lse[(size_t)bh * Tq + q0 + r], -1e29f) : 0.f;
-        dl_s[r] = in ? delta[(size_t)bh * Tq + q0 + r] : 0.f;
+  // the warpgroup index, broadcast so the compiler sees it uniform: the
+  // setmaxnreg regions below are then the roles' whole branches
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {  // the producer warpgroup
+    wg::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(kvbar, 2 * L::kKV);
+      load_tile<DH>(ks, kRows, &tk, h, k0, b, kvbar);
+      load_tile<DH>(vs, kRows, &tv, h, k0, b, kvbar);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages, q0 = (i0 + j) * kBox;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], L::kStage + L::kStats);
+        load_tile<DH>(st + s * L::kStage, kBox, &tq, h, q0, b, &full[s]);
+        load_tile<DH>(st + s * L::kStage + L::kQ, kBox, &tdo, h, q0, b, &full[s]);
+        float* dst = stats_s + s * 2 * kBox;
+        bulk_load(dst, stats + (size_t)bh * 2 * Tp + q0, kBox * sizeof(float), &full[s]);
+        bulk_load(dst + kBox, stats + ((size_t)bh * 2 + 1) * Tp + q0, kBox * sizeof(float),
+                  &full[s]);
       }
-      __syncthreads();
+      mbar_wait(done, 0);  // the consumers' waits are untimed: a stall traps here
+    }
+  } else {  // the two consumer warpgroups (warps 0-7)
+    wg::reg_alloc<kConsumerRegs>();
+    const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+    // this thread's keys: k0 + wrow and k0 + wrow + 8
+    const int t = tid % 4, wrow = w * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+    const float c = scale * kLog2e;
+    const uint32_t ka = smem_u32(ks), va = smem_u32(vs);
+    float adk[DH / 2], adv[DH / 2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {  // 32 queries at a time
-        float s[4][4], dp[4][4];
+    for (int i = 0; i < DH / 2; ++i) adk[i] = adv[i] = 0.f;
+
+    mbar_wait_untimed(kvbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages, q0 = (i0 + j) * kBox;
+      mbar_wait_untimed(&full[s], (j / kStages) & 1);
+      const uint32_t qs = smem_u32(st + s * L::kStage), dos = qs + L::kQ;
+      const float* l2 = stats_s + s * 2 * kBox;
+      const float* dl = l2 + kBox;
+      float sc[kBox / 2], dp[kBox / 2];  // S^T and dP^T: keys x queries
+      wg::wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wg::mma<0>(sc, desc_k(ka, kRows, w * 64, kk), desc_k(qs, kBox, 0, kk), kk > 0);
+        wg::mma<0>(dp, desc_k(va, kRows, w * 64, kk), desc_k(dos, kBox, 0, kk), kk > 0);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+
+      const bool edge = k0 + w * 64 + 63 >= kv_len || q0 + kBox > Tq ||
+                        (causal && k0 + w * 64 + 63 > q0);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
-        rows_x_rows<DH, 4>(ks, r0, qs, half * 32, s);    // S^T: keys x queries
-        rows_x_rows<DH, 4>(vs, r0, dos, half * 32, dp);  // dP^T
+      for (int n = 0; n < kBox / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        const float2 lv = *reinterpret_cast<const float2*>(l2 + col);
+        const float2 dlv = *reinterpret_cast<const float2*>(dl + col);
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int qc = half * 32 + n * 8 + t * 2 + (i & 1), key = krow[i >> 1];
-            const int qi = q0 + qc;
-            const bool ok = key < kv_len && qi < Tq && (!causal || key <= qi);
-            const float p = ok ? expf(s[n][i] * scale - lse_s[qc]) : 0.f;
-            s[n][i] = p;
-            dp[n][i] = p * (dp[n][i] - dl_s[qc]);  // dS^T
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * n + e;
+          float p = exp2f(fmaf(sc[i], c, -((e & 1) ? lv.y : lv.x)));
+          if (edge) {
+            const int key = k0 + wrow + 8 * ((e >> 1) & 1), q = q0 + col + (e & 1);
+            if (key >= kv_len || q >= Tq || (causal && key > q)) p = 0.f;
           }
-        p_x_rows_split<DH, 2>(s, dos, half * 32, av);  // dV += P^T dO
-        p_x_rows_split<DH, 2>(dp, qs, half * 32, ak);  // dK += dS^T Q
+          sc[i] = p;                                        // P^T
+          dp[i] = p * (dp[i] - ((e & 1) ? dlv.y : dlv.x));  // dS^T
+        }
       }
-    }
-  }
+      uint32_t ph[kBox / 16][4], pl[kBox / 16][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (krow[r] >= Tk) continue;
-    const size_t at = (((size_t)b * Tk + krow[r]) * H + h) * DH;
+      for (int kk = 0; kk < kBox / 16; ++kk) split_a(sc, kk, ph[kk], pl[kk]);
+      wg::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + at + n * 8 + t * 2) =
-          pack_bf16(ak[n][2 * r] * scale, ak[n][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at + n * 8 + t * 2) =
-          pack_bf16(av[n][2 * r], av[n][2 * r + 1]);
+      for (int kk = 0; kk < kBox / 16; ++kk) {  // dV += P^T dO
+        wg::mma<1>(adv, ph[kk], desc_n(dos, kBox, kk));
+        wg::mma<1>(adv, pl[kk], desc_n(dos, kBox, kk));
+      }
+      wg::wgmma_commit();
+      // at dh = 128 the accumulators alone take 128 registers: let the P
+      // pair go before the dS pair is built
+      if constexpr (DH == 128) wg::wgmma_wait<0>();
+      uint32_t sh[kBox / 16][4], sl[kBox / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk) split_a(dp, kk, sh[kk], sl[kk]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk) {  // dK += dS^T Q
+        wg::mma<1>(adk, sh[kk], desc_n(qs, kBox, kk));
+        wg::mma<1>(adk, sl[kk], desc_n(qs, kBox, kk));
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[s]);
     }
+    store_rows<DH>(adk, scale, ks, kRows, w * 64, w, dk, b, Tk, H, h, k0);
+    store_rows<DH>(adv, 1.f, vs, kRows, w * 64, w, dv, b, Tk, H, h, k0);
+    if (tid == 0) mbar_arrive(done);
   }
+}
+
+// ------------------------------------------------------------------ host
+
+// [B, T, H, dh] bf16 with batch / time strides in elements (multiples of 8)
+// -> a 4-D map (dh, H, T, B) with 64 x 1 x 64 x 1 boxes, 128-byte swizzle
+bool head_map(CUtensorMap* map, const bf16* p, long long sb, long long st, int B, int T, int H,
+              int dh) {
+  return make_tmap<4>(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B},
+                      {(cuuint64_t)dh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2},
+                      {64u, 1u, (cuuint32_t)kBox, 1u}, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename K>
@@ -467,63 +653,75 @@ int set_smem(K kernel, size_t bytes) {
 }
 
 template <int DH>
-int launch_fwd(Strided q, Strided k, Strided v, const int* lens, bf16* out, float* lse, int B,
-               int H, int Tq, int Tk, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = 3 * (size_t)TILE * (DH + kPad) * 2;
+int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+               const int* lens, bf16* out, float* lse, int B, int H, int Tq, int Tk, int causal,
+               float scale, cudaStream_t stream) {
+  const size_t smem = FwdSmem<DH>::kBytes;
   int err = set_smem(flash_fwd_kernel<DH>, smem);
   if (err) return err;
-  dim3 grid(ceil_div(Tq, TILE), B * H);
-  flash_fwd_kernel<DH><<<grid, FT, smem, stream>>>(q, k, v, lens, out, lse, H, Tq, Tk, causal,
-                                                   scale);
+  flash_fwd_kernel<DH><<<dim3(ceil_div(Tq, kRows), B * H), kBlockThreads, smem, stream>>>(
+      tq, tk, tv, lens, out, lse, H, Tq, Tk, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_bwd(Strided q, Strided k, Strided v, Strided o, Strided dout, const float* lse,
-               const int* lens, bf16* dq, bf16* dk, bf16* dv, float* delta, int B, int H,
-               int Tq, int Tk, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = 4 * (size_t)TILE * (DH + kPad) * 2 + 2 * TILE * sizeof(float);
-  int err = set_smem(flash_bwd_dq_kernel<DH>, smem);
+int launch_bwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+               const CUtensorMap& tdo, const bf16* o, const bf16* dout, const float* lse,
+               const int* lens, bf16* dq, bf16* dk, bf16* dv, float* stats, int B, int H, int Tq,
+               int Tk, int causal, float scale, cudaStream_t stream) {
+  const int Tp = ceil_div(Tq, kRows) * kRows;
+  int err = set_smem(flash_bwd_dq_kernel<DH>, DqSmem<DH>::kBytes);
   if (err) return err;
-  err = set_smem(flash_bwd_dkv_kernel<DH>, smem);
+  err = set_smem(flash_bwd_dkv_kernel<DH>, DkvSmem<DH>::kBytes);
   if (err) return err;
-  flash_bwd_dq_kernel<DH><<<dim3(ceil_div(Tq, TILE), B * H), FT, smem, stream>>>(
-      q, k, v, o, dout, lse, lens, dq, delta, H, Tq, Tk, causal, scale);
+  const size_t dq_smem = DqSmem<DH>::kBytes, dkv_smem = DkvSmem<DH>::kBytes;
+  flash_bwd_dq_kernel<DH><<<dim3(ceil_div(Tq, kRows), B * H), kBlockThreads, dq_smem, stream>>>(
+      tq, tk, tv, tdo, o, dout, lse, lens, dq, stats, H, Tq, Tk, Tp, causal, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  flash_bwd_dkv_kernel<DH><<<dim3(ceil_div(Tk, TILE), B * H), FT, smem, stream>>>(
-      q, k, v, dout, lse, delta, lens, dk, dv, H, Tq, Tk, causal, scale);
+  flash_bwd_dkv_kernel<DH><<<dim3(ceil_div(Tk, kRows), B * H), kBlockThreads, dkv_smem, stream>>>(
+      tq, tk, tv, tdo, stats, lens, dk, dv, H, Tq, Tk, Tp, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v: base pointer, batch stride, time stride (elements); out [B, Tq, H, dh]
-// and lse [B*H, Tq] are contiguous
-extern "C" int jl_flash_fwd(const bf16* q, long long q_sb, int q_st, const bf16* k,
-                            long long k_sb, int k_st, const bf16* v, long long v_sb, int v_st,
-                            const int* lens, bf16* out, float* lse, int B, int H, int Tq,
-                            int Tk, int dh, int causal, float scale, cudaStream_t stream) {
-  const Strided sq{q, q_sb, q_st}, sk{k, k_sb, k_st}, sv{v, v_sb, v_st};
-  if (dh == 64) return launch_fwd<64>(sq, sk, sv, lens, out, lse, B, H, Tq, Tk, causal, scale, stream);
-  if (dh == 128) return launch_fwd<128>(sq, sk, sv, lens, out, lse, B, H, Tq, Tk, causal, scale, stream);
-  return (int)cudaErrorInvalidValue;
+// q/k/v: base pointer, batch stride, time stride (elements; multiples of 8
+// below 2^39, pointers 16-byte aligned); out [B, Tq, H, dh] and lse
+// [B*H, Tq] are contiguous. Tq, Tk >= 1.
+extern "C" int jl_flash_fwd(const bf16* q, long long q_sb, long long q_st, const bf16* k,
+                            long long k_sb, long long k_st, const bf16* v, long long v_sb,
+                            long long v_st, const int* lens, bf16* out, float* lse, int B,
+                            int H, int Tq, int Tk, int dh, int causal, float scale,
+                            cudaStream_t stream) {
+  if (dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, q, q_sb, q_st, B, Tq, H, dh) ||
+      !head_map(&tk, k, k_sb, k_st, B, Tk, H, dh) || !head_map(&tv, v, v_sb, v_st, B, Tk, H, dh))
+    return (int)cudaErrorInvalidValue;
+  if (dh == 64)
+    return launch_fwd<64>(tq, tk, tv, lens, out, lse, B, H, Tq, Tk, causal, scale, stream);
+  return launch_fwd<128>(tq, tk, tv, lens, out, lse, B, H, Tq, Tk, causal, scale, stream);
 }
 
 // out and dout are contiguous [B, Tq, H, dh]; dq / dk / dv contiguous like
-// out; delta [B*H, Tq] f32 scratch
-extern "C" int jl_flash_bwd(const bf16* q, long long q_sb, int q_st, const bf16* k,
-                            long long k_sb, int k_st, const bf16* v, long long v_sb, int v_st,
-                            const bf16* o, const bf16* dout, const float* lse, const int* lens,
-                            bf16* dq, bf16* dk, bf16* dv, float* delta, int B, int H, int Tq,
-                            int Tk, int dh, int causal, float scale, cudaStream_t stream) {
-  const Strided sq{q, q_sb, q_st}, sk{k, k_sb, k_st}, sv{v, v_sb, v_st};
-  const Strided so{o, (long long)Tq * H * dh, H * dh}, sd{dout, (long long)Tq * H * dh, H * dh};
+// q / k; stats: f32 scratch [B*H, 2, Tp], Tp = Tq rounded up to 128
+extern "C" int jl_flash_bwd(const bf16* q, long long q_sb, long long q_st, const bf16* k,
+                            long long k_sb, long long k_st, const bf16* v, long long v_sb,
+                            long long v_st, const bf16* o, const bf16* dout,
+                            const float* lse, const int* lens, bf16* dq, bf16* dk, bf16* dv,
+                            float* stats, int B, int H, int Tq, int Tk, int dh, int causal,
+                            float scale, cudaStream_t stream) {
+  if (dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  const long long row = (long long)H * dh;
+  if (!head_map(&tq, q, q_sb, q_st, B, Tq, H, dh) ||
+      !head_map(&tk, k, k_sb, k_st, B, Tk, H, dh) || !head_map(&tv, v, v_sb, v_st, B, Tk, H, dh) ||
+      !head_map(&tdo, dout, row * Tq, row, B, Tq, H, dh))
+    return (int)cudaErrorInvalidValue;
   if (dh == 64)
-    return launch_bwd<64>(sq, sk, sv, so, sd, lse, lens, dq, dk, dv, delta, B, H, Tq, Tk,
+    return launch_bwd<64>(tq, tk, tv, tdo, o, dout, lse, lens, dq, dk, dv, stats, B, H, Tq, Tk,
                           causal, scale, stream);
-  if (dh == 128)
-    return launch_bwd<128>(sq, sk, sv, so, sd, lse, lens, dq, dk, dv, delta, B, H, Tq, Tk,
-                           causal, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_bwd<128>(tq, tk, tv, tdo, o, dout, lse, lens, dq, dk, dv, stats, B, H, Tq, Tk,
+                         causal, scale, stream);
 }

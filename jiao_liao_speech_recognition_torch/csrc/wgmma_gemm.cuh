@@ -41,28 +41,75 @@ __host__ __device__ constexpr size_t smem_bytes(int stages) {
 }
 
 // shared-memory matrix descriptor, 128-byte swizzle (layout type 1)
-__device__ inline uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ inline void wgmma_commit() {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
 template <int N>
-__device__ inline void wgmma_wait() {
+__device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-__device__ inline void consumer_sync() {
+__device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync %0, %1;" ::"n"(kConsumerBarrier), "n"(kConsumerThreads) : "memory");
 }
 
-// d[64] += A (64 x 16, K-major) . B (16 x 128, N-major when TRANS_B == 1)
+// named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// warp-specialised register budgets: the producer warp gives registers up,
+// the consumer warpgroups take them (each warpgroup as a whole, once, at
+// the top of its own branch)
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// The products, one wgmma each (bf16 in, f32 accumulators in registers).
+// Shared operands come through 128-byte-swizzled descriptors (desc_sw128);
+// a register A is the m16n8k16 A fragment of each warp's 16 rows, which is,
+// element for element, the accumulator layout of an earlier product (the
+// flash kernels feed P and dS back this way). Overloads on the accumulator
+// size pick N: float[32] is N = 64, float[64] is N = 128.
+
+// d[32] (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared; N-major when
+// TRANS_B == 1); scale_d == 0 overwrites d instead of adding to it
 template <int TRANS_B>
-__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                               uint64_t desc_b) {
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d = 1) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[64] (+)= A (64 x 16, shared, K-major) . B (16 x 128, shared; N-major when
+// TRANS_B == 1); scale_d == 0 overwrites d instead of adding to it
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d = 1) {
   asm volatile(
       "{\n\t.reg .pred p;\n\t"
       "setp.ne.b32 p, %66, 0;\n\t"
@@ -74,25 +121,92 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
       "%64, %65, p, 1, 1, 0, %67;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[32] += A (64 x 16, registers: the m16n8k16 A fragment of each warp's 16
+// rows, 4 x b32 of bf16 pairs) . B (16 x 64, shared; N-major when TRANS_B == 1)
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// d[64] += A (64 x 16, registers: the m16n8k16 A fragment of each warp's 16
+// rows, 4 x b32 of bf16 pairs) . B (16 x 128, shared; N-major when TRANS_B == 1)
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void mma(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                    int scale_d = 1) {
+  mma_m64n64k16<TRANS_B>(d, desc_a, desc_b, scale_d);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void mma(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                    int scale_d = 1) {
+  mma_m64n128k16<TRANS_B>(d, desc_a, desc_b, scale_d);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  mma_m64n64k16_rs<TRANS_B>(d, a, desc_b);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  mma_m64n128k16_rs<TRANS_B>(d, a, desc_b);
 }
 
 // accumulator i of a consumer thread (tid in 0..127 of its warpgroup): its
 // row in the warpgroup's 64 and its column in the tile's 128 (the m16n8
 // fragment layout, repeated over 16 n8 column blocks)
-__device__ inline int acc_row(int tid, int i) {
+__device__ __forceinline__ int acc_row(int tid, int i) {
   return (tid / 32) * 16 + (tid % 32) / 4 + 8 * ((i >> 1) & 1);
 }
-__device__ inline int acc_col(int tid, int i) { return 8 * (i >> 2) + 2 * (tid % 4) + (i & 1); }
+__device__ __forceinline__ int acc_col(int tid, int i) {
+  return 8 * (i >> 2) + 2 * (tid % 4) + (i & 1);
+}
 
 // The block's shared memory: STAGES stages (1024-aligned for the swizzle),
 // then the full and empty barriers.

@@ -1,19 +1,26 @@
 """K6 / K8: flash attention forward (with log-sum-exp) and its backward.
 
 ``flash_forward`` and ``flash_backward`` are the wrappers of the CUDA
-kernels in ``csrc/flash_attention.cu`` (which replace the JAX package's
-``ops/flash_attention.py`` forward and backward kernels; the design note is
-in the .cu file). ``flash_forward_plain`` / ``flash_backward_plain`` are the
-same functions in plain PyTorch; the wrappers take them only for tensors on
-the CPU. ``FlashAttention`` is the ``torch.autograd.Function`` that ties the
+kernels in ``csrc/flash_attention.cu``, which replace the JAX package's
+``ops/flash_attention.py`` forward and backward kernels. On the H100 both
+are TMA + wgmma kernels (sm_90a): one thread of a producer warpgroup
+streams K/V (forward, 128-key tiles) or K/V and Q/dO (backward, 64-row
+tiles) through two mbarrier-counted stages of 4-D tensor maps over the
+strided views, and two consumer warpgroups of 64 rows each run the products
+with P and dS fed back from registers; the backward is two launches without
+atomics (dQ; dK and dV), so it is repeatable bit for bit. The design note is in the .cu
+file. ``flash_forward_plain`` / ``flash_backward_plain`` are the same
+functions in plain PyTorch; the wrappers take them only for tensors on the
+CPU. ``FlashAttention`` is the ``torch.autograd.Function`` that ties the
 two together, and ``flash_attention`` / ``flash_attention_packed`` are the
 public entry points with the JAX functions' signatures.
 
-Layouts: q [B, Tq, H, dh], k/v [B, Tk, H, dh] (any batch and time strides,
-heads contiguous), or head-packed [B, T, H*dh] - the same bytes. lse is f32
-[B*H, Tq]. P is rounded to the compute dtype before P.V, as the kernel
-rounds its tensor-core operand; the backward's plain version stays in f32
-(the kernel carries dS as a bf16 hi + lo pair, see the .cu note).
+Layouts: q [B, Tq, H, dh] and k/v [B, Tk, H, dh] with heads contiguous and
+any batch and time strides that the tensor maps take (multiples of 8
+elements, 16-byte-aligned data, T >= 1), or head-packed [B, T, H*dh] - the
+same bytes. lse is f32 [B*H, Tq]. P is rounded to the compute dtype before
+P.V, as the kernel rounds its tensor-core operand; the backward's plain
+version stays in f32 (the kernel carries P and dS as bf16 hi + lo pairs).
 """
 
 from __future__ import annotations
@@ -31,6 +38,16 @@ BWD_COUNTER = LaunchCounter("flash_attention_backward")  # K8
 HEAD_WIDTHS = (64, 128)  # the kernels' template instances
 NEG = -1e30  # the JAX kernels' mask value
 LSE_FLOOR = -1e29  # the backward's clamp of the saved lse
+MAX_STRIDE = 2 ** 39  # elements: a tensor map's byte strides stay below 2^40
+# csrc/flash_attention.cu's tiles: rows a block owns (kRows), keys of a
+# forward tile (kFwdKeys), rows of a streamed backward tile (kBox)
+BLOCK_ROWS, FWD_KEYS, BWD_TILE = 128, 128, 64
+
+
+def stats_rows(Tq: int) -> int:
+    """Tp: the backward's scratch rows a head, Tq rounded up to a block's
+    BLOCK_ROWS."""
+    return -(-Tq // BLOCK_ROWS) * BLOCK_ROWS
 
 
 def _scale(dh: int) -> float:
@@ -40,6 +57,16 @@ def _scale(dh: int) -> float:
 def _lengths(kv_lengths, B: int, Tk: int, device) -> torch.Tensor:
     lens = torch.as_tensor(kv_lengths, device=device).to(torch.int64)
     return torch.broadcast_to(lens, (B,)).clamp(0, Tk)
+
+
+def _kernel_lengths(kv_lengths, B: int, Tk: int, device) -> torch.Tensor:
+    """int32 [B] lengths for a kernel, which clamps them to [0, Tk] itself:
+    a tensor that already is one passes as it is (no conversion launches)."""
+    if (isinstance(kv_lengths, torch.Tensor) and kv_lengths.dtype == torch.int32
+            and kv_lengths.shape == (B,) and kv_lengths.device == device
+            and kv_lengths.is_contiguous()):
+        return kv_lengths
+    return _lengths(kv_lengths, B, Tk, device).to(torch.int32).contiguous()
 
 
 def _valid(lens, Tq: int, Tk: int, causal: bool, device) -> torch.Tensor:
@@ -93,15 +120,30 @@ def flash_backward_plain(q, k, v, kv_lengths, out, lse, dout, causal: bool = Fal
 
 
 def _check(name, t, B: int, H: int, dh: int):
-    if t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 4:
+    """Raise unless `t` is a bf16 [B, T, H, dh] tensor that the kernels' 4-D
+    tensor maps take (the device is _on_cuda's to check, after every
+    layout, so meta tensors exercise each refusal)."""
+    if t.dtype != torch.bfloat16 or t.dim() != 4:
         raise ValueError(f"{name}: expected a bf16 CUDA [B, T, H, dh] tensor, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if t.shape[0] != B or t.shape[2] != H or t.shape[3] != dh:
         raise ValueError(f"{name}: shape {tuple(t.shape)} does not match B={B} H={H} dh={dh}")
-    if t.stride(3) != 1 or t.stride(2) != dh:
+    if min(t.shape) < 1:
+        raise ValueError(f"{name}: empty tensor {tuple(t.shape)}")
+    if t.stride(3) != 1 or (H > 1 and t.stride(2) != dh):
         raise ValueError(f"{name}: heads must be contiguous (strides {t.stride()})")
-    if t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+    _, sb, st = _strided(t)
+    if sb % 8 or st % 8 or t.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be 16-byte aligned (strides {t.stride()})")
+    if sb <= 0 or st <= 0 or max(sb, st) >= MAX_STRIDE:
+        raise ValueError(f"{name}: strides {t.stride()} are not a tensor map's")
+
+
+def _on_cuda(**tensors):
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _shape_checks(q, k, v):
@@ -116,7 +158,12 @@ def _shape_checks(q, k, v):
 
 
 def _strided(t):
-    return (t.data_ptr(), t.stride(0), t.stride(1))
+    """-> (pointer, batch stride, time stride) in elements; a dim of size 1
+    takes the stride a packed tensor would have (the map never steps it)."""
+    B, T, H, dh = t.shape
+    st = t.stride(1) if T > 1 else H * dh
+    sb = t.stride(0) if B > 1 else T * st
+    return (t.data_ptr(), sb, st)
 
 
 def flash_forward(q, k, v, kv_lengths, causal: bool = False):
@@ -127,7 +174,8 @@ def flash_forward(q, k, v, kv_lengths, causal: bool = False):
         return flash_forward_plain(q, k, v, kv_lengths, causal)
     refuse_grad("flash_forward", q, k, v)
     B, Tq, H, dh, Tk = _shape_checks(q, k, v)
-    lens = _lengths(kv_lengths, B, Tk, q.device).to(torch.int32).contiguous()
+    _on_cuda(q=q, k=k, v=v)
+    lens = _kernel_lengths(kv_lengths, B, Tk, q.device)
     out = torch.empty(B, Tq, H, dh, device=q.device, dtype=q.dtype)
     lse = torch.empty(B * H, Tq, device=q.device, dtype=torch.float32)
     launch(
@@ -147,19 +195,23 @@ def flash_backward(q, k, v, kv_lengths, out, lse, dout, causal: bool = False):
     B, Tq, H, dh, Tk = _shape_checks(q, k, v)
     out = out.contiguous()
     dout = dout.to(q.dtype).contiguous()
-    _check("dout", dout, B, H, dh)
-    if out.shape != q.shape or lse.shape != (B * H, Tq) or lse.dtype != torch.float32:
+    if (out.shape != q.shape or out.dtype != q.dtype or lse.shape != (B * H, Tq)
+            or lse.dtype != torch.float32):
         raise ValueError("out / lse do not match q")
+    _check("out", out, B, H, dh)  # read, like dout, in 16-byte vectors
+    _check("dout", dout, B, H, dh)
     lse = lse.contiguous()
-    lens = _lengths(kv_lengths, B, Tk, q.device).to(torch.int32).contiguous()
+    _on_cuda(q=q, k=k, v=v, out=out, dout=dout, lse=lse)
+    lens = _kernel_lengths(kv_lengths, B, Tk, q.device)
     dq = torch.empty(B, Tq, H, dh, device=q.device, dtype=q.dtype)
     dk = torch.empty(B, Tk, H, dh, device=q.device, dtype=q.dtype)
     dv = torch.empty_like(dk)
-    delta = torch.empty(B * H, Tq, device=q.device, dtype=torch.float32)
+    # launch 1 writes each row's base-2 lse and delta here for launch 2
+    stats = torch.empty(B * H, 2, stats_rows(Tq), device=q.device, dtype=torch.float32)
     launch(
         "jl_flash_bwd", *_strided(q), *_strided(k), *_strided(v), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), lens.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), B, H, Tq, Tk, dh, int(causal), _scale(dh),
+        dv.data_ptr(), stats.data_ptr(), B, H, Tq, Tk, dh, int(causal), _scale(dh),
     )
     BWD_COUNTER.launches += 1
     return dq, dk, dv
@@ -193,12 +245,12 @@ def _lengths_from(mask, kv_lengths, B: int, Tk: int, device) -> torch.Tensor:
     """The JAX rule: explicit lengths win; else a key-validity mask
     [B|1, 1, 1, Tk] is summed; no mask means every key is valid."""
     if kv_lengths is not None:
-        return _lengths(kv_lengths, B, Tk, device)
+        return _kernel_lengths(kv_lengths, B, Tk, device)
     if mask is None:
-        return torch.full((B,), Tk, dtype=torch.int64, device=device)
+        return torch.full((B,), Tk, dtype=torch.int32, device=device)
     if mask.dim() != 4 or mask.shape[1] != 1 or mask.shape[2] != 1:
         raise NotImplementedError("flash path needs a key-validity mask")
-    return torch.broadcast_to(mask, (B, 1, 1, Tk))[:, 0, 0, :].sum(-1).to(torch.int64)
+    return torch.broadcast_to(mask, (B, 1, 1, Tk))[:, 0, 0, :].sum(-1).to(torch.int32)
 
 
 def flash_attention(q, k, v, mask: Optional[torch.Tensor] = None, causal: bool = False,
