@@ -10,7 +10,8 @@ non-zero and prints no result line):
 2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a), one
               nvcc per source, all started together;
 3. kernels  - each kernel against its plain PyTorch version at main-path
-              shapes, with the bars stated below: K1-K4; K6 (out, lse) and
+              shapes, with the bars stated below: K1-K4 (K3 at d 256, 512
+              and 1024, launched twice and bitwise equal); K6 (out, lse) and
               K8 (dQ, dK, dV) at B=16, T'=750, 8 heads of 64 and 4 of 128,
               plus a causal case, each launched twice and bitwise equal;
               K7 (both WF-folded sublayers);
@@ -33,25 +34,31 @@ non-zero and prints no result line):
 7. timing   - seconds per batch of 32 x 30 s through the kernel path and the
               plain path; train steps/s at B=16 x 30 s (this config) and
               B=16 x 10 s (flagship defaults + WF rank 8) on both paths; each
-              kernel alone against its plain version and, for K6/K8, the
-              library's fused attention (examples/torch_kernel_yardsticks.py;
-              both sides timed queued behind a spin kernel, with executed and
-              bound-counted TFLOP/s);
+              kernel alone against its plain version with its bound-counted
+              TFLOP/s (K2, K3 and K7 run on K5's and K3c's launches) and, for
+              K6/K8, the library's fused attention
+              (examples/torch_kernel_yardsticks.py; both sides timed queued
+              behind a spin kernel, with executed TFLOP/s too);
 8. whisper  - main path 4, Whisper large-v3 serving (d=1280, 32 + 32
               blocks, 20 heads of 64, mlp 5120, V=51866, 128 mels; random
-              init from seed 0 on the card): K9, K5, the out-projection +
-              residual kernel (K2h-out, a TMA + wgmma GEMM; at B=16 x 1500
-              and at the six requests' ragged B=7), K3 at d=1280, K6 at 20
-              heads of 64 and K1 at 128 mels against their plain versions;
+              init from seed 0 on the card): K9, K5 and K3c (an LN pass
+              and TMA + wgmma GEMMs, csrc/ln_gemm.cu), the out-projection +
+              residual (K2h-out, the same GEMM) at B=16 x 1500 and at the six
+              requests' ragged B=7 (K5 and K3c launched twice, bitwise
+              equal), K6 at 20 heads of 64 and K1 at 128 mels against their
+              plain versions;
               api.load + api.transcribe of the six requests (seven 30 s chunks, one
               batch) through K1, K5, K6, K2h-out, K3 and K9; the encoder
               held against the plain path (relative L2) and the generated
               tokens teacher-forced through the plain decoder (the margin
-              rule); then encoder seconds per B=16 x 30 s batch, decode
-              ms per step (building the caches timed apart) and tokens/s at
-              B=16 (max_len 224) on both paths, and K5, K2h-out (beside
-              cuBLAS addmm, its library_ms), K3c, K9 (and K6 at this shape,
-              queued, beside the library's masked call and, as context, its
+              rule); then encoder seconds per B=16 x 30 s batch, decode ms
+              per step (building the caches timed apart) and tokens/s at
+              B=16 (max_len 224) on both paths, the kernel path's peak
+              device memory in one encoder call, and
+              K5, K3c (with bound-counted TFLOP/s and, as context, cuBLAS's
+              products alone on a precomputed LN(x)), K2h-out (beside cuBLAS
+              addmm, its library_ms), K9 (and K6 at this shape, queued,
+              beside the library's masked call and, as context, its
               unmasked one) alone;
 9. int8     - main path 5, int8 Whisper large-v3 serving: K9's int8 half
               (cross Tk 1536, self Tk 256 and 128), K10 (one cluster launch
@@ -146,9 +153,10 @@ TPU = "jiao_liao_speech_recognition_tpu/"
 KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it replaces
     ("K1", "K1 fused_log_mel_raw", "frontend.fused_frontend", "COUNTER", "csrc/log_mel.cu",
      TPU + "frontend/pallas_frontend.py:91"),
+    # K2's first launch is K5's (csrc/ln_gemm.cu), its second jl_attention_out
     ("K2", "K2 fused_attention_sublayer", "ops.fused_attention", "COUNTER", "csrc/attention.cu",
      TPU + "ops/fused_attention.py:163"),
-    ("K3", "K3 fused_ln_mlp_residual", "ops.fused_mlp", "COUNTER", "csrc/mlp.cu",
+    ("K3", "K3 fused_ln_mlp_residual", "ops.fused_mlp", "COUNTER", "csrc/ln_gemm.cu",
      TPU + "ops/fused_mlp.py:180"),
     ("K4", "K4 fused_head_argmax", "ops.fused_head", "COUNTER", "csrc/head.cu",
      TPU + "ops/fused_head.py:78"),
@@ -158,17 +166,17 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
      TPU + "ops/flash_attention.py:340"),
     ("K7-attn", "K7 fused_attention_sublayer_wf", "ops.fused_attention", "WF_COUNTER",
      "csrc/attention.cu", TPU + "ops/fused_attention.py:561"),
-    ("K7-mlp", "K7 fused_ln_mlp_residual_wf", "ops.fused_mlp", "WF_COUNTER", "csrc/mlp.cu",
+    ("K7-mlp", "K7 fused_ln_mlp_residual_wf", "ops.fused_mlp", "WF_COUNTER", "csrc/ln_gemm.cu",
      TPU + "ops/fused_mlp.py:401"),
-    ("K5", "K5 fused_ln_qkv", "ops.fused_mlp", "QKV_COUNTER", "csrc/attention.cu",
+    ("K5", "K5 fused_ln_qkv", "ops.fused_mlp", "QKV_COUNTER", "csrc/ln_gemm.cu",
      TPU + "ops/fused_mlp.py:510"),
     # K3's d=1280 instance, counted apart
-    ("K3c", "K3c fused_ln_mlp_residual d=1280", "ops.fused_mlp", "K3C_COUNTER", "csrc/mlp.cu",
+    ("K3c", "K3c fused_ln_mlp_residual d=1280", "ops.fused_mlp", "K3C_COUNTER", "csrc/ln_gemm.cu",
      TPU + "ops/fused_mlp.py:294"),
     # the out-projection + residual of the head-group-split K2h, which the TPU
     # runs for the large-v3 encoder; on the card K5 -> K6 -> this launch
     ("K2h-out", "K2h out_proj_residual", "ops.fused_attention", "OUT_COUNTER",
-     "csrc/out_proj.cu", TPU + "ops/fused_attention.py:387"),
+     "csrc/ln_gemm.cu", TPU + "ops/fused_attention.py:387"),
     ("K9", "K9 grouped_decode_attention", "ops.decode_attention", "COUNTER",
      "csrc/decode_attention.cu", TPU + "ops/decode_attention.py:151"),
     # K9's int8 half: the same kernel templated on the cache type
@@ -375,24 +383,27 @@ def phase_kernels():
         if heads == 4:
             errs["K2"] = err
 
-    # K3, both GELU forms
-    for form in ("tanh", "erf"):
-        x = torch.from_numpy(rng.randn(B, T, d).astype(np.float32)).to(dev, torch.bfloat16)
+    # K3 at the widths its launches serve below 1280 (mlp 4d), both GELU
+    # forms at the flagship's; two launches bitwise equal
+    for dk, form in ((512, "tanh"), (512, "erf"), (256, "tanh"), (1024, "tanh")):
+        x = torch.from_numpy(rng.randn(B, T, dk).astype(np.float32)).to(dev, torch.bfloat16)
         p = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-            1.0 + 0.1 * rng.randn(d), 0.1 * rng.randn(d),
-            0.05 * rng.randn(d, 4 * d), 0.05 * rng.randn(4 * d),
-            0.05 * rng.randn(4 * d, d), 0.05 * rng.randn(d))]
+            1.0 + 0.1 * rng.randn(dk), 0.1 * rng.randn(dk),
+            0.05 * rng.randn(dk, 4 * dk), 0.05 * rng.randn(4 * dk),
+            0.05 * rng.randn(4 * dk, dk), 0.05 * rng.randn(dk))]
         got = fused_mlp.fused_ln_mlp_residual(x, *p, 1e-5, form)
+        again = fused_mlp.fused_ln_mlp_residual(x, *p, 1e-5, form)
         want = fused_mlp.ln_mlp_residual_plain(x, *p, 1e-5, form)
         torch.cuda.synchronize()
         ulps, elem_ulps, over1 = bf16_ulp_err(got, want)
         err = float((got.float() - want.float()).abs().max())
-        emit({"phase": "kernels", "kernel": "K3", "gelu_form": form,
+        emit({"phase": "kernels", "kernel": "K3", "d": dk, "mlp": 4 * dk, "gelu_form": form,
               "max_abs_err": err, "ulps": ulps, "bar_ulps": ULP_BAR,
-              "elementwise_max_ulps": elem_ulps, "elementwise_share_over_1ulp": over1})
-        check(ulps <= ULP_BAR, f"K3 ({form}) off by {ulps} bf16 ulps")
-        if form == "tanh":
-            errs["K3"] = err
+              "elementwise_max_ulps": elem_ulps, "elementwise_share_over_1ulp": over1,
+              "bitwise_repeat": bool(torch.equal(got, again))})
+        check(ulps <= ULP_BAR, f"K3 (d={dk}, {form}) off by {ulps} bf16 ulps")
+        check(torch.equal(got, again), f"K3 (d={dk}, {form}): two launches differ")
+        errs["K3"] = max(errs.get("K3", 0.0), err)
 
     # K4 at V=4336, then two forced ties (across and within a 128-column chunk)
     V = 4336
@@ -937,12 +948,12 @@ def phase_timing(bundle, adapted):
             rec[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library.get(key)}
             rate = {}
-            if key in ("K6", "K8"):  # executed and bound-counted tensor-core rates
+            if "bf16" in work[key][1]:  # the tensor-core rate the bound counts
+                rate["bound_counted_tflops"] = tflops(work[key][1]["bf16"], rec[key]["ms"])
+            if key in ("K6", "K8"):  # and what the flash kernels execute
                 kind = "fwd" if key == "K6" else "bwd"
-                rate = {"ms_events": cuda_ms(kern, 20),
-                        "executed_tflops": tflops(flash_flops(kind, Bf, Tf, [Tf] * Bf, Hf, dhf),
-                                                  rec[key]["ms"]),
-                        "bound_counted_tflops": tflops(work[key][1]["bf16"], rec[key]["ms"])}
+                rate.update({"ms_events": cuda_ms(kern, 20), "executed_tflops": tflops(
+                    flash_flops(kind, Bf, Tf, [Tf] * Bf, Hf, dhf), rec[key]["ms"])})
             emit({"phase": "timing", "kernel": key, "shape": shapes.get(key, "B=32, T'=750"),
                   **rec[key], **rate, "turns_ms": [p1, k1, k2, p2]})
     return rec
@@ -1117,25 +1128,35 @@ def phase_whisper_kernels():
 
     x = f32(B, T, d, s=1.0).to(torch.bfloat16)
     ln = (1.0 + f32(d, s=0.1), f32(d, s=0.1))
-    qkv_args = (x, *ln, *fused_mlp.pack_qkv(f32(d, d), f32(d), f32(d, d), f32(d, d), f32(d)))
-    got = fused_mlp.fused_ln_qkv(*qkv_args)
-    want = fused_mlp.ln_qkv_plain(*qkv_args)
-    errs["K5"] = max(_ulp_check("K5", a, b, part=n, B=B, T=T, d=d)
-                     for n, a, b in zip("qkv", got, want))
-    del got, want
+    w_qkv = fused_mlp.pack_qkv(f32(d, d), f32(d), f32(d, d), f32(d, d), f32(d))
+    w_mlp = [t.to(torch.bfloat16) for t in (f32(d, mlp), f32(mlp), f32(mlp, d), f32(d))]
+    # K5 and K3c at B=16 and at the six requests' seven chunks (a ragged
+    # last 128-row tile), each launched twice: the same bits
+    for b in (B, 7):
+        qkv_args = (x[:b], *ln, *w_qkv)
+        got = fused_mlp.fused_ln_qkv(*qkv_args)
+        again = fused_mlp.fused_ln_qkv(*qkv_args)
+        want = fused_mlp.ln_qkv_plain(*qkv_args)
+        errs["K5"] = max([errs.get("K5", 0.0)] + [
+            _ulp_check("K5", a, c, part=n, B=b, T=T, d=d) for n, a, c in zip("qkv", got, want)])
+        check(all(torch.equal(a, c) for a, c in zip(got, again)), f"K5 (B={b}): launches differ")
+        mlp_args = (x[:b], *ln, *w_mlp, 1e-5, "erf")
+        got = fused_mlp.fused_ln_mlp_residual(*mlp_args)
+        again = fused_mlp.fused_ln_mlp_residual(*mlp_args)
+        err = _ulp_check("K3c", got, fused_mlp.ln_mlp_residual_plain(*mlp_args), B=b, T=T, d=d,
+                         mlp=mlp, gelu="erf", bitwise_repeat=bool(torch.equal(got, again)))
+        check(torch.equal(got, again), f"K3c (B={b}): two launches differ")
+        errs["K3c"] = max(errs.get("K3c", 0.0), err)
+    del got, again, want
     # K2h-out at B=16 and at the six requests' seven chunks (a ragged last
     # 128-row tile)
     wo, bo = f32(d, d).to(torch.bfloat16), f32(d, s=0.5).to(torch.bfloat16)
     for b in (B, 7):
         out_args = (x[:b], f32(b, T, d, s=1.0).to(torch.bfloat16), wo, bo)
         err = _ulp_check("K2h-out", fused_attention.out_proj_residual(*out_args),
-                         fused_attention.out_proj_residual_plain(*out_args), B=b, T=T, d=d)
+                         fused_mlp.fc2_residual_plain(*out_args), B=b, T=T, d=d)
         errs["K2h-out"] = max(errs.get("K2h-out", 0.0), err)
-    del out_args
-    mlp_args = (x, *ln, f32(d, mlp), f32(mlp), f32(mlp, d), f32(d), 1e-5, "erf")
-    errs["K3c"] = _ulp_check("K3c", fused_mlp.fused_ln_mlp_residual(*mlp_args),
-                             fused_mlp.ln_mlp_residual_plain(*mlp_args), d=d, mlp=mlp, gelu="erf")
-    del x, qkv_args, mlp_args
+    del out_args, x, qkv_args, mlp_args
 
     q, k, v, kl, _ = _flash_inputs(rng, B, T, H, dh, ([T, 1000, 313, 1] * B)[:B], dev)
     out, lse = fl.flash_forward(q, k, v, kl)
@@ -1243,10 +1264,10 @@ def phase_whisper(counters):
 
 
 def phase_whisper_timing(bundle):
-    """Encoder seconds per B=16 x 30 s batch and decode ms per step /
-    tokens/s at B=16 (turns: plain, kernels, kernels, plain), then K5, K3c,
-    K9 (cross and self caches) and K6 at this shape alone, with bounds and
-    library times."""
+    """Encoder seconds per B=16 x 30 s batch (and the kernel path's peak
+    device memory) and decode ms per step / tokens/s at B=16 (turns: plain, kernels,
+    kernels, plain), then K5, K3c, K2h-out, K9 (cross and self caches) and
+    K6 at this shape alone, with bounds and library times."""
     import torch
     import torch.nn.functional as F
 
@@ -1274,6 +1295,13 @@ def phase_whisper_timing(bundle):
             model.encode(feats, kernels)
             torch.cuda.synchronize()
             secs[kernels].append(time.perf_counter() - t0)
+        # peak device memory of one kernel-path call (the process's weights
+        # and inputs included), which holds LN(x) and the MLP's hidden
+        # tensor as scratch
+        torch.cuda.reset_peak_memory_stats()
+        model.encode(feats, True)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # greedy_from_enc builds the caches first (the cross K/V projection
         # of every decoder block, the same on both paths): timed apart and
         # taken out of the per-step figure
@@ -1297,7 +1325,8 @@ def phase_whisper_timing(bundle):
             dec[kernels].append((s, wg.STEPS.steps, int((lens + 1).clamp(max=ids.shape[1]).sum())))
     out = {"encoder_s_per_batch": {"kernels": statistics.median(secs[True]),
                                    "plain": statistics.median(secs[False]),
-                                   "samples_kernels": secs[True], "samples_plain": secs[False]}}
+                                   "samples_kernels": secs[True], "samples_plain": secs[False]},
+           "encoder_peak_gb_kernels": peak_gb}
     out["init_cache_s"] = {"median": init_cache_s, "samples": init_s}
     for kernels, name in ((True, "kernels"), (False, "plain")):
         runs = dec[kernels]
@@ -1320,7 +1349,8 @@ def phase_whisper_timing(bundle):
         qkv_args = (x, ln1.scale, ln1.bias, *sa.qkv_weights(bf))
         out_args = (x, torch.from_numpy(rng.randn(B, T, d).astype(np.float32)).cuda().to(bf),
                     *sa.out_proj.weights(bf))
-    mlp_args = (x, ln2.scale, ln2.bias, *m.fc1.weights(bf), *m.fc2.weights(bf), 1e-5, "erf")
+        # the serving copies (bf16), as the encoder passes them
+        mlp_args = (x, ln2.scale, ln2.bias, *m.fc1.weights(bf), *m.fc2.weights(bf), 1e-5, "erf")
     q, k, v, kl, _ = _flash_inputs(rng, B, T, H, dh, [T] * B, "cuda")
     tk_cross, tk_self = da.round_tk(T), da.round_tk(WHISPER_MAX_LEN)
     qh = torch.from_numpy(rng.randn(B, H, 1, dh).astype(np.float32)).cuda().to(bf)
@@ -1342,7 +1372,7 @@ def phase_whisper_timing(bundle):
         "K3c": (lambda: fused_mlp.fused_ln_mlp_residual(*mlp_args),
                 lambda: fused_mlp.ln_mlp_residual_plain(*mlp_args)),
         "K2h-out": (lambda: fused_attention.out_proj_residual(*out_args),
-                    lambda: fused_attention.out_proj_residual_plain(*out_args)),
+                    lambda: fused_mlp.fc2_residual_plain(*out_args)),
         "K6-whisper": (lambda: fl.flash_forward(q, k, v, kl),
                        lambda: fl.flash_forward_plain(q, k, v, kl)),
         "K9": k9(tk_cross),
@@ -1359,6 +1389,15 @@ def phase_whisper_timing(bundle):
     with torch.inference_mode():
         library.update({"K9": sdpa9(tk_cross), "K9-self": sdpa9(tk_self),
                         "K2h-out": cuda_ms(lambda: torch.addmm(x2, a2, out_args[2]), 20)})
+        # context for K5 and K3c, which no one library call computes: cuBLAS's
+        # products alone (addmm with the bias) on a precomputed bf16 LN(x)
+        # and, for fc2, the hidden tensor
+        ln_q = fused_mlp.ln_rows_plain(x, ln1.scale, ln1.bias).view(B * T, d)
+        ln_m = fused_mlp.ln_rows_plain(x, ln2.scale, ln2.bias).view(B * T, d)
+        h = fused_mlp.fc1_gelu_plain(ln_m, *mlp_args[3:5], "erf")
+        context = {"K5": _yardsticks().qkv_products_ms(ln_q, *qkv_args[3:]),
+                   "K3c": _yardsticks().mlp_products_ms(ln_m, *mlp_args[3:7], h)}
+        del ln_q, ln_m, h
     act = B * T * d * 2
 
     def w_bytes(ts):
@@ -1393,6 +1432,9 @@ def phase_whisper_timing(bundle):
             rec[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library.get(key)}
             extra = {}
+            if key in context:
+                extra = {"bound_counted_tflops": tflops(work[key][1]["bf16"], rec[key]["ms"]),
+                         "cublas_products_ms": context[key]}
             if key == "K6-whisper":
                 extra = {"ms_events": cuda_ms(kern, 10),
                          "executed_tflops": tflops(flash_flops("fwd", B, T, [T] * B, H, dh),

@@ -15,7 +15,10 @@ as context for the A/B probes at the flagship's 32 x 750 rows:
 the library's two int8 products of P4's MLP (``torch._int_mm``) and the
 head product + argmax of K4 and P2 (``torch.addmm`` then ``torch.argmax``),
 device time. Each of those is two calls, not one call of the kernel's
-function, so it is context and not ``library_ms``. The port never calls a
+function, so it is context and not ``library_ms``. ``qkv_products_ms`` and
+``mlp_products_ms`` time cuBLAS's products alone (``torch.addmm``) on a
+precomputed LN(x), the context ``chip_smoke.py`` prints beside K5 and K3c,
+whose function no one library call computes. The port never calls a
 library kernel: ``chip_smoke.py`` reads ``sdpa_ms`` for the ``library_ms``
 of K6 and K8, and prints the probe context. Needs a CUDA device.
 """
@@ -109,6 +112,25 @@ def addmm_argmax_ms(x2, w, bias, iters: int = 20) -> float:
     from jiao_liao_speech_recognition_torch.utils.timing import device_ms
 
     return device_ms(lambda: torch.argmax(torch.addmm(bias, x2, w), dim=-1), iters)
+
+
+def qkv_products_ms(ln2, w_qkv, b_qkv, iters: int = 20) -> float:
+    """-> ms of cuBLAS's q/k/v product with its bias (one ``torch.addmm``)
+    on a precomputed bf16 LN(x) [M, d]: K5's products alone, without its
+    LayerNorm pass or its rounding before the bias. Context, not K5's
+    function."""
+    return cuda_ms(lambda: torch.addmm(b_qkv, ln2, w_qkv), iters)
+
+
+def mlp_products_ms(ln2, w1, b1, w2, b2, h2, iters: int = 20) -> dict:
+    """-> {"fc1_ms", "fc2_ms", "ms"}: cuBLAS's two MLP products with their
+    biases (``torch.addmm``), timed apart and summed, on a precomputed bf16
+    LN(x) [M, d] and hidden tensor h2 [M, mlp]: K3's products alone,
+    without LayerNorm, GELU, residual or its roundings. Context, not K3's
+    function."""
+    fc1 = cuda_ms(lambda: torch.addmm(b1, ln2, w1), iters)
+    fc2 = cuda_ms(lambda: torch.addmm(b2, h2, w2), iters)
+    return {"fc1_ms": fc1, "fc2_ms": fc2, "ms": fc1 + fc2}
 
 
 def main() -> None:

@@ -8,7 +8,11 @@ decode steps, then runs under torch.profiler: (1) one encoder call, (2)
 `--steps` decode steps. For each it prints the wall clock, the device busy
 time and idle share, the number of device kernels launched, device
 milliseconds by kernel name and the host self time of the busiest
-operators. `--int8` decodes with the int8 serving model
+operators; for the encoder call also its peak device memory (the weights
+and inputs included). csrc/ln_gemm.cu's GEMM is named by its epilogue and
+its entry point: ``gemm_kernel<0, 0>`` K5's q/k/v product,
+``gemm_kernel<2, 0>`` K3c's fc1 + erf GELU, ``gemm_kernel<3, 0>`` K3c's
+fc2 + residual, ``gemm_kernel<3, 1>`` K2h-out. `--int8` decodes with the int8 serving model
 (``ModelBundle.quantize()``: K10 projections, int8 cross caches, int8 self
 caches at batch >= 16, K11 logits). Needs a CUDA device.
 """
@@ -37,7 +41,7 @@ from jiao_liao_speech_recognition_torch.utils.config import (  # noqa: E402
 )
 
 
-def report(name, prof, wall, per, top=18):
+def report(name, prof, wall, per, top=18, **extra):
     rows, busy_us, launches = [], 0.0, 0
     host = []
     for e in prof.key_averages():
@@ -52,7 +56,7 @@ def report(name, prof, wall, per, top=18):
     print(json.dumps({"section": name, "device": torch.cuda.get_device_name(0), "per": per,
                       "wall_s": wall, "device_busy_s": busy_us / 1e6,
                       "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-                      "device_kernels": launches}), flush=True)
+                      "device_kernels": launches, **extra}), flush=True)
     for us, count, key in rows[:top]:
         print(f"  device {us / 1e3:10.3f} ms  x{count:6d}  {key[:90]}")
     for us, count, key in host[:8]:
@@ -82,12 +86,14 @@ def main() -> None:
         feats = featurize_batch(wav, cfg.frontend)
         enc = model.encode(feats)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             model.encode(feats)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report("encoder", prof, wall, f"one call, B={args.batch} x 30 s")
+        report("encoder", prof, wall, f"one call, B={args.batch} x 30 s",
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
         caches = model.init_cache(args.batch, enc, 224)
         tok = torch.full((args.batch, 1), prompt[0], dtype=torch.long, device="cuda")

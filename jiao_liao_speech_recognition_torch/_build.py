@@ -43,10 +43,10 @@ F = ctypes.c_float
 # floats, and the stream last)
 SIGNATURES = {
     "jl_log_mel": [P, P, P, P, I, I, I, I, I, I, I, F, P],
-    "jl_ln_qkv": [P, P, P, P, P, P, I, I, I, F, P],
+    "jl_ln_qkv": [P, P, P, P, P, P, P, I, I, I, F, P],
     "jl_attention_out": [P, P, P, P, P, P, I, I, I, I, P],
     "jl_out_proj_residual": [P, P, P, P, P, I, I, P],
-    "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
+    "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_head_argmax": [P, P, P, P, I, I, I, I, P],
     "jl_flash_fwd": [P, L, L, P, L, L, P, L, L, P, P, P, I, I, I, I, I, I, F, P],
     "jl_flash_bwd": [P, L, L, P, L, L, P, L, L, P, P, P, P, P, P, P, P,
@@ -157,6 +157,13 @@ def check_cuda(name: str, t, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_aligned(name: str, *tensors) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary, as the
+    tensor maps and the 16-byte vector loads of the TMA kernels need."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: an operand is not 16-byte aligned")
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -13,12 +13,12 @@
 // ~375 KB, over the 227 KB of shared memory a block may use.
 //
 // Design, two launches:
-//  1. jl_ln_qkv: LN in f32 on a 64-row tile (kept in shared memory as bf16),
-//     then one product against [Wq | Wk | Wv] -> qkv [rows, 3D] bf16. Each
-//     projection is rounded to bf16 before its bias is added (k has no
-//     bias, passed as zeros), as in the JAX kernel. q goes to device memory
-//     too: on the card one wide product beats recomputing LN and q per
-//     query tile, and q is 1/3 of the tensor k and v already write.
+//  1. jl_ln_qkv (ln_gemm.cu, K5's launches): LN in f32, then one product
+//     against [Wq | Wk | Wv] -> qkv [rows, 3D] bf16. Each projection is
+//     rounded to bf16 before its bias is added (k has no bias, passed as
+//     zeros), as in the JAX kernel. q goes to device memory too: on the
+//     card one wide product beats recomputing LN and q per query tile, and
+//     q is 1/3 of the tensor k and v already write.
 //  2. jl_attention_out: one block per (64-query tile, utterance). Per head,
 //     the keys are walked in 64-key tiles twice: pass 1 gathers the row max
 //     and the row sum of exp(s - max); pass 2 recomputes the same scores,
@@ -30,7 +30,7 @@
 //     reference). The bf16 head outputs of all heads stay in shared memory
 //     and go through one out-projection product, then + x, then + bo.
 // Where launch 2 does not fit (d = 1280), jl_ln_qkv is K5 and the flash
-// kernel takes the attention; jl_out_proj_residual (out_proj.cu) then does
+// kernel takes the attention; jl_out_proj_residual (ln_gemm.cu) then does
 // the out-projection and the residual.
 #include "common.cuh"
 
@@ -40,7 +40,7 @@ namespace {
 
 using namespace jl;
 
-constexpr int BM = 64;   // rows per block (both launches)
+constexpr int BM = 64;   // query rows per block
 constexpr int BN = 128;  // output columns per product pass
 constexpr int BK = 64;   // keys per tile
 
@@ -79,36 +79,6 @@ __device__ inline void store_64x128(float* c, int ldc, FragC (&acc)[2][2]) {
     for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(c + (size_t)(wm * 32 + i * 16) * ldc + wn * 32 + j * 16,
                               acc[i][j], ldc, wmma::mem_row_major);
-}
-
-// x [M, d] bf16, g/bl [d] f32, w [d, N] bf16, bias [N] bf16 -> out [M, N] bf16
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
-              const float* __restrict__ bl, const bf16* __restrict__ w,
-              const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int d, int N,
-              float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = d + kPad, ldc = BN + 4;
-  bf16* a = reinterpret_cast<bf16*>(smem);
-  float* c = reinterpret_cast<float*>(smem + align128((size_t)BM * lda * 2));
-  const int row0 = blockIdx.x * BM;
-
-  layernorm_rows_to_smem(x, row0, BM, M, d, g, bl, eps, a);
-  __syncthreads();
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    FragC acc[2][2];
-    tile_64x128(a, lda, w, N, n0, d, acc);
-    store_64x128(c, ldc, acc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
-      const int r = i / BN, col = i % BN;
-      if (row0 + r < M) {
-        const float v = round_bf16(c[r * ldc + col]) + __bfloat162float(bias[n0 + col]);
-        out[(size_t)(row0 + r) * N + n0 + col] = __float2bfloat16(v);
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // qkv [B*T, 3D] bf16 (q | k | v), lens [B] i32, x [B*T, D] bf16,
@@ -274,18 +244,6 @@ int launch_attention_out(const bf16* qkv, const int* lens, const bf16* x, const 
 }
 
 }  // namespace
-
-extern "C" int jl_ln_qkv(const bf16* x, const float* g, const float* bl, const bf16* w,
-                         const bf16* bias, bf16* out, int M, int d, int N, float eps,
-                         cudaStream_t stream) {
-  const size_t smem = align128((size_t)BM * (d + kPad) * 2) + (size_t)BM * (BN + 4) * 4;
-  cudaError_t err = cudaFuncSetAttribute(ln_qkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ln_qkv_kernel<<<ceil_div(M, BM), kThreads, smem, stream>>>(x, g, bl, w, bias, out, M, d, N,
-                                                             eps);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int jl_attention_out(const bf16* qkv, const int* lens, const bf16* x,
                                 const bf16* wo, const bf16* bo, bf16* out, int B, int T,

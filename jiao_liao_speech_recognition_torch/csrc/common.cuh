@@ -1,9 +1,10 @@
 // Helpers shared by the port's hand-written Hopper kernels.
 //
-// The matrix products use WMMA bf16 16x16x16 tiles with f32 accumulation
-// (mma.sync on sm_90a). Activations are staged in shared memory; weight
-// fragments are read straight from device memory (they stay hot in L2:
-// every weight matrix of the flagship is at most 4.4 MB).
+// The WMMA kernels (attention.cu, head.cu, log_mel.cu) take bf16 16x16x16
+// tiles with f32 accumulation (mma.sync on sm_90a): activations staged in
+// shared memory, weight fragments read straight from device memory (hot in
+// L2). The TMA + wgmma kernels (ln_gemm.cu, flash_attention.cu) build on
+// wgmma_gemm.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,40 +34,27 @@ __device__ inline float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// LayerNorm of `rows` rows of x [*, d] (bf16) into a bf16 shared tile
-// a[rows][d + kPad], f32 statistics as in ops/fused_*.py::_ln_f32:
-// mu = mean(x); xc = x - mu; var = mean(xc^2); (xc / sqrt(var + eps)) * g + b.
-// One warp per row; rows at or past `valid` are zero-filled.
-__device__ inline void layernorm_rows_to_smem(const bf16* __restrict__ x, int row0,
-                                              int rows, int valid, int d,
-                                              const float* __restrict__ g,
-                                              const float* __restrict__ bl, float eps,
-                                              bf16* a) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int lda = d + kPad;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    bf16* arow = a + (size_t)r * lda;
-    if (row0 + r >= valid) {
-      for (int c = lane; c < d; c += 32) arow[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    const bf16* xr = x + (size_t)(row0 + r) * d;
-    float s = 0.f;
-    for (int c = lane; c < d; c += 32) s += __bfloat162float(xr[c]);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mu = s / d;
-    float v = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float xc = __bfloat162float(xr[c]) - mu;
-      v += xc * xc;
-    }
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    const float inv = 1.0f / sqrtf(v / d + eps);
-    for (int c = lane; c < d; c += 32) {
-      const float xc = __bfloat162float(xr[c]) - mu;
-      arow[c] = __float2bfloat16((xc * inv) * g[c] + bl[c]);
-    }
-  }
+// GELU of an f32 value, the two forms of ops/fused_mlp.py::gelu_f32: the
+// tanh form in jax.nn.gelu(approximate=True)'s op order, and the erf form
+// through the Abramowitz-Stegun 7.1.26 rational of the JAX kernel's
+// _erf_gelu_f32 (|err| <= 1.5e-7)
+__device__ inline float gelu_tanh(float h) {
+  // op order of jax.nn.gelu(approximate=True): h * (0.5 * (1 + tanh(c (h + a h^3))))
+  const float c = 0.7978845608028654f;  // np.float32(np.sqrt(2 / np.pi))
+  const float cdf = 0.5f * (1.0f + tanhf(c * (h + 0.044715f * (h * h * h))));
+  return h * cdf;
+}
+
+__device__ inline float gelu_erf(float h) {
+  const float x = h * 0.70710678118654752f;  // np.float32(1 / np.sqrt(2))
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * ax);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float erf_ax = 1.0f - poly * expf(-ax * ax);
+  const float sign = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
+  return 0.5f * h * (1.0f + sign * erf_ax);
 }
 
 // copy rows [row0, row0 + rows) x cols [col0, col0 + width) of a row-major

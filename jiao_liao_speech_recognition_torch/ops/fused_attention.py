@@ -1,16 +1,17 @@
 """K2: the fused self-attention sublayer y = x + out_proj(MHA(LN(x))).
 
-``fused_attention_sublayer`` is the wrapper of the CUDA kernel in
-``csrc/attention.cu`` (which replaces the JAX package's
-``ops/fused_attention.py::fused_attention_sublayer`` and its head-group-split
-variant; the design note is in the .cu file). ``attention_sublayer_plain``
-is the same function in plain PyTorch with the kernel's rounding points; the
-wrapper takes it only for tensors on the CPU.
+``fused_attention_sublayer`` is the wrapper of K2's CUDA launches: LN +
+q/k/v (K5's, ``csrc/ln_gemm.cu``), then ``jl_attention_out`` of
+``csrc/attention.cu``. Together they replace the JAX package's
+``ops/fused_attention.py::fused_attention_sublayer`` and its
+head-group-split variant; the design note is in attention.cu.
+``attention_sublayer_plain`` is the same function in plain PyTorch with the
+kernels' rounding points; the wrapper takes it only for tensors on the CPU.
 
 Where K2 does not fit (d = 1280, Whisper large-v3, which the TPU serves with
 the head-group-split kernel), the sublayer is K5 (``ops/fused_mlp.py``),
-the flash kernel and ``out_proj_residual`` (``csrc/out_proj.cu``): three
-hand-written launches.
+the flash kernel and ``out_proj_residual`` (``csrc/ln_gemm.cu``'s GEMM with
+its residual epilogue): hand-written launches throughout.
 """
 
 from __future__ import annotations
@@ -18,8 +19,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import SMEM_LIMIT, LaunchCounter, align128, check_cuda, launch, refuse_grad
-from .fused_mlp import pack_qkv
+from .._build import (
+    SMEM_LIMIT,
+    LaunchCounter,
+    align128,
+    check_aligned,
+    check_cuda,
+    launch,
+    refuse_grad,
+)
+from .fused_mlp import fc2_residual_plain, ln_qkv_launch, pack_qkv
 from .numerics import dense, full_f32, layer_norm, matmul
 
 COUNTER = LaunchCounter("fused_attention_sublayer")
@@ -95,17 +104,11 @@ def fused_attention_sublayer(
     dev = x.device
     bf = torch.bfloat16
     w_qkv, b_qkv = (t.to(dev) for t in pack_qkv(wq, bq, wk, wv, bv))
-    g32 = g.to(dev, torch.float32).contiguous()
-    bl32 = bl.to(dev, torch.float32).contiguous()
     wo_b = wo.to(dev, bf).contiguous()
     bo_b = bo.to(dev, bf).contiguous()
     lens = kv_lengths.to(dev, torch.int32).contiguous()
-    qkv = torch.empty(B * T, 3 * D, device=dev, dtype=bf)
+    qkv = ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps)
     out = torch.empty_like(x)
-    launch(
-        "jl_ln_qkv", x.data_ptr(), g32.data_ptr(), bl32.data_ptr(), w_qkv.data_ptr(),
-        b_qkv.data_ptr(), qkv.data_ptr(), B * T, d, 3 * D, float(eps),
-    )
     launch(
         "jl_attention_out", qkv.data_ptr(), lens.data_ptr(), x.data_ptr(),
         wo_b.data_ptr(), bo_b.data_ptr(), out.data_ptr(), B, T, num_heads, dh,
@@ -119,20 +122,15 @@ def fused_attention_sublayer(
 OUT_COUNTER = LaunchCounter("out_proj_residual")
 
 
-def out_proj_residual_plain(x, attn, wo, bo):
-    """x + (rounded attn . wo + bo): the module path's order, and the JAX
-    block's long-context route (out-projection and residual after flash)."""
-    return x + dense(attn, wo, bo)
-
-
 def out_proj_residual(x, attn, wo, bo):
-    """Wrapper of jl_out_proj_residual (csrc/out_proj.cu, a TMA-fed wgmma
-    GEMM with the bias and residual in its epilogue): the part of K2's
-    second launch that follows the heads, for the K5 -> K6 route. CPU
-    tensors take out_proj_residual_plain; CUDA tensors (x and attn bf16
-    [B, T, D], D % 128 == 0) launch the kernel or raise."""
+    """Wrapper of jl_out_proj_residual (csrc/ln_gemm.cu, a TMA-fed wgmma
+    GEMM with the bias and residual in its epilogue, the one K3's fc2
+    runs): the part of K2's second launch that follows the heads, for the
+    K5 -> K6 route. CPU tensors take fused_mlp.fc2_residual_plain (x +
+    bf16(bf16(attn . wo) + bo)); CUDA tensors (x and attn bf16 [B, T, D],
+    D % 128 == 0) launch the kernel or raise."""
     if x.device.type == "cpu":
-        return out_proj_residual_plain(x, attn, wo, bo)
+        return fc2_residual_plain(x, attn, wo, bo)
     check_cuda("x", x, torch.bfloat16, 3)
     check_cuda("attn", attn, torch.bfloat16, 3)
     refuse_grad("out_proj_residual", x, attn, wo, bo)
@@ -142,6 +140,7 @@ def out_proj_residual(x, attn, wo, bo):
                          f"attn {tuple(attn.shape)} wo {tuple(wo.shape)}")
     dev, bf = x.device, torch.bfloat16
     wo_b, bo_b = wo.to(dev, bf).contiguous(), bo.to(dev, bf).contiguous()
+    check_aligned("out_proj_residual", x, attn, wo_b, bo_b)
     out = torch.empty_like(x)
     launch("jl_out_proj_residual", attn.data_ptr(), x.data_ptr(), wo_b.data_ptr(),
            bo_b.data_ptr(), out.data_ptr(), B * T, D)

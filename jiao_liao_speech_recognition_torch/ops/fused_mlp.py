@@ -1,14 +1,19 @@
 """K3: the fused LN + MLP + residual sublayer y = x + fc2(GELU(fc1(LN(x)))),
 and K5: the fused LN + q/k/v projections.
 
-``fused_ln_mlp_residual`` is the wrapper of the CUDA kernel in
-``csrc/mlp.cu`` (which replaces the JAX package's
-``ops/fused_mlp.py::fused_ln_mlp_residual`` and, at d=1280, its chunked
-K3c; the design note is in the .cu file). ``fused_ln_qkv`` wraps the
-``jl_ln_qkv`` launch of ``csrc/attention.cu`` (the JAX package's
-``fused_ln_qkv``). ``ln_mlp_residual_plain`` and ``ln_qkv_plain`` are the
-same functions in plain PyTorch with the kernels' rounding points; the
-wrappers take them only for CPU tensors.
+Both run on ``csrc/ln_gemm.cu`` (the design note is there): an f32
+LayerNorm pass into a bf16 scratch, then TMA + wgmma GEMMs with the bias,
+GELU and residual folded into their epilogues. ``fused_ln_mlp_residual``
+(three launches: ln_rows, fc1 + GELU into a hidden scratch, fc2 + residual)
+replaces the JAX package's ``ops/fused_mlp.py::fused_ln_mlp_residual`` and,
+at d=1280, its hidden-chunk split K3c; ``fused_ln_qkv`` (two launches:
+ln_rows, then the [Wq | Wk | Wv] product + bias) replaces its
+``fused_ln_qkv``. ``ln_mlp_residual_plain`` and ``ln_qkv_plain`` are the
+same functions in plain PyTorch with the kernels' rounding points;
+``ln_rows_plain``, ``qkv_gemm_plain``, ``fc1_gelu_plain`` and
+``fc2_residual_plain`` are the plain version of each launch. Every rounding
+point is a bf16 tensor, so the launches compose to the sublayer bit for
+bit. The wrappers take the plain versions only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,13 +21,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import SMEM_LIMIT, LaunchCounter, align128, check_cuda, launch, refuse_grad
+from .._build import LaunchCounter, check_aligned, check_cuda, launch, refuse_grad
 from .numerics import dense, layer_norm
 
 COUNTER = LaunchCounter("fused_ln_mlp_residual")
 # the d=1280 instance (the TPU's chunked K3c) counts its launches apart
 K3C_COUNTER = LaunchCounter("fused_ln_mlp_residual_d1280")
-MODEL_WIDTHS = (256, 512, 768, 1024, 1280)  # the kernel's template instances
+LN_MAX_WIDTH = 2048  # ln_rows holds a row in registers (csrc/ln_gemm.cu)
+
+
+def check_gemm_shapes(what: str, d: int, *products) -> None:
+    """Raise ValueError unless csrc/ln_gemm.cu takes these shapes: the LN
+    width d % 64 == 0 and d <= LN_MAX_WIDTH, and each product (K, N) with
+    K % 64 == 0 (whole 64-deep TMA boxes of 128-byte rows) and N % 128 == 0
+    (whole 128-column output tiles)."""
+    if d % 64 or d > LN_MAX_WIDTH or any(k % 64 or n % 128 for k, n in products):
+        raise ValueError(f"{what}: unsupported shape d={d}, products (K, N) {list(products)} "
+                         f"(need d % 64 == 0, d <= {LN_MAX_WIDTH}, K % 64 == 0, N % 128 == 0)")
 
 
 def gelu_f32(h: torch.Tensor, gelu_form: str) -> torch.Tensor:
@@ -52,30 +67,60 @@ def ln_mlp_residual_plain(x, g, bl, w1, b1, w2, b2, eps=1e-5, gelu_form="tanh"):
     return x + dense(h, w2, b2)
 
 
+# the plain version of each launch of csrc/ln_gemm.cu
+
+
+def ln_rows_plain(x, g, bl, eps=1e-5):
+    """ln_rows: LayerNorm with f32 statistics, rounded to x's dtype."""
+    return layer_norm(x, g, bl, eps)
+
+
+def qkv_gemm_plain(ln, w_qkv, b_qkv):
+    """K5's product: bf16(bf16(ln . w_qkv) + b_qkv), [..., 3D]."""
+    return dense(ln, w_qkv, b_qkv)
+
+
+def fc1_gelu_plain(ln, w1, b1, gelu_form="tanh"):
+    """K3's fc1: bf16(GELU_f32(bf16(bf16(ln . w1) + b1))), [..., mlp]."""
+    return gelu_f32(dense(ln, w1, b1).float(), gelu_form).to(ln.dtype)
+
+
+def fc2_residual_plain(x, h, w2, b2):
+    """K3's fc2, and K2h-out's out-projection + residual after flash (the
+    module path's order and the JAX block's long-context route), one launch
+    of csrc/ln_gemm.cu: x + bf16(bf16(h . w2) + b2)."""
+    return x + dense(h, w2, b2)
+
+
 def fused_ln_mlp_residual(x, g, bl, w1, b1, w2, b2, eps=1e-5, gelu_form="tanh"):
     """K3 wrapper. CPU tensors take ln_mlp_residual_plain; a CUDA tensor
-    launches the kernel (x bf16 [B, T, d], d in MODEL_WIDTHS,
-    mlp % 128 == 0) or raises."""
+    (x bf16 [B, T, d]; d % 128 == 0, d <= LN_MAX_WIDTH, mlp % 128 == 0)
+    launches jl_ln_mlp_residual (ln_rows, fc1 + GELU, fc2 + residual, with
+    LN(x) and the hidden tensor in scratch allocated here) or raises."""
     if x.device.type == "cpu":
         return ln_mlp_residual_plain(x, g, bl, w1, b1, w2, b2, eps, gelu_form)
     check_cuda("x", x, torch.bfloat16, 3)
     refuse_grad("fused_ln_mlp_residual", x, g, bl, w1, b1, w2, b2)
     B, T, d = x.shape
     mlp = w1.shape[1]
-    if d not in MODEL_WIDTHS or mlp % 128 or tuple(w2.shape) != (mlp, d):
-        raise ValueError(f"unsupported MLP shape d={d} mlp={mlp}")
+    if tuple(w1.shape) != (d, mlp) or tuple(w2.shape) != (mlp, d):
+        raise ValueError(f"MLP weights {tuple(w1.shape)}, {tuple(w2.shape)} do not fit d={d}")
+    check_gemm_shapes("fused_ln_mlp_residual", d, (d, mlp), (mlp, d))
     if gelu_form not in ("tanh", "erf"):
         raise ValueError(f"unknown gelu_form {gelu_form!r} (want 'tanh'|'erf')")
+    # .to(...).contiguous() returns serving's bf16 weight copies themselves,
+    # so a serving call copies no weight
     dev, bf = x.device, torch.bfloat16
-    g32 = g.to(dev, torch.float32).contiguous()
-    bl32 = bl.to(dev, torch.float32).contiguous()
-    w1b, b1b = w1.to(dev, bf).contiguous(), b1.to(dev, bf).contiguous()
-    w2b, b2b = w2.to(dev, bf).contiguous(), b2.to(dev, bf).contiguous()
+    g32, bl32 = (t.to(dev, torch.float32).contiguous() for t in (g, bl))
+    w1b, b1b, w2b, b2b = (t.to(dev, bf).contiguous() for t in (w1, b1, w2, b2))
+    check_aligned("fused_ln_mlp_residual", x, g32, bl32, w1b, b1b, w2b, b2b)
+    ln = torch.empty_like(x)
+    h = torch.empty(B, T, mlp, device=dev, dtype=bf)
     out = torch.empty_like(x)
     launch(
         "jl_ln_mlp_residual", x.data_ptr(), g32.data_ptr(), bl32.data_ptr(),
-        w1b.data_ptr(), b1b.data_ptr(), w2b.data_ptr(), b2b.data_ptr(), out.data_ptr(),
-        B * T, d, mlp, int(gelu_form == "erf"), float(eps),
+        w1b.data_ptr(), b1b.data_ptr(), w2b.data_ptr(), b2b.data_ptr(), ln.data_ptr(),
+        h.data_ptr(), out.data_ptr(), B * T, d, mlp, int(gelu_form == "erf"), float(eps),
     )
     (K3C_COUNTER if d == 1280 else COUNTER).launches += 1
     return out
@@ -137,17 +182,34 @@ def ln_qkv_plain(x, g, bl, w_qkv, b_qkv, eps=1e-5):
     return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
 
 
-def ln_qkv_smem(d: int) -> int:
-    """Shared memory of one jl_ln_qkv block: the [64, d + 8] bf16 LN tile
-    and a [64, 132] f32 product tile (csrc/attention.cu)."""
-    return align128(64 * (d + 8) * 2) + 64 * 132 * 4
+def ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps=1e-5):
+    """jl_ln_qkv on CUDA operands (x bf16 [B, T, d], w_qkv [d, N] and b_qkv
+    [N] bf16, contiguous) -> [B, T, N] bf16: ln_rows into a scratch
+    allocated here, then the product with the bias in its epilogue. K5's
+    launches, and K2's first; raises on a shape or layout the kernels do not
+    take. Counts nothing: its callers do."""
+    B, T, d = x.shape
+    N = w_qkv.shape[1]
+    if tuple(w_qkv.shape) != (d, N) or tuple(b_qkv.shape) != (N,):
+        raise ValueError(f"LN+QKV weights {tuple(w_qkv.shape)}, {tuple(b_qkv.shape)} "
+                         f"do not fit d={d}")
+    check_gemm_shapes("ln_qkv", d, (d, N))
+    g32, bl32 = (t.to(x.device, torch.float32).contiguous() for t in (g, bl))
+    check_aligned("ln_qkv", x, g32, bl32, w_qkv, b_qkv)
+    ln = torch.empty_like(x)
+    qkv = torch.empty(B, T, N, device=x.device, dtype=torch.bfloat16)
+    launch(
+        "jl_ln_qkv", x.data_ptr(), g32.data_ptr(), bl32.data_ptr(), w_qkv.data_ptr(),
+        b_qkv.data_ptr(), ln.data_ptr(), qkv.data_ptr(), B * T, d, N, float(eps),
+    )
+    return qkv
 
 
 def fused_ln_qkv(x, g, bl, w_qkv, b_qkv, eps=1e-5):
     """K5 wrapper -> (q, k, v), each [B, T, D], from packed weights
     (pack_qkv; serving keeps them, ``MultiHeadAttention.qkv_weights``). CPU
-    tensors take ln_qkv_plain; a CUDA tensor launches jl_ln_qkv
-    (csrc/attention.cu, the first launch of K2, which replaces the JAX
+    tensors take ln_qkv_plain; a CUDA tensor (d % 64 == 0, 3D % 128 == 0)
+    launches ln_qkv_launch (csrc/ln_gemm.cu, which replaces the JAX
     package's ops/fused_mlp.py::fused_ln_qkv) or raises. The three results
     are views of one [B, T, 3D] output, which the flash kernel reads with
     its row stride, so nothing is copied."""
@@ -157,18 +219,9 @@ def fused_ln_qkv(x, g, bl, w_qkv, b_qkv, eps=1e-5):
     check_cuda("w_qkv", w_qkv, torch.bfloat16, 2)
     check_cuda("b_qkv", b_qkv, torch.bfloat16, 1)
     refuse_grad("fused_ln_qkv", x, g, bl, w_qkv, b_qkv)
-    B, T, d = x.shape
+    if w_qkv.shape[1] % 3:
+        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} is not [d, 3D]")
     D = w_qkv.shape[1] // 3
-    if (d % 16 or (3 * D) % 128 or ln_qkv_smem(d) > SMEM_LIMIT
-            or tuple(w_qkv.shape) != (d, 3 * D) or tuple(b_qkv.shape) != (3 * D,)):
-        raise ValueError(f"unsupported LN+QKV shape d={d} w_qkv {tuple(w_qkv.shape)}")
-    dev, bf = x.device, torch.bfloat16
-    g32 = g.to(dev, torch.float32).contiguous()
-    bl32 = bl.to(dev, torch.float32).contiguous()
-    qkv = torch.empty(B, T, 3 * D, device=dev, dtype=bf)
-    launch(
-        "jl_ln_qkv", x.data_ptr(), g32.data_ptr(), bl32.data_ptr(), w_qkv.data_ptr(),
-        b_qkv.data_ptr(), qkv.data_ptr(), B * T, d, 3 * D, float(eps),
-    )
+    qkv = ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps)
     QKV_COUNTER.launches += 1
     return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
