@@ -8,10 +8,16 @@ non-zero and prints no result line):
 
 1. device   - the card's name and power limit from nvidia-smi;
 2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a), one
-              nvcc per source, all started together;
+              nvcc per source, all started together; ptxas's registers
+              and spill bytes of every kernel that spills and of K2's core
+              and K1, which must not;
 3. kernels  - each kernel against its plain PyTorch version at main-path
-              shapes, with the bars stated below: K1-K4 (K3 at d 256, 512
-              and 1024, launched twice and bitwise equal); K6 (out, lse) and
+              shapes, with the bars stated below: K1 (four 30 s rows at 80
+              and 128 mels, and B=32 x 30 s of noise; both also against an
+              f64 log-mel, printed), K2 (4 heads of 128 and 8 of 64,
+              lengths including 0 and 1, and the timed B=32 shape; launched
+              twice and bitwise equal), K3 (d 256, 512 and 1024, launched
+              twice and bitwise equal), K4; K6 (out, lse) and
               K8 (dQ, dK, dV) at B=16, T'=750, 8 heads of 64 and 4 of 128,
               plus a causal case, each launched twice and bitwise equal;
               K7 (both WF-folded sublayers);
@@ -35,8 +41,11 @@ non-zero and prints no result line):
               plain path; train steps/s at B=16 x 30 s (this config) and
               B=16 x 10 s (flagship defaults + WF rank 8) on both paths; each
               kernel alone against its plain version with its bound-counted
-              TFLOP/s (K2, K3 and K7 run on K5's and K3c's launches) and, for
-              K6/K8, the library's fused attention
+              TFLOP/s (K2, K3 and K7 run on K5's and K3c's launches), K2's
+              launches apart (its core beside the library's masked fused
+              attention forward on the same q/k/v, its out-projection beside
+              cuBLAS addmm: context), K1 beside its f32 CUDA-core bound and,
+              for K6/K8, the library's fused attention
               (examples/torch_kernel_yardsticks.py; both sides timed queued
               behind a spin kernel, with executed TFLOP/s too);
 8. whisper  - main path 4, Whisper large-v3 serving (d=1280, 32 + 32
@@ -151,11 +160,12 @@ LOGITS_REL_BAR = 1e-5
 
 TPU = "jiao_liao_speech_recognition_tpu/"
 KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it replaces
-    ("K1", "K1 fused_log_mel_raw", "frontend.fused_frontend", "COUNTER", "csrc/log_mel.cu",
-     TPU + "frontend/pallas_frontend.py:91"),
-    # K2's first launch is K5's (csrc/ln_gemm.cu), its second jl_attention_out
-    ("K2", "K2 fused_attention_sublayer", "ops.fused_attention", "COUNTER", "csrc/attention.cu",
-     TPU + "ops/fused_attention.py:163"),
+    ("K1", "K1 fused_log_mel_raw", "frontend.fused_frontend", "COUNTER",
+     "csrc/log_mel_tf32.cu", TPU + "frontend/pallas_frontend.py:91"),
+    # K2: K5's two launches and its out-projection are csrc/ln_gemm.cu's; its
+    # attention core (the source named) is csrc/flash_attention.cu's
+    ("K2", "K2 fused_attention_sublayer", "ops.fused_attention", "COUNTER",
+     "csrc/flash_attention.cu", TPU + "ops/fused_attention.py:163"),
     ("K3", "K3 fused_ln_mlp_residual", "ops.fused_mlp", "COUNTER", "csrc/ln_gemm.cu",
      TPU + "ops/fused_mlp.py:180"),
     ("K4", "K4 fused_head_argmax", "ops.fused_head", "COUNTER", "csrc/head.cu",
@@ -165,7 +175,7 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
     ("K8", "K8 flash_backward", "ops.flash_attention", "BWD_COUNTER", "csrc/flash_attention.cu",
      TPU + "ops/flash_attention.py:340"),
     ("K7-attn", "K7 fused_attention_sublayer_wf", "ops.fused_attention", "WF_COUNTER",
-     "csrc/attention.cu", TPU + "ops/fused_attention.py:561"),
+     "csrc/flash_attention.cu", TPU + "ops/fused_attention.py:561"),
     ("K7-mlp", "K7 fused_ln_mlp_residual_wf", "ops.fused_mlp", "WF_COUNTER", "csrc/ln_gemm.cu",
      TPU + "ops/fused_mlp.py:401"),
     ("K5", "K5 fused_ln_qkv", "ops.fused_mlp", "QKV_COUNTER", "csrc/ln_gemm.cu",
@@ -234,7 +244,7 @@ FT_GRAD_BAR = 0.02
 # the peak rate of their type
 HBM_BYTES_S = 3.35e12
 L2_BYTES = 50e6
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 PKG = "jiao_liao_speech_recognition_torch"
 SAMPLE_RATE = 16000
 
@@ -316,12 +326,45 @@ def phase_device():
     return line
 
 
+# kernels that must build without spills (ptxas's report): K2's attention
+# core at both head widths and K1
+NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128", "log_mel_tf32_kernel")
+
+
 def phase_build():
     from jiao_liao_speech_recognition_torch import _build
 
     so, seconds = _build.build()
     _build._library()  # load and bind every exported function
-    emit({"phase": "build", "library": so.name, "seconds": seconds})
+    report = _build.ptxas_report()
+    spills = {name: {"registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld}
+              for name, (regs, st, ld) in report.items()
+              if st or ld or any(k in name for k in NO_SPILL)}
+    emit({"phase": "build", "library": so.name, "seconds": seconds, "ptxas": spills})
+    for key in NO_SPILL:
+        found = [v for name, v in spills.items() if key in name]
+        check(len(found) == 1 and found[0]["spill_store_bytes"] == 0
+              and found[0]["spill_load_bytes"] == 0, f"{key}: ptxas reports spills or no entry")
+
+
+def log_mel_f64(wav, fe):
+    """K1's function in float64 on the card (the DFT, power and mel product
+    in f64, the result as f32): the yardstick that tells K1's own error
+    from its plain version's (both f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from jiao_liao_speech_recognition_torch.frontend import features
+
+    pad = fe.n_fft // 2
+    x = F.pad(wav.double()[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, fe.n_fft, fe.hop_length)[:, :-1]
+    basis = torch.from_numpy(features._dft_basis(fe.n_fft)).to(wav.device).double()
+    mel = torch.from_numpy(features.mel_filterbank(fe.num_mels, fe.n_fft, scale=fe.mel_scale))
+    y = frames @ basis.T
+    n = fe.n_fft // 2 + 1
+    spec = (y[..., :n] ** 2 + y[..., n:] ** 2) @ mel.to(wav.device).double().T
+    return torch.log10(torch.clamp(spec, min=fe.log_floor)).transpose(1, 2).float()
 
 
 def _attn_args(rng, B, T, d, lens, dev):
@@ -351,37 +394,52 @@ def phase_kernels():
     B, T, d = 4, 750, 512
     lens = [750, 600, 313, 1]
 
-    # K1: 30 s of tone + noise, quieter in two rows (deeper spectral valleys)
-    fe = FrontendConfig()
+    # K1: 30 s of tone + noise, quieter in two rows (deeper spectral valleys),
+    # at 80 and 128 mels; then the timed B=32 x 30 s of noise
     t = np.arange(30 * SAMPLE_RATE) / SAMPLE_RATE
     wav = np.stack([
         a * np.sin(2 * np.pi * f * t) + n * rng.randn(len(t))
         for a, f, n in ((0.3, 440.0, 0.05), (0.1, 1200.0, 0.01), (0.0, 1.0, 0.1), (0.02, 300.0, 0.0005))
     ]).astype(np.float32)
-    wav_d = torch.from_numpy(wav).to(dev)
-    got = features.normalize_log_mel(fused_frontend.fused_log_mel_raw(wav_d), fe)
-    want = features.normalize_log_mel(fused_frontend.log_mel_raw_plain(wav_d), fe)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    emit({"phase": "kernels", "kernel": "K1", "shape": list(wav.shape),
-          "max_abs_err": err, "bar": LOGMEL_BAR})
-    check(err <= LOGMEL_BAR, f"K1 log-mel error {err} > {LOGMEL_BAR}")
-    errs["K1"] = err
-
-    # K2 at both head widths, ragged lengths including 1
-    for heads in (4, 8):
-        args = _attn_args(rng, B, T, d, lens, dev)
-        got = fused_attention.fused_attention_sublayer(*args, heads)
-        want = fused_attention.attention_sublayer_plain(*args, heads)
+    noise = (0.1 * rng.randn(32, 30 * SAMPLE_RATE)).astype(np.float32)
+    for rows, mels in ((wav, 80), (wav, 128), (noise, 80)):
+        fe = FrontendConfig(num_mels=mels)
+        wav_d = torch.from_numpy(rows).to(dev)
+        raw = fused_frontend.fused_log_mel_raw(wav_d, fe.n_fft, fe.hop_length, mels)
+        got = features.normalize_log_mel(raw, fe)
+        want = features.normalize_log_mel(
+            fused_frontend.log_mel_raw_plain(wav_d, fe.n_fft, fe.hop_length, mels), fe)
+        exact = features.normalize_log_mel(log_mel_f64(wav_d, fe), fe)
         torch.cuda.synchronize()
-        ulps, elem_ulps, over1 = bf16_ulp_err(got, want)
-        err = float((got.float() - want.float()).abs().max())
-        emit({"phase": "kernels", "kernel": "K2", "heads": heads, "dh": d // heads,
-              "max_abs_err": err, "ulps": ulps, "bar_ulps": ULP_BAR,
-              "elementwise_max_ulps": elem_ulps, "elementwise_share_over_1ulp": over1})
-        check(ulps <= ULP_BAR, f"K2 (H={heads}) off by {ulps} bf16 ulps")
-        if heads == 4:
-            errs["K2"] = err
+        err = float((got - want).abs().max())
+        emit({"phase": "kernels", "kernel": "K1", "shape": list(rows.shape), "mels": mels,
+              "max_abs_err": err, "bar": LOGMEL_BAR,
+              "kernel_vs_f64": float((got - exact).abs().max()),
+              "plain_vs_f64": float((want - exact).abs().max())})
+        check(bool(torch.isfinite(raw).all()), f"K1 {list(rows.shape)}: not finite")
+        check(err <= LOGMEL_BAR, f"K1 {list(rows.shape)} x {mels} mels: log-mel error {err}")
+        errs["K1"] = max(errs.get("K1", 0.0), err)
+
+    # K2 at both head widths: ragged lengths including 0 and 1, then the
+    # timed B=32 shape; two launches bitwise equal
+    for heads in (4, 8):
+        for lens_k2 in (lens + [0], [T] * 32):
+            args = _attn_args(rng, len(lens_k2), T, d, lens_k2, dev)
+            got = fused_attention.fused_attention_sublayer(*args, heads)
+            again = fused_attention.fused_attention_sublayer(*args, heads)
+            want = fused_attention.attention_sublayer_plain(*args, heads)
+            torch.cuda.synchronize()
+            ulps, elem_ulps, over1 = bf16_ulp_err(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            emit({"phase": "kernels", "kernel": "K2", "heads": heads, "dh": d // heads,
+                  "B": len(lens_k2), "lens": lens_k2 if len(lens_k2) < 8 else "all 750",
+                  "max_abs_err": err, "ulps": ulps, "bar_ulps": ULP_BAR,
+                  "elementwise_max_ulps": elem_ulps, "elementwise_share_over_1ulp": over1,
+                  "bitwise_repeat": bool(torch.equal(got, again))})
+            check(ulps <= ULP_BAR, f"K2 (H={heads}, B={len(lens_k2)}) off by {ulps} bf16 ulps")
+            check(torch.equal(got, again), f"K2 (H={heads}, B={len(lens_k2)}): two launches differ")
+            if heads == 4:
+                errs["K2"] = max(errs.get("K2", 0.0), err)
 
     # K3 at the widths its launches serve below 1280 (mlp 4d), both GELU
     # forms at the flagship's; two launches bitwise equal
@@ -917,9 +975,14 @@ def phase_timing(bundle, adapted):
     def insert_bytes(inserts_):
         return sum(t.numel() * 4 for f in inserts_ for t in f.values())
 
+    # K1: three TF32 products of the DFT on the tensor cores, the power and
+    # the mel product over each filter's nonzero band on the CUDA cores
+    hi, _, mel_fb, bands = fused_frontend._kernel_constants(n_fft, M, fe.mel_scale, "cuda")
+    mel_terms = int((bands[:, 1] - bands[:, 0]).sum())
+    logmel_bytes = B * L * 4 + B * M * frames * 4 + 2 * hi.numel() * 4 + mel_fb.numel() * 4
     work = {
-        "K1": (B * L * 4 + B * M * frames * 4 + n_fft * 2 * freqs * 4 + M * freqs * 4,
-               {"f32": B * frames * (2.0 * n_fft * 2 * freqs + 3 * freqs + 2 * freqs * M)}),
+        "K1": (logmel_bytes, {"tf32": 3.0 * B * frames * 2 * n_fft * 2 * freqs,
+                              "f32": B * frames * (3.0 * freqs + 2.0 * mel_terms)}),
         "K2": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
         "K2-8x64": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
         "K3": (mlp_bytes, {"bf16": 4.0 * B * T * d * mlp}),
@@ -933,6 +996,10 @@ def phase_timing(bundle, adapted):
                    {"bf16": 4.0 * B * T * d * mlp,
                     "f32": sum(fold_ops(f) for f in wf_mlp_args[7:9])}),
     }
+    # context only: K1's bound on its former route (the DFT in f32 on the CUDA
+    # cores), which no kernel time may read below
+    k1_f32_bound = bound(logmel_bytes, {"f32": B * frames * (
+        2.0 * n_fft * 2 * freqs + 3 * freqs + 2 * freqs * M)})[0]
     shapes = {"K2": "B=32, T'=750, 4 x 128", "K2-8x64": "B=32, T'=750, 8 x 64",
               "K7-attn": "B=32, T'=750, 8 x 64", "K6": "B=16, T'=750, 8 x 64",
               "K8": "B=16, T'=750, 8 x 64"}
@@ -954,9 +1021,47 @@ def phase_timing(bundle, adapted):
                 kind = "fwd" if key == "K6" else "bwd"
                 rate.update({"ms_events": cuda_ms(kern, 20), "executed_tflops": tflops(
                     flash_flops(kind, Bf, Tf, [Tf] * Bf, Hf, dhf), rec[key]["ms"])})
+            if key == "K1":
+                rate["bound_ms_f32_route"] = k1_f32_bound
+            if key == "K2":
+                rate.update(k2_launches(attn_args, yard))
             emit({"phase": "timing", "kernel": key, "shape": shapes.get(key, "B=32, T'=750"),
                   **rec[key], **rate, "turns_ms": [p1, k1, k2, p2]})
     return rec
+
+
+def k2_launches(attn_args, yard):
+    """K2's launches timed apart on the timed inputs: LN + q/k/v (K5's two
+    kernels), the attention core (with its executed TFLOP/s, both passes'
+    products on padded tiles) beside the library's masked fused attention
+    forward on the same q, k, v (queued), and the out-projection beside
+    cuBLAS addmm with the bias. Context: no one library call computes K2."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp
+
+    x, g, bl, wq, bq, wk, wv, bv, wo, bo, lens, H = attn_args
+    B, T, D = x.shape
+    bf = torch.bfloat16
+    w_qkv, b_qkv = fused_mlp.pack_qkv(wq, bq, wk, wv, bv)
+    wo_b, bo_b = wo.to(bf).contiguous(), bo.to(bf).contiguous()
+    qkv = fused_mlp.ln_qkv_launch(x, g, bl, w_qkv, b_qkv)
+    attn = fa.attention_core_launch(qkv, lens, H)
+    q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, T, H, D // H) for i in range(3))
+    core_ms = queued_ms(lambda: fa.attention_core_launch(qkv, lens, H), 20)
+    up = fa.CORE_KEYS  # rows a block owns and keys a tile, both 128
+    rows = -(-T // up) * up
+    keys = sum(-(-(min(int(n), T) or T) // up) * up for n in lens.tolist())
+    executed = 3 * 2.0 * D * rows * keys  # S twice and P.V, every (b, h)
+    attn2 = attn.view(B * T, D)
+    return {
+        "ln_qkv_ms": cuda_ms(lambda: fused_mlp.ln_qkv_launch(x, g, bl, w_qkv, b_qkv), 20),
+        "core_ms": core_ms, "core_executed_tflops": tflops(executed, core_ms),
+        "core_library_ms": yard.sdpa_forward_ms(q, k, v, lens),
+        "out_proj_ms": cuda_ms(lambda: fa.attn_out_proj_launch(x, attn, wo_b, bo_b), 20),
+        "out_proj_library_ms": cuda_ms(lambda: torch.addmm(bo_b, attn2, wo_b), 20),
+    }
 
 
 def _example(name: str):
@@ -1849,7 +1954,7 @@ def phase_probe_timing():
     argmax), printed apart from library_ms."""
     import torch
 
-    from jiao_liao_speech_recognition_torch.frontend.fused_frontend import fused_log_mel_raw
+    from jiao_liao_speech_recognition_torch.frontend import fused_frontend
     from jiao_liao_speech_recognition_torch.ops import fused_head, probes
     from jiao_liao_speech_recognition_torch.utils.timing import cycling
 
@@ -1863,7 +1968,7 @@ def phase_probe_timing():
                cycling(bf16, xs)),
         "P1": (cycling(probes.log_mel_bf16x3_raw, wavs),
                cycling(lambda a: probes.log_mel_bf16x3_raw(a, kernels=False), wavs),
-               cycling(fused_log_mel_raw, wavs)),
+               cycling(fused_frontend.fused_log_mel_raw, wavs)),
         "P2": (cycling(lambda x: probes.head_argmax_chunked(x, w, bias), hxs),
                cycling(lambda x: fused_head.head_argmax_plain(x, w, bias), hxs),
                cycling(lambda x: fused_head.fused_head_argmax(x, w, bias), hxs)),
@@ -1876,11 +1981,15 @@ def phase_probe_timing():
     logmel_bytes = B * L * 4 + B * mels * frames * 4 + n_fft * 2 * freqs * 4 + mels * freqs * 4
     head = (M * d * 2 + d * V * 2 + V * 4 + M * 4, {"bf16": 2.0 * M * d * V})
     mel_ops = B * frames * (3.0 * freqs + 2.0 * freqs * mels)
+    # K1 (the partner): 3xTF32 DFT, the mel product over each filter's band
+    bands = fused_frontend._kernel_constants(n_fft, mels, "slaney", "cuda")[3]
+    k1_mel_ops = B * frames * (3.0 * freqs + 2.0 * int((bands[:, 1] - bands[:, 0]).sum()))
     work = {  # probe: (its work, its partner's), as (bytes, {type: operations})
         "P4": ((mlp_bytes + 2 * d * mlp, {"int8": 4.0 * M * d * mlp}),
                (mlp_bytes + 4 * d * mlp, {"bf16": 4.0 * M * d * mlp})),
         "P1": ((logmel_bytes, {"bf16": 3.0 * B * frames * 2 * n_fft * 2 * freqs, "f32": mel_ops}),
-               (logmel_bytes, {"f32": B * frames * 2.0 * n_fft * 2 * freqs + mel_ops})),
+               (logmel_bytes, {"tf32": 3.0 * B * frames * 2 * n_fft * 2 * freqs,
+                               "f32": k1_mel_ops})),
         "P2": (head, head),
     }
     partner = {"P4": "K3", "P1": "K1", "P2": "K4"}

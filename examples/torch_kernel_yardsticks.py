@@ -15,8 +15,10 @@ as context for the A/B probes at the flagship's 32 x 750 rows:
 the library's two int8 products of P4's MLP (``torch._int_mm``) and the
 head product + argmax of K4 and P2 (``torch.addmm`` then ``torch.argmax``),
 device time. Each of those is two calls, not one call of the kernel's
-function, so it is context and not ``library_ms``. ``qkv_products_ms`` and
-``mlp_products_ms`` time cuBLAS's products alone (``torch.addmm``) on a
+function, so it is context and not ``library_ms``. ``sdpa_forward_ms`` is
+the masked forward alone, context beside K2's attention core.
+``qkv_products_ms`` and ``mlp_products_ms`` time cuBLAS's products alone
+(``torch.addmm``) on a
 precomputed LN(x), the context ``chip_smoke.py`` prints beside K5 and K3c,
 whose function no one library call computes. The port never calls a
 library kernel: ``chip_smoke.py`` reads ``sdpa_ms`` for the ``library_ms``
@@ -46,6 +48,21 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sdpa_forward_ms(q, k, v, kv_lengths, iters: int = 20) -> float:
+    """-> ms of the library's forward alone on q, k, v [B, T, H, dh] bf16
+    (any strides) with keys at or past kv_lengths[b] masked out
+    (queued_ms): context beside K2's attention core, whose rounding point
+    differs (it normalises P before P.V)."""
+    from jiao_liao_speech_recognition_torch.utils.timing import queued_ms
+
+    Tk = k.shape[1]
+    mask = (torch.arange(Tk, device=k.device)[None, :] < kv_lengths[:, None].long())
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        return queued_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask[:, None, None, :]), iters)
 
 
 def sdpa_ms(q, k, v, kv_lengths, dout, iters: int = 20):

@@ -6,7 +6,12 @@ Runs the kernel path (K1 log-mel -> encoder with K2/K3 per block -> K4 head
 + argmax -> collapse) of the full-width flagship (random init, seed 0) on
 B x 30 s of noise under torch.profiler, after warming two distinct input
 buffers. Prints the wall clock, the device busy time and idle share, and
-device milliseconds per batch by kernel name. Needs a CUDA device.
+device milliseconds per batch by kernel name, each of the port's kernels
+labelled with the launch it is (K2's four, K3's three, K1, K4). The labels
+come from the kernels' names and template tags (csrc/ln_gemm.cu's
+``gemm_kernel<EPILOGUE, ENTRY>`` and ``ln_rows_kernel<ENTRY>``): profiler
+ranges around launches would be counted as device time too. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -26,6 +31,27 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from jiao_liao_speech_recognition_torch import api  # noqa: E402
 from jiao_liao_speech_recognition_torch.decode.ctc import ctc_greedy_collapse  # noqa: E402
 from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch  # noqa: E402
+
+
+# kernel name (its start) -> the launch it is
+LAUNCHES = {
+    "log_mel_tf32_kernel": "K1",
+    "ln_rows_kernel<0>": "K2 1/4 ln_rows",
+    "gemm_kernel<0, 0>": "K2 2/4 q/k/v GEMM + bias",
+    "attention_core_kernel<": "K2 3/4 attention core",
+    "gemm_kernel<4, 2>": "K2 4/4 out-projection + x + bias",
+    "ln_rows_kernel<1>": "K3 1/3 ln_rows",
+    "gemm_kernel<1, 0>": "K3 2/3 fc1 + tanh GELU",
+    "gemm_kernel<2, 0>": "K3 2/3 fc1 + erf GELU",
+    "gemm_kernel<3, 0>": "K3 3/3 fc2 + bias + x",
+    "head_argmax_kernel": "K4",
+}
+
+
+def launch_label(name: str) -> str:
+    """The port's launch a profiler kernel name is, or "" (PyTorch's own)."""
+    bare = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+    return next((label for key, label in LAUNCHES.items() if bare.startswith(key)), "")
 
 
 def main() -> None:
@@ -76,7 +102,8 @@ def main() -> None:
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
     }))
     for us, count, key in rows[:25]:
-        print(f"{us / 1e3 / args.iters:9.3f} ms/batch  x{count // args.iters:4d}  {key[:90]}")
+        print(f"{us / 1e3 / args.iters:9.3f} ms/batch  x{count // args.iters:4d}  "
+              f"{launch_label(key):34s} {key[:70]}")
 
 
 if __name__ == "__main__":

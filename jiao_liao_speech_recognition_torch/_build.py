@@ -4,8 +4,10 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
 (all started together), and the objects are linked into one shared library
 with a plain C interface. The library is named after a hash
 of the sources and flags and lives in ``_build/`` beside this file, so an
-edited source rebuilds and an unchanged one loads at once. A file lock
-keeps concurrent processes from building the same library twice.
+edited source rebuilds and an unchanged one loads at once; ptxas's report
+of every kernel's registers and spills is kept beside it (``ptxas_report``).
+A file lock keeps concurrent processes from building the same library
+twice.
 
 Each exported function takes device pointers and the CUDA stream as
 ``c_void_p``, launches on that stream and returns ``cudaGetLastError()``;
@@ -19,6 +21,7 @@ import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 SMEM_LIMIT = 232448  # shared memory one block may opt into on the H100 (227 KB)
@@ -42,9 +45,10 @@ F = ctypes.c_float
 # exported C functions and their argument types (pointers, ints, strides,
 # floats, and the stream last)
 SIGNATURES = {
-    "jl_log_mel": [P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "jl_log_mel": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "jl_ln_qkv": [P, P, P, P, P, P, P, I, I, I, F, P],
-    "jl_attention_out": [P, P, P, P, P, P, I, I, I, I, P],
+    "jl_attention_core": [P, P, P, I, I, I, I, F, P],
+    "jl_attn_out_proj": [P, P, P, P, P, I, I, P],
     "jl_out_proj_residual": [P, P, P, P, P, I, I, P],
     "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_head_argmax": [P, P, P, P, I, I, I, I, P],
@@ -103,9 +107,12 @@ def build() -> tuple[Path, float]:
                 cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
                 procs.append((src.name, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            report = []
             for name, proc in procs:
                 out, err = proc.communicate()
                 _check_nvcc(name, proc.returncode, out, err)
+                report.append(out + err)
+            so.with_suffix(".ptxas.txt").write_text("".join(report))
             link = [_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *objs]
             r = subprocess.run(link, capture_output=True, text=True)
             _check_nvcc("link", r.returncode, r.stdout, r.stderr)
@@ -113,6 +120,30 @@ def build() -> tuple[Path, float]:
             for obj in objs:
                 os.remove(obj)
     return so, time.perf_counter() - t0
+
+
+def ptxas_report() -> dict:
+    """-> {kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from ptxas's report on the library as built (empty if it was built
+    without one)."""
+    path = library_path().with_suffix(".ptxas.txt")
+    if not path.exists():
+        return {}
+    kernels, name = {}, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            kernels[name] = [0, int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in kernels:
+            kernels[name][0] = int(m.group(1))
+            name = None
+    return {k: tuple(v) for k, v in kernels.items()}
 
 
 def _check_nvcc(what: str, rc: int, out: str, err: str) -> None:
@@ -140,11 +171,6 @@ def launch(name: str, *args) -> None:
     err = getattr(_library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def align128(n: int) -> int:
-    """csrc/common.cuh's align128: shared-memory carve-outs start 128-aligned."""
-    return -(-n // 128) * 128
 
 
 def check_cuda(name: str, t, dtype, ndim: int) -> None:

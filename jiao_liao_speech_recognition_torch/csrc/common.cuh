@@ -1,10 +1,10 @@
 // Helpers shared by the port's hand-written Hopper kernels.
 //
-// The WMMA kernels (attention.cu, head.cu, log_mel.cu) take bf16 16x16x16
-// tiles with f32 accumulation (mma.sync on sm_90a): activations staged in
-// shared memory, weight fragments read straight from device memory (hot in
-// L2). The TMA + wgmma kernels (ln_gemm.cu, flash_attention.cu) build on
-// wgmma_gemm.cuh.
+// The WMMA kernels (head.cu, log_mel.cu's P1) take bf16 16x16x16 tiles
+// with f32 accumulation (mma.sync on sm_90a): activations staged in shared
+// memory, weight fragments read straight from device memory (hot in L2).
+// The TMA + wgmma kernels (ln_gemm.cu, flash_attention.cu,
+// log_mel_tf32.cu) build on wgmma_gemm.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,4 +1,5 @@
-// K6: flash attention forward with log-sum-exp; K8: its backward (dQ; dK, dV).
+// K6: flash attention forward with log-sum-exp; K8: its backward (dQ; dK, dV);
+// and K2's attention core (jl_attention_core, below the backward).
 //
 // Replaces ops/flash_attention.py of the JAX package: _flash_kernel and
 // _flash_kernel_lse (flash_attention, and the vjp forward of
@@ -634,6 +635,183 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   }
 }
 
+// ------------------------------------------------------- K2's attention core
+//
+// jl_attention_core: the attention of K2 (ops/fused_attention.py's
+// fused_attention_sublayer, which replaces the JAX package's
+// ops/fused_attention.py::fused_attention_sublayer, _attn_sublayer_kernel and
+// its head-group-split twin) between its q/k/v GEMM and its out-projection
+// GEMM (csrc/ln_gemm.cu). q, k and v are read in place from the packed
+// [B*T, 3D] q/k/v tensor through 4-D maps with a time stride of 3D; the
+// head outputs are written as bf16 [B, T, D].
+//
+// K2's contract is the JAX kernel's, not K6's: scores in f32 times
+// f32(1/sqrt(dh)); keys at or past kv_len get finfo(f32).min, so a row with
+// kv_len = 0 averages V uniformly over all T keys; p = exp(s - m) / sum is
+// normalised in f32, then rounded to bf16, then multiplied by V with f32
+// accumulation; each head's output is rounded to bf16. Normalising before
+// P.V needs the row's final max and sum, so each block walks its keys twice
+// on K6's machinery (producer warpgroup, TMA ring, the same tile layouts):
+// pass 1 forms S = Q K^T and keeps the online row max and sum; pass 2 forms
+// S again and feeds the normalised bf16 P to P.V as the register-A operand.
+// That is 1.5x a one-pass forward's tensor work, for the reference's
+// rounding point kept exactly (K6 instead rounds unnormalised P; that
+// deviation is K6's own).
+//  * Zero-length rows: with kv_len >= 1, key tiles wholly past kv_len
+//    contribute exactly 0 in f32 (exp(finfo.min - m) underflows) and are
+//    skipped. A row with kv_len = 0 is its own case: all T keys are taken as
+//    valid with equal scores (0), which gives the reference's uniform
+//    weights 1/T. Key slots past T do not exist: TMA fills them with zeros,
+//    and the last tile masks them in registers.
+//  * Registers: pass 2 at dh = 128 holds S, O and P (~170 a thread), over
+//    the 168 that a trap anywhere in the consumers' code would hold them to,
+//    so, as in K8, the consumers wait untimed and the issuing thread waits
+//    timed on a barrier they arrive at when done.
+constexpr int kCoreKeys = 128;  // keys of a tile
+
+template <int DH>
+struct CoreSmem {
+  static constexpr uint32_t kQ = tile_bytes<DH>(kRows);
+  static constexpr uint32_t kKV = tile_bytes<DH>(kCoreKeys);  // one K or V tile
+  static constexpr uint32_t kStage = 2 * kKV;
+  static constexpr size_t kBytes = 1024 + kQ + kStages * kStage + (2 + 2 * kStages) * 8;
+};
+
+// S = Q K^T of a consumer warpgroup's 64 rows against the key tile at k0
+// (K in shared memory at ks), with keys at or past n_keys set to NEG and,
+// for a uniform row set (kv_len = 0), every other score set to 0
+template <int DH>
+__device__ __forceinline__ void core_scores(float (&sc)[kCoreKeys / 2], uint32_t qa, uint32_t ks,
+                                            int w, int t, int k0, int n_keys, bool uniform) {
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wg::mma<0>(sc, desc_k(qa, kRows, w * 64, kk), desc_k(ks, kCoreKeys, 0, kk), kk > 0);
+  wg::wgmma_commit();
+  wg::wgmma_wait<0>();
+  if (uniform || k0 + kCoreKeys > n_keys) {
+#pragma unroll
+    for (int i = 0; i < kCoreKeys / 2; ++i) {
+      const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      sc[i] = key >= n_keys ? NEG : (uniform ? 0.f : sc[i]);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+attention_core_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const int* __restrict__ lens,
+                      bf16* __restrict__ out, int H, int T, float scale) {
+  using L = CoreSmem<DH>;
+  constexpr int BN = kCoreKeys;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* st = qs + L::kQ;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(st + kStages * L::kStage);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+  uint64_t* done = empty + kStages;  // the consumers' last arrival
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * kRows;
+  const int kv_len = max(0, min(lens[b], T));
+  const bool uniform = kv_len == 0;
+  const int n_keys = uniform ? T : kv_len;
+  const int n_tiles = ceil_div(n_keys, BN);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(done, 2);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup index, broadcast so the compiler sees it uniform: the
+  // setmaxnreg regions below are then the roles' whole branches
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {  // the producer warpgroup
+    wg::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(qbar, L::kQ);
+      load_tile<DH>(qs, kRows, &tq, h, q0, b, qbar);
+      // pass 1 streams the K tiles, pass 2 the K and V tiles, through one ring
+      for (int j = 0; j < 2 * n_tiles; ++j) {
+        const int s = j % kStages, k0 = (j % n_tiles) * BN;
+        const bool pass2 = j >= n_tiles;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], pass2 ? L::kStage : L::kKV);
+        load_tile<DH>(st + s * L::kStage, BN, &tk, h, k0, b, &full[s]);
+        if (pass2) load_tile<DH>(st + s * L::kStage + L::kKV, BN, &tv, h, k0, b, &full[s]);
+      }
+      mbar_wait(done, 0);  // the consumers' waits are untimed: a stall traps here
+    }
+  } else {  // the two consumer warpgroups (warps 0-7)
+    wg::reg_alloc<kConsumerRegs>();
+    const int w = threadIdx.x / 128, tid = threadIdx.x % 128, t = tid % 4;
+    const float c = scale * kLog2e;
+    const uint32_t qa = smem_u32(qs);
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // raw-score max, per-thread partial sums
+
+    mbar_wait_untimed(qbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {  // pass 1: the row max and sum
+      const int s = j % kStages;
+      mbar_wait_untimed(&full[s], (j / kStages) & 1);
+      float sc[BN / 2];
+      core_scores<DH>(sc, qa, smem_u32(st + s * L::kStage), w, t, j * BN, n_keys, uniform);
+      if (tid == 0) mbar_arrive(&empty[s]);
+      float mt[2] = {m[0], m[1]}, mc[2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        l[r] *= exp2f((m[r] - mt[r]) * c);
+        m[r] = mt[r];
+        mc[r] = mt[r] * c;
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) l[(i >> 1) & 1] += exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
+    }
+    float mc[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      mc[r] = m[r] * c;
+      inv[r] = 1.f / l[r];  // l >= 1: the max term is exp(0)
+    }
+
+    float o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {  // pass 2: P = bf16(exp(s - m) / sum), O += P V
+      const int jj = n_tiles + j, s = jj % kStages;
+      mbar_wait_untimed(&full[s], (jj / kStages) & 1);
+      const uint32_t ks = smem_u32(st + s * L::kStage), vs = ks + L::kKV;
+      float sc[BN / 2];
+      core_scores<DH>(sc, qa, ks, w, t, j * BN, n_keys, uniform);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], c, -mc[(i >> 1) & 1])) * inv[(i >> 1) & 1];
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pack_a(sc, kk, pa[kk]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wg::mma<1>(o, pa[kk], desc_n(vs, BN, kk));
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[s]);
+    }
+    store_rows<DH>(o, 1.f, qs, kRows, w * 64, w, out, b, T, H, h, q0);
+    if (tid == 0) mbar_arrive(done);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 // [B, T, H, dh] bf16 with batch / time strides in elements (multiples of 8)
@@ -684,6 +862,18 @@ int launch_bwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& 
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+int launch_core(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                const int* lens, bf16* out, int B, int H, int T, float scale,
+                cudaStream_t stream) {
+  const size_t smem = CoreSmem<DH>::kBytes;
+  int err = set_smem(attention_core_kernel<DH>, smem);
+  if (err) return err;
+  attention_core_kernel<DH><<<dim3(ceil_div(T, kRows), B * H), kBlockThreads, smem, stream>>>(
+      tq, tk, tv, lens, out, H, T, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q/k/v: base pointer, batch stride, time stride (elements; multiples of 8
@@ -724,4 +914,19 @@ extern "C" int jl_flash_bwd(const bf16* q, long long q_sb, long long q_st, const
                           causal, scale, stream);
   return launch_bwd<128>(tq, tk, tv, tdo, o, dout, lse, lens, dq, dk, dv, stats, B, H, Tq, Tk,
                          causal, scale, stream);
+}
+
+// K2's core: qkv [B*T, 3D] bf16 (q | k | v, D = H dh, D % 8 == 0, 16-byte
+// aligned), lens [B] i32 -> out [B, T, D] bf16, the heads' outputs rounded
+// to bf16; scale = f32(1 / sqrt(dh)). T >= 1.
+extern "C" int jl_attention_core(const bf16* qkv, const int* lens, bf16* out, int B, int T,
+                                 int H, int dh, float scale, cudaStream_t stream) {
+  if (dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+  const long long D = (long long)H * dh, st = 3 * D, sb = (long long)T * st;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, qkv, sb, st, B, T, H, dh) || !head_map(&tk, qkv + D, sb, st, B, T, H, dh) ||
+      !head_map(&tv, qkv + 2 * D, sb, st, B, T, H, dh))
+    return (int)cudaErrorInvalidValue;
+  if (dh == 64) return launch_core<64>(tq, tk, tv, lens, out, B, H, T, scale, stream);
+  return launch_core<128>(tq, tk, tv, lens, out, B, H, T, scale, stream);
 }

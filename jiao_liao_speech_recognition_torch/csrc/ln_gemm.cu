@@ -1,17 +1,22 @@
-// K5 (LN + q/k/v), K3 (LN + MLP + residual; K3c at d = 1280) and K2h-out
-// (out-projection + residual): an f32 LayerNorm row pass, then TMA + wgmma
-// GEMMs with the bias, GELU and residual folded into their epilogues.
+// K5 (LN + q/k/v), K3 (LN + MLP + residual; K3c at d = 1280), K2h-out
+// (out-projection + residual) and K2's first and last launches: an f32
+// LayerNorm row pass, then TMA + wgmma GEMMs with the bias, GELU and
+// residual folded into their epilogues.
 //
 // Replaces, from the JAX package's ops/fused_mlp.py, _ln_qkv_kernel
 // (fused_ln_qkv), _ln_mlp_res_kernel (fused_ln_mlp_residual) and
 // _ln_mlp_csplit_kernel (its hidden-chunk split at d = 1280), and from
 // ops/fused_attention.py the out-projection + residual that ends
-// _attn_sublayer_hsplit_kernel. The rounding points are the JAX kernels':
+// _attn_sublayer_hsplit_kernel and (K2, around csrc/flash_attention.cu's
+// attention core) the LN + q/k/v and the out-projection + residual of
+// _attn_sublayer_kernel. The rounding points are the JAX kernels':
 // LN in f32 (mean, centred variance, 1 / sqrt, * g + b) rounded to bf16;
 // each product accumulated in f32 and rounded to bf16 before its bias; GELU
 // in f32 on the bf16 h + b1, rounded to bf16; the residual as
 // x + bf16(bf16(acc) + b) (the module path's order; K3c adds x first, a
-// one-ulp difference the 2-ulp bar absorbs). Every one of those points is a
+// one-ulp difference the 2-ulp bar absorbs), and K2's as
+// bf16(x + bf16(acc)) + b (the JAX kernel's x + acc.astype(x.dtype) + bo,
+// its own epilogue, kAttnResidual). Every one of those points is a
 // bf16 tensor, so splitting the sublayer into launches changes no rounding,
 // only the order of f32 sums.
 //
@@ -37,11 +42,13 @@
 //    (the product rounded; fc1 adds b1 and takes the GELU there), stages
 //    the bf16 tile in the freed stage memory, and finishes with 16-byte
 //    vectors: + bias (K5), a copy (fc1), + bias then + x (fc2 and K2h-out,
-//    one code path). Rows past M are read as zeros by the TMA and never
-//    stored. No split-K, no atomics: two launches give the same bits.
+//    one code path), + x then + bias (K2). Rows past M are read as zeros
+//    by the TMA and never stored. No split-K, no atomics: two launches give
+//    the same bits.
 // K5 is ln_rows + gemm<kBias> (N = 3D); K3 is ln_rows + gemm<kGelu*> (N =
 // mlp, into a hidden scratch) + gemm<kResidual> (K = mlp); K2h-out is
-// gemm<kResidual, kOutProj> alone.
+// gemm<kResidual, kOutProj> alone; K2 is K5's two launches, the attention
+// core, then gemm<kAttnResidual, kAttnOut>.
 #include "common.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -57,13 +64,17 @@ constexpr int kLdc = kBN + 8;  // bf16 row pitch of the staged tile
 constexpr int kLnWarps = 8;    // rows per ln_rows block
 constexpr int kLnMaxVecs = 8;  // 16-byte vectors a lane holds: d <= 8 x 32 x 8
 
-enum Epilogue { kBias, kGeluTanh, kGeluErf, kResidual };
+enum Epilogue { kBias, kGeluTanh, kGeluErf, kResidual, kAttnResidual };
 // The C entry point an instance serves. It changes no code: K3's fc2 and
 // K2h-out run the same epilogue, and a profile tells them apart only by the
-// kernel's name (gemm_kernel<3, 0> against gemm_kernel<3, 1>).
-enum Entry { kSublayer, kOutProj };
+// kernel's name (gemm_kernel<3, 0> against gemm_kernel<3, 1>; K2's
+// out-projection is gemm_kernel<4, 2>; ln_rows_kernel<0> serves K5 and K2,
+// ln_rows_kernel<1> K3).
+enum Entry { kSublayer, kOutProj, kAttnOut };
 
 // x [M, d] bf16, g / bl [d] f32 -> ln [M, d] bf16. d % 8 == 0, d <= 2048.
+// ENTRY names the instance only: 0 before a q/k/v product, 1 before fc1.
+template <int ENTRY>
 __global__ void __launch_bounds__(kLnWarps * 32)
 ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
                const float* __restrict__ bl, bf16* __restrict__ ln, int M, int d, float eps) {
@@ -118,7 +129,8 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
 }
 
 // out [M, N] = epilogue(a [M, K] . w [K, N]) for bf16 a, w (row-major, w
-// as [in, out]), bias [N] bf16, res [M, N] bf16 (kResidual only)
+// as [in, out]), bias [N] bf16, res [M, N] bf16 (kResidual and
+// kAttnResidual only)
 template <int EPI, int ENTRY>
 __global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM)
 gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
@@ -165,27 +177,34 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     if (m0 + r >= M) continue;
     const size_t at = (size_t)(m0 + r) * N + n0 + c;
     uint4 ov = *reinterpret_cast<const uint4*>(cs + r * kLdc + c);
-    if constexpr (EPI == kBias || EPI == kResidual) {
+    if constexpr (EPI == kBias || EPI == kResidual || EPI == kAttnResidual) {
       const uint4 bv = *reinterpret_cast<const uint4*>(bias + n0 + c);
       uint4 xv = make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (EPI == kResidual) xv = *reinterpret_cast<const uint4*>(res + at);
+      if constexpr (EPI != kBias) xv = *reinterpret_cast<const uint4*>(res + at);
       bf16* o = reinterpret_cast<bf16*>(&ov);
       const bf16* be = reinterpret_cast<const bf16*>(&bv);
       const bf16* xe = reinterpret_cast<const bf16*>(&xv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float y = __bfloat162float(o[e]) + __bfloat162float(be[e]);
-        o[e] = __float2bfloat16(EPI == kResidual ? __bfloat162float(xe[e]) + round_bf16(y) : y);
+        const float a = __bfloat162float(o[e]), bb = __bfloat162float(be[e]);
+        const float xx = __bfloat162float(xe[e]);
+        float y;
+        if constexpr (EPI == kAttnResidual) y = round_bf16(xx + a) + bb;
+        else if constexpr (EPI == kResidual) y = xx + round_bf16(a + bb);
+        else y = a + bb;
+        o[e] = __float2bfloat16(y);
       }
     }
     *reinterpret_cast<uint4*>(out + at) = ov;
   }
 }
 
+template <int ENTRY>
 int ln_rows(const bf16* x, const float* g, const float* bl, bf16* ln, int M, int d, float eps,
             cudaStream_t stream) {
   if (M <= 0 || d <= 0 || d % 8 || d > kLnMaxVecs * 32 * 8) return (int)cudaErrorInvalidValue;
-  ln_rows_kernel<<<ceil_div(M, kLnWarps), kLnWarps * 32, 0, stream>>>(x, g, bl, ln, M, d, eps);
+  ln_rows_kernel<ENTRY><<<ceil_div(M, kLnWarps), kLnWarps * 32, 0, stream>>>(x, g, bl, ln, M, d,
+                                                                             eps);
   return (int)cudaGetLastError();
 }
 
@@ -217,7 +236,7 @@ int gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, bf16* 
 extern "C" int jl_ln_qkv(const bf16* x, const float* g, const float* bl, const bf16* w,
                          const bf16* bias, bf16* ln, bf16* out, int M, int d, int N, float eps,
                          cudaStream_t stream) {
-  const int err = ln_rows(x, g, bl, ln, M, d, eps, stream);
+  const int err = ln_rows<0>(x, g, bl, ln, M, d, eps, stream);
   return err ? err : gemm<kBias>(ln, w, bias, nullptr, out, M, N, d, stream);
 }
 
@@ -230,7 +249,7 @@ extern "C" int jl_ln_mlp_residual(const bf16* x, const float* g, const float* bl
                                   const bf16* w1, const bf16* b1, const bf16* w2,
                                   const bf16* b2, bf16* ln, bf16* h, bf16* out, int M, int d,
                                   int mlp, int erf_form, float eps, cudaStream_t stream) {
-  int err = ln_rows(x, g, bl, ln, M, d, eps, stream);
+  int err = ln_rows<1>(x, g, bl, ln, M, d, eps, stream);
   if (!err)
     err = erf_form ? gemm<kGeluErf>(ln, w1, b1, nullptr, h, M, mlp, d, stream)
                    : gemm<kGeluTanh>(ln, w1, b1, nullptr, h, M, mlp, d, stream);
@@ -244,4 +263,13 @@ extern "C" int jl_out_proj_residual(const bf16* attn, const bf16* x, const bf16*
                                     const bf16* bo, bf16* out, int M, int D,
                                     cudaStream_t stream) {
   return gemm<kResidual, kOutProj>(attn, wo, bo, x, out, M, D, D, stream);
+}
+
+// K2's out-projection: attn [M, D] bf16 (csrc/flash_attention.cu's core
+// output), x [M, D] bf16, wo [D, D] bf16, bo [D] bf16 -> out [M, D] =
+// bf16(bf16(x + bf16(attn . wo)) + bo), the JAX kernel's order. D % 128 ==
+// 0; pointers 16-byte aligned.
+extern "C" int jl_attn_out_proj(const bf16* attn, const bf16* x, const bf16* wo, const bf16* bo,
+                                bf16* out, int M, int D, cudaStream_t stream) {
+  return gemm<kAttnResidual, kAttnOut>(attn, wo, bo, x, out, M, D, D, stream);
 }

@@ -1,12 +1,20 @@
 """K2: the fused self-attention sublayer y = x + out_proj(MHA(LN(x))).
 
-``fused_attention_sublayer`` is the wrapper of K2's CUDA launches: LN +
-q/k/v (K5's, ``csrc/ln_gemm.cu``), then ``jl_attention_out`` of
-``csrc/attention.cu``. Together they replace the JAX package's
+``fused_attention_sublayer`` is the wrapper of K2's CUDA launches, which
+together replace the JAX package's
 ``ops/fused_attention.py::fused_attention_sublayer`` and its
-head-group-split variant; the design note is in attention.cu.
+head-group-split variant: ``ln_rows`` and the q/k/v GEMM + bias (K5's two
+launches, ``csrc/ln_gemm.cu``), the attention core (``jl_attention_core``,
+a TMA + wgmma kernel of ``csrc/flash_attention.cu``, whose design note says
+why it walks the keys twice), then the out-projection GEMM with K2's
+residual epilogue (``jl_attn_out_proj``, ``csrc/ln_gemm.cu``).
 ``attention_sublayer_plain`` is the same function in plain PyTorch with the
-kernels' rounding points; the wrapper takes it only for tensors on the CPU.
+kernels' rounding points; ``attention_core_plain`` and
+``attn_out_residual_plain`` are the plain versions of the last two launches
+(``fused_mlp.ln_rows_plain`` and ``qkv_gemm_plain`` of the first two), and
+every rounding point between them is a bf16 tensor, so they compose to the
+sublayer bit for bit. The wrapper takes the plain version only for tensors
+on the CPU.
 
 Where K2 does not fit (d = 1280, Whisper large-v3, which the TPU serves with
 the head-group-split kernel), the sublayer is K5 (``ops/fused_mlp.py``),
@@ -19,37 +27,54 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import (
-    SMEM_LIMIT,
-    LaunchCounter,
-    align128,
-    check_aligned,
-    check_cuda,
-    launch,
-    refuse_grad,
-)
+from .._build import LaunchCounter, check_aligned, check_cuda, launch, refuse_grad
 from .fused_mlp import fc2_residual_plain, ln_qkv_launch, pack_qkv
 from .numerics import dense, full_f32, layer_norm, matmul
 
 COUNTER = LaunchCounter("fused_attention_sublayer")
-HEAD_WIDTHS = (64, 128)  # the kernel's template instances
-
-
-def attention_out_smem(D: int, dh: int) -> int:
-    """Shared memory of one jl_attention_out block (csrc/attention.cu): q,
-    k, v tiles, f32 scores, bf16 probabilities, the [64, D] bf16 head
-    outputs of all heads and the f32 product tile."""
-    return (3 * align128(64 * (dh + 8) * 2) + align128(64 * 68 * 4) + align128(64 * 72 * 2)
-            + align128(64 * (D + 8) * 2) + 64 * 132 * 4)
+HEAD_WIDTHS = (64, 128)  # the attention core's template instances
+# csrc/flash_attention.cu's kCoreKeys: keys of a tile of the attention core
+# (and, as kRows, the queries a block owns)
+CORE_KEYS = 128
+MAX_WIDTH = 1024  # K2's documented range: d <= 1024
 
 
 def attention_sublayer_fits(d: int, num_heads: int) -> bool:
     """True when K2 takes this shape on the card: dh in HEAD_WIDTHS,
-    d % 128 == 0 and its shared memory within one block's limit (not at
-    d = 1280: 252,928 bytes)."""
+    d % 128 == 0 (whole output tiles of the GEMMs) and d <= MAX_WIDTH (not
+    at d = 1280, which keeps K5 -> K6 -> K2h-out)."""
     dh = d // num_heads
     return (dh * num_heads == d and dh in HEAD_WIDTHS and d % 128 == 0
-            and attention_out_smem(d, dh) <= SMEM_LIMIT)
+            and d <= MAX_WIDTH)
+
+
+def attention_scale(dh: int) -> float:
+    """np.float32(1 / sqrt(dh)), the scores' scale in every version."""
+    return float(np.float32(1.0 / np.sqrt(dh)))
+
+
+def _softmax_attention(q, k, v, kv_lengths, num_heads):
+    """q, k, v [B, T, D] (compute dtype) -> [B, T, D]: f32 scores times
+    attention_scale, keys at or past kv_lengths[b] at finfo(f32).min, f32
+    softmax rounded to the compute dtype before P.V, each head's output
+    rounded to the compute dtype."""
+    dt = q.dtype
+    B, T, D = q.shape
+    dh = D // num_heads
+
+    def heads(t):  # [B, T, D] -> [B, H, T, dh] f32
+        return t.reshape(B, T, num_heads, dh).transpose(1, 2).float()
+
+    lens = torch.clamp(kv_lengths.to(q.device, torch.int64), max=T)
+    valid = torch.arange(T, device=q.device)[None, :] < lens[:, None]
+    with full_f32():
+        logits = (heads(q) @ heads(k).transpose(-1, -2)) * attention_scale(dh)
+        logits = torch.where(
+            valid[:, None, None, :], logits, torch.finfo(torch.float32).min
+        )
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        attn = (probs.float() @ heads(v)).to(dt)
+    return attn.transpose(1, 2).reshape(B, T, D)
 
 
 def attention_sublayer_plain(
@@ -58,36 +83,58 @@ def attention_sublayer_plain(
     """x [B, T, d] (compute dtype); Dense kernels [in, out]; k unbiased;
     kv_lengths [B] valid keys. Softmax in f32, probabilities rounded to the
     compute dtype before P.V; y = (x + out) + bo."""
-    dt = x.dtype
-    B, T, _ = x.shape
-    D = wq.shape[1]
-    dh = D // num_heads
     ln = layer_norm(x, g, bl, eps)
     q, k, v = dense(ln, wq, bq), dense(ln, wk), dense(ln, wv, bv)
+    return attn_out_residual_plain(x, _softmax_attention(q, k, v, kv_lengths, num_heads),
+                                   wo, bo)
 
-    def heads(t):  # [B, T, D] -> [B, H, T, dh] f32
-        return t.reshape(B, T, num_heads, dh).transpose(1, 2).float()
 
-    scale = float(np.float32(1.0 / np.sqrt(dh)))
-    lens = torch.clamp(kv_lengths.to(x.device, torch.int64), max=T)
-    valid = torch.arange(T, device=x.device)[None, :] < lens[:, None]
-    with full_f32():
-        logits = (heads(q) @ heads(k).transpose(-1, -2)) * scale
-        logits = torch.where(
-            valid[:, None, None, :], logits, torch.finfo(torch.float32).min
-        )
-        probs = torch.softmax(logits, dim=-1).to(dt)
-        attn = (probs.float() @ heads(v)).to(dt)
-    attn = attn.transpose(1, 2).reshape(B, T, D)
-    return (x + matmul(attn, wo)) + bo.to(dt)
+def attention_core_plain(qkv, kv_lengths, num_heads):
+    """jl_attention_core: qkv [B, T, 3D] (q | k | v, compute dtype) ->
+    the heads' outputs [B, T, D], rounded to the compute dtype."""
+    D = qkv.shape[-1] // 3
+    return _softmax_attention(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:],
+                              kv_lengths, num_heads)
+
+
+def attn_out_residual_plain(x, attn, wo, bo):
+    """jl_attn_out_proj: bf16(bf16(x + bf16(attn . wo)) + bo), the JAX
+    kernel's order (K2h-out and K3's fc2 add the bias first)."""
+    return (x + matmul(attn, wo)) + bo.to(x.dtype)
+
+
+def attention_core_launch(qkv, kv_lengths, num_heads):
+    """jl_attention_core on CUDA operands (qkv bf16 [B, T, 3D] contiguous,
+    kv_lengths int32 [B] on the card) -> the heads' outputs [B, T, D] bf16.
+    K2's third launch; counts nothing: its caller does."""
+    B, T, D3 = qkv.shape
+    dh = D3 // 3 // num_heads
+    attn = torch.empty(B, T, D3 // 3, device=qkv.device, dtype=torch.bfloat16)
+    launch("jl_attention_core", qkv.data_ptr(), kv_lengths.data_ptr(), attn.data_ptr(), B, T,
+           num_heads, dh, attention_scale(dh))
+    return attn
+
+
+def attn_out_proj_launch(x, attn, wo, bo):
+    """jl_attn_out_proj on CUDA operands (x and attn bf16 [B, T, D], wo
+    [D, D] and bo [D] bf16, contiguous) -> bf16(bf16(x + bf16(attn . wo))
+    + bo). K2's last launch; counts nothing: its caller does."""
+    B, T, D = x.shape
+    check_aligned("attn_out_proj", x, attn, wo, bo)
+    out = torch.empty_like(x)
+    launch("jl_attn_out_proj", attn.data_ptr(), x.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+           out.data_ptr(), B * T, D)
+    return out
 
 
 def fused_attention_sublayer(
     x, g, bl, wq, bq, wk, wv, bv, wo, bo, kv_lengths, num_heads, eps=1e-5
 ):
     """K2 wrapper. CPU tensors take attention_sublayer_plain; a CUDA tensor
-    launches the kernel (x bf16 [B, T, d], d = D = num_heads * dh and
-    attention_sublayer_fits) or raises."""
+    (x bf16 [B, T, d], d = D = num_heads * dh and attention_sublayer_fits)
+    launches the LN + q/k/v GEMM, the attention core and the out-projection
+    GEMM (q/k/v and the heads' outputs in scratch allocated here), or
+    raises."""
     if x.device.type == "cpu":
         return attention_sublayer_plain(
             x, g, bl, wq, bq, wk, wv, bv, wo, bo, kv_lengths, num_heads, eps
@@ -96,23 +143,16 @@ def fused_attention_sublayer(
     refuse_grad("fused_attention_sublayer", x, g, bl, wq, bq, wk, wv, bv, wo, bo)
     B, T, d = x.shape
     D = wq.shape[1]
-    dh = D // num_heads
     if D != d or not attention_sublayer_fits(d, num_heads):
         raise ValueError(f"unsupported attention shape d={d} D={D} heads={num_heads}")
     if kv_lengths.shape != (B,):
         raise ValueError(f"kv_lengths must be [B]={B}, got {tuple(kv_lengths.shape)}")
-    dev = x.device
-    bf = torch.bfloat16
+    dev, bf = x.device, torch.bfloat16
     w_qkv, b_qkv = (t.to(dev) for t in pack_qkv(wq, bq, wk, wv, bv))
-    wo_b = wo.to(dev, bf).contiguous()
-    bo_b = bo.to(dev, bf).contiguous()
+    wo_b, bo_b = wo.to(dev, bf).contiguous(), bo.to(dev, bf).contiguous()
     lens = kv_lengths.to(dev, torch.int32).contiguous()
     qkv = ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps)
-    out = torch.empty_like(x)
-    launch(
-        "jl_attention_out", qkv.data_ptr(), lens.data_ptr(), x.data_ptr(),
-        wo_b.data_ptr(), bo_b.data_ptr(), out.data_ptr(), B, T, num_heads, dh,
-    )
+    out = attn_out_proj_launch(x, attention_core_launch(qkv, lens, num_heads), wo_b, bo_b)
     COUNTER.launches += 1
     return out
 

@@ -29,7 +29,6 @@ import torch.nn.functional as F
 
 from .._build import LaunchCounter, check_cuda, launch, refuse_grad
 from ..frontend.features import _dft_basis, mel_filterbank
-from ..frontend.fused_frontend import kernel_basis
 from .fused_head import head_argmax_plain, launch_head_argmax
 from .fused_mlp import gelu_f32
 from .numerics import full_f32
@@ -140,6 +139,18 @@ def log_mel_bf16x3_plain(wav, n_fft=400, hop=160, num_mels=80, log_floor=1e-10):
         power = proj[..., :n_freqs] ** 2 + proj[..., n_freqs:] ** 2
         mel_spec = power @ mel.T
     return (torch.log(torch.clamp(mel_spec, min=log_floor)) * INV_LN10).transpose(1, 2)
+
+
+def kernel_basis(n_fft: int, rows: int, f_pad: int) -> np.ndarray:
+    """The windowed DFT basis in P1's layout, f32 [rows, 2 f_pad]: columns
+    [0, n_freqs) window * cos, [f_pad, f_pad + n_freqs) -window * sin, zero
+    elsewhere and past n_fft rows."""
+    n_freqs = n_fft // 2 + 1
+    b = _dft_basis(n_fft)
+    basis = np.zeros((rows, 2 * f_pad), np.float32)
+    basis[:n_fft, :n_freqs] = b[:n_freqs].T
+    basis[:n_fft, f_pad : f_pad + n_freqs] = b[n_freqs:].T
+    return basis
 
 
 @lru_cache(maxsize=8)

@@ -76,12 +76,118 @@ def test_k1_wrapper_refuses_a_device_it_has_no_kernel_for():
 
 
 def test_kernel_constants_hold_the_basis_in_the_kernels_layout():
-    basis, mel = fused_frontend._kernel_constants(400, 80, "slaney", "cpu")
+    """K1's constants (csrc/log_mel_tf32.cu): the basis [416 columns][416 k]
+    with cos and sin in 8-frequency groups (row 16 q + e: cos of frequency
+    8 q + e, row 16 q + 8 + e: its -sin), zero past n_fft and n_freqs, split
+    into TF32 hi and lo (low 13 bits clear, hi + lo within 2^-21 of the f32
+    basis); the mel filterbank and each filter's band of nonzero columns."""
+    hi, lo, mel, bands = fused_frontend._kernel_constants(400, 80, "slaney", "cpu")
+    b = jf._dft_basis(400)  # [402, 400]: cos rows, then -sin rows
+    assert tuple(hi.shape) == tuple(lo.shape) == (416, 416) and hi.dtype == torch.float32
+    assert tuple(mel.shape) == (80, 201) and tuple(bands.shape) == (80, 2)
+    full = fused_frontend.tf32_basis(400)
+    for f in (0, 1, 7, 8, 100, 200):
+        q, e = divmod(f, 8)
+        np.testing.assert_array_equal(full[16 * q + e, :400], b[f])
+        np.testing.assert_array_equal(full[16 * q + 8 + e, :400], b[201 + f])
+    assert not full[:, 400:].any()
+    assert not full[16 * 25 + 1:16 * 25 + 8].any() and not full[16 * 25 + 9:].any()
+    for t in (hi, lo):
+        assert not (t.numpy().view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_allclose((hi.double() + lo.double()).numpy(), full,
+                               rtol=2.0 ** -21, atol=0)
+    m = mel.numpy()
+    for row, (first, end) in zip(m, bands.numpy()):
+        assert row[first] != 0 and row[end - 1] != 0
+        assert not row[:first].any() and not row[end:].any()
+
+
+def test_p1_constants_keep_their_own_layout():
+    """P1 (ops/probes.py, csrc/log_mel.cu) keeps its layout apart from K1's:
+    bf16 hi and lo [n_k = 400][2 f16 = 416], cos in columns [0, 201), -sin
+    in [208, 409), zero elsewhere."""
+    from jiao_liao_speech_recognition_torch.ops import probes
+
+    hi, lo, mel = probes._bf16x3_constants(400, 80, "cpu")
     b = jf._dft_basis(400)
-    assert tuple(basis.shape) == (416, 512) and tuple(mel.shape) == (80, 201)
-    np.testing.assert_array_equal(basis[:400, :201].numpy(), b[:201].T)
-    np.testing.assert_array_equal(basis[:400, 256:457].numpy(), b[201:].T)
-    assert not basis[400:].any() and not basis[:, 201:256].any() and not basis[:, 457:].any()
+    assert tuple(hi.shape) == tuple(lo.shape) == (400, 416) and hi.dtype == torch.bfloat16
+    full = hi.double() + lo.double()
+    np.testing.assert_allclose(full[:, :201].numpy(), b[:201].T, rtol=2.0 ** -15, atol=1e-12)
+    np.testing.assert_allclose(full[:, 208:409].numpy(), b[201:].T, rtol=2.0 ** -15, atol=1e-12)
+    assert not full[:, 201:208].any() and not full[:, 409:].any()
+    assert tuple(mel.shape) == (80, 201)
+
+
+def _emulate_k1(wav, n_fft=400, hop=160, num_mels=80):
+    """csrc/log_mel_tf32.cu's arithmetic on the CPU: the reflect-padded
+    frames and K1's basis each split into TF32 hi and lo (tf32_split),
+    hi.hi + hi.lo + lo.hi with exact products summed in f64 and rounded
+    to f32 (the tensor cores' f32 accumulation differs only in order),
+    power as re^2 + im^2 in f32, the mel product over each band, log10."""
+    pad = n_fft // 2
+    x = np.pad(wav, ((0, 0), (pad, pad)), mode="reflect")
+    T = wav.shape[1] // hop
+    frames = x[:, np.arange(T)[:, None] * hop + np.arange(n_fft)[None]]
+    fh, fl = (a.astype(np.float64) for a in fused_frontend.tf32_split(frames))
+    bh, bl = (a[:, :n_fft].astype(np.float64).T
+              for a in fused_frontend.tf32_split(fused_frontend.tf32_basis(n_fft)))
+    y = (fh @ bh + fh @ bl + fl @ bh).astype(np.float32)  # [B, T, 416]
+    f = np.arange(n_fft // 2 + 1)
+    re, im = y[..., 16 * (f // 8) + f % 8], y[..., 16 * (f // 8) + 8 + f % 8]
+    mel = tf.mel_filterbank(num_mels, n_fft)
+    power = re * re + im * im
+    return np.log10(np.maximum(power @ mel.T, 1e-10)).transpose(0, 2, 1)
+
+
+def _log_mel_f64(wav, n_fft=400, hop=160, num_mels=80):
+    """The log-mel in float64 throughout (numpy), the result as f32."""
+    x = np.pad(wav.astype(np.float64), ((0, 0), (n_fft // 2, n_fft // 2)), mode="reflect")
+    T = wav.shape[1] // hop
+    y = x[:, np.arange(T)[:, None] * hop + np.arange(n_fft)[None]] @ tf._dft_basis(n_fft).T
+    n = n_fft // 2 + 1
+    spec = (y[..., :n] ** 2 + y[..., n:] ** 2) @ tf.mel_filterbank(num_mels, n_fft).T
+    return np.log10(np.maximum(spec, 1e-10)).transpose(0, 2, 1).astype(np.float32)
+
+
+def test_k1_tf32x3_emulation_within_the_bar_of_jax_log_mel():
+    """The 3xTF32 split on chip_smoke.py's four K1 rows (30 s: tones and
+    noise, two quiet rows with deep spectral valleys) and on two rows of
+    the P1 profiler's seeded input, held to LOGMEL_BAR against JAX's
+    log_mel_spectrogram (HIGHEST precision) on the Whisper-normalized
+    surface; the margin is printed, and on the four rows the emulation's
+    and the port's f32 plain version's distance from an f64 log-mel."""
+    import importlib.util
+    from pathlib import Path
+
+    rng = np.random.RandomState(0)  # chip_smoke.phase_kernels' K1 rows
+    t = np.arange(30 * 16000) / 16000
+    rows = np.stack([a * np.sin(2 * np.pi * f * t) + n * rng.randn(len(t)) for a, f, n in (
+        (0.3, 440.0, 0.05), (0.1, 1200.0, 0.01), (0.0, 1.0, 0.1), (0.02, 300.0, 0.0005))])
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_profile_frontend_precision.py"
+    spec = importlib.util.spec_from_file_location("p1_profiler", path)
+    p1 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(p1)
+    p1_rows = p1.make_inputs(2, 30.0, device="cpu")[0].numpy()
+    wav = np.concatenate([rows.astype(np.float32), p1_rows])
+    emulated = _emulate_k1(wav)
+
+    def norm(a):
+        return tf.normalize_log_mel(torch.from_numpy(np.asarray(a)), tcfg.FrontendConfig()).numpy()
+
+    four = wav[:4]
+    exact, plain = norm(_log_mel_f64(four)), norm(fused_frontend.log_mel_raw_plain(
+        torch.from_numpy(four)).numpy())
+    print(f"K1 3xTF32 emulation on the four rows: {np.abs(norm(emulated[:4]) - exact).max():.3e}"
+          f" from f64, plain f32 {np.abs(plain - exact).max():.3e} from f64, emulation "
+          f"{np.abs(norm(emulated[:4]) - plain).max():.3e} from plain")
+    got = norm(emulated)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jf.log_mel_spectrogram(jnp.asarray(wav), jcfg.FrontendConfig()))
+    err = float(np.abs(got - want).max())
+    print(f"K1 3xTF32 emulation: max |diff| {err:.3e} on the normalized surface, "
+          f"bar {LOGMEL_BAR}, margin {LOGMEL_BAR - err:.3e}")
+    assert got.shape == want.shape == (6, 80, 3000)
+    assert err <= LOGMEL_BAR
 
 
 @pytest.mark.parametrize("cmvn_mode", ["none", "utterance", "global"])

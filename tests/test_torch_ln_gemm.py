@@ -158,8 +158,9 @@ def test_mlp_wrapper_refuses_shapes_the_kernels_do_not_take(launches, d, mlp):
 def test_wrappers_launch_with_the_c_signatures(launches):
     """One launch a wrapper call with the argument count of the C entry
     point (the stream is added by launch), the row count B*T, and the
-    counters counting wrapper calls: K5, K3 at d=512, K3c at d=1280, and
-    K2's first launch through the same LN + QKV path."""
+    counters counting wrapper calls: K5, K3 at d=512, K3c at d=1280; and
+    K2's three C calls (four kernels): the LN + q/k/v path, the attention
+    core on the packed q/k/v, the out-projection with K2's epilogue."""
     for c in (tfm.QKV_COUNTER, tfm.COUNTER, tfm.K3C_COUNTER):
         c.reset()
     q, k, v = tfm.fused_ln_qkv(_meta(2, 40, 1280), torch.ones(1280), torch.zeros(1280),
@@ -182,8 +183,13 @@ def test_wrappers_launch_with_the_c_signatures(launches):
     w = torch.zeros(d, d)
     tfa.fused_attention_sublayer(_meta(1, 8, d), torch.ones(d), torch.zeros(d), w, w[0], w, w,
                                  w[0], w, w[0], torch.ones(1, dtype=torch.int32), 4)
-    assert [name for name, _ in launches[3:]] == ["jl_ln_qkv", "jl_attention_out"]
+    assert [name for name, _ in launches[3:]] == [
+        "jl_ln_qkv", "jl_attention_core", "jl_attn_out_proj"]
+    for name, args in launches[3:]:
+        assert len(args) + 1 == len(_build.SIGNATURES[name])
     assert launches[3][1][-4:-1] == (8, d, 3 * d)
+    assert launches[4][1][-5:] == (1, 8, 4, 128, tfa.attention_scale(128))
+    assert launches[5][1][-2:] == (8, d)
 
 
 def test_serving_weights_reach_the_kernels_uncopied():
