@@ -9,17 +9,23 @@ non-zero and prints no result line):
 1. device   - the card's name and power limit from nvidia-smi;
 2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a), one
               nvcc per source, all started together; ptxas's registers
-              and spill bytes of every kernel that spills and of K2's core
-              and K1, which must not;
+              and spill bytes of every kernel that spills and of K2's core,
+              K1, K4 and P2, which must not;
 3. kernels  - each kernel against its plain PyTorch version at main-path
               shapes, with the bars stated below: K1 (four 30 s rows at 80
               and 128 mels, and B=32 x 30 s of noise; both also against an
               f64 log-mel, printed), K2 (4 heads of 128 and 8 of 64,
               lengths including 0 and 1, and the timed B=32 shape; launched
               twice and bitwise equal), K3 (d 256, 512 and 1024, launched
-              twice and bitwise equal), K4; K6 (out, lse) and
-              K8 (dQ, dK, dV) at B=16, T'=750, 8 heads of 64 and 4 of 128,
-              plus a causal case, each launched twice and bitwise equal;
+              twice and bitwise equal), K4 (B=32 x 750 at d 512, V 4336
+              from an f32 kernel and from its padded bf16 serving copy,
+              launched twice and bitwise equal, timed against plain; ties
+              at duplicate columns inside a tile, across tiles, across
+              P2's chunks, far apart and in the ragged last tile; a
+              ragged row count; d 256 and 1024; V 100 and 40); K6 (out,
+              lse) and K8 (dQ, dK, dV) at B=16, T'=750, 8 heads of 64 and
+              4 of 128, plus a causal case, each launched twice and
+              bitwise equal;
               K7 (both WF-folded sublayers);
 4. e2e      - main path 1, serving: api.load of the full-width flagship
               (12 x d512, 4 heads of 128, mlp 2048, V 4336, random init
@@ -44,7 +50,9 @@ non-zero and prints no result line):
               TFLOP/s (K2, K3 and K7 run on K5's and K3c's launches), K2's
               launches apart (its core beside the library's masked fused
               attention forward on the same q/k/v, its out-projection beside
-              cuBLAS addmm: context), K1 beside its f32 CUDA-core bound and,
+              cuBLAS addmm: context), K1 beside its f32 CUDA-core bound, K4
+              on the head's bf16 serving copy beside torch.addmm +
+              torch.argmax (two library calls, its library_ms) and,
               for K6/K8, the library's fused attention
               (examples/torch_kernel_yardsticks.py; both sides timed queued
               behind a spin kernel, with executed TFLOP/s too);
@@ -88,12 +96,13 @@ non-zero and prints no result line):
               replaces (K9, cuBLAS bf16 products, the bf16 tied logits);
 10. probes  - main path 6, the A/B probes of examples/: P4 (W8A8 LN + MLP +
               residual on the int8 tensor cores), P1 (bf16x3 log-mel) and P2
-              (head + argmax over 512-column chunks) against their plain
+              (head + argmax carried over 512-column chunks) against their plain
               versions at the flagship's shapes (P4 at B=32, T'=750 within
               ULP_BAR; P1 at 32 x 30 s within LOGMEL_BAR on the normalized
               surface; P2 at B=32, T'=750, V=4336: ids equal to K4's
               everywhere, to the plain version's under the margin rule, ties
-              to the first index); then each profiler's main() at B=32
+              at K4's positions to the first index, two launches bitwise
+              equal); then each profiler's main() at B=32
               (examples/torch_profile_w8a8_mlp.py, _frontend_precision.py,
               _head_kernel.py: each runs its probe beside its partner, K3,
               K1 or K4, and reports the A/B difference and both times), and
@@ -327,8 +336,9 @@ def phase_device():
 
 
 # kernels that must build without spills (ptxas's report): K2's attention
-# core at both head widths and K1
-NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128", "log_mel_tf32_kernel")
+# core at both head widths, K1, and K4's two launches and P2
+NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128", "log_mel_tf32_kernel",
+            "head_tile_argmax_kernel", "head_merge_kernel", "head_chunk_carry_kernel")
 
 
 def phase_build():
@@ -380,12 +390,90 @@ def _attn_args(rng, B, T, d, lens, dev):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
+# K4 and P2: exact duplicate columns under a dominant bias tie on every
+# frame: inside a 128-column tile, across a tile boundary, across P2's
+# 512-column chunk boundary, far apart, inside the ragged last tile of V 4336
+HEAD_TIES = ((130, 250), (127, 128), (511, 512), (7, 4000), (4330, 4335))
+
+
+def head_ids_check(fn, key, x, w, b, **info):
+    """fn's ids against the plain argmax on every frame whose plain top-2
+    margin clears ARGMAX_MARGIN (at least MIN_COVERAGE of them) -> the
+    largest id difference there (0) and the ids."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_head
+
+    got = fn(x, w, b)
+    logits = fused_head.head_logits(x, w, b)
+    want = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    clear = margins(logits) > ARGMAX_MARGIN
+    coverage = float(clear.float().mean())
+    mismatch = int(((got != want) & clear).sum())
+    emit({"phase": "kernels", "kernel": key, **info, "coverage": coverage,
+          "mismatched_frames": mismatch, "margin": ARGMAX_MARGIN,
+          "agree_all_frames": float((got == want).float().mean())})
+    check(coverage >= MIN_COVERAGE and mismatch == 0,
+          f"{key} {info}: ids disagree with the plain argmax")
+    return float((got - want).abs()[clear].max()), got
+
+
+def head_ties_check(fn, key, x, w, b):
+    """every frame ties between two equal columns: fn must answer the first"""
+    for first, second in HEAD_TIES:
+        wt, bt = w.clone(), b.clone()
+        wt[:, second] = wt[:, first]
+        bt[first] = bt[second] = 100.0
+        ids = fn(x, wt, bt)
+        check(bool((ids == first).all()), f"{key} tie {first}/{second}: not the first index")
+    emit({"phase": "kernels", "kernel": key, "ties": [list(t) for t in HEAD_TIES],
+          "first_index_wins": True})
+
+
+def check_head():
+    """K4 at the timed B=32, T'=750, d 512, V 4336 from an f32 kernel and
+    from its padded bf16 serving copy (two launches bitwise equal, timed
+    against the plain version), the forced ties, a ragged row count, d 256
+    and 1024, and V below a tile (with a 64-column half of the tile wholly
+    past V) -> the largest id difference on the frames compared."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_head
+
+    randn = _card_randn(3)
+    B, T, d, V = 32, 750, 512, 4336
+    x = randn(B, T, d).to(torch.bfloat16)
+    w, b = randn(d, V, s=d ** -0.5), randn(V, s=0.1)
+    err, got = head_ids_check(fused_head.fused_head_argmax, "K4", x, w, b, B=B, T=T, d=d, V=V)
+    w16 = fused_head.serving_kernel(w)
+    again = fused_head.fused_head_argmax(x, w16, b)
+    repeat = fused_head.fused_head_argmax(x, w16, b)
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "kernel": "K4", "B": B, "T": T, "d": d, "V": V,
+          "serving_copy_equal": bool(torch.equal(got, again)),
+          "bitwise_repeat": bool(torch.equal(again, repeat)),
+          "ms": cuda_ms(lambda: fused_head.fused_head_argmax(x, w16, b), 20),
+          "plain_ms": cuda_ms(lambda: fused_head.head_argmax_plain(x, w16, b), 5)})
+    check(torch.equal(got, again), "K4: the serving copy gives other ids than the f32 kernel")
+    check(torch.equal(again, repeat), "K4: two launches differ")
+    head_ties_check(fused_head.fused_head_argmax, "K4", x[:4], w, b)
+    for Bk, Tk, dk, Vk in ((3, 37, 512, V), (4, 750, 256, V), (4, 750, 1024, V),
+                           (4, 750, 512, 100), (4, 750, 512, 40)):
+        xk = randn(Bk, Tk, dk).to(torch.bfloat16)
+        wk, bk = randn(dk, Vk, s=dk ** -0.5), randn(Vk, s=0.1)
+        e, _ = head_ids_check(fused_head.fused_head_argmax, "K4", xk, wk, bk,
+                              B=Bk, T=Tk, d=dk, V=Vk)
+        err = max(err, e)
+    return err
+
+
 def phase_kernels():
     """Each kernel against its plain version at main-path shapes."""
     import torch
 
     from jiao_liao_speech_recognition_torch.frontend import features, fused_frontend
-    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_head, fused_mlp
+    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_mlp
     from jiao_liao_speech_recognition_torch.utils.config import FrontendConfig
 
     dev = torch.device("cuda")
@@ -463,30 +551,7 @@ def phase_kernels():
         check(torch.equal(got, again), f"K3 (d={dk}, {form}): two launches differ")
         errs["K3"] = max(errs.get("K3", 0.0), err)
 
-    # K4 at V=4336, then two forced ties (across and within a 128-column chunk)
-    V = 4336
-    x = torch.from_numpy(rng.randn(B, T, d).astype(np.float32)).to(dev, torch.bfloat16)
-    w = torch.from_numpy((rng.randn(d, V) / np.sqrt(d)).astype(np.float32)).to(dev)
-    b = torch.from_numpy((0.1 * rng.randn(V)).astype(np.float32)).to(dev)
-    got = fused_head.fused_head_argmax(x, w, b)
-    logits = fused_head.head_logits(x, w, b)
-    want = logits.argmax(-1).to(torch.int32)
-    torch.cuda.synchronize()
-    clear = margins(logits) > ARGMAX_MARGIN
-    coverage = float(clear.float().mean())
-    mismatch = int(((got != want) & clear).sum())
-    emit({"phase": "kernels", "kernel": "K4", "V": V, "coverage": coverage,
-          "mismatched_frames": mismatch, "margin": ARGMAX_MARGIN,
-          "agree_all_frames": float((got == want).float().mean())})
-    check(coverage >= MIN_COVERAGE and mismatch == 0, "K4 ids disagree with the plain argmax")
-    errs["K4"] = float((got - want).abs()[clear].max())  # ids: 0 when all agree
-    for first, second in ((7, 4000), (130, 250)):
-        wt, bt = w.clone(), b.clone()
-        wt[:, second] = wt[:, first]
-        bt[first] = bt[second] = 100.0
-        ids = fused_head.fused_head_argmax(x, wt, bt)
-        check(bool((ids == first).all()), f"K4 tie {first}/{second}: not the first index")
-    emit({"phase": "kernels", "kernel": "K4", "ties": "first index wins"})
+    errs["K4"] = check_head()
     return errs
 
 
@@ -915,6 +980,10 @@ def phase_timing(bundle, adapted):
     mlp_args = (x, ln2.scale, ln2.bias, blk.mlp.fc1.kernel, blk.mlp.fc1.bias,
                 blk.mlp.fc2.kernel, blk.mlp.fc2.bias, 1e-5, blk.mlp.gelu_form)
     head = bundle.model.ctc_head
+    with torch.no_grad():  # K4's operand at serving: the head's kept bf16 copy
+        head_w = head.weight(torch.bfloat16)
+    check(head_w.dtype == torch.bfloat16 and head_w.shape[1] % 8 == 0,
+          "the CTC head serves no padded bf16 copy of its kernel")
     ablk = adapted.model.blocks[0]
     asa, aln1, aln2, amlp = ablk.self_attn, ablk.self_attn_ln, ablk.mlp_ln, ablk.mlp
     wf_scale = float(ablk.adapter.scale)
@@ -939,8 +1008,8 @@ def phase_timing(bundle, adapted):
                lambda: fused_attention.attention_sublayer_plain(*attn_args)),
         "K3": (lambda: fused_mlp.fused_ln_mlp_residual(*mlp_args),
                lambda: fused_mlp.ln_mlp_residual_plain(*mlp_args)),
-        "K4": (lambda: fused_head.fused_head_argmax(x, head.kernel, head.bias),
-               lambda: fused_head.head_argmax_plain(x, head.kernel, head.bias)),
+        "K4": (lambda: fused_head.fused_head_argmax(x, head_w, head.bias),
+               lambda: fused_head.head_argmax_plain(x, head_w, head.bias)),
         "K6": (lambda: fl.flash_forward(q, k, v, kl),
                lambda: fl.flash_forward_plain(q, k, v, kl)),
         "K8": (lambda: fl.flash_backward(q, k, v, kl, out, lse, dout),
@@ -956,7 +1025,12 @@ def phase_timing(bundle, adapted):
     }
     yard = _yardsticks()
     lib_fwd, lib_bwd = yard.sdpa_ms(q, k, v, kl, dout)
-    library = {"K6": lib_fwd, "K8": lib_bwd}
+    # K4's: two library calls (cuBLAS's bf16 logits, then their argmax),
+    # timed as K4 is
+    x2, b16 = x.reshape(-1, x.shape[2]), head.bias.detach().to(torch.bfloat16)
+    with torch.inference_mode():
+        lib_head = cuda_ms(lambda: yard.addmm_argmax(x2, head_w, b16), 20)
+    library = {"K6": lib_fwd, "K8": lib_bwd, "K4": lib_head}
 
     # the least time for each function on these inputs (see bound())
     d, mlp, V, n_fft, M = 512, blk.mlp.fc1.kernel.shape[1], head.kernel.shape[1], 400, 80
@@ -986,7 +1060,7 @@ def phase_timing(bundle, adapted):
         "K2": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
         "K2-8x64": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
         "K3": (mlp_bytes, {"bf16": 4.0 * B * T * d * mlp}),
-        "K4": (act + d * V * 4 + V * 4 + B * T * 4, {"bf16": 2.0 * B * T * d * V}),
+        "K4": (act + d * V * 2 + V * 4 + B * T * 4, {"bf16": 2.0 * B * T * d * V}),
         "K6": (4 * qkv + Bf * Hf * Tf * 4 + Bf * 4, {"bf16": 4.0 * Hf * dhf * pairs_f}),
         "K8": (8 * qkv + Bf * Hf * Tf * 4 + Bf * 4, {"bf16": 10.0 * Hf * dhf * pairs_f}),
         "K7-attn": (attn_bytes + insert_bytes(inserts.values()),
@@ -1025,6 +1099,8 @@ def phase_timing(bundle, adapted):
                 rate["bound_ms_f32_route"] = k1_f32_bound
             if key == "K2":
                 rate.update(k2_launches(attn_args, yard))
+            if key == "K4":
+                rate["library_calls"] = "torch.addmm (bf16 logits) + torch.argmax: two calls"
             emit({"phase": "timing", "kernel": key, "shape": shapes.get(key, "B=32, T'=750"),
                   **rec[key], **rate, "turns_ms": [p1, k1, k2, p2]})
     return rec
@@ -1901,28 +1977,15 @@ def phase_probe_kernels():
         B, T, d, V = 32, 750, 512, 4336
         x = randn(B, T, d).to(torch.bfloat16)
         w, b = randn(d, V, s=d ** -0.5), randn(V, s=0.1)
-        got = probes.head_argmax_chunked(x, w, b)
-        k4 = fused_head.fused_head_argmax(x, w, b)
-        logits = fused_head.head_logits(x, w, b)
-        want = logits.argmax(-1).to(torch.int32)
-        torch.cuda.synchronize()
-        clear = margins(logits) > ARGMAX_MARGIN
-        coverage = float(clear.float().mean())
-        mismatch = int(((got != want) & clear).sum())
-        k4_mismatch = int((got != k4).sum())
-        emit({"phase": "kernels", "kernel": "P2", "V": V, "coverage": coverage,
-              "mismatched_frames": mismatch, "margin": ARGMAX_MARGIN,
-              "frames_differing_from_K4": k4_mismatch})
+        errs["P2"], got = head_ids_check(probes.head_argmax_chunked, "P2", x, w, b,
+                                         B=B, T=T, d=d, V=V)
+        k4_mismatch = int((got != fused_head.fused_head_argmax(x, w, b)).sum())
+        repeat = bool(torch.equal(got, probes.head_argmax_chunked(x, w, b)))
+        emit({"phase": "kernels", "kernel": "P2", "frames_differing_from_K4": k4_mismatch,
+              "bitwise_repeat": repeat})
         check(k4_mismatch == 0, f"P2 ids differ from K4's on {k4_mismatch} frames")
-        check(coverage >= MIN_COVERAGE and mismatch == 0, "P2 ids disagree with the plain argmax")
-        errs["P2"] = float((got - want).abs()[clear].max())  # ids: 0 when all agree
-        for first, second in ((7, 4000), (130, 250)):  # across and inside a 512-column chunk
-            wt, bt = w.clone(), b.clone()
-            wt[:, second] = wt[:, first]
-            bt[first] = bt[second] = 100.0
-            ids = probes.head_argmax_chunked(x, wt, bt)
-            check(bool((ids == first).all()), f"P2 tie {first}/{second}: not the first index")
-        emit({"phase": "kernels", "kernel": "P2", "ties": "first index wins"})
+        check(repeat, "P2: two launches differ")
+        head_ties_check(probes.head_argmax_chunked, "P2", x[:4], w, b)
     return errs
 
 

@@ -15,14 +15,17 @@ as context for the A/B probes at the flagship's 32 x 750 rows:
 the library's two int8 products of P4's MLP (``torch._int_mm``) and the
 head product + argmax of K4 and P2 (``torch.addmm`` then ``torch.argmax``),
 device time. Each of those is two calls, not one call of the kernel's
-function, so it is context and not ``library_ms``. ``sdpa_forward_ms`` is
+function: the int8 pair is context, and ``chip_smoke.py`` takes the head's
+pair (``addmm_argmax``, timed as K4 is) as K4's ``library_ms``, marked as
+two calls. ``sdpa_forward_ms`` is
 the masked forward alone, context beside K2's attention core.
 ``qkv_products_ms`` and ``mlp_products_ms`` time cuBLAS's products alone
 (``torch.addmm``) on a
 precomputed LN(x), the context ``chip_smoke.py`` prints beside K5 and K3c,
 whose function no one library call computes. The port never calls a
 library kernel: ``chip_smoke.py`` reads ``sdpa_ms`` for the ``library_ms``
-of K6 and K8, and prints the probe context. Needs a CUDA device.
+of K6 and K8, ``addmm_argmax`` for K4's, and prints the probe context.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -122,13 +125,18 @@ def int_mm_pair_ms(a_codes, w1q, h_codes, w2q, iters: int = 20) -> float:
     return device_ms(lambda: (torch._int_mm(a_codes, w1q), torch._int_mm(h_codes, w2q)), iters)
 
 
+def addmm_argmax(x2, w, bias):
+    """cuBLAS's head product with its bias (``torch.addmm``, the bf16 [rows,
+    V] logits written out) and ``torch.argmax`` over them: the function of
+    K4 and P2 in two library calls (x2 [rows, d], w [d, V], bias [V], bf16)."""
+    return torch.argmax(torch.addmm(bias, x2, w), dim=-1)
+
+
 def addmm_argmax_ms(x2, w, bias, iters: int = 20) -> float:
-    """-> device ms of cuBLAS's head product with its bias (``torch.addmm``,
-    the bf16 [rows, V] logits written out) and ``torch.argmax`` over them:
-    the function of K4 and P2 in two library calls."""
+    """-> device ms of ``addmm_argmax``."""
     from jiao_liao_speech_recognition_torch.utils.timing import device_ms
 
-    return device_ms(lambda: torch.argmax(torch.addmm(bias, x2, w), dim=-1), iters)
+    return device_ms(lambda: addmm_argmax(x2, w, bias), iters)
 
 
 def qkv_products_ms(ln2, w_qkv, b_qkv, iters: int = 20) -> float:

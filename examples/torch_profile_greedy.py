@@ -6,8 +6,9 @@ Runs the kernel path (K1 log-mel -> encoder with K2/K3 per block -> K4 head
 + argmax -> collapse) of the full-width flagship (random init, seed 0) on
 B x 30 s of noise under torch.profiler, after warming two distinct input
 buffers. Prints the wall clock, the device busy time and idle share, and
-device milliseconds per batch by kernel name, each of the port's kernels
-labelled with the launch it is (K2's four, K3's three, K1, K4). The labels
+device milliseconds per batch by kernel name (the 25 largest, then every
+other launch of the port's kernels), each of the port's kernels labelled
+with the launch it is (K2's four, K3's three, K1, K4's two). The labels
 come from the kernels' names and template tags (csrc/ln_gemm.cu's
 ``gemm_kernel<EPILOGUE, ENTRY>`` and ``ln_rows_kernel<ENTRY>``): profiler
 ranges around launches would be counted as device time too. Needs a CUDA
@@ -44,7 +45,8 @@ LAUNCHES = {
     "gemm_kernel<1, 0>": "K3 2/3 fc1 + tanh GELU",
     "gemm_kernel<2, 0>": "K3 2/3 fc1 + erf GELU",
     "gemm_kernel<3, 0>": "K3 3/3 fc2 + bias + x",
-    "head_argmax_kernel": "K4",
+    "head_tile_argmax_kernel": "K4 1/2 head GEMM + argmax epilogue",
+    "head_merge_kernel": "K4 2/2 merge of the tiles",
 }
 
 
@@ -101,7 +103,9 @@ def main() -> None:
         "wall_s": wall, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
     }))
-    for us, count, key in rows[:25]:
+    # the 25 largest rows, then any of the port's launches below them
+    shown = rows[:25] + [r for r in rows[25:] if launch_label(r[2])]
+    for us, count, key in shown:
         print(f"{us / 1e3 / args.iters:9.3f} ms/batch  x{count // args.iters:4d}  "
               f"{launch_label(key):34s} {key[:70]}")
 

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""A/B probe on one NVIDIA GPU: the head + argmax kernel over 512-column
-vocabulary chunks (P2, the TPU kernel's runtime chunk loop) against the
-shipped one over 128-column chunks (K4); the port's twin of
-examples/profile_head_kernel.py.
+"""A/B probe on one NVIDIA GPU: the head + argmax kernel that carries each
+row's running (max, argmax) inside its block over 512-column vocabulary
+chunks (P2, the TPU kernel's runtime chunk loop) against the shipped,
+tile-parallel one that writes each 128-column tile's (max, first column)
+and merges the tiles in a second launch (K4); the port's twin of
+examples/profile_head_kernel.py. Both run the same TMA + wgmma mainloop
+(csrc/head.cu), so the A/B asks one question: carry the argmax in 188
+blocks of 128 rows, or merge per-tile partials of 6,392 blocks (at B=32).
 
     python3 examples/torch_profile_head_kernel.py [--batch 128] [--frames 750] [--vocab 4336]
 
@@ -66,8 +70,8 @@ def main(argv=None) -> dict:
               "frames": args.frames, "vocab": args.vocab, "id_mismatches": mismatches,
               "frames_compared": a.numel(), "k4_ms": t_k4, "p2_ms": t_p2}
     print(f"id mismatches K4 vs P2: {mismatches} / {a.numel()}")
-    print(f"K4 (128-column chunks) : {t_k4:8.3f} ms/call")
-    print(f"P2 (512-column chunks) : {t_p2:8.3f} ms/call  (K4 is {t_p2 / t_k4:.2f}x faster)")
+    print(f"K4 (tile-parallel, merged)  : {t_k4:8.3f} ms/call")
+    print(f"P2 (carried in the block)   : {t_p2:8.3f} ms/call  (P2 / K4 = {t_p2 / t_k4:.2f})")
     print(json.dumps(report), flush=True)
     return report
 

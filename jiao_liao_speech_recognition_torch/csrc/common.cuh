@@ -1,10 +1,10 @@
 // Helpers shared by the port's hand-written Hopper kernels.
 //
-// The WMMA kernels (head.cu, log_mel.cu's P1) take bf16 16x16x16 tiles
-// with f32 accumulation (mma.sync on sm_90a): activations staged in shared
-// memory, weight fragments read straight from device memory (hot in L2).
-// The TMA + wgmma kernels (ln_gemm.cu, flash_attention.cu,
-// log_mel_tf32.cu) build on wgmma_gemm.cuh.
+// The WMMA kernel (log_mel.cu's P1) takes bf16 16x16x16 tiles with f32
+// accumulation (mma.sync on sm_90a): activations staged in shared memory,
+// weight fragments read straight from device memory (hot in L2). The TMA +
+// wgmma kernels (ln_gemm.cu, head.cu, flash_attention.cu, log_mel_tf32.cu)
+// build on wgmma_gemm.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,23 +55,6 @@ __device__ inline float gelu_erf(float h) {
   const float erf_ax = 1.0f - poly * expf(-ax * ax);
   const float sign = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
   return 0.5f * h * (1.0f + sign * erf_ax);
-}
-
-// copy rows [row0, row0 + rows) x cols [col0, col0 + width) of a row-major
-// bf16 matrix (row stride ld) into a shared tile dst[rows][width + kPad];
-// rows at or past `valid` are zero-filled. width % 8 == 0, 16-byte aligned.
-__device__ inline void load_tile_bf16(const bf16* __restrict__ src, int ld, int row0,
-                                      int rows, int valid, int col0, int width,
-                                      bf16* dst) {
-  const int vecs = width / 8;
-  const int ldd = width + kPad;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs, v = i % vecs;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < valid)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col0 + v * 8);
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + v * 8) = val;
-  }
 }
 
 }  // namespace jl

@@ -1,213 +1,250 @@
-// K4: fused CTC head + argmax, ids[r] = argmax_v (x[r] . W[:, v] + b[v]).
+// K4: fused CTC head + argmax, ids[r] = argmax_v (x[r] . W[:, v] + b[v]),
+// and P2, the same function with the argmax carried in the block.
 //
 // Replaces ops/fused_head.py::fused_head_argmax (_head_argmax_kernel) of
-// the JAX package.
+// the JAX package (K4) and examples/profile_head_kernel.py::_kernel_fori,
+// its A/B probe with a runtime loop over 512-column vocabulary chunks (P2).
 //
-// What bounds it on the H100: tensor-core work of the head product
-// (2 * rows * d * V flops, 107 GFLOP at 32 x 30 s with V = 4336). Unfused,
-// the [rows, V] f32 logits (416 MB at that size) would be written and read
-// back by a separate argmax; here only ids [rows] int32 leave the kernel.
+// What bounds it on the H100: the head product on the tensor cores
+// (2 * rows * d * V flops: 106.6 GFLOP, 0.108 ms at 989 TFLOP/s, for 32 x
+// 750 rows, d 512, V 4336). Its bytes are small beside that (x 24.6 MB,
+// W 4.4 MB, ids 0.1 MB). Unfused, the [rows, V] f32 logits (416 MB at that
+// size) would be written and read back by a separate argmax; here they
+// never leave registers.
 //
-// Design: one block per 64-row tile with the bf16 rows in shared memory;
-// the vocabulary is walked in 128-column chunks. A chunk's logits (f32
-// accumulation, + f32 bias) go to shared memory, where 4 threads per row
-// take the chunk's (max, first index); a running (max, argmax) per row is
-// updated only on a strictly greater max, so ties keep the earliest index,
-// as jnp.argmax does. Columns at or past V are skipped, so the ragged last
-// chunk needs no padding columns.
+// Design: the TMA + wgmma mainloop of wgmma_gemm.cuh, as csrc/ln_gemm.cu
+// runs it: 128 x 128 output tiles, a producer warp feeding three TMA stages
+// (128-byte swizzle), two consumer warpgroups on wgmma m64n128k16, W read
+// N-major through the descriptor (no transposed copy). Ragged edges come
+// from the tensor maps, not padding: W's map has V as its column extent
+// and x's has d and M, so the columns past V, the k past d (the last box of
+// a d that is not a multiple of 64) and the rows past M load as zeros.
+// Columns at or past V are masked in the epilogue and rows past M never
+// written. W's rows must be 16-byte multiples (V padded to a multiple of 8
+// once, in the serving copy).
 //
-// P2, jl_head_argmax_chunked below: the same function with the 512-column
-// vocabulary chunks of the TPU kernel, the A/B probe of
-// examples/profile_head_kernel.py (_kernel_fori under its pallas_call, the
-// runtime chunk loop). Its note is above its kernel.
+// Epilogue, in registers: a consumer thread holds 2 rows x 32 columns of
+// the tile (wg::acc_row / acc_col). It adds b[col] in f32 to the f32 sum
+// and scans its columns in ascending order, keeping a row's value only when
+// it is strictly greater; the four threads of a quad (one row) then merge
+// by shuffles, the larger value winning and, on equal values, the lower
+// column. So each tile yields its rows' (max, first column of the max).
+//
+//  * K4, tile-parallel (head_tile_argmax_kernel + head_merge_kernel): one
+//    block a tile, grid (ceil(V / 128), ceil(rows / 128)), two blocks an
+//    SM (34 x 188 = 6,392 tiles at the flagship's size, ~24 waves). Each
+//    tile writes its rows' (max, column) to a [ceil(V / 128), rows]
+//    partials scratch (6.5 MB there); a second launch scans each row's
+//    tiles in ascending order with strict greater, from (-inf, 0). No
+//    atomics: two launches give the same bits.
+//  * P2, in-block carry (head_chunk_carry_kernel): one block a 128-row
+//    tile walks the vocabulary in 512-column chunks (the JAX probe's
+//    V_CHUNK), each four 128-column tiles on the same mainloop with the
+//    pipeline's k-block count running on across them. A chunk's (max, first
+//    column) merges into the row's running pair only on a strictly greater
+//    max. One launch, no scratch; 188 blocks at the flagship's size.
+// Both form every logit the same way (the same k-blocks in the same order,
+// from zero, then + b in f32), so P2's ids equal K4's on every row, and ties
+// go to the first index, as jnp.argmax and the JAX kernels' strict
+// per-chunk update give.
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace jl;
 
-constexpr int BM = 64;
-constexpr int BN = 128;
+constexpr int kBN = wg::kBN;
+constexpr int kStages = 3;
+constexpr int kBlocksPerSM = 2;
+constexpr int kChunk = 512;  // P2's vocabulary chunk: four tiles
+constexpr int kMergeThreads = 256;
+constexpr int kNoColumn = 0x7fffffff;
 
-// x [M, d] bf16, w [d, ldw] bf16 (columns >= V unread or ignored),
-// b [V] f32 -> ids [M] i32
-__global__ void __launch_bounds__(kThreads)
-head_argmax_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const float* __restrict__ b, int* __restrict__ ids, int M, int d, int V,
-                   int ldw) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = d + kPad, ldc = BN + 4;
-  bf16* a = reinterpret_cast<bf16*>(smem);
-  float* c = reinterpret_cast<float*>(smem + align128((size_t)BM * lda * 2));
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int row = threadIdx.x / 4, part = threadIdx.x % 4;
-
-  load_tile_bf16(x, d, row0, BM, M, 0, d, a);
-  __syncthreads();
-
-  float best = -INFINITY;
-  int best_i = 0;
-  for (int v0 = 0; v0 < V; v0 += BN) {
-    FragC acc[2][2];
+// Fold this thread's columns of one tile (n0 .. n0 + 127) into its rows'
+// (max, first column): acc holds the warpgroup's 64 x 128 product, bias b
+// [V] f32; q = tid % 4. Columns are visited in ascending order; only a
+// strictly greater value replaces the kept one.
+__device__ __forceinline__ void scan_tile(const float (&acc)[64], const float* __restrict__ b,
+                                          int n0, int V, int q, float (&m)[2], int (&mi)[2]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    for (int k = 0; k < d; k += 16) {
-      FragA fa[2];
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + 8 * j + 2 * q + e;  // wg::acc_col of acc[4j + 2h + e]
+      if (col < V) {
+        const float bv = __ldg(b + col);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (size_t)(wm * 32 + i * 16) * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = v0 + wn * 32 + j * 16;
-        if (col >= ldw) continue;  // warp-uniform: fragment wholly past the weights
-        FragB fb;
-        wmma::load_matrix_sync(fb, w + (size_t)k * ldw + col, ldw);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+        for (int h = 0; h < 2; ++h) {  // row half: wg::acc_row's + 8 * h
+          const float v = acc[4 * j + 2 * h + e] + bv;
+          if (v > m[h]) {
+            m[h] = v;
+            mi[h] = col;
+          }
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(c + (size_t)(wm * 32 + i * 16) * ldc + wn * 32 + j * 16,
-                                acc[i][j], ldc, wmma::mem_row_major);
-    __syncthreads();
-    // chunk (max, first index) over this thread's 32 columns, ascending
-    float m = -INFINITY;
-    int mi = 0x7fffffff;
-    for (int cc = 0; cc < 32; ++cc) {
-      const int col = v0 + part * 32 + cc;
-      if (col >= V) break;
-      const float val = c[row * ldc + part * 32 + cc] + b[col];
-      if (val > m) { m = val; mi = col; }
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, m, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, mi, o);
-      if (om > m || (om == m && oi < mi)) { m = om; mi = oi; }
-    }
-    if (m > best) { best = m; best_i = mi; }
-    __syncthreads();  // c is rewritten by the next chunk
-  }
-  if (part == 0 && row0 + row < M) ids[row0 + row] = best_i;
 }
 
-// P2: head + argmax over 512-column vocabulary chunks.
-//
-// Replaces examples/profile_head_kernel.py::_kernel_fori, K4's A/B partner
-// (the superseded runtime chunk loop of the TPU kernel). It computes K4's
-// function: argmax_v(x . W + b) into int32 ids.
-//
-// What bounds it on the H100: as K4, the head product on the tensor cores
-// (2 * rows * d * V flops; 0.108 ms at 32 x 750 rows, d 512, V 4336).
-//
-// Design: one block per 64-row tile, the bf16 rows in shared memory (66.5
-// KB at d 512) beside one chunk's [64][512] f32 logits (132 KB). A chunk's
-// 8 warps each hold 2 x 8 accumulator fragments (32 rows x 128 columns).
-// Every 16-column fragment is formed as K4 forms it: from zero, k16 steps in
-// ascending k, then + b[v] in the scan, so P2's logits are K4's bit for bit
-// and its ids equal K4's exactly. Per chunk, 4 threads per row take the
-// chunk's (max, first index) over 128 columns each, merged by shuffles; the
-// running (max, argmax) of the row changes only on a strictly greater max,
-// so ties keep the earliest index. The TPU probe pads W with zero columns
-// and b with -1e30 to whole chunks; here columns at or past V are skipped,
-// which gives the same ids unless every logit of a row is below -1e30.
-constexpr int BN2 = 512;
+// the quad's four (max, column) of one row -> the larger, the lower column
+// on equal values (the same pair in all four threads)
+__device__ __forceinline__ void quad_merge(float& m, int& mi) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, mi, o);
+    if (om > m || (om == m && oi < mi)) {
+      m = om;
+      mi = oi;
+    }
+  }
+}
 
-// x [M, d] bf16, w [d, ldw] bf16 (columns >= V ignored), b [V] f32 -> ids [M] i32
-__global__ void __launch_bounds__(kThreads)
-head_argmax_chunked_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                           const float* __restrict__ b, int* __restrict__ ids, int M, int d,
-                           int V, int ldw) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = d + kPad, ldc = BN2 + 4;
-  bf16* a = reinterpret_cast<bf16*>(smem);
-  float* c = reinterpret_cast<float*>(smem + align128((size_t)BM * lda * 2));
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;  // 32 rows x 128 columns of the chunk
-  const int row = threadIdx.x / 4, part = threadIdx.x % 4;
-  constexpr int NJ = BN2 / 4 / 16;  // column fragments per warp
-
-  load_tile_bf16(x, d, row0, BM, M, 0, d, a);
+// K4 launch 1: tile (blockIdx.x, blockIdx.y) -> partials[blockIdx.x][row] =
+// (max bits, first column) of its rows. x [M, d] and w [d, V] bf16 through
+// tx / tw; b [V] f32.
+__global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM)
+head_tile_argmax_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw, const float* __restrict__ b,
+                        int2* __restrict__ partials, int M, int V, int kblocks) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const wg::Pipeline<kStages> pipe(smem_raw);
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * wg::kBM;
+  if (threadIdx.x == 0) pipe.init();
   __syncthreads();
 
+  if (threadIdx.x >= wg::kConsumerThreads) {  // the producer warp
+    if (threadIdx.x == wg::kConsumerThreads) pipe.produce(&tx, &tw, m0, n0, kblocks);
+    return;
+  }
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+  float acc[kBN / 2];
+  pipe.consume(acc, wgi, kblocks);
+  float m[2] = {-INFINITY, -INFINITY};
+  int mi[2] = {kNoColumn, kNoColumn};
+  scan_tile(acc, b, n0, V, tid % 4, m, mi);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    quad_merge(m[h], mi[h]);
+    const int row = m0 + wgi * 64 + wg::acc_row(tid, 2 * h);
+    if (tid % 4 == 0 && row < M)
+      partials[(size_t)blockIdx.x * M + row] = make_int2(__float_as_int(m[h]), mi[h]);
+  }
+}
+
+// K4 launch 2: ids[row] = the column of the first strictly greatest of the
+// row's tiles, scanned in ascending order from (-inf, 0)
+__global__ void __launch_bounds__(kMergeThreads)
+head_merge_kernel(const int2* __restrict__ partials, int* __restrict__ ids, int M, int tiles) {
+  const int row = blockIdx.x * kMergeThreads + threadIdx.x;
+  if (row >= M) return;
   float best = -INFINITY;
   int best_i = 0;
-  for (int v0 = 0; v0 < V; v0 += BN2) {
-    FragC acc[2][NJ];
+  for (int t = 0; t < tiles; ++t) {
+    const int2 p = partials[(size_t)t * M + row];
+    if (__int_as_float(p.x) > best) {
+      best = __int_as_float(p.x);
+      best_i = p.y;
+    }
+  }
+  ids[row] = best_i;
+}
+
+// P2: block blockIdx.x owns rows m0 .. m0 + 127 and walks the vocabulary in
+// 512-column chunks of four tiles, carrying each row's (max, argmax) from
+// (-inf, 0), as the JAX probe's chunk loop does.
+__global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM)
+head_chunk_carry_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw, const float* __restrict__ b,
+                        int* __restrict__ ids, int M, int V, int kblocks) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const wg::Pipeline<kStages> pipe(smem_raw);
+  const int m0 = blockIdx.x * wg::kBM, tiles = ceil_div(V, kBN);
+  if (threadIdx.x == 0) pipe.init();
+  __syncthreads();
+
+  if (threadIdx.x >= wg::kConsumerThreads) {  // the producer warp: every tile in turn
+    if (threadIdx.x == wg::kConsumerThreads)
+      for (int t = 0; t < tiles; ++t) pipe.produce(&tx, &tw, m0, t * kBN, kblocks, t * kblocks);
+    return;
+  }
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+  float acc[kBN / 2];
+  float best[2] = {-INFINITY, -INFINITY};
+  int best_i[2] = {0, 0};
+  for (int c0 = 0; c0 < V; c0 += kChunk) {
+    float m[2] = {-INFINITY, -INFINITY};
+    int mi[2] = {kNoColumn, kNoColumn};
+    for (int n0 = c0; n0 < c0 + kChunk && n0 < V; n0 += kBN) {
+      const int base = (n0 / kBN) * kblocks;
+      pipe.consume(acc, wgi, kblocks, base);
+      pipe.release_last(kblocks, base);
+      scan_tile(acc, b, n0, V, tid % 4, m, mi);
+    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    for (int k = 0; k < d; k += 16) {
-      FragA fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (size_t)(wm * 32 + i * 16) * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = v0 + wn * (BN2 / 4) + j * 16;
-        if (col >= ldw) continue;  // warp-uniform: fragment wholly past the weights
-        FragB fb;
-        wmma::load_matrix_sync(fb, w + (size_t)k * ldw + col, ldw);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      quad_merge(m[h], mi[h]);
+      if (m[h] > best[h]) {  // strict: an earlier chunk keeps a tie
+        best[h] = m[h];
+        best_i[h] = mi[h];
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        wmma::store_matrix_sync(c + (size_t)(wm * 32 + i * 16) * ldc + wn * (BN2 / 4) + j * 16,
-                                acc[i][j], ldc, wmma::mem_row_major);
-    __syncthreads();
-    // chunk (max, first index) over this thread's 128 columns, ascending
-    float m = -INFINITY;
-    int mi = 0x7fffffff;
-    for (int cc = 0; cc < BN2 / 4; ++cc) {
-      const int col = v0 + part * (BN2 / 4) + cc;
-      if (col >= V) break;
-      const float val = c[row * ldc + part * (BN2 / 4) + cc] + b[col];
-      if (val > m) { m = val; mi = col; }
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, m, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, mi, o);
-      if (om > m || (om == m && oi < mi)) { m = om; mi = oi; }
-    }
-    if (m > best) { best = m; best_i = mi; }
-    __syncthreads();  // c is rewritten by the next chunk
   }
-  if (part == 0 && row0 + row < M) ids[row0 + row] = best_i;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + wgi * 64 + wg::acc_row(tid, 2 * h);
+    if (tid % 4 == 0 && row < M) ids[row] = best_i[h];
+  }
+}
+
+// the tensor maps of x [M, d] (64 x 128 boxes) and w [d, V] with row pitch
+// ldw (64 x 64 boxes), or false if the operands do not suit them
+bool head_maps(CUtensorMap* tx, CUtensorMap* tw, const bf16* x, const bf16* w, int M, int d,
+               int V, int ldw) {
+  if (M <= 0 || d <= 0 || d % 16 || V <= 0 || ldw < V || ldw % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return false;
+  return make_tmap_2d(tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, d, M, (uint64_t)d * sizeof(bf16),
+                      wg::kBK, wg::kBM, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         make_tmap_2d(tw, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, V, d,
+                      (uint64_t)ldw * sizeof(bf16), 64, wg::kBK, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
 
-extern "C" int jl_head_argmax(const bf16* x, const bf16* w, const float* b, int* ids, int M,
-                              int d, int V, int ldw, cudaStream_t stream) {
-  const size_t smem = align128((size_t)BM * (d + kPad) * 2) + (size_t)BM * (BN + 4) * 4;
-  cudaError_t err = cudaFuncSetAttribute(head_argmax_kernel,
+// K4: x [M, d] bf16, w [d, ldw] bf16 (columns >= V ignored), b [V] f32 ->
+// ids [M] int32, with partials [ceil(V / 128)][M] int2 as scratch. d % 16
+// == 0, ldw % 8 == 0, ldw >= V; x and w 16-byte aligned. Two launches.
+extern "C" int jl_head_argmax(const bf16* x, const bf16* w, const float* b, int2* partials,
+                              int* ids, int M, int d, int V, int ldw, cudaStream_t stream) {
+  CUtensorMap tx, tw;
+  if (!head_maps(&tx, &tw, x, w, M, d, V, ldw) || ceil_div(M, wg::kBM) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wg::smem_bytes(kStages);
+  cudaError_t err = cudaFuncSetAttribute(head_tile_argmax_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  head_argmax_kernel<<<ceil_div(M, BM), kThreads, smem, stream>>>(x, w, b, ids, M, d, V, ldw);
+  const int tiles = ceil_div(V, kBN);
+  const dim3 grid(tiles, ceil_div(M, wg::kBM));
+  head_tile_argmax_kernel<<<grid, wg::kThreads, smem, stream>>>(tx, tw, b, partials, M, V,
+                                                               ceil_div(d, wg::kBK));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  head_merge_kernel<<<ceil_div(M, kMergeThreads), kMergeThreads, 0, stream>>>(partials, ids, M,
+                                                                              tiles);
   return (int)cudaGetLastError();
 }
 
+// P2: the operands of jl_head_argmax without the scratch. One launch.
 extern "C" int jl_head_argmax_chunked(const bf16* x, const bf16* w, const float* b, int* ids,
                                       int M, int d, int V, int ldw, cudaStream_t stream) {
-  const size_t smem = align128((size_t)BM * (d + kPad) * 2) + (size_t)BM * (BN2 + 4) * 4;
-  cudaError_t err = cudaFuncSetAttribute(head_argmax_chunked_kernel,
+  CUtensorMap tx, tw;
+  if (!head_maps(&tx, &tw, x, w, M, d, V, ldw)) return (int)cudaErrorInvalidValue;
+  const size_t smem = wg::smem_bytes(kStages);
+  cudaError_t err = cudaFuncSetAttribute(head_chunk_carry_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  head_argmax_chunked_kernel<<<ceil_div(M, BM), kThreads, smem, stream>>>(x, w, b, ids, M, d, V,
-                                                                         ldw);
+  head_chunk_carry_kernel<<<ceil_div(M, wg::kBM), wg::kThreads, smem, stream>>>(
+      tx, tw, b, ids, M, V, ceil_div(d, wg::kBK));
   return (int)cudaGetLastError();
 }

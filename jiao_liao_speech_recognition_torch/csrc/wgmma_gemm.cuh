@@ -3,7 +3,8 @@
 // (K-major) and bf16 B [K, N] row-major (N-major, as the JAX Dense kernels
 // are stored: [in, out]). The caller owns the epilogue.
 //
-// A block runs one output tile with three roles:
+// A block runs one output tile (or, with a running k-block base, several in
+// turn: csrc/head.cu's P2) with three roles:
 //  * a producer warp (warp 8) that keeps STAGES k-blocks of 64 in flight:
 //    per stage one TMA box of A (128 rows x 64, 16 KB) and two of B (64 x 64
 //    each, 16 KB), all with the 128-byte swizzle, counted on the stage's
@@ -238,12 +239,15 @@ struct Pipeline {
   __device__ __forceinline__ uint8_t* b(int s) const { return a(s) + kABytes; }
 
   // producer, one thread: k-blocks 0 .. kblocks-1 of the tile at (m0, n0);
-  // ta maps A with 64 x 128 boxes, tb maps B with 64 x 64 boxes
+  // ta maps A with 64 x 128 boxes, tb maps B with 64 x 64 boxes. `base` is
+  // the number of k-blocks this block's pipeline has run before this tile
+  // (0 for a block's first tile), so the stages and their barrier phases run
+  // on across the tiles of a block that walks several.
   __device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap* tb,
-                                          int m0, int n0, int kblocks) const {
+                                          int m0, int n0, int kblocks, int base = 0) const {
     for (int kb = 0; kb < kblocks; ++kb) {
-      const int s = kb % STAGES;
-      if (kb >= STAGES) mbar_wait(&empty[s], ((kb / STAGES) - 1) & 1);
+      const int g = base + kb, s = g % STAGES;
+      if (g >= STAGES) mbar_wait(&empty[s], ((g / STAGES) - 1) & 1);
       mbar_arrive_expect_tx(&full[s], kStageBytes);
       tma_load_2d(a(s), ta, kb * kBK, m0, &full[s]);
       tma_load_2d(b(s), tb, n0, kb * kBK, &full[s]);
@@ -252,14 +256,18 @@ struct Pipeline {
   }
 
   // consumer warpgroup `wgi` (0 or 1): acc = its 64 rows of A . B over all
-  // k-blocks. Returns with every product complete.
-  __device__ __forceinline__ void consume(float (&acc)[64], int wgi, int kblocks) const {
+  // k-blocks of a tile (`base` as in produce). Returns with every product
+  // complete and every stage of the tile but its last released to the
+  // producer; a block that walks on to another tile releases that one too
+  // (release_last).
+  __device__ __forceinline__ void consume(float (&acc)[64], int wgi, int kblocks,
+                                          int base = 0) const {
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     const bool signals = threadIdx.x % 128 == 0;
     for (int kb = 0; kb < kblocks; ++kb) {
-      const int s = kb % STAGES;
-      mbar_wait(&full[s], (kb / STAGES) & 1);
+      const int g = base + kb, s = g % STAGES;
+      mbar_wait(&full[s], (g / STAGES) & 1);
       const uint32_t a0 = smem_u32(a(s)) + wgi * 64 * 128;
       const uint32_t b0 = smem_u32(b(s));
       wgmma_fence();
@@ -269,9 +277,14 @@ struct Pipeline {
                           desc_sw128(b0 + 2048 * j, kBSlabBytes, 1024));
       wgmma_commit();
       wgmma_wait<1>();  // the previous stage's products are done with it
-      if (kb > 0 && signals) mbar_arrive(&empty[(kb - 1) % STAGES]);
+      if (kb > 0 && signals) mbar_arrive(&empty[(g - 1) % STAGES]);
     }
     wgmma_wait<0>();
+  }
+
+  // consumer warpgroup, after consume: hands the tile's last stage back
+  __device__ __forceinline__ void release_last(int kblocks, int base) const {
+    if (threadIdx.x % 128 == 0) mbar_arrive(&empty[(base + kblocks - 1) % STAGES]);
   }
 };
 

@@ -117,6 +117,8 @@ class ModelBundle:
         model.to(device).eval()
         if config.model_family == "whisper" and config.whisper.dtype == "bfloat16":
             cast_for_serving(model, torch.bfloat16)
+        elif config.model_family == "ctc" and config.ctc_model.dtype == "bfloat16":
+            model.ctc_head.cast_for_serving(torch.bfloat16)  # K4's operand, made once
         return cls(config, model, tokenizer)
 
     @property

@@ -20,10 +20,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused_head import fused_head_argmax, head_argmax_plain, head_logits
+from ..ops.fused_head import fused_head_argmax, head_argmax_plain, head_logits, serving_kernel
 from ..ops.numerics import full_f32
 from ..utils.config import CTCModelConfig
-from .layers import Dropout, LayerNorm, TransformerBlock, lecun_normal_, sinusoidal_positions
+from .layers import (Dropout, LayerNorm, ServingCopy, TransformerBlock, lecun_normal_,
+                     sinusoidal_positions)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -66,7 +67,10 @@ class ConvSubsampler(nn.Module):
 
 
 class CTCHead(nn.Module):
-    """kernel [d, V], bias [V]: compute-dtype operands, f32 logits."""
+    """kernel [d, V], bias [V]: compute-dtype operands, f32 logits. Greedy
+    serving (``cast_for_serving``) keeps a copy of the kernel in the compute
+    dtype, its columns padded to K4's row pitch (``serving_kernel``); the f32
+    bias is read as it is."""
 
     def __init__(self, d_model: int, vocab_size: int, gen: torch.Generator):
         super().__init__()
@@ -74,6 +78,20 @@ class CTCHead(nn.Module):
             lecun_normal_(torch.empty(d_model, vocab_size), d_model, gen)
         )
         self.bias = nn.Parameter(torch.zeros(vocab_size))
+        self.serve_dtype = None  # set by cast_for_serving
+        self._serve = ServingCopy()
+
+    def cast_for_serving(self, dtype: torch.dtype) -> None:
+        self.serve_dtype = dtype
+        with torch.no_grad():
+            self.weight(dtype)
+
+    def weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel for `dtype` activations: the kept serving copy when
+        serving is in `dtype` and autograd is off, else the f32 parameter."""
+        if self.serve_dtype != dtype or torch.is_grad_enabled():
+            return self.kernel
+        return self._serve.get(dtype, (self.kernel,), lambda: serving_kernel(self.kernel, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return head_logits(x, self.kernel, self.bias)
@@ -81,9 +99,10 @@ class CTCHead(nn.Module):
     def argmax_ids(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         """Greedy ids [B, T] int32; K4 for bf16 activations, never storing
         the [B, T, V] logits on the card."""
+        kernel = self.weight(x.dtype)
         if kernels and x.dtype == torch.bfloat16:
-            return fused_head_argmax(x, self.kernel, self.bias)
-        return head_argmax_plain(x, self.kernel, self.bias)
+            return fused_head_argmax(x, kernel, self.bias)
+        return head_argmax_plain(x, kernel, self.bias)
 
 
 class CTCEncoderModel(nn.Module):

@@ -7,9 +7,10 @@ their plain versions.
 * P1, ``log_mel_bf16x3_raw``: K1's log-mel with the DFT as three bf16
   products, the kernel of ``examples/profile_frontend_precision.py``;
   ``jl_log_mel_bf16x3`` of ``csrc/log_mel.cu``.
-* P2, ``head_argmax_chunked``: K4's head + argmax over 512-column vocabulary
-  chunks, the kernel of ``examples/profile_head_kernel.py``;
-  ``jl_head_argmax_chunked`` of ``csrc/head.cu``.
+* P2, ``head_argmax_chunked``: K4's head + argmax with the running (max,
+  argmax) carried in the block over 512-column vocabulary chunks, the
+  kernel of ``examples/profile_head_kernel.py``; ``jl_head_argmax_chunked``
+  of ``csrc/head.cu``, on K4's mainloop (K4 merges per-tile partials).
 
 They are measurement tools: no model, bundle or api function calls this
 module. The port's profilers (``examples/torch_profile_w8a8_mlp.py``,
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from .._build import LaunchCounter, check_cuda, launch, refuse_grad
 from ..frontend.features import _dft_basis, mel_filterbank
-from .fused_head import head_argmax_plain, launch_head_argmax
+from .fused_head import head_argmax_plain, head_operands
 from .fused_mlp import gelu_f32
 from .numerics import full_f32
 
@@ -187,21 +188,21 @@ def log_mel_bf16x3_raw(wav, n_fft=400, hop=160, num_mels=80, log_floor=1e-10, ke
     return out
 
 
-# --- P2: head + argmax over 512-column chunks -------------------------------------
-
-
-# P2's block holds the [64, d + 8] bf16 row tile beside one chunk's [64, 516]
-# f32 logits (csrc/head.cu): d <= 768 fits the shared-memory limit
-CHUNKED_MAX_D = 768
+# --- P2: head + argmax, the argmax carried over 512-column chunks ----------------
 
 
 def head_argmax_chunked(x, kernel, bias, kernels=True):
     """P2 wrapper -> int32 ids [B, T]. P2 computes K4's function, so its
     plain version is K4's ``head_argmax_plain`` (ops/fused_head.py), which
     CPU tensors (or kernels=False) take; a CUDA tensor launches the kernel
-    (x bf16 [B, T, d], d % 16 == 0, d <= CHUNKED_MAX_D; kernel [d, V], bias
-    [V]) or raises."""
+    (one launch; the operands as K4's ``head_operands`` takes them) or
+    raises."""
     if x.device.type == "cpu" or not kernels:
         return head_argmax_plain(x, kernel, bias)
-    return launch_head_argmax("jl_head_argmax_chunked", CHUNKED_COUNTER, x, kernel, bias,
-                              CHUNKED_MAX_D)
+    w, b = head_operands("jl_head_argmax_chunked", x, kernel, bias)
+    B, T, d = x.shape
+    ids = torch.empty(B, T, device=x.device, dtype=torch.int32)
+    launch("jl_head_argmax_chunked", x.data_ptr(), w.data_ptr(), b.data_ptr(), ids.data_ptr(),
+           B * T, d, b.shape[0], w.shape[1])
+    CHUNKED_COUNTER.launches += 1
+    return ids

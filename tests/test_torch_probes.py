@@ -267,8 +267,10 @@ def _w8a8_call(d, mlp, gelu_form="tanh", fc2_in=None):
     lambda: probes.log_mel_bf16x3_raw(_meta(2, 16000), hop=100),  # hop % 8
     lambda: probes.log_mel_bf16x3_raw(_meta(2, 16000), n_fft=512),  # 257 freqs > 224
     lambda: probes.log_mel_bf16x3_raw(_meta(2, 150)),  # too short to reflect-pad
+    # d = 1024 is taken (k streams through the TMA ring); bf16 rows of 100
+    # columns are not 16-byte multiples, which the tensor map of W needs
     lambda: probes.head_argmax_chunked(_meta(1, 8, 1024, dtype=torch.bfloat16),
-                                       _meta(1024, 100), _meta(100)),  # over shared memory
+                                       _meta(1024, 100, dtype=torch.bfloat16), _meta(100)),
     lambda: probes.head_argmax_chunked(_meta(1, 8, 500, dtype=torch.bfloat16),
                                        _meta(500, 100), _meta(100)),  # d % 16
 ], ids=["p4-width", "p4-fc2-shape", "p4-d-over-mlp", "p4-gelu", "p1-hop", "p1-freqs", "p1-short",
