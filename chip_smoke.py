@@ -16,7 +16,9 @@ non-zero and prints no result line):
               and 128 mels, and B=32 x 30 s of noise; both also against an
               f64 log-mel, printed), K2 (4 heads of 128 and 8 of 64,
               lengths including 0 and 1, and the timed B=32 shape; launched
-              twice and bitwise equal), K3 (d 256, 512 and 1024, launched
+              twice and bitwise equal), K3's GELU table against gelu_tanh
+              and gelu_erf on all 65,536 bf16 inputs (no bit may differ),
+              K3 (d 256, 512 and 1024, launched
               twice and bitwise equal), K4 (B=32 x 750 at d 512, V 4336
               from an f32 kernel and from its padded bf16 serving copy,
               launched twice and bitwise equal, timed against plain; ties
@@ -47,10 +49,16 @@ non-zero and prints no result line):
               plain path; train steps/s at B=16 x 30 s (this config) and
               B=16 x 10 s (flagship defaults + WF rank 8) on both paths; each
               kernel alone against its plain version with its bound-counted
-              TFLOP/s (K2, K3 and K7 run on K5's and K3c's launches), K2's
-              launches apart (its core beside the library's masked fused
-              attention forward on the same q/k/v, its out-projection beside
-              cuBLAS addmm: context), K1 beside its f32 CUDA-core bound, K4
+              TFLOP/s (K2, K3 and K7 run on K5's and K3c's launches; K2
+              and K3 on the block's kept bf16 serving copies), the four
+              GEMM launches of a block apart (q/k/v, fc1 + GELU, fc2 +
+              residual, the out-projection; each queued beside cuBLAS
+              addmm with the bias on the same operands, with its bound,
+              bound-counted TFLOP/s and launches a batch), K2's core beside
+              the library's masked fused attention forward on the same
+              q/k/v (queued), the copy kernels a greedy batch launches
+              (the serving copies leave none of the weight casts), K1
+              beside its f32 CUDA-core bound, K4
               on the head's bf16 serving copy beside torch.addmm +
               torch.argmax (two library calls, its library_ms) and,
               for K6/K8, the library's fused attention
@@ -336,9 +344,14 @@ def phase_device():
 
 
 # kernels that must build without spills (ptxas's report): K2's attention
-# core at both head widths, K1, and K4's two launches and P2
-NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128", "log_mel_tf32_kernel",
-            "head_tile_argmax_kernel", "head_merge_kernel", "head_chunk_carry_kernel")
+# core at both head widths, every instance of csrc/ln_gemm.cu's persistent
+# GEMM (K5's and K2's q/k/v product, K3's fc1 with each GELU and fc2,
+# K2h-out, K2's out-projection), K1, and K4's two launches and P2
+NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128",
+            "gemm_kernelILi0ELi0E", "gemm_kernelILi1ELi0E", "gemm_kernelILi2ELi0E",
+            "gemm_kernelILi3ELi0E", "gemm_kernelILi3ELi1E", "gemm_kernelILi4ELi2E",
+            "log_mel_tf32_kernel", "head_tile_argmax_kernel", "head_merge_kernel",
+            "head_chunk_carry_kernel")
 
 
 def phase_build():
@@ -528,6 +541,18 @@ def phase_kernels():
             check(torch.equal(got, again), f"K2 (H={heads}, B={len(lens_k2)}): two launches differ")
             if heads == 4:
                 errs["K2"] = max(errs.get("K2", 0.0), err)
+
+    # K3's GELUs as fc1's epilogue takes them (a table of each form's bf16
+    # bits and exact rules outside it, csrc/common.cuh) against gelu_tanh and
+    # gelu_erf on every one of the 65,536 bf16 inputs: no bit may differ
+    values = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).to(dev)
+    gelu = fused_mlp.gelu_check(values.view(torch.bfloat16)).view(torch.int16)
+    torch.cuda.synchronize()
+    mism = {form: int((gelu[2 * i] != gelu[2 * i + 1]).sum())
+            for i, form in enumerate(("tanh", "erf"))}
+    emit({"phase": "kernels", "kernel": "K3 GELU", "inputs": 65536,
+          "mismatches_tanh": mism["tanh"], "mismatches_erf": mism["erf"]})
+    check(mism == {"tanh": 0, "erf": 0}, f"K3's GELU table differs from its forms: {mism}")
 
     # K3 at the widths its launches serve below 1280 (mlp 4d), both GELU
     # forms at the flagship's; two launches bitwise equal
@@ -979,6 +1004,12 @@ def phase_timing(bundle, adapted):
                  lens, sa.num_heads)
     mlp_args = (x, ln2.scale, ln2.bias, blk.mlp.fc1.kernel, blk.mlp.fc1.bias,
                 blk.mlp.fc2.kernel, blk.mlp.fc2.bias, 1e-5, blk.mlp.gelu_form)
+    with torch.inference_mode():  # K2's and K3's operands at serving: the kept bf16 copies
+        w_qkv, b_qkv = sa.qkv_weights(torch.bfloat16)
+        wo_b, bo_b = sa.out_proj.weights(torch.bfloat16)
+        mlp_w = (*blk.mlp.fc1.weights(torch.bfloat16), *blk.mlp.fc2.weights(torch.bfloat16))
+    attn_served = (x, ln1.scale, ln1.bias, w_qkv, b_qkv, wo_b, bo_b, lens, sa.num_heads)
+    mlp_served = (x, ln2.scale, ln2.bias, *mlp_w, 1e-5, blk.mlp.gelu_form)
     head = bundle.model.ctc_head
     with torch.no_grad():  # K4's operand at serving: the head's kept bf16 copy
         head_w = head.weight(torch.bfloat16)
@@ -1004,9 +1035,9 @@ def phase_timing(bundle, adapted):
     pairs = {
         "K1": (lambda: fused_frontend.fused_log_mel_raw(bufs[0]),
                lambda: fused_frontend.log_mel_raw_plain(bufs[0])),
-        "K2": (lambda: fused_attention.fused_attention_sublayer(*attn_args),
+        "K2": (lambda: fused_attention.fused_attention_sublayer_packed(*attn_served),
                lambda: fused_attention.attention_sublayer_plain(*attn_args)),
-        "K3": (lambda: fused_mlp.fused_ln_mlp_residual(*mlp_args),
+        "K3": (lambda: fused_mlp.fused_ln_mlp_residual(*mlp_served),
                lambda: fused_mlp.ln_mlp_residual_plain(*mlp_args)),
         "K4": (lambda: fused_head.fused_head_argmax(x, head_w, head.bias),
                lambda: fused_head.head_argmax_plain(x, head_w, head.bias)),
@@ -1098,46 +1129,117 @@ def phase_timing(bundle, adapted):
             if key == "K1":
                 rate["bound_ms_f32_route"] = k1_f32_bound
             if key == "K2":
-                rate.update(k2_launches(attn_args, yard))
+                core = core_launch(attn_args, yard)
+                rate.update(core)
             if key == "K4":
                 rate["library_calls"] = "torch.addmm (bf16 logits) + torch.argmax: two calls"
             emit({"phase": "timing", "kernel": key, "shape": shapes.get(key, "B=32, T'=750"),
                   **rec[key], **rate, "turns_ms": [p1, k1, k2, p2]})
+    gemm = gemm_launches(blk, x, lens, len(bundle.model.blocks))
+    rec["K2"]["launches_ms"] = {"q/k/v": gemm["q/k/v"]["ms"], "core": core["core_ms"],
+                                "out-projection": gemm["out-projection"]["ms"]}
+    rec["K3"]["launches_ms"] = {"fc1": gemm["fc1"]["ms"], "fc2": gemm["fc2"]["ms"]}
+    emit({"phase": "timing", "greedy_copy_launches_per_batch": copy_launches(
+        lambda: infer(bufs[0], True))})
     return rec
 
 
-def k2_launches(attn_args, yard):
-    """K2's launches timed apart on the timed inputs: LN + q/k/v (K5's two
-    kernels), the attention core (with its executed TFLOP/s, both passes'
-    products on padded tiles) beside the library's masked fused attention
-    forward on the same q, k, v (queued), and the out-projection beside
-    cuBLAS addmm with the bias. Context: no one library call computes K2."""
+def gemm_launches(blk, x, lens, blocks):
+    """The four GEMM launches of a greedy batch's block (csrc/ln_gemm.cu's
+    persistent GEMM, each instance alone through jl_gemm, on the block's
+    serving copies) at B=32, T'=750, each beside torch.addmm with the bias
+    on the same bf16 operands, both timed queued in turns (kernel, addmm,
+    kernel, addmm), with its bound (bytes: each operand read once, the
+    output written once; operations at the bf16 peak), its bound-counted
+    TFLOP/s and its launches a batch (one a block of `blocks`). addmm
+    computes the product and the bias only: fc2's and the out-projection's
+    residual read, and fc1's GELU, are the kernel's alone. One line each;
+    -> {launch: row}."""
     import torch
 
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    bf = torch.bfloat16
+    sa, ln1, ln2, mlp = blk.self_attn, blk.self_attn_ln, blk.mlp_ln, blk.mlp
+    B, T, d = x.shape
+    M = B * T
+    with torch.inference_mode():
+        w_qkv, b_qkv = sa.qkv_weights(bf)
+        wo, bo = sa.out_proj.weights(bf)
+        (w1, b1), (w2, b2) = mlp.fc1.weights(bf), mlp.fc2.weights(bf)
+        a1 = fm.ln_rows_plain(x, ln1.scale, ln1.bias, ln1.eps).reshape(M, d)
+        a2 = fm.ln_rows_plain(x, ln2.scale, ln2.bias, ln2.eps).reshape(M, d)
+        qkv = fm.gemm_launch("qkv", a1, w_qkv, b_qkv)
+        attn = fa.attention_core_launch(qkv.view(B, T, -1), lens, sa.num_heads).reshape(M, d)
+        h = fm.gemm_launch("fc1_" + mlp.gelu_form, a2, w1, b1)
+        x2 = x.reshape(M, d)
+        launches = {"q/k/v": ("qkv", a1, w_qkv, b_qkv, None),
+                    "fc1": ("fc1_" + mlp.gelu_form, a2, w1, b1, None),
+                    "fc2": ("fc2", h, w2, b2, x2),
+                    "out-projection": ("out_proj", attn, wo, bo, x2)}
+        rows = {}
+        for name, (epi, a, w, b, res) in launches.items():
+            def kern(epi=epi, a=a, w=w, b=b, res=res):
+                return fm.gemm_launch(epi, a, w, b, res)
+
+            def lib(a=a, w=w, b=b):
+                return torch.addmm(b, a, w)
+
+            turns = [queued_ms(f, 20) for f in (kern, lib, kern, lib)]
+            K, N = w.shape
+            nbytes = (a.numel() + w.numel() + b.numel() + M * N) * 2 + (
+                0 if res is None else res.numel() * 2)
+            flops = 2.0 * M * N * K
+            bound_ms, bound_by = bound(nbytes, {"bf16": flops})
+            ms = (turns[0] + turns[2]) / 2
+            rows[name] = {"ms": ms, "addmm_ms": (turns[1] + turns[3]) / 2, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "bound_counted_tflops": tflops(flops, ms),
+                          "launches_per_batch": blocks, "turns_ms": turns}
+            emit({"phase": "timing", "launch": name, "shape": f"M={M}, K={K}, N={N}",
+                  **rows[name]})
+    return rows
+
+
+def copy_launches(call, batches: int = 2) -> float:
+    """Device copy kernels a call of `call` launches (PyTorch's copy and
+    cast kernels, by name, under torch.profiler): the greedy batch's weight
+    casts, which the serving copies remove."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(batches):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and "copy" in e.key.lower()) / batches
+
+
+def core_launch(attn_args, yard):
+    """K2's attention core alone on the timed inputs' q/k/v (queued), with
+    its executed TFLOP/s (both passes' products on padded tiles), beside
+    the library's masked fused attention forward on the same q, k, v
+    (queued): context, since the library rounds P before normalising it."""
     from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
     from jiao_liao_speech_recognition_torch.ops import fused_mlp
 
     x, g, bl, wq, bq, wk, wv, bv, wo, bo, lens, H = attn_args
     B, T, D = x.shape
-    bf = torch.bfloat16
     w_qkv, b_qkv = fused_mlp.pack_qkv(wq, bq, wk, wv, bv)
-    wo_b, bo_b = wo.to(bf).contiguous(), bo.to(bf).contiguous()
     qkv = fused_mlp.ln_qkv_launch(x, g, bl, w_qkv, b_qkv)
-    attn = fa.attention_core_launch(qkv, lens, H)
     q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, T, H, D // H) for i in range(3))
-    core_ms = queued_ms(lambda: fa.attention_core_launch(qkv, lens, H), 20)
+    turns = [queued_ms(lambda: fa.attention_core_launch(qkv, lens, H), 20) for _ in range(2)]
+    core_ms = sum(turns) / 2
     up = fa.CORE_KEYS  # rows a block owns and keys a tile, both 128
     rows = -(-T // up) * up
     keys = sum(-(-(min(int(n), T) or T) // up) * up for n in lens.tolist())
     executed = 3 * 2.0 * D * rows * keys  # S twice and P.V, every (b, h)
-    attn2 = attn.view(B * T, D)
-    return {
-        "ln_qkv_ms": cuda_ms(lambda: fused_mlp.ln_qkv_launch(x, g, bl, w_qkv, b_qkv), 20),
-        "core_ms": core_ms, "core_executed_tflops": tflops(executed, core_ms),
-        "core_library_ms": yard.sdpa_forward_ms(q, k, v, lens),
-        "out_proj_ms": cuda_ms(lambda: fa.attn_out_proj_launch(x, attn, wo_b, bo_b), 20),
-        "out_proj_library_ms": cuda_ms(lambda: torch.addmm(bo_b, attn2, wo_b), 20),
-    }
+    return {"core_ms": core_ms, "core_turns_ms": turns,
+            "core_executed_tflops": tflops(executed, core_ms),
+            "core_library_ms": yard.sdpa_forward_ms(q, k, v, lens)}
 
 
 def _example(name: str):

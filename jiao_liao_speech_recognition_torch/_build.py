@@ -51,6 +51,8 @@ SIGNATURES = {
     "jl_attn_out_proj": [P, P, P, P, P, I, I, P],
     "jl_out_proj_residual": [P, P, P, P, P, I, I, P],
     "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
+    "jl_gelu_check": [P, P, I, P],
+    "jl_gemm": [I, P, P, P, P, P, I, I, I, P],
     "jl_head_argmax": [P, P, P, P, P, I, I, I, I, P],
     "jl_flash_fwd": [P, L, L, P, L, L, P, L, L, P, P, P, I, I, I, I, I, I, F, P],
     "jl_flash_bwd": [P, L, L, P, L, L, P, L, L, P, P, P, P, P, P, P, P,

@@ -57,4 +57,43 @@ __device__ inline float gelu_erf(float h) {
   return 0.5f * h * (1.0f + sign * erf_ax);
 }
 
+// K3's GELU as a table of its bf16 bits: its input is a bf16 value (GELU is
+// applied to bf16(h + b1)), so for the 2 x 28 x 128 inputs with 2^-24 <= |h|
+// < 16 the table holds the form's own bf16 result, and outside that range
+// the result is exact by rule: |h| < 2^-24 gives bf16(0.5 h) (1 + tanh(u)
+// and 1 + erf(x) round to 1 or next to it), |h| >= 16 gives h or -0 (tanh
+// and erf round to +-1), +inf gives +inf, -inf and NaN give NaN. So a
+// lookup gives the form's bits, and chip_smoke.py checks all 65,536 inputs.
+constexpr int kGeluE0 = 127 - 24;                          // smallest exponent in the table
+constexpr int kGeluE1 = 127 + 4;                           // past the largest
+constexpr int kGeluSpan = (kGeluE1 - kGeluE0) * 128;       // entries of one sign
+constexpr uint32_t kGeluTableBytes = 2 * kGeluSpan * 2;    // both signs, bf16
+
+// the table of gelu_tanh (erf = 0) or gelu_erf (erf = 1), filled by
+// `threads` threads from `tid`
+__device__ __forceinline__ void gelu_table_fill(uint16_t* table, int erf, int tid, int threads) {
+  for (int i = tid; i < 2 * kGeluSpan; i += threads) {
+    const int sign = i / kGeluSpan, r = i % kGeluSpan;
+    const uint16_t bits = (uint16_t)((sign << 15) | ((kGeluE0 + r / 128) << 7) | (r % 128));
+    const float h = __bfloat162float(__ushort_as_bfloat16(bits));
+    table[i] = __bfloat16_as_ushort(__float2bfloat16(erf ? gelu_erf(h) : gelu_tanh(h)));
+  }
+}
+
+// the GELU's bf16 bits for the bf16 input with bits `b`. Selects only, and
+// a load from the table for every input (at a clamped index): branches per
+// element would leave each lookup's latency exposed (an epilogue takes
+// 128 a thread a tile)
+__device__ __forceinline__ uint16_t gelu_lookup(const uint16_t* table, uint32_t b) {
+  const uint32_t sign = b >> 15, e = (b >> 7) & 0xFFu, m = b & 0x7Fu;
+  const uint32_t ec = e < (uint32_t)kGeluE0 ? (uint32_t)kGeluE0
+                      : e >= (uint32_t)kGeluE1 ? (uint32_t)kGeluE1 - 1 : e;
+  const uint16_t looked = table[sign * kGeluSpan + (ec - kGeluE0) * 128 + m];
+  const uint16_t tiny = __bfloat16_as_ushort(
+      __float2bfloat16(__bfloat162float(__ushort_as_bfloat16((uint16_t)b)) * 0.5f));
+  const uint16_t big = (sign == 0 && (e != 0xFFu || m == 0)) ? (uint16_t)b  // h, or +inf
+                       : e == 0xFFu ? (uint16_t)0x7FFF : (uint16_t)0x8000;  // NaN, or -0
+  return e < (uint32_t)kGeluE0 ? tiny : e >= (uint32_t)kGeluE1 ? big : looked;
+}
+
 }  // namespace jl

@@ -12,8 +12,8 @@
 // size) would be written and read back by a separate argmax; here they
 // never leave registers.
 //
-// Design: the TMA + wgmma mainloop of wgmma_gemm.cuh, as csrc/ln_gemm.cu
-// runs it: 128 x 128 output tiles, a producer warp feeding three TMA stages
+// Design: the TMA + wgmma mainloop of wgmma_gemm.cuh (wg::Pipeline): 128 x
+// 128 output tiles, a producer warp feeding three TMA stages
 // (128-byte swizzle), two consumer warpgroups on wgmma m64n128k16, W read
 // N-major through the descriptor (no transposed copy). Ragged edges come
 // from the tensor maps, not padding: W's map has V as its column extent

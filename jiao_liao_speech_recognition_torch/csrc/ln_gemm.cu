@@ -33,18 +33,33 @@
 //  * ln_rows: one warp a row, 16-byte loads held in registers (d <= 2048),
 //    the f32 statistics, 16-byte stores of LN(x) into a bf16 scratch the
 //    wrapper allocates;
-//  * gemm_kernel<EPI, ENTRY>: one 128 x 128 output tile a block (grid
-//    N / 128 x ceil(M / 128); the blocks of one row of tiles run together,
-//    so each A row block comes from L2 and the weights stay there), a
-//    producer warp feeding three TMA stages, two consumer warpgroups on
-//    wgmma, two blocks an SM so one block's epilogue overlaps the other's
-//    products. The epilogue starts in registers on the accumulator layout
-//    (the product rounded; fc1 adds b1 and takes the GELU there), stages
-//    the bf16 tile in the freed stage memory, and finishes with 16-byte
-//    vectors: + bias (K5), a copy (fc1), + bias then + x (fc2 and K2h-out,
-//    one code path), + x then + bias (K2). Rows past M are read as zeros
-//    by the TMA and never stored. No split-K, no atomics: two launches give
-//    the same bits.
+//  * gemm_kernel<EPI, ENTRY>: persistent, one block an SM walking 128 x 128
+//    output tiles in row-major order (tile t, t + grid, ...: the blocks
+//    together sweep whole rows of tiles, so an A row block serves every
+//    column from L2 and the weights stay there). A producer warpgroup (one
+//    thread issues every TMA load) keeps kDefaultStages k-blocks of 64 (fc1:
+//    kGeluStages, beside its GELU table) in flight
+//    across tiles; two consumer warpgroups take the block's tiles in turn,
+//    each computing a whole tile (two wgmma m64n128k16 a k16 step, 128
+//    f32 accumulators a thread under setmaxnreg 232) while the other runs
+//    its epilogue, so the epilogue (bias, GELU, residual) overlaps the
+//    other tile's products. Two named barriers order the warpgroups'
+//    mainloops (one may start waiting on the shared stages only once the
+//    other has issued its last products), which keeps each stage's barrier
+//    phases unambiguous. The epilogue works in registers on the
+//    accumulator layout, writes the bf16 tile into the warpgroup's own
+//    128-byte-swizzled staging buffer, and one thread stores it by TMA
+//    (rows past M are clipped); a residual tile comes into that buffer by
+//    TMA during the mainloop. fc1's GELU (either form) is a table of the
+//    form's own bf16 results, filled by each block at launch, read in a
+//    second pass over the staged tile (common.cuh::gelu_lookup: the GELU's
+//    input is a bf16 value, so a lookup gives the form's bits; computed
+//    forms, tanhf or a guarded ex2 + rcp one, cost one warpgroup's
+//    epilogue more than the other's products take, PERF.md), shared with
+//    the producer warpgroup's three spare warps. Rows past M are read as
+//    zeros. No split-K, no atomics: two launches
+//    give the same bits, and each tile's sums run in the order of the
+//    one-tile-a-block design before it, so the bits are that design's too.
 // K5 is ln_rows + gemm<kBias> (N = 3D); K3 is ln_rows + gemm<kGelu*> (N =
 // mlp, into a hidden scratch) + gemm<kResidual> (K = mlp); K2h-out is
 // gemm<kResidual, kOutProj> alone; K2 is K5's two launches, the attention
@@ -57,9 +72,26 @@ namespace {
 using namespace jl;
 
 constexpr int kBN = wg::kBN;
-constexpr int kStages = 3;
-constexpr int kBlocksPerSM = 2;
-constexpr int kLdc = kBN + 8;  // bf16 row pitch of the staged tile
+constexpr int kDefaultStages = 5;  // k-blocks in flight, shared by the block's tiles
+constexpr int kGeluStages = 4;     // with the GELU's table beside them
+// a producer warpgroup (one thread issues every load; setmaxnreg acts on
+// whole warpgroups) and two consumer warpgroups, whose registers come from
+// it: 2 x 232 + 40 <= 512 a thread slot of each SM quarter
+constexpr int kGemmThreads = 3 * 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr uint32_t kTileBytes = wg::kBM * kBN * 2;  // a staged bf16 output tile
+constexpr uint32_t kHalfBytes = kTileBytes / 2;     // its 64 columns: one TMA box
+// named barriers (0 is __syncthreads): consumer warpgroup w waits on
+// kTurnBarrier + w before its tile's products; kEpiBarrier + w is its own
+constexpr int kTurnBarrier = 2;
+constexpr int kEpiBarrier = 4;
+// fc1's GELU pass runs on a consumer warpgroup and on the producer
+// warpgroup's three spare warps (96 threads): kGeluGoBarrier + w once
+// warpgroup w's tile is staged, kGeluDoneBarrier + w once its GELU is done
+constexpr int kGeluHelpers = 96;
+constexpr int kGeluGoBarrier = 6;
+constexpr int kGeluDoneBarrier = 8;
 
 constexpr int kLnWarps = 8;    // rows per ln_rows block
 constexpr int kLnMaxVecs = 8;  // 16-byte vectors a lane holds: d <= 8 x 32 x 8
@@ -71,6 +103,19 @@ enum Epilogue { kBias, kGeluTanh, kGeluErf, kResidual, kAttnResidual };
 // out-projection is gemm_kernel<4, 2>; ln_rows_kernel<0> serves K5 and K2,
 // ln_rows_kernel<1> K3).
 enum Entry { kSublayer, kOutProj, kAttnOut };
+
+// a block's dynamic shared memory, from a 1024-aligned base: the stages,
+// the two warpgroups' staging tiles, the GELU's table (fc1 only), then the
+// barriers
+template <int EPI>
+struct GemmLayout {
+  static constexpr bool kGelu = EPI == kGeluTanh || EPI == kGeluErf;
+  static constexpr int kStages = kGelu ? kGeluStages : kDefaultStages;
+  static constexpr size_t kOut = (size_t)kStages * wg::kStageBytes;
+  static constexpr size_t kTable = kOut + 2 * kTileBytes;
+  static constexpr size_t kBar = kTable + (kGelu ? kGeluTableBytes : 0);
+  static constexpr size_t kBytes = 1024 + kBar + (2 * kStages + 3) * sizeof(uint64_t);
+};
 
 // x [M, d] bf16, g / bl [d] f32 -> ln [M, d] bf16. d % 8 == 0, d <= 2048.
 // ENTRY names the instance only: 0 before a q/k/v product, 1 before fc1.
@@ -128,74 +173,213 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// The tiles a block walks: t = blockIdx.x, blockIdx.x + gridDim.x, ... below
+// `tiles`, the j-th of them (j from 0) to consumer warpgroup j % 2; tile t
+// is rows (t / n_tiles) * 128 and columns (t % n_tiles) * 128 of the output.
+// tests/test_torch_ln_gemm.py walks a twin of this schedule.
+__device__ __forceinline__ void tile_origin(int t, int n_tiles, int& m0, int& n0) {
+  m0 = (t / n_tiles) * wg::kBM;
+  n0 = (t % n_tiles) * kBN;
+}
+
+// The GELU of a staged bf16 tile by its table, in place: 16-byte vectors
+// first, first + stride, ... of the tile's 2,048 (row-major vectors of the
+// staging swizzle), each thread's writes then fenced for the TMA store
+__device__ __forceinline__ void gelu_pass(uint8_t* staged, const uint16_t* table, int first,
+                                          int stride) {
+#pragma unroll 2
+  for (int v = first; v < (int)(kTileBytes / 16); v += stride) {
+    const int row = (v % 1024) / 8, chunk = v % 8;
+    uint4* at = reinterpret_cast<uint4*>(staged + (v / 1024) * kHalfBytes + row * 128 +
+                                         ((chunk ^ (row & 7)) * 16));
+    uint4 hv = *at;
+    uint16_t* e = reinterpret_cast<uint16_t*>(&hv);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) e[k] = gelu_lookup(table, e[k]);
+    *at = hv;
+  }
+  fence_proxy_async();
+}
+
 // out [M, N] = epilogue(a [M, K] . w [K, N]) for bf16 a, w (row-major, w
 // as [in, out]), bias [N] bf16, res [M, N] bf16 (kResidual and
-// kAttnResidual only)
+// kAttnResidual only; tres maps it, tout maps out, both with 64 x 128
+// boxes and the 128-byte swizzle)
 template <int EPI, int ENTRY>
-__global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM)
+__global__ void __launch_bounds__(kGemmThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
-            const bf16* __restrict__ bias, const bf16* __restrict__ res,
-            bf16* __restrict__ out, int M, int N, int K) {
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  const wg::Pipeline<kStages> pipe(smem_raw);
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * wg::kBM;
+            const __grid_constant__ CUtensorMap tres, const __grid_constant__ CUtensorMap tout,
+            const bf16* __restrict__ bias, int M, int N, int K) {
+  using L = GemmLayout<EPI>;
+  constexpr int kStages = L::kStages;
+  constexpr bool kHasResidual = EPI == kResidual || EPI == kAttnResidual;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint16_t* table = reinterpret_cast<uint16_t*>(base + L::kTable);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* res_full = empty + kStages;  // one a consumer warpgroup
+  uint64_t* done = res_full + 2;         // the consumers' last arrival
+  const int n_tiles = N / kBN, tiles = n_tiles * ceil_div(M, wg::kBM);
   const int kblocks = K / wg::kBK;
-  if (threadIdx.x == 0) pipe.init();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty[s], 1);  // the arrival of the warpgroup that read it
+    }
+    mbar_init(&res_full[0], 1);
+    mbar_init(&res_full[1], 1);
+    mbar_init(done, 2);
+    fence_barrier_init();
+  }
+  if constexpr (L::kGelu) gelu_table_fill(table, EPI == kGeluErf, threadIdx.x, kGemmThreads);
   __syncthreads();
 
-  if (threadIdx.x >= wg::kConsumerThreads) {  // the producer warp
-    if (threadIdx.x == wg::kConsumerThreads) pipe.produce(&ta, &tw, m0, n0, kblocks);
-    return;
-  }
-  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
-  float acc[kBN / 2];
-  pipe.consume(acc, wgi, kblocks);
-
-  // every product of both warpgroups is complete: the stages are free
-  wg::consumer_sync();
-  fence_proxy_async();
-  bf16* cs = reinterpret_cast<bf16*>(pipe.stages);  // [128][kLdc]
-#pragma unroll
-  for (int i = 0; i < kBN / 2; i += 2) {
-    const int r = wgi * 64 + wg::acc_row(tid, i), c = wg::acc_col(tid, i);
-    float v0 = round_bf16(acc[i]), v1 = round_bf16(acc[i + 1]);
-    if constexpr (EPI == kGeluTanh || EPI == kGeluErf) {
-      const float2 b = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + c));
-      v0 = round_bf16(v0 + b.x);
-      v1 = round_bf16(v1 + b.y);
-      v0 = EPI == kGeluErf ? gelu_erf(v0) : gelu_tanh(v0);
-      v1 = EPI == kGeluErf ? gelu_erf(v1) : gelu_tanh(v1);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(cs + r * kLdc + c) = __floats2bfloat162_rn(v0, v1);
-  }
-  wg::consumer_sync();
-
-  constexpr int kVecs = kBN / 8;  // 16-byte vectors a tile row
-  for (int v = threadIdx.x; v < wg::kBM * kVecs; v += wg::kConsumerThreads) {
-    const int r = v / kVecs, c = (v % kVecs) * 8;
-    if (m0 + r >= M) continue;
-    const size_t at = (size_t)(m0 + r) * N + n0 + c;
-    uint4 ov = *reinterpret_cast<const uint4*>(cs + r * kLdc + c);
-    if constexpr (EPI == kBias || EPI == kResidual || EPI == kAttnResidual) {
-      const uint4 bv = *reinterpret_cast<const uint4*>(bias + n0 + c);
-      uint4 xv = make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (EPI != kBias) xv = *reinterpret_cast<const uint4*>(res + at);
-      bf16* o = reinterpret_cast<bf16*>(&ov);
-      const bf16* be = reinterpret_cast<const bf16*>(&bv);
-      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float a = __bfloat162float(o[e]), bb = __bfloat162float(be[e]);
-        const float xx = __bfloat162float(xe[e]);
-        float y;
-        if constexpr (EPI == kAttnResidual) y = round_bf16(xx + a) + bb;
-        else if constexpr (EPI == kResidual) y = xx + round_bf16(a + bb);
-        else y = a + bb;
-        o[e] = __float2bfloat16(y);
+  // the warpgroup index, broadcast so the compiler sees it uniform: the
+  // setmaxnreg regions below are then the roles' whole branches
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 2) {  // the producer warpgroup
+    wg::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      int g = 0;  // the block's running k-block count: stage g % kStages
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int m0, n0;
+        tile_origin(t, n_tiles, m0, n0);
+        for (int kb = 0; kb < kblocks; ++kb, ++g) {
+          const int s = g % kStages;
+          if (g >= kStages) mbar_wait(&empty[s], ((g / kStages) - 1) & 1);
+          uint8_t* a = base + (size_t)s * wg::kStageBytes;
+          mbar_arrive_expect_tx(&full[s], wg::kStageBytes);
+          tma_load_2d(a, &ta, kb * wg::kBK, m0, &full[s]);
+          tma_load_2d(a + wg::kABytes, &tw, n0, kb * wg::kBK, &full[s]);
+          tma_load_2d(a + wg::kABytes + wg::kBSlabBytes, &tw, n0 + 64, kb * wg::kBK, &full[s]);
+        }
+      }
+      // the consumers wait untimed (a trap in their region would hold them
+      // to the entry register count): a stall traps here instead
+      mbar_wait(done, 0);
+    } else if (L::kGelu && threadIdx.x >= 2 * 128 + 32) {
+      // warps 9-11: their share of each tile's GELU pass, in the block's
+      // tile order (warpgroup j % 2's j-th tile)
+      const int first = 128 + threadIdx.x - (2 * 128 + 32);
+      for (int j = 0, t = blockIdx.x; t < tiles; ++j, t += gridDim.x) {
+        wg::named_sync(kGeluGoBarrier + (j & 1), 128 + kGeluHelpers);
+        gelu_pass(base + L::kOut + (j & 1) * kTileBytes, table, first, 128 + kGeluHelpers);
+        wg::named_sync(kGeluDoneBarrier + (j & 1), 128 + kGeluHelpers);
       }
     }
-    *reinterpret_cast<uint4*>(out + at) = ov;
+    return;
+  }
+
+  // a consumer warpgroup: tiles j = wgi, wgi + 2, ... of the block
+  wg::reg_alloc<kConsumerRegs>();
+  const int tid = threadIdx.x % 128;
+  const bool leader = tid == 0;
+  uint8_t* stage_out = base + L::kOut + wgi * kTileBytes;
+  float acc[2][kBN / 2];  // rows 0-63 and 64-127 of the tile
+  int mine = 0;           // this warpgroup's tiles so far
+  for (int j = wgi, t = blockIdx.x + wgi * gridDim.x; t < tiles;
+       j += 2, t += 2 * gridDim.x, ++mine) {
+    int m0, n0;
+    tile_origin(t, n_tiles, m0, n0);
+    // the other warpgroup has passed every stage wait of the tile before
+    if (j > 0) wg::named_sync(kTurnBarrier + wgi, 256);
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int g = j * kblocks + kb, s = g % kStages;
+      mbar_wait_untimed(&full[s], (g / kStages) & 1);
+      const uint32_t a0 = smem_u32(base + (size_t)s * wg::kStageBytes);
+      const uint32_t b0 = a0 + wg::kABytes;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < wg::kBK / 16; ++k) {
+        const uint64_t db = wg::desc_sw128(b0 + 2048 * k, wg::kBSlabBytes, 1024);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wg::mma<1>(acc[h], wg::desc_sw128(a0 + h * 64 * 128 + 32 * k, 16, 1024), db,
+                     kb > 0 || k > 0);
+      }
+      wg::wgmma_commit();
+      if (kHasResidual && kb == 0 && leader) {
+        // the residual tile into the staging buffer, once the last store
+        // from it has read it
+        bulk_wait_read<0>();
+        mbar_arrive_expect_tx(&res_full[wgi], kTileBytes);
+        tma_load_2d(stage_out, &tres, n0, m0, &res_full[wgi]);
+        tma_load_2d(stage_out + kHalfBytes, &tres, n0 + 64, m0, &res_full[wgi]);
+      }
+      wg::wgmma_wait<1>();  // the previous stage's products are done with it
+      if (kb > 0 && leader) mbar_arrive(&empty[(g - 1) % kStages]);
+    }
+    // the block's next tile is the other warpgroup's: let it start
+    if (t + (int)gridDim.x < tiles) wg::named_arrive(kTurnBarrier + (1 - wgi), 256);
+    wg::wgmma_wait<0>();
+    wg::fence_operand(acc[0]);
+    wg::fence_operand(acc[1]);
+    if (leader) mbar_arrive(&empty[(j * kblocks + kblocks - 1) % kStages]);
+
+    // the epilogue, while the other warpgroup's products run
+    float2 bcol[kBN / 8];  // the bias at this thread's column pairs
+#pragma unroll
+    for (int c8 = 0; c8 < kBN / 8; ++c8)
+      bcol[c8] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          bias + n0 + wg::acc_col(tid, 4 * c8)));
+    if (leader) bulk_wait_read<0>();  // the last store has read the buffer
+    wg::named_sync(kEpiBarrier + wgi, 128);
+    if constexpr (kHasResidual) mbar_wait_untimed(&res_full[wgi], mine & 1);
+    // the element pair (i, i + 1) of half h: its word in the staging tile
+    // (the 128-byte swizzle of the TMA boxes)
+    auto staged = [&](int h, int i) {
+      const int r = h * 64 + wg::acc_row(tid, i), c = wg::acc_col(tid, i);
+      return reinterpret_cast<uint32_t*>(stage_out + (c / 64) * kHalfBytes + r * 128 +
+                                         ((((c % 64) / 8) ^ (r & 7)) * 16) + (c % 8) * 2);
+    };
+    // on the accumulator layout: the rounded product, + bias (the GELU's
+    // input for fc1), + x for the residual forms
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; i += 2) {
+        uint32_t* at = staged(h, i);
+        const float2 b = bcol[i >> 2];
+        float v0 = round_bf16(acc[h][i]), v1 = round_bf16(acc[h][i + 1]);
+        if constexpr (EPI == kBias || EPI == kGeluTanh || EPI == kGeluErf) {
+          v0 += b.x;
+          v1 += b.y;
+        } else {
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+          if constexpr (EPI == kAttnResidual) {
+            v0 = round_bf16(x.x + v0) + b.x;
+            v1 = round_bf16(x.y + v1) + b.y;
+          } else {
+            v0 = x.x + round_bf16(v0 + b.x);
+            v1 = x.y + round_bf16(v1 + b.y);
+          }
+        }
+        const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+        *at = *reinterpret_cast<const uint32_t*>(&o);
+      }
+    }
+    if constexpr (L::kGelu) {
+      // the GELU of the staged bf16 h by its table, shared with the three
+      // spare warps (on the accumulator layout the registers ran out and
+      // each lookup's latency showed; one warpgroup alone took longer than
+      // the other's products)
+      wg::named_sync(kGeluGoBarrier + wgi, 128 + kGeluHelpers);
+      gelu_pass(stage_out, table, tid, 128 + kGeluHelpers);
+      wg::named_sync(kGeluDoneBarrier + wgi, 128 + kGeluHelpers);
+    }
+    fence_proxy_async();
+    wg::named_sync(kEpiBarrier + wgi, 128);
+    if (leader) {
+      tma_store_2d(&tout, n0, m0, stage_out);
+      tma_store_2d(&tout, n0 + 64, m0, stage_out + kHalfBytes);
+      bulk_commit();
+    }
+  }
+  if (leader) {
+    bulk_wait<0>();
+    mbar_arrive(done);
   }
 }
 
@@ -208,23 +392,68 @@ int ln_rows(const bf16* x, const float* g, const float* bl, bf16* ln, int M, int
   return (int)cudaGetLastError();
 }
 
+// the current device's SM count, asked once a device
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return counts[dev];
+}
+
+// a [rows, cols] bf16 tensor (row pitch cols) in 64-column x 128-row boxes
+bool tile_map(CUtensorMap* map, const bf16* p, int rows, int cols, uint32_t box_rows) {
+  return make_tmap_2d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, rows,
+                      (uint64_t)cols * sizeof(bf16), 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <int EPI, int ENTRY = kSublayer>
 int gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, bf16* out, int M,
          int N, int K, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % kBN || K % wg::kBK) return (int)cudaErrorInvalidValue;
-  CUtensorMap ta, tw;
+  CUtensorMap ta, tw, tres, tout;
   if (!make_tmap_2d(&ta, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M, (uint64_t)K * sizeof(bf16),
                     wg::kBK, wg::kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_tmap_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, K, (uint64_t)N * sizeof(bf16),
-                    64, wg::kBK, CU_TENSOR_MAP_SWIZZLE_128B))
+      !tile_map(&tw, w, K, N, wg::kBK) || !tile_map(&tout, out, M, N, wg::kBM) ||
+      !tile_map(&tres, res ? res : out, M, N, wg::kBM))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wg::smem_bytes(kStages);
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<EPI, ENTRY>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the shared-memory opt-in, once an instance and device
+  static int opted_in = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / kBN, ceil_div(M, wg::kBM));
-  gemm_kernel<EPI, ENTRY><<<grid, wg::kThreads, smem, stream>>>(ta, tw, bias, res, out, M, N, K);
+  if (opted_in != dev) {
+    err = cudaFuncSetAttribute(gemm_kernel<EPI, ENTRY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)GemmLayout<EPI>::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = dev;
+  }
+  const int tiles = (N / kBN) * ceil_div(M, wg::kBM), sms = sm_count();
+  gemm_kernel<EPI, ENTRY><<<tiles < sms ? tiles : sms, kGemmThreads, GemmLayout<EPI>::kBytes,
+                            stream>>>(
+      ta, tw, tres, tout, bias, M, N, K);
   return (int)cudaGetLastError();
+}
+
+// every bf16 value through K3's GELUs as fc1's epilogue takes them (the
+// table lookup) and as the forms give them: out [4][n] = lookup of
+// gelu_tanh, gelu_tanh, lookup of gelu_erf, gelu_erf (bf16)
+__global__ void gelu_check_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, int n) {
+  __shared__ uint16_t tables[2][2 * kGeluSpan];
+  gelu_table_fill(tables[0], 0, threadIdx.x, blockDim.x);
+  gelu_table_fill(tables[1], 1, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint16_t b = __bfloat16_as_ushort(in[i]);
+  const float h = __bfloat162float(in[i]);
+  out[i] = __ushort_as_bfloat16(gelu_lookup(tables[0], b));
+  out[n + i] = __float2bfloat16(gelu_tanh(h));
+  out[2 * n + i] = __ushort_as_bfloat16(gelu_lookup(tables[1], b));
+  out[3 * n + i] = __float2bfloat16(gelu_erf(h));
 }
 
 }  // namespace
@@ -272,4 +501,29 @@ extern "C" int jl_out_proj_residual(const bf16* attn, const bf16* x, const bf16*
 extern "C" int jl_attn_out_proj(const bf16* attn, const bf16* x, const bf16* wo, const bf16* bo,
                                 bf16* out, int M, int D, cudaStream_t stream) {
   return gemm<kAttnResidual, kAttnOut>(attn, wo, bo, x, out, M, D, D, stream);
+}
+
+// K3's GELUs checked over their inputs: in [n] bf16 -> out [4, n] bf16
+// (the table lookup of gelu_tanh, gelu_tanh, the lookup of gelu_erf,
+// gelu_erf)
+extern "C" int jl_gelu_check(const bf16* in, bf16* out, int n, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  gelu_check_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(in, out, n);
+  return (int)cudaGetLastError();
+}
+
+// One GEMM launch alone, the instance K5, K3 or K2 runs: epi 0 the q/k/v
+// product + bias, 1 fc1 + tanh GELU, 2 fc1 + erf GELU, 3 fc2 + bias + x, 4
+// K2's out-projection (x + the product, then + bias); res [M, N] for 3 and
+// 4 only. For timing each launch apart (chip_smoke.py).
+extern "C" int jl_gemm(int epi, const bf16* a, const bf16* w, const bf16* bias, const bf16* res,
+                       bf16* out, int M, int N, int K, cudaStream_t stream) {
+  switch (epi) {
+    case 0: return gemm<kBias>(a, w, bias, nullptr, out, M, N, K, stream);
+    case 1: return gemm<kGeluTanh>(a, w, bias, nullptr, out, M, N, K, stream);
+    case 2: return gemm<kGeluErf>(a, w, bias, nullptr, out, M, N, K, stream);
+    case 3: return gemm<kResidual>(a, w, bias, res, out, M, N, K, stream);
+    case 4: return gemm<kAttnResidual, kAttnOut>(a, w, bias, res, out, M, N, K, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

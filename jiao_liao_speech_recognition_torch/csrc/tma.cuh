@@ -114,6 +114,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// TMA store: the box of `map` at coordinates (c0 innermost, c1) from shared
+// memory at `src` (written by this block's threads, then fence_proxy_async
+// and a barrier); boxes past the tensor's edge are clipped. Each thread that
+// issues stores groups them (bulk_commit) and waits on its groups.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// until at most N of this thread's store groups are still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// until at most N of this thread's store groups are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // a plain bulk copy of `bytes` contiguous bytes from global memory (both
 // addresses 16-byte aligned, bytes a multiple of 16), counted on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,

@@ -3,8 +3,10 @@
 // (K-major) and bf16 B [K, N] row-major (N-major, as the JAX Dense kernels
 // are stored: [in, out]). The caller owns the epilogue.
 //
-// A block runs one output tile (or, with a running k-block base, several in
-// turn: csrc/head.cu's P2) with three roles:
+// (csrc/ln_gemm.cu's persistent GEMM takes the tile constants and products
+// below with its own loop.) A block of wg::Pipeline runs one output tile
+// (or, with a running k-block base, several in turn: csrc/head.cu's P2)
+// with three roles:
 //  * a producer warp (warp 8) that keeps STAGES k-blocks of 64 in flight:
 //    per stage one TMA box of A (128 rows x 64, 16 KB) and two of B (64 x 64
 //    each, 16 KB), all with the 128-byte swizzle, counted on the stage's
@@ -65,6 +67,19 @@ __device__ __forceinline__ void consumer_sync() {
 // named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+// an arrival at named barrier `id` that does not wait for it
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// tells the compiler that the registers of `r` may change here (a wgmma
+// that wrote them has just been waited for), so no access to them moves
+// across this point
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // warp-specialised register budgets: the producer warp gives registers up,

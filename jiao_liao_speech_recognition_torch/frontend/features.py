@@ -138,6 +138,9 @@ def log_mel_spectrogram(
     return normalize_log_mel(raw, cfg)
 
 
+BATCH_LOG_FLOOR = 1e-10  # featurize_batch's floor: FrontendConfig's default
+
+
 def featurize_batch(
     wav: torch.Tensor, cfg: Optional[FrontendConfig] = None, kernels: bool = True
 ) -> torch.Tensor:
@@ -154,8 +157,11 @@ def featurize_batch(
         raise ValueError(f"unknown cmvn mode {cfg.cmvn!r}")
     wav = dequantize_pcm(wav).to(torch.float32).contiguous()
     raw_fn = fused_log_mel_raw if kernels else log_mel_raw_plain
+    # the mel power is floored at the default 1e-10 whatever cfg.log_floor
+    # says, as the JAX package's featurize_batch does (its jitted path
+    # rebuilds the config without the floor); log_mel_spectrogram honours it
     feats = normalize_log_mel(
-        raw_fn(wav, cfg.n_fft, cfg.hop_length, cfg.num_mels, cfg.mel_scale, cfg.log_floor),
+        raw_fn(wav, cfg.n_fft, cfg.hop_length, cfg.num_mels, cfg.mel_scale, BATCH_LOG_FLOOR),
         cfg,
     )
     if cfg.cmvn == "global":

@@ -115,10 +115,11 @@ class ModelBundle:
             elif ckpt.is_dir() and (ckpt / "vocab.json").exists():
                 tokenizer = _load_vocab(ckpt / "vocab.json")
         model.to(device).eval()
-        if config.model_family == "whisper" and config.whisper.dtype == "bfloat16":
+        # bf16 copies of every Dense kernel and bias (K2's packed q/k/v and
+        # its out-projection, K3's fc1 and fc2) and of K4's head, made once
+        if (config.whisper.dtype if config.model_family == "whisper"
+                else config.ctc_model.dtype) == "bfloat16":
             cast_for_serving(model, torch.bfloat16)
-        elif config.model_family == "ctc" and config.ctc_model.dtype == "bfloat16":
-            model.ctc_head.cast_for_serving(torch.bfloat16)  # K4's operand, made once
         return cls(config, model, tokenizer)
 
     @property

@@ -47,7 +47,7 @@ from ..ops.fused_attention import (
     attention_sublayer_fits,
     attention_sublayer_plain,
     attention_sublayer_wf_plain,
-    fused_attention_sublayer,
+    fused_attention_sublayer_packed,
     fused_attention_sublayer_wf,
     out_proj_residual,
 )
@@ -586,12 +586,14 @@ class TransformerBlock(nn.Module):
             q, k, v = fused_ln_qkv(x, ln.scale, ln.bias, *sa.qkv_weights(x.dtype), ln.eps)
             attn = flash.flash_attention_packed(q, k, v, sa.num_heads, kv_lengths=kv_lengths)
             return out_proj_residual(x, attn, wo, bo)
+        if fused:
+            return fused_attention_sublayer_packed(x, ln.scale, ln.bias, *sa.qkv_weights(x.dtype),
+                                                   wo, bo, kv_lengths, sa.num_heads, ln.eps)
         wq, bq = sa.q_proj.weights(x.dtype)
         wk, _ = sa.k_proj.weights(x.dtype)
         wv, bv = sa.v_proj.weights(x.dtype)
-        fn = fused_attention_sublayer if fused else attention_sublayer_plain
-        return fn(x, ln.scale, ln.bias, wq, bq, wk, wv, bv, wo, bo, kv_lengths, sa.num_heads,
-                  ln.eps)
+        return attention_sublayer_plain(x, ln.scale, ln.bias, wq, bq, wk, wv, bv, wo, bo,
+                                        kv_lengths, sa.num_heads, ln.eps)
 
     def _serve_mlp(self, x, kernels: bool):
         """One fused sublayer: K3 (K7 with WF inserts) or its plain version."""

@@ -1,7 +1,8 @@
 """K2: the fused self-attention sublayer y = x + out_proj(MHA(LN(x))).
 
-``fused_attention_sublayer`` is the wrapper of K2's CUDA launches, which
-together replace the JAX package's
+``fused_attention_sublayer`` is the wrapper of K2's CUDA launches
+(``fused_attention_sublayer_packed`` on packed q/k/v operands, which
+serving keeps), which together replace the JAX package's
 ``ops/fused_attention.py::fused_attention_sublayer`` and its
 head-group-split variant: ``ln_rows`` and the q/k/v GEMM + bias (K5's two
 launches, ``csrc/ln_gemm.cu``), the attention core (``jl_attention_core``,
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 from .._build import LaunchCounter, check_aligned, check_cuda, launch, refuse_grad
-from .fused_mlp import fc2_residual_plain, ln_qkv_launch, pack_qkv
+from .fused_mlp import (fc2_residual_plain, ln_qkv_launch, ln_rows_plain, pack_qkv,
+                        qkv_gemm_plain)
 from .numerics import dense, full_f32, layer_norm, matmul
 
 COUNTER = LaunchCounter("fused_attention_sublayer")
@@ -130,26 +132,43 @@ def attn_out_proj_launch(x, attn, wo, bo):
 def fused_attention_sublayer(
     x, g, bl, wq, bq, wk, wv, bv, wo, bo, kv_lengths, num_heads, eps=1e-5
 ):
-    """K2 wrapper. CPU tensors take attention_sublayer_plain; a CUDA tensor
-    (x bf16 [B, T, d], d = D = num_heads * dh and attention_sublayer_fits)
-    launches the LN + q/k/v GEMM, the attention core and the out-projection
-    GEMM (q/k/v and the heads' outputs in scratch allocated here), or
-    raises."""
+    """K2 wrapper on the layer's own weights. CPU tensors take
+    attention_sublayer_plain; a CUDA tensor packs the q/k/v weights
+    (pack_qkv) and runs fused_attention_sublayer_packed, or raises."""
     if x.device.type == "cpu":
         return attention_sublayer_plain(
             x, g, bl, wq, bq, wk, wv, bv, wo, bo, kv_lengths, num_heads, eps
         )
+    w_qkv, b_qkv = (t.to(x.device) for t in pack_qkv(wq, bq, wk, wv, bv))
+    return fused_attention_sublayer_packed(x, g, bl, w_qkv, b_qkv, wo, bo, kv_lengths,
+                                           num_heads, eps)
+
+
+def fused_attention_sublayer_packed(
+    x, g, bl, w_qkv, b_qkv, wo, bo, kv_lengths, num_heads, eps=1e-5
+):
+    """K2 on packed q/k/v operands (pack_qkv; serving keeps them,
+    ``MultiHeadAttention.qkv_weights``, beside the out-projection's bf16
+    copies, so a serving call copies no weight). CPU tensors take the plain
+    version of each launch; a CUDA tensor (x bf16 [B, T, d], d = D =
+    num_heads * dh and attention_sublayer_fits) launches the LN + q/k/v
+    GEMM, the attention core and the out-projection GEMM (q/k/v and the
+    heads' outputs in scratch allocated here), or raises."""
+    if x.device.type == "cpu":
+        qkv = qkv_gemm_plain(ln_rows_plain(x, g, bl, eps), w_qkv, b_qkv)
+        return attn_out_residual_plain(x, attention_core_plain(qkv, kv_lengths, num_heads),
+                                       wo, bo)
     check_cuda("x", x, torch.bfloat16, 3)
-    refuse_grad("fused_attention_sublayer", x, g, bl, wq, bq, wk, wv, bv, wo, bo)
+    refuse_grad("fused_attention_sublayer", x, g, bl, w_qkv, b_qkv, wo, bo)
     B, T, d = x.shape
-    D = wq.shape[1]
+    D = w_qkv.shape[1] // 3
     if D != d or not attention_sublayer_fits(d, num_heads):
         raise ValueError(f"unsupported attention shape d={d} D={D} heads={num_heads}")
     if kv_lengths.shape != (B,):
         raise ValueError(f"kv_lengths must be [B]={B}, got {tuple(kv_lengths.shape)}")
     dev, bf = x.device, torch.bfloat16
-    w_qkv, b_qkv = (t.to(dev) for t in pack_qkv(wq, bq, wk, wv, bv))
-    wo_b, bo_b = wo.to(dev, bf).contiguous(), bo.to(dev, bf).contiguous()
+    # .to(...).contiguous() is serving's bf16 copy itself
+    w_qkv, b_qkv, wo_b, bo_b = (t.to(dev, bf).contiguous() for t in (w_qkv, b_qkv, wo, bo))
     lens = kv_lengths.to(dev, torch.int32).contiguous()
     qkv = ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps)
     out = attn_out_proj_launch(x, attention_core_launch(qkv, lens, num_heads), wo_b, bo_b)

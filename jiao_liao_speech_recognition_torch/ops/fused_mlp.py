@@ -58,6 +58,40 @@ def gelu_f32(h: torch.Tensor, gelu_form: str) -> torch.Tensor:
     raise ValueError(f"unknown gelu_form {gelu_form!r} (want 'tanh'|'erf')")
 
 
+# jl_gemm's epilogues: the GEMM instance each launch of K5, K3 and K2 runs
+GEMM_EPILOGUES = {"qkv": 0, "fc1_tanh": 1, "fc1_erf": 2, "fc2": 3, "out_proj": 4}
+
+
+def gemm_launch(epilogue: str, a, w, bias, res=None):
+    """One launch of csrc/ln_gemm.cu's GEMM alone (jl_gemm), the instance a
+    launch of K5, K3 or K2 runs (GEMM_EPILOGUES; res [M, N] for "fc2" and
+    "out_proj"), on contiguous bf16 CUDA operands a [M, K], w [K, N], bias
+    [N] -> [M, N]. For timing each launch apart (chip_smoke.py); counts
+    nothing."""
+    for name, t in (("a", a), ("w", w)):
+        check_cuda(name, t, torch.bfloat16, 2)
+    (M, K), N = a.shape, w.shape[1]
+    check_gemm_shapes("gemm_launch", 64, (K, N))
+    if (res is None) != (epilogue in ("qkv", "fc1_tanh", "fc1_erf")):
+        raise ValueError(f"gemm_launch: {epilogue!r} takes a residual only for fc2 and out_proj")
+    out = torch.empty(M, N, device=a.device, dtype=torch.bfloat16)
+    check_aligned("gemm_launch", a, w, bias, out, *(() if res is None else (res,)))
+    launch("jl_gemm", GEMM_EPILOGUES[epilogue], a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+           0 if res is None else res.data_ptr(), out.data_ptr(), M, N, K)
+    return out
+
+
+def gelu_check(values: torch.Tensor) -> torch.Tensor:
+    """jl_gelu_check on bf16 CUDA values [n] -> [4, n] bf16: K3's GELUs as
+    fc1's epilogue takes them (csrc/common.cuh's table lookup) and as the
+    forms give them: lookup of gelu_tanh, gelu_tanh, lookup of gelu_erf,
+    gelu_erf. chip_smoke.py runs it over every bf16 value."""
+    check_cuda("values", values, torch.bfloat16, 1)
+    out = torch.empty(4, values.numel(), device=values.device, dtype=torch.bfloat16)
+    launch("jl_gelu_check", values.data_ptr(), out.data_ptr(), values.numel())
+    return out
+
+
 def ln_mlp_residual_plain(x, g, bl, w1, b1, w2, b2, eps=1e-5, gelu_form="tanh"):
     """x [B, T, d] (compute dtype); w1 [d, mlp], w2 [mlp, d]. GELU runs in
     f32 on the rounded fc1 output; y = x + (fc2 + b2)."""

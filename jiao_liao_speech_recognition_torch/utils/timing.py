@@ -11,30 +11,46 @@ import time
 _SPIN_HZ = 1.98e9
 
 
+# device_ms's agreement rule: two profiler sessions of the same calls within
+# SESSION_SHARE of each other, and their mean within SESSION_SHARE of
+# queued_ms of the same calls, less GAP_US a launch (the device's gap
+# between two queued launches, 1-2 us, which queued_ms counts and the
+# profiler's kernel sum leaves out)
+SESSION_SHARE = 0.1
+GAP_US = 2.0
+
+
 def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
     """Mean device milliseconds per call of ``fn``: the CUDA kernels and
     copies it issues, summed by torch.profiler, after one warm call. (A
     short kernel timed with CUDA events around a Python loop measures the
-    host's dispatch.) A profiler session has been seen to return no device
-    events at all on the card; such a session is run again, and after
-    ``attempts`` empty ones the calls are timed by ``queued_ms`` instead,
-    with a note on stderr."""
+    host's dispatch.) A profiler session on the card has returned no device
+    events at all, and another a quarter less than the next: so each
+    attempt runs two sessions and holds their sums against each other and
+    against ``queued_ms`` of the same calls (SESSION_SHARE, GAP_US). An
+    attempt that disagrees is made again, and after ``attempts`` of them
+    the calls are timed by ``queued_ms`` instead, with a note on stderr."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        us = _profiled_us(fn, iters)
-        if us > 0:
-            return us / 1e3 / iters
-    print(f"device_ms: {attempts} profiler sessions saw no device time; "
-          "timing with CUDA events behind a spin kernel", file=sys.stderr)
+        (a, launches_a), (b, launches_b) = _profiled_us(fn, iters), _profiled_us(fn, iters)
+        if min(a, b) <= 0 or abs(a - b) > SESSION_SHARE * max(a, b):
+            continue
+        queued_us = queued_ms(fn, iters) * 1e3 * iters
+        mean = (a + b) / 2
+        floor = (queued_us - GAP_US * max(launches_a, launches_b)) * (1 - SESSION_SHARE)
+        if floor <= mean <= queued_us * (1 + SESSION_SHARE):
+            return mean / 1e3 / iters
+    print(f"device_ms: {attempts} pairs of profiler sessions saw no device time or "
+          "disagreed; timing with CUDA events behind a spin kernel", file=sys.stderr)
     return queued_ms(fn, iters)
 
 
-def _profiled_us(fn, iters: int) -> float:
-    """Device microseconds of ``iters`` calls of ``fn`` in one profiler
-    session (0 if the session saw no device event)."""
+def _profiled_us(fn, iters: int) -> tuple[float, int]:
+    """(device microseconds, device launches) of ``iters`` calls of ``fn``
+    in one profiler session ((0, 0) if the session saw no device event)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -42,8 +58,9 @@ def _profiled_us(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.device_time_total)
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.device_time_total]
+    return sum(e.device_time_total for e in events), sum(e.count for e in events)
 
 
 def queued_ms(fn, iters: int = 20) -> float:

@@ -193,3 +193,19 @@ def test_route_keeps_k2_below_1280_and_whisper_on_k5_k6(monkeypatch):
         tfa.fused_attention_sublayer(meta, torch.ones(1280), torch.zeros(1280), w, w[0], w, w,
                                      w[0], w, w[0], torch.ones(1, dtype=torch.int32), 20)
     assert not calls
+
+
+# --- (d) the core's shared memory ---------------------------------------------
+
+
+def test_core_shared_memory_fits_at_both_head_widths():
+    """The Q tile, kStages stages of a K and a V tile and the barriers, from
+    a 1024-aligned base, within the 227 KB a block may take, at both head
+    widths of the core."""
+    from jiao_liao_speech_recognition_torch import _build
+
+    c = _core_consts()
+    for dh in tfa.HEAD_WIDTHS:
+        tile = c["kRows"] * dh * 2
+        smem = 1024 + tile + c["kStages"] * 2 * tile + (2 + 2 * c["kStages"]) * 8
+        assert smem <= _build.SMEM_LIMIT

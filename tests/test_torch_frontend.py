@@ -211,6 +211,30 @@ def test_featurize_batch_matches_jax(tmp_path, cmvn_mode, int16):
     np.testing.assert_allclose(got, want, atol=LOGMEL_BAR, rtol=0)
 
 
+def test_featurize_batch_floors_as_jax_whatever_log_floor_says():
+    """The JAX package's featurize_batch floors the mel power at 1e-10
+    whatever cfg.log_floor says (its jitted path rebuilds the config
+    without it); the port's does the same. 2 s of noise at 1e-4 amplitude,
+    the second second silent, where a 1e-3 floor would move every frame of
+    the silent half (by up to 1.75 once normalized)."""
+    rng = np.random.RandomState(4)
+    wav = (1e-4 * rng.randn(1, 32000)).astype(np.float32)
+    wav[:, 16000:] = 0.0
+    jc = jcfg.FrontendConfig(log_floor=1e-3)
+    tc = tcfg.FrontendConfig(log_floor=1e-3)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jf.featurize_batch(jnp.asarray(wav), jc))
+    got = tf.featurize_batch(torch.from_numpy(wav), tc).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=LOGMEL_BAR, rtol=0)
+    # log_mel_spectrogram honours the floor in both packages
+    with jax.default_matmul_precision("highest"):
+        want_floor = np.asarray(jf.log_mel_spectrogram(jnp.asarray(wav), jc))
+    got_floor = tf.log_mel_spectrogram(torch.from_numpy(wav), tc).numpy()
+    np.testing.assert_allclose(got_floor, want_floor, atol=LOGMEL_BAR, rtol=0)
+    assert float(np.abs(got_floor - got).max()) > 100 * LOGMEL_BAR
+
+
 def test_dequantize_pad_and_cmvn_twins():
     pcm = np.array([-32768, -1, 0, 1, 32767], np.int16)
     np.testing.assert_array_equal(

@@ -6,6 +6,9 @@ kernels (the chunked K3c and the LN+QKV kernel, in interpret mode) at
 large-v3's width; and the wrappers' shape rules and launch arguments, on
 meta tensors that stand in for CUDA ones."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -203,3 +206,126 @@ def test_serving_weights_reach_the_kernels_uncopied():
         for t in (kernel, bias):
             assert t.to(t.device, torch.bfloat16).contiguous() is t
 
+
+
+def test_bf16_ctc_bundle_serves_k2_and_k3_its_kept_copies(monkeypatch):
+    """ModelBundle.load of a bf16 CTC bundle casts the whole model for
+    serving: K2's route hands the wrapper the kept packed q/k/v operands and
+    the out-projection's bf16 copies, K3's the fc1 / fc2 copies, the same
+    tensors on every call, each its own .to(bf16).contiguous() (so the
+    wrappers copy no weight); the WF path would read the f32 kernels."""
+    from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle
+    from jiao_liao_speech_recognition_torch.utils.config import CTCModelConfig, ExperimentConfig
+
+    cfg = ExperimentConfig(ctc_model=CTCModelConfig(
+        vocab_size=40, d_model=128, num_layers=1, num_heads=2, mlp_dim=256, conv_channels=32))
+    blk = ModelBundle.load(config=cfg, device="cpu").model.blocks[0]
+    seen = []
+    monkeypatch.setattr(layers, "fused_attention_sublayer_packed",
+                        lambda x, g, bl, *w: seen.append(w[:4]) or x)
+    monkeypatch.setattr(layers, "fused_ln_mlp_residual",
+                        lambda x, g, bl, *w: seen.append(w[:4]) or x)
+    x = torch.zeros(1, 8, 128, dtype=torch.bfloat16)
+    lens = torch.full((1,), 8, dtype=torch.int32)
+    with torch.inference_mode():
+        for _ in range(2):
+            blk._serve_attention(x, lens, kernels=True)
+            blk._serve_mlp(x, kernels=True)
+        sa, mlp = blk.self_attn, blk.mlp
+        kept = [(*sa.qkv_weights(torch.bfloat16), *sa.out_proj.weights(torch.bfloat16)),
+                (*mlp.fc1.weights(torch.bfloat16), *mlp.fc2.weights(torch.bfloat16))]
+    assert len(seen) == 4
+    for got, want in zip(seen, kept * 2):
+        for g, w in zip(got, want):
+            assert g is w and g.dtype == torch.bfloat16
+            assert g.to(g.device, torch.bfloat16).contiguous() is g
+    assert sa.q_proj.kernel.dtype == mlp.fc1.kernel.dtype == torch.float32
+
+
+# --- (e) the persistent GEMM's schedule and the cheap GELU --------------------
+
+
+def _ln_gemm_source():
+    return (Path(tfm.__file__).parents[1] / "csrc" / "ln_gemm.cu").read_text()
+
+
+def _gemm_schedule(M, N, sms=132):
+    """Twin of csrc/ln_gemm.cu's static schedule: grid min(tiles, sms); block
+    b walks tiles b, b + grid, ...; its j-th tile goes to consumer
+    warpgroup j % 2; tile t is rows (t // n_tiles) * 128 and columns
+    (t % n_tiles) * 128. -> {block: [(warpgroup, m0, n0), ...]}, grid."""
+    n_tiles, tiles = N // 128, (N // 128) * -(-M // 128)
+    grid = min(tiles, sms)
+    walk = {b: [(j % 2, (t // n_tiles) * 128, (t % n_tiles) * 128)
+                for j, t in enumerate(range(b, tiles, grid))] for b in range(grid)}
+    return walk, grid
+
+
+@pytest.mark.parametrize("M", [1, 37, 24000])
+@pytest.mark.parametrize("N", [128, 512, 1536, 2048])
+def test_persistent_schedule_visits_every_tile_once(M, N):
+    """Every output tile once, the warpgroups of a block alternating, and
+    the turn barriers balanced: warpgroup w waits before each of its tiles
+    but the block's first, and is let go after each tile of the other's
+    that has a successor, so no arrival is left over."""
+    walk, grid = _gemm_schedule(M, N)
+    visited = [(m0, n0) for tiles in walk.values() for _, m0, n0 in tiles]
+    want = {(m, n) for m in range(0, -(-M // 128) * 128, 128) for n in range(0, N, 128)}
+    assert len(visited) == len(want) == len(set(visited)) and set(visited) == want
+    assert grid == min(len(want), 132) and all(walk[b] for b in walk)
+    for tiles in walk.values():
+        assert [w for w, _, _ in tiles] == [j % 2 for j in range(len(tiles))]
+        for w in (0, 1):
+            waits = sum(1 for j, (ww, _, _) in enumerate(tiles) if ww == w and j > 0)
+            lets = sum(1 for j in range(len(tiles) - 1) if tiles[j + 1][0] == w)
+            assert waits == lets
+    # the rows of tiles in flight at once: the blocks sweep whole rows
+    if M == 24000 and N == 2048:
+        first = sorted(walk[b][0][1] for b in walk)
+        assert first[-1] - first[0] == 128 * ((132 - 1) // 16)
+
+
+def _consts(name):
+    """csrc/<name>'s integer constants (expressions of literals evaluated)."""
+    src = (Path(tfm.__file__).parents[1] / "csrc" / name).read_text()
+    return {n: eval(v, {}) for n, v in  # noqa: S307 - digits and + - only
+            re.findall(r"constexpr (?:int|uint32_t) (k\w+) = ([0-9 +\-*]+);", src)}
+
+
+def test_persistent_gemm_shared_memory_fits_one_block_an_sm():
+    """The stages (32 KB each), the two warpgroups' 32 KB staging tiles, fc1's
+    GELU table and the barriers, from a 1024-aligned base, within the 227 KB
+    a block may take (csrc/ln_gemm.cu's GemmLayout), for the GELU instances
+    and the others."""
+    gemm, common = _consts("ln_gemm.cu"), _consts("common.cuh")
+    table = 2 * (common["kGeluE1"] - common["kGeluE0"]) * 128 * 2
+    for stages, extra in ((gemm["kDefaultStages"], 0), (gemm["kGeluStages"], table)):
+        smem = 1024 + stages * 32768 + 2 * 32768 + extra + (2 * stages + 3) * 8
+        assert 3 <= stages and smem <= _build.SMEM_LIMIT
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("form", ["tanh", "erf"])
+def test_gelu_table_gives_gelu_f32_bits_on_every_bf16_input(form):
+    """csrc/common.cuh's gelu_lookup emulated over all 65,536 bf16 inputs:
+    the table (the form's own bf16 result for 2^-24 <= |h| < 16) and the
+    rules outside it (bf16(0.5 h) below, h or -0 above, +inf, NaN) give
+    gelu_f32's bits for every input, with torch's tanh and exp here (the
+    card's tanhf and expf are checked the same way by chip_smoke.py)."""
+    k = _consts("common.cuh")
+    bits = np.arange(65536, dtype=np.uint32)
+    h = (bits << 16).view(np.float32)
+    ref = _bf16(tfm.gelu_f32(torch.from_numpy(h), form).numpy()).view(torch.int16).numpy()
+    sign, e, m = bits >> 15, (bits >> 7) & 0xFF, bits & 0x7F
+    inside = (e >= k["kGeluE0"]) & (e < k["kGeluE1"])
+    got = np.where(inside, ref, 0).astype(np.int16)  # the table: the form's bits
+    tiny = _bf16(h * np.float32(0.5)).view(torch.int16).numpy()
+    big = np.where((sign == 0) & ((e != 0xFF) | (m == 0)), bits,
+                   np.where(e == 0xFF, 0x7FFF, 0x8000)).astype(np.uint16).view(np.int16)
+    got = np.where(inside, got, np.where(e < k["kGeluE0"], tiny, big))
+    nan = np.isnan(tfm.gelu_f32(torch.from_numpy(h), form).numpy())
+    assert np.array_equal(got[~nan], ref[~nan])
+    assert np.all(got[nan] == 0x7FFF)  # every NaN result the canonical one
