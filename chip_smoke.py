@@ -10,7 +10,9 @@ non-zero and prints no result line):
 2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a), one
               nvcc per source, all started together; ptxas's registers
               and spill bytes of every kernel that spills and of K2's core,
-              K1, K4 and P2, which must not;
+              the GEMMs of K5/K3/K2, K1 and P1 (both instances of the
+              log-mel kernel), K4, P2 and P4's four launches, which must
+              not;
 3. kernels  - each kernel against its plain PyTorch version at main-path
               shapes, with the bars stated below: K1 (four 30 s rows at 80
               and 128 mels, and B=32 x 30 s of noise; both also against an
@@ -106,8 +108,14 @@ non-zero and prints no result line):
               residual on the int8 tensor cores), P1 (bf16x3 log-mel) and P2
               (head + argmax carried over 512-column chunks) against their plain
               versions at the flagship's shapes (P4 at B=32, T'=750 within
-              ULP_BAR; P1 at 32 x 30 s within LOGMEL_BAR on the normalized
-              surface; P2 at B=32, T'=750, V=4336: ids equal to K4's
+              ULP_BAR, two launches bitwise equal, stage by stage: its LN
+              codes counted against the plain LN's, its hidden codes and
+              output bit for bit the plain stages' on its own LN and
+              hidden codes, and a refused width leaving no error; P1, the
+              bf16 instance of K1's kernel, at 32 x 30 s within
+              LOGMEL_BAR on the normalized surface, twice bitwise equal,
+              P1 and K1 against an f64 log-mel printed; P2 at B=32,
+              T'=750, V=4336: ids equal to K4's
               everywhere, to the plain version's under the margin rule, ties
               at K4's positions to the first index, two launches bitwise
               equal); then each profiler's main() at B=32
@@ -150,6 +158,9 @@ LOGMEL_BAR = 2e-4
 # + residual, + bias). The per-element figure (ulps of each element's own
 # magnitude, floored at the mean) is printed too: it read 3 on K2's first run.
 ULP_BAR = 2.0
+# P4 at the other widths and the erf form its wrapper takes (d, mlp, GELU
+# form): the other LN row passes and GEMM instances, d > mlp included
+P4_CASES = ((1024, 2048, "erf"), (2048, 1024, "tanh"))
 # K4 and the end-to-end ids: compared on every frame whose plain top-2 logit
 # margin exceeds ARGMAX_MARGIN. K4 alone differs from its plain version by
 # f32 summation order (~1e-4 on logits of O(1)); end to end, bf16 rounding
@@ -216,7 +227,7 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
     # the A/B probes: kernels of the example scripts, not of the JAX package
     ("P4", "P4 w8a8_ln_mlp_residual", "ops.probes", "W8A8_COUNTER", "csrc/w8a8_mlp.cu",
      "examples/profile_w8a8_mlp.py:95"),
-    ("P1", "P1 log_mel_bf16x3_raw", "ops.probes", "BF16X3_COUNTER", "csrc/log_mel.cu",
+    ("P1", "P1 log_mel_bf16x3_raw", "ops.probes", "BF16X3_COUNTER", "csrc/log_mel_tf32.cu",
      "examples/profile_frontend_precision.py:105"),
     ("P2", "P2 head_argmax_chunked", "ops.probes", "CHUNKED_COUNTER", "csrc/head.cu",
      "examples/profile_head_kernel.py:113"),
@@ -350,8 +361,13 @@ def phase_device():
 NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128",
             "gemm_kernelILi0ELi0E", "gemm_kernelILi1ELi0E", "gemm_kernelILi2ELi0E",
             "gemm_kernelILi3ELi0E", "gemm_kernelILi3ELi1E", "gemm_kernelILi4ELi2E",
-            "log_mel_tf32_kernel", "head_tile_argmax_kernel", "head_merge_kernel",
-            "head_chunk_carry_kernel")
+            "log_mel_tf32_kernelILi0E", "log_mel_tf32_kernelILi1E",  # K1, P1
+            "head_tile_argmax_kernel", "head_merge_kernel", "head_chunk_carry_kernel",
+            # P4's four launches (the GEMM as <epilogue, erf form>)
+            "ln_quant_kernelILi4E", "ln_quant_kernelILi8E", "ln_quant_kernelILi16E",
+            "w8a8_tile_kernelILi0ELi0E", "w8a8_tile_kernelILi0ELi1E",
+            "w8a8_tile_kernelILi1ELi0E", "w8a8_tile_kernelILi1ELi1E",
+            "w8a8_tile_kernelILi2ELi0E")
 
 
 def phase_build():
@@ -368,6 +384,17 @@ def phase_build():
         found = [v for name, v in spills.items() if key in name]
         check(len(found) == 1 and found[0]["spill_store_bytes"] == 0
               and found[0]["spill_load_bytes"] == 0, f"{key}: ptxas reports spills or no entry")
+
+
+def k1_rows(rng):
+    """Four 30 s rows of tone + noise, quieter in two (deeper spectral
+    valleys), f32 [4, 480000], drawn from ``rng``."""
+    t = np.arange(30 * SAMPLE_RATE) / SAMPLE_RATE
+    return np.stack([
+        a * np.sin(2 * np.pi * f * t) + n * rng.randn(len(t))
+        for a, f, n in ((0.3, 440.0, 0.05), (0.1, 1200.0, 0.01), (0.0, 1.0, 0.1),
+                        (0.02, 300.0, 0.0005))
+    ]).astype(np.float32)
 
 
 def log_mel_f64(wav, fe):
@@ -495,13 +522,9 @@ def phase_kernels():
     B, T, d = 4, 750, 512
     lens = [750, 600, 313, 1]
 
-    # K1: 30 s of tone + noise, quieter in two rows (deeper spectral valleys),
-    # at 80 and 128 mels; then the timed B=32 x 30 s of noise
-    t = np.arange(30 * SAMPLE_RATE) / SAMPLE_RATE
-    wav = np.stack([
-        a * np.sin(2 * np.pi * f * t) + n * rng.randn(len(t))
-        for a, f, n in ((0.3, 440.0, 0.05), (0.1, 1200.0, 0.01), (0.0, 1.0, 0.1), (0.02, 300.0, 0.0005))
-    ]).astype(np.float32)
+    # K1: the four rows of k1_rows at 80 and 128 mels; then the timed B=32 x
+    # 30 s of noise
+    wav = k1_rows(rng)
     noise = (0.1 * rng.randn(32, 30 * SAMPLE_RATE)).astype(np.float32)
     for rows, mels in ((wav, 80), (wav, 128), (noise, 80)):
         fe = FrontendConfig(num_mels=mels)
@@ -1958,7 +1981,9 @@ def phase_int8_kernel_timing():
     """K9-int8, K10 and K11 alone (device time, so the host's dispatch of
     these short launches is left out) beside the bf16 operation each
     replaces, with their bounds; each kernel also by queued_ms, the CUDA-event
-    timing that device_ms falls back on when the profiler sees nothing."""
+    timing that device_ms falls back on when the profiler sees nothing.
+    Also K9 on a self cache (Tk 256), bf16 (beside masked SDPA) and int8
+    (beside bf16 K9), printed only."""
     import torch
 
     from jiao_liao_speech_recognition_torch.ops import decode_attention as da
@@ -2005,14 +2030,34 @@ def phase_int8_kernel_timing():
             cycle([lambda q=q, sc=sc, xi=xi, bi=bi: quant.int8_matmul_plain(xi, q, sc, bi)
                    for q, sc in sets]),
             cycle([lambda w2=w2, xi=xi: torch.matmul(xi, w2) for w2 in wb]))
+    # K9 on a decoder self cache (Tk 256: max_len 224 rounded up), bf16 and
+    # int8, the decode step's other instance, at lengths 1-224
+    tk_self = da.round_tk(WHISPER_MAX_LEN)
+    lens_self = torch.from_numpy(
+        np.random.RandomState(13).randint(1, WHISPER_MAX_LEN + 1, B)).int().cuda()
+    ksb, vsb = (randn(B, H, tk_self, dh).to(bf) for _ in range(2))
+    (ksq, kss), (vsq, vss) = (quant.quantize_kv(randn(B, H, tk_self, dh)) for _ in range(2))
+    pairs["K9-self"] = (
+        lambda: da.grouped_decode_attention(qh, ksb, vsb, lens_self),
+        lambda: da.decode_attention_plain(qh, ksb, vsb, lens_self),
+        _yardsticks().sdpa_decode(qh, ksb, vsb, lens_self))
+    pairs["K9-int8-self"] = (
+        lambda: da.grouped_decode_attention(qh, ksq, vsq, lens_self, k_scale=kss, v_scale=vss),
+        lambda: da.decode_attention_plain(qh, ksq, vsq, lens_self, k_scale=kss, v_scale=vss),
+        lambda: da.grouped_decode_attention(qh, ksb, vsb, lens_self))
     n = B * H * T  # keys read by K9: the valid prefix
-    work = {"K9-int8": (B * H * dh * 2 + B * H * dh * 4 + B * 4 + 2 * n * (dh + 4),
-                        {"bf16": 4.0 * n * dh}),
+    n_self = int(lens_self.sum()) * H
+    io = B * H * dh * 2 + B * H * dh * 4 + B * 4
+    work = {"K9-int8": (io + 2 * n * (dh + 4), {"bf16": 4.0 * n * dh}),
+            "K9-self": (io + 2 * n_self * dh * 2, {"bf16": 4.0 * n_self * dh}),
+            "K9-int8-self": (io + 2 * n_self * (dh + 4), {"bf16": 4.0 * n_self * dh}),
             "K11": (V * d + V * 4 + B * d * 2 + B * V * 4, {"bf16": 2.0 * B * V * d})}
     for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
         work[f"K10 {d_in}x{d_out}"] = (d_in * d_out + d_out * 6 + 2 * B * (d_in + d_out),
                                        {"bf16": 2.0 * B * d_in * d_out})
-    library = {"K9-int8": "K9 (bf16 caches, same shape)", "K11": "bf16 tied logits (cuBLAS)"}
+    library = {"K9-int8": "K9 (bf16 caches, same shape)", "K11": "bf16 tied logits (cuBLAS)",
+               "K9-self": "masked SDPA (boolean key mask)",
+               "K9-int8-self": "K9 (bf16 self caches, same shape)"}
     rec = {}
     with torch.inference_mode():
         for key, (kern, plain, lib) in pairs.items():
@@ -2031,13 +2076,91 @@ def phase_int8_kernel_timing():
 # --- main path 6: the A/B probes of examples/ -----------------------------------
 
 
+def _w8a8_stage_checks(p, x, scratch, got, eps, form, **info):
+    """P4's launches held to the plain version's arithmetic stage by stage,
+    each bit for bit: its LN codes and scales against the plain LN's (the
+    kernel sums the row statistics in PyTorch's order); the hidden amax and
+    codes against the plain fc1 stage run on the kernel's own LN codes and
+    scales; the output against the plain fc2 stage on the kernel's own
+    hidden codes -> the counts of differing values."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp, probes
+    from jiao_liao_speech_recognition_torch.ops.quant import quantize_int8
+
+    (w1q, s1), (w2q, s2) = quantize_int8(p["w1"]), quantize_int8(p["w2"])
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    ln = (xc * torch.rsqrt(var + eps)) * p["g"] + p["bl"]
+    lq, a_s = probes._quantize_rows(ln)
+    got_lq, got_as = scratch["ln_codes"], scratch["ln_scale"]
+    lq_diff = int((got_lq.float() != lq).sum())
+    lq_max = int((got_lq.float() - lq).abs().max())
+    scale_diff = int((got_as != a_s[:, 0]).sum())
+    # the plain fc1 stage on the kernel's LN codes and scales
+    h = probes._int_product(got_lq.float(), w1q) * (got_as[:, None] * s1) + p["b1"]
+    gl = fused_mlp.gelu_f32(h, form)
+    hq, _ = probes._quantize_rows(gl)
+    amax_diff = int((scratch["hidden_amax"] != gl.abs().amax(-1)).sum())
+    hq_diff = int((scratch["hidden_codes"].float() != hq).sum())
+    # the plain fc2 stage on the kernel's hidden codes
+    h_s_got = scratch["hidden_amax"][:, None] / 127.0
+    y = probes._int_product(scratch["hidden_codes"].float(), w2q) * (h_s_got * s2) + p["b2"]
+    out = (x.reshape(-1, d) + y.to(x.dtype)).view_as(x)
+    out_diff = int((out != got).sum())
+    counts = {"ln_codes_differing": lq_diff, "ln_codes_max_step": lq_max,
+              "ln_scales_differing": scale_diff, "hidden_amax_differing": amax_diff,
+              "hidden_codes_differing_on_its_ln_codes": hq_diff,
+              "out_differing_on_its_hidden_codes": out_diff, "rows": lq.shape[0],
+              "ln_codes": lq.numel(), "hidden_codes": hq.numel()}
+    emit({"phase": "kernels", "kernel": "P4", **info, "stages": counts})
+    check(lq_diff == 0 and scale_diff == 0,
+          f"P4 {info}: LN codes or scales differ from the plain LN's {counts}")
+    check(amax_diff == 0 and hq_diff == 0,
+          f"P4 {info}: hidden amax or codes differ from the plain fc1 stage on its LN codes "
+          f"{counts}")
+    check(out_diff == 0, f"P4 {info}: the output differs from the plain fc2 stage {counts}")
+    return counts
+
+
+def _w8a8_case(d: int, mlp: int, gelu_form: str, seed: int = 13):
+    """P4 at width d, hidden width mlp: the probe's parameter scales drawn
+    on the card from ``seed``, x bf16 [3, 347, d] (1,041 rows: a ragged last
+    row tile) -> (p, x, call(x, kernels=True, scratch=None))."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import probes
+    from jiao_liao_speech_recognition_torch.ops.quant import quantize_int8
+
+    randn = _card_randn(seed)
+    p = {"g": 1.0 + randn(d, s=0.1), "bl": randn(d, s=0.05), "w1": randn(d, mlp, s=d ** -0.5),
+         "b1": randn(mlp, s=0.02), "w2": randn(mlp, d, s=mlp ** -0.5), "b2": randn(d, s=0.02)}
+    x = randn(3, 347, d, s=0.5).to(torch.bfloat16)
+    (w1q, s1), (w2q, s2) = quantize_int8(p["w1"]), quantize_int8(p["w2"])
+    ops = probes.w8a8_operands(w1q, s1, p["b1"], w2q, s2, p["b2"])
+
+    def call(x, kernels=True, scratch=None):
+        return probes.w8a8_ln_mlp_residual(x, p["g"], p["bl"], ops, 1e-5, gelu_form,
+                                           kernels=kernels, scratch=scratch)
+
+    return p, x, call
+
+
 def phase_probe_kernels():
     """P4, P1 and P2 against their plain versions at the flagship's shapes:
     P4 at B=32, T'=750 and P1 at 32 x 30 s on their profilers' seeded
-    inputs; P2 at B=32, T'=750, V=4336 on K4's check's inputs (logits of
-    O(1), so most frames clear the margin), held to K4's ids everywhere."""
+    inputs, each launched twice and bitwise equal (P4 also stage by stage,
+    _w8a8_stage_checks, and so again at P4_CASES' widths and GELU forms on
+    1,041 rows; P1 and K1 also against an f64 log-mel, printed);
+    P2 at B=32, T'=750, V=4336 on K4's check's inputs (logits of O(1), so
+    most frames clear the margin), held to K4's ids everywhere."""
     import torch
 
+    from jiao_liao_speech_recognition_torch import _build
+    from jiao_liao_speech_recognition_torch.frontend import fused_frontend
     from jiao_liao_speech_recognition_torch.frontend.features import normalize_log_mel
     from jiao_liao_speech_recognition_torch.ops import fused_head, probes
     from jiao_liao_speech_recognition_torch.utils.config import FrontendConfig
@@ -2047,33 +2170,61 @@ def phase_probe_kernels():
         w8 = _example(PROBES["P4"][0])
         p, xs = w8.make_inputs(32, 750)
         _, w8a8 = w8.sublayers(p)
-        got = w8a8(xs[0])
+        scratch = {}
+        got = w8a8(xs[0], scratch=scratch)
         errs["P4"] = _ulp_check("P4", got, w8a8(xs[0], kernels=False), B=32, T=750)
-        # tiles over the shared-memory limit: the launch raises, and leaves no
-        # error behind for the next launch's check
-        d2, mlp2 = 1024, 4096
-        zeros = [torch.zeros(*s, device="cuda", dtype=dt) for s, dt in (
-            ((1, 16, d2), torch.bfloat16), ((d2,), None), ((d2,), None),
-            ((d2, mlp2), torch.int8), ((mlp2,), None), ((mlp2,), None),
-            ((mlp2, d2), torch.int8), ((d2,), None), ((d2,), None))]
+        _w8a8_stage_checks(p, xs[0], scratch, got, w8.EPS, w8.GELU_FORM)
+        check(torch.equal(w8a8(xs[0]), got), "P4: two launches differ")
+        for d, mlp, form in P4_CASES:
+            info = {"d": d, "mlp": mlp, "gelu_form": form}
+            p4p, x4, call = _w8a8_case(d, mlp, form)
+            scratch = {}
+            got4 = call(x4, scratch=scratch)
+            _ulp_check("P4", got4, call(x4, kernels=False), rows=x4.shape[0] * x4.shape[1],
+                       **info)
+            _w8a8_stage_checks(p4p, x4, scratch, got4, 1e-5, form, **info)
+            check(torch.equal(call(x4), got4), f"P4 {info}: two launches differ")
+        # a width its LN row pass does not take: the C entry point refuses it
+        # before any launch and leaves no error behind for the next launch
+        d2 = 2176
         try:
-            probes.w8a8_ln_mlp_residual(*zeros)
+            _build.launch("jl_w8a8_ln_mlp_residual", *[got.data_ptr()] * 14, 16, d2, d2,
+                          0, 1e-5)
             refused = False
         except RuntimeError:
             refused = True
-        check(refused, f"P4 launched at d={d2} mlp={mlp2}, over the shared-memory limit")
+        check(refused, f"P4 launched at d={d2}, over the LN row pass's width")
         check(torch.equal(w8a8(xs[0]), got), "P4 differs after a refused launch")
-        emit({"phase": "kernels", "kernel": "P4", "refused": f"d={d2} mlp={mlp2}"})
+        emit({"phase": "kernels", "kernel": "P4", "refused": f"d={d2}", "bitwise_repeat": True})
 
         fe = FrontendConfig()
         wav = _example(PROBES["P1"][0]).make_inputs(32, 30.0)[0]
-        got = normalize_log_mel(probes.log_mel_bf16x3_raw(wav), fe)
+        raw = probes.log_mel_bf16x3_raw(wav)
+        got = normalize_log_mel(raw, fe)
         want = normalize_log_mel(probes.log_mel_bf16x3_raw(wav, kernels=False), fe)
+        repeat = bool(torch.equal(probes.log_mel_bf16x3_raw(wav), raw))
+        f64 = normalize_log_mel(log_mel_f64(wav, fe), fe)
+        k1 = normalize_log_mel(fused_frontend.fused_log_mel_raw(wav), fe)
         torch.cuda.synchronize()
         errs["P1"] = float((got - want).abs().max())
         emit({"phase": "kernels", "kernel": "P1", "shape": list(wav.shape),
-              "max_abs_err": errs["P1"], "bar": LOGMEL_BAR})
+              "max_abs_err": errs["P1"], "bar": LOGMEL_BAR, "bitwise_repeat": repeat,
+              "p1_vs_f64": float((got - f64).abs().max()),
+              "p1_plain_vs_f64": float((want - f64).abs().max()),
+              "k1_vs_f64": float((k1 - f64).abs().max())})
         check(errs["P1"] <= LOGMEL_BAR, f"P1 log-mel error {errs['P1']} > {LOGMEL_BAR}")
+        check(repeat, "P1: two launches differ")
+        # the precision half of P1's A/B on phase 3's K1 rows (deep valleys)
+        rows = torch.from_numpy(k1_rows(np.random.RandomState(0))).cuda()
+        f64 = normalize_log_mel(log_mel_f64(rows, fe), fe)
+        p1 = normalize_log_mel(probes.log_mel_bf16x3_raw(rows), fe)
+        emit({"phase": "kernels", "kernel": "P1", "shape": list(rows.shape),
+              "rows": "k1_rows (tones, quiet rows)",
+              "p1_vs_plain": float((p1 - normalize_log_mel(
+                  probes.log_mel_bf16x3_raw(rows, kernels=False), fe)).abs().max()),
+              "p1_vs_f64": float((p1 - f64).abs().max()),
+              "k1_vs_f64": float((normalize_log_mel(fused_frontend.fused_log_mel_raw(rows), fe)
+                                  - f64).abs().max())})
 
         randn = _card_randn(12)
         B, T, d, V = 32, 750, 512, 4336
@@ -2145,16 +2296,16 @@ def phase_probe_timing():
     mlp_bytes = 2 * M * d * 2 + (4 * d + 2 * mlp) * 4
     logmel_bytes = B * L * 4 + B * mels * frames * 4 + n_fft * 2 * freqs * 4 + mels * freqs * 4
     head = (M * d * 2 + d * V * 2 + V * 4 + M * 4, {"bf16": 2.0 * M * d * V})
-    mel_ops = B * frames * (3.0 * freqs + 2.0 * freqs * mels)
-    # K1 (the partner): 3xTF32 DFT, the mel product over each filter's band
+    # the mel product over each filter's band (its nonzero columns), as both
+    # instances of the kernel run it
     bands = fused_frontend._kernel_constants(n_fft, mels, "slaney", "cuda")[3]
-    k1_mel_ops = B * frames * (3.0 * freqs + 2.0 * int((bands[:, 1] - bands[:, 0]).sum()))
+    mel_ops = B * frames * (3.0 * freqs + 2.0 * int((bands[:, 1] - bands[:, 0]).sum()))
     work = {  # probe: (its work, its partner's), as (bytes, {type: operations})
         "P4": ((mlp_bytes + 2 * d * mlp, {"int8": 4.0 * M * d * mlp}),
                (mlp_bytes + 4 * d * mlp, {"bf16": 4.0 * M * d * mlp})),
         "P1": ((logmel_bytes, {"bf16": 3.0 * B * frames * 2 * n_fft * 2 * freqs, "f32": mel_ops}),
                (logmel_bytes, {"tf32": 3.0 * B * frames * 2 * n_fft * 2 * freqs,
-                               "f32": k1_mel_ops})),
+                               "f32": mel_ops})),
         "P2": (head, head),
     }
     partner = {"P4": "K3", "P1": "K1", "P2": "K4"}

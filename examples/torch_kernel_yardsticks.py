@@ -104,15 +104,20 @@ def sdpa_unmasked_ms(q, k, v, iters: int = 20) -> float:
         return queued_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
 
 
-def sdpa_decode_ms(qh, k, v, kv_lengths, iters: int = 10) -> float:
-    """-> ms of the library call at decode shapes: qh [B, H, Tq, dh] against
+def sdpa_decode(qh, k, v, kv_lengths):
+    """-> a call of the library at decode shapes: qh [B, H, Tq, dh] against
     head-major k, v [B, H, Tk, dh] (K9's layout), keys at or past
     kv_lengths[b] masked out by a boolean key mask."""
     Tk = k.shape[2]
     mask = (torch.arange(Tk, device=k.device)[None, :] < kv_lengths[:, None].long())
     mask = mask[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+
+def sdpa_decode_ms(qh, k, v, kv_lengths, iters: int = 10) -> float:
+    """-> ms of sdpa_decode's call (CUDA events, the host's dispatch included)."""
     with torch.no_grad():
-        return cuda_ms(lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask), iters)
+        return cuda_ms(sdpa_decode(qh, k, v, kv_lengths), iters)
 
 
 def int_mm_pair_ms(a_codes, w1q, h_codes, w2q, iters: int = 20) -> float:

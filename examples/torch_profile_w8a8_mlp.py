@@ -9,9 +9,12 @@ At the flagship's MLP shape (d=512, mlp=2048, tanh GELU) with the probe's
 seeded weights and inputs (numpy RandomState(0), drawn in its order; int8
 weights per output channel by ops.quant.quantize_int8): max |w8a8 - bf16|
 and its value relative to max |bf16|, then each sublayer's device ms
-(torch.profiler, over two distinct warmed inputs) and its rate in T(FL)OPS.
-Prints the report and a JSON line; ``main(argv)`` returns the report. Needs
-a CUDA device: without one it exits non-zero.
+(torch.profiler, over two distinct warmed inputs), its rate in T(FL)OPS
+and its launches apart (device us a call by kernel name: P4's LN + codes,
+fc1 for the hidden amax, fc1 for the hidden codes, fc2 + residual; K3's
+LN, fc1 + GELU, fc2 + residual). Prints the report and a JSON line;
+``main(argv)`` returns the report. Needs a CUDA device: without one it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -51,20 +54,38 @@ def make_inputs(B: int, T: int, device: str = "cuda"):
 
 
 def sublayers(p):
-    """-> (bf16 K3 call, W8A8 P4 call) of x, each on the weights it takes."""
+    """-> (bf16 K3 call, W8A8 P4 call) of x, each on the weights it takes
+    (P4's laid out once by probes.w8a8_operands)."""
     bf = torch.bfloat16
     w1b, b1b, w2b, b2b = (p[k].to(bf) for k in ("w1", "b1", "w2", "b2"))
     (w1q, s1), (w2q, s2) = quantize_int8(p["w1"]), quantize_int8(p["w2"])
+    ops = probes.w8a8_operands(w1q, s1, p["b1"], w2q, s2, p["b2"])
 
     def bf16(x):
         return fused_mlp.fused_ln_mlp_residual(x, p["g"], p["bl"], w1b, b1b, w2b, b2b, EPS,
                                                GELU_FORM)
 
-    def w8a8(x, kernels=True):
-        return probes.w8a8_ln_mlp_residual(x, p["g"], p["bl"], w1q, s1, p["b1"], w2q, s2,
-                                           p["b2"], EPS, GELU_FORM, kernels=kernels)
+    def w8a8(x, kernels=True, scratch=None):
+        return probes.w8a8_ln_mlp_residual(x, p["g"], p["bl"], ops, EPS, GELU_FORM,
+                                           kernels=kernels, scratch=scratch)
 
     return bf16, w8a8
+
+
+def launch_us(fn, xs, calls: int = 10) -> dict:
+    """-> {kernel name: device us a call} over ``calls`` calls of fn,
+    cycling through xs, after three warm ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(xs[i % len(xs)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(xs[i % len(xs)])
+        torch.cuda.synchronize()
+    return {e.key.replace("void (anonymous namespace)::", "").split("(")[0]:
+            e.device_time_total / calls for e in prof.key_averages() if e.device_time_total}
 
 
 def main(argv=None) -> dict:
@@ -89,6 +110,9 @@ def main(argv=None) -> dict:
             ms = device_ms(cycling(fn, xs))
             report[f"{key}_ms"], report[f"{key}_tops"] = ms, ops / ms / 1e9
             print(f"{name}: {ms:8.3f} ms/sublayer  {ops / ms / 1e9:7.1f} T(FL)OPS", flush=True)
+            report[f"{key}_launch_us"] = launch_us(fn, xs)
+            for kernel, us in report[f"{key}_launch_us"].items():
+                print(f"    {us:9.1f} us  {kernel}", flush=True)
     print(json.dumps(report), flush=True)
     return report
 

@@ -1,31 +1,32 @@
-// Helpers shared by the port's hand-written Hopper kernels.
-//
-// The WMMA kernel (log_mel.cu's P1) takes bf16 16x16x16 tiles with f32
-// accumulation (mma.sync on sm_90a): activations staged in shared memory,
-// weight fragments read straight from device memory (hot in L2). The TMA +
-// wgmma kernels (ln_gemm.cu, head.cu, flash_attention.cu, log_mel_tf32.cu)
-// build on wgmma_gemm.cuh.
+// Helpers shared by the port's hand-written Hopper kernels. The TMA +
+// wgmma kernels (ln_gemm.cu, head.cu, flash_attention.cu, log_mel_tf32.cu,
+// w8a8_mlp.cu) build on wgmma_gemm.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace jl {
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kThreads = 256;  // 8 warps per block in every kernel here
+constexpr int kThreads = 256;  // 8 warps a block (decode_attention.cu, quant.cu)
 constexpr int kPad = 8;        // bf16 row padding in shared memory (16 bytes)
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// the current device's SM count, asked once a device (the persistent
+// GEMMs' grid)
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return counts[dev];
+}
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
 // round-to-nearest-even to bf16 and back: the "rounded to bf16" points of

@@ -60,6 +60,8 @@
 //    zeros. No split-K, no atomics: two launches
 //    give the same bits, and each tile's sums run in the order of the
 //    one-tile-a-block design before it, so the bits are that design's too.
+// csrc/w8a8_mlp.cu's w8a8_tile_kernel (P4) is this GEMM's int8 twin, with
+// the same producer loop and barrier protocol: a fix to one belongs in both.
 // K5 is ln_rows + gemm<kBias> (N = 3D); K3 is ln_rows + gemm<kGelu*> (N =
 // mlp, into a hidden scratch) + gemm<kResidual> (K = mlp); K2h-out is
 // gemm<kResidual, kOutProj> alone; K2 is K5's two launches, the attention
@@ -390,17 +392,6 @@ int ln_rows(const bf16* x, const float* g, const float* bl, bf16* ln, int M, int
   ln_rows_kernel<ENTRY><<<ceil_div(M, kLnWarps), kLnWarps * 32, 0, stream>>>(x, g, bl, ln, M, d,
                                                                              eps);
   return (int)cudaGetLastError();
-}
-
-// the current device's SM count, asked once a device
-int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0 &&
-      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return counts[dev];
 }
 
 // a [rows, cols] bf16 tensor (row pitch cols) in 64-column x 128-row boxes

@@ -1,7 +1,9 @@
 // The mainloop of a TMA-fed wgmma GEMM for Hopper (sm_90a), written to be
 // shared: C[128 x 128 tile] = A . B in f32 for bf16 A [M, K] row-major
 // (K-major) and bf16 B [K, N] row-major (N-major, as the JAX Dense kernels
-// are stored: [in, out]). The caller owns the epilogue.
+// are stored: [in, out]). The caller owns the epilogue. Beside it, the
+// products other kernels build their own loops on: bf16 with A from
+// registers at N 64, 104 and 128, and s8 x s8 -> s32 (csrc/w8a8_mlp.cu).
 //
 // (csrc/ln_gemm.cu's persistent GEMM takes the tile constants and products
 // below with its own loop.) A block of wg::Pipeline runs one output tile
@@ -81,6 +83,11 @@ __device__ __forceinline__ void fence_operand(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_operand(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // warp-specialised register budgets: the producer warp gives registers up,
 // the consumer warpgroups take them (each warpgroup as a whole, once, at
@@ -99,7 +106,8 @@ __device__ __forceinline__ void reg_alloc() {
 // a register A is the m16n8k16 A fragment of each warp's 16 rows, which is,
 // element for element, the accumulator layout of an earlier product (the
 // flash kernels feed P and dS back this way). Overloads on the accumulator
-// size pick N: float[32] is N = 64, float[64] is N = 128.
+// size pick N: float[32] is N = 64, float[64] N = 128; int[64] is the s8
+// product at N = 128.
 
 // d[32] (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared; N-major when
 // TRANS_B == 1); scale_d == 0 overwrites d instead of adding to it
@@ -195,6 +203,65 @@ __device__ __forceinline__ void mma_m64n128k16_rs(float (&d)[64], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
+// d[52] (+)= A (64 x 16, registers: the m16n8k16 A fragment of each warp's 16
+// rows, 4 x b32 of bf16 pairs) . B (16 x 104, shared; N-major when TRANS_B ==
+// 1); scale_d == 0 overwrites d instead of adding to it
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n104k16_rs(float (&d)[52], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %57, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51}, "
+      "{%52, %53, %54, %55}, %56, p, 1, 1, %58;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The 8-bit products (s8 x s8 -> s32, exact): wgmma takes both 8-bit
+// operands K-major only ([rows][k] and [n][k] in shared memory, no
+// transpose immediate); the accumulator layout is the f32 one (acc_row,
+// acc_col below), a k32 step reads 32 bytes of each row, as a bf16 k16
+// step does.
+
+// d[64] (+)= A (64 x 32 s8, shared, K-major) . B (32 x 128 s8, shared,
+// K-major: [n][k]); scale_d == 0 overwrites d instead of adding to it
+__device__ __forceinline__ void mma_s8_m64n128k32(int (&d)[64], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n\t}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 template <int TRANS_B>
 __device__ __forceinline__ void mma(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                     int scale_d = 1) {
@@ -212,6 +279,10 @@ __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint
 template <int TRANS_B>
 __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
   mma_m64n128k16_rs<TRANS_B>(d, a, desc_b);
+}
+__device__ __forceinline__ void mma(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                    int scale_d = 1) {
+  mma_s8_m64n128k32(d, desc_a, desc_b, scale_d);
 }
 
 // accumulator i of a consumer thread (tid in 0..127 of its warpgroup): its

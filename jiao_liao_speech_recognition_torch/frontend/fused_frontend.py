@@ -62,6 +62,15 @@ def tf32_split(a: np.ndarray):
     return hi, tf32_round(np.asarray(a, np.float32) - hi)
 
 
+def bf16_split(a: np.ndarray):
+    """-> (hi, lo) as bf16 tensors: hi = bf16(a), lo = bf16(a - hi), each
+    rounded to nearest even (cvt.rn.bf16.f32): the bf16x3 operands of P1
+    (ops/probes.py), which reads K1's basis layout split this way."""
+    full = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    hi = full.to(torch.bfloat16)
+    return hi, (full - hi.float()).to(torch.bfloat16)
+
+
 def tf32_basis(n_fft: int) -> np.ndarray:
     """The windowed DFT basis in K1's layout, f32 [BASIS_N, BASIS_K]: row
     16 q + e (e < 8) is window * cos of frequency 8 q + e over k, row

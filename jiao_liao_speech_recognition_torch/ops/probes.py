@@ -3,10 +3,12 @@ beside a production kernel to measure an alternative to it, ported with
 their plain versions.
 
 * P4, ``w8a8_ln_mlp_residual``: K3's function with int8 products (W8A8),
-  the kernel of ``examples/profile_w8a8_mlp.py``; ``csrc/w8a8_mlp.cu``.
+  the kernel of ``examples/profile_w8a8_mlp.py``; ``csrc/w8a8_mlp.cu``, on
+  the weights as ``w8a8_operands`` lays them out once.
 * P1, ``log_mel_bf16x3_raw``: K1's log-mel with the DFT as three bf16
   products, the kernel of ``examples/profile_frontend_precision.py``;
-  ``jl_log_mel_bf16x3`` of ``csrc/log_mel.cu``.
+  ``jl_log_mel_bf16x3``, the bf16 instance of K1's kernel in
+  ``csrc/log_mel_tf32.cu``.
 * P2, ``head_argmax_chunked``: K4's head + argmax with the running (max,
   argmax) carried in the block over 512-column vocabulary chunks, the
   kernel of ``examples/profile_head_kernel.py``; ``jl_head_argmax_chunked``
@@ -23,13 +25,16 @@ plain version. A wrapper takes the plain version for a CPU tensor (or with
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._build import LaunchCounter, check_cuda, launch, refuse_grad
+from .._build import LaunchCounter, check_aligned, check_cuda, launch, refuse_grad
 from ..frontend.features import _dft_basis, mel_filterbank
+from ..frontend.fused_frontend import (BASIS_K, BASIS_N, K_STEP, MAX_HOP, bf16_split,
+                                       mel_bands, tf32_basis)
 from .fused_head import head_argmax_plain, head_operands
 from .fused_mlp import gelu_f32
 from .numerics import full_f32
@@ -77,37 +82,71 @@ def w8a8_ln_mlp_residual_plain(x, g, bl, w1q, s1, b1, w2q, s2, b2, eps=1e-5, gel
     return x + y.to(x.dtype)
 
 
-def w8a8_ln_mlp_residual(x, g, bl, w1q, s1, b1, w2q, s2, b2, eps=1e-5, gelu_form="tanh",
-                         kernels=True):
-    """P4 wrapper. CPU tensors (or kernels=False) take the plain version; a
-    CUDA tensor launches the kernel (x bf16 [B, T, d], d and mlp multiples
-    of 512, d <= mlp: the flagship's d 512, mlp 2048) or raises. The kernel
-    sizes its own shared memory (csrc/w8a8_mlp.cu) and its launch raises
-    where a block's tiles pass the card's limit. The weights are transposed
-    for the kernel on each call (1 MB each at the flagship's shape)."""
+class W8A8Operands(NamedTuple):
+    """P4's weights as its kernel reads them: each product's int8 codes
+    K-major ([out][in], the only layout the 8-bit wgmma takes), the
+    per-output-channel scales and the biases in f32."""
+
+    w1t: torch.Tensor  # int8 [mlp, d]: fc1's codes, transposed
+    s1: torch.Tensor   # f32 [mlp]
+    b1: torch.Tensor   # f32 [mlp]
+    w2t: torch.Tensor  # int8 [d, mlp]: fc2's codes, transposed
+    s2: torch.Tensor   # f32 [d]
+    b2: torch.Tensor   # f32 [d]
+
+
+def w8a8_operands(w1q, s1, b1, w2q, s2, b2, device=None) -> W8A8Operands:
+    """-> W8A8Operands from int8 w1q [d, mlp], w2q [mlp, d] (ops.quant's
+    quantize_int8 of the [in, out] kernels) and their scales and biases,
+    on ``device`` (default: w1q's). Made once, not on each call."""
+    device = w1q.device if device is None else device
+    return W8A8Operands(
+        w1q.t().to(device).contiguous(), s1.to(device, torch.float32).contiguous(),
+        b1.to(device, torch.float32).contiguous(), w2q.t().to(device).contiguous(),
+        s2.to(device, torch.float32).contiguous(), b2.to(device, torch.float32).contiguous())
+
+
+def w8a8_ln_mlp_residual(x, g, bl, ops: W8A8Operands, eps=1e-5, gelu_form="tanh",
+                         kernels=True, scratch=None):
+    """P4 wrapper. CPU tensors (or kernels=False) take the plain version on
+    the operands' codes; a CUDA tensor launches the kernel (x bf16 [B, T,
+    d], d and mlp multiples of 128, d <= 2048: four launches,
+    csrc/w8a8_mlp.cu) or raises. The launches pass their intermediates
+    through scratch this allocates; a dict given as ``scratch`` receives
+    them: "ln_codes" [B*T, d] int8, "ln_scale" [B*T] f32, "hidden_amax"
+    [B*T] f32 and "hidden_codes" [B*T, mlp] int8."""
     if x.device.type == "cpu" or not kernels:
-        return w8a8_ln_mlp_residual_plain(x, g, bl, w1q, s1, b1, w2q, s2, b2, eps, gelu_form)
+        return w8a8_ln_mlp_residual_plain(x, g, bl, ops.w1t.t(), ops.s1, ops.b1, ops.w2t.t(),
+                                          ops.s2, ops.b2, eps, gelu_form)
     check_cuda("x", x, torch.bfloat16, 3)
-    check_cuda("w1q", w1q, torch.int8, 2)
-    check_cuda("w2q", w2q, torch.int8, 2)
-    refuse_grad("w8a8_ln_mlp_residual", x, g, bl, s1, b1, s2, b2)
+    check_cuda("w1t", ops.w1t, torch.int8, 2)
+    check_cuda("w2t", ops.w2t, torch.int8, 2)
+    refuse_grad("w8a8_ln_mlp_residual", x, g, bl, *ops)
     B, T, d = x.shape
-    mlp = w1q.shape[1]
-    if (d % 512 or mlp % 512 or d > mlp or tuple(w1q.shape) != (d, mlp)
-            or tuple(w2q.shape) != (mlp, d)):
+    mlp = ops.w1t.shape[0]
+    widths = {"s1": mlp, "b1": mlp, "s2": d, "b2": d}
+    if (B * T == 0 or d % 128 or mlp % 128 or d > 2048 or tuple(ops.w1t.shape) != (mlp, d)
+            or tuple(ops.w2t.shape) != (d, mlp)
+            or any(tuple(getattr(ops, k).shape) != (n,) for k, n in widths.items())):
         raise ValueError(f"unsupported W8A8 MLP shape d={d} mlp={mlp}")
     if gelu_form not in ("tanh", "erf"):
         raise ValueError(f"unknown gelu_form {gelu_form!r} (want 'tanh'|'erf')")
-    g, bl, s1, b1, s2, b2 = (v.to(x.device, torch.float32).contiguous()
-                             for v in (g, bl, s1, b1, s2, b2))
-    w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()  # [n][k]: mma's "col" B operand
+    g, bl = (v.to(x.device, torch.float32).contiguous() for v in (g, bl))
+    M, dev = B * T, x.device
+    lq = torch.empty(M, d, device=dev, dtype=torch.int8)
+    a_s, amax = (torch.empty(M, device=dev, dtype=torch.float32) for _ in range(2))
+    hq = torch.empty(M, mlp, device=dev, dtype=torch.int8)
     out = torch.empty_like(x)
+    check_aligned("w8a8_ln_mlp_residual", x, *ops, g, bl)
     launch(
-        "jl_w8a8_ln_mlp_residual", x.data_ptr(), g.data_ptr(), bl.data_ptr(), w1t.data_ptr(),
-        s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), B * T, d, mlp, int(gelu_form == "erf"), float(eps),
+        "jl_w8a8_ln_mlp_residual", x.data_ptr(), g.data_ptr(), bl.data_ptr(),
+        ops.w1t.data_ptr(), ops.s1.data_ptr(), ops.b1.data_ptr(), ops.w2t.data_ptr(),
+        ops.s2.data_ptr(), ops.b2.data_ptr(), lq.data_ptr(), a_s.data_ptr(), amax.data_ptr(),
+        hq.data_ptr(), out.data_ptr(), M, d, mlp, int(gelu_form == "erf"), float(eps),
     )
     W8A8_COUNTER.launches += 1
+    if scratch is not None:
+        scratch.update(ln_codes=lq, ln_scale=a_s, hidden_amax=amax, hidden_codes=hq)
     return out
 
 
@@ -156,8 +195,10 @@ def kernel_basis(n_fft: int, rows: int, f_pad: int) -> np.ndarray:
 
 @lru_cache(maxsize=8)
 def _bf16x3_constants(n_fft: int, num_mels: int, device: str):
-    """Basis hi and lo, bf16 [n_k, 2 f16] (cos | -sin, n_fft and n_freqs
-    rounded up to 16, zero-padded), and mel [num_mels, n_freqs] f32."""
+    """The basis in the plain version's [k, cos | -sin] layout (n_fft and
+    n_freqs rounded up to 16, zero-padded) split into bf16 hi and lo, and
+    mel [num_mels, n_freqs] f32: the values the kernel's interleaved copy
+    (_bf16x3_kernel_constants) must carry, which the tests hold it to."""
     n_k, f16 = -(-n_fft // 16) * 16, -(-(n_fft // 2 + 1) // 16) * 16
     full = torch.from_numpy(kernel_basis(n_fft, n_k, f16)).to(device)
     hi = full.to(torch.bfloat16)
@@ -166,23 +207,37 @@ def _bf16x3_constants(n_fft: int, num_mels: int, device: str):
     return hi, lo, mel
 
 
+@lru_cache(maxsize=8)
+def _bf16x3_kernel_constants(n_fft: int, num_mels: int, device: str):
+    """P1's operands in K1's layout: K1's basis [BASIS_N, BASIS_K]
+    (fused_frontend.tf32_basis) split into bf16 hi and lo by bf16_split,
+    mel [num_mels, n_freqs] f32 and its bands [num_mels, 2] i32."""
+    mel = np.ascontiguousarray(mel_filterbank(num_mels, n_fft))
+    hi, lo = bf16_split(tf32_basis(n_fft))
+    return (hi.to(device), lo.to(device), torch.from_numpy(mel).to(device),
+            torch.from_numpy(mel_bands(mel)).to(device))
+
+
 def log_mel_bf16x3_raw(wav, n_fft=400, hop=160, num_mels=80, log_floor=1e-10, kernels=True):
     """P1 wrapper. CPU tensors (or kernels=False) take log_mel_bf16x3_plain;
-    a CUDA tensor launches the kernel (wav f32 [B, L], L > n_fft // 2,
-    hop % 8 == 0, n_fft // 2 + 1 <= 224) or raises."""
+    a CUDA tensor launches the kernel (wav f32 [B, L], L > n_fft // 2; K1's
+    limits: hop % 16 == 0, hop <= MAX_HOP, n_fft <= BASIS_K and
+    n_fft // 2 + 1 <= BASIS_N / 2) or raises."""
     if wav.device.type == "cpu" or not kernels:
         return log_mel_bf16x3_plain(wav, n_fft, hop, num_mels, log_floor)
     check_cuda("wav", wav, torch.float32, 2)
     B, L = wav.shape
     n_freqs = n_fft // 2 + 1
-    if L <= n_fft // 2 or hop % 8 or n_freqs > 224:
+    if (L <= n_fft // 2 or hop % K_STEP or hop > MAX_HOP or n_fft > BASIS_K
+            or 2 * n_freqs > BASIS_N):
         raise ValueError(f"unsupported bf16x3 log-mel: L={L} n_fft={n_fft} hop={hop}")
     T = L // hop
-    hi, lo, mel = _bf16x3_constants(n_fft, num_mels, str(wav.device))
+    hi, lo, mel, bands = _bf16x3_kernel_constants(n_fft, num_mels, str(wav.device))
     out = torch.empty(B, num_mels, T, device=wav.device, dtype=torch.float32)
     launch(
         "jl_log_mel_bf16x3", wav.data_ptr(), hi.data_ptr(), lo.data_ptr(), mel.data_ptr(),
-        out.data_ptr(), B, L, T, n_fft, hop, n_freqs, num_mels, float(log_floor),
+        bands.data_ptr(), out.data_ptr(), B, L, T, n_fft, hop, n_freqs, num_mels,
+        float(log_floor),
     )
     BF16X3_COUNTER.launches += 1
     return out

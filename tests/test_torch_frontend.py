@@ -103,9 +103,9 @@ def test_kernel_constants_hold_the_basis_in_the_kernels_layout():
 
 
 def test_p1_constants_keep_their_own_layout():
-    """P1 (ops/probes.py, csrc/log_mel.cu) keeps its layout apart from K1's:
-    bf16 hi and lo [n_k = 400][2 f16 = 416], cos in columns [0, 201), -sin
-    in [208, 409), zero elsewhere."""
+    """P1's reference constants (ops/probes.py, the plain version's layout)
+    stay apart from K1's: bf16 hi and lo [n_k = 400][2 f16 = 416], cos in
+    columns [0, 201), -sin in [208, 409), zero elsewhere."""
     from jiao_liao_speech_recognition_torch.ops import probes
 
     hi, lo, mel = probes._bf16x3_constants(400, 80, "cpu")
@@ -116,6 +116,67 @@ def test_p1_constants_keep_their_own_layout():
     np.testing.assert_allclose(full[:, 208:409].numpy(), b[201:].T, rtol=2.0 ** -15, atol=1e-12)
     assert not full[:, 201:208].any() and not full[:, 409:].any()
     assert tuple(mel.shape) == (80, 201)
+
+
+def _deinterleave(basis, n_fft=400):
+    """K1's layout [416 columns][416 k] -> the plain layout [n_fft k][cos |
+    -sin] (402 columns): row 16 q + e is cos of frequency 8 q + e, row
+    16 q + 8 + e its -sin."""
+    f = np.arange(n_fft // 2 + 1)
+    rows = np.concatenate([16 * (f // 8) + f % 8, 16 * (f // 8) + 8 + f % 8])
+    return basis[rows, :n_fft].T
+
+
+def test_p1_kernel_basis_is_k1s_layout_split_into_bf16():
+    """P1's kernel operands (csrc/log_mel_tf32.cu's bf16 instance): K1's
+    basis split by fused_frontend.bf16_split, bf16 [416][416], zero past
+    n_fft and n_freqs; de-interleaved, its hi and lo are the reference
+    constants' (probes._bf16x3_constants) bit for bit; the mel matrix is
+    the reference's and the bands are K1's."""
+    from jiao_liao_speech_recognition_torch.ops import probes
+
+    hi, lo, mel, bands = probes._bf16x3_kernel_constants(400, 80, "cpu")
+    ref_hi, ref_lo, ref_mel = probes._bf16x3_constants(400, 80, "cpu")
+    assert tuple(hi.shape) == tuple(lo.shape) == (416, 416) and hi.dtype == torch.bfloat16
+    bits = [t.view(torch.int16).numpy() for t in (hi, lo, ref_hi, ref_lo)]
+    cols = np.r_[0:201, 208:409]  # the reference's cos | -sin columns
+    np.testing.assert_array_equal(_deinterleave(bits[0]), bits[2][:, cols])
+    np.testing.assert_array_equal(_deinterleave(bits[1]), bits[3][:, cols])
+    full = fused_frontend.tf32_basis(400)
+    for t in (hi, lo):
+        assert not t[full == 0].any() and not t[:, 400:].any()
+    # hi carries full's bf16 rounding, lo the rest, rounded again
+    np.testing.assert_array_equal(hi.float().numpy(),
+                                  torch.from_numpy(full).to(torch.bfloat16).float().numpy())
+    np.testing.assert_allclose((hi.double() + lo.double()).numpy(), full, rtol=2.0 ** -16, atol=0)
+    np.testing.assert_array_equal(mel.numpy(), ref_mel.numpy())
+    _, _, _, k1_bands = fused_frontend._kernel_constants(400, 80, "slaney", "cpu")
+    np.testing.assert_array_equal(bands.numpy(), k1_bands.numpy())
+
+
+def test_p1_products_through_k1s_layout_are_the_plain_versions():
+    """The three bf16 products of P1's kernel, lo.hi + hi.lo + hi.hi of the
+    frames' bf16 split and the interleaved basis, taken exactly (f64) and
+    de-interleaved, equal the same exact products of the plain version's
+    operands (probes._split_bf16 of the frames and of _dft_basis); the
+    plain version's f32 proj lies within f32 summation error of them."""
+    from jiao_liao_speech_recognition_torch.ops import probes
+
+    wav = torch.from_numpy(_wavs(B=1, secs=0.5, seed=3))
+    frames = torch.nn.functional.pad(wav[:, None], (200, 200), mode="reflect")[:, 0]
+    frames = frames.unfold(-1, 400, 160)[:, :-1]  # [1, 50, 400]
+    f_hi, f_lo = probes._split_bf16(frames)
+    hi, lo, _, _ = probes._bf16x3_kernel_constants(400, 80, "cpu")
+    kh, kl = (torch.from_numpy(_deinterleave(t.float().numpy())).double() for t in (hi, lo))
+    fh, fl = f_hi.double(), f_lo.double()
+    kernel = fl @ kh + fh @ kl + fh @ kh
+    b_hi, b_lo = probes._split_bf16(torch.from_numpy(tf._dft_basis(400).T.copy()))
+    bh, bl = b_hi.double(), b_lo.double()
+    plain_exact = fh @ bh + fl @ bh + fh @ bl
+    np.testing.assert_allclose(kernel.numpy(), plain_exact.numpy(), rtol=0, atol=1e-12)
+    proj = f_hi @ b_hi + f_lo @ b_hi + f_hi @ b_lo  # the plain version's f32 sums
+    scale = float(plain_exact.abs().max())
+    assert float((proj.double() - plain_exact).abs().max()) <= 1e-6 * scale
 
 
 def _emulate_k1(wav, n_fft=400, hop=160, num_mels=80):

@@ -32,7 +32,7 @@ from jiao_liao_speech_recognition_tpu.frontend.pallas_frontend import FRAME_TILE
 from jiao_liao_speech_recognition_tpu.ops import quant as jq  # noqa: E402
 from jiao_liao_speech_recognition_torch.frontend.features import normalize_log_mel  # noqa: E402
 from jiao_liao_speech_recognition_torch.frontend.fused_frontend import log_mel_raw_plain  # noqa: E402
-from jiao_liao_speech_recognition_torch.ops import fused_head, probes  # noqa: E402
+from jiao_liao_speech_recognition_torch.ops import fused_head, fused_mlp, probes  # noqa: E402
 from jiao_liao_speech_recognition_torch.ops.quant import quantize_int8  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils.config import FrontendConfig  # noqa: E402
 
@@ -97,9 +97,8 @@ def _t(a):
 # --- P4 ------------------------------------------------------------------------
 
 
-def _w8a8_inputs(zero_row=False):
+def _w8a8_inputs(zero_row=False, d=512, mlp=2048):
     rng = np.random.RandomState(3)
-    d, mlp = 512, 2048
     x = (0.5 * rng.randn(1, 256, d)).astype(np.float32)
     g = (1.0 + 0.1 * rng.randn(d)).astype(np.float32)
     bl = (0.05 * rng.randn(d)).astype(np.float32)
@@ -131,6 +130,176 @@ def test_w8a8_plain_matches_the_probe_kernel(monkeypatch, zero_row):
         row = (torch.tensor(0.25, dtype=torch.bfloat16) + _t(b2).to(torch.bfloat16)).float()
         np.testing.assert_array_equal(want[0, 5], row.numpy())
         np.testing.assert_array_equal(got[0, 5], row.numpy())
+
+
+def _w8a8_operands(zero_row=False, rows=200, d=512, mlp=2048):
+    x, g, bl, w1, b1, w2, b2 = _w8a8_inputs(zero_row, d, mlp)
+    (w1q, s1), (w2q, s2) = quantize_int8(_t(w1)), quantize_int8(_t(w2))
+    raw = (w1q, s1, _t(b1), w2q, s2, _t(b2))
+    return _t(x[:, :rows]).to(torch.bfloat16), _t(g), _t(bl), raw
+
+
+@pytest.mark.parametrize("gelu_form", ["tanh", "erf"])
+@pytest.mark.parametrize("zero_row", [False, True])
+def test_w8a8_prepared_operands_give_the_plain_bits(zero_row, gelu_form):
+    """The weights as w8a8_operands lays them out for the kernel (codes
+    K-major, f32 scales and biases), through the wrapper on CPU tensors,
+    give the plain version's bits on the raw operands."""
+    x, g, bl, raw = _w8a8_operands(zero_row)
+    ops = probes.w8a8_operands(*raw)
+    assert tuple(ops.w1t.shape) == (2048, 512) and tuple(ops.w2t.shape) == (512, 2048)
+    assert ops.w1t.is_contiguous() and ops.w2t.is_contiguous()
+    got = probes.w8a8_ln_mlp_residual(x, g, bl, ops, 1e-5, gelu_form)
+    assert torch.equal(got, probes.w8a8_ln_mlp_residual_plain(x, g, bl, *raw, 1e-5, gelu_form))
+
+
+def _bits_max(values: torch.Tensor) -> torch.Tensor:
+    """csrc/w8a8_mlp.cu's merge of non-negative f32 values: an integer max
+    on their bits (atomicMax on the int32 view), read back as f32."""
+    return values.view(torch.int32).max().view(1).view(torch.float32)[0]
+
+
+def _w8a8_twin(x, g, bl, ops, eps, gelu_form, tile_order):
+    """csrc/w8a8_mlp.cu's schedule on the CPU: LN codes and scales per row
+    (the plain version's ops); fc1 on 128 x 128 tiles (rows padded with
+    zero codes to whole tiles, as TMA reads them), each tile's row amax of
+    |GELU(h)| merged into the row's amax by an integer max on the bits, in
+    ``tile_order``; fc1 again on every tile,
+    the codes with h_s = amax / 127; fc2 and the residual. -> out, as the
+    four launches give it."""
+    B, T, d = x.shape
+    M, mlp = B * T, ops.w1t.shape[0]
+    xf = x.reshape(M, d).float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    ln = (xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)) * g + bl
+    lq, a_s = probes._quantize_rows(ln)
+    Mp = -(-M // 128) * 128
+    lq = torch.cat([lq, lq.new_zeros(Mp - M, d)])
+    a_s = torch.cat([a_s, a_s.new_zeros(Mp - M, 1)])
+    tiles = [(m0, n0) for m0 in range(0, Mp, 128) for n0 in range(0, mlp, 128)]
+
+    def h_tile(m0, n0):
+        acc = probes._int_product(lq[m0:m0 + 128], ops.w1t[n0:n0 + 128].t())
+        return acc * (a_s[m0:m0 + 128] * ops.s1[n0:n0 + 128]) + ops.b1[n0:n0 + 128]
+
+    amax = torch.zeros(Mp)  # set by the LN launch
+    for i in tile_order(len(tiles)):  # the atomicMax launch, in any order
+        m0, n0 = tiles[i]
+        tile_max = fused_mlp.gelu_f32(h_tile(m0, n0), gelu_form).abs().amax(-1)
+        for r in range(128):
+            amax[m0 + r] = _bits_max(torch.stack([amax[m0 + r], tile_max[r]]))
+    h_s = amax[:, None] / 127.0
+    safe = torch.where(h_s > 0, h_s, torch.ones_like(h_s))
+    hq = torch.zeros(Mp, mlp)
+    for m0, n0 in tiles:  # the codes launch: fc1 again, the same bits
+        hq[m0:m0 + 128, n0:n0 + 128] = torch.clamp(torch.round(
+            fused_mlp.gelu_f32(h_tile(m0, n0), gelu_form) / safe[m0:m0 + 128]), -127, 127)
+    y = probes._int_product(hq[:M], ops.w2t.t()) * (h_s[:M] * ops.s2) + ops.b2
+    return (x.reshape(M, d) + y.to(x.dtype)).view(B, T, d)
+
+
+@pytest.mark.parametrize("gelu_form", ["tanh", "erf"])
+@pytest.mark.parametrize("zero_row", [False, True])
+def test_w8a8_kernel_schedule_twin_gives_the_plain_bits(zero_row, gelu_form):
+    """The twin of P4's four launches (_w8a8_twin) at 200 rows (a ragged
+    second row tile), with a zero row whose scales are 0, merging the
+    tiles' amax in a shuffled order: bit for bit the plain version."""
+    x, g, bl, raw = _w8a8_operands(zero_row)
+    ops = probes.w8a8_operands(*raw)
+    want = probes.w8a8_ln_mlp_residual_plain(x, g, bl, *raw, 1e-5, gelu_form)
+    shuffled = lambda n: np.random.RandomState(7).permutation(n)  # noqa: E731
+    assert torch.equal(_w8a8_twin(x, g, bl, ops, 1e-5, gelu_form, shuffled), want)
+
+
+@pytest.mark.parametrize("d, mlp, gelu_form", [(1024, 256, "erf"), (2048, 128, "tanh")])
+def test_w8a8_other_widths_give_the_plain_bits(d, mlp, gelu_form):
+    """Widths the wrapper takes besides the flagship's, d > mlp among them
+    (the card runs such cases beside the flagship's): the prepared operands
+    through the wrapper on CPU tensors, and the twin of the four launches
+    at 200 rows, give the plain version's bits."""
+    x, g, bl, raw = _w8a8_operands(d=d, mlp=mlp)
+    ops = probes.w8a8_operands(*raw)
+    assert tuple(ops.w1t.shape) == (mlp, d) and tuple(ops.w2t.shape) == (d, mlp)
+    want = probes.w8a8_ln_mlp_residual_plain(x, g, bl, *raw, 1e-5, gelu_form)
+    assert torch.equal(probes.w8a8_ln_mlp_residual(x, g, bl, ops, 1e-5, gelu_form), want)
+    shuffled = lambda n: np.random.RandomState(7).permutation(n)  # noqa: E731
+    assert torch.equal(_w8a8_twin(x, g, bl, ops, 1e-5, gelu_form, shuffled), want)
+
+
+def _merge_in_order(values: torch.Tensor, order) -> torch.Tensor:
+    """The bits-merge of ``values`` taken in ``order``, from 0 (the LN
+    launch's reset of a hidden row's amax)."""
+    merged = torch.zeros(())
+    for i in order:
+        merged = _bits_max(torch.stack([merged, values[i]]))
+    return merged
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_amax_merge_on_float_bits_is_order_free_seeded(seed):
+    """Non-negative f32 values (zero, subnormals, the smallest normal, the
+    largest finite, inf, and values of every scale) order as their int32
+    bits do: an integer max over the bits, in any order of merges from 0,
+    is the float max (the kernel's atomicMax on the hidden rows' amax)."""
+    rng = np.random.RandomState(seed)
+    fi = np.finfo(np.float32)
+    special = np.array([0.0, fi.smallest_subnormal, 1e-40, fi.tiny, fi.max, np.inf], np.float32)
+    scaled = (rng.rand(34) * 10.0 ** rng.randint(-45, 38, 34)).astype(np.float32)
+    n_special = rng.randint(0, 4)  # a row without inf or zero too
+    values = torch.from_numpy(np.concatenate([rng.choice(special, n_special), scaled]))
+    want = values.max()
+    for _ in range(5):
+        got = _merge_in_order(values, rng.permutation(len(values)))
+        assert got.view(torch.int32) == want.view(torch.int32)
+
+
+def test_amax_merge_on_float_bits_is_order_free():
+    """The seeded test's property over lists and orders that hypothesis
+    draws (derandomized, so every run draws the same)."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+    floats = st.floats(min_value=0.0, allow_nan=False, allow_infinity=True, width=32)
+
+    @hypothesis.settings(max_examples=200, deadline=None, derandomize=True, database=None)
+    @hypothesis.given(st.lists(floats, min_size=1, max_size=40), st.randoms(use_true_random=False))
+    def order_free(values, rnd):
+        order = list(range(len(values)))
+        rnd.shuffle(order)
+        t = torch.tensor(values, dtype=torch.float32)
+        assert _merge_in_order(t, order).view(torch.int32) == t.max().view(torch.int32)
+
+    order_free()
+
+
+def _cu_consts(name):
+    """The integer constexpr constants of csrc/<name>."""
+    import re
+
+    src = (PKG / "csrc" / name).read_text()
+    return {k: eval(v, {}) for k, v in  # noqa: S307 - digits and + - * only
+            re.findall(r"constexpr (?:int|uint32_t) (k\w+) = ([0-9 +\-*]+);", src)}
+
+
+def test_w8a8_gemm_fits_an_sm_and_its_register_budgets():
+    """csrc/w8a8_mlp.cu's GEMM: the stages (an A and a B box of 128 x 128
+    int8 each), kQuant's four 64-row staged code tiles and the barriers,
+    from a 1024-aligned base, within the 227 KB one block may take; and
+    setmaxnreg's budgets: the consumers take only what the producer
+    warpgroup gives up of the block's entry count (65,536 registers over
+    its threads, rounded down to 8)."""
+    from jiao_liao_speech_recognition_torch import _build
+
+    k = _cu_consts("w8a8_mlp.cu")
+    threads = (k["kConsumerWGs"] + 1) * 128  # kGemmThreads
+    box = k["kBM"] * k["kBK"]  # kBoxBytes
+    smem = (1024 + k["kStages"] * 2 * box + k["kConsumerWGs"] * 64 * k["kBN"]
+            + (2 * k["kStages"] + 1) * 8)
+    assert k["kStages"] >= 3 and smem <= _build.SMEM_LIMIT
+    entry = 65536 // threads // 8 * 8
+    consumer, producer = k["kConsumerRegs"], k["kProducerRegs"]
+    assert 0 <= (consumer - entry) * 128 * k["kConsumerWGs"] <= (entry - producer) * 128
+    assert consumer % 8 == 0 and producer % 8 == 0 and producer >= 24
 
 
 # --- P1 ------------------------------------------------------------------------
@@ -223,26 +392,29 @@ def test_head_plain_matches_the_probe_kernel(monkeypatch):
 
 
 def _wrapper_cases():
-    x, g, bl, w1, b1, w2, b2 = _w8a8_inputs()
-    (w1q, s1), (w2q, s2) = quantize_int8(_t(w1)), quantize_int8(_t(w2))
+    """key -> (wrapper, plain version, the wrapper's arguments, the plain
+    version's, the launch counter)."""
+    x, g, bl, raw = _w8a8_operands(rows=256)
     hx, hw, hb = _head_inputs()
+    wav = (_t(_wav(0.5)),)
+    head = (_t(hx[:2]).to(torch.bfloat16), _t(hw), _t(hb))
     return {
         "P4": (probes.w8a8_ln_mlp_residual, probes.w8a8_ln_mlp_residual_plain,
-               (_t(x).to(torch.bfloat16), _t(g), _t(bl), w1q, s1, _t(b1), w2q, s2, _t(b2),
-                1e-5, "tanh"), probes.W8A8_COUNTER),
-        "P1": (probes.log_mel_bf16x3_raw, probes.log_mel_bf16x3_plain, (_t(_wav(0.5)),),
+               (x, g, bl, probes.w8a8_operands(*raw), 1e-5, "tanh"),
+               (x, g, bl, *raw, 1e-5, "tanh"), probes.W8A8_COUNTER),
+        "P1": (probes.log_mel_bf16x3_raw, probes.log_mel_bf16x3_plain, wav, wav,
                probes.BF16X3_COUNTER),
-        "P2": (probes.head_argmax_chunked, fused_head.head_argmax_plain,
-               (_t(hx[:2]).to(torch.bfloat16), _t(hw), _t(hb)), probes.CHUNKED_COUNTER),
+        "P2": (probes.head_argmax_chunked, fused_head.head_argmax_plain, head, head,
+               probes.CHUNKED_COUNTER),
     }
 
 
 @pytest.mark.parametrize("key", ["P4", "P1", "P2"])
 def test_wrapper_takes_the_plain_version_for_cpu_tensors(key):
-    wrapper, plain, args, counter = _wrapper_cases()[key]
+    wrapper, plain, args, plain_args, counter = _wrapper_cases()[key]
     counter.reset()
     got = wrapper(*args)
-    assert torch.equal(got, plain(*args))
+    assert torch.equal(got, plain(*plain_args))
     assert torch.equal(wrapper(*args, kernels=False), got)
     assert counter.launches == 0
 
@@ -254,18 +426,18 @@ def _meta(*shape, dtype=torch.float32):
 def _w8a8_call(d, mlp, gelu_form="tanh", fc2_in=None):
     i8 = torch.int8
     return lambda: probes.w8a8_ln_mlp_residual(
-        _meta(1, 16, d, dtype=torch.bfloat16), _meta(d), _meta(d), _meta(d, mlp, dtype=i8),
-        _meta(mlp), _meta(mlp), _meta(fc2_in or mlp, d, dtype=i8), _meta(d), _meta(d), 1e-5,
-        gelu_form)
+        _meta(1, 16, d, dtype=torch.bfloat16), _meta(d), _meta(d), probes.w8a8_operands(
+            _meta(d, mlp, dtype=i8), _meta(mlp), _meta(mlp), _meta(fc2_in or mlp, d, dtype=i8),
+            _meta(d), _meta(d)), 1e-5, gelu_form)
 
 
 @pytest.mark.parametrize("call", [
-    _w8a8_call(384, 1536),  # d, mlp not multiples of 512
+    _w8a8_call(320, 1280),  # d not a multiple of 128
     _w8a8_call(512, 2048, fc2_in=1024),  # fc2 does not take fc1's width
-    _w8a8_call(1024, 512),  # d > mlp
+    _w8a8_call(2176, 4352),  # d over the LN row pass's 2048
     _w8a8_call(512, 2048, "relu"),
-    lambda: probes.log_mel_bf16x3_raw(_meta(2, 16000), hop=100),  # hop % 8
-    lambda: probes.log_mel_bf16x3_raw(_meta(2, 16000), n_fft=512),  # 257 freqs > 224
+    lambda: probes.log_mel_bf16x3_raw(_meta(2, 16000), hop=100),  # hop % 16
+    lambda: probes.log_mel_bf16x3_raw(_meta(2, 16000), n_fft=512),  # 257 freqs > 208
     lambda: probes.log_mel_bf16x3_raw(_meta(2, 150)),  # too short to reflect-pad
     # d = 1024 is taken (k streams through the TMA ring); bf16 rows of 100
     # columns are not 16-byte multiples, which the tensor map of W needs
@@ -273,7 +445,7 @@ def _w8a8_call(d, mlp, gelu_form="tanh", fc2_in=None):
                                        _meta(1024, 100, dtype=torch.bfloat16), _meta(100)),
     lambda: probes.head_argmax_chunked(_meta(1, 8, 500, dtype=torch.bfloat16),
                                        _meta(500, 100), _meta(100)),  # d % 16
-], ids=["p4-width", "p4-fc2-shape", "p4-d-over-mlp", "p4-gelu", "p1-hop", "p1-freqs", "p1-short",
+], ids=["p4-width", "p4-fc2-shape", "p4-ln-width", "p4-gelu", "p1-hop", "p1-freqs", "p1-short",
         "p2-smem", "p2-width"])
 def test_wrapper_raises_on_shapes_its_kernel_does_not_take(monkeypatch, call):
     with pytest.raises(ValueError, match="CUDA"):  # a device with no kernel
