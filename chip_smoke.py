@@ -11,8 +11,10 @@ non-zero and prints no result line):
               nvcc per source, all started together; ptxas's registers
               and spill bytes of every kernel that spills and of K2's core,
               the GEMMs of K5/K3/K2, K1 and P1 (both instances of the
-              log-mel kernel), K4, P2 and P4's four launches, which must
-              not;
+              log-mel kernel), K4, P2, P4's four launches, every K9
+              instance and K11's TMA kernel, which must not; and the SASS
+              of the int8 K9 instances and K11's TMA kernel
+              (cuobjdump), which must convert no byte to float by I2F;
 3. kernels  - each kernel against its plain PyTorch version at main-path
               shapes, with the bars stated below: K1 (four 30 s rows at 80
               and 128 mels, and B=32 x 30 s of noise; both also against an
@@ -73,7 +75,10 @@ non-zero and prints no result line):
               residual (K2h-out, the same GEMM) at B=16 x 1500 and at the six
               requests' ragged B=7 (K5 and K3c launched twice, bitwise
               equal), K6 at 20 heads of 64 and K1 at 128 mels against their
-              plain versions;
+              plain versions; K9 (bf16 caches) at Tk 1536, 256 and 128, Tq
+              1, 3 and 8, dh 64 and 128, lengths 0, 1, 15, 16, 17, around
+              the kernel's block steps and Tk, launched twice, bitwise
+              equal;
               api.load + api.transcribe of the six requests (seven 30 s chunks, one
               batch) through K1, K5, K6, K2h-out, K3 and K9; the encoder
               held against the plain path (relative L2) and the generated
@@ -84,16 +89,19 @@ non-zero and prints no result line):
               device memory in one encoder call, and
               K5, K3c (with bound-counted TFLOP/s and, as context, cuBLAS's
               products alone on a precomputed LN(x)), K2h-out (beside cuBLAS
-              addmm, its library_ms), K9 (and K6 at this shape, queued,
-              beside the library's masked call and, as context, its
-              unmasked one) alone;
+              addmm, its library_ms), K9 (cycling through caches that
+              exceed the L2 twice, the host's dispatch included; and K6 at
+              this shape, queued, beside the library's masked call and, as
+              context, its unmasked one) alone;
 9. int8     - main path 5, int8 Whisper large-v3 serving: K9's int8 half
-              (cross Tk 1536, self Tk 256 and 128), K10 (one cluster launch
+              (phase 8's cases on int8 caches), K10 (one cluster launch
               with the bias folded in: R 1, 2, 4, 7, 8, 16, 32, 64, each of
               its 16-row-tile instances, at the decoder's three shapes, with
-              and without a bias, two launches bitwise equal) and K11 (R 7,
-              8, 16 at V=51866; R 5, 40, 64 at a ragged D) against their
-              plain versions; ModelBundle.quantize() of phase 8's bundle and
+              and without a bias, two launches bitwise equal) and K11 (R 1,
+              7, 8, 16, 32, 64 at V=51866, R 16 on a table holding every
+              int8 value; R 5, 40, 64 at a ragged D; two launches bitwise
+              equal) against their plain versions;
+              ModelBundle.quantize() of phase 8's bundle and
               api.transcribe of the six requests (B=7: K9-int8 on the cross
               caches, K9 on bf16 self caches, K10 256 and K11 once a step,
               exactly), greedy_from_enc at B=16 (int8 self caches: K9-int8
@@ -101,9 +109,14 @@ non-zero and prints no result line):
               through the plain int8 decoder's steps (the margin rule) and
               the int8-vs-bf16 top-1 agreement and logit cosine (printed);
               then decode ms per step and tokens/s at B=16 (max_len 224) and
-              B=8 (max_len 64) on both paths with peak device memory, and
-              K9-int8, K10, K11 alone beside the bf16 operation each
-              replaces (K9, cuBLAS bf16 products, the bf16 tied logits);
+              B=8 (max_len 64) on both paths with peak device memory; K9
+              (bf16 and int8 caches, cross and self) and K11 alone by
+              device time, cycling through inputs that exceed the L2
+              twice (examples/torch_profile_decode_kernels.py, run in a
+              process of its own), beside
+              bound, library call (masked SDPA; none for int8 caches;
+              cuBLAS's bf16 tied logits) and the parent's reading; K10
+              alone beside cuBLAS's bf16 product;
 10. probes  - main path 6, the A/B probes of examples/: P4 (W8A8 LN + MLP +
               residual on the int8 tensor cores), P1 (bf16x3 log-mel) and P2
               (head + argmax carried over 512-column chunks) against their plain
@@ -357,7 +370,8 @@ def phase_device():
 # kernels that must build without spills (ptxas's report): K2's attention
 # core at both head widths, every instance of csrc/ln_gemm.cu's persistent
 # GEMM (K5's and K2's q/k/v product, K3's fc1 with each GELU and fc2,
-# K2h-out, K2's out-projection), K1, and K4's two launches and P2
+# K2h-out, K2's out-projection), K1, K4's two launches and P2, P4, K9 and
+# K11
 NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128",
             "gemm_kernelILi0ELi0E", "gemm_kernelILi1ELi0E", "gemm_kernelILi2ELi0E",
             "gemm_kernelILi3ELi0E", "gemm_kernelILi3ELi1E", "gemm_kernelILi4ELi2E",
@@ -367,7 +381,12 @@ NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128",
             "ln_quant_kernelILi4E", "ln_quant_kernelILi8E", "ln_quant_kernelILi16E",
             "w8a8_tile_kernelILi0ELi0E", "w8a8_tile_kernelILi0ELi1E",
             "w8a8_tile_kernelILi1ELi0E", "w8a8_tile_kernelILi1ELi1E",
-            "w8a8_tile_kernelILi2ELi0E")
+            "w8a8_tile_kernelILi2ELi0E",
+            # every K9 instance (int8 "a" and bf16 caches, dh, query rows)
+            # and K11's TMA kernel at each count of x's n8 tiles
+            *(f"decode_attention_kernel{t}Li{dh}ELi{tq}E" for t in ("Ia", "I13__nv_bfloat16")
+              for dh in (64, 128) for tq in (1, 2, 4, 8)),
+            *(f"int8_tied_logits_tma_kernelILi{nt}E" for nt in (1, 2, 4, 8)))
 
 
 def phase_build():
@@ -384,6 +403,15 @@ def phase_build():
         found = [v for name, v in spills.items() if key in name]
         check(len(found) == 1 and found[0]["spill_store_bytes"] == 0
               and found[0]["spill_load_bytes"] == 0, f"{key}: ptxas reports spills or no entry")
+    # the int8 K9 instances and K11's TMA kernel convert bytes by a permute
+    # into 2^23 (csrc/common.cuh), not I2F: their only I2F is the
+    # reciprocal step of an integer division
+    profiler = _example("torch_profile_decode_kernels")
+    i2f = profiler.sass_i2f()
+    converted = profiler.byte_conversions(i2f)
+    emit({"phase": "build", "sass_i2f": i2f, "byte_conversions": converted})
+    check(len(converted) == 12 and not any(converted.values()),
+          f"int8 K9 / K11 instances convert bytes by I2F: {converted}")
 
 
 def k1_rows(rng):
@@ -1403,7 +1431,6 @@ def phase_whisper_kernels():
     import torch
 
     from jiao_liao_speech_recognition_torch.frontend import features, fused_frontend
-    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
     from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
     from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_mlp
 
@@ -1472,18 +1499,48 @@ def phase_whisper_kernels():
     check(lse_err <= LSE_BAR, f"K6 (whisper shape) lse off by {lse_err}")
     del q, k, v, out, out_p, lse, lse_p
 
-    tk_cross, tk_self = da.round_tk(T), da.round_tk(WHISPER_MAX_LEN)
-    for tk, lens in ((tk_cross, ([T, 1, 0, tk_cross] * B)[:B]),
-                     (tk_self, list(rng.randint(0, WHISPER_MAX_LEN, B) + 1))):
-        qh = f32(B, H, 1, dh, s=1.0).to(torch.bfloat16)
-        kc, vc = (f32(B, H, tk, dh, s=1.0).to(torch.bfloat16) for _ in range(2))
-        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        got = da.grouped_decode_attention(qh, kc, vc, lt)
-        want = da.decode_attention_plain(qh, kc, vc, lt)
-        err = _ulp_check("K9", got, want, Tk=tk, lens=[int(n) for n in lens[:4]])
-        check(bool(torch.isfinite(got).all()), "K9: a row is not finite")
-        errs["K9"] = max(errs.get("K9", 0.0), err)
+    errs["K9"] = k9_cases(int8=False)
     return errs
+
+
+def k9_cases(int8: bool) -> float:
+    """K9 on bf16 or int8 caches against decode_attention_plain within
+    ULP_BAR at every horizon of the Whisper path (cross Tk 1536, self Tk 256
+    and 128), Tq 1, 3 and 8, dh 64 (20 heads) and 128 (10 heads), B=16: the
+    lengths 0, 1, 15, 16, 17, one short of, at and one past the kernel's
+    block steps of 128 and 256 keys, and Tk; each case launched twice,
+    bitwise equal. -> the largest abs error."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    key = "K9-int8" if int8 else "K9"
+    randn = _card_randn(12 + int(int8))
+    B, err = WHISPER_B, 0.0
+    for tk in (da.round_tk(WHISPER_T), da.round_tk(WHISPER_MAX_LEN),
+               da.round_tk(INT8_B16_COUNT_LEN)):
+        for dh, H in ((64, 20), (128, 10)):
+            for tq in (1, 3, 8):
+                lens = [0, 1, 15, 16, 17, 127, 128, 129, 255, 256, 257, tk - 17, tk - 1, tk]
+                lens = [min(n, tk) for n in lens] + [min(WHISPER_T, tk // 2)] * (B - len(lens))
+                qh = randn(B, H, tq, dh).to(torch.bfloat16)
+                if int8:
+                    (kc, ks), (vc, vs) = (quant.quantize_kv(randn(B, H, tk, dh)) for _ in range(2))
+                    scales = {"k_scale": ks, "v_scale": vs}
+                else:
+                    kc, vc = (randn(B, H, tk, dh).to(torch.bfloat16) for _ in range(2))
+                    scales = {}
+                lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                got = da.grouped_decode_attention(qh, kc, vc, lt, **scales)
+                again = da.grouped_decode_attention(qh, kc, vc, lt, **scales)
+                want = da.decode_attention_plain(qh, kc, vc, lt, **scales)
+                same = bool(torch.equal(got, again))
+                err = max(err, _ulp_check(key, got, want, Tk=tk, dh=dh, Tq=tq, lens=lens,
+                                          bitwise_repeat=same))
+                check(bool(torch.isfinite(got).all()), f"{key}: a row is not finite")
+                check(same, f"{key} Tk={tk} dh={dh} Tq={tq}: two launches differ")
+    return err
 
 
 def phase_whisper(counters):
@@ -1575,13 +1632,13 @@ def phase_whisper_timing(bundle):
     kernels, plain), then K5, K3c, K2h-out, K9 (cross and self caches) and
     K6 at this shape alone, with bounds and library times."""
     import torch
-    import torch.nn.functional as F
 
     from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
     from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
     from jiao_liao_speech_recognition_torch.ops import decode_attention as da
     from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
     from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_mlp
+    from jiao_liao_speech_recognition_torch.utils.timing import cycling
 
     model, w, fe = bundle.model, bundle.config.whisper, bundle.config.frontend
     B, T, d, H = WHISPER_B, WHISPER_T, w.d_model, w.num_heads
@@ -1660,17 +1717,22 @@ def phase_whisper_timing(bundle):
     q, k, v, kl, _ = _flash_inputs(rng, B, T, H, dh, [T] * B, "cuda")
     tk_cross, tk_self = da.round_tk(T), da.round_tk(WHISPER_MAX_LEN)
     qh = torch.from_numpy(rng.randn(B, H, 1, dh).astype(np.float32)).cuda().to(bf)
-    caches = {tk: [torch.from_numpy(rng.randn(B, H, tk, dh).astype(np.float32)).cuda().to(bf)
-                   for _ in range(2)] for tk in (tk_cross, tk_self)}
+    # distinct (k, v) caches whose bytes exceed the L2 twice, cycled: a
+    # decode step streams 0.9 GB between two reads of one layer's cache
+    caches = {tk: [[torch.from_numpy(rng.randn(B, H, tk, dh).astype(np.float32)).cuda().to(bf)
+                    for _ in range(2)]
+                   for _ in range(max(2, math.ceil(2 * L2_BYTES / (4 * B * H * tk * dh))))]
+              for tk in (tk_cross, tk_self)}
     lens9 = {tk_cross: torch.full((B,), T, dtype=torch.int32, device="cuda"),
              tk_self: torch.from_numpy(rng.randint(0, WHISPER_MAX_LEN, B) + 1).int().cuda()}
 
     def k9(tk):
-        return (lambda: da.grouped_decode_attention(qh, *caches[tk], lens9[tk]),
-                lambda: da.decode_attention_plain(qh, *caches[tk], lens9[tk]))
+        return (cycling(lambda kv: da.grouped_decode_attention(qh, *kv, lens9[tk]), caches[tk]),
+                cycling(lambda kv: da.decode_attention_plain(qh, *kv, lens9[tk]), caches[tk]))
 
     def sdpa9(tk):  # the library yardstick: a boolean key mask per row
-        return _yardsticks().sdpa_decode_ms(qh, *caches[tk], lens9[tk])
+        calls = [_yardsticks().sdpa_decode(qh, *kv, lens9[tk]) for kv in caches[tk]]
+        return cuda_ms(cycling(lambda call: call(), calls), 10)
 
     pairs = {
         "K5": (lambda: fused_mlp.fused_ln_qkv(*qkv_args),
@@ -1778,27 +1840,12 @@ def phase_int8_kernels():
     the kernels' row-block instances (and K11 at a ragged D)."""
     import torch
 
-    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
     from jiao_liao_speech_recognition_torch.ops import quant
 
     w = whisper_config().whisper
     randn = _card_randn(8)
-    B, T, d, H = WHISPER_B, WHISPER_T, w.d_model, w.num_heads
-    dh = d // H
-    errs = {}
-    rng = np.random.RandomState(8)
-    horizons = [(da.round_tk(T), [T] * B)]
-    for max_len in (WHISPER_MAX_LEN, INT8_B16_COUNT_LEN):  # self: Tk 256, 128
-        horizons.append((da.round_tk(max_len), list(rng.randint(1, max_len + 1, B - 1)) + [0]))
-    for tk, lens in horizons:
-        qh = randn(B, H, 1, dh).to(torch.bfloat16)
-        (kq, ks), (vq, vs) = (quant.quantize_kv(randn(B, H, tk, dh)) for _ in range(2))
-        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        got = da.grouped_decode_attention(qh, kq, vq, lt, k_scale=ks, v_scale=vs)
-        want = da.decode_attention_plain(qh, kq, vq, lt, k_scale=ks, v_scale=vs)
-        err = _ulp_check("K9-int8", got, want, Tk=tk, lens=[int(n) for n in lens[-4:]])
-        check(bool(torch.isfinite(got).all()), "K9-int8: a row is not finite")
-        errs["K9-int8"] = max(errs.get("K9-int8", 0.0), err)
+    d = w.d_model
+    errs = {"K9-int8": k9_cases(int8=True)}
     # jl_int8_matmul's instances: one 16-row tile (R <= 16: R=7 serving, R=8
     # timing, R=16), two (R=32), four (R=64); each with and without a bias,
     # and two launches on the same inputs bitwise equal
@@ -1813,18 +1860,32 @@ def phase_int8_kernels():
                                  d_in=d_in, d_out=d_out, bias=bias is not None)
                 check(torch.equal(got, again), f"K10 R={R} {d_in}x{d_out}: two launches differ")
                 errs["K10"] = max(errs.get("K10", 0.0), err)
-    # jl_int8_tied_logits' instances: one 16-row tile (R <= 16), two, four
-    for R, D, V in ((7, d, w.vocab_size), (8, d, w.vocab_size), (16, d, w.vocab_size),
-                    (5, 200, 301), (40, 200, 301), (64, 200, 301)):
+    # K11's TMA kernel (D % 16 == 0) at each of its x-tile instances (R <= 8,
+    # 16, 32, 64) and the main path's row counts, once on a table holding
+    # every int8 value -128 .. 127; its ragged-D kernel at each of its
+    # instances (R <= 16, 32, 64); each launched twice, bitwise equal
+    for R, D, V, full in ((1, d, w.vocab_size, False), (7, d, w.vocab_size, False),
+                          (8, d, w.vocab_size, False), (16, d, w.vocab_size, False),
+                          (32, d, w.vocab_size, False), (64, d, w.vocab_size, False),
+                          (16, d, w.vocab_size, True), (5, 200, 301, False),
+                          (40, 200, 301, False), (64, 200, 301, False)):
         x = randn(R, D).to(torch.bfloat16)
-        q, sv = _int8_table(randn, V, D)
-        got, want = quant.int8_logits(x, q, sv), quant.int8_tied_logits_plain(x, q, sv)
+        if full:  # every byte value in every row, scales > 0
+            q = (torch.arange(V * D, device="cuda") % 256 - 128).to(torch.int8).view(V, D)
+            sv = randn(V).abs() / 127 + 1e-3
+        else:
+            q, sv = _int8_table(randn, V, D)
+        got, again = quant.int8_logits(x, q, sv), quant.int8_logits(x, q, sv)
+        want = quant.int8_tied_logits_plain(x, q, sv)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        emit({"phase": "kernels", "kernel": "K11", "R": R, "D": D, "V": V, "max_abs_err": err,
-              "rel_err": rel, "bar_rel": LOGITS_REL_BAR})
+        same = bool(torch.equal(got, again))
+        emit({"phase": "kernels", "kernel": "K11", "R": R, "D": D, "V": V,
+              "every_int8_value": full, "max_abs_err": err, "rel_err": rel,
+              "bar_rel": LOGITS_REL_BAR, "bitwise_repeat": same})
         check(rel <= LOGITS_REL_BAR, f"K11 R={R} D={D} off by {rel} of max |logit|")
+        check(same, f"K11 R={R} D={D}: two launches differ")
         errs["K11"] = max(errs.get("K11", 0.0), err)
     return errs
 
@@ -1977,100 +2038,74 @@ def phase_int8_timing(qbundle):
         del enc
 
 
+# device ms of each row of examples/torch_profile_decode_kernels.py on the
+# kernels K9 and K11 replaced (I2F conversions; K11 a block a 256-row slice),
+# timed the same way on an H100 80GB HBM3 at 700 W (PERF.md, section 6)
+PARENT_DECODE_MS = {"K9 cross": 0.04448, "K9-int8 cross": 0.03534, "K9 self": 0.00720,
+                    "K9-int8 self": 0.00739, "K11": 0.05131}
+
+
 def phase_int8_kernel_timing():
-    """K9-int8, K10 and K11 alone (device time, so the host's dispatch of
-    these short launches is left out) beside the bf16 operation each
-    replaces, with their bounds; each kernel also by queued_ms, the CUDA-event
-    timing that device_ms falls back on when the profiler sees nothing.
-    Also K9 on a self cache (Tk 256), bf16 (beside masked SDPA) and int8
-    (beside bf16 K9), printed only."""
+    """K9's four instances (bf16 and int8 caches, cross and self) and K11
+    alone by device time, each cycling through inputs that exceed twice the
+    L2 (examples/torch_profile_decode_kernels.py), beside its bound, its
+    library call and the parent's reading; then K10 alone (device time,
+    weights cycled the same way) beside cuBLAS's bf16 product, each kernel
+    also by queued_ms, the CUDA-event timing that device_ms falls back on
+    when the profiler sees nothing."""
     import torch
 
-    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
     from jiao_liao_speech_recognition_torch.ops import quant
 
+    # in a process of its own: late in this one the profiler stops seeing
+    # the device and device_ms falls back on queued_ms, ~1.5 us a launch high
+    script = Path(__file__).resolve().parent / "examples" / "torch_profile_decode_kernels.py"
+    run = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                         check=True, timeout=900)
+    rows = {r.pop("row"): r for r in (json.loads(line) for line in run.stdout.splitlines()
+                                      if line.startswith('{"row"'))}
+    check(len(rows) == 5, f"decode profiler rows: {sorted(rows)}")
+    for name, row in rows.items():
+        emit({"phase": "timing", "kernel": name, **row,
+              "parent_ms": PARENT_DECODE_MS[name],
+              "parent": "the replaced kernels, timed the same way (PERF.md)"})
     w = whisper_config().whisper
     bf = torch.bfloat16
     randn = _card_randn(11)
-    B, T, d, H, V = WHISPER_B, WHISPER_T, w.d_model, w.num_heads, w.vocab_size
-    dh = d // H
-    tk = da.round_tk(T)
+    B, d = WHISPER_B, w.d_model
 
     def cycle(fns):  # one call of each in turn
         it = itertools.cycle(fns)
         return lambda: next(it)()
 
-    qh = randn(B, H, 1, dh).to(bf)
-    (kq, ks), (vq, vs) = (quant.quantize_kv(randn(B, H, tk, dh)) for _ in range(2))
-    kb, vb = (randn(B, H, tk, dh).to(bf) for _ in range(2))
-    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
     x = {n: randn(B, n).to(bf) for n in (d, w.mlp_dim)}
-    table = _int8_table(randn, V, d)
-    table_bf16 = (table[0].float() * table[1][:, None]).to(bf)
-    # the caches and the table exceed the 50 MB L2 on their own; a K10
-    # weight does not, and a decode step streams 0.9 GB between two reads of
-    # one, so each K10 timing cycles through enough copies to exceed it twice;
+    # a decode step streams 0.9 GB between two reads of one K10 weight, so
+    # each K10 timing cycles through enough copies to exceed the L2 twice;
     # K10 with a bias, as 224 of a step's 256 launches (k_proj has none)
-    pairs = {
-        "K9-int8": (lambda: da.grouped_decode_attention(qh, kq, vq, lens, k_scale=ks, v_scale=vs),
-                    lambda: da.decode_attention_plain(qh, kq, vq, lens, k_scale=ks, v_scale=vs),
-                    lambda: da.grouped_decode_attention(qh, kb, vb, lens)),
-        "K11": (lambda: quant.int8_logits(x[d], *table),
-                lambda: quant.int8_tied_logits_plain(x[d], *table),
-                lambda: torch.matmul(x[d], table_bf16.t())),
-    }
-    for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
-        sets = [quant.quantize_int8(randn(d_in, d_out, s=d_in ** -0.5))
-                for _ in range(math.ceil(2 * L2_BYTES / (d_in * d_out)))]
-        wb = [(q.float() * sc).to(bf) for q, sc in sets]
-        xi, bi = x[d_in], randn(d_out, s=0.5).to(bf)
-        pairs[f"K10 {d_in}x{d_out}"] = (
-            cycle([lambda q=q, sc=sc, xi=xi, bi=bi: quant.int8_gemv(xi, q, sc, bi)
-                   for q, sc in sets]),
-            cycle([lambda q=q, sc=sc, xi=xi, bi=bi: quant.int8_matmul_plain(xi, q, sc, bi)
-                   for q, sc in sets]),
-            cycle([lambda w2=w2, xi=xi: torch.matmul(xi, w2) for w2 in wb]))
-    # K9 on a decoder self cache (Tk 256: max_len 224 rounded up), bf16 and
-    # int8, the decode step's other instance, at lengths 1-224
-    tk_self = da.round_tk(WHISPER_MAX_LEN)
-    lens_self = torch.from_numpy(
-        np.random.RandomState(13).randint(1, WHISPER_MAX_LEN + 1, B)).int().cuda()
-    ksb, vsb = (randn(B, H, tk_self, dh).to(bf) for _ in range(2))
-    (ksq, kss), (vsq, vss) = (quant.quantize_kv(randn(B, H, tk_self, dh)) for _ in range(2))
-    pairs["K9-self"] = (
-        lambda: da.grouped_decode_attention(qh, ksb, vsb, lens_self),
-        lambda: da.decode_attention_plain(qh, ksb, vsb, lens_self),
-        _yardsticks().sdpa_decode(qh, ksb, vsb, lens_self))
-    pairs["K9-int8-self"] = (
-        lambda: da.grouped_decode_attention(qh, ksq, vsq, lens_self, k_scale=kss, v_scale=vss),
-        lambda: da.decode_attention_plain(qh, ksq, vsq, lens_self, k_scale=kss, v_scale=vss),
-        lambda: da.grouped_decode_attention(qh, ksb, vsb, lens_self))
-    n = B * H * T  # keys read by K9: the valid prefix
-    n_self = int(lens_self.sum()) * H
-    io = B * H * dh * 2 + B * H * dh * 4 + B * 4
-    work = {"K9-int8": (io + 2 * n * (dh + 4), {"bf16": 4.0 * n * dh}),
-            "K9-self": (io + 2 * n_self * dh * 2, {"bf16": 4.0 * n_self * dh}),
-            "K9-int8-self": (io + 2 * n_self * (dh + 4), {"bf16": 4.0 * n_self * dh}),
-            "K11": (V * d + V * 4 + B * d * 2 + B * V * 4, {"bf16": 2.0 * B * V * d})}
-    for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
-        work[f"K10 {d_in}x{d_out}"] = (d_in * d_out + d_out * 6 + 2 * B * (d_in + d_out),
-                                       {"bf16": 2.0 * B * d_in * d_out})
-    library = {"K9-int8": "K9 (bf16 caches, same shape)", "K11": "bf16 tied logits (cuBLAS)",
-               "K9-self": "masked SDPA (boolean key mask)",
-               "K9-int8-self": "K9 (bf16 self caches, same shape)"}
-    rec = {}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rec = {key: {k: rows[name][k] for k in keys}
+           for key, name in (("K9", "K9 cross"), ("K9-int8", "K9-int8 cross"), ("K11", "K11"))}
     with torch.inference_mode():
-        for key, (kern, plain, lib) in pairs.items():
+        for d_in, d_out in ((d, d), (d, w.mlp_dim), (w.mlp_dim, d)):
+            sets = [quant.quantize_int8(randn(d_in, d_out, s=d_in ** -0.5))
+                    for _ in range(math.ceil(2 * L2_BYTES / (d_in * d_out)))]
+            wb = [(q.float() * sc).to(bf) for q, sc in sets]
+            xi, bi = x[d_in], randn(d_out, s=0.5).to(bf)
+            kern = cycle([lambda q=q, sc=sc: quant.int8_gemv(xi, q, sc, bi) for q, sc in sets])
+            plain = cycle([lambda q=q, sc=sc: quant.int8_matmul_plain(xi, q, sc, bi)
+                           for q, sc in sets])
+            lib = cycle([lambda w2=w2: torch.matmul(xi, w2) for w2 in wb])
             turns = [device_ms(plain, 5), device_ms(kern), device_ms(kern), device_ms(plain, 5)]
-            bound_ms, bound_by = bound(*work[key])
+            bound_ms, bound_by = bound(d_in * d_out + d_out * 6 + 2 * B * (d_in + d_out),
+                                       {"bf16": 2.0 * B * d_in * d_out})
             row = {"ms": (turns[1] + turns[2]) / 2, "plain_ms": (turns[0] + turns[3]) / 2,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": device_ms(lib)}
-            emit({"phase": "timing", "kernel": key, "B": B, **row, "turns_ms": turns,
-                  "ms_with_dispatch": cuda_ms(kern, 50), "ms_queued": queued_ms(kern),
-                  "library": library.get(key, "cuBLAS bf16 matmul, same shape")})
-            rec[key] = row
-    # the table's K10 row: the d x d projection, six of a block's eight launches
-    return {"K9-int8": rec["K9-int8"], "K10": rec[f"K10 {d}x{d}"], "K11": rec["K11"]}
+            emit({"phase": "timing", "kernel": f"K10 {d_in}x{d_out}", "B": B, **row,
+                  "turns_ms": turns, "ms_with_dispatch": cuda_ms(kern, 50),
+                  "ms_queued": queued_ms(kern), "library": "cuBLAS bf16 matmul, same shape"})
+            if d_in == d_out:  # the table's K10 row: six of a block's eight launches
+                rec["K10"] = row
+    return rec
 
 
 # --- main path 6: the A/B probes of examples/ -----------------------------------

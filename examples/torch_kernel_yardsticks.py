@@ -114,12 +114,6 @@ def sdpa_decode(qh, k, v, kv_lengths):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
 
 
-def sdpa_decode_ms(qh, k, v, kv_lengths, iters: int = 10) -> float:
-    """-> ms of sdpa_decode's call (CUDA events, the host's dispatch included)."""
-    with torch.no_grad():
-        return cuda_ms(sdpa_decode(qh, k, v, kv_lengths), iters)
-
-
 def int_mm_pair_ms(a_codes, w1q, h_codes, w2q, iters: int = 20) -> float:
     """-> device ms of the library's two int8 products of P4's MLP
     (``torch._int_mm``, int32 out): LN codes [M, d] by w1q [d, mlp] and

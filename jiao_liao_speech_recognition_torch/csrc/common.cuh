@@ -29,6 +29,29 @@ inline int sm_count() {
 }
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
+// int8 -> f32 without an integer-to-float conversion (I2F issues at 16 a
+// clock an SM on sm_90, an eighth of the FP32 rate): the sign-flipped byte
+// u = b + 128 is put in the low mantissa bits of 2^23 (bits 0x4B0000uu are
+// the float 2^23 + u), and 2^23 + 128 is subtracted. Both steps are exact
+// for every int8 value. f[i] is byte i of w.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.0f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.0f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.0f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.0f;
+}
+
+// int8 -> bf16, exact, as two bf16x2 words (.x: bytes 0, 1; .y: bytes 2, 3;
+// the lower byte in the lower half): the high halves of int8x4_to_f32's
+// values, whose low 16 bits are zero (|b| <= 128 needs 8 significant bits)
+__device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t w) {
+  float f[4];
+  int8x4_to_f32(w, f);
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
 // round-to-nearest-even to bf16 and back: the "rounded to bf16" points of
 // the JAX kernels
 __device__ inline float round_bf16(float v) {

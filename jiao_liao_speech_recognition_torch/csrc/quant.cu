@@ -36,19 +36,43 @@
 // K11, jl_int8_tied_logits, replaces ops/quant.py::int8_tied_logits
 // (_int8_tied_logits_pallas / _int8_logits_kernel): logits = (x . q^T) * s
 // for x bf16 [R <= 64, D], q int8 row-major [V, D] (per-vocab-row), s f32
-// [V] -> f32 [R, V].
+// [V] -> f32 [R, V]. The products of bf16 values accumulate in f32, scaled
+// after the sum.
 //
-// What bounds it: bytes again, the table (large-v3: 66.4 MB, ~20 us) read
-// once a step. At R=16 it is 2.1 GFLOP, too much for CUDA-core FMAs at the
-// byte rate, so it runs on the tensor cores: mma.sync m16n8k16 bf16 with
-// f32 accumulation, x as the A operand (16-row tiles from shared memory),
-// the table as B. A row-major [V, D] table already is the "col" B operand,
-// so no transposed copy exists. Each lane loads 16 contiguous bytes of one
-// vocab row per 64-column step and converts them to bf16 in registers; the
-// contraction order inside the 64 columns is permuted (the same way for x)
-// so that those 16 bytes are the lane's B fragments of four k16 steps.
-// A block of 8 warps owns 256 vocab rows (4 n8 tiles a warp); the ragged
-// vocab tail is masked and any D is taken (D % 16 != 0 reads bytes).
+// What bounds it: bytes, the table (large-v3: 66.4 MB, a 20.9 us bound) read
+// once a step. Design (int8_tied_logits_tma_kernel, D % 16 == 0):
+// - Persistent: one block an SM, each with a balanced, contiguous share of
+//   the ceil(V / 32) tiles of 32 vocab rows, so no wave tail is left.
+// - The table streamed by TMA: a 2-D tensor map over [V, D] uint8 (the row
+//   pitch D must be a multiple of 16), boxes of [32 rows][64 bytes] (rows
+//   at a 64-byte pitch in shared memory: two rows fill the 32 banks, so the
+//   16-byte fragment reads below are conflict-free; rows past V and columns
+//   past D arrive as zeros). A stage is a box for each of the tile's k
+//   parts (eight parts, a 16 KB stage, for up to 16 rows of x; four, 8 KB,
+//   above), a ring of up to 128 KB of stages (at least 32 KB in flight at
+//   R = 64, where x takes most of shared memory); one producer warp issues
+//   them, the consumer warps release them.
+// - The products: mma.sync m16n8k16 (bf16 in, f32 accumulators). The
+//   table is the A operand: a lane reads 16 bytes of one vocab row of a
+//   64-column box (and of the row 8 below) and converts them in registers,
+//   exactly, with common.cuh::int8x4_to_bf16x4 (no I2F); the contraction
+//   order inside the 64 columns is permuted (the same way for x) so that
+//   those 16 bytes are the lane's A fragments of four k16 steps. x, staged
+//   once a block in shared memory, is the B operand in n8 tiles of x rows
+//   (R <= 8 takes one). Chosen over wgmma, whose register-A form needs 64
+//   vocab rows of a warpgroup in lockstep and x in a core-matrix layout:
+//   at 2 flops a table byte the products are not what bounds the kernel.
+// - Consumer warps: the tile's two 16-row halves times its k parts (warp
+//   (half, j) takes box j of every stage); at a tile's end the parts'
+//   partials meet in shared memory and are summed in part order, scaled by
+//   s[v] in f32 and stored as rows of 32 consecutive vocab entries (out's
+//   row pitch V * 4 need not be a multiple of 16, so no TMA store). Sums in
+//   a fixed order: two launches give the same bits.
+// A row pitch that is not a multiple of 16 bytes cannot be a tensor map:
+// D % 16 != 0 takes int8_tied_logits_ragged_kernel, the first port's
+// kernel (8 warps of 32 vocab rows, x the A operand, each lane loading 16
+// bytes of a row per 64-column step, bytes read one by one at the ragged
+// edge); ops/quant.py::int8_logits chooses by that rule.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -238,15 +262,16 @@ int matmul(const CUtensorMap& tq, const bf16* x, const float* s, const bf16* bia
 
 // --- K11 -----------------------------------------------------------------------
 
+// the ragged-D kernel (D % 16 != 0)
 constexpr int kNT = 4;                     // n8 vocab tiles per warp
 constexpr int kVocabPerBlock = kWarps * kNT * 8;
 
 // x [R, D] bf16, q [V, D] int8, s [V] f32 -> out [R, V] f32; MT 16-row tiles
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
-int8_tied_logits_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                        const float* __restrict__ s, float* __restrict__ out, int R, int V,
-                        int D) {
+int8_tied_logits_ragged_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
+                               const float* __restrict__ s, float* __restrict__ out, int R,
+                               int V, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [MT * 16][Dp + kPad], zero past R and D
   const int Dp = ceil_div(D, 64) * 64;
@@ -323,14 +348,194 @@ int8_tied_logits_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q
 }
 
 template <int MT>
-int logits(const bf16* x, const int8_t* q, const float* s, float* out, int R, int V, int D,
-           cudaStream_t stream) {
+int logits_ragged(const bf16* x, const int8_t* q, const float* s, float* out, int R, int V,
+                  int D, cudaStream_t stream) {
   const size_t smem = (size_t)MT * 16 * (ceil_div(D, 64) * 64 + kPad) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(int8_tied_logits_kernel<MT>,
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(int8_tied_logits_ragged_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int8_tied_logits_kernel<MT><<<ceil_div(V, kVocabPerBlock), kThreads, smem, stream>>>(
+  int8_tied_logits_ragged_kernel<MT><<<ceil_div(V, kVocabPerBlock), kThreads, smem, stream>>>(
       x, q, s, out, R, V, D);
+  return (int)cudaGetLastError();
+}
+
+// the TMA kernel (D % 16 == 0)
+constexpr int kTileRows = 32;     // vocab rows of a tile: two m16 halves
+constexpr int kBoxCols = 64;      // table bytes (columns) of a box
+constexpr int kBoxBytes = kTileRows * kBoxCols;
+constexpr int kRingBytes = 128 * 1024;  // the most a ring holds in flight
+
+// the k parts a tile is split into: eight for up to 16 rows of x (sixteen
+// consumer warps), four above (x and the parts' partials take the room)
+template <int NT> struct LogitsShape {
+  static constexpr int kParts = NT <= 2 ? 8 : 4;
+  static constexpr int kStageBytes = kParts * kBoxBytes;  // a box for each part
+  static constexpr int kConsumers = 2 * kParts;           // warps: two halves x the parts
+  static constexpr int kThreads = 32 * (kConsumers + 1);  // + the producer warp
+};
+
+// shared memory: the ring, x [NT * 8][Dp + kPad] bf16, the parts'
+// partials [kParts][kTileRows][NT * 8 + 1] f32, the barriers
+template <int NT>
+__host__ __device__ inline size_t tma_logits_smem(int D, int stages) {
+  const int dp = ceil_div(D, kBoxCols) * kBoxCols;
+  return 128 + (size_t)stages * LogitsShape<NT>::kStageBytes +
+         align128((size_t)NT * 8 * (dp + kPad) * 2) +
+         align128((size_t)LogitsShape<NT>::kParts * kTileRows * (NT * 8 + 1) * 4) +
+         16 * (size_t)stages;
+}
+
+template <int N>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
+}
+
+// x [R, D] bf16, q [V, D] int8 (the tensor map tq), s [V] f32 -> out [R, V]
+// f32; NT n8 tiles of x rows (R <= 8 NT); `stages` ring stages
+template <int NT>
+__global__ void __launch_bounds__(LogitsShape<NT>::kThreads, 1)
+int8_tied_logits_tma_kernel(const __grid_constant__ CUtensorMap tq, const bf16* __restrict__ x,
+                            const float* __restrict__ s, float* __restrict__ out, int R, int V,
+                            int D, int stages) {
+  using Shape = LogitsShape<NT>;
+  constexpr int kParts = Shape::kParts, kConsumers = Shape::kConsumers;
+  constexpr int kXRows = NT * 8, kLdr = kXRows + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* ring = smem_raw + (((raw + 127) & ~127u) - raw);  // [stages][kParts][32][64]
+  const int nchunks = ceil_div(D, kBoxCols), dp = nchunks * kBoxCols, ldx = dp + kPad;
+  bf16* xs = reinterpret_cast<bf16*>(ring + (size_t)stages * Shape::kStageBytes);  // [kXRows][ldx]
+  float* red = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(xs) +
+                                        align128((size_t)kXRows * ldx * 2));
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + kParts * kTileRows * kLdr);
+  uint64_t* empty = full + stages;
+
+  const int tiles = ceil_div(V, kTileRows);
+  const int t0 = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  const int steps = ceil_div(nchunks, kParts);  // stages a tile
+  const int total = (t1 - t0) * steps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  // x, zero past R and D (D % 8 == 0: a 16-byte vector is all in or out)
+  const int vecs = dp / 8;
+  for (int i = threadIdx.x; i < kXRows * vecs; i += Shape::kThreads) {
+    const int r = i / vecs, c = (i % vecs) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R && c < D) val = *reinterpret_cast<const uint4*>(x + (size_t)r * D + c);
+    *reinterpret_cast<uint4*>(xs + (size_t)r * ldx + c) = val;
+  }
+  __syncthreads();  // x staged, the barriers initialised
+
+  if (warp == kConsumers) {  // the producer
+    if (lane == 0) {
+      for (int it = 0; it < total; ++it) {
+        const int st = it % stages;
+        if (it >= stages) mbar_wait(&empty[st], ((it / stages) - 1) & 1);
+        const int row = (t0 + it / steps) * kTileRows, c0 = (it % steps) * kParts;
+        const int nb = min(kParts, nchunks - c0);
+        mbar_arrive_expect_tx(&full[st], (uint32_t)nb * kBoxBytes);
+        for (int j = 0; j < nb; ++j)
+          tma_load_2d(ring + (size_t)(st * kParts + j) * kBoxBytes, &tq, (c0 + j) * kBoxCols,
+                      row, &full[st]);
+      }
+    }
+    return;
+  }
+
+  const int half = warp & 1, kpart = warp >> 1;
+  const int g = lane / 4, t = lane % 4;  // mma group and thread in group
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float sv = 0.f;  // s of the vocab row this lane stores in the tile's epilogue
+  for (int it = 0; it < total; ++it) {
+    const int st = it % stages, step = it % steps, tile = t0 + it / steps;
+    if (step == 0) {
+      const int vr = tile * kTileRows + lane;
+      sv = vr < V ? s[vr] : 0.f;
+    }
+    mbar_wait(&full[st], (it / stages) & 1);
+    const int chunk = step * kParts + kpart;
+    if (chunk < nchunks) {
+      // rows g and g + 8 of this half, bytes 16t .. 16t + 15 of the box
+      const uint8_t* tb = ring + (size_t)(st * kParts + kpart) * kBoxBytes +
+                          (half * 16 + g) * kBoxCols + 16 * t;
+      const uint4 lo = *reinterpret_cast<const uint4*>(tb);
+      const uint4 hi = *reinterpret_cast<const uint4*>(tb + 8 * kBoxCols);
+      uint4 xw[NT][2];  // x row 8n + g, the same 16 columns
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const uint4* px = reinterpret_cast<const uint4*>(xs + (size_t)(8 * n + g) * ldx +
+                                                         chunk * kBoxCols + 16 * t);
+        xw[n][0] = px[0];
+        xw[n][1] = px[1];
+      }
+      const uint32_t wlo[4] = {lo.x, lo.y, lo.z, lo.w}, whi[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // k16 step i takes bytes 4i .. 4i + 3 as fragment k = 2t, 2t + 1 (A
+        // regs 0, 1; B reg 0) and 2t + 8, 2t + 9 (A regs 2, 3; B reg 1)
+        const uint2 a_lo = int8x4_to_bf16x4(wlo[i]), a_hi = int8x4_to_bf16x4(whi[i]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint4 xv = xw[n][i / 2];  // x's words 2i, 2i + 1 of the lane's eight
+          mma_bf16(acc[n], a_lo.x, a_hi.x, a_lo.y, a_hi.y, i % 2 ? xv.z : xv.x,
+                   i % 2 ? xv.w : xv.y);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (step == steps - 1) {
+      // accumulator (g [+ 8], 2t + (e & 1)) of n8 tile n: vocab row half * 16
+      // + g [+ 8] of the tile, x row 8n + 2t + (e & 1)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          red[(kpart * kTileRows + half * 16 + g + 8 * (e >> 1)) * kLdr + 8 * n + 2 * t +
+              (e & 1)] = acc[n][e];
+          acc[n][e] = 0.f;
+        }
+      consumer_sync<32 * kConsumers>();
+      // lane -> vocab row of the tile, warp -> x rows: 32 consecutive floats a store
+      const int v = tile * kTileRows + lane;
+      for (int r = warp; r < R; r += kConsumers) {
+        float a = 0.f;
+#pragma unroll
+        for (int j = 0; j < kParts; ++j) a += red[(j * kTileRows + lane) * kLdr + r];
+        if (v < V) out[(size_t)r * V + v] = a * sv;
+      }
+      consumer_sync<32 * kConsumers>();  // red is free for the next tile
+    }
+  }
+}
+
+template <int NT>
+int logits_tma(const CUtensorMap& tq, const bf16* x, const float* s, float* out, int R, int V,
+               int D, cudaStream_t stream) {
+  using Shape = LogitsShape<NT>;
+  int stages = kRingBytes / Shape::kStageBytes;
+  while (stages >= 2 && tma_logits_smem<NT>(D, stages) > 232448) --stages;
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = tma_logits_smem<NT>(D, stages);
+  cudaError_t err = cudaFuncSetAttribute(int8_tied_logits_tma_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min(sm_count(), ceil_div(V, kTileRows));
+  int8_tied_logits_tma_kernel<NT><<<grid, Shape::kThreads, smem, stream>>>(tq, x, s, out, R, V,
+                                                                           D, stages);
   return (int)cudaGetLastError();
 }
 
@@ -355,10 +560,25 @@ extern "C" int jl_int8_matmul(const bf16* x, const int8_t* q, const float* s, co
   return matmul<4>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
 }
 
+// D % 16 == 0 (the table's row pitch in a tensor map); x 16-byte aligned
 extern "C" int jl_int8_tied_logits(const bf16* x, const int8_t* q, const float* s, float* out,
                                    int R, int V, int D, cudaStream_t stream) {
+  if (R <= 0 || R > 64 || V <= 0 || D <= 0 || D % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq;
+  if (!make_tmap_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, D, V, D, kBoxCols, kTileRows,
+                    CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  if (R <= 8) return logits_tma<1>(tq, x, s, out, R, V, D, stream);
+  if (R <= 16) return logits_tma<2>(tq, x, s, out, R, V, D, stream);
+  if (R <= 32) return logits_tma<4>(tq, x, s, out, R, V, D, stream);
+  return logits_tma<8>(tq, x, s, out, R, V, D, stream);
+}
+
+// any D (the rule above sends only D % 16 != 0 here)
+extern "C" int jl_int8_tied_logits_ragged(const bf16* x, const int8_t* q, const float* s,
+                                          float* out, int R, int V, int D, cudaStream_t stream) {
   if (R <= 0 || R > 64 || D <= 0) return (int)cudaErrorInvalidValue;
-  if (R <= 16) return logits<1>(x, q, s, out, R, V, D, stream);
-  if (R <= 32) return logits<2>(x, q, s, out, R, V, D, stream);
-  return logits<4>(x, q, s, out, R, V, D, stream);
+  if (R <= 16) return logits_ragged<1>(x, q, s, out, R, V, D, stream);
+  if (R <= 32) return logits_ragged<2>(x, q, s, out, R, V, D, stream);
+  return logits_ragged<4>(x, q, s, out, R, V, D, stream);
 }

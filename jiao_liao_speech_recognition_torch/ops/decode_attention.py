@@ -84,10 +84,10 @@ def decode_attention_plain(qh, k, v, kv_lens, k_scale=None, v_scale=None):
 
 
 def decode_attention_fits(Tk: int, Tq: int = 1) -> bool:
-    """True when the kernel's shared memory ([Tq'][Tk] f32 scores plus the
-    reduction scratch) fits one block."""
+    """True when the kernel's shared memory ([Tq'][Tk] f32 scores, the
+    reduction scratch and [Tk] f32 value scales) fits one block."""
     tq = 1 if Tq <= 1 else 1 << (Tq - 1).bit_length()
-    return (tq * Tk + 8 * tq + 8 * tq * max(HEAD_WIDTHS)) * 4 <= SMEM_LIMIT
+    return (tq * Tk + 8 * tq + 8 * tq * max(HEAD_WIDTHS) + Tk) * 4 <= SMEM_LIMIT
 
 
 def grouped_decode_attention(qh, k, v, kv_lens, k_scale=None, v_scale=None):

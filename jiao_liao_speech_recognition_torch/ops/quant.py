@@ -15,7 +15,8 @@
 * K11, ``int8_tied_logits``: f32 logits (x . q^T) * s against a row-major
   int8 [V, D] table with per-vocab-row scales. At most ``MAX_KERNEL_ROWS``
   rows take ``int8_logits`` (``jl_int8_tied_logits``, replacing
-  ``_int8_tied_logits_pallas``); longer inputs take
+  ``_int8_tied_logits_pallas``; ``jl_int8_tied_logits_ragged`` where D %
+  16 != 0); longer inputs take
   ``int8_tied_logits_dequant``, the JAX package's XLA function, which
   rounds the dequantized table to bf16 before the product (the kernel
   scales after it).
@@ -36,7 +37,7 @@ import math
 
 import torch
 
-from .._build import LaunchCounter, check_cuda, launch, refuse_grad
+from .._build import LaunchCounter, check_aligned, check_cuda, launch, refuse_grad
 from .decode_attention import (
     KERNEL_TK,
     decode_attention_plain,
@@ -169,20 +170,29 @@ def int8_tied_logits_dequant(x2: torch.Tensor, q_vd: torch.Tensor,
 
 def int8_logits(x2: torch.Tensor, q_vd: torch.Tensor, scale_v: torch.Tensor) -> torch.Tensor:
     """K11 wrapper -> f32 [R, V]. CPU tensors take int8_tied_logits_plain;
-    CUDA tensors launch the kernel (R <= MAX_KERNEL_ROWS, any D) or raise."""
+    CUDA tensors launch a kernel (R <= MAX_KERNEL_ROWS) or raise. The shape
+    rule: D % 16 == 0 (the table's row pitch fits a tensor map) takes the
+    persistent TMA kernel (``jl_int8_tied_logits``); any other D the
+    ragged kernel (``jl_int8_tied_logits_ragged``). Both count on
+    LOGITS_COUNTER."""
     if x2.device.type == "cpu":
         return int8_tied_logits_plain(x2, q_vd, scale_v)
     refuse_grad("int8_logits", x2)
     x2 = x2.to(torch.bfloat16).contiguous()
+    if x2.data_ptr() % 16:  # x is staged in 16-byte vectors
+        x2 = x2.clone()
     check_cuda("q_vd", q_vd, torch.int8, 2)
     check_cuda("scale_v", scale_v, torch.float32, 1)
     R, D = x2.shape
     V = q_vd.shape[0]
     if not 0 < R <= MAX_KERNEL_ROWS or q_vd.shape[1] != D or scale_v.shape[0] != V:
         raise ValueError(f"unsupported int8 logits shape R={R} D={D} table={tuple(q_vd.shape)}")
+    tma = D % 16 == 0
+    if tma:
+        check_aligned("int8_logits", q_vd)  # a tensor map's base
     out = torch.empty(R, V, device=x2.device, dtype=torch.float32)
-    launch("jl_int8_tied_logits", x2.data_ptr(), q_vd.data_ptr(), scale_v.data_ptr(),
-           out.data_ptr(), R, V, D)
+    launch("jl_int8_tied_logits" if tma else "jl_int8_tied_logits_ragged", x2.data_ptr(),
+           q_vd.data_ptr(), scale_v.data_ptr(), out.data_ptr(), R, V, D)
     LOGITS_COUNTER.launches += 1
     return out
 
