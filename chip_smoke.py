@@ -137,7 +137,23 @@ non-zero and prints no result line):
               K1 or K4, and reports the A/B difference and both times), and
               each probe alone beside its plain version, its partner and its
               bound, with the two-call library context of
-              examples/torch_kernel_yardsticks.py.
+              examples/torch_kernel_yardsticks.py;
+11. transfer - run after phase 7: main paths 7-9, the multi-dialect
+              transfer through the CLI at the published widths of
+              configs/multi_dialect_transfer.yaml (12 x d512, 8 heads of 64,
+              mlp 2048, Att adapters of 4 x 64 after both sublayers, B=16 x
+              30 s, V 4336): `cli prepare` of three seeded corpora (jilu,
+              zhongyuan, jiaoliao; --cmvn on jiaoliao: K1); `cli train` of
+              both stages (K1, K6, K8; exact launches a stage), stage 1
+              moving every Dense kernel, the subsampler and the head, stage
+              2 leaving the backbone bitwise and moving every adapter
+              tensor, and `train --resume` taking no step; one stage-1 step
+              with every parameter trainable, kernel path against plain;
+              the bundle serving the six requests and `cli evaluate
+              --per-utt` (K1, K2 at 8 x 64, K3, K4, K6 24 a batch), held
+              against the plain path; steps/s of each stage on both paths,
+              stage 1's device idle share under the profiler, peak device
+              memory, and the bundle's greedy RTFx at B=32 x 30 s.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. Then a
@@ -254,6 +270,9 @@ PATHS = {
     "whisper_int8_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9", "K9-int8", "K10", "K11"),
     "whisper_int8_b16": ("K9-int8", "K10", "K11"),
     "probes": ("K1", "K3", "K4", "P1", "P2", "P4"),
+    "prepare": ("K1",),
+    "transfer": ("K1", "K6", "K8"),
+    "transfer_serve": ("K1", "K2", "K3", "K4", "K6"),
 }
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
@@ -280,6 +299,19 @@ PROBES = {
 FT_STEPS = 3
 FT_LOSS_BAR = 0.005
 FT_GRAD_BAR = 0.02
+# the multi-dialect transfer (configs/multi_dialect_transfer.yaml at its
+# published widths): three seeded corpora of TRANSFER_UTTS 30 s WAVs, so
+# that each train split keeps 16 rows (B=16) beside the one dev and one
+# test row prepare always takes; TRANSFER_STEPS steps a stage. Launches a
+# step: K6 at every self-attention and every Att-adapter attention (T'=750
+# >= flash_train_min_q), K8 at each that sees a tensor needing a gradient
+# (in stage 2 not block 0's self-attention, whose input is frozen).
+TRANSFER_CORPORA = ("jilu", "zhongyuan", "jiaoliao")
+TRANSFER_UTTS = 18
+TRANSFER_STEPS = 3
+# steps a timed turn of each stage: the host clock spreads by tens of
+# percent over four steps on a shared host
+TRANSFER_RATE_STEPS = 16
 # published H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM_BYTES_S and its operations over
 # the peak rate of their type
@@ -643,9 +675,9 @@ def _flash_inputs(rng, B, T, H, dh, lens, dev):
 
 def phase_flash():
     """K6 (out, lse) and K8 (dQ, dK, dV) against their plain versions at the
-    fine-tune shapes: B=16, T'=750, (8 heads of 64) and (4 of 128), ragged
-    lengths; plus one causal case. Each is launched twice on the same inputs
-    and must give the same bits."""
+    fine-tune shapes: B=16, T'=750, (8 heads of 64), (4 of 128) and (4 of
+    64, the transfer's Att adapters), ragged lengths; plus one causal case.
+    Each is launched twice on the same inputs and must give the same bits."""
     import torch
 
     from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
@@ -655,7 +687,7 @@ def phase_flash():
     B, T = 16, 750
     lens = [750, 600, 313, 1] * (B // 4)
     errs = {}
-    for H, dh, causal in ((8, 64, False), (4, 128, False), (8, 64, True)):
+    for H, dh, causal in ((8, 64, False), (4, 128, False), (4, 64, False), (8, 64, True)):
         q, k, v, kl, dout = _flash_inputs(rng, B, T, H, dh, lens, dev)
         out, lse = fl.flash_forward(q, k, v, kl, causal)
         out_p, lse_p = fl.flash_forward_plain(q, k, v, kl, causal)
@@ -680,12 +712,13 @@ def phase_flash():
               "out_share_over_1ulp": over1, "bar_ulps": ULP_BAR, "lse_max_abs_err": lse_err,
               "lse_bar": LSE_BAR, "grad_rel_err": rel, "grad_bar": GRAD_REL_BAR,
               "padded_key_grad_max": pad_max, "two_launches_bitwise_equal": bitwise})
-        check(ulps <= ULP_BAR, f"K6 out off by {ulps} ulps (H={H}, causal={causal})")
-        check(lse_err <= LSE_BAR, f"K6 lse off by {lse_err}")
-        check(all(r <= GRAD_REL_BAR for r in rel.values()), f"K8 grads off: {rel}")
-        check(pad_max == 0.0, f"K8 padded keys got gradient {pad_max}")
-        check(bitwise, f"K6/K8 differ between two launches (H={H}, causal={causal})")
-        if (H, causal) == (8, False):
+        case = f"H={H}, dh={dh}, causal={causal}"
+        check(ulps <= ULP_BAR, f"K6 out off by {ulps} ulps ({case})")
+        check(lse_err <= LSE_BAR, f"K6 lse off by {lse_err} ({case})")
+        check(all(r <= GRAD_REL_BAR for r in rel.values()), f"K8 grads off: {rel} ({case})")
+        check(pad_max == 0.0, f"K8 padded keys got gradient {pad_max} ({case})")
+        check(bitwise, f"K6/K8 differ between two launches ({case})")
+        if (H, dh, causal) == (8, 64, False):
             errs["K6"] = float((out.float() - out_p.float()).abs().max())
             errs["K8"] = max(float((g.float() - w).abs().max()) for g, w in
                              zip((dq, dk, dv), grads_p))
@@ -915,33 +948,43 @@ def phase_finetune(counters, workdir: Path):
 
 
 def phase_finetune_vs_plain(cfg):
-    """One step at the fine-tune's shapes with dropout and SpecAugment off
-    and every adapter insert nonzero: loss and adapter gradients on the
-    kernel path (K1, K6, K8) against the plain path, and both against the
-    same step in float32 (plain, einsum attention)."""
+    """One step at the fine-tune's shapes, the backbone frozen (WF inserts)."""
+    from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+
+    manifest = read_manifest(cfg.data.train_manifest)
+    step_vs_plain("finetune", cfg, manifest, CharTokenizer.build(manifest.texts()),
+                  adapters_only=True)
+
+
+def step_vs_plain(phase: str, cfg, manifest, tok, adapters_only: bool):
+    """One train step on the first batch of `manifest` with dropout and
+    SpecAugment off and every adapter tensor perturbed (WF's B and the Att
+    adapters' out_proj start at zero): loss and the gradients of the
+    trainable set (the adapters, or every parameter) on the kernel path
+    (K1, K6, K8) against the plain path, and both against the same step in
+    float32 (plain, einsum attention)."""
     import copy
 
     import torch
 
-    from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
     from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
-    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
     from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
     from jiao_liao_speech_recognition_torch.train import engine
 
     cfg = copy.deepcopy(cfg)
     cfg.ctc_model.dropout = cfg.ctc_model.adapter.dropout = 0.0
     cfg.specaugment.enabled = False
-    manifest = read_manifest(cfg.data.train_manifest)
-    tok = CharTokenizer.build(manifest.texts())
     batch = engine.batch_to_device(next(BatchIterator(manifest, tok, cfg.data)), "cuda")
     model = CTCEncoderModel(cfg.ctc_model, device="cuda", seed=cfg.train.seed)
-    params = engine.set_trainable(model, adapters_only=True)
+    params = engine.set_trainable(model, adapters_only)
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     gen = torch.Generator().manual_seed(5)
     with torch.no_grad():
-        for p in params:  # nonzero inserts: every adapter gradient is nonzero
-            p.add_(0.02 * torch.randn(p.shape, generator=gen).to(p.device))
+        for n, p in model.named_parameters():  # every adapter gradient nonzero
+            if param_is_adapter(n):
+                p.add_(0.02 * torch.randn(p.shape, generator=gen).to(p.device))
     loss_fn = engine.make_ctc_loss_fn(cfg, model)
     cfg32 = copy.deepcopy(cfg)
     cfg32.ctc_model.dtype = "float32"
@@ -957,7 +1000,7 @@ def phase_finetune_vs_plain(cfg):
         loss = fn(batch, (0, 0), True, kernels)[0]
         runs[run] = (float(loss.detach()), torch.autograd.grad(loss, ps))
     (lk, gk), (lp, gp), (l32, g32) = runs["kernels"], runs["plain"], runs["f32"]
-    del model32, params32
+    del model32, params32, runs
 
     def rel(a, b):
         return float(torch.linalg.vector_norm(a.float() - b.float())
@@ -969,10 +1012,12 @@ def phase_finetune_vs_plain(cfg):
     kern_f32 = [rel(a, b) for a, b in zip(gk, g32)]
     whole = rel(torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in gp]))
     over = [(r, n, pf) for r, n, pf in zip(grad_rel, names, plain_f32) if r > pf + FT_GRAD_BAR]
-    emit({"phase": "finetune", "vs_plain": {
+    what = "adapter" if adapters_only else "all"
+    emit({"phase": phase, "vs_plain": {
         "T_frames": int(batch["audio"].shape[1] // cfg.frontend.hop_length // 4),
-        "loss_kernels": lk, "loss_plain": lp, "loss_f32": l32, "loss_rel_err": loss_rel,
-        "loss_bar": FT_LOSS_BAR, "adapter_tensors": len(grad_rel), "grad_rel_l2_all": whole,
+        "trainable": what, "loss_kernels": lk, "loss_plain": lp, "loss_f32": l32,
+        "loss_rel_err": loss_rel, "loss_bar": FT_LOSS_BAR, "tensors": len(grad_rel),
+        "grad_rel_l2_all": whole,
         "grad_rel_l2_median": statistics.median(grad_rel), "grad_rel_l2_max": max(grad_rel),
         "grad_bar": FT_GRAD_BAR,
         "plain_vs_f32_median": statistics.median(plain_f32), "plain_vs_f32_max": max(plain_f32),
@@ -981,8 +1026,8 @@ def phase_finetune_vs_plain(cfg):
         "tensors_over_bar": len(over)}})
     check(math.isfinite(lk) and loss_rel <= FT_LOSS_BAR, f"loss {lk} vs plain {lp}")
     check(whole <= FT_GRAD_BAR and statistics.median(grad_rel) <= FT_GRAD_BAR,
-          f"adapter gradients off by {whole} (all) / {statistics.median(grad_rel)} (median)")
-    check(not over, f"adapter gradients off by more than the bf16 error + bar: {over[:3]}")
+          f"{what} gradients off by {whole} (all) / {statistics.median(grad_rel)} (median)")
+    check(not over, f"{what} gradients off by more than the bf16 error + bar: {over[:3]}")
 
 
 def phase_adapted(counters, final: Path):
@@ -1002,21 +1047,18 @@ def phase_adapted(counters, final: Path):
     return launches, bundle
 
 
-def phase_timing(bundle, adapted):
-    """32 x 30 s through both paths (turns: plain, kernels, kernels, plain),
-    then each kernel alone against its plain version, its bound and, where
-    one exists, the library call, at the main paths' shapes."""
+def greedy_rtfx(bundle, rng, B: int = 32):
+    """Seconds per batch of B x 30 s of noise from `rng` through the kernel
+    path and the plain path, turns: plain, kernels, kernels, plain; two
+    distinct buffers, each warmed on both paths; a host sync after every
+    batch. -> (record, the buffers, infer(wav, kernels))."""
     import torch
 
     from jiao_liao_speech_recognition_torch.decode.ctc import ctc_greedy_collapse
-    from jiao_liao_speech_recognition_torch.frontend import fused_frontend
     from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
-    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
-    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_head, fused_mlp
 
     fe = bundle.config.frontend
-    B, L = 32, 30 * SAMPLE_RATE
-    rng = np.random.RandomState(1)
+    L = 30 * SAMPLE_RATE
     bufs = [torch.from_numpy((0.1 * rng.randn(B, L)).astype(np.float32)).cuda() for _ in range(2)]
     flens = torch.full((B,), L // fe.hop_length, dtype=torch.int32, device="cuda")
 
@@ -1027,7 +1069,7 @@ def phase_timing(bundle, adapted):
         return ctc_greedy_collapse(ids, olens)
 
     times = {True: [], False: []}
-    for kernels in (False, True):  # warm every buffer on both paths
+    for kernels in (False, True):
         for w in bufs:
             infer(w, kernels)
     torch.cuda.synchronize()
@@ -1038,10 +1080,28 @@ def phase_timing(bundle, adapted):
             torch.cuda.synchronize()
             times[kernels].append(time.perf_counter() - t0)
     kern_s, plain_s = statistics.median(times[True]), statistics.median(times[False])
-    emit({"phase": "timing", "batch": B, "seconds_audio": 30.0,
-          "kernel_path_s_per_batch": kern_s, "plain_path_s_per_batch": plain_s,
-          "kernel_path_rtfx": B * 30.0 / kern_s, "plain_path_rtfx": B * 30.0 / plain_s,
-          "kernel_path_samples_s": times[True], "plain_path_samples_s": times[False]})
+    return ({"batch": B, "seconds_audio": 30.0,
+             "kernel_path_s_per_batch": kern_s, "plain_path_s_per_batch": plain_s,
+             "kernel_path_rtfx": B * 30.0 / kern_s, "plain_path_rtfx": B * 30.0 / plain_s,
+             "kernel_path_samples_s": times[True], "plain_path_samples_s": times[False]},
+            bufs, infer)
+
+
+def phase_timing(bundle, adapted):
+    """32 x 30 s through both paths (turns: plain, kernels, kernels, plain),
+    then each kernel alone against its plain version, its bound and, where
+    one exists, the library call, at the main paths' shapes."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend import fused_frontend
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_head, fused_mlp
+
+    fe = bundle.config.frontend
+    B, L = 32, 30 * SAMPLE_RATE
+    rng = np.random.RandomState(1)
+    rtfx, bufs, infer = greedy_rtfx(bundle, rng, B)
+    emit({"phase": "timing", **rtfx})
 
     # kernels alone at the main paths' shapes: K1-K4 and K7 at B=32, T'=750
     # (block 0 of the flagship, of the fine-tuned model for K7); K6/K8 at the
@@ -1351,7 +1411,6 @@ def phase_train_rate(ft_cfg):
     from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
     from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
     from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
     from jiao_liao_speech_recognition_torch.train import engine
     from jiao_liao_speech_recognition_torch.utils.config import AdapterConfig, ExperimentConfig
 
@@ -1370,29 +1429,403 @@ def phase_train_rate(ft_cfg):
             rng.randint(1, cfg10.ctc_model.vocab_size, (B, 24)).astype(np.int32)).cuda(),
         "label_lengths": torch.full((B,), 24, dtype=torch.int32, device="cuda"),
     } for _ in range(2)]
-    out = {}
-    for name, cfg, batches in (("B16x30s_adapter_finetune_yaml", ft_cfg, batches30),
-                               ("B16x10s_flagship_wf8", cfg10, batches10)):
-        model = CTCEncoderModel(cfg.ctc_model, device="cuda", seed=cfg.train.seed)
-        state = engine.init_state(cfg, model)
-        step = engine.make_train_step(engine.make_ctc_loss_fn(cfg, model), cfg.train.optimizer)
-        for kernels in (False, True):
-            for b in batches:
-                step(state, b, kernels)
-        torch.cuda.synchronize()
-        secs = {True: [], False: []}
-        for kernels in (False, True, True, False):
-            t0 = time.perf_counter()
-            for i in range(4):
-                loss = step(state, batches[i % 2], kernels)["loss"]
-            check(math.isfinite(float(loss)), f"{name}: loss not finite")
-            secs[kernels].append((time.perf_counter() - t0) / 4)
-        out[name] = {"kernel_path_steps_s": 1.0 / statistics.median(secs[True]),
-                     "plain_path_steps_s": 1.0 / statistics.median(secs[False]),
-                     "kernel_path_s_per_step": secs[True], "plain_path_s_per_step": secs[False]}
-        emit({"phase": "timing", "train": name, **out[name]})
-        del model, state, step
+    return {name: train_rate(name, cfg, batches)
+            for name, cfg, batches in (("B16x30s_adapter_finetune_yaml", ft_cfg, batches30),
+                                       ("B16x10s_flagship_wf8", cfg10, batches10))}
+
+
+def train_rate(name: str, cfg, batches, profile_steps: int = 0, steps: int = 4) -> dict:
+    """Train steps/s of `cfg`'s trainable set on two batches, kernel path and
+    plain path in turns (plain, kernels, kernels, plain; `steps` steps
+    each), after a warm step of each batch on both; with `profile_steps`,
+    then that many kernel-path steps under the profiler (``device_profile``)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
+    from jiao_liao_speech_recognition_torch.train import engine
+
+    model = CTCEncoderModel(cfg.ctc_model, device="cuda", seed=cfg.train.seed)
+    state = engine.init_state(cfg, model)
+    step = engine.make_train_step(engine.make_ctc_loss_fn(cfg, model), cfg.train.optimizer)
+    for kernels in (False, True):
+        for b in batches:
+            step(state, b, kernels)
+    torch.cuda.synchronize()
+    secs = {True: [], False: []}
+    for kernels in (False, True, True, False):
+        t0 = time.perf_counter()
+        for i in range(steps):
+            loss = step(state, batches[i % 2], kernels)["loss"]
+        check(math.isfinite(float(loss)), f"{name}: loss not finite")
+        secs[kernels].append((time.perf_counter() - t0) / steps)
+    out = {"steps_a_turn": steps, "kernel_path_steps_s": 1.0 / statistics.median(secs[True]),
+           "plain_path_steps_s": 1.0 / statistics.median(secs[False]),
+           "kernel_path_s_per_step": secs[True], "plain_path_s_per_step": secs[False]}
+    if profile_steps:
+        out["profile"] = device_profile(lambda i: step(state, batches[i % 2], True),
+                                        profile_steps, name)
+    emit({"phase": "timing", "train": name, **out})
     return out
+
+
+def device_profile(fn, calls: int, name: str, top: int = 8) -> dict:
+    """fn(i) for i < calls under torch.profiler, then a sync -> wall and
+    device busy seconds a call, the busy and idle shares of the wall, and
+    the `top` kernels by device ms a call. A user-annotated range (such as
+    the optimizer's step) is left out: its device time is that of the
+    kernels inside it, already counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted(((e.device_time_total / 1e3 / calls, e.count // calls, e.key[:80])
+                      for e in prof.key_averages()
+                      if e.device_type.name == "CUDA" and e.device_time_total
+                      and not getattr(e, "is_user_annotation", False)),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels) / 1e3
+    check(busy > 0, f"{name}: the profiler saw no device time")
+    return {"calls": calls, "wall_s_per_call": wall / calls, "device_busy_s_per_call": busy,
+            "device_busy_share": busy * calls / wall, "device_idle_share": 1 - busy * calls / wall,
+            "launches_per_call": sum(k[1] for k in kernels),
+            "top_kernels_ms_per_call": kernels[:top]}
+
+
+# --- main paths 7-9: the multi-dialect transfer through the CLI -------------
+
+
+def cli_run(argv) -> list:
+    """cli.main(argv) with its standard output captured -> the output's
+    lines (also printed); a non-zero exit code fails the run."""
+    import contextlib
+    import io
+
+    from jiao_liao_speech_recognition_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    print(buf.getvalue(), end="", flush=True)
+    check(rc == 0, f"cli {argv[0]} exited {rc}")
+    return buf.getvalue().strip().splitlines()
+
+
+def write_transfer_corpora(d: Path, chars: int = 4334, seed: int = 7) -> dict:
+    """TRANSFER_CORPORA as WAVs (tone + noise, 30 s) and transcript tables.
+    jiaoliao's rows take one of six slices of the `chars` characters in
+    turn, so each character is in three rows and its train split (all but
+    two rows) holds every one; the neighbours' rows draw 271 of them each.
+    The stages' texts thus use `chars` characters: a char vocab of chars + 2.
+    -> dialect -> table path."""
+    from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav
+
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(chars)
+    slices = np.array_split(order, 6)
+    t = np.arange(30 * SAMPLE_RATE) / SAMPLE_RATE
+    tables = {}
+    for dialect in TRANSFER_CORPORA:
+        (d / dialect).mkdir(parents=True)
+        lines = []
+        for i in range(TRANSFER_UTTS):
+            wav = (0.2 * np.sin(2 * np.pi * rng.uniform(150.0, 2000.0) * t)
+                   + 0.05 * rng.randn(len(t)))
+            write_wav(d / dialect / f"u{i:02d}.wav", wav, SAMPLE_RATE)
+            ids = slices[i % 6] if dialect == "jiaoliao" else rng.choice(order, 271, False)
+            lines.append(f"u{i:02d}.wav\t" + "".join(chr(0x4E00 + int(j)) for j in ids))
+        tables[dialect] = d / dialect / "transcripts.tsv"
+        tables[dialect].write_text("\n".join(lines), encoding="utf-8")
+    return tables
+
+
+def phase_prepare(counters, workdir: Path):
+    """Main path 7: `cli prepare` of each corpus, with --cmvn (K1) on jiaoliao."""
+    tables = write_transfer_corpora(workdir / "corpora")
+    out = {}
+
+    def run():
+        for dialect, table in tables.items():
+            out[dialect] = json.loads(cli_run(
+                ["prepare", table, "--out-dir", workdir / "manifests", "--audio-root",
+                 table.parent, "--dialect", dialect, *(["--cmvn"] * (dialect == "jiaoliao"))])[-1])
+
+    _, launches = drive(counters, "prepare", run)
+    with np.load(out["jiaoliao"]["cmvn_stats"]) as st:
+        mean, std, count = st["mean"], st["std"], int(st["count"])
+    rows = {d: {s: len(Path(p).read_text().splitlines()) for s, p in o.items() if s != "cmvn_stats"}
+            for d, o in out.items()}
+    emit({"phase": "prepare", "rows": rows, "cmvn_frames": count,
+          "cmvn_mean_range": [float(mean.min()), float(mean.max())],
+          "cmvn_std_range": [float(std.min()), float(std.max())], "launches": launches})
+    check(all(r == {"train": TRANSFER_UTTS - 2, "dev": 1, "test": 1} for r in rows.values()),
+          f"prepare's splits: {rows}")
+    # 16 train rows in two batches of 8, 3000 valid frames each
+    check(launches["K1"] == 2 and count == 16 * 3000, f"CMVN: {count} frames")
+    check(mean.shape == std.shape == (80,) and np.isfinite(mean).all()
+          and bool((std > 0).all()), "CMVN stats are not 80 finite means and positive stds")
+    return launches, out
+
+
+def transfer_config(workdir: Path, manifests: dict) -> Path:
+    """A copy of configs/multi_dialect_transfer.yaml whose stages read these
+    manifests and take TRANSFER_STEPS steps, checkpointing under `workdir`;
+    nothing else changes."""
+    import yaml
+
+    src = Path(__file__).resolve().parent / "configs" / "multi_dialect_transfer.yaml"
+    data = yaml.safe_load(src.read_text())
+    neighbour, target = data["stages"]
+    neighbour["manifests"] = [manifests["jilu"]["train"], manifests["zhongyuan"]["train"]]
+    target["manifests"] = [manifests["jiaoliao"]["train"]]
+    neighbour["steps"] = target["steps"] = TRANSFER_STEPS
+    data["train"]["checkpoint_dir"] = str(workdir / "ckpt")
+    data["train"]["metrics_path"] = str(workdir / "metrics.jsonl")
+    path = workdir / "transfer.yaml"
+    path.write_text(yaml.safe_dump(data, sort_keys=False, allow_unicode=True))
+    return path
+
+
+def phase_transfer(counters, workdir: Path, manifests: dict):
+    """Main path 8: `cli train` of the transfer config: stage 1 (both
+    neighbour corpora mixed, every parameter) then stage 2 (jiaoliao, the
+    Att adapters alone), launch counts a stage, what each stage moved, and
+    a resume that takes no step."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models import convert
+    from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
+    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
+    from jiao_liao_speech_recognition_torch.train import schedules
+    from jiao_liao_speech_recognition_torch.utils.config import load_yaml
+
+    path = transfer_config(workdir, manifests)
+    cfg = load_yaml(str(path))
+    m, ad = cfg.ctc_model, cfg.ctc_model.adapter
+    stages = []
+    real = schedules.train_loop
+
+    def counted(*args, **kw):  # launches and seconds of each stage's loop
+        before = {k: c.launches for k, c in counters.items()}
+        t0 = time.perf_counter()
+        state, info = real(*args, **kw)
+        torch.cuda.synchronize()
+        stages.append({"seconds": time.perf_counter() - t0, "steps": len(info["losses"]),
+                       "losses": info["losses"], "launches": {
+                           k: c.launches - before[k] for k, c in counters.items()}})
+        return state, info
+
+    schedules.train_loop = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = drive(counters, "transfer", lambda: cli_run(["train", "--config", path]))
+        seconds = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        history = [json.loads(line) for line in out[:-1]]
+        ckpt = Path(cfg.train.checkpoint_dir)
+        final = ckpt / "final"
+        with np.load(final / "params.npz") as f:
+            saved = dict(f)
+        # resume over the finished stages: no step, the same bundle
+        n_before = len(stages)
+        for c in counters.values():
+            c.reset()
+        again = [json.loads(line) for line in cli_run(["train", "--config", path, "--resume"])[:-1]]
+        resumed = stages[n_before:]
+        torch.cuda.synchronize()
+        resume_launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        schedules.train_loop = real
+    with np.load(final / "params.npz") as f:
+        unchanged = sorted(f.files) == sorted(saved) and all(
+            np.array_equal(f[k], v) for k, v in saved.items())
+
+    served = load_yaml(str(final / "config.yaml")).ctc_model
+    init = CTCEncoderModel(served, seed=cfg.train.seed).state_dict()
+    dirs = [ckpt / f"stage_{i}_{s.name}" / f"{TRANSFER_STEPS:08d}" for i, s in enumerate(cfg.stages)]
+    end1, end2 = (torch.load(d / "state.pt", map_location="cpu", weights_only=False)["model"]
+                  for d in dirs)
+    final_sd = convert.params_to_state_dict(convert.read_npz_params(final / "params.npz"))
+    dense = [k for k in init if not param_is_adapter(k) and (
+        (k.startswith("blocks.") and k.endswith(".kernel")) or k.startswith("subsample.")
+        or k.startswith("ctc_head."))]
+    backbone = [k for k in init if not param_is_adapter(k)]
+    adapters = [k for k in init if param_is_adapter(k)]
+    moved1 = [k for k in dense if not torch.equal(end1[k], init[k])]
+    still2 = [k for k in backbone if torch.equal(end2[k], end1[k])]
+    moved2 = [k for k in adapters if not torch.equal(end2[k], end1[k])]
+    final_is_end2 = all(torch.equal(final_sd[k], end2[k]) for k in init)
+    per_stage = [{"stage": s.name, "steps": st["steps"], "seconds": st["seconds"],
+                  "losses": st["losses"], **{f"{k}_launches": st["launches"][k]
+                                             for k in ("K1", "K6", "K8")}}
+                 for s, st in zip(cfg.stages, stages)]
+    emit({"phase": "transfer", "config": "configs/multi_dialect_transfer.yaml",
+          "layers": m.num_layers, "d_model": m.d_model, "heads": m.num_heads, "mlp": m.mlp_dim,
+          "adapter": f"{ad.kind} {ad.att_num_heads} x {ad.att_key_dim}", "vocab": served.vocab_size,
+          "batch": cfg.data.batch_size, "stages": per_stage, "history": history,
+          "seconds_cli_train": seconds, "peak_device_gb": peak_gb, "launches": launches,
+          "stage1_dense_moved": f"{len(moved1)}/{len(dense)}",
+          "stage2_backbone_bitwise": f"{len(still2)}/{len(backbone)}",
+          "stage2_adapters_moved": f"{len(moved2)}/{len(adapters)}",
+          "final_is_stage2_end": final_is_end2, "resume_history": again,
+          "resume_steps": [st["steps"] for st in resumed],
+          "resume_launches": {k: v for k, v in resume_launches.items() if v},
+          "resume_params_unchanged": unchanged})
+    check(served.vocab_size == 4336 and m.num_heads == 8 and m.d_model == 512
+          and m.num_layers == 12 and ad.kind == "att", "not the published transfer config")
+    check(all((final / f).exists() for f in ("params.npz", "config.yaml", "vocab.json"))
+          and all(d.is_dir() for d in dirs), "a stage checkpoint or the final bundle is missing")
+    check([h["stage"] for h in history] == [s.name for s in cfg.stages]
+          and all(math.isfinite(h["loss"]) for h in history), f"history {history}")
+    check([st["steps"] for st in stages[:2]] == [TRANSFER_STEPS] * 2
+          and all(math.isfinite(x) for st in stages[:2] for x in st["losses"]),
+          "a stage did not take its steps with finite losses")
+    n_attn = m.num_layers * (1 + ad.after_attention + ad.after_mlp)
+    want = ({"K1": 1, "K6": n_attn, "K8": n_attn}, {"K1": 1, "K6": n_attn, "K8": n_attn - 1})
+    for st, w in zip(stages, want):
+        got = {k: st["launches"][k] for k in w}
+        check(got == {k: v * TRANSFER_STEPS for k, v in w.items()},
+              f"stage launches {got}, not {TRANSFER_STEPS} x {w}")
+    check(len(moved1) == len(dense), f"stage 1 left {set(dense) - set(moved1)} as initialised")
+    check(len(still2) == len(backbone), "stage 2 moved the backbone")
+    check(len(moved2) == len(adapters), f"stage 2 left {set(adapters) - set(moved2)} unmoved")
+    check(final_is_end2, "the final bundle is not stage 2's last checkpoint")
+    check(again == [{"stage": s.name} for s in cfg.stages]
+          and [st["steps"] for st in resumed] == [0, 0]
+          and not any(resume_launches.values()) and unchanged,
+          "the resume over finished stages took a step or changed the bundle")
+    return launches, cfg, final
+
+
+def phase_transfer_vs_plain(cfg, final: Path):
+    """Stage 1's step with every parameter trainable, kernel path against
+    plain (and both against float32), on the first batch of its mixture."""
+    import dataclasses
+
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.train.schedules import build_stage_manifest
+
+    tok = CharTokenizer.load(final / "vocab.json")
+    cfg = dataclasses.replace(cfg, ctc_model=dataclasses.replace(
+        cfg.ctc_model, vocab_size=len(tok)))
+    step_vs_plain("transfer", cfg, build_stage_manifest(cfg.stages[0]), tok,
+                  adapters_only=cfg.stages[0].train_adapters_only)
+
+
+def phase_transfer_serve(counters, final: Path, manifests: dict, workdir: Path):
+    """Main path 9: the transferred bundle serves the six requests (plain and
+    with timestamps) and `cli evaluate --per-utt` scores jiaoliao's test
+    split: K1, K2 at 8 x 64, K3 and K4 a batch, K6 24 a batch (both Att
+    adapters of every block)."""
+    from jiao_liao_speech_recognition_torch import api
+
+    bundle = api.load(str(final), device="cuda")
+    m = bundle.config.ctc_model
+    check(m.adapter.kind == "att" and m.num_heads == 8, "the bundle lost its configuration")
+    requests = make_requests()
+    test = manifests["jiaoliao"]["test"]
+    per_utt = workdir / "per_utt.jsonl"
+
+    def run():
+        texts = api.transcribe(bundle, requests)
+        timed = api.transcribe(bundle, requests, timestamps=True)
+        out = cli_run(["evaluate", "--manifest", test, "--checkpoint", final,
+                       "--per-utt", per_utt])
+        return texts, timed, json.loads(out[-1])
+
+    (texts, timed, scores), launches = drive(counters, "transfer_serve", run)
+    rows = [json.loads(line) for line in per_utt.read_text().splitlines()]
+    n_test = len(Path(test).read_text().splitlines())
+    batches = 2 + -(-n_test // 16)
+    slots = m.adapter.after_attention + m.adapter.after_mlp
+    want = {"K1": batches, "K2": m.num_layers * batches, "K3": m.num_layers * batches,
+            "K4": batches, "K6": slots * m.num_layers * batches}
+    emit({"phase": "transfer_serve", "heads": m.num_heads, "text_chars": [len(s) for s in texts],
+          "evaluate": scores, "launches": launches,
+          "per_utt": [{k: r[k] for k in ("audio", "dialect", "cer", "wer")} for r in rows]})
+    check({k: launches[k] for k in want} == want, f"launches {launches}, not {want}")
+    check(scores["utterances"] == n_test == len(rows) and math.isfinite(scores["cer"])
+          and all({"audio", "dialect", "ref", "hyp", "cer", "wer"} <= set(r) for r in rows),
+          f"evaluate --per-utt: {scores}")
+    check_texts(requests, texts, timed)
+    emit({"phase": "transfer_serve", "vs_plain": serve_vs_plain(bundle, requests)})
+    emit({"phase": "transfer_serve", "adapters_perturbed": adapters_perturbed(bundle, requests)})
+    return launches, bundle
+
+
+def adapters_perturbed(bundle, requests) -> dict:
+    """A few steps inside the warmup leave the adapters' out_proj near zero,
+    so the adapter slots hardly move the served ids. Perturb every adapter
+    tensor (as step_vs_plain does): the kernel path's ids must change, and
+    still hold against the plain path under the margin rule; the trained
+    tensors are put back after."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
+
+    fe = bundle.config.frontend
+    wavs, alens, _ = bundle._prepare_audio_chunked(requests, None)
+    wav = torch.from_numpy(wavs).cuda()
+    flens = torch.from_numpy(alens // fe.hop_length).cuda()
+
+    def ids():
+        with torch.inference_mode():
+            feats = featurize_batch(wav, fe, kernels=True)
+            return bundle.model(feats, flens, head_mode="argmax_ids", kernels=True)
+
+    before, olens = ids()
+    trained = {n: p.detach().clone() for n, p in bundle.model.named_parameters()
+               if param_is_adapter(n)}
+    gen = torch.Generator().manual_seed(5)
+    params = dict(bundle.model.named_parameters())
+    with torch.no_grad():
+        for n in trained:
+            params[n].add_(0.02 * torch.randn(params[n].shape, generator=gen).to(params[n].device))
+    after, _ = ids()
+    frames = torch.arange(before.shape[1], device="cuda")[None, :] < olens[:, None]
+    changed = float(((before != after) & frames).sum() / frames.sum())
+    out = {"tensors": len(trained), "ids_changed_share": changed,
+           **serve_vs_plain(bundle, requests)}
+    with torch.no_grad():
+        for n, v in trained.items():
+            params[n].copy_(v)
+    check(changed > 0, "perturbed adapters left every served id as it was")
+    check(torch.equal(ids()[0], before), "the trained adapters did not come back")
+    return out
+
+
+def phase_transfer_timing(cfg, final: Path, bundle):
+    """Steps/s of each stage on both paths (TRANSFER_RATE_STEPS steps a
+    turn; then four kernel-path steps profiled: the device's busy and idle
+    share, its kernels by time), and the transferred bundle's greedy RTFx
+    at B=32 x 30 s (and four of its batches profiled)."""
+    import dataclasses
+
+    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.train import engine
+    from jiao_liao_speech_recognition_torch.train.schedules import build_stage_manifest
+
+    tok = CharTokenizer.load(final / "vocab.json")
+    for i, stage in enumerate(cfg.stages):
+        it = BatchIterator(build_stage_manifest(stage), tok, cfg.data)
+        batches = [engine.batch_to_device(next(it), "cuda") for _ in range(2)]
+        scfg = dataclasses.replace(
+            cfg, ctc_model=dataclasses.replace(cfg.ctc_model, vocab_size=len(tok)),
+            train=dataclasses.replace(cfg.train, train_adapters_only=stage.train_adapters_only))
+        train_rate(f"transfer_stage_{i}_{stage.name}", scfg, batches, profile_steps=4,
+                   steps=TRANSFER_RATE_STEPS)
+        del batches
+    rtfx, bufs, infer = greedy_rtfx(bundle, np.random.RandomState(1))
+    rtfx["profile"] = device_profile(lambda i: infer(bufs[i % 2], True), 4, "greedy")
+    emit({"phase": "timing", "greedy": "transferred bundle", **rtfx})
 
 
 # --- main path 4: Whisper large-v3 serving ------------------------------------
@@ -2400,6 +2833,14 @@ def main() -> int:
         rec = phase_timing(bundle, adapted)
         phase_train_rate(ft_cfg)
     del bundle, adapted
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["prepare"], manifests = phase_prepare(counters, Path(tmp))
+        by_path["transfer"], tr_cfg, tr_final = phase_transfer(counters, Path(tmp), manifests)
+        phase_transfer_vs_plain(tr_cfg, tr_final)
+        by_path["transfer_serve"], transferred = phase_transfer_serve(
+            counters, tr_final, manifests, Path(tmp))
+        phase_transfer_timing(tr_cfg, tr_final, transferred)
+    del transferred
     by_path["whisper_serve"], whisper = phase_whisper(counters)
     rec.update(phase_whisper_timing(whisper))
     errs.update(phase_int8_kernels())

@@ -1,0 +1,330 @@
+"""Command line of the PyTorch port, with the JAX package's ``cli.py``
+subcommands, flags and JSON output:
+
+    python -m jiao_liao_speech_recognition_torch.cli prepare table.tsv --out-dir m --cmvn
+    python -m jiao_liao_speech_recognition_torch.cli train --config configs/x.yaml [key=value ...]
+    python -m jiao_liao_speech_recognition_torch.cli evaluate --manifest m/test.jsonl \\
+        --checkpoint ckpt/final --per-utt per_utt.jsonl
+
+``train`` runs ``config.stages`` through ``train/schedules.run_stages``
+(then saves the bundle to ``<checkpoint_dir>/final``), else
+``api.fine_tune``. Every subcommand that computes takes one flag the JAX
+CLI lacks, ``--device`` (default ``cuda``). Subcommands and flags whose
+modules are not ported yet are refused with exit code 2 and the ROADMAP
+item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+from pathlib import Path
+
+# subcommand or flag -> the ROADMAP queue 1 item that ports its module
+NOT_PORTED = {
+    "serve": "queue 1 item 5 (serve/engine.py)",
+    "train-lm": "queue 1 item 7 (decode/lm.py)",
+    "train-unigram": "queue 1 item 10 (data/unigram.py)",
+    "export-whisper": "queue 1 item 4 (the HF export)",
+    "build-native": "queue 1 item 8 (native/ beam search through ctypes)",
+    "--stream": "queue 1 item 6 (serve/streaming.py)",
+    "--stream-window": "queue 1 item 6 (serve/streaming.py)",
+    "--stream-hop": "queue 1 item 6 (serve/streaming.py)",
+    "--stream-lookahead": "queue 1 item 6 (serve/streaming.py)",
+    "beam": "queue 1 item 8 (CTC beam search) and item 4 (Whisper AR beam)",
+    "--beam-size": "queue 1 item 8 (CTC beam search) and item 4 (Whisper AR beam)",
+    "spec_greedy": "queue 1 item 7 (decode/speculative.py)",
+    "--lm-path": "queue 1 item 7 (decode/lm.py shallow fusion)",
+    "--lm-weight": "queue 1 item 7 (decode/lm.py shallow fusion)",
+    "--profile": "queue 1 item 10 (utils/profiling.py)",
+    "--multihost": "queue 1 item 9 (multi-GPU)",
+}
+GREEDY = ("greedy", "ctc_greedy")
+
+
+def refuse(what: str) -> int:
+    print(f"error: {what} is not ported yet: ROADMAP {NOT_PORTED[what]}", file=sys.stderr)
+    return 2
+
+
+def refuse_flags(args, *flags: str) -> int | None:
+    """-> refuse(flag) for the first of `flags` given on the command line
+    (each defaults to None, False or ""), else None."""
+    for flag in flags:
+        if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None, False, ""):
+            return refuse(flag)
+    return None
+
+
+def _load_config(args):
+    from .utils.config import ExperimentConfig, apply_overrides, load_yaml
+
+    cfg = load_yaml(args.config) if args.config else ExperimentConfig()
+    if args.override:
+        cfg = apply_overrides(cfg, args.override)
+    return cfg
+
+
+def cmd_train(args) -> int:
+    rc = refuse_flags(args, "--profile", "--multihost")
+    if rc is not None:
+        return rc
+    cfg = _load_config(args)
+    out = Path(cfg.train.checkpoint_dir) / "final"
+    if cfg.stages:
+        from .models.bundle import ModelBundle
+        from .train.schedules import run_stages
+
+        model, tokenizer, history = run_stages(cfg, resume=args.resume, device=args.device)
+        for h in history:
+            print(json.dumps(h, ensure_ascii=False))
+        ModelBundle(cfg, model.eval(), tokenizer).save(str(out))
+        print(f"saved final bundle to {out}")
+    else:
+        from .api import fine_tune
+
+        state, _ = fine_tune(cfg, resume=args.resume, device=args.device)  # saves `out`
+        print(f"saved final bundle to {out} (step {int(state.step)})")
+    return 0
+
+
+def _load_bundle(args):
+    """-> the bundle, or None after printing why --int8 cannot serve it."""
+    from .api import load
+
+    bundle = load(checkpoint=args.checkpoint, config=args.config, device=args.device)
+    if args.int8:
+        try:
+            bundle = bundle.quantize()
+        except NotImplementedError as e:
+            print(f"error: --int8: {e}", file=sys.stderr)
+            return None
+    return bundle
+
+
+def cmd_transcribe(args) -> int:
+    rc = refuse_flags(args, "--profile", "--stream", "--stream-window", "--stream-hop",
+                      "--stream-lookahead", "--beam-size")
+    if rc is not None:
+        return rc
+    if args.strategy and args.strategy not in GREEDY:
+        return refuse("spec_greedy" if args.strategy == "spec_greedy" else "beam")
+    from .api import transcribe
+    from .utils.captions import format_srt, format_vtt, group_cues, group_words
+
+    bundle = _load_bundle(args)
+    if bundle is None:
+        return 2
+    if args.caption:
+        fmt = format_srt if args.caption == "srt" else format_vtt
+        for path, toks in zip(args.audio, bundle.transcribe_timed(args.audio)):
+            units = [{"token": w["word"], "start": w["start"], "end": w["end"]}
+                     for w in group_words(toks)]
+            out_path = os.path.splitext(path)[0] + "." + args.caption
+            with open(out_path, "w", encoding="utf-8") as f:
+                f.write(fmt(group_cues(units)))
+            print(json.dumps({"audio": path, "caption": out_path,
+                              "text": "".join(t["token"] for t in toks)}, ensure_ascii=False))
+        return 0
+    if args.timestamps:
+        for path, toks in zip(args.audio, bundle.transcribe_timed(args.audio)):
+            print(json.dumps({"audio": path, "text": "".join(t["token"] for t in toks),
+                              "tokens": toks, "words": group_words(toks)}, ensure_ascii=False))
+        return 0
+    decode_cfg = bundle.config.decode
+    if args.strategy:
+        decode_cfg = dataclasses.replace(decode_cfg, strategy=args.strategy)
+    for path, text in zip(args.audio, transcribe(bundle, args.audio, decode_cfg=decode_cfg)):
+        print(json.dumps({"audio": path, "text": text}, ensure_ascii=False))
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    if args.decode not in GREEDY:
+        return refuse("beam")
+    rc = refuse_flags(args, "--beam-size", "--lm-path", "--lm-weight")
+    if rc is not None:
+        return rc
+    from .data.manifest import read_manifest
+    from .evals.metrics import cer, corpus_cer, corpus_wer, wer
+
+    bundle = _load_bundle(args)
+    if bundle is None:
+        return 2
+    decode_cfg = dataclasses.replace(bundle.config.decode, strategy=args.decode)
+    rows = read_manifest(args.manifest).rows
+    refs, hyps = [], []
+    for i in range(0, len(rows), args.batch_size):
+        chunk = rows[i : i + args.batch_size]
+        hyps.extend(bundle.transcribe([r.audio for r in chunk], decode_cfg=decode_cfg))
+        refs.extend(r.text for r in chunk)
+    result = {"cer": corpus_cer(refs, hyps), "wer": corpus_wer(refs, hyps),
+              "utterances": len(refs)}
+    if args.per_utt:
+        with open(args.per_utt, "w", encoding="utf-8") as f:
+            for row, ref, hyp in zip(rows, refs, hyps):
+                f.write(json.dumps({
+                    "audio": row.audio, "dialect": row.dialect, "ref": ref, "hyp": hyp,
+                    "cer": round(cer(ref, hyp), 4), "wer": round(wer(ref, hyp), 4),
+                }, ensure_ascii=False) + "\n")
+        result["per_utt"] = args.per_utt
+    print(json.dumps(result, ensure_ascii=False))
+    return 0
+
+
+def cmd_featurize(args) -> int:
+    import numpy as np
+
+    from .api import featurize
+
+    feats = featurize(args.audio, device=args.device).cpu().numpy()
+    out = args.output or (args.audio + ".logmel.npy")
+    np.save(out, feats)
+    print(f"wrote {out} shape={tuple(feats.shape)}")
+    return 0
+
+
+def cmd_prepare(args) -> int:
+    """Transcript table -> filtered, split manifests; with --cmvn, global
+    CMVN stats over the train split (featurized on --device)."""
+    from .data.prepare import prepare_corpus
+
+    paths = prepare_corpus(
+        args.table, args.out_dir, audio_root=args.audio_root, dialect=args.dialect,
+        min_seconds=args.min_seconds, max_seconds=args.max_seconds,
+        dev_fraction=args.dev_fraction, test_fraction=args.test_fraction, seed=args.seed,
+    )
+    result = dict(paths)
+    if args.cmvn:
+        from .data.manifest import read_manifest
+        from .data.tokenizer import CharTokenizer
+        from .frontend.cmvn import compute_corpus_cmvn
+        from .utils.config import DataConfig, FrontendConfig
+
+        manifest = read_manifest(paths["train"])
+        acc = compute_corpus_cmvn(
+            manifest, CharTokenizer.build(manifest.texts()),
+            DataConfig(batch_size=8, min_audio_seconds=args.min_seconds),
+            FrontendConfig(num_mels=args.num_mels), device=args.device)
+        stats_path = str(Path(args.out_dir) / f"{args.dialect or 'corpus'}_cmvn.npz")
+        acc.save(stats_path)
+        result["cmvn_stats"] = stats_path
+    print(json.dumps(result, ensure_ascii=False))
+    return 0
+
+
+def cmd_import_whisper(args) -> int:
+    from .models.whisper_import import import_hf_checkpoint
+
+    bundle = import_hf_checkpoint(args.src, args.out, device=args.device)
+    w = bundle.config.whisper
+    print(json.dumps({
+        "out": args.out, "name": w.name, "d_model": w.d_model,
+        "layers": [w.encoder_layers, w.decoder_layers],
+        "num_mels": w.num_mels, "vocab_size": w.vocab_size,
+        "tokenizer": type(bundle.tokenizer).__name__ if bundle.tokenizer else None,
+    }))
+    return 0
+
+
+def _device(p) -> None:
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="jiao_liao_speech_recognition_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="(adapter) fine-tune / multi-dialect stages")
+    pt.add_argument("--config", required=True)
+    pt.add_argument("--resume", action="store_true")
+    pt.add_argument("--profile", metavar="LOGDIR", help="(not ported)")
+    pt.add_argument("--multihost", action="store_true", help="(not ported)")
+    pt.add_argument("override", nargs="*", help="key.subkey=value overrides")
+    _device(pt)
+    pt.set_defaults(fn=cmd_train)
+
+    pr = sub.add_parser("transcribe", help="audio file(s) -> text")
+    pr.add_argument("audio", nargs="+")
+    pr.add_argument("--checkpoint")
+    pr.add_argument("--config")
+    pr.add_argument("--profile", metavar="LOGDIR", help="(not ported)")
+    pr.add_argument("--strategy",
+                    choices=["greedy", "beam", "beam_device", "ctc_greedy", "spec_greedy"],
+                    help="decode strategy override (greedy and ctc_greedy are ported)")
+    pr.add_argument("--beam-size", type=int, help="(not ported)")
+    pr.add_argument("--int8", action="store_true",
+                    help="int8-quantize the decoder weights before serving (whisper)")
+    pr.add_argument("--timestamps", action="store_true",
+                    help="emit per-token and word start/end seconds (ctc)")
+    pr.add_argument("--caption", choices=["srt", "vtt"],
+                    help="write a subtitle sidecar file next to each audio file")
+    pr.add_argument("--stream", action="store_true", help="(not ported)")
+    pr.add_argument("--stream-window", type=float, help="(not ported)")
+    pr.add_argument("--stream-hop", type=float, help="(not ported)")
+    pr.add_argument("--stream-lookahead", type=float, help="(not ported)")
+    _device(pr)
+    pr.set_defaults(fn=cmd_transcribe)
+
+    pe = sub.add_parser("evaluate", help="CER/WER on a manifest")
+    pe.add_argument("--manifest", required=True)
+    pe.add_argument("--checkpoint")
+    pe.add_argument("--config")
+    pe.add_argument("--batch-size", type=int, default=16)
+    pe.add_argument("--decode", default="greedy",
+                    choices=["greedy", "beam", "beam_device", "ctc_greedy"])
+    pe.add_argument("--beam-size", type=int, help="(not ported)")
+    pe.add_argument("--lm-path", default="", help="(not ported)")
+    pe.add_argument("--lm-weight", type=float, default=None, help="(not ported)")
+    pe.add_argument("--int8", action="store_true",
+                    help="evaluate the int8-quantized serving bundle (whisper)")
+    pe.add_argument("--per-utt", metavar="OUT.jsonl",
+                    help="also write one row per utterance (audio, dialect, ref, hyp, cer, wer)")
+    _device(pe)
+    pe.set_defaults(fn=cmd_evaluate)
+
+    pi = sub.add_parser("import-whisper",
+                        help="HF Whisper checkpoint dir (safetensors) -> bundle checkpoint")
+    pi.add_argument("src", help="HF dir: model.safetensors + config.json [+ tokenizer]")
+    pi.add_argument("--out", required=True, help="bundle checkpoint dir to write")
+    _device(pi)
+    pi.set_defaults(fn=cmd_import_whisper)
+
+    pf = sub.add_parser("featurize", help="audio -> log-mel .npy")
+    pf.add_argument("audio")
+    pf.add_argument("--output")
+    _device(pf)
+    pf.set_defaults(fn=cmd_featurize)
+
+    pp = sub.add_parser("prepare", help="transcript table -> train/dev/test manifests")
+    pp.add_argument("table", help="TSV/CSV of (audio_path, transcript) rows")
+    pp.add_argument("--out-dir", required=True)
+    pp.add_argument("--audio-root", default="")
+    pp.add_argument("--dialect", default="")
+    pp.add_argument("--min-seconds", type=float, default=0.3)
+    pp.add_argument("--max-seconds", type=float, default=30.0)
+    pp.add_argument("--dev-fraction", type=float, default=0.05)
+    pp.add_argument("--test-fraction", type=float, default=0.05)
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--cmvn", action="store_true",
+                    help="also compute global-CMVN stats over the train split")
+    pp.add_argument("--num-mels", type=int, default=80)
+    _device(pp)
+    pp.set_defaults(fn=cmd_prepare)
+
+    return p
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED:  # a JAX subcommand without its module here
+        return refuse(argv[0])
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

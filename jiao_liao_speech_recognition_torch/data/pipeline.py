@@ -229,5 +229,21 @@ def make_batches(manifest: Manifest, tokenizer: CharTokenizer, cfg: DataConfig,
     return [next(it) for _ in range(num_batches)]
 
 
-def mix_manifests(manifests, weights=None, seed: int = 0):
-    raise NotImplementedError("multi-dialect mixing comes with the stages slice")
+def mix_manifests(manifests: Dict[str, Manifest], weights: Optional[Dict[str, float]] = None,
+                  seed: int = 0) -> Manifest:
+    """Weighted multi-dialect mixture: ``len(manifests)`` times the largest
+    corpus's size in draws with replacement, a corpus by weight and then a
+    row, from ``RandomState(seed)`` over the sorted names (the JAX
+    package's draws, row for row)."""
+    names = sorted(manifests)
+    if weights is None:
+        weights = {n: 1.0 for n in names}
+    rng = np.random.RandomState(seed)
+    target = max(len(manifests[n]) for n in names)
+    probs = np.array([weights.get(n, 1.0) for n in names], np.float64)
+    probs /= probs.sum()
+    out: List[ManifestRow] = []
+    for _ in range(target * len(names)):
+        rows = manifests[names[rng.choice(len(names), p=probs)]].rows
+        out.append(rows[rng.randint(len(rows))])
+    return Manifest(out)

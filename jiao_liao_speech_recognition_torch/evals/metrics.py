@@ -1,8 +1,10 @@
 """Corpus CER / WER, the twin of the JAX package's ``evals/metrics.py``
 (which the port may not import): the same normalization, the same jieba
 segmentation with the same character/Latin-run fallback, and plain
-Levenshtein distance. error rate = sum(edit distances) / sum(reference
-lengths), as jiwer computes it on lists."""
+Levenshtein distance. Corpus error rate = sum(edit distances) /
+sum(reference lengths), as jiwer computes it on lists; ``cer`` / ``wer``
+score one utterance (an empty reference scores 0, or inf against a
+non-empty hypothesis)."""
 
 from __future__ import annotations
 
@@ -63,6 +65,27 @@ def edit_distance(ref: Sequence, hyp: Sequence) -> int:
         c = np.concatenate((np.array([i], dtype=np.int32), t))
         prev = idx + np.minimum.accumulate(c - idx)
     return int(prev[-1])
+
+
+def _rate(ref_tokens: Sequence, hyp_tokens: Sequence) -> float:
+    n = len(ref_tokens)
+    if n == 0:
+        return 0.0 if len(hyp_tokens) == 0 else float("inf")
+    return edit_distance(ref_tokens, hyp_tokens) / n
+
+
+def cer(reference: str, hypothesis: str, *, normalize: bool = True) -> float:
+    """One utterance's character error rate."""
+    if normalize:
+        reference, hypothesis = normalize_text(reference), normalize_text(hypothesis)
+    return _rate(list(reference), list(hypothesis))
+
+
+def wer(reference: str, hypothesis: str, *, normalize: bool = True) -> float:
+    """One utterance's word error rate over segmented words."""
+    if normalize:
+        reference, hypothesis = normalize_text(reference), normalize_text(hypothesis)
+    return _rate(segment_words(reference), segment_words(hypothesis))
 
 
 def corpus_cer(references: Iterable[str], hypotheses: Iterable[str]) -> float:

@@ -14,7 +14,9 @@ one card.
 * ``make_ctc_loss_fn``: K1 featurizes under ``no_grad`` (no gradient flows
   into it), then SpecAugment, the model in train mode, and the mean of the
   per-example CTC NLL over label lengths.
-* ``train_loop`` / ``run_experiment`` / ``evaluate_manifest``.
+* ``train_loop`` (one run, or one stage of ``train/schedules.py``: its own
+  checkpoint directory, a fresh optimizer over the stage's trainable set)
+  / ``run_experiment`` / ``evaluate_manifest``.
 
 Randomness: one CPU ``torch.Generator`` seeded from ``TrainConfig.seed``
 draws two seeds per step, one for SpecAugment and one for the dropout
@@ -142,7 +144,8 @@ def init_state(config: ExperimentConfig, model: torch.nn.Module) -> TrainState:
 
 def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str, float]:
     """Clip the trainable gradients, set the scheduled learning rate, take
-    the optimizer step and clear the gradients."""
+    the optimizer step and clear the gradients -> {"grad_norm": the norm
+    before clipping}, the metric the JAX step adds to its loss's."""
     params = [p for p in state.trainable() if p.grad is not None]
     k = max(cfg.grad_accum_steps, 1)
     grads = [p.grad for p in params]
@@ -154,7 +157,7 @@ def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str,
         group["lr"] = lr
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
-    return {"grad_norm": norm, "lr": lr}
+    return {"grad_norm": norm}
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +254,9 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     ``max_steps`` more in this call): host batches from a prefetch thread,
     per-step losses, steps/s every ``log_every_steps``, a checkpoint every
     ``checkpoint_every_steps`` and where the call stops, and on SIGTERM a
-    checkpoint and a clean exit. Returns
+    checkpoint and a clean exit. With ``resume``, the newest checkpoint in
+    ``checkpoint_dir`` (default ``train.checkpoint_dir``) is restored first,
+    so a run whose checkpoint is at ``total_steps`` takes no step. Returns
     (state, info) with info = {"terminated", "last_metrics", "losses",
     "steps_per_sec"}."""
     from ..data.pipeline import BatchIterator, PrefetchIterator
@@ -323,18 +328,32 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     return state, info
 
 
+def mix_by_dialect(manifest, dialect_weights):
+    """One run's weighted mixture: rows grouped by their dialect tag
+    ("default" where it is empty), then ``mix_manifests`` over the groups."""
+    from ..data.manifest import Manifest
+    from ..data.pipeline import mix_manifests
+
+    groups: Dict[str, list] = {}
+    for row in manifest.rows:
+        groups.setdefault(row.dialect or "default", []).append(row)
+    return mix_manifests({k: Manifest(v) for k, v in groups.items()}, dict(dialect_weights))
+
+
 def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda",
                    kernels: bool = True, max_steps: Optional[int] = None):
-    """The fine-tune run: read the manifest, build the char vocab, init the
-    model from ``train.seed``, train, and save the bundle (params.npz,
-    config.yaml, vocab.json) to ``<checkpoint_dir>/final``. -> (state, bundle)."""
+    """The fine-tune run: read the manifest (mixed by ``data.dialect_weights``
+    when set), build the char vocab, init the model from ``train.seed``,
+    train, and save the bundle (params.npz, config.yaml, vocab.json) to
+    ``<checkpoint_dir>/final``. ``config.stages`` is not read here: the
+    schedule is ``train/schedules.run_stages``. -> (state, bundle)."""
     from ..data.manifest import read_manifest
     from ..models.bundle import ModelBundle
     from ..models.ctc_model import CTCEncoderModel
 
-    if config.data.dialect_weights:
-        raise NotImplementedError("dialect mixing comes with the multi-dialect stages slice")
     manifest = read_manifest(config.data.train_manifest)
+    if config.data.dialect_weights:
+        manifest = mix_by_dialect(manifest, config.data.dialect_weights)
     tokenizer = build_tokenizer_for(config, manifest)
     model = CTCEncoderModel(config.ctc_model, device=device, seed=config.train.seed)
     eval_manifest = None

@@ -1,0 +1,84 @@
+"""Multi-dialect transfer schedules, the twin of the JAX package's
+``train/schedules.py`` (BASELINE configs[3], the paper's method): adapt on
+the larger neighbouring-dialect corpora, then fine-tune the adapters on
+low-resource Jiao-Liao with the backbone frozen.
+
+Each ``DialectStage`` is one ``engine.train_loop`` run over its own
+manifests (mixed by weight when it names several) with its own trainable
+set and a fresh optimizer, checkpointed under
+``<checkpoint_dir>/stage_<i>_<name>``; the model carries from stage to
+stage. With ``resume=True`` a finished stage restores its last checkpoint
+and takes no step, and the stage in progress continues exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Optional
+
+from ..data.manifest import Manifest, read_manifest
+from ..data.pipeline import mix_manifests
+from ..data.tokenizer import CharTokenizer
+from ..utils.config import DialectStage, ExperimentConfig
+from .engine import _log, train_loop
+
+
+def build_stage_manifest(stage: DialectStage) -> Manifest:
+    """A stage's manifest: its one manifest as it is, or the mixture of
+    several, keyed (and weighted) by manifest path."""
+    manifests = {p: read_manifest(p) for p in stage.manifests}
+    if len(manifests) == 1:
+        return next(iter(manifests.values()))
+    weights = None
+    if stage.mix_weights is not None:
+        weights = {p: w for p, w in zip(stage.manifests, stage.mix_weights)}
+    return mix_manifests(manifests, weights)
+
+
+def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTokenizer] = None,
+               resume: bool = False, device="cuda", kernels: bool = True):
+    """Run ``config.stages`` in order on `device`, carrying the model.
+
+    The char vocabulary is built over the union of all stages' texts and
+    sizes the CTC head (``ctc_model.vocab_size``); without `model` the CTC
+    model is made from ``train.seed``. Each stage runs with
+    ``train.train_adapters_only`` and ``optimizer.total_steps`` (= its
+    steps; warmup as configured) replaced, and appends a summary line
+    {"step", "ts", "stage", "stage_index", **last metrics} to
+    ``train.metrics_path``. A SIGTERM ends the schedule after that stage's
+    checkpoint. -> (model, tokenizer, history), history holding
+    {"stage": name, **last metrics} per stage run.
+    """
+    from ..models.ctc_model import CTCEncoderModel
+
+    if not config.stages:
+        raise ValueError("run_stages needs config.stages")
+    if config.model_family != "ctc":
+        raise NotImplementedError(
+            f"model family {config.model_family!r}: the port trains ctc")
+    stage_manifests = [build_stage_manifest(s) for s in config.stages]
+    if tokenizer is None:
+        tokenizer = CharTokenizer.build([t for m in stage_manifests for t in m.texts()])
+    config.ctc_model.vocab_size = len(tokenizer)
+    if model is None:
+        model = CTCEncoderModel(config.ctc_model, device=device, seed=config.train.seed)
+
+    base_dir = Path(config.train.checkpoint_dir)
+    metrics_path = config.train.metrics_path
+    history = []
+    for si, (stage, manifest) in enumerate(zip(config.stages, stage_manifests)):
+        train = dataclasses.replace(
+            config.train, train_adapters_only=stage.train_adapters_only,
+            optimizer=dataclasses.replace(config.train.optimizer, total_steps=stage.steps))
+        stage_cfg = dataclasses.replace(config, train=train)
+        stage_dir = str(base_dir / f"stage_{si}_{stage.name or 'stage'}")
+        _, info = train_loop(stage_cfg, manifest, tokenizer, model, resume=resume,
+                             checkpoint_dir=stage_dir, kernels=kernels)
+        history.append({"stage": stage.name, **info["last_metrics"]})
+        _log(metrics_path, stage.steps, stage=stage.name, stage_index=si,
+             **info["last_metrics"])
+        if info["terminated"]:
+            _log(metrics_path, stage.steps, event="sigterm_stage_exit", stage=stage.name)
+            break
+    return model, tokenizer, history

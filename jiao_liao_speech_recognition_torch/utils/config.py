@@ -5,10 +5,12 @@ through their package ``__init__``), so the sections the ported slices read
 are restated here with the same field names and defaults:
 ``FrontendConfig``, ``SpecAugmentConfig``, ``AugmentConfig``,
 ``AdapterConfig``, ``CTCModelConfig``, ``DataConfig``, ``OptimizerConfig``,
-``TrainConfig``, ``DecodeConfig``, ``WhisperConfig`` (+ ``whisper_preset``).
-``ExperimentConfig`` holds those sections plus ``model_family``; the
-sections of later slices (joint, mesh, stages) are ignored when a
-JAX-written ``config.yaml`` is read.
+``TrainConfig``, ``DecodeConfig``, ``WhisperConfig`` (+ ``whisper_preset``)
+and ``DialectStage``. ``ExperimentConfig`` holds those sections plus
+``model_family`` and the multi-dialect ``stages`` schedule; the sections
+of later slices (joint, mesh) are ignored when a JAX-written
+``config.yaml`` is read. ``apply_overrides`` takes the CLI's
+``key.subkey=value`` overrides.
 ``tests/test_torch_config.py`` pins every twin field, name and default, to
 ``jiao_liao_speech_recognition_tpu.utils.config``.
 """
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import typing
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Dict, Optional, Tuple, Type, TypeVar
+from typing import Any, Dict, Optional, Sequence, Tuple, Type, TypeVar
 
 T = TypeVar("T")
 
@@ -160,7 +162,7 @@ class DataConfig:
     num_host_workers: int = 4
     tokenizer_dir: str = ""  # subword vocabularies: not ported (raises)
     unigram_vocab: str = ""  # not ported (raises)
-    dialect_weights: Optional[Dict[str, float]] = None  # not ported (raises)
+    dialect_weights: Optional[Dict[str, float]] = None  # mixed by dialect tag
     transfer_dtype: str = "float32"  # "float32" | "int16" host->device audio
 
 
@@ -208,6 +210,17 @@ class DecodeConfig:
 
 
 @dataclass
+class DialectStage:
+    """One stage of the multi-dialect transfer schedule (train/schedules.py)."""
+
+    name: str = ""
+    manifests: Tuple[str, ...] = ()
+    steps: int = 1000
+    train_adapters_only: bool = True
+    mix_weights: Optional[Tuple[float, ...]] = None  # of several manifests; None: equal
+
+
+@dataclass
 class ExperimentConfig:
     model_family: str = "ctc"
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
@@ -218,6 +231,7 @@ class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
+    stages: Tuple[DialectStage, ...] = ()  # multi-dialect transfer schedule
 
 
 WHISPER_PRESETS = {
@@ -254,6 +268,10 @@ def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
         ft = hints.get(f.name)
         if is_dataclass(ft) and isinstance(v, dict):
             kwargs[f.name] = from_dict(ft, v)
+        elif f.name == "stages" and isinstance(v, (list, tuple)):
+            kwargs[f.name] = tuple(
+                from_dict(DialectStage, s) if isinstance(s, dict) else s for s in v
+            )
         elif isinstance(v, list):
             kwargs[f.name] = tuple(v)
         else:
@@ -289,3 +307,32 @@ def load_yaml(path: str, cls: Type[T] = ExperimentConfig) -> T:
     with open(path) as fh:
         data = yaml.safe_load(fh) or {}
     return from_dict(cls, data)
+
+
+def apply_overrides(cfg: T, overrides: Sequence[str]) -> T:
+    """Apply ``key.subkey=value`` CLI overrides, values parsed as YAML (and
+    a string such as "3e-3", which YAML 1.1 leaves a string, as a number)."""
+    import yaml
+
+    data = to_dict(cfg)
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        key, _, raw = ov.partition("=")
+        node = data
+        parts = key.strip().lstrip("-").split(".")
+        for p in parts[:-1]:
+            node = node[p]
+        if parts[-1] not in node:
+            raise KeyError(f"unknown config key: {key}")
+        val = yaml.safe_load(raw)
+        if isinstance(val, str):
+            try:
+                val = int(val)
+            except ValueError:
+                try:
+                    val = float(val)
+                except ValueError:
+                    pass
+        node[parts[-1]] = val
+    return from_dict(type(cfg), data)

@@ -1,0 +1,242 @@
+"""The port's CLI on the CPU (``--device cpu``) against the JAX package's:
+train with and without stages, transcribe (plain, --timestamps, --caption
+srt), evaluate --per-utt, featurize and prepare --cmvn print what the JAX
+CLI prints (the same JSON keys; the same manifests; features and CMVN
+stats within their bars), transcribe's text is ``api.transcribe``'s, and
+every subcommand or flag whose module is not ported exits 2."""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from jiao_liao_speech_recognition_tpu import cli as jcli  # noqa: E402
+from jiao_liao_speech_recognition_torch import api  # noqa: E402
+from jiao_liao_speech_recognition_torch import cli  # noqa: E402
+from jiao_liao_speech_recognition_torch.data.manifest import (  # noqa: E402
+    ManifestRow,
+    read_manifest,
+    write_manifest,
+)
+from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav  # noqa: E402
+from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E402
+
+# log-mel of two f32 implementations (the C3 bar); corpus CMVN stats
+LOGMEL_BAR = 2e-4
+CMVN_BAR = 1e-4
+TINY = [
+    "data.batch_size=2", "data.bucket_boundaries_seconds=[2.0]", "data.min_audio_seconds=0.1",
+    "frontend.chunk_seconds=2.0", "ctc_model.d_model=64", "ctc_model.num_layers=1",
+    "ctc_model.num_heads=4", "ctc_model.mlp_dim=128", "ctc_model.conv_channels=32",
+    "ctc_model.use_flash_attention=false", "ctc_model.dtype=float32",
+    "train.optimizer.warmup_steps=1", "train.optimizer.learning_rate=1e-3",
+    "train.log_every_steps=2",
+]
+
+
+@pytest.fixture(scope="module")
+def env(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cli")
+    rng = np.random.RandomState(0)
+    rows = {"jiaoliao": [], "jilu": []}
+    table = []
+    for i in range(8):
+        dialect = "jiaoliao" if i % 2 else "jilu"
+        secs = 1.2 if i < 6 else 0.7
+        t = np.arange(int(16000 * secs)) / 16000
+        wav = (0.1 * rng.randn(len(t)) + 0.3 * np.sin(2 * np.pi * (200 + 90 * i) * t))
+        write_wav(tmp / f"u{i}.wav", wav.astype(np.float32), 16000)
+        text = "".join(chr(0x4E00 + j) for j in rng.randint(0, 12, 2 + i % 3))
+        rows[dialect].append(ManifestRow(str(tmp / f"u{i}.wav"), text, secs, dialect))
+        table.append(f"u{i}.wav\t{text}")
+    for dialect, r in rows.items():
+        write_manifest(r, tmp / f"{dialect}.jsonl")
+    write_manifest(rows["jiaoliao"] + rows["jilu"], tmp / "train.jsonl")
+    (tmp / "table.tsv").write_text("\n".join(table), encoding="utf-8")
+    tiny = tcfg.apply_overrides(tcfg.ExperimentConfig(), TINY)
+    tcfg.save_yaml(tiny, str(tmp / "tiny.yaml"))
+    return tmp
+
+
+def _run(main, argv, capsys):
+    capsys.readouterr()
+    rc = main(argv)
+    return rc, capsys.readouterr().out.strip().splitlines()
+
+
+def _train(env, capsys, name, *extra):
+    return _run(cli.main, [
+        "train", "--config", str(env / "tiny.yaml"), "--device", "cpu",
+        f"data.train_manifest={env}/train.jsonl", f"train.checkpoint_dir={env}/{name}",
+        f"train.metrics_path={env}/{name}.jsonl", *extra], capsys)
+
+
+FT = ["train.optimizer.total_steps=4", "data.dialect_weights={jiaoliao: 2.0, jilu: 1.0}"]
+
+
+@pytest.fixture(scope="module")
+def final(env):
+    """A bundle trained by `train` without stages (4 steps, dialect mixing)."""
+    assert cli.main(["train", "--config", str(env / "tiny.yaml"), "--device", "cpu",
+                     f"data.train_manifest={env}/train.jsonl",
+                     f"train.checkpoint_dir={env}/ft", *FT]) == 0
+    return env / "ft" / "final"
+
+
+def test_train_without_stages_saves_the_bundle(env, final, capsys):
+    assert all((final / f).exists() for f in ("params.npz", "config.yaml", "vocab.json"))
+    assert sorted(p.name for p in final.parent.iterdir()) == ["00000004", "final"]
+    rc, out = _train(env, capsys, "ft", *FT, "--resume")
+    assert rc == 0 and out[-1] == f"saved final bundle to {final} (step 4)"
+
+
+def test_train_with_stages_prints_history_and_saves_the_bundle(env, capsys):
+    stages = (f"stages=[{{name: neighbor, manifests: [{env}/jilu.jsonl, {env}/jiaoliao.jsonl],"
+              f" steps: 2, train_adapters_only: false, mix_weights: [1.0, 2.0]}},"
+              f" {{name: target, manifests: [{env}/jiaoliao.jsonl], steps: 2}}]")
+    rc, out = _train(env, capsys, "st", "ctc_model.adapter.kind=att",
+                     "ctc_model.adapter.att_num_heads=2", "ctc_model.adapter.att_key_dim=16",
+                     stages)
+    assert rc == 0
+    history = [json.loads(line) for line in out[:-1]]
+    # the JAX history: {"stage", **the step's metrics} = loss, nll_sum, grad_norm
+    assert [sorted(h) for h in history] == [["grad_norm", "loss", "nll_sum", "stage"]] * 2
+    assert [h["stage"] for h in history] == ["neighbor", "target"]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert out[-1] == f"saved final bundle to {env}/st/final"
+    assert sorted(p.name for p in (env / "st").iterdir()) == \
+        ["final", "stage_0_neighbor", "stage_1_target"]
+    saved = tcfg.load_yaml(str(env / "st" / "final" / "config.yaml"))
+    assert [s.name for s in saved.stages] == ["neighbor", "target"]
+    served = api.load(str(env / "st" / "final"), device="cpu")
+    assert served.config.ctc_model.adapter.kind == "att"
+    # --resume over the finished stages takes no step: the same bundle
+    before = dict(np.load(env / "st" / "final" / "params.npz"))
+    rc, out = _train(env, capsys, "st", "ctc_model.adapter.kind=att",
+                     "ctc_model.adapter.att_num_heads=2", "ctc_model.adapter.att_key_dim=16",
+                     stages, "--resume")
+    assert rc == 0 and [json.loads(line) for line in out[:-1]] == \
+        [{"stage": "neighbor"}, {"stage": "target"}]
+    with np.load(env / "st" / "final" / "params.npz") as after:
+        assert sorted(after.files) == sorted(before)
+        assert all(np.array_equal(after[k], v) for k, v in before.items())
+
+
+def _same_shape(got, want):
+    """The same keys, and in lists that both fill, dicts of the same keys."""
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        if isinstance(v, list) and v and want[k]:
+            assert {kk for d in v for kk in d} == {kk for d in want[k] for kk in d}, k
+
+
+@pytest.mark.parametrize("flags", [[], ["--timestamps"], ["--caption", "srt"]])
+def test_transcribe_prints_what_jax_prints(env, final, flags, capsys):
+    wavs = [str(env / "u0.wav"), str(env / "u7.wav")]
+    rc, out = _run(cli.main, ["transcribe", *wavs, "--checkpoint", str(final),
+                              "--device", "cpu", *flags], capsys)
+    assert rc == 0 and len(out) == 2
+    got = [json.loads(line) for line in out]
+    texts = api.transcribe(api.load(str(final), device="cpu"), wavs)
+    assert [r["audio"] for r in got] == wavs and [r["text"] for r in got] == texts
+    if flags == ["--caption", "srt"]:
+        assert got[0]["caption"] == str(env / "u0.srt")
+        srt = (env / "u0.srt").read_text(encoding="utf-8")
+        assert srt.startswith("1\n00:00:0") if texts[0] else srt == ""
+    if flags == ["--timestamps"]:
+        assert all({"token", "start", "end"} == set(t) for r in got for t in r["tokens"])
+        assert all({"word", "start", "end"} == set(w) for r in got for w in r["words"])
+    # the JAX CLI on a random-init bundle of the same config: the same keys
+    rc, out = _run(jcli.main, ["transcribe", *wavs, "--config", str(env / "tiny.yaml"),
+                               *flags], capsys)
+    assert rc == 0 and len(out) == 2
+    for a, b in zip(got, out):
+        _same_shape(a, json.loads(b))
+
+
+def test_evaluate_per_utt_prints_what_jax_prints(env, final, capsys):
+    args = ["evaluate", "--manifest", str(env / "train.jsonl"), "--batch-size", "3"]
+    rc, out = _run(cli.main, [*args, "--checkpoint", str(final), "--device", "cpu",
+                              "--per-utt", str(env / "t.jsonl")], capsys)
+    assert rc == 0
+    got = json.loads(out[-1])
+    rc, out = _run(jcli.main, [*args, "--config", str(env / "tiny.yaml"),
+                               "--per-utt", str(env / "j.jsonl")], capsys)
+    assert rc == 0
+    want = json.loads(out[-1])
+    assert sorted(got) == sorted(want) and got["utterances"] == want["utterances"] == 8
+    rows = [json.loads(line) for line in (env / "t.jsonl").read_text().splitlines()]
+    jrows = [json.loads(line) for line in (env / "j.jsonl").read_text().splitlines()]
+    assert [sorted(r) for r in rows] == [sorted(r) for r in jrows]
+    assert [(r["audio"], r["dialect"], r["ref"]) for r in rows] == \
+        [(r["audio"], r["dialect"], r["ref"]) for r in jrows]
+    m = read_manifest(env / "train.jsonl")
+    hyps = api.transcribe(api.load(str(final), device="cpu"), [r.audio for r in m.rows])
+    assert [r["hyp"] for r in rows] == hyps
+
+
+def test_featurize_matches_jax(env, capsys):
+    rc, out = _run(cli.main, ["featurize", str(env / "u1.wav"), "--output",
+                              str(env / "t.npy"), "--device", "cpu"], capsys)
+    assert rc == 0 and out[-1].startswith(f"wrote {env}/t.npy shape=(1, 80, ")
+    with jax.default_matmul_precision("highest"):
+        rc, jout = _run(jcli.main, ["featurize", str(env / "u1.wav"), "--output",
+                                    str(env / "j.npy")], capsys)
+    assert rc == 0 and out[-1].split("shape=")[1] == jout[-1].split("shape=")[1]
+    np.testing.assert_allclose(np.load(env / "t.npy"), np.load(env / "j.npy"),
+                               atol=LOGMEL_BAR, rtol=0)
+
+
+def test_prepare_cmvn_matches_jax(env, capsys):
+    args = ["prepare", str(env / "table.tsv"), "--audio-root", str(env), "--dialect",
+            "jiaoliao", "--min-seconds", "0.1", "--test-fraction", "0.25", "--cmvn"]
+    rc, out = _run(cli.main, [*args, "--out-dir", str(env / "tp"), "--device", "cpu"], capsys)
+    assert rc == 0
+    got = json.loads(out[-1])
+    with jax.default_matmul_precision("highest"):
+        rc, out = _run(jcli.main, [*args, "--out-dir", str(env / "jp")], capsys)
+    assert rc == 0
+    want = json.loads(out[-1])
+    assert sorted(got) == sorted(want) == ["cmvn_stats", "dev", "test", "train"]
+    for split in ("train", "dev", "test"):
+        assert [r.to_json() for r in read_manifest(got[split]).rows] == \
+            [r.to_json() for r in read_manifest(want[split]).rows]
+    with np.load(got["cmvn_stats"]) as t, np.load(want["cmvn_stats"]) as j:
+        assert int(t["count"]) == int(j["count"]) > 0
+        for k in ("mean", "std"):
+            np.testing.assert_allclose(t[k], j[k], atol=CMVN_BAR, rtol=0)
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "a.wav"], ["train-lm", "m.jsonl", "--output", "lm.npz"],
+    ["train-unigram", "m.jsonl", "--output", "u.json"],
+    ["export-whisper", "--checkpoint", "c", "--out", "o"], ["build-native"],
+    ["transcribe", "a.wav", "--stream"], ["transcribe", "a.wav", "--strategy", "beam"],
+    ["transcribe", "a.wav", "--strategy", "spec_greedy"],
+    ["transcribe", "a.wav", "--profile", "d"],
+    ["transcribe", "a.wav", "--stream-window", "8"],
+    ["transcribe", "a.wav", "--stream-hop", "0.4"],
+    ["transcribe", "a.wav", "--stream-lookahead", "0.64"],
+    ["transcribe", "a.wav", "--beam-size", "4"],
+    ["evaluate", "--manifest", "m.jsonl", "--decode", "beam_device"],
+    ["evaluate", "--manifest", "m.jsonl", "--beam-size", "8"],
+    ["evaluate", "--manifest", "m.jsonl", "--lm-path", "lm.npz"],
+    ["evaluate", "--manifest", "m.jsonl", "--lm-weight", "0.3"],
+    ["train", "--config", "c.yaml", "--profile", "d"],
+    ["train", "--config", "c.yaml", "--multihost"],
+])
+def test_unported_subcommands_and_flags_exit_2(argv, capsys):
+    assert cli.main(argv) == 2
+    assert "not ported yet: ROADMAP queue 1 item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("main", [cli.main, jcli.main], ids=["torch", "jax"])
+def test_int8_of_a_ctc_bundle_exits_2(env, final, main, capsys):
+    args = ["--checkpoint", str(final), "--device", "cpu"] if main is cli.main else \
+        ["--config", str(env / "tiny.yaml")]
+    assert main(["transcribe", str(env / "u0.wav"), "--int8", *args]) == 2
+    assert "error: --int8:" in capsys.readouterr().err

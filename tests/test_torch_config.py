@@ -14,7 +14,7 @@ from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E40
 
 # ExperimentConfig sections the ported slices do not read; their twins come
 # with the slices that use them
-LATER_SECTIONS = {"joint", "mesh", "stages"}
+LATER_SECTIONS = {"joint", "mesh"}
 
 
 def _defaults(cls):
@@ -31,7 +31,7 @@ def _defaults(cls):
 @pytest.mark.parametrize(
     "name", ["FrontendConfig", "AdapterConfig", "CTCModelConfig", "DecodeConfig",
              "SpecAugmentConfig", "AugmentConfig", "DataConfig", "OptimizerConfig", "TrainConfig",
-             "WhisperConfig"]
+             "WhisperConfig", "DialectStage"]
 )
 def test_config_twin_matches_jax_dataclass(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
