@@ -153,10 +153,33 @@ non-zero and prints no result line):
               --per-utt` (K1, K2 at 8 x 64, K3, K4, K6 24 a batch), held
               against the plain path; steps/s of each stage on both paths,
               stage 1's device idle share under the profiler, peak device
-              memory, and the bundle's greedy RTFx at B=32 x 30 s.
+              memory, and the bundle's greedy RTFx at B=32 x 30 s;
+12. engine  - run after phase 9: main path 10, Whisper continuous-batching
+              serving (serve/engine.py) on phase 8's large-v3 bundle and on
+              phase 9's quantize()d one: ServingEngine(16 lanes, 32 steps a
+              dispatch, max_len 224), its decode step captured once as a
+              CUDA graph and replayed; 24 windows (the six requests' seven
+              and 17 seeded ones of 1-30 s) in staggered waves of 8, so
+              lanes sit at different positions in one step. Exact launches:
+              K1, K5, K6, K2h-out and K3c a wave, the captured step's K9 64
+              (bf16) or K9-int8 64, K10 256 and K11 1 (int8) times its
+              replays, confirmed by the profiler's kernel names over one
+              replay; one dispatch replayed against the eager step from the
+              same state (tokens, positions and done flags equal, caches
+              within ULP_BAR, bitwise printed); every request's tokens
+              through the plain decoder's steps (the margin rule); a second
+              run timed: decode ms a step (graph and eager), tokens/s
+              against static waves through bundle.transcribe's decode,
+              latency, a dispatch's device idle share, peak memory,
+              capture seconds; timestamps of two requests against
+              whisper_token_spans; `cli serve` of three WAVs (plain,
+              --int8, --timestamps).
 
 Each main path runs with every launch count set to 0 just before it and read
-just after; a kernel of that path that never launched fails the run. Then a
+just after; a kernel of that path that never launched fails the run. A
+launch replayed from the engine's CUDA graph is not counted by its wrapper
+(the wrapper ran once, at capture): main path 10's launches are its
+counted ones plus the captured step's launches times its replays. Then a
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. There is
 no CPU path: without CUDA the script exits non-zero at once.
 """
@@ -273,6 +296,8 @@ PATHS = {
     "prepare": ("K1",),
     "transfer": ("K1", "K6", "K8"),
     "transfer_serve": ("K1", "K2", "K3", "K4", "K6"),
+    "whisper_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
+    "whisper_int8_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9-int8", "K10", "K11"),
 }
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
@@ -280,6 +305,12 @@ WHISPER_B, WHISPER_T = 16, 1500  # a batch of 30 s chunks, encoder positions
 WHISPER_MAX_LEN = 224
 INT8_B16_COUNT_LEN = 32  # the B=16 launch-count run decodes this far
 INT8_BENCH = (8, 64)  # bench.py::bench_large_v3_decode: B=8, max_len 64
+# the serving engine (main path 10): lanes, decode steps a dispatch, the
+# windows served, and the max_decode_len of the `cli serve` runs
+ENGINE_SLOTS, ENGINE_SPD = 16, 32
+ENGINE_WINDOWS = 24
+ENGINE_CLI_LEN = 32
+PROFILE_ATTEMPTS = 2  # profiles of a replay read before a kernel-name count fails
 # the probes' profilers in examples/ and their main()'s arguments at the
 # flagship's B=32 (the probes' own defaults are B=128)
 PROBES = {
@@ -349,6 +380,22 @@ def bf16_ulp_err(got, want):
 def margins(logits):
     top2 = logits.topk(2, dim=-1).values
     return top2[..., 0] - top2[..., 1]
+
+
+def margin_check(logits, toks, lens, P):
+    """Teacher-forced f32 logits [B, L - 1, V] of toks [B, L] (the prompt,
+    then the generated ids padded with EOT): positions P-1 .. P-1+len predict
+    the generated ids and the EOT. -> (coverage, mismatched positions,
+    positions scored, agreement on every scored position)."""
+    import torch
+
+    pos = torch.arange(toks.shape[1] - 1, device=toks.device)[None, :]
+    n_pred = torch.clamp(lens + 1, max=toks.shape[1] - P)
+    scored = (pos >= P - 1) & (pos < P - 1 + n_pred[:, None])
+    plain = logits.argmax(-1)
+    clear = scored & (margins(logits) > ARGMAX_MARGIN)
+    return (float(clear.sum() / scored.sum()), int(((plain != toks[:, 1:]) & clear).sum()),
+            int(scored.sum()), float(((plain == toks[:, 1:]) & scored).sum() / scored.sum()))
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -2036,21 +2083,13 @@ def phase_whisper(counters):
         logits = model.decode(toks[:, :-1], enc_k, kernels=False).float()
         torch.cuda.synchronize()
     enc_rel = float((enc_k.float() - enc_p.float()).norm() / enc_p.float().norm())
-    # positions P-1 .. P-1+len predict the generated tokens and the EOT
-    pos = torch.arange(toks.shape[1] - 1, device="cuda")[None, :]
-    n_pred = torch.clamp(lens + 1, max=ids.shape[1])
-    scored = (pos >= P - 1) & (pos < P - 1 + n_pred[:, None])
-    plain = logits.argmax(-1)
-    clear = scored & (margins(logits) > ARGMAX_MARGIN)
-    coverage = float(clear.sum() / scored.sum())
-    mismatch = int(((plain != toks[:, 1:]) & clear).sum())
+    coverage, mismatch, scored, agree = margin_check(logits, toks, lens, P)
     emit({"phase": "whisper", "vs_plain": {
         "chunks": int(wavs.shape[0]), "encoder_rel_l2": enc_rel, "encoder_bar": ENC_REL_BAR,
         "logmel_max_abs_err": float((feats_k - feats_p).abs().max()),
-        "generated_lengths": [int(n) for n in lens], "positions": int(scored.sum()),
+        "generated_lengths": [int(n) for n in lens], "positions": scored,
         "coverage": coverage, "margin": ARGMAX_MARGIN, "mismatched_positions": mismatch,
-        "agree_all_positions": float(((plain == toks[:, 1:]) & scored).sum() / scored.sum()),
-        "logits_finite": bool(torch.isfinite(logits).all())}})
+        "agree_all_positions": agree, "logits_finite": bool(torch.isfinite(logits).all())}})
     check(bool(torch.isfinite(enc_k.float()).all()) and tuple(enc_k.shape) == (
         wavs.shape[0], w.max_source_positions, w.d_model), "encoder output not finite [N, 1500, d]")
     check(enc_rel <= ENC_REL_BAR, f"encoder off the plain path by {enc_rel}")
@@ -2323,12 +2362,13 @@ def phase_int8_kernels():
     return errs
 
 
-def forced_logits(model, toks, enc, kernels):
+def forced_logits(model, toks, enc, kernels, layout=None):
     """The decoder's steps fed `toks` [B, L] (teacher forcing through the
-    cached decode path) -> f32 logits [B, L - 1, V]."""
+    cached decode path; caches in `layout`, init_cache's) -> f32 logits
+    [B, L - 1, V]."""
     import torch
 
-    caches = model.init_cache(toks.shape[0], enc, toks.shape[1])
+    caches = model.init_cache(toks.shape[0], enc, toks.shape[1], layout)
     out = []
     for pos in range(toks.shape[1] - 1):
         logits, caches = model.decode_step(toks[:, pos:pos + 1], pos, enc, caches, None, kernels)
@@ -2797,6 +2837,417 @@ def phase_probe_timing():
     return rec
 
 
+# --- main path 10: Whisper continuous-batching serving (serve/engine.py) -----
+
+
+def engine_windows():
+    """ENGINE_WINDOWS windows of tone + noise: the six requests' seven 30 s
+    windows, then seeded ones of 1-30 s."""
+    window = 30 * SAMPLE_RATE
+    windows = [r[s:s + window] for r in make_requests() for s in range(0, len(r), window)]
+    rng = np.random.RandomState(15)
+    while len(windows) < ENGINE_WINDOWS:
+        t = np.arange(int(rng.uniform(1.0, 30.0) * SAMPLE_RATE)) / SAMPLE_RATE
+        f = rng.uniform(150.0, 2000.0)
+        windows.append((0.2 * np.sin(2 * np.pi * f * t) * np.sin(2 * np.pi * 0.5 * t)
+                        + 0.05 * rng.randn(len(t))).astype(np.float32))
+    return windows
+
+
+def graph_against_eager(eng, counters):
+    """One dispatch replayed from the engine's graph against the eager step
+    from the same saved state: tokens, positions and done flags equal, the
+    caches within ULP_BAR (int8 codes within one step). The run goes on
+    from the graph's state; the eager step's launches are taken back off
+    the counts. -> the comparison and both dispatches' seconds."""
+    import torch
+
+    state = eng._state()
+    saved = [t.clone() for t in state]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    type(eng)._dispatch(eng)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    graph = [t.clone() for t in state]
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    counts = {key: c.launches for key, c in counters.items()}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(eng.steps_per_dispatch):
+            eng._step()
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    for key, c in counters.items():
+        c.launches = counts[key]
+    eager = [t.clone() for t in state]
+    for t, g in zip(state, graph):
+        t.copy_(g)
+    bookkeeping = all(torch.equal(g, e) for g, e in zip(graph[:3], eager[:3]))
+    worst_ulps, worst_codes = 0.0, 0
+    for g, e in zip(graph[3:], eager[3:]):
+        if g.dtype == torch.int8:
+            worst_codes = max(worst_codes, int((g.int() - e.int()).abs().max()))
+        elif e.abs().max() > 0:
+            worst_ulps = max(worst_ulps, bf16_ulp_err(g, e)[0])
+    out = {"tokens_pos_done_equal": bookkeeping,
+           "bitwise": all(torch.equal(g, e) for g, e in zip(graph, eager)),
+           "cache_max_ulps": worst_ulps, "int8_cache_max_code_step": worst_codes,
+           "bar_ulps": ULP_BAR, "lanes_active": int((~eng._done).sum()),
+           "positions": sorted(set(eng._pos.tolist()))}
+    check(bookkeeping, f"graph and eager dispatches disagree on tokens / pos / done: {out}")
+    check(worst_ulps <= ULP_BAR and worst_codes <= 1, f"graph and eager caches differ: {out}")
+    del saved, graph, eager
+    return out, graph_s, eager_s
+
+
+def replay_profile(eng):
+    """Kernels of one graph replay by the profiler's names -> (decode
+    attention, int8 matmul, int8 tied logits, all kernels) launches, or
+    None without a marker. Late in a long process the profiler has missed
+    a window's first kernels (the first 25 of a replay: block 0's q, k and
+    v K10 launches among them; a fresh process saw them all), so a replay
+    runs first as a lead-in, then a spin kernel as a marker, and only the
+    kernels that start after the marker are counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng._graph.replay()
+        torch.cuda._sleep(1_000_000)
+        eng._graph.replay()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    marks = [e.time_range.start for e in events if "spin_kernel" in e.name]
+    if not marks:
+        return None
+    counted = [e.name for e in events if e.time_range.start > max(marks)]
+
+    def count(name):
+        return sum(name in n for n in counted)
+
+    return (count("decode_attention_kernel"), count("int8_matmul_kernel"),
+            count("int8_tied_logits"), len(counted))
+
+
+def engine_drive(eng, windows, between=None):
+    """Serve `windows` in staggered waves: 8, a dispatch, 8 (then
+    between(eng) once they are admitted), a dispatch, the rest, drained.
+    -> (the finished requests by request id, seconds)."""
+    import torch
+
+    finished = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in windows[:8]:
+        eng.submit(x, admit=False)
+    finished += eng.step()
+    for x in windows[8:16]:
+        eng.submit(x, admit=False)
+    if between is not None:
+        eng._fill_free_slots()
+        between(eng)
+    finished += eng.step()
+    for x in windows[16:]:
+        eng.submit(x, admit=False)
+    while eng.in_flight:
+        finished += eng.step()
+    torch.cuda.synchronize()
+    return sorted(finished, key=lambda r: r.rid), time.perf_counter() - t0
+
+
+def token_check(model, eng, finished, windows):
+    """Each request's tokens teacher-forced through the plain decoder's
+    cached steps (forced_logits with kernels=False, caches in the pool's
+    layout: the engine's computation with every kernel's plain version),
+    under the margin rule. A mismatch is listed with its plain margin and
+    the kernel path's own teacher-forced token there. (Phase 8's reference,
+    the whole sequence at once through model.decode, reorders the
+    attention and MLP sums: on an H100 it put one of 5,280 positions on
+    the other side of a two-ulp margin, where the kernel path's own steps
+    at one row also flip.)"""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch, pad_or_trim
+
+    fe, P, dev = eng.cfg.frontend, len(eng.prompt), eng.device
+    rows = torch.full((len(finished), WHISPER_MAX_LEN), eng.eot, dtype=torch.long, device=dev)
+    rows[:, :P] = torch.tensor(eng.prompt, device=dev)
+    for i, r in enumerate(finished):
+        rows[i, P:P + len(r.ids)] = torch.tensor(r.ids, dtype=torch.long, device=dev)
+    lens = torch.tensor([len(r.ids) for r in finished], device=dev)
+
+    def suppressed(logits):
+        if eng._always is not None:
+            logits = logits + eng._always
+        if eng._begin is not None:
+            logits[:, P - 1] += eng._begin
+        return logits
+
+    with torch.inference_mode():
+        wav = torch.from_numpy(np.stack([pad_or_trim(x, fe) for x in windows])).to(dev)
+        enc = model.encode(featurize_batch(wav, fe))
+        logits = suppressed(forced_logits(model, rows, enc, False, eng._layout))
+        coverage, mismatch, scored, agree = margin_check(logits, rows, lens, P)
+        rec = {"positions": scored, "coverage": coverage, "margin": ARGMAX_MARGIN,
+               "mismatched_positions": mismatch, "agree_all_positions": agree,
+               "logits_finite": bool(torch.isfinite(logits).all())}
+        if mismatch:
+            pos = torch.arange(rows.shape[1] - 1, device=dev)[None, :]
+            bad = ((logits.argmax(-1) != rows[:, 1:]) & (margins(logits) > ARGMAX_MARGIN)
+                   & (pos >= P - 1) & (pos < P + lens[:, None])).nonzero().tolist()
+            sel = sorted({b for b, _ in bad})
+            kern = suppressed(forced_logits(model, rows[sel], enc[sel], True, eng._layout))
+            rec["mismatches"] = [{
+                "request": b, "position": p, "engine_token": int(rows[b, p + 1]),
+                "plain_token": int(logits[b, p].argmax()),
+                "plain_margin": float(margins(logits[b, p])),
+                "kernel_steps_token": int(kern[sel.index(b), p].argmax()),
+                "kernel_steps_margin": float(margins(kern[sel.index(b), p]))}
+                for b, p in bad]
+    return rec
+
+
+def phase_engine(counters, bundle, path):
+    """ServingEngine at ENGINE_SLOTS lanes, ENGINE_SPD steps a dispatch, max
+    len WHISPER_MAX_LEN, on `bundle` (phase 8's bf16 large-v3 or phase 9's
+    quantize()d one), serving ENGINE_WINDOWS windows in staggered waves
+    twice. The counted run holds one dispatch replayed from the graph
+    against the eager step from the same state once the second wave is in,
+    and counts launches: the admission kernels a wave exactly, the captured
+    step's kernels x its replays, confirmed by the profiler's kernel names
+    over one replay. The timed run (no check in it) gives ms a step,
+    tokens/s, latency and peak memory. Each request's tokens are held
+    against the plain decoder (the margin rule). -> (launches by kernel
+    key, the engine, the report)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.serve import ServingEngine, ServingStats
+
+    int8 = path == "whisper_int8_engine"
+    L, E = bundle.config.whisper.decoder_layers, bundle.config.whisper.encoder_layers
+    windows = engine_windows()
+    torch.cuda.synchronize()
+    eng = ServingEngine(bundle, slots=ENGINE_SLOTS, steps_per_dispatch=ENGINE_SPD,
+                        max_len=WHISPER_MAX_LEN)
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    want_step = ({"grouped_decode_attention_int8": 2 * L, "int8_matmul": 8 * L,
+                  "int8_tied_logits": 1} if int8 else {"grouped_decode_attention": 2 * L})
+    check(eng.step_launches == want_step,
+          f"{path}: the captured step's launches {eng.step_launches}, not {want_step}")
+    held = {}
+
+    def hold(e):
+        held["vs_eager"], held["graph_s"], held["eager_s"] = graph_against_eager(e, counters)
+
+    for c in counters.values():
+        c.reset()
+    finished, _ = engine_drive(eng, windows, hold)
+    counted = {key: c.launches for key, c in counters.items()}
+    launches = {key: counted[key] + eng.step_launches.get(c.name, 0) * eng.replays
+                for key, c in counters.items()}
+    waves = eng.stats.waves
+    want = {"K1": waves, "K5": E * waves, "K6": E * waves, "K2h-out": E * waves,
+            "K3c": E * waves, "K2": 0, "K3": 0, "K9": 0, "K9-int8": 0, "K10": 0, "K11": 0}
+    wrong = {k: (counted[k], n) for k, n in want.items() if counted[k] != n}
+    check(not wrong, f"{path}: launches outside the graph (got, want): {wrong}")
+    missing = [key for key in PATHS[path] if launches[key] == 0]
+    check(not missing, f"{path}: kernels never launched: {missing} ({launches})")
+    want_names = (2 * L, 8 * L if int8 else 0, 1 if int8 else 0)
+    readings = []
+    for _ in range(PROFILE_ATTEMPTS):
+        readings.append(replay_profile(eng))
+        if readings[-1] is not None and readings[-1][:3] == want_names:
+            break
+    check(readings[-1] is not None and readings[-1][:3] == want_names,
+          f"{path}: one replay's K9, K10, K11 (and all kernels) by name: {readings}")
+    check(len(finished) == len(windows) and all(r.ids is not None for r in finished),
+          f"{path}: {len(finished)} of {len(windows)} requests finished")
+    check(all(r.text == bundle.tokenizer.decode(r.ids) for r in finished), "texts are the ids'")
+    checked = {"replays": eng.replays, "waves": waves, "dispatches": eng.stats.dispatches,
+               "launches": launches, "step_launches": eng.step_launches,
+               "one_replay_kernels": readings[-1][3], "profile_readings": readings,
+               "graph_vs_eager": held["vs_eager"]}
+
+    # the timed run: the same windows and waves, nothing held in between
+    dispatch_s = []
+
+    def timed_dispatch():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        type(eng)._dispatch(eng)
+        torch.cuda.synchronize()
+        dispatch_s.append(time.perf_counter() - t0)
+
+    eng._dispatch = timed_dispatch
+    eng.stats = ServingStats()
+    torch.cuda.reset_peak_memory_stats()
+    timed, wall = engine_drive(eng, windows)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del eng._dispatch
+    dev_prof = device_profile(lambda i: eng._dispatch(), 2, path)  # 16 idle lanes
+    tokens = sum(len(r.ids) + 1 for r in timed)  # with the EOT (or the last step)
+    same = sum(a.ids == b.ids for a, b in zip(finished, timed))
+    report = {
+        "phase": "engine", "path": path, "slots": ENGINE_SLOTS,
+        "steps_per_dispatch": ENGINE_SPD, "max_len": WHISPER_MAX_LEN,
+        "windows_s": [round(len(x) / SAMPLE_RATE, 2) for x in windows],
+        "capture_s": eng.capture_s, "checked_run": checked,
+        "graph_ms_per_step_16_lanes": 1e3 * held["graph_s"] / ENGINE_SPD,
+        "eager_ms_per_step_16_lanes": 1e3 * held["eager_s"] / ENGINE_SPD,
+        "graph_tokens_per_s_16_lanes": 16 * ENGINE_SPD / held["graph_s"],
+        "eager_tokens_per_s_16_lanes": 16 * ENGINE_SPD / held["eager_s"],
+        "dispatch_ms_per_step_median": 1e3 * statistics.median(dispatch_s) / ENGINE_SPD,
+        "wall_s": wall, "generated_tokens_incl_eot": tokens, "tokens_per_s": tokens / wall,
+        "timed_run_same_tokens": same, "dispatches": eng.stats.dispatches,
+        "latency_mean_s": eng.stats.mean_latency_s, "latency_p95_s": eng.stats.p95_latency_s,
+        "latency_max_s": max(eng.stats.latencies_s), "resident_gb": resident_gb,
+        "peak_gb": peak_gb, "generated_lengths": [len(r.ids) for r in timed],
+        "idle_lanes_dispatch_profile": dev_prof}
+    report["vs_plain"] = token_check(bundle.model, eng, finished, windows)
+    emit(report)
+    check(same == len(windows), f"{path}: the timed run decoded other tokens ({same} the same)")
+    rec = report["vs_plain"]
+    check(rec["logits_finite"], f"{path}: plain logits not finite")
+    check(rec["coverage"] >= MIN_COVERAGE and rec["mismatched_positions"] == 0,
+          f"{path}: tokens disagree with the plain decoder: {rec}")
+    return launches, eng, report
+
+
+def static_waves(bundle, windows):
+    """The windows in static waves of ENGINE_SLOTS through bundle.transcribe's
+    decode (ModelBundle._whisper_ids: every wave waits for its longest row)
+    -> (seconds, generated tokens with their EOT)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.features import pad_or_trim
+
+    fe = bundle.config.frontend
+    dc = bundle.config.decode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = 0
+    for i in range(0, len(windows), ENGINE_SLOTS):
+        wavs = np.stack([pad_or_trim(x, fe) for x in windows[i:i + ENGINE_SLOTS]])
+        ids, lens = bundle._whisper_ids(wavs, dc)
+        tokens += int((lens + 1).clamp(max=ids.shape[1]).sum())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, tokens
+
+
+def engine_timestamps(eng, windows):
+    """Two requests served with timestamps: spans monotone, inside the
+    audio, equal to whisper_token_spans on the engine's own ids, and the
+    tokens concatenate to the text."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode.align import whisper_token_spans
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch, pad_or_trim
+
+    fe = eng.cfg.frontend
+    eng.timestamps = True
+    picked = (windows[2], windows[3])  # the 7.5 s and 12 s requests: more frames than tokens
+    rids = [eng.submit(x) for x in picked]
+    done = {}
+    while eng.in_flight:
+        done.update((r.rid, r) for r in eng.step())
+    eng.timestamps = False
+    frame_s = fe.hop_length * 2 / SAMPLE_RATE
+    out = []
+    for rid, x in zip(rids, picked):
+        r = done[rid]
+        mel = featurize_batch(torch.from_numpy(pad_or_trim(x, fe)[None]).to(eng.device), fe)
+        valid = np.asarray([len(x) // (fe.hop_length * 2)])
+        spans = whisper_token_spans(eng.model, mel, np.asarray([r.ids]), np.asarray([len(r.ids)]),
+                                    eng.prompt, eng.eot, valid)[0]
+        want = [(round(a * frame_s, 3), round(b * frame_s, 3)) for a, b in spans]
+        got = [(t["start"], t["end"]) for t in r.timed]
+        monotone = all(a["end"] <= b["start"] + 1e-9 and a["start"] < a["end"]
+                       for a, b in zip(r.timed, r.timed[1:]))
+        inside = all(t["end"] <= len(x) / SAMPLE_RATE + 0.04 for t in r.timed)
+        joined = "".join(t["token"] for t in r.timed) == r.text
+        out.append({"audio_s": len(x) / SAMPLE_RATE, "tokens": len(r.timed),
+                    "monotone": monotone, "inside_audio": inside, "concatenate": joined,
+                    "equal_whisper_token_spans": got == want,
+                    "last_end_s": r.timed[-1]["end"] if r.timed else None})
+        check(len(r.timed) == len(r.ids) > 0 and monotone and inside and joined and got == want,
+              f"engine timestamps: {out[-1]}")
+    return out
+
+
+def engine_cli(workdir: Path, windows):
+    """`cli serve` of three WAVs (plain, --int8, --timestamps) on a large-v3
+    random-init bundle (seed 0, max_decode_len ENGINE_CLI_LEN): one JSONL
+    line a file, with latency_s, and tokens and words with --timestamps."""
+    from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav
+    from jiao_liao_speech_recognition_torch.utils.config import save_yaml
+
+    cfg = whisper_config()
+    cfg.decode.max_decode_len = ENGINE_CLI_LEN
+    save_yaml(cfg, str(workdir / "large_v3.yaml"))
+    paths = []
+    for i, x in enumerate(windows[:3]):
+        paths.append(str(workdir / f"r{i}.wav"))
+        write_wav(paths[-1], x, SAMPLE_RATE)
+    out = {}
+    for flags in ([], ["--int8"], ["--timestamps"]):
+        t0 = time.perf_counter()
+        lines = [json.loads(s) for s in cli_run(
+            ["serve", *paths, "--config", workdir / "large_v3.yaml", "--slots", "4",
+             "--steps-per-dispatch", "8", *flags])]
+        name = flags[0] if flags else "plain"
+        out[name] = {"seconds": time.perf_counter() - t0, "lines": len(lines),
+                     "text_chars": [len(r["text"]) for r in lines]}
+        check(sorted(r["audio"] for r in lines) == sorted(paths), f"cli serve {flags}: lines")
+        check(all(r["latency_s"] >= 0 for r in lines), f"cli serve {flags}: latency_s")
+        if flags == ["--timestamps"]:
+            check(all(len(r["tokens"]) > 0 and "words" in r
+                      and "".join(t["token"] for t in r["tokens"]) == r["text"]
+                      for r in lines), "cli serve --timestamps: tokens / words")
+    return out
+
+
+def phase_engines(counters, bundle, qbundle, workdir: Path, card: str):
+    """Main path 10 on the bf16 bundle and on its quantize()d form, the
+    timestamps, `cli serve`, and the static waves the engine is timed
+    against."""
+    import torch
+
+    by_path = {}
+    windows = engine_windows()
+    reports = {}
+    for b, path in ((bundle, "whisper_engine"), (qbundle, "whisper_int8_engine")):
+        by_path[path], eng, reports[path] = phase_engine(counters, b, path)
+        if path == "whisper_engine":
+            stamps = engine_timestamps(eng, windows)
+        del eng
+        torch.cuda.empty_cache()
+        static_s, static_tokens = static_waves(b, windows)
+        r = reports[path]
+        emit({"phase": "engine_timing", "path": path, "card": card,
+              "graph_ms_per_step": r["graph_ms_per_step_16_lanes"],
+              "eager_ms_per_step": r["eager_ms_per_step_16_lanes"],
+              "graph_tokens_per_s_16_lanes": r["graph_tokens_per_s_16_lanes"],
+              "eager_tokens_per_s_16_lanes": r["eager_tokens_per_s_16_lanes"],
+              "engine_tokens_per_s": r["tokens_per_s"], "engine_wall_s": r["wall_s"],
+              "engine_tokens": r["generated_tokens_incl_eot"],
+              "static_waves_s": static_s, "static_tokens": static_tokens,
+              "static_tokens_per_s": static_tokens / static_s,
+              "idle_share_dispatch": r["idle_lanes_dispatch_profile"]["device_idle_share"],
+              "device_busy_ms_per_step": 1e3 * r["idle_lanes_dispatch_profile"][
+                  "device_busy_s_per_call"] / ENGINE_SPD,
+              "latency_mean_s": r["latency_mean_s"], "latency_p95_s": r["latency_p95_s"],
+              "resident_gb": r["resident_gb"], "peak_gb": r["peak_gb"],
+              "capture_s": r["capture_s"]})
+    emit({"phase": "engine", "timestamps": stamps,
+          "cli_serve": engine_cli(workdir, windows)})
+    return by_path
+
+
 def main() -> int:
     try:
         import torch
@@ -2818,7 +3269,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_device()
+    card = phase_device()
     phase_build()
     errs = phase_kernels()
     errs.update(phase_flash())
@@ -2846,9 +3297,10 @@ def main() -> int:
     errs.update(phase_int8_kernels())
     int8_paths, qbundle = phase_whisper_int8(counters, whisper)
     by_path.update(int8_paths)
-    del whisper
     phase_int8_timing(qbundle)
-    del qbundle
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(phase_engines(counters, whisper, qbundle, Path(tmp), card))
+    del whisper, qbundle
     rec.update(phase_int8_kernel_timing())
     errs.update(phase_probe_kernels())
     by_path["probes"] = phase_probes(counters)

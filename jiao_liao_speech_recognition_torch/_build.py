@@ -209,12 +209,17 @@ def refuse_grad(name: str, *tensors) -> None:
         )
 
 
+COUNTERS: list = []  # every LaunchCounter made, in order
+
+
 class LaunchCounter:
-    """Plain count of kernel launches made by one wrapper."""
+    """Plain count of kernel launches made by one wrapper (listed in
+    ``COUNTERS``)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.launches = 0

@@ -62,7 +62,8 @@ def transcribe(
 ):
     """Audio -> one greedy transcript per input (CTC greedy, or Whisper AR
     greedy); with ``timestamps=True``, one ``[{"token", "start", "end"},
-    ...]`` list per input instead (CTC family only for now)."""
+    ...]`` list per input instead (CTC frame alignment, or Whisper
+    cross-attention DTW)."""
     if timestamps:
         return bundle.transcribe_timed(audio, sample_rate=sample_rate)
     return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg)

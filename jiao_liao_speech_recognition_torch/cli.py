@@ -5,6 +5,8 @@ subcommands, flags and JSON output:
     python -m jiao_liao_speech_recognition_torch.cli train --config configs/x.yaml [key=value ...]
     python -m jiao_liao_speech_recognition_torch.cli evaluate --manifest m/test.jsonl \\
         --checkpoint ckpt/final --per-utt per_utt.jsonl
+    python -m jiao_liao_speech_recognition_torch.cli serve a.wav b.wav --checkpoint ckpt \\
+        --slots 16 [--stdin] [--int8] [--timestamps]
 
 ``train`` runs ``config.stages`` through ``train/schedules.run_stages``
 (then saves the bundle to ``<checkpoint_dir>/final``), else
@@ -25,7 +27,6 @@ from pathlib import Path
 
 # subcommand or flag -> the ROADMAP queue 1 item that ports its module
 NOT_PORTED = {
-    "serve": "queue 1 item 5 (serve/engine.py)",
     "train-lm": "queue 1 item 7 (decode/lm.py)",
     "train-unigram": "queue 1 item 10 (data/unigram.py)",
     "export-whisper": "queue 1 item 4 (the HF export)",
@@ -139,6 +140,54 @@ def cmd_transcribe(args) -> int:
         decode_cfg = dataclasses.replace(decode_cfg, strategy=args.strategy)
     for path, text in zip(args.audio, transcribe(bundle, args.audio, decode_cfg=decode_cfg)):
         print(json.dumps({"audio": path, "text": text}, ensure_ascii=False))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Continuous-batching transcription (serve/engine.py) of audio paths
+    from argv and, with --stdin, one a line from standard input: one JSONL
+    line a request in completion order (short utterances come back while
+    long ones still decode), the stats on standard error."""
+    from .serve import ServingEngine
+    from .utils.captions import group_words
+
+    bundle = _load_bundle(args)
+    if bundle is None:
+        return 2
+    try:
+        eng = ServingEngine(bundle, slots=args.slots, steps_per_dispatch=args.steps_per_dispatch,
+                            timestamps=args.timestamps)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    paths = {}
+
+    def emit(reqs):
+        for r in reqs:
+            rec = {"audio": paths[r.rid], "text": r.text,
+                   "latency_s": round(r.finished_at - r.submitted_at, 4)}
+            if r.timed is not None:
+                rec["tokens"] = r.timed
+                rec["words"] = group_words(r.timed)
+            print(json.dumps(rec, ensure_ascii=False), flush=True)
+
+    def feed(path):
+        paths[eng.submit(path)] = path
+        while eng.in_flight > eng.slots:  # every lane busy: decode rather than queue
+            emit(eng.step())
+
+    for a in args.audio:
+        feed(a)
+    if args.stdin:
+        for line in sys.stdin:
+            if line.strip():
+                feed(line.strip())
+    while eng.in_flight:
+        emit(eng.step())
+    s = eng.stats
+    print(f"served {s.completed} utterances in {s.dispatches} dispatches ({s.decode_steps} "
+          f"decode steps); latency mean {s.mean_latency_s:.3f}s p95 {s.p95_latency_s:.3f}s",
+          file=sys.stderr)
     return 0
 
 
@@ -259,7 +308,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--int8", action="store_true",
                     help="int8-quantize the decoder weights before serving (whisper)")
     pr.add_argument("--timestamps", action="store_true",
-                    help="emit per-token and word start/end seconds (ctc)")
+                    help="emit per-token and word start/end seconds")
     pr.add_argument("--caption", choices=["srt", "vtt"],
                     help="write a subtitle sidecar file next to each audio file")
     pr.add_argument("--stream", action="store_true", help="(not ported)")
@@ -285,6 +334,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also write one row per utterance (audio, dialect, ref, hyp, cer, wer)")
     _device(pe)
     pe.set_defaults(fn=cmd_evaluate)
+
+    ps = sub.add_parser("serve", help="continuous-batching transcription service (whisper): "
+                        "audio paths from argv/stdin -> JSONL in completion order")
+    ps.add_argument("audio", nargs="*", help="audio paths to serve at once")
+    ps.add_argument("--checkpoint")
+    ps.add_argument("--config")
+    ps.add_argument("--stdin", action="store_true",
+                    help="also read audio paths from stdin, one a line")
+    ps.add_argument("--slots", type=int, default=8, help="decode lanes")
+    ps.add_argument("--steps-per-dispatch", type=int, default=32,
+                    help="decode steps between two harvests")
+    ps.add_argument("--int8", action="store_true",
+                    help="int8-quantize the decoder weights before serving")
+    ps.add_argument("--timestamps", action="store_true",
+                    help="per-token and word spans in each result (alignment at harvest)")
+    _device(ps)
+    ps.set_defaults(fn=cmd_serve)
 
     pi = sub.add_parser("import-whisper",
                         help="HF Whisper checkpoint dir (safetensors) -> bundle checkpoint")

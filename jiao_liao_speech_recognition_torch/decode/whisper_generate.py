@@ -68,6 +68,18 @@ def apply_suppression(logits, pos: int, prompt_len: int, always, begin):
     return logits
 
 
+def apply_suppression_rows(logits, pos: torch.Tensor, prompt_len: int, always, begin):
+    """apply_suppression with one position a row (pos [B], the serving
+    engine's lanes): the begin mask lands on the rows whose next token is
+    the first generated one. Decided on the device, so a captured step
+    replays it for any positions."""
+    if always is not None:
+        logits = logits + always
+    if begin is not None:
+        logits = torch.where((pos + 1 == prompt_len)[:, None], logits + begin, logits)
+    return logits
+
+
 def greedy_generate(model, mel: torch.Tensor, max_len: int = 224,
                     prompt: Optional[Tuple[int, ...]] = None, eot_id: int = EOT,
                     temperature: float = 0.0, generator: Optional[torch.Generator] = None,

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import copy
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import List, Optional, Sequence, Union
 
@@ -185,11 +185,11 @@ class ModelBundle:
     ) -> List[List[dict]]:
         """Greedy transcription with per-token times: per utterance a list
         of {"token", "start", "end"} (seconds) whose tokens concatenate to
-        transcribe()'s text. Chunk k's times are offset by k * chunk_seconds."""
+        transcribe()'s text. Chunk k's times are offset by k * chunk_seconds.
+        CTC: the frame alignment of the greedy path; Whisper: cross-attention
+        DTW over one teacher-forced pass (decode/align.py)."""
         if self.is_whisper:
-            raise NotImplementedError(
-                "Whisper timestamps (decode/align.py cross-attention DTW) come with the "
-                "Whisper beam and alignment slice")
+            return self._transcribe_timed_whisper(audio, sample_rate)
         fe = self.config.frontend
         frame_s = fe.hop_length * self.config.ctc_model.subsample_factor / fe.sample_rate
         blank = self.config.decode.ctc_blank_id
@@ -206,6 +206,39 @@ class ModelBundle:
                         "token": self.tokenizer.decode([tid]),
                         "start": round(off + t0 * frame_s, 3),
                         "end": round(off + t1 * frame_s, 3),
+                    })
+            out.append(utt)
+        return out
+
+    def _transcribe_timed_whisper(self, audio, sample_rate) -> List[List[dict]]:
+        """Greedy ids of every chunk in one batch (as transcribe), then the
+        spans of whisper_token_spans over the same features."""
+        from ..decode.align import whisper_token_spans
+        from ..decode.whisper_generate import generate, resolve_specials
+
+        fe = self.config.frontend
+        wcfg = self.config.whisper
+        wavs, alens, owners = self._prepare_audio_chunked(audio, sample_rate)
+        with torch.inference_mode():
+            feats = features.featurize_batch(torch.from_numpy(wavs).to(self.device), fe)
+            ids, lens = generate(self, feats, replace(self.config.decode, strategy="greedy"))
+        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        prompt, eot = resolve_specials(wcfg)
+        # one encoder frame = 2 mel hops (conv2's stride) = 20 ms at 16 kHz
+        frame_s = fe.hop_length * 2 / fe.sample_rate
+        valid = np.maximum(alens // (fe.hop_length * 2), 1).astype(np.int64)
+        spans = whisper_token_spans(self.model, feats, ids, lens, prompt, eot, valid)
+        out: List[List[dict]] = []
+        for group in owners:
+            utt: List[dict] = []
+            for j, piece in enumerate(group):
+                off = j * fe.chunk_seconds
+                n = int(lens[piece])
+                for tid, (f0, f1) in zip(ids[piece][:n], spans[piece]):
+                    utt.append({
+                        "token": self.tokenizer.decode([int(tid)]),
+                        "start": round(off + f0 * frame_s, 3),
+                        "end": round(off + f1 * frame_s, 3),
                     })
             out.append(utt)
         return out

@@ -240,17 +240,30 @@ class WhisperDecoder(nn.Module):
             caches[f"block_{i}"] = {"self": self_cache, "cross": cross}
         return caches
 
-    def decode_step(self, token: torch.Tensor, pos: int, enc: torch.Tensor, caches: Dict,
+    def decode_step(self, token: torch.Tensor, pos, enc: torch.Tensor, caches: Dict,
                     enc_lengths: Optional[torch.Tensor] = None, kernels: bool = True):
-        """One cached step at position `pos` (every row in lockstep): token
-        [B, 1] -> (logits [B, V], caches). The caches are updated in place."""
+        """One cached step: token [B, 1] -> (logits [B, V], caches), the
+        caches updated in place. `pos` is an int (every row in lockstep, the
+        offline loops) or a tensor on the model's device, [B] or 0-dim: each
+        row at its own position (the serving engine's lanes), so the
+        position embedding, the key mask, the kernels' lengths and the
+        self-cache row writes are per row. With a tensor `pos` the step
+        neither copies to the device nor reads back from it, so it can be
+        captured in a CUDA graph."""
         dt = DTYPES[self.cfg.dtype]
         B = token.shape[0]
-        x = self.embed_tokens(token, dt) + self.embed_positions[pos].to(dt)[None, None]
         t_cache = caches["block_0"]["self"]["k"].shape[-2]
-        kmask = (torch.arange(t_cache, device=x.device) <= pos)[None, None, None, :]
+        keys = torch.arange(t_cache, device=token.device)
+        if torch.is_tensor(pos):
+            pos = pos.reshape(-1).expand(B)
+            x = self.embed_tokens(token, dt) + self.embed_positions[pos].to(dt)[:, None]
+            kmask = (keys[None, :] <= pos[:, None])[:, None, None, :]
+            lens = (pos + 1).to(torch.int32)
+        else:
+            x = self.embed_tokens(token, dt) + self.embed_positions[pos].to(dt)[None, None]
+            kmask = (keys <= pos)[None, None, None, :]
+            lens = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
         enc_mask = length_mask(enc_lengths, enc.shape[1]) if enc_lengths is not None else None
-        lens = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
         for i, block in enumerate(self.blocks):
             c = caches[f"block_{i}"]
             x, c["self"], c["cross"], _ = block(
@@ -285,7 +298,7 @@ class WhisperModel(nn.Module):
     def decode(self, tokens, enc, enc_lengths=None, kernels: bool = True):
         return self.decoder(tokens, enc, enc_lengths, kernels)
 
-    def decode_step(self, token, pos: int, enc, caches, enc_lengths=None, kernels: bool = True):
+    def decode_step(self, token, pos, enc, caches, enc_lengths=None, kernels: bool = True):
         return self.decoder.decode_step(token, pos, enc, caches, enc_lengths, kernels)
 
     def init_cache(self, batch: int, enc, max_len: Optional[int] = None,

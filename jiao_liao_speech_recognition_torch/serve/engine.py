@@ -1,0 +1,350 @@
+"""Continuous-batching serving engine for Whisper AR decode, the PyTorch
+twin of the JAX package's ``serve/engine.py``.
+
+Static batches wait for their longest utterance; this engine keeps a fixed
+pool of ``slots`` decode lanes and admits utterances mid-flight as lanes
+free up:
+
+* each lane sits at its own decode position, so the step calls
+  ``decode_step`` with a [S] position tensor (per-row position embedding,
+  key mask, kernel lengths and cache-row writes);
+* admission is one batched wave: the queued newcomers are featurized (K1),
+  encoded (K5, K6, K2h-out, K3c at large-v3's width) and their caches built
+  together, in the pool's layout, then copied into their free lanes. Only
+  the admitted rows are encoded (the JAX engine pads the wave to S rows
+  for its static shapes and drops the padding through an out-of-range
+  scatter);
+* a dispatch runs ``steps_per_dispatch`` decode steps, then reads ``done``
+  and the token pool back in one device-to-host copy and harvests the
+  finished lanes; idle lanes stay frozen at their position.
+
+On the card the decode step is replayed from a CUDA graph, the
+counterpart of the JAX engine's ``lax.fori_loop`` inside one jit: one step
+(the decoder's blocks with K9, or K10 / K9-int8 for a ``quantize()``d
+bundle, the tied logits (K11 when int8), suppression, argmax and the lanes'
+bookkeeping) is warmed on a side stream, captured once at construction and
+replayed ``steps_per_dispatch`` times a dispatch. Its state (tokens,
+positions, done flags, the cache pool, the encoder outputs) is allocated
+once; admission and harvest write into it in place and never rebind it, so
+the addresses the graph recorded, those inside the kernels' TMA
+descriptors included, stay valid; so do those of the weights and their
+serving copies, so an engine serves the weights it was made with (make a
+new one after changing them). A capture or replay that fails raises. On
+a CPU bundle the same step runs eagerly.
+
+Greedy only, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..decode.whisper_generate import (
+    apply_suppression_rows,
+    resolve_specials,
+    suppression_masks,
+)
+from ..frontend import features
+from ..models.ctc_model import DTYPES
+from ..models.whisper import HEAD_MAJOR_MIN_BATCH
+
+
+@dataclass
+class _Request:
+    rid: int
+    wav: np.ndarray  # padded or trimmed to the model window
+    submitted_at: float
+    wav_len: int = 0  # samples before padding (the timestamps' frame clamp)
+    started_at: float = 0.0
+    finished_at: float = 0.0
+    text: Optional[str] = None
+    timed: Optional[list] = None  # [{"token", "start", "end"}] with timestamps
+    ids: Optional[List[int]] = None  # generated ids before the first EOT
+
+
+@dataclass
+class ServingStats:
+    """Serving metrics since the engine was made."""
+
+    completed: int = 0
+    decode_steps: int = 0
+    dispatches: int = 0
+    waves: int = 0  # admission waves (one batched encoder pass each)
+    latencies_s: List[float] = field(default_factory=list)
+
+    @property
+    def mean_latency_s(self) -> float:
+        return float(np.mean(self.latencies_s)) if self.latencies_s else 0.0
+
+    @property
+    def p95_latency_s(self) -> float:
+        return float(np.percentile(self.latencies_s, 95)) if self.latencies_s else 0.0
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in _leaves(tree[key])]
+    return [tree]
+
+
+class ServingEngine:
+    """Continuous-batching greedy transcription over a fixed slot pool::
+
+        eng = ServingEngine(bundle, slots=8)
+        rid = eng.submit(wav)          # queues, and admits at once if a lane is free
+        texts = eng.drain()            # {rid: text} once every request is done
+        texts = eng.transcribe([wav1, wav2, ...])  # in order, long-form re-joined
+    """
+
+    def __init__(self, bundle, slots: int = 8, steps_per_dispatch: int = 32,
+                 max_len: Optional[int] = None, timestamps: bool = False):
+        if not bundle.is_whisper:
+            raise ValueError(
+                "ServingEngine drives AR decode; the CTC family is a single forward pass "
+                "per batch: use bundle.transcribe")
+        self.bundle = bundle
+        self.cfg = bundle.config
+        wcfg = self.cfg.whisper
+        self.model = bundle.model
+        self.slots = int(slots)
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        self.max_len = min(int(max_len or self.cfg.decode.max_decode_len),
+                           wcfg.max_target_positions)
+        # word timing at harvest: one B=1 teacher-forced alignment pass per
+        # finished request (decode/align.py), off the decode loop
+        self.timestamps = bool(timestamps)
+        self.prompt, self.eot = resolve_specials(wcfg)
+        self._P = len(self.prompt)
+        dev = self.device = bundle.device
+        self._always, self._begin = suppression_masks(
+            wcfg.vocab_size, wcfg.suppress_ids, wcfg.begin_suppress_ids, dev)
+        fe = self.cfg.frontend
+        self._window = int(fe.chunk_seconds * fe.sample_rate)
+        # the pool's cache layout, decided once for a batch of S as
+        # init_cache decides it (below HEAD_MAJOR_MIN_BATCH any batch of
+        # admitted rows gets the same decision as S rows)
+        self._layout = "head_major" if self.slots >= HEAD_MAJOR_MIN_BATCH else None
+        S = self.slots
+        with torch.no_grad():
+            fresh = torch.full((self.max_len,), self.eot, dtype=torch.long, device=dev)
+            fresh[: self._P] = torch.as_tensor(self.prompt, dtype=torch.long)
+            self._fresh_row = fresh
+            # the engine's state, allocated once and written in place
+            t_enc = -(-(self._window // fe.hop_length) // 2)  # conv2 halves the frames
+            enc1 = torch.zeros(1, t_enc, wcfg.d_model, dtype=DTYPES[wcfg.dtype], device=dev)
+            unit = self.model.init_cache(1, enc1, self.max_len, self._layout)
+            self._caches = {blk: {kind: {n: torch.zeros((S, *t.shape[1:]), dtype=t.dtype,
+                                                       device=dev)
+                                         for n, t in c.items()}
+                                  for kind, c in entry.items()}
+                            for blk, entry in unit.items()}
+            self._enc_all = torch.zeros((S, *enc1.shape[1:]), dtype=enc1.dtype, device=dev)
+            self._tokens = fresh.repeat(S, 1)
+            self._pos = torch.zeros(S, dtype=torch.long, device=dev)
+            self._done = torch.ones(S, dtype=torch.bool, device=dev)  # empty lanes are idle
+        self._slot_req: List[Optional[_Request]] = [None] * S
+        self._queue: List[_Request] = []
+        self._results: Dict[int, _Request] = {}
+        self._next_rid = 0
+        self.stats = ServingStats()
+        # the captured step: its kernel launches by counter name (counted
+        # once, at capture), the replays made, and the seconds the warm-up
+        # and capture took
+        self.step_launches: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s = 0.0
+        self._graph = self._capture() if dev.type == "cuda" else None
+
+    # ------------------------------------------------------------- public API
+    def submit(self, audio, sample_rate: Optional[int] = None, admit: bool = True) -> int:
+        """Queue one utterance (a path or a 1-D array at the frontend rate,
+        at most one model window: transcribe() chunks longer ones) and,
+        with `admit`, admit it at once if a lane is free; otherwise the next
+        step() admits every queued request in one wave. -> request id."""
+        fe = self.cfg.frontend
+        wavs = self.bundle._collect_audio(audio, sample_rate)
+        if len(wavs) != 1:
+            raise ValueError("submit() takes exactly one utterance")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append(_Request(rid=rid, wav=features.pad_or_trim(wavs[0], fe),
+                                    submitted_at=time.monotonic(),
+                                    wav_len=min(len(wavs[0]), self._window)))
+        if admit:
+            self._fill_free_slots()
+        return rid
+
+    @property
+    def in_flight(self) -> int:
+        """Requests in lanes or still queued (not yet harvested)."""
+        return sum(r is not None for r in self._slot_req) + len(self._queue)
+
+    def step(self) -> List[_Request]:
+        """One serving tick: admit queued requests into free lanes, run one
+        dispatch (steps_per_dispatch decode steps), harvest the finished
+        lanes. -> the requests completed on this tick (.rid, .text, .ids,
+        .timed, and their submit / start / finish times)."""
+        self._fill_free_slots()
+        if any(r is not None for r in self._slot_req):
+            self._dispatch_and_harvest()
+        done = list(self._results.values())
+        self._results.clear()
+        return done
+
+    def drain(self) -> Dict[int, str]:
+        """Decode until every queued and in-flight request is done -> {rid:
+        text} of everything completed since the last step() or drain()."""
+        out = {r.rid: r.text for r in self.step()}
+        while self._queue or any(r is not None for r in self._slot_req):
+            for req in self.step():
+                out[req.rid] = req.text
+        return out
+
+    def transcribe(self, audios: Sequence, sample_rate=None) -> List[str]:
+        """Order-preserving: every utterance split into model windows (as
+        bundle.transcribe chunks long recordings), queued, drained and
+        re-joined."""
+        raw = self.bundle._collect_audio(audios, sample_rate)
+        rids: List[List[int]] = []
+        for a in raw:
+            rids.append([self.submit(a[s : s + self._window], admit=False)
+                         for s in range(0, max(len(a), 1), self._window)])
+        texts = self.drain()
+        return ["".join(texts[rid] for rid in group) for group in rids]
+
+    # ---------------------------------------------------------------- internals
+    def _state(self) -> List[torch.Tensor]:
+        """Every state tensor (the graph reads and writes these addresses)."""
+        return [self._tokens, self._pos, self._done, self._enc_all, *_leaves(self._caches)]
+
+    @torch.no_grad()
+    def _fill_free_slots(self) -> None:
+        """Admit queued requests into free lanes, the whole wave at once."""
+        free = [s for s in range(self.slots) if self._slot_req[s] is None]
+        take = min(len(free), len(self._queue))
+        if take == 0:
+            return
+        admitted = [(free[i], self._queue.pop(0)) for i in range(take)]
+        dev = self.device
+        lanes = torch.tensor([s for s, _ in admitted], dtype=torch.long, device=dev)
+        wav = torch.from_numpy(np.stack([r.wav for _, r in admitted])).to(dev)
+        enc = self.model.encode(features.featurize_batch(wav, self.cfg.frontend))
+        unit = self.model.init_cache(take, enc, self.max_len, self._layout)
+        for big, small in zip(_leaves(self._caches), _leaves(unit)):
+            big.index_copy_(0, lanes, small)
+        self._enc_all.index_copy_(0, lanes, enc)
+        self._tokens.index_copy_(0, lanes, self._fresh_row.expand(take, -1))
+        self._pos.index_fill_(0, lanes, 0)
+        self._done.index_fill_(0, lanes, False)
+        self.stats.waves += 1
+        now = time.monotonic()
+        for s, req in admitted:
+            req.started_at = now
+            self._slot_req[s] = req
+
+    def _step(self) -> None:
+        """One decode step of every lane, in place on the state (the JAX
+        engine's loop body): prompt tokens are forced, finished lanes write
+        EOT (nothing past the row's end) and stay at their position."""
+        tokens, pos, done = self._tokens, self._pos, self._done
+        logits, _ = self.model.decode_step(tokens.gather(1, pos[:, None]), pos, self._enc_all,
+                                           self._caches)
+        logits = apply_suppression_rows(logits, pos, self._P, self._always, self._begin)
+        nxt = torch.argmax(logits, dim=-1)
+        in_row = pos + 1 < self.max_len
+        at = torch.where(in_row, pos + 1, pos)
+        cur_next = tokens.gather(1, at[:, None])[:, 0]
+        is_prompt = pos + 1 < self._P
+        nxt = torch.where(done, self.eot, torch.where(is_prompt, cur_next, nxt))
+        nxt = torch.where(in_row, nxt, cur_next)
+        tokens.scatter_(1, at[:, None], nxt[:, None])
+        active = ~done
+        done |= (active & ~is_prompt & (nxt == self.eot)) | (pos + 1 >= self.max_len - 1)
+        pos.copy_(torch.where(active, pos + 1, pos))
+
+    @torch.no_grad()
+    def _capture(self) -> torch.cuda.CUDAGraph:
+        """Warm the step on a side stream (the kernels' library, cuBLAS's
+        handles and workspaces, the serving copies), then capture it. The
+        launch counters count the capture's launches, which run nothing:
+        they are kept as ``step_launches`` and taken back off the counters.
+        Warming steps idle lanes only, which admission overwrites."""
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        before = {c: c.launches for c in _build.COUNTERS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        for c, n in before.items():
+            if c.launches != n:
+                self.step_launches[c.name] = c.launches - n
+                c.launches = n
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+        return graph
+
+    @torch.no_grad()
+    def _dispatch(self) -> None:
+        """steps_per_dispatch decode steps: graph replays on the card, the
+        eager step on the CPU."""
+        for _ in range(self.steps_per_dispatch):
+            if self._graph is None:
+                self._step()
+            else:
+                self._graph.replay()
+                self.replays += 1
+
+    def _dispatch_and_harvest(self) -> None:
+        self._dispatch()
+        self.stats.dispatches += 1
+        self.stats.decode_steps += self.steps_per_dispatch
+        # ONE device-to-host copy of done and the whole token pool
+        with torch.no_grad():
+            host = torch.cat([self._done[:, None].long(), self._tokens], 1).cpu().numpy()
+        done, toks = host[:, 0].astype(bool), host[:, 1:]
+        now = time.monotonic()
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if not done[s] or req is None:
+                continue
+            gen = toks[s, self._P :]
+            eots = np.nonzero(gen == self.eot)[0]
+            ids = gen[: int(eots[0]) if len(eots) else len(gen)]
+            req.ids = [int(i) for i in ids]
+            req.text = self.bundle.tokenizer.decode(req.ids)
+            if self.timestamps and len(ids):
+                req.timed = self._align_request(req, ids)
+            req.finished_at = now
+            self.stats.completed += 1
+            self.stats.latencies_s.append(now - req.submitted_at)
+            self._results[req.rid] = req
+            self._slot_req[s] = None
+
+    def _align_request(self, req: _Request, ids: np.ndarray) -> list:
+        """Per-token spans of one finished request by the cross-attention
+        DTW of bundle.transcribe_timed, equal to it for a one-window
+        utterance."""
+        from ..decode.align import whisper_token_spans
+
+        fe = self.cfg.frontend
+        with torch.no_grad():
+            mel = features.featurize_batch(torch.from_numpy(req.wav[None]).to(self.device), fe)
+        frame_s = fe.hop_length * 2 / fe.sample_rate
+        valid = np.asarray([max(req.wav_len // (fe.hop_length * 2), 1)], np.int64)
+        spans = whisper_token_spans(self.model, mel, ids[None].astype(np.int64),
+                                    np.asarray([len(ids)]), self.prompt, self.eot, valid)[0]
+        tok = self.bundle.tokenizer
+        return [{"token": tok.decode([int(t)]), "start": round(f0 * frame_s, 3),
+                 "end": round(f1 * frame_s, 3)}
+                for t, (f0, f1) in zip(ids, spans)]

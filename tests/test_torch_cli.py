@@ -1,10 +1,13 @@
 """The port's CLI on the CPU (``--device cpu``) against the JAX package's:
 train with and without stages, transcribe (plain, --timestamps, --caption
-srt), evaluate --per-utt, featurize and prepare --cmvn print what the JAX
-CLI prints (the same JSON keys; the same manifests; features and CMVN
-stats within their bars), transcribe's text is ``api.transcribe``'s, and
-every subcommand or flag whose module is not ported exits 2."""
+srt; --timestamps on a Whisper bundle too), evaluate --per-utt, featurize,
+prepare --cmvn and serve (argv and --stdin, --int8, --timestamps) print
+what the JAX CLI prints (the same JSON keys; the same manifests; features
+and CMVN stats within their bars), transcribe's and serve's texts are
+``api.transcribe``'s, and every subcommand or flag whose module is not
+ported exits 2."""
 
+import io
 import json
 
 import numpy as np
@@ -17,6 +20,7 @@ import jax  # noqa: E402
 from jiao_liao_speech_recognition_tpu import cli as jcli  # noqa: E402
 from jiao_liao_speech_recognition_torch import api  # noqa: E402
 from jiao_liao_speech_recognition_torch import cli  # noqa: E402
+from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.manifest import (  # noqa: E402
     ManifestRow,
     read_manifest,
@@ -212,7 +216,7 @@ def test_prepare_cmvn_matches_jax(env, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "a.wav"], ["train-lm", "m.jsonl", "--output", "lm.npz"],
+    ["train-lm", "m.jsonl", "--output", "lm.npz"],
     ["train-unigram", "m.jsonl", "--output", "u.json"],
     ["export-whisper", "--checkpoint", "c", "--out", "o"], ["build-native"],
     ["transcribe", "a.wav", "--stream"], ["transcribe", "a.wav", "--strategy", "beam"],
@@ -240,3 +244,89 @@ def test_int8_of_a_ctc_bundle_exits_2(env, final, main, capsys):
         ["--config", str(env / "tiny.yaml")]
     assert main(["transcribe", str(env / "u0.wav"), "--int8", *args]) == 2
     assert "error: --int8:" in capsys.readouterr().err
+
+
+# --- Whisper: serve, and transcribe --timestamps ------------------------------------
+
+WHISPER = dict(vocab_size=96, d_model=64, encoder_layers=1, decoder_layers=2, num_heads=2,
+               mlp_dim=128, max_source_positions=100, max_target_positions=16,
+               prompt_ids=(1, 3), eot_id=95, dtype="float32", use_flash_attention=False)
+
+
+@pytest.fixture(scope="module")
+def whisper(env):
+    """A tiny random-init Whisper checkpoint of the port (2 s windows, a char
+    vocabulary) and its config as YAML, which the JAX CLI initializes."""
+    cfg = tcfg.ExperimentConfig(model_family="whisper", whisper=tcfg.WhisperConfig(**WHISPER))
+    cfg.frontend.chunk_seconds = 2.0
+    cfg.decode.max_decode_len = 12
+    tcfg.save_yaml(cfg, str(env / "whisper.yaml"))
+    bundle = api.load(config=cfg, device="cpu")
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(94)])
+    bundle.save(str(env / "wh"))
+    return env / "wh"
+
+
+def _serve(env, whisper, flags, capsys, stdin=None, monkeypatch=None):
+    wavs = [str(env / f"u{i}.wav") for i in (0, 6, 7)]
+    argv = ["serve", *wavs[:2], "--checkpoint", str(whisper), "--device", "cpu", "--slots", "2",
+            "--steps-per-dispatch", "3", *flags]
+    if stdin is not None:
+        monkeypatch.setattr("sys.stdin", io.StringIO(f"\n{wavs[2]}\n"))
+        argv.append("--stdin")
+    else:
+        argv.insert(3, wavs[2])
+    capsys.readouterr()
+    rc = cli.main(argv)
+    out, err = capsys.readouterr()
+    return rc, wavs, [json.loads(line) for line in out.strip().splitlines()], err
+
+
+@pytest.mark.parametrize("flags", [[], ["--int8"], ["--timestamps"], ["--stdin"]])
+def test_serve_prints_what_jax_prints(env, whisper, flags, capsys, monkeypatch):
+    stdin = flags == ["--stdin"]
+    rc, wavs, got, err = _serve(env, whisper, [] if stdin else flags, capsys,
+                                stdin=stdin or None, monkeypatch=monkeypatch)
+    assert rc == 0 and sorted(r["audio"] for r in got) == sorted(wavs)
+    assert "served 3 utterances in " in err and "latency mean" in err
+    bundle = api.load(str(whisper), device="cpu")
+    if "--int8" in flags:
+        bundle = bundle.quantize()
+    want = dict(zip(wavs, api.transcribe(bundle, wavs)))
+    assert {r["audio"]: r["text"] for r in got} == want
+    assert all(r["latency_s"] >= 0 for r in got)
+    if "--timestamps" in flags:
+        timed = dict(zip(wavs, bundle.transcribe_timed(wavs)))
+        assert all(r["tokens"] == timed[r["audio"]] for r in got)
+        assert all({"word", "start", "end"} == set(w) for r in got for w in r["words"])
+        assert all("".join(w["word"] for w in r["words"]) == r["text"] for r in got)
+    # the JAX CLI on a random-init bundle of the same config: the same keys
+    capsys.readouterr()
+    rc = jcli.main(["serve", *wavs, "--config", str(env / "whisper.yaml"), "--slots", "2",
+                    "--steps-per-dispatch", "3", *([] if stdin else flags)])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0 and len(out) == 3
+    for a, b in zip(got, out):
+        _same_shape(a, json.loads(b))
+
+
+def test_serve_refuses_a_ctc_bundle(env, final, capsys):
+    assert cli.main(["serve", str(env / "u0.wav"), "--checkpoint", str(final),
+                     "--device", "cpu"]) == 2
+    assert "CTC" in capsys.readouterr().err
+
+
+def test_whisper_transcribe_timestamps_print_what_jax_prints(env, whisper, capsys):
+    wavs = [str(env / "u0.wav"), str(env / "u7.wav")]
+    rc, out = _run(cli.main, ["transcribe", *wavs, "--checkpoint", str(whisper),
+                              "--device", "cpu", "--timestamps"], capsys)
+    assert rc == 0 and len(out) == 2
+    got = [json.loads(line) for line in out]
+    bundle = api.load(str(whisper), device="cpu")
+    assert [r["tokens"] for r in got] == bundle.transcribe_timed(wavs)
+    assert [r["text"] for r in got] == api.transcribe(bundle, wavs)
+    rc, out = _run(jcli.main, ["transcribe", *wavs, "--config", str(env / "whisper.yaml"),
+                               "--timestamps"], capsys)
+    assert rc == 0 and len(out) == 2
+    for a, b in zip(got, out):
+        _same_shape(a, json.loads(b))

@@ -494,8 +494,8 @@ def test_bundle_transcribes_whisper_on_the_cpu_and_round_trips(jax_f32, tmp_path
     texts = api.transcribe(loaded, audio)
     assert len(texts) == 2 and all(isinstance(s, str) for s in texts)
     # the chunked 2.5 s request is one 30 s chunk here: same ids as generate
-    with pytest.raises(NotImplementedError, match="alignment slice"):
-        api.transcribe(loaded, audio, timestamps=True)
+    timed = api.transcribe(loaded, audio, timestamps=True)
+    assert ["".join(t["token"] for t in utt) for utt in timed] == texts
     bad = dataclasses.replace(cfg, frontend=tcfg.FrontendConfig(num_mels=128))
     with pytest.raises(ValueError, match="num_mels"):
         api.load(config=bad, device="cpu")
