@@ -85,8 +85,8 @@ non-zero and prints no result line):
               tokens teacher-forced through the plain decoder (the margin
               rule); then encoder seconds per B=16 x 30 s batch, decode ms
               per step (building the caches timed apart) and tokens/s at
-              B=16 (max_len 224) on both paths, the kernel path's peak
-              device memory in one encoder call, and
+              B=16 (64 steps) on both paths, the kernel path's peak device
+              memory in one encoder call, and
               K5, K3c (with bound-counted TFLOP/s and, as context, cuBLAS's
               products alone on a precomputed LN(x)), K2h-out (beside cuBLAS
               addmm, its library_ms), K9 (cycling through caches that
@@ -108,8 +108,8 @@ non-zero and prints no result line):
               64 a step, K9 none); the generated tokens teacher-forced
               through the plain int8 decoder's steps (the margin rule) and
               the int8-vs-bf16 top-1 agreement and logit cosine (printed);
-              then decode ms per step and tokens/s at B=16 (max_len 224) and
-              B=8 (max_len 64) on both paths with peak device memory; K9
+              then decode ms per step and tokens/s at B=16 and B=8 (64
+              steps each) on both paths with peak device memory; K9
               (bf16 and int8 caches, cross and self) and K11 alone by
               device time, cycling through inputs that exceed the L2
               twice (examples/torch_profile_decode_kernels.py, run in a
@@ -169,17 +169,48 @@ non-zero and prints no result line):
               within ULP_BAR, bitwise printed); every request's tokens
               through the plain decoder's steps (the margin rule); a second
               run timed: decode ms a step (graph and eager), tokens/s
-              against static waves through bundle.transcribe's decode,
-              latency, a dispatch's device idle share, peak memory,
+              against static waves (224 steps) through bundle.transcribe's
+              decode, latency, a dispatch's device idle share, peak memory,
               capture seconds; timestamps of two requests against
               whisper_token_spans; `cli serve` of three WAVs (plain,
-              --int8, --timestamps).
+              --int8, --timestamps);
+13. streaming - main paths 11 and 12, CTC streaming (serve/streaming.py) on
+              the flagship (random init, seed 0): StreamingPool(32 slots,
+              10 s windows, 0.4 s hops, 0.64 s lookahead) on the device
+              ring, its step (ring update, K1, K2 and K3 a block, K4)
+              captured once as a CUDA graph and replayed; 40 seeded streams
+              of 4-25 s fed a hop a step, opened at staggered steps and
+              finished as they end (8 of them on reused rows). Exact
+              launches: the captured step's K1 1, K2 12, K3 12, K4 1 times
+              its replays (confirmed by the profiler's kernel names over one
+              replay), and those of finish()'s host-assembled steps; the
+              same streams through a second captured pool and a pool built
+              with graph=False in lockstep, every replay bitwise the eager
+              step from the same state (frames, ids, ring, results); the
+              windows' ids against the plain path
+              every 8 steps (the margin rule); texts equal to the
+              host-assembled pool's and to single StreamingTranscribers';
+              finish() over one window equal to bundle.transcribe of 10 s
+              chunks; api.stream of one WAV and `cli transcribe --stream` of
+              two, a line a hop; then the pool step timed with every slot
+              busy (graph and eager in turns), a replay's and a step's
+              device idle share, host-to-device bytes a step, latency,
+              real-time capacity, capture seconds, peak memory, and K1-K4
+              alone at this shape against their plain versions (K1 within
+              LOGMEL_BAR, K2 and K3 within ULP_BAR and bitwise repeatable,
+              K4 by the margin rule) beside their bounds. Main path 12: the
+              banded flagship (left 12, right 6, position_mode "none",
+              whisper_norm off) streaming three seeded utterances at a 3.2 s
+              lookahead: K1, K3 and K4 launched exactly, never K2; its
+              committed frames against the offline path's by the margin
+              rule, the differing frames and tokens printed.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
 launch replayed from the engine's CUDA graph is not counted by its wrapper
-(the wrapper ran once, at capture): main path 10's launches are its
-counted ones plus the captured step's launches times its replays. Then a
+(the wrapper ran once, at capture): main paths 10's and 11's launches are
+their counted ones plus the captured step's launches times its replays.
+Every JSON line carries t_s, the seconds since the script started. Then a
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. There is
 no CPU path: without CUDA the script exits non-zero at once.
 """
@@ -298,11 +329,18 @@ PATHS = {
     "transfer_serve": ("K1", "K2", "K3", "K4", "K6"),
     "whisper_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
     "whisper_int8_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9-int8", "K10", "K11"),
+    "streaming": ("K1", "K2", "K3", "K4"),
+    "streaming_banded": ("K1", "K3", "K4"),
 }
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
 WHISPER_B, WHISPER_T = 16, 1500  # a batch of 30 s chunks, encoder positions
 WHISPER_MAX_LEN = 224
+# decode steps of the timed greedy runs at B=16 (phases 8 and 9) and of the
+# engine's static waves (phase 12): a step's cost barely moves with the
+# position (the self caches' K9 takes ~0.2 ms of a step's ~70), and 224
+# steps a run took ~190 s of the whole script on a slow host
+WHISPER_TIMED_LEN = 64
 INT8_B16_COUNT_LEN = 32  # the B=16 launch-count run decodes this far
 INT8_BENCH = (8, 64)  # bench.py::bench_large_v3_decode: B=8, max_len 64
 # the serving engine (main path 10): lanes, decode steps a dispatch, the
@@ -311,6 +349,25 @@ ENGINE_SLOTS, ENGINE_SPD = 16, 32
 ENGINE_WINDOWS = 24
 ENGINE_CLI_LEN = 32
 PROFILE_ATTEMPTS = 2  # profiles of a replay read before a kernel-name count fails
+# CTC streaming (main paths 11 and 12): the pool's slots and geometry
+# (StreamingConfig's defaults: 10 s windows, 0.4 s hops, 0.64 s lookahead),
+# the streams served (8 more than the slots: they reuse freed rows), steps
+# between two plain-path checks of the windows, and the timed steps (each
+# pool warmed, then turns of graph, eager, eager, graph)
+STREAM_SLOTS, STREAM_GEOMETRY, STREAM_COUNT = 32, (10.0, 0.4, 0.64), 40
+STREAM_PLAIN_EVERY = 8
+STREAM_WARM_STEPS, STREAM_TURN_STEPS = 6, 10
+# the banded flagship: examples/streaming_quality.py's band, streamed at a
+# lookahead that covers 12 blocks x 6 frames of right context (3.2 s = 80
+# frames) and a window whose committed frames keep 12 x 12 frames of left
+# context (250 - 10 - 80 >= 146)
+BANDED = {"attention_left_context": 12, "attention_right_context": 6, "position_mode": "none"}
+BANDED_GEOMETRY = (10.0, 0.4, 3.2)
+# one replay of the pool's graph by the profiler's kernel names (one launch
+# of each kernel's tag a K1 or K4 call, one a block for K2 and K3)
+STREAM_KERNEL_NAMES = {"K1": "log_mel_tf32_kernel", "K2 core": "attention_core_kernel",
+                       "K2 out-projection": "gemm_kernel<4, 2>", "K3 fc2": "gemm_kernel<3, 0>",
+                       "K4 tiles": "head_tile_argmax_kernel"}
 # the probes' profilers in examples/ and their main()'s arguments at the
 # flagship's B=32 (the probes' own defaults are B=128)
 PROBES = {
@@ -342,7 +399,8 @@ TRANSFER_UTTS = 18
 TRANSFER_STEPS = 3
 # steps a timed turn of each stage: the host clock spreads by tens of
 # percent over four steps on a shared host
-TRANSFER_RATE_STEPS = 16
+TRANSFER_RATE_STEPS = 8
+TRANSFER_PROFILE_STEPS = 2  # stage steps under the profiler
 # published H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM_BYTES_S and its operations over
 # the peak rate of their type
@@ -353,8 +411,12 @@ PKG = "jiao_liao_speech_recognition_torch"
 SAMPLE_RATE = 16000
 
 
+START = time.monotonic()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.monotonic() - START, 1)}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1222,12 +1284,8 @@ def phase_timing(bundle, adapted):
     library = {"K6": lib_fwd, "K8": lib_bwd, "K4": lib_head}
 
     # the least time for each function on these inputs (see bound())
-    d, mlp, V, n_fft, M = 512, blk.mlp.fc1.kernel.shape[1], head.kernel.shape[1], 400, 80
-    T, frames, freqs = 750, L // fe.hop_length, n_fft // 2 + 1
-    keys = float(lens.sum()) * T  # query-key pairs (all keys valid here)
-    act = B * T * d * 2  # one bf16 activation tensor
-    attn_bytes = 2 * act + sum(t.numel() * 4 for t in attn_args[1:10]) + B * 4
-    mlp_bytes = 2 * act + sum(t.numel() * 4 for t in mlp_args[1:7])
+    T, n_fft, M = 750, fe.n_fft, fe.num_mels
+    frames, freqs = L // fe.hop_length, n_fft // 2 + 1
     qkv = Bf * Tf * Hf * dhf * 2
     pairs_f = float(kl.sum()) * Tf
 
@@ -1238,30 +1296,19 @@ def phase_timing(bundle, adapted):
     def insert_bytes(inserts_):
         return sum(t.numel() * 4 for f in inserts_ for t in f.values())
 
-    # K1: three TF32 products of the DFT on the tensor cores, the power and
-    # the mel product over each filter's nonzero band on the CUDA cores
-    hi, _, mel_fb, bands = fused_frontend._kernel_constants(n_fft, M, fe.mel_scale, "cuda")
-    mel_terms = int((bands[:, 1] - bands[:, 0]).sum())
-    logmel_bytes = B * L * 4 + B * M * frames * 4 + 2 * hi.numel() * 4 + mel_fb.numel() * 4
-    work = {
-        "K1": (logmel_bytes, {"tf32": 3.0 * B * frames * 2 * n_fft * 2 * freqs,
-                              "f32": B * frames * (3.0 * freqs + 2.0 * mel_terms)}),
-        "K2": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
-        "K2-8x64": (attn_bytes, {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
-        "K3": (mlp_bytes, {"bf16": 4.0 * B * T * d * mlp}),
-        "K4": (act + d * V * 2 + V * 4 + B * T * 4, {"bf16": 2.0 * B * T * d * V}),
+    work = ctc_work(bundle, B, T, L, lens)
+    work.update({
+        "K2-8x64": work["K2"],
         "K6": (4 * qkv + Bf * Hf * Tf * 4 + Bf * 4, {"bf16": 4.0 * Hf * dhf * pairs_f}),
         "K8": (8 * qkv + Bf * Hf * Tf * 4 + Bf * 4, {"bf16": 10.0 * Hf * dhf * pairs_f}),
-        "K7-attn": (attn_bytes + insert_bytes(inserts.values()),
-                    {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys,
-                     "f32": sum(fold_ops(f) for f in inserts.values())}),
-        "K7-mlp": (mlp_bytes + insert_bytes(wf_mlp_args[7:9]),
-                   {"bf16": 4.0 * B * T * d * mlp,
-                    "f32": sum(fold_ops(f) for f in wf_mlp_args[7:9])}),
-    }
+        "K7-attn": (work["K2"][0] + insert_bytes(inserts.values()),
+                    {**work["K2"][1], "f32": sum(fold_ops(f) for f in inserts.values())}),
+        "K7-mlp": (work["K3"][0] + insert_bytes(wf_mlp_args[7:9]),
+                   {**work["K3"][1], "f32": sum(fold_ops(f) for f in wf_mlp_args[7:9])}),
+    })
     # context only: K1's bound on its former route (the DFT in f32 on the CUDA
     # cores), which no kernel time may read below
-    k1_f32_bound = bound(logmel_bytes, {"f32": B * frames * (
+    k1_f32_bound = bound(work["K1"][0], {"f32": B * frames * (
         2.0 * n_fft * 2 * freqs + 3 * freqs + 2 * freqs * M)})[0]
     shapes = {"K2": "B=32, T'=750, 4 x 128", "K2-8x64": "B=32, T'=750, 8 x 64",
               "K7-attn": "B=32, T'=750, 8 x 64", "K6": "B=16, T'=750, 8 x 64",
@@ -1415,6 +1462,38 @@ def _yardsticks():
     """examples/torch_kernel_yardsticks.py: the library call each kernel is
     held against (the port itself never calls it)."""
     return _example("torch_kernel_yardsticks")
+
+
+def ctc_work(bundle, B: int, T: int, samples: int, lens) -> dict:
+    """(bytes, {kind: operations}) of K1-K4 on the flagship `bundle` (its
+    block 0 and head): K1 on [B, samples] PCM, K2, K3 and K4 at B x T
+    encoder frames with lens [B] valid keys (query-key pairs: T x valid
+    keys a row). K1: three TF32 products of the DFT on the tensor cores,
+    the power and the mel product over each filter's nonzero band on the
+    CUDA cores. Each input read once, each output written once (bound())."""
+    from jiao_liao_speech_recognition_torch.frontend import fused_frontend
+
+    fe, blk, head = bundle.config.frontend, bundle.model.blocks[0], bundle.model.ctc_head
+    sa, ln1, ln2, m = blk.self_attn, blk.self_attn_ln, blk.mlp_ln, blk.mlp
+    d, mlp, V = blk.mlp.fc1.kernel.shape[0], m.fc1.kernel.shape[1], head.kernel.shape[1]
+    n_fft, M = fe.n_fft, fe.num_mels
+    frames, freqs = samples // fe.hop_length, n_fft // 2 + 1
+    keys = float(lens.sum()) * T
+    act = B * T * d * 2  # one bf16 activation tensor
+    attn_w = (ln1.scale, ln1.bias, sa.q_proj.kernel, sa.q_proj.bias, sa.k_proj.kernel,
+              sa.v_proj.kernel, sa.v_proj.bias, sa.out_proj.kernel, sa.out_proj.bias)
+    mlp_w = (ln2.scale, ln2.bias, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias)
+    hi, _, mel_fb, bands = fused_frontend._kernel_constants(n_fft, M, fe.mel_scale, "cuda")
+    mel_terms = int((bands[:, 1] - bands[:, 0]).sum())
+    return {
+        "K1": (B * samples * 4 + B * M * frames * 4 + 2 * hi.numel() * 4 + mel_fb.numel() * 4,
+               {"tf32": 3.0 * B * frames * 2 * n_fft * 2 * freqs,
+                "f32": B * frames * (3.0 * freqs + 2.0 * mel_terms)}),
+        "K2": (2 * act + sum(t.numel() * 4 for t in attn_w) + B * 4,
+               {"bf16": 8.0 * B * T * d * d + 4.0 * d * keys}),
+        "K3": (2 * act + sum(t.numel() * 4 for t in mlp_w), {"bf16": 4.0 * B * T * d * mlp}),
+        "K4": (act + d * V * 2 + V * 4 + B * T * 4, {"bf16": 2.0 * B * T * d * V}),
+    }
 
 
 def bound(nbytes: float, ops: dict):
@@ -1850,8 +1929,8 @@ def adapters_perturbed(bundle, requests) -> dict:
 
 def phase_transfer_timing(cfg, final: Path, bundle):
     """Steps/s of each stage on both paths (TRANSFER_RATE_STEPS steps a
-    turn; then four kernel-path steps profiled: the device's busy and idle
-    share, its kernels by time), and the transferred bundle's greedy RTFx
+    turn; then TRANSFER_PROFILE_STEPS kernel-path steps profiled: the
+    device's busy and idle share, its kernels by time), and the transferred bundle's greedy RTFx
     at B=32 x 30 s (and four of its batches profiled)."""
     import dataclasses
 
@@ -1867,8 +1946,8 @@ def phase_transfer_timing(cfg, final: Path, bundle):
         scfg = dataclasses.replace(
             cfg, ctc_model=dataclasses.replace(cfg.ctc_model, vocab_size=len(tok)),
             train=dataclasses.replace(cfg.train, train_adapters_only=stage.train_adapters_only))
-        train_rate(f"transfer_stage_{i}_{stage.name}", scfg, batches, profile_steps=4,
-                   steps=TRANSFER_RATE_STEPS)
+        train_rate(f"transfer_stage_{i}_{stage.name}", scfg, batches,
+                   profile_steps=TRANSFER_PROFILE_STEPS, steps=TRANSFER_RATE_STEPS)
         del batches
     rtfx, bufs, infer = greedy_rtfx(bundle, np.random.RandomState(1))
     rtfx["profile"] = device_profile(lambda i: infer(bufs[i % 2], True), 4, "greedy")
@@ -2144,7 +2223,7 @@ def phase_whisper_timing(bundle):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.init_cache(B, enc[True], WHISPER_MAX_LEN)
+            model.init_cache(B, enc[True], WHISPER_TIMED_LEN)
             torch.cuda.synchronize()
             init_s.append(time.perf_counter() - t0)
         init_cache_s = statistics.median(init_s)
@@ -2153,7 +2232,7 @@ def phase_whisper_timing(bundle):
             wg.STEPS.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ids, lens = wg.greedy_from_enc(model, enc[True], None, WHISPER_MAX_LEN, prompt, eot,
+            ids, lens = wg.greedy_from_enc(model, enc[True], None, WHISPER_TIMED_LEN, prompt, eot,
                                            kernels=kernels)
             torch.cuda.synchronize()
             s = time.perf_counter() - t0
@@ -2171,7 +2250,7 @@ def phase_whisper_timing(bundle):
             "tokens_per_s": statistics.median(B * n / s for s, n, _ in runs),
             "steps": [n for _, n, _ in runs], "seconds": [s for s, _, _ in runs],
             "generated_incl_eot": [g for _, _, g in runs]}
-    emit({"phase": "timing", "whisper": f"B={B} x 30 s, max_len {WHISPER_MAX_LEN}",
+    emit({"phase": "timing", "whisper": f"B={B} x 30 s, max_len {WHISPER_TIMED_LEN}",
           "note": "random init rarely emits EOT, so every row decodes ~max_len tokens; "
                   "ms_per_step leaves out building the caches, tokens_per_s includes it",
           **out})
@@ -2461,9 +2540,9 @@ def phase_whisper_int8(counters, bundle):
 
 
 def phase_int8_timing(qbundle):
-    """Int8 decode ms per step and tokens/s at B=16 (max_len 224) and B=8
-    (max_len 64), turns plain, kernels, kernels, plain, caches timed apart,
-    peak device memory."""
+    """Int8 decode ms per step and tokens/s at B=16 (WHISPER_TIMED_LEN steps)
+    and B=8 (max_len 64), turns plain, kernels, kernels, plain, caches timed
+    apart, peak device memory."""
     import torch
 
     from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
@@ -2472,7 +2551,7 @@ def phase_int8_timing(qbundle):
     model, w, fe = qbundle.model, qbundle.config.whisper, qbundle.config.frontend
     prompt, eot = wg.resolve_specials(w)
     rng = np.random.RandomState(10)
-    for B, max_len in ((WHISPER_B, WHISPER_MAX_LEN), INT8_BENCH):
+    for B, max_len in ((WHISPER_B, WHISPER_TIMED_LEN), INT8_BENCH):
         with torch.inference_mode():
             wav = torch.from_numpy((0.1 * rng.randn(B, 30 * SAMPLE_RATE)).astype(np.float32))
             enc = model.encode(featurize_batch(wav.cuda(), fe))
@@ -3089,7 +3168,8 @@ def phase_engine(counters, bundle, path):
     timed, wall = engine_drive(eng, windows)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del eng._dispatch
-    dev_prof = device_profile(lambda i: eng._dispatch(), 2, path)  # 16 idle lanes
+    # one dispatch (32 replays) with 16 idle lanes
+    dev_prof = device_profile(lambda i: eng._dispatch(), 1, path)
     tokens = sum(len(r.ids) + 1 for r in timed)  # with the EOT (or the last step)
     same = sum(a.ids == b.ids for a, b in zip(finished, timed))
     report = {
@@ -3120,14 +3200,17 @@ def phase_engine(counters, bundle, path):
 
 def static_waves(bundle, windows):
     """The windows in static waves of ENGINE_SLOTS through bundle.transcribe's
-    decode (ModelBundle._whisper_ids: every wave waits for its longest row)
-    -> (seconds, generated tokens with their EOT)."""
+    decode (ModelBundle._whisper_ids: every wave waits for its longest row),
+    WHISPER_MAX_LEN steps a wave as the engine's -> (seconds, generated
+    tokens with their EOT)."""
+    import dataclasses
+
     import torch
 
     from jiao_liao_speech_recognition_torch.frontend.features import pad_or_trim
 
     fe = bundle.config.frontend
-    dc = bundle.config.decode
+    dc = dataclasses.replace(bundle.config.decode, max_decode_len=WHISPER_MAX_LEN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tokens = 0
@@ -3236,6 +3319,7 @@ def phase_engines(counters, bundle, qbundle, workdir: Path, card: str):
               "engine_tokens_per_s": r["tokens_per_s"], "engine_wall_s": r["wall_s"],
               "engine_tokens": r["generated_tokens_incl_eot"],
               "static_waves_s": static_s, "static_tokens": static_tokens,
+              "static_max_len": WHISPER_MAX_LEN,
               "static_tokens_per_s": static_tokens / static_s,
               "idle_share_dispatch": r["idle_lanes_dispatch_profile"]["device_idle_share"],
               "device_busy_ms_per_step": 1e3 * r["idle_lanes_dispatch_profile"][
@@ -3246,6 +3330,502 @@ def phase_engines(counters, bundle, qbundle, workdir: Path, card: str):
     emit({"phase": "engine", "timestamps": stamps,
           "cli_serve": engine_cli(workdir, windows)})
     return by_path
+
+
+# --- main path 11: CTC streaming (serve/streaming.py) -------------------------
+
+
+def stream_audio(n: int, seed: int, secs=None):
+    """n seeded streams of `secs` (else 4-25 s): tones under a slow
+    envelope, and noise."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        t = np.arange(int((secs or rng.uniform(4.0, 25.0)) * SAMPLE_RATE)) / SAMPLE_RATE
+        f = rng.uniform(150.0, 2000.0)
+        out.append((0.2 * np.sin(2 * np.pi * f * t) * np.sin(2 * np.pi * 0.3 * t)
+                    + 0.05 * rng.randn(len(t))).astype(np.float32))
+    return out
+
+
+def pool_drive(pools, audios, on_step=None):
+    """Stream k opens at step 2k or later, once a slot is free (so rows
+    sit at different offsets, and streams past the slot count reuse
+    rows); each open stream is fed one hop a step and finished once fed
+    whole. Every pool of `pools` is driven alike, and on_step(pools, each
+    pool's step results, step) follows each step. -> each pool's final
+    texts in stream order, and the steps taken."""
+    hop, slots = pools[0]._proto._hop, pools[0].slots
+    waiting, open_, offs, step = list(range(len(audios))), {}, {}, 0
+    texts = [{} for _ in pools]
+    while waiting or open_:
+        while waiting and len(open_) < slots and 2 * waiting[0] <= step:
+            k = waiting.pop(0)
+            open_[k], offs[k] = [p.open() for p in pools], 0
+        for k in list(open_):
+            if offs[k] < len(audios[k]):
+                for p, sid in zip(pools, open_[k]):
+                    p.feed(sid, audios[k][offs[k]:offs[k] + hop])
+                offs[k] += hop
+            else:
+                for p, sid, out in zip(pools, open_.pop(k), texts):
+                    out[k] = p.finish(sid).text
+        results = [p.step() for p in pools]
+        step += 1
+        if on_step is not None:
+            on_step(pools, results, step)
+    return [[out[k] for k in range(len(audios))] for out in texts], step
+
+
+def stream_texts(bundle, sc, audios):
+    """Each audio through its own StreamingTranscriber (one window a step)."""
+    from jiao_liao_speech_recognition_torch.serve import StreamingTranscriber
+
+    out = []
+    for a in audios:
+        st = StreamingTranscriber(bundle, sc)
+        st.feed(a)
+        out.append(st.finish().text)
+    return out
+
+
+def replay_vs_eager(bundle, sc, audios):
+    """The streams through two fresh pools in lockstep: one replaying its
+    captured step, one built with graph=False (the eager ring step). Every
+    step must leave the same ring and read back the same frames and ids,
+    and give the same results. -> (the report, the eager pool)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.serve import StreamingPool
+
+    pools = [StreamingPool(bundle, slots=STREAM_SLOTS, stream_cfg=sc),
+             StreamingPool(bundle, slots=STREAM_SLOTS, stream_cfg=sc, graph=False)]
+    rep = {"steps_compared": 0, "rows_advanced": 0, "differ_at_steps": []}
+
+    def compare(ps, results, step):
+        g, e = ps
+        if not results[0] and not results[1]:
+            return
+        same = (torch.equal(g._ring, e._ring) and torch.equal(g._out, e._out)
+                and results[0] == results[1])
+        rep["steps_compared"] += 1
+        rep["rows_advanced"] += len(results[0])
+        if not same:
+            rep["differ_at_steps"].append(step)
+
+    (g_texts, e_texts), steps = pool_drive(pools, audios, compare)
+    rep.update({"steps": steps, "replays": pools[0].replays, "eager_replays": pools[1].replays,
+                "texts_equal": g_texts == e_texts})
+    return rep, pools[1]
+
+
+def ring_vs_plain(pool, acc):
+    """The ring's windows after a step through the plain path (kernels=False,
+    f32 log-probs): the step's ids on every advancing row's valid frames
+    whose plain top-2 margin exceeds ARGMAX_MARGIN must be the plain argmax.
+    Sums into acc."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+
+    b = pool.bundle
+    with torch.no_grad():
+        feats = featurize_batch(pool._ring, b.config.frontend, kernels=False)
+        lp, lens = b.model(feats, pool._ctrl[3], head_mode="log_probs", kernels=False)
+    out = pool._out
+    frames = ((torch.arange(lp.shape[1], device="cuda")[None, :] < out[:, :1])
+              & (pool._ctrl[2] > 0)[:, None])
+    clear = frames & (margins(lp) > ARGMAX_MARGIN)
+    same = out[:, 1:] == lp.argmax(-1).to(torch.int32)
+    for k, v in (("frames", frames), ("clear", clear), ("mismatched", clear & ~same),
+                 ("agree", frames & same)):
+        acc[k] = acc.get(k, 0) + int(v.sum())
+    acc["lengths_equal"] = acc.get("lengths_equal", True) and bool(torch.equal(
+        lens[pool._ctrl[2] > 0], out[pool._ctrl[2] > 0, 0]))
+    acc["finite"] = acc.get("finite", True) and bool(torch.isfinite(lp).all())
+    acc["windows"] = acc.get("windows", 0) + int((pool._ctrl[2] > 0).sum())
+
+
+def pool_replay_names(pool):
+    """Kernels of one replay of the pool's graph by the profiler's names
+    (a lead-in replay, then a spin kernel as a marker, as replay_profile)
+    -> {K1, K2's core, K2's out-projection, K3's fc2, K4's tiles, all}, or
+    None without a marker."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pool._graph.replay()
+        torch.cuda._sleep(1_000_000)
+        pool._graph.replay()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    marks = [e.time_range.start for e in events if "spin_kernel" in e.name]
+    if not marks:
+        return None
+    counted = [e.name for e in events if e.time_range.start > max(marks)]
+    return {name: sum(tag in n for n in counted) for name, tag in STREAM_KERNEL_NAMES.items()} | {
+        "all": len(counted)}
+
+
+def stream_kernel_rows(bundle, ring, rng):
+    """K1-K4 alone at the pool step's shape (B = slots, one 10 s window a
+    row, T' = 250: one full and one ragged 128-key tile, lengths down to
+    1, the flagship's block 0 and head, the kept bf16 copies) against their
+    plain versions on the same inputs: K1's log-mel within LOGMEL_BAR on
+    the Whisper-normalized surface, K2 and K3 within ULP_BAR and two
+    launches bitwise equal, K4's ids the plain argmax on every frame whose
+    margin clears ARGMAX_MARGIN (at least MIN_COVERAGE of them); each
+    timed beside the bound of this run's inputs. -> {key: row}, "ok" false
+    where a bar is missed."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend import features, fused_frontend
+    from jiao_liao_speech_recognition_torch.ops import fused_attention, fused_head, fused_mlp
+
+    fe = bundle.config.frontend
+    B, L = ring.shape
+    T = L // fe.hop_length // bundle.config.ctc_model.subsample_factor
+    blk, head = bundle.model.blocks[0], bundle.model.ctc_head
+    sa, ln1, ln2, m = blk.self_attn, blk.self_attn_ln, blk.mlp_ln, blk.mlp
+    d = bundle.config.ctc_model.d_model
+    x = torch.from_numpy(rng.randn(B, T, d).astype(np.float32)).cuda().to(torch.bfloat16)
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    lens[-4:] = torch.tensor([T - 7, 120, 10, 1], dtype=torch.int32)  # young streams, idle rows
+    with torch.inference_mode():
+        w_qkv, b_qkv = sa.qkv_weights(torch.bfloat16)
+        wo, bo = sa.out_proj.weights(torch.bfloat16)
+        mlp_w = (*m.fc1.weights(torch.bfloat16), *m.fc2.weights(torch.bfloat16))
+        head_w = head.weight(torch.bfloat16)
+    pairs = {
+        "K1": (lambda: fused_frontend.fused_log_mel_raw(ring),
+               lambda: fused_frontend.log_mel_raw_plain(ring)),
+        "K2": (lambda: fused_attention.fused_attention_sublayer_packed(
+                   x, ln1.scale, ln1.bias, w_qkv, b_qkv, wo, bo, lens, sa.num_heads),
+               lambda: fused_attention.attention_sublayer_plain(
+                   x, ln1.scale, ln1.bias, sa.q_proj.kernel, sa.q_proj.bias, sa.k_proj.kernel,
+                   sa.v_proj.kernel, sa.v_proj.bias, sa.out_proj.kernel, sa.out_proj.bias,
+                   lens, sa.num_heads)),
+        "K3": (lambda: fused_mlp.fused_ln_mlp_residual(x, ln2.scale, ln2.bias, *mlp_w, 1e-5,
+                                                       m.gelu_form),
+               lambda: fused_mlp.ln_mlp_residual_plain(x, ln2.scale, ln2.bias, *mlp_w, 1e-5,
+                                                      m.gelu_form)),
+        "K4": (lambda: fused_head.fused_head_argmax(x, head_w, head.bias),
+               lambda: fused_head.head_argmax_plain(x, head_w, head.bias)),
+    }
+    work = ctc_work(bundle, B, T, L, lens)
+    rows = {}
+    with torch.inference_mode():
+        for key, (kern, plain) in pairs.items():
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            r = {"bitwise_repeat": bool(torch.equal(got, again))}
+            if key == "K1":
+                got, want = (features.normalize_log_mel(v, fe) for v in (got, want))
+                r["max_abs_err"] = float((got - want).abs().max())
+                r["bar"] = LOGMEL_BAR
+                r["ok"] = bool(torch.isfinite(got).all()) and r["max_abs_err"] <= LOGMEL_BAR
+            elif key == "K4":
+                logits = fused_head.head_logits(x, head_w, head.bias)
+                clear = margins(logits) > ARGMAX_MARGIN
+                r.update({"coverage": float(clear.float().mean()),
+                          "mismatched_frames": int(((got != want) & clear).sum()),
+                          "max_abs_err": float(((got - want).abs() * clear).max()),
+                          "margin": ARGMAX_MARGIN})
+                r["ok"] = (r["coverage"] >= MIN_COVERAGE and r["mismatched_frames"] == 0
+                           and r["bitwise_repeat"])
+            else:
+                ulps, elem_ulps, over1 = bf16_ulp_err(got, want)
+                r.update({"max_abs_err": float((got.float() - want.float()).abs().max()),
+                          "ulps": ulps, "bar_ulps": ULP_BAR, "elementwise_max_ulps": elem_ulps,
+                          "elementwise_share_over_1ulp": over1})
+                r["ok"] = ulps <= ULP_BAR and r["bitwise_repeat"]
+            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+            bound_ms, bound_by = bound(*work[key])
+            rows[key] = {**r, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "turns_ms": [p1, k1, k2, p2]}
+    return rows
+
+
+def phase_streaming(counters, workdir: Path, card: str):
+    """Main path 11 on the flagship (random init, seed 0): a
+    StreamingPool(STREAM_SLOTS) on the device ring, its step captured once
+    as a CUDA graph, serving STREAM_COUNT staggered streams; then the
+    checks, the timing, api.stream and `cli transcribe --stream`. ->
+    (launches by kernel key, K1-K4's errors at the pool step's shape)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.frontend.audio_io import read_wav, write_wav
+    from jiao_liao_speech_recognition_torch.serve import (StreamingConfig, StreamingPool,
+                                                          StreamingTranscriber)
+    from jiao_liao_speech_recognition_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig()
+    bundle = api.load(config=cfg, device="cuda")
+    # one character per non-special id, so every id decodes to text
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i)
+                                      for i in range(cfg.ctc_model.vocab_size - 2)])
+    sc = StreamingConfig(*STREAM_GEOMETRY)
+    audios = stream_audio(STREAM_COUNT, seed=16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool = StreamingPool(bundle, slots=STREAM_SLOTS, stream_cfg=sc)
+    want_step = {"fused_log_mel_raw": 1, "fused_attention_sublayer": cfg.ctc_model.num_layers,
+                 "fused_ln_mlp_residual": cfg.ctc_model.num_layers, "fused_head_argmax": 1}
+    check(pool._graph is not None and pool.step_launches == want_step,
+          f"streaming: the captured step's launches {pool.step_launches}, not {want_step}")
+
+    host_calls, plain = [0], {}
+    host_dispatch, graph = pool._dispatch, pool._graph
+
+    def counting(jobs):  # the host-assembled steps (finish() takes them)
+        host_calls[0] += bool(jobs)
+        return host_dispatch(jobs)
+
+    def on_step(ps, results, step):
+        if results[0] and step % STREAM_PLAIN_EVERY == 0:
+            ring_vs_plain(ps[0], plain)
+
+    pool._dispatch = counting
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    (texts,), steps = pool_drive([pool], audios, on_step)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    del pool._dispatch
+    counted = {key: c.launches for key, c in counters.items()}
+    launches = {key: counted[key] + pool.step_launches.get(c.name, 0) * pool.replays
+                for key, c in counters.items()}
+    L, n = cfg.ctc_model.num_layers, host_calls[0]
+    want = {key: 0 for key in counters} | {"K1": n, "K2": L * n, "K3": L * n, "K4": n}
+    wrong = {k: (counted[k], w) for k, w in want.items() if counted[k] != w}
+    check(not wrong, f"streaming: launches outside the graph (got, want): {wrong}")
+    missing = [key for key in PATHS["streaming"] if launches[key] == 0]
+    check(not missing, f"streaming: kernels never launched: {missing} ({launches})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_names = {"K1": 1, "K2 core": L, "K2 out-projection": L, "K3 fc2": L, "K4 tiles": 1}
+    readings = []
+    for _ in range(PROFILE_ATTEMPTS):
+        readings.append(pool_replay_names(pool))
+        if readings[-1] is not None and all(readings[-1][k] == v for k, v in want_names.items()):
+            break
+    check(readings[-1] is not None and all(readings[-1][k] == v for k, v in want_names.items()),
+          f"streaming: one replay's kernels by name: {readings} (want {want_names})")
+
+    # the same streams: replayed against eager in lockstep, then through the
+    # host-assembled pool and single transcribers
+    vs_eager, eager = replay_vs_eager(bundle, sc, audios)
+    check(vs_eager["steps_compared"] > 0 and not vs_eager["differ_at_steps"]
+          and vs_eager["texts_equal"] and vs_eager["replays"] == vs_eager["steps_compared"]
+          and vs_eager["eager_replays"] == 0,
+          f"streaming: replayed steps against the eager ring step: {vs_eager}")
+    host = StreamingPool(bundle, slots=STREAM_SLOTS, stream_cfg=sc, device_ring=False)
+    (host_texts,), _ = pool_drive([host], audios)
+    single = stream_texts(bundle, sc, audios)
+    differ = {"ring_vs_host": [k for k, (a, b) in enumerate(zip(texts, host_texts)) if a != b],
+              "ring_vs_single": [k for k, (a, b) in enumerate(zip(texts, single)) if a != b]}
+    coverage = plain["clear"] / plain["frames"]
+    checked = {
+        "phase": "streaming", "card": card, "slots": STREAM_SLOTS,
+        "geometry_s": list(STREAM_GEOMETRY),
+        "streams": STREAM_COUNT, "streams_s": [round(len(a) / SAMPLE_RATE, 2) for a in audios],
+        "steps": steps, "replays": pool.replays, "host_dispatches": n, "drive_s": drive_s,
+        "capture_s": pool.capture_s, "step_launches": pool.step_launches,
+        "launches": launches, "one_replay_kernels": readings[-1], "profile_readings": readings,
+        "replay_vs_eager": vs_eager, "texts_differ": differ,
+        "text_chars": [len(t) for t in texts], "peak_gb_drive": peak_gb,
+        "vs_plain": {**plain, "coverage": coverage, "margin": ARGMAX_MARGIN}}
+    emit(checked)
+    check(not differ["ring_vs_host"] and not differ["ring_vs_single"],
+          f"streaming: texts differ across the ring, host and single paths: {differ}")
+    check(sum(len(t) for t in texts) > 0, "streaming: the model emitted no text at all")
+    check(plain["finite"] and plain["lengths_equal"] and coverage >= MIN_COVERAGE
+          and plain["mismatched"] == 0, f"streaming: ids disagree with the plain path: {plain}")
+
+    # finish() over one window against the offline transcribe of 10 s chunks
+    one = stream_audio(1, seed=20, secs=8.5)[0]
+    st = StreamingTranscriber(bundle, StreamingConfig(10.0, 10.0, 0.0))
+    st.feed(one)
+    single_window = st.finish().text
+    bundle.config.frontend.chunk_seconds = 10.0
+    offline = bundle.transcribe(one)[0]
+    bundle.config.frontend.chunk_seconds = cfg.frontend.chunk_seconds
+    check(single_window == offline and offline,
+          f"streaming: finish() over one window {single_window!r} != offline {offline!r}")
+
+    # api.stream of one WAV and `cli transcribe --stream` of two: a line a hop
+    paths = []
+    for i, a in enumerate((audios[1][:3 * SAMPLE_RATE], audios[2][:int(2.2 * SAMPLE_RATE)])):
+        paths.append(str(workdir / f"s{i}.wav"))
+        write_wav(paths[-1], a, SAMPLE_RATE)
+    hop = int(sc.hop_seconds * SAMPLE_RATE)
+    pcms = [read_wav(p)[0] for p in paths]
+    want_texts = stream_texts(bundle, sc, pcms)
+    results = list(api.stream(bundle, (pcms[0][s:s + hop] for s in range(0, len(pcms[0]), hop)),
+                              sc))
+    check(len(results) == -(-len(pcms[0]) // hop) + 1 and results[-1].is_final
+          and results[-1].text == want_texts[0], "api.stream: a result a hop, then the final text")
+    bundle.save(str(workdir / "flagship"))
+    lines = [json.loads(s) for s in cli_run(["transcribe", *paths, "--checkpoint",
+                                             workdir / "flagship", "--stream"])]
+    per_file = [[r for r in lines if r["audio"] == p] for p in paths]
+    check(all(len(rs) == -(-len(x) // hop) + 1 and rs[-1]["text"] == w
+              and all({"t", "partial", "preview"} <= set(r) for r in rs[:-1])
+              for rs, x, w in zip(per_file, pcms, want_texts)),
+          f"cli transcribe --stream: a line a hop, then the final text ({lines})")
+    emit({"phase": "streaming", "card": card, "finish_one_window_equals_offline": True,
+          "api_stream_results": len(results), "cli_stream_lines": [len(r) for r in per_file]})
+
+    # timing: every slot busy with 25 s streams, the captured pool and the
+    # graph=False one in turns, each pool's streams fed a hop a step of its own
+    timed = stream_audio(STREAM_SLOTS, seed=17, secs=25.0)
+    pools = {"graph": pool, "eager": eager}
+    sids = {turn: [p.open() for _ in timed] for turn, p in pools.items()}
+    fed = {turn: 0 for turn in pools}
+
+    def fed_step(turn):
+        p, j = pools[turn], fed[turn]
+        for sid, a in zip(sids[turn], timed):
+            p.feed(sid, a[j * hop:(j + 1) * hop])
+        fed[turn] += 1
+        return p.step()
+
+    step_s = {"graph": [], "eager": []}
+    warm = [turn for turn in pools for _ in range(STREAM_WARM_STEPS)]
+    order = warm + [turn for turn in ("graph", "eager", "eager", "graph")
+                    for _ in range(STREAM_TURN_STEPS)]
+    for i, turn in enumerate(order):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fed_step(turn)
+        torch.cuda.synchronize()
+        if i >= len(warm):
+            step_s[turn].append(time.perf_counter() - t0)
+        check(len(res) == STREAM_SLOTS, "streaming timing: every slot advances a step")
+    replay_ms = cuda_ms(graph.replay, 20)
+    with torch.no_grad():
+        eager_ms = cuda_ms(eager._ring_step, 10)
+    replay_prof = device_profile(lambda i: graph.replay(), 8, "streaming replay")
+    step_prof = device_profile(lambda i: fed_step("graph"), 4, "streaming pool step")
+    for turn, p in pools.items():
+        for sid in sids[turn]:
+            p.finish(sid)
+    graph_ms = 1e3 * statistics.median(step_s["graph"])
+    rows = stream_kernel_rows(bundle, pool._ring, np.random.RandomState(18))
+    frames = pool._proto._W // pool._proto._align
+    for key, r in rows.items():
+        emit({"phase": "timing", "kernel": key, "shape": f"streaming pool step: B={STREAM_SLOTS}, "
+              f"{sc.window_seconds:g} s windows, T'={frames}", "card": card, **r})
+    bad = {key: r for key, r in rows.items() if not r["ok"]}
+    check(not bad, f"streaming: K1-K4 at the pool step's shape against their plain versions: "
+          f"{bad}")
+    emit({"phase": "streaming_timing", "card": card, "slots": STREAM_SLOTS,
+          "pool_step_ms_graph_median": graph_ms,
+          "pool_step_ms_eager_median": 1e3 * statistics.median(step_s["eager"]),
+          "pool_step_ms": {k: [1e3 * x for x in v] for k, v in step_s.items()},
+          "replay_ms": replay_ms, "eager_ring_step_ms": eager_ms,
+          "replay_idle_share": replay_prof["device_idle_share"],
+          "replay_busy_ms": 1e3 * replay_prof["device_busy_s_per_call"],
+          "replay_kernels": replay_prof["launches_per_call"],
+          "replay_top_kernels": replay_prof["top_kernels_ms_per_call"],
+          "pool_step_idle_share": step_prof["device_idle_share"],
+          "pool_step_wall_ms_profiled": 1e3 * step_prof["wall_s_per_call"],
+          "h2d_bytes_per_step": pool._h_chunk.nbytes + pool._h_ctrl.nbytes,
+          "latency_s": sc.hop_seconds + sc.lookahead_seconds + graph_ms / 1e3,
+          "realtime_streams": STREAM_SLOTS * sc.hop_seconds / (graph_ms / 1e3),
+          "capture_s": pool.capture_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, {key: r["max_abs_err"] for key, r in rows.items()}
+
+
+def phase_streaming_banded(counters, card: str):
+    """Main path 12: the banded flagship (left 12, right 6 frames,
+    position_mode "none", whisper_norm off; examples/streaming_quality.py's
+    band at full width and depth) streaming three seeded utterances, one
+    StreamingTranscriber each (K1, the module path of attention, K3, K4;
+    never K2), at a lookahead covering 12 blocks x 6 frames of right context.
+    Held against the offline path on the committed frames by the margin
+    rule; the differing frames and tokens are printed."""
+    import difflib
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.serve import StreamingConfig, StreamingTranscriber
+    from jiao_liao_speech_recognition_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig()
+    for k, v in BANDED.items():
+        setattr(cfg.ctc_model, k, v)
+    cfg.frontend.whisper_norm = False
+    bundle = api.load(config=cfg, device="cuda")
+    # one character per non-special id, so every id decodes to text
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i)
+                                      for i in range(cfg.ctc_model.vocab_size - 2)])
+    sc = StreamingConfig(*BANDED_GEOMETRY)
+    utts = stream_audio(3, seed=19)
+    hop = int(sc.hop_seconds * SAMPLE_RATE)
+
+    def run():
+        out = []
+        for a in utts:
+            st = StreamingTranscriber(bundle, sc)
+            frames, steps, absorb, step = {}, [0], st._absorb, st._step
+
+            def counted(wav, nfr, step=step, steps=steps):
+                steps[0] += 1
+                return step(wav, nfr)
+
+            def kept(ids, out_len, e0, final, st=st, frames=frames, absorb=absorb):
+                before = st._committed
+                absorb(ids, out_len, e0, final)
+                frames.update((g, int(ids[g - e0])) for g in range(before, st._committed))
+
+            st._step, st._absorb = counted, kept
+            for s in range(0, len(a), hop):
+                st.feed(a[s:s + hop])
+            out.append((st.finish().text, frames, steps[0]))
+        return out
+
+    streamed, launches = drive(counters, "streaming_banded", run)
+    n = sum(r[2] for r in streamed)
+    L = cfg.ctc_model.num_layers
+    want = {key: 0 for key in counters} | {"K1": n, "K3": L * n, "K4": n}
+    wrong = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
+    check(not wrong, f"streaming_banded: launches (got, want): {wrong}")
+    offline = bundle.transcribe(utts)
+    fe = cfg.frontend
+    wavs, alens, _ = bundle._prepare_audio_chunked(utts, None)
+    with torch.inference_mode():
+        lp, olens = bundle.model(featurize_batch(torch.from_numpy(wavs).cuda(), fe),
+                                 torch.from_numpy(alens // fe.hop_length).cuda())
+    rec = []
+    for i, (text, frames, steps) in enumerate(streamed):
+        n_fr = int(olens[i])
+        ids = torch.tensor([frames.get(g, -1) for g in range(n_fr)], device="cuda")
+        clear = margins(lp[i, :n_fr]) > ARGMAX_MARGIN
+        diff = ids != lp[i, :n_fr].argmax(-1)
+        ops = difflib.SequenceMatcher(a=offline[i], b=text, autojunk=False).get_opcodes()
+        rec.append({"audio_s": round(len(utts[i]) / SAMPLE_RATE, 2), "windows": steps,
+                    "frames": n_fr, "committed": len(frames),
+                    "coverage": float(clear.float().mean()),
+                    "mismatched_clear_frames": int((diff & clear).sum()),
+                    "differing_frames": int(diff.sum()), "text_equal": text == offline[i],
+                    "text_chars": len(text), "differing_tokens": [
+                        (tag, offline[i][a0:a1], text[b0:b1])
+                        for tag, a0, a1, b0, b1 in ops if tag != "equal"]})
+    emit({"phase": "streaming_banded", "card": card, "band": BANDED,
+          "geometry_s": list(BANDED_GEOMETRY),
+          "windows": n, "launches": launches, "utterances": rec})
+    check(all(r["committed"] == r["frames"] for r in rec), "banded: every frame committed")
+    check(all(r["coverage"] >= MIN_COVERAGE and r["mismatched_clear_frames"] == 0 for r in rec),
+          f"banded: streamed frames disagree with offline ones: {rec}")
+    return launches
 
 
 def main() -> int:
@@ -3305,6 +3885,11 @@ def main() -> int:
     errs.update(phase_probe_kernels())
     by_path["probes"] = phase_probes(counters)
     rec.update(phase_probe_timing())
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["streaming"], stream_errs = phase_streaming(counters, Path(tmp), card)
+    for key, err in stream_errs.items():
+        errs[key] = max(errs[key], err)
+    by_path["streaming_banded"] = phase_streaming_banded(counters, card)
     table = []
     for key, name, _, _, src, replaces in KERNELS:
         table.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

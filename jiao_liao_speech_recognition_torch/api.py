@@ -1,10 +1,10 @@
 """Public API of the PyTorch port: ``load`` / ``featurize`` / ``transcribe``
-/ ``fine_tune`` (the CTC and Whisper slices of the JAX package's
-``api.py``)."""
+/ ``fine_tune`` / ``stream`` (the CTC and Whisper slices of the JAX
+package's ``api.py``)."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -67,6 +67,19 @@ def transcribe(
     if timestamps:
         return bundle.transcribe_timed(audio, sample_rate=sample_rate)
     return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg)
+
+
+def stream(bundle, chunks: Iterable[np.ndarray], stream_cfg=None):
+    """Incremental transcription of a live audio stream (CTC family): yields
+    a StreamingResult after every fed chunk (``res.text`` the committed
+    text, ``res.preview`` the unstable tail) and a final one
+    (``is_final=True``) once `chunks` is exhausted (serve/streaming.py)."""
+    from .serve.streaming import StreamingTranscriber
+
+    st = StreamingTranscriber(bundle, stream_cfg)
+    for chunk in chunks:
+        yield st.feed(chunk)
+    yield st.finish()
 
 
 def fine_tune(config: Union[str, ExperimentConfig], resume: bool = False, device="cuda",

@@ -7,6 +7,8 @@ subcommands, flags and JSON output:
         --checkpoint ckpt/final --per-utt per_utt.jsonl
     python -m jiao_liao_speech_recognition_torch.cli serve a.wav b.wav --checkpoint ckpt \\
         --slots 16 [--stdin] [--int8] [--timestamps]
+    python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav --checkpoint ckpt \\
+        --stream [--stream-window 10 --stream-hop 0.4 --stream-lookahead 0.64]
 
 ``train`` runs ``config.stages`` through ``train/schedules.run_stages``
 (then saves the bundle to ``<checkpoint_dir>/final``), else
@@ -31,10 +33,6 @@ NOT_PORTED = {
     "train-unigram": "queue 1 item 10 (data/unigram.py)",
     "export-whisper": "queue 1 item 4 (the HF export)",
     "build-native": "queue 1 item 8 (native/ beam search through ctypes)",
-    "--stream": "queue 1 item 6 (serve/streaming.py)",
-    "--stream-window": "queue 1 item 6 (serve/streaming.py)",
-    "--stream-hop": "queue 1 item 6 (serve/streaming.py)",
-    "--stream-lookahead": "queue 1 item 6 (serve/streaming.py)",
     "beam": "queue 1 item 8 (CTC beam search) and item 4 (Whisper AR beam)",
     "--beam-size": "queue 1 item 8 (CTC beam search) and item 4 (Whisper AR beam)",
     "spec_greedy": "queue 1 item 7 (decode/speculative.py)",
@@ -107,8 +105,7 @@ def _load_bundle(args):
 
 
 def cmd_transcribe(args) -> int:
-    rc = refuse_flags(args, "--profile", "--stream", "--stream-window", "--stream-hop",
-                      "--stream-lookahead", "--beam-size")
+    rc = refuse_flags(args, "--profile", "--beam-size")
     if rc is not None:
         return rc
     if args.strategy and args.strategy not in GREEDY:
@@ -119,6 +116,8 @@ def cmd_transcribe(args) -> int:
     bundle = _load_bundle(args)
     if bundle is None:
         return 2
+    if args.stream:
+        return _transcribe_streaming(bundle, args)
     if args.caption:
         fmt = format_srt if args.caption == "srt" else format_vtt
         for path, toks in zip(args.audio, bundle.transcribe_timed(args.audio)):
@@ -140,6 +139,28 @@ def cmd_transcribe(args) -> int:
         decode_cfg = dataclasses.replace(decode_cfg, strategy=args.strategy)
     for path, text in zip(args.audio, transcribe(bundle, args.audio, decode_cfg=decode_cfg)):
         print(json.dumps({"audio": path, "text": text}, ensure_ascii=False))
+    return 0
+
+
+def _transcribe_streaming(bundle, args) -> int:
+    """A live stream simulated: each file fed hop by hop through the
+    sliding-window transcriber (serve/streaming.py), one JSON line a hop
+    (committed text and the unstable preview), then a final line a file."""
+    from .serve.streaming import StreamingConfig, StreamingTranscriber
+
+    sc = StreamingConfig(window_seconds=args.stream_window, hop_seconds=args.stream_hop,
+                         lookahead_seconds=args.stream_lookahead)
+    sr = bundle.config.frontend.sample_rate
+    for path in args.audio:
+        pcm = bundle._collect_audio(path, None)[0]
+        st = StreamingTranscriber(bundle, sc)
+        hop = int(sc.hop_seconds * sr)
+        for s in range(0, len(pcm), hop):
+            res = st.feed(pcm[s:s + hop])
+            print(json.dumps({"audio": path, "t": round((s + hop) / sr, 2),
+                              "partial": res.text, "preview": res.preview},
+                             ensure_ascii=False), flush=True)
+        print(json.dumps({"audio": path, "text": st.finish().text}, ensure_ascii=False))
     return 0
 
 
@@ -311,10 +332,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="emit per-token and word start/end seconds")
     pr.add_argument("--caption", choices=["srt", "vtt"],
                     help="write a subtitle sidecar file next to each audio file")
-    pr.add_argument("--stream", action="store_true", help="(not ported)")
-    pr.add_argument("--stream-window", type=float, help="(not ported)")
-    pr.add_argument("--stream-hop", type=float, help="(not ported)")
-    pr.add_argument("--stream-lookahead", type=float, help="(not ported)")
+    pr.add_argument("--stream", action="store_true",
+                    help="simulate live streaming: sliding-window greedy CTC with partial "
+                    "results a hop (serve/streaming.py; ctc family)")
+    pr.add_argument("--stream-window", type=float, default=10.0,
+                    help="streaming window seconds (default 10)")
+    pr.add_argument("--stream-hop", type=float, default=0.4,
+                    help="streaming hop seconds (default 0.4)")
+    pr.add_argument("--stream-lookahead", type=float, default=0.64,
+                    help="right context before a frame commits (default 0.64)")
     _device(pr)
     pr.set_defaults(fn=cmd_transcribe)
 

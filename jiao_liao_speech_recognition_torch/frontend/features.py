@@ -6,6 +6,8 @@ n_fft=400, hop=160 and a periodic Hann window, written as a DFT matrix
 product -> power -> slaney mel filterbank -> log10 with a 1e-10 floor ->
 clamp to (per-utterance max - 8) -> (x + 4) / 4. All frontend math is f32.
 
+``fbank`` is the recipe family's SpeechBrain-style variant (preemphasis,
+natural log, utterance CMVN), plain PyTorch as in the JAX package.
 ``_dft_basis`` and ``mel_filterbank`` are numpy twins of the JAX module's
 (which cannot be imported without jax); the tests pin them equal.
 """
@@ -136,6 +138,31 @@ def log_mel_spectrogram(
         wav, cfg.n_fft, cfg.hop_length, cfg.num_mels, cfg.mel_scale, cfg.log_floor
     )
     return normalize_log_mel(raw, cfg)
+
+
+def fbank(wav: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> torch.Tensor:
+    """SpeechBrain-style log-mel fbank: optional preemphasis -> centered
+    power STFT -> mel -> natural log with cfg.log_floor -> optional
+    utterance CMVN; [B, L] (or [L]) f32 PCM -> [B, num_mels, L//hop]. Plain
+    full-f32 PyTorch, as the JAX function is plain XLA at HIGHEST
+    precision: no kernel. The default config is the recipe family's
+    (no Whisper tail, utterance CMVN, preemphasis 0.97)."""
+    from .fused_frontend import mel_power
+
+    cfg = cfg or FrontendConfig(whisper_norm=False, cmvn="utterance", preemphasis=0.97)
+    if wav.dim() == 1:
+        wav = wav[None, :]
+    x = wav.to(torch.float32)
+    if cfg.preemphasis > 0:
+        x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemphasis * x[:, :-1]], dim=1)
+    mel_spec = mel_power(x, cfg.n_fft, cfg.hop_length, cfg.num_mels, cfg.mel_scale,
+                         cfg.sample_rate)
+    log_spec = torch.log(torch.clamp(mel_spec, min=cfg.log_floor)).transpose(1, 2)
+    if cfg.cmvn == "utterance":
+        mean = log_spec.mean(dim=2, keepdim=True)
+        std = log_spec.std(dim=2, keepdim=True, unbiased=False)
+        log_spec = (log_spec - mean) / (std + 1e-8)
+    return log_spec
 
 
 BATCH_LOG_FLOOR = 1e-10  # featurize_batch's floor: FrontendConfig's default

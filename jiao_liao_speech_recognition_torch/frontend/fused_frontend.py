@@ -31,21 +31,26 @@ COUNTER = LaunchCounter("fused_log_mel_raw")
 BASIS_N, BASIS_K, FREQ_GROUP, K_STEP, MAX_HOP = 416, 416, 8, 16, 160
 
 
-def log_mel_raw_plain(
-    wav, n_fft=400, hop=160, num_mels=80, mel_scale="slaney", log_floor=1e-10
-):
+def mel_power(wav, n_fft=400, hop=160, num_mels=80, mel_scale="slaney", sample_rate=16000):
     """Reflect-padded, hop-framed windowed DFT (a full-f32 matrix product),
-    power, mel product, log10(max(., floor)); drops the final frame."""
+    power, mel product -> [B, L//hop, num_mels]; drops the final frame."""
     pad = n_fft // 2
     x = F.pad(wav.to(torch.float32)[:, None, :], (pad, pad), mode="reflect")[:, 0]
     frames = x.unfold(-1, n_fft, hop)  # [B, L//hop + 1, n_fft]
     basis = torch.from_numpy(_dft_basis(n_fft)).to(wav.device)
-    mel = torch.from_numpy(mel_filterbank(num_mels, n_fft, scale=mel_scale)).to(wav.device)
+    mel = torch.from_numpy(mel_filterbank(num_mels, n_fft, sample_rate, scale=mel_scale))
     n_freqs = n_fft // 2 + 1
     with full_f32():
         y = frames[:, :-1] @ basis.T  # [B, T, 2F]
         power = y[..., :n_freqs] ** 2 + y[..., n_freqs:] ** 2
-        mel_spec = power @ mel.T  # [B, T, M]
+        return power @ mel.to(wav.device).T
+
+
+def log_mel_raw_plain(
+    wav, n_fft=400, hop=160, num_mels=80, mel_scale="slaney", log_floor=1e-10
+):
+    """mel_power, then log10(max(., floor)) -> [B, num_mels, L//hop]."""
+    mel_spec = mel_power(wav, n_fft, hop, num_mels, mel_scale)
     return torch.log10(torch.clamp(mel_spec, min=log_floor)).transpose(1, 2)
 
 

@@ -61,7 +61,8 @@ class BottleneckAdapter(nn.Module):
         nn.init.zeros_(self.up.kernel)
         self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, h: torch.Tensor, kv_lengths=None, kernels: bool = True) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, kv_lengths=None, kernels: bool = True,
+                mask=None) -> torch.Tensor:
         z = self.down(self.ln(h))
         z = self.dropout(torch.nn.functional.gelu(z, approximate="none"))
         return h + self.scale * self.up(z)
@@ -84,13 +85,16 @@ class AttAdapter(nn.Module):
         nn.init.zeros_(self.out_proj.kernel)
         self.dropout = Dropout(cfg.dropout) if cfg.dropout > 0 else None
 
-    def forward(self, h: torch.Tensor, kv_lengths=None, kernels: bool = True) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, kv_lengths=None, kernels: bool = True,
+                mask=None) -> torch.Tensor:
+        """mask: the block's banded [B, 1, T, T] mask in place of kv_lengths
+        (limited-context models), else None."""
         B, T, _ = h.shape
         H, dk = self.num_heads, self.key_dim
         q, k, v = self.qkv_proj(self.ln(h)).split(H * dk, dim=-1)
         out = dot_product_attention(
             q.reshape(B, T, H, dk), k.reshape(B, T, H, dk), v.reshape(B, T, H, dk),
-            kv_lengths=kv_lengths, use_flash=not self.training or T >= 512, kernels=kernels,
+            mask, kv_lengths=kv_lengths, use_flash=not self.training or T >= 512, kernels=kernels,
         )
         out = self.out_proj(out.reshape(B, T, H * dk))
         if self.dropout is not None:
@@ -112,6 +116,6 @@ class AdapterSlot(nn.Module):
         else:
             raise ValueError(f"no slot adapter for kind {cfg.kind!r}")
 
-    def forward(self, h, kv_lengths=None, kernels: bool = True):
+    def forward(self, h, kv_lengths=None, kernels: bool = True, mask=None):
         inner = self.adapter_bn if hasattr(self, "adapter_bn") else self.adapter_att
-        return inner(h, kv_lengths, kernels)
+        return inner(h, kv_lengths, kernels, mask)

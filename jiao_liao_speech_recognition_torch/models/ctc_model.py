@@ -8,7 +8,10 @@ linear head over the character vocabulary. Parameters f32, compute in
 plain PyTorch (cuDNN), as XLA owned it in the JAX package. Adapters come
 from ``cfg.adapter``; ``model.train()`` turns on dropout (masks seeded per
 forward by ``dropout_seed``) and, with ``cfg.remat``, recomputes each block
-in the backward (``torch.utils.checkpoint``).
+in the backward (``torch.utils.checkpoint``). A limited-context model
+(``attention_left_context`` / ``attention_right_context`` >= 0, with
+``position_mode="none"`` for sliding-window streaming) masks each block's
+attention to a band around every frame.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.fused_head import fused_head_argmax, head_argmax_plain, head_logits, serving_kernel
 from ..ops.numerics import full_f32
 from ..utils.config import CTCModelConfig
-from .layers import (Dropout, LayerNorm, ServingCopy, TransformerBlock, lecun_normal_,
-                     sinusoidal_positions)
+from .layers import (Dropout, LayerNorm, ServingCopy, TransformerBlock, banded_length_mask,
+                     lecun_normal_, sinusoidal_positions)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -110,8 +113,6 @@ class CTCEncoderModel(nn.Module):
 
     def __init__(self, cfg: CTCModelConfig, device="cpu", seed: int = 0):
         super().__init__()
-        if cfg.attention_left_context >= 0 or cfg.attention_right_context >= 0:
-            raise NotImplementedError("banded attention comes with the streaming slice")
         if cfg.position_mode not in ("sinusoidal", "none"):
             raise ValueError(f"unknown position_mode {cfg.position_mode!r}")
         if cfg.dtype not in DTYPES:
@@ -168,12 +169,20 @@ class CTCEncoderModel(nn.Module):
             m.seed = dropout_seed
         if self.dropout is not None:
             x = self.dropout(x)
+        L, R = cfg.attention_left_context, cfg.attention_right_context
+        if L >= 0 or R >= 0:
+            # streaming-matched band: every block gets the [B, 1, T', T']
+            # mask and no lengths (the band carries what lengths cannot), so
+            # attention takes the module path; K3 still serves the MLP
+            attn_lens, mask = None, banded_length_mask(out_lengths, x.shape[1], L, R)
+        else:
+            attn_lens, mask = out_lengths, None
         remat = cfg.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
-                x = checkpoint(block, x, out_lengths, kernels, use_reentrant=False)
+                x = checkpoint(block, x, attn_lens, kernels, mask, use_reentrant=False)
             else:
-                x = block(x, out_lengths, kernels)
+                x = block(x, attn_lens, kernels, mask)
         x = self.final_ln(x)
         if head_mode == "argmax_ids":
             return self.ctc_head.argmax_ids(x, kernels), out_lengths

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import copy
 import math
-from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -74,25 +73,52 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> torch.T
         return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
-@lru_cache(maxsize=8)
+# (dim, dtype, device) -> the longest table made so far; rows do not depend
+# on the length, so a shorter table is its prefix, bit for bit
+_POSITIONS: dict = {}
+
+
 def sinusoidal_positions(
     length: int, dim: int, dtype: torch.dtype = torch.float32, device: str = "cpu"
 ) -> torch.Tensor:
     """[length, dim] table: first half sin, second half cos (Whisper layout),
-    the JAX numpy formula including its /(dim//2 - 1)."""
+    the JAX numpy formula including its /(dim//2 - 1). Kept on `device`
+    in `dtype` and grown only for a longer length, so a forward at a length
+    seen before copies nothing from the host (a host copy cannot be
+    captured into a CUDA graph)."""
     if dim % 2:
         raise ValueError(f"positions need an even width, got {dim}")
-    log_timescale = np.log(10000.0) / (dim // 2 - 1)
-    inv = np.exp(-log_timescale * np.arange(dim // 2))
-    t = np.arange(length)[:, None] * inv[None, :]
-    table = np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
-    return torch.from_numpy(table).to(device=device, dtype=dtype)
+    key = (dim, dtype, str(device))
+    table = _POSITIONS.get(key)
+    if table is None or table.shape[0] < length:
+        log_timescale = np.log(10000.0) / (dim // 2 - 1)
+        inv = np.exp(-log_timescale * np.arange(dim // 2))
+        t = np.arange(length)[:, None] * inv[None, :]
+        host = np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+        table = _POSITIONS[key] = torch.from_numpy(host).to(device=device, dtype=dtype)
+    return table[:length]
 
 
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] lengths -> [B, 1, 1, max_len] bool mask (True = valid)."""
     valid = torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None]
     return valid[:, None, None, :]
+
+
+def banded_length_mask(lengths: torch.Tensor, max_len: int, left: int, right: int) -> torch.Tensor:
+    """Length mask restricted to a (left, right) context band around each
+    query: [B, 1, T, T], True where key j is valid and q - left <= j <= q +
+    right (-1 = unbounded on that side). Its [.., T, T] shape sends a block
+    to the module path of attention (the JAX package's general XLA path),
+    never to K2 or flash, which read key lengths only."""
+    mask = length_mask(lengths, max_len)
+    pos = torch.arange(max_len, device=lengths.device)
+    band = torch.ones(max_len, max_len, dtype=torch.bool, device=lengths.device)
+    if left >= 0:
+        band &= pos[None, :] >= pos[:, None] - left
+    if right >= 0:
+        band &= pos[None, :] <= pos[:, None] + right
+    return mask & band[None, None]
 
 
 class ServingCopy:
@@ -542,7 +568,7 @@ class TransformerBlock(nn.Module):
                 r, self_cache = r
             x = x + r
         if self.post_attn_slot is not None:
-            x = self.post_attn_slot(x, kv_lengths, kernels)
+            x = self.post_attn_slot(x, kv_lengths, kernels, mask)
         if self.cross_attention:
             r = self.cross_attn(self.cross_attn_ln(x), enc_kv_lengths, kernels, kv=enc,
                                 mask=enc_mask, kv_cache=cross_cache)
@@ -556,7 +582,7 @@ class TransformerBlock(nn.Module):
         else:
             x = x + self.mlp(self.mlp_ln(x), kernels)
         if self.post_mlp_slot is not None:
-            x = self.post_mlp_slot(x, kv_lengths, kernels)
+            x = self.post_mlp_slot(x, kv_lengths, kernels, mask)
         if self_cache is not None or cross_cache is not None:
             return x, self_cache, cross_cache, None
         return x

@@ -4,8 +4,9 @@ srt; --timestamps on a Whisper bundle too), evaluate --per-utt, featurize,
 prepare --cmvn and serve (argv and --stdin, --int8, --timestamps) print
 what the JAX CLI prints (the same JSON keys; the same manifests; features
 and CMVN stats within their bars), transcribe's and serve's texts are
-``api.transcribe``'s, and every subcommand or flag whose module is not
-ported exits 2."""
+``api.transcribe``'s, transcribe --stream prints the JAX CLI's lines one
+for one on its own random init (and raises its error on a Whisper bundle),
+and every subcommand or flag whose module is not ported exits 2."""
 
 import io
 import json
@@ -18,6 +19,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from jiao_liao_speech_recognition_tpu import cli as jcli  # noqa: E402
+from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle as JBundle  # noqa: E402
+from jiao_liao_speech_recognition_tpu.utils import config as jcfg  # noqa: E402
 from jiao_liao_speech_recognition_torch import api  # noqa: E402
 from jiao_liao_speech_recognition_torch import cli  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer  # noqa: E402
@@ -27,6 +30,7 @@ from jiao_liao_speech_recognition_torch.data.manifest import (  # noqa: E402
     write_manifest,
 )
 from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav  # noqa: E402
+from jiao_liao_speech_recognition_torch.models import convert  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E402
 
 # log-mel of two f32 implementations (the C3 bar); corpus CMVN stats
@@ -219,12 +223,9 @@ def test_prepare_cmvn_matches_jax(env, capsys):
     ["train-lm", "m.jsonl", "--output", "lm.npz"],
     ["train-unigram", "m.jsonl", "--output", "u.json"],
     ["export-whisper", "--checkpoint", "c", "--out", "o"], ["build-native"],
-    ["transcribe", "a.wav", "--stream"], ["transcribe", "a.wav", "--strategy", "beam"],
+    ["transcribe", "a.wav", "--strategy", "beam"],
     ["transcribe", "a.wav", "--strategy", "spec_greedy"],
     ["transcribe", "a.wav", "--profile", "d"],
-    ["transcribe", "a.wav", "--stream-window", "8"],
-    ["transcribe", "a.wav", "--stream-hop", "0.4"],
-    ["transcribe", "a.wav", "--stream-lookahead", "0.64"],
     ["transcribe", "a.wav", "--beam-size", "4"],
     ["evaluate", "--manifest", "m.jsonl", "--decode", "beam_device"],
     ["evaluate", "--manifest", "m.jsonl", "--beam-size", "8"],
@@ -330,3 +331,47 @@ def test_whisper_transcribe_timestamps_print_what_jax_prints(env, whisper, capsy
     assert rc == 0 and len(out) == 2
     for a, b in zip(got, out):
         _same_shape(a, json.loads(b))
+
+
+@pytest.fixture(scope="module")
+def jax_init(env):
+    """The port's checkpoint of the JAX CLI's own random init of tiny.yaml
+    (seed 0, blank + unk vocabulary), so both CLIs serve one model."""
+    params = JBundle._init_params(jcfg.load_yaml(str(env / "tiny.yaml")))
+    bundle = api.load(config=str(env / "tiny.yaml"), device="cpu")
+    bundle.model.load_state_dict(convert.params_to_state_dict(params))
+    bundle.save(str(env / "jinit"))
+    return env / "jinit"
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--stream-window", "1.28", "--stream-hop", "0.32", "--stream-lookahead", "0.16"]])
+def test_transcribe_stream_prints_what_jax_prints(env, jax_init, flags, capsys):
+    """transcribe --stream: one line a hop, then the final text, line for
+    line the JAX CLI's on the same weights (f32, JAX at HIGHEST)."""
+    wavs = [str(env / "u0.wav"), str(env / "u7.wav")]
+    rc, got = _run(cli.main, ["transcribe", *wavs, "--checkpoint", str(jax_init),
+                              "--device", "cpu", "--stream", *flags], capsys)
+    assert rc == 0
+    with jax.default_matmul_precision("highest"):
+        rc, want = _run(jcli.main, ["transcribe", *wavs, "--config", str(env / "tiny.yaml"),
+                                    "--stream", *flags], capsys)
+    assert rc == 0 and got == want
+    hop = 0.4 if not flags else 0.32
+    assert len(got) == sum(-(-int(16000 * s) // int(16000 * hop)) + 1 for s in (1.2, 0.7))
+    assert [sorted(json.loads(line)) for line in got[:2]] == [
+        ["audio", "partial", "preview", "t"]] * 2
+    assert sorted(json.loads(got[-1])) == ["audio", "text"]
+
+
+def test_transcribe_stream_refuses_a_whisper_bundle(env, whisper):
+    """--stream on a Whisper bundle raises the JAX package's ValueError."""
+    with pytest.raises(ValueError) as got:
+        cli.main(["transcribe", str(env / "u0.wav"), "--checkpoint", str(whisper),
+                  "--device", "cpu", "--stream"])
+    with pytest.raises(ValueError) as want:
+        jcli.main(["transcribe", str(env / "u0.wav"), "--config", str(env / "whisper.yaml"),
+                   "--stream"])
+    assert str(got.value) == str(want.value) == (
+        "streaming supports the ctc/joint families, not 'whisper'; whisper serving is "
+        "serve/engine.py")

@@ -25,6 +25,11 @@ from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E40
 # the JAX package's log-mel parity bar (docs/COMPONENTS.md C3): both sides
 # compute in f32 and differ only in summation order
 LOGMEL_BAR = 2e-4
+# fbank (natural log, no Whisper tail) of the same f32 arithmetic, in log units
+FBANK_BAR = 1e-5
+# and its output after utterance CMVN, in normalised units: the log-unit
+# difference divided by stds down to 0.028 (measured 3.5e-5)
+FBANK_CMVN_BAR = 1e-4
 
 
 def _wavs(B=2, secs=1.3, seed=0):
@@ -57,6 +62,31 @@ def test_plain_log_mel_matches_jax_log_mel_spectrogram():
     got = tf.log_mel_spectrogram(torch.from_numpy(wav), tcfg.FrontendConfig()).numpy()
     assert got.shape == want.shape == (2, 80, 130)
     np.testing.assert_allclose(got, want, atol=LOGMEL_BAR, rtol=0)
+
+
+@pytest.mark.parametrize("kw", [
+    None,  # the recipe default: preemphasis 0.97, utterance CMVN, no Whisper tail
+    dict(whisper_norm=False, cmvn="utterance", preemphasis=0.0),
+    dict(whisper_norm=False, cmvn="none", preemphasis=0.97),
+    dict(whisper_norm=False, cmvn="none", preemphasis=0.0),
+])
+def test_fbank_matches_jax(kw):
+    """Within FBANK_BAR in log units: utterance CMVN divides each (utterance,
+    mel) row by its std over time, which is 0.028 in this quiet row, so
+    there the difference times that std is held to the bar, and the
+    normalised output itself to FBANK_CMVN_BAR."""
+    wav = _wavs(secs=1.0)
+    cfg = dict(whisper_norm=False, cmvn="utterance", preemphasis=0.97) if kw is None else kw
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jf.fbank(jnp.asarray(wav), kw and jcfg.FrontendConfig(**kw)))
+        log = np.asarray(jf.fbank(jnp.asarray(wav), jcfg.FrontendConfig(**{**cfg, "cmvn": "none"})))
+    got = tf.fbank(torch.from_numpy(wav), kw and tcfg.FrontendConfig(**kw)).numpy()
+    assert got.shape == want.shape == (2, 80, 100)
+    scale = log.std(axis=2, keepdims=True) if cfg["cmvn"] == "utterance" else 1.0
+    assert (np.abs(got - want) * scale).max() <= FBANK_BAR
+    assert np.abs(got - want).max() <= (FBANK_CMVN_BAR if cfg["cmvn"] == "utterance" else FBANK_BAR)
+    one = tf.fbank(torch.from_numpy(wav[0]), kw and tcfg.FrontendConfig(**kw)).numpy()
+    np.testing.assert_array_equal(one, got[:1])
 
 
 def test_plain_log_mel_matches_k1_interpret():

@@ -76,6 +76,30 @@ def test_sinusoidal_positions_and_length_mask_match_jax():
     )
 
 
+def _positions_before_the_cache(length, dim):
+    """The table as the port built it before it was kept on the device:
+    this numpy formula, copied to the device at each call."""
+    log_timescale = np.log(10000.0) / (dim // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(dim // 2))
+    t = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kept_positions_table_is_the_old_table_bitwise(dtype):
+    """The kept table grows for a longer length and is sliced for a shorter
+    one; every slice is the old per-call table bit for bit, and a length
+    seen before reads the kept storage (no host copy). Width 96 is used by
+    no other test, so the lengths below come in this order."""
+    for n in (40, 250, 7, 750, 250, 1):
+        got = layers.sinusoidal_positions(n, 96, dtype)
+        assert got.shape == (n, 96) and got.dtype == dtype
+        assert torch.equal(got, torch.from_numpy(_positions_before_the_cache(n, 96)).to(dtype))
+    kept = layers.sinusoidal_positions(750, 96, dtype).data_ptr()
+    assert layers.sinusoidal_positions(250, 96, dtype).data_ptr() == kept
+    assert layers.sinusoidal_positions(750, 96, dtype).data_ptr() == kept
+
+
 def test_weight_bridge_maps_every_jax_param():
     _, params = _jax_params(TINY)
     state = convert.params_to_state_dict(params)
@@ -155,8 +179,14 @@ def test_model_refuses_what_the_slice_does_not_carry():
     model = CTCEncoderModel(tcfg.CTCModelConfig(**dict(TINY, max_frames=100)))
     with pytest.raises(ValueError, match="max_frames"):
         model(torch.zeros(1, 80, 101))
-    with pytest.raises(NotImplementedError, match="banded"):
-        CTCEncoderModel(tcfg.CTCModelConfig(**dict(TINY, attention_left_context=16)))
+    with pytest.raises(ValueError, match="head_mode"):
+        model(torch.zeros(1, 80, 64), head_mode="logits")
+    # banded attention is carried since the streaming slice
+    # (tests/test_torch_limited_context.py holds it against JAX)
+    banded = CTCEncoderModel(tcfg.CTCModelConfig(**dict(TINY, attention_left_context=16))).eval()
+    with torch.no_grad():
+        lp, lens = banded(torch.zeros(1, 80, 64))
+    assert lp.shape == (1, 16, TINY["vocab_size"]) and bool(torch.isfinite(lp).all())
 
 
 def test_greedy_collapse_and_times_match_jax():
