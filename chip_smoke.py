@@ -86,7 +86,11 @@ non-zero and prints no result line):
               rule); then encoder seconds per B=16 x 30 s batch, decode ms
               per step (building the caches timed apart) and tokens/s at
               B=16 (64 steps) on both paths, the kernel path's peak device
-              memory in one encoder call, and
+              memory in one encoder call, main path 13: the AR beam (K=4,
+              two chunks, 32 decode steps; exact K9 launches, a beam of one
+              bitwise greedy, a second run naming an LM at lm_weight 0,
+              which loads none, bitwise the first: determinism only;
+              fusion is held on the joint beam in phase 14), and
               K5, K3c (with bound-counted TFLOP/s and, as context, cuBLAS's
               products alone on a precomputed LN(x)), K2h-out (beside cuBLAS
               addmm, its library_ms), K9 (cycling through caches that
@@ -203,13 +207,46 @@ non-zero and prints no result line):
               whisper_norm off) streaming three seeded utterances at a 3.2 s
               lookahead: K1, K3 and K4 launched exactly, never K2; its
               committed frames against the offline path's by the margin
-              rule, the differing frames and tokens printed.
+              rule, the differing frames and tokens printed;
+14. joint   - main paths 14-18, the joint CTC/attention family at the
+              published widths of configs/joint_ctc_attention.yaml (12 + 6
+              blocks of d 512, 4 heads of 128, mlp 2048, V 4336, WF rank 8;
+              random init, seed 0, the WF inserts' B drawn from a seed-0
+              generator): 16 seeded 30 s utterances through
+              bundle.transcribe with ctc_greedy, greedy, beam (K 8, CTC
+              rescoring) and spec_greedy, each with exact launches (K1,
+              K7 through K2 and K3 a block, K4 for the CTC ids, K9 twice a
+              decoder block a step, K7-mlp and K6 a decoder block a
+              teacher-forced pass) and run twice to the same texts; the
+              kernel path against the plain one: log-mel, the encoder
+              (relative L2), CTC ids by the margin rule, greedy and spec
+              tokens through the plain decoder's steps by the margin rule,
+              spec against greedy (they part only where no token is
+              clear), a beam of one bitwise greedy; every hypothesis of the
+              beam (K 8), and of the beam with a seeded bigram LM fused at
+              JOINT_LM_WEIGHT, fed back through the kernel steps: its score
+              their summed log-probs (plus the LM's) within
+              BEAM_RESCORE_BAR, each position within BEAM_TOKEN_BAR of the
+              plain steps', a row's K hypotheses distinct and sorted, and
+              the LM moving the fused beam toward its tokens; K7 at this
+              model's shapes (encoder B x 750, decoder B x 64), K6 at the
+              spec pass's cross-attention (B 16, Tq 64 against Tk 750, 4 x
+              128, ragged lengths) and K9 at the beam's (128 rows, 4 x 128,
+              Tk 768 and 128; in phase 8's cases) against plain, twice
+              bitwise; the encoder a batch, an
+              eager decode step (greedy, beam), spec passes and a profiled
+              beam; K6 and K9 alone at the joint shapes beside bound and
+              masked SDPA; the CTC branch streamed through a captured
+              StreamingPool(16), 8 s and 12 s a slot (the ring rolls;
+              texts = the host pool's; 30 s windows fed whole = offline
+              ctc_greedy), api.stream, and `cli
+              transcribe --strategy beam`.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
 launch replayed from the engine's CUDA graph is not counted by its wrapper
-(the wrapper ran once, at capture): main paths 10's and 11's launches are
-their counted ones plus the captured step's launches times its replays.
+(the wrapper ran once, at capture): main paths 10's, 11's and 18's launches
+are their counted ones plus the captured step's launches times its replays.
 Every JSON line carries t_s, the seconds since the script started. Then a
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. There is
 no CPU path: without CUDA the script exits non-zero at once.
@@ -331,6 +368,12 @@ PATHS = {
     "whisper_int8_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9-int8", "K10", "K11"),
     "streaming": ("K1", "K2", "K3", "K4"),
     "streaming_banded": ("K1", "K3", "K4"),
+    "whisper_beam": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
+    "joint_ctc_greedy": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
+    "joint_greedy": ("K1", "K2", "K3", "K7-attn", "K7-mlp", "K9"),
+    "joint_beam": ("K1", "K2", "K3", "K7-attn", "K7-mlp", "K9"),
+    "joint_spec": ("K1", "K2", "K3", "K4", "K6", "K7-attn", "K7-mlp"),
+    "joint_stream": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
 }
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
@@ -368,6 +411,33 @@ BANDED_GEOMETRY = (10.0, 0.4, 3.2)
 STREAM_KERNEL_NAMES = {"K1": "log_mel_tf32_kernel", "K2 core": "attention_core_kernel",
                        "K2 out-projection": "gemm_kernel<4, 2>", "K3 fc2": "gemm_kernel<3, 0>",
                        "K4 tiles": "head_tile_argmax_kernel"}
+# Whisper's AR beam on phase 8's bundle (main path 13): rows, K, max_len
+# (32 decode steps)
+WHISPER_BEAM = (2, 4, 33)
+# the joint CTC/attention family (main paths 14-18): its config at the
+# published widths, the batch (data.batch_size), the beam and horizon of
+# its decode section; the std of the seeded WF inserts' B matrices; seconds
+# of each utterance streamed, even and odd slots (past the 10 s window,
+# so the ring rolls and the transcribers trim); beam steps under the
+# profiler; the bigram LM fused into the joint beam on the card (trained
+# on seeded sequences over its first JOINT_LM_IDS ids) and its weight
+JOINT_CONFIG = "configs/joint_ctc_attention.yaml"
+JOINT_B, JOINT_BEAM, JOINT_MAX_LEN = 16, 8, 64
+JOINT_WF_B_STD = 0.02
+JOINT_STREAM_SECONDS = (8.0, 12.0)
+JOINT_PROFILE_STEPS = 4
+JOINT_LM_IDS, JOINT_LM_WEIGHT = 64, 0.5
+# the beam's hypotheses fed back through the decoder's kernel steps as the
+# beam runs them: each beam score must be the sum of those steps' log-probs
+# (the same f32 operations; only the order of the additions may differ, a
+# few f32 ulps of a ~300-nat sum, 2^-15 each) within BEAM_RESCORE_BAR, far
+# under the spread of a row's K scores (0.2-0.5 nats), so a score on the
+# wrong hypothesis or a self cache gathered from the wrong beam shows. Each
+# position's log-prob on the kernel steps against the plain steps' within
+# BEAM_TOKEN_BAR: the margin rule's ARGMAX_MARGIN, the drift it lets two
+# logits have between the paths
+BEAM_RESCORE_BAR = 1e-3
+BEAM_TOKEN_BAR = ARGMAX_MARGIN
 # the probes' profilers in examples/ and their main()'s arguments at the
 # flagship's B=32 (the probes' own defaults are B=128)
 PROBES = {
@@ -2099,6 +2169,25 @@ def k9_cases(int8: bool) -> float:
                                           bitwise_repeat=same))
                 check(bool(torch.isfinite(got).all()), f"{key}: a row is not finite")
                 check(same, f"{key} Tk={tk} dh={dh} Tq={tq}: two launches differ")
+    if int8:
+        return err
+    # the joint beam's decode shapes: 128 rows (16 utterances x 8 beams), 4
+    # heads of 128, one query row, the cross horizon of 750 frames and the
+    # self horizon of 64 positions
+    R = JOINT_B * JOINT_BEAM
+    for tk, full in ((da.round_tk(750), 750), (da.round_tk(JOINT_MAX_LEN), JOINT_MAX_LEN)):
+        lens = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, tk - 1, tk]
+        lens = [min(n, tk) for n in lens] + [full] * (R - len(lens))
+        qh = randn(R, 4, 1, 128).to(torch.bfloat16)
+        kc, vc = (randn(R, 4, tk, 128).to(torch.bfloat16) for _ in range(2))
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = da.grouped_decode_attention(qh, kc, vc, lt)
+        again = da.grouped_decode_attention(qh, kc, vc, lt)
+        same = bool(torch.equal(got, again))
+        err = max(err, _ulp_check(key, got, da.decode_attention_plain(qh, kc, vc, lt), Tk=tk,
+                                  dh=128, Tq=1, B=R, joint=True, bitwise_repeat=same))
+        check(bool(torch.isfinite(got).all()) and same,
+              f"{key} (joint, Tk={tk}): a row is not finite or two launches differ")
     return err
 
 
@@ -2175,6 +2264,60 @@ def phase_whisper(counters):
     check(coverage >= MIN_COVERAGE and mismatch == 0,
           f"decoder tokens disagree with the plain argmax ({mismatch}, coverage {coverage})")
     return launches, bundle
+
+
+def phase_whisper_beam(counters, bundle, workdir: Path):
+    """Main path 13: Whisper's AR beam (decode/whisper_generate.py) on phase
+    8's large-v3 bundle, K=4 over two chunks for 32 decode steps, through
+    bundle._whisper_ids (log-mel, then generate, as transcribe): exact K9
+    launches; a beam of one bitwise greedy; a second beam naming an LM at
+    lm_weight 0 bitwise the first. generate loads no LM at weight 0, so
+    that shows determinism only: the shallow fusion is held on the joint
+    beam (joint_beam_checks), whose [V, V] bigram matrix is 75 MB against
+    10.8 GB at large-v3's V. -> launches."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.decode.lm import NGramCharLM
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.utils.config import DecodeConfig
+
+    B, K, max_len = WHISPER_BEAM
+    w, model = bundle.config.whisper, bundle.model
+    prompt, eot = wg.resolve_specials(w)
+    wavs, _, _ = bundle._prepare_audio_chunked(make_requests()[3:3 + B], None)
+    lm_path = workdir / "lm.npz"
+    rng = np.random.RandomState(23)
+    NGramCharLM.train([rng.randint(0, w.vocab_size, 20) for _ in range(8)], 2,
+                      w.vocab_size).save(lm_path)
+    dc = DecodeConfig(strategy="beam", beam_size=K, max_decode_len=max_len)
+    wg.STEPS.reset()
+    t0 = time.perf_counter()
+    (ids, lens), launches = drive(counters, "whisper_beam", lambda: bundle._whisper_ids(wavs, dc))
+    seconds = time.perf_counter() - t0
+    steps = wg.STEPS.steps
+    with torch.inference_mode():
+        mel = featurize_batch(torch.from_numpy(wavs).cuda(), bundle.config.frontend)
+        fused0 = wg.generate(bundle, mel, DecodeConfig(strategy="beam", beam_size=K,
+                                                       max_decode_len=max_len,
+                                                       lm_path=str(lm_path), lm_weight=0.0))
+        one = wg.beam_generate(model, mel, 1, max_len, 1.0, prompt, eot,
+                               suppress_ids=w.suppress_ids, begin_suppress_ids=w.begin_suppress_ids)
+        greedy = wg.greedy_generate(model, mel, max_len, prompt, eot,
+                                    suppress_ids=w.suppress_ids,
+                                    begin_suppress_ids=w.begin_suppress_ids)
+    rec = {"rows": B, "beam": K, "max_len": max_len, "steps": steps, "seconds": seconds,
+           "ms_per_step_incl_encoder": 1e3 * seconds / steps, "lengths": lens.tolist(),
+           "launches": launches,
+           "determinism_lm_weight_0_run_equals_first": all(
+               torch.equal(a, b) for a, b in zip(fused0, (ids, lens))),
+           "beam_of_one_equals_greedy": all(torch.equal(a, b) for a, b in zip(one, greedy))}
+    emit({"phase": "whisper", "beam": rec})
+    check(steps == max_len - 1 and launches["K9"] == 2 * w.decoder_layers * steps,
+          f"whisper beam: {steps} steps, K9 launched {launches['K9']} times")
+    check(rec["determinism_lm_weight_0_run_equals_first"] and rec["beam_of_one_equals_greedy"],
+          f"whisper beam: {rec}")
+    return launches
 
 
 def phase_whisper_timing(bundle):
@@ -3828,6 +3971,559 @@ def phase_streaming_banded(counters, card: str):
     return launches
 
 
+# --- main paths 14-18: the joint CTC/attention family -----------------------------
+
+
+def joint_bundle():
+    """api.load of configs/joint_ctc_attention.yaml at its published widths
+    (random init, seed 0), its WF inserts' B matrices drawn from a seed-0
+    generator (zero at init, which would make every insert the identity)
+    and a one-character-per-id vocabulary."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.models.adapters import WFAdapter
+    from jiao_liao_speech_recognition_torch.utils.config import load_yaml
+
+    cfg = load_yaml(str(Path(__file__).resolve().parent / JOINT_CONFIG))
+    bundle = api.load(config=cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for m in bundle.model.modules():
+            if isinstance(m, WFAdapter):
+                m.b.normal_(0.0, JOINT_WF_B_STD, generator=gen)
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(cfg.joint.vocab_size - 2)])
+    return bundle
+
+
+def joint_k7_rows(model, rng):
+    """K7 at the joint model's shapes against its plain version, twice
+    bitwise: the attention half on encoder block 0 at B x 750 (4 heads of
+    128), the MLP half on encoder block 0 at B x 750 and decoder block 0 at
+    B x 64 (a teacher-forced pass's rows) -> errors by key."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models.layers import _insert
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    B, d = JOINT_B, model.cfg.d_model
+    errs = {}
+    with torch.inference_mode():
+        for key, blk, T in (("K7-attn", model.enc_blocks[0], 750),
+                            ("K7-mlp", model.enc_blocks[0], 750),
+                            ("K7-mlp", model.dec_blocks[0], JOINT_MAX_LEN)):
+            x = torch.from_numpy(rng.randn(B, T, d).astype(np.float32)).cuda().to(torch.bfloat16)
+            s = float(blk.adapter.scale)
+            if key == "K7-attn":
+                sa, ln = blk.self_attn, blk.self_attn_ln
+                base, inserts = sa.wf_params()
+                lens = torch.tensor(([T, 517, 1, 64] * B)[:B], dtype=torch.int32, device="cuda")
+                args = (x, ln.scale, ln.bias, base, inserts, sa.num_heads, ln.eps, s, lens)
+                kern, plain = fa.fused_attention_sublayer_wf, fa.attention_sublayer_wf_plain
+            else:
+                ln, m = blk.mlp_ln, blk.mlp
+                args = (x, ln.scale, ln.bias, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias,
+                        _insert(m.fc1), _insert(m.fc2), ln.eps, m.gelu_form, s)
+                kern, plain = fm.fused_ln_mlp_residual_wf, fm.ln_mlp_residual_wf_plain
+            got, again = kern(*args), kern(*args)
+            same = bool(torch.equal(got, again))
+            err = _ulp_check(key, got, plain(*args), B=B, T=T, d=d, joint=True,
+                             bitwise_repeat=same)
+            check(same, f"{key} (joint, T={T}): two launches differ")
+            errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
+def with_sos(ids):
+    import torch
+
+    return torch.cat([torch.zeros_like(ids[:, :1]), ids], 1)
+
+
+def joint_decoder_checks(model, enc, greedy, spec):
+    """Greedy and spec tokens by the margin rule against the plain decoder
+    (teacher-forced cached steps); spec against greedy: where a row's two
+    sequences first differ, the plain logits on their shared prefix have no
+    clear winner. -> record."""
+    import torch
+
+    out = {}
+    g_ids, _ = greedy
+    s_ids, s_lens, passes = spec
+    with torch.inference_mode():
+        for name, (ids, lens) in (("greedy", greedy), ("spec_greedy", (s_ids, s_lens))):
+            toks = with_sos(ids)
+            logits = forced_logits(model, toks, enc, kernels=False)
+            cov, mism, scored, agree = margin_check(logits, toks, lens, 1)
+            out[name] = {"coverage": cov, "mismatched_positions": mism, "positions": scored,
+                         "agree_all_positions": agree, "lengths": [int(n) for n in lens]}
+            check(cov >= MIN_COVERAGE and mism == 0 and bool(torch.isfinite(logits).all()),
+                  f"joint {name}: tokens disagree with the plain decoder ({out[name]})")
+            if name == "greedy":
+                g_logits = logits
+        diverge = []
+        for b in range(g_ids.shape[0]):
+            d = (g_ids[b] != s_ids[b]).nonzero()
+            if len(d):
+                p = int(d[0])
+                diverge.append({"row": b, "position": p,
+                                "plain_margin": float(margins(g_logits[b, p]))})
+        out["spec_vs_greedy"] = {"rows_equal": g_ids.shape[0] - len(diverge),
+                                 "first_differences": diverge, "passes": passes}
+        check(all(r["plain_margin"] <= ARGMAX_MARGIN for r in diverge),
+              f"joint spec_greedy leaves greedy at a clear position: {diverge}")
+    return out
+
+
+def beam_forced_logp(model, gen, enc, enc_lengths, kernels):
+    """Every hypothesis gen [B, K, L] fed through the decoder's cached steps
+    as beam_from_enc runs them (init_cache(..., beams=K): B * K rows, the
+    cross K/V projected once an utterance; each row's encoder length) ->
+    f32 log-prob of each fed next token [B, K, L]."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode.whisper_generate import log_softmax_f32
+
+    B, K, L = gen.shape
+    toks = with_sos(gen.reshape(B * K, L))
+    caches = model.init_cache(B, enc, L + 1, None, beams=K)
+    lens_k = enc_lengths.repeat_interleave(K, 0)
+    out = []
+    for pos in range(L):
+        logits, caches = model.decode_step(toks[:, pos:pos + 1], pos, enc, caches, lens_k,
+                                           kernels)
+        lp = log_softmax_f32(logits).reshape(B * K, -1)
+        out.append(lp.gather(1, toks[:, pos + 1, None])[:, 0])
+    return torch.stack(out, 1).view(B, K, L)
+
+
+def lm_step_logp(mat, gen, lens):
+    """log P_LM(next | previous) from a bigram matrix [V, V] at each step
+    of gen [B, K, L] (the start token 0 first), 0 past each hypothesis's
+    EOT step -> [B, K, L]."""
+    import torch
+
+    B, K, L = gen.shape
+    prev = with_sos(gen.reshape(B * K, L))[:, :L].view(B, K, L)
+    keep = torch.arange(L, device=gen.device)[None, None] < (lens + 1).clamp(max=L)[..., None]
+    return torch.where(keep, mat[prev, gen], 0.0)
+
+
+def beam_record(model, enc, el, beam, lm=None, plain=True):
+    """One beam_from_enc result (tokens [B, K, L], lengths, scores) held to
+    the decoder's steps: its hypotheses fed back through the kernel steps
+    (BEAM_RESCORE_BAR on each score, the additions in the beam's order,
+    plus lm_weight x the bigram log-prob of each step where `lm` = (bigram
+    matrix, weight) was fused) and, with `plain`, each position against the
+    plain steps (BEAM_TOKEN_BAR); a row's K hypotheses distinct and sorted
+    by score. -> record."""
+    import torch
+
+    gen, lens, att = beam
+    B, K, L = gen.shape
+    lp_k = beam_forced_logp(model, gen, enc, el, True)
+    keep = torch.arange(L, device=gen.device)[None, None] < (lens + 1).clamp(max=L)[..., None]
+    terms = lp_k if lm is None else lp_k + lm[1] * lm_step_logp(lm[0], gen, lens)
+    terms = torch.where(keep, terms, 0.0)
+    acc = torch.zeros_like(att)
+    for p in range(L):  # the beam's order: one step's log-prob added at a time
+        acc = acc + terms[:, :, p]
+    same = (gen[:, :, None] == gen[:, None]).all(-1) & ~torch.eye(K, dtype=torch.bool,
+                                                                  device=gen.device)
+    rec = {"K": K, "lengths": lens.tolist(), "scores": att.tolist(),
+           "score_max_abs_diff_kernel_steps": float((acc - att).abs().max()),
+           "rescore_bar": BEAM_RESCORE_BAR,
+           "row_score_spread_min": float((att[:, 0] - att[:, -1]).min()),
+           "sorted": bool((att[:, :-1] >= att[:, 1:]).all()),
+           "distinct": not bool(same.any())}
+    check(rec["score_max_abs_diff_kernel_steps"] <= BEAM_RESCORE_BAR,
+          f"beam: scores are not the sums of their hypotheses' steps ({rec})")
+    check(rec["sorted"] and rec["distinct"], f"beam: a row's hypotheses repeat or are out of "
+                                             f"order ({rec})")
+    if plain:
+        lp_p = beam_forced_logp(model, gen, enc, el, False)
+        drift = torch.where(keep, (lp_k - lp_p).abs(), 0.0)
+        rec.update({"token_max_abs_diff_plain_steps": float(drift.max()),
+                    "token_mean_abs_diff_plain_steps": float(drift.sum() / keep.sum()),
+                    "token_bar": BEAM_TOKEN_BAR,
+                    "score_max_abs_diff_plain_steps": float(
+                        (torch.where(keep, lp_p, 0.0).sum(2) - att).abs().max())})
+        check(rec["token_max_abs_diff_plain_steps"] <= BEAM_TOKEN_BAR,
+              f"beam: a position's log-prob is off the plain decoder's ({rec})")
+    return rec
+
+
+def joint_beam_checks(model, feats, flens, enc, el, greedy, workdir: Path):
+    """The beam on the kernel path: a beam of one bitwise greedy; the
+    beam of JOINT_BEAM through beam_from_enc, its hypotheses held to the
+    decoder's steps (beam_record), CTC-rescored (ctc_rescore) and ranked
+    by the config's ctc_weight to joint_beam's pick; then the same beam
+    with a seeded bigram LM fused at JOINT_LM_WEIGHT (beam_record with
+    the LM's term), whose top hypotheses must differ from the unfused
+    ones and carry more LM log-prob. -> record."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.decode.joint_generate import (
+        ctc_rescore, joint_beam)
+    from jiao_liao_speech_recognition_torch.decode.lm import NGramCharLM
+
+    K, L, V = JOINT_BEAM, JOINT_MAX_LEN, model.cfg.vocab_size
+    out = {}
+    with torch.inference_mode():
+        b1 = joint_beam(model, feats, flens, 1, L, ctc_weight=0.0)
+        out["beam_of_one_equals_greedy_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(b1, greedy))
+        check(out["beam_of_one_equals_greedy_bitwise"], "joint: a beam of one is not greedy")
+        beam = wg.beam_from_enc(model, enc, el, K, L, (0,), 0)
+        out["beam"] = beam_record(model, enc, el, beam)
+        gen, lens, att = beam
+        nll = ctc_rescore(model, enc, el, gen, lens)
+        w, norm = model.cfg.ctc_weight, wg.length_norm(lens, 1.0)
+        pick = wg.best_beam(gen, lens, w * (-nll / norm) + (1.0 - w) * att / norm)
+        chosen = joint_beam(model, feats, flens, K, L)
+        out["beam"].update({"ctc_nll_finite": bool(torch.isfinite(nll).all()),
+                            "joint_beam_is_the_ctc_ranked_pick": all(
+                                torch.equal(a, b) for a, b in zip(pick, chosen))})
+        check(out["beam"]["ctc_nll_finite"] and out["beam"]["joint_beam_is_the_ctc_ranked_pick"],
+              f"joint beam: CTC rescoring ({out['beam']})")
+
+        rng = np.random.RandomState(24)
+        path = workdir / "joint_lm.npz"
+        NGramCharLM.train([rng.randint(1, JOINT_LM_IDS + 1, L) for _ in range(32)], 2,
+                          V).save(path)
+        mat = wg.load_bigram_matrix(str(path), V, enc.device)
+        fused = wg.beam_from_enc(model, enc, el, K, L, (0,), 0, lm_bigram=mat,
+                                 lm_weight=JOINT_LM_WEIGHT)
+        rec = beam_record(model, enc, el, fused, (mat, JOINT_LM_WEIGHT), plain=False)
+        lm_fused, lm_plain = (lm_step_logp(mat, g, n).sum(2) for g, n, _ in (fused, beam))
+        top_f, top_u = fused[0][:, 0], gen[:, 0]
+        rec.update({"lm_weight": JOINT_LM_WEIGHT, "lm_ids": JOINT_LM_IDS,
+                    "rows_top_differs": int((top_f != top_u).any(1).sum()),
+                    "top_lm_logp_fused": float(lm_fused[:, 0].sum()),
+                    "top_lm_logp_unfused": float(lm_plain[:, 0].sum()),
+                    "top_tokens_in_lm_ids_fused": float(
+                        ((top_f >= 1) & (top_f <= JOINT_LM_IDS)).float().mean()),
+                    "top_tokens_in_lm_ids_unfused": float(
+                        ((top_u >= 1) & (top_u <= JOINT_LM_IDS)).float().mean())})
+        out["beam_lm_fused"] = rec
+        check(rec["rows_top_differs"] > 0
+              and rec["top_lm_logp_fused"] > rec["top_lm_logp_unfused"],
+              f"joint beam: the fused LM did not move the beam toward its tokens ({rec})")
+    return out
+
+
+def joint_k6(rng):
+    """K6 at the spec pass's cross-attention: JOINT_B rows of 64 query
+    positions (one partial query tile) against 750 encoder frames, 4 heads
+    of 128, ragged key lengths; out within ULP_BAR and lse within LSE_BAR
+    of flash_forward_plain, two launches bitwise; then timed (queued, as
+    phase 4's K6) beside plain, its bound on the valid keys and masked
+    SDPA's forward -> (max abs error, row)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+
+    B, Tq, Tk, H, dh = JOINT_B, JOINT_MAX_LEN, 750, 4, 128
+    lens = ([Tk, 517, 129, 1] * B)[:B]
+
+    def t(T):
+        return torch.from_numpy(rng.randn(B, T, H, dh).astype(np.float32)).cuda().to(
+            torch.bfloat16)
+
+    q, k, v = t(Tq), t(Tk), t(Tk)
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        out, lse = fl.flash_forward(q, k, v, kl)
+        again = fl.flash_forward(q, k, v, kl)
+        out_p, lse_p = fl.flash_forward_plain(q, k, v, kl)
+        same = all(torch.equal(a, b) for a, b in zip((out, lse), again))
+        err = _ulp_check("K6", out, out_p, B=B, Tq=Tq, Tk=Tk, heads=H, dh=dh, lens=lens,
+                         joint=True, bitwise_repeat=same)
+        lse_err = float((lse - lse_p).abs().max())
+        emit({"phase": "kernels", "kernel": "K6", "joint": True, "lse_max_abs_err": lse_err,
+              "lse_bar": LSE_BAR})
+        check(lse_err <= LSE_BAR, f"K6 (joint cross-attention) lse off by {lse_err}")
+        check(same, "K6 (joint cross-attention): two launches differ")
+
+        def kern():
+            return fl.flash_forward(q, k, v, kl)
+
+        def plain():
+            return fl.flash_forward_plain(q, k, v, kl)
+
+        p1, k1, k2, p2 = cuda_ms(plain), queued_ms(kern), queued_ms(kern), cuda_ms(plain)
+        library_ms = _yardsticks().sdpa_forward_ms(q, k, v, kl)
+    n = sum(lens)
+    # q read and out written once, K and V read on the valid keys, lse
+    # written, the lengths read; QK^T and PV on the valid keys
+    bound_ms, bound_by = bound(2 * B * Tq * H * dh * 2 + 2 * n * H * dh * 2 + B * H * Tq * 4
+                               + B * 4, {"bf16": 4.0 * H * dh * Tq * n})
+    row = {"shape": f"B={B}, {H} x {dh}, Tq={Tq}, Tk={Tk} (cross, lengths "
+                    f"{min(lens)}-{max(lens)})",
+           "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": "timing", "kernel": "K6", "joint": True, **row,
+          "turns_ms": [p1, k1, k2, p2]})
+    return err, row
+
+
+def joint_k9_timing(rng):
+    """K9 alone at the joint beam's decode shapes (B*K = 128 rows, 4 x 128,
+    Tq 1): cross over Tk 768 with lengths 750 and self over Tk 128 with
+    lengths 1-64, caches cycled past twice the L2, by device time, beside
+    plain (CUDA events), bound and masked SDPA (device time) -> rows."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.utils.timing import cycling
+
+    R, H, dh = JOINT_B * JOINT_BEAM, 4, 128
+    bf = torch.bfloat16
+    rows = []
+    with torch.inference_mode():
+        qh = torch.from_numpy(rng.randn(R, H, 1, dh).astype(np.float32)).cuda().to(bf)
+        for tk, lens, what in ((da.round_tk(750), np.full(R, 750), "cross"),
+                               (da.round_tk(JOINT_MAX_LEN), rng.randint(1, JOINT_MAX_LEN + 1, R),
+                                "self")):
+            sets = max(2, math.ceil(2 * L2_BYTES / (4 * R * H * tk * dh)))
+            caches = [[torch.from_numpy(rng.randn(R, H, tk, dh).astype(np.float32)).cuda().to(bf)
+                       for _ in range(2)] for _ in range(sets)]
+            lt = torch.from_numpy(lens.astype(np.int32)).cuda()
+            kern = cycling(lambda kv: da.grouped_decode_attention(qh, *kv, lt), caches)
+            plain = cycling(lambda kv: da.decode_attention_plain(qh, *kv, lt), caches)
+            lib_calls = [_yardsticks().sdpa_decode(qh, *kv, lt) for kv in caches]
+            # device time: a launch's host dispatch outlasts the self case
+            p1, k1, k2, p2 = cuda_ms(plain, 3), device_ms(kern), device_ms(kern), cuda_ms(plain, 3)
+            n = int(lens.sum())
+            bound_ms, bound_by = bound(R * H * dh * 2 + R * H * dh * 4 + R * 4 + 2 * n * H * dh * 2,
+                                       {"bf16": 4.0 * H * dh * n})
+            row = {"shape": f"B={R}, {H} x {dh}, Tq=1, Tk={tk} ({what}, lengths "
+                            f"{int(lens.min())}-{int(lens.max())})",
+                   "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   "library_ms": device_ms(cycling(lambda call: call(), lib_calls), 10)}
+            emit({"phase": "timing", "kernel": "K9", "joint": True, **row,
+                  "turns_ms": [p1, k1, k2, p2]})
+            rows.append(row)
+            del caches
+    return rows
+
+
+def joint_streaming(counters, bundle, utts, offline):
+    """The CTC branch streamed (main path 18): a StreamingPool(JOINT_B) on
+    the device ring at StreamingConfig's defaults, its step captured, the
+    first JOINT_STREAM_SECONDS (8 s and 12 s in turn) of each utterance fed
+    a hop a step from staggered opens, so the 12 s streams pass the 10 s
+    window (the ring rolls and the transcribers trim); its texts against
+    the host-assembled pool's; then a
+    pool of 30 s windows fed each utterance whole: its finish() texts must
+    be the offline ctc_greedy ones. -> (launches, record)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.serve import StreamingConfig, StreamingPool
+
+    L = bundle.model.cfg.num_layers
+    sc = StreamingConfig()
+    clips = [u[:int(JOINT_STREAM_SECONDS[k % 2] * SAMPLE_RATE)] for k, u in enumerate(utts)]
+    pool = StreamingPool(bundle, slots=JOINT_B, stream_cfg=sc)
+    want_step = {"fused_log_mel_raw": 1, "fused_attention_sublayer": L,
+                 "fused_attention_sublayer_wf": L, "fused_ln_mlp_residual": L,
+                 "fused_ln_mlp_residual_wf": L, "fused_head_argmax": 1}
+    check(pool._graph is not None and pool.step_launches == want_step,
+          f"joint streaming: the captured step's launches {pool.step_launches}, not {want_step}")
+    seen = {"max_shift": 0, "trimmed": False}
+
+    def on_step(pools, results, step):
+        seen["max_shift"] = max(seen["max_shift"], int(pools[0]._h_ctrl[0].max()))
+        seen["trimmed"] |= any(st._base > 0 for st in pools[0]._active.values())
+
+    for c in counters.values():
+        c.reset()
+    (texts,), steps = pool_drive([pool], clips, on_step)
+    torch.cuda.synchronize()
+    counted = {key: c.launches for key, c in counters.items()}
+    names = {c.name: key for key, c in counters.items()}
+    launches = {key: counted[key] for key in counted}
+    for name, n in pool.step_launches.items():
+        launches[names[name]] += n * pool.replays
+    missing = [key for key in PATHS["joint_stream"] if launches[key] == 0]
+    check(not missing, f"joint_stream: kernels never launched: {missing} ({launches})")
+    host = StreamingPool(bundle, slots=JOINT_B, stream_cfg=sc, device_ring=False)
+    (host_texts,), _ = pool_drive([host], clips)
+    differ = [k for k, (a, b) in enumerate(zip(texts, host_texts)) if a != b]
+    whole = StreamingPool(bundle, slots=JOINT_B, stream_cfg=StreamingConfig(30.0, 30.0, 0.0))
+    sids = [whole.open() for _ in utts]
+    for sid, u in zip(sids, utts):
+        whole.feed(sid, u)
+    whole.step()
+    finished = [whole.finish(sid).text for sid in sids]
+    one = list(api.stream(bundle, np.split(clips[0], 4), sc))
+    rec = {"slots": JOINT_B, "geometry_s": [sc.window_seconds, sc.hop_seconds,
+                                            sc.lookahead_seconds],
+           "stream_s": JOINT_STREAM_SECONDS, "steps": steps, "replays": pool.replays,
+           "step_launches": pool.step_launches, "launches": launches,
+           "ring_max_shift_samples": seen["max_shift"], "trimmed": seen["trimmed"],
+           "ring_vs_host_differ": differ, "text_chars": [len(t) for t in texts],
+           "finish_30s_windows_equal_offline_ctc_greedy": finished == offline,
+           "api_stream_results": len(one)}
+    emit({"phase": "joint", "streaming": rec})
+    check(seen["max_shift"] > 0 and seen["trimmed"],
+          f"joint streaming: the ring never rolled or no stream trimmed ({seen})")
+    check(not differ, f"joint streaming: ring and host pools differ at {differ}")
+    check(finished == offline, "joint streaming: finish() over one window != offline ctc_greedy")
+    check(one[-1].is_final and one[-1].text == stream_texts(bundle, sc, clips[:1])[0],
+          "joint api.stream: the final text is not the transcriber's")
+    return launches, rec
+
+
+def phase_joint(counters, workdir: Path, card: str):
+    """Main paths 14-18, the joint CTC/attention family at the published
+    widths of configs/joint_ctc_attention.yaml (12 + 6 blocks of d 512, 4
+    heads of 128, mlp 2048, V 4336, WF rank 8; random init, seed 0):
+    JOINT_B seeded 30 s utterances through bundle.transcribe with each
+    strategy (exact launches), the kernel path against the plain one, the
+    beam (and the beam with a fused LM) held to the decoder's steps, K6,
+    K7 and K9 at this model's shapes, timing, the CTC branch streamed, and
+    `cli transcribe --strategy beam`. -> (launches by path, errors, K6's
+    and K9's joint rows)."""
+    import dataclasses
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.decode.joint_generate import joint_greedy
+    from jiao_liao_speech_recognition_torch.decode.speculative import joint_spec_greedy
+    from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+
+    t_phase = time.perf_counter()
+    bundle = joint_bundle()
+    cfg, model = bundle.config, bundle.model
+    jc = cfg.joint
+    check(cfg.decode.beam_size == JOINT_BEAM and cfg.decode.max_decode_len == JOINT_MAX_LEN
+          and jc.adapter.kind == "wf", f"the joint config changed: {cfg.decode}, {jc.adapter}")
+    utts = stream_audio(JOINT_B, seed=21, secs=30.0)
+    audio_s = JOINT_B * 30.0
+    L, D = jc.num_layers, jc.decoder_layers
+    paths, seconds, texts = {}, {}, {}
+    for strategy, path in (("ctc_greedy", "joint_ctc_greedy"), ("greedy", "joint_greedy"),
+                           ("beam", "joint_beam"), ("spec_greedy", "joint_spec")):
+        dc = dataclasses.replace(cfg.decode, strategy=strategy)
+        wg.STEPS.reset()
+        texts[strategy], launches = drive(counters, path,
+                                          lambda: bundle.transcribe(utts, decode_cfg=dc))
+        steps, n = wg.STEPS.steps, wg.STEPS.passes  # n: spec_greedy's teacher-forced passes
+        # the encoder: K7 a sublayer (through K2 and K3); the decoder: K9 for
+        # self- and cross-attention a block a step; a teacher-forced pass of
+        # 64 positions: K7-mlp a block, K6 for each cross-attention
+        want = {key: 0 for key in counters} | {
+            "K1": 1, "K7-attn": L, "K2": L, "K7-mlp": L + D * n, "K3": L + D * n,
+            "K6": D * n, "K9": 2 * D * steps,
+            "K4": int(strategy in ("ctc_greedy", "spec_greedy"))}
+        wrong = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
+        check(not wrong, f"{path}: launches (got, want): {wrong}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = bundle.transcribe(utts, decode_cfg=dc)
+        torch.cuda.synchronize()
+        seconds[strategy] = time.perf_counter() - t0
+        check(again == texts[strategy], f"{path}: a second run gave other texts")
+        paths[path] = launches
+    emit({"phase": "joint", "config": JOINT_CONFIG, "card": card,
+          "params": sum(p.numel() for p in model.parameters()),
+          "utterances": JOINT_B, "audio_s": audio_s, "launches": paths,
+          "seconds": seconds, "rtfx": {s: audio_s / t for s, t in seconds.items()},
+          "text_chars": {s: [len(t) for t in v] for s, v in texts.items()}})
+    check(all(len(v) == JOINT_B for v in texts.values())
+          and sum(len(t) for t in texts["ctc_greedy"]) > 0, "joint: no text")
+
+    # the kernel path against the plain path on the same 16 chunks
+    fe = cfg.frontend
+    wavs, alens, _ = bundle._prepare_audio_chunked(utts, None)
+    rng = np.random.RandomState(22)
+    with torch.inference_mode():
+        wav = torch.from_numpy(wavs).cuda()
+        flens = torch.from_numpy(alens // fe.hop_length).cuda()
+        feats_k, feats_p = featurize_batch(wav, fe), featurize_batch(wav, fe, kernels=False)
+        enc_k, el = model.encode(feats_k, flens)
+        enc_p, _ = model.encode(feats_p, flens, kernels=False)
+        ids_k = model.ctc_argmax_ids(enc_k)
+        lp = model.ctc_log_probs(enc_p)
+        greedy = joint_greedy(model, feats_k, flens, max_len=JOINT_MAX_LEN)
+        spec = joint_spec_greedy(model, feats_k, flens, max_len=JOINT_MAX_LEN,
+                                 return_passes=True)
+    frames = torch.arange(ids_k.shape[1], device="cuda")[None] < el[:, None]
+    clear = frames & (margins(lp) > ARGMAX_MARGIN)
+    ctc = {"logmel_max_abs_err": float((feats_k - feats_p).abs().max()),
+           "encoder_rel_l2": float((enc_k.float() - enc_p.float()).norm() / enc_p.float().norm()),
+           "frames": int(frames.sum()), "coverage": float(clear.sum() / frames.sum()),
+           "mismatched_frames": int(((ids_k != lp.argmax(-1)) & clear).sum())}
+    dec = joint_decoder_checks(model, enc_k, greedy, spec)
+    dec.update(joint_beam_checks(model, feats_k, flens, enc_k, el, greedy, workdir))
+    emit({"phase": "joint", "vs_plain": {"ctc": ctc, **dec}})
+    check(ctc["logmel_max_abs_err"] <= LOGMEL_BAR and ctc["coverage"] >= MIN_COVERAGE
+          and ctc["mismatched_frames"] == 0 and ctc["encoder_rel_l2"] <= ENC_REL_BAR,
+          f"joint CTC ids disagree with the plain path: {ctc}")
+    errs = joint_k7_rows(model, rng)
+    errs["K6"], k6_row = joint_k6(rng)
+
+    # timing: the encoder a batch, an eager decode step (greedy at B rows,
+    # the beam at B * K), the spec passes, and where a beam step's time goes
+    tm = {"encoder_s_per_batch": {}}
+    with torch.inference_mode():
+        for kernels in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encode(feats_k, flens, kernels)
+            torch.cuda.synchronize()
+            tm["encoder_s_per_batch"].setdefault("kernels" if kernels else "plain", []).append(
+                time.perf_counter() - t0)
+        for name, fn in (("greedy", lambda: wg.greedy_from_enc(model, enc_k, el, JOINT_MAX_LEN,
+                                                                (0,), 0)),
+                         ("beam", lambda: wg.beam_from_enc(model, enc_k, el, JOINT_BEAM,
+                                                           JOINT_MAX_LEN, (0,), 0))):
+            wg.STEPS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            tm[f"{name}_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / wg.STEPS.steps
+            tm[f"{name}_steps"] = wg.STEPS.steps
+        beam_prof = device_profile(lambda i: wg.beam_from_enc(
+            model, enc_k, el, JOINT_BEAM, JOINT_PROFILE_STEPS + 1, (0,), 0), 1, "joint beam",
+            top=12)
+    tm["beam_rows"] = JOINT_B * JOINT_BEAM
+    tm["spec_passes"] = spec[2]
+    tm["beam_profile"] = {**beam_prof, "steps": JOINT_PROFILE_STEPS,
+                          "note": "one beam_from_enc call of this many steps, its cache "
+                                  "build included"}
+    emit({"phase": "joint", "timing": tm})
+    k9_rows = joint_k9_timing(rng)
+
+    streaming_launches, _ = joint_streaming(counters, bundle, utts, texts["ctc_greedy"])
+    paths["joint_stream"] = streaming_launches
+
+    # `cli transcribe --strategy beam` of two WAVs: the bundle's texts
+    wav_paths = []
+    for i in range(2):
+        wav_paths.append(str(workdir / f"j{i}.wav"))
+        write_wav(wav_paths[-1], utts[i][:int(6.0 * SAMPLE_RATE)], SAMPLE_RATE)
+    bundle.save(str(workdir / "joint"))
+    lines = [json.loads(s) for s in cli_run(["transcribe", *wav_paths, "--checkpoint",
+                                             workdir / "joint", "--strategy", "beam",
+                                             "--beam-size", str(JOINT_BEAM)])]
+    want_texts = bundle.transcribe(wav_paths)  # the config's strategy: beam of 8
+    check([r["text"] for r in lines] == want_texts,
+          f"joint cli transcribe --strategy beam: {lines} != {want_texts}")
+    emit({"phase": "joint", "cli_beam_texts_equal": True,
+          "phase_s": time.perf_counter() - t_phase})
+    return paths, errs, {"K6": k6_row, "K9": k9_rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -3873,6 +4569,8 @@ def main() -> int:
         phase_transfer_timing(tr_cfg, tr_final, transferred)
     del transferred
     by_path["whisper_serve"], whisper = phase_whisper(counters)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["whisper_beam"] = phase_whisper_beam(counters, whisper, Path(tmp))
     rec.update(phase_whisper_timing(whisper))
     errs.update(phase_int8_kernels())
     int8_paths, qbundle = phase_whisper_int8(counters, whisper)
@@ -3890,6 +4588,13 @@ def main() -> int:
     for key, err in stream_errs.items():
         errs[key] = max(errs[key], err)
     by_path["streaming_banded"] = phase_streaming_banded(counters, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        joint_paths, joint_errs, joint_rows = phase_joint(counters, Path(tmp), card)
+    by_path.update(joint_paths)
+    for key, err in joint_errs.items():
+        errs[key] = max(errs[key], err)
+    rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"]]}
+    rec["K9"] = {**rec["K9"], "joint_shapes": joint_rows["K9"]}
     table = []
     for key, name, _, _, src, replaces in KERNELS:
         table.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

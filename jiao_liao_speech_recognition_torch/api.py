@@ -1,6 +1,6 @@
 """Public API of the PyTorch port: ``load`` / ``featurize`` / ``transcribe``
-/ ``fine_tune`` / ``stream`` (the CTC and Whisper slices of the JAX
-package's ``api.py``)."""
+/ ``fine_tune`` / ``stream`` (the JAX package's ``api.py`` for the CTC,
+Whisper and joint CTC/attention families)."""
 
 from __future__ import annotations
 
@@ -17,8 +17,8 @@ def load(
     config: Optional[Union[str, ExperimentConfig]] = None,
     device="cuda",
 ):
-    """Model bundle (config + model + tokenizer) on `device` for the ctc or
-    whisper family (``config.model_family``): random init from seed 0
+    """Model bundle (config + model + tokenizer) on `device` for the ctc,
+    whisper or joint family (``config.model_family``): random init from seed 0
     without a checkpoint, else a directory with params.npz
     (models/convert.py layout), config.yaml and the tokenizer files
     (vocab.json; merges.txt too for a Whisper BPE tokenizer, as
@@ -60,17 +60,20 @@ def transcribe(
     decode_cfg=None,
     timestamps: bool = False,
 ):
-    """Audio -> one greedy transcript per input (CTC greedy, or Whisper AR
-    greedy); with ``timestamps=True``, one ``[{"token", "start", "end"},
-    ...]`` list per input instead (CTC frame alignment, or Whisper
-    cross-attention DTW)."""
+    """Audio -> one transcript per input, by ``decode_cfg.strategy`` (the
+    bundle's config when None: CTC greedy; Whisper greedy or beam; joint
+    ctc_greedy, greedy, beam with CTC rescoring or spec_greedy); with
+    ``timestamps=True``, one ``[{"token", "start", "end"}, ...]`` list per
+    input instead (the CTC frame alignment of the ctc and joint families,
+    or Whisper cross-attention DTW)."""
     if timestamps:
         return bundle.transcribe_timed(audio, sample_rate=sample_rate)
     return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg)
 
 
 def stream(bundle, chunks: Iterable[np.ndarray], stream_cfg=None):
-    """Incremental transcription of a live audio stream (CTC family): yields
+    """Incremental transcription of a live audio stream (the CTC family, or
+    the joint family's CTC branch): yields
     a StreamingResult after every fed chunk (``res.text`` the committed
     text, ``res.preview`` the unstable tail) and a final one
     (``is_final=True``) once `chunks` is exhausted (serve/streaming.py)."""

@@ -9,6 +9,9 @@ subcommands, flags and JSON output:
         --slots 16 [--stdin] [--int8] [--timestamps]
     python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav --checkpoint ckpt \\
         --stream [--stream-window 10 --stream-hop 0.4 --stream-lookahead 0.64]
+    python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav \\
+        --config configs/joint_ctc_attention.yaml --strategy beam --beam-size 8
+    python -m jiao_liao_speech_recognition_torch.cli train-lm m/train.jsonl --output lm.npz
 
 ``train`` runs ``config.stages`` through ``train/schedules.run_stages``
 (then saves the bundle to ``<checkpoint_dir>/final``), else
@@ -29,15 +32,10 @@ from pathlib import Path
 
 # subcommand or flag -> the ROADMAP queue 1 item that ports its module
 NOT_PORTED = {
-    "train-lm": "queue 1 item 7 (decode/lm.py)",
     "train-unigram": "queue 1 item 10 (data/unigram.py)",
     "export-whisper": "queue 1 item 4 (the HF export)",
     "build-native": "queue 1 item 8 (native/ beam search through ctypes)",
-    "beam": "queue 1 item 8 (CTC beam search) and item 4 (Whisper AR beam)",
-    "--beam-size": "queue 1 item 8 (CTC beam search) and item 4 (Whisper AR beam)",
-    "spec_greedy": "queue 1 item 7 (decode/speculative.py)",
-    "--lm-path": "queue 1 item 7 (decode/lm.py shallow fusion)",
-    "--lm-weight": "queue 1 item 7 (decode/lm.py shallow fusion)",
+    "beam": "queue 1 item 8 (CTC beam search)",
     "--profile": "queue 1 item 10 (utils/profiling.py)",
     "--multihost": "queue 1 item 9 (multi-GPU)",
 }
@@ -104,18 +102,32 @@ def _load_bundle(args):
     return bundle
 
 
+def _decode_config(bundle, strategy, beam_size, lm_path, lm_weight):
+    """The bundle's DecodeConfig with the command line's choices, or None
+    after refusing a CTC beam (exit 2 by the caller)."""
+    cfg = bundle.config.decode
+    strategy = strategy or cfg.strategy
+    if bundle.config.model_family == "ctc" and strategy not in GREEDY:
+        return None
+    return dataclasses.replace(
+        cfg, strategy=strategy, beam_size=cfg.beam_size if beam_size is None else beam_size,
+        lm_path=lm_path or cfg.lm_path, lm_weight=cfg.lm_weight if lm_weight is None else lm_weight)
+
+
 def cmd_transcribe(args) -> int:
-    rc = refuse_flags(args, "--profile", "--beam-size")
+    rc = refuse_flags(args, "--profile")
     if rc is not None:
         return rc
-    if args.strategy and args.strategy not in GREEDY:
-        return refuse("spec_greedy" if args.strategy == "spec_greedy" else "beam")
     from .api import transcribe
     from .utils.captions import format_srt, format_vtt, group_cues, group_words
 
     bundle = _load_bundle(args)
     if bundle is None:
         return 2
+    decode_cfg = _decode_config(bundle, args.strategy, args.beam_size, args.lm_path,
+                                args.lm_weight)
+    if decode_cfg is None:
+        return refuse("beam")
     if args.stream:
         return _transcribe_streaming(bundle, args)
     if args.caption:
@@ -134,9 +146,6 @@ def cmd_transcribe(args) -> int:
             print(json.dumps({"audio": path, "text": "".join(t["token"] for t in toks),
                               "tokens": toks, "words": group_words(toks)}, ensure_ascii=False))
         return 0
-    decode_cfg = bundle.config.decode
-    if args.strategy:
-        decode_cfg = dataclasses.replace(decode_cfg, strategy=args.strategy)
     for path, text in zip(args.audio, transcribe(bundle, args.audio, decode_cfg=decode_cfg)):
         print(json.dumps({"audio": path, "text": text}, ensure_ascii=False))
     return 0
@@ -213,18 +222,15 @@ def cmd_serve(args) -> int:
 
 
 def cmd_evaluate(args) -> int:
-    if args.decode not in GREEDY:
-        return refuse("beam")
-    rc = refuse_flags(args, "--beam-size", "--lm-path", "--lm-weight")
-    if rc is not None:
-        return rc
     from .data.manifest import read_manifest
     from .evals.metrics import cer, corpus_cer, corpus_wer, wer
 
     bundle = _load_bundle(args)
     if bundle is None:
         return 2
-    decode_cfg = dataclasses.replace(bundle.config.decode, strategy=args.decode)
+    decode_cfg = _decode_config(bundle, args.decode, args.beam_size, args.lm_path, args.lm_weight)
+    if decode_cfg is None:
+        return refuse("beam")
     rows = read_manifest(args.manifest).rows
     refs, hyps = [], []
     for i in range(0, len(rows), args.batch_size):
@@ -286,6 +292,30 @@ def cmd_prepare(args) -> int:
     return 0
 
 
+def cmd_train_lm(args) -> int:
+    """A char n-gram LM over manifest transcripts for shallow fusion
+    (decode/lm.py), its tokenizer from --checkpoint (the acoustic model's
+    vocabulary) or built from the manifests."""
+    from .data.manifest import read_manifest
+    from .data.tokenizer import CharTokenizer
+    from .decode.lm import NGramCharLM
+
+    texts = []
+    for m in args.manifest:
+        texts.extend(read_manifest(m).texts())
+    if args.checkpoint:
+        from .models.bundle import load_tokenizer
+
+        tokenizer = load_tokenizer(Path(args.checkpoint))
+    else:
+        tokenizer = CharTokenizer.build(texts)
+    lm = NGramCharLM.train_from_texts(texts, tokenizer, order=args.order)
+    lm.save(args.output)
+    print(json.dumps({"lm": args.output, "order": args.order, "vocab": lm.vocab_size,
+                      "ngrams": len(lm.counts), "texts": len(texts)}))
+    return 0
+
+
 def cmd_import_whisper(args) -> int:
     from .models.whisper_import import import_hf_checkpoint
 
@@ -305,6 +335,8 @@ def _device(p) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from .utils.config import STRATEGIES
+
     p = argparse.ArgumentParser(prog="jiao_liao_speech_recognition_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -322,10 +354,13 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--checkpoint")
     pr.add_argument("--config")
     pr.add_argument("--profile", metavar="LOGDIR", help="(not ported)")
-    pr.add_argument("--strategy",
-                    choices=["greedy", "beam", "beam_device", "ctc_greedy", "spec_greedy"],
-                    help="decode strategy override (greedy and ctc_greedy are ported)")
-    pr.add_argument("--beam-size", type=int, help="(not ported)")
+    pr.add_argument("--strategy", choices=STRATEGIES,
+                    help="decode strategy override (default: the bundle's config; a CTC "
+                    "bundle's beam is not ported)")
+    pr.add_argument("--beam-size", type=int, default=None)
+    pr.add_argument("--lm-path", default="",
+                    help="n-gram LM .npz for the AR beam's shallow fusion (whisper)")
+    pr.add_argument("--lm-weight", type=float, default=None)
     pr.add_argument("--int8", action="store_true",
                     help="int8-quantize the decoder weights before serving (whisper)")
     pr.add_argument("--timestamps", action="store_true",
@@ -334,7 +369,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write a subtitle sidecar file next to each audio file")
     pr.add_argument("--stream", action="store_true",
                     help="simulate live streaming: sliding-window greedy CTC with partial "
-                    "results a hop (serve/streaming.py; ctc family)")
+                    "results a hop (serve/streaming.py; ctc family, joint's CTC branch)")
     pr.add_argument("--stream-window", type=float, default=10.0,
                     help="streaming window seconds (default 10)")
     pr.add_argument("--stream-hop", type=float, default=0.4,
@@ -351,9 +386,9 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--batch-size", type=int, default=16)
     pe.add_argument("--decode", default="greedy",
                     choices=["greedy", "beam", "beam_device", "ctc_greedy"])
-    pe.add_argument("--beam-size", type=int, help="(not ported)")
-    pe.add_argument("--lm-path", default="", help="(not ported)")
-    pe.add_argument("--lm-weight", type=float, default=None, help="(not ported)")
+    pe.add_argument("--beam-size", type=int, default=8)
+    pe.add_argument("--lm-path", default="", help="n-gram LM .npz for shallow fusion")
+    pe.add_argument("--lm-weight", type=float, default=None)
     pe.add_argument("--int8", action="store_true",
                     help="evaluate the int8-quantized serving bundle (whisper)")
     pe.add_argument("--per-utt", metavar="OUT.jsonl",
@@ -377,6 +412,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-token and word spans in each result (alignment at harvest)")
     _device(ps)
     ps.set_defaults(fn=cmd_serve)
+
+    pl = sub.add_parser("train-lm", help="char n-gram LM over manifests (fusion)")
+    pl.add_argument("manifest", nargs="+")
+    pl.add_argument("--output", required=True)
+    pl.add_argument("--order", type=int, default=3)
+    pl.add_argument("--checkpoint", help="take the tokenizer from this bundle")
+    pl.set_defaults(fn=cmd_train_lm)
 
     pi = sub.add_parser("import-whisper",
                         help="HF Whisper checkpoint dir (safetensors) -> bundle checkpoint")

@@ -1,5 +1,6 @@
 """ModelBundle: config + model + tokenizer, the object behind ``api.load()``
-(the ctc and whisper branches of the JAX package's ``models/bundle.py``).
+(the JAX package's ``models/bundle.py``: the ctc, whisper and joint
+families).
 
 CTC greedy transcription: 30 s chunks on the host -> log-mel (K1) -> encoder
 (K2, K3 per block; K7 for a WF-adapted model; K6 in an Att adapter) ->
@@ -12,6 +13,17 @@ argmax -> text (byte-level BPE from merges.txt when the checkpoint has it).
 ``quantize()`` gives the int8 serving bundle: the same encoder, a decoder
 of int8 Dense layers (K10, 8 a block a step), int8 cross caches (K9's int8
 half), int8 self caches at batch >= 16, and int8 tied logits (K11, f32).
+Whisper's beam (``decode.beam_size`` > 1) adds the bigram LM's shallow
+fusion when ``decode.lm_path`` names one with ``lm_weight`` > 0.
+
+Joint CTC/attention transcription: 30 s chunks -> log-mel (K1) -> encoder
+(K7 a block with the config's WF inserts, else K2 and K3) -> by
+``decode.strategy``: ``ctc_greedy`` the CTC head's ids (K4) collapsed;
+``greedy`` the attention decoder's AR loop (K9 twice a block a step);
+``beam`` / ``beam_device`` the AR beam with CTC rescoring
+(decode/joint_generate.py); ``spec_greedy`` the CTC draft verified by
+teacher-forced passes (decode/speculative.py; K7-mlp at 64 positions).
+Timestamps take the CTC frame alignment.
 
 ``save`` writes the directory ``load`` reads: params.npz (``p_a/b/c``),
 config.yaml, vocab.json.
@@ -31,8 +43,10 @@ import torch
 from ..data.tokenizer import CharTokenizer
 from ..decode.ctc import ctc_collapse_with_times, ctc_greedy_collapse, ids_to_texts
 from ..frontend import audio_io, features
-from ..utils.config import DecodeConfig, ExperimentConfig, load_yaml, save_yaml
+from ..utils.config import STRATEGIES, DecodeConfig, ExperimentConfig, load_yaml, save_yaml
 from .convert import (
+    joint_params_to_state_dict,
+    joint_state_dict_to_params,
     params_to_state_dict,
     read_npz_params,
     state_dict_to_params,
@@ -41,6 +55,7 @@ from .convert import (
     write_npz_params,
 )
 from .ctc_model import CTCEncoderModel
+from .joint import JointCTCAttentionModel
 from .layers import cast_for_serving, quantized_copy
 from .whisper import WhisperModel
 
@@ -58,10 +73,22 @@ def _load_vocab(path: Path) -> CharTokenizer:
     return CharTokenizer(obj["vocab"])
 
 
+def load_tokenizer(ckpt: Path):
+    """A checkpoint directory's tokenizer: ByteLevelBPE when it holds
+    merges.txt, else its char vocab.json, else blank and unk only."""
+    if ckpt.is_dir() and (ckpt / "merges.txt").exists():
+        from ..data.bpe import ByteLevelBPE
+
+        return ByteLevelBPE.from_hf_dir(ckpt)
+    if ckpt.is_dir() and (ckpt / "vocab.json").exists():
+        return _load_vocab(ckpt / "vocab.json")
+    return CharTokenizer([])
+
+
 @dataclass
 class ModelBundle:
     config: ExperimentConfig
-    model: Union[CTCEncoderModel, WhisperModel]
+    model: Union[CTCEncoderModel, WhisperModel, JointCTCAttentionModel]
     tokenizer: object  # CharTokenizer, or ByteLevelBPE for Whisper checkpoints
 
     @property
@@ -80,7 +107,8 @@ class ModelBundle:
         params.npz (+ config.yaml, merges.txt + vocab.json for a BPE
         tokenizer, or a char vocab.json) or an .npz file with an explicit
         config. Without those files the tokenizer knows only blank and
-        unk. A Whisper model is made and initialised on `device`."""
+        unk. A Whisper model is made and initialised on `device`, a CTC or
+        joint model on the CPU, then moved."""
         if isinstance(config, str):
             config = load_yaml(config)
         ckpt = Path(checkpoint) if checkpoint is not None else None
@@ -99,32 +127,33 @@ class ModelBundle:
         elif config.model_family == "ctc":
             model = CTCEncoderModel(config.ctc_model, device="cpu")
             to_state = params_to_state_dict
+        elif config.model_family == "joint":
+            if config.frontend.num_mels != config.joint.num_mels:
+                raise ValueError(f"frontend.num_mels {config.frontend.num_mels} != "
+                                 f"joint.num_mels {config.joint.num_mels}")
+            model = JointCTCAttentionModel(config.joint, device="cpu")
+            to_state = joint_params_to_state_dict
         else:
-            raise NotImplementedError(
-                f"model family {config.model_family!r}: the port has the ctc and whisper "
-                "families; joint comes with a later slice"
-            )
+            raise ValueError(f"unknown model family {config.model_family!r}")
         tokenizer = CharTokenizer([])
         if ckpt is not None:
             npz = ckpt / PARAMS_FILE if ckpt.is_dir() else ckpt
             model.load_state_dict(to_state(read_npz_params(npz)))
-            if ckpt.is_dir() and (ckpt / "merges.txt").exists():
-                from ..data.bpe import ByteLevelBPE
-
-                tokenizer = ByteLevelBPE.from_hf_dir(ckpt)
-            elif ckpt.is_dir() and (ckpt / "vocab.json").exists():
-                tokenizer = _load_vocab(ckpt / "vocab.json")
+            tokenizer = load_tokenizer(ckpt)
         model.to(device).eval()
         # bf16 copies of every Dense kernel and bias (K2's packed q/k/v and
         # its out-projection, K3's fc1 and fc2) and of K4's head, made once
-        if (config.whisper.dtype if config.model_family == "whisper"
-                else config.ctc_model.dtype) == "bfloat16":
+        if model.cfg.dtype == "bfloat16":
             cast_for_serving(model, torch.bfloat16)
         return cls(config, model, tokenizer)
 
     @property
     def is_whisper(self) -> bool:
         return self.config.model_family == "whisper"
+
+    @property
+    def is_joint(self) -> bool:
+        return self.config.model_family == "joint"
 
     def save(self, path: str) -> None:
         """Write params.npz, config.yaml and vocab.json into `path`."""
@@ -133,7 +162,9 @@ class ModelBundle:
         save_yaml(self.config, str(p / "config.yaml"))
         if hasattr(self.tokenizer, "save"):
             self.tokenizer.save(p / "vocab.json")
-        to_params = whisper_state_dict_to_params if self.is_whisper else state_dict_to_params
+        to_params = {"whisper": whisper_state_dict_to_params,
+                     "joint": joint_state_dict_to_params}.get(self.config.model_family,
+                                                              state_dict_to_params)
         write_npz_params(to_params(self.model.state_dict()), p / PARAMS_FILE)
 
     def quantize(self) -> "ModelBundle":
@@ -159,22 +190,27 @@ class ModelBundle:
         sample_rate: Optional[int] = None,
         decode_cfg: Optional[DecodeConfig] = None,
     ) -> List[str]:
-        """Audio -> text (greedy). Recordings longer than chunk_seconds are
-        split into consecutive chunks, decoded in one batch and re-joined."""
+        """Audio -> text by ``decode_cfg.strategy`` (the config's when None).
+        Recordings longer than chunk_seconds are split into consecutive
+        chunks, decoded in one batch and re-joined."""
         decode_cfg = decode_cfg or self.config.decode
-        if self.is_whisper:
-            wavs, alens, owners = self._prepare_audio_chunked(audio, sample_rate)
-            ids, lens = self._whisper_ids(wavs, decode_cfg)
-            texts = ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(), self.tokenizer)
-            return ["".join(texts[i] for i in group) for group in owners]
-        if decode_cfg.strategy not in ("greedy", "ctc_greedy"):
+        family = self.config.model_family
+        if family == "ctc" and decode_cfg.strategy in ("beam", "beam_device"):
             raise NotImplementedError(
-                f"decode strategy {decode_cfg.strategy!r}: beam search comes with "
-                "the beam-search slice"
-            )
+                f"ctc decode strategy {decode_cfg.strategy!r}: CTC beam search is not ported "
+                "yet: ROADMAP queue 1 item 8 (decode/ctc.py)")
+        if family == "ctc" and decode_cfg.strategy not in ("greedy", "ctc_greedy"):
+            raise ValueError(f"unknown ctc decode strategy {decode_cfg.strategy!r}")
+        if self.is_joint and decode_cfg.strategy not in STRATEGIES:
+            raise ValueError(f"unknown joint decode strategy {decode_cfg.strategy!r}")
         wavs, alens, owners = self._prepare_audio_chunked(audio, sample_rate)
-        ids, lens = self._frame_ids(wavs, alens)
-        ids, lens = ctc_greedy_collapse(ids, lens, decode_cfg.ctc_blank_id)
+        if self.is_whisper:
+            ids, lens = self._whisper_ids(wavs, decode_cfg)
+        elif self.is_joint and decode_cfg.strategy != "ctc_greedy":
+            ids, lens = self._joint_ids(wavs, alens, decode_cfg)
+        else:
+            ids, lens = self._frame_ids(wavs, alens)
+            ids, lens = ctc_greedy_collapse(ids, lens, decode_cfg.ctc_blank_id)
         texts = ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(), self.tokenizer)
         return ["".join(texts[i] for i in group) for group in owners]
 
@@ -186,12 +222,12 @@ class ModelBundle:
         """Greedy transcription with per-token times: per utterance a list
         of {"token", "start", "end"} (seconds) whose tokens concatenate to
         transcribe()'s text. Chunk k's times are offset by k * chunk_seconds.
-        CTC: the frame alignment of the greedy path; Whisper: cross-attention
-        DTW over one teacher-forced pass (decode/align.py)."""
+        CTC and joint: the frame alignment of the CTC greedy path; Whisper:
+        cross-attention DTW over one teacher-forced pass (decode/align.py)."""
         if self.is_whisper:
             return self._transcribe_timed_whisper(audio, sample_rate)
         fe = self.config.frontend
-        frame_s = fe.hop_length * self.config.ctc_model.subsample_factor / fe.sample_rate
+        frame_s = fe.hop_length * self.model.cfg.subsample_factor / fe.sample_rate
         blank = self.config.decode.ctc_blank_id
         wavs, alens, owners = self._prepare_audio_chunked(audio, sample_rate)
         ids, lens = self._frame_ids(wavs, alens)
@@ -252,15 +288,36 @@ class ModelBundle:
         wav = torch.from_numpy(wavs).to(self.device)
         return generate(self, features.featurize_batch(wav, self.config.frontend), decode_cfg)
 
-    @torch.inference_mode()
-    def _frame_ids(self, wavs: np.ndarray, alens: np.ndarray):
-        """Padded chunks [N, samples] -> per-frame argmax ids [N, T'] and
-        valid encoder frames [N], on the model's device."""
+    def _features(self, wavs: np.ndarray, alens: np.ndarray):
+        """Padded chunks [N, samples] -> (log-mel [N, mels, T], valid mel
+        frames [N]) on the model's device."""
         fe = self.config.frontend
         wav = torch.from_numpy(wavs).to(self.device)
-        feats = features.featurize_batch(wav, fe)
-        flens = torch.from_numpy(alens // fe.hop_length).to(self.device)
-        return self.model(feats, flens, head_mode="argmax_ids")
+        return (features.featurize_batch(wav, fe),
+                torch.from_numpy(alens // fe.hop_length).to(self.device))
+
+    @torch.inference_mode()
+    def _frame_ids(self, wavs: np.ndarray, alens: np.ndarray):
+        """Padded chunks [N, samples] -> per-frame CTC argmax ids [N, T'] and
+        valid encoder frames [N], on the model's device (ctc and joint)."""
+        return self.model.frame_ids(*self._features(wavs, alens))
+
+    @torch.inference_mode()
+    def _joint_ids(self, wavs: np.ndarray, alens: np.ndarray, decode_cfg: DecodeConfig):
+        """Padded chunks -> the attention branch's ids [N, max_len - 1] and
+        lengths [N] by decode_cfg.strategy: greedy, beam / beam_device (CTC
+        rescoring at the config's ctc_weight) or spec_greedy."""
+        from ..decode.joint_generate import joint_beam, joint_greedy
+        from ..decode.speculative import joint_spec_greedy
+
+        feats, flens = self._features(wavs, alens)
+        L = decode_cfg.max_decode_len
+        if decode_cfg.strategy == "greedy":
+            return joint_greedy(self.model, feats, flens, max_len=L)
+        if decode_cfg.strategy == "spec_greedy":
+            return joint_spec_greedy(self.model, feats, flens, max_len=L)
+        return joint_beam(self.model, feats, flens, beam_size=decode_cfg.beam_size, max_len=L,
+                          length_penalty=decode_cfg.length_penalty)
 
     def _prepare_audio_chunked(self, audio, sample_rate):
         """-> (chunks [N, chunk_samples] f32, valid samples [N] i32,

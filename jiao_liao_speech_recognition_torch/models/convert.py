@@ -1,6 +1,8 @@
-"""Weight bridge between JAX/flax CTC and Whisper parameters and the port's
-``state_dict``, both ways (Whisper: ``whisper_params_to_state_dict`` and
-``whisper_state_dict_to_params``, at the end of this file).
+"""Weight bridge between JAX/flax CTC, Whisper and joint CTC/attention
+parameters and the port's ``state_dict``, both ways (Whisper:
+``whisper_params_to_state_dict`` and ``whisper_state_dict_to_params``;
+joint: ``joint_params_to_state_dict`` and ``joint_state_dict_to_params``,
+at the end of this file).
 
 Two inputs are read:
 
@@ -200,6 +202,74 @@ def whisper_state_dict_to_params(state: Mapping[str, torch.Tensor]) -> Dict:
         arr = _array(t.detach().cpu().to(torch.int8 if t.dtype == torch.int8 else torch.float32))
         path = whisper_flax_path(key, key.rsplit(".", 1)[0] in int8_layers)
         if path[-2] in WHISPER_CONVS and path[-1] == "kernel":
+            arr = arr.transpose(2, 1, 0)
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return params
+
+
+# --- joint CTC/attention -------------------------------------------------------
+# flax tree {subsample: {conv1, conv2}, enc_block_i, enc_ln, ctc_head,
+# embed_tokens, dec_block_i (+ cross_attn, cross_attn_ln), dec_ln}: the
+# attention projections and fc1/fc2 of every block under their WFDense's
+# "dense" level (the WF inserts beside it as adapter_wf); Conv kernels
+# [k, in, out]. The port's modules: enc_blocks.i / dec_blocks.i.
+
+JOINT_BLOCKS = {"enc_block_": "enc_blocks", "dec_block_": "dec_blocks"}
+
+
+def joint_torch_key(path: Tuple[str, ...]) -> str:
+    parts = []
+    for p in path:
+        if p == "dense":
+            continue
+        for flax, torch_name in JOINT_BLOCKS.items():
+            if p.startswith(flax):
+                parts += [torch_name, p[len(flax):]]
+                break
+        else:
+            parts.append(p)
+    if parts[0] == "subsample" and parts[-1] == "kernel":
+        parts[-1] = "weight"
+    return ".".join(parts)
+
+
+def joint_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX JointCTCAttentionModel param tree -> state_dict of f32 tensors
+    for the port's JointCTCAttentionModel."""
+    state = {}
+    for path, arr in flatten_params(params).items():
+        arr = np.array(arr, dtype=np.float32)
+        if path[0] == "subsample" and path[-1] == "kernel":
+            arr = arr.transpose(2, 1, 0)  # [k, in, out] -> [out, in, k]
+        state[joint_torch_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def joint_flax_path(key: str) -> Tuple[str, ...]:
+    """state_dict key -> flax param path (inverse of ``joint_torch_key``)."""
+    parts = key.split(".")
+    names = {v: k for k, v in JOINT_BLOCKS.items()}
+    if parts[0] in names:
+        parts = [names[parts[0]] + parts[1]] + parts[2:]
+        if len(parts) >= 4 and parts[1] in ("self_attn", "cross_attn", "mlp") \
+                and parts[2] in WF_DENSE and parts[3] in ("kernel", "bias"):
+            parts = parts[:3] + ["dense"] + parts[3:]
+    if parts[0] == "subsample" and parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return tuple(parts)
+
+
+def joint_state_dict_to_params(state: Mapping[str, torch.Tensor]) -> Dict:
+    """Port JointCTCAttentionModel state_dict -> nested flax param dict of
+    f32 numpy arrays."""
+    params: Dict = {}
+    for key, t in state.items():
+        arr = t.detach().cpu().float().numpy()
+        path = joint_flax_path(key)
+        if path[0] == "subsample" and path[-1] == "kernel":
             arr = arr.transpose(2, 1, 0)
         node = params
         for p in path[:-1]:

@@ -145,45 +145,63 @@ class CTCEncoderModel(nn.Module):
         dropout_seed: Optional[int] = None,  # needed in training when dropout > 0
     ):
         cfg = self.cfg
-        dt = DTYPES[cfg.dtype]
-        B, _, T = features.shape
-        if T > cfg.max_frames:
-            raise ValueError(
-                f"input has {T} frames > max_frames={cfg.max_frames}; raise "
-                "CTCModelConfig.max_frames or chunk the audio"
-            )
         if head_mode not in ("log_probs", "argmax_ids"):
             raise ValueError(f"unknown head_mode {head_mode!r}")
-        if feature_lengths is None:
-            feature_lengths = torch.full((B,), T, dtype=torch.int32)
-        out_lengths = feature_lengths.to(features.device, torch.int32)
-        f = cfg.subsample_factor
-        while f > 1:  # ceil-halving through the stride-2 convs (pad 1)
-            out_lengths = (out_lengths + 1) // 2
-            f //= 2
-
-        x = self.subsample(features.to(dt))
-        if cfg.position_mode == "sinusoidal":
-            x = x + sinusoidal_positions(x.shape[1], cfg.d_model, dt, str(x.device))[None]
         for m in self._dropouts:
             m.seed = dropout_seed
-        if self.dropout is not None:
-            x = self.dropout(x)
-        L, R = cfg.attention_left_context, cfg.attention_right_context
-        if L >= 0 or R >= 0:
-            # streaming-matched band: every block gets the [B, 1, T', T']
-            # mask and no lengths (the band carries what lengths cannot), so
-            # attention takes the module path; K3 still serves the MLP
-            attn_lens, mask = None, banded_length_mask(out_lengths, x.shape[1], L, R)
-        else:
-            attn_lens, mask = out_lengths, None
         remat = cfg.remat and self.training and torch.is_grad_enabled()
-        for block in self.blocks:
-            if remat:
-                x = checkpoint(block, x, attn_lens, kernels, mask, use_reentrant=False)
-            else:
-                x = block(x, attn_lens, kernels, mask)
+        x, out_lengths = encoder_trunk(cfg, self.subsample, self.blocks, features,
+                                       feature_lengths, kernels, self.dropout, remat)
         x = self.final_ln(x)
         if head_mode == "argmax_ids":
             return self.ctc_head.argmax_ids(x, kernels), out_lengths
         return torch.log_softmax(self.ctc_head(x), dim=-1), out_lengths
+
+    def frame_ids(self, features: torch.Tensor, feature_lengths: Optional[torch.Tensor] = None,
+                  kernels: bool = True):
+        """-> (per-frame greedy ids [B, T'] int32, valid frames [B]): what
+        greedy decoding, timestamps and streaming read (K4 on the card)."""
+        return self(features, feature_lengths, head_mode="argmax_ids", kernels=kernels)
+
+
+def encoder_trunk(cfg, subsample: ConvSubsampler, blocks, features: torch.Tensor,
+                  feature_lengths: Optional[torch.Tensor], kernels: bool,
+                  dropout: Optional[nn.Module] = None, remat: bool = False):
+    """The conv-subsampled transformer trunk the CTC and joint encoders
+    share: features [B, num_mels, T] -> (x [B, T', d] before the final LN,
+    valid frames [B] int32). Positions per ``cfg.position_mode``;
+    ``cfg.attention_left_context`` / ``_right_context`` >= 0 give every
+    block the banded mask and no lengths."""
+    dt = DTYPES[cfg.dtype]
+    B, _, T = features.shape
+    if T > cfg.max_frames:
+        raise ValueError(
+            f"input has {T} frames > max_frames={cfg.max_frames}; raise "
+            f"{type(cfg).__name__}.max_frames or chunk the audio"
+        )
+    if feature_lengths is None:
+        feature_lengths = torch.full((B,), T, dtype=torch.int32)
+    out_lengths = feature_lengths.to(features.device, torch.int32)
+    f = cfg.subsample_factor
+    while f > 1:  # ceil-halving through the stride-2 convs (pad 1)
+        out_lengths = (out_lengths + 1) // 2
+        f //= 2
+    x = subsample(features.to(dt))
+    if cfg.position_mode == "sinusoidal":
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, dt, str(x.device))[None]
+    if dropout is not None:
+        x = dropout(x)
+    L, R = cfg.attention_left_context, cfg.attention_right_context
+    if L >= 0 or R >= 0:
+        # streaming-matched band: every block gets the [B, 1, T', T']
+        # mask and no lengths (the band carries what lengths cannot), so
+        # attention takes the module path; K3 still serves the MLP
+        attn_lens, mask = None, banded_length_mask(out_lengths, x.shape[1], L, R)
+    else:
+        attn_lens, mask = out_lengths, None
+    for block in blocks:
+        if remat:
+            x = checkpoint(block, x, attn_lens, kernels, mask, use_reentrant=False)
+        else:
+            x = block(x, attn_lens, kernels, mask)
+    return x, out_lengths

@@ -179,98 +179,133 @@ class WhisperDecoder(nn.Module):
                 enc_lengths: Optional[torch.Tensor] = None, kernels: bool = True):
         """Teacher-forced: tokens [B, S], enc [B, T, d] -> logits [B, S, V]."""
         dt = DTYPES[self.cfg.dtype]
-        S = tokens.shape[1]
-        x = self.embed_tokens(tokens, dt) + self.embed_positions[:S].to(dt)[None]
-        causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))[None, None]
-        enc_mask = length_mask(enc_lengths, enc.shape[1]) if enc_lengths is not None else None
-        for block in self.blocks:
-            x = block(x, None, kernels, mask=causal, enc=enc, enc_mask=enc_mask,
-                      enc_kv_lengths=enc_lengths)
-        return self.embed_tokens.attend(self.ln(x), dt, kernels)
+        x = self.embed_tokens(tokens, dt) + self.embed_positions[:tokens.shape[1]].to(dt)[None]
+        return teacher_forced(self.blocks, self.ln, self.embed_tokens, x, enc, enc_lengths,
+                              kernels, dt)
 
     def init_cache(self, batch: int, enc: torch.Tensor, max_len: Optional[int] = None,
-                   layout: Optional[str] = None) -> Dict:
-        """Per-block caches: zeroed self K/V and the cross K/V projected once
-        from the encoder output. Head-major [B, H, T, dh] (horizons padded to
-        a multiple of 128, so K9 reads them as they are) on a CUDA device or
-        at batch >= HEAD_MAJOR_MIN_BATCH; packed [B, T, d] otherwise, or when
-        `layout` says so ("packed" | "head_major"). A quantized decoder
-        stores its cross caches int8 head-major at every batch, with f32
-        per-position scales ``k_scale``/``v_scale`` (0 in the padding), and
-        its self caches so where the JAX package does: at batch >=
-        HEAD_MAJOR_MIN_BATCH, or with layout="head_major"."""
-        cfg = self.cfg
-        dt = DTYPES[cfg.dtype]
-        t_cache = cfg.max_target_positions
+                   layout: Optional[str] = None, beams: int = 1) -> Dict:
+        """``decoder_caches`` over max_target_positions, capped at max_len."""
+        t_cache = self.cfg.max_target_positions
         if max_len is not None:
             t_cache = min(max_len, t_cache)
-        H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
-        if layout is None:
-            jax_head_major = batch >= HEAD_MAJOR_MIN_BATCH
-            head_major = _on_card(enc) or jax_head_major
-        elif layout in ("packed", "head_major"):
-            head_major = jax_head_major = layout == "head_major"
-        else:
-            raise ValueError(f"unknown cache layout {layout!r}")
-        int8 = is_quantized(self)
-        int8_self = int8 and jax_head_major
-        caches = {}
-        for i, block in enumerate(self.blocks):
-            cross = block.precompute_cross(enc)
-            if head_major or int8:
-                t_enc = cross["k"].shape[1]
-                cross = {n: a.reshape(batch, t_enc, H, dh).transpose(1, 2)
-                         for n, a in cross.items()}
-                if int8:
-                    (kq, ks), (vq, vs) = quantize_kv(cross["k"]), quantize_kv(cross["v"])
-                    cross = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
-                cross = {n: pad_time_to_tk(a, 2).contiguous() for n, a in cross.items()}
-            if head_major:
-                shape = (batch, H, round_tk(t_cache), dh)
-            else:
-                shape = (batch, t_cache, cfg.d_model)
-            dev = enc.device
-            if int8_self:  # zero scales: unwritten rows read as 0, as the bf16 zeros
-                self_cache = {}
-                for n in ("k", "v"):
-                    self_cache[n] = torch.zeros(shape, dtype=torch.int8, device=dev)
-                    self_cache[f"{n}_scale"] = torch.zeros(shape[:-1], device=dev)
-            else:
-                self_cache = {n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}
-            caches[f"block_{i}"] = {"self": self_cache, "cross": cross}
-        return caches
+        return decoder_caches(self.blocks, self.cfg, batch, enc, t_cache, layout,
+                              is_quantized(self), beams)
 
     def decode_step(self, token: torch.Tensor, pos, enc: torch.Tensor, caches: Dict,
                     enc_lengths: Optional[torch.Tensor] = None, kernels: bool = True):
-        """One cached step: token [B, 1] -> (logits [B, V], caches), the
-        caches updated in place. `pos` is an int (every row in lockstep, the
-        offline loops) or a tensor on the model's device, [B] or 0-dim: each
-        row at its own position (the serving engine's lanes), so the
-        position embedding, the key mask, the kernels' lengths and the
-        self-cache row writes are per row. With a tensor `pos` the step
-        neither copies to the device nor reads back from it, so it can be
-        captured in a CUDA graph."""
+        """``decoder_step`` with the learned position embedding."""
         dt = DTYPES[self.cfg.dtype]
-        B = token.shape[0]
-        t_cache = caches["block_0"]["self"]["k"].shape[-2]
-        keys = torch.arange(t_cache, device=token.device)
-        if torch.is_tensor(pos):
-            pos = pos.reshape(-1).expand(B)
-            x = self.embed_tokens(token, dt) + self.embed_positions[pos].to(dt)[:, None]
-            kmask = (keys[None, :] <= pos[:, None])[:, None, None, :]
-            lens = (pos + 1).to(torch.int32)
+        return decoder_step(self.blocks, self.ln, self.embed_tokens,
+                            lambda p: self.embed_positions[p].to(dt), token, pos, enc, caches,
+                            enc_lengths, kernels, dt)
+
+
+def teacher_forced(blocks, ln, embed, x: torch.Tensor, enc: torch.Tensor,
+                   enc_lengths: Optional[torch.Tensor], kernels: bool, dt: torch.dtype):
+    """A decoder's teacher-forced pass over x [B, S, d] (tokens embedded,
+    positions added): causal self-attention, cross-attention over enc
+    [B, T, d] (its first enc_lengths frames when given), final LN, tied
+    logits [B, S, V] in `dt`."""
+    S = x.shape[1]
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))[None, None]
+    enc_mask = length_mask(enc_lengths, enc.shape[1]) if enc_lengths is not None else None
+    for block in blocks:
+        x = block(x, None, kernels, mask=causal, enc=enc, enc_mask=enc_mask,
+                  enc_kv_lengths=enc_lengths)
+    return embed.attend(ln(x), dt, kernels)
+
+
+def decoder_caches(blocks, cfg, batch: int, enc: torch.Tensor, t_cache: int,
+                   layout: Optional[str] = None, int8: bool = False, beams: int = 1) -> Dict:
+    """Per-block caches of a decoder whose blocks have cross-attention
+    (`cfg` gives num_heads, d_model and dtype): zeroed self K/V over
+    `t_cache` positions and the cross K/V projected once from the encoder
+    output. Head-major [B, H, T, dh] (horizons padded to a multiple of 128,
+    so K9 reads them as they are) on a CUDA device or at batch >=
+    HEAD_MAJOR_MIN_BATCH; packed [B, T, d] otherwise, or when `layout`
+    says so ("packed" | "head_major"). An int8 decoder (`int8`) stores its
+    cross caches int8 head-major at every batch, with f32 per-position
+    scales ``k_scale``/``v_scale`` (0 in the padding), and its self caches
+    so where the JAX package does: at batch >= HEAD_MAJOR_MIN_BATCH, or
+    with layout="head_major".
+
+    With ``beams`` = K > 1 the caches serve batch * K rows, row b * K + k
+    for beam k of utterance b, and every decision above is made at that
+    batch: the cross K/V are projected once from enc [batch, T, d] and
+    repeated K times, bit for bit init_cache over enc repeated K times."""
+    dt = DTYPES[cfg.dtype]
+    rows = batch * beams
+    H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    if layout is None:
+        jax_head_major = rows >= HEAD_MAJOR_MIN_BATCH
+        head_major = _on_card(enc) or jax_head_major
+    elif layout in ("packed", "head_major"):
+        head_major = jax_head_major = layout == "head_major"
+    else:
+        raise ValueError(f"unknown cache layout {layout!r}")
+    int8_self = int8 and jax_head_major
+    caches = {}
+    for i, block in enumerate(blocks):
+        cross = block.precompute_cross(enc)
+        if head_major or int8:
+            t_enc = cross["k"].shape[1]
+            cross = {n: a.reshape(batch, t_enc, H, dh).transpose(1, 2) for n, a in cross.items()}
+            if int8:
+                (kq, ks), (vq, vs) = quantize_kv(cross["k"]), quantize_kv(cross["v"])
+                cross = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+            cross = {n: pad_time_to_tk(a, 2).contiguous() for n, a in cross.items()}
+        if beams > 1:
+            cross = {n: a.repeat_interleave(beams, 0) for n, a in cross.items()}
+        if head_major:
+            shape = (rows, H, round_tk(t_cache), dh)
         else:
-            x = self.embed_tokens(token, dt) + self.embed_positions[pos].to(dt)[None, None]
-            kmask = (keys <= pos)[None, None, None, :]
-            lens = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
-        enc_mask = length_mask(enc_lengths, enc.shape[1]) if enc_lengths is not None else None
-        for i, block in enumerate(self.blocks):
-            c = caches[f"block_{i}"]
-            x, c["self"], c["cross"], _ = block(
-                x, lens, kernels, mask=kmask, enc=enc, enc_mask=enc_mask,
-                self_cache=c["self"], cross_cache=c["cross"], cache_index=pos,
-                enc_kv_lengths=enc_lengths)
-        return self.embed_tokens.attend(self.ln(x), dt, kernels)[:, 0], caches
+            shape = (rows, t_cache, cfg.d_model)
+        dev = enc.device
+        if int8_self:  # zero scales: unwritten rows read as 0, as the bf16 zeros
+            self_cache = {}
+            for n in ("k", "v"):
+                self_cache[n] = torch.zeros(shape, dtype=torch.int8, device=dev)
+                self_cache[f"{n}_scale"] = torch.zeros(shape[:-1], device=dev)
+        else:
+            self_cache = {n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}
+        caches[f"block_{i}"] = {"self": self_cache, "cross": cross}
+    return caches
+
+
+def decoder_step(blocks, ln, embed, position_rows, token: torch.Tensor, pos, enc: torch.Tensor,
+                 caches: Dict, enc_lengths: Optional[torch.Tensor], kernels: bool,
+                 dt: torch.dtype):
+    """One cached step: token [B, 1] -> (logits [B, V], caches), the caches
+    updated in place. ``position_rows(p)`` gives the position embedding in
+    `dt` of an int p ([d]) or of a [B] index tensor ([B, d]). `pos` is an
+    int (every row in lockstep, the offline loops) or a tensor on the
+    model's device, [B] or 0-dim: each row at its own position (the serving
+    engine's lanes), so the position embedding, the key mask, the kernels'
+    lengths and the self-cache row writes are per row. With a tensor `pos`
+    the step neither copies to the device nor reads back from it, so it can
+    be captured in a CUDA graph. The cross caches stand for `enc`, which is
+    read for its length only."""
+    B = token.shape[0]
+    t_cache = caches["block_0"]["self"]["k"].shape[-2]
+    keys = torch.arange(t_cache, device=token.device)
+    if torch.is_tensor(pos):
+        pos = pos.reshape(-1).expand(B)
+        x = embed(token, dt) + position_rows(pos)[:, None]
+        kmask = (keys[None, :] <= pos[:, None])[:, None, None, :]
+        lens = (pos + 1).to(torch.int32)
+    else:
+        x = embed(token, dt) + position_rows(pos)[None, None]
+        kmask = (keys <= pos)[None, None, None, :]
+        lens = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    enc_mask = length_mask(enc_lengths, enc.shape[1]) if enc_lengths is not None else None
+    for i, block in enumerate(blocks):
+        c = caches[f"block_{i}"]
+        x, c["self"], c["cross"], _ = block(
+            x, lens, kernels, mask=kmask, enc=enc, enc_mask=enc_mask,
+            self_cache=c["self"], cross_cache=c["cross"], cache_index=pos,
+            enc_kv_lengths=enc_lengths)
+    return embed.attend(ln(x), dt, kernels)[:, 0], caches
 
 
 class WhisperModel(nn.Module):
@@ -302,5 +337,5 @@ class WhisperModel(nn.Module):
         return self.decoder.decode_step(token, pos, enc, caches, enc_lengths, kernels)
 
     def init_cache(self, batch: int, enc, max_len: Optional[int] = None,
-                   layout: Optional[str] = None):
-        return self.decoder.init_cache(batch, enc, max_len, layout)
+                   layout: Optional[str] = None, beams: int = 1):
+        return self.decoder.init_cache(batch, enc, max_len, layout, beams)

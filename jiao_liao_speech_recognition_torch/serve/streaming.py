@@ -1,8 +1,8 @@
 """Streaming (online) CTC transcription over a sliding window, the PyTorch
 twin of the JAX package's ``serve/streaming.py``.
 
-The CTC family's low-latency serving surface (Whisper's is
-``serve/engine.py``). Every dispatch has one shape: featurize a W-second
+The CTC family's low-latency serving surface, and the joint CTC/attention
+family's through its CTC branch (Whisper's is ``serve/engine.py``). Every dispatch has one shape: featurize a W-second
 audio window (K1), run the encoder (K2 and K3 a block, or the module path
 of attention and K3 for a limited-context model) and take per-frame argmax
 ids from the head (K4), once a hop. The ragged, stateful work (the audio
@@ -83,14 +83,14 @@ class StreamingResult:
 
 def window_step(bundle):
     """-> step(wav [B, W] f32, mel frames [B] int32) -> (ids [B, T'] int32,
-    encoder frames [B]) as numpy: featurize (K1), then the encoder's
-    per-frame argmax ids (K4), on the bundle's device."""
+    encoder frames [B]) as numpy: featurize (K1), then the model's
+    per-frame CTC argmax ids (``frame_ids``; K4), on the bundle's device."""
     model, fe, dev = bundle.model, bundle.config.frontend, bundle.device
 
     @torch.no_grad()
     def step(wav: np.ndarray, nframes: np.ndarray):
         feats = features.featurize_batch(torch.from_numpy(wav).to(dev), fe)
-        ids, lens = model(feats, torch.from_numpy(nframes).to(dev), head_mode="argmax_ids")
+        ids, lens = model.frame_ids(feats, torch.from_numpy(nframes).to(dev))
         return ids.cpu().numpy(), lens.cpu().numpy()
 
     return step
@@ -105,8 +105,8 @@ class StreamingTranscriber:
             print(res.text + res.preview)
         final_text = st.finish().text
 
-    The ctc family; the joint family's CTC branch comes with that family
-    (ROADMAP queue 1 item 7), and Whisper is served by serve/engine.py.
+    The ctc family, and the joint family's CTC branch (its subsample factor
+    and max_frames); Whisper is served by serve/engine.py.
     ``_step`` is the window step (``window_step``); a test may swap it.
     """
 
@@ -117,17 +117,14 @@ class StreamingTranscriber:
         config = bundle.config
         fe = config.frontend
         family = config.model_family
-        if family == "joint":
-            raise NotImplementedError(
-                "streaming the joint family's CTC branch is not ported yet: ROADMAP queue 1 "
-                "item 7 (models/joint.py)")
-        if family != "ctc":
+        if family not in ("ctc", "joint"):
             raise ValueError(
                 f"streaming supports the ctc/joint families, not {family!r}; "
                 "whisper serving is serve/engine.py"
             )
-        sub = config.ctc_model.subsample_factor
-        max_frames = config.ctc_model.max_frames
+        model_cfg = config.ctc_model if family == "ctc" else config.joint
+        sub = model_cfg.subsample_factor
+        max_frames = model_cfg.max_frames
         self._align = fe.hop_length * sub  # samples an encoder frame
         self._hop_len = fe.hop_length
         sr = fe.sample_rate
@@ -437,7 +434,7 @@ class StreamingPool:
         circularly shifted left by `shift` (0 while a stream is younger
         than W, then the hop; one gather), the hop written at `write
         offset`, ring = where(advance, written, ring), then featurize and
-        the encoder's argmax ids, the host path's computation on the same
+        the model's per-frame CTC ids, the host path's computation on the same
         window values."""
         ring, W = self._ring, self._ring.shape[1]
         shift, woff, advance, nframes = self._ctrl
@@ -445,7 +442,7 @@ class StreamingPool:
         written = rolled.scatter(1, woff[:, None] + self._hop_cols[None, :], self._chunk)
         ring.copy_(torch.where(advance[:, None] > 0, written, ring))
         feats = features.featurize_batch(ring, self.bundle.config.frontend)
-        ids, lens = self.bundle.model(feats, nframes, head_mode="argmax_ids")
+        ids, lens = self.bundle.model.frame_ids(feats, nframes)
         return torch.cat([lens[:, None], ids], 1)
 
     @torch.no_grad()

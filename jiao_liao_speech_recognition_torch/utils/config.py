@@ -5,11 +5,11 @@ through their package ``__init__``), so the sections the ported slices read
 are restated here with the same field names and defaults:
 ``FrontendConfig``, ``SpecAugmentConfig``, ``AugmentConfig``,
 ``AdapterConfig``, ``CTCModelConfig``, ``DataConfig``, ``OptimizerConfig``,
-``TrainConfig``, ``DecodeConfig``, ``WhisperConfig`` (+ ``whisper_preset``)
-and ``DialectStage``. ``ExperimentConfig`` holds those sections plus
-``model_family`` and the multi-dialect ``stages`` schedule; the sections
-of later slices (joint, mesh) are ignored when a JAX-written
-``config.yaml`` is read. ``apply_overrides`` takes the CLI's
+``TrainConfig``, ``DecodeConfig``, ``WhisperConfig`` (+ ``whisper_preset``),
+``JointModelConfig`` and ``DialectStage``. ``ExperimentConfig`` holds those
+sections plus ``model_family`` and the multi-dialect ``stages`` schedule;
+the mesh section, which no ported module reads, is ignored when a
+JAX-written ``config.yaml`` is read. ``apply_overrides`` takes the CLI's
 ``key.subkey=value`` overrides.
 ``tests/test_torch_config.py`` pins every twin field, name and default, to
 ``jiao_liao_speech_recognition_tpu.utils.config``.
@@ -150,6 +150,37 @@ class WhisperConfig:
 
 
 @dataclass
+class JointModelConfig:
+    """Joint CTC/attention transformer (SpeechBrain's TransformerASR recipe
+    shape): a conv-subsampled encoder with a CTC head and an attention
+    decoder, trained on ctc_weight * CTC + (1 - ctc_weight) * CE."""
+
+    name: str = "joint_base"
+    vocab_size: int = 4336
+    d_model: int = 512
+    num_layers: int = 12
+    decoder_layers: int = 6
+    num_heads: int = 4
+    mlp_dim: int = 2048
+    conv_channels: int = 512
+    subsample_factor: int = 4
+    dropout: float = 0.1
+    num_mels: int = 80
+    max_frames: int = 3000
+    max_target_positions: int = 448
+    dtype: str = "bfloat16"
+    use_flash_attention: bool = True
+    flash_train_min_q: int = 512
+    remat: bool = False
+    gelu_form: str = "tanh"
+    attention_left_context: int = -1
+    attention_right_context: int = -1
+    position_mode: str = "sinusoidal"
+    ctc_weight: float = 0.3  # the hybrid weighting, and joint beam's CTC rescoring weight
+    adapter: AdapterConfig = field(default_factory=AdapterConfig)
+
+
+@dataclass
 class DataConfig:
     train_manifest: str = ""
     eval_manifest: str = ""
@@ -195,6 +226,12 @@ class TrainConfig:
     fast_dropout_rng: bool = True  # a TPU generator switch: ignored here
 
 
+# DecodeConfig.strategy's values: the joint family takes all five, Whisper
+# the first three, the ctc family greedy and ctc_greedy (its beam is not
+# ported)
+STRATEGIES = ("greedy", "beam", "beam_device", "ctc_greedy", "spec_greedy")
+
+
 @dataclass
 class DecodeConfig:
     strategy: str = "greedy"
@@ -228,6 +265,7 @@ class ExperimentConfig:
     augment: AugmentConfig = field(default_factory=AugmentConfig)
     ctc_model: CTCModelConfig = field(default_factory=CTCModelConfig)
     whisper: WhisperConfig = field(default_factory=WhisperConfig)
+    joint: JointModelConfig = field(default_factory=JointModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)

@@ -6,7 +6,11 @@ what the JAX CLI prints (the same JSON keys; the same manifests; features
 and CMVN stats within their bars), transcribe's and serve's texts are
 ``api.transcribe``'s, transcribe --stream prints the JAX CLI's lines one
 for one on its own random init (and raises its error on a Whisper bundle),
-and every subcommand or flag whose module is not ported exits 2."""
+the joint family's strategies, --timestamps and --stream print the JAX
+CLI's lines on one checkpoint both packages read, ``train-lm`` writes the
+JAX CLI's LM, --lm-path / --lm-weight reach a Whisper beam, a CTC
+bundle's beam exits 2, and every subcommand or flag whose module is not
+ported exits 2."""
 
 import io
 import json
@@ -220,23 +224,59 @@ def test_prepare_cmvn_matches_jax(env, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train-lm", "m.jsonl", "--output", "lm.npz"],
     ["train-unigram", "m.jsonl", "--output", "u.json"],
     ["export-whisper", "--checkpoint", "c", "--out", "o"], ["build-native"],
-    ["transcribe", "a.wav", "--strategy", "beam"],
-    ["transcribe", "a.wav", "--strategy", "spec_greedy"],
     ["transcribe", "a.wav", "--profile", "d"],
-    ["transcribe", "a.wav", "--beam-size", "4"],
-    ["evaluate", "--manifest", "m.jsonl", "--decode", "beam_device"],
-    ["evaluate", "--manifest", "m.jsonl", "--beam-size", "8"],
-    ["evaluate", "--manifest", "m.jsonl", "--lm-path", "lm.npz"],
-    ["evaluate", "--manifest", "m.jsonl", "--lm-weight", "0.3"],
     ["train", "--config", "c.yaml", "--profile", "d"],
     ["train", "--config", "c.yaml", "--multihost"],
 ])
 def test_unported_subcommands_and_flags_exit_2(argv, capsys):
     assert cli.main(argv) == 2
     assert "not ported yet: ROADMAP queue 1 item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["transcribe", "--strategy", "beam"],
+                                  ["transcribe", "--strategy", "beam_device", "--beam-size", "4"],
+                                  ["evaluate", "--decode", "beam"]])
+def test_ctc_beam_exits_2_naming_its_item(env, final, argv, capsys):
+    where = [str(env / "u0.wav")] if argv[0] == "transcribe" else \
+        ["--manifest", str(env / "jilu.jsonl")]
+    assert cli.main([argv[0], *where, *argv[1:], "--checkpoint", str(final),
+                     "--device", "cpu"]) == 2
+    assert "not ported yet: ROADMAP queue 1 item 8" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tokenizer", ["built", "checkpoint"])
+def test_train_lm_writes_the_jax_clis_lm(env, final, tokenizer, capsys):
+    """train-lm: the JAX CLI's JSON line and counts; each package's file
+    loads in the other's NGramCharLM."""
+    from jiao_liao_speech_recognition_tpu.decode.lm import NGramCharLM as JLM
+    from jiao_liao_speech_recognition_torch.decode.lm import NGramCharLM
+
+    extra = ["--checkpoint", str(final)] if tokenizer == "checkpoint" else []
+    manifests = [str(env / "jilu.jsonl"), str(env / "jiaoliao.jsonl")]
+    out = {}
+    for name, main in (("torch", cli.main), ("jax", jcli.main)):
+        if name == "jax" and extra:  # the JAX CLI reads the tokenizer through its own load
+            from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer as JTok
+
+            tok = JTok.load(final / "vocab.json")
+            texts = [t for m in manifests for t in read_manifest(m).texts()]
+            lm = JLM.train_from_texts(texts, tok, order=2)
+            lm.save(env / f"lm_{name}_{tokenizer}.npz")
+            out[name] = {"lm": str(env / f"lm_{name}_{tokenizer}.npz"), "order": 2,
+                         "vocab": lm.vocab_size, "ngrams": len(lm.counts), "texts": len(texts)}
+            continue
+        rc, lines = _run(main, ["train-lm", *manifests, "--output",
+                                str(env / f"lm_{name}_{tokenizer}.npz"), "--order", "2",
+                                *extra], capsys)
+        assert rc == 0
+        out[name] = json.loads(lines[-1])
+    assert {k: v for k, v in out["torch"].items() if k != "lm"} == \
+        {k: v for k, v in out["jax"].items() if k != "lm"}
+    assert out["torch"]["texts"] == 8 and out["torch"]["ngrams"] > 0
+    a, b = NGramCharLM.load(out["jax"]["lm"]), JLM.load(out["torch"]["lm"])
+    assert a.counts == b.counts and a.vocab_size == b.vocab_size
 
 
 @pytest.mark.parametrize("main", [cli.main, jcli.main], ids=["torch", "jax"])
@@ -375,3 +415,75 @@ def test_transcribe_stream_refuses_a_whisper_bundle(env, whisper):
     assert str(got.value) == str(want.value) == (
         "streaming supports the ctc/joint families, not 'whisper'; whisper serving is "
         "serve/engine.py")
+
+
+# --- the joint family ---------------------------------------------------------------
+
+JOINT = dict(vocab_size=32, d_model=32, num_layers=2, decoder_layers=2, num_heads=2, mlp_dim=64,
+             conv_channels=16, dropout=0.0, dtype="float32", use_flash_attention=False,
+             max_target_positions=32)
+
+
+@pytest.fixture(scope="module")
+def joint(env):
+    """One checkpoint directory both CLIs load: the JAX bundle's save
+    (orbax params/, config.yaml, vocab.json) of a seeded WF-adapted joint
+    model, plus the same weights as the port's params.npz."""
+    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer as JTok
+
+    cfg = jcfg.ExperimentConfig(model_family="joint", joint=jcfg.JointModelConfig(
+        adapter=jcfg.AdapterConfig(kind="wf", wf_rank=2), **JOINT))
+    cfg.frontend.chunk_seconds = 2.0
+    cfg.decode.max_decode_len = 10
+    cfg.decode.beam_size = 3
+    noise = np.random.RandomState(1)
+    params = jax.tree_util.tree_map(
+        lambda x: x + 0.05 * noise.randn(*x.shape).astype(np.float32), JBundle._init_params(cfg))
+    JBundle(config=cfg, params=params, tokenizer=JTok([chr(0x4E00 + i) for i in range(30)])
+            ).save(str(env / "joint"))
+    convert.write_npz_params(params, env / "joint" / "params.npz")
+    return env / "joint"
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--strategy", "greedy"], ["--strategy", "ctc_greedy"], ["--strategy", "spec_greedy"],
+    ["--strategy", "beam", "--beam-size", "2"], ["--timestamps"],
+    ["--stream", "--stream-window", "1.28", "--stream-hop", "0.32", "--stream-lookahead", "0.16"],
+])
+def test_joint_transcribe_prints_what_jax_prints(env, joint, flags, capsys):
+    """The config's beam (K 3, CTC rescoring), each strategy, timestamps and
+    the CTC branch streamed: line for line the JAX CLI's (f32, JAX at
+    HIGHEST) on the same checkpoint."""
+    wavs = [str(env / "u0.wav"), str(env / "u7.wav")]
+    rc, got = _run(cli.main, ["transcribe", *wavs, "--checkpoint", str(joint),
+                              "--device", "cpu", *flags], capsys)
+    assert rc == 0
+    with jax.default_matmul_precision("highest"):
+        rc, want = _run(jcli.main, ["transcribe", *wavs, "--checkpoint", str(joint), *flags],
+                        capsys)
+    assert rc == 0 and got == want
+    assert any(json.loads(line).get("text") for line in got)
+
+
+def test_transcribe_lm_flags_reach_a_whisper_beam(env, whisper, tmp_path, capsys):
+    """--strategy beam --beam-size --lm-path --lm-weight: the texts of the
+    bundle's transcribe with that DecodeConfig, which the LM changes."""
+    import dataclasses
+
+    from jiao_liao_speech_recognition_torch.decode.lm import NGramCharLM
+
+    NGramCharLM.train([[7, 8, 7, 8, 9], [7, 9, 9, 40]], 2, WHISPER["vocab_size"]).save(
+        tmp_path / "lm.npz")
+    wavs = [str(env / "u0.wav"), str(env / "u7.wav")]
+    bundle = api.load(str(whisper), device="cpu")
+    texts = {}
+    for w in ("0", "4"):
+        rc, out = _run(cli.main, ["transcribe", *wavs, "--checkpoint", str(whisper), "--device",
+                                  "cpu", "--strategy", "beam", "--beam-size", "2", "--lm-path",
+                                  str(tmp_path / "lm.npz"), "--lm-weight", w], capsys)
+        assert rc == 0
+        texts[w] = [json.loads(line)["text"] for line in out]
+        dc = dataclasses.replace(bundle.config.decode, strategy="beam", beam_size=2,
+                                 lm_path=str(tmp_path / "lm.npz"), lm_weight=float(w))
+        assert texts[w] == api.transcribe(bundle, wavs, decode_cfg=dc)
+    assert texts["0"] != texts["4"]

@@ -14,7 +14,7 @@ from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E40
 
 # ExperimentConfig sections the ported slices do not read; their twins come
 # with the slices that use them
-LATER_SECTIONS = {"joint", "mesh"}
+LATER_SECTIONS = {"mesh"}
 
 
 def _defaults(cls):
@@ -31,7 +31,7 @@ def _defaults(cls):
 @pytest.mark.parametrize(
     "name", ["FrontendConfig", "AdapterConfig", "CTCModelConfig", "DecodeConfig",
              "SpecAugmentConfig", "AugmentConfig", "DataConfig", "OptimizerConfig", "TrainConfig",
-             "WhisperConfig", "DialectStage"]
+             "WhisperConfig", "JointModelConfig", "DialectStage"]
 )
 def test_config_twin_matches_jax_dataclass(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
@@ -75,3 +75,17 @@ def test_jax_written_whisper_yaml_loads_into_the_twin(tmp_path):
                                   "mlp_dim", "num_mels", "vocab_size")} == \
         {"d_model": 1280, "encoder_layers": 32, "decoder_layers": 32, "num_heads": 20,
          "mlp_dim": 5120, "num_mels": 128, "vocab_size": 51866}
+
+
+def test_jax_written_joint_yaml_loads_into_the_twin(tmp_path):
+    yaml_path = Path(__file__).resolve().parents[1] / "configs" / "joint_ctc_attention.yaml"
+    cfg = jcfg.load_yaml(str(yaml_path))
+    jcfg.save_yaml(cfg, str(tmp_path / "config.yaml"))
+    for path in (yaml_path, tmp_path / "config.yaml"):
+        got = tcfg.load_yaml(str(path))
+        assert got.model_family == "joint"
+        assert dataclasses.asdict(got.joint) == dataclasses.asdict(cfg.joint)
+        assert dataclasses.asdict(got.decode) == dataclasses.asdict(cfg.decode)
+    assert cfg.joint.adapter.kind == "wf" and cfg.joint.adapter.wf_rank == 8
+    over = tcfg.apply_overrides(got, ["joint.ctc_weight=0.5", "joint.adapter.wf_rank=4"])
+    assert over.joint.ctc_weight == 0.5 and over.joint.adapter.wf_rank == 4

@@ -7,13 +7,17 @@ seed's JAX params (models/convert.params_to_state_dict):
   fake window step (four geometries); trailing silence; api.stream; pool
   equals single streams with the device ring on and off; the backlog
   drained by finish(); a reused ring row leaks nothing; the slot limit;
-  the validation messages; the joint family refused by name;
+  the validation messages;
 * port against JAX on the same audio (f32, JAX at HIGHEST precision):
   committed tokens, spans, text, preview, committed frames and
   trailing_silence after every feed, for StreamingTranscriber and for
   StreamingPool (ring on and off), and per-window log-probs within F32_BAR;
 * each ring row equals the window the host would build, and the ring's
-  buffers keep their addresses (a card replays a CUDA graph on them)."""
+  buffers keep their addresses (a card replays a CUDA graph on them);
+* the joint family's CTC branch (a WF-adapted joint model, f32): the
+  transcriber and the pool against JAX's after every feed or step, and
+  finish() over one window equal to the offline ctc_greedy text, the JAX
+  bundle's included."""
 
 import numpy as np
 import pytest
@@ -175,14 +179,6 @@ def test_trailing_silence_endpoint_signal(bf16):
     # 60 frames fed in hops of 8: 56 committed, 36 of them silent
     assert res.trailing_silence == pytest.approx(36 * ALIGN / SR, abs=1e-6)
     assert st.finish().trailing_silence == pytest.approx(40 * ALIGN / SR, abs=1e-6)
-
-
-def test_joint_family_is_refused_by_name(bf16):
-    """The JAX package streams the joint family's CTC branch; the port has
-    no joint model yet and says which ROADMAP item brings it."""
-    cfg = tcfg.ExperimentConfig(model_family="joint")
-    with pytest.raises(NotImplementedError, match="joint.*queue 1 item 7"):
-        StreamingTranscriber(ModelBundle(cfg, bf16.model, bf16.tokenizer))
 
 
 def test_api_stream_facade(bf16):
@@ -397,3 +393,84 @@ def test_ring_rows_are_the_host_windows_and_keep_their_addresses(f32):
     assert len(checked) > 10 and 3 in checked
     assert [t.data_ptr() for t in (pool._ring, pool._chunk, pool._ctrl)] == ptrs
     assert pool._graph is None and pool.replays == 0  # the CPU runs the step eagerly
+
+
+# --- the joint family's CTC branch ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def joint():
+    """(JAX bundle, port bundle) of a WF-adapted joint model on one seed's
+    JAX params (adapters moved off identity), f32, 2.56 s chunks."""
+    out = []
+    for m in (jcfg, tcfg):
+        cfg = m.ExperimentConfig(model_family="joint", joint=m.JointModelConfig(
+            vocab_size=8, d_model=32, num_layers=2, decoder_layers=1, num_heads=2, mlp_dim=64,
+            conv_channels=16, use_flash_attention=False, dropout=0.0, dtype="float32",
+            adapter=m.AdapterConfig(kind="wf", wf_rank=2)))
+        cfg.frontend.chunk_seconds = 2.56
+        out.append(cfg)
+    noise = np.random.RandomState(3)
+    params = jax.tree_util.tree_map(
+        lambda x: x + 0.05 * noise.randn(*x.shape).astype(np.float32),
+        JBundle._init_params(out[0]))
+    jb = JBundle(config=out[0], params=params, tokenizer=JChar(VOCAB))
+    tb = api.load(config=out[1], device="cpu")
+    tb.model.load_state_dict(convert.joint_params_to_state_dict(params))
+    tb.tokenizer = CharTokenizer(VOCAB)
+    return jb, tb
+
+
+@pytest.mark.parametrize("sc", [SLIDING, StreamingConfig(1.92, 0.32, 0.0)])
+def test_joint_transcriber_equals_jax_after_every_feed(joint, sc):
+    jb, tb = joint
+    audio = _audio(3.3, seed=14)
+    js = jstreaming.StreamingTranscriber(jb, jstreaming.StreamingConfig(
+        sc.window_seconds, sc.hop_seconds, sc.lookahead_seconds))
+    ts = StreamingTranscriber(tb, sc)
+    cuts = np.sort(np.random.RandomState(15).randint(1, len(audio), size=7))
+    with jax.default_matmul_precision("highest"):
+        for c in np.split(audio, cuts):
+            assert _state(ts, ts.feed(c)) == _state(js, js.feed(c))
+        assert _state(ts, ts.finish()) == _state(js, js.finish())
+    assert ts.timed_tokens == js.timed_tokens and ts._tokens
+
+
+@pytest.mark.parametrize("device_ring", [True, False])
+def test_joint_pool_equals_jax_pool_after_every_step(joint, device_ring):
+    jb, tb = joint
+    audios = [_audio(s, seed=30 + i) for i, s in enumerate([2.2, 0.7, 1.5])]
+    jpool = jstreaming.StreamingPool(jb, slots=4, stream_cfg=jstreaming.StreamingConfig(
+        1.28, 0.32, 0.16), device_ring=device_ring)
+    tpool = StreamingPool(tb, slots=4, stream_cfg=SLIDING, device_ring=device_ring)
+    states = []
+
+    def on_step(pool, results):
+        states.append({sid: (r.text, r.preview, r.committed_frames)
+                       for sid, r in results.items()})
+
+    with jax.default_matmul_precision("highest"):
+        want = _drive_pool(jpool, audios, on_step=on_step)
+        jax_states, states[:] = list(states), []
+        got = _drive_pool(tpool, audios, on_step=on_step)
+    assert got == want and any(want)
+    assert states == jax_states
+
+
+def test_joint_finish_matches_offline_ctc_greedy(joint):
+    """With the utterance inside one window, finish() is the offline
+    ctc_greedy text of the port's bundle and of the JAX bundle."""
+    import dataclasses
+
+    jb, tb = joint
+    audio = _audio(1.28, seed=16)
+    st = StreamingTranscriber(tb, StreamingConfig(2.56, 2.56, 0.0))
+    st.feed(audio)
+    got = st.finish().text
+    dc = dataclasses.replace(tb.config.decode, strategy="ctc_greedy")
+    with jax.default_matmul_precision("highest"):
+        want = jb.transcribe(audio, decode_cfg=dataclasses.replace(jb.config.decode,
+                                                                   strategy="ctc_greedy"))[0]
+    assert got == tb.transcribe(audio, decode_cfg=dc)[0] == want
+    assert [r.text for r in api.stream(tb, np.split(audio, 4),
+                                       StreamingConfig(2.56, 2.56, 0.0))][-1] == got

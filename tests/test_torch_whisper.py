@@ -320,9 +320,9 @@ def test_generate_strategies(jax_f32):
     mel = torch.from_numpy(_mel(1))
     ids, lens = twg.generate(bundle, mel, tcfg.DecodeConfig(max_decode_len=10))
     assert ids.shape == (1, 10 - len(PROMPT))
-    for strategy in ("beam", "beam_device"):
-        with pytest.raises(NotImplementedError, match="beam"):
-            twg.generate(bundle, mel, tcfg.DecodeConfig(strategy=strategy))
+    for strategy in ("beam", "beam_device"):  # the AR beam, capped at max_target_positions
+        ids, lens = twg.generate(bundle, mel, tcfg.DecodeConfig(strategy=strategy, beam_size=3))
+        assert ids.shape == (1, SMALL["max_target_positions"] - len(PROMPT))
     with pytest.raises(ValueError, match="unknown whisper decode"):
         twg.generate(bundle, mel, tcfg.DecodeConfig(strategy="banana"))
     assert twg.default_prompt(51866) == jwg.default_prompt(51866)
@@ -334,8 +334,8 @@ def test_generate_strategies(jax_f32):
 @pytest.mark.parametrize("beam_size", [1, 2])
 def test_generate_beam_of_one_is_greedy(jax_f32, strategy, beam_size):
     """A beam of one is greedy in both packages (the JAX generate dispatches
-    it so): the same tokens from the same weights and mel. A wider beam
-    still raises in the port."""
+    it so); a wider one is the AR beam in both: the same tokens from the
+    same weights and mel."""
     jm, params = jax_f32
     wcfg = dict(prompt_ids=PROMPT, eot_id=EOT, **SMALL)
     dcfg = dict(strategy=strategy, beam_size=beam_size, max_decode_len=12)
@@ -343,10 +343,6 @@ def test_generate_beam_of_one_is_greedy(jax_f32, strategy, beam_size):
         model_family="whisper", whisper=tcfg.WhisperConfig(dtype="float32", **wcfg)),
         "model": _port(params)})()
     mel = _mel(2, seed=14)
-    if beam_size > 1:
-        with pytest.raises(NotImplementedError, match="beam_size 2"):
-            twg.generate(bundle, torch.from_numpy(mel), tcfg.DecodeConfig(**dcfg))
-        return
     jbundle = type("B", (), {"config": jcfg.ExperimentConfig(
         model_family="whisper", whisper=jcfg.WhisperConfig(dtype="float32", **wcfg)),
         "params": params})()
@@ -355,6 +351,66 @@ def test_generate_beam_of_one_is_greedy(jax_f32, strategy, beam_size):
     got, got_len = twg.generate(bundle, torch.from_numpy(mel), tcfg.DecodeConfig(**dcfg))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    if beam_size == 1:
+        greedy, _ = twg.greedy_generate(bundle.model, torch.from_numpy(mel), 12, PROMPT, EOT)
+        assert torch.equal(got, greedy)
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+def test_beam_generate_matches_jax_in_both_layouts(jax_f32, monkeypatch, layout):
+    """Whisper's beam_generate: every beam of beam_from_enc (tokens,
+    lengths, scores) and the chosen one against JAX's, with suppression and
+    a length penalty, in both cache layouts (B * K = 6)."""
+    jm, params = jax_f32
+    monkeypatch.setattr(jlayers, "HEAD_MAJOR_MIN_BATCH", 1 if layout == "head_major" else 1 << 30)
+    mel = _mel(2, seed=15)
+    sup, bsup = (5, 11), (4,)
+    with jax.default_matmul_precision("highest"):
+        enc = jm.apply({"params": params}, jnp.asarray(mel), method=jm.encode)
+        want = jwg.beam_from_enc(jm, params, enc, None, beam_size=3, max_len=14, prompt=PROMPT,
+                                 eot_id=EOT, suppress_ids=sup, begin_suppress_ids=bsup)
+        best = jwg.beam_generate(jm, params, jnp.asarray(mel), beam_size=3, max_len=14,
+                                 length_penalty=0.6, prompt=PROMPT, eot_id=EOT,
+                                 suppress_ids=sup, begin_suppress_ids=bsup)
+    model = _port(params)
+    got = twg.beam_from_enc(model, torch.from_numpy(np.array(enc)), None, 3, 14, PROMPT, EOT,
+                            suppress_ids=sup, begin_suppress_ids=bsup, layout=layout)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-4, rtol=0)
+    got_best = twg.beam_generate(model, torch.from_numpy(mel), 3, 14, 0.6, PROMPT, EOT,
+                                 suppress_ids=sup, begin_suppress_ids=bsup, layout=layout)
+    for g, w in zip(got_best, best):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert not np.isin(got[0].numpy(), sup).any()
+
+
+def test_generate_beam_takes_the_lm_from_the_decode_config(jax_f32, tmp_path):
+    """decode.lm_path + lm_weight > 0 fuse the LM's bigram matrix into the
+    beam, as the JAX bundle's generate does; weight 0 is the plain beam."""
+    from jiao_liao_speech_recognition_tpu.decode.lm import NGramCharLM as JLM
+
+    jm, params = jax_f32
+    lm = JLM.train([[7, 8, 7, 8, 9], [7, 9, 9]], order=2, vocab_size=SMALL["vocab_size"])
+    lm.save(tmp_path / "lm.npz")
+    wcfg = dict(prompt_ids=PROMPT, eot_id=EOT, dtype="float32", **SMALL)
+    bundle = type("B", (), {"config": tcfg.ExperimentConfig(
+        model_family="whisper", whisper=tcfg.WhisperConfig(**wcfg)), "model": _port(params)})()
+    mel = _mel(2, seed=16)
+    outs = {}
+    for w in (0.0, 3.0):
+        dcfg = dict(strategy="beam", beam_size=2, max_decode_len=10,
+                    lm_path=str(tmp_path / "lm.npz"), lm_weight=w)
+        with jax.default_matmul_precision("highest"):
+            mat = jwg.load_bigram_matrix(str(tmp_path / "lm.npz"), SMALL["vocab_size"])
+            want = jwg.beam_generate(jm, params, jnp.asarray(mel), beam_size=2, max_len=10,
+                                     prompt=PROMPT, eot_id=EOT,
+                                     lm_bigram=mat if w else None, lm_weight=w)
+        got = twg.generate(bundle, torch.from_numpy(mel), tcfg.DecodeConfig(**dcfg))
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+        outs[w] = got[0]
+    assert not torch.equal(outs[0.0], outs[3.0])
 
 
 def test_encoder_k5_route_matches_k2_route(jax_f32, monkeypatch):
