@@ -85,7 +85,7 @@ non-zero and prints no result line):
               tokens teacher-forced through the plain decoder (the margin
               rule); then encoder seconds per B=16 x 30 s batch, decode ms
               per step (building the caches timed apart) and tokens/s at
-              B=16 (64 steps) on both paths, the kernel path's peak device
+              B=16 (32 steps) on both paths, the kernel path's peak device
               memory in one encoder call, main path 13: the AR beam (K=4,
               two chunks, 32 decode steps; exact K9 launches, a beam of one
               bitwise greedy, a second run naming an LM at lm_weight 0,
@@ -240,7 +240,40 @@ non-zero and prints no result line):
               StreamingPool(16), 8 s and 12 s a slot (the ring rolls;
               texts = the host pool's; 30 s windows fed whole = offline
               ctc_greedy), api.stream, and `cli
-              transcribe --strategy beam`.
+              transcribe --strategy beam`;
+15. ctc_beam - main paths 19 and 20, CTC prefix beam search at the
+              published widths of configs/ctc_batched_beam.yaml (12 x d512,
+              8 heads of 64, mlp 2048, V 4336; random init, seed 0): 128
+              seeded 30 s utterances (bench.py::bench_beam_rtfx's shape)
+              through bundle.transcribe with `beam` (the C++ engine,
+              native/beam.cpp built from the checkout, over the card's
+              top-16 posteriors) and `beam_device` (the fixed-width beam on
+              the card), exact launches (K1 1, K2 12, K3 12); the frame
+              argmax against the plain path (the margin rule);
+              ctc_topk_posteriors on the card bitwise the host's over the
+              same log-probs (f16 / int16 at k 16, f32 / int32 at k = V - 1);
+              the engine's ids at one thread and at the default; on 4 rows,
+              the device beam's and the engine's winners within 0.3 nats of
+              the host searcher's by the CTC likelihood, and the host
+              searcher with a seeded bigram LM fused at 0.5 moving its
+              winners toward the LM; the six requests through
+              bundle.transcribe and `cli transcribe --strategy beam |
+              beam_device` twice; then encoder + top-k ms a batch (both
+              paths), bytes to the host, the engine at prune 0 and -10, the
+              device beam's ms and launches, and the pipelined RTFx
+              (random init: not a ledger number);
+16. joint_train - main paths 21 and 22, `cli train` of
+              configs/joint_ctc_attention.yaml at its published widths (WF
+              rank 8, train_adapters_only, ctc_weight 0.3) on 16 seeded 30 s
+              WAVs, 3 steps: exact launches (K1 1, K6 12, K8 12 a step), the
+              three losses finite, the backbone bitwise, every WF B moved;
+              one step's loss, loss_ctc, loss_att and adapter gradients on
+              the kernel path against plain; K6 and K8 alone at the
+              encoder's shape (B 16, T' 750, 4 x 128, lengths 750 / 517 /
+              129 / 1) against plain, twice bitwise, timed beside bound and
+              SDPA, with ptxas's dh=128 report; the saved bundle through
+              api.load with ctc_greedy and greedy (exact launches); steps/s
+              in turns and the step's idle share.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
@@ -254,6 +287,7 @@ no CPU path: without CUDA the script exits non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -374,16 +408,21 @@ PATHS = {
     "joint_beam": ("K1", "K2", "K3", "K7-attn", "K7-mlp", "K9"),
     "joint_spec": ("K1", "K2", "K3", "K4", "K6", "K7-attn", "K7-mlp"),
     "joint_stream": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
+    "ctc_beam": ("K1", "K2", "K3"),
+    "ctc_beam_device": ("K1", "K2", "K3"),
+    "joint_train": ("K1", "K6", "K8"),
+    "joint_trained_ctc_greedy": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
+    "joint_trained_greedy": ("K1", "K2", "K3", "K7-attn", "K7-mlp", "K9"),
 }
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
 WHISPER_B, WHISPER_T = 16, 1500  # a batch of 30 s chunks, encoder positions
 WHISPER_MAX_LEN = 224
-# decode steps of the timed greedy runs at B=16 (phases 8 and 9) and of the
-# engine's static waves (phase 12): a step's cost barely moves with the
-# position (the self caches' K9 takes ~0.2 ms of a step's ~70), and 224
-# steps a run took ~190 s of the whole script on a slow host
-WHISPER_TIMED_LEN = 64
+# decode steps of the timed greedy runs at B=16 (phases 8 and 9): a step's
+# cost barely moves with the position (the self caches' K9 takes ~0.2 ms of
+# a step's ~70); 224 steps a run took ~190 s of the whole script on a slow
+# host, and 64 (until phases 15-16 came) more than 32
+WHISPER_TIMED_LEN = 32
 INT8_B16_COUNT_LEN = 32  # the B=16 launch-count run decodes this far
 INT8_BENCH = (8, 64)  # bench.py::bench_large_v3_decode: B=8, max_len 64
 # the serving engine (main path 10): lanes, decode steps a dispatch, the
@@ -438,6 +477,32 @@ JOINT_LM_IDS, JOINT_LM_WEIGHT = 64, 0.5
 # logits have between the paths
 BEAM_RESCORE_BAR = 1e-3
 BEAM_TOKEN_BAR = ARGMAX_MARGIN
+# CTC prefix beam search (main paths 19-20): configs/ctc_batched_beam.yaml at
+# bench.py::bench_beam_rtfx's shape (128 x 30 s, beam 8, top-k 16); the rows
+# the Python host searcher runs; tests/test_decode.py's bar on the CTC
+# log-likelihood of two searchers' winners, held where both search at one
+# precision (the device beam in f64 on the card, the engine over the f32
+# top-k: the host searcher and the engine sum in f64). At T' = 750 on flat
+# random-init rows the shipped precisions (the f32 device beam, the engine
+# over the f16 transfer) part from it at near-ties in either direction, by
+# up to a few nats of ~3,750 (tests/test_torch_ctc_beam.py shows the f64
+# beam equal to the host searcher where the f32 one is not): those are
+# held within NLL_REL_BAR of the host's NLL instead, and printed. The seeded bigram LM fused on the host
+# (its ids, its weight); the batches of the pipelined RTFx; the frames of
+# the two device-beam profiles whose difference gives launches a frame
+CTC_BEAM_CONFIG = "configs/ctc_batched_beam.yaml"
+CTC_BEAM_B, CTC_BEAM_K, CTC_BEAM_TOPK = 128, 8, 16
+CTC_BEAM_HOST_ROWS = 4
+NLL_BAR = 0.3
+NLL_REL_BAR = 1e-3
+CTC_BEAM_PROFILE_FRAMES = (25, 50)
+CTC_BEAM_LM_IDS, CTC_BEAM_LM_WEIGHT = 64, 0.5
+CTC_BEAM_RTFX_BATCHES = 4
+# joint CTC/attention training (main paths 21-22): `cli train` steps of the
+# published config, and the kernel-path steps timed under the profiler
+JOINT_TRAIN_STEPS = 3
+JOINT_TRAIN_PROFILE_STEPS = 2
+JOINT_TRAIN_RATE_STEPS = 3  # steps a timed turn
 # the probes' profilers in examples/ and their main()'s arguments at the
 # flagship's B=32 (the probes' own defaults are B=128)
 PROBES = {
@@ -1136,27 +1201,34 @@ def phase_finetune_vs_plain(cfg):
                   adapters_only=True)
 
 
+def model_config(cfg):
+    """The family's model section of an ExperimentConfig (ctc or joint)."""
+    return cfg.joint if cfg.model_family == "joint" else cfg.ctc_model
+
+
 def step_vs_plain(phase: str, cfg, manifest, tok, adapters_only: bool):
     """One train step on the first batch of `manifest` with dropout and
     SpecAugment off and every adapter tensor perturbed (WF's B and the Att
-    adapters' out_proj start at zero): loss and the gradients of the
-    trainable set (the adapters, or every parameter) on the kernel path
-    (K1, K6, K8) against the plain path, and both against the same step in
-    float32 (plain, einsum attention)."""
+    adapters' out_proj start at zero): the losses (the joint family's
+    loss, loss_ctc and loss_att) and the gradients of the trainable set
+    (the adapters, or every parameter) on the kernel path (K1, K6, K8)
+    against the plain path, and both against the same step in float32
+    (plain, einsum attention)."""
     import copy
 
     import torch
 
     from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
     from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
-    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
     from jiao_liao_speech_recognition_torch.train import engine
 
     cfg = copy.deepcopy(cfg)
-    cfg.ctc_model.dropout = cfg.ctc_model.adapter.dropout = 0.0
+    mc = model_config(cfg)
+    mc.dropout = mc.adapter.dropout = 0.0
     cfg.specaugment.enabled = False
-    batch = engine.batch_to_device(next(BatchIterator(manifest, tok, cfg.data)), "cuda")
-    model = CTCEncoderModel(cfg.ctc_model, device="cuda", seed=cfg.train.seed)
+    batch = engine.batch_to_device(next(BatchIterator(manifest, tok, cfg.data)), "cuda",
+                                   family=cfg.model_family)
+    model = engine.make_model(cfg, "cuda")
     params = engine.set_trainable(model, adapters_only)
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     gen = torch.Generator().manual_seed(5)
@@ -1164,22 +1236,25 @@ def step_vs_plain(phase: str, cfg, manifest, tok, adapters_only: bool):
         for n, p in model.named_parameters():  # every adapter gradient nonzero
             if param_is_adapter(n):
                 p.add_(0.02 * torch.randn(p.shape, generator=gen).to(p.device))
-    loss_fn = engine.make_ctc_loss_fn(cfg, model)
+    loss_fn = engine.make_loss_fn(cfg, model)
     cfg32 = copy.deepcopy(cfg)
-    cfg32.ctc_model.dtype = "float32"
+    model_config(cfg32).dtype = "float32"
     model32 = copy.deepcopy(model)
-    model32.cfg = cfg32.ctc_model
+    model32.cfg = model_config(cfg32)
     params32 = [p for p in model32.parameters() if p.requires_grad]
-    loss_fn32 = engine.make_ctc_loss_fn(cfg32, model32)
+    loss_fn32 = engine.make_loss_fn(cfg32, model32)
 
-    runs = {}
+    runs, terms = {}, {}
     for run, fn, ps, kernels in (("kernels", loss_fn, params, True),
                                  ("plain", loss_fn, params, False),
                                  ("f32", loss_fn32, params32, False)):
-        loss = fn(batch, (0, 0), True, kernels)[0]
+        loss, metrics = fn(batch, (0, 0), True, kernels)
         runs[run] = (float(loss.detach()), torch.autograd.grad(loss, ps))
+        terms[run] = {k: float(metrics[k]) for k in ("loss_ctc", "loss_att") if k in metrics}
     (lk, gk), (lp, gp), (l32, g32) = runs["kernels"], runs["plain"], runs["f32"]
     del model32, params32, runs
+    terms_rel = {k: abs(v - terms["plain"][k]) / abs(terms["plain"][k])
+                 for k, v in terms["kernels"].items()}
 
     def rel(a, b):
         return float(torch.linalg.vector_norm(a.float() - b.float())
@@ -1202,8 +1277,9 @@ def step_vs_plain(phase: str, cfg, manifest, tok, adapters_only: bool):
         "plain_vs_f32_median": statistics.median(plain_f32), "plain_vs_f32_max": max(plain_f32),
         "kernels_vs_f32_median": statistics.median(kern_f32), "kernels_vs_f32_max": max(kern_f32),
         "worst": sorted(zip(grad_rel, names, plain_f32), reverse=True)[:4],
-        "tensors_over_bar": len(over)}})
+        "tensors_over_bar": len(over), "loss_terms": terms, "loss_terms_rel_err": terms_rel}})
     check(math.isfinite(lk) and loss_rel <= FT_LOSS_BAR, f"loss {lk} vs plain {lp}")
+    check(all(r <= FT_LOSS_BAR for r in terms_rel.values()), f"loss terms off: {terms_rel}")
     check(whole <= FT_GRAD_BAR and statistics.median(grad_rel) <= FT_GRAD_BAR,
           f"{what} gradients off by {whole} (all) / {statistics.median(grad_rel)} (median)")
     check(not over, f"{what} gradients off by more than the bf16 error + bar: {over[:3]}")
@@ -1637,12 +1713,11 @@ def train_rate(name: str, cfg, batches, profile_steps: int = 0, steps: int = 4) 
     then that many kernel-path steps under the profiler (``device_profile``)."""
     import torch
 
-    from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
     from jiao_liao_speech_recognition_torch.train import engine
 
-    model = CTCEncoderModel(cfg.ctc_model, device="cuda", seed=cfg.train.seed)
+    model = engine.make_model(cfg, "cuda")
     state = engine.init_state(cfg, model)
-    step = engine.make_train_step(engine.make_ctc_loss_fn(cfg, model), cfg.train.optimizer)
+    step = engine.make_train_step(engine.make_loss_fn(cfg, model), cfg.train.optimizer)
     for kernels in (False, True):
         for b in batches:
             step(state, b, kernels)
@@ -1902,7 +1977,6 @@ def phase_transfer(counters, workdir: Path, manifests: dict):
 def phase_transfer_vs_plain(cfg, final: Path):
     """Stage 1's step with every parameter trainable, kernel path against
     plain (and both against float32), on the first batch of its mixture."""
-    import dataclasses
 
     from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
     from jiao_liao_speech_recognition_torch.train.schedules import build_stage_manifest
@@ -2002,7 +2076,6 @@ def phase_transfer_timing(cfg, final: Path, bundle):
     turn; then TRANSFER_PROFILE_STEPS kernel-path steps profiled: the
     device's busy and idle share, its kernels by time), and the transferred bundle's greedy RTFx
     at B=32 x 30 s (and four of its batches profiled)."""
-    import dataclasses
 
     from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
     from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
@@ -3346,7 +3419,6 @@ def static_waves(bundle, windows):
     decode (ModelBundle._whisper_ids: every wave waits for its longest row),
     WHISPER_MAX_LEN steps a wave as the engine's -> (seconds, generated
     tokens with their EOT)."""
-    import dataclasses
 
     import torch
 
@@ -4390,7 +4462,6 @@ def phase_joint(counters, workdir: Path, card: str):
     K7 and K9 at this model's shapes, timing, the CTC branch streamed, and
     `cli transcribe --strategy beam`. -> (launches by path, errors, K6's
     and K9's joint rows)."""
-    import dataclasses
 
     import torch
 
@@ -4524,6 +4595,504 @@ def phase_joint(counters, workdir: Path, card: str):
     return paths, errs, {"K6": k6_row, "K9": k9_rows}
 
 
+# --- main paths 19-20: CTC prefix beam search (configs/ctc_batched_beam.yaml) ---
+
+
+def ctc_beam_bundle():
+    """api.load of configs/ctc_batched_beam.yaml at its published widths
+    (random init, seed 0) with a one-character-per-id vocabulary."""
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.utils.config import load_yaml
+
+    cfg = load_yaml(str(Path(__file__).resolve().parent / CTC_BEAM_CONFIG))
+    m, dc = cfg.ctc_model, cfg.decode
+    check((m.num_layers, m.d_model, m.num_heads, m.mlp_dim, m.vocab_size) == (12, 512, 8, 2048, 4336)
+          and (dc.strategy, dc.beam_size, dc.beam_topk) == ("beam", CTC_BEAM_K, CTC_BEAM_TOPK),
+          f"{CTC_BEAM_CONFIG} changed: {m}, {dc}")
+    bundle = api.load(config=cfg, device="cuda")
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(m.vocab_size - 2)])
+    return bundle
+
+
+def ctc_nll(lp, olens, ids, lens, rows):
+    """-> the CTC negative log-likelihood [len(rows)] of each row's prefix
+    (ids [B', T] and lens [B'] on the host, rows indexing them and lp) under
+    log-probs lp [B, T', V] over olens valid frames (F.ctc_loss: every
+    alignment summed)."""
+    import torch
+    import torch.nn.functional as F
+
+    ids, lens = np.asarray(ids)[rows], np.asarray(lens)[rows]
+    S = max(int(lens.max()), 1)
+    x = lp[rows].float().transpose(0, 1)
+    return F.ctc_loss(x, torch.from_numpy(ids[:, :S].astype(np.int64)).cuda(),
+                      olens[rows].cpu().long(), torch.from_numpy(lens.astype(np.int64)),
+                      blank=0, reduction="none", zero_infinity=False).cpu().numpy()
+
+
+def ctc_beam_host_checks(lp, olens, dev_ids, nat_ids, engine, workdir: Path) -> dict:
+    """The host searcher on CTC_BEAM_HOST_ROWS rows of the kernel path's
+    log-probs: each row's winner from the device beam run in f64 on the
+    card and from the native engine over the same log-probs (their f32
+    top-k, unrounded) within NLL_BAR of the host searcher's winner by the
+    CTC likelihood; the main path's winners (the f32 device beam, the
+    engine over the f16 transfer) within NLL_REL_BAR of it; then the host
+    searcher with a seeded bigram LM over the first CTC_BEAM_LM_IDS ids
+    fused at CTC_BEAM_LM_WEIGHT, whose winners must differ and carry more
+    LM log-prob."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode.ctc import (
+        NEG, ctc_prefix_beam_search, ctc_prefix_beam_search_host, top_k_exact)
+    from jiao_liao_speech_recognition_torch.decode.lm import NGramCharLM
+
+    rows = list(range(CTC_BEAM_HOST_ROWS))
+    lp_h = lp[rows].cpu().numpy()
+    n_h = olens[rows].cpu().numpy()
+    with torch.inference_mode():
+        ext = lp[rows].clone()
+        ext[..., 0] = NEG
+        v32, i32 = (t.cpu().numpy() for t in top_k_exact(ext, CTC_BEAM_TOPK))
+        dev64 = tuple(t.cpu().numpy() for t in ctc_prefix_beam_search(
+            lp[rows].double(), olens[rows], CTC_BEAM_K, 0, topk_tokens=CTC_BEAM_TOPK))
+    nat32 = engine.search(v32, i32, lp_h[..., 0], n_h, CTC_BEAM_K)
+    t0 = time.perf_counter()
+    host = ctc_prefix_beam_search_host(lp_h, n_h, CTC_BEAM_K, topk_tokens=CTC_BEAM_TOPK)
+    host_s = time.perf_counter() - t0
+    nll_host = ctc_nll(lp, olens, *host, rows)
+    nll_dev = ctc_nll(lp, olens, *dev64, rows)
+    nll_dev32 = ctc_nll(lp, olens, *dev_ids, rows)
+    nll_nat = ctc_nll(lp, olens, *nat32, rows)
+    nll_nat16 = ctc_nll(lp, olens, *nat_ids, rows)
+    rng = np.random.RandomState(32)
+    V = lp.shape[-1]
+    lm = NGramCharLM.train([rng.randint(1, CTC_BEAM_LM_IDS + 1, 64) for _ in range(32)], 2, V)
+    lm.save(workdir / "ctc_lm.npz")
+    lm = NGramCharLM.load(workdir / "ctc_lm.npz")
+    t0 = time.perf_counter()
+    fused = ctc_prefix_beam_search_host(lp_h, n_h, CTC_BEAM_K, topk_tokens=CTC_BEAM_TOPK, lm=lm,
+                                        lm_weight=CTC_BEAM_LM_WEIGHT)
+    fused_s = time.perf_counter() - t0
+
+    def lm_logp(ids, n):
+        return sum(lm.logp(ids[:i], int(ids[i])) for i in range(int(n)))
+
+    def in_lm(ids, lens):
+        toks = np.concatenate([ids[r, :lens[r]] for r in range(len(lens))])
+        return float(((toks >= 1) & (toks <= CTC_BEAM_LM_IDS)).mean()) if len(toks) else 0.0
+
+    out = {"rows": len(rows), "host_s": host_s, "fused_host_s": fused_s, "nll_bar": NLL_BAR,
+           "nll_rel_bar": NLL_REL_BAR, "nll_host": nll_host.tolist(),
+           "nll_device_f64_minus_host": (nll_dev - nll_host).tolist(),
+           "nll_device_f32_minus_host": (nll_dev32 - nll_host).tolist(),
+           "nll_native_minus_host": (nll_nat - nll_host).tolist(),
+           "nll_native_f16_transfer_minus_host": (nll_nat16 - nll_host).tolist(),
+           "native_ids_equal_host": [bool(np.array_equal(nat32[0][r, :nat32[1][r]],
+                                                         host[0][r, :host[1][r]])) for r in rows],
+           "device_f64_ids_equal_host": [bool(np.array_equal(dev64[0][r, :dev64[1][r]],
+                                                             host[0][r, :host[1][r]]))
+                                         for r in rows],
+           "device_f32_ids_equal_host": [bool(np.array_equal(dev_ids[0][r, :dev_ids[1][r]],
+                                                             host[0][r, :host[1][r]]))
+                                         for r in rows],
+           "host_lengths": host[1].tolist(), "fused_lengths": fused[1].tolist(),
+           "lm_weight": CTC_BEAM_LM_WEIGHT, "lm_ids": CTC_BEAM_LM_IDS,
+           "rows_fused_differs": sum(not np.array_equal(fused[0][r], host[0][r]) for r in rows),
+           "lm_logp_fused": sum(lm_logp(fused[0][r], fused[1][r]) for r in rows),
+           "lm_logp_unfused": sum(lm_logp(host[0][r], host[1][r]) for r in rows),
+           "tokens_in_lm_ids_fused": in_lm(*fused), "tokens_in_lm_ids_unfused": in_lm(*host)}
+    emit({"phase": "ctc_beam", "host_searcher": out})
+    check(np.all(np.isfinite(nll_host)) and np.abs(nll_dev - nll_host).max() < NLL_BAR
+          and np.abs(nll_nat - nll_host).max() < NLL_BAR,
+          f"CTC beam winners part by more than {NLL_BAR} nats: {out}")
+    check(np.abs(nll_dev32 - nll_host).max() < NLL_REL_BAR * nll_host.min()
+          and np.abs(nll_nat16 - nll_host).max() < NLL_REL_BAR * nll_host.min(),
+          f"CTC beam winners at the shipped precisions part by more than {NLL_REL_BAR}: {out}")
+    check(out["rows_fused_differs"] > 0 and out["lm_logp_fused"] > out["lm_logp_unfused"],
+          f"CTC beam: the fused LM did not move the beam toward its tokens ({out})")
+    return out
+
+
+def phase_ctc_beam(counters, workdir: Path, card: str):
+    """Main paths 19 and 20, CTC prefix beam search at the published widths
+    of configs/ctc_batched_beam.yaml (12 x d512, 8 heads of 64, mlp 2048, V
+    4336; random init, seed 0): CTC_BEAM_B seeded 30 s utterances through
+    bundle.transcribe with ``beam`` (the C++ engine over the card's top-k)
+    and ``beam_device`` (exact launches: K1 1, K2 and K3 12); the kernel
+    path's frame argmax against the plain path's (the margin rule);
+    ctc_topk_posteriors on the card bitwise the host's on the same
+    log-probs in both regimes; the engine's ids at one thread and at the
+    default; the host searcher's bars (ctc_beam_host_checks); the six
+    requests through bundle.transcribe and `cli transcribe` twice each;
+    then encoder + top-k ms, bytes to the host, the engine at two prunings,
+    the device beam's ms and launches, and RTFx over a one-deep pipeline.
+    -> launches by path."""
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode import ctc
+    from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.utils import native_ext
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    so = native_ext.build_native("beam")
+    engine = native_ext.load_beam()
+    build_s = time.perf_counter() - t0
+    bundle = ctc_beam_bundle()
+    cfg, model = bundle.config, bundle.model
+    fe, L, K, k = cfg.frontend, cfg.ctc_model.num_layers, CTC_BEAM_K, CTC_BEAM_TOPK
+    utts = stream_audio(CTC_BEAM_B, seed=31, secs=30.0)
+    audio_s = CTC_BEAM_B * 30.0
+    paths, seconds, texts = {}, {}, {}
+    for strategy, path in (("beam", "ctc_beam"), ("beam_device", "ctc_beam_device")):
+        dc = dataclasses.replace(cfg.decode, strategy=strategy)
+        t0 = time.perf_counter()
+        texts[strategy], launches = drive(counters, path,
+                                          lambda: bundle.transcribe(utts, decode_cfg=dc))
+        seconds[strategy] = time.perf_counter() - t0
+        want = {key: 0 for key in counters} | {"K1": 1, "K2": L, "K3": L}
+        wrong = {key: (launches[key], w) for key, w in want.items() if launches[key] != w}
+        check(not wrong, f"{path}: launches (got, want): {wrong}")
+        paths[path] = launches
+    emit({"phase": "ctc_beam", "config": CTC_BEAM_CONFIG, "card": card,
+          "library": so.name, "native_build_s": build_s,
+          "params": sum(p.numel() for p in model.parameters()), "utterances": CTC_BEAM_B,
+          "beam": K, "topk": k, "launches": paths, "seconds_transcribe": seconds,
+          "rtfx_transcribe": {s: audio_s / t for s, t in seconds.items()},
+          "text_chars": {s: sum(len(t) for t in v) for s, v in texts.items()}})
+    check(all(len(v) == CTC_BEAM_B for v in texts.values())
+          and all(sum(len(t) for t in v) > 0 for v in texts.values()), "CTC beam: no text")
+
+    # the kernel path against the plain path on the same 128 chunks
+    wavs, alens, _ = bundle._prepare_audio_chunked(utts, None)
+    with torch.inference_mode():
+        wav = torch.from_numpy(wavs).cuda()
+        flens = torch.from_numpy(alens // fe.hop_length).cuda()
+        feats_k = featurize_batch(wav, fe)
+        lp, olens = model(feats_k, flens)
+        lp_p, _ = model(featurize_batch(wav, fe, kernels=False), flens, kernels=False)
+    frames = torch.arange(lp.shape[1], device="cuda")[None] < olens[:, None]
+    clear = frames & (margins(lp_p) > ARGMAX_MARGIN)
+    vs = {"frames": int(frames.sum()), "coverage": float(clear.sum() / frames.sum()),
+          "mismatched_frames": int(((lp.argmax(-1) != lp_p.argmax(-1)) & clear).sum()),
+          "log_probs_max_abs_diff": float((lp - lp_p).abs().max())}
+    del lp_p
+    emit({"phase": "ctc_beam", "vs_plain": vs})
+    check(vs["coverage"] >= MIN_COVERAGE and vs["mismatched_frames"] == 0,
+          f"CTC beam: the kernel path's frame argmax disagrees with plain: {vs}")
+
+    # ctc_topk_posteriors on the card against the host, both regimes
+    with torch.inference_mode():
+        top = ctc.ctc_topk_posteriors(lp, k)
+        top_host = ctc.ctc_topk_posteriors(lp.cpu(), k)
+        exact = ctc.ctc_topk_posteriors(lp[:2], lp.shape[-1] - 1)
+        exact_host = ctc.ctc_topk_posteriors(lp[:2].cpu(), lp.shape[-1] - 1)
+    topk_rec = {"dtypes": [str(t.dtype) for t in top],
+                "exact_dtypes": [str(t.dtype) for t in exact],
+                "bitwise_equal_host": all(torch.equal(a.cpu(), b) for a, b in zip(top, top_host)),
+                "exact_bitwise_equal_host": all(torch.equal(a.cpu(), b)
+                                                for a, b in zip(exact, exact_host)),
+                "bytes_to_host": sum(t.numel() * t.element_size() for t in top),
+                "bytes_full_rows": lp.numel() * lp.element_size()}
+    del top_host, exact, exact_host
+    emit({"phase": "ctc_beam", "topk": topk_rec})
+    check(topk_rec["bitwise_equal_host"] and topk_rec["exact_bitwise_equal_host"]
+          and topk_rec["dtypes"] == ["torch.float16", "torch.int16", "torch.float16"],
+          f"ctc_topk_posteriors on the card differs from the host: {topk_rec}")
+
+    # the engine: one thread against the default, two prunings (timed)
+    vals, ids, blank = (t.cpu().numpy() for t in top)
+    lens_h = olens.cpu().numpy()
+    eng = {}
+    for name, threads, prune in (("threads_1", 1, 0.0), ("default", 0, 0.0),
+                                 ("prune_-10", 0, -10.0)):
+        t0 = time.perf_counter()
+        eng[name] = engine.search(vals, ids, blank, lens_h, K, threads, prune)
+        eng[name + "_ms"] = 1e3 * (time.perf_counter() - t0)
+    same_threads = all(np.array_equal(a, b) for a, b in zip(eng["threads_1"], eng["default"]))
+    prune_equal = all(np.array_equal(a, b) for a, b in zip(eng["prune_-10"], eng["default"]))
+
+    # the device beam: timed, and its launches under the profiler over two
+    # short prefixes of the frames (a frame's launches are their difference;
+    # profiling all 750 frames' ~60,000 launches took ~40 s of host time)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = ctc.ctc_prefix_beam_search(lp, olens, K, 0, topk_tokens=min(k, 16))
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        profs = [device_profile(lambda i, n=n: ctc.ctc_prefix_beam_search(
+            lp[:, :n], olens.clamp(max=n), K, 0, topk_tokens=min(k, 16)), 1,
+            f"ctc device beam, {n} frames", top=6) for n in CTC_BEAM_PROFILE_FRAMES]
+    (n1, n2), (c1, c2) = CTC_BEAM_PROFILE_FRAMES, (p["launches_per_call"] for p in profs)
+    per_frame = (c2 - c1) / (n2 - n1)
+    frames_run = int(olens.max())
+    dev_ids = tuple(t.cpu().numpy() for t in dev)
+    engine_rec = {"threads_1_ms": eng["threads_1_ms"], "default_threads_ms": eng["default_ms"],
+                  "prune_-10_ms": eng["prune_-10_ms"], "threads_ids_equal": same_threads,
+                  "prune_-10_texts_equal_prune_0": prune_equal,
+                  "note": "random-init rows are flat: every frame keeps its full candidate "
+                          "set, which overstates the engine's cost on a trained model",
+                  "device_beam_ms": 1e3 * dev_s, "device_beam_frames": frames_run,
+                  "device_beam_launches_per_frame": per_frame,
+                  "device_beam_launches_per_batch": c1 + per_frame * (frames_run - n1),
+                  "device_beam_profiles": dict(zip(CTC_BEAM_PROFILE_FRAMES, profs))}
+    emit({"phase": "ctc_beam", "engine": engine_rec})
+    check(same_threads, "the native engine's ids differ between 1 thread and the default")
+    ctc_beam_host_checks(lp, olens, dev_ids, eng["default"], engine, workdir)
+
+    # the six requests: bundle.transcribe and `cli transcribe`, twice each
+    requests = make_requests()
+    wav_paths = []
+    for i, r in enumerate(requests):
+        wav_paths.append(str(workdir / f"b{i}.wav"))
+        write_wav(wav_paths[-1], r, SAMPLE_RATE)
+    bundle.save(str(workdir / "ctc_beam"))
+    req = {}
+    for strategy in ("beam", "beam_device"):
+        dc = dataclasses.replace(cfg.decode, strategy=strategy)
+        a, b = (bundle.transcribe(wav_paths, decode_cfg=dc) for _ in range(2))
+        lines = [[json.loads(s)["text"] for s in cli_run(
+            ["transcribe", *wav_paths, "--checkpoint", workdir / "ctc_beam", "--strategy",
+             strategy, "--beam-size", str(K)])] for _ in range(2)]
+        req[strategy] = {"same_twice": a == b, "cli_same_twice": lines[0] == lines[1],
+                         "cli_equals_bundle": lines[0] == a, "chars": [len(t) for t in a]}
+    emit({"phase": "ctc_beam", "requests": req})
+    check(all(v["same_twice"] and v["cli_same_twice"] and v["cli_equals_bundle"]
+              for v in req.values()), f"CTC beam requests: {req}")
+
+    # timing: encoder + top-k a batch on both paths, then RTFx by
+    # bench.py::bench_beam_rtfx's one-deep pipeline (the card on the next
+    # batch while the engine runs this one)
+    bufs = [wav, torch.roll(wav, 1, 0) + 1e-4]
+
+    def infer(w, kernels=True):
+        with torch.inference_mode():
+            f = featurize_batch(w, fe, kernels=kernels)
+            x, n = model(f, flens, kernels=kernels)
+            return (*ctc.ctc_topk_posteriors(x, k), n)
+
+    tm = {}
+    for kernels in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer(bufs[0], kernels)
+        torch.cuda.synchronize()
+        tm.setdefault("kernels" if kernels else "plain", []).append(1e3 * (time.perf_counter() - t0))
+
+    def pipeline(prune, batches=CTC_BEAM_RTFX_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = infer(bufs[0])
+        for i in range(1, batches + 1):
+            nxt = infer(bufs[i % 2]) if i < batches else None
+            v, t, bl, n = (a.cpu().numpy() for a in pending)
+            engine.search(v, t, bl, n, K, 0, prune)
+            pending = nxt
+        return audio_s * batches / (time.perf_counter() - t0)
+
+    rtfx = {"prune_0": pipeline(0.0), "prune_-10": pipeline(-10.0)}
+    emit({"phase": "ctc_beam", "timing": {
+        "encoder_topk_ms_per_batch": tm, "batch": CTC_BEAM_B,
+        "rtfx_pipelined": rtfx, "rtfx_batches": CTC_BEAM_RTFX_BATCHES,
+        "rtfx_note": "random-init weights: not a ledger number",
+        "phase_s": time.perf_counter() - t_phase}})
+    del lp, top, wav, bufs
+    return paths
+
+
+# --- main paths 21-22: joint CTC/attention training (configs/joint_ctc_attention.yaml) ---
+
+
+def joint_flash_rows(rng):
+    """K6 and K8 alone at the joint encoder's training shape (B 16, T' 750,
+    4 heads of 128, key lengths 750 / 517 / 129 / 1): K6's out within
+    ULP_BAR and lse within LSE_BAR, each K8 gradient within GRAD_REL_BAR,
+    exact zeros past kv_len, two launches bitwise each; then both timed
+    (queued) beside plain, their bound and the library's masked forward
+    and backward; and ptxas's report of the dh=128 instances."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import _build
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+
+    B, T, H, dh = JOINT_B, 750, 4, 128
+    lens = ([750, 517, 129, 1] * B)[:B]
+    q, k, v, kl, dout = _flash_inputs(rng, B, T, H, dh, lens, "cuda")
+    with torch.inference_mode():
+        out, lse = fl.flash_forward(q, k, v, kl)
+        out_p, lse_p = fl.flash_forward_plain(q, k, v, kl)
+        grads = fl.flash_backward(q, k, v, kl, out, lse, dout)
+        grads_p = fl.flash_backward_plain(q, k, v, kl, out, lse, dout)
+        again = (*fl.flash_forward(q, k, v, kl), *fl.flash_backward(q, k, v, kl, out, lse, dout))
+        torch.cuda.synchronize()
+    bitwise = [torch.equal(a, b) for a, b in zip((out, lse, *grads), again)]
+    ulps = bf16_ulp_err(out, out_p)[0]
+    lse_err = float((lse - lse_p).abs().max())
+    rel = {n: float((g.float() - w).abs().max() / w.abs().max())
+           for n, g, w in zip(("dq", "dk", "dv"), grads, grads_p)}
+    pad = torch.arange(T, device="cuda")[None, :] >= kl[:, None]
+    pad_max = float(torch.maximum(grads[1].float().abs().amax((2, 3)),
+                                  grads[2].float().abs().amax((2, 3)))[pad].max())
+    errs = {"K6": float((out.float() - out_p.float()).abs().max()),
+            "K8": max(float((g.float() - w).abs().max()) for g, w in zip(grads, grads_p))}
+    emit({"phase": "kernels", "kernel": "K6/K8", "joint_train": True, "B": B, "T": T,
+          "heads": H, "dh": dh, "lens": lens[:4], "out_ulps": ulps, "bar_ulps": ULP_BAR,
+          "lse_max_abs_err": lse_err, "lse_bar": LSE_BAR, "grad_rel_err": rel,
+          "grad_bar": GRAD_REL_BAR, "padded_key_grad_max": pad_max,
+          "two_launches_bitwise_equal": bitwise})
+    check(ulps <= ULP_BAR and lse_err <= LSE_BAR, f"K6 (joint training) off: {ulps}, {lse_err}")
+    check(all(r <= GRAD_REL_BAR for r in rel.values()) and pad_max == 0.0,
+          f"K8 (joint training) off: {rel}, padded {pad_max}")
+    check(all(bitwise), f"K6/K8 (joint training): two launches differ ({bitwise})")
+
+    with torch.inference_mode():
+        pairs = {"K6": (lambda: fl.flash_forward(q, k, v, kl),
+                        lambda: fl.flash_forward_plain(q, k, v, kl)),
+                 "K8": (lambda: fl.flash_backward(q, k, v, kl, out, lse, dout),
+                        lambda: fl.flash_backward_plain(q, k, v, kl, out, lse, dout))}
+        turns = {key: (cuda_ms(p), queued_ms(f), queued_ms(f), cuda_ms(p))
+                 for key, (f, p) in pairs.items()}
+    lib_fwd, lib_bwd = _yardsticks().sdpa_ms(q, k, v, kl, dout)
+    n, full = sum(lens), B * T * H * dh * 2
+    # q (and dout, out) read and out (dq, dK, dV) written on every row, K and
+    # V read on the valid keys, lse (and delta) and the lengths; QK^T and PV
+    # on the valid keys forward, five such products backward
+    work = {"K6": (2 * full + 2 * n * H * dh * 2 + B * H * T * 4 + B * 4,
+                   {"bf16": 4.0 * H * dh * T * n}),
+            "K8": (6 * full + 2 * n * H * dh * 2 + B * H * T * 4 + B * 4,
+                   {"bf16": 10.0 * H * dh * T * n})}
+    rows = {}
+    for key, (p1, k1, k2, p2) in turns.items():
+        bound_ms, bound_by = bound(*work[key])
+        rows[key] = {"shape": f"B={B}, T'={T}, {H} x {dh} (lengths {min(lens)}-{max(lens)}, "
+                              "joint training)",
+                     "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_fwd if key == "K6" else lib_bwd,
+                     "executed_tflops": tflops(flash_flops("fwd" if key == "K6" else "bwd",
+                                                           B, T, lens, H, dh), (k1 + k2) / 2)}
+        emit({"phase": "timing", "kernel": key, "joint_train": True, **rows[key],
+              "turns_ms": [p1, k1, k2, p2]})
+    ptxas = {name: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
+             for name, (r, st, ld) in _build.ptxas_report().items()
+             if any(f"{kern}ILi128E" in name for kern in
+                    ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))}
+    emit({"phase": "build", "flash_dh128_ptxas": ptxas})
+    return errs, rows
+
+
+def phase_joint_train(counters, workdir: Path, card: str):
+    """Main paths 21 and 22, joint CTC/attention training: `cli train` of
+    configs/joint_ctc_attention.yaml at its published widths (12 + 6
+    blocks of d512, 4 heads of 128, WF rank 8, train_adapters_only,
+    ctc_weight 0.3) on JOINT_B seeded 30 s WAVs with seeded texts of 4,334
+    characters (V 4336), JOINT_TRAIN_STEPS steps: exact launches a step
+    (K1 1, K6 and K8 one an encoder block; the decoder's teacher-forced
+    pass of 130 positions takes the einsum path), the three losses finite,
+    the backbone bitwise and every WF insert moved; one step's losses and
+    adapter gradients on the kernel path against plain; K6 and K8 alone at
+    the encoder's shape; the saved bundle loaded by api.load and served
+    with ctc_greedy and greedy (exact launches); steps/s in turns and the
+    step's idle share. -> (launches by path, errors, K6 and K8 rows)."""
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
+    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
+    from jiao_liao_speech_recognition_torch.train import engine
+    from jiao_liao_speech_recognition_torch.utils.config import apply_overrides, load_yaml
+
+    t_phase = time.perf_counter()
+    manifest = write_corpus(workdir, n=JOINT_B, seed=41)
+    ckpt = workdir / "ckpt"
+    overrides = [f"data.train_manifest={manifest}", f"data.eval_manifest={workdir / 'none.jsonl'}",
+                 f"train.checkpoint_dir={ckpt}", f"train.metrics_path={workdir / 'm.jsonl'}",
+                 f"train.optimizer.total_steps={JOINT_TRAIN_STEPS}", "train.log_every_steps=1"]
+    t0 = time.perf_counter()
+    lines, launches = drive(counters, "joint_train", lambda: cli_run(
+        ["train", "--config", Path(__file__).resolve().parent / JOINT_CONFIG, *overrides]))
+    train_s = time.perf_counter() - t0
+    cfg = apply_overrides(load_yaml(str(Path(__file__).resolve().parent / JOINT_CONFIG)),
+                          overrides)
+    jc, n = cfg.joint, JOINT_TRAIN_STEPS
+    records = [json.loads(s) for s in (workdir / "m.jsonl").read_text().splitlines()]
+    want = {key: 0 for key in counters} | {"K1": n, "K6": jc.num_layers * n,
+                                           "K8": jc.num_layers * n}
+    wrong = {key: (launches[key], w) for key, w in want.items() if launches[key] != w}
+    final = ckpt / "final"
+    trained = api.load(str(final), device="cuda")
+    tok = trained.tokenizer
+    cfg.joint.vocab_size = len(tok)
+    init = engine.make_model(cfg, "cuda").state_dict()
+    frozen_same = moved = n_adapters = b_moved = n_b = 0
+    for key, v in trained.model.state_dict().items():
+        same = torch.equal(v, init[key])
+        if param_is_adapter(key):
+            n_adapters += 1
+            moved += not same
+            if key.endswith(".b"):  # B starts at zero: it moves first
+                n_b += 1
+                b_moved += not same
+        else:
+            frozen_same += same
+    n_frozen = len(init) - n_adapters
+    emit({"phase": "joint_train", "config": JOINT_CONFIG, "card": card,
+          "params": sum(p.numel() for p in trained.model.parameters()),
+          "vocab": len(tok), "batch": cfg.data.batch_size, "steps": n,
+          "ctc_weight": jc.ctc_weight, "cli_last_line": lines[-1],
+          "losses": [{k: r[k] for k in ("loss", "loss_ctc", "loss_att")} for r in records],
+          "seconds_cli_train": train_s, "launches": launches,
+          "backbone_tensors_unchanged": f"{frozen_same}/{n_frozen}",
+          "adapter_tensors_moved": f"{moved}/{n_adapters}",
+          "adapter_b_tensors_moved": f"{b_moved}/{n_b}"})
+    check(not wrong, f"joint_train: launches (got, want): {wrong}")
+    check(len(records) == n and all(math.isfinite(r[k]) for r in records
+                                    for k in ("loss", "loss_ctc", "loss_att")),
+          f"joint train losses: {records}")
+    check(len(tok) == 4336 and frozen_same == n_frozen and n_b > 0 and b_moved == n_b,
+          "joint train: the backbone moved or an adapter B insert did not")
+
+    m = read_manifest(manifest)
+    step_vs_plain("joint_train", cfg, m, CharTokenizer.build(m.texts()), adapters_only=True)
+    errs, rows = joint_flash_rows(np.random.RandomState(42))
+
+    # the trained bundle served: ctc_greedy and greedy (exact launches)
+    utts = stream_audio(2, seed=43, secs=20.0)
+    L, D = jc.num_layers, jc.decoder_layers
+    paths = {"joint_train": launches}
+    served = {}
+    for strategy in ("ctc_greedy", "greedy"):
+        dc = dataclasses.replace(trained.config.decode, strategy=strategy)
+        path = f"joint_trained_{strategy}"
+        wg.STEPS.reset()
+        served[strategy], paths[path] = drive(counters, path,
+                                              lambda: trained.transcribe(utts, decode_cfg=dc))
+        want = {key: 0 for key in counters} | {
+            "K1": 1, "K7-attn": L, "K2": L, "K7-mlp": L, "K3": L,
+            "K4": int(strategy == "ctc_greedy"), "K9": 2 * D * wg.STEPS.steps}
+        wrong = {key: (paths[path][key], w) for key, w in want.items() if paths[path][key] != w}
+        check(not wrong, f"{path}: launches (got, want): {wrong}")
+    emit({"phase": "joint_train", "served": {s: [len(t) for t in v] for s, v in served.items()},
+          "launches": {p: v for p, v in paths.items() if p.startswith("joint_trained_")}})
+    check(all(len(v) == 2 and all(isinstance(t, str) for t in v) for v in served.values()),
+          "the trained joint bundle did not transcribe")
+
+    it = BatchIterator(m, tok, cfg.data)
+    batches = [engine.batch_to_device(next(it), "cuda", family="joint") for _ in range(2)]
+    rate = train_rate("B16x30s_joint_ctc_attention_yaml", cfg, batches,
+                      profile_steps=JOINT_TRAIN_PROFILE_STEPS, steps=JOINT_TRAIN_RATE_STEPS)
+    emit({"phase": "joint_train", "phase_s": time.perf_counter() - t_phase,
+          "kernel_path_steps_s": rate["kernel_path_steps_s"]})
+    return paths, errs, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -4593,7 +5162,15 @@ def main() -> int:
     by_path.update(joint_paths)
     for key, err in joint_errs.items():
         errs[key] = max(errs[key], err)
-    rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"]]}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(phase_ctc_beam(counters, Path(tmp), card))
+    with tempfile.TemporaryDirectory() as tmp:
+        train_paths, train_errs, train_rows = phase_joint_train(counters, Path(tmp), card)
+    by_path.update(train_paths)
+    for key, err in train_errs.items():
+        errs[key] = max(errs[key], err)
+    rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"], train_rows["K6"]]}
+    rec["K8"] = {**rec["K8"], "joint_shapes": [train_rows["K8"]]}
     rec["K9"] = {**rec["K9"], "joint_shapes": joint_rows["K9"]}
     table = []
     for key, name, _, _, src, replaces in KERNELS:

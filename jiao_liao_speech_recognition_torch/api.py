@@ -61,8 +61,12 @@ def transcribe(
     timestamps: bool = False,
 ):
     """Audio -> one transcript per input, by ``decode_cfg.strategy`` (the
-    bundle's config when None: CTC greedy; Whisper greedy or beam; joint
-    ctc_greedy, greedy, beam with CTC rescoring or spec_greedy); with
+    bundle's config when None). CTC: greedy; ``beam``, the C++ prefix beam
+    engine over the device's top-k posteriors (``beam_topk``,
+    ``beam_prune_logp``), or with ``lm_path`` and ``lm_weight`` > 0 the
+    host searcher with the n-gram LM fused; ``beam_device``, the
+    fixed-width beam on the device. Whisper greedy or beam; joint
+    ctc_greedy, greedy, beam with CTC rescoring or spec_greedy. With
     ``timestamps=True``, one ``[{"token", "start", "end"}, ...]`` list per
     input instead (the CTC frame alignment of the ctc and joint families,
     or Whisper cross-attention DTW)."""
@@ -87,7 +91,8 @@ def stream(bundle, chunks: Iterable[np.ndarray], stream_cfg=None):
 
 def fine_tune(config: Union[str, ExperimentConfig], resume: bool = False, device="cuda",
               max_steps: Optional[int] = None):
-    """Run the (adapter) fine-tuning loop that `config` describes on
+    """Run the (adapter) fine-tuning loop that `config` describes (the ctc
+    family, or the joint CTC/attention family on its hybrid loss) on
     `device` -> (TrainState, ModelBundle); ``max_steps`` stops this call
     early (with a checkpoint) without changing the schedule. The final
     bundle is also saved to ``<train.checkpoint_dir>/final``, which ``load``

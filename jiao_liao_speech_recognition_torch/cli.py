@@ -11,7 +11,10 @@ subcommands, flags and JSON output:
         --stream [--stream-window 10 --stream-hop 0.4 --stream-lookahead 0.64]
     python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav \\
         --config configs/joint_ctc_attention.yaml --strategy beam --beam-size 8
+    python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav --checkpoint ckpt \\
+        --strategy beam --beam-size 8 [--lm-path lm.npz --lm-weight 0.5]
     python -m jiao_liao_speech_recognition_torch.cli train-lm m/train.jsonl --output lm.npz
+    python -m jiao_liao_speech_recognition_torch.cli build-native
 
 ``train`` runs ``config.stages`` through ``train/schedules.run_stages``
 (then saves the bundle to ``<checkpoint_dir>/final``), else
@@ -34,12 +37,9 @@ from pathlib import Path
 NOT_PORTED = {
     "train-unigram": "queue 1 item 10 (data/unigram.py)",
     "export-whisper": "queue 1 item 4 (the HF export)",
-    "build-native": "queue 1 item 8 (native/ beam search through ctypes)",
-    "beam": "queue 1 item 8 (CTC beam search)",
     "--profile": "queue 1 item 10 (utils/profiling.py)",
     "--multihost": "queue 1 item 9 (multi-GPU)",
 }
-GREEDY = ("greedy", "ctc_greedy")
 
 
 def refuse(what: str) -> int:
@@ -103,14 +103,11 @@ def _load_bundle(args):
 
 
 def _decode_config(bundle, strategy, beam_size, lm_path, lm_weight):
-    """The bundle's DecodeConfig with the command line's choices, or None
-    after refusing a CTC beam (exit 2 by the caller)."""
+    """The bundle's DecodeConfig with the command line's choices."""
     cfg = bundle.config.decode
-    strategy = strategy or cfg.strategy
-    if bundle.config.model_family == "ctc" and strategy not in GREEDY:
-        return None
     return dataclasses.replace(
-        cfg, strategy=strategy, beam_size=cfg.beam_size if beam_size is None else beam_size,
+        cfg, strategy=strategy or cfg.strategy,
+        beam_size=cfg.beam_size if beam_size is None else beam_size,
         lm_path=lm_path or cfg.lm_path, lm_weight=cfg.lm_weight if lm_weight is None else lm_weight)
 
 
@@ -126,8 +123,6 @@ def cmd_transcribe(args) -> int:
         return 2
     decode_cfg = _decode_config(bundle, args.strategy, args.beam_size, args.lm_path,
                                 args.lm_weight)
-    if decode_cfg is None:
-        return refuse("beam")
     if args.stream:
         return _transcribe_streaming(bundle, args)
     if args.caption:
@@ -229,8 +224,6 @@ def cmd_evaluate(args) -> int:
     if bundle is None:
         return 2
     decode_cfg = _decode_config(bundle, args.decode, args.beam_size, args.lm_path, args.lm_weight)
-    if decode_cfg is None:
-        return refuse("beam")
     rows = read_manifest(args.manifest).rows
     refs, hyps = [], []
     for i in range(0, len(rows), args.batch_size):
@@ -330,6 +323,20 @@ def cmd_import_whisper(args) -> int:
     return 0
 
 
+def cmd_build_native(args) -> int:
+    """Build the C++ CTC beam engine (native/beam.cpp) and load it."""
+    from .utils.native_ext import load_beam
+
+    try:
+        load_beam()
+        ok = True
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        ok = False
+    print("native build:", "ok" if ok else "FAILED")
+    return 0 if ok else 1
+
+
 def _device(p) -> None:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
@@ -355,11 +362,11 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--config")
     pr.add_argument("--profile", metavar="LOGDIR", help="(not ported)")
     pr.add_argument("--strategy", choices=STRATEGIES,
-                    help="decode strategy override (default: the bundle's config; a CTC "
-                    "bundle's beam is not ported)")
+                    help="decode strategy override (default: the bundle's config)")
     pr.add_argument("--beam-size", type=int, default=None)
     pr.add_argument("--lm-path", default="",
-                    help="n-gram LM .npz for the AR beam's shallow fusion (whisper)")
+                    help="n-gram LM .npz for a beam's shallow fusion (ctc beam; the AR beam of "
+                    "whisper and joint)")
     pr.add_argument("--lm-weight", type=float, default=None)
     pr.add_argument("--int8", action="store_true",
                     help="int8-quantize the decoder weights before serving (whisper)")
@@ -426,6 +433,9 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--out", required=True, help="bundle checkpoint dir to write")
     _device(pi)
     pi.set_defaults(fn=cmd_import_whisper)
+
+    pn = sub.add_parser("build-native", help="build the C++ CTC beam engine (native/beam.cpp)")
+    pn.set_defaults(fn=cmd_build_native)
 
     pf = sub.add_parser("featurize", help="audio -> log-mel .npy")
     pf.add_argument("audio")

@@ -4,7 +4,9 @@ families).
 
 CTC greedy transcription: 30 s chunks on the host -> log-mel (K1) -> encoder
 (K2, K3 per block; K7 for a WF-adapted model; K6 in an Att adapter) ->
-head + argmax (K4) -> collapse on the device -> text.
+head + argmax (K4) -> collapse on the device -> text. CTC beam (``beam`` /
+``beam_device``): the same encoder -> head + log_softmax -> a prefix beam
+search of decode/ctc.py (``_ctc_beam_ids``).
 
 Whisper greedy transcription: 30 s chunks -> log-mel (K1) -> encoder (K5,
 K6, the out-projection + residual kernel, K3 per block at d=1280) -> cross K/V cached
@@ -195,11 +197,8 @@ class ModelBundle:
         chunks, decoded in one batch and re-joined."""
         decode_cfg = decode_cfg or self.config.decode
         family = self.config.model_family
-        if family == "ctc" and decode_cfg.strategy in ("beam", "beam_device"):
-            raise NotImplementedError(
-                f"ctc decode strategy {decode_cfg.strategy!r}: CTC beam search is not ported "
-                "yet: ROADMAP queue 1 item 8 (decode/ctc.py)")
-        if family == "ctc" and decode_cfg.strategy not in ("greedy", "ctc_greedy"):
+        if family == "ctc" and decode_cfg.strategy not in ("greedy", "ctc_greedy", "beam",
+                                                           "beam_device"):
             raise ValueError(f"unknown ctc decode strategy {decode_cfg.strategy!r}")
         if self.is_joint and decode_cfg.strategy not in STRATEGIES:
             raise ValueError(f"unknown joint decode strategy {decode_cfg.strategy!r}")
@@ -208,6 +207,8 @@ class ModelBundle:
             ids, lens = self._whisper_ids(wavs, decode_cfg)
         elif self.is_joint and decode_cfg.strategy != "ctc_greedy":
             ids, lens = self._joint_ids(wavs, alens, decode_cfg)
+        elif decode_cfg.strategy in ("beam", "beam_device"):
+            ids, lens = self._ctc_beam_ids(wavs, alens, decode_cfg)
         else:
             ids, lens = self._frame_ids(wavs, alens)
             ids, lens = ctc_greedy_collapse(ids, lens, decode_cfg.ctc_blank_id)
@@ -318,6 +319,38 @@ class ModelBundle:
             return joint_spec_greedy(self.model, feats, flens, max_len=L)
         return joint_beam(self.model, feats, flens, beam_size=decode_cfg.beam_size, max_len=L,
                           length_penalty=decode_cfg.length_penalty)
+
+    @torch.inference_mode()
+    def _ctc_beam_ids(self, wavs: np.ndarray, alens: np.ndarray, decode_cfg: DecodeConfig):
+        """Padded chunks -> CTC prefix beam ids [N, T'] and lengths [N] (the
+        JAX bundle's dispatch) over the log-probs of K1, the blocks (K2, K3)
+        and the head with log_softmax: ``beam_device`` the device beam
+        (top-k at most 16); ``beam`` with ``lm_path`` and ``lm_weight`` > 0
+        the host searcher with the n-gram LM fused; ``beam`` without the C++
+        engine over the device's top-k (``beam_topk``, ``beam_prune_logp``).
+        The JAX bundle falls back to the host searcher when the engine's
+        library is missing; here it is built at first use and a failed
+        build raises (the same results either way)."""
+        from ..decode.ctc import (ctc_prefix_beam_search, ctc_prefix_beam_search_host,
+                                  ctc_prefix_beam_search_native)
+
+        dc = decode_cfg
+        log_probs, out_lens = self.model(*self._features(wavs, alens), head_mode="log_probs")
+        if dc.strategy == "beam_device":
+            return ctc_prefix_beam_search(log_probs, out_lens, dc.beam_size, dc.ctc_blank_id,
+                                          topk_tokens=min(dc.beam_topk, 16))
+        if dc.lm_path and dc.lm_weight > 0.0:
+            from ..decode.lm import NGramCharLM
+
+            ids, lens = ctc_prefix_beam_search_host(
+                log_probs.cpu().numpy(), out_lens.cpu().numpy(), dc.beam_size, dc.ctc_blank_id,
+                topk_tokens=dc.beam_topk, lm=NGramCharLM.load(dc.lm_path),
+                lm_weight=dc.lm_weight)
+        else:
+            ids, lens = ctc_prefix_beam_search_native(
+                log_probs, out_lens, dc.beam_size, dc.ctc_blank_id, topk_tokens=dc.beam_topk,
+                prune_logp=dc.beam_prune_logp)
+        return torch.from_numpy(ids), torch.from_numpy(lens)
 
     def _prepare_audio_chunked(self, audio, sample_rate):
         """-> (chunks [N, chunk_samples] f32, valid samples [N] i32,

@@ -20,6 +20,14 @@ On the card an encoder block serves through K2 and K3 (K7 with WF
 inserts), a teacher-forced pass of 64 or more positions runs its MLPs
 through K3 (K7-mlp), and a decode step runs K9 for the self- and the
 cross-attention of every block over head-major caches.
+
+Training (``model.train()``, the joint loss of train/engine.py): every
+block takes the module path; dropout masks are seeded per forward by
+``dropout_seed``; the encoder's self-attention runs flash (K6 forward, K8
+backward) in bf16 at T' >= ``flash_train_min_q``, and the decoder's
+teacher-forced pass (S below that) the einsum formulation, as the JAX
+gate puts them. ``cfg.remat`` recomputes each encoder block in the
+backward (the JAX module remats the encoder blocks only).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from torch import nn
 
 from ..utils.config import JointModelConfig
 from .ctc_model import DTYPES, CTCHead, ConvSubsampler, encoder_trunk
-from .layers import LayerNorm, TransformerBlock, sinusoidal_positions
+from .layers import Dropout, LayerNorm, TransformerBlock, sinusoidal_positions
 from .whisper import TiedEmbedding, decoder_caches, decoder_step, teacher_forced
 
 
@@ -65,6 +73,9 @@ class JointCTCAttentionModel(nn.Module):
                              cfg.use_flash_attention, cfg.flash_train_min_q, cross_attention=True)
             for _ in range(cfg.decoder_layers))
         self.dec_ln = LayerNorm(d)
+        self._dropouts = [m for m in self.modules() if isinstance(m, Dropout)]
+        for site, m in enumerate(self._dropouts):
+            m.site = site
         self.to(device)
 
     @property
@@ -77,8 +88,9 @@ class JointCTCAttentionModel(nn.Module):
                kernels: bool = True):
         """features [B, num_mels, T] -> (enc [B, T', d] in the compute
         dtype, valid frames [B] int32)."""
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         x, out_lengths = encoder_trunk(self.cfg, self.subsample, self.enc_blocks, features,
-                                       feature_lengths, kernels)
+                                       feature_lengths, kernels, remat=remat)
         return self.enc_ln(x), out_lengths
 
     def ctc_log_probs(self, enc: torch.Tensor) -> torch.Tensor:
@@ -113,7 +125,10 @@ class JointCTCAttentionModel(nn.Module):
                               enc_lengths, kernels, dt)
 
     def forward(self, features: torch.Tensor, feature_lengths: Optional[torch.Tensor] = None,
-                tokens: Optional[torch.Tensor] = None, kernels: bool = True):
+                tokens: Optional[torch.Tensor] = None, kernels: bool = True,
+                dropout_seed: Optional[int] = None):  # needed in training when dropout > 0
+        for m in self._dropouts:
+            m.seed = dropout_seed
         enc, out_lengths = self.encode(features, feature_lengths, kernels)
         dec_logits = None
         if tokens is not None:

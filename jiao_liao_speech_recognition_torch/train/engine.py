@@ -13,7 +13,12 @@ one card.
   are averaged before the clip and the update.
 * ``make_ctc_loss_fn``: K1 featurizes under ``no_grad`` (no gradient flows
   into it), then SpecAugment, the model in train mode, and the mean of the
-  per-example CTC NLL over label lengths.
+  per-example CTC NLL over label lengths. ``make_joint_loss_fn`` (the joint
+  CTC/attention family): one encoder pass feeds the CTC head and the
+  teacher-forced decoder; ctc_weight * CTC + (1 - ctc_weight) * CE, the CE
+  over the targets that ``batch_to_device(..., family="joint")`` builds
+  (sos/eos = the blank, id 0). ``make_loss_fn`` / ``make_model`` choose by
+  ``config.model_family``.
 * ``train_loop`` (one run, or one stage of ``train/schedules.py``: its own
   checkpoint directory, a fresh optimizer over the stage's trainable set)
   / ``run_experiment`` / ``evaluate_manifest``.
@@ -34,6 +39,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..frontend.features import dequantize_pcm, featurize_batch
@@ -189,6 +195,79 @@ def make_ctc_loss_fn(config: ExperimentConfig, model) -> Callable:
     return loss_fn
 
 
+def cross_entropy_like_optax(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """optax.softmax_cross_entropy_with_integer_labels per position.
+    optax does not upcast: logsumexp(logits) - logits[target] in the
+    logits' own dtype (bf16 for a bf16 decoder), each elementwise op
+    rounded to it, and only the sum of exp inside jax.nn.logsumexp
+    accumulated in f32 (jnp's reductions upcast bf16) and rounded back."""
+    amax = logits.amax(dim=-1, keepdim=True).detach()  # stop_gradient, as jax.nn.logsumexp
+    sumexp = torch.exp(logits - amax).float().sum(dim=-1).to(logits.dtype)
+    lse = torch.log(sumexp) + amax[..., 0]
+    return lse - logits.gather(-1, targets[..., None].long())[..., 0]
+
+
+def make_joint_loss_fn(config: ExperimentConfig, model) -> Callable:
+    """The joint family's hybrid loss, loss_fn(batch, seeds, train, kernels)
+    -> (loss, {"loss", "loss_ctc", "loss_att"}): ctc_weight x the CTC loss
+    of make_ctc_loss_fn + (1 - ctc_weight) x the decoder's CE averaged over
+    the positions whose target is not -100, both off one encoder pass. The
+    CE is in the decoder logits' dtype (``cross_entropy_like_optax``), so
+    with a bf16 decoder loss_att is a bf16 number, as in the JAX step."""
+    fe = config.frontend
+    w = config.joint.ctc_weight
+    if config.augment.enabled:
+        raise NotImplementedError("waveform augmentation comes with the auxiliary-modules slice")
+
+    def loss_fn(batch, seeds, train: bool, kernels: bool = True):
+        with torch.no_grad():
+            feats = featurize_batch(dequantize_pcm(batch["audio"]), fe, kernels=kernels)
+        feat_lengths = batch["audio_lengths"] // fe.hop_length
+        if train and config.specaugment.enabled:
+            feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
+                                 config.specaugment)
+        model.train(train)
+        ctc_lp, out_lens, dec_logits = model(feats, feat_lengths, batch["tokens"],
+                                             kernels=kernels,
+                                             dropout_seed=seeds[1] if train else None)
+        nll = ctc_loss(ctc_lp, out_lens, batch["labels"], batch["label_lengths"])
+        loss_ctc = (nll / batch["label_lengths"].clamp_min(1).float()).mean()
+        targets = batch["targets"]
+        valid = targets >= 0
+        ce = cross_entropy_like_optax(dec_logits, targets.clamp_min(0))
+        loss_att = (ce * valid).float().sum().to(ce.dtype) / valid.sum().clamp_min(1)
+        loss = w * loss_ctc + (1.0 - w) * loss_att
+        return loss, {"loss": loss.detach(), "loss_ctc": loss_ctc.detach(),
+                      "loss_att": loss_att.detach()}
+
+    return loss_fn
+
+
+def make_loss_fn(config: ExperimentConfig, model) -> Callable:
+    """The family's loss (the JAX package's build_train_setup)."""
+    if config.model_family == "ctc":
+        return make_ctc_loss_fn(config, model)
+    if config.model_family == "joint":
+        return make_joint_loss_fn(config, model)
+    raise NotImplementedError(
+        f"model family {config.model_family!r}: Whisper training is not ported yet "
+        "(make_whisper_loss_fn); the port trains ctc and joint")
+
+
+def make_model(config: ExperimentConfig, device="cuda"):
+    """A fresh model of the family, initialised from ``train.seed``."""
+    from ..models.ctc_model import CTCEncoderModel
+    from ..models.joint import JointCTCAttentionModel
+
+    seed = config.train.seed
+    if config.model_family == "ctc":
+        return CTCEncoderModel(config.ctc_model, device=device, seed=seed)
+    if config.model_family == "joint":
+        return JointCTCAttentionModel(config.joint, device=device, seed=seed)
+    raise NotImplementedError(
+        f"model family {config.model_family!r}: the port trains ctc and joint")
+
+
 def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
     """train_step(state, batch, kernels=True) -> metrics (tensors and
     floats). One micro-step; every grad_accum_steps-th applies the update."""
@@ -207,27 +286,56 @@ def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
     return train_step
 
 
-def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
+def batch_to_device(batch, device, family: str = "ctc") -> Dict[str, torch.Tensor]:
     """Host Batch -> dict of tensors on `device` (int16 audio stays int16:
-    the step dequantizes on the card)."""
-    return {
+    the step dequantizes on the card). For the joint family also the
+    teacher-forcing ``tokens`` [B, S + 2] (sos, the labels, then eos) and
+    ``targets`` (each position's next token, -100 where ignored); sos and
+    eos are the blank, id 0, which never occurs inside a label sequence."""
+    out = {
         "audio": torch.from_numpy(batch.audio).to(device),
         "audio_lengths": torch.from_numpy(batch.audio_lengths).to(device),
         "labels": torch.from_numpy(batch.labels).to(device),
         "label_lengths": torch.from_numpy(batch.label_lengths).to(device),
     }
+    if family not in ("ctc", "joint"):
+        raise NotImplementedError(f"model family {family!r}: the port trains ctc and joint "
+                                  "(Whisper's teacher forcing is not ported yet)")
+    if family == "joint":
+        B, S = batch.labels.shape
+        toks = np.zeros((B, S + 2), np.int32)
+        tgts = np.full((B, S + 2), -100, np.int32)
+        for i in range(B):
+            n = batch.label_lengths[i]
+            toks[i, 1: 1 + n] = batch.labels[i, :n]
+            tgts[i, :n] = batch.labels[i, :n]
+            tgts[i, n] = 0
+        out["tokens"] = torch.from_numpy(toks).to(device)
+        out["targets"] = torch.from_numpy(tgts).to(device)
+    return out
+
+
+def size_vocab(config: ExperimentConfig, n: int) -> None:
+    """Size the family's vocabulary to `n`: the CTC head, or the joint
+    family's two heads (one vocabulary; the blank doubles as sos/eos)."""
+    if config.model_family == "ctc":
+        config.ctc_model.vocab_size = n
+    elif config.model_family == "joint":
+        config.joint.vocab_size = n
+    else:
+        raise NotImplementedError(
+            f"model family {config.model_family!r}: the port trains ctc and joint")
 
 
 def build_tokenizer_for(config: ExperimentConfig, manifest):
-    """A char vocab over the manifest texts; resizes the CTC head to it."""
+    """A char vocab over the manifest texts, which sizes the model's
+    vocabulary (``size_vocab``)."""
     from ..data.tokenizer import CharTokenizer
 
     if config.data.tokenizer_dir or config.data.unigram_vocab:
         raise NotImplementedError("subword vocabularies come with the Whisper slice")
-    if config.model_family != "ctc":
-        raise NotImplementedError(f"model family {config.model_family!r}: the port trains ctc")
     tokenizer = CharTokenizer.build(manifest.texts())
-    config.ctc_model.vocab_size = len(tokenizer)
+    size_vocab(config, len(tokenizer))
     return tokenizer
 
 
@@ -265,7 +373,7 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     tc = config.train
     device = next(model.parameters()).device
     state = init_state(config, model)
-    step_fn = make_train_step(make_ctc_loss_fn(config, model), tc.optimizer)
+    step_fn = make_train_step(make_loss_fn(config, model), tc.optimizer)
     it = PrefetchIterator(BatchIterator(manifest, tokenizer, config.data,
                                         sample_rate=config.frontend.sample_rate),
                           depth=max(config.data.num_host_workers, 1))
@@ -288,7 +396,7 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     t_first = t0 = None
     try:
         while state.step < total:
-            batch = batch_to_device(next(it), device)
+            batch = batch_to_device(next(it), device, family=config.model_family)
             metrics = step_fn(state, batch, kernels)
             losses.append(metrics["loss"])
             if t_first is None:  # steps/s counts from the end of the first step
@@ -342,20 +450,20 @@ def mix_by_dialect(manifest, dialect_weights):
 
 def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda",
                    kernels: bool = True, max_steps: Optional[int] = None):
-    """The fine-tune run: read the manifest (mixed by ``data.dialect_weights``
-    when set), build the char vocab, init the model from ``train.seed``,
+    """The fine-tune run (ctc or joint family): read the manifest (mixed by
+    ``data.dialect_weights`` when set), build the char vocab, init the
+    model from ``train.seed``,
     train, and save the bundle (params.npz, config.yaml, vocab.json) to
     ``<checkpoint_dir>/final``. ``config.stages`` is not read here: the
     schedule is ``train/schedules.run_stages``. -> (state, bundle)."""
     from ..data.manifest import read_manifest
     from ..models.bundle import ModelBundle
-    from ..models.ctc_model import CTCEncoderModel
 
     manifest = read_manifest(config.data.train_manifest)
     if config.data.dialect_weights:
         manifest = mix_by_dialect(manifest, config.data.dialect_weights)
     tokenizer = build_tokenizer_for(config, manifest)
-    model = CTCEncoderModel(config.ctc_model, device=device, seed=config.train.seed)
+    model = make_model(config, device)
     eval_manifest = None
     if config.data.eval_manifest and Path(config.data.eval_manifest).exists():
         eval_manifest = read_manifest(config.data.eval_manifest)
@@ -372,7 +480,8 @@ def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda"
 
 
 def evaluate_manifest(config, model, tokenizer, manifest, batch_size: int = 16):
-    """Greedy-transcribe a manifest -> corpus CER / WER."""
+    """Transcribe a manifest with the config's decode strategy -> corpus
+    CER / WER."""
     from ..evals.metrics import corpus_cer, corpus_wer
     from ..models.bundle import ModelBundle
 

@@ -21,7 +21,7 @@ from ..data.manifest import Manifest, read_manifest
 from ..data.pipeline import mix_manifests
 from ..data.tokenizer import CharTokenizer
 from ..utils.config import DialectStage, ExperimentConfig
-from .engine import _log, train_loop
+from .engine import _log, make_model, size_vocab, train_loop
 
 
 def build_stage_manifest(stage: DialectStage) -> Manifest:
@@ -41,8 +41,8 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
     """Run ``config.stages`` in order on `device`, carrying the model.
 
     The char vocabulary is built over the union of all stages' texts and
-    sizes the CTC head (``ctc_model.vocab_size``); without `model` the CTC
-    model is made from ``train.seed``. Each stage runs with
+    sizes the model's (``engine.size_vocab``: the ctc or joint family);
+    without `model` the family's model is made from ``train.seed``. Each stage runs with
     ``train.train_adapters_only`` and ``optimizer.total_steps`` (= its
     steps; warmup as configured) replaced, and appends a summary line
     {"step", "ts", "stage", "stage_index", **last metrics} to
@@ -50,19 +50,14 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
     checkpoint. -> (model, tokenizer, history), history holding
     {"stage": name, **last metrics} per stage run.
     """
-    from ..models.ctc_model import CTCEncoderModel
-
     if not config.stages:
         raise ValueError("run_stages needs config.stages")
-    if config.model_family != "ctc":
-        raise NotImplementedError(
-            f"model family {config.model_family!r}: the port trains ctc")
     stage_manifests = [build_stage_manifest(s) for s in config.stages]
     if tokenizer is None:
         tokenizer = CharTokenizer.build([t for m in stage_manifests for t in m.texts()])
-    config.ctc_model.vocab_size = len(tokenizer)
+    size_vocab(config, len(tokenizer))
     if model is None:
-        model = CTCEncoderModel(config.ctc_model, device=device, seed=config.train.seed)
+        model = make_model(config, device)
 
     base_dir = Path(config.train.checkpoint_dir)
     metrics_path = config.train.metrics_path

@@ -9,8 +9,9 @@ for one on its own random init (and raises its error on a Whisper bundle),
 the joint family's strategies, --timestamps and --stream print the JAX
 CLI's lines on one checkpoint both packages read, ``train-lm`` writes the
 JAX CLI's LM, --lm-path / --lm-weight reach a Whisper beam, a CTC
-bundle's beam exits 2, and every subcommand or flag whose module is not
-ported exits 2."""
+bundle's beam (transcribe --strategy beam / beam_device, evaluate --decode
+beam) prints the JAX CLI's lines, build-native builds the beam engine, and
+every subcommand or flag whose module is not ported exits 2."""
 
 import io
 import json
@@ -231,19 +232,54 @@ def test_prepare_cmvn_matches_jax(env, capsys):
     ["train", "--config", "c.yaml", "--multihost"],
 ])
 def test_unported_subcommands_and_flags_exit_2(argv, capsys):
+    """Each unported subcommand or flag exits 2 naming its ROADMAP item.
+    build-native is ported (with the CTC beam): it builds native/beam.cpp,
+    prints the JAX CLI's line and the library loads."""
+    if argv == ["build-native"]:
+        from jiao_liao_speech_recognition_torch.utils import native_ext
+
+        assert cli.main(argv) == 0
+        assert capsys.readouterr().out.splitlines() == ["native build: ok"]
+        assert native_ext.native_available("beam") and native_ext.load_beam()
+        return
     assert cli.main(argv) == 2
     assert "not ported yet: ROADMAP queue 1 item" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def ctc_beam_ckpt(env):
+    """One CTC checkpoint directory both CLIs load (the JAX bundle's save
+    plus the same weights as the port's params.npz): tiny, f32, V = 17, so
+    beam_topk 16 is V - 1 and JAX's engine and host routes agree."""
+    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer as JTok
+
+    cfg = jcfg.ExperimentConfig(ctc_model=jcfg.CTCModelConfig(
+        vocab_size=17, d_model=64, num_layers=1, num_heads=4, mlp_dim=128, conv_channels=32,
+        use_flash_attention=False, dtype="float32"))
+    cfg.frontend.chunk_seconds = 2.0
+    params = jax.tree_util.tree_map(np.asarray, JBundle._init_params(cfg, seed=4))
+    params["ctc_head"]["kernel"] = params["ctc_head"]["kernel"] * 8.0  # decisive rows
+    JBundle(config=cfg, params=params, tokenizer=JTok([chr(0x4E00 + i) for i in range(15)])
+            ).save(str(env / "ctc_beam"))
+    convert.write_npz_params(params, env / "ctc_beam" / "params.npz")
+    return env / "ctc_beam"
 
 
 @pytest.mark.parametrize("argv", [["transcribe", "--strategy", "beam"],
                                   ["transcribe", "--strategy", "beam_device", "--beam-size", "4"],
                                   ["evaluate", "--decode", "beam"]])
-def test_ctc_beam_exits_2_naming_its_item(env, final, argv, capsys):
-    where = [str(env / "u0.wav")] if argv[0] == "transcribe" else \
-        ["--manifest", str(env / "jilu.jsonl")]
-    assert cli.main([argv[0], *where, *argv[1:], "--checkpoint", str(final),
-                     "--device", "cpu"]) == 2
-    assert "not ported yet: ROADMAP queue 1 item 8" in capsys.readouterr().err
+def test_ctc_beam_exits_2_naming_its_item(env, ctc_beam_ckpt, argv, capsys):
+    """Once refused with exit 2, the CTC beam is ported: the same argv exits
+    0 and prints the JAX CLI's lines on one checkpoint both CLIs read."""
+    where = [str(env / "u0.wav"), str(env / "u7.wav")] if argv[0] == "transcribe" else \
+        ["--manifest", str(env / "jilu.jsonl"), "--batch-size", "3"]
+    args = [argv[0], *where, *argv[1:], "--checkpoint", str(ctc_beam_ckpt)]
+    rc, got = _run(cli.main, [*args, "--device", "cpu"], capsys)
+    assert rc == 0
+    with jax.default_matmul_precision("highest"):
+        rc, want = _run(jcli.main, args, capsys)
+    assert rc == 0 and got == want
+    assert len(got) == (2 if argv[0] == "transcribe" else 1)
 
 
 @pytest.mark.parametrize("tokenizer", ["built", "checkpoint"])

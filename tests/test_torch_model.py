@@ -250,8 +250,11 @@ def test_bundle_transcribe_matches_jax_with_chunking(tmp_path):
     # the 5 s request spans chunks: its timestamps run past the first chunk
     assert max(tok["end"] for tok in want_timed[1]) > 4.0
 
-    with pytest.raises(NotImplementedError, match="beam"):
-        tb.transcribe(audio, decode_cfg=tcfg.DecodeConfig(strategy="beam"))
+    # the CTC beam (the C++ engine over the top-k posteriors) transcribes,
+    # with the JAX bundle's texts
+    with jax.default_matmul_precision("highest"):
+        want_beam = jb.transcribe(audio, decode_cfg=jcfg.DecodeConfig(strategy="beam"))
+    assert tb.transcribe(audio, decode_cfg=tcfg.DecodeConfig(strategy="beam")) == want_beam
     with pytest.raises(NotImplementedError, match="resampl"):
         tb.transcribe(audio[0], sample_rate=8000)
 

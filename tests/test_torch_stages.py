@@ -268,11 +268,11 @@ def test_run_stages_killed_and_resumed_is_bitwise(tmp_path, monkeypatch):
     real = teng.batch_to_device
     calls = {"n": 0}
 
-    def counting(batch, device):
+    def counting(batch, device, **kw):
         calls["n"] += 1
         if calls["n"] == 2 and calls.get("kill"):
             signal.raise_signal(signal.SIGTERM)
-        return real(batch, device)
+        return real(batch, device, **kw)
 
     monkeypatch.setattr(teng, "batch_to_device", counting)
     calls["kill"] = True

@@ -493,11 +493,11 @@ def test_sigterm_checkpoints_and_exits(tmp_path, monkeypatch):
     real = teng.batch_to_device
     calls = {"n": 0}
 
-    def batch_then_sigterm(batch, device):
+    def batch_then_sigterm(batch, device, **kw):
         calls["n"] += 1
         if calls["n"] == 2:
             signal.raise_signal(signal.SIGTERM)
-        return real(batch, device)
+        return real(batch, device, **kw)
 
     monkeypatch.setattr(teng, "batch_to_device", batch_then_sigterm)
     state, info = teng.train_loop(cfg, tman.read_manifest(manifest), tok, model)
