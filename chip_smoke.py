@@ -288,6 +288,7 @@ no CPU path: without CUDA the script exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -413,7 +414,23 @@ PATHS = {
     "joint_train": ("K1", "K6", "K8"),
     "joint_trained_ctc_greedy": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
     "joint_trained_greedy": ("K1", "K2", "K3", "K7-attn", "K7-mlp", "K9"),
+    "whisper_finetune": ("K1", "K6", "K8"),
+    "whisper_adapted_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K7-attn", "K7-mlp", "K9"),
+    "whisper_adapted_int8": ("K1", "K5", "K6", "K2h-out", "K3c", "K7-attn", "K7-mlp", "K9",
+                             "K9-int8", "K10", "K11"),
 }
+# the Whisper fine-tune: configs/whisper_large_v3_adapters.yaml at B=16 x 30 s
+WHISPER_FT_CONFIG = "configs/whisper_large_v3_adapters.yaml"
+WHISPER_FT_STEPS = 3  # the config's total_steps, cut
+# whisper.remat stays the config's (off): one B=16 step peaks at 72.0 GB
+# without it on the H100 (39.3 GB with it)
+WHISPER_FT_REMAT = False
+WHISPER_FT_EOT = 50257  # ordinary BPE ids below it, large-v3's specials from it
+WHISPER_FT_CHECK_B = 2  # the kernel-vs-plain step: plain attention keeps [B, 20, T, T] f32
+WHISPER_FT_LENS = (1500, 1033, 257, 1)  # key lengths of K6 / K8 alone at the training shape
+WHISPER_FT_RATE_STEPS = 2  # steps a timed turn
+WHISPER_FT_PROFILE_STEPS = 1
+FT_STEP_LOSS_BAR = 1e-3  # relative
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
 WHISPER_B, WHISPER_T = 16, 1500  # a batch of 30 s chunks, encoder positions
@@ -423,6 +440,9 @@ WHISPER_MAX_LEN = 224
 # a step's ~70); 224 steps a run took ~190 s of the whole script on a slow
 # host, and 64 (until phases 15-16 came) more than 32
 WHISPER_TIMED_LEN = 32
+# the offline decode timings' turns, kernel path then plain (a second pair
+# would repeat the first's reading)
+DECODE_TURNS = (True, False)
 INT8_B16_COUNT_LEN = 32  # the B=16 launch-count run decodes this far
 INT8_BENCH = (8, 64)  # bench.py::bench_large_v3_decode: B=8, max_len 64
 # the serving engine (main path 10): lanes, decode steps a dispatch, the
@@ -534,7 +554,7 @@ TRANSFER_UTTS = 18
 TRANSFER_STEPS = 3
 # steps a timed turn of each stage: the host clock spreads by tens of
 # percent over four steps on a shared host
-TRANSFER_RATE_STEPS = 8
+TRANSFER_RATE_STEPS = 4
 TRANSFER_PROFILE_STEPS = 2  # stage steps under the profiler
 # published H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM_BYTES_S and its operations over
@@ -1706,10 +1726,11 @@ def phase_train_rate(ft_cfg):
                                        ("B16x10s_flagship_wf8", cfg10, batches10))}
 
 
-def train_rate(name: str, cfg, batches, profile_steps: int = 0, steps: int = 4) -> dict:
+def train_rate(name: str, cfg, batches, profile_steps: int = 0, steps: int = 4,
+               turns=(False, True, True, False)) -> dict:
     """Train steps/s of `cfg`'s trainable set on two batches, kernel path and
-    plain path in turns (plain, kernels, kernels, plain; `steps` steps
-    each), after a warm step of each batch on both; with `profile_steps`,
+    plain path in turns (True = the kernel path; `steps` steps each), after
+    a warm step of each batch on each path timed; with `profile_steps`,
     then that many kernel-path steps under the profiler (``device_profile``)."""
     import torch
 
@@ -1718,19 +1739,19 @@ def train_rate(name: str, cfg, batches, profile_steps: int = 0, steps: int = 4) 
     model = engine.make_model(cfg, "cuda")
     state = engine.init_state(cfg, model)
     step = engine.make_train_step(engine.make_loss_fn(cfg, model), cfg.train.optimizer)
-    for kernels in (False, True):
+    for kernels in sorted(set(turns)):
         for b in batches:
             step(state, b, kernels)
     torch.cuda.synchronize()
     secs = {True: [], False: []}
-    for kernels in (False, True, True, False):
+    for kernels in turns:
         t0 = time.perf_counter()
         for i in range(steps):
             loss = step(state, batches[i % 2], kernels)["loss"]
         check(math.isfinite(float(loss)), f"{name}: loss not finite")
         secs[kernels].append((time.perf_counter() - t0) / steps)
     out = {"steps_a_turn": steps, "kernel_path_steps_s": 1.0 / statistics.median(secs[True]),
-           "plain_path_steps_s": 1.0 / statistics.median(secs[False]),
+           "plain_path_steps_s": 1.0 / statistics.median(secs[False]) if secs[False] else None,
            "kernel_path_s_per_step": secs[True], "plain_path_s_per_step": secs[False]}
     if profile_steps:
         out["profile"] = device_profile(lambda i: step(state, batches[i % 2], True),
@@ -2264,6 +2285,28 @@ def k9_cases(int8: bool) -> float:
     return err
 
 
+def with_generated_ids(fn):
+    """fn() with decode/whisper_generate.generate watched -> (fn's result,
+    the (ids, lengths) of its last generate call): the held checks read the
+    ids the transcription itself decoded instead of decoding the same
+    chunks again."""
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+
+    seen, generate = [], wg.generate
+
+    def watched(*args, **kwargs):
+        seen.append(generate(*args, **kwargs))
+        return seen[-1]
+
+    wg.generate = watched
+    try:
+        out = fn()
+    finally:
+        wg.generate = generate
+    check(len(seen) > 0, "the transcription did not go through generate")
+    return out, seen[-1]
+
+
 def phase_whisper(counters):
     """api.load (random init on the card) + api.transcribe of the six
     requests; the encoder against the plain path; the generated tokens
@@ -2288,7 +2331,8 @@ def phase_whisper(counters):
     requests = make_requests()
     wg.STEPS.reset()
     t0 = time.perf_counter()
-    texts, launches = drive(counters, "whisper_serve", lambda: api.transcribe(bundle, requests))
+    (texts, (ids, lens)), launches = drive(counters, "whisper_serve", lambda: with_generated_ids(
+        lambda: api.transcribe(bundle, requests)))
     seconds = time.perf_counter() - t0
     steps = wg.STEPS.steps
     emit({"phase": "whisper", "preset": WHISPER_PRESET, "params": n_params,
@@ -2316,9 +2360,6 @@ def phase_whisper(counters):
         feats_p = featurize_batch(wav, fe, kernels=False)
         enc_k = model.encode(feats_k, kernels=True)
         enc_p = model.encode(feats_p, kernels=False)
-        ids, lens = wg.greedy_from_enc(model, enc_k, None, WHISPER_MAX_LEN, prompt, eot,
-                                       suppress_ids=w.suppress_ids,
-                                       begin_suppress_ids=w.begin_suppress_ids)
         P = len(prompt)
         toks = torch.cat([torch.tensor(prompt, device="cuda").expand(ids.shape[0], P), ids], 1)
         logits = model.decode(toks[:, :-1], enc_k, kernels=False).float()
@@ -2395,8 +2436,8 @@ def phase_whisper_beam(counters, bundle, workdir: Path):
 
 def phase_whisper_timing(bundle):
     """Encoder seconds per B=16 x 30 s batch (and the kernel path's peak
-    device memory) and decode ms per step / tokens/s at B=16 (turns: plain, kernels,
-    kernels, plain), then K5, K3c, K2h-out, K9 (cross and self caches) and
+    device memory) and decode ms per step / tokens/s at B=16 (DECODE_TURNS),
+    then K5, K3c, K2h-out, K9 (cross and self caches) and
     K6 at this shape alone, with bounds and library times."""
     import torch
 
@@ -2444,7 +2485,7 @@ def phase_whisper_timing(bundle):
             init_s.append(time.perf_counter() - t0)
         init_cache_s = statistics.median(init_s)
         dec = {True: [], False: []}
-        for kernels in (False, True, True, False):
+        for kernels in DECODE_TURNS:
             wg.STEPS.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2691,7 +2732,8 @@ def phase_whisper_int8(counters, bundle):
     requests = make_requests()
     wg.STEPS.reset()
     t0 = time.perf_counter()
-    texts, launches = drive(counters, "whisper_int8_serve", lambda: api.transcribe(qb, requests))
+    (texts, (ids, lens)), launches = drive(counters, "whisper_int8_serve", lambda: (
+        with_generated_ids(lambda: api.transcribe(qb, requests))))
     seconds = time.perf_counter() - t0
     steps, L = wg.STEPS.steps, w.decoder_layers
     emit({"phase": "int8", "quantize_s": quantize_s, "decoder_int8_buffer_bytes": int8_bytes,
@@ -2712,9 +2754,6 @@ def phase_whisper_int8(counters, bundle):
     wavs, _, _ = bundle._prepare_audio_chunked(requests, None)
     with torch.inference_mode():
         enc = qmodel.encode(featurize_batch(torch.from_numpy(wavs).cuda(), fe))
-        ids, lens = wg.greedy_from_enc(qmodel, enc, None, WHISPER_MAX_LEN, prompt, eot,
-                                       suppress_ids=w.suppress_ids,
-                                       begin_suppress_ids=w.begin_suppress_ids)
         P = len(prompt)
         toks = torch.cat([torch.tensor(prompt, device="cuda").expand(ids.shape[0], P), ids], 1)
         raw = forced_logits(qmodel, toks, enc, kernels=False)
@@ -2757,8 +2796,8 @@ def phase_whisper_int8(counters, bundle):
 
 def phase_int8_timing(qbundle):
     """Int8 decode ms per step and tokens/s at B=16 (WHISPER_TIMED_LEN steps)
-    and B=8 (max_len 64), turns plain, kernels, kernels, plain, caches timed
-    apart, peak device memory."""
+    and B=8 (max_len 64) in DECODE_TURNS, caches timed apart, peak device
+    memory."""
     import torch
 
     from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
@@ -2781,7 +2820,7 @@ def phase_int8_timing(qbundle):
             init_cache_s = statistics.median(init_s)
             wg.greedy_from_enc(model, enc, None, 8, prompt, eot)  # warm
             runs = {True: [], False: []}
-            for kernels in (False, True, True, False):
+            for kernels in DECODE_TURNS:
                 wg.STEPS.reset()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -3414,29 +3453,6 @@ def phase_engine(counters, bundle, path):
     return launches, eng, report
 
 
-def static_waves(bundle, windows):
-    """The windows in static waves of ENGINE_SLOTS through bundle.transcribe's
-    decode (ModelBundle._whisper_ids: every wave waits for its longest row),
-    WHISPER_MAX_LEN steps a wave as the engine's -> (seconds, generated
-    tokens with their EOT)."""
-
-    import torch
-
-    from jiao_liao_speech_recognition_torch.frontend.features import pad_or_trim
-
-    fe = bundle.config.frontend
-    dc = dataclasses.replace(bundle.config.decode, max_decode_len=WHISPER_MAX_LEN)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tokens = 0
-    for i in range(0, len(windows), ENGINE_SLOTS):
-        wavs = np.stack([pad_or_trim(x, fe) for x in windows[i:i + ENGINE_SLOTS]])
-        ids, lens = bundle._whisper_ids(wavs, dc)
-        tokens += int((lens + 1).clamp(max=ids.shape[1]).sum())
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, tokens
-
-
 def engine_timestamps(eng, windows):
     """Two requests served with timestamps: spans monotone, inside the
     audio, equal to whisper_token_spans on the engine's own ids, and the
@@ -3511,8 +3527,9 @@ def engine_cli(workdir: Path, windows):
 
 def phase_engines(counters, bundle, qbundle, workdir: Path, card: str):
     """Main path 10 on the bf16 bundle and on its quantize()d form, the
-    timestamps, `cli serve`, and the static waves the engine is timed
-    against."""
+    timestamps and `cli serve`. (Static waves of 224 eager steps would
+    repeat phases 8-9's eager decode readings: the engine is not timed
+    against them here.)"""
     import torch
 
     by_path = {}
@@ -3524,7 +3541,6 @@ def phase_engines(counters, bundle, qbundle, workdir: Path, card: str):
             stamps = engine_timestamps(eng, windows)
         del eng
         torch.cuda.empty_cache()
-        static_s, static_tokens = static_waves(b, windows)
         r = reports[path]
         emit({"phase": "engine_timing", "path": path, "card": card,
               "graph_ms_per_step": r["graph_ms_per_step_16_lanes"],
@@ -3533,9 +3549,6 @@ def phase_engines(counters, bundle, qbundle, workdir: Path, card: str):
               "eager_tokens_per_s_16_lanes": r["eager_tokens_per_s_16_lanes"],
               "engine_tokens_per_s": r["tokens_per_s"], "engine_wall_s": r["wall_s"],
               "engine_tokens": r["generated_tokens_incl_eot"],
-              "static_waves_s": static_s, "static_tokens": static_tokens,
-              "static_max_len": WHISPER_MAX_LEN,
-              "static_tokens_per_s": static_tokens / static_s,
               "idle_share_dispatch": r["idle_lanes_dispatch_profile"]["device_idle_share"],
               "device_busy_ms_per_step": 1e3 * r["idle_lanes_dispatch_profile"][
                   "device_busy_s_per_call"] / ENGINE_SPD,
@@ -4909,18 +4922,33 @@ def phase_ctc_beam(counters, workdir: Path, card: str):
 
 def joint_flash_rows(rng):
     """K6 and K8 alone at the joint encoder's training shape (B 16, T' 750,
-    4 heads of 128, key lengths 750 / 517 / 129 / 1): K6's out within
+    4 heads of 128, key lengths 750 / 517 / 129 / 1): ``flash_train_rows``,
+    then ptxas's report of the dh=128 instances."""
+    from jiao_liao_speech_recognition_torch import _build
+
+    errs, rows = flash_train_rows(rng, JOINT_B, 750, 4, 128, [750, 517, 129, 1], "joint_train",
+                                  "joint training")
+    ptxas = {name: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
+             for name, (r, st, ld) in _build.ptxas_report().items()
+             if any(f"{kern}ILi128E" in name for kern in
+                    ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))}
+    emit({"phase": "build", "flash_dh128_ptxas": ptxas})
+    return errs, rows
+
+
+def flash_train_rows(rng, B, T, H, dh, lens4, tag: str, what: str, plain_iters: int = 10):
+    """K6 and K8 alone at a training shape (B rows, T positions, H heads of
+    dh, key lengths `lens4` repeated over the rows): K6's out within
     ULP_BAR and lse within LSE_BAR, each K8 gradient within GRAD_REL_BAR,
     exact zeros past kv_len, two launches bitwise each; then both timed
-    (queued) beside plain, their bound and the library's masked forward
-    and backward; and ptxas's report of the dh=128 instances."""
+    (queued; the plain versions over `plain_iters` calls) beside plain,
+    their bound and the library's masked forward and backward. -> (errors,
+    rows)."""
     import torch
 
-    from jiao_liao_speech_recognition_torch import _build
     from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
 
-    B, T, H, dh = JOINT_B, 750, 4, 128
-    lens = ([750, 517, 129, 1] * B)[:B]
+    lens = (list(lens4) * B)[:B]
     q, k, v, kl, dout = _flash_inputs(rng, B, T, H, dh, lens, "cuda")
     with torch.inference_mode():
         out, lse = fl.flash_forward(q, k, v, kl)
@@ -4939,22 +4967,24 @@ def joint_flash_rows(rng):
                                   grads[2].float().abs().amax((2, 3)))[pad].max())
     errs = {"K6": float((out.float() - out_p.float()).abs().max()),
             "K8": max(float((g.float() - w).abs().max()) for g, w in zip(grads, grads_p))}
-    emit({"phase": "kernels", "kernel": "K6/K8", "joint_train": True, "B": B, "T": T,
+    del out_p, lse_p, grads_p, again
+    emit({"phase": "kernels", "kernel": "K6/K8", tag: True, "B": B, "T": T,
           "heads": H, "dh": dh, "lens": lens[:4], "out_ulps": ulps, "bar_ulps": ULP_BAR,
           "lse_max_abs_err": lse_err, "lse_bar": LSE_BAR, "grad_rel_err": rel,
           "grad_bar": GRAD_REL_BAR, "padded_key_grad_max": pad_max,
           "two_launches_bitwise_equal": bitwise})
-    check(ulps <= ULP_BAR and lse_err <= LSE_BAR, f"K6 (joint training) off: {ulps}, {lse_err}")
+    check(ulps <= ULP_BAR and lse_err <= LSE_BAR, f"K6 ({what}) off: {ulps}, {lse_err}")
     check(all(r <= GRAD_REL_BAR for r in rel.values()) and pad_max == 0.0,
-          f"K8 (joint training) off: {rel}, padded {pad_max}")
-    check(all(bitwise), f"K6/K8 (joint training): two launches differ ({bitwise})")
+          f"K8 ({what}) off: {rel}, padded {pad_max}")
+    check(all(bitwise), f"K6/K8 ({what}): two launches differ ({bitwise})")
 
     with torch.inference_mode():
         pairs = {"K6": (lambda: fl.flash_forward(q, k, v, kl),
                         lambda: fl.flash_forward_plain(q, k, v, kl)),
                  "K8": (lambda: fl.flash_backward(q, k, v, kl, out, lse, dout),
                         lambda: fl.flash_backward_plain(q, k, v, kl, out, lse, dout))}
-        turns = {key: (cuda_ms(p), queued_ms(f), queued_ms(f), cuda_ms(p))
+        turns = {key: (cuda_ms(p, plain_iters), queued_ms(f), queued_ms(f),
+                       cuda_ms(p, plain_iters))
                  for key, (f, p) in pairs.items()}
     lib_fwd, lib_bwd = _yardsticks().sdpa_ms(q, k, v, kl, dout)
     n, full = sum(lens), B * T * H * dh * 2
@@ -4968,19 +4998,14 @@ def joint_flash_rows(rng):
     rows = {}
     for key, (p1, k1, k2, p2) in turns.items():
         bound_ms, bound_by = bound(*work[key])
-        rows[key] = {"shape": f"B={B}, T'={T}, {H} x {dh} (lengths {min(lens)}-{max(lens)}, "
-                              "joint training)",
+        rows[key] = {"shape": f"B={B}, T={T}, {H} x {dh} (lengths {min(lens)}-{max(lens)}, "
+                              f"{what})",
                      "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_fwd if key == "K6" else lib_bwd,
                      "executed_tflops": tflops(flash_flops("fwd" if key == "K6" else "bwd",
                                                            B, T, lens, H, dh), (k1 + k2) / 2)}
-        emit({"phase": "timing", "kernel": key, "joint_train": True, **rows[key],
+        emit({"phase": "timing", "kernel": key, tag: True, **rows[key],
               "turns_ms": [p1, k1, k2, p2]})
-    ptxas = {name: {"registers": r, "spill_store_bytes": st, "spill_load_bytes": ld}
-             for name, (r, st, ld) in _build.ptxas_report().items()
-             if any(f"{kern}ILi128E" in name for kern in
-                    ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))}
-    emit({"phase": "build", "flash_dh128_ptxas": ptxas})
     return errs, rows
 
 
@@ -5093,6 +5118,484 @@ def phase_joint_train(counters, workdir: Path, card: str):
     return paths, errs, rows
 
 
+# --- main paths 23-25: Whisper fine-tuning (configs/whisper_large_v3_adapters.yaml) ---
+
+
+def write_bpe_standin(d: Path, texts, seed: int) -> Path:
+    """A byte-level BPE directory in the HF format ``ByteLevelBPE.from_hf_dir``
+    reads (vocab.json, merges.txt), with large-v3's id layout: 51,866 ids,
+    the 50,257 ordinary tokens first and Whisper's specials at large-v3's
+    ids (<|endoftext|> 50257, <|startoftranscript|> 50258, 100 language
+    tokens from 50259 with <|zh|> at 50260, <|translate|> 50359,
+    <|transcribe|> 50360, <|startoflm|> 50361, <|startofprev|> 50362,
+    <|nospeech|> 50363, <|notimestamps|> 50364, 1,501 timestamps from 50365).
+    large-v3's real vocab.json and merges.txt are not in the repository,
+    so this is a stand-in made from the seed: the 256 byte symbols, merges
+    that make every character of `texts` one token, then seeded merges of
+    existing tokens up to 50,257."""
+    from jiao_liao_speech_recognition_torch.data.bpe import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {sym: i for i, sym in enumerate(b2u.values())}
+    merges = []
+
+    def add(a, b):
+        if a + b not in vocab:
+            vocab[a + b] = len(vocab)
+            merges.append((a, b))
+
+    for ch in sorted({c for t in texts for c in t if not c.isspace()}):
+        syms = [b2u[b] for b in ch.encode("utf-8")]
+        for i in range(1, len(syms)):
+            add("".join(syms[:i]), syms[i])
+    rng = np.random.RandomState(seed)
+    keys = list(vocab)
+    while len(vocab) < WHISPER_FT_EOT:
+        a, b = keys[rng.randint(len(keys))], keys[rng.randint(256)]
+        if a + b not in vocab:
+            add(a, b)
+            keys.append(a + b)
+    langs = [f"<|lang{i:02d}|>" for i in range(100)]
+    langs[1] = "<|zh|>"
+    specials = (["<|endoftext|>", "<|startoftranscript|>", *langs, "<|translate|>",
+                 "<|transcribe|>", "<|startoflm|>", "<|startofprev|>", "<|nospeech|>",
+                 "<|notimestamps|>"] + [f"<|{0.02 * i:.2f}|>" for i in range(1501)])
+    for name in specials:
+        vocab[name] = len(vocab)
+    check(len(vocab) == 51866 and vocab["<|zh|>"] == 50260 and vocab["<|0.00|>"] == 50365,
+          f"BPE stand-in: {len(vocab)} ids")
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (d / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
+                                  encoding="utf-8")
+    return d
+
+
+def k7_attn_route_plain(x, g, bl, base, wf, heads, eps, wf_scale, lens):
+    """The plain versions of K7's d=1280 route, each launch's rounding
+    points kept: the f32 fold, K5 (ln_qkv_plain), K6 (flash_forward_plain),
+    K2h-out (fc2_residual_plain)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    w = {k: fa.fold_wf(base[k], wf[n], wf_scale) for n, k in fa.WF_PROJECTIONS}
+    bf = torch.bfloat16
+    q, k, v = fm.ln_qkv_plain(x, g, bl, *fm.pack_qkv(w["wq"], base["bq"], w["wk"], w["wv"],
+                                                     base["bv"], bf), eps)
+    B, T, D = q.shape
+    o, _ = fl.flash_forward_plain(*(t.reshape(B, T, heads, D // heads) for t in (q, k, v)), lens)
+    return fm.fc2_residual_plain(x, o.reshape(B, T, D), w["wo"].to(bf), base["bo"].to(bf))
+
+
+def k7_d1280_rows(model, rng):
+    """K7 at the large-v3 encoder's width on the trained model's first block
+    (its weights and WF inserts), B=16 x 1500, attention also at the ragged
+    B=7: each within ULP_BAR of the plain versions of its route and bitwise
+    over two calls; then each timed beside its plain version and its bound.
+    -> (errors, rows)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models.layers import _insert
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    blk = model.encoder.blocks[0]
+    sa, ln, mln, m = blk.self_attn, blk.self_attn_ln, blk.mlp_ln, blk.mlp
+    base, inserts = sa.wf_params()
+    H, scale, r = sa.num_heads, float(blk.adapter.scale), blk.adapter.wf_rank
+    B, T, d, mlp = WHISPER_B, WHISPER_T, model.cfg.d_model, model.cfg.mlp_dim
+    x = torch.from_numpy((0.5 * rng.randn(B, T, d)).astype(np.float32)).to("cuda", torch.bfloat16)
+    full = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    ragged = torch.tensor([1500, 1033, 257, 1, 750, 1499, 129], dtype=torch.int32, device="cuda")
+    wf1, wf2 = _insert(m.fc1), _insert(m.fc2)
+    calls = {
+        "K7-attn": (lambda xx, ll: fa.fused_attention_sublayer_wf(
+            xx, ln.scale, ln.bias, base, inserts, H, ln.eps, scale, ll),
+            lambda xx, ll: k7_attn_route_plain(xx, ln.scale, ln.bias, base, inserts, H, ln.eps,
+                                               scale, ll)),
+        "K7-mlp": (lambda xx, ll: fm.fused_ln_mlp_residual_wf(
+            xx, mln.scale, mln.bias, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias, wf1, wf2,
+            mln.eps, m.gelu_form, scale),
+            lambda xx, ll: fm.ln_mlp_residual_wf_plain(
+                xx, mln.scale, mln.bias, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias, wf1,
+                wf2, mln.eps, m.gelu_form, scale)),
+    }
+    errs, rows = {}, {}
+    with torch.inference_mode():
+        for key, (kern, plain) in calls.items():
+            cases = [(x, full)] + ([(x[:7], ragged)] if key == "K7-attn" else [])
+            err = 0.0
+            for xx, ll in cases:
+                got, again, want = kern(xx, ll), kern(xx, ll), plain(xx, ll)
+                err = max(err, _ulp_check(key, got, want, d1280=True, B=xx.shape[0],
+                                          lens=ll[:4].tolist(), bitwise=torch.equal(got, again)))
+                check(torch.equal(got, again), f"{key} at d=1280: two calls differ")
+                del got, again, want
+            errs[key] = err
+            turns = (cuda_ms(lambda: plain(x, full), 3), queued_ms(lambda: kern(x, full)),
+                     queued_ms(lambda: kern(x, full)), cuda_ms(lambda: plain(x, full), 3))
+            N = B * T
+            if key == "K7-attn":
+                nbytes = 2 * N * d * 2 + 4 * (4 * d * d + 3 * d) + 4 * 4 * r * 2 * d
+                ops = {"bf16": 2.0 * N * d * 3 * d + 4.0 * d * T * N + 2.0 * N * d * d,
+                       "f32": 4 * 2.0 * d * r * d}
+            else:
+                nbytes = 2 * N * d * 2 + 4 * (2 * d * mlp + d + mlp) + 4 * 2 * r * (d + mlp)
+                ops = {"bf16": 4.0 * N * d * mlp, "f32": 2 * 2.0 * d * r * mlp}
+            bound_ms, bound_by = bound(nbytes, ops)
+            ms = (turns[1] + turns[2]) / 2
+            rows[key] = {"shape": f"B={B}, T={T}, d={d} (large-v3 encoder, WF rank {r})",
+                         "ms": ms, "plain_ms": (turns[0] + turns[3]) / 2, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None,
+                         "tflops": tflops(ops["bf16"], ms)}
+            emit({"phase": "timing", "kernel": key, "d1280": True, **rows[key],
+                  "turns_ms": list(turns)})
+    return errs, rows
+
+
+def adapted_int8_kernel_checks(qmodel, enc, rng) -> dict:
+    """K10, K11 and K9-int8 on the quantized WF-adapted decoder's own
+    tensors at decode-step rows (16): block 0's q_proj (its int8 kernel with
+    the WF insert beside it) within ULP_BAR, the int8 tied logits within
+    LOGITS_REL_BAR, the int8 cross caches read by K9-int8 within ULP_BAR;
+    each twice bitwise. -> errors."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models.layers import int8_cache_attention
+
+    blk = qmodel.decoder.blocks[0]
+    lin = blk.self_attn.q_proj
+    check(hasattr(lin, "adapter_wf") and lin.kernel_q.dtype == torch.int8,
+          "the quantized decoder lost its WF inserts")
+    R, d = WHISPER_B, qmodel.cfg.d_model
+    H, dh = qmodel.cfg.num_heads, d // qmodel.cfg.num_heads
+    x = torch.from_numpy((rng.randn(R, 1, d)).astype(np.float32)).to("cuda", torch.bfloat16)
+    cross = {}
+    B = enc.shape[0]
+    qh = torch.from_numpy(rng.randn(B, H, 1, dh).astype(np.float32)).to("cuda", torch.bfloat16)
+    lens = torch.full((B,), enc.shape[1], dtype=torch.int32, device="cuda")
+    table = qmodel.decoder.embed_tokens
+    fns = {
+        "K10": lambda k: lin(x, k),
+        "K11": lambda k: table.attend(x[:, 0], torch.bfloat16, k),
+        "K9-int8": lambda k: int8_cache_attention(qh, cross["k"], cross["k_scale"], cross["v"],
+                                                  cross["v_scale"], lens, None, torch.bfloat16,
+                                                  kernels=k),
+    }
+    errs = {}
+    with torch.inference_mode():
+        cross = qmodel.init_cache(enc.shape[0], enc, 8)["block_0"]["cross"]
+        for key, fn in fns.items():
+            got, again, want = fn(True), fn(True), fn(False)
+            check(torch.equal(got, again), f"{key} (WF-adapted int8 decoder): two calls differ")
+            if key == "K11":
+                rel = float((got - want).abs().max() / want.abs().max())
+                emit({"phase": "kernels", "kernel": key, "wf_adapted_int8": True,
+                      "rel_err": rel, "bar": LOGITS_REL_BAR})
+                check(rel <= LOGITS_REL_BAR, f"K11 (WF-adapted) off by {rel}")
+                errs[key] = float((got - want).abs().max())
+            else:
+                errs[key] = _ulp_check(key, got, want, wf_adapted_int8=True, rows=x.shape[0])
+    return errs
+
+
+def whisper_step_vs_plain(model, cfg, manifest, tok):
+    """One train step at B=WHISPER_FT_CHECK_B with dropout and SpecAugment
+    off on the trained model, on the kernel path (K1, K6, K8), the plain
+    path and the plain path in float32: the loss within FT_STEP_LOSS_BAR of
+    the plain path's; the 1,536 adapter gradients, concatenated, within
+    FT_GRAD_BAR relative L2 of the plain path's, their median tensor too,
+    and no farther from the f32 step's than the plain path's are, plus
+    FT_GRAD_BAR. Per tensor, the rules are reported, not held: through 32 +
+    32 bf16 blocks the two bf16 paths part on single tensors (the rank-16 g
+    inserts most) by more than either's distance from f32 (up to 26% of a
+    tensor's largest element, plain against f32), so a per-tensor bar
+    measures that noise, not the kernels. Then one AdamW update from the
+    kernel path's gradients leaves every backbone tensor bitwise and moves
+    every WF B."""
+    import copy
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
+    from jiao_liao_speech_recognition_torch.decode.whisper_generate import resolve_specials
+    from jiao_liao_speech_recognition_torch.train import engine
+
+    cfg = copy.deepcopy(cfg)
+    cfg.whisper.dropout = cfg.whisper.adapter.dropout = 0.0
+    cfg.specaugment.enabled = False
+    cfg.data.batch_size = WHISPER_FT_CHECK_B
+    prompt, eot = resolve_specials(cfg.whisper)
+    batch = engine.batch_to_device(next(BatchIterator(manifest, tok, cfg.data)), "cuda",
+                                   family="whisper", whisper_prompt=prompt, eot_id=eot)
+    params = engine.set_trainable(model, True)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    model32 = copy.deepcopy(model)
+    model32.cfg.dtype = "float32"  # the encoder's and decoder's cfg: one object
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.whisper.dtype = "float32"
+    params32 = [p for p in model32.parameters() if p.requires_grad]
+    runs = {}
+    for run, mdl, ps, c, kernels in (("kernels", model, params, cfg, True),
+                                     ("plain", model, params, cfg, False),
+                                     ("f32", model32, params32, cfg32, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = engine.make_loss_fn(c, mdl)(batch, (0, 0), True, kernels)
+        grads = [g.float() for g in torch.autograd.grad(loss, ps)]
+        torch.cuda.synchronize()
+        runs[run] = (float(loss.detach()), grads, time.perf_counter() - t0)
+    del model32, params32
+    (lk, gk, sk), (lp, gp, sp), (l32, g32, _) = runs["kernels"], runs["plain"], runs["f32"]
+    loss_rel = abs(lk - lp) / abs(lp)
+
+    def err(a, b):  # the largest element error in b's largest magnitude
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def l2(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+    rel = [err(a, b) for a, b in zip(gk, gp)]
+    k32, p32 = [err(a, w) for a, w in zip(gk, g32)], [err(b, w) for b, w in zip(gp, g32)]
+    rel_l2 = [l2(a, b) for a, b in zip(gk, gp)]
+    p32_l2 = [l2(b, w) for b, w in zip(gp, g32)]
+    flat = [torch.cat([g.flatten() for g in gs]) for gs in (gk, gp, g32)]
+    whole = l2(flat[0], flat[1])
+    whole_k32, whole_p32 = l2(flat[0], flat[2]), l2(flat[1], flat[2])
+    del flat
+    over = [(r, p, n) for r, p, n in zip(rel_l2, p32_l2, names) if r > p + FT_GRAD_BAR]
+    worst = sorted(zip(rel, names), reverse=True)[:4]
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    bs = {n: p.detach().clone() for n, p in model.named_parameters() if n.endswith("adapter_wf.b")}
+    state = engine.init_state(cfg, model)
+    for p, g in zip(params, gk):
+        p.grad = g
+    engine.apply_update(state, cfg.train.optimizer, lambda _: cfg.train.optimizer.learning_rate)
+    named = dict(model.named_parameters())
+    unchanged = sum(torch.equal(named[n], v) for n, v in frozen.items())
+    b_moved = sum(not torch.equal(named[n], v) for n, v in bs.items())
+    del frozen, bs, gk, gp, g32, runs
+    emit({"phase": "whisper_finetune", "vs_plain": {
+        "batch": WHISPER_FT_CHECK_B, "tokens": list(batch["tokens"].shape),
+        "loss_kernels": lk, "loss_plain": lp, "loss_f32": l32, "loss_rel_err": loss_rel,
+        "loss_bar": FT_STEP_LOSS_BAR, "adapter_tensors": len(rel),
+        "grad_rel_l2_all": whole, "grad_rel_l2_median": statistics.median(rel_l2),
+        "grad_rel_l2_max": max(rel_l2), "kernels_vs_f32_l2_all": whole_k32,
+        "plain_vs_f32_l2_all": whole_p32, "plain_vs_f32_l2_median": statistics.median(p32_l2),
+        "plain_vs_f32_l2_max": max(p32_l2), "grad_bar": FT_GRAD_BAR,
+        "report_tensors_over_plain_f32_error_plus_bar": len(over),
+        "report_worst_over": sorted(over, reverse=True)[:4], "elementwise_in_max": {
+            "kernels_vs_plain_max": max(rel), "kernels_vs_plain_median": statistics.median(rel),
+            "kernels_vs_f32_max": max(k32), "kernels_vs_f32_median": statistics.median(k32),
+            "plain_vs_f32_max": max(p32), "plain_vs_f32_median": statistics.median(p32),
+            "worst_kernels_vs_plain": worst},
+        "step_s_kernels": sk, "step_s_plain": sp,
+        "backbone_tensors_unchanged": f"{unchanged}/{len(named) - len(params)}",
+        "wf_b_tensors_moved": f"{b_moved}/{sum(n.endswith('adapter_wf.b') for n in names)}"}})
+    check(math.isfinite(lk) and loss_rel <= FT_STEP_LOSS_BAR, f"loss {lk} vs plain {lp}")
+    check(whole <= FT_GRAD_BAR and statistics.median(rel_l2) <= FT_GRAD_BAR,
+          f"adapter gradients off by {whole} (all) / {statistics.median(rel_l2)} (median)")
+    check(whole_k32 <= whole_p32 + FT_GRAD_BAR,
+          f"adapter gradients farther from f32 ({whole_k32}) than plain's ({whole_p32}) + bar")
+    check(unchanged == len(named) - len(params), "an update moved the frozen backbone")
+    check(b_moved == sum(n.endswith("adapter_wf.b") for n in names) > 0,
+          "an update left a WF B insert in place")
+
+
+def phase_whisper_finetune(counters, workdir: Path, card: str):
+    """Main paths 23-25, the WF-adapted large-v3 fine-tune: `cli train` of
+    configs/whisper_large_v3_adapters.yaml as published (d 1280, 32 + 32
+    blocks, 20 heads of 64, V 51,866, 128 mels, WF rank 16,
+    train_adapters_only, B=16 x 30 s) with `data.tokenizer_dir` at the BPE
+    stand-in, total_steps cut to WHISPER_FT_STEPS and `whisper.remat` as
+    WHISPER_FT_REMAT says: exact launches a step (K1 1, K6 one an encoder
+    block, again in the backward's recompute under remat, K8 one an encoder
+    block), finite losses, the backbone bitwise and every WF B moved, peak
+    memory; K6 and K8 alone at the encoder's training shape; the bundle
+    loaded by api.load and served in bf16 (K7 at d=1280: the fold, then
+    K5, K6, K2h-out and K3c) and after quantize() in int8 (K10 with the
+    inserts, K9-int8, K11), each with exact launches and held to the plain
+    path; K7 at d=1280 and the int8 kernels alone on the trained weights;
+    one B=2 step against plain; steps/s at B=16 in turns, the step's idle
+    share and launches. -> (launches by path, errors, rows)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
+    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
+    from jiao_liao_speech_recognition_torch.train import engine
+    from jiao_liao_speech_recognition_torch.utils.config import apply_overrides, load_yaml
+
+    t_phase = time.perf_counter()
+    manifest = write_corpus(workdir, n=WHISPER_B, seed=51)
+    m = read_manifest(manifest)
+    bpe = write_bpe_standin(workdir / "bpe", m.texts(), seed=52)
+    ckpt = workdir / "ckpt"
+    overrides = [f"data.train_manifest={manifest}", f"data.tokenizer_dir={bpe}",
+                 f"train.checkpoint_dir={ckpt}", f"train.metrics_path={workdir / 'm.jsonl'}",
+                 f"train.optimizer.total_steps={WHISPER_FT_STEPS}", "train.log_every_steps=1",
+                 f"whisper.remat={str(WHISPER_FT_REMAT).lower()}"]
+    config = Path(__file__).resolve().parent / WHISPER_FT_CONFIG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0, t_cli = time.perf_counter(), time.time()
+    lines, launches = drive(counters, "whisper_finetune", lambda: cli_run(
+        ["train", "--config", config, *overrides]))
+    train_s = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    cfg = apply_overrides(load_yaml(str(config)), overrides)
+    w, n = cfg.whisper, WHISPER_FT_STEPS
+    records = [json.loads(s) for s in (workdir / "m.jsonl").read_text().splitlines()]
+    remat = 2 if WHISPER_FT_REMAT else 1
+    want = {key: 0 for key in counters} | {"K1": n, "K6": remat * w.encoder_layers * n,
+                                           "K8": w.encoder_layers * n}
+    wrong = {key: (launches[key], x) for key, x in want.items() if launches[key] != x}
+    final = ckpt / "final"
+    t0 = time.perf_counter()
+    trained = api.load(str(final), device="cuda")
+    load_s = time.perf_counter() - t0
+    tok = trained.tokenizer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init = engine.make_model(cfg, "cuda").state_dict()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frozen_same = moved = n_adapters = b_moved = n_b = 0
+    for key, v in trained.model.state_dict().items():
+        same = torch.equal(v, init[key])
+        if param_is_adapter(key):
+            n_adapters += 1
+            moved += not same
+            if key.endswith(".b"):
+                n_b += 1
+                b_moved += not same
+        else:
+            frozen_same += same
+    n_frozen = len(init) - n_adapters
+    del init
+    emit({"phase": "whisper_finetune", "config": WHISPER_FT_CONFIG, "card": card,
+          "params": sum(p.numel() for p in trained.model.parameters()),
+          "adapter_params": sum(p.numel() for k, p in trained.model.named_parameters()
+                                if param_is_adapter(k)),
+          "d_model": w.d_model, "layers": [w.encoder_layers, w.decoder_layers],
+          "heads": w.num_heads, "mlp": w.mlp_dim, "vocab": w.vocab_size, "mels": w.num_mels,
+          "wf_rank": w.adapter.wf_rank, "batch": cfg.data.batch_size, "steps": n,
+          "remat": WHISPER_FT_REMAT, "tokenizer": type(tok).__name__,
+          "tokenizer_ids": len(tok), "note": "BPE stand-in from the seed (no large-v3 files)",
+          "cli_last_line": lines[-1], "losses": [r["loss"] for r in records],
+          "step_s": [r["ts"] - t for r, t in zip(records, [t_cli] + [r["ts"] for r in records])],
+          "after_last_step_s": t_cli + train_s - records[-1]["ts"],
+          "seconds_cli_train": train_s, "peak_gb_cli_train": peak_train, "load_s": load_s,
+          "init_s": init_s,
+          "launches": launches, "backbone_tensors_unchanged": f"{frozen_same}/{n_frozen}",
+          "adapter_tensors_moved": f"{moved}/{n_adapters}",
+          "adapter_b_tensors_moved": f"{b_moved}/{n_b}"})
+    check(not wrong, f"whisper_finetune: launches (got, want): {wrong}")
+    check(len(records) == n and all(math.isfinite(r["loss"]) for r in records),
+          f"whisper fine-tune losses: {records}")
+    check(len(tok) == w.vocab_size == 51866, f"BPE ids {len(tok)}, vocab {w.vocab_size}")
+    check(frozen_same == n_frozen and n_b > 0 and b_moved == n_b,
+          "whisper fine-tune: the backbone moved or a WF B insert did not")
+
+    # the trained bundle served: bf16, then int8 (exact launches)
+    requests = [make_requests()[i] for i in (1, 3, 5)]
+    dc = dataclasses.replace(trained.config.decode, max_decode_len=WHISPER_TIMED_LEN)
+    paths = {"whisper_finetune": launches}
+    L, D = w.encoder_layers, w.decoder_layers
+    enc_want = {"K1": 1, "K7-attn": L, "K5": L, "K6": L, "K2h-out": L, "K7-mlp": L, "K3c": L,
+                "K2": 0, "K3": 0, "K8": 0}
+    texts = {}
+    wg.STEPS.reset()
+    texts["bf16"], paths["whisper_adapted_serve"] = drive(
+        counters, "whisper_adapted_serve", lambda: api.transcribe(trained, requests,
+                                                                  decode_cfg=dc))
+    steps = wg.STEPS.steps
+    want = enc_want | {"K9": 2 * D * steps, "K9-int8": 0, "K10": 0, "K11": 0}
+    wrong = {k: (paths["whisper_adapted_serve"][k], x) for k, x in want.items()
+             if paths["whisper_adapted_serve"][k] != x}
+    check(not wrong, f"whisper_adapted_serve: launches (got, want): {wrong}")
+    qb = trained.quantize()
+    wg.STEPS.reset()
+    texts["int8"], paths["whisper_adapted_int8"] = drive(
+        counters, "whisper_adapted_int8", lambda: api.transcribe(qb, requests, decode_cfg=dc))
+    steps8 = wg.STEPS.steps
+    want = enc_want | {"K9": D * steps8, "K9-int8": D * steps8, "K10": 8 * D * steps8,
+                       "K11": steps8}
+    wrong = {k: (paths["whisper_adapted_int8"][k], x) for k, x in want.items()
+             if paths["whisper_adapted_int8"][k] != x}
+    check(not wrong, f"whisper_adapted_int8: launches (got, want): {wrong}")
+    check(all(len(t) == len(requests) and all(isinstance(s, str) for s in t)
+              for t in texts.values()), "the trained Whisper bundle did not transcribe")
+
+    # held to the plain path: the encoder, greedy ids (margin rule) in bf16
+    # and through the plain int8 decoder's steps
+    model, qmodel = trained.model, qb.model
+    prompt, eot = wg.resolve_specials(w)
+    P = len(prompt)
+    wavs, _, _ = trained._prepare_audio_chunked(requests, None)
+    margin_rows = {}
+    with torch.inference_mode():
+        wav = torch.from_numpy(wavs).cuda()
+        enc_k = model.encode(featurize_batch(wav, cfg.frontend, kernels=True), kernels=True)
+        enc_p = model.encode(featurize_batch(wav, cfg.frontend, kernels=False), kernels=False)
+        for name, mdl in (("bf16", model), ("int8", qmodel)):
+            ids, lens = wg.greedy_from_enc(mdl, enc_k, None, WHISPER_TIMED_LEN, prompt, eot,
+                                           suppress_ids=w.suppress_ids,
+                                           begin_suppress_ids=w.begin_suppress_ids)
+            toks = torch.cat([torch.tensor(prompt, device="cuda").expand(ids.shape[0], P), ids],
+                             1)
+            if name == "bf16":
+                logits = mdl.decode(toks[:, :-1], enc_k, kernels=False).float()
+            else:
+                logits = forced_logits(mdl, toks, enc_k, kernels=False)
+            margin_rows[name] = margin_check(logits, toks, lens, P)
+    enc_rel = float((enc_k.float() - enc_p.float()).norm() / enc_p.float().norm())
+    emit({"phase": "whisper_finetune", "served": {
+        "chunks": int(wavs.shape[0]), "decode_steps": [steps, steps8],
+        "text_chars": {k: [len(s) for s in v] for k, v in texts.items()},
+        "encoder_rel_l2": enc_rel, "encoder_bar": ENC_REL_BAR,
+        "margin": {k: dict(zip(("coverage", "mismatched", "positions", "agree_all"), v))
+                   for k, v in margin_rows.items()},
+        "launches": {p: v for p, v in paths.items() if p != "whisper_finetune"}}})
+    check(enc_rel <= ENC_REL_BAR, f"adapted encoder off the plain path by {enc_rel}")
+    for name, (coverage, mismatch, _, _) in margin_rows.items():
+        check(coverage >= MIN_COVERAGE and mismatch == 0,
+              f"adapted {name} tokens disagree with plain ({mismatch}, coverage {coverage})")
+
+    rng = np.random.RandomState(53)
+    errs, rows = k7_d1280_rows(model, rng)
+    errs.update(adapted_int8_kernel_checks(qmodel, enc_k, rng))
+    del qb, qmodel, enc_k, enc_p
+    f_errs, f_rows = flash_train_rows(rng, WHISPER_B, WHISPER_T, w.num_heads,
+                                      w.d_model // w.num_heads, WHISPER_FT_LENS,
+                                      "whisper_finetune", "Whisper training", plain_iters=2)
+    for key, e in f_errs.items():
+        errs[key] = max(errs.get(key, 0.0), e)
+    rows.update(f_rows)
+
+    whisper_step_vs_plain(model, cfg, m, tok)
+    del trained, model
+    prompt_kw = {"family": "whisper", "whisper_prompt": prompt, "eot_id": eot}
+    it = BatchIterator(m, tok, cfg.data)
+    batches = [engine.batch_to_device(next(it), "cuda", **prompt_kw) for _ in range(2)]
+    gc.collect()  # the trained model's last references before a fresh 72 GB step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rate = train_rate("B16x30s_whisper_large_v3_adapters_yaml", cfg, batches,
+                      profile_steps=WHISPER_FT_PROFILE_STEPS, steps=WHISPER_FT_RATE_STEPS,
+                      turns=(True, True, True))
+    emit({"phase": "whisper_finetune", "phase_s": time.perf_counter() - t_phase,
+          "kernel_path_steps_s": rate["kernel_path_steps_s"],
+          "peak_gb_rate": torch.cuda.max_memory_allocated() / 2**30})
+    return paths, errs, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -5169,8 +5672,17 @@ def main() -> int:
     by_path.update(train_paths)
     for key, err in train_errs.items():
         errs[key] = max(errs[key], err)
-    rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"], train_rows["K6"]]}
-    rec["K8"] = {**rec["K8"], "joint_shapes": [train_rows["K8"]]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ft_paths, ft_errs, ft_rows = phase_whisper_finetune(counters, Path(tmp), card)
+    by_path.update(ft_paths)
+    for key, err in ft_errs.items():
+        errs[key] = max(errs[key], err)
+    rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"], train_rows["K6"]],
+                 "whisper_finetune_shapes": [ft_rows["K6"]]}
+    rec["K8"] = {**rec["K8"], "joint_shapes": [train_rows["K8"]],
+                 "whisper_finetune_shapes": [ft_rows["K8"]]}
+    for key in ("K7-attn", "K7-mlp"):
+        rec[key] = {**rec[key], "d1280_shapes": [ft_rows[key]]}
     rec["K9"] = {**rec["K9"], "joint_shapes": joint_rows["K9"]}
     table = []
     for key, name, _, _, src, replaces in KERNELS:

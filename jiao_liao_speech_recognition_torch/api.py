@@ -92,7 +92,9 @@ def stream(bundle, chunks: Iterable[np.ndarray], stream_cfg=None):
 def fine_tune(config: Union[str, ExperimentConfig], resume: bool = False, device="cuda",
               max_steps: Optional[int] = None):
     """Run the (adapter) fine-tuning loop that `config` describes (the ctc
-    family, or the joint CTC/attention family on its hybrid loss) on
+    family, the joint CTC/attention family on its hybrid loss, or Whisper on
+    its teacher-forced CE, e.g. configs/whisper_large_v3_adapters.yaml with
+    ``data.tokenizer_dir`` naming HF BPE files) on
     `device` -> (TrainState, ModelBundle); ``max_steps`` stops this call
     early (with a checkpoint) without changing the schedule. The final
     bundle is also saved to ``<train.checkpoint_dir>/final``, which ``load``

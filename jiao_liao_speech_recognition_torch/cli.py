@@ -3,6 +3,9 @@ subcommands, flags and JSON output:
 
     python -m jiao_liao_speech_recognition_torch.cli prepare table.tsv --out-dir m --cmvn
     python -m jiao_liao_speech_recognition_torch.cli train --config configs/x.yaml [key=value ...]
+    python -m jiao_liao_speech_recognition_torch.cli train \
+        --config configs/whisper_large_v3_adapters.yaml data.train_manifest=m/train.jsonl \
+        data.tokenizer_dir=bpe_dir
     python -m jiao_liao_speech_recognition_torch.cli evaluate --manifest m/test.jsonl \\
         --checkpoint ckpt/final --per-utt per_utt.jsonl
     python -m jiao_liao_speech_recognition_torch.cli serve a.wav b.wav --checkpoint ckpt \\
@@ -14,6 +17,7 @@ subcommands, flags and JSON output:
     python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav --checkpoint ckpt \\
         --strategy beam --beam-size 8 [--lm-path lm.npz --lm-weight 0.5]
     python -m jiao_liao_speech_recognition_torch.cli train-lm m/train.jsonl --output lm.npz
+    python -m jiao_liao_speech_recognition_torch.cli train-unigram m/train.jsonl --output u.json
     python -m jiao_liao_speech_recognition_torch.cli build-native
 
 ``train`` runs ``config.stages`` through ``train/schedules.run_stages``
@@ -35,7 +39,6 @@ from pathlib import Path
 
 # subcommand or flag -> the ROADMAP queue 1 item that ports its module
 NOT_PORTED = {
-    "train-unigram": "queue 1 item 10 (data/unigram.py)",
     "export-whisper": "queue 1 item 4 (the HF export)",
     "--profile": "queue 1 item 10 (utils/profiling.py)",
     "--multihost": "queue 1 item 9 (multi-GPU)",
@@ -309,6 +312,26 @@ def cmd_train_lm(args) -> int:
     return 0
 
 
+def cmd_train_unigram(args) -> int:
+    """EM-train a unigram subword vocab over manifest transcripts
+    (data/unigram.py); ``data.unigram_vocab`` pointed at the output trains
+    with it."""
+    from .data.manifest import read_manifest
+    from .data.unigram import UnigramTokenizer
+
+    texts = []
+    for m in args.manifest:
+        texts.extend(read_manifest(m).texts())
+    tok = UnigramTokenizer.train(texts, vocab_size=args.vocab_size,
+                                 max_piece_len=args.max_piece_len)
+    tok.save(args.output)
+    if args.sp_vocab:
+        tok.save_sp_vocab(args.sp_vocab)
+    print(json.dumps({"unigram_vocab": args.output, "vocab": len(tok), "texts": len(texts),
+                      "multi_char_pieces": sum(1 for p in tok.vocab[2:] if len(p) > 1)}))
+    return 0
+
+
 def cmd_import_whisper(args) -> int:
     from .models.whisper_import import import_hf_checkpoint
 
@@ -426,6 +449,14 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--order", type=int, default=3)
     pl.add_argument("--checkpoint", help="take the tokenizer from this bundle")
     pl.set_defaults(fn=cmd_train_lm)
+
+    pu = sub.add_parser("train-unigram", help="EM-train a unigram subword vocab")
+    pu.add_argument("manifest", nargs="+")
+    pu.add_argument("--output", required=True)
+    pu.add_argument("--vocab-size", type=int, default=1024)
+    pu.add_argument("--max-piece-len", type=int, default=4)
+    pu.add_argument("--sp-vocab", help="also write the spm_export_vocab TSV here")
+    pu.set_defaults(fn=cmd_train_unigram)
 
     pi = sub.add_parser("import-whisper",
                         help="HF Whisper checkpoint dir (safetensors) -> bundle checkpoint")

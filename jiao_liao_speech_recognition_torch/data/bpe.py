@@ -173,6 +173,21 @@ class ByteLevelBPE:
         special.update({k: v for k, v in vocab.items() if k.startswith("<|")})
         return cls(vocab, merges, special)
 
+    def save_hf_dir(self, path: str | Path) -> None:
+        """Write the files ``from_hf_dir`` reads: vocab.json, merges.txt (in
+        rank order) and, for specials outside the vocab, added_tokens.json."""
+        p = Path(path)
+        p.mkdir(parents=True, exist_ok=True)
+        (p / "vocab.json").write_text(json.dumps(self.vocab, ensure_ascii=False),
+                                      encoding="utf-8")
+        merges = sorted(self.ranks, key=self.ranks.get)
+        (p / "merges.txt").write_text(
+            "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges), encoding="utf-8")
+        added = {k: v for k, v in self.special.items() if k not in self.vocab}
+        if added:
+            (p / "added_tokens.json").write_text(json.dumps(added, ensure_ascii=False),
+                                                 encoding="utf-8")
+
     # ----------------------------------------------------------------- codec
     def _bpe_merge(self, symbols: List[str]) -> List[str]:
         """Lowest-rank-first pair merging."""

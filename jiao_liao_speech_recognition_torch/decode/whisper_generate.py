@@ -203,7 +203,8 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
     (``top_k_stable``) and gathers the self caches along the winning beams.
     The cross caches are projected once per utterance and repeated K times
     (``init_cache(..., beams=K)``); the K beams of an utterance share their
-    cross K/V, so they are never gathered. Finished beams continue with EOT
+    cross K/V, so they are never gathered (an Att adapter's slot caches
+    are, as the self caches). Finished beams continue with EOT
     at log-prob 0 only; only beam 0 starts alive. ``lm_bigram`` [V, V]
     (``load_bigram_matrix``) with lm_weight > 0 adds lm_weight * log
     P_LM(next | current token) to each step's log-probs."""
@@ -252,6 +253,9 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
         rows = (row0 + src).reshape(-1)
         for c in caches.values():
             c["self"] = {n: t.index_select(0, rows) for n, t in c["self"].items()}
+            if "slots" in c:  # an Att adapter's caches follow their beams too
+                c["slots"] = {s: {n: t.index_select(0, rows) for n, t in slot.items()}
+                              for s, slot in c["slots"].items()}
     gen = tokens[:, :, P:]
     is_eot = gen == eot_id
     first = torch.argmax(is_eot.to(torch.int32), dim=2)

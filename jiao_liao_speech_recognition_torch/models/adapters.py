@@ -7,7 +7,10 @@ MLP sublayers. Every adapter parameter lives under a module named
 ``adapter_bn/...``), so ``param_is_adapter`` derives the trainable mask
 from names alone and ``models/convert.py`` stays a rename.
 
-The Att adapter's KV-cached decode comes with a later Whisper slice.
+The Att adapter decodes over its own KV cache (``cache_shape``, packed
+[B, T, heads * key_dim], made by the decoders' ``init_cache`` under
+``slots``), so a decode step attends over positions 0..pos as the
+teacher-forced pass that trained it did.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 from torch import nn
 
 from ..utils.config import AdapterConfig
-from .layers import Dense, Dropout, LayerNorm, dot_product_attention, lecun_normal_
+from .layers import (Dense, Dropout, LayerNorm, dot_product_attention, lecun_normal_,
+                     update_cache_rows)
 
 ADAPTER_PREFIX = "adapter_"
 KINDS = ("none", "bottleneck", "wf", "att")
@@ -85,21 +89,35 @@ class AttAdapter(nn.Module):
         nn.init.zeros_(self.out_proj.kernel)
         self.dropout = Dropout(cfg.dropout) if cfg.dropout > 0 else None
 
+    def cache_shape(self, batch: int, max_len: int):
+        """The packed [batch, max_len, heads * key_dim] shape of its K and V
+        caches."""
+        return (batch, max_len, self.num_heads * self.key_dim)
+
     def forward(self, h: torch.Tensor, kv_lengths=None, kernels: bool = True,
-                mask=None) -> torch.Tensor:
-        """mask: the block's banded [B, 1, T, T] mask in place of kv_lengths
-        (limited-context models), else None."""
-        B, T, _ = h.shape
+                mask=None, kv_cache=None, cache_index=None):
+        """mask: the block's mask (a decoder's causal or decode-step key
+        mask, a banded [B, 1, T, T] one), else None and kv_lengths. With
+        `kv_cache` ({"k", "v"} of ``cache_shape``) this step's K/V rows are
+        written at `cache_index` in place and the queries attend over the
+        whole cache under `mask` -> (out, kv_cache)."""
+        B, Tq, _ = h.shape
         H, dk = self.num_heads, self.key_dim
         q, k, v = self.qkv_proj(self.ln(h)).split(H * dk, dim=-1)
+        if kv_cache is not None:
+            k = update_cache_rows(kv_cache["k"], k, cache_index, 1)
+            v = update_cache_rows(kv_cache["v"], v, cache_index, 1)
+        Tk = k.shape[1]
         out = dot_product_attention(
-            q.reshape(B, T, H, dk), k.reshape(B, T, H, dk), v.reshape(B, T, H, dk),
-            mask, kv_lengths=kv_lengths, use_flash=not self.training or T >= 512, kernels=kernels,
+            q.reshape(B, Tq, H, dk), k.reshape(B, Tk, H, dk), v.reshape(B, Tk, H, dk),
+            mask, kv_lengths=kv_lengths, use_flash=not self.training or Tq >= 512,
+            kernels=kernels,
         )
-        out = self.out_proj(out.reshape(B, T, H * dk))
+        out = self.out_proj(out.reshape(B, Tq, H * dk))
         if self.dropout is not None:
             out = self.dropout(out)
-        return h + self.scale * out
+        y = h + self.scale * out
+        return y if kv_cache is None else (y, kv_cache)
 
 
 class AdapterSlot(nn.Module):
@@ -116,6 +134,11 @@ class AdapterSlot(nn.Module):
         else:
             raise ValueError(f"no slot adapter for kind {cfg.kind!r}")
 
-    def forward(self, h, kv_lengths=None, kernels: bool = True, mask=None):
-        inner = self.adapter_bn if hasattr(self, "adapter_bn") else self.adapter_att
-        return inner(h, kv_lengths, kernels, mask)
+    def forward(self, h, kv_lengths=None, kernels: bool = True, mask=None, kv_cache=None,
+                cache_index=None):
+        """-> h adapted, or (h adapted, kv_cache) with a cache: the Att
+        adapter's, updated in place; the bottleneck's, passed through."""
+        if hasattr(self, "adapter_att"):
+            return self.adapter_att(h, kv_lengths, kernels, mask, kv_cache, cache_index)
+        out = self.adapter_bn(h, kv_lengths, kernels, mask)
+        return out if kv_cache is None else (out, kv_cache)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..data.tokenizer import CharTokenizer
+from ..data.unigram import UnigramTokenizer
 from ..decode.ctc import ctc_collapse_with_times, ctc_greedy_collapse, ids_to_texts
 from ..frontend import audio_io, features
 from ..utils.config import STRATEGIES, DecodeConfig, ExperimentConfig, load_yaml, save_yaml
@@ -64,20 +65,19 @@ from .whisper import WhisperModel
 PARAMS_FILE = "params.npz"  # flat p_a/b/c layout (models/convert.py)
 
 
-def _load_vocab(path: Path) -> CharTokenizer:
-    """A checkpoint's vocab.json: a char vocab, or a unigram one, which the
-    port cannot read yet (the JAX package's data/unigram.py)."""
+def _load_vocab(path: Path):
+    """A checkpoint's vocab.json: a char vocab, or a unigram one
+    (``"type": "unigram"``, data/unigram.py)."""
     obj = json.loads(path.read_text(encoding="utf-8"))
     if obj.get("type") == "unigram":
-        raise NotImplementedError(
-            f"{path}: a unigram tokenizer; the port has no data/unigram.py yet "
-            "(the JAX package's UnigramTokenizer)")
+        return UnigramTokenizer(obj["pieces"], obj["logprobs"])
     return CharTokenizer(obj["vocab"])
 
 
 def load_tokenizer(ckpt: Path):
     """A checkpoint directory's tokenizer: ByteLevelBPE when it holds
-    merges.txt, else its char vocab.json, else blank and unk only."""
+    merges.txt, else its char or unigram vocab.json, else blank and unk
+    only."""
     if ckpt.is_dir() and (ckpt / "merges.txt").exists():
         from ..data.bpe import ByteLevelBPE
 
@@ -91,7 +91,7 @@ def load_tokenizer(ckpt: Path):
 class ModelBundle:
     config: ExperimentConfig
     model: Union[CTCEncoderModel, WhisperModel, JointCTCAttentionModel]
-    tokenizer: object  # CharTokenizer, or ByteLevelBPE for Whisper checkpoints
+    tokenizer: object  # CharTokenizer, UnigramTokenizer, or ByteLevelBPE (Whisper)
 
     @property
     def device(self) -> torch.device:
@@ -158,11 +158,15 @@ class ModelBundle:
         return self.config.model_family == "joint"
 
     def save(self, path: str) -> None:
-        """Write params.npz, config.yaml and vocab.json into `path`."""
+        """Write params.npz, config.yaml and the tokenizer into `path`:
+        vocab.json (char or unigram), or a BPE tokenizer's vocab.json and
+        merges.txt (``load_tokenizer`` reads either back)."""
         p = Path(path)
         p.mkdir(parents=True, exist_ok=True)
         save_yaml(self.config, str(p / "config.yaml"))
-        if hasattr(self.tokenizer, "save"):
+        if hasattr(self.tokenizer, "save_hf_dir"):
+            self.tokenizer.save_hf_dir(p)
+        elif hasattr(self.tokenizer, "save"):
             self.tokenizer.save(p / "vocab.json")
         to_params = {"whisper": whisper_state_dict_to_params,
                      "joint": joint_state_dict_to_params}.get(self.config.model_family,

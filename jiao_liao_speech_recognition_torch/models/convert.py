@@ -22,7 +22,10 @@ The reverse (``state_dict_to_params``) restores the ``dense`` level under
 the backbone's WFDense layers (the four attention projections and fc1/fc2)
 and writes the same two layouts: ``write_npz_params`` (``p_a/b/c``) and
 ``adapter_arrays`` (the JAX ``save_adapter_only`` npz: key ``"/".join(path)``,
-adapter leaves only).
+adapter leaves only) for each family (``FAMILIES``: ``family_of(model)``
+names a model's). Dense layers inside an adapter (an Att adapter's
+``qkv_proj`` / ``out_proj``, a bottleneck's ``down`` / ``up``) are flax
+``nn.Dense`` and keep no ``dense`` level.
 """
 
 from __future__ import annotations
@@ -122,13 +125,23 @@ def write_npz_params(params: Mapping, path: str | Path) -> None:
     np.savez(path, **{"p_" + "/".join(k): v for k, v in flatten_params(params).items()})
 
 
-def adapter_arrays(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def adapter_arrays(state: Mapping[str, torch.Tensor], family: str = "ctc") -> Dict[str, np.ndarray]:
     """Adapter leaves only, keyed ``"/".join(flax path)`` as the JAX
     ``train/checkpoints.py::save_adapter_only`` writes them."""
     from .adapters import param_is_adapter
 
-    flat = flatten_params(state_dict_to_params(state))
+    flat = flatten_params(FAMILIES[family][1](state))
     return {"/".join(k): v for k, v in flat.items() if param_is_adapter(k)}
+
+
+def family_of(model) -> str:
+    """"whisper", "joint" or "ctc": the weight bridge a model takes."""
+    from .joint import JointCTCAttentionModel
+    from .whisper import WhisperModel
+
+    if isinstance(model, WhisperModel):
+        return "whisper"
+    return "joint" if isinstance(model, JointCTCAttentionModel) else "ctc"
 
 
 # --- Whisper -----------------------------------------------------------------
@@ -186,7 +199,8 @@ def whisper_flax_path(key: str, quantized: bool = False) -> Tuple[str, ...]:
             i += 1
     if quantized:
         out.insert(len(out) - 1, "dense_q")
-    elif out[-2] in WF_DENSE and out[-1] in ("kernel", "bias"):
+    elif out[-2] in WF_DENSE and out[-1] in ("kernel", "bias") \
+            and not any(p.startswith("adapter_") for p in out):
         out.insert(len(out) - 1, "dense")
     if out[-2] in WHISPER_CONVS and out[-1] == "weight":
         out[-1] = "kernel"
@@ -276,3 +290,11 @@ def joint_state_dict_to_params(state: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(arr)
     return params
+
+
+# family -> (flax path -> state_dict key, state_dict -> flax tree)
+FAMILIES = {
+    "ctc": (torch_key, state_dict_to_params),
+    "whisper": (whisper_torch_key, whisper_state_dict_to_params),
+    "joint": (joint_torch_key, joint_state_dict_to_params),
+}

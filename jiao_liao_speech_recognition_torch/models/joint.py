@@ -138,12 +138,9 @@ class JointCTCAttentionModel(nn.Module):
     def init_cache(self, batch: int, enc: torch.Tensor, max_len: Optional[int] = None,
                    layout: Optional[str] = None, beams: int = 1) -> Dict:
         """Zeroed self caches over min(max_len, max_target_positions)
-        positions and the cross K/V projected once from enc
-        (``whisper.decoder_caches``: the same layouts)."""
-        if self.cfg.adapter.kind == "att":
-            raise NotImplementedError(
-                "the cached decode of Att-adapter slots is not ported yet: ROADMAP queue 1 "
-                "item 4 (the AttAdapter's KV-cached decode)")
+        positions, the cross K/V projected once from enc, and an Att
+        adapter's slot caches (``whisper.decoder_caches``: the same
+        layouts)."""
         t_cache = self.cfg.max_target_positions
         if max_len is not None:
             t_cache = min(max_len, t_cache)

@@ -186,11 +186,12 @@ class Dense(nn.Module):
         return y
 
     def quantized(self) -> "Int8Dense":
-        if hasattr(self, "adapter_wf"):
-            raise NotImplementedError("int8 serving of a WF-adapted Dense layer")
+        """The int8 form; a WF insert stays beside it as it is (the JAX
+        tree's ``adapter_wf`` beside ``dense_q``)."""
         with torch.no_grad():
             q, scale = quantize_int8(self.kernel)
-            return Int8Dense(q, scale, None if self.bias is None else self.bias.detach().clone())
+            return Int8Dense(q, scale, None if self.bias is None else self.bias.detach().clone(),
+                             getattr(self, "adapter_wf", None))
 
 
 class Int8Dense(nn.Module):
@@ -199,33 +200,42 @@ class Int8Dense(nn.Module):
     f32 [out] (``quantize_int8``, per output channel) and the f32 ``bias``.
     y = int8_matmul(x, kernel_q, scale, bias) (K10 at decode-step row
     counts, the bias, kept as a serving copy in x's dtype, added in its
-    epilogue; x's dtype out)."""
+    epilogue; x's dtype out), then a WF insert's low-rank term when the
+    layer was adapted (``adapter_wf``, its f32 parameters kept)."""
 
     def __init__(self, kernel_q: torch.Tensor, scale: torch.Tensor,
-                 bias: Optional[torch.Tensor]):
+                 bias: Optional[torch.Tensor], adapter_wf: Optional[nn.Module] = None):
         super().__init__()
         self.register_buffer("kernel_q", kernel_q)
         self.register_buffer("scale", scale)
         self.register_buffer("bias", bias)
+        if adapter_wf is not None:
+            self.adapter_wf = adapter_wf
         self._bias = ServingCopy()
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         bias = None if self.bias is None else self._bias.get(
             x.dtype, (self.bias,), lambda: self.bias.to(x.dtype))
-        return int8_matmul(x, self.kernel_q, self.scale, kernels, bias)
+        y = int8_matmul(x, self.kernel_q, self.scale, kernels, bias)
+        if hasattr(self, "adapter_wf"):
+            y = self.adapter_wf(x, y)
+        return y
 
 
 def quantized_copy(module: nn.Module) -> nn.Module:
-    """A copy of `module` for int8 serving: every submodule with a
+    """A copy of `module` for int8 serving: every backbone submodule with a
     ``quantized()`` form (Dense, the tied embedding) is replaced by it; the
-    other parameters and buffers are the same tensors, and serving copies
-    start empty. `module` itself is left as it is."""
+    adapters (``adapter_*``: their Dense layers too, as the JAX package
+    quantizes only the backbone's ``dense`` trees) and the other parameters
+    and buffers are the same tensors, and serving copies start empty.
+    `module` itself is left as it is."""
     if hasattr(module, "quantized"):
         return module.quantized()
     new = copy.copy(module)
     new._parameters = dict(module._parameters)
     new._buffers = dict(module._buffers)
-    new._modules = {n: None if m is None else quantized_copy(m) for n, m in module._modules.items()}
+    new._modules = {n: m if m is None or n.startswith("adapter_") else quantized_copy(m)
+                    for n, m in module._modules.items()}
     for name, value in vars(module).items():
         if isinstance(value, ServingCopy):
             setattr(new, name, ServingCopy())
@@ -547,14 +557,16 @@ class TransformerBlock(nn.Module):
         mask: Optional[torch.Tensor] = None, enc: Optional[torch.Tensor] = None,
         enc_mask: Optional[torch.Tensor] = None, self_cache: Optional[dict] = None,
         cross_cache: Optional[dict] = None, cache_index=None,
-        enc_kv_lengths: Optional[torch.Tensor] = None,
+        enc_kv_lengths: Optional[torch.Tensor] = None, slot_caches: Optional[dict] = None,
     ):
         """x [B, T, d] in the compute dtype; kv_lengths [B] valid keys of the
         self-attention (frames, or pos + 1 in a decode step); mask a
         self-attention mask (the decoder's causal one); enc / enc_mask /
-        enc_kv_lengths the cross-attention's keys. -> x, or
-        (x, self_cache, cross_cache, None) when a cache is given (the JAX
-        block's 4-tuple; the last slot is the Att adapter's caches)."""
+        enc_kv_lengths the cross-attention's keys; slot_caches the Att
+        adapter slots' {"post_attn", "post_mlp"} caches in a decode step
+        (written in place at cache_index). -> x, or (x, self_cache,
+        cross_cache, slot_caches) when a cache is given (the JAX block's
+        4-tuple)."""
         serve = not self.training and not torch.is_grad_enabled()
         # int8 Dense layers (ModelBundle.quantize) keep the module path: the
         # fused kernels read bf16 weights
@@ -568,7 +580,8 @@ class TransformerBlock(nn.Module):
                 r, self_cache = r
             x = x + r
         if self.post_attn_slot is not None:
-            x = self.post_attn_slot(x, kv_lengths, kernels, mask)
+            x = self._slot(self.post_attn_slot, "post_attn", x, kv_lengths, kernels, mask,
+                           slot_caches, cache_index)
         if self.cross_attention:
             r = self.cross_attn(self.cross_attn_ln(x), enc_kv_lengths, kernels, kv=enc,
                                 mask=enc_mask, kv_cache=cross_cache)
@@ -582,10 +595,18 @@ class TransformerBlock(nn.Module):
         else:
             x = x + self.mlp(self.mlp_ln(x), kernels)
         if self.post_mlp_slot is not None:
-            x = self.post_mlp_slot(x, kv_lengths, kernels, mask)
+            x = self._slot(self.post_mlp_slot, "post_mlp", x, kv_lengths, kernels, mask,
+                           slot_caches, cache_index)
         if self_cache is not None or cross_cache is not None:
-            return x, self_cache, cross_cache, None
+            return x, self_cache, cross_cache, slot_caches
         return x
+
+    @staticmethod
+    def _slot(slot, name, x, kv_lengths, kernels, mask, slot_caches, cache_index):
+        """An adapter slot, over its own cache when the step carries one."""
+        if slot_caches is None:
+            return slot(x, kv_lengths, kernels, mask)
+        return slot(x, kv_lengths, kernels, mask, slot_caches[name], cache_index)[0]
 
     def precompute_cross(self, enc: torch.Tensor) -> dict:
         """The cross-attention's K/V of an encoder output [B, T, d], once
@@ -594,10 +615,11 @@ class TransformerBlock(nn.Module):
 
     def _serve_attention(self, x, kv_lengths, kernels: bool):
         """Fused self-attention sublayer. bf16 with kernels=True: K2 (K7 with
-        WF inserts) where K2's shared memory fits; else K5, then K6, then
-        the out-projection plus residual kernel (the JAX block's long-context
-        route, with its XLA product a kernel here). Otherwise the plain
-        version of K2."""
+        WF inserts: the fold, then K2's launches) where K2's shared memory
+        fits; else K5, then K6, then the out-projection plus residual kernel
+        (the JAX block's long-context route, with its XLA product a kernel
+        here; K7 runs them on the folded weights). Otherwise the plain
+        version of K2 (K7)."""
         fused = kernels and x.dtype == torch.bfloat16
         sa, ln = self.self_attn, self.self_attn_ln
         if kv_lengths is None:

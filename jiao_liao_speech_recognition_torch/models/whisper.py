@@ -14,6 +14,18 @@ self- and cross-attention in every block over head-major caches, whose
 horizon is padded once to a multiple of 128 (``init_cache``). Random init
 happens on the target device from a seeded generator.
 
+Adapters (``cfg.adapter``) sit in every encoder and decoder block as in the
+CTC backbone: WF inserts on the attention projections and fc1/fc2, or
+bottleneck / Att slots after the sublayers. A WF-adapted encoder serves
+through K7 (the inserts folded into the weights, then K5, K6, the
+out-projection kernel and K3 on the folded weights); an Att-adapted
+decoder keeps a KV cache a slot (``init_cache``'s ``slots``). Training
+(``model.train()``, train/engine.py's Whisper loss) takes the module path:
+the encoder's self-attention runs flash (K6, K8 backward) at T >=
+``flash_train_min_q``, dropout masks are seeded per forward by
+``dropout_seed``, and ``cfg.remat`` recomputes each encoder block in the
+backward (the JAX module remats the encoder blocks only).
+
 An int8 serving model (``ModelBundle.quantize``: ``Int8Dense`` decoder
 layers, ``Int8TiedEmbedding``) runs K10 for its projections, int8 cross
 caches through K9's int8 half, int8 self caches where the JAX package
@@ -29,6 +41,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.decode_attention import pad_time_to_tk, round_tk
 from ..ops.numerics import full_f32
@@ -36,6 +49,7 @@ from ..ops.quant import int8_tied_logits, quantize_int8, quantize_kv
 from ..utils.config import WhisperConfig
 from .ctc_model import DTYPES, Conv
 from .layers import (
+    Dropout,
     LayerNorm,
     ServingCopy,
     TransformerBlock,
@@ -55,11 +69,9 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def _check_adapter(cfg: WhisperConfig) -> None:
-    if cfg.adapter.kind != "none":
-        raise NotImplementedError(
-            f"Whisper with adapter kind {cfg.adapter.kind!r}: the WF-adapted Whisper "
-            "comes with the Whisper fine-tuning slice")
+def _adapter(cfg):
+    """The blocks' adapter config, None for kind "none"."""
+    return cfg.adapter if cfg.adapter.kind != "none" else None
 
 
 class TiedEmbedding(nn.Module):
@@ -132,7 +144,7 @@ class WhisperEncoder(nn.Module):
         self.conv2 = Conv(cfg.d_model, cfg.d_model, 3, gen)
         self.blocks = nn.ModuleList(
             TransformerBlock(cfg.d_model, cfg.num_heads, cfg.mlp_dim, gen, "erf", cfg.dropout,
-                             None, cfg.use_flash_attention, cfg.flash_train_min_q)
+                             _adapter(cfg), cfg.use_flash_attention, cfg.flash_train_min_q)
             for _ in range(cfg.encoder_layers)
         )
         self.ln_post = LayerNorm(cfg.d_model)
@@ -154,8 +166,12 @@ class WhisperEncoder(nn.Module):
                 f"{t} encoder positions > max_source_positions={cfg.max_source_positions} "
                 "(Whisper's fixed receptive field); chunk the audio to 30 s")
         x = x + sinusoidal_positions(t, cfg.d_model, dt, str(x.device))[None]
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, None, kernels)
+            if remat:
+                x = checkpoint(block, x, None, kernels, use_reentrant=False)
+            else:
+                x = block(x, None, kernels)
         return self.ln_post(x)
 
 
@@ -169,7 +185,7 @@ class WhisperDecoder(nn.Module):
             self.embed_positions.normal_(0.0, 0.02, generator=gen)
         self.blocks = nn.ModuleList(
             TransformerBlock(cfg.d_model, cfg.num_heads, cfg.mlp_dim, gen, "erf", cfg.dropout,
-                             None, cfg.use_flash_attention, cfg.flash_train_min_q,
+                             _adapter(cfg), cfg.use_flash_attention, cfg.flash_train_min_q,
                              cross_attention=True)
             for _ in range(cfg.decoder_layers)
         )
@@ -233,7 +249,13 @@ def decoder_caches(blocks, cfg, batch: int, enc: torch.Tensor, t_cache: int,
     With ``beams`` = K > 1 the caches serve batch * K rows, row b * K + k
     for beam k of utterance b, and every decision above is made at that
     batch: the cross K/V are projected once from enc [batch, T, d] and
-    repeated K times, bit for bit init_cache over enc repeated K times."""
+    repeated K times, bit for bit init_cache over enc repeated K times.
+
+    An Att-adapted decoder (``cfg.adapter.kind == "att"``) also gets a
+    block's ``slots``: zeroed packed K/V caches [rows, T, heads * key_dim]
+    in the compute dtype for its ``post_attn`` and ``post_mlp`` slots, over
+    the self caches' horizon (128-rounded when head-major), which the
+    decode step's key mask spans."""
     dt = DTYPES[cfg.dtype]
     rows = batch * beams
     H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
@@ -269,7 +291,13 @@ def decoder_caches(blocks, cfg, batch: int, enc: torch.Tensor, t_cache: int,
                 self_cache[f"{n}_scale"] = torch.zeros(shape[:-1], device=dev)
         else:
             self_cache = {n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}
-        caches[f"block_{i}"] = {"self": self_cache, "cross": cross}
+        entry = {"self": self_cache, "cross": cross}
+        if cfg.adapter.kind == "att":
+            t_self = shape[-2]
+            slot_shape = (rows, t_self, cfg.adapter.att_num_heads * cfg.adapter.att_key_dim)
+            entry["slots"] = {s: {n: torch.zeros(slot_shape, dtype=dt, device=dev)
+                                  for n in ("k", "v")} for s in ("post_attn", "post_mlp")}
+        caches[f"block_{i}"] = entry
     return caches
 
 
@@ -301,10 +329,12 @@ def decoder_step(blocks, ln, embed, position_rows, token: torch.Tensor, pos, enc
     enc_mask = length_mask(enc_lengths, enc.shape[1]) if enc_lengths is not None else None
     for i, block in enumerate(blocks):
         c = caches[f"block_{i}"]
-        x, c["self"], c["cross"], _ = block(
+        x, c["self"], c["cross"], slots = block(
             x, lens, kernels, mask=kmask, enc=enc, enc_mask=enc_mask,
             self_cache=c["self"], cross_cache=c["cross"], cache_index=pos,
-            enc_kv_lengths=enc_lengths)
+            enc_kv_lengths=enc_lengths, slot_caches=c.get("slots"))
+        if slots is not None:
+            c["slots"] = slots
     return embed.attend(ln(x), dt, kernels)[:, 0], caches
 
 
@@ -314,7 +344,6 @@ class WhisperModel(nn.Module):
 
     def __init__(self, cfg: WhisperConfig, device="cpu", seed: int = 0):
         super().__init__()
-        _check_adapter(cfg)
         if cfg.dtype not in DTYPES:
             raise ValueError(f"unknown compute dtype {cfg.dtype!r}")
         self.cfg = cfg
@@ -323,8 +352,14 @@ class WhisperModel(nn.Module):
         with device:  # parameters are made and initialised where they live
             self.encoder = WhisperEncoder(cfg, gen)
             self.decoder = WhisperDecoder(cfg, gen)
+        self._dropouts = [m for m in self.modules() if isinstance(m, Dropout)]
+        for site, m in enumerate(self._dropouts):
+            m.site = site
 
-    def forward(self, mel, tokens, enc_lengths=None, kernels: bool = True):
+    def forward(self, mel, tokens, enc_lengths=None, kernels: bool = True,
+                dropout_seed: Optional[int] = None):  # needed in training when dropout > 0
+        for m in self._dropouts:
+            m.seed = dropout_seed
         return self.decoder(tokens, self.encoder(mel, kernels), enc_lengths, kernels)
 
     def encode(self, mel, kernels: bool = True):

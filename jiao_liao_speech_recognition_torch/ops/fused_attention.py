@@ -238,8 +238,11 @@ def attention_sublayer_wf_plain(x, g, bl, base, wf, num_heads, eps, wf_scale, kv
 
 
 def fused_attention_sublayer_wf(x, g, bl, base, wf, num_heads, eps, wf_scale, kv_lengths):
-    """K7 wrapper (attention): the fold in f32, then the K2 wrapper. CPU
-    tensors take attention_sublayer_wf_plain; CUDA tensors launch K2 or raise."""
+    """K7 wrapper (attention): the fold in f32, then the unadapted
+    sublayer's launches on the folded weights: K2 where it fits, else (d =
+    1280) K5, K6 and ``out_proj_residual``, the route of the unadapted
+    large-v3 encoder. CPU tensors take attention_sublayer_wf_plain; CUDA
+    tensors launch the kernels or raise."""
     if x.device.type == "cpu":
         return attention_sublayer_wf_plain(
             x, g, bl, base, wf, num_heads, eps, wf_scale, kv_lengths
@@ -247,9 +250,19 @@ def fused_attention_sublayer_wf(x, g, bl, base, wf, num_heads, eps, wf_scale, kv
     refuse_grad("fused_attention_sublayer_wf", x, *base.values(),
                 *(t for f in wf.values() for t in f.values()))
     w = _folded(base, wf, wf_scale)
-    out = fused_attention_sublayer(
-        x, g, bl, w["wq"], w["bq"], w["wk"], w["wv"], w["bv"], w["wo"], w["bo"],
-        kv_lengths, num_heads, eps,
-    )
+    if attention_sublayer_fits(x.shape[2], num_heads):
+        out = fused_attention_sublayer(
+            x, g, bl, w["wq"], w["bq"], w["wk"], w["wv"], w["bv"], w["wo"], w["bo"],
+            kv_lengths, num_heads, eps,
+        )
+    else:
+        from .flash_attention import flash_attention_packed
+        from .fused_mlp import fused_ln_qkv
+
+        bf = torch.bfloat16
+        q, k, v = fused_ln_qkv(x, g, bl, *pack_qkv(w["wq"], w["bq"], w["wk"], w["wv"], w["bv"],
+                                                   bf), eps)
+        attn = flash_attention_packed(q, k, v, num_heads, kv_lengths=kv_lengths)
+        out = out_proj_residual(x, attn, w["wo"].to(bf), w["bo"].to(bf))
     WF_COUNTER.launches += 1
     return out

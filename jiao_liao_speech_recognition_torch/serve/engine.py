@@ -30,7 +30,10 @@ the addresses the graph recorded, those inside the kernels' TMA
 descriptors included, stay valid; so do those of the weights and their
 serving copies, so an engine serves the weights it was made with (make a
 new one after changing them). A capture or replay that fails raises. On
-a CPU bundle the same step runs eagerly.
+a CPU bundle the same step runs eagerly. An adapted bundle serves as it
+is: WF inserts sit in the Dense layers (K7 in the admission's encoder);
+an Att adapter's slot caches are lanes of the pool like the self caches,
+written at each lane's position.
 
 Greedy only, as in the JAX package.
 """
@@ -87,6 +90,14 @@ class ServingStats:
         return float(np.percentile(self.latencies_s, 95)) if self.latencies_s else 0.0
 
 
+def _rows_of_zeros(tree, rows: int):
+    """The cache tree `tree` with every tensor zeroed at `rows` rows (the
+    self, cross and any Att adapter slot caches alike)."""
+    if isinstance(tree, dict):
+        return {k: _rows_of_zeros(v, rows) for k, v in tree.items()}
+    return torch.zeros((rows, *tree.shape[1:]), dtype=tree.dtype, device=tree.device)
+
+
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for key in sorted(tree) for t in _leaves(tree[key])]
@@ -139,11 +150,7 @@ class ServingEngine:
             t_enc = -(-(self._window // fe.hop_length) // 2)  # conv2 halves the frames
             enc1 = torch.zeros(1, t_enc, wcfg.d_model, dtype=DTYPES[wcfg.dtype], device=dev)
             unit = self.model.init_cache(1, enc1, self.max_len, self._layout)
-            self._caches = {blk: {kind: {n: torch.zeros((S, *t.shape[1:]), dtype=t.dtype,
-                                                       device=dev)
-                                         for n, t in c.items()}
-                                  for kind, c in entry.items()}
-                            for blk, entry in unit.items()}
+            self._caches = _rows_of_zeros(unit, S)
             self._enc_all = torch.zeros((S, *enc1.shape[1:]), dtype=enc1.dtype, device=dev)
             self._tokens = fresh.repeat(S, 1)
             self._pos = torch.zeros(S, dtype=torch.long, device=dev)

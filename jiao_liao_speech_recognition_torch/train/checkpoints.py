@@ -73,18 +73,20 @@ class TrainCheckpointer:
 
 
 def save_adapter_only(path: str, model: torch.nn.Module) -> None:
-    """The adapter-only npz of the JAX package (adapter leaves, flax paths)."""
+    """The adapter-only npz of the JAX package (adapter leaves, flax paths)
+    of a CTC, Whisper or joint model."""
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(p, **convert.adapter_arrays(model.state_dict()))
+    np.savez(p, **convert.adapter_arrays(model.state_dict(), convert.family_of(model)))
 
 
 def load_adapter_only(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Copy the adapter leaves of an adapter-only npz into `model`."""
     params = dict(model.named_parameters())
+    to_key = convert.FAMILIES[convert.family_of(model)][0]
     with np.load(path) as data, torch.no_grad():
         for key in data.files:
-            name = convert.torch_key(tuple(key.split("/")))
+            name = to_key(tuple(key.split("/")))
             if name not in params:
                 raise KeyError(f"{key}: no such adapter parameter in this model")
             params[name].copy_(torch.from_numpy(data[key]))

@@ -17,8 +17,12 @@ one card.
   CTC/attention family): one encoder pass feeds the CTC head and the
   teacher-forced decoder; ctc_weight * CTC + (1 - ctc_weight) * CE, the CE
   over the targets that ``batch_to_device(..., family="joint")`` builds
-  (sos/eos = the blank, id 0). ``make_loss_fn`` / ``make_model`` choose by
-  ``config.model_family``.
+  (sos/eos = the blank, id 0). ``make_whisper_loss_fn``: the teacher-forced
+  CE of Whisper over the prompt-prefixed tokens and shifted targets of
+  ``batch_to_device(..., family="whisper")``. ``make_loss_fn`` /
+  ``make_model`` / ``size_vocab`` choose by ``config.model_family``;
+  ``build_tokenizer_for`` gives a byte-level BPE (``data.tokenizer_dir``),
+  a unigram (``data.unigram_vocab``) or a char vocabulary.
 * ``train_loop`` (one run, or one stage of ``train/schedules.py``: its own
   checkpoint directory, a fresh optimizer over the stage's trainable set)
   / ``run_experiment`` / ``evaluate_manifest``.
@@ -232,10 +236,7 @@ def make_joint_loss_fn(config: ExperimentConfig, model) -> Callable:
                                              dropout_seed=seeds[1] if train else None)
         nll = ctc_loss(ctc_lp, out_lens, batch["labels"], batch["label_lengths"])
         loss_ctc = (nll / batch["label_lengths"].clamp_min(1).float()).mean()
-        targets = batch["targets"]
-        valid = targets >= 0
-        ce = cross_entropy_like_optax(dec_logits, targets.clamp_min(0))
-        loss_att = (ce * valid).float().sum().to(ce.dtype) / valid.sum().clamp_min(1)
+        loss_att = masked_mean_ce(dec_logits, batch["targets"])
         loss = w * loss_ctc + (1.0 - w) * loss_att
         return loss, {"loss": loss.detach(), "loss_ctc": loss_ctc.detach(),
                       "loss_att": loss_att.detach()}
@@ -243,29 +244,63 @@ def make_joint_loss_fn(config: ExperimentConfig, model) -> Callable:
     return loss_fn
 
 
+def masked_mean_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The CE (``cross_entropy_like_optax``) averaged over the positions
+    whose target is not -100, as the JAX steps sum it: in the logits'
+    dtype, the sum accumulated in f32 and rounded back."""
+    valid = targets >= 0
+    ce = cross_entropy_like_optax(logits, targets.clamp_min(0))
+    return (ce * valid).float().sum().to(ce.dtype) / valid.sum().clamp_min(1)
+
+
+def make_whisper_loss_fn(config: ExperimentConfig, model) -> Callable:
+    """Whisper's teacher-forced loss, loss_fn(batch, seeds, train, kernels)
+    -> (loss, {"loss"}): K1 featurizes under ``no_grad``, SpecAugment in
+    training, then the model over batch["tokens"] (prompt, labels, EOT
+    padding) and the mean CE over batch["targets"] (``masked_mean_ce``;
+    bf16 for a bf16 decoder). Like the JAX loss it applies no waveform
+    augmentation."""
+    fe = config.frontend
+
+    def loss_fn(batch, seeds, train: bool, kernels: bool = True):
+        with torch.no_grad():
+            feats = featurize_batch(dequantize_pcm(batch["audio"]), fe, kernels=kernels)
+        if train and config.specaugment.enabled:
+            feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
+                                 config.specaugment)
+        model.train(train)
+        logits = model(feats, batch["tokens"], kernels=kernels,
+                       dropout_seed=seeds[1] if train else None)
+        loss = masked_mean_ce(logits, batch["targets"])
+        return loss, {"loss": loss.detach()}
+
+    return loss_fn
+
+
 def make_loss_fn(config: ExperimentConfig, model) -> Callable:
     """The family's loss (the JAX package's build_train_setup)."""
-    if config.model_family == "ctc":
-        return make_ctc_loss_fn(config, model)
-    if config.model_family == "joint":
-        return make_joint_loss_fn(config, model)
-    raise NotImplementedError(
-        f"model family {config.model_family!r}: Whisper training is not ported yet "
-        "(make_whisper_loss_fn); the port trains ctc and joint")
+    makers = {"ctc": make_ctc_loss_fn, "joint": make_joint_loss_fn,
+              "whisper": make_whisper_loss_fn}
+    if config.model_family not in makers:
+        raise ValueError(f"unknown model family {config.model_family!r}")
+    return makers[config.model_family](config, model)
 
 
 def make_model(config: ExperimentConfig, device="cuda"):
-    """A fresh model of the family, initialised from ``train.seed``."""
+    """A fresh model of the family, initialised from ``train.seed`` (a
+    Whisper model on `device` itself, as ``ModelBundle.load`` makes it)."""
     from ..models.ctc_model import CTCEncoderModel
     from ..models.joint import JointCTCAttentionModel
+    from ..models.whisper import WhisperModel
 
     seed = config.train.seed
     if config.model_family == "ctc":
         return CTCEncoderModel(config.ctc_model, device=device, seed=seed)
     if config.model_family == "joint":
         return JointCTCAttentionModel(config.joint, device=device, seed=seed)
-    raise NotImplementedError(
-        f"model family {config.model_family!r}: the port trains ctc and joint")
+    if config.model_family == "whisper":
+        return WhisperModel(config.whisper, device=device, seed=seed)
+    raise ValueError(f"unknown model family {config.model_family!r}")
 
 
 def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
@@ -286,55 +321,86 @@ def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
     return train_step
 
 
-def batch_to_device(batch, device, family: str = "ctc") -> Dict[str, torch.Tensor]:
+def batch_to_device(batch, device, family: str = "ctc", whisper_prompt=None,
+                    eot_id: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Host Batch -> dict of tensors on `device` (int16 audio stays int16:
-    the step dequantizes on the card). For the joint family also the
-    teacher-forcing ``tokens`` [B, S + 2] (sos, the labels, then eos) and
-    ``targets`` (each position's next token, -100 where ignored); sos and
-    eos are the blank, id 0, which never occurs inside a label sequence."""
+    the step dequantizes on the card). For the whisper and joint families
+    also the teacher-forcing ``tokens`` [B, P + S + 1] (the prompt, the
+    labels, then EOT to the end) and ``targets`` (each position's next
+    token: the labels, then EOT; -100 where ignored). Whisper's prompt and
+    EOT default to the standard multilingual ones (``default_prompt()``,
+    EOT 50257; small vocabularies pass their own, as train_loop does from
+    ``resolve_specials``); the joint family's prompt is (eot,) and its EOT
+    the blank, id 0, which never occurs inside a label sequence."""
+    from ..decode.whisper_generate import EOT, default_prompt
+
+    if family not in ("ctc", "joint", "whisper"):
+        raise ValueError(f"unknown model family {family!r}")
     out = {
         "audio": torch.from_numpy(batch.audio).to(device),
         "audio_lengths": torch.from_numpy(batch.audio_lengths).to(device),
         "labels": torch.from_numpy(batch.labels).to(device),
         "label_lengths": torch.from_numpy(batch.label_lengths).to(device),
     }
-    if family not in ("ctc", "joint"):
-        raise NotImplementedError(f"model family {family!r}: the port trains ctc and joint "
-                                  "(Whisper's teacher forcing is not ported yet)")
+    if family == "ctc":
+        return out
     if family == "joint":
-        B, S = batch.labels.shape
-        toks = np.zeros((B, S + 2), np.int32)
-        tgts = np.full((B, S + 2), -100, np.int32)
-        for i in range(B):
-            n = batch.label_lengths[i]
-            toks[i, 1: 1 + n] = batch.labels[i, :n]
-            tgts[i, :n] = batch.labels[i, :n]
-            tgts[i, n] = 0
-        out["tokens"] = torch.from_numpy(toks).to(device)
-        out["targets"] = torch.from_numpy(tgts).to(device)
+        eot = 0 if eot_id is None else eot_id
+        prompt = list(whisper_prompt if whisper_prompt is not None else (eot,))
+    else:
+        eot = EOT if eot_id is None else eot_id
+        prompt = list(whisper_prompt if whisper_prompt is not None else default_prompt())
+    B, S = batch.labels.shape
+    P = len(prompt)
+    toks = np.full((B, P + S + 1), eot, np.int32)
+    tgts = np.full((B, P + S + 1), -100, np.int32)
+    toks[:, :P] = prompt
+    for i in range(B):
+        n = batch.label_lengths[i]
+        toks[i, P:P + n] = batch.labels[i, :n]
+        tgts[i, P - 1:P + n - 1] = batch.labels[i, :n]
+        tgts[i, P + n - 1] = eot
+    out["tokens"] = torch.from_numpy(toks).to(device)
+    out["targets"] = torch.from_numpy(tgts).to(device)
     return out
 
 
 def size_vocab(config: ExperimentConfig, n: int) -> None:
-    """Size the family's vocabulary to `n`: the CTC head, or the joint
-    family's two heads (one vocabulary; the blank doubles as sos/eos)."""
+    """Size the family's vocabulary to a tokenizer of `n` ids: the CTC head;
+    the joint family's two heads (one vocabulary; the blank doubles as
+    sos/eos); Whisper's with room for its specials past the tokenizer's ids
+    (vocab max(n + 8, 16), prompt (n,), EOT n + 1), as the JAX package
+    sizes it."""
     if config.model_family == "ctc":
         config.ctc_model.vocab_size = n
     elif config.model_family == "joint":
         config.joint.vocab_size = n
+    elif config.model_family == "whisper":
+        config.whisper.vocab_size = max(n + 8, 16)
+        config.whisper.prompt_ids = (n,)
+        config.whisper.eot_id = n + 1
     else:
-        raise NotImplementedError(
-            f"model family {config.model_family!r}: the port trains ctc and joint")
+        raise ValueError(f"unknown model family {config.model_family!r}")
 
 
 def build_tokenizer_for(config: ExperimentConfig, manifest):
-    """A char vocab over the manifest texts, which sizes the model's
+    """The config's tokenizer: the byte-level BPE of ``data.tokenizer_dir``
+    (HF vocab.json + merges.txt; the model's vocabulary and specials stay
+    the config's), else the unigram vocab of ``data.unigram_vocab`` or a
+    char vocab over the manifest texts, either of which sizes the model's
     vocabulary (``size_vocab``)."""
     from ..data.tokenizer import CharTokenizer
 
-    if config.data.tokenizer_dir or config.data.unigram_vocab:
-        raise NotImplementedError("subword vocabularies come with the Whisper slice")
-    tokenizer = CharTokenizer.build(manifest.texts())
+    if config.data.tokenizer_dir:
+        from ..data.bpe import ByteLevelBPE
+
+        return ByteLevelBPE.from_hf_dir(config.data.tokenizer_dir)
+    if config.data.unigram_vocab:
+        from ..data.unigram import UnigramTokenizer
+
+        tokenizer = UnigramTokenizer.load(config.data.unigram_vocab)
+    else:
+        tokenizer = CharTokenizer.build(manifest.texts())
     size_vocab(config, len(tokenizer))
     return tokenizer
 
@@ -372,6 +438,11 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
 
     tc = config.train
     device = next(model.parameters()).device
+    batch_kw = {"family": config.model_family}
+    if config.model_family == "whisper":
+        from ..decode.whisper_generate import resolve_specials
+
+        batch_kw["whisper_prompt"], batch_kw["eot_id"] = resolve_specials(config.whisper)
     state = init_state(config, model)
     step_fn = make_train_step(make_loss_fn(config, model), tc.optimizer)
     it = PrefetchIterator(BatchIterator(manifest, tokenizer, config.data,
@@ -396,7 +467,7 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     t_first = t0 = None
     try:
         while state.step < total:
-            batch = batch_to_device(next(it), device, family=config.model_family)
+            batch = batch_to_device(next(it), device, **batch_kw)
             metrics = step_fn(state, batch, kernels)
             losses.append(metrics["loss"])
             if t_first is None:  # steps/s counts from the end of the first step
@@ -450,9 +521,9 @@ def mix_by_dialect(manifest, dialect_weights):
 
 def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda",
                    kernels: bool = True, max_steps: Optional[int] = None):
-    """The fine-tune run (ctc or joint family): read the manifest (mixed by
-    ``data.dialect_weights`` when set), build the char vocab, init the
-    model from ``train.seed``,
+    """The fine-tune run (ctc, joint or whisper family): read the manifest
+    (mixed by ``data.dialect_weights`` when set), build the tokenizer
+    (``build_tokenizer_for``), init the model from ``train.seed``,
     train, and save the bundle (params.npz, config.yaml, vocab.json) to
     ``<checkpoint_dir>/final``. ``config.stages`` is not read here: the
     schedule is ``train/schedules.run_stages``. -> (state, bundle)."""

@@ -41,7 +41,7 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
     """Run ``config.stages`` in order on `device`, carrying the model.
 
     The char vocabulary is built over the union of all stages' texts and
-    sizes the model's (``engine.size_vocab``: the ctc or joint family);
+    sizes the model's (``engine.size_vocab``: the ctc, joint or whisper family);
     without `model` the family's model is made from ``train.seed``. Each stage runs with
     ``train.train_adapters_only`` and ``optimizer.total_steps`` (= its
     steps; warmup as configured) replaced, and appends a summary line

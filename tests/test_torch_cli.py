@@ -231,10 +231,27 @@ def test_prepare_cmvn_matches_jax(env, capsys):
     ["train", "--config", "c.yaml", "--profile", "d"],
     ["train", "--config", "c.yaml", "--multihost"],
 ])
-def test_unported_subcommands_and_flags_exit_2(argv, capsys):
+def test_unported_subcommands_and_flags_exit_2(argv, capsys, tmp_path, monkeypatch):
     """Each unported subcommand or flag exits 2 naming its ROADMAP item.
     build-native is ported (with the CTC beam): it builds native/beam.cpp,
-    prints the JAX CLI's line and the library loads."""
+    prints the JAX CLI's line and the library loads. train-unigram is
+    ported (data/unigram.py): it writes the vocab JAX's trains on the same
+    manifest and prints the JAX CLI's keys."""
+    if argv[0] == "train-unigram":
+        from jiao_liao_speech_recognition_tpu.data.unigram import UnigramTokenizer as JUni
+        from jiao_liao_speech_recognition_torch.data.manifest import ManifestRow, write_manifest
+
+        texts = ["你好世界", "你好朋友", "世界真好", "你好你好世界"] * 5
+        write_manifest([ManifestRow(f"u{i}.wav", t, 1.0, "") for i, t in enumerate(texts)],
+                       tmp_path / "m.jsonl")
+        monkeypatch.chdir(tmp_path)
+        assert cli.main(argv) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert sorted(out) == ["multi_char_pieces", "texts", "unigram_vocab", "vocab"]
+        want = JUni.train(texts)
+        got = json.loads((tmp_path / "u.json").read_text(encoding="utf-8"))
+        assert (got["pieces"], got["logprobs"]) == (want.vocab, want.logprobs)
+        return
     if argv == ["build-native"]:
         from jiao_liao_speech_recognition_torch.utils import native_ext
 

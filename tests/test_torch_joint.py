@@ -293,10 +293,32 @@ def test_bf16_model_tokens_hold_under_the_margin_rule():
             assert (logits.argmax(-1) == toks[:, 1:])[clear].all()
 
 
-def test_att_adapter_decode_is_refused_by_name():
-    _, _, tm = _pair("att")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tm.init_cache(1, torch.zeros(1, 4, 32), 8)
+def test_att_adapter_decode_is_refused_by_name(monkeypatch):
+    """The Att adapter's cached decode is ported (no longer refused): in
+    both cache layouts the joint decoder's init_cache carries each block's
+    slot caches, shaped as JAX's init_cache makes them, and every cached
+    step's logits are within 1e-5 of the teacher-forced pass's."""
+    jm, params, tm = _pair("att")
+    rng = np.random.RandomState(8)
+    feats, flens = _inputs(2)
+    toks = torch.from_numpy(rng.randint(0, 32, (2, 6)))
+    for layout in ("packed", "head_major"):
+        with torch.no_grad():
+            enc, el = tm.encode(_t(feats), _t(flens))
+            full = tm.decode_teacher(toks, enc, el)
+            caches = tm.init_cache(2, enc, 10, layout)
+            for pos in range(6):
+                logits, caches = tm.decode_step(toks[:, pos:pos + 1], pos, enc, caches, el)
+                np.testing.assert_allclose(logits.numpy(), full[:, pos].numpy(), atol=1e-5)
+        monkeypatch.setattr(jlayers, "HEAD_MAJOR_MIN_BATCH", 1 if layout == "head_major"
+                            else 1 << 30)
+        jcache = jm.apply({"params": params}, 2, jnp.asarray(enc.numpy()), 10,
+                          method=jm.init_cache)
+        for name, entry in caches.items():
+            for s, slot in entry["slots"].items():
+                for n, t in slot.items():
+                    want = jcache[name.replace("block_", "dec_block_")]["slots"][s][n].shape
+                    assert tuple(t.shape) == want, (name, s, n)
 
 
 # --- the bundle -----------------------------------------------------------------

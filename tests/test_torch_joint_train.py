@@ -108,8 +108,11 @@ def test_batch_to_device_joint_tokens_and_targets_are_jaxs(lens):
         assert got[key].dtype == torch.int32
     assert int(got["tokens"][0, 0]) == 0  # sos = the blank
     assert "tokens" not in teng.batch_to_device(_host_batch(tpipe), "cpu")  # ctc: none
-    with pytest.raises(NotImplementedError, match="whisper"):
-        teng.batch_to_device(_host_batch(tpipe), "cpu", family="whisper")
+    # the whisper family is ported too: its default prompt and EOT, as JAX's
+    want = jeng.batch_to_device(_host_batch(jpipe, B=3, lens=lens), family="whisper")
+    got = teng.batch_to_device(_host_batch(tpipe, B=3, lens=lens), "cpu", family="whisper")
+    for key in ("tokens", "targets"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
 # -------------------------------------------------------------------- loss

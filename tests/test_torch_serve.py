@@ -313,3 +313,35 @@ def test_row_suppression_equals_the_scalar_form():
     for b in range(3):
         want = twg.apply_suppression(logits[b:b + 1], int(pos[b]), 2, always, begin)
         assert torch.equal(rows[b:b + 1], want)
+
+
+@pytest.mark.parametrize("kind", ["wf", "att"])
+def test_engine_serves_an_adapted_bundle(kind):
+    """A WF- or Att-adapted Whisper behind the engine: the Att adapter's
+    slot caches are lanes of the pool like the self caches; the texts equal
+    the bundle's transcribe and the JAX engine's on the same weights (the
+    adapters moved off their identity init)."""
+    ad = dict(kind=kind, wf_rank=2, att_num_heads=2, att_key_dim=8, dropout=0.0)
+    jc, tc = _configs()
+    jc.whisper.adapter, tc.whisper.adapter = jcfg.AdapterConfig(**ad), tcfg.AdapterConfig(**ad)
+    params = JBundle._init_params(jc)
+    noise = np.random.RandomState(1)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, v: (np.asarray(v) + 0.02 * noise.randn(*v.shape)).astype(np.float32)
+        if any("adapter_" in str(getattr(k, "key", "")) for k in path) else np.asarray(v),
+        params)
+    jb = JBundle(config=jc, params=params, tokenizer=JChar(VOCAB))
+    tb = api.load(config=tc, device="cpu")
+    tb.model.load_state_dict(convert.whisper_params_to_state_dict(params))
+    tb.tokenizer = CharTokenizer(VOCAB)
+    t = np.arange(int(16000 * 0.6)) / 16000
+    wavs = [(0.5 * np.sin(2 * np.pi * 300 * (i + 1) * t) + 0.1 * w).astype(np.float32)
+            for i, w in enumerate(_wavs(5, seed=3))]  # distinct tones under the noise
+    eng = ServingEngine(tb, slots=2, steps_per_dispatch=4, max_len=12)
+    if kind == "att":
+        slot = eng._caches["block_0"]["slots"]["post_attn"]["k"]
+        assert tuple(slot.shape) == (2, 12, 16)
+    got = eng.transcribe(wavs)
+    assert got == tb.transcribe(wavs) == _jax_engine_texts(jb, wavs, slots=2,
+                                                           steps_per_dispatch=4, max_len=12)
+    assert len(set(got)) > 1

@@ -492,11 +492,25 @@ def test_transcription_follows_a_checkpoint_loaded_after_load(jax_f32):
     assert torch.equal(got, want)
 
 
-def test_whisper_refuses_adapters_until_their_slice():
+def test_whisper_refuses_adapters_until_their_slice(jax_f32):
+    """Adapters are no longer refused (tests/test_torch_whisper_train.py
+    holds them against JAX): a WF-adapted Whisper holds an insert on every
+    Dense of both stacks (4 projections + fc1/fc2 an encoder block, 4 more a
+    decoder block), and at its identity init (B = 0) gives the unadapted
+    model's logits from the same backbone."""
+    _, params = jax_f32
     cfg = tcfg.WhisperConfig(dtype="float32", **SMALL)
     cfg.adapter = tcfg.AdapterConfig(kind="wf")
-    with pytest.raises(NotImplementedError, match="fine-tuning slice"):
-        WhisperModel(cfg)
+    model = WhisperModel(cfg)
+    missing, unexpected = model.load_state_dict(convert.whisper_params_to_state_dict(params),
+                                                strict=False)
+    assert not unexpected and all(".adapter_wf." in k for k in missing)
+    assert len(missing) == 3 * (2 * 6 + 2 * 10)
+    mel = torch.from_numpy(_mel(2, seed=3))
+    toks = torch.from_numpy(np.random.RandomState(4).randint(0, 50, (2, 5)))
+    with torch.no_grad():
+        np.testing.assert_array_equal(model.eval()(mel, toks).numpy(),
+                                      _port(params)(mel, toks).numpy())
 
 
 # --- tokenizer, bundle --------------------------------------------------------
@@ -559,19 +573,27 @@ def test_bundle_transcribes_whisper_on_the_cpu_and_round_trips(jax_f32, tmp_path
 
 def test_bundle_load_names_the_missing_unigram_tokenizer(tmp_path):
     """A checkpoint whose vocab.json is the JAX package's unigram tokenizer
-    is refused with a message naming data/unigram.py, not a KeyError; a
-    char vocab.json still loads."""
+    loads as the port's UnigramTokenizer (data/unigram.py) with its pieces
+    and scores, and encodes as JAX's does; a char vocab.json still loads;
+    the bundle saves the unigram vocab back as JAX wrote it."""
     from jiao_liao_speech_recognition_tpu.data.unigram import UnigramTokenizer
     from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.data.unigram import UnigramTokenizer as TUni
 
     cfg = tcfg.ExperimentConfig(model_family="whisper", whisper=tcfg.WhisperConfig(
         dtype="float32", prompt_ids=PROMPT, eot_id=EOT, **SMALL))
     api.load(config=cfg, device="cpu").save(str(tmp_path))
     CharTokenizer(["<blank>", "<unk>", "a", "b"]).save(tmp_path / "vocab.json")
     assert api.load(str(tmp_path), device="cpu").tokenizer.vocab == ["<blank>", "<unk>", "a", "b"]
-    UnigramTokenizer(["a", "b", "ab"], [-1.0, -1.5, -2.0]).save(tmp_path / "vocab.json")
-    with pytest.raises(NotImplementedError, match="data/unigram.py"):
-        api.load(str(tmp_path), device="cpu")
+    jtok = UnigramTokenizer(["a", "b", "ab"], [-1.0, -1.5, -2.0])
+    jtok.save(tmp_path / "vocab.json")
+    loaded = api.load(str(tmp_path), device="cpu")
+    assert isinstance(loaded.tokenizer, TUni)
+    assert (loaded.tokenizer.vocab, loaded.tokenizer.logprobs) == (jtok.vocab, jtok.logprobs)
+    assert loaded.tokenizer.encode("abba c") == jtok.encode("abba c")
+    written = (tmp_path / "vocab.json").read_text(encoding="utf-8")
+    loaded.save(str(tmp_path / "again"))
+    assert (tmp_path / "again" / "vocab.json").read_text(encoding="utf-8") == written
 
 
 def test_whisper_preset_twin_matches_jax():
