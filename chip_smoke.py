@@ -273,7 +273,26 @@ non-zero and prints no result line):
               129 / 1) against plain, twice bitwise, timed beside bound and
               SDPA, with ptxas's dh=128 report; the saved bundle through
               api.load with ctc_greedy and greedy (exact launches); steps/s
-              in turns and the step's idle share.
+              in turns and the step's idle share;
+17. whisper_finetune - main paths 23-25 (phase_whisper_finetune);
+18. real_audio - main paths 26 and 27, real recordings in: 32 seeded
+              utterances of 30 s, eight each of 44.1 kHz 16-bit FLAC (the
+              script's own encoder), 48 kHz 24-bit, 22.05 kHz float and
+              8 kHz 8-bit WAV, through `cli transcribe` on the flagship
+              (phase 4's seeded weights; K1, K2 and K3 12 times, K4 on the
+              batch the card resampled); every file decoded exactly; the
+              card's resample within RESAMPLE_SCIPY_BAR of scipy's f64
+              resample_poly on the interior; the file path's ids against
+              the plain path on scipy-resampled 16 kHz arrays by the margin
+              rule. Then `cli train --profile` of
+              configs/adapter_finetune.yaml with every waveform
+              augmentation on over 16 of the files (AUG_OVERRIDES; the
+              loader resamples them; K1 1, K6 and K8 12 a step): finite
+              losses, one MetricsLogger record a step, the trace naming
+              K1's, K6's and K8's kernels; the same step timed with the
+              augmentation off and on in turns (its cost a step); and
+              evals/rtfx.measure_rtfx on the flagship's greedy batch (B=32
+              x 30 s) beside phase 7's reading.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
@@ -288,6 +307,7 @@ no CPU path: without CUDA the script exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -418,6 +438,8 @@ PATHS = {
     "whisper_adapted_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K7-attn", "K7-mlp", "K9"),
     "whisper_adapted_int8": ("K1", "K5", "K6", "K2h-out", "K3c", "K7-attn", "K7-mlp", "K9",
                              "K9-int8", "K10", "K11"),
+    "real_audio": ("K1", "K2", "K3", "K4"),
+    "augmented_train": ("K1", "K6", "K8"),
 }
 # the Whisper fine-tune: configs/whisper_large_v3_adapters.yaml at B=16 x 30 s
 WHISPER_FT_CONFIG = "configs/whisper_large_v3_adapters.yaml"
@@ -429,6 +451,7 @@ WHISPER_FT_EOT = 50257  # ordinary BPE ids below it, large-v3's specials from it
 WHISPER_FT_CHECK_B = 2  # the kernel-vs-plain step: plain attention keeps [B, 20, T, T] f32
 WHISPER_FT_LENS = (1500, 1033, 257, 1)  # key lengths of K6 / K8 alone at the training shape
 WHISPER_FT_RATE_STEPS = 2  # steps a timed turn
+WHISPER_FT_RATE_TURNS = (True, True)  # timed turns, kernel path only
 WHISPER_FT_PROFILE_STEPS = 1
 FT_STEP_LOSS_BAR = 1e-3  # relative
 # the Whisper configuration and the shapes of its kernel checks
@@ -522,7 +545,7 @@ CTC_BEAM_RTFX_BATCHES = 4
 # published config, and the kernel-path steps timed under the profiler
 JOINT_TRAIN_STEPS = 3
 JOINT_TRAIN_PROFILE_STEPS = 2
-JOINT_TRAIN_RATE_STEPS = 3  # steps a timed turn
+JOINT_TRAIN_RATE_STEPS = 2  # steps a timed turn
 # the probes' profilers in examples/ and their main()'s arguments at the
 # flagship's B=32 (the probes' own defaults are B=128)
 PROBES = {
@@ -554,7 +577,7 @@ TRANSFER_UTTS = 18
 TRANSFER_STEPS = 3
 # steps a timed turn of each stage: the host clock spreads by tens of
 # percent over four steps on a shared host
-TRANSFER_RATE_STEPS = 4
+TRANSFER_RATE_STEPS = 2  # steps a timed turn
 TRANSFER_PROFILE_STEPS = 2  # stage steps under the profiler
 # published H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM_BYTES_S and its operations over
@@ -1512,7 +1535,7 @@ def phase_timing(bundle, adapted):
     rec["K3"]["launches_ms"] = {"fc1": gemm["fc1"]["ms"], "fc2": gemm["fc2"]["ms"]}
     emit({"phase": "timing", "greedy_copy_launches_per_batch": copy_launches(
         lambda: infer(bufs[0], True))})
-    return rec
+    return rec, rtfx
 
 
 def gemm_launches(blk, x, lens, blocks):
@@ -1693,6 +1716,9 @@ def tflops(flops: float, ms: float) -> float:
     return flops / (ms * 1e-3) / 1e12
 
 
+TRAIN_RATE_STEPS = 2  # phase 7's steps a timed turn
+
+
 def phase_train_rate(ft_cfg):
     """Train steps/s on the kernel path and the plain path (turns: plain,
     kernels, kernels, plain; two distinct batches): the fine-tune config at
@@ -1721,7 +1747,7 @@ def phase_train_rate(ft_cfg):
             rng.randint(1, cfg10.ctc_model.vocab_size, (B, 24)).astype(np.int32)).cuda(),
         "label_lengths": torch.full((B,), 24, dtype=torch.int32, device="cuda"),
     } for _ in range(2)]
-    return {name: train_rate(name, cfg, batches)
+    return {name: train_rate(name, cfg, batches, steps=TRAIN_RATE_STEPS)
             for name, cfg, batches in (("B16x30s_adapter_finetune_yaml", ft_cfg, batches30),
                                        ("B16x10s_flagship_wf8", cfg10, batches10))}
 
@@ -2848,6 +2874,7 @@ def phase_int8_timing(qbundle):
 # device ms of each row of examples/torch_profile_decode_kernels.py on the
 # kernels K9 and K11 replaced (I2F conversions; K11 a block a 256-row slice),
 # timed the same way on an H100 80GB HBM3 at 700 W (PERF.md, section 6)
+DECODE_PROFILE_ITERS = 10  # timed calls of each kernel in the decode profiler
 PARENT_DECODE_MS = {"K9 cross": 0.04448, "K9-int8 cross": 0.03534, "K9 self": 0.00720,
                     "K9-int8 self": 0.00739, "K11": 0.05131}
 
@@ -2867,7 +2894,8 @@ def phase_int8_kernel_timing():
     # in a process of its own: late in this one the profiler stops seeing
     # the device and device_ms falls back on queued_ms, ~1.5 us a launch high
     script = Path(__file__).resolve().parent / "examples" / "torch_profile_decode_kernels.py"
-    run = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+    run = subprocess.run([sys.executable, str(script), "--iters", str(DECODE_PROFILE_ITERS)],
+                         capture_output=True, text=True,
                          check=True, timeout=900)
     rows = {r.pop("row"): r for r in (json.loads(line) for line in run.stdout.splitlines()
                                       if line.startswith('{"row"'))}
@@ -5589,11 +5617,337 @@ def phase_whisper_finetune(counters, workdir: Path, card: str):
     torch.cuda.reset_peak_memory_stats()
     rate = train_rate("B16x30s_whisper_large_v3_adapters_yaml", cfg, batches,
                       profile_steps=WHISPER_FT_PROFILE_STEPS, steps=WHISPER_FT_RATE_STEPS,
-                      turns=(True, True, True))
+                      turns=WHISPER_FT_RATE_TURNS)
     emit({"phase": "whisper_finetune", "phase_s": time.perf_counter() - t_phase,
           "kernel_path_steps_s": rate["kernel_path_steps_s"],
           "peak_gb_rate": torch.cuda.max_memory_allocated() / 2**30})
     return paths, errs, rows
+
+
+# --- main paths 26-27: real audio in, augmented training, the RTFx harness ---
+
+# 32 utterances of 30 s, eight of each format real recordings come in:
+# (container, sample rate, sample format)
+REAL_FORMATS = (("flac", 44100, 16), ("wav", 48000, 24), ("wav", 22050, "float"),
+                ("wav", 8000, 8))
+REAL_UTTS = 32
+REAL_SECONDS = 30.0
+# the card's resample against scipy's f64 resample_poly of the same decoded
+# audio, on the interior (the JAX package's test bar; the edges differ by
+# the padding convention)
+RESAMPLE_SCIPY_BAR = 5e-3
+RESAMPLE_EDGE = 200
+# configs/adapter_finetune.yaml as published but for these: every transform
+# of the augmentation on, three steps, a record a step (three records)
+AUG_OVERRIDES = ("augment.enabled=true", "augment.lowpass_probability=0.5",
+                 "augment.highpass_probability=0.5", "augment.bandpass_probability=0.5",
+                 "augment.time_stretch_rates=[0.9,1.1]", "train.optimizer.total_steps=3",
+                 "train.log_every_steps=1")
+AUG_STEPS = 3
+AUG_RATE_STEPS = 4  # steps a timed turn, augmentation off / on
+AUG_TRACE_KERNELS = {"K1": ("log_mel_tf32_kernel",), "K6": ("flash_fwd_kernel",),
+                     "K8": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+RTFX_ITERS = 10
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_table(poly: int, width: int) -> np.ndarray:
+    """The byte table of an MSB-first CRC of `width` bits (init 0)."""
+    top, mask = 1 << (width - 1), (1 << width) - 1
+    out = np.zeros(256, np.uint32)
+    for b in range(256):
+        c = b << (width - 8)
+        for _ in range(8):
+            c = ((c << 1) ^ poly) & mask if c & top else (c << 1) & mask
+        out[b] = c
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _crc16_by_distance(n: int) -> np.ndarray:
+    """[n, 256]: the CRC-16 (poly 0x8005, FLAC's) of byte b followed by d
+    zero bytes. The CRC is linear, so a message's CRC is the XOR of its
+    bytes' rows at their distances from its end: one gather, no loop over
+    the bytes in Python."""
+    table = _crc_table(0x8005, 16)
+    rows = np.zeros((n, 256), np.uint32)
+    rows[0] = table
+    for d in range(1, n):
+        rows[d] = ((rows[d - 1] << 8) & 0xFFFF) ^ table[rows[d - 1] >> 8]
+    return rows
+
+
+def _crc16(data: bytes) -> int:
+    b = np.frombuffer(data, np.uint8)
+    rows = _crc16_by_distance(8320)  # a 4096-sample 16-bit frame and its header
+    return int(np.bitwise_xor.reduce(rows[np.arange(len(b) - 1, -1, -1), b]))
+
+
+def _crc8(data: bytes) -> int:
+    table, c = _crc_table(0x07, 8), 0
+    for byte in data:
+        c = int(table[c ^ byte])
+    return c
+
+
+def write_flac16(path: Path, codes: np.ndarray, sample_rate: int, block: int = 4096) -> None:
+    """Mono 16-bit FLAC (RFC 9639): STREAMINFO, then fixed-blocksize frames,
+    each one VERBATIM subframe, with their frame numbers, CRC-8 and CRC-16.
+    The codes are stored as they are, so the decoder must return exactly
+    codes / 32768."""
+    n = len(codes)
+    info = (block.to_bytes(2, "big") * 2 + bytes(6)
+            + ((sample_rate << 44) | (0 << 41) | (15 << 36) | n).to_bytes(8, "big") + bytes(16))
+    out = bytearray(b"fLaC" + bytes([0x80, 0, 0, len(info)]) + info)
+    for i, s in enumerate(range(0, n, block)):
+        chunk = codes[s:s + block]
+        full = len(chunk) == block
+        hdr = bytearray(b"\xff\xf8")  # sync code, fixed block size
+        hdr.append((12 if full else 7) << 4)  # 4096 samples or 16 bits below; rate: STREAMINFO's
+        hdr.append(4 << 1)  # mono, 16-bit samples
+        hdr += bytes([i]) if i < 0x80 else bytes([0xC0 | i >> 6, 0x80 | (i & 0x3F)])
+        if not full:
+            hdr += (len(chunk) - 1).to_bytes(2, "big")
+        hdr.append(_crc8(bytes(hdr)))
+        frame = bytes(hdr) + b"\x02" + chunk.astype(">i2").tobytes()  # VERBATIM subframe
+        out += frame + _crc16(frame).to_bytes(2, "big")
+    path.write_bytes(bytes(out))
+
+
+def write_wav_codes(path: Path, codes: np.ndarray, sample_rate: int, fmt) -> None:
+    """Mono WAV of 8-bit (unsigned), 24-bit or IEEE float32 samples."""
+    import struct
+
+    if fmt == "float":
+        data, bits, tag = codes.astype("<f4").tobytes(), 32, 3
+    elif fmt == 24:
+        v = codes.astype("<i4")
+        data, bits, tag = np.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF],
+                                   1).astype(np.uint8).tobytes(), 24, 1
+    else:
+        data, bits, tag = codes.astype(np.uint8).tobytes(), 8, 1
+    block = bits // 8
+    body = (b"WAVEfmt " + struct.pack("<IHHIIHH", 16, tag, 1, sample_rate, sample_rate * block,
+                                      block, bits) + b"data" + struct.pack("<I", len(data)) + data)
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def write_real_audio(d: Path, seed: int = 0):
+    """REAL_UTTS seeded utterances of REAL_SECONDS (tone, slow tremolo,
+    noise), cycling through REAL_FORMATS, each quantized to its format at
+    its own rate -> [(path, decoded PCM the file holds exactly, rate)]."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(REAL_UTTS):
+        kind, sr, fmt = REAL_FORMATS[i % len(REAL_FORMATS)]
+        t = np.arange(int(REAL_SECONDS * sr)) / sr
+        x = (0.2 * np.sin(2 * np.pi * rng.uniform(150.0, 2000.0) * t)
+             * np.sin(2 * np.pi * 0.5 * t) + 0.05 * rng.randn(len(t)))
+        path = d / f"r{i:02d}_{sr}.{kind}"
+        if fmt == 16:
+            codes = np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16)
+            write_flac16(path, codes, sr)
+            pcm = codes.astype(np.float32) / 32768.0
+        elif fmt == 24:
+            codes = np.round(x * 8388607).astype(np.int32)
+            write_wav_codes(path, codes, sr, 24)
+            pcm = codes.astype(np.float32) / 8388608.0
+        elif fmt == 8:
+            codes = np.clip(np.round(x * 127 + 128), 0, 255).astype(np.uint8)
+            write_wav_codes(path, codes, sr, 8)
+            pcm = (codes.astype(np.float32) - 128.0) / 128.0
+        else:
+            pcm = x.astype(np.float32)
+            write_wav_codes(path, pcm, sr, "float")
+        out.append((path, pcm, sr))
+    return out
+
+
+def real_audio_transcribe(counters, bundle, utts, workdir: Path) -> dict:
+    """`cli transcribe` of the files on the flagship (K1-K4 on the batch the
+    card resampled), the decoders exact, the card's resample against
+    scipy's on the interior, and the file path's ids against the plain path
+    on scipy-resampled 16 kHz arrays by the margin rule."""
+    import torch
+    from scipy.signal import resample_poly
+
+    from jiao_liao_speech_recognition_torch.frontend.audio_io import read_audio
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.frontend.resample import resample
+
+    ckpt = workdir / "flagship"
+    bundle.save(str(ckpt))
+    files = [str(p) for p, _, _ in utts]
+    t0 = time.perf_counter()
+    lines, launches = drive(counters, "real_audio", lambda: cli_run(
+        ["transcribe", *files, "--checkpoint", ckpt]))
+    cli_s = time.perf_counter() - t0
+    texts = [json.loads(line)["text"] for line in lines]
+    check(len(texts) == REAL_UTTS and sum(map(len, texts)) > 0, "cli transcribe: no text")
+    check(launches["K2"] == launches["K3"] == 12 * launches["K1"] and launches["K4"]
+          == launches["K1"], f"real audio launches {launches}")
+
+    resample_err, ref16 = {}, []
+    for path, pcm, sr in utts:
+        got, got_sr = read_audio(path)
+        check(got_sr == sr and np.array_equal(got, pcm), f"{path}: not decoded exactly")
+        g = math.gcd(sr, SAMPLE_RATE)
+        ref = resample_poly(pcm.astype(np.float64), SAMPLE_RATE // g, sr // g)
+        card = resample(torch.from_numpy(pcm).cuda(), sr, SAMPLE_RATE).cpu().numpy()
+        check(card.shape == ref.shape == (int(REAL_SECONDS * SAMPLE_RATE),),
+              f"{path}: resampled to {card.shape}")
+        e = float(np.abs(card - ref)[RESAMPLE_EDGE:-RESAMPLE_EDGE].max())
+        resample_err[f"{sr}"] = max(resample_err.get(f"{sr}", 0.0), e)
+        ref16.append(ref.astype(np.float32))
+    check(max(resample_err.values()) <= RESAMPLE_SCIPY_BAR,
+          f"resample off scipy's by {resample_err}")
+
+    fe = bundle.config.frontend
+    wav_f, alens_f, _ = bundle._prepare_audio_chunked(files, None)
+    wav_r, alens_r, _ = bundle._prepare_audio_chunked(ref16, SAMPLE_RATE)
+    check(np.array_equal(alens_f, alens_r), "file and array lengths differ")
+    with torch.inference_mode():
+        flens = torch.from_numpy(alens_f // fe.hop_length).cuda()
+        ids_k, olens = bundle.model(featurize_batch(torch.from_numpy(wav_f).cuda(), fe,
+                                                    kernels=True),
+                                    flens, head_mode="argmax_ids", kernels=True)
+        lp, _ = bundle.model(featurize_batch(torch.from_numpy(wav_r).cuda(), fe, kernels=False),
+                             flens, head_mode="log_probs", kernels=False)
+    frames = torch.arange(ids_k.shape[1], device="cuda")[None, :] < olens[:, None]
+    clear = frames & (margins(lp) > ARGMAX_MARGIN)
+    coverage = float(clear.sum() / frames.sum())
+    mismatch = int(((ids_k != lp.argmax(-1).to(torch.int32)) & clear).sum())
+    out = {"utterances": REAL_UTTS, "seconds": REAL_SECONDS,
+           "formats": [f"{k} {sr} Hz {f}" for k, sr, f in REAL_FORMATS],
+           "cli_transcribe_s": cli_s, "launches": launches,
+           "resample_vs_scipy_interior_max": resample_err, "resample_bar": RESAMPLE_SCIPY_BAR,
+           "frames": int(frames.sum()), "coverage": coverage, "margin": ARGMAX_MARGIN,
+           "mismatched_frames": mismatch, "text_chars": [len(t) for t in texts]}
+    emit({"phase": "real_audio", **out})
+    check(coverage >= MIN_COVERAGE and mismatch == 0,
+          f"file-path ids disagree with scipy-resampled plain ({mismatch}, {coverage})")
+    return launches, ref16
+
+
+def augmented_train(counters, utts, ref16, workdir: Path) -> dict:
+    """`cli train --profile` of configs/adapter_finetune.yaml with every
+    augmentation on (AUG_OVERRIDES) over 16 of the real-format files (the
+    loader resamples them), B=16 x 30 s: exact launches (K1 1, K6 and K8
+    12 a step), finite losses, one MetricsLogger record a step, the trace
+    naming K1's, K6's and K8's kernels; then the same step timed with the
+    augmentation off and on, in turns."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.data.manifest import ManifestRow, write_manifest
+    from jiao_liao_speech_recognition_torch.train import engine
+    from jiao_liao_speech_recognition_torch.utils.config import apply_overrides, load_yaml
+
+    rng = np.random.RandomState(5)
+    chars, per = rng.permutation(4334), -(-4334 // 16)  # V = 4336, as phase 5's
+    rows = [ManifestRow(str(p), "".join(chr(0x4E00 + int(c)) for c in chars[i * per:(i + 1) * per]),
+                        REAL_SECONDS, "real") for i, (p, _, _) in enumerate(utts[:16])]
+    write_manifest(rows, workdir / "real.jsonl")
+    logdir, metrics = workdir / "trace", workdir / "aug_metrics.jsonl"
+    cfg_path = Path(__file__).resolve().parent / "configs" / "adapter_finetune.yaml"
+    overrides = [f"data.train_manifest={workdir / 'real.jsonl'}", 'data.eval_manifest=""',
+                 f"train.checkpoint_dir={workdir / 'aug_ckpt'}", f"train.metrics_path={metrics}",
+                 *AUG_OVERRIDES]
+    t0 = time.perf_counter()
+    _, launches = drive(counters, "augmented_train", lambda: cli_run(
+        ["train", "--config", cfg_path, "--profile", logdir, *overrides]))
+    train_s = time.perf_counter() - t0
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    check(len(records) == AUG_STEPS and all(list(r)[:2] == ["step", "ts"] for r in records),
+          f"{len(records)} MetricsLogger records, not {AUG_STEPS}")
+    losses = [r["loss"] for r in records]
+    check(all(math.isfinite(x) for x in losses), f"augmented losses {losses}")
+    check(launches["K1"] == AUG_STEPS and launches["K6"] == launches["K8"] == 12 * AUG_STEPS,
+          f"augmented train launches {launches}")
+    traces = sorted(logdir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"--profile wrote {len(traces)} trace files")
+    trace_mb = traces[0].stat().st_size / 2**20
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]
+             if e.get("cat") == "kernel"}
+    named = {key: {k: sum(k in n for n in names) for k in ks}
+             for key, ks in AUG_TRACE_KERNELS.items()}
+    check(all(v > 0 for ks in named.values() for v in ks.values()),
+          f"the trace misses a kernel: {named}")
+
+    # the same step with the augmentation off and on (turns: off, on, on, off)
+    cfg = apply_overrides(load_yaml(str(cfg_path)), list(overrides))
+    T = cfg.data.max_text_len
+    model = engine.make_model(cfg, "cuda")
+    state = engine.init_state(cfg, model)
+    step = engine.make_train_step(engine.make_loss_fn(cfg, model), cfg.train.optimizer)
+    batches = [{
+        "audio": torch.from_numpy(np.stack(ref16[16 * j:16 * (j + 1)])).cuda(),
+        "audio_lengths": torch.full((16,), len(ref16[0]), dtype=torch.int32, device="cuda"),
+        "labels": torch.from_numpy(rng.randint(1, 4336, (16, T)).astype(np.int32)).cuda(),
+        "label_lengths": torch.full((16,), T, dtype=torch.int32, device="cuda"),
+    } for j in range(2)]
+    secs = {False: [], True: []}
+    for on in (False, True):  # warm both
+        cfg.augment.enabled = on
+        step(state, batches[0])
+    for on in (False, True, True, False):
+        cfg.augment.enabled = on
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(AUG_RATE_STEPS):
+            loss = step(state, batches[i % 2])["loss"]
+        check(math.isfinite(float(loss)), "augmented step loss not finite")
+        secs[on].append((time.perf_counter() - t1) / AUG_RATE_STEPS)
+    off_s, on_s = statistics.median(secs[False]), statistics.median(secs[True])
+    out = {"config": "configs/adapter_finetune.yaml", "overrides": list(AUG_OVERRIDES),
+           "batch": cfg.data.batch_size, "cli_train_profiled_s": train_s, "losses": losses,
+           "launches": launches, "trace_mb": trace_mb, "trace_kernels": named,
+           "step_s_augment_off": off_s, "step_s_augment_on": on_s,
+           "augment_cost_s_per_step": on_s - off_s, "turns_s": secs}
+    emit({"phase": "real_audio", "augmented_train": out})
+    return launches
+
+
+def phase_real_audio(counters, workdir: Path, greedy: dict, card: str):
+    """Main paths 26-27: real-format audio through `cli transcribe` on the
+    flagship (phase 4's seeded weights), `cli train --profile` with the
+    waveform augmentation, and measure_rtfx on the flagship's greedy batch
+    beside phase 7's reading."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.decode.ctc import ctc_greedy_collapse
+    from jiao_liao_speech_recognition_torch.evals.rtfx import measure_rtfx
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.utils.config import ExperimentConfig
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    utts = write_real_audio(workdir)
+    write_s = time.perf_counter() - t_phase
+    bundle = api.load(config=ExperimentConfig(), device="cuda")
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(4334)])
+    paths = {}
+    paths["real_audio"], ref16 = real_audio_transcribe(counters, bundle, utts, workdir)
+    paths["augmented_train"] = augmented_train(counters, utts, ref16, workdir)
+
+    fe = bundle.config.frontend
+
+    @torch.inference_mode()
+    def infer(wav, lengths):
+        ids, olens = bundle.model(featurize_batch(wav, fe, kernels=True),
+                                  lengths // fe.hop_length, head_mode="argmax_ids", kernels=True)
+        return ctc_greedy_collapse(ids, olens)
+
+    res = measure_rtfx(infer, batch=32, chunk_seconds=30.0, iters=RTFX_ITERS, device="cuda")
+    emit({"phase": "real_audio", "card": card, "measure_rtfx": res.to_json(),
+          "measure_rtfx_s_per_batch": res.seconds_per_batch,
+          "phase7_kernel_path_rtfx": greedy["kernel_path_rtfx"],
+          "phase7_kernel_path_s_per_batch": greedy["kernel_path_s_per_batch"],
+          "write_files_s": write_s, "phase_s": time.perf_counter() - t_phase})
+    check(math.isfinite(res.rtfx) and res.rtfx > 0, "measure_rtfx")
+    return paths
 
 
 def main() -> int:
@@ -5629,7 +5983,7 @@ def main() -> int:
         by_path["finetune"], ft_cfg, final = phase_finetune(counters, Path(tmp))
         phase_finetune_vs_plain(ft_cfg)
         by_path["adapted_serve"], adapted = phase_adapted(counters, final)
-        rec = phase_timing(bundle, adapted)
+        rec, greedy = phase_timing(bundle, adapted)
         phase_train_rate(ft_cfg)
     del bundle, adapted
     with tempfile.TemporaryDirectory() as tmp:
@@ -5677,6 +6031,8 @@ def main() -> int:
     by_path.update(ft_paths)
     for key, err in ft_errs.items():
         errs[key] = max(errs[key], err)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(phase_real_audio(counters, Path(tmp), greedy, card))
     rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"], train_rows["K6"]],
                  "whisper_finetune_shapes": [ft_rows["K6"]]}
     rec["K8"] = {**rec["K8"], "joint_shapes": [train_rows["K8"]],

@@ -34,21 +34,23 @@ def featurize(
     sample_rate: Optional[int] = None,
     device="cuda",
 ) -> torch.Tensor:
-    """Audio (path, PCM array, or list thereof) at cfg.sample_rate ->
-    log-mel features [B, num_mels, frames] on `device` (K1 on a card)."""
+    """Audio (path, PCM array, or list thereof) -> log-mel features
+    [B, num_mels, frames] on `device` (K1 on a card). Audio at another rate
+    than cfg.sample_rate (a file's header, or `sample_rate` for arrays) is
+    resampled on `device` first."""
     from .frontend import audio_io, features
+    from .frontend.resample import resample
 
     cfg = cfg or FrontendConfig()
     if isinstance(wav, str) or hasattr(wav, "__fspath__"):
-        wav, sample_rate = audio_io.read_wav(wav)
-    if sample_rate is not None and sample_rate != cfg.sample_rate:
-        raise NotImplementedError(
-            f"{sample_rate} Hz audio: resampling comes with the auxiliary-modules slice"
-        )
+        wav, sample_rate = audio_io.read_audio(wav)
     if isinstance(wav, np.ndarray) and wav.ndim == 1:
         wavs = [wav]
     else:
         wavs = [np.asarray(w, dtype=np.float32) for w in wav]
+    if sample_rate is not None and sample_rate != cfg.sample_rate:
+        wavs = [resample(torch.from_numpy(np.asarray(w, np.float32)).to(device), sample_rate,
+                         cfg.sample_rate).cpu().numpy() for w in wavs]
     batch = np.stack([features.pad_or_trim(w, cfg) for w in wavs])
     return features.featurize_batch(torch.from_numpy(batch).to(device), cfg)
 

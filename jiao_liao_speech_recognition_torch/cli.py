@@ -18,14 +18,19 @@ subcommands, flags and JSON output:
         --strategy beam --beam-size 8 [--lm-path lm.npz --lm-weight 0.5]
     python -m jiao_liao_speech_recognition_torch.cli train-lm m/train.jsonl --output lm.npz
     python -m jiao_liao_speech_recognition_torch.cli train-unigram m/train.jsonl --output u.json
+    python -m jiao_liao_speech_recognition_torch.cli export-whisper --checkpoint ckpt/final \
+        --out hf_dir
     python -m jiao_liao_speech_recognition_torch.cli build-native
 
 ``train`` runs ``config.stages`` through ``train/schedules.run_stages``
 (then saves the bundle to ``<checkpoint_dir>/final``), else
-``api.fine_tune``. Every subcommand that computes takes one flag the JAX
-CLI lacks, ``--device`` (default ``cuda``). Subcommands and flags whose
-modules are not ported yet are refused with exit code 2 and the ROADMAP
-item that brings them.
+``api.fine_tune``. ``train`` and ``transcribe`` take ``--profile LOGDIR``
+(a ``torch.profiler`` trace of the run, utils/profiling.py). Audio is
+WAV (8/16/24/32-bit PCM or float) or FLAC at any rate, resampled to the
+frontend's. Every subcommand that computes takes one flag the JAX CLI
+lacks, ``--device`` (default ``cuda``). The one flag whose module is not
+ported yet, ``--multihost``, is refused with exit code 2 and the ROADMAP
+item that brings it.
 """
 
 from __future__ import annotations
@@ -37,10 +42,8 @@ import os
 import sys
 from pathlib import Path
 
-# subcommand or flag -> the ROADMAP queue 1 item that ports its module
+# flag -> the ROADMAP queue 1 item that ports its module
 NOT_PORTED = {
-    "export-whisper": "queue 1 item 4 (the HF export)",
-    "--profile": "queue 1 item 10 (utils/profiling.py)",
     "--multihost": "queue 1 item 9 (multi-GPU)",
 }
 
@@ -69,10 +72,17 @@ def _load_config(args):
 
 
 def cmd_train(args) -> int:
-    rc = refuse_flags(args, "--profile", "--multihost")
+    rc = refuse_flags(args, "--multihost")
     if rc is not None:
         return rc
+    from .utils.profiling import trace
+
     cfg = _load_config(args)
+    with trace(args.profile):
+        return _train_body(args, cfg)
+
+
+def _train_body(args, cfg) -> int:
     out = Path(cfg.train.checkpoint_dir) / "final"
     if cfg.stages:
         from .models.bundle import ModelBundle
@@ -115,15 +125,19 @@ def _decode_config(bundle, strategy, beam_size, lm_path, lm_weight):
 
 
 def cmd_transcribe(args) -> int:
-    rc = refuse_flags(args, "--profile")
-    if rc is not None:
-        return rc
-    from .api import transcribe
-    from .utils.captions import format_srt, format_vtt, group_cues, group_words
+    from .utils.profiling import trace
 
     bundle = _load_bundle(args)
     if bundle is None:
         return 2
+    with trace(args.profile):
+        return _transcribe_body(bundle, args)
+
+
+def _transcribe_body(bundle, args) -> int:
+    from .api import transcribe
+    from .utils.captions import format_srt, format_vtt, group_cues, group_words
+
     decode_cfg = _decode_config(bundle, args.strategy, args.beam_size, args.lm_path,
                                 args.lm_weight)
     if args.stream:
@@ -346,12 +360,29 @@ def cmd_import_whisper(args) -> int:
     return 0
 
 
+def cmd_export_whisper(args) -> int:
+    """A whisper-family bundle -> an HF checkpoint directory
+    (models/whisper_import.export_hf_checkpoint)."""
+    from .api import load
+    from .models.whisper_import import export_hf_checkpoint
+
+    bundle = load(checkpoint=args.checkpoint, config=args.config, device=args.device)
+    if bundle.config.model_family != "whisper":
+        print("export-whisper needs a whisper-family bundle", file=sys.stderr)
+        return 1
+    out = export_hf_checkpoint(bundle, args.out)
+    print(json.dumps({"out": str(out)}))
+    return 0
+
+
 def cmd_build_native(args) -> int:
-    """Build the C++ CTC beam engine (native/beam.cpp) and load it."""
-    from .utils.native_ext import load_beam
+    """Build the C++ host libraries (native/beam.cpp, wavio.cpp,
+    flacio.cpp) and load them."""
+    from .utils.native_ext import load_beam, load_flacio, load_wavio
 
     try:
-        load_beam()
+        for load in (load_beam, load_wavio, load_flacio):
+            load()
         ok = True
     except RuntimeError as e:
         print(e, file=sys.stderr)
@@ -373,7 +404,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt = sub.add_parser("train", help="(adapter) fine-tune / multi-dialect stages")
     pt.add_argument("--config", required=True)
     pt.add_argument("--resume", action="store_true")
-    pt.add_argument("--profile", metavar="LOGDIR", help="(not ported)")
+    pt.add_argument("--profile", metavar="LOGDIR", help="write a torch.profiler trace")
     pt.add_argument("--multihost", action="store_true", help="(not ported)")
     pt.add_argument("override", nargs="*", help="key.subkey=value overrides")
     _device(pt)
@@ -383,7 +414,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("audio", nargs="+")
     pr.add_argument("--checkpoint")
     pr.add_argument("--config")
-    pr.add_argument("--profile", metavar="LOGDIR", help="(not ported)")
+    pr.add_argument("--profile", metavar="LOGDIR", help="write a torch.profiler trace")
     pr.add_argument("--strategy", choices=STRATEGIES,
                     help="decode strategy override (default: the bundle's config)")
     pr.add_argument("--beam-size", type=int, default=None)
@@ -465,7 +496,16 @@ def build_parser() -> argparse.ArgumentParser:
     _device(pi)
     pi.set_defaults(fn=cmd_import_whisper)
 
-    pn = sub.add_parser("build-native", help="build the C++ CTC beam engine (native/beam.cpp)")
+    px = sub.add_parser("export-whisper",
+                        help="whisper bundle checkpoint -> HF dir (from_pretrained-able)")
+    px.add_argument("--checkpoint", required=True)
+    px.add_argument("--config")
+    px.add_argument("--out", required=True, help="HF checkpoint dir to write")
+    _device(px)
+    px.set_defaults(fn=cmd_export_whisper)
+
+    pn = sub.add_parser("build-native",
+                        help="build the C++ host libraries (CTC beam, WAV and FLAC decoders)")
     pn.set_defaults(fn=cmd_build_native)
 
     pf = sub.add_parser("featurize", help="audio -> log-mel .npy")
@@ -494,10 +534,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:  # a JAX subcommand without its module here
-        return refuse(argv[0])
-    args = build_parser().parse_args(argv)
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
     return args.fn(args)
 
 

@@ -15,8 +15,10 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from ..frontend.audio_io import read_wav
+from ..frontend.audio_io import read_audio
+from ..frontend.resample import resample
 from ..utils.config import DataConfig
 from .manifest import Manifest, ManifestRow
 from .tokenizer import CharTokenizer
@@ -137,15 +139,14 @@ class BatchIterator:
         llen = np.zeros((B,), np.int32)
         texts = []
         for i, r in enumerate(rows):
-            pcm, sr = read_wav(r.audio)
-            if sr != self.sample_rate:
-                raise NotImplementedError(
-                    f"{r.audio}: {sr} Hz audio; resampling to {self.sample_rate} Hz "
-                    "comes with the auxiliary-modules slice"
-                )
+            pcm, sr = read_audio(r.audio)
+            if sr != self.sample_rate:  # on the host, where the loader runs
+                pcm = resample(torch.from_numpy(pcm), sr, self.sample_rate).numpy()
             m = min(len(pcm), samples)
             if int16_wire:
-                # exact for 16-bit sources: f32 was i / 32768
+                # exact for 16-bit sources (f32 was i / 32768, so
+                # rint(f32 * 32768) == i); at most 1 lsb of quantisation for
+                # the others (resampled, 24-bit, float)
                 audio[i, :m] = np.clip(np.rint(pcm[:m] * 32768.0), -32768, 32767).astype(np.int16)
             else:
                 audio[i, :m] = pcm[:m]

@@ -46,6 +46,7 @@ from ..data.tokenizer import CharTokenizer
 from ..data.unigram import UnigramTokenizer
 from ..decode.ctc import ctc_collapse_with_times, ctc_greedy_collapse, ids_to_texts
 from ..frontend import audio_io, features
+from ..frontend.resample import resample
 from ..utils.config import STRATEGIES, DecodeConfig, ExperimentConfig, load_yaml, save_yaml
 from .convert import (
     joint_params_to_state_dict,
@@ -375,20 +376,22 @@ class ModelBundle:
 
     def _collect_audio(self, audio, sample_rate) -> List[np.ndarray]:
         """Inputs (path, 1-D array, 2-D array or list of either) -> list of
-        mono float32 arrays at fe.sample_rate; other rates raise."""
+        mono float32 arrays at fe.sample_rate. Every item keeps its own
+        rate (a file its header's, an array `sample_rate`, None meaning
+        fe.sample_rate already) and is resampled alone on the bundle's
+        device, so mixed-rate lists and mixes of files and arrays work."""
         fe = self.config.frontend
 
         def one(a):
             if isinstance(a, (str, Path)):
-                pcm, sr = audio_io.read_wav(a)
+                pcm, sr = audio_io.read_audio(a)
             else:
                 pcm, sr = np.asarray(a, np.float32), (sample_rate or fe.sample_rate)
+            pcm = np.asarray(pcm, np.float32)
             if sr != fe.sample_rate:
-                raise NotImplementedError(
-                    f"{sr} Hz audio: resampling to {fe.sample_rate} Hz comes with the "
-                    "auxiliary-modules slice (frontend/resample.py)"
-                )
-            return np.asarray(pcm, np.float32)
+                pcm = resample(torch.from_numpy(pcm).to(self.device), sr,
+                               fe.sample_rate).cpu().numpy()
+            return pcm
 
         if isinstance(audio, (str, Path)) or (isinstance(audio, np.ndarray) and audio.ndim == 1):
             return [one(audio)]

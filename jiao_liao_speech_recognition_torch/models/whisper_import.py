@@ -1,13 +1,15 @@
-"""Import HF Whisper checkpoints (safetensors) into the port, the import
-half of the JAX package's ``models/whisper_import.py``.
+"""HF Whisper checkpoints (safetensors) in and out of the port, the JAX
+package's ``models/whisper_import.py``.
 
-``read_safetensors`` is a numpy-only reader (8-byte little-endian header
-length, a JSON index {name: {dtype, shape, data_offsets}}, raw row-major
-buffers). ``hf_state_dict_to_port`` maps a transformers
-``WhisperForConditionalGeneration`` state dict onto the port's
-``WhisperModel`` state dict: torch Linear weights [out, in] transpose to
-Dense kernels [in, out]; Conv1d weights keep their [out, in, k] layout.
-``import_hf_checkpoint`` writes a bundle directory ``api.load`` reads.
+``read_safetensors`` / ``write_safetensors`` are numpy-only (8-byte
+little-endian header length, a JSON index {name: {dtype, shape,
+data_offsets}}, raw row-major buffers). ``hf_state_dict_to_port`` maps a
+transformers ``WhisperForConditionalGeneration`` state dict onto the
+port's ``WhisperModel`` state dict: torch Linear weights [out, in]
+transpose to Dense kernels [in, out]; Conv1d weights keep their [out, in,
+k] layout. ``import_hf_checkpoint`` writes a bundle directory
+``api.load`` reads; ``port_to_hf_state_dict`` / ``export_hf_checkpoint``
+go the other way, to a directory ``from_pretrained`` reads.
 """
 
 from __future__ import annotations
@@ -46,6 +48,26 @@ def read_safetensors(path: str | Path) -> Dict[str, np.ndarray]:
             arr = np.frombuffer(buf, dtype=_DTYPES[meta["dtype"]])
         out[name] = arr.reshape(meta["shape"]).copy()
     return out
+
+
+def write_safetensors(path: str | Path, tensors: Dict[str, np.ndarray]) -> None:
+    """{name: numpy array} -> a .safetensors file (the header padded with
+    spaces to a multiple of 8 bytes, as the JAX package writes it)."""
+    dtypes = {np.dtype(v): k for k, v in _DTYPES.items()}
+    header, bufs, offset = {}, [], 0
+    for name, arr in tensors.items():
+        b = np.ascontiguousarray(arr).tobytes()
+        header[name] = {"dtype": dtypes[np.dtype(arr.dtype)], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(b)]}
+        bufs.append(b)
+        offset += len(b)
+    hjson = json.dumps(header).encode("utf-8")
+    hjson += b" " * ((8 - len(hjson) % 8) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(hjson)))
+        fh.write(hjson)
+        for b in bufs:
+            fh.write(b)
 
 
 def _hf_key_map(cfg) -> Dict[str, str]:
@@ -100,6 +122,70 @@ def hf_state_dict_to_port(sd: Dict[str, np.ndarray], cfg) -> Dict[str, torch.Ten
             arr = arr.T  # Linear [out, in] -> Dense [in, out]
         state[port] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def port_to_hf_state_dict(state: Dict[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
+    """The port's WhisperModel state_dict -> a transformers
+    WhisperForConditionalGeneration state dict (``model.*`` keys, f32
+    numpy), the inverse of ``hf_state_dict_to_port``. As the JAX package's
+    ``flax_to_hf_state_dict``, it exports no ``adapter_*`` tensor (HF has
+    no slot for them), no ``proj_out`` (tied to the embedding) and no
+    sinusoidal encoder positions (not persistent in transformers)."""
+    sd = {}
+    for port, hf in _hf_key_map(cfg).items():
+        if port not in state:
+            raise KeyError(f"{port}: not in the state dict (an int8 bundle exports its "
+                           "bf16 original)")
+        arr = state[port].detach().to("cpu", torch.float32).numpy()
+        sd[f"model.{hf}"] = np.ascontiguousarray(arr.T if port.endswith(".kernel") else arr)
+    return sd
+
+
+def export_hf_checkpoint(bundle, out: str | Path) -> Path:
+    """A whisper-family ModelBundle -> an HF checkpoint directory that
+    transformers ``from_pretrained`` reads: model.safetensors (f32, torch
+    layout), config.json and generation_config.json, with the JAX
+    package's fields."""
+    from ..decode.whisper_generate import resolve_specials
+
+    cfg = bundle.config.whisper
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    write_safetensors(out / "model.safetensors",
+                      port_to_hf_state_dict(bundle.model.state_dict(), cfg))
+    config = {
+        "architectures": ["WhisperForConditionalGeneration"],
+        "model_type": "whisper",
+        "vocab_size": cfg.vocab_size,
+        "num_mel_bins": cfg.num_mels,
+        "d_model": cfg.d_model,
+        "encoder_layers": cfg.encoder_layers,
+        "decoder_layers": cfg.decoder_layers,
+        "encoder_attention_heads": cfg.num_heads,
+        "decoder_attention_heads": cfg.num_heads,
+        "encoder_ffn_dim": cfg.mlp_dim,
+        "decoder_ffn_dim": cfg.mlp_dim,
+        "max_source_positions": cfg.max_source_positions,
+        "max_target_positions": cfg.max_target_positions,
+        "activation_function": "gelu",
+        "is_encoder_decoder": True,
+        "tie_word_embeddings": True,
+    }
+    # the special ids must lie inside a (possibly small) vocab, or torch's
+    # Embedding(padding_idx=...) asserts: bos = pad = eos = EOT, the decoder
+    # starts at the prompt's first token, both clamped into the vocab
+    prompt, eot = resolve_specials(cfg)
+    eot = int(eot) if eot < cfg.vocab_size else cfg.vocab_size - 1
+    start = int(prompt[0]) if prompt and prompt[0] < cfg.vocab_size else eot
+    config.update(eos_token_id=eot, pad_token_id=eot, bos_token_id=eot,
+                  decoder_start_token_id=start)
+    (out / "config.json").write_text(json.dumps(config, indent=2), encoding="utf-8")
+    gc = {"suppress_tokens": list(cfg.suppress_ids),
+          "begin_suppress_tokens": list(cfg.begin_suppress_ids)}
+    if cfg.alignment_heads:
+        gc["alignment_heads"] = [list(lh) for lh in cfg.alignment_heads]
+    (out / "generation_config.json").write_text(json.dumps(gc, indent=2), encoding="utf-8")
+    return out
 
 
 def load_hf_generation_constraints(path: str | Path) -> Dict[str, tuple]:

@@ -28,8 +28,10 @@ one card.
   / ``run_experiment`` / ``evaluate_manifest``.
 
 Randomness: one CPU ``torch.Generator`` seeded from ``TrainConfig.seed``
-draws two seeds per step, one for SpecAugment and one for the dropout
-masks; its state is checkpointed, so resume is exact. The data order is
+draws three seeds per step, for SpecAugment, the dropout masks and the
+waveform augmentation (``augment.enabled``: the ctc and joint losses, as
+in JAX; Whisper's takes none); its state is checkpointed, so resume is
+exact. The data order is
 the JAX package's seeded epoch plan (``data/pipeline.py``).
 """
 
@@ -46,11 +48,13 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..frontend.augment import augment_waveform
 from ..frontend.features import dequantize_pcm, featurize_batch
 from ..frontend.specaugment import spec_augment
 from ..models.adapters import param_is_adapter
 from ..ops.ctc_loss import ctc_loss
 from ..utils.config import ExperimentConfig, OptimizerConfig
+from ..utils.logging import MetricsLogger
 
 
 # ---------------------------------------------------------------------------
@@ -175,16 +179,27 @@ def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str,
 # ---------------------------------------------------------------------------
 
 
+def augmented_audio(config: ExperimentConfig, batch, seeds, train: bool) -> torch.Tensor:
+    """The batch's float audio, waveform-augmented in training when
+    ``augment.enabled`` (a generator on the audio's device seeded with
+    ``seeds[2]``), as the JAX CTC and joint losses do before featurizing."""
+    audio = dequantize_pcm(batch["audio"])
+    if train and config.augment.enabled:
+        gen = torch.Generator(device=audio.device).manual_seed(seeds[2])
+        audio = augment_waveform(gen, audio, config.augment, config.frontend.sample_rate)
+    return audio
+
+
 def make_ctc_loss_fn(config: ExperimentConfig, model) -> Callable:
     """loss_fn(batch, seeds, train, kernels) -> (loss, metrics); batch is
-    a dict of tensors on the model's device, seeds = (specaugment, dropout)."""
+    a dict of tensors on the model's device, seeds = (specaugment, dropout,
+    waveform augmentation)."""
     fe = config.frontend
-    if config.augment.enabled:
-        raise NotImplementedError("waveform augmentation comes with the auxiliary-modules slice")
 
     def loss_fn(batch, seeds, train: bool, kernels: bool = True):
         with torch.no_grad():
-            feats = featurize_batch(dequantize_pcm(batch["audio"]), fe, kernels=kernels)
+            audio = augmented_audio(config, batch, seeds, train)
+            feats = featurize_batch(audio, fe, kernels=kernels)
         feat_lengths = batch["audio_lengths"] // fe.hop_length
         if train and config.specaugment.enabled:
             feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
@@ -220,12 +235,11 @@ def make_joint_loss_fn(config: ExperimentConfig, model) -> Callable:
     with a bf16 decoder loss_att is a bf16 number, as in the JAX step."""
     fe = config.frontend
     w = config.joint.ctc_weight
-    if config.augment.enabled:
-        raise NotImplementedError("waveform augmentation comes with the auxiliary-modules slice")
 
     def loss_fn(batch, seeds, train: bool, kernels: bool = True):
         with torch.no_grad():
-            feats = featurize_batch(dequantize_pcm(batch["audio"]), fe, kernels=kernels)
+            audio = augmented_audio(config, batch, seeds, train)
+            feats = featurize_batch(audio, fe, kernels=kernels)
         feat_lengths = batch["audio_lengths"] // fe.hop_length
         if train and config.specaugment.enabled:
             feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
@@ -310,7 +324,7 @@ def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
     k = max(cfg.grad_accum_steps, 1)
 
     def train_step(state: TrainState, batch, kernels: bool = True):
-        seeds = torch.randint(0, 2**62, (2,), generator=state.generator).tolist()
+        seeds = torch.randint(0, 2**62, (3,), generator=state.generator).tolist()
         loss, metrics = loss_fn(batch, seeds, True, kernels)
         (loss / k if k > 1 else loss).backward()
         state.step += 1
@@ -410,27 +424,18 @@ def build_tokenizer_for(config: ExperimentConfig, manifest):
 # ---------------------------------------------------------------------------
 
 
-def _log(path: Optional[str], step: int, **metrics) -> None:
-    """Append one jsonl record (the JAX MetricsLogger's format)."""
-    if not path:
-        return
-    import json
-
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "a") as fh:
-        fh.write(json.dumps({"step": int(step), "ts": time.time(), **metrics}, default=float) + "\n")
-
-
 def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: bool = False,
-               checkpoint_dir: Optional[str] = None, eval_manifest=None,
-               kernels: bool = True, max_steps: Optional[int] = None):
+               checkpoint_dir: Optional[str] = None, logger: Optional[MetricsLogger] = None,
+               eval_manifest=None, kernels: bool = True, max_steps: Optional[int] = None):
     """Train on one card until ``optimizer.total_steps`` micro-steps (or
     ``max_steps`` more in this call): host batches from a prefetch thread,
     per-step losses, steps/s every ``log_every_steps``, a checkpoint every
     ``checkpoint_every_steps`` and where the call stops, and on SIGTERM a
     checkpoint and a clean exit. With ``resume``, the newest checkpoint in
     ``checkpoint_dir`` (default ``train.checkpoint_dir``) is restored first,
-    so a run whose checkpoint is at ``total_steps`` takes no step. Returns
+    so a run whose checkpoint is at ``total_steps`` takes no step. Records
+    go to `logger`, or to a ``MetricsLogger`` of ``train.metrics_path`` (and
+    ``train.use_wandb``) that this call opens and closes. Returns
     (state, info) with info = {"terminated", "last_metrics", "losses",
     "steps_per_sec"}."""
     from ..data.pipeline import BatchIterator, PrefetchIterator
@@ -454,6 +459,9 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
         if extra is not None:
             it.load_state_dict(extra.get("data_iter", it.state_dict()))
 
+    own_logger = logger is None
+    if own_logger:
+        logger = MetricsLogger(tc.metrics_path, use_wandb=tc.use_wandb)
     terminated = {"flag": False}
     old_handler = None
     if threading.current_thread() is threading.main_thread():
@@ -478,19 +486,21 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
                 m = {k: float(v) for k, v in metrics.items()}
                 m["steps_per_sec"] = tc.log_every_steps / max(time.perf_counter() - t0, 1e-9)
                 t0 = time.perf_counter()
-                _log(tc.metrics_path, state.step, **m)
+                logger.log(state.step, **m)
             if eval_manifest is not None and state.step % tc.eval_every_steps == 0:
-                _log(tc.metrics_path, state.step,
-                     **evaluate_manifest(config, model, tokenizer, eval_manifest))
+                logger.log(state.step,
+                           **evaluate_manifest(config, model, tokenizer, eval_manifest))
                 model.train()
             if (state.step % tc.checkpoint_every_steps == 0 or state.step == total
                     or terminated["flag"]):
                 ckpt.save(state.step, state, {"data_iter": it.state_dict()})
             if terminated["flag"]:
-                _log(tc.metrics_path, state.step, event="sigterm_checkpoint_and_exit")
+                logger.log(state.step, event="sigterm_checkpoint_and_exit")
                 break
     finally:
         it.close()
+        if own_logger:
+            logger.close()
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
     if device.type == "cuda":
@@ -545,8 +555,8 @@ def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda"
     bundle = ModelBundle(config, model, tokenizer)
     bundle.save(str(Path(config.train.checkpoint_dir) / "final"))
     if eval_manifest is not None:
-        _log(config.train.metrics_path, state.step,
-             **evaluate_manifest(config, model, tokenizer, eval_manifest))
+        with MetricsLogger(config.train.metrics_path) as logger:
+            logger.log(state.step, **evaluate_manifest(config, model, tokenizer, eval_manifest))
     return state, bundle
 
 

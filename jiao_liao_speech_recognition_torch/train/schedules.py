@@ -21,7 +21,8 @@ from ..data.manifest import Manifest, read_manifest
 from ..data.pipeline import mix_manifests
 from ..data.tokenizer import CharTokenizer
 from ..utils.config import DialectStage, ExperimentConfig
-from .engine import _log, make_model, size_vocab, train_loop
+from ..utils.logging import MetricsLogger
+from .engine import make_model, size_vocab, train_loop
 
 
 def build_stage_manifest(stage: DialectStage) -> Manifest:
@@ -46,7 +47,8 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
     ``train.train_adapters_only`` and ``optimizer.total_steps`` (= its
     steps; warmup as configured) replaced, and appends a summary line
     {"step", "ts", "stage", "stage_index", **last metrics} to
-    ``train.metrics_path``. A SIGTERM ends the schedule after that stage's
+    ``train.metrics_path`` through the one ``MetricsLogger`` its stages'
+    records go to. A SIGTERM ends the schedule after that stage's
     checkpoint. -> (model, tokenizer, history), history holding
     {"stage": name, **last metrics} per stage run.
     """
@@ -60,20 +62,19 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
         model = make_model(config, device)
 
     base_dir = Path(config.train.checkpoint_dir)
-    metrics_path = config.train.metrics_path
     history = []
-    for si, (stage, manifest) in enumerate(zip(config.stages, stage_manifests)):
-        train = dataclasses.replace(
-            config.train, train_adapters_only=stage.train_adapters_only,
-            optimizer=dataclasses.replace(config.train.optimizer, total_steps=stage.steps))
-        stage_cfg = dataclasses.replace(config, train=train)
-        stage_dir = str(base_dir / f"stage_{si}_{stage.name or 'stage'}")
-        _, info = train_loop(stage_cfg, manifest, tokenizer, model, resume=resume,
-                             checkpoint_dir=stage_dir, kernels=kernels)
-        history.append({"stage": stage.name, **info["last_metrics"]})
-        _log(metrics_path, stage.steps, stage=stage.name, stage_index=si,
-             **info["last_metrics"])
-        if info["terminated"]:
-            _log(metrics_path, stage.steps, event="sigterm_stage_exit", stage=stage.name)
-            break
+    with MetricsLogger(config.train.metrics_path, use_wandb=config.train.use_wandb) as logger:
+        for si, (stage, manifest) in enumerate(zip(config.stages, stage_manifests)):
+            train = dataclasses.replace(
+                config.train, train_adapters_only=stage.train_adapters_only,
+                optimizer=dataclasses.replace(config.train.optimizer, total_steps=stage.steps))
+            stage_cfg = dataclasses.replace(config, train=train)
+            stage_dir = str(base_dir / f"stage_{si}_{stage.name or 'stage'}")
+            _, info = train_loop(stage_cfg, manifest, tokenizer, model, resume=resume,
+                                 checkpoint_dir=stage_dir, logger=logger, kernels=kernels)
+            history.append({"stage": stage.name, **info["last_metrics"]})
+            logger.log(stage.steps, stage=stage.name, stage_index=si, **info["last_metrics"])
+            if info["terminated"]:
+                logger.log(stage.steps, event="sigterm_stage_exit", stage=stage.name)
+                break
     return model, tokenizer, history

@@ -61,7 +61,8 @@ class SpecAugmentConfig:
 
 @dataclass
 class AugmentConfig:
-    """Waveform augmentation (not ported yet: enabled=True raises)."""
+    """Waveform augmentation (frontend/augment.py), applied in training by
+    the ctc and joint losses when enabled."""
 
     enabled: bool = False
     gain_db: Tuple[float, float] = (-6.0, 6.0)
@@ -191,8 +192,8 @@ class DataConfig:
     max_text_len: int = 128
     shuffle_seed: int = 0
     num_host_workers: int = 4
-    tokenizer_dir: str = ""  # subword vocabularies: not ported (raises)
-    unigram_vocab: str = ""  # not ported (raises)
+    tokenizer_dir: str = ""  # HF byte-level BPE files (vocab.json + merges.txt)
+    unigram_vocab: str = ""  # a unigram subword vocab (cli train-unigram)
     dialect_weights: Optional[Dict[str, float]] = None  # mixed by dialect tag
     transfer_dtype: str = "float32"  # "float32" | "int16" host->device audio
 
@@ -222,7 +223,7 @@ class TrainConfig:
     eval_every_steps: int = 1000
     seed: int = 0
     metrics_path: Optional[str] = None
-    use_wandb: bool = False  # not ported (ignored)
+    use_wandb: bool = False  # a wandb sink beside the jsonl (utils/logging.py)
     fast_dropout_rng: bool = True  # a TPU generator switch: ignored here
 
 

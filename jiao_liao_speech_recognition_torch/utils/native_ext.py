@@ -1,15 +1,17 @@
-"""The port's ctypes binding of the C++ CTC prefix beam search
-(``native/beam.cpp``), the engine the JAX package's ``utils/native_ext.py``
-loads (a copy: that module sits in a package that imports jax).
+"""The port's ctypes bindings of the C++ host libraries the JAX package's
+``utils/native_ext.py`` loads (a copy: that module sits in a package that
+imports jax): the CTC prefix beam search (``native/beam.cpp``), the WAV
+decoder (``native/wavio.cpp``) and the FLAC decoder (``native/flacio.cpp``).
 
-``load_beam()`` builds the library at first use with the flags of
-``native/Makefile`` into the port's ``_build/`` directory, named after a
-hash of the source, the flags and the compiler's resolved target (so a
-tree copied to a machine with another CPU rebuilds instead of loading code
-for the wrong one), under the file lock ``_build.py`` uses for the CUDA
-library. A failed build raises with the compiler's output; nothing falls
-back to a Python searcher. The other native libraries (edit distance, WAV
-and FLAC decoding, BPE) are not bound here yet.
+``load_beam()`` / ``load_wavio()`` / ``load_flacio()`` build their library
+at first use with the flags of ``native/Makefile`` into the port's
+``_build/`` directory, named after a hash of the source, the flags and the
+compiler's resolved target (so a tree copied to a machine with another CPU
+rebuilds instead of loading code for the wrong one), under the file lock
+``_build.py`` uses for the CUDA library. A failed build raises with the
+compiler's output; what falls back is the caller's choice
+(``frontend/audio_io.read_wav`` falls back to the stdlib decoder, the beam
+and FLAC do not). Edit distance and BPE are not bound here.
 """
 
 from __future__ import annotations
@@ -29,13 +31,13 @@ from .._build import BUILD_DIR
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall", "-pthread")
-SOURCES = {"beam": "beam.cpp"}
+SOURCES = {"beam": "beam.cpp", "wavio": "wavio.cpp", "flacio": "flacio.cpp"}
 
 
 def _cxx() -> str:
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if not cxx:
-        raise RuntimeError("no C++ compiler (g++) on the PATH: native/beam.cpp cannot be built")
+        raise RuntimeError("no C++ compiler (g++) on the PATH: native/*.cpp cannot be built")
     return cxx
 
 
@@ -136,3 +138,78 @@ class Beam:
 def load_beam() -> Beam:
     """The C++ batched CTC prefix beam search, built at first use."""
     return Beam(ctypes.CDLL(str(build_native("beam"))))
+
+
+class WavIO:
+    """``read(path) -> (mono float32 PCM, sample_rate)``: 8/16/24/32-bit
+    PCM and 32/64-bit IEEE float WAV, channels averaged in f64."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._info, self._read = lib.jl_wav_info, lib.jl_wav_read
+        self._info.restype = self._read.restype = ctypes.c_int32
+        i64p, i32p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)
+        self._info.argtypes = [ctypes.c_char_p, i64p, i32p, i32p]  # frames, rate, channels
+        self._read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+
+    def read(self, path: str):
+        frames, sr, ch = ctypes.c_int64(), ctypes.c_int32(), ctypes.c_int32()
+        rc = self._info(str(path).encode(), ctypes.byref(frames), ctypes.byref(sr),
+                        ctypes.byref(ch))
+        if rc != 0:
+            raise IOError(f"wavio: cannot read header of {path} (rc={rc})")
+        out = np.empty(frames.value, dtype=np.float32)
+        rc = self._read(str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                        frames.value)
+        if rc != 0:
+            raise IOError(f"wavio: decode failed for {path} (rc={rc})")
+        return out, sr.value
+
+
+# a frame count above this in a (untrusted) STREAMINFO header is refused
+# rather than allocated: ~17 h at 16 kHz
+MAX_FLAC_FRAMES = 1_000_000_000
+
+
+class FlacIO:
+    """``info(path) -> (frames, sample_rate, channels)``;
+    ``read(path) -> (mono float32 PCM, sample_rate)``."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._info, self._read = lib.jl_flac_info, lib.jl_flac_read
+        self._info.restype = self._read.restype = ctypes.c_int32
+        i64p, i32p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)
+        self._info.argtypes = [ctypes.c_char_p, i64p, i32p, i32p]
+        self._read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                               i64p]  # decoded frames
+
+    def info(self, path: str):
+        frames, sr, ch = ctypes.c_int64(), ctypes.c_int32(), ctypes.c_int32()
+        rc = self._info(str(path).encode(), ctypes.byref(frames), ctypes.byref(sr),
+                        ctypes.byref(ch))
+        if rc != 0:
+            raise IOError(f"flacio: cannot read header of {path} (rc={rc})")
+        return frames.value, sr.value, ch.value
+
+    def read(self, path: str):
+        frames, sr, _ = self.info(path)
+        if frames > MAX_FLAC_FRAMES:
+            raise IOError(f"flacio: implausible frame count {frames} in {path}")
+        out = np.empty(max(frames, 1), dtype=np.float32)
+        decoded = ctypes.c_int64()
+        rc = self._read(str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                        frames, ctypes.byref(decoded))
+        if rc != 0:
+            raise IOError(f"flacio: decode failed for {path} (rc={rc})")
+        return out[:decoded.value], sr
+
+
+@functools.cache
+def load_wavio() -> WavIO:
+    """The C++ WAV decoder, built at first use."""
+    return WavIO(ctypes.CDLL(str(build_native("wavio"))))
+
+
+@functools.cache
+def load_flacio() -> FlacIO:
+    """The C++ FLAC decoder, built at first use."""
+    return FlacIO(ctypes.CDLL(str(build_native("flacio"))))

@@ -10,8 +10,9 @@ the joint family's strategies, --timestamps and --stream print the JAX
 CLI's lines on one checkpoint both packages read, ``train-lm`` writes the
 JAX CLI's LM, --lm-path / --lm-weight reach a Whisper beam, a CTC
 bundle's beam (transcribe --strategy beam / beam_device, evaluate --decode
-beam) prints the JAX CLI's lines, build-native builds the beam engine, and
-every subcommand or flag whose module is not ported exits 2."""
+beam) prints the JAX CLI's lines, build-native builds the native
+libraries, export-whisper and --profile write their files, and --multihost,
+whose module is not ported, exits 2."""
 
 import io
 import json
@@ -226,17 +227,20 @@ def test_prepare_cmvn_matches_jax(env, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["train-unigram", "m.jsonl", "--output", "u.json"],
-    ["export-whisper", "--checkpoint", "c", "--out", "o"], ["build-native"],
-    ["transcribe", "a.wav", "--profile", "d"],
-    ["train", "--config", "c.yaml", "--profile", "d"],
+    ["export-whisper", "--checkpoint", "WHISPER", "--out", "o"], ["build-native"],
+    ["transcribe", "u0.wav", "--checkpoint", "FINAL", "--profile", "d"],
+    ["train", "--config", "tiny.yaml", "--profile", "d"],
     ["train", "--config", "c.yaml", "--multihost"],
 ])
-def test_unported_subcommands_and_flags_exit_2(argv, capsys, tmp_path, monkeypatch):
-    """Each unported subcommand or flag exits 2 naming its ROADMAP item.
-    build-native is ported (with the CTC beam): it builds native/beam.cpp,
-    prints the JAX CLI's line and the library loads. train-unigram is
-    ported (data/unigram.py): it writes the vocab JAX's trains on the same
-    manifest and prints the JAX CLI's keys."""
+def test_unported_subcommands_and_flags_exit_2(argv, capsys, tmp_path, monkeypatch, request):
+    """The one unported flag, --multihost, exits 2 naming its ROADMAP item;
+    the rest are ported. build-native builds native/beam.cpp, wavio.cpp and
+    flacio.cpp, prints the JAX CLI's line and the libraries load.
+    train-unigram writes the vocab JAX's trains on the same manifest and
+    prints the JAX CLI's keys. export-whisper writes the HF checkpoint
+    files and prints the JAX CLI's line. --profile writes a torch.profiler
+    trace under its directory, and transcribe prints what it prints
+    without it."""
     if argv[0] == "train-unigram":
         from jiao_liao_speech_recognition_tpu.data.unigram import UnigramTokenizer as JUni
         from jiao_liao_speech_recognition_torch.data.manifest import ManifestRow, write_manifest
@@ -257,10 +261,37 @@ def test_unported_subcommands_and_flags_exit_2(argv, capsys, tmp_path, monkeypat
 
         assert cli.main(argv) == 0
         assert capsys.readouterr().out.splitlines() == ["native build: ok"]
-        assert native_ext.native_available("beam") and native_ext.load_beam()
+        for name in ("beam", "wavio", "flacio"):
+            assert native_ext.native_available(name), name
+        assert native_ext.load_beam() and native_ext.load_wavio() and native_ext.load_flacio()
         return
-    assert cli.main(argv) == 2
-    assert "not ported yet: ROADMAP queue 1 item" in capsys.readouterr().err
+    if "--multihost" in argv:
+        assert cli.main(argv) == 2
+        assert "not ported yet: ROADMAP queue 1 item 9" in capsys.readouterr().err
+        return
+    env = request.getfixturevalue("env")
+    paths = {"WHISPER": lambda: str(request.getfixturevalue("whisper")),
+             "FINAL": lambda: str(request.getfixturevalue("final")),
+             "o": lambda: str(tmp_path / "o"), "d": lambda: str(tmp_path / "d"),
+             "u0.wav": lambda: str(env / "u0.wav"), "tiny.yaml": lambda: str(env / "tiny.yaml")}
+    argv = [paths[a]() if a in paths else a for a in argv] + ["--device", "cpu"]
+    if argv[0] == "export-whisper":
+        rc, out = _run(cli.main, argv, capsys)
+        assert rc == 0 and json.loads(out[-1]) == {"out": str(tmp_path / "o")}
+        assert sorted(f.name for f in (tmp_path / "o").iterdir()) == \
+            ["config.json", "generation_config.json", "model.safetensors"]
+        return
+    if argv[0] == "train":
+        argv += [f"data.train_manifest={env}/train.jsonl", "train.optimizer.total_steps=2",
+                 f"train.checkpoint_dir={tmp_path}/ckpt"]
+    capsys.readouterr()
+    rc, out = _run(cli.main, argv, capsys)
+    assert rc == 0
+    traces = list((tmp_path / "d").glob("*.pt.trace.json"))
+    assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
+    if argv[0] == "transcribe":
+        i = argv.index("--profile")
+        assert _run(cli.main, argv[:i] + argv[i + 2:], capsys)[1] == out
 
 
 @pytest.fixture(scope="module")

@@ -255,8 +255,10 @@ def test_bundle_transcribe_matches_jax_with_chunking(tmp_path):
     with jax.default_matmul_precision("highest"):
         want_beam = jb.transcribe(audio, decode_cfg=jcfg.DecodeConfig(strategy="beam"))
     assert tb.transcribe(audio, decode_cfg=tcfg.DecodeConfig(strategy="beam")) == want_beam
-    with pytest.raises(NotImplementedError, match="resampl"):
-        tb.transcribe(audio[0], sample_rate=8000)
+    # audio at another rate is resampled on the bundle's device, as JAX's
+    with jax.default_matmul_precision("highest"):
+        want_8k = jb.transcribe(audio, sample_rate=8000)
+    assert tb.transcribe(audio, sample_rate=8000) == want_8k
 
 
 def test_api_featurize_matches_jax_api():
