@@ -292,7 +292,18 @@ non-zero and prints no result line):
               K1's, K6's and K8's kernels; the same step timed with the
               augmentation off and on in turns (its cost a step); and
               evals/rtfx.measure_rtfx on the flagship's greedy batch (B=32
-              x 30 s) beside phase 7's reading.
+              x 30 s) beside phase 7's reading;
+19. multigpu - main path 28, run right after phase 5 on its corpus:
+              `cli train --multihost` of configs/adapter_finetune.yaml at
+              full width under `python -m torch.distributed.run
+              --nproc-per-node 1` (a 1 x 1 x 1 mesh: NCCL, the FSDP2 wrap
+              and the kernels under it), 3 steps of B=16 x 30 s: the
+              losses bitwise phase 5's (the one-process loop on the same
+              batches), K1, K6 and K8 launched as often as in phase 5 (the
+              launcher's process counts them, `--multigpu-worker`), and
+              its step-3 checkpoint restored into this process, which has
+              no process group: the step and every tensor bitwise phase
+              5's checkpoint.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
@@ -440,7 +451,11 @@ PATHS = {
                              "K9-int8", "K10", "K11"),
     "real_audio": ("K1", "K2", "K3", "K4"),
     "augmented_train": ("K1", "K6", "K8"),
+    "multigpu": ("K1", "K6", "K8"),
 }
+# phase 19: the launcher's limit (its start, ~10 s to reach the card, and
+# 3 steps of phase 5's fine-tune)
+MULTIGPU_TIMEOUT_S = 300
 # the Whisper fine-tune: configs/whisper_large_v3_adapters.yaml at B=16 x 30 s
 WHISPER_FT_CONFIG = "configs/whisper_large_v3_adapters.yaml"
 WHISPER_FT_STEPS = 3  # the config's total_steps, cut
@@ -1231,7 +1246,7 @@ def phase_finetune(counters, workdir: Path):
     check(n_b > 0 and b_moved == n_b, "an adapter B insert did not move")
     check(all((final / f).exists() for f in ("params.npz", "config.yaml", "vocab.json")),
           "the final bundle is incomplete")
-    return launches, cfg, final
+    return launches, cfg, final, losses
 
 
 def phase_finetune_vs_plain(cfg):
@@ -5950,6 +5965,102 @@ def phase_real_audio(counters, workdir: Path, greedy: dict, card: str):
     return paths
 
 
+def multigpu_worker(argv) -> int:
+    """One process of phase 19 under torch.distributed.run: every launch
+    count at 0, `cli.main(argv[1:])`, then the counts written to argv[0]
+    (JSON) with the exit code and the peak device memory."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import cli
+
+    counters = load_counters()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for c in counters.values():
+        c.reset()
+    rc = cli.main(argv[1:])
+    torch.cuda.synchronize()
+    Path(argv[0]).write_text(json.dumps({
+        "rc": rc, "launches": {key: c.launches for key, c in counters.items()},
+        "peak_bytes": torch.cuda.max_memory_allocated()}))
+    return rc
+
+
+def phase_multigpu(counters, workdir: Path, ft_cfg, ft_losses, ft_launches, card: str):
+    """Main path 28 (see phase 19 in the module docstring) -> launches."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.train import engine
+    from jiao_liao_speech_recognition_torch.train.checkpoints import TrainCheckpointer
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the launcher's process shares this card
+    root = Path(__file__).resolve().parent
+    counts, metrics, ckpt = workdir / "mg_counts.json", workdir / "mg_metrics.jsonl", \
+        workdir / "mg_ckpt"
+    argv = ["train", "--multihost", "--config", root / "configs" / "adapter_finetune.yaml",
+            f"data.train_manifest={ft_cfg.data.train_manifest}", 'data.eval_manifest=""',
+            f"train.checkpoint_dir={ckpt}", f"train.metrics_path={metrics}",
+            "train.log_every_steps=1", f"train.optimizer.total_steps={FT_STEPS}"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", str(root / "chip_smoke.py"), "--multigpu-worker", str(counts), *map(str, argv)]
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MULTIGPU_TIMEOUT_S,
+                          cwd=root)
+    launch_s = time.perf_counter() - t0
+    print(proc.stdout[-2000:], end="", flush=True)
+    check(proc.returncode == 0, f"the 1-process launch exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    child = json.loads(counts.read_text())
+    launches = child["launches"]
+    check(not any(c.launches for c in counters.values()), "this process launched a kernel")
+    missing = [key for key in PATHS["multigpu"] if launches[key] == 0]
+    check(not missing, f"multigpu: kernels never launched: {missing} ({launches})")
+    losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
+
+    # the launcher's step-3 checkpoint in this process, which has no group
+    model = engine.make_model(ft_cfg, "cuda")
+    state = engine.init_state(ft_cfg, model)
+    extra = TrainCheckpointer(str(ckpt)).restore(state)
+    mine = torch.load(Path(ft_cfg.train.checkpoint_dir) / f"{FT_STEPS:08d}" / "state.pt",
+                      map_location="cuda", weights_only=False)
+    same = sum(torch.equal(v, mine["model"][k]) for k, v in model.state_dict().items())
+    adam_same = sum(torch.equal(v, mine["optimizer"]["state"][i][name])
+                    for i, st in state.optimizer.state_dict()["state"].items()
+                    for name, v in st.items() if name != "step")
+    n_adam = sum(len(st) - 1 for st in mine["optimizer"]["state"].values())
+    emit({"phase": "multigpu", "card": card, "config": "configs/adapter_finetune.yaml",
+          "launcher": "python -m torch.distributed.run --standalone --nproc-per-node 1",
+          "argv": [str(a) for a in argv], "losses": losses, "one_process_losses": ft_losses,
+          "losses_bitwise": losses == ft_losses, "launches": launches,
+          "one_process_launches": {k: ft_launches[k] for k in PATHS["multigpu"]},
+          "peak_gb": child["peak_bytes"] / 1e9, "restored_step": state.step,
+          "restored_data_iter": extra["data_iter"],
+          "restored_tensors_bitwise": f"{same}/{len(mine['model'])}",
+          "restored_adam_bitwise": f"{adam_same}/{n_adam}", "launch_s": launch_s,
+          "phase_s": time.perf_counter() - t_phase})
+    check(losses == ft_losses, f"multigpu losses {losses} != one-process {ft_losses}")
+    check(all(launches[k] == ft_launches[k] for k in PATHS["multigpu"]),
+          f"multigpu launches {launches} != one-process {ft_launches}")
+    check(state.step == FT_STEPS and same == len(mine["model"]) and adam_same == n_adam,
+          f"the restored checkpoint differs: step {state.step}, {same} tensors, "
+          f"{adam_same} Adam moments bitwise")
+    return launches
+
+
+def load_counters():
+    """The launch counter of each kernel (KERNELS), the port imported from
+    beside this script."""
+    import importlib
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    return {key: getattr(importlib.import_module(f"{PKG}.{mod}"), attr)
+            for key, _, mod, attr, _, _ in KERNELS}
+
+
 def main() -> int:
     try:
         import torch
@@ -5959,15 +6070,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this smoke run has no CPU path", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        import importlib
-
-        counters = {key: getattr(importlib.import_module(f"{PKG}.{mod}"), attr)
-                    for key, _, mod, attr, _, _ in KERNELS}
+        counters = load_counters()
     except ImportError as e:
         print(f"chip_smoke.py: the port is not beside this script ({e})", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--multigpu-worker"]:
+        return multigpu_worker(sys.argv[2:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5980,7 +6089,9 @@ def main() -> int:
     by_path = {}
     by_path["serve"], bundle = phase_e2e(counters)
     with tempfile.TemporaryDirectory() as tmp:
-        by_path["finetune"], ft_cfg, final = phase_finetune(counters, Path(tmp))
+        by_path["finetune"], ft_cfg, final, ft_losses = phase_finetune(counters, Path(tmp))
+        by_path["multigpu"] = phase_multigpu(counters, Path(tmp), ft_cfg, ft_losses,
+                                             by_path["finetune"], card)
         phase_finetune_vs_plain(ft_cfg)
         by_path["adapted_serve"], adapted = phase_adapted(counters, final)
         rec, greedy = phase_timing(bundle, adapted)

@@ -100,7 +100,8 @@ def fine_tune(config: Union[str, ExperimentConfig], resume: bool = False, device
     `device` -> (TrainState, ModelBundle); ``max_steps`` stops this call
     early (with a checkpoint) without changing the schedule. The final
     bundle is also saved to ``<train.checkpoint_dir>/final``, which ``load``
-    reads back."""
+    reads back. Under a process group (``parallel.multihost.initialize``)
+    the run trains on ``config.mesh``'s mesh and the primary saves."""
     from .train.engine import run_experiment
     from .utils.config import load_yaml
 

@@ -3,6 +3,8 @@ subcommands, flags and JSON output:
 
     python -m jiao_liao_speech_recognition_torch.cli prepare table.tsv --out-dir m --cmvn
     python -m jiao_liao_speech_recognition_torch.cli train --config configs/x.yaml [key=value ...]
+    python -m torch.distributed.run --nproc-per-node 4 -m jiao_liao_speech_recognition_torch.cli \
+        train --multihost --config configs/whisper_large_v3_adapters.yaml [key=value ...]
     python -m jiao_liao_speech_recognition_torch.cli train \
         --config configs/whisper_large_v3_adapters.yaml data.train_manifest=m/train.jsonl \
         data.tokenizer_dir=bpe_dir
@@ -28,9 +30,13 @@ subcommands, flags and JSON output:
 (a ``torch.profiler`` trace of the run, utils/profiling.py). Audio is
 WAV (8/16/24/32-bit PCM or float) or FLAC at any rate, resampled to the
 frontend's. Every subcommand that computes takes one flag the JAX CLI
-lacks, ``--device`` (default ``cuda``). The one flag whose module is not
-ported yet, ``--multihost``, is refused with exit code 2 and the ROADMAP
-item that brings it.
+lacks, ``--device`` (default ``cuda``). ``train --multihost`` joins the
+process group (parallel/multihost.py: ``torch.distributed.run``'s
+variables or ``JL_COORDINATOR`` / ``JL_NUM_PROCESSES`` / ``JL_PROCESS_ID``)
+before any CUDA use and trains on the mesh of the config's mesh section;
+the primary process alone prints and writes the bundle. A flag whose
+module is not ported yet is refused with exit code 2 and the ROADMAP item
+that brings it (none is left).
 """
 
 from __future__ import annotations
@@ -43,9 +49,7 @@ import sys
 from pathlib import Path
 
 # flag -> the ROADMAP queue 1 item that ports its module
-NOT_PORTED = {
-    "--multihost": "queue 1 item 9 (multi-GPU)",
-}
+NOT_PORTED: dict = {}
 
 
 def refuse(what: str) -> int:
@@ -72,32 +76,39 @@ def _load_config(args):
 
 
 def cmd_train(args) -> int:
-    rc = refuse_flags(args, "--multihost")
-    if rc is not None:
-        return rc
+    from .parallel import multihost
+
+    if args.multihost:  # before any CUDA use
+        multihost.initialize(device=args.device)
     from .utils.profiling import trace
 
-    cfg = _load_config(args)
-    with trace(args.profile):
-        return _train_body(args, cfg)
+    try:
+        cfg = _load_config(args)
+        with trace(args.profile):
+            return _train_body(args, cfg, multihost.is_primary())
+    finally:
+        if args.multihost:
+            multihost.shutdown()
 
 
-def _train_body(args, cfg) -> int:
+def _train_body(args, cfg, primary: bool) -> int:
     out = Path(cfg.train.checkpoint_dir) / "final"
     if cfg.stages:
         from .models.bundle import ModelBundle
         from .train.schedules import run_stages
 
         model, tokenizer, history = run_stages(cfg, resume=args.resume, device=args.device)
-        for h in history:
-            print(json.dumps(h, ensure_ascii=False))
-        ModelBundle(cfg, model.eval(), tokenizer).save(str(out))
-        print(f"saved final bundle to {out}")
+        if primary:
+            for h in history:
+                print(json.dumps(h, ensure_ascii=False))
+            ModelBundle(cfg, model.eval(), tokenizer).save(str(out))
+            print(f"saved final bundle to {out}")
     else:
         from .api import fine_tune
 
         state, _ = fine_tune(cfg, resume=args.resume, device=args.device)  # saves `out`
-        print(f"saved final bundle to {out} (step {int(state.step)})")
+        if primary:
+            print(f"saved final bundle to {out} (step {int(state.step)})")
     return 0
 
 
@@ -405,7 +416,10 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--config", required=True)
     pt.add_argument("--resume", action="store_true")
     pt.add_argument("--profile", metavar="LOGDIR", help="write a torch.profiler trace")
-    pt.add_argument("--multihost", action="store_true", help="(not ported)")
+    pt.add_argument("--multihost", action="store_true",
+                    help="join the process group before training (one process per card; "
+                    "launch under python -m torch.distributed.run, or set JL_COORDINATOR / "
+                    "JL_NUM_PROCESSES / JL_PROCESS_ID)")
     pt.add_argument("override", nargs="*", help="key.subkey=value overrides")
     _device(pt)
     pt.set_defaults(fn=cmd_train)

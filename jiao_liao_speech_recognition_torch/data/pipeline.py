@@ -1,11 +1,17 @@
 """Host batches: manifest rows -> padded, bucketed batches (the twin of the
-JAX package's ``data/pipeline.py``, one process).
+JAX package's ``data/pipeline.py``).
 
 The epoch plan is the JAX package's, draw for draw: rows are shuffled with
 ``numpy.random.RandomState(shuffle_seed + epoch)``, grouped by duration
 bucket, cut into fixed-size batches and the batch order shuffled, so both
 packages feed the same rows in the same order. The iterator state is
 (epoch, cursor); ``state_dict`` / ``load_state_dict`` make resume exact.
+
+Several processes (parallel/multihost.py): every process builds the same
+plan of global batches and collates only its rows [p B / n, (p + 1) B / n)
+of each, so the state is global and resume is exact on any process count;
+a batch the count does not divide (a tiny corpus's partial batch) is
+collated whole by every process.
 """
 
 from __future__ import annotations
@@ -26,8 +32,8 @@ from .tokenizer import CharTokenizer
 
 @dataclass
 class Batch:
-    """Host-side padded batch. ``global_rows`` equals ``len(audio)``: the
-    port runs one process (multi-GPU is a later slice)."""
+    """Host-side padded batch: this process's rows of a global batch of
+    ``global_rows`` rows (all of them with one process)."""
 
     audio: np.ndarray  # [B, samples] float32 (or int16 wire format)
     audio_lengths: np.ndarray  # [B] int32 valid samples
@@ -44,7 +50,8 @@ def _bucket_for(duration: float, boundaries: Sequence[float]) -> float:
 
 
 class BatchIterator:
-    """Deterministic, resumable batch iterator (one process)."""
+    """Deterministic, resumable batch iterator; `process_index` /
+    `process_count` default to the process group's (parallel/multihost.py)."""
 
     def __init__(
         self,
@@ -54,6 +61,8 @@ class BatchIterator:
         sample_rate: int = 16000,
         drop_last: bool = True,
         shuffle: bool = True,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         self.rows = list(
             manifest.filter_duration(cfg.min_audio_seconds, cfg.max_audio_seconds)
@@ -69,6 +78,17 @@ class BatchIterator:
         self.sample_rate = sample_rate
         self.drop_last = drop_last
         self.shuffle = shuffle
+        if process_index is None or process_count is None:
+            from ..parallel import multihost
+
+            process_index, process_count = multihost.process_index(), multihost.process_count()
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
+        if self.process_count > 1 and cfg.batch_size % self.process_count:
+            raise ValueError(
+                f"batch_size={cfg.batch_size} must divide evenly over "
+                f"{self.process_count} processes"
+            )
         self.epoch = 0
         self.cursor = 0
         self._plan: Optional[List[List[int]]] = None
@@ -131,6 +151,10 @@ class BatchIterator:
 
     def _collate(self, rows: List[ManifestRow], bucket_seconds: float) -> Batch:
         samples = int(bucket_seconds * self.sample_rate)
+        global_rows = len(rows)
+        if self.process_count > 1 and global_rows % self.process_count == 0:
+            k = global_rows // self.process_count
+            rows = rows[self.process_index * k:(self.process_index + 1) * k]
         B = len(rows)
         int16_wire = self.cfg.transfer_dtype == "int16"
         audio = np.zeros((B, samples), np.int16 if int16_wire else np.float32)
@@ -155,7 +179,7 @@ class BatchIterator:
             labels[i, : len(ids)] = ids
             llen[i] = len(ids)
             texts.append(r.text)
-        return Batch(audio, alen, labels, llen, texts, bucket_seconds, B)
+        return Batch(audio, alen, labels, llen, texts, bucket_seconds, global_rows)
 
 
 class PrefetchIterator:

@@ -16,7 +16,10 @@ bits are torch's, not JAX's: the tests hold the cores to JAX's on the
 same values and the draws to JAX's in distribution. Where JAX's
 ``jnp.where`` / ``lax.switch`` compute every branch, only the branch drawn
 is computed here; ``augment_waveform`` reads its batch-level draws to the
-host once a call.
+host once a call. ``rows`` = (first row, global rows) draws the per-row
+values for the global batch and keeps these rows', so a row is augmented
+alike whichever process of a data-parallel run holds it (the batch-level
+draws are the same on every process).
 """
 
 from __future__ import annotations
@@ -33,10 +36,17 @@ from ..utils.config import AugmentConfig
 from .resample import f32_conv, resample
 
 
-def _uniform(gen: torch.Generator, wav: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+def _rows_of(wav: torch.Tensor, rows):
+    """-> (first row, global rows) of wav's rows (all of them by default)."""
+    return rows or (0, wav.shape[0])
+
+
+def _uniform(gen: torch.Generator, wav: torch.Tensor, lo: float, hi: float,
+             rows=None) -> torch.Tensor:
     """[B, 1] uniform in [lo, hi) on wav's device, as jax.random.uniform's
     minval + u * (maxval - minval)."""
-    u = torch.rand((wav.shape[0], 1), generator=gen, device=wav.device)
+    first, total = _rows_of(wav, rows)
+    u = torch.rand((total, 1), generator=gen, device=wav.device)[first:first + wav.shape[0]]
     return lo + u * (hi - lo)
 
 
@@ -52,8 +62,8 @@ def apply_gain(wav: torch.Tensor, gain_db: torch.Tensor) -> torch.Tensor:
     return wav * 10.0 ** (gain_db / 20.0)
 
 
-def random_gain(gen, wav: torch.Tensor, lo_db: float, hi_db: float) -> torch.Tensor:
-    return apply_gain(wav, _uniform(gen, wav, lo_db, hi_db))
+def random_gain(gen, wav: torch.Tensor, lo_db: float, hi_db: float, rows=None) -> torch.Tensor:
+    return apply_gain(wav, _uniform(gen, wav, lo_db, hi_db, rows))
 
 
 def apply_noise(wav: torch.Tensor, snr_db: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -63,9 +73,12 @@ def apply_noise(wav: torch.Tensor, snr_db: torch.Tensor, noise: torch.Tensor) ->
     return wav + noise * torch.sqrt(noise_pow)
 
 
-def add_noise_snr(gen, wav: torch.Tensor, lo_snr: float, hi_snr: float) -> torch.Tensor:
-    snr = _uniform(gen, wav, lo_snr, hi_snr)
-    noise = torch.randn(wav.shape, generator=gen, device=wav.device, dtype=wav.dtype)
+def add_noise_snr(gen, wav: torch.Tensor, lo_snr: float, hi_snr: float,
+                  rows=None) -> torch.Tensor:
+    snr = _uniform(gen, wav, lo_snr, hi_snr, rows)
+    first, total = _rows_of(wav, rows)
+    noise = torch.randn((total, *wav.shape[1:]), generator=gen, device=wav.device,
+                        dtype=wav.dtype)[first:first + wav.shape[0]]
     return apply_noise(wav, snr, noise)
 
 
@@ -200,20 +213,20 @@ def depthwise_filter(wav: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     return y[0].to(wav.dtype)
 
 
-def random_lowpass(gen, wav, hz_range: Tuple[float, float], sr: int, taps: int):
-    fc = _uniform(gen, wav, hz_range[0] / sr, hz_range[1] / sr)
+def random_lowpass(gen, wav, hz_range: Tuple[float, float], sr: int, taps: int, rows=None):
+    fc = _uniform(gen, wav, hz_range[0] / sr, hz_range[1] / sr, rows)
     return depthwise_filter(wav, lowpass_fir_taps(fc, taps))
 
 
-def random_highpass(gen, wav, hz_range: Tuple[float, float], sr: int, taps: int):
-    fc = _uniform(gen, wav, hz_range[0] / sr, hz_range[1] / sr)
+def random_highpass(gen, wav, hz_range: Tuple[float, float], sr: int, taps: int, rows=None):
+    fc = _uniform(gen, wav, hz_range[0] / sr, hz_range[1] / sr, rows)
     return depthwise_filter(wav, highpass_fir_taps(fc, taps))
 
 
 def random_bandpass(gen, wav, lo_range: Tuple[float, float], hi_range: Tuple[float, float],
-                    sr: int, taps: int):
-    f_lo = _uniform(gen, wav, lo_range[0] / sr, lo_range[1] / sr)
-    f_hi = _uniform(gen, wav, hi_range[0] / sr, hi_range[1] / sr)
+                    sr: int, taps: int, rows=None):
+    f_lo = _uniform(gen, wav, lo_range[0] / sr, lo_range[1] / sr, rows)
+    f_hi = _uniform(gen, wav, hi_range[0] / sr, hi_range[1] / sr, rows)
     return depthwise_filter(wav, bandpass_fir_taps(f_lo, f_hi, taps))
 
 
@@ -221,7 +234,7 @@ def random_bandpass(gen, wav, lo_range: Tuple[float, float], hi_range: Tuple[flo
 
 
 def augment_waveform(gen: torch.Generator, wav: torch.Tensor, cfg: AugmentConfig,
-                     sample_rate: int = 16000) -> torch.Tensor:
+                     sample_rate: int = 16000, rows=None) -> torch.Tensor:
     """The augmentation chain over [B, L] PCM (shape kept), in JAX's order:
     gain, noise, speed, pitch, low-pass, high-pass, band-pass, time
     stretch. `gen` is a generator on wav's device. The eight gates and the
@@ -236,21 +249,21 @@ def augment_waveform(gen: torch.Generator, wav: torch.Tensor, cfg: AugmentConfig
 
     p = cfg.probability
     if u[0] < p:
-        wav = random_gain(gen, wav, *cfg.gain_db)
+        wav = random_gain(gen, wav, *cfg.gain_db, rows)
     if u[1] < p:
-        wav = add_noise_snr(gen, wav, *cfg.noise_snr_db)
+        wav = add_noise_snr(gen, wav, *cfg.noise_snr_db, rows)
     if len(cfg.speed_rates) > 1 and u[2] < p:
         wav = apply_speed(wav, cfg.speed_rates[pick(0, len(cfg.speed_rates))])
     shifts = pitch_shifts(*cfg.pitch_semitones)
     if shifts and u[3] < p:
         wav = apply_pitch(wav, shifts[pick(1, len(shifts))])
     if u[4] < cfg.lowpass_probability:
-        wav = random_lowpass(gen, wav, cfg.lowpass_hz, sample_rate, cfg.filter_taps)
+        wav = random_lowpass(gen, wav, cfg.lowpass_hz, sample_rate, cfg.filter_taps, rows)
     if u[5] < cfg.highpass_probability:
-        wav = random_highpass(gen, wav, cfg.highpass_hz, sample_rate, cfg.filter_taps)
+        wav = random_highpass(gen, wav, cfg.highpass_hz, sample_rate, cfg.filter_taps, rows)
     if u[6] < cfg.bandpass_probability:
         wav = random_bandpass(gen, wav, cfg.highpass_hz, cfg.lowpass_hz, sample_rate,
-                              cfg.filter_taps)
+                              cfg.filter_taps, rows)
     rates = cfg.time_stretch_rates
     if len(rates) > 0 and u[7] < p:
         wav = apply_time_stretch(wav, float(rates[pick(2, len(rates))]))

@@ -1,5 +1,4 @@
-"""Fine-tuning engine, the twin of the JAX package's ``train/engine.py`` on
-one card.
+"""Fine-tuning engine, the twin of the JAX package's ``train/engine.py``.
 
 * ``make_schedule``: optax's warmup + cosine / linear, constant and noam,
   as a function of the optimizer's update count.
@@ -33,6 +32,21 @@ waveform augmentation (``augment.enabled``: the ctc and joint losses, as
 in JAX; Whisper's takes none); its state is checkpointed, so resume is
 exact. The data order is
 the JAX package's seeded epoch plan (``data/pipeline.py``).
+
+Several processes (one per card, ``cli train --multihost``): under a
+process group ``train_loop`` builds the mesh of ``config.mesh`` and wraps
+the model with FSDP2 (parallel/mesh.py); each process collates and runs
+its rows of every global batch. What keeps N processes equal to one: the
+clip takes the norm over every gradient shard; the CTC loss's per-row
+mean and the Whisper / joint CE's masked mean are scaled so that the
+processes' averaged gradient is the global mean's, and every process logs
+the global batch's loss; SpecAugment and the waveform augmentation draw
+each row's values for the global batch (``batch["rows"]``), so a row is
+augmented alike on any topology. Dropout is not: the dropout seed has the
+process's rank folded in, so ranks draw independent masks. Host IO
+(metrics, the final bundle, checkpoint files) is the primary process's,
+mid-train evaluation runs only with one process, and a SIGTERM on any
+process stops all of them at one checkpoint.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ import math
 import signal
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
@@ -53,6 +68,7 @@ from ..frontend.features import dequantize_pcm, featurize_batch
 from ..frontend.specaugment import spec_augment
 from ..models.adapters import param_is_adapter
 from ..ops.ctc_loss import ctc_loss
+from ..parallel import multihost as mh
 from ..utils.config import ExperimentConfig, OptimizerConfig
 from ..utils.logging import MetricsLogger
 
@@ -114,11 +130,30 @@ def make_optimizer(cfg: OptimizerConfig, params) -> torch.optim.Optimizer:
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm in place -> the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    """optax.clip_by_global_norm in place -> the norm before clipping.
+    FSDP2's gradients (DTensors) are clipped by the norm over all their
+    shards: each process's shard norms, combined over the fsdp group."""
+    shards, group = _local_shards(grads)
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in shards]))
+    if group is not None and torch.distributed.get_world_size(group) > 1:
+        sq = norm * norm
+        torch.distributed.all_reduce(sq, group=group)
+        norm = sq.sqrt()
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_(shards, factor)
     return norm
+
+
+def _local_shards(grads: List[torch.Tensor]):
+    """-> (this process's part of each gradient, views that write through,
+    and the process group over which a DTensor's shards lie, or None)."""
+    from torch.distributed.tensor import DTensor
+
+    if not grads or not isinstance(grads[0], DTensor):
+        return grads, None
+    mesh, placements = grads[0].device_mesh, grads[0].placements
+    dim = next((i for i, pl in enumerate(placements) if pl.is_shard()), None)
+    return [g.to_local() for g in grads], None if dim is None else mesh.get_group(dim)
 
 
 def set_trainable(model: torch.nn.Module, adapters_only: bool) -> List[torch.nn.Parameter]:
@@ -186,8 +221,42 @@ def augmented_audio(config: ExperimentConfig, batch, seeds, train: bool) -> torc
     audio = dequantize_pcm(batch["audio"])
     if train and config.augment.enabled:
         gen = torch.Generator(device=audio.device).manual_seed(seeds[2])
-        audio = augment_waveform(gen, audio, config.augment, config.frontend.sample_rate)
+        audio = augment_waveform(gen, audio, config.augment, config.frontend.sample_rate,
+                                 batch.get("rows"))
     return audio
+
+
+def _specaugment(config: ExperimentConfig, feats, batch, seeds, train: bool):
+    if train and config.specaugment.enabled:
+        return spec_augment(torch.Generator().manual_seed(seeds[0]), feats, config.specaugment,
+                            batch.get("rows"))
+    return feats
+
+
+def data_parallel_world(batch) -> int:
+    """The process count when `batch` holds this process's rows of a
+    larger global batch (``batch["rows"]``, parallel/mesh.shard_batch),
+    else 1 (one process, or a ragged batch every process holds whole)."""
+    rows = batch.get("rows")
+    if rows is None or rows[1] == batch["audio"].shape[0]:
+        return 1
+    return mh.process_count()
+
+
+def ctc_mean_loss(nll: torch.Tensor, label_lengths: torch.Tensor, batch):
+    """The mean over the batch of each row's NLL over its label length ->
+    (the loss to differentiate, {"loss", "nll_sum"} of the global batch).
+    With this process's rows of a global batch of G rows, the loss is its
+    rows' sum over G times the process count: the processes' averaged
+    gradient is the global mean's."""
+    per_row = nll / label_lengths.clamp_min(1).float()
+    world = data_parallel_world(batch)
+    if world == 1:
+        loss = per_row.mean()
+        return loss, {"loss": loss.detach(), "nll_sum": nll.detach().sum()}
+    G = batch["rows"][1]
+    return per_row.sum() * (world / G), {"loss": mh.all_sum(per_row.detach().sum()) / G,
+                                         "nll_sum": mh.all_sum(nll.detach().sum())}
 
 
 def make_ctc_loss_fn(config: ExperimentConfig, model) -> Callable:
@@ -201,15 +270,12 @@ def make_ctc_loss_fn(config: ExperimentConfig, model) -> Callable:
             audio = augmented_audio(config, batch, seeds, train)
             feats = featurize_batch(audio, fe, kernels=kernels)
         feat_lengths = batch["audio_lengths"] // fe.hop_length
-        if train and config.specaugment.enabled:
-            feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
-                                 config.specaugment)
+        feats = _specaugment(config, feats, batch, seeds, train)
         model.train(train)
         log_probs, out_lens = model(feats, feat_lengths, kernels=kernels,
                                     dropout_seed=seeds[1] if train else None)
         nll = ctc_loss(log_probs, out_lens, batch["labels"], batch["label_lengths"])
-        loss = (nll / batch["label_lengths"].clamp_min(1).float()).mean()
-        return loss, {"loss": loss.detach(), "nll_sum": nll.detach().sum()}
+        return ctc_mean_loss(nll, batch["label_lengths"], batch)
 
     return loss_fn
 
@@ -241,19 +307,17 @@ def make_joint_loss_fn(config: ExperimentConfig, model) -> Callable:
             audio = augmented_audio(config, batch, seeds, train)
             feats = featurize_batch(audio, fe, kernels=kernels)
         feat_lengths = batch["audio_lengths"] // fe.hop_length
-        if train and config.specaugment.enabled:
-            feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
-                                 config.specaugment)
+        feats = _specaugment(config, feats, batch, seeds, train)
         model.train(train)
         ctc_lp, out_lens, dec_logits = model(feats, feat_lengths, batch["tokens"],
                                              kernels=kernels,
                                              dropout_seed=seeds[1] if train else None)
         nll = ctc_loss(ctc_lp, out_lens, batch["labels"], batch["label_lengths"])
-        loss_ctc = (nll / batch["label_lengths"].clamp_min(1).float()).mean()
-        loss_att = masked_mean_ce(dec_logits, batch["targets"])
+        loss_ctc, ctc_m = ctc_mean_loss(nll, batch["label_lengths"], batch)
+        loss_att, att_value = global_masked_mean_ce(dec_logits, batch["targets"], batch)
         loss = w * loss_ctc + (1.0 - w) * loss_att
-        return loss, {"loss": loss.detach(), "loss_ctc": loss_ctc.detach(),
-                      "loss_att": loss_att.detach()}
+        return loss, {"loss": w * ctc_m["loss"] + (1.0 - w) * att_value,
+                      "loss_ctc": ctc_m["loss"], "loss_att": att_value}
 
     return loss_fn
 
@@ -265,6 +329,25 @@ def masked_mean_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     valid = targets >= 0
     ce = cross_entropy_like_optax(logits, targets.clamp_min(0))
     return (ce * valid).float().sum().to(ce.dtype) / valid.sum().clamp_min(1)
+
+
+def global_masked_mean_ce(logits: torch.Tensor, targets: torch.Tensor, batch):
+    """``masked_mean_ce`` of the global batch -> (the loss to
+    differentiate, its value). With this process's rows of a global batch
+    (``data_parallel_world``), the loss is this process's f32 sum over the
+    all-reduced count of valid targets times the process count, so the
+    processes' averaged gradient is the global masked mean's however the
+    targets fall across them; the value is ``masked_mean_ce``'s expression
+    on the all-reduced sum and count."""
+    world = data_parallel_world(batch)
+    if world == 1:
+        loss = masked_mean_ce(logits, targets)
+        return loss, loss.detach()
+    valid = targets >= 0
+    ce = cross_entropy_like_optax(logits, targets.clamp_min(0))
+    local = (ce * valid).float().sum()
+    count = mh.all_sum(valid.sum()).clamp_min(1)
+    return local * (world / count), mh.all_sum(local.detach()).to(ce.dtype) / count
 
 
 def make_whisper_loss_fn(config: ExperimentConfig, model) -> Callable:
@@ -279,14 +362,12 @@ def make_whisper_loss_fn(config: ExperimentConfig, model) -> Callable:
     def loss_fn(batch, seeds, train: bool, kernels: bool = True):
         with torch.no_grad():
             feats = featurize_batch(dequantize_pcm(batch["audio"]), fe, kernels=kernels)
-        if train and config.specaugment.enabled:
-            feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats,
-                                 config.specaugment)
+        feats = _specaugment(config, feats, batch, seeds, train)
         model.train(train)
         logits = model(feats, batch["tokens"], kernels=kernels,
                        dropout_seed=seeds[1] if train else None)
-        loss = masked_mean_ce(logits, batch["targets"])
-        return loss, {"loss": loss.detach()}
+        loss, value = global_masked_mean_ce(logits, batch["targets"], batch)
+        return loss, {"loss": value}
 
     return loss_fn
 
@@ -325,6 +406,9 @@ def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
 
     def train_step(state: TrainState, batch, kernels: bool = True):
         seeds = torch.randint(0, 2**62, (3,), generator=state.generator).tolist()
+        rank = mh.process_index()
+        if rank:  # independent dropout masks on each process
+            seeds[1] = (seeds[1] + rank * 0x9E3779B97F4A7C15) % 2**62
         loss, metrics = loss_fn(batch, seeds, True, kernels)
         (loss / k if k > 1 else loss).backward()
         state.step += 1
@@ -427,22 +511,40 @@ def build_tokenizer_for(config: ExperimentConfig, manifest):
 def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: bool = False,
                checkpoint_dir: Optional[str] = None, logger: Optional[MetricsLogger] = None,
                eval_manifest=None, kernels: bool = True, max_steps: Optional[int] = None):
-    """Train on one card until ``optimizer.total_steps`` micro-steps (or
-    ``max_steps`` more in this call): host batches from a prefetch thread,
-    per-step losses, steps/s every ``log_every_steps``, a checkpoint every
+    """Train until ``optimizer.total_steps`` micro-steps (or ``max_steps``
+    more in this call): host batches from a prefetch thread, per-step
+    losses, steps/s every ``log_every_steps``, a checkpoint every
     ``checkpoint_every_steps`` and where the call stops, and on SIGTERM a
     checkpoint and a clean exit. With ``resume``, the newest checkpoint in
     ``checkpoint_dir`` (default ``train.checkpoint_dir``) is restored first,
     so a run whose checkpoint is at ``total_steps`` takes no step. Records
     go to `logger`, or to a ``MetricsLogger`` of ``train.metrics_path`` (and
-    ``train.use_wandb``) that this call opens and closes. Returns
-    (state, info) with info = {"terminated", "last_metrics", "losses",
-    "steps_per_sec"}."""
+    ``train.use_wandb``) that this call opens and closes.
+
+    Under a process group the model is wrapped in place over the mesh of
+    ``config.mesh`` (parallel/mesh.py) and each process runs its rows of
+    every batch; without one, a mesh section that asks for ``fsdp_axis`` or
+    ``model_axis`` > 1 is noted in one warning and the loop runs on this
+    card alone. Returns (state, info) with info = {"terminated",
+    "last_metrics", "losses", "steps_per_sec", "mesh"}; losses are the
+    global batch's on every process, mesh the (data, fsdp, model) shape
+    (None without a process group)."""
     from ..data.pipeline import BatchIterator, PrefetchIterator
+    from ..parallel import mesh as pmesh
     from .checkpoints import TrainCheckpointer
 
     tc = config.train
     device = next(model.parameters()).device
+    mesh = None
+    if mh.is_initialized():
+        mesh = pmesh.build_mesh_for_batch(config.mesh, config.data.batch_size)
+        pmesh.shard_model(mesh, model)
+    elif config.mesh.fsdp_axis > 1 or config.mesh.model_axis > 1:
+        warnings.warn(
+            f"config.mesh asks for fsdp_axis={config.mesh.fsdp_axis}, "
+            f"model_axis={config.mesh.model_axis}, but no process group is up: training on one "
+            "device; launch `cli train --multihost` under python -m torch.distributed.run "
+            "for the mesh", stacklevel=2)
     batch_kw = {"family": config.model_family}
     if config.model_family == "whisper":
         from ..decode.whisper_generate import resolve_specials
@@ -459,7 +561,9 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
         if extra is not None:
             it.load_state_dict(extra.get("data_iter", it.state_dict()))
 
-    own_logger = logger is None
+    own_logger = logger is None and mh.is_primary()
+    if not mh.is_primary():
+        logger = None
     if own_logger:
         logger = MetricsLogger(tc.metrics_path, use_wandb=tc.use_wandb)
     terminated = {"flag": False}
@@ -472,30 +576,38 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
         total = min(total, first_step + max_steps)
     losses: List[torch.Tensor] = []
     metrics: Dict[str, Any] = {}
+    stop = False
     t_first = t0 = None
     try:
         while state.step < total:
-            batch = batch_to_device(next(it), device, **batch_kw)
+            host = next(it)
+            batch = batch_to_device(host, device, **batch_kw)
+            if mesh is not None:
+                batch = pmesh.shard_batch(mesh, batch, host.global_rows)
             metrics = step_fn(state, batch, kernels)
             losses.append(metrics["loss"])
             if t_first is None:  # steps/s counts from the end of the first step
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 t_first = t0 = time.perf_counter()
-            if state.step % tc.log_every_steps == 0:
+            if state.step % tc.log_every_steps == 0 and logger is not None:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["steps_per_sec"] = tc.log_every_steps / max(time.perf_counter() - t0, 1e-9)
                 t0 = time.perf_counter()
                 logger.log(state.step, **m)
-            if eval_manifest is not None and state.step % tc.eval_every_steps == 0:
-                logger.log(state.step,
-                           **evaluate_manifest(config, model, tokenizer, eval_manifest))
+            if (eval_manifest is not None and mh.process_count() == 1
+                    and state.step % tc.eval_every_steps == 0):
+                scored = pmesh.full_model(model, lambda: make_model(config, device))
+                em = evaluate_manifest(config, scored, tokenizer, eval_manifest)
+                if logger is not None:
+                    logger.log(state.step, **em)
                 model.train()
-            if (state.step % tc.checkpoint_every_steps == 0 or state.step == total
-                    or terminated["flag"]):
+            stop = mh.any_process(terminated["flag"])  # every process stops at one step
+            if state.step % tc.checkpoint_every_steps == 0 or state.step == total or stop:
                 ckpt.save(state.step, state, {"data_iter": it.state_dict()})
-            if terminated["flag"]:
-                logger.log(state.step, event="sigterm_checkpoint_and_exit")
+            if stop:
+                if logger is not None:
+                    logger.log(state.step, event="sigterm_checkpoint_and_exit")
                 break
     finally:
         it.close()
@@ -507,10 +619,11 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
         torch.cuda.synchronize()
     steps = state.step - first_step
     info = {
-        "terminated": terminated["flag"],
+        "terminated": stop,
         "last_metrics": {k: float(v) for k, v in metrics.items()},
         "losses": [float(x) for x in losses],
         "steps_per_sec": (steps - 1) / (time.perf_counter() - t_first) if steps > 1 else None,
+        "mesh": None if mesh is None else list(mesh.shape),
     }
     state.info = info
     model.eval()
@@ -536,9 +649,13 @@ def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda"
     (``build_tokenizer_for``), init the model from ``train.seed``,
     train, and save the bundle (params.npz, config.yaml, vocab.json) to
     ``<checkpoint_dir>/final``. ``config.stages`` is not read here: the
-    schedule is ``train/schedules.run_stages``. -> (state, bundle)."""
+    schedule is ``train/schedules.run_stages``. Under a process group the
+    bundle holds a plain model with the trained weights on every process
+    (``parallel.mesh.full_model``), and the primary saves and evaluates it.
+    -> (state, bundle)."""
     from ..data.manifest import read_manifest
     from ..models.bundle import ModelBundle
+    from ..parallel.mesh import full_model
 
     manifest = read_manifest(config.data.train_manifest)
     if config.data.dialect_weights:
@@ -550,13 +667,17 @@ def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda"
         eval_manifest = read_manifest(config.data.eval_manifest)
     state, _ = train_loop(config, manifest, tokenizer, model, resume=resume,
                           eval_manifest=eval_manifest, kernels=kernels, max_steps=max_steps)
+    model = full_model(model, lambda: make_model(config, device))
     for p in model.parameters():
         p.requires_grad_(False)
     bundle = ModelBundle(config, model, tokenizer)
-    bundle.save(str(Path(config.train.checkpoint_dir) / "final"))
-    if eval_manifest is not None:
-        with MetricsLogger(config.train.metrics_path) as logger:
-            logger.log(state.step, **evaluate_manifest(config, model, tokenizer, eval_manifest))
+    if mh.is_primary():
+        bundle.save(str(Path(config.train.checkpoint_dir) / "final"))
+        if eval_manifest is not None:
+            with MetricsLogger(config.train.metrics_path) as logger:
+                logger.log(state.step,
+                           **evaluate_manifest(config, model, tokenizer, eval_manifest))
+    mh.barrier("final_bundle")
     return state, bundle
 
 

@@ -8,11 +8,14 @@ manifests (mixed by weight when it names several) with its own trainable
 set and a fresh optimizer, checkpointed under
 ``<checkpoint_dir>/stage_<i>_<name>``; the model carries from stage to
 stage. With ``resume=True`` a finished stage restores its last checkpoint
-and takes no step, and the stage in progress continues exactly.
+and takes no step, and the stage in progress continues exactly. Under a
+process group every stage runs on the mesh (the model is wrapped once,
+by the first stage), and the metrics are the primary process's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from pathlib import Path
 from typing import Optional
@@ -20,6 +23,8 @@ from typing import Optional
 from ..data.manifest import Manifest, read_manifest
 from ..data.pipeline import mix_manifests
 from ..data.tokenizer import CharTokenizer
+from ..parallel import multihost as mh
+from ..parallel.mesh import full_model
 from ..utils.config import DialectStage, ExperimentConfig
 from ..utils.logging import MetricsLogger
 from .engine import make_model, size_vocab, train_loop
@@ -50,7 +55,9 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
     ``train.metrics_path`` through the one ``MetricsLogger`` its stages'
     records go to. A SIGTERM ends the schedule after that stage's
     checkpoint. -> (model, tokenizer, history), history holding
-    {"stage": name, **last metrics} per stage run.
+    {"stage": name, **last metrics} per stage run; under a process group
+    the model returned is a plain one with the trained weights, on every
+    process (``parallel.mesh.full_model``).
     """
     if not config.stages:
         raise ValueError("run_stages needs config.stages")
@@ -63,7 +70,9 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
 
     base_dir = Path(config.train.checkpoint_dir)
     history = []
-    with MetricsLogger(config.train.metrics_path, use_wandb=config.train.use_wandb) as logger:
+    logger_cm = (MetricsLogger(config.train.metrics_path, use_wandb=config.train.use_wandb)
+                 if mh.is_primary() else contextlib.nullcontext())
+    with logger_cm as logger:
         for si, (stage, manifest) in enumerate(zip(config.stages, stage_manifests)):
             train = dataclasses.replace(
                 config.train, train_adapters_only=stage.train_adapters_only,
@@ -73,8 +82,11 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
             _, info = train_loop(stage_cfg, manifest, tokenizer, model, resume=resume,
                                  checkpoint_dir=stage_dir, logger=logger, kernels=kernels)
             history.append({"stage": stage.name, **info["last_metrics"]})
-            logger.log(stage.steps, stage=stage.name, stage_index=si, **info["last_metrics"])
+            if logger is not None:
+                logger.log(stage.steps, stage=stage.name, stage_index=si,
+                           **info["last_metrics"])
+                if info["terminated"]:
+                    logger.log(stage.steps, event="sigterm_stage_exit", stage=stage.name)
             if info["terminated"]:
-                logger.log(stage.steps, event="sigterm_stage_exit", stage=stage.name)
                 break
-    return model, tokenizer, history
+    return full_model(model, lambda: make_model(config, device)), tokenizer, history

@@ -6,11 +6,10 @@ are restated here with the same field names and defaults:
 ``FrontendConfig``, ``SpecAugmentConfig``, ``AugmentConfig``,
 ``AdapterConfig``, ``CTCModelConfig``, ``DataConfig``, ``OptimizerConfig``,
 ``TrainConfig``, ``DecodeConfig``, ``WhisperConfig`` (+ ``whisper_preset``),
-``JointModelConfig`` and ``DialectStage``. ``ExperimentConfig`` holds those
-sections plus ``model_family`` and the multi-dialect ``stages`` schedule;
-the mesh section, which no ported module reads, is ignored when a
-JAX-written ``config.yaml`` is read. ``apply_overrides`` takes the CLI's
-``key.subkey=value`` overrides.
+``JointModelConfig``, ``MeshConfig`` and ``DialectStage``.
+``ExperimentConfig`` holds those sections plus ``model_family`` and the
+multi-dialect ``stages`` schedule, in the JAX class's order.
+``apply_overrides`` takes the CLI's ``key.subkey=value`` overrides.
 ``tests/test_torch_config.py`` pins every twin field, name and default, to
 ``jiao_liao_speech_recognition_tpu.utils.config``.
 """
@@ -248,6 +247,20 @@ class DecodeConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The training mesh (parallel/mesh.py): ``data`` replicates the model
+    over batch shards, ``fsdp`` shards parameters and optimizer state
+    (FSDP2), ``model`` is tensor parallelism (not ported: it must stay 1).
+    Read only when a process group is up (``cli train --multihost``)."""
+
+    data_axis: int = -1  # -1 = all remaining devices
+    fsdp_axis: int = 1
+    model_axis: int = 1
+    axis_names: Tuple[str, str, str] = ("data", "fsdp", "model")
+    remat: bool = False  # read by neither package: each model config has its own
+
+
+@dataclass
 class DialectStage:
     """One stage of the multi-dialect transfer schedule (train/schedules.py)."""
 
@@ -267,6 +280,7 @@ class ExperimentConfig:
     ctc_model: CTCModelConfig = field(default_factory=CTCModelConfig)
     whisper: WhisperConfig = field(default_factory=WhisperConfig)
     joint: JointModelConfig = field(default_factory=JointModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)

@@ -6,13 +6,18 @@
   trace ``<host>_<pid>.<ms>.pt.trace.json`` under `logdir`; a no-op for
   None. ``cli train`` and ``cli transcribe`` take it as ``--profile``.
 * ``annotate(name)``: a ``record_function`` range that labels a stage.
-* ``checked(fn)``: torch has no checkify; the wrapper runs `fn` under a
-  torch-function mode that raises ``FloatingPointError`` where a division
-  (``/``, ``div``, ``floor_divide``, ``remainder``, ``fmod``) meets a zero
-  divisor or an op makes a NaN, and where a floating output of `fn` holds
-  a NaN or an Inf. Each check reads the device (a sync), as checkify's
-  error read does. ``checked(fn).checkified`` returns ``(err, out)``
-  instead of raising (err None when clean).
+* ``checked(fn, errors=None)``: torch has no checkify; the wrapper runs
+  `fn` under a torch-function mode that raises ``FloatingPointError``
+  where a division (``/``, ``div``, ``floor_divide``, ``remainder``,
+  ``fmod``) meets a zero divisor (the div set) or an op makes a NaN, and
+  where a floating output of `fn` holds a NaN (the NaN set) or an Inf (the
+  float set). ``errors`` picks checkify's sets: ``FLOAT_CHECKS`` (NaN and
+  div, as ``checkify.float_checks``), ``NAN_CHECKS``, ``DIV_CHECKS``, or
+  JAX's own sets, read by their error classes' names. ``INDEX_CHECKS`` is refused:
+  out-of-bounds indices go unchecked here. ``None`` takes the NaN and div
+  checks. Each check reads the device (a sync), as checkify's error read
+  does. ``checked(fn).checkified`` returns ``(err, out)`` instead of
+  raising (err None when clean).
 * ``enable_nan_debug(flag)``: ``torch.autograd.set_detect_anomaly`` (a
   NaN made in a backward raises) and ``checked``'s NaN check on every op
   of the process (as ``jax_debug_nans``); False restores the state
@@ -102,16 +107,48 @@ class _Checks(TorchFunctionMode):
         return out
 
 
-def checked(fn: Callable) -> Callable:
-    """`fn` with the checks above; raises ``FloatingPointError``.
-    ``.checkified(*args, **kw) -> (err, out)`` returns the error instead
-    (out None then)."""
+# checkify's error sets, by category: an error class of JAX's sets maps
+# to its category through its name (``_CATEGORIES``)
+NAN_CHECKS = frozenset({"nan"})
+DIV_CHECKS = frozenset({"div"})
+FLOAT_CHECKS = NAN_CHECKS | DIV_CHECKS
+INDEX_CHECKS = frozenset({"index"})
+USER_CHECKS = frozenset({"user"})  # checkify.check calls: torch code makes none
+_CATEGORIES = {"NaNError": "nan", "DivisionByZeroError": "div", "OOBError": "index",
+               "FailedCheckError": "user"}
+
+
+def check_categories(errors) -> frozenset:
+    """`errors` (None, or categories and checkify error classes) -> the
+    categories to check; the index set raises ``NotImplementedError``."""
+    if errors is None:
+        return FLOAT_CHECKS
+    cats = set()
+    for e in errors:
+        name = e if isinstance(e, str) else getattr(e, "__name__", repr(e))
+        cat = _CATEGORIES.get(name, name)
+        if cat not in ("nan", "div", "index", "user"):
+            raise ValueError(f"unknown check {e!r}")
+        cats.add(cat)
+    if "index" in cats:
+        raise NotImplementedError(
+            "checked(errors=...): the index set has no counterpart: torch has no checkify, "
+            "and out-of-bounds indices go unchecked")
+    return frozenset(cats)
+
+
+def checked(fn: Callable, *, errors=None) -> Callable:
+    """`fn` with the checks of `errors` (see ``check_categories``); raises
+    ``FloatingPointError``. ``.checkified(*args, **kw) -> (err, out)``
+    returns the error instead (out None then)."""
+    cats = check_categories(errors)
+    nan, inf = "nan" in cats, cats >= FLOAT_CHECKS  # an Inf out of the float set only
 
     def checkified(*args, **kwargs):
         try:
-            with _Checks():
+            with _Checks(div="div" in cats, nan=nan):
                 out = fn(*args, **kwargs)
-            if any(_nonfinite(t, inf=True) for t in _leaves(out)):
+            if nan and any(_nonfinite(t, inf=inf) for t in _leaves(out)):
                 raise FloatingPointError(f"a NaN or Inf in the output of {fn.__name__}")
         except FloatingPointError as e:
             return e, None

@@ -11,8 +11,8 @@ CLI's lines on one checkpoint both packages read, ``train-lm`` writes the
 JAX CLI's LM, --lm-path / --lm-weight reach a Whisper beam, a CTC
 bundle's beam (transcribe --strategy beam / beam_device, evaluate --decode
 beam) prints the JAX CLI's lines, build-native builds the native
-libraries, export-whisper and --profile write their files, and --multihost,
-whose module is not ported, exits 2."""
+libraries, export-whisper and --profile write their files, and train
+--multihost trains in two processes with the primary alone writing."""
 
 import io
 import json
@@ -225,16 +225,49 @@ def test_prepare_cmvn_matches_jax(env, capsys):
             np.testing.assert_allclose(t[k], j[k], atol=CMVN_BAR, rtol=0)
 
 
+def test_train_multihost_runs_stages_in_two_processes(env, tmp_path):
+    """The multi-dialect stages under `train --multihost` in two CPU
+    processes (stage 1 trains the backbone, stage 2 the adapters only, on
+    the model the first stage wrapped): the primary alone prints the
+    history and saves the bundle, which loads."""
+    from torch_ranks import spawn
+
+    stages = (f"stages=[{{name: neighbor, manifests: [{env}/jilu.jsonl, {env}/jiaoliao.jsonl],"
+              f" steps: 2, train_adapters_only: false}},"
+              f" {{name: target, manifests: [{env}/jiaoliao.jsonl], steps: 2}}]")
+    argv = ["-m", "jiao_liao_speech_recognition_torch.cli", "train", "--config",
+            str(env / "tiny.yaml"), "--multihost", "--device", "cpu",
+            "ctc_model.adapter.kind=wf", "ctc_model.adapter.wf_rank=4",
+            f"train.checkpoint_dir={tmp_path}/st", f"train.metrics_path={tmp_path}/m.jsonl",
+            stages]
+    (rc0, out0), (rc1, out1) = spawn(argv, 2, timeout=120)
+    assert rc0 == 0 and rc1 == 0, out0[-3000:] + out1[-3000:]
+    lines = out0.strip().splitlines()
+    assert lines[-1] == f"saved final bundle to {tmp_path}/st/final"
+    history = [json.loads(line) for line in lines if line.startswith("{")]
+    assert [h["stage"] for h in history] == ["neighbor", "target"]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert "saved final bundle" not in out1 and '"stage"' not in out1
+    summaries = [json.loads(line) for line in (tmp_path / "m.jsonl").read_text().splitlines()
+                 if '"stage_index"' in line]
+    assert [r["stage"] for r in summaries] == ["neighbor", "target"]
+    served = api.load(str(tmp_path / "st" / "final"), device="cpu")
+    assert served.config.ctc_model.adapter.kind == "wf"
+
+
 @pytest.mark.parametrize("argv", [
     ["train-unigram", "m.jsonl", "--output", "u.json"],
     ["export-whisper", "--checkpoint", "WHISPER", "--out", "o"], ["build-native"],
     ["transcribe", "u0.wav", "--checkpoint", "FINAL", "--profile", "d"],
     ["train", "--config", "tiny.yaml", "--profile", "d"],
-    ["train", "--config", "c.yaml", "--multihost"],
+    ["train", "--config", "tiny.yaml", "--multihost"],
 ])
 def test_unported_subcommands_and_flags_exit_2(argv, capsys, tmp_path, monkeypatch, request):
-    """The one unported flag, --multihost, exits 2 naming its ROADMAP item;
-    the rest are ported. build-native builds native/beam.cpp, wavio.cpp and
+    """No flag is left unported (the exit-2 path stays for later ones).
+    train --multihost runs as two CPU processes of one process group
+    (JL_* variables): both exit 0, the primary alone prints the bundle line
+    and writes the metrics (one record a step), and the bundle loads.
+    build-native builds native/beam.cpp, wavio.cpp and
     flacio.cpp, prints the JAX CLI's line and the libraries load.
     train-unigram writes the vocab JAX's trains on the same manifest and
     prints the JAX CLI's keys. export-whisper writes the HF checkpoint
@@ -266,8 +299,25 @@ def test_unported_subcommands_and_flags_exit_2(argv, capsys, tmp_path, monkeypat
         assert native_ext.load_beam() and native_ext.load_wavio() and native_ext.load_flacio()
         return
     if "--multihost" in argv:
-        assert cli.main(argv) == 2
-        assert "not ported yet: ROADMAP queue 1 item 9" in capsys.readouterr().err
+        from torch_ranks import spawn
+
+        env = request.getfixturevalue("env")
+        assert cli.NOT_PORTED == {}
+        argv = ["-m", "jiao_liao_speech_recognition_torch.cli", "train", "--config",
+                str(env / "tiny.yaml"), "--multihost", "--device", "cpu",
+                f"data.train_manifest={env}/train.jsonl", "train.optimizer.total_steps=2",
+                "train.log_every_steps=1", f"train.checkpoint_dir={tmp_path}/ckpt",
+                f"train.metrics_path={tmp_path}/m.jsonl"]
+        (rc0, out0), (rc1, out1) = spawn(argv, 2, timeout=120)
+        assert rc0 == 0 and rc1 == 0, out0[-3000:] + out1[-3000:]
+        final = tmp_path / "ckpt" / "final"
+        assert out0.strip().splitlines()[-1] == f"saved final bundle to {final} (step 2)"
+        assert "saved final bundle" not in out1
+        records = [json.loads(line) for line in (tmp_path / "m.jsonl").read_text().splitlines()]
+        assert [r["step"] for r in records] == [1, 2]
+        assert all(np.isfinite(r["loss"]) and "grad_norm" in r for r in records)
+        assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["00000002", "final"]
+        assert api.load(str(final), device="cpu").config.model_family == "ctc"
         return
     env = request.getfixturevalue("env")
     paths = {"WHISPER": lambda: str(request.getfixturevalue("whisper")),

@@ -13,8 +13,8 @@ from jiao_liao_speech_recognition_tpu.utils import config as jcfg  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E402
 
 # ExperimentConfig sections the ported slices do not read; their twins come
-# with the slices that use them
-LATER_SECTIONS = {"mesh"}
+# with the slices that use them (none left since the mesh section's)
+LATER_SECTIONS = set()
 
 
 def _defaults(cls):
@@ -31,7 +31,7 @@ def _defaults(cls):
 @pytest.mark.parametrize(
     "name", ["FrontendConfig", "AdapterConfig", "CTCModelConfig", "DecodeConfig",
              "SpecAugmentConfig", "AugmentConfig", "DataConfig", "OptimizerConfig", "TrainConfig",
-             "WhisperConfig", "JointModelConfig", "DialectStage"]
+             "WhisperConfig", "JointModelConfig", "MeshConfig", "DialectStage"]
 )
 def test_config_twin_matches_jax_dataclass(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
@@ -70,6 +70,8 @@ def test_jax_written_whisper_yaml_loads_into_the_twin(tmp_path):
     got = tcfg.load_yaml(str(tmp_path / "config.yaml"))
     assert got.model_family == "whisper"
     assert dataclasses.asdict(got.whisper) == dataclasses.asdict(cfg.whisper)
+    assert dataclasses.asdict(got.mesh) == dataclasses.asdict(cfg.mesh)
+    assert got.mesh.fsdp_axis == 4 and got.mesh.axis_names == ("data", "fsdp", "model")
     large = dataclasses.asdict(tcfg.whisper_preset("large-v3"))
     assert {k: large[k] for k in ("d_model", "encoder_layers", "decoder_layers", "num_heads",
                                   "mlp_dim", "num_mels", "vocab_size")} == \
