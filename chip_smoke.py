@@ -303,7 +303,46 @@ non-zero and prints no result line):
               launcher's process counts them, `--multigpu-worker`), and
               its step-3 checkpoint restored into this process, which has
               no process group: the step and every tensor bitwise phase
-              5's checkpoint.
+              5's checkpoint;
+20. tp      - main path 29, tensor parallelism's kernel forms on this one
+              card (phase_tp): the collective is the one piece a single
+              card cannot run, so the ranks of a model group are copies of
+              the same sharded modules the multi-card run uses
+              (parallel/tp.apply_tp), each rank's partial products are
+              summed here on the card, and a decode step's ranks take turns
+              as threads of this process (TurnGroup: the sums and the
+              vocab gather made on the card in rank order). Per rank, at
+              large-v3 width (d 1280, 20 heads of 64, mlp 5120) at tp 2 and
+              4 (and with WF inserts folded per shard at tp 2): K5 on the
+              rank's packed q/k/v (1,920 columns at tp 2; 960 padded to
+              1,024 at tp 4), K6 on its 10 or 5 heads, the row-parallel
+              partial GEMM (jl_row_partial, f32 out) of the out-projection,
+              ln_fc1 (K3's first two launches on the rank's 2,560 or
+              1,280 hidden columns, erf) and the row-parallel fc2; on the
+              flagship (d 512, 4 heads of 128, mlp 2048, tanh) at tp 2,
+              K2's first three launches on 2 heads of 128
+              (attention_core_tp), ln_fc1 and both row-parallel products.
+              Each launch against its plain version (ULP_BAR; the f32
+              partials within ROW_REL_BAR) and launched twice, bitwise
+              equal; the ranks' summed sublayer (K2's or K2h-out's and
+              K3's epilogue on the sum) against the unsharded kernel
+              route (K5 -> K6 -> K2h-out and K3c; K2 and K3) within
+              ULP_BAR; one Whisper decode step a position over 8
+              teacher-forced positions of a large-v3-width decoder cut to
+              TP_DECODE_LAYERS blocks (V 51866, vocab-split at tp 2,
+              replicated at tp 4), every rank on head-major caches of its
+              heads (K9 on 10 and 5 heads), its joined logits equal on
+              every rank and held against the unsharded step by the
+              margin rule; then each decoder rank's decode-step launches
+              against their plain versions and twice bitwise: the row
+              partials of block 0's self- and cross-attention
+              out-projections and fc2 on B=16 one-token rows (ROW_REL_BAR)
+              and K9 on its self and cross caches (ULP_BAR); each rank's
+              vocab columns of the tied logits against the unsharded
+              product's (ULP_BAR; cuBLAS chooses its own sum order at each
+              width); exact launch counts; the row-parallel GEMM, ln_fc1,
+              attention_core_tp and K5 at the padded width timed beside
+              plain, bound and cuBLAS.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
@@ -371,6 +410,11 @@ ENC_REL_BAR = 0.05
 # within LOGITS_REL_BAR of max |plain| (2.3e-7 to 4.2e-7 on an H100 at
 # the shapes below). K9-int8 and K10 round to bf16 and take ULP_BAR.
 LOGITS_REL_BAR = 1e-5
+# The row-parallel partial (f32 out): the same bf16 products as its plain
+# version's f32 matmul summed in another order, max |kernel - plain|
+# within ROW_REL_BAR of max |plain| (0.3e-6 to 2.1e-6 on an H100 at the
+# shapes of phase 20).
+ROW_REL_BAR = 1e-5
 
 TPU = "jiao_liao_speech_recognition_tpu/"
 KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it replaces
@@ -417,6 +461,16 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
      "examples/profile_frontend_precision.py:105"),
     ("P2", "P2 head_argmax_chunked", "ops.probes", "CHUNKED_COUNTER", "csrc/head.cu",
      "examples/profile_head_kernel.py:113"),
+    # tensor parallelism's forms (phase 20): K2's first three launches on a
+    # rank's heads, K3's first two on its hidden columns, and the
+    # row-parallel partial GEMM (csrc/ln_gemm.cu's kRowPartial instance)
+    # that ends both sublayers before the ranks' sum
+    ("K2-tp", "K2 attention_core_tp", "ops.fused_attention", "TP_CORE_COUNTER",
+     "csrc/flash_attention.cu", TPU + "ops/fused_attention.py:163"),
+    ("K3-tp", "K3 ln_fc1", "ops.fused_mlp", "LN_FC1_COUNTER", "csrc/ln_gemm.cu",
+     TPU + "ops/fused_mlp.py:294"),
+    ("row-partial", "row_parallel_partial", "ops.fused_attention", "ROW_COUNTER",
+     "csrc/ln_gemm.cu", TPU + "ops/fused_attention.py:387"),
 ]
 # main path -> the kernels it must launch
 PATHS = {
@@ -452,6 +506,7 @@ PATHS = {
     "real_audio": ("K1", "K2", "K3", "K4"),
     "augmented_train": ("K1", "K6", "K8"),
     "multigpu": ("K1", "K6", "K8"),
+    "tp": ("K5", "K6", "K9", "K2-tp", "K3-tp", "row-partial"),
 }
 # phase 19: the launcher's limit (its start, ~10 s to reach the card, and
 # 3 steps of phase 5's fine-tune)
@@ -685,6 +740,13 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 # --- phases -----------------------------------------------------------------
 
+# phase 20: the flagship's rows (B x T'), the decoder's depth and the
+# teacher-forced positions of its decode steps
+TP_FLAG_B, TP_FLAG_T = 8, 750
+TP_DECODE_LAYERS = 2
+TP_DECODE_STEPS = 8
+TP_TIMED_ITERS = 10
+
 
 def phase_device():
     import torch
@@ -709,6 +771,7 @@ def phase_device():
 NO_SPILL = ("attention_core_kernelILi64", "attention_core_kernelILi128",
             "gemm_kernelILi0ELi0E", "gemm_kernelILi1ELi0E", "gemm_kernelILi2ELi0E",
             "gemm_kernelILi3ELi0E", "gemm_kernelILi3ELi1E", "gemm_kernelILi4ELi2E",
+            "gemm_kernelILi5ELi3E",  # the row-parallel partial
             "log_mel_tf32_kernelILi0E", "log_mel_tf32_kernelILi1E",  # K1, P1
             "head_tile_argmax_kernel", "head_merge_kernel", "head_chunk_carry_kernel",
             # P4's four launches (the GEMM as <epilogue, erf form>)
@@ -4132,7 +4195,6 @@ def joint_k7_rows(model, rng):
     B x 64 (a teacher-forced pass's rows) -> errors by key."""
     import torch
 
-    from jiao_liao_speech_recognition_torch.models.layers import _insert
     from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
     from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
 
@@ -4153,7 +4215,7 @@ def joint_k7_rows(model, rng):
             else:
                 ln, m = blk.mlp_ln, blk.mlp
                 args = (x, ln.scale, ln.bias, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias,
-                        _insert(m.fc1), _insert(m.fc2), ln.eps, m.gelu_form, s)
+                        m.fc1.insert(), m.fc2.insert(), ln.eps, m.gelu_form, s)
                 kern, plain = fm.fused_ln_mlp_residual_wf, fm.ln_mlp_residual_wf_plain
             got, again = kern(*args), kern(*args)
             same = bool(torch.equal(got, again))
@@ -5241,7 +5303,6 @@ def k7_d1280_rows(model, rng):
     -> (errors, rows)."""
     import torch
 
-    from jiao_liao_speech_recognition_torch.models.layers import _insert
     from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
     from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
 
@@ -5253,7 +5314,7 @@ def k7_d1280_rows(model, rng):
     x = torch.from_numpy((0.5 * rng.randn(B, T, d)).astype(np.float32)).to("cuda", torch.bfloat16)
     full = torch.full((B,), T, dtype=torch.int32, device="cuda")
     ragged = torch.tensor([1500, 1033, 257, 1, 750, 1499, 129], dtype=torch.int32, device="cuda")
-    wf1, wf2 = _insert(m.fc1), _insert(m.fc2)
+    wf1, wf2 = m.fc1.insert(), m.fc2.insert()
     calls = {
         "K7-attn": (lambda xx, ll: fa.fused_attention_sublayer_wf(
             xx, ln.scale, ln.bias, base, inserts, H, ln.eps, scale, ll),
@@ -6051,6 +6112,484 @@ def phase_multigpu(counters, workdir: Path, ft_cfg, ft_losses, ft_launches, card
     return launches
 
 
+class TurnGroup:
+    """A model group of `size` ranks played by threads of this process that
+    take turns on one card: a rank runs until its next collective, where it
+    leaves its tensor and hands the turn to the next rank; the last to
+    arrive sums the tensors (in rank order, f32 as they come) or lists them
+    on the card, and the ranks go on in order. One thread runs at a time,
+    so the wrappers' launch counts stay exact. ``member(r)`` is rank r's
+    stand-in group for parallel/tp.TPGroup."""
+
+    def __init__(self, size: int):
+        import threading
+
+        self.size, self.cv = size, threading.Condition()
+        self.turn, self.epoch, self.box, self.result, self.error = 0, 0, [None] * size, None, None
+
+    def _wait(self, pred):
+        if not self.cv.wait_for(lambda: self.error is not None or pred(), timeout=600):
+            self.error = "a rank waited 600 s for its turn"
+        if self.error is not None:
+            raise RuntimeError(f"TurnGroup: {self.error}")
+
+    def _collective(self, r: int, t, combine):
+        with self.cv:
+            self.box[r] = t
+            epoch = self.epoch
+            if r == self.size - 1:
+                self.result, self.box = combine(self.box), [None] * self.size
+                self.epoch += 1
+            self.turn = (r + 1) % self.size
+            self.cv.notify_all()
+            self._wait(lambda: self.epoch > epoch and self.turn == r)
+            return self.result
+
+    def member(self, r: int):
+        group = self
+
+        class Member:
+            def all_reduce(self, t):
+                return group._collective(r, t, lambda ts: functools.reduce(
+                    lambda a, b: a + b, ts)).clone()
+
+            def all_gather(self, t):
+                return list(group._collective(r, t, list))
+
+        return Member()
+
+    def run(self, fns):
+        """fns[r]() on rank r's thread, in turns -> their results."""
+        import threading
+
+        out = [None] * self.size
+
+        def body(r):
+            try:
+                with self.cv:
+                    self._wait(lambda: self.turn == r)
+                out[r] = fns[r]()
+                with self.cv:
+                    self.turn = (r + 1) % self.size
+                    self.cv.notify_all()
+            except BaseException as e:  # noqa: BLE001 - handed to the caller
+                with self.cv:
+                    self.error = self.error or repr(e)
+                    self.cv.notify_all()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if self.error is not None:
+            raise RuntimeError(f"TurnGroup: {self.error}")
+        return out
+
+
+def tp_ranks(module, tp: int, group=None):
+    """`tp` copies of `module`, copy r split as rank r (parallel/tp.apply_tp;
+    `group` a TurnGroup, else no collective), in bf16 serving form."""
+    import copy
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models.layers import cast_for_serving
+    from jiao_liao_speech_recognition_torch.parallel.tp import TPGroup, apply_tp
+
+    out = []
+    for r in range(tp):
+        m = copy.deepcopy(module)
+        apply_tp(m, TPGroup(r, tp, None if group is None else group.member(r)))
+        cast_for_serving(m, torch.bfloat16)
+        out.append(m.eval())
+    return out
+
+
+def _rel_check(key, got, want, **info):
+    """An f32 result against its plain version: max |diff| over max |plain|."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    emit({"phase": "tp", "kernel": key, **info, "max_abs_err": err, "rel": rel,
+          "bar_rel": ROW_REL_BAR})
+    check(rel <= ROW_REL_BAR, f"{key} {info}: relative error {rel} > {ROW_REL_BAR}")
+    return err
+
+
+def _twice(key, fn, **info):
+    """fn() launched twice: the same bits -> the first result."""
+    import torch
+
+    a, b = fn(), fn()
+    same = all(torch.equal(x, y) for x, y in zip(*((a, b) if isinstance(a, tuple)
+                                                    else ((a,), (b,)))))
+    check(same, f"{key} {info}: two launches differ")
+    return a
+
+
+def tp_rank_checks(block, x, lens, tag: str, errs: dict) -> None:
+    """Each launch of a split block's serving sublayers against its plain
+    version, twice bitwise: K5 or attention_core_tp, K6, the row-parallel
+    partials, ln_fc1."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import flash_attention as fl
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    sa, ln, m, mln = block.self_attn, block.self_attn_ln, block.mlp, block.mlp_ln
+    H, D = sa.num_heads, sa.num_heads * sa.head_dim
+    info = {"case": tag, "rank": block.tp.rank, "tp": block.tp.size, "heads": H}
+    w_qkv, b_qkv, wo = block._attention_weights(torch.bfloat16)
+    with torch.inference_mode():
+        if block._k2_route(x):
+            core = (x, ln.scale, ln.bias, w_qkv, b_qkv, lens, H, ln.eps)
+            attn = _twice("K2-tp", lambda: fa.attention_core_tp(*core), **info)
+            want = fa.attention_core_plain(fm.qkv_gemm_plain(
+                fm.ln_rows_plain(x, ln.scale, ln.bias, ln.eps), w_qkv, b_qkv), lens, H)
+            errs["K2-tp"] = max(errs.get("K2-tp", 0.0), _ulp_check("K2-tp", attn, want, **info))
+        else:
+            qkv = _twice("K5", lambda: fm.fused_ln_qkv(x, ln.scale, ln.bias, w_qkv, b_qkv, ln.eps,
+                                                       width=D), **info)
+            want = fm.ln_qkv_plain(x, ln.scale, ln.bias, w_qkv, b_qkv, ln.eps, width=D)
+            errs["K5"] = max([errs.get("K5", 0.0)] + [
+                _ulp_check("K5", a, c, part=n, packed=w_qkv.shape[1], **info)
+                for n, a, c in zip("qkv", qkv, want)])
+            attn = _twice("K6", lambda: fl.flash_attention_packed(*qkv, H, kv_lengths=lens),
+                          **info)
+            _ulp_check("K6", attn, fl.flash_attention_packed(*qkv, H, kv_lengths=lens,
+                                                            kernels=False), **info)
+        part = _twice("row-partial", lambda: fa.row_partial(attn, wo), **info)
+        errs["row-partial"] = max(errs.get("row-partial", 0.0), _rel_check(
+            "row-partial", part, fa.row_partial_plain(attn, wo), launch="out_proj", **info))
+        (w1, w2), b1 = block._mlp_weights(torch.bfloat16), m.fc1.weights(torch.bfloat16)[1]
+        args = (x, mln.scale, mln.bias, w1, b1, mln.eps, m.gelu_form)
+        h = _twice("K3-tp", lambda: fm.ln_fc1(*args), **info)
+        errs["K3-tp"] = max(errs.get("K3-tp", 0.0), _ulp_check(
+            "K3-tp", h, fm.ln_fc1_plain(*args), mlp=w1.shape[1], **info))
+        part = _twice("row-partial", lambda: fa.row_partial(h, w2), **info)
+        errs["row-partial"] = max(errs["row-partial"], _rel_check(
+            "row-partial", part, fa.row_partial_plain(h, w2), launch="fc2", **info))
+
+
+def tp_block(d, H, mlp, gelu, wf: bool, seed: int):
+    """One serving block on the card from a seeded generator (WF inserts
+    with B drawn too, so the fold moves the weights)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models.layers import TransformerBlock, cast_for_serving
+    from jiao_liao_speech_recognition_torch.utils.config import AdapterConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        block = TransformerBlock(d, H, mlp, gen, gelu,
+                                 adapter=AdapterConfig(kind="wf", wf_rank=16) if wf else None)
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if name.endswith("adapter_wf.b"):
+                    p.normal_(0.0, 0.02, generator=gen)
+                elif name.endswith("ln.bias") or name.endswith("_proj.bias"):
+                    p.normal_(0.0, 0.1, generator=gen)
+    cast_for_serving(block, torch.bfloat16)
+    return block.eval()
+
+
+def tp_decode(model, ranks, enc, toks, group):
+    """Teacher-forced decode steps of the split `ranks` in turns (group a
+    TurnGroup) -> every rank's (logits a step, its caches after the last
+    step)."""
+    import torch
+
+    def run(m):
+        def fn():
+            with torch.inference_mode():
+                caches = m.init_cache(enc.shape[0], enc, TP_DECODE_STEPS + 1)
+                out = []
+                for pos in range(TP_DECODE_STEPS):
+                    logits, caches = m.decode_step(toks[:, pos:pos + 1], pos, enc, caches)
+                    out.append(logits)
+                return out, caches
+        return fn
+
+    return group.run([run(m) for m in ranks])
+
+
+def tp_decode_checks(ranks, caches, errs: dict) -> None:
+    """Each split decoder rank's decode-step launches against their plain
+    versions, twice bitwise: the row-parallel partials of block 0's
+    self- and cross-attention out-projections and fc2 on B=16 one-token
+    rows (10 CTAs a launch: fewer than the card's SMs), and K9 on the
+    rank's head-major self and cross caches as the teacher-forced steps
+    left them (its 10 or 5 heads), at ragged lengths up to each horizon."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+
+    randn = _card_randn(22)
+    B = WHISPER_B
+    for rank, cache in zip(ranks, caches):
+        block = rank.decoder.blocks[0]
+        info = {"case": "decode", "rank": rank.tp.rank, "tp": rank.tp.size, "rows": B}
+        with torch.inference_mode():
+            for launch, dense in (("self out_proj", block.self_attn.out_proj),
+                                  ("cross out_proj", block.cross_attn.out_proj),
+                                  ("fc2", block.mlp.fc2)):
+                w = dense.weights(torch.bfloat16)[0]
+                a = randn(B, 1, w.shape[0]).to(torch.bfloat16)
+                part = _twice("row-partial", lambda: fa.row_partial(a, w), launch=launch, **info)
+                errs["row-partial"] = max(errs.get("row-partial", 0.0), _rel_check(
+                    "row-partial", part, fa.row_partial_plain(a, w), launch=launch,
+                    shape=[B, *w.shape], **info))
+            entry = cache["block_0"]
+            H, dh = block.self_attn.num_heads, block.self_attn.head_dim
+            qh = randn(B, H, 1, dh).to(torch.bfloat16)
+            for kind, full in (("self", TP_DECODE_STEPS), ("cross", WHISPER_T)):
+                k, v = entry[kind]["k"], entry[kind]["v"]
+                lens = torch.tensor(([full, full - 1, full // 2, 1] * B)[:B], dtype=torch.int32,
+                                    device=k.device)
+                got = _twice("K9", lambda: da.grouped_decode_attention(qh, k, v, lens),
+                             cache=kind, **info)
+                errs["K9"] = max(errs.get("K9", 0.0), _ulp_check(
+                    "K9", got, da.decode_attention_plain(qh, k, v, lens), cache=kind,
+                    heads=H, Tk=k.shape[2], **info))
+
+
+def phase_tp(counters, card: str):
+    """Phase 20 (main path 29; see the module docstring) -> (launches,
+    errors by kernel key, timing rows)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.models.layers import cast_for_serving
+    from jiao_liao_speech_recognition_torch.models.whisper import WhisperModel
+    from jiao_liao_speech_recognition_torch.ops.fused_attention import (attn_residual_after_sum,
+                                                                          residual_after_sum)
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(20)
+    w = whisper_config().whisper
+    d, H, mlp = w.d_model, w.num_heads, w.mlp_dim
+    B, T = WHISPER_B, WHISPER_T
+
+    def bf(*shape, s=1.0):
+        return torch.from_numpy((s * rng.randn(*shape)).astype(np.float32)).to(dev, torch.bfloat16)
+
+    x = bf(B, T, d)
+    lens = torch.tensor(([T, 1000, 313, 1] * B)[:B], dtype=torch.int32, device=dev)
+    xf = bf(TP_FLAG_B, TP_FLAG_T, 512)
+    lf = torch.tensor(([TP_FLAG_T, 600, 129, 1] * TP_FLAG_B)[:TP_FLAG_B], dtype=torch.int32,
+                      device=dev)
+    cases = [("large_v3", tp_block(d, H, mlp, "erf", False, 1), x, lens, (2, 4)),
+             ("large_v3_wf", tp_block(d, H, mlp, "erf", True, 2), x, lens, (2,)),
+             ("flagship", tp_block(512, 4, 2048, "tanh", False, 3), xf, lf, (2,))]
+    errs, wants, split = {}, {}, {}
+    with torch.inference_mode():
+        for name, block, xx, ll, sizes in cases:
+            # the unsharded kernel route: K5 -> K6 -> K2h-out and K3c (K7
+            # folds first), or K2 and K3
+            wants[name] = (block._serve_attention(xx, ll, True), block._serve_mlp(xx, True))
+            for tp in sizes:
+                split[(name, tp)] = tp_ranks(block, tp)
+                for b in split[(name, tp)]:
+                    tp_rank_checks(b, xx, ll, name, errs)
+
+    # the decoder: large-v3 width, cut in depth; the unsharded steps first
+    cfg = dataclasses.replace(w, encoder_layers=1, decoder_layers=TP_DECODE_LAYERS)
+    whole = WhisperModel(cfg, device=dev, seed=4)
+    cast_for_serving(whole, torch.bfloat16)
+    whole.eval()
+    enc = bf(B, T, d)
+    toks = torch.from_numpy(rng.randint(0, min(w.vocab_size, 50257),
+                                        (B, TP_DECODE_STEPS + 1))).to(dev)
+    with torch.inference_mode():
+        caches = whole.init_cache(B, enc, TP_DECODE_STEPS + 1)
+        want_logits = []
+        for pos in range(TP_DECODE_STEPS):
+            logits, caches = whole.decode_step(toks[:, pos:pos + 1], pos, enc, caches)
+            want_logits.append(logits)
+        del caches
+    groups = {tp: TurnGroup(tp) for tp in (2, 4)}
+    dec_ranks = {tp: tp_ranks(whole, tp, groups[tp]) for tp in (2, 4)}
+
+    def main_path():
+        sums = {}
+        with torch.inference_mode():
+            for (name, tp), ranks in split.items():
+                _, block, xx, ll, _ = next(c for c in cases if c[0] == name)
+                acc_a = functools.reduce(lambda a, b: a + b,
+                                         [r.attention_partial(xx, ll, True) for r in ranks])
+                acc_m = functools.reduce(lambda a, b: a + b, [r.mlp_partial(xx, True)
+                                                              for r in ranks])
+                sums[(name, tp)] = (acc_a, acc_m)
+        decoded = {tp: tp_decode(whole, dec_ranks[tp], enc, toks, groups[tp]) for tp in (2, 4)}
+        return sums, decoded
+
+    (sums, decoded), launches = drive(counters, "tp", main_path)
+    logits = {tp: [out for out, _ in runs] for tp, runs in decoded.items()}
+    for tp, runs in decoded.items():
+        tp_decode_checks(dec_ranks[tp], [c for _, c in runs], errs)
+    # the exact counts: per rank, one K5 + K6 (or one attention_core_tp), one
+    # ln_fc1 and two row partials a block; per decode step and block, two K9
+    # (self and cross) and three row partials (out-projections and fc2)
+    want = {k: 0 for k in counters}
+    for (name, tp) in split:
+        core = "K2-tp" if name == "flagship" else "K5"
+        want[core] += tp
+        want["K6"] += 0 if name == "flagship" else tp
+        want["K3-tp"] += tp
+        want["row-partial"] += 2 * tp
+    for tp in (2, 4):
+        want["K9"] += 2 * TP_DECODE_LAYERS * TP_DECODE_STEPS * tp
+        want["row-partial"] += 3 * TP_DECODE_LAYERS * TP_DECODE_STEPS * tp
+    emit({"phase": "tp", "launches": {k: v for k, v in launches.items() if v},
+          "want": {k: v for k, v in want.items() if v}})
+    check(launches == want, f"tp launch counts {launches} != {want}")
+    for (name, tp), (acc_a, acc_m) in sums.items():
+        block, xx = next((c[1], c[2]) for c in cases if c[0] == name)
+        finish = (attn_residual_after_sum if split[(name, tp)][0]._k2_route(xx)
+                  else residual_after_sum)
+        with torch.inference_mode():
+            got_a = finish(xx, acc_a, block.self_attn.out_proj.weights(torch.bfloat16)[1])
+            got_m = residual_after_sum(xx, acc_m, block.mlp.fc2.weights(torch.bfloat16)[1])
+        for part, got, ref in (("attention", got_a, wants[name][0]),
+                               ("mlp", got_m, wants[name][1])):
+            ulps, elem, over1 = bf16_ulp_err(got, ref)
+            rel_l2 = float((got.float() - ref.float()).norm() / ref.float().norm())
+            emit({"phase": "tp", "summed": part, "case": name, "tp": tp, "ulps": ulps,
+                  "bar_ulps": ULP_BAR, "elementwise_max_ulps": elem,
+                  "elementwise_share_over_1ulp": over1, "rel_l2": rel_l2})
+            check(ulps <= ULP_BAR, f"tp {name} x{tp} {part}: {ulps} ulps from the unsharded route")
+    for tp in (2, 4):
+        per_rank = logits[tp]
+        for r in range(1, tp):
+            check(all(torch.equal(a, b) for a, b in zip(per_rank[0], per_rank[r])),
+                  f"tp {tp}: rank {r}'s joined logits differ from rank 0's")
+        cover, bad, scored = [], 0, 0
+        for got, ref in zip(per_rank[0], want_logits):
+            clear = margins(ref.float()) > ARGMAX_MARGIN
+            bad += int(((got.float().argmax(-1) != ref.float().argmax(-1)) & clear).sum())
+            scored += clear.numel()
+            cover.append(float(clear.float().mean()))
+        ulps, _, _ = bf16_ulp_err(torch.stack(per_rank[0]), torch.stack(want_logits))
+        emit({"phase": "tp", "decode": tp, "heads_a_rank": H // tp,
+              "vocab_split": w.vocab_size % tp == 0, "coverage": statistics.mean(cover),
+              "argmax_mismatches_over_margin": bad, "positions": scored, "logit_ulps": ulps})
+        check(bad == 0, f"tp {tp} decode: {bad} clear argmaxes differ from the unsharded step")
+        check(statistics.mean(cover) >= MIN_COVERAGE, f"tp {tp} decode: coverage too low")
+    # the vocab-split tied logits: each rank's columns against the whole
+    # product's, on one final LN output
+    with torch.inference_mode():
+        xd = bf(B, 1, d)
+        table = whole.decoder.embed_tokens.table(torch.bfloat16)
+        full = torch.matmul(xd, table.t())
+        n = w.vocab_size // 2
+        cols = [torch.matmul(xd, r.decoder.embed_tokens.table(torch.bfloat16).t())
+                for r in dec_ranks[2]]
+        joined = torch.cat(cols, -1)
+        ulps, _, _ = bf16_ulp_err(joined, full)
+        emit({"phase": "tp", "vocab_logits": {"ranks": 2, "columns": n, "ulps": ulps,
+                                              "bitwise": bool(torch.equal(joined, full))}})
+        check(ulps <= ULP_BAR, f"vocab-split logits off by {ulps} ulps")
+    del dec_ranks, whole, want_logits, logits, decoded
+    rows = tp_timing(split, cases)
+    emit({"phase": "tp", "seconds": round(time.monotonic() - t0, 1)})
+    return launches, errs, rows
+
+
+def tp_timing(split, cases) -> dict:
+    """The row-parallel GEMM, ln_fc1 and attention_core_tp on rank 0's
+    operands (the large-v3 encoder's B=16 x 1500 rows at tp 2, the
+    flagship's at tp 2), and K5 at the tp widths, beside their plain
+    versions, bounds and cuBLAS (torch.mm with an f32 result where it
+    takes one, for the row partial)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    rows = {}
+    block = split[("large_v3", 2)][0]
+    _, _, x, lens, _ = cases[0]
+    B, T, d = x.shape
+    M = B * T
+    m, mln = block.mlp, block.mlp_ln
+    with torch.inference_mode():
+        w1, b1 = m.fc1.weights(torch.bfloat16)
+        w2 = m.fc2.weights(torch.bfloat16)[0]
+        h = fm.ln_fc1(x, mln.scale, mln.bias, w1, b1, mln.eps, "erf")
+        K, N = w2.shape
+
+        def lib():
+            try:
+                return torch.mm(h.view(M, K), w2, out_dtype=torch.float32)
+            except (TypeError, RuntimeError):
+                return torch.mm(h.view(M, K), w2)
+
+        ms, ms_p, ms_l = (cuda_ms(f, TP_TIMED_ITERS) for f in (
+            lambda: fa.row_partial(h, w2), lambda: fa.row_partial_plain(h, w2), lib))
+        b_ms, b_by = bound(M * K * 2 + K * N * 2 + M * N * 4, {"bf16": 2.0 * M * N * K})
+        rows["row-partial"] = {"ms": ms, "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": b_ms,
+                               "bound_by": b_by, "shape": [M, K, N], "tp": 2,
+                               "library": "torch.mm (f32 out where taken)",
+                               "tflops": tflops(2.0 * M * N * K, ms)}
+        args = (x, mln.scale, mln.bias, w1, b1, mln.eps, "erf")
+        ms, ms_p = (cuda_ms(f, TP_TIMED_ITERS) for f in (lambda: fm.ln_fc1(*args),
+                                                          lambda: fm.ln_fc1_plain(*args)))
+        mloc = w1.shape[1]
+        b_ms, b_by = bound(M * d * 2 + d * mloc * 2 + M * mloc * 2 + 8 * d,
+                           {"bf16": 2.0 * M * d * mloc})
+        rows["K3-tp"] = {"ms": ms, "plain_ms": ms_p, "library_ms": None, "bound_ms": b_ms,
+                         "bound_by": b_by, "shape": [M, d, mloc], "tp": 2, "gelu": "erf",
+                         "tflops": tflops(2.0 * M * d * mloc, ms)}
+        fb = split[("flagship", 2)][0]
+        _, _, xf, lf, _ = cases[2]
+        w_qkv, b_qkv, _ = fb._attention_weights(torch.bfloat16)
+        ln = fb.self_attn_ln
+        Hl = fb.self_attn.num_heads
+        core = (xf, ln.scale, ln.bias, w_qkv, b_qkv, lf, Hl, ln.eps)
+
+        def core_plain():
+            return fa.attention_core_plain(fm.qkv_gemm_plain(
+                fm.ln_rows_plain(xf, ln.scale, ln.bias, ln.eps), w_qkv, b_qkv), lf, Hl)
+
+        ms, ms_p = (cuda_ms(f, TP_TIMED_ITERS) for f in (lambda: fa.attention_core_tp(*core),
+                                                          core_plain))
+        Bf, Tf, df = xf.shape
+        Mf, Nq = Bf * Tf, w_qkv.shape[1]
+        Dl = Nq // 3
+        dh = Dl // Hl
+        ops = 2.0 * Mf * df * Nq + fl_flops(Bf, Tf, lf, Hl, dh)
+        b_ms, b_by = bound(Mf * df * 2 + df * Nq * 2 + Mf * Dl * 2, {"bf16": ops})
+        rows["K2-tp"] = {"ms": ms, "plain_ms": ms_p, "library_ms": None, "bound_ms": b_ms,
+                         "bound_by": b_by, "shape": [Bf, Tf, df, Hl, dh], "tp": 2}
+        k5 = []
+        for tp in (2, 4):
+            rb = split[("large_v3", tp)][0]
+            w_qkv, b_qkv, _ = rb._attention_weights(torch.bfloat16)
+            D = rb.self_attn.num_heads * rb.self_attn.head_dim
+            la = rb.self_attn_ln
+            qa = (x, la.scale, la.bias, w_qkv, b_qkv, la.eps)
+            ms, ms_p = (cuda_ms(f, TP_TIMED_ITERS) for f in (
+                lambda: fm.fused_ln_qkv(*qa, width=D), lambda: fm.ln_qkv_plain(*qa, width=D)))
+            Nq = w_qkv.shape[1]
+            b_ms, b_by = bound(M * d * 2 + d * 3 * D * 2 + M * 3 * D * 2,
+                               {"bf16": 2.0 * M * d * 3 * D})
+            k5.append({"tp": tp, "columns": 3 * D, "packed": Nq, "ms": ms, "plain_ms": ms_p,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        rows["K5"] = {"tp_shapes": k5}
+    emit({"phase": "tp", "timing": rows})
+    return rows
+
+
+def fl_flops(B, T, lens, H, dh) -> float:
+    """The attention core's products (S and P.V) over each row's valid keys."""
+    return 4.0 * H * dh * T * float(sum(min(int(n), T) for n in lens.tolist()))
+
+
 def load_counters():
     """The launch counter of each kernel (KERNELS), the port imported from
     beside this script."""
@@ -6144,6 +6683,12 @@ def main() -> int:
         errs[key] = max(errs[key], err)
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(phase_real_audio(counters, Path(tmp), greedy, card))
+    by_path["tp"], tp_errs, tp_rows = phase_tp(counters, card)
+    for key, err in tp_errs.items():
+        errs[key] = max(errs.get(key, 0.0), err)
+    for key in ("K2-tp", "K3-tp", "row-partial"):
+        rec[key] = tp_rows[key]
+    rec["K5"] = {**rec["K5"], **tp_rows["K5"]}
     rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"], train_rows["K6"]],
                  "whisper_finetune_shapes": [ft_rows["K6"]]}
     rec["K8"] = {**rec["K8"], "joint_shapes": [train_rows["K8"]],

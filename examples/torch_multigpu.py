@@ -206,23 +206,26 @@ def rel(a, b) -> float:
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def restore_check(work: Path, steps: int) -> dict:
-    """large-v3's four-process checkpoint restored in this process (no
-    group): its step and data position, the backbone bitwise the one-card
-    run's, the adapters' updates (trained minus the seeded init) against
-    the one-card run's, over the whole set and the worst tensor; then one
-    more step from it, whose loss must be finite."""
+def restore_check(work: Path, steps: int, group_cfg=None, one_cfg=None,
+                  device: str = "cuda") -> dict:
+    """large-v3's four-process checkpoint (of `group_cfg`'s run, default
+    the fsdp 4 case) restored in this process (no group): its step and
+    data position, the backbone bitwise the one-card run's (`one_cfg`'s),
+    the adapters' updates (trained minus the seeded init) against the
+    one-card run's, over the whole set and the worst tensor; then one more
+    step from it, whose loss must be finite."""
     from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
     from jiao_liao_speech_recognition_torch.decode.whisper_generate import resolve_specials
     from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
 
     c = cases(work, steps)
-    cfg = c["large_v3_one_card"]
-    model = engine.make_model(cfg, "cuda")
+    cfg = one_cfg or c["large_v3_one_card"]
+    model = engine.make_model(cfg, device)
     init = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
             if param_is_adapter(k)}
     state = engine.init_state(cfg, model)
-    extra = TrainCheckpointer(c["large_v3_fsdp4"].train.checkpoint_dir).restore(state)
+    extra = TrainCheckpointer((group_cfg or c["large_v3_fsdp4"]).train.checkpoint_dir).restore(
+        state)
     restored = state.step
     ref = torch.load(Path(cfg.train.checkpoint_dir) / f"{steps:08d}" / "state.pt",
                      map_location="cpu", weights_only=False)["model"]
@@ -244,7 +247,7 @@ def restore_check(work: Path, steps: int) -> dict:
     it = BatchIterator(manifest, tok, cfg.data, sample_rate=cfg.frontend.sample_rate)
     it.load_state_dict(extra["data_iter"])
     prompt, eot = resolve_specials(cfg.whisper)
-    batch = engine.batch_to_device(next(it), "cuda", family="whisper", whisper_prompt=prompt,
+    batch = engine.batch_to_device(next(it), device, family="whisper", whisper_prompt=prompt,
                                    eot_id=eot)
     step = engine.make_train_step(engine.make_loss_fn(cfg, model), cfg.train.optimizer)
     loss = float(step(state, batch)["loss"])

@@ -1,0 +1,419 @@
+#!/usr/bin/env python3
+"""Tensor parallelism on four cards, held to one card.
+
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 examples/torch_tp.py \\
+        [--part serve|train|all] [--steps 3] [--rate-steps 4] [--out tp.json]
+
+Under the process group (``parallel/multihost.initialize``, NCCL):
+
+1. serving Whisper large-v3 (random init, seed 0, bf16) through the
+   normal entry points: ``api.load`` of a config whose mesh asks for data
+   2 x model 2, then model 4 (``ModelBundle.load`` shards it,
+   ``ModelBundle.shard``), and ``api.transcribe`` of chip_smoke's six
+   requests and of B=16 seeded 30 s chunks (each data rank its 8 at data
+   2); the encoder seconds of the B=16 batch, decode ms a step over
+   TIMED_STEPS greedy steps and tokens/s, each card's peak memory, and on
+   rank 0 one profiled encoder call and decode step (the all-reduce's share
+   of the device time: NCCL's kernels);
+2. training: configs/whisper_large_v3_adapters.yaml at fsdp 2 x model 2
+   and configs/adapter_finetune.yaml (the flagship, dropout off) at data 2
+   x model 2, ``--steps`` steps of B=16 x 30 s from chip_smoke's seeded
+   corpora, each card's peak, and large-v3's steps/s over ``--rate-steps``
+   more steps with a profiled step's idle share (examples/torch_multigpu.py).
+
+Then the group ends and rank 0 alone runs everything on one card: the
+one-card bundle's encoder output on the same B=16 batch (each sharded
+run's within ENC_REL_BAR, relative L2) and its decoder's logits over each
+sharded run's tokens (the margin rule: no clear argmax may differ), the
+same timings; both training configs in one process on the same batches
+(losses within FLAGSHIP_REL_BAR / WHISPER_REL_BAR), and large-v3's
+four-process checkpoint restored in this process (torch_multigpu's
+restore check). One JSON line a case, then a summary; exits 1 when a bar
+fails. Needs CUDA cards, one per process; ``--tiny --device cpu`` runs the
+same flow at tiny widths on gloo (a rehearsal, no bars on timing).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "examples"))
+
+import chip_smoke  # noqa: E402
+import torch_multigpu as mg  # noqa: E402
+from jiao_liao_speech_recognition_torch import api  # noqa: E402
+from jiao_liao_speech_recognition_torch.data.manifest import read_manifest  # noqa: E402
+from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer  # noqa: E402
+from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg  # noqa: E402
+from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import multihost as mh  # noqa: E402
+from jiao_liao_speech_recognition_torch.train import engine  # noqa: E402
+from jiao_liao_speech_recognition_torch.utils.config import MeshConfig  # noqa: E402
+
+SERVE_MESHES = {"data2_model2": dict(data_axis=2, model_axis=2), "model4": dict(model_axis=4)}
+BATCH = 16
+TIMED_STEPS = chip_smoke.WHISPER_TIMED_LEN
+ENC_ITERS = 3
+TINY_WHISPER = dict(d_model=64, encoder_layers=2, decoder_layers=2, num_heads=4, mlp_dim=128,
+                    vocab_size=64, max_source_positions=50, max_target_positions=40,
+                    dtype="float32", prompt_ids=(1, 2), eot_id=0, suppress_ids=(),
+                    begin_suppress_ids=())
+TINY_FLAG = ["ctc_model.d_model=64", "ctc_model.num_layers=2", "ctc_model.num_heads=4",
+             "ctc_model.mlp_dim=128", "ctc_model.conv_channels=32", "ctc_model.dtype=float32",
+             "frontend.chunk_seconds=1.0", "data.batch_size=8", "data.max_audio_seconds=1.0",
+             "data.min_audio_seconds=0.1", "data.bucket_boundaries_seconds=[1.0]",
+             "data.num_host_workers=1", "data.max_text_len=8"]
+TINY_LARGE = ["whisper.d_model=64", "whisper.encoder_layers=2", "whisper.decoder_layers=2",
+              "whisper.num_heads=4", "whisper.mlp_dim=128", "whisper.max_target_positions=24",
+              "whisper.vocab_size=272", "whisper.prompt_ids=[260,261]", "whisper.eot_id=259",
+              "whisper.dtype=float32", "frontend.chunk_seconds=1.0", "data.batch_size=8",
+              "data.max_audio_seconds=1.0", "data.min_audio_seconds=0.1",
+              "data.bucket_boundaries_seconds=[1.0]", "data.num_host_workers=1",
+              "data.max_text_len=8", "whisper.max_source_positions=50"]
+
+
+def emit(obj) -> None:
+    if mh.is_primary():
+        print(json.dumps(obj), flush=True)
+
+
+def sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def peak_gb(device: str):
+    return torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+
+
+def serve_config(args, mesh=None):
+    cfg = chip_smoke.whisper_config()
+    if args.tiny:
+        cfg.whisper = dataclasses.replace(cfg.whisper, **TINY_WHISPER)
+        cfg.frontend = dataclasses.replace(cfg.frontend, chunk_seconds=1.0)
+        cfg.decode.max_decode_len = 12
+    cfg.mesh = MeshConfig(**(mesh or {}))
+    return cfg
+
+
+def batch_wavs(args):
+    """B=16 seeded chunks of tone and noise, a chunk's length each."""
+    rng = np.random.RandomState(16)
+    secs = 1.0 if args.tiny else 30.0
+    t = np.arange(int(secs * chip_smoke.SAMPLE_RATE)) / chip_smoke.SAMPLE_RATE
+    return [(0.2 * np.sin(2 * np.pi * rng.uniform(150, 2000) * t)
+             + 0.05 * rng.randn(len(t))).astype(np.float32) for _ in range(BATCH)]
+
+
+def all_reduce_share(prof) -> dict:
+    """Device ms of NCCL's kernels and of every kernel in a profile."""
+    total = nccl = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.device_time_total and \
+                not getattr(e, "is_user_annotation", False):
+            total += e.device_time_total / 1e3
+            nccl += e.device_time_total / 1e3 if "nccl" in e.key.lower() else 0.0
+    return {"device_ms": total, "nccl_ms": nccl, "nccl_share": nccl / total if total else None}
+
+
+def serve_measure(bundle, args, tag: str, work: Path) -> dict:
+    """transcribe of the six requests and of the B=16 batch; this data
+    rank's encoder output and ids of the batch written to `work`; encoder
+    seconds, decode ms a step, tokens/s, peak memory and on rank 0 the
+    profiled encoder call and decode step. Every rank runs the same calls."""
+    dev = args.device
+    if dev == "cuda":  # the serving peak, apart from load's
+        torch.cuda.reset_peak_memory_stats()
+    w = bundle.config.whisper
+    bundle.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(w.vocab_size - 2)])
+    wavs = batch_wavs(args)
+    texts6 = api.transcribe(bundle, chip_smoke.make_requests())
+    texts16, (ids, lens) = chip_smoke.with_generated_ids(lambda: api.transcribe(bundle, wavs))
+    rows = bundle._rows(BATCH) or slice(0, BATCH)
+    model = bundle.model
+    with torch.inference_mode():
+        feats = featurize_batch(torch.from_numpy(np.stack(wavs)).to(dev), bundle.config.frontend)
+        feats = feats[rows]
+        enc = model.encode(feats)
+        sync(dev)
+        mh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(ENC_ITERS):
+            enc = model.encode(feats)
+        sync(dev)
+        enc_s = (time.perf_counter() - t0) / ENC_ITERS
+        prompt, _ = wg.resolve_specials(w)
+        tok = torch.full((enc.shape[0], 1), prompt[0], dtype=torch.long, device=dev)
+        caches = model.init_cache(enc.shape[0], enc, TIMED_STEPS + 1)
+        logits, caches = model.decode_step(tok, 0, enc, caches)
+        sync(dev)
+        mh.barrier()
+        t0 = time.perf_counter()
+        for pos in range(1, TIMED_STEPS + 1):
+            tok = logits.argmax(-1, keepdim=True)
+            logits, caches = model.decode_step(tok, pos, enc, caches)
+        sync(dev)
+        step_s = (time.perf_counter() - t0) / TIMED_STEPS
+        del caches
+        prof = None
+        if dev == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            caches = model.init_cache(enc.shape[0], enc, 2)
+            if mh.is_primary():
+                with profile(activities=[ProfilerActivity.CUDA]) as p_enc:
+                    model.encode(feats)
+                    sync(dev)
+                with profile(activities=[ProfilerActivity.CUDA]) as p_dec:
+                    model.decode_step(tok, 0, enc, caches)
+                    sync(dev)
+                prof = {"encoder": all_reduce_share(p_enc), "decode_step": all_reduce_share(p_dec)}
+            else:
+                model.encode(feats)
+                model.decode_step(tok, 0, enc, caches)
+                sync(dev)
+            del caches
+    if bundle.mesh is None or bundle.mesh.get_coordinate()[2] == 0:
+        r = rows.start // max(rows.stop - rows.start, 1)
+        torch.save({"enc": enc.cpu(), "ids": ids.cpu(), "lens": lens.cpu()},
+                   work / f"serve_{tag}_{r}.pt")
+    peaks = [None] * mh.process_count()
+    if mh.process_count() > 1:
+        torch.distributed.all_gather_object(peaks, peak_gb(dev))
+    else:
+        peaks = [peak_gb(dev)]
+    mh.barrier()
+    return {"case": f"serve_{tag}",
+            "mesh": None if bundle.mesh is None else list(bundle.mesh.shape),
+            "texts6": texts6, "texts16": texts16, "encoder_s_per_batch": enc_s,
+            "decode_ms_per_step": step_s * 1e3, "rows_per_rank": enc.shape[0],
+            "tokens_per_s": BATCH / step_s, "peak_gb_per_card": peaks, "profile": prof}
+
+
+def group_serve(args, work: Path) -> dict:
+    out = {}
+    for tag, mesh in SERVE_MESHES.items():
+        if args.device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bundle = api.load(config=serve_config(args, mesh), device=args.device)
+        load_s, load_peak = time.perf_counter() - t0, peak_gb(args.device)
+        tp = bundle.model.tp
+        assert bundle.mesh is not None and tp.size == mesh["model_axis"], (bundle.mesh, tp)
+        rec = serve_measure(bundle, args, tag, work)
+        rec.update(load_s=load_s, load_peak_gb_rank0=load_peak,
+                   heads_a_rank=bundle.model.encoder.blocks[0].self_attn.num_heads)
+        emit(rec)
+        out[tag] = rec
+        del bundle
+        mg.free()
+    return out
+
+
+def train_cases(work: Path, args) -> dict:
+    flag = [f"data.train_manifest={work / 'flag' / 'train.jsonl'}", "ctc_model.dropout=0.0",
+            "ctc_model.adapter.dropout=0.0", *(TINY_FLAG if args.tiny else [])]
+    large = [f"data.train_manifest={work / 'large' / 'train.jsonl'}",
+             f"data.tokenizer_dir={work / 'large' / 'bpe'}", *(TINY_LARGE if args.tiny else [])]
+    s = args.steps
+    return {
+        "large_v3_fsdp2_model2": mg.config(mg.LARGE_V3, work, "large_v3_fsdp2_model2", s, *large,
+                                           "mesh.fsdp_axis=2", "mesh.model_axis=2"),
+        "flagship_data2_model2": mg.config(mg.FLAGSHIP, work, "flagship_data2_model2", s, *flag,
+                                           "mesh.fsdp_axis=1", "mesh.model_axis=2"),
+        "large_v3_one_card": mg.config(mg.LARGE_V3, work, "large_v3_one_card", s, *large,
+                                       "mesh.fsdp_axis=1"),
+        "flagship_one_card": mg.config(mg.FLAGSHIP, work, "flagship_one_card", s, *flag,
+                                       "mesh.fsdp_axis=1"),
+    }
+
+
+def train(cfg, device: str):
+    manifest = read_manifest(cfg.data.train_manifest)
+    tokenizer = engine.build_tokenizer_for(cfg, manifest)
+    model = engine.make_model(cfg, device)
+    state, info = engine.train_loop(cfg, manifest, tokenizer, model)
+    return state, info, tokenizer, manifest
+
+
+def train_case(cfg, name: str, args) -> dict:
+    if args.device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, info, tok, manifest = train(cfg, args.device)
+    rec = {"case": name, "mesh": info["mesh"], "losses": info["losses"],
+           "loop_steps_per_sec": info["steps_per_sec"],
+           "seconds_incl_init_and_checkpoint": time.perf_counter() - t0}
+    if name.startswith("large") and args.device == "cuda":
+        rec.update(mg.rate_and_idle(cfg, state, tok, manifest, args.rate_steps))
+    peaks = [peak_gb(args.device)]
+    if mh.process_count() > 1:
+        peaks = [None] * mh.process_count()
+        torch.distributed.all_gather_object(peaks, peak_gb(args.device))
+    rec["peak_gb_per_card"] = peaks
+    del state, tok, manifest
+    mg.free()
+    return rec
+
+
+def write_corpora(work: Path, args) -> None:
+    if not mh.is_primary():
+        return
+    secs, chars = (1.0, 30) if args.tiny else (30.0, 4334)
+    for d, (seed, bpe) in {"flag": (0, None), "large": (51, 52)}.items():
+        (work / d).mkdir(parents=True, exist_ok=True)
+        manifest = chip_smoke.write_corpus(work / d, n=16, secs=secs, chars=chars, seed=seed)
+        if bpe is not None:
+            if args.tiny:
+                tiny_bpe(work / d / "bpe")
+            else:
+                chip_smoke.write_bpe_standin(work / d / "bpe", read_manifest(manifest).texts(),
+                                             seed=bpe)
+
+
+def tiny_bpe(d: Path) -> None:
+    """A byte-level BPE whose specials sit inside TINY_LARGE's vocabulary:
+    the 256 byte symbols, three merges, then <|endoftext|> (259) and the
+    prompt (260, 261)."""
+    from jiao_liao_speech_recognition_torch.data.bpe import bytes_to_unicode
+
+    d.mkdir(parents=True, exist_ok=True)
+    vocab = {s: i for i, s in enumerate(bytes_to_unicode().values())}
+    merges = [("ä", "¸"), ("Ġ", "a"), ("e", "r")]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    for name in ("<|endoftext|>", "<|startoftranscript|>", "<|zh|>"):
+        vocab[name] = len(vocab)
+    (d / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges),
+                                  encoding="utf-8")
+
+
+def one_card_serve(args, work: Path, grouped: dict) -> dict:
+    """The one-card bundle: its own measurements, then each sharded run's
+    encoder output against its own and its tokens through its decoder."""
+    if args.device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    bundle = api.load(config=serve_config(args), device=args.device)
+    load_peak = peak_gb(args.device)
+    rec = serve_measure(bundle, args, "one_card", work)
+    rec["load_peak_gb_rank0"] = load_peak
+    ref = torch.load(work / "serve_one_card_0.pt")
+    model, dev = bundle.model, args.device
+    prompt, _ = wg.resolve_specials(bundle.config.whisper)
+    P = len(prompt)
+    checks = {}
+    for tag in grouped:
+        parts = sorted(work.glob(f"serve_{tag}_*.pt"))
+        blobs = [torch.load(p) for p in parts]
+        enc = torch.cat([b["enc"] for b in blobs])
+        ids = torch.cat([b["ids"] for b in blobs]).to(dev)
+        lens = torch.cat([b["lens"] for b in blobs]).to(dev)
+        enc_rel = float((enc.float() - ref["enc"].float()).norm() / ref["enc"].float().norm())
+        with torch.inference_mode():
+            toks = torch.cat([torch.tensor(prompt, device=dev).expand(ids.shape[0], P), ids], 1)
+            logits = chip_smoke.forced_logits(model, toks, ref["enc"].to(dev), True)
+        coverage, mismatch, scored, agree = chip_smoke.margin_check(logits, toks, lens, P)
+        ok = (enc_rel <= chip_smoke.ENC_REL_BAR and mismatch == 0
+              and (args.tiny or coverage >= chip_smoke.MIN_COVERAGE))
+        checks[f"serve_{tag}"] = {
+            "encoder_rel_l2": enc_rel, "encoder_bar": chip_smoke.ENC_REL_BAR,
+            "coverage": coverage, "mismatched_positions": mismatch, "positions": scored,
+            "agree_all_positions": agree, "texts16_equal": sum(
+                a == b for a, b in zip(grouped[tag]["texts16"], rec["texts16"])),
+            "texts6_equal": sum(a == b for a, b in zip(grouped[tag]["texts6"], rec["texts6"])),
+            "ok": ok}
+    del bundle
+    mg.free()
+    return rec, checks
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--part", choices=("serve", "train", "all"), default="all")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--rate-steps", type=int, default=4)
+    ap.add_argument("--workdir", default=str(Path(tempfile.gettempdir()) / "jl_tp"))
+    ap.add_argument("--out", default=None, help="also write the summary JSON here")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tiny", action="store_true", help="tiny widths (a CPU rehearsal)")
+    args = ap.parse_args(argv)
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("needs CUDA cards, one per process", file=sys.stderr)
+            return 2
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    work = Path(args.workdir)
+    work.mkdir(parents=True, exist_ok=True)
+    mh.initialize(device=args.device)
+    cards = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            timeout=60).stdout.strip().splitlines()
+             if args.device == "cuda" else ["cpu"])
+    write_corpora(work, args)
+    mh.barrier()
+    emit({"world": mh.process_count(), "cards": cards, "torch": torch.__version__,
+          "part": args.part})
+    t0 = time.perf_counter()
+    grouped = {}
+    if args.part in ("serve", "all"):
+        grouped.update(group_serve(args, work))
+    train_cfgs = train_cases(work, args)
+    if args.part in ("train", "all"):
+        for name in ("large_v3_fsdp2_model2", "flagship_data2_model2"):
+            grouped[name] = train_case(train_cfgs[name], name, args)
+            emit(grouped[name])
+    group_s = time.perf_counter() - t0
+    primary = mh.is_primary()
+    mh.shutdown()
+    if not primary:
+        return 0
+
+    summary = {"cards": cards, "group_s": group_s, "cases": grouped, "checks": {}}
+    ok = True
+    if args.part in ("serve", "all"):
+        rec, checks = one_card_serve(args, work, {k: v for k, v in grouped.items()
+                                                  if k in SERVE_MESHES})
+        print(json.dumps(rec), flush=True)
+        summary["cases"]["serve_one_card"] = rec
+        summary["checks"].update(checks)
+        ok &= all(c["ok"] for c in checks.values())
+    if args.part in ("train", "all"):
+        for ref_name, name, bar in (
+                ("flagship_one_card", "flagship_data2_model2", mg.FLAGSHIP_REL_BAR),
+                ("large_v3_one_card", "large_v3_fsdp2_model2", mg.WHISPER_REL_BAR)):
+            ref = train_case(train_cfgs[ref_name], ref_name, args)
+            print(json.dumps(ref), flush=True)
+            summary["cases"][ref_name] = ref
+            err = mg.rel(grouped[name]["losses"], ref["losses"])
+            good = err <= bar and all(math.isfinite(x) for x in grouped[name]["losses"])
+            summary["checks"][name] = {"loss_rel_err": err, "bar": bar, "ok": good}
+            ok &= good
+        rc = mg.restore_check(work, args.steps, train_cfgs["large_v3_fsdp2_model2"],
+                              train_cfgs["large_v3_one_card"], args.device)
+        summary["checks"]["large_v3_fsdp2_model2_restored_in_one_process"] = rc
+        ok &= rc["ok"]
+    summary["ok"] = ok
+    print(json.dumps(summary["checks"]), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

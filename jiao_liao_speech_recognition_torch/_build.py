@@ -53,6 +53,8 @@ SIGNATURES = {
     "jl_ln_mlp_residual": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_gelu_check": [P, P, I, P],
     "jl_gemm": [I, P, P, P, P, P, I, I, I, P],
+    "jl_row_partial": [P, P, P, I, I, I, P],
+    "jl_ln_fc1": [P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_head_argmax": [P, P, P, P, P, I, I, I, I, P],
     "jl_flash_fwd": [P, L, L, P, L, L, P, L, L, P, P, P, I, I, I, I, I, I, F, P],
     "jl_flash_bwd": [P, L, L, P, L, L, P, L, L, P, P, P, P, P, P, P, P,

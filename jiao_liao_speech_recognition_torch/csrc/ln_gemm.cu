@@ -66,6 +66,20 @@
 // mlp, into a hidden scratch) + gemm<kResidual> (K = mlp); K2h-out is
 // gemm<kResidual, kOutProj> alone; K2 is K5's two launches, the attention
 // core, then gemm<kAttnResidual, kAttnOut>.
+//
+// Tensor parallelism (Megatron's row-parallel product) splits a sublayer at
+// its last product: a rank holds wo[D / tp, D] or w2[mlp / tp, D] and
+// computes a partial sum over its share of K, which the ranks add up before
+// the bias and the residual are added once. gemm<kRowPartial, kRowOut>
+// (jl_row_partial) is that partial: the same mainloop, and an epilogue that
+// stores the f32 accumulator itself (no bias, no residual, no rounding), so
+// the summed partials round once, as the one-card epilogue rounds its
+// accumulator, up to the order of the f32 sums. Its tile (64 KB in f32)
+// does not fit the staging buffers beside the stages, so each consumer
+// thread stores its accumulator pairs straight to device memory (8-byte
+// stores, four lanes a 32-byte row segment); rows past M are not stored.
+// jl_ln_fc1 is K3's first two launches alone (ln_rows, fc1 + GELU on the
+// rank's mlp / tp columns), the MLP's column-parallel half.
 #include "common.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -98,13 +112,13 @@ constexpr int kGeluDoneBarrier = 8;
 constexpr int kLnWarps = 8;    // rows per ln_rows block
 constexpr int kLnMaxVecs = 8;  // 16-byte vectors a lane holds: d <= 8 x 32 x 8
 
-enum Epilogue { kBias, kGeluTanh, kGeluErf, kResidual, kAttnResidual };
+enum Epilogue { kBias, kGeluTanh, kGeluErf, kResidual, kAttnResidual, kRowPartial };
 // The C entry point an instance serves. It changes no code: K3's fc2 and
 // K2h-out run the same epilogue, and a profile tells them apart only by the
 // kernel's name (gemm_kernel<3, 0> against gemm_kernel<3, 1>; K2's
 // out-projection is gemm_kernel<4, 2>; ln_rows_kernel<0> serves K5 and K2,
 // ln_rows_kernel<1> K3).
-enum Entry { kSublayer, kOutProj, kAttnOut };
+enum Entry { kSublayer, kOutProj, kAttnOut, kRowOut };
 
 // a block's dynamic shared memory, from a 1024-aligned base: the stages,
 // the two warpgroups' staging tiles, the GELU's table (fc1 only), then the
@@ -206,12 +220,13 @@ __device__ __forceinline__ void gelu_pass(uint8_t* staged, const uint16_t* table
 // out [M, N] = epilogue(a [M, K] . w [K, N]) for bf16 a, w (row-major, w
 // as [in, out]), bias [N] bf16, res [M, N] bf16 (kResidual and
 // kAttnResidual only; tres maps it, tout maps out, both with 64 x 128
-// boxes and the 128-byte swizzle)
+// boxes and the 128-byte swizzle); kRowPartial writes the f32 product to
+// out32 [M, N] instead and reads neither bias nor res nor tout
 template <int EPI, int ENTRY>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
             const __grid_constant__ CUtensorMap tres, const __grid_constant__ CUtensorMap tout,
-            const bf16* __restrict__ bias, int M, int N, int K) {
+            const bf16* __restrict__ bias, float* __restrict__ out32, int M, int N, int K) {
   using L = GemmLayout<EPI>;
   constexpr int kStages = L::kStages;
   constexpr bool kHasResidual = EPI == kResidual || EPI == kAttnResidual;
@@ -320,6 +335,22 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     wg::fence_operand(acc[1]);
     if (leader) mbar_arrive(&empty[(j * kblocks + kblocks - 1) % kStages]);
 
+    if constexpr (EPI == kRowPartial) {
+      // the f32 accumulator as it is: adjacent column pairs (i, i + 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r0 = m0 + h * 64;
+#pragma unroll
+        for (int i = 0; i < kBN / 2; i += 2) {
+          const int r = r0 + wg::acc_row(tid, i);
+          if (r < M)
+            *reinterpret_cast<float2*>(out32 + (size_t)r * N + n0 + wg::acc_col(tid, i)) =
+                make_float2(acc[h][i], acc[h][i + 1]);
+        }
+      }
+      continue;
+    }
+
     // the epilogue, while the other warpgroup's products run
     float2 bcol[kBN / 8];  // the bias at this thread's column pairs
 #pragma unroll
@@ -425,7 +456,35 @@ int gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, bf16* 
   const int tiles = (N / kBN) * ceil_div(M, wg::kBM), sms = sm_count();
   gemm_kernel<EPI, ENTRY><<<tiles < sms ? tiles : sms, kGemmThreads, GemmLayout<EPI>::kBytes,
                             stream>>>(
-      ta, tw, tres, tout, bias, M, N, K);
+      ta, tw, tres, tout, bias, nullptr, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// the row-parallel partial: out [M, N] f32 = a [M, K] . w [K, N] (bf16)
+int row_partial(const bf16* a, const bf16* w, float* out, int M, int N, int K,
+                cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % kBN || K % wg::kBK) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tw;
+  if (!make_tmap_2d(&ta, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M, (uint64_t)K * sizeof(bf16),
+                    wg::kBK, wg::kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map(&tw, w, K, N, wg::kBK))
+    return (int)cudaErrorInvalidValue;
+  static int opted_in = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (opted_in != dev) {
+    err = cudaFuncSetAttribute(gemm_kernel<kRowPartial, kRowOut>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)GemmLayout<kRowPartial>::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = dev;
+  }
+  const int tiles = (N / kBN) * ceil_div(M, wg::kBM), sms = sm_count();
+  // tres and tout are never read by this epilogue: ta stands in for them
+  gemm_kernel<kRowPartial, kRowOut><<<tiles < sms ? tiles : sms, kGemmThreads,
+                                      GemmLayout<kRowPartial>::kBytes, stream>>>(
+      ta, tw, ta, ta, nullptr, out, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -492,6 +551,30 @@ extern "C" int jl_out_proj_residual(const bf16* attn, const bf16* x, const bf16*
 extern "C" int jl_attn_out_proj(const bf16* attn, const bf16* x, const bf16* wo, const bf16* bo,
                                 bf16* out, int M, int D, cudaStream_t stream) {
   return gemm<kAttnResidual, kAttnOut>(attn, wo, bo, x, out, M, D, D, stream);
+}
+
+// The row-parallel partial of a tensor-parallel sublayer: a [M, K] bf16 (a
+// rank's heads' outputs or hidden columns), w [K, N] bf16 (its rows of wo or
+// w2) -> out [M, N] f32 = a . w, the accumulator unrounded (no bias, no
+// residual: both are added once, after the ranks' partials are summed).
+// K % 64 == 0, N % 128 == 0; pointers 16-byte aligned.
+extern "C" int jl_row_partial(const bf16* a, const bf16* w, float* out, int M, int N, int K,
+                              cudaStream_t stream) {
+  return row_partial(a, w, out, M, N, K, stream);
+}
+
+// K3's first two launches alone, the column-parallel half of a
+// tensor-parallel MLP: x [M, d] bf16, g / bl [d] f32, w1 [d, mlp] and b1
+// [mlp] bf16 (a rank's columns) -> h [M, mlp] = bf16(GELU(bf16(bf16(LN(x) .
+// w1) + b1))), with ln [M, d] bf16 as scratch. d % 64 == 0, d <= 2048, mlp
+// % 128 == 0; pointers 16-byte aligned.
+extern "C" int jl_ln_fc1(const bf16* x, const float* g, const float* bl, const bf16* w1,
+                         const bf16* b1, bf16* ln, bf16* h, int M, int d, int mlp, int erf_form,
+                         float eps, cudaStream_t stream) {
+  const int err = ln_rows<1>(x, g, bl, ln, M, d, eps, stream);
+  if (err) return err;
+  return erf_form ? gemm<kGeluErf>(ln, w1, b1, nullptr, h, M, mlp, d, stream)
+                  : gemm<kGeluTanh>(ln, w1, b1, nullptr, h, M, mlp, d, stream);
 }
 
 // K3's GELUs checked over their inputs: in [n] bf16 -> out [4, n] bf16

@@ -51,7 +51,9 @@ def _bucket_for(duration: float, boundaries: Sequence[float]) -> float:
 
 class BatchIterator:
     """Deterministic, resumable batch iterator; `process_index` /
-    `process_count` default to the process group's (parallel/multihost.py)."""
+    `process_count` default to the process group's (parallel/multihost.py).
+    On a mesh with a model axis the rows are each (data, fsdp) rank's, not
+    each process's: ``train_loop`` passes that rank and count."""
 
     def __init__(
         self,

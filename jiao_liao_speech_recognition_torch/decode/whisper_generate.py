@@ -12,6 +12,12 @@ done only appends EOT to rows that already end in EOT; a beam step there
 is masked to leave the state as it is (the JAX loop has stopped). So the
 tokens equal the JAX loops': the prompt is forced, finished rows emit EOT,
 and ``lengths`` counts the tokens before the first EOT after the prompt.
+
+On a tensor-parallel model (parallel/tp.py) every rank of a model group
+runs the same steps on the same rows: its logits are the group's joined
+vocab columns, so each rank takes the same tokens, and the greedy loop's
+host read of "every row done" is agreed over the group before it stops.
+The beam loops refuse such a model (``parallel.tp.refuse``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.tp import model_tp, refuse
 from ..utils.config import DecodeConfig
 
 # Whisper multilingual special tokens (vocab 51865; large-v3 shifts by one)
@@ -117,9 +124,14 @@ def greedy_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor
     tokens = torch.full((B, max_len), eot_id, dtype=torch.long, device=dev)
     tokens[:, :P] = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
     done = torch.zeros(B, dtype=torch.bool, device=dev)
+    tp = model_tp(model)
     for pos in range(max_len - 1):
-        if pos % STOP_CHECK_EVERY == 0 and pos > 0 and bool(done.all()):
-            break
+        if pos % STOP_CHECK_EVERY == 0 and pos > 0:
+            stop = bool(done.all())
+            if tp is not None and tp.size > 1:
+                stop = tp.agree(stop)
+            if stop:
+                break
         logits, caches = model.decode_step(tokens[:, pos:pos + 1], pos, enc, caches,
                                            enc_lengths, kernels)
         STEPS.steps += 1
@@ -208,6 +220,7 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
     at log-prob 0 only; only beam 0 starts alive. ``lm_bigram`` [V, V]
     (``load_bigram_matrix``) with lm_weight > 0 adds lm_weight * log
     P_LM(next | current token) to each step's log-probs."""
+    refuse(model, "the AR beam search")
     B, dev = enc.shape[0], enc.device
     K, P, V = beam_size, len(prompt), model.cfg.vocab_size
     always, begin = suppression_masks(V, suppress_ids, begin_suppress_ids, dev)

@@ -29,15 +29,25 @@ Timestamps take the CTC frame alignment.
 
 ``save`` writes the directory ``load`` reads: params.npz (``p_a/b/c``),
 config.yaml, vocab.json.
+
+Several cards (``shard``, or ``load`` of a config whose mesh asks for fsdp
+or model > 1 under a process group): the model is split over the mesh's
+model axis (parallel/tp.py) and ``transcribe`` takes its (data, fsdp)
+rank's share of the batch's chunks, the same share on every rank of a
+model group, and returns every chunk's text on every rank. CTC greedy and
+Whisper greedy run split; int8 serving, the beams, Whisper timestamps, the
+joint family, the serving engine and streaming refuse a split model by
+name (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import copy
 import json
-from dataclasses import dataclass, replace
+import warnings
+from dataclasses import dataclass, field, replace
 from pathlib import Path
-from typing import List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -47,6 +57,9 @@ from ..data.unigram import UnigramTokenizer
 from ..decode.ctc import ctc_collapse_with_times, ctc_greedy_collapse, ids_to_texts
 from ..frontend import audio_io, features
 from ..frontend.resample import resample
+from ..parallel import multihost as mh
+from ..parallel.tp import ITEM as TP_ITEM
+from ..parallel.tp import apply_tp, refuse
 from ..utils.config import STRATEGIES, DecodeConfig, ExperimentConfig, load_yaml, save_yaml
 from .convert import (
     joint_params_to_state_dict,
@@ -93,6 +106,7 @@ class ModelBundle:
     config: ExperimentConfig
     model: Union[CTCEncoderModel, WhisperModel, JointCTCAttentionModel]
     tokenizer: object  # CharTokenizer, UnigramTokenizer, or ByteLevelBPE (Whisper)
+    mesh: Any = field(default=None, repr=False)  # the DeviceMesh of ``shard``
 
     @property
     def device(self) -> torch.device:
@@ -111,7 +125,11 @@ class ModelBundle:
         tokenizer, or a char vocab.json) or an .npz file with an explicit
         config. Without those files the tokenizer knows only blank and
         unk. A Whisper model is made and initialised on `device`, a CTC or
-        joint model on the CPU, then moved."""
+        joint model on the CPU, then moved. A config whose mesh asks for
+        fsdp_axis or model_axis > 1 is sharded (``shard``) when a process
+        group tiles its mesh; otherwise it loads unsharded with a warning
+        (no process group, as ``train_loop`` warns, or JAX's warning when
+        the processes do not tile the mesh)."""
         if isinstance(config, str):
             config = load_yaml(config)
         ckpt = Path(checkpoint) if checkpoint is not None else None
@@ -148,7 +166,70 @@ class ModelBundle:
         # its out-projection, K3's fc1 and fc2) and of K4's head, made once
         if model.cfg.dtype == "bfloat16":
             cast_for_serving(model, torch.bfloat16)
-        return cls(config, model, tokenizer)
+        bundle = cls(config, model, tokenizer)
+        m = config.mesh
+        if m.fsdp_axis > 1 or m.model_axis > 1:
+            if not mh.is_initialized():
+                warnings.warn(
+                    f"config.mesh asks for fsdp_axis={m.fsdp_axis}, model_axis={m.model_axis}, "
+                    "but no process group is up: loading unsharded on one device", stacklevel=2)
+            else:
+                try:
+                    bundle.shard()
+                except ValueError as e:
+                    warnings.warn(
+                        f"config requests mesh fsdp={m.fsdp_axis} model={m.model_axis} but "
+                        f"{mh.process_count()} processes don't tile it ({e}); loading unsharded",
+                        stacklevel=2)
+        return bundle
+
+    # -------------------------------------------------------------- sharding
+    def shard(self, mesh=None) -> "ModelBundle":
+        """Shard for multi-card INFERENCE: Megatron-style TP over 'model'
+        (parallel/tp.py, the rules of parallel/tp_rules.py) on the mesh of
+        config.mesh (or `mesh`, a DeviceMesh of the process group's world).
+        Subsequent transcribe calls split input batches over the 'data' and
+        'fsdp' ranks; each rank of a model group holds its heads and hidden
+        columns and the all-reduces are the layers' own. Over 'fsdp' the
+        weights stay whole (JAX shards them there too, and XLA gathers each
+        layer at use; here a rank holds its model-axis part). The model is
+        split in place; returns self. Refuses an int8 bundle and the joint
+        family on a model axis (ROADMAP queue 1 item 12)."""
+        from ..parallel import mesh as pmesh
+
+        if mesh is None:
+            mesh = pmesh.build_mesh(self.config.mesh)
+        tp = pmesh.tp_group(mesh)
+        if self.is_joint and tp.size > 1:
+            raise NotImplementedError(f"the joint family on a model axis: {TP_ITEM}")
+        apply_tp(self.model, tp)
+        if self.model.cfg.dtype == "bfloat16":
+            cast_for_serving(self.model, torch.bfloat16)
+        self.mesh = mesh
+        return self
+
+    def _rows(self, n: int) -> Optional[slice]:
+        """This rank's chunks of a batch of `n` on the mesh: the (data,
+        fsdp) rank's n / ranks of them, or None (all of them: no mesh, or
+        a batch the ranks do not divide, JAX's replication fallback)."""
+        if self.mesh is None:
+            return None
+        from ..parallel.mesh import dp_rank
+
+        ranks = self.mesh.size(0) * self.mesh.size(1)
+        if ranks == 1 or n % ranks:
+            return None
+        k = n // ranks
+        r = dp_rank(self.mesh)
+        return slice(r * k, (r + 1) * k)
+
+    def _gather_texts(self, texts: List[str]) -> List[str]:
+        """Every rank's chunk texts (``_rows``) in chunk order on every
+        rank: the first rank of each model group speaks for it."""
+        parts = [None] * mh.process_count()
+        torch.distributed.all_gather_object(parts, texts)
+        tp = self.mesh.size(2)
+        return [t for r in range(0, len(parts), tp) for t in parts[r]]
 
     @property
     def is_whisper(self) -> bool:
@@ -161,7 +242,16 @@ class ModelBundle:
     def save(self, path: str) -> None:
         """Write params.npz, config.yaml and the tokenizer into `path`:
         vocab.json (char or unigram), or a BPE tokenizer's vocab.json and
-        merges.txt (``load_tokenizer`` reads either back)."""
+        merges.txt (``load_tokenizer`` reads either back). A split bundle
+        (``shard``) writes the whole weights, joined over the model axis: a
+        collective every rank calls, after which the primary writes."""
+        state = self.model.state_dict()
+        if getattr(self.model, "tp", None) is not None:
+            from ..parallel.mesh import gather_split
+
+            state = gather_split(state, self.model)
+            if not mh.is_primary():
+                return
         p = Path(path)
         p.mkdir(parents=True, exist_ok=True)
         save_yaml(self.config, str(p / "config.yaml"))
@@ -172,7 +262,7 @@ class ModelBundle:
         to_params = {"whisper": whisper_state_dict_to_params,
                      "joint": joint_state_dict_to_params}.get(self.config.model_family,
                                                               state_dict_to_params)
-        write_npz_params(to_params(self.model.state_dict()), p / PARAMS_FILE)
+        write_npz_params(to_params(state), p / PARAMS_FILE)
 
     def quantize(self) -> "ModelBundle":
         """Weight-only int8 serving (the JAX package's
@@ -185,6 +275,7 @@ class ModelBundle:
             raise NotImplementedError(
                 "int8 decode serving targets the whisper family; the CTC/joint encoders "
                 "are compute-bound, not weight-read-bound")
+        refuse(self.model, "int8 serving (quantize())")
         model = copy.copy(self.model)
         model._modules = dict(self.model._modules)
         model.decoder = quantized_copy(self.model.decoder)
@@ -208,6 +299,9 @@ class ModelBundle:
         if self.is_joint and decode_cfg.strategy not in STRATEGIES:
             raise ValueError(f"unknown joint decode strategy {decode_cfg.strategy!r}")
         wavs, alens, owners = self._prepare_audio_chunked(audio, sample_rate)
+        rows = self._rows(len(wavs))
+        if rows is not None:
+            wavs, alens = wavs[rows], alens[rows]
         if self.is_whisper:
             ids, lens = self._whisper_ids(wavs, decode_cfg)
         elif self.is_joint and decode_cfg.strategy != "ctc_greedy":
@@ -218,6 +312,8 @@ class ModelBundle:
             ids, lens = self._frame_ids(wavs, alens)
             ids, lens = ctc_greedy_collapse(ids, lens, decode_cfg.ctc_blank_id)
         texts = ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(), self.tokenizer)
+        if rows is not None:
+            texts = self._gather_texts(texts)
         return ["".join(texts[i] for i in group) for group in owners]
 
     def transcribe_timed(
@@ -255,6 +351,7 @@ class ModelBundle:
     def _transcribe_timed_whisper(self, audio, sample_rate) -> List[List[dict]]:
         """Greedy ids of every chunk in one batch (as transcribe), then the
         spans of whisper_token_spans over the same features."""
+        refuse(self.model, "Whisper timestamps")
         from ..decode.align import whisper_token_spans
         from ..decode.whisper_generate import generate, resolve_specials
 
@@ -340,6 +437,7 @@ class ModelBundle:
                                   ctc_prefix_beam_search_native)
 
         dc = decode_cfg
+        refuse(self.model, "the CTC prefix beam search")
         log_probs, out_lens = self.model(*self._features(wavs, alens), head_mode="log_probs")
         if dc.strategy == "beam_device":
             return ctc_prefix_beam_search(log_probs, out_lens, dc.beam_size, dc.ctc_blank_id,

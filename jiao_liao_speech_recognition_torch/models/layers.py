@@ -27,6 +27,17 @@ gates' decisions, not their TPU conditions:
 Serving copies (``cast_for_serving``) of the f32 weights in the compute
 dtype are kept while the weights stay unchanged and rebuilt at their next
 use when a weight changes or moves (``ServingCopy``).
+
+Tensor parallelism (``parallel/tp.apply_tp``): a split block holds its
+rank's heads (q/k/v columns, head-major decode caches of num_heads / tp
+heads) and hidden columns, and its row layers' partial products are
+summed over the model group before their bias and residual are added once.
+``Dense`` carries its role (``tp_mode``); a serving block runs
+``attention_partial`` / ``mlp_partial`` (the fused kernels' split forms:
+K5 -> K6 or K2's first three launches, ``ln_fc1``, then the row-parallel
+partial GEMM), the group's sum, and K2's or K3's epilogue on it; a WF
+insert is folded into each rank's part of its weight first (the fold
+commutes with the slice).
 """
 
 from __future__ import annotations
@@ -43,20 +54,32 @@ from torch import nn
 from ..ops import flash_attention as flash
 from ..ops.decode_attention import KERNEL_TK, MAX_TQ, grouped_decode_attention
 from ..ops.fused_attention import (
+    attention_core_plain,
+    attention_core_tp,
     attention_sublayer_fits,
     attention_sublayer_plain,
     attention_sublayer_wf_plain,
+    attn_residual_after_sum,
+    fold_wf,
     fused_attention_sublayer_packed,
     fused_attention_sublayer_wf,
     out_proj_residual,
+    residual_after_sum,
+    row_parallel_product,
+    row_partial,
+    row_partial_plain,
 )
 from ..ops.fused_mlp import (
     fused_ln_mlp_residual,
     fused_ln_qkv,
     fused_ln_mlp_residual_wf,
+    ln_fc1,
+    ln_fc1_plain,
     ln_mlp_residual_plain,
     ln_mlp_residual_wf_plain,
+    ln_rows_plain,
     pack_qkv,
+    qkv_gemm_plain,
 )
 from ..ops.numerics import full_f32, layer_norm
 from ..ops.quant import int8_decode_attention, int8_matmul, quantize_int8, quantize_kv
@@ -149,7 +172,22 @@ class Dense(nn.Module):
     module-path forward: compute-dtype operands, the product rounded to the
     compute dtype, then + bias. ``wf`` adds a WF insert (``adapter_wf``).
     ``forward`` takes ``kernels`` only because its callers also hold
-    Int8Dense layers, whose switch it is; a bf16 Dense runs no kernel."""
+    Int8Dense layers, whose switch it is; a bf16 Dense runs no kernel, save
+    a row-parallel one (below).
+
+    Split by ``parallel/tp.apply_tp`` (``tp`` set), it holds its rank's
+    part: a column layer (``tp_mode`` "column") its output columns, a row
+    layer its input rows, whose input is its rank's part of the features
+    (``tp_input`` "local") or all of them, sliced here ("replicated": the
+    Att adapter's out-projection). A row layer's partial product is f32
+    (jl_row_partial on a bf16 CUDA tensor with ``kernels``), summed over
+    the group, rounded once, then + bias. A WF insert stays whole and reads
+    its rank's part: B's columns in a column layer, A's rows in a row
+    layer (whose low-rank projection x A is summed over the group too)."""
+
+    tp = None
+    tp_mode = None
+    tp_input = "local"
 
     def __init__(self, d_in: int, d_out: int, gen: torch.Generator, bias: bool = True,
                  wf: Optional[AdapterConfig] = None):
@@ -177,6 +215,8 @@ class Dense(nn.Module):
             self.kernel.to(dtype), None if self.bias is None else self.bias.to(dtype)))
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        if self.tp is not None:
+            return self._tp_forward(x, kernels)
         kernel, bias = self.weights(x.dtype)
         y = torch.matmul(x, kernel.to(x.dtype))
         if bias is not None:
@@ -184,6 +224,48 @@ class Dense(nn.Module):
         if hasattr(self, "adapter_wf"):
             y = self.adapter_wf(x, y)
         return y
+
+    def _part(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        return t.narrow(dim, self.tp.rank * n, n)
+
+    def _tp_forward(self, x: torch.Tensor, kernels: bool) -> torch.Tensor:
+        tp, dt = self.tp, x.dtype
+        kernel, bias = self.weights(dt)
+        wf = getattr(self, "adapter_wf", None)
+        if self.tp_mode == "column":
+            x = tp.enter(x)
+            y = torch.matmul(x, kernel.to(dt))
+            if bias is not None:
+                y = y + bias.to(dt)
+            if wf is not None:
+                z = torch.matmul(x, tp.enter(wf.a).to(dt)) * tp.enter(wf.g).to(dt)
+                b = self._part(tp.enter(wf.b), 1, kernel.shape[1])
+                y = y + wf.scale * torch.matmul(z, b.to(dt))
+            return y
+        n = kernel.shape[0]
+        if self.tp_input == "replicated":
+            x = self._part(tp.enter(x), -1, n)
+        y = tp.reduce(row_parallel_product(x, kernel, kernels)).to(dt)
+        if bias is not None:
+            y = y + bias.to(dt)
+        if wf is not None:
+            a = self._part(tp.enter(wf.a), 0, n)
+            z = tp.reduce(row_parallel_product(x, a, False)).to(dt) * wf.g.to(dt)
+            y = y + wf.scale * torch.matmul(z, wf.b.to(dt))
+        return y
+
+    def insert(self) -> dict:
+        """The WF insert {a, g, b} in the K7 wrappers' layout, cut to this
+        rank's part of a split layer (B's columns, or A's rows), so that
+        fold_wf(kernel, insert(), scale) is this rank's part of the whole
+        layer's fold."""
+        f = self.adapter_wf
+        a, g, b = f.a, f.g, f.b
+        if self.tp is not None and self.tp_mode == "column":
+            b = self._part(b, 1, self.kernel.shape[1])
+        elif self.tp is not None:
+            a = self._part(a, 0, self.kernel.shape[0])
+        return {"a": a, "g": g, "b": b}
 
     def quantized(self) -> "Int8Dense":
         """The int8 form; a WF insert stays beside it as it is (the JAX
@@ -265,7 +347,12 @@ class Dropout(nn.Module):
     and scale it by 1 / (1 - p). The mask comes from a generator seeded by
     the step's seed (``seed``, set by the model for each forward) and this
     site's index (``site``), so a forward recomputed for the backward
-    (remat) draws the same mask."""
+    (remat) draws the same mask. On a tensor-parallel rank's hidden
+    columns (``tp`` set by ``parallel/tp.apply_tp``) it draws the whole
+    layer's mask and keeps its rank's columns, so every topology drops the
+    same units."""
+
+    tp = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -280,7 +367,12 @@ class Dropout(nn.Module):
             raise RuntimeError("dropout in training needs a step seed (model(..., dropout_seed=s))")
         gen = torch.Generator(device=x.device)
         gen.manual_seed((self.seed * 1_000_003 + self.site) % (2**63 - 1))
-        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.p
+        if self.tp is None:
+            keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.p
+        else:
+            n = x.shape[-1]
+            whole = torch.rand(*x.shape[:-1], n * self.tp.size, generator=gen, device=x.device)
+            keep = whole.narrow(-1, self.tp.rank * n, n) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -353,7 +445,8 @@ class MultiHeadAttention(nn.Module):
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of {num_heads} heads")
         wf = adapter if adapter is not None and adapter.kind == "wf" else None
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's heads once split (parallel/tp.py)
+        self.head_dim = d_model // num_heads
         self.use_flash = use_flash
         self.flash_train_min_q = flash_train_min_q
         self.q_proj = Dense(d_model, d_model, gen, wf=wf)
@@ -365,10 +458,14 @@ class MultiHeadAttention(nn.Module):
 
     def qkv_weights(self, dtype: torch.dtype):
         """K5's packed operands ([d, 3D] kernel, [3D] bias; ops/fused_mlp.pack_qkv)
-        in `dtype`, kept between calls like the Dense serving copies."""
+        in `dtype`, kept between calls like the Dense serving copies. A
+        tensor-parallel rank's are padded to a multiple of 128 columns (its
+        3D may not be one); its callers pass D."""
         q, k, v = self.q_proj, self.k_proj, self.v_proj
+        pad = 1 if q.tp is None else 128
         return self._qkv.get(dtype, (q.kernel, q.bias, k.kernel, v.kernel, v.bias),
-                             lambda: pack_qkv(q.kernel, q.bias, k.kernel, v.kernel, v.bias, dtype))
+                             lambda: pack_qkv(q.kernel, q.bias, k.kernel, v.kernel, v.bias, dtype,
+                                              pad_to=pad))
 
     def forward(self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None,
                 kernels: bool = True, kv: Optional[torch.Tensor] = None,
@@ -378,9 +475,8 @@ class MultiHeadAttention(nn.Module):
         for cross-attention; mask broadcastable to [B, H, Tq, Tk] (True =
         attend); kv_lengths [B] valid keys, the channel the kernels read.
         -> out, (out, new_cache) with a cache, or {"k", "v"} with return_kv."""
-        B, Tq, d = x.shape
-        H = self.num_heads
-        dh = d // H
+        B, Tq, _ = x.shape
+        H, dh = self.num_heads, self.head_dim
         kv_in = x if kv is None else kv
         if return_kv:  # cache precompute: the K/V projections of kv_in only
             return {"k": self.k_proj(kv_in, kernels), "v": self.v_proj(kv_in, kernels)}
@@ -406,17 +502,16 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention(
                 q.reshape(B, Tq, H, dh), k.reshape(B, Tk, H, dh), v.reshape(B, Tk, H, dh),
                 mask, use_flash=use_flash, kv_lengths=kv_lengths, kernels=kernels,
-            ).reshape(B, Tq, d)
+            ).reshape(B, Tq, H * dh)
         out = self.out_proj(out, kernels)
         if self.dropout is not None:
             out = self.dropout(out)
         return out if kv_cache is None else (out, new_cache)
 
     def _head_major(self, x, kv, mask, kv_cache, cache_index, kv_lengths, kernels):
-        """Decode step over [B, H, T, dh] caches -> ([B, Tq, d], new cache)."""
-        B, Tq, d = x.shape
-        H = self.num_heads
-        dh = d // H
+        """Decode step over [B, H, T, dh] caches -> ([B, Tq, H dh], new cache)."""
+        B, Tq, _ = x.shape
+        H, dh = self.num_heads, self.head_dim
         qh = self.q_proj(x, kernels).reshape(B, Tq, H, dh).transpose(1, 2)
         if kv is not None:  # cross-attention over the precomputed encoder K/V
             new_cache = kv_cache
@@ -436,7 +531,7 @@ class MultiHeadAttention(nn.Module):
             o = int8_cache_attention(qh, k4, new_cache["k_scale"], v4, new_cache["v_scale"],
                                      kv_lengths, mask, x.dtype,
                                      t_enc=None if kv is None else kv.shape[1], kernels=kernels)
-            return o.transpose(1, 2).reshape(B, Tq, d), new_cache
+            return o.transpose(1, 2).reshape(B, Tq, H * dh), new_cache
         Tk = k4.shape[2]
         # lengths are threaded, never inferred from a mask (the JAX rule)
         if kv_lengths is not None:
@@ -460,14 +555,15 @@ class MultiHeadAttention(nn.Module):
                 s = torch.where(kmask, s, torch.finfo(torch.float32).min)
                 p = torch.softmax(s, dim=-1).to(x.dtype)
                 o = torch.einsum("bhqk,bhkd->bhqd", p.float(), v4.float()).to(x.dtype)
-        return o.transpose(1, 2).reshape(B, Tq, d), new_cache
+        return o.transpose(1, 2).reshape(B, Tq, H * dh), new_cache
 
     def wf_params(self):
-        """(base, inserts) in the K7 wrappers' layout."""
+        """(base, inserts) in the K7 wrappers' layout (a split layer's part
+        of each, ``Dense.insert``)."""
         base = {"wq": self.q_proj.kernel, "bq": self.q_proj.bias, "wk": self.k_proj.kernel,
                 "wv": self.v_proj.kernel, "bv": self.v_proj.bias,
                 "wo": self.out_proj.kernel, "bo": self.out_proj.bias}
-        inserts = {n: _insert(p) for n, p in (("q", self.q_proj), ("k", self.k_proj),
+        inserts = {n: p.insert() for n, p in (("q", self.q_proj), ("k", self.k_proj),
                                               ("v", self.v_proj), ("o", self.out_proj))}
         return base, inserts
 
@@ -495,11 +591,6 @@ def int8_cache_attention(qh, kq, ks, vq, vs, kv_lengths, mask, dtype, t_enc=None
         kv_lens = torch.broadcast_to(
             torch.as_tensor(kv_lengths, device=qh.device).to(torch.int32), (B,))
     return int8_decode_attention(qh, kq, ks, vq, vs, kv_lens, kernels).to(dtype)
-
-
-def _insert(dense: Dense):
-    f = dense.adapter_wf
-    return {"a": f.a, "g": f.g, "b": f.b}
 
 
 class MLP(nn.Module):
@@ -551,6 +642,8 @@ class TransformerBlock(nn.Module):
         slots = ad.kind in ("bottleneck", "att")
         self.post_attn_slot = AdapterSlot(ad, d_model, gen) if slots and ad.after_attention else None
         self.post_mlp_slot = AdapterSlot(ad, d_model, gen) if slots and ad.after_mlp else None
+        self._attn_fold = ServingCopy()  # a split WF block's folded operands
+        self._mlp_fold = ServingCopy()
 
     def forward(
         self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None, kernels: bool = True,
@@ -624,6 +717,11 @@ class TransformerBlock(nn.Module):
         sa, ln = self.self_attn, self.self_attn_ln
         if kv_lengths is None:
             kv_lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+        tp = sa.q_proj.tp
+        if tp is not None:
+            acc = tp.reduce(self.attention_partial(x, kv_lengths, kernels))
+            finish = attn_residual_after_sum if self._k2_route(x) else residual_after_sum
+            return finish(x, acc, sa.out_proj.weights(x.dtype)[1])
         if self.adapter.kind == "wf":
             base, inserts = sa.wf_params()
             fn = fused_attention_sublayer_wf if fused else attention_sublayer_wf_plain
@@ -643,14 +741,94 @@ class TransformerBlock(nn.Module):
         return attention_sublayer_plain(x, ln.scale, ln.bias, wq, bq, wk, wv, bv, wo, bo,
                                         kv_lengths, sa.num_heads, ln.eps)
 
+    def _k2_route(self, x) -> bool:
+        """The card serves this split block's attention with K2's launches
+        (else K5 -> K6 -> K2h-out): the whole layer fits K2, and the rank's
+        packed q/k/v need no padding (K2's core reads them as [q | k | v])."""
+        sa = self.self_attn
+        return (attention_sublayer_fits(x.shape[2], sa.num_heads * sa.q_proj.tp.size)
+                and 3 * sa.num_heads * sa.head_dim % 128 == 0)
+
+    def _folded(self, dense: Dense, dtype: torch.dtype) -> torch.Tensor:
+        """A split WF layer's serving kernel in `dtype`: its part with its
+        part of the insert folded in (f32 fold, the K7 wrappers' ``fold_wf``)."""
+        return fold_wf(dense.kernel, dense.insert(), float(self.adapter.scale)).to(dtype)
+
+    @staticmethod
+    def _kept_fold(copy: ServingCopy, dtype: torch.dtype, dense, build):
+        """build()'s folded operands of these split WF layers, kept in `copy`
+        while their kernels, biases and inserts stay as they are."""
+        return copy.get(dtype, [t for d in dense for t in (
+            d.kernel, d.bias, d.adapter_wf.a, d.adapter_wf.g, d.adapter_wf.b)], build)
+
+    def _attention_weights(self, dtype: torch.dtype):
+        """A split block's attention operands: (packed q/k/v kernel, its bias,
+        wo), this rank's parts, WF inserts folded in."""
+        sa = self.self_attn
+        if self.adapter.kind != "wf":
+            return (*sa.qkv_weights(dtype), sa.out_proj.weights(dtype)[0])
+        dense = (sa.q_proj, sa.k_proj, sa.v_proj, sa.out_proj)
+
+        def build():
+            q, k, v = (self._folded(d, torch.float32) for d in dense[:3])
+            return (*pack_qkv(q, sa.q_proj.bias, k, v, sa.v_proj.bias, dtype, pad_to=128),
+                    self._folded(sa.out_proj, dtype))
+
+        return self._kept_fold(self._attn_fold, dtype, dense, build)
+
+    def _mlp_weights(self, dtype: torch.dtype):
+        """A split block's (fc1, fc2) kernels, this rank's parts, WF inserts
+        folded in."""
+        m = self.mlp
+        if self.adapter.kind != "wf":
+            return m.fc1.weights(dtype)[0], m.fc2.weights(dtype)[0]
+        return self._kept_fold(self._mlp_fold, dtype, (m.fc1, m.fc2), lambda: (
+            self._folded(m.fc1, dtype), self._folded(m.fc2, dtype)))
+
+    def attention_partial(self, x, kv_lengths, kernels: bool = True):
+        """A tensor-parallel rank's f32 partial of the self-attention
+        sublayer's out-projection, over its heads: bf16 with kernels=True,
+        K2's route (``attention_core_tp``) or K5 -> K6, then
+        ``row_partial``; otherwise the plain versions of those launches. The
+        group's sum, rounded, plus the bias and x, is the sublayer
+        (``_serve_attention``)."""
+        fused = kernels and x.dtype == torch.bfloat16
+        sa, ln = self.self_attn, self.self_attn_ln
+        H, D = sa.num_heads, sa.num_heads * sa.head_dim
+        w_qkv, b_qkv, wo = self._attention_weights(x.dtype)
+        if not fused:
+            qkv = qkv_gemm_plain(ln_rows_plain(x, ln.scale, ln.bias, ln.eps), w_qkv, b_qkv)
+            return row_partial_plain(attention_core_plain(qkv[..., :3 * D], kv_lengths, H), wo)
+        if self._k2_route(x):
+            attn = attention_core_tp(x, ln.scale, ln.bias, w_qkv, b_qkv, kv_lengths, H, ln.eps)
+        else:
+            q, k, v = fused_ln_qkv(x, ln.scale, ln.bias, w_qkv, b_qkv, ln.eps, width=D)
+            attn = flash.flash_attention_packed(q, k, v, H, kv_lengths=kv_lengths)
+        return row_partial(attn, wo)
+
+    def mlp_partial(self, x, kernels: bool = True):
+        """A tensor-parallel rank's f32 partial of the MLP sublayer's fc2 over
+        its hidden columns: ``ln_fc1`` then ``row_partial`` (bf16 with
+        kernels=True), else their plain versions."""
+        ln, m = self.mlp_ln, self.mlp
+        (w1, w2), b1 = self._mlp_weights(x.dtype), m.fc1.weights(x.dtype)[1]
+        if kernels and x.dtype == torch.bfloat16:
+            return row_partial(ln_fc1(x, ln.scale, ln.bias, w1, b1, ln.eps, m.gelu_form), w2)
+        return row_partial_plain(ln_fc1_plain(x, ln.scale, ln.bias, w1, b1, ln.eps, m.gelu_form),
+                                 w2)
+
     def _serve_mlp(self, x, kernels: bool):
-        """One fused sublayer: K3 (K7 with WF inserts) or its plain version."""
+        """One fused sublayer: K3 (K7 with WF inserts) or its plain version;
+        a split block's ``mlp_partial``, summed over the group, + b2 + x."""
         fused = kernels and x.dtype == torch.bfloat16
         ln, m = self.mlp_ln, self.mlp
+        if m.fc1.tp is not None:
+            acc = m.fc1.tp.reduce(self.mlp_partial(x, kernels))
+            return residual_after_sum(x, acc, m.fc2.weights(x.dtype)[1])
         if self.adapter.kind == "wf":
             fn = fused_ln_mlp_residual_wf if fused else ln_mlp_residual_wf_plain
             return fn(x, ln.scale, ln.bias, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias,
-                      _insert(m.fc1), _insert(m.fc2), ln.eps, m.gelu_form,
+                      m.fc1.insert(), m.fc2.insert(), ln.eps, m.gelu_form,
                       float(self.adapter.scale))
         fn = fused_ln_mlp_residual if fused else ln_mlp_residual_plain
         return fn(x, ln.scale, ln.bias, *m.fc1.weights(x.dtype), *m.fc2.weights(x.dtype),

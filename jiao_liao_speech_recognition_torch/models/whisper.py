@@ -76,7 +76,17 @@ def _adapter(cfg):
 
 class TiedEmbedding(nn.Module):
     """Token embedding [V, D] f32 whose transpose is the output head.
-    ``attend`` casts both operands to the compute dtype (nn.Embed.attend)."""
+    ``attend`` casts both operands to the compute dtype (nn.Embed.attend).
+
+    Vocab-parallel when ``parallel/tp.apply_tp`` split its rows (``tp``
+    set, where the group's size divides V, as JAX's rule splits it): a
+    rank holds rows [r V / tp, (r + 1) V / tp); a lookup takes this rank's
+    rows where the token falls in them and zeros elsewhere, summed over the
+    group (exact: one term is not zero); the logits are this rank's columns,
+    joined over the group in rank order, so every rank reads the whole
+    [.., V] (bitwise the unsplit product's columns)."""
+
+    tp = None
 
     def __init__(self, vocab_size: int, d_model: int, gen: torch.Generator):
         super().__init__()
@@ -100,13 +110,23 @@ class TiedEmbedding(nn.Module):
         return self._serve.get(dtype, (self.embedding,), lambda: self.embedding.to(dtype))
 
     def forward(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return self.table(dtype)[tokens.long()]
+        if self.tp is None:
+            return self.table(dtype)[tokens.long()]
+        table = self.table(dtype)
+        n = table.shape[0]
+        local = tokens.long() - self.tp.rank * n
+        inside = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)] * inside[..., None].to(dtype)
+        return self.tp.reduce(rows)
 
     def attend(self, x: torch.Tensor, dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
         """Logits [..., V] in `dtype` (f32 accumulation). `kernels` is
         Int8TiedEmbedding's switch, taken here for the decoder's one call."""
+        if self.tp is not None:
+            x = self.tp.enter(x)
         with full_f32():
-            return torch.matmul(x.to(dtype), self.table(dtype).t())
+            logits = torch.matmul(x.to(dtype), self.table(dtype).t())
+        return logits if self.tp is None else self.tp.gather(logits, -1)
 
     def quantized(self) -> "Int8TiedEmbedding":
         """Per-vocab-row int8 (quantize_int8 of the transposed table)."""
@@ -258,7 +278,8 @@ def decoder_caches(blocks, cfg, batch: int, enc: torch.Tensor, t_cache: int,
     decode step's key mask spans."""
     dt = DTYPES[cfg.dtype]
     rows = batch * beams
-    H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    # a tensor-parallel rank's heads (parallel/tp.py), or all of them
+    H, dh = blocks[0].cross_attn.num_heads, blocks[0].cross_attn.head_dim
     if layout is None:
         jax_head_major = rows >= HEAD_MAJOR_MIN_BATCH
         head_major = _on_card(enc) or jax_head_major
@@ -282,7 +303,7 @@ def decoder_caches(blocks, cfg, batch: int, enc: torch.Tensor, t_cache: int,
         if head_major:
             shape = (rows, H, round_tk(t_cache), dh)
         else:
-            shape = (rows, t_cache, cfg.d_model)
+            shape = (rows, t_cache, H * dh)
         dev = enc.device
         if int8_self:  # zero scales: unwritten rows read as 0, as the bf16 zeros
             self_cache = {}

@@ -21,6 +21,19 @@ Where K2 does not fit (d = 1280, Whisper large-v3, which the TPU serves with
 the head-group-split kernel), the sublayer is K5 (``ops/fused_mlp.py``),
 the flash kernel and ``out_proj_residual`` (``csrc/ln_gemm.cu``'s GEMM with
 its residual epilogue): hand-written launches throughout.
+
+Under tensor parallelism (parallel/tp.py) a rank holds its heads' columns
+of wq / wk / wv and its rows of wo, and the sublayer splits at the
+out-projection, the row-parallel product: ``row_partial`` (jl_row_partial,
+a new instance of ``csrc/ln_gemm.cu``'s persistent GEMM whose epilogue
+stores the f32 accumulator; ``row_partial_plain``) gives the rank's f32
+partial, the ranks' partials are summed, and ``attn_residual_after_sum``
+(K2's order) or ``residual_after_sum`` (K2h-out's and K3's) round the sum
+once and add the bias and the residual. Before it, K2's route runs
+``attention_core_tp`` (K2's first three launches on the rank's heads) and
+the K5 -> K6 route runs them on the rank's heads.
+``row_parallel_product`` is the partial under autograd (the plain
+backward), as training's row-parallel layers take it.
 """
 
 from __future__ import annotations
@@ -174,6 +187,120 @@ def fused_attention_sublayer_packed(
     out = attn_out_proj_launch(x, attention_core_launch(qkv, lens, num_heads), wo_b, bo_b)
     COUNTER.launches += 1
     return out
+
+
+# --- the tensor-parallel split at the row-parallel product -------------------
+
+ROW_COUNTER = LaunchCounter("row_parallel_partial")
+TP_CORE_COUNTER = LaunchCounter("attention_core_tp")
+
+
+def row_partial_plain(a, w):
+    """jl_row_partial: a [..., K] . w [K, N] accumulated in f32 and left
+    unrounded (bf16 products are exact in f32)."""
+    with full_f32():
+        return torch.matmul(a.float(), w.float())
+
+
+def row_partial(a, w):
+    """Wrapper of jl_row_partial (csrc/ln_gemm.cu's GEMM with an epilogue
+    that stores the f32 accumulator: no bias, no residual, no rounding), a
+    tensor-parallel rank's share of a row-parallel product. CPU tensors take
+    row_partial_plain; a CUDA tensor (a bf16 [..., K] contiguous, w [K, N],
+    K % 64 == 0, N % 128 == 0) launches the kernel or raises -> f32
+    [..., N]."""
+    if a.device.type == "cpu":
+        return row_partial_plain(a, w)
+    if a.dtype != torch.bfloat16 or not a.is_contiguous():
+        raise ValueError(f"row_partial: expected a contiguous bf16 CUDA tensor, got {a.dtype}")
+    refuse_grad("row_partial", a, w)
+    wb = w.to(a.device, torch.bfloat16).contiguous()
+    K, N = wb.shape
+    if a.shape[-1] != K:
+        raise ValueError(f"row_partial: a {tuple(a.shape)} does not fit w {tuple(wb.shape)}")
+    if K % 64 or N % 128:
+        raise ValueError(f"row_partial: unsupported shape K={K}, N={N} "
+                         "(need K % 64 == 0, N % 128 == 0)")
+    M = a.numel() // K
+    out = torch.empty(*a.shape[:-1], N, device=a.device, dtype=torch.float32)
+    check_aligned("row_partial", a, wb, out)
+    launch("jl_row_partial", a.data_ptr(), wb.data_ptr(), out.data_ptr(), M, N, K)
+    ROW_COUNTER.launches += 1
+    return out
+
+
+class _RowProduct(torch.autograd.Function):
+    """The f32 partial a . w with the module path's backward in a's dtype
+    (da = dy . w^T, dw = a^T . dy), as a Dense layer's matmul has it."""
+
+    @staticmethod
+    def forward(ctx, a, w, kernels):
+        ctx.save_for_backward(a, w)
+        if kernels and a.dtype == torch.bfloat16:
+            return row_partial(a.contiguous(), w.to(a.dtype))
+        return row_partial_plain(a, w.to(a.dtype))
+
+    @staticmethod
+    def backward(ctx, gy):
+        a, w = ctx.saved_tensors
+        dt = a.dtype
+        g = gy.to(dt)
+        da = torch.matmul(g, w.to(dt).t()) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(a.reshape(-1, a.shape[-1]).t(),
+                              g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return da, dw, None
+
+
+def row_parallel_product(a, w, kernels: bool = True):
+    """A row-parallel layer's f32 partial a . w: jl_row_partial on a bf16
+    CUDA tensor with `kernels`, else row_partial_plain; under autograd
+    through _RowProduct."""
+    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        return _RowProduct.apply(a, w, kernels)
+    if kernels and a.dtype == torch.bfloat16:
+        return row_partial(a.contiguous(), w.to(a.dtype))
+    return row_partial_plain(a, w.to(a.dtype))
+
+
+def residual_after_sum(x, acc, b):
+    """K2h-out's and K3's epilogue on the ranks' summed f32 partials:
+    x + bf16(bf16(acc) + b)."""
+    return x + (acc.to(x.dtype) + b.to(x.dtype))
+
+
+def attn_residual_after_sum(x, acc, b):
+    """K2's epilogue on the ranks' summed f32 partials: bf16(bf16(x +
+    bf16(acc)) + b)."""
+    return (x + acc.to(x.dtype)) + b.to(x.dtype)
+
+
+def attention_core_tp(x, g, bl, w_qkv, b_qkv, kv_lengths, num_heads, eps=1e-5):
+    """K2's first three launches on a tensor-parallel rank's heads (ln_rows
+    and the q/k/v GEMM of ``csrc/ln_gemm.cu`` on the rank's packed q/k/v
+    columns, then ``jl_attention_core``) -> the heads' outputs [B, T, D]
+    for ``row_partial``. CPU tensors take the plain versions of the
+    launches; a CUDA tensor (x bf16 [B, T, d], w_qkv [d, 3D] with 3D % 128
+    == 0, D = num_heads * dh, dh in HEAD_WIDTHS) launches them or raises."""
+    if x.device.type == "cpu":
+        qkv = qkv_gemm_plain(ln_rows_plain(x, g, bl, eps), w_qkv, b_qkv)
+        return attention_core_plain(qkv, kv_lengths, num_heads)
+    check_cuda("x", x, torch.bfloat16, 3)
+    refuse_grad("attention_core_tp", x, g, bl, w_qkv, b_qkv)
+    B = x.shape[0]
+    N = w_qkv.shape[1]
+    if N % (3 * num_heads) or N // 3 // num_heads not in HEAD_WIDTHS:
+        raise ValueError(f"attention_core_tp: packed width {N} is not 3 x {num_heads} heads "
+                         f"of {HEAD_WIDTHS}")
+    if kv_lengths.shape != (B,):
+        raise ValueError(f"kv_lengths must be [B]={B}, got {tuple(kv_lengths.shape)}")
+    dev, bf = x.device, torch.bfloat16
+    w_qkv, b_qkv = (t.to(dev, bf).contiguous() for t in (w_qkv, b_qkv))
+    lens = kv_lengths.to(dev, torch.int32).contiguous()
+    attn = attention_core_launch(ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps), lens, num_heads)
+    TP_CORE_COUNTER.launches += 1
+    return attn
 
 
 # --- the out-projection + residual where K2 does not fit ----------------------

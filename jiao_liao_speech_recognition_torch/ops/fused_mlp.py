@@ -14,6 +14,15 @@ same functions in plain PyTorch with the kernels' rounding points;
 ``fc2_residual_plain`` are the plain version of each launch. Every rounding
 point is a bf16 tensor, so the launches compose to the sublayer bit for
 bit. The wrappers take the plain versions only for CPU tensors.
+
+Under tensor parallelism K3 splits at fc2, the row-parallel product:
+``ln_fc1`` (K3's first two launches alone, on a rank's mlp / tp columns;
+``ln_fc1_plain``), then ``fused_attention.row_partial`` on the rank's rows
+of fc2, whose f32 partials the ranks sum before b2 and x are added once.
+K5 on a rank's heads may have a packed width that is not a multiple of
+128 (3 x 320 at large-v3 on four ranks): ``pack_qkv(pad_to=128)`` pads the
+operand with zero columns that no head reads, and ``fused_ln_qkv`` takes
+the width of each projection.
 """
 
 from __future__ import annotations
@@ -90,6 +99,47 @@ def gelu_check(values: torch.Tensor) -> torch.Tensor:
     out = torch.empty(4, values.numel(), device=values.device, dtype=torch.bfloat16)
     launch("jl_gelu_check", values.data_ptr(), out.data_ptr(), values.numel())
     return out
+
+
+# --- the column-parallel half of a tensor-parallel MLP ------------------------
+
+LN_FC1_COUNTER = LaunchCounter("ln_fc1")
+
+
+def ln_fc1_plain(x, g, bl, w1, b1, eps=1e-5, gelu_form="tanh"):
+    """jl_ln_fc1: K3's LN and fc1 + GELU, bf16(GELU(bf16(bf16(LN(x) . w1) +
+    b1))), [..., mlp]."""
+    return fc1_gelu_plain(ln_rows_plain(x, g, bl, eps), w1, b1, gelu_form)
+
+
+def ln_fc1(x, g, bl, w1, b1, eps=1e-5, gelu_form="tanh"):
+    """Wrapper of jl_ln_fc1 (csrc/ln_gemm.cu: ln_rows, then fc1's GEMM with
+    the bias and GELU in its epilogue, K3's first two launches): a rank's
+    hidden columns of a tensor-parallel MLP. CPU tensors take ln_fc1_plain;
+    a CUDA tensor (x bf16 [B, T, d], w1 [d, mlp] with d % 64 == 0, d <=
+    LN_MAX_WIDTH, mlp % 128 == 0) launches the kernels or raises."""
+    if x.device.type == "cpu":
+        return ln_fc1_plain(x, g, bl, w1, b1, eps, gelu_form)
+    check_cuda("x", x, torch.bfloat16, 3)
+    refuse_grad("ln_fc1", x, g, bl, w1, b1)
+    B, T, d = x.shape
+    mlp = w1.shape[1]
+    if tuple(w1.shape) != (d, mlp) or tuple(b1.shape) != (mlp,):
+        raise ValueError(f"fc1 weights {tuple(w1.shape)}, {tuple(b1.shape)} do not fit d={d}")
+    check_gemm_shapes("ln_fc1", d, (d, mlp))
+    if gelu_form not in ("tanh", "erf"):
+        raise ValueError(f"unknown gelu_form {gelu_form!r} (want 'tanh'|'erf')")
+    dev, bf = x.device, torch.bfloat16
+    g32, bl32 = (t.to(dev, torch.float32).contiguous() for t in (g, bl))
+    w1b, b1b = (t.to(dev, bf).contiguous() for t in (w1, b1))
+    check_aligned("ln_fc1", x, g32, bl32, w1b, b1b)
+    ln = torch.empty_like(x)
+    h = torch.empty(B, T, mlp, device=dev, dtype=bf)
+    launch("jl_ln_fc1", x.data_ptr(), g32.data_ptr(), bl32.data_ptr(), w1b.data_ptr(),
+           b1b.data_ptr(), ln.data_ptr(), h.data_ptr(), B * T, d, mlp,
+           int(gelu_form == "erf"), float(eps))
+    LN_FC1_COUNTER.launches += 1
+    return h
 
 
 def ln_mlp_residual_plain(x, g, bl, w1, b1, w2, b2, eps=1e-5, gelu_form="tanh"):
@@ -199,21 +249,27 @@ def fused_ln_mlp_residual_wf(x, g, bl, w1, b1, w2, b2, wf1, wf2, eps, gelu_form,
 QKV_COUNTER = LaunchCounter("fused_ln_qkv")
 
 
-def pack_qkv(wq, bq, wk, wv, bv, dtype=torch.bfloat16):
-    """-> ([d, 3D] kernel, [3D] bias) in `dtype`: [Wq | Wk | Wv] and
-    [bq | 0 | bv], the operands K5 takes (k has no bias)."""
-    w = torch.cat([wq.to(dtype), wk.to(dtype), wv.to(dtype)], dim=1).contiguous()
-    b = torch.cat([bq.to(dtype), torch.zeros_like(bq, dtype=dtype), bv.to(dtype)])
+def pack_qkv(wq, bq, wk, wv, bv, dtype=torch.bfloat16, pad_to: int = 1):
+    """-> ([d, N] kernel, [N] bias) in `dtype`: [Wq | Wk | Wv] and
+    [bq | 0 | bv], the operands K5 takes (k has no bias), N = 3D rounded up
+    to a multiple of `pad_to` with zero columns (a rank's heads at a width
+    K5's 128-column tiles do not divide; nothing reads them)."""
+    pad = -3 * wq.shape[1] % pad_to
+    w = torch.cat([wq.to(dtype), wk.to(dtype), wv.to(dtype),
+                   wq.new_zeros(wq.shape[0], pad, dtype=dtype)], dim=1).contiguous()
+    b = torch.cat([bq.to(dtype), torch.zeros_like(bq, dtype=dtype), bv.to(dtype),
+                   bq.new_zeros(pad, dtype=dtype)])
     return w, b
 
 
-def ln_qkv_plain(x, g, bl, w_qkv, b_qkv, eps=1e-5):
-    """The JAX package's _ln_qkv_reference on packed weights (pack_qkv):
+def ln_qkv_plain(x, g, bl, w_qkv, b_qkv, eps=1e-5, width=None):
+    """The JAX package's _ln_qkv_reference on packed weights (pack_qkv; each
+    projection `width` columns wide, default a third of the operand's):
     f32 LayerNorm statistics, then each projection rounded to the compute
     dtype before its bias (k's is zero)."""
-    D = w_qkv.shape[1] // 3
+    D = width or w_qkv.shape[1] // 3
     qkv = dense(layer_norm(x, g, bl, eps), w_qkv, b_qkv)
-    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:3 * D]
 
 
 def ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps=1e-5):
@@ -239,23 +295,25 @@ def ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps=1e-5):
     return qkv
 
 
-def fused_ln_qkv(x, g, bl, w_qkv, b_qkv, eps=1e-5):
+def fused_ln_qkv(x, g, bl, w_qkv, b_qkv, eps=1e-5, width=None):
     """K5 wrapper -> (q, k, v), each [B, T, D], from packed weights
-    (pack_qkv; serving keeps them, ``MultiHeadAttention.qkv_weights``). CPU
-    tensors take ln_qkv_plain; a CUDA tensor (d % 64 == 0, 3D % 128 == 0)
+    (pack_qkv, maybe padded; serving keeps them,
+    ``MultiHeadAttention.qkv_weights``) whose projections are `width` = D
+    columns wide (default a third of the operand's). CPU tensors take
+    ln_qkv_plain; a CUDA tensor (d % 64 == 0, the packed N % 128 == 0)
     launches ln_qkv_launch (csrc/ln_gemm.cu, which replaces the JAX
     package's ops/fused_mlp.py::fused_ln_qkv) or raises. The three results
     are views of one [B, T, 3D] output, which the flash kernel reads with
     its row stride, so nothing is copied."""
     if x.device.type == "cpu":
-        return ln_qkv_plain(x, g, bl, w_qkv, b_qkv, eps)
+        return ln_qkv_plain(x, g, bl, w_qkv, b_qkv, eps, width)
     check_cuda("x", x, torch.bfloat16, 3)
     check_cuda("w_qkv", w_qkv, torch.bfloat16, 2)
     check_cuda("b_qkv", b_qkv, torch.bfloat16, 1)
     refuse_grad("fused_ln_qkv", x, g, bl, w_qkv, b_qkv)
-    if w_qkv.shape[1] % 3:
-        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} is not [d, 3D]")
-    D = w_qkv.shape[1] // 3
+    if (w_qkv.shape[1] % 3 if width is None else 3 * width > w_qkv.shape[1]):
+        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} is not [d, 3D] (D={width})")
+    D = width or w_qkv.shape[1] // 3
     qkv = ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps)
     QKV_COUNTER.launches += 1
-    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:3 * D]

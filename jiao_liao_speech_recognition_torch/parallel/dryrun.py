@@ -1,14 +1,17 @@
 """Multi-process dry run of the production training loop: a seeded
 on-disk corpus, then ``train_loop`` (mesh, FSDP2 wrap, per-process batch
-rows, checkpoint) on a data x fsdp mesh of the world this process was
-launched in. The counterpart of the first half of the JAX package's
-``__graft_entry__.dryrun_multichip``.
+rows, checkpoint) on a data x fsdp (x model) mesh of the world this
+process was launched in. The counterpart of the JAX package's
+``__graft_entry__.dryrun_multichip``: its data x fsdp half and its
+tensor-parallel half.
 
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m jiao_liao_speech_recognition_torch.parallel.dryrun --workdir d --case ctc:2
     python -m jiao_liao_speech_recognition_torch.parallel.dryrun --workdir d --device cpu
 
-A case is ``family:fsdp`` (``ctc`` with SpecAugment and every waveform
+A case is ``family:fsdp`` or ``family:fsdpxmodel`` (``ctc:2x2``: fsdp 2
+x model 2, the data axis taking the rest of the world; ``ctc`` with
+SpecAugment and every waveform
 augmentation on, adapters trained; ``whisper`` with texts of different
 lengths, every parameter trained), f32 at a tiny width (d 64, 2 blocks a
 stack, the corpus's 30 characters), 4 rows a batch;
@@ -71,7 +74,7 @@ def write_corpus(workdir: Path, n: int = 8, seed: int = 0) -> Path:
 
 
 def experiment(family: str, fsdp: int, case_dir: Path, manifest: Path, total_steps: int,
-               accum: int = 1):
+               accum: int = 1, model: int = 1):
     """The tiny config of a case (see the module docstring)."""
     from ..utils import config as c
 
@@ -87,7 +90,8 @@ def experiment(family: str, fsdp: int, case_dir: Path, manifest: Path, total_ste
         metrics_path=str(case_dir / "metrics.jsonl"))
     wf = c.AdapterConfig(kind="wf", wf_rank=4)
     cfg = c.ExperimentConfig(model_family=family, frontend=c.FrontendConfig(chunk_seconds=1.0),
-                             mesh=c.MeshConfig(fsdp_axis=fsdp), data=data, train=train)
+                             mesh=c.MeshConfig(fsdp_axis=fsdp, model_axis=model), data=data,
+                             train=train)
     if family == "ctc":
         cfg.ctc_model = c.CTCModelConfig(d_model=64, num_layers=2, num_heads=4, mlp_dim=128,
                                          conv_channels=32, dtype="float32", dropout=0.0,
@@ -107,24 +111,30 @@ def experiment(family: str, fsdp: int, case_dir: Path, manifest: Path, total_ste
 
 
 def _shares(model, optimizer) -> dict:
-    """This process's share of the >= 2-D parameters' elements and of
-    Adam's moments (1.0 without sharding)."""
+    """This process's share of the whole model's >= 2-D parameters'
+    elements and of Adam's moments (1.0 without sharding): a split
+    parameter's whole is its part times the model axis."""
     def local(t):
         return t.to_local().numel() if hasattr(t, "to_local") else t.numel()
 
+    tp = getattr(model, "tp", None)
+    dims = getattr(model, "tp_dims", {})
+    whole = {id(p): p.numel() * (tp.size if n in dims else 1)
+             for n, p in model.named_parameters()}
     params = [p for p in model.parameters() if p.ndim >= 2]
-    moments = [v for st in optimizer.state.values() for k, v in st.items()
+    moments = [(v, whole[id(p)]) for p, st in optimizer.state.items() for k, v in st.items()
                if k in ("exp_avg", "exp_avg_sq") and v.ndim >= 2]
-    return {"param_share": sum(local(p) for p in params) / sum(p.numel() for p in params),
-            "adam_share": (sum(local(v) for v in moments) / sum(v.numel() for v in moments)
+    return {"param_share": sum(local(p) for p in params) / sum(whole[id(p)] for p in params),
+            "adam_share": (sum(local(v) for v, _ in moments) / sum(n for _, n in moments)
                            if moments else None)}
 
 
 def run_case(family: str, fsdp: int, workdir: Path, steps: int = 2, device="cpu",
-             resume_from: Optional[Path] = None, tag: str = "", accum: int = 1) -> dict:
+             resume_from: Optional[Path] = None, tag: str = "", accum: int = 1,
+             model: int = 1) -> dict:
     """One case under the current process group (or none): `steps` steps,
     or with `resume_from` (a checkpoint directory, copied first) `steps`
-    more from its newest checkpoint."""
+    more from its newest checkpoint; `model` the model axis."""
     from ..data.manifest import read_manifest
     from ..train.checkpoints import TrainCheckpointer
     from ..train.engine import build_tokenizer_for, make_model, train_loop
@@ -132,7 +142,8 @@ def run_case(family: str, fsdp: int, workdir: Path, steps: int = 2, device="cpu"
     manifest = write_corpus(workdir)
     if accum > 1:
         tag = f"_a{accum}{tag}"
-    case_dir = workdir / f"{family}_w{mh.process_count()}_f{fsdp}{tag}"
+    axes, m_tag = (f"{fsdp}x{model}", f"_m{model}") if model > 1 else (f"{fsdp}", "")
+    case_dir = workdir / f"{family}_w{mh.process_count()}_f{fsdp}{m_tag}{tag}"
     first = 0
     if resume_from is not None:
         first = TrainCheckpointer(str(resume_from)).latest_step()
@@ -140,12 +151,12 @@ def run_case(family: str, fsdp: int, workdir: Path, steps: int = 2, device="cpu"
             shutil.rmtree(case_dir / "ckpt", ignore_errors=True)
             shutil.copytree(resume_from, case_dir / "ckpt")
         mh.barrier("dryrun_copy")
-    cfg = experiment(family, fsdp, case_dir, manifest, first + steps, accum)
+    cfg = experiment(family, fsdp, case_dir, manifest, first + steps, accum, model)
     rows = read_manifest(cfg.data.train_manifest)
     tokenizer = build_tokenizer_for(cfg, rows)
     model = make_model(cfg, device)
     state, info = train_loop(cfg, rows, tokenizer, model, resume=resume_from is not None)
-    out = {"case": f"{family}:{fsdp}{tag}", "rank": mh.process_index(),
+    out = {"case": f"{family}:{axes}{tag}", "rank": mh.process_index(),
            "world": mh.process_count(), "losses": info["losses"],
            "final_step": state.step, "mesh": info["mesh"] or [1, 1, 1],
            **_shares(state.model, state.optimizer)}
@@ -166,8 +177,8 @@ def main(argv=None) -> int:
     p.add_argument("--workdir", required=True)
     p.add_argument("--device", default="cuda")
     p.add_argument("--case", action="append", default=None,
-                   help="family:fsdp[:accum][@checkpoint_dir] (repeatable; default ctc:F with "
-                   "F 2 on an even world)")
+                   help="family:fsdp[xmodel][:accum][@checkpoint_dir] (repeatable; default "
+                   "ctc:F with F 2 on an even world)")
     p.add_argument("--steps", type=int, default=2)
     args = p.parse_args(argv)
     if os.environ.get("JL_COORDINATOR") or os.environ.get("MASTER_ADDR"):
@@ -176,10 +187,12 @@ def main(argv=None) -> int:
         cases = args.case or [f"ctc:{2 if mh.process_count() % 2 == 0 else 1}"]
         for case in cases:
             case, _, resume = case.partition("@")
-            family, fsdp, *accum = case.split(":")
+            family, axes, *accum = case.split(":")
+            fsdp, _, model = axes.partition("x")
             out = run_case(family, int(fsdp), Path(args.workdir), args.steps, args.device,
                            resume_from=Path(resume) if resume else None,
-                           tag="_resumed" if resume else "", accum=int(accum[0]) if accum else 1)
+                           tag="_resumed" if resume else "", accum=int(accum[0]) if accum else 1,
+                           model=int(model or 1))
             print("DRYRUN " + json.dumps(out), flush=True)
     finally:
         mh.shutdown()

@@ -2,8 +2,11 @@
 ``parallel/mesh.py``), one process per card.
 
 Axes, as in JAX: ``data`` replicates the model over batch shards,
-``fsdp`` shards parameters and optimizer state (ZeRO), ``model`` is tensor
-parallelism, which is not ported: ``model_axis > 1`` raises.
+``fsdp`` shards parameters and optimizer state (ZeRO), ``model`` is
+Megatron tensor parallelism (parallel/tp.py, the rules of
+parallel/tp_rules.py). Ranks are laid out row-major over (data, fsdp,
+model): the ranks of one model group are neighbours, hold the same batch
+rows and split the weights between them.
 
 * ``mesh_shape`` is JAX's ``build_mesh`` / ``build_mesh_for_batch``
   arithmetic (shape and ``ValueError`` for the same inputs);
@@ -12,22 +15,26 @@ parallelism, which is not ported: ``model_axis > 1`` raises.
   take a sub-mesh smaller than the world (a batch that no larger data axis
   divides, or an explicit ``data_axis`` that leaves devices over), the
   port raises instead: a process group cannot leave ranks idle.
-* ``shard_model`` (JAX's ``shard_state``): FSDP2 ``fully_shard`` on every
-  transformer block of every stack, then on the root, over
-  ``mesh["data", "fsdp"]``: HSDP (replicated over ``data``, sharded over
-  ``fsdp``), plain data parallelism at ``fsdp`` 1. Each parameter of two
-  or more dims is sharded along its largest axis when ``fsdp`` divides
-  it (JAX's ``_fsdp_rule``), else along dim 0, where FSDP2 pads and JAX
-  replicates: that changes memory, not arithmetic. The optimizer built
-  after wrapping keeps Adam's moments on the same shards (JAX's ZeRO
+* ``shard_model`` (JAX's ``shard_state``): on a model axis larger than 1
+  first ``parallel/tp.apply_tp`` over ``mesh["model"]`` (each rank keeps
+  its part of every split parameter, as plain tensors); then FSDP2
+  ``fully_shard`` on every transformer block of every stack, then on the
+  root, over ``mesh["data", "fsdp"]``: HSDP (replicated over ``data``,
+  sharded over ``fsdp``), plain data parallelism at ``fsdp`` 1. Each
+  parameter is sharded along the dim JAX's rules give it over fsdp
+  (``_fsdp_rule``'s largest axis; on a model axis, ``fsdp_tp_sharding``'s
+  largest free dim of a split kernel), else along dim 0, where FSDP2 pads
+  and JAX replicates: that changes memory, not arithmetic. The optimizer
+  built after wrapping keeps Adam's moments on the same shards (JAX's ZeRO
   opt-state rule). No mixed-precision policy: parameters stay f32 and the
   modules keep their own casts, so each rank computes as one process does.
   The wrapped model is called only through ``forward`` (every loss does):
   FSDP2 gathers a block's parameters in its forward's pre-hook, so the
   kernels see plain tensors. Anything else (evaluation, the saved bundle)
-  reads ``full_model``.
-* ``shard_batch``: this rank's rows of a global batch, or the whole
-  batch when it is ragged (JAX's replication fallback).
+  reads ``full_model``, which also joins the model axis's parts.
+* ``shard_batch``: this rank's rows of a global batch (the same rows on
+  every rank of a model group), or the whole batch when it is ragged
+  (JAX's replication fallback).
 """
 
 from __future__ import annotations
@@ -36,13 +43,12 @@ import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..utils.config import MeshConfig
 from . import multihost as mh
-
-TP_ITEM = "ROADMAP queue 1 item 9 (the tensor-parallel remainder)"
+from .tp import TPGroup, apply_tp, model_tp
+from .tp_rules import fsdp_tp_placement
 
 
 def mesh_shape(cfg: Optional[MeshConfig], n_devices: int,
@@ -73,12 +79,6 @@ def mesh_shape(cfg: Optional[MeshConfig], n_devices: int,
     return data, fsdp, model
 
 
-def _refuse_tp(cfg: MeshConfig) -> None:
-    if cfg.model_axis > 1:
-        raise NotImplementedError(
-            f"model_axis={cfg.model_axis}: tensor parallelism is not ported yet: {TP_ITEM}")
-
-
 def _device_mesh(cfg: MeshConfig, shape, device_type: Optional[str]):
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -91,7 +91,6 @@ def build_mesh(cfg: Optional[MeshConfig] = None, world: Optional[int] = None,
     """The ('data', 'fsdp', 'model') DeviceMesh over the process group's
     `world` ranks (default: all of them)."""
     cfg = cfg or MeshConfig()
-    _refuse_tp(cfg)
     return _device_mesh(cfg, mesh_shape(cfg, world or mh.process_count()), device_type)
 
 
@@ -101,7 +100,6 @@ def build_mesh_for_batch(cfg: Optional[MeshConfig], batch_size: int,
     ``data_axis`` -1 the largest data axis whose product with fsdp divides
     the batch. A mesh smaller than the world raises ``ValueError``."""
     cfg = cfg or MeshConfig()
-    _refuse_tp(cfg)
     world = world or mh.process_count()
     shape = mesh_shape(cfg, world, batch_size)
     if math.prod(shape) != world:
@@ -117,20 +115,26 @@ def dp_mesh(mesh):
     return mesh[tuple(mesh.mesh_dim_names[:2])]
 
 
-def placement_rule(fsdp_n: int) -> Callable:
-    """JAX's ``_fsdp_rule`` as a ``shard_placement_fn``: the largest axis
-    of a parameter of two or more dims when `fsdp_n` (> 1) divides it, else
-    dim 0 (a whole parameter at `fsdp_n` 1, where JAX replicates)."""
-    from torch.distributed.tensor import Shard
+def tp_group(mesh) -> TPGroup:
+    """This rank's place on the mesh's model axis (size 1 without one)."""
+    size = mesh.size(2)
+    if size == 1:
+        return TPGroup(0, 1)
+    return TPGroup(mesh.get_coordinate()[2], size, mesh.get_group(2))
 
-    def rule(p: torch.Tensor):
-        if p.ndim >= 2 and fsdp_n > 1:
-            axis = int(np.argmax(p.shape))
-            if p.shape[axis] % fsdp_n == 0:
-                return Shard(axis)
-        return Shard(0)
 
-    return rule
+def dp_group(mesh):
+    """The groups of the mesh's data and fsdp axes wider than one rank: a
+    sum over each in turn is a sum over this rank's (data, fsdp) ranks, the
+    ranks that share its model coordinate; None (the whole world) at model
+    1."""
+    if mesh.size(2) == 1:
+        return None
+    return tuple(mesh.get_group(d) for d in (0, 1) if mesh.size(d) > 1)
+
+
+def _fsdp_dim(spec) -> int:
+    return spec.index("fsdp") if "fsdp" in spec else 0
 
 
 def is_sharded(model: torch.nn.Module) -> bool:
@@ -139,9 +143,31 @@ def is_sharded(model: torch.nn.Module) -> bool:
     return isinstance(model, FSDPModule)
 
 
+def model_placement_rule(model: torch.nn.Module, tp: int, fsdp_n: int) -> Callable:
+    """JAX's ``param_sharding`` as a ``shard_placement_fn`` for a whole
+    `model` about to be split over a model axis of `tp` (``_fsdp_rule`` at
+    tp 1, ``fsdp_tp_sharding`` above; the rule reads each parameter's whole
+    shape and name): the dim it gives fsdp, else dim 0. Make it before
+    ``apply_tp``; it maps the split parameters by name when they are asked
+    for."""
+    from torch.distributed.tensor import Shard
+
+    want = {name: _fsdp_dim(fsdp_tp_placement(name, tuple(p.shape), tp, fsdp_n))
+            for name, p in model.named_parameters()}
+    by_id = {}
+
+    def rule(p: torch.nn.Parameter):
+        if not by_id:
+            by_id.update({id(q): want[n] for n, q in model.named_parameters()})
+        return Shard(by_id[id(p)])
+
+    return rule
+
+
 def shard_model(mesh, model: torch.nn.Module) -> torch.nn.Module:
-    """Wrap `model` in place with FSDP2 (see the module docstring) and
-    return it; a model already wrapped is returned as it is."""
+    """Split `model` in place over the mesh's model axis (``apply_tp``) and
+    wrap it with FSDP2 (see the module docstring); return it. A model
+    already wrapped is returned as it is."""
     from torch.distributed.fsdp import fully_shard
 
     from ..models.layers import TransformerBlock
@@ -149,22 +175,49 @@ def shard_model(mesh, model: torch.nn.Module) -> torch.nn.Module:
     if is_sharded(model):
         return model
     sub = dp_mesh(mesh)
-    rule = placement_rule(mesh[mesh.mesh_dim_names[1]].size())
+    tp = tp_group(mesh)
+    rule = model_placement_rule(model, tp.size, mesh[mesh.mesh_dim_names[1]].size())
+    apply_tp(model, tp)
     for block in [m for m in model.modules() if isinstance(m, TransformerBlock)]:
         fully_shard(block, mesh=sub, shard_placement_fn=rule)
     fully_shard(model, mesh=sub, shard_placement_fn=rule)
     return model
 
 
+def gather_split(sd: Dict[str, torch.Tensor], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """`sd` (tensors keyed by `model`'s parameter names, this rank's parts
+    of the split ones) with each split tensor joined over the model axis
+    (a collective over the model group; `sd` itself for an unsplit
+    model)."""
+    tp = model_tp(model)
+    if tp is None or tp.size == 1:
+        return sd
+    out = dict(sd)
+    for name, dim in model.tp_dims.items():
+        if name in sd:
+            out[name] = gather_part(sd[name], dim, tp)
+    return out
+
+
+def gather_part(t: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    """The model group's parts of `t` joined along `dim` (a collective)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(tp.size)]
+    torch.distributed.all_gather(parts, t, group=tp.group)
+    return torch.cat(parts, dim=dim)
+
+
 def full_model(model: torch.nn.Module, make: Callable[[], torch.nn.Module]) -> torch.nn.Module:
     """A plain model from `make()` holding the wrapped `model`'s full
-    weights, on every rank (a collective); `model` itself when it is not
-    wrapped."""
-    if not is_sharded(model):
+    weights, joined over the fsdp and model axes, on every rank (a
+    collective); `model` itself when it is neither wrapped nor split."""
+    if not is_sharded(model) and model_tp(model) is None:
         return model
     from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
 
-    sd = get_model_state_dict(model, options=StateDictOptions(full_state_dict=True))
+    sd = (get_model_state_dict(model, options=StateDictOptions(full_state_dict=True))
+          if is_sharded(model) else model.state_dict())
+    sd = gather_split(sd, model)
     plain = make()
     plain.load_state_dict(sd)
     del sd
@@ -180,29 +233,32 @@ def dp_rank(mesh) -> int:
 def shard_batch(mesh, batch: Dict, global_rows: Optional[int] = None) -> Dict:
     """This rank's part of a device batch (a dict of tensors): rows
     [r B / n, (r + 1) B / n) of each tensor whose leading dim is the global
-    batch B, n = data * fsdp; a ragged batch (B % n != 0) is kept whole on
-    every rank, JAX's replication fallback (identical gradients average to
-    the same update). `global_rows` is the cross-process batch size (JAX's
-    ``Batch.global_rows``): tensors whose leading dim times the process
-    count equals it are this process's slice already and stay as they
-    are. The result carries ``"rows"`` = (first global row, global rows),
-    which the losses read to draw each row's random values for the global
-    batch."""
+    batch B, n = data * fsdp and r this rank's (data, fsdp) index, so the
+    ranks of a model group take the same rows; a ragged batch (B % n != 0)
+    is kept whole on every rank, JAX's replication fallback (identical
+    gradients average to the same update). `global_rows` is the global
+    batch size (JAX's ``Batch.global_rows``): tensors whose leading dim
+    times n equals it are this rank's slice already (the loader collated
+    its (data, fsdp) rank's rows) and stay as they are. The result carries
+    ``"rows"`` = (first global row, global rows), which the losses read to
+    draw each row's random values for the global batch, and ``"dp"`` = (n,
+    ``dp_group``: the groups of the (data, fsdp) ranks or None for the whole
+    world, r), over which the losses sum."""
     n = mesh.size(0) * mesh.size(1)
     r = dp_rank(mesh)
-    nproc = mh.process_count()
+    dp = (n, dp_group(mesh), r)
     lead = next(v.shape[0] for v in batch.values() if isinstance(v, torch.Tensor) and v.ndim)
     gr = global_rows if global_rows is not None else lead
-    if lead * nproc == gr and gr % n == 0 and nproc > 1:
-        out = dict(batch)  # the loader collated this process's rows
-        out["rows"] = (r * lead, gr)
+    if lead * n == gr and n > 1:
+        out = dict(batch)  # the loader collated this rank's rows
+        out["rows"], out["dp"] = (r * lead, gr), dp
         return out
     if lead != gr or gr % n:
         out = dict(batch)  # ragged: the whole batch on every rank
-        out["rows"] = (0, lead)
+        out["rows"], out["dp"] = (0, lead), dp
         return out
     k = gr // n
     out = {key: v[r * k:(r + 1) * k] if isinstance(v, torch.Tensor) and v.ndim else v
            for key, v in batch.items()}
-    out["rows"] = (r * k, gr)
+    out["rows"], out["dp"] = (r * k, gr), dp
     return out

@@ -112,13 +112,14 @@ def barrier(tag: str = "jl_barrier") -> None:
         dist.barrier()
 
 
-def all_sum(x: torch.Tensor) -> torch.Tensor:
-    """x summed over every process (x itself, single-process); x is not
-    changed."""
+def all_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over every process, over `group`'s, or over each group of a
+    tuple of them in turn (x itself, single-process); x is not changed."""
     if process_count() == 1:
         return x
     y = x.detach().clone().to(device_type())
-    dist.all_reduce(y)
+    for g in group if isinstance(group, tuple) else (group,):
+        dist.all_reduce(y, group=g)
     return y.to(x.device)
 
 

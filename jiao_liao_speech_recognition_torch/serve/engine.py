@@ -56,6 +56,7 @@ from ..decode.whisper_generate import (
 from ..frontend import features
 from ..models.ctc_model import DTYPES
 from ..models.whisper import HEAD_MAJOR_MIN_BATCH
+from ..parallel.tp import refuse
 
 
 @dataclass
@@ -115,6 +116,7 @@ class ServingEngine:
 
     def __init__(self, bundle, slots: int = 8, steps_per_dispatch: int = 32,
                  max_len: Optional[int] = None, timestamps: bool = False):
+        refuse(bundle.model, "the serving engine")
         if not bundle.is_whisper:
             raise ValueError(
                 "ServingEngine drives AR decode; the CTC family is a single forward pass "

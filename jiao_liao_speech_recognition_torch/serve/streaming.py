@@ -45,6 +45,7 @@ import torch
 
 from .. import _build
 from ..frontend import features
+from ..parallel.tp import refuse
 
 
 @dataclass
@@ -112,6 +113,7 @@ class StreamingTranscriber:
 
     def __init__(self, bundle, stream_cfg: Optional[StreamingConfig] = None,
                  blank_id: Optional[int] = None):
+        refuse(bundle.model, "streaming")
         self.bundle = bundle
         self.cfg = stream_cfg or StreamingConfig()
         config = bundle.config
@@ -312,6 +314,7 @@ class StreamingPool:
 
     def __init__(self, bundle, slots: int = 8, stream_cfg: Optional[StreamingConfig] = None,
                  device_ring: bool = True, graph: bool = True):
+        refuse(bundle.model, "the streaming pool")
         self.bundle = bundle
         self.cfg = stream_cfg or StreamingConfig()
         if slots < 1:

@@ -11,7 +11,12 @@ state (``get_state_dict`` with full state dicts offloaded to the CPU) and
 the primary writes the same ``state.pt`` one process writes; ``restore``
 reads it on the primary and broadcasts it into the shards
 (``set_model_state_dict`` / ``set_optimizer_state_dict``). So a
-checkpoint of N processes resumes in one and the reverse. ``save_adapter_only`` / ``load_adapter_only`` read
+checkpoint of N processes resumes in one and the reverse. On a model axis
+(parallel/tp.py) the parts of each split tensor (parameter, Adam moment,
+accumulated gradient) are also joined over the model group before the
+primary writes, and every rank takes its part of the whole tensors the
+primary broadcasts on restore, so a tensor-parallel run writes and reads
+the one-process layout too. ``save_adapter_only`` / ``load_adapter_only`` read
 and write the JAX package's adapter-only npz (key ``"/".join(flax path)``),
 so an adapter trained by either package loads into the other.
 """
@@ -101,18 +106,41 @@ def _param_names(state):
     return [names[id(p)] for g in state.optimizer.param_groups for p in g["params"]]
 
 
+def _split(model):
+    """-> (the model group, name -> split dim) of a tensor-parallel model,
+    else (None, {})."""
+    tp = getattr(model, "tp", None)
+    if tp is None or tp.size == 1:
+        return None, {}
+    return tp, model.tp_dims
+
+
 def _gather(state):
     """-> (model, optimizer, gradient) state of a wrapped model, in one
     process's layout, full tensors on the primary's CPU (empty elsewhere)."""
     from torch.distributed.checkpoint.state_dict import StateDictOptions, get_state_dict
 
+    from ..parallel.mesh import gather_part
+
+    tp, dims = _split(state.model)
+    # split tensors are joined over the model group first: every rank keeps
+    # its full-over-fsdp part until then
     model_sd, optim_sd = get_state_dict(
         state.model, state.optimizer,
-        options=StateDictOptions(full_state_dict=True, cpu_offload=True))
+        options=StateDictOptions(full_state_dict=True, cpu_offload=tp is None))
+    if tp is not None:
+        model_sd = {n: (gather_part(v, dims[n], tp) if n in dims else v).cpu()
+                    for n, v in model_sd.items()}
+        optim_sd["state"] = {
+            n: {k: (gather_part(v, dims[n], tp) if n in dims and torch.is_tensor(v) and v.dim()
+                    else v).cpu() if torch.is_tensor(v) else v for k, v in st.items()}
+            for n, st in optim_sd["state"].items()}
     grads = {}
     for n, p in state.model.named_parameters():
         if p.grad is not None:
             full = p.grad.full_tensor()
+            if n in dims:
+                full = gather_part(full, dims[n], tp)
             if mh.is_primary():
                 grads[n] = full.cpu()
     if not mh.is_primary():
@@ -125,35 +153,59 @@ def _gather(state):
 
 
 def _scatter(state, path: Path) -> Dict:
-    """Restore `path` into a wrapped model's state: read on the primary,
-    broadcast into every process's shards -> the extras."""
+    """Restore `path` into a wrapped model's state -> the extras: the
+    primary reads it and broadcasts each whole tensor in turn, every rank
+    keeps its part of one split over the model axis, and the model's and
+    optimizer's state dicts of those parts are set as full (over fsdp)
+    state dicts on every rank."""
     from torch.distributed.checkpoint.state_dict import (StateDictOptions, set_model_state_dict,
                                                          set_optimizer_state_dict)
     from torch.distributed.tensor import distribute_tensor
 
+    from ..parallel.tp_rules import shard_tensor
+
+    tp, dims = _split(state.model)
     blob = torch.load(path, map_location="cpu", weights_only=False) if mh.is_primary() else None
+    names = _param_names(state)
+
+    def layout(t):  # a tensor's (shape, dtype), anything else as it is
+        return ("tensor", tuple(t.shape), t.dtype) if torch.is_tensor(t) else ("value", t)
+
     meta = mh.broadcast_object(None if blob is None else {
         "step": blob["step"], "generator": blob["generator"], "extra": blob["extra"],
-        "grads": {n: (tuple(g.shape), g.dtype) for n, g in blob["grads"].items()}})
-    model_sd = optim_sd = {}
-    if blob is not None:
-        names = _param_names(state)
-        model_sd = blob["model"]
-        optim_sd = {"state": {names[i]: v for i, v in blob["optimizer"]["state"].items()},
-                    "param_groups": [{**g, "params": [names[i] for i in g["params"]]}
-                                     for g in blob["optimizer"]["param_groups"]]}
-    # one call each: set_state_dict takes a process without a model state
-    # dict for an optimizer-only load
-    opts = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
+        "model": {n: layout(t) for n, t in blob["model"].items()},
+        "optim": {names[i]: {k: layout(v) for k, v in st.items()}
+                  for i, st in blob["optimizer"]["state"].items()},
+        "groups": [{**g, "params": [names[i] for i in g["params"]]}
+                   for g in blob["optimizer"]["param_groups"]],
+        "grads": {n: layout(g) for n, g in blob["grads"].items()}})
+    dev = mh.device_type()
+
+    def part(name, desc, whole):
+        """This rank's part of a broadcast tensor (a value as it is)."""
+        if desc[0] == "value":
+            return desc[1]
+        t = whole.to(dev) if whole is not None else torch.empty(desc[1], dtype=desc[2],
+                                                                device=dev)
+        torch.distributed.broadcast(t, src=0)
+        dim = dims.get(name) if t.dim() else None
+        return t if dim is None else shard_tensor(t, dim, tp.rank, tp.size)
+
+    model_sd = {n: part(n, d, blob["model"][n] if blob else None)
+                for n, d in meta["model"].items()}
+    ids = {n: i for i, n in enumerate(names)}
+    optim_sd = {"state": {n: {k: part(n, d, blob["optimizer"]["state"][ids[n]][k] if blob
+                                      else None) for k, d in st.items()}
+                          for n, st in meta["optim"].items()},
+                "param_groups": meta["groups"]}
+    opts = StateDictOptions(full_state_dict=True)
     set_model_state_dict(state.model, model_sd, options=opts)
     set_optimizer_state_dict(state.model, state.optimizer, optim_sd, options=opts)
     params = dict(state.model.named_parameters())
-    for n, (shape, dtype) in meta["grads"].items():
+    for n, d in meta["grads"].items():
         p = params[n]
-        full = (blob["grads"][n] if blob is not None else torch.empty(shape, dtype=dtype))
-        full = full.to(p.device)
-        torch.distributed.broadcast(full, src=0)
-        p.grad = distribute_tensor(full, p.device_mesh, p.placements)
+        local = part(n, d, blob["grads"][n] if blob else None).to(p.device)
+        p.grad = distribute_tensor(local, p.device_mesh, p.placements)
     state.generator.set_state(meta["generator"])
     state.step = int(meta["step"])
     return meta["extra"]

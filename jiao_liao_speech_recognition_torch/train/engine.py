@@ -34,19 +34,24 @@ exact. The data order is
 the JAX package's seeded epoch plan (``data/pipeline.py``).
 
 Several processes (one per card, ``cli train --multihost``): under a
-process group ``train_loop`` builds the mesh of ``config.mesh`` and wraps
-the model with FSDP2 (parallel/mesh.py); each process collates and runs
-its rows of every global batch. What keeps N processes equal to one: the
-clip takes the norm over every gradient shard; the CTC loss's per-row
-mean and the Whisper / joint CE's masked mean are scaled so that the
-processes' averaged gradient is the global mean's, and every process logs
-the global batch's loss; SpecAugment and the waveform augmentation draw
-each row's values for the global batch (``batch["rows"]``), so a row is
-augmented alike on any topology. Dropout is not: the dropout seed has the
-process's rank folded in, so ranks draw independent masks. Host IO
-(metrics, the final bundle, checkpoint files) is the primary process's,
-mid-train evaluation runs only with one process, and a SIGTERM on any
-process stops all of them at one checkpoint.
+process group ``train_loop`` builds the mesh of ``config.mesh``, splits
+the model over its model axis and wraps it with FSDP2 (parallel/mesh.py);
+each (data, fsdp) rank collates and runs its rows of every global batch,
+the ranks of a model group the same rows. What keeps N processes equal to
+one: the clip takes the norm over every gradient shard, summing a split
+parameter's squares over its model group and counting a replicated one
+once; the CTC loss's per-row mean and the Whisper / joint CE's masked mean
+are scaled so that the (data, fsdp) ranks' averaged gradient is the
+global mean's, the sums running over those ranks (``batch["dp"]``), and
+every process logs the global batch's loss; SpecAugment and the waveform
+augmentation draw each row's values for the global batch
+(``batch["rows"]``), so a row is augmented alike on any topology. Dropout
+is not: the dropout seed has the (data, fsdp) rank folded in, so those
+ranks draw independent masks, and the ranks of a model group, which hold
+the same activations, equal ones. Host IO (metrics, the final bundle,
+checkpoint files) is the primary process's, mid-train evaluation runs only
+with one process, and a SIGTERM on any process stops all of them at one
+checkpoint.
 """
 
 from __future__ import annotations
@@ -129,16 +134,32 @@ def make_optimizer(cfg: OptimizerConfig, params) -> torch.optim.Optimizer:
     raise ValueError(f"unknown optimizer {cfg.name!r}")
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         split: Optional[List[bool]] = None, tp_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place -> the norm before clipping.
     FSDP2's gradients (DTensors) are clipped by the norm over all their
-    shards: each process's shard norms, combined over the fsdp group."""
+    shards: each process's shard norms, combined over the fsdp group. On a
+    model axis (`tp_group`), the squares of the gradients that `split`
+    marks (a rank's part of a split parameter) are also summed over the
+    model group; the others are whole on every rank of it and count once."""
     shards, group = _local_shards(grads)
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in shards]))
-    if group is not None and torch.distributed.get_world_size(group) > 1:
-        sq = norm * norm
-        torch.distributed.all_reduce(sq, group=group)
-        norm = sq.sqrt()
+    fsdp = group is not None and torch.distributed.get_world_size(group) > 1
+    if tp_group is not None:
+        sq = [torch.linalg.vector_norm(g).square() for g in shards]
+        zero = shards[0].new_zeros((), dtype=torch.float32)
+        parts = torch.stack([sum((q for q, s in zip(sq, split) if s), zero),
+                             sum((q for q, s in zip(sq, split) if not s), zero)])
+        if fsdp:
+            torch.distributed.all_reduce(parts, group=group)
+        torch.distributed.all_reduce(parts[0], group=tp_group)
+        norm = parts.sum().sqrt()
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in shards]))
+        if fsdp:
+            sq = norm * norm
+            torch.distributed.all_reduce(sq, group=group)
+            norm = sq.sqrt()
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(shards, factor)
     return norm
@@ -179,6 +200,9 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     info: Dict[str, Any] = field(default_factory=dict)
+    # on a model axis: the ids of the split parameters and the model group
+    tp_split: frozenset = frozenset()
+    tp_group: Any = None
 
     def trainable(self) -> List[torch.nn.Parameter]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
@@ -188,7 +212,13 @@ def init_state(config: ExperimentConfig, model: torch.nn.Module) -> TrainState:
     params = set_trainable(model, config.train.train_adapters_only)
     opt = make_optimizer(config.train.optimizer, params)
     gen = torch.Generator().manual_seed(config.train.seed)
-    return TrainState(0, model, opt, gen)
+    state = TrainState(0, model, opt, gen)
+    tp = getattr(model, "tp", None)  # split over a model axis (parallel/tp.py)
+    if tp is not None and tp.size > 1:
+        state.tp_group = tp.group
+        state.tp_split = frozenset(id(p) for n, p in model.named_parameters()
+                                   if n in model.tp_dims)
+    return state
 
 
 def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str, float]:
@@ -200,7 +230,8 @@ def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str,
     grads = [p.grad for p in params]
     if k > 1:
         torch._foreach_mul_(grads, 1.0 / k)
-    norm = clip_by_global_norm_(grads, cfg.grad_clip_norm)
+    norm = clip_by_global_norm_(grads, cfg.grad_clip_norm,
+                                [id(p) in state.tp_split for p in params], state.tp_group)
     lr = schedule(state.step // k - 1)  # updates taken before this one
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -234,13 +265,20 @@ def _specaugment(config: ExperimentConfig, feats, batch, seeds, train: bool):
 
 
 def data_parallel_world(batch) -> int:
-    """The process count when `batch` holds this process's rows of a
-    larger global batch (``batch["rows"]``, parallel/mesh.shard_batch),
-    else 1 (one process, or a ragged batch every process holds whole)."""
+    """The (data, fsdp) rank count when `batch` holds this rank's rows of
+    a larger global batch (``batch["rows"]`` and ``batch["dp"]``,
+    parallel/mesh.shard_batch), else 1 (one process, or a ragged batch
+    every process holds whole)."""
     rows = batch.get("rows")
     if rows is None or rows[1] == batch["audio"].shape[0]:
         return 1
-    return mh.process_count()
+    return batch["dp"][0]
+
+
+def _dp_sum(x: torch.Tensor, batch) -> torch.Tensor:
+    """x summed over the (data, fsdp) ranks that hold the global batch's
+    rows (every process, unless a model axis groups them)."""
+    return mh.all_sum(x, batch["dp"][1])
 
 
 def ctc_mean_loss(nll: torch.Tensor, label_lengths: torch.Tensor, batch):
@@ -255,8 +293,8 @@ def ctc_mean_loss(nll: torch.Tensor, label_lengths: torch.Tensor, batch):
         loss = per_row.mean()
         return loss, {"loss": loss.detach(), "nll_sum": nll.detach().sum()}
     G = batch["rows"][1]
-    return per_row.sum() * (world / G), {"loss": mh.all_sum(per_row.detach().sum()) / G,
-                                         "nll_sum": mh.all_sum(nll.detach().sum())}
+    return per_row.sum() * (world / G), {"loss": _dp_sum(per_row.detach().sum(), batch) / G,
+                                         "nll_sum": _dp_sum(nll.detach().sum(), batch)}
 
 
 def make_ctc_loss_fn(config: ExperimentConfig, model) -> Callable:
@@ -346,8 +384,8 @@ def global_masked_mean_ce(logits: torch.Tensor, targets: torch.Tensor, batch):
     valid = targets >= 0
     ce = cross_entropy_like_optax(logits, targets.clamp_min(0))
     local = (ce * valid).float().sum()
-    count = mh.all_sum(valid.sum()).clamp_min(1)
-    return local * (world / count), mh.all_sum(local.detach()).to(ce.dtype) / count
+    count = _dp_sum(valid.sum(), batch).clamp_min(1)
+    return local * (world / count), _dp_sum(local.detach(), batch).to(ce.dtype) / count
 
 
 def make_whisper_loss_fn(config: ExperimentConfig, model) -> Callable:
@@ -406,8 +444,10 @@ def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
 
     def train_step(state: TrainState, batch, kernels: bool = True):
         seeds = torch.randint(0, 2**62, (3,), generator=state.generator).tolist()
-        rank = mh.process_index()
-        if rank:  # independent dropout masks on each process
+        # independent dropout masks on each (data, fsdp) rank, equal ones
+        # within a model group
+        rank = batch["dp"][2] if "dp" in batch else mh.process_index()
+        if rank:
             seeds[1] = (seeds[1] + rank * 0x9E3779B97F4A7C15) % 2**62
         loss, metrics = loss_fn(batch, seeds, True, kernels)
         (loss / k if k > 1 else loss).backward()
@@ -521,9 +561,9 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     go to `logger`, or to a ``MetricsLogger`` of ``train.metrics_path`` (and
     ``train.use_wandb``) that this call opens and closes.
 
-    Under a process group the model is wrapped in place over the mesh of
-    ``config.mesh`` (parallel/mesh.py) and each process runs its rows of
-    every batch; without one, a mesh section that asks for ``fsdp_axis`` or
+    Under a process group the model is split and wrapped in place over the
+    mesh of ``config.mesh`` (parallel/mesh.py) and each (data, fsdp) rank
+    runs its rows of every batch; without one, a mesh section that asks for ``fsdp_axis`` or
     ``model_axis`` > 1 is noted in one warning and the loop runs on this
     card alone. Returns (state, info) with info = {"terminated",
     "last_metrics", "losses", "steps_per_sec", "mesh"}; losses are the
@@ -536,9 +576,16 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     tc = config.train
     device = next(model.parameters()).device
     mesh = None
+    rows_of = {}  # the loader's (data, fsdp) rank and count
     if mh.is_initialized():
+        if config.model_family == "joint" and config.mesh.model_axis > 1:
+            from ..parallel.tp import ITEM
+
+            raise NotImplementedError(f"the joint family on a model axis: {ITEM}")
         mesh = pmesh.build_mesh_for_batch(config.mesh, config.data.batch_size)
         pmesh.shard_model(mesh, model)
+        rows_of = {"process_index": pmesh.dp_rank(mesh),
+                   "process_count": mesh.size(0) * mesh.size(1)}
     elif config.mesh.fsdp_axis > 1 or config.mesh.model_axis > 1:
         warnings.warn(
             f"config.mesh asks for fsdp_axis={config.mesh.fsdp_axis}, "
@@ -553,7 +600,7 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     state = init_state(config, model)
     step_fn = make_train_step(make_loss_fn(config, model), tc.optimizer)
     it = PrefetchIterator(BatchIterator(manifest, tokenizer, config.data,
-                                        sample_rate=config.frontend.sample_rate),
+                                        sample_rate=config.frontend.sample_rate, **rows_of),
                           depth=max(config.data.num_host_workers, 1))
     ckpt = TrainCheckpointer(checkpoint_dir or tc.checkpoint_dir, tc.keep_checkpoints)
     if resume:

@@ -250,8 +250,9 @@ class DecodeConfig:
 class MeshConfig:
     """The training mesh (parallel/mesh.py): ``data`` replicates the model
     over batch shards, ``fsdp`` shards parameters and optimizer state
-    (FSDP2), ``model`` is tensor parallelism (not ported: it must stay 1).
-    Read only when a process group is up (``cli train --multihost``)."""
+    (FSDP2), ``model`` is Megatron tensor parallelism (parallel/tp.py).
+    Read only when a process group is up (``cli train --multihost``,
+    ``ModelBundle.load`` / ``shard``)."""
 
     data_axis: int = -1  # -1 = all remaining devices
     fsdp_axis: int = 1

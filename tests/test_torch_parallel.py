@@ -1,8 +1,8 @@
 """The port's mesh and its data split against the JAX package's
 ``parallel/mesh.py`` and ``data/pipeline.py``: mesh shapes and errors for
 the same inputs over conftest's 8 CPU devices, the FSDP placement rule,
-``shard_batch``'s rows, each process's ``BatchIterator`` rows, the refusal
-of tensor parallelism, ``checked(errors=...)`` for each of checkify's sets,
+``shard_batch``'s rows, each process's ``BatchIterator`` rows, the model
+axis's mesh shapes, ``checked(errors=...)`` for each of checkify's sets,
 and the one-process training loop against JAX's ``train_loop`` on its
 data x fsdp mesh."""
 
@@ -29,6 +29,7 @@ from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer as T
 from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel import mesh as tmesh  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel import multihost as mh  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import tp_rules  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils import profiling as tprof  # noqa: E402
 
@@ -75,10 +76,20 @@ def test_mesh_shape_and_errors_match_jax(n):
 
 
 def test_mesh_refuses_tensor_parallelism_and_idle_ranks():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tmesh.build_mesh(tcfg.MeshConfig(model_axis=2), world=2)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tmesh.build_mesh_for_batch(tcfg.MeshConfig(model_axis=2), 8, world=4)
+    """model_axis 2 gives JAX's (data, fsdp, 2) mesh (tensor parallelism
+    is ported; tests/test_torch_tp.py runs it), over 2-8 devices and
+    batches 1-9; idle ranks are still refused."""
+    for n in (2, 4, 6, 8):
+        for fsdp in (1, 2):
+            j, t = jcfg.MeshConfig(fsdp_axis=fsdp, model_axis=2), \
+                tcfg.MeshConfig(fsdp_axis=fsdp, model_axis=2)
+            devices = jax.devices()[:n]
+            got = _port_shape(lambda: tmesh.mesh_shape(t, n))
+            assert got == _jax_shape(lambda: jmesh.build_mesh(j, devices)), (n, fsdp)
+            assert got[0] == "err" or got[1][2] == 2
+            for batch in range(1, 10):
+                assert _port_shape(lambda: tmesh.mesh_shape(t, n, batch)) == \
+                    _jax_shape(lambda: jmesh.build_mesh_for_batch(j, batch, devices))
     # JAX takes a 3-device sub-mesh for a batch of 3 on 4 devices: a
     # process group cannot leave its fourth rank idle
     assert tmesh.mesh_shape(tcfg.MeshConfig(), 4, 3) == (3, 1, 1)
@@ -91,13 +102,22 @@ def test_mesh_refuses_tensor_parallelism_and_idle_ranks():
 @pytest.mark.parametrize("fsdp", [1, 2, 4])
 def test_placement_rule_shards_where_jax_shards(fsdp):
     """The largest axis of a >= 2-D parameter when fsdp divides it (JAX's
-    _fsdp_rule, on a 2 x fsdp CPU mesh); where JAX replicates, dim 0."""
+    _fsdp_rule, on a 2 x fsdp CPU mesh: tp_rules.fsdp_placement gives its
+    spec, the FSDP2 rule of shard_model its dim); where JAX replicates,
+    dim 0."""
     mesh = jmesh.build_mesh(jcfg.MeshConfig(fsdp_axis=fsdp), jax.devices()[:2 * fsdp])
-    jrule, trule = jmesh._fsdp_rule(mesh), tmesh.placement_rule(fsdp)
-    for shape in [(7,), (64,), (64, 4), (4, 64), (30, 64), (3, 5), (80, 512, 3), (6, 6)]:
+    jrule = jmesh._fsdp_rule(mesh)
+    model = torch.nn.Module()
+    shapes = [(7,), (64,), (64, 4), (4, 64), (30, 64), (3, 5), (80, 512, 3), (6, 6)]
+    for i, shape in enumerate(shapes):
+        model.register_parameter(f"w{i}", torch.nn.Parameter(torch.zeros(shape)))
+    trule = tmesh.model_placement_rule(model, 1, fsdp)
+    for shape, p in zip(shapes, model.parameters()):
         spec = tuple(jrule(np.zeros(shape, np.float32)).spec)
+        spec += (None,) * (len(shape) - len(spec))
+        assert tp_rules.fsdp_placement(shape, fsdp) == spec, (shape, spec)
         axis = spec.index("fsdp") if "fsdp" in spec else 0
-        assert trule(torch.zeros(shape)).dim == axis, (shape, spec)
+        assert trule(p).dim == axis, (shape, spec)
 
 
 class _Mesh:

@@ -1,0 +1,512 @@
+"""The port's tensor parallelism against the JAX package's
+(``parallel/tp_rules.py``, the model half of ``parallel/mesh.py``,
+``ModelBundle.shard``): every parameter's placement against
+``tp_param_sharding`` / ``fsdp_tp_sharding`` on conftest's 8 CPU devices,
+and the port's ranks on gloo (tests/torch_tp_worker.py, spawned once for
+the module as tests/torch_ranks.py spawns them) against JAX's one-device
+results at JAX's own bars (tests/test_tp.py, tests/test_mesh_train.py):
+one train step at data 2 x model 2, sharded greedy tokens, sharded
+transcribe texts, train_loop at fsdp 2 x model 2, the dry run's TP cases
+and checkpoints crossing between a TP run and one process, equal dropout
+masks in a model group; and, on the CPU alone, the padded K5 pack and
+the paths refused on a split model."""
+
+import dataclasses
+import json
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from torch_ranks import spawn  # noqa: E402
+
+from jiao_liao_speech_recognition_tpu.data import CharTokenizer as JTok  # noqa: E402
+from jiao_liao_speech_recognition_tpu.data import Manifest, ManifestRow  # noqa: E402
+from jiao_liao_speech_recognition_tpu.data import write_manifest  # noqa: E402
+from jiao_liao_speech_recognition_tpu.data.pipeline import Batch as JBatch  # noqa: E402
+from jiao_liao_speech_recognition_tpu.decode.whisper_generate import greedy_generate  # noqa: E402
+from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav  # noqa: E402
+from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle as JBundle  # noqa: E402
+from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel as JWhisper  # noqa: E402
+from jiao_liao_speech_recognition_tpu.parallel import mesh as jmesh  # noqa: E402
+from jiao_liao_speech_recognition_tpu.parallel.tp_rules import fsdp_tp_sharding  # noqa: E402
+from jiao_liao_speech_recognition_tpu.parallel.tp_rules import tp_param_sharding  # noqa: E402
+from jiao_liao_speech_recognition_tpu.train import engine as jeng  # noqa: E402
+from jiao_liao_speech_recognition_tpu.utils import config as jcfg  # noqa: E402
+from jiao_liao_speech_recognition_torch.models import convert  # noqa: E402
+from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle  # noqa: E402
+from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel  # noqa: E402
+from jiao_liao_speech_recognition_torch.models.whisper import WhisperModel  # noqa: E402
+from jiao_liao_speech_recognition_torch.ops import fused_mlp as tfm  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import dryrun  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import tp as ttp  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import tp_rules  # noqa: E402
+from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E402
+
+# JAX's bars for a TP step against one device (tests/test_tp.py)
+STEP_LOSS_BAR = 2e-5
+STEP_PARAM_BAR = 1e-4
+# and for the production loop on a mesh against one device
+# (tests/test_mesh_train.py)
+LOOP_BAR = 1e-4
+# N processes against one (tests/test_multihost.py, as
+# tests/test_torch_multihost.py holds the dry run)
+BAR = dict(rtol=2e-4, atol=1e-6)
+WORLD = 4
+DRYRUN_STEPS = 2
+
+JCFG = jcfg.ExperimentConfig(
+    model_family="whisper",
+    whisper=jcfg.WhisperConfig(vocab_size=64, d_model=64, encoder_layers=1, decoder_layers=1,
+                               num_heads=4, mlp_dim=128, max_target_positions=32,
+                               dtype="float32", use_flash_attention=False,
+                               max_source_positions=64),
+    specaugment=jcfg.SpecAugmentConfig(enabled=False),
+)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _step_batch():
+    """tests/test_tp.py's _batch (B=8, 8000 samples, 5 labels), seeded."""
+    rng = np.random.RandomState(0)
+    return dict(audio=rng.randn(8, 8000).astype(np.float32) * 0.1,
+                audio_lengths=np.full((8,), 8000, np.int32),
+                labels=rng.randint(3, 64, (8, 5)).astype(np.int32),
+                label_lengths=np.full((8,), 5, np.int32))
+
+
+def _mesh_cfg():
+    """tests/test_mesh_train.py's _cfg(batch=8, steps=4, adapters=True)."""
+    cfg = jcfg.ExperimentConfig(
+        model_family="ctc",
+        ctc_model=jcfg.CTCModelConfig(vocab_size=24, d_model=64, num_layers=1, num_heads=4,
+                                      mlp_dim=128, conv_channels=32, dtype="float32",
+                                      use_flash_attention=False, dropout=0.0,
+                                      adapter=jcfg.AdapterConfig(kind="wf", wf_rank=4)),
+        specaugment=jcfg.SpecAugmentConfig(enabled=False),
+        data=jcfg.DataConfig(batch_size=8, bucket_boundaries_seconds=(1.5,),
+                             min_audio_seconds=0.1, max_text_len=8),
+        mesh=jcfg.MeshConfig(data_axis=1))
+    cfg.train.optimizer = jcfg.OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
+                                               total_steps=4, schedule="constant")
+    cfg.train.train_adapters_only = True
+    return cfg
+
+
+def _jax_refs(src, manifest, out):
+    """The JAX package's one-device results, at "highest" matmul precision
+    (the port computes in full f32)."""
+    with jax.default_matmul_precision("highest"):
+        params = JBundle._init_params(JCFG)
+        host = _step_batch()
+        batch = jeng.batch_to_device(JBatch(texts=[""] * 8, bucket_seconds=0.5, **host),
+                                     family="whisper", whisper_prompt=(1, 2), eot_id=0)
+        cfg = dataclasses.replace(JCFG)
+        cfg.train.optimizer = jcfg.OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
+                                                   total_steps=5, schedule="constant")
+        _, _, tx, step = jeng.build_train_setup(cfg, params)
+        st1, m1 = step(jeng.init_state(cfg, tx, params), batch)
+        out["step_loss"] = float(m1["loss"])
+        out["step_params"] = convert.whisper_params_to_state_dict(_np(st1.params))
+
+        params = JBundle._init_params(JCFG)  # the step donated the first copy
+        mel = jnp.asarray(np.load(src / "mel.npy"))
+        gen, lens = jax.jit(lambda p, m: greedy_generate(
+            JWhisper(JCFG.whisper), p, m, max_len=10, prompt=(1, 2), eot_id=0))(params, mel)
+        out["tokens"], out["lengths"] = np.asarray(gen).tolist(), np.asarray(lens).tolist()
+
+        tcfg_ = dataclasses.replace(JCFG)
+        tcfg_.frontend = dataclasses.replace(tcfg_.frontend, chunk_seconds=0.5)
+        bundle = JBundle(config=tcfg_, params=params, tokenizer=JTok.build(["abc def"]))
+        out["texts"] = bundle.transcribe(sorted(str(p) for p in src.glob("u*.wav")))
+
+        mcfg = _mesh_cfg()
+        mcfg.train.checkpoint_dir = str(src / "jax_ck")
+        tok = JTok.build(manifest.texts())
+        mcfg.ctc_model.vocab_size = len(tok)
+        state, info = jeng.train_loop(mcfg, manifest, tok, JBundle._init_params(mcfg))
+        out["loop_loss"] = info["last_metrics"]["loss"]
+        out["loop_params"] = convert.params_to_state_dict(_np(state.params))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Inputs written once; the world-4 ranks (one spawn) beside the JAX
+    references (a thread); the dry run's one-process references before
+    the spawn and the TP checkpoint resumed in one process after it."""
+    src = tmp_path_factory.mktemp("tp_in")
+    dst = tmp_path_factory.mktemp("tp_out")
+    work = dst / "dryrun"
+    with jax.default_matmul_precision("highest"):
+        convert.write_npz_params(_np(JBundle._init_params(JCFG)), src / "whisper.npz")
+    np.savez(src / "step_batch.npz", **_step_batch())
+    np.save(src / "mel.npy", np.random.RandomState(1).randn(4, 80, 64).astype(np.float32) * 0.3)
+    for i, f in enumerate((300, 700, 1100, 1500)):
+        wav = (0.2 * np.sin(2 * np.pi * f * np.arange(8000) / 16000)).astype(np.float32)
+        write_wav(str(src / f"u{i}.wav"), wav, 16000)
+    (src / "vocab.json").write_text(json.dumps({"vocab": JTok.build(["abc def"]).vocab}))
+    rng = np.random.RandomState(2)
+    texts = ["你好", "世界", "胶辽", "官话", "语音", "识别", "大海", "山东"]
+    rows = []
+    for i in range(8):
+        write_wav(src / f"r{i}.wav", (rng.randn(16000) * 0.1).astype(np.float32), 16000)
+        rows.append(ManifestRow(str(src / f"r{i}.wav"), texts[i], 1.0, "jiaoliao"))
+    manifest = Manifest(rows)
+    write_manifest(rows, str(src / "train.jsonl"))
+    mcfg = _mesh_cfg()
+    tok = JTok.build(manifest.texts())
+    mcfg.ctc_model.vocab_size = len(tok)
+    convert.write_npz_params(_np(JBundle._init_params(mcfg)), src / "ctc.npz")
+    (src / "train_loop.json").write_text(json.dumps({
+        "manifest": str(src / "train.jsonl"), "vocab": tok.vocab, "vocab_size": len(tok)}))
+
+    ref = {fam: dryrun.run_case(fam, 1, work, steps=DRYRUN_STEPS) for fam in ("ctc", "whisper")}
+    ckpt1 = work / "ctc_w1_f1" / "ckpt"
+    ref["ctc_resumed"] = dryrun.run_case("ctc", 1, work, steps=DRYRUN_STEPS, resume_from=ckpt1,
+                                         tag="_resumed")
+    jax_out = {}
+    thread = threading.Thread(target=_jax_refs, args=(src, manifest, jax_out))
+    thread.start()
+    try:
+        results = spawn(["tests/torch_tp_worker.py", "--in", str(src), "--out", str(dst),
+                         "--resume", str(ckpt1)], WORLD, timeout=240)
+    finally:
+        thread.join()
+    for rank, (rc, text) in enumerate(results):
+        assert rc == 0, f"rank {rank} exited {rc}:\n{text[-4000:]}"
+    ranks = [json.loads((dst / f"rank{r}.json").read_text()) for r in range(WORLD)]
+    from_tp = dryrun.run_case("ctc", 1, work, steps=DRYRUN_STEPS,
+                              resume_from=work / "ctc_w4_f2_m2" / "ckpt", tag="_from_tp")
+    return {"src": src, "dst": dst, "work": work, "ranks": ranks, "jax": jax_out, "ref": ref,
+            "from_tp": from_tp}
+
+
+# ------------------------------------------------------------------ rules
+
+_PARAMS = {}
+
+
+def _jax_params(family: str, adapter: str):
+    key = (family, adapter)
+    if key not in _PARAMS:
+        ad = jcfg.AdapterConfig(kind=adapter, wf_rank=4, att_num_heads=2, att_key_dim=16)
+        if family == "whisper":
+            cfg = dataclasses.replace(JCFG, whisper=dataclasses.replace(JCFG.whisper, adapter=ad))
+        else:
+            cfg = jcfg.ExperimentConfig(ctc_model=jcfg.CTCModelConfig(
+                vocab_size=24, d_model=64, num_layers=2, num_heads=4, mlp_dim=128,
+                conv_channels=32, dtype="float32", adapter=ad))
+        _PARAMS[key] = _np(JBundle._init_params(cfg))
+    return _PARAMS[key]
+
+
+def _spec(sharding, nd):
+    spec = tuple(sharding.spec)
+    return spec + (None,) * (nd - len(spec))
+
+
+@pytest.mark.parametrize("fsdp", [1, 2])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("adapter", ["none", "wf", "att"])
+@pytest.mark.parametrize("family", ["whisper", "ctc"])
+def test_placement_of_every_parameter_matches_jax(family, adapter, tp, fsdp):
+    """Every parameter's placement by the port's rules (its name and JAX's
+    shape) equals tp_param_sharding's and fsdp_tp_sharding's spec; the
+    port model's own split set is the parameters JAX splits over model."""
+    params = _jax_params(family, adapter)
+    mesh = jmesh.build_mesh(jcfg.MeshConfig(fsdp_axis=fsdp, model_axis=tp), jax.devices())
+    to_key = convert.whisper_torch_key if family == "whisper" else convert.torch_key
+    tp_sh = jax.tree_util.tree_leaves_with_path(tp_param_sharding(mesh, params))
+    both = jax.tree_util.tree_leaves_with_path(fsdp_tp_sharding(mesh, params))
+    leaves = {tuple(str(getattr(k, "key", k)) for k in kp): v
+              for kp, v in jax.tree_util.tree_leaves_with_path(params)}
+    split = set()
+    for (kp, a), (_, b) in zip(tp_sh, both):
+        path = tuple(str(getattr(k, "key", k)) for k in kp)
+        shape, name = leaves[path].shape, to_key(path)
+        assert tp_rules.tp_placement(name, shape, tp) == _spec(a, len(shape)), name
+        assert tp_rules.fsdp_tp_placement(name, shape, tp, fsdp) == _spec(b, len(shape)), name
+        if "model" in _spec(a, len(shape)):
+            split.add(name)
+    assert split, "no parameter split over model"
+    port = _port_model(family, adapter)
+    assert set(ttp.split_dims(port, tp)) == split
+
+
+def _port_model(family, adapter):
+    ad = tcfg.AdapterConfig(kind=adapter, wf_rank=4, att_num_heads=2, att_key_dim=16)
+    if family == "whisper":
+        return WhisperModel(tcfg.WhisperConfig(**{**dataclasses.asdict(JCFG.whisper),
+                                                  "adapter": ad}))
+    return CTCEncoderModel(tcfg.CTCModelConfig(vocab_size=24, d_model=64, num_layers=2,
+                                               num_heads=4, mlp_dim=128, conv_channels=32,
+                                               dtype="float32", adapter=ad))
+
+
+@pytest.mark.parametrize("case", ["step", "train_loop"])
+def test_split_shards_and_adam_moments_follow_the_rules(runs, case):
+    """On the ranks, each parameter holds its model-axis part (the whole
+    shape over tp along the split dim) sharded over fsdp along the dim
+    fsdp_tp_sharding gives (else dim 0), and Adam's moments have their
+    parameter's shape and placements (JAX's opt_state_sharding)."""
+    tp = 2
+    fsdp = 2 if case == "train_loop" else 1
+    whole = (_port_model("whisper", "none") if case == "step"
+             else CTCEncoderModel(tcfg.CTCModelConfig(
+                 vocab_size=runs["ranks"][0]["train_loop"]["placements"]["ctc_head.kernel"]
+                 ["shape"][1], d_model=64, num_layers=1, num_heads=4, mlp_dim=128,
+                 conv_channels=32, dtype="float32", adapter=tcfg.AdapterConfig(kind="wf",
+                                                                               wf_rank=4))))
+    shapes = {n: tuple(p.shape) for n, p in whole.named_parameters()}
+    for rank in runs["ranks"]:
+        recs = rank[case]["placements"]
+        assert set(recs) == set(shapes)
+        moments = 0
+        for name, rec in recs.items():
+            spec = tp_rules.fsdp_tp_placement(name, shapes[name], tp, fsdp)
+            want = [s // tp if p == "model" else s for s, p in zip(shapes[name], spec)]
+            assert rec["shape"] == want, name
+            dim = spec.index("fsdp") if "fsdp" in spec else 0
+            assert rec["placements"][-1] in (f"S({dim})", f"Shard(dim={dim})"), (name, rec)
+            for shape, placements in rec["moments"]:
+                assert shape == rec["shape"] and placements == rec["placements"], name
+                moments += 1
+        assert moments >= 2 * sum(p.requires_grad for p in whole.parameters()) or \
+            case == "train_loop"
+
+
+# ------------------------------------------------------------- the paths
+
+
+def test_tp_step_matches_jax_one_device(runs):
+    """One train step at data 2 x model 2 from JAX's weights: the global
+    loss within 2e-5 of JAX's one-device step on every rank, every updated
+    parameter within 1e-4 (tests/test_tp.py's bars)."""
+    want = runs["jax"]
+    for rank in runs["ranks"]:
+        assert rank["step"]["mesh"] == [2, 1, 2]
+        assert abs(rank["step"]["loss"] - want["step_loss"]) < STEP_LOSS_BAR
+    with np.load(runs["dst"] / "step_params.npz") as got:
+        assert sorted(got.files) == sorted(want["step_params"])
+        worst = max(float(np.abs(got[k] - want["step_params"][k].numpy()).max())
+                    for k in got.files)
+    assert worst < STEP_PARAM_BAR, worst
+    assert runs["ranks"][0]["step"]["tp_dims"]["decoder.embed_tokens.embedding"] == 0
+
+
+def test_sharded_greedy_matches_jax(runs):
+    """Greedy decode of a model split over 2 ranks (2 of 4 heads each) on
+    each data rank's rows: JAX's one-device tokens and lengths."""
+    for rank in runs["ranks"]:
+        g = rank["greedy"]
+        assert g["local_heads"] == 2
+        assert g["tokens"] == runs["jax"]["tokens"]
+        assert g["lengths"] == runs["jax"]["lengths"]
+
+
+def test_bundle_shard_transcribe_matches_jax(runs):
+    """ModelBundle.shard() on a data 2 x model 2 mesh, then transcribe of
+    four WAVs (two a data rank): JAX's texts, on every rank; save() of the
+    split bundle writes the whole weights."""
+    for rank in runs["ranks"]:
+        assert rank["transcribe"]["mesh"] == [2, 1, 2]
+        assert rank["transcribe"]["texts"] == runs["jax"]["texts"]
+    # saved whole: the weights it was split from, bit for bit
+    saved = convert.read_npz_params(runs["dst"] / "sharded_bundle" / "params.npz")
+    whole = convert.read_npz_params(runs["src"] / "whisper.npz")
+    flat = convert.flatten_params
+    assert sorted(flat(saved)) == sorted(flat(whole))
+    for k, v in flat(whole).items():
+        np.testing.assert_array_equal(flat(saved)[k], v)
+
+
+def test_train_loop_at_fsdp_and_model_axes_matches_jax(runs):
+    """train_loop at fsdp 2 x model 2 (WF adapters trained): the last loss
+    within 1e-4 of JAX's one-device train_loop on every rank, the CTC head
+    and every adapter within 1e-4 (tests/test_mesh_train.py's bars)."""
+    want = runs["jax"]
+    for rank in runs["ranks"]:
+        rec = rank["train_loop"]
+        assert rec["mesh"] == [1, 2, 2] and len(rec["losses"]) == 4
+        assert abs(rec["losses"][-1] - want["loop_loss"]) < LOOP_BAR
+        assert "blocks.0.self_attn.q_proj.kernel" in rec["split"]
+    with np.load(runs["dst"] / "loop_params.npz") as got:
+        for k in got.files:
+            if "adapter" in k or k.startswith("ctc_head"):
+                assert np.abs(got[k] - want["loop_params"][k].numpy()).max() < LOOP_BAR, k
+
+
+@pytest.mark.parametrize("case,family", [("ctc:2x2", "ctc"), ("whisper:1x2", "whisper")])
+def test_dryrun_model_axis_gives_the_one_process_losses(runs, case, family):
+    """The dry run's TP cases (fsdp 2 x model 2; data 2 x model 2 for the
+    Whisper model, whose ranks hold different target counts): each step's
+    global loss and pre-clip gradient norm equal the one-process run's;
+    every rank logs the same losses."""
+    recs = [r["dryrun"][case] for r in runs["ranks"]]
+    ref = runs["ref"][family]
+    primary = recs[0]
+    assert primary["mesh"] == ([1, 2, 2] if case == "ctc:2x2" else [2, 1, 2])
+    np.testing.assert_allclose(primary["logged_losses"], ref["logged_losses"], **BAR)
+    np.testing.assert_allclose(primary["grad_norms"], ref["grad_norms"], **BAR)
+    for r in recs:
+        np.testing.assert_allclose(r["losses"], primary["losses"], rtol=1e-6, atol=0)
+
+
+def test_tp_checkpoint_resumes_in_one_process_in_lockstep(runs):
+    """ctc:2x2's step-2 checkpoint restored in one process continues with
+    the one-process run's own resume's losses and norms."""
+    ref, got = runs["ref"]["ctc_resumed"], runs["from_tp"]
+    assert ref["final_step"] == got["final_step"] == 2 * DRYRUN_STEPS
+    np.testing.assert_allclose(got["logged_losses"], ref["logged_losses"], **BAR)
+    np.testing.assert_allclose(got["grad_norms"], ref["grad_norms"], **BAR)
+
+
+def test_one_process_checkpoint_resumes_under_tp_in_lockstep(runs):
+    ref = runs["ref"]["ctc_resumed"]
+    recs = [r["dryrun"]["ctc:2x2_resumed"] for r in runs["ranks"]]
+    assert all(r["final_step"] == 2 * DRYRUN_STEPS for r in recs)
+    np.testing.assert_allclose(recs[0]["logged_losses"], ref["logged_losses"], **BAR)
+    np.testing.assert_allclose(recs[0]["grad_norms"], ref["grad_norms"], **BAR)
+
+
+def test_tp_checkpoint_is_the_one_process_layout(runs):
+    """The TP run's state.pt holds the one-process keys and whole shapes
+    (model, Adam's state by integer id), values within 1e-4."""
+    from jiao_liao_speech_recognition_torch.train.checkpoints import TrainCheckpointer
+
+    def blob(name):
+        d = TrainCheckpointer(str(runs["work"] / name / "ckpt")).dir
+        return torch.load(d / f"{DRYRUN_STEPS:08d}" / "state.pt", weights_only=False)
+
+    a, b = blob("ctc_w1_f1"), blob("ctc_w4_f2_m2")
+    assert list(a["model"]) == list(b["model"]) and b["step"] == DRYRUN_STEPS
+    for k, v in a["model"].items():
+        assert v.shape == b["model"][k].shape and not hasattr(b["model"][k], "to_local")
+        np.testing.assert_allclose(b["model"][k].numpy(), v.numpy(), rtol=0, atol=1e-4)
+    assert list(a["optimizer"]["state"]) == list(b["optimizer"]["state"])
+    for i, st in a["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert tuple(v.shape) == tuple(b["optimizer"]["state"][i][k].shape), (i, k)
+
+
+def test_dropout_masks_equal_within_a_model_group(runs):
+    """With dropout 0.1 in training (MLP hidden units split, bottleneck
+    slots replicated), the two ranks of a model group give the same
+    log-probs, and each equals the unsplit model's under the same seed (the
+    split dropout keeps its rank's columns of the whole layer's mask);
+    the two data ranks, seeded apart, differ."""
+    ranks = runs["ranks"]
+    out = [np.asarray(r["dropout"]["split"]) for r in ranks]
+    np.testing.assert_array_equal(out[0], out[1])
+    np.testing.assert_array_equal(out[2], out[3])
+    for r, o in zip(ranks, out):
+        np.testing.assert_allclose(o, np.asarray(r["dropout"]["whole"]), rtol=0, atol=1e-5)
+    assert np.abs(out[0] - out[2]).max() > 1e-3
+
+
+def test_cli_train_multihost_takes_a_model_axis(runs):
+    """`cli train --multihost` of configs/adapter_finetune.yaml (tiny
+    widths) with mesh.model_axis=2 on the four ranks: rc 0 everywhere, a
+    loss a step on a 2 x 1 x 2 mesh, and the primary's final bundle loads
+    in one process (unsharded, with the warning) and transcribes."""
+    from jiao_liao_speech_recognition_torch import api
+
+    assert [r["cli"] for r in runs["ranks"]] == [0] * WORLD
+    recs = [json.loads(x) for x in (runs["dst"] / "cli.jsonl").read_text().splitlines()]
+    assert sum("loss" in r for r in recs) == 2
+    with pytest.warns(UserWarning, match="no process group"):
+        bundle = api.load(str(runs["dst"] / "cli_ckpt" / "final"), device="cpu")
+    assert bundle.config.mesh.model_axis == 2 and bundle.mesh is None
+    assert len(bundle.transcribe([str(runs["src"] / "r0.wav")])) == 1
+
+
+# ------------------------------------------------------------ CPU only
+
+
+@pytest.mark.parametrize("width", [320, 640, 384])
+def test_padded_qkv_pack_equals_unpadded(width):
+    """pack_qkv(pad_to=128) at a rank's width (3 x 320 = 960 at large-v3 on
+    four ranks): K5's plain version reads the same q, k and v, bit for
+    bit, and the pad columns are zero."""
+    rng = np.random.RandomState(width)
+    t = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(torch.bfloat16)
+         for s in ((256, width),) * 3 + ((width,),) * 2]
+    wq, wk, wv, bq, bv = t
+    x = torch.from_numpy(rng.randn(2, 5, 256).astype(np.float32)).to(torch.bfloat16)
+    g, b = torch.ones(256), torch.zeros(256)
+    w0, b0 = tfm.pack_qkv(wq, bq, wk, wv, bv)
+    w1, b1 = tfm.pack_qkv(wq, bq, wk, wv, bv, pad_to=128)
+    assert w1.shape[1] % 128 == 0 and w1.shape[1] - 3 * width < 128
+    assert not w1[:, 3 * width:].any() and not b1[3 * width:].any()
+    for a, c in zip(tfm.ln_qkv_plain(x, g, b, w0, b0), tfm.fused_ln_qkv(x, g, b, w1, b1,
+                                                                          width=width)):
+        assert torch.equal(a, c)
+
+
+def test_split_wf_block_keeps_its_folds_until_an_insert_changes():
+    """A split WF block's folded serving operands (packed q/k/v, wo, fc1,
+    fc2) are built once and kept until a kernel or an insert changes in
+    place; then they are built anew and equal a fresh fold."""
+    from jiao_liao_speech_recognition_torch.models.layers import TransformerBlock
+
+    gen = torch.Generator().manual_seed(0)
+    block = TransformerBlock(64, 4, 128, gen, adapter=tcfg.AdapterConfig(kind="wf", wf_rank=4))
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith("adapter_wf.b"):
+                p.normal_(0.0, 0.1, generator=gen)
+    ttp.apply_tp(block, ttp.TPGroup(1, 2))
+    bf = torch.bfloat16
+    with torch.no_grad():
+        attn, mlp = block._attention_weights(bf), block._mlp_weights(bf)
+        assert block._attention_weights(bf) is attn and block._mlp_weights(bf) is mlp
+        block.self_attn.q_proj.adapter_wf.b.add_(0.5)
+        block.mlp.fc2.adapter_wf.g.mul_(2.0)
+        attn2, mlp2 = block._attention_weights(bf), block._mlp_weights(bf)
+        q = block._folded(block.self_attn.q_proj, torch.float32).to(bf)
+        assert not torch.equal(attn2[0][:, :q.shape[1]], attn[0][:, :q.shape[1]])
+        assert torch.equal(attn2[0][:, :q.shape[1]], q)
+        assert torch.equal(mlp2[0], mlp[0]) and not torch.equal(mlp2[1], mlp[1])
+        assert torch.equal(mlp2[1], block._folded(block.mlp.fc2, bf))
+
+
+def test_split_model_refuses_the_paths_not_ported():
+    """On a split model (here rank 1 of 2, no collective run), int8
+    serving, the AR beam, Whisper timestamps, the CTC beams, the serving
+    engine and streaming raise, naming the ROADMAP item; heads that do not
+    divide raise ValueError."""
+    from jiao_liao_speech_recognition_torch.decode.whisper_generate import beam_from_enc
+    from jiao_liao_speech_recognition_torch.serve.engine import ServingEngine
+    from jiao_liao_speech_recognition_torch.serve.streaming import StreamingTranscriber
+
+    model = _port_model("whisper", "none")
+    bundle = ModelBundle(tcfg.ExperimentConfig(model_family="whisper", whisper=model.cfg),
+                         model, None)
+    ttp.apply_tp(bundle.model, ttp.TPGroup(1, 2))
+    assert bundle.model.decoder.blocks[0].cross_attn.num_heads == 2
+    assert bundle.model.decoder.embed_tokens.embedding.shape == (32, 64)
+    for call in (bundle.quantize, lambda: ServingEngine(bundle),
+                 lambda: bundle.transcribe_timed(np.zeros(800, np.float32)),
+                 lambda: beam_from_enc(bundle.model, torch.zeros(1, 4, 64))):
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            call()
+    ctc = ModelBundle(tcfg.ExperimentConfig(), CTCEncoderModel(tcfg.CTCModelConfig(
+        vocab_size=24, d_model=64, num_layers=1, num_heads=4, mlp_dim=128, conv_channels=32)),
+        None)
+    ttp.apply_tp(ctc.model, ttp.TPGroup(0, 2))
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        StreamingTranscriber(ctc)
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        ctc._ctc_beam_ids(np.zeros((1, 1600), np.float32), np.array([1600]),
+                          tcfg.DecodeConfig(strategy="beam_device"))
+    odd = CTCEncoderModel(tcfg.CTCModelConfig(vocab_size=24, d_model=96, num_layers=1,
+                                              num_heads=3, mlp_dim=128, conv_channels=32))
+    with pytest.raises(ValueError, match="heads do not divide"):
+        ttp.apply_tp(odd, ttp.TPGroup(0, 2))

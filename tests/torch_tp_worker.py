@@ -1,0 +1,225 @@
+"""One rank of tests/test_torch_tp.py's process group (gloo, world 4): the
+port's tensor-parallel paths on the inputs the test wrote to ``--in``,
+each rank's results as JSON (and rank 0's tensors as npz) in ``--out``.
+
+    python tests/torch_tp_worker.py --in DIR --out DIR   (under torch_ranks.spawn)
+
+Cases, in order, each on its own mesh of the world:
+* step: the Whisper config of tests/test_tp.py, one train step at data 2
+  x model 2 from the JAX package's weights; the loss, the updated weights
+  (joined), each parameter's and Adam moment's placement;
+* greedy: sharded greedy decode (data 2 x model 2; each (data) rank its
+  rows of the batch, tokens joined);
+* transcribe: ModelBundle.shard + transcribe of the test's WAVs, then save;
+* train_loop: tests/test_mesh_train.py's CTC config with WF adapters at
+  fsdp 2 x model 2, 4 steps; the losses and the joined weights;
+* dropout: a CTC model with dropout 0.1 in training at data 2 x model 2:
+  each rank's log-probs, and the one-process model's with the same seed;
+* dryrun: the dry run's ``ctc:2x2`` (with a checkpoint), ``whisper:1x2``
+  and ``ctc:2x2`` resumed from the one-process checkpoint ``--resume``;
+* cli: ``cli train --multihost`` of configs/adapter_finetune.yaml cut to
+  tiny widths with ``mesh.model_axis=2`` (it leaves the group at its end).
+"""
+
+import argparse
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from jiao_liao_speech_recognition_torch import cli  # noqa: E402
+from jiao_liao_speech_recognition_torch.data.manifest import read_manifest  # noqa: E402
+from jiao_liao_speech_recognition_torch.data.pipeline import Batch  # noqa: E402
+from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer  # noqa: E402
+from jiao_liao_speech_recognition_torch.decode.whisper_generate import greedy_generate  # noqa: E402
+from jiao_liao_speech_recognition_torch.models import convert  # noqa: E402
+from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle  # noqa: E402
+from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel  # noqa: E402
+from jiao_liao_speech_recognition_torch.models.whisper import WhisperModel  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import dryrun  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import mesh as pmesh  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel import multihost as mh  # noqa: E402
+from jiao_liao_speech_recognition_torch.parallel.tp import apply_tp  # noqa: E402
+from jiao_liao_speech_recognition_torch.train import engine  # noqa: E402
+from jiao_liao_speech_recognition_torch.utils import config as c  # noqa: E402
+
+WHISPER = c.WhisperConfig(vocab_size=64, d_model=64, encoder_layers=1, decoder_layers=1,
+                          num_heads=4, mlp_dim=128, max_target_positions=32, dtype="float32",
+                          use_flash_attention=False, max_source_positions=64)
+
+
+def whisper_cfg(**mesh) -> c.ExperimentConfig:
+    """tests/test_tp.py's CFG (and its optimizer) in the port's config."""
+    cfg = c.ExperimentConfig(model_family="whisper", whisper=dataclasses.replace(WHISPER),
+                             specaugment=c.SpecAugmentConfig(enabled=False),
+                             mesh=c.MeshConfig(**mesh))
+    cfg.train.optimizer = c.OptimizerConfig(learning_rate=1e-3, warmup_steps=0, total_steps=5,
+                                            schedule="constant")
+    return cfg
+
+
+def whisper_model(src: Path) -> WhisperModel:
+    model = WhisperModel(WHISPER)
+    model.load_state_dict(convert.whisper_params_to_state_dict(
+        convert.read_npz_params(src / "whisper.npz")))
+    return model
+
+
+def gather_rows(obj, mesh):
+    """Each (data, fsdp) rank's `obj` (a list), in rank order, on every rank."""
+    parts = [None] * mh.process_count()
+    torch.distributed.all_gather_object(parts, obj)
+    tp = mesh.size(2)
+    return [x for r in range(0, len(parts), tp) for x in parts[r]]
+
+
+def placements(model, optimizer) -> dict:
+    """name -> (DTensor shape, placements, local shape) of each parameter,
+    and of its Adam moments."""
+    out = {}
+    for name, p in model.named_parameters():
+        rec = {"shape": list(p.shape), "placements": [str(x) for x in p.placements],
+               "local": list(p.to_local().shape)}
+        st = optimizer.state.get(p, {})
+        rec["moments"] = [[list(v.shape), [str(x) for x in v.placements]]
+                          for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")]
+        out[name] = rec
+    return out
+
+
+def case_step(src: Path, dst: Path) -> dict:
+    cfg = whisper_cfg(data_axis=2, model_axis=2)
+    model = whisper_model(src)
+    mesh = pmesh.build_mesh_for_batch(cfg.mesh, 8)
+    pmesh.shard_model(mesh, model)
+    state = engine.init_state(cfg, model)
+    with np.load(src / "step_batch.npz") as z:
+        host = Batch(audio=z["audio"], audio_lengths=z["audio_lengths"], labels=z["labels"],
+                     label_lengths=z["label_lengths"], texts=[""] * 8, bucket_seconds=0.5)
+    batch = engine.batch_to_device(host, "cpu", family="whisper", whisper_prompt=(1, 2), eot_id=0)
+    step = engine.make_train_step(engine.make_loss_fn(cfg, model), cfg.train.optimizer)
+    metrics = step(state, pmesh.shard_batch(mesh, batch, 8))
+    rec = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+           "mesh": list(mesh.shape), "placements": placements(model, state.optimizer),
+           "tp_dims": model.tp_dims}
+    full = pmesh.full_model(model, lambda: WhisperModel(WHISPER))
+    if mh.is_primary():
+        np.savez(dst / "step_params.npz", **{k: v.detach().numpy()
+                                              for k, v in full.state_dict().items()})
+    return rec
+
+
+def case_greedy(src: Path, dst: Path) -> dict:
+    mesh = pmesh.build_mesh(c.MeshConfig(data_axis=2, model_axis=2))
+    model = whisper_model(src)
+    apply_tp(model, pmesh.tp_group(mesh))
+    model.eval()
+    mel = torch.from_numpy(np.load(src / "mel.npy"))
+    r, k = pmesh.dp_rank(mesh), mel.shape[0] // 2
+    gen, lens = greedy_generate(model, mel[r * k:(r + 1) * k], max_len=10, prompt=(1, 2),
+                                eot_id=0)
+    return {"tokens": gather_rows(gen.tolist(), mesh), "lengths": gather_rows(lens.tolist(), mesh),
+            "local_heads": model.decoder.blocks[0].self_attn.num_heads}
+
+
+def case_transcribe(src: Path, dst: Path) -> dict:
+    cfg = whisper_cfg(data_axis=2, model_axis=2)
+    cfg.frontend = dataclasses.replace(cfg.frontend, chunk_seconds=0.5)
+    tok = CharTokenizer(json.loads((src / "vocab.json").read_text())["vocab"])
+    bundle = ModelBundle(cfg, whisper_model(src), tok).shard()
+    wavs = sorted(str(p) for p in src.glob("u*.wav"))
+    texts = bundle.transcribe(wavs)
+    bundle.save(str(dst / "sharded_bundle"))
+    return {"texts": texts, "mesh": list(bundle.mesh.shape)}
+
+
+def case_train_loop(src: Path, dst: Path) -> dict:
+    spec = json.loads((src / "train_loop.json").read_text())
+    cfg = c.ExperimentConfig(
+        model_family="ctc",
+        ctc_model=c.CTCModelConfig(vocab_size=spec["vocab_size"], d_model=64, num_layers=1,
+                                   num_heads=4, mlp_dim=128, conv_channels=32, dtype="float32",
+                                   use_flash_attention=False, dropout=0.0,
+                                   adapter=c.AdapterConfig(kind="wf", wf_rank=4)),
+        specaugment=c.SpecAugmentConfig(enabled=False),
+        data=c.DataConfig(batch_size=8, bucket_boundaries_seconds=(1.5,), min_audio_seconds=0.1,
+                          max_text_len=8, train_manifest=spec["manifest"]),
+        mesh=c.MeshConfig(fsdp_axis=2, model_axis=2))
+    cfg.train.optimizer = c.OptimizerConfig(learning_rate=1e-3, warmup_steps=0, total_steps=4,
+                                            schedule="constant")
+    cfg.train.train_adapters_only = True
+    cfg.train.checkpoint_dir = str(dst / "ck_train_loop")
+    cfg.train.checkpoint_every_steps = 100
+    manifest = read_manifest(spec["manifest"])
+    tok = CharTokenizer(spec["vocab"])
+    model = CTCEncoderModel(cfg.ctc_model)
+    model.load_state_dict(convert.params_to_state_dict(convert.read_npz_params(src / "ctc.npz")))
+    state, info = engine.train_loop(cfg, manifest, tok, model)
+    full = pmesh.full_model(model, lambda: CTCEncoderModel(cfg.ctc_model))
+    if mh.is_primary():
+        np.savez(dst / "loop_params.npz", **{k: v.detach().numpy()
+                                              for k, v in full.state_dict().items()})
+    return {"losses": info["losses"], "mesh": info["mesh"],
+            "split": sorted(model.tp_dims), "placements": placements(model, state.optimizer)}
+
+
+def case_dropout(src: Path, dst: Path) -> dict:
+    cc = c.CTCModelConfig(vocab_size=24, d_model=64, num_layers=2, num_heads=4, mlp_dim=128,
+                          conv_channels=32, dtype="float32", use_flash_attention=False,
+                          dropout=0.1, adapter=c.AdapterConfig(kind="bottleneck", dropout=0.1))
+    mesh = pmesh.build_mesh(c.MeshConfig(data_axis=2, model_axis=2))
+    whole, split = CTCEncoderModel(cc, seed=3), CTCEncoderModel(cc, seed=3)
+    apply_tp(split, pmesh.tp_group(mesh))
+    feats = torch.from_numpy(np.random.RandomState(5).randn(2, 80, 120).astype(np.float32))
+    out = {}
+    with torch.no_grad():
+        for name, m in (("whole", whole), ("split", split)):
+            m.train()
+            seed = 1234 + pmesh.dp_rank(mesh)  # the train step's dropout seed of this rank
+            out[name] = m(feats, torch.tensor([120, 90]), dropout_seed=seed)[0].tolist()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--in", dest="src", required=True)
+    ap.add_argument("--out", dest="dst", required=True)
+    ap.add_argument("--resume", required=True, help="a one-process dry-run checkpoint")
+    args = ap.parse_args(argv)
+    src, dst = Path(args.src), Path(args.dst)
+    torch.set_num_threads(1)
+    mh.initialize(device="cpu")
+    out = {"rank": mh.process_index()}
+    for name, fn in (("step", case_step), ("greedy", case_greedy),
+                     ("transcribe", case_transcribe), ("train_loop", case_train_loop),
+                     ("dropout", case_dropout)):
+        out[name] = fn(src, dst)
+    work = dst / "dryrun"
+    out["dryrun"] = {
+        "ctc:2x2": dryrun.run_case("ctc", 2, work, model=2),
+        "whisper:1x2": dryrun.run_case("whisper", 1, work, model=2),
+        "ctc:2x2_resumed": dryrun.run_case("ctc", 2, work, resume_from=Path(args.resume),
+                                           tag="_resumed", model=2)}
+    spec = json.loads((src / "train_loop.json").read_text())
+    out["cli"] = cli.main([
+        "train", "--multihost", "--device", "cpu", "--config", "configs/adapter_finetune.yaml",
+        f"data.train_manifest={spec['manifest']}", "data.eval_manifest=", "data.batch_size=8",
+        "data.bucket_boundaries_seconds=[1.5]", "data.num_host_workers=1",
+        "data.min_audio_seconds=0.1", "data.max_text_len=8", "frontend.chunk_seconds=2.0",
+        "ctc_model.d_model=64", "ctc_model.num_layers=1", "ctc_model.num_heads=4",
+        "ctc_model.mlp_dim=128", "ctc_model.conv_channels=32", "ctc_model.dtype=float32",
+        "mesh.model_axis=2", "train.optimizer.total_steps=2", "train.optimizer.warmup_steps=0",
+        f"train.checkpoint_dir={dst / 'cli_ckpt'}", f"train.metrics_path={dst / 'cli.jsonl'}",
+        "train.log_every_steps=1"])
+    (dst / f"rank{out['rank']}.json").write_text(json.dumps(out))
+    mh.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
