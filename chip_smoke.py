@@ -343,6 +343,41 @@ non-zero and prints no result line):
               width); exact launch counts; the row-parallel GEMM, ln_fc1,
               attention_core_tp and K5 at the padded width timed beside
               plain, bound and cuBLAS.
+21. tp_serve - main path 30, Whisper serving on a split model
+              (phase_tp_serving): a large-v3-width model (d 1280, 20 heads
+              of 64, mlp 5120, V 51866) cut to TPS_LAYERS encoder and
+              decoder blocks, each rank of a model group a copy split
+              (parallel/tp.apply_tp) and quantized after the split (a row
+              layer's scales the group's max), the ranks threads taking
+              turns (TurnGroup), at tp 2 (10 heads, 25,933 vocab rows a
+              rank) and tp 4 (5 heads, the int8 table replicated): every
+              rank's ServingEngine stepped eagerly (a stand-in group cannot
+              be captured) over TPS_SLOTS seeded requests of 1-30 s in one
+              wave, TPS_MAX_LEN tokens a lane; exact launch counts (a wave:
+              K1, each encoder block's K5, K6, ln_fc1 and two bf16 row
+              partials; a step: each decoder block's five K10 on the
+              rank's columns, three K10 row partials (jl_int8_row_partial,
+              f32 out) and two K9-int8 on its heads, then K11 on its vocab
+              rows); every rank's results equal; the tokens through the
+              unsplit int8 decoder's teacher-forced steps (the margin
+              rule); rank 0's launches at the decode shapes against their
+              plain versions and twice bitwise (the K10 row partial at 1,
+              16 and 64 rows of 640 / 320 and 2,560 / 1,280 -> 1,280
+              within ROW_REL_BAR, K10 on q_proj's and fc1's columns
+              within ULP_BAR, K11 on 25,933 and 51,866 rows within
+              ROW_REL_BAR, K9-int8 on its engine's self and cross caches
+              within ULP_BAR); the K10 row partial, K11 and K9-int8 timed
+              at the split shapes beside plain, bound and library; then
+              the AR beam over 2 utterances x 4 beams and the timestamps
+              of 2 requests on every rank (equal on every rank), held to
+              one card: each beam score within TPS_BEAM_REL_BAR of the
+              unsplit decoder's steps fed the same hypothesis and the
+              split's best within the bar of one card's best; the
+              timestamps' tokens equal and each span within
+              TPS_SPAN_BAR_FRAMES of one card's; then the beam bar's upper
+              reading: the split beam with the self caches not gathered
+              along the winning beams, and with the last rank's share left
+              out of every all-reduce, each above TPS_BEAM_REL_BAR.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
@@ -471,6 +506,10 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
      TPU + "ops/fused_mlp.py:294"),
     ("row-partial", "row_parallel_partial", "ops.fused_attention", "ROW_COUNTER",
      "csrc/ln_gemm.cu", TPU + "ops/fused_attention.py:387"),
+    # K10's row-parallel form (phase 21): the same cluster kernel with an
+    # f32 epilogue, a rank's unrounded share of an int8 row layer
+    ("K10-row", "K10 int8_row_partial", "ops.quant", "ROW_PARTIAL_COUNTER", "csrc/quant.cu",
+     TPU + "ops/quant.py:248"),
 ]
 # main path -> the kernels it must launch
 PATHS = {
@@ -507,6 +546,7 @@ PATHS = {
     "augmented_train": ("K1", "K6", "K8"),
     "multigpu": ("K1", "K6", "K8"),
     "tp": ("K5", "K6", "K9", "K2-tp", "K3-tp", "row-partial"),
+    "tp_serve": ("K1", "K5", "K6", "K3-tp", "row-partial", "K9-int8", "K10", "K10-row", "K11"),
 }
 # phase 19: the launcher's limit (its start, ~10 s to reach the card, and
 # 3 steps of phase 5's fine-tune)
@@ -746,6 +786,35 @@ TP_FLAG_B, TP_FLAG_T = 8, 750
 TP_DECODE_LAYERS = 2
 TP_DECODE_STEPS = 8
 TP_TIMED_ITERS = 10
+# phase 21: split Whisper serving at large-v3 width, encoder and decoder cut
+# to TPS_LAYERS blocks; 16 lanes (int8 self caches, as the JAX engine keeps
+# them at 16), TPS_MAX_LEN tokens a lane, TPS_STEPS a dispatch; the beam
+# over TPS_BEAM = (utterances, beams) and timestamps of TPS_TIMED requests
+TPS_LAYERS = 2
+TPS_SLOTS, TPS_MAX_LEN, TPS_STEPS = 16, 16, 8
+TPS_BEAM = (2, 4)
+TPS_TIMED = 2
+TPS_TIMED_ITERS = 10
+TPS_ROWS = (1, 16, 64)  # K10's decode-step row counts: a lane, the pool, the beam's 16 x 4
+# split timestamps against one card's: the same tokens, each span's start
+# and end within one encoder frame (20 ms). The split sums the row layers'
+# partials in another order, so the cross-attention matrix differs in its
+# low bits, and the DTW moves a boundary between near-tied frames: on an
+# H100 at 24 tokens a lane, 4 of 40 spans moved by one frame at tp 2 and at
+# tp 4 (at 16 tokens all 24 read equal)
+TPS_SPAN_BAR_FRAMES = 1
+# the split beam against one card's decoder: each hypothesis's score within
+# TPS_BEAM_REL_BAR (relative) of one card's steps fed the same tokens, and
+# the split's best hypothesis, scored by one card, within the bar of one
+# card's own best. Its tokens may differ from one card's where two
+# continuations tie in the low bits (a tie broken another way at V 51,866:
+# on an H100 at 24 tokens a lane the split beams' tokens differed from one
+# card's at tp 2 and at tp 4; at 16 they read equal). Sound split beams
+# read 1.4e-4 to 3.1e-4 there. The bar's upper reading is taken in every
+# run: the same split beam with a fault put in by this script (the self
+# caches not gathered along the winning beams; the last rank's share left
+# out of every all-reduce), which must read above the bar
+TPS_BEAM_REL_BAR = 1e-3
 
 
 def phase_device():
@@ -6119,13 +6188,16 @@ class TurnGroup:
     arrive sums the tensors (in rank order, f32 as they come) or lists them
     on the card, and the ranks go on in order. One thread runs at a time,
     so the wrappers' launch counts stay exact. ``member(r)`` is rank r's
-    stand-in group for parallel/tp.TPGroup."""
+    stand-in group for parallel/tp.TPGroup. ``drop_last`` puts in a fault
+    (phase 21's upper reading of its beam bar): each all-reduce leaves out
+    the last rank's share."""
 
     def __init__(self, size: int):
         import threading
 
         self.size, self.cv = size, threading.Condition()
         self.turn, self.epoch, self.box, self.result, self.error = 0, 0, [None] * size, None, None
+        self.drop_last = False
 
     def _wait(self, pred):
         if not self.cv.wait_for(lambda: self.error is not None or pred(), timeout=600):
@@ -6151,7 +6223,7 @@ class TurnGroup:
         class Member:
             def all_reduce(self, t):
                 return group._collective(r, t, lambda ts: functools.reduce(
-                    lambda a, b: a + b, ts)).clone()
+                    lambda a, b: a + b, ts[:-1] if group.drop_last else ts)).clone()
 
             def all_gather(self, t):
                 return list(group._collective(r, t, list))
@@ -6585,6 +6657,411 @@ def tp_timing(split, cases) -> dict:
     return rows
 
 
+def tps_split(whole_bundle, tp: int, group):
+    """`tp` rank bundles of the bf16 `whole_bundle`, each a copy split as its
+    rank over `group` (a TurnGroup) and quantized after the split, as
+    ``cli serve --int8`` does on a model group (a row layer's scales are the
+    group's max: a collective, so the ranks quantize in turns)."""
+    import copy
+
+    from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle
+    from jiao_liao_speech_recognition_torch.parallel.tp import TPGroup, apply_tp
+
+    split = []
+    for r in range(tp):
+        model = copy.deepcopy(whole_bundle.model)
+        apply_tp(model, TPGroup(r, tp, group.member(r)))
+        split.append(ModelBundle(whole_bundle.config, model, whole_bundle.tokenizer))
+    return group.run([lambda b=b: b.quantize() for b in split])
+
+
+def tps_kernel_checks(ranks, errs: dict) -> None:
+    """Rank 0's int8 decode launches at a split model's shapes against their
+    plain versions, each launched twice bitwise: K10's row partial on the
+    out-projections' and fc2's rows (ROW_REL_BAR), K10 on q_proj's and
+    fc1's columns with their biases (ULP_BAR), K11 on the rank's vocab rows
+    (its tail tile ragged: 25,933 rows at tp 2; the whole 51,866 at tp 4,
+    where the table is replicated; ROW_REL_BAR of max |logit|), and
+    K9-int8 on the rank's 10 or 5 heads of its engine's self and cross
+    caches at ragged lengths (ULP_BAR)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    bf = torch.bfloat16
+    randn = _card_randn(21)
+    model, eng = ranks[0]
+    tp = model.decoder.blocks[0].mlp.fc2.tp.size
+    block = model.decoder.blocks[0]
+    with torch.inference_mode():
+        for launch, dense in (("self out_proj", block.self_attn.out_proj),
+                              ("cross out_proj", block.cross_attn.out_proj),
+                              ("fc2", block.mlp.fc2)):
+            q, sc = dense.kernel_q, dense.scale
+            for R in TPS_ROWS:
+                info = {"phase": "tp_serve", "tp": tp, "launch": launch, "rows": R,
+                        "shape": list(q.shape)}
+                x = randn(R, q.shape[0]).to(bf)
+                got = _twice("K10-row", lambda: quant.int8_row_partial(x, q, sc), **info)
+                errs["K10-row"] = max(errs.get("K10-row", 0.0), _rel_check(
+                    "K10-row", got, quant.int8_row_partial_plain(x, q, sc), **info))
+        for launch, dense in (("self q_proj", block.self_attn.q_proj), ("fc1", block.mlp.fc1)):
+            q, sc, b = dense.kernel_q, dense.scale, dense.bias.to(bf)
+            for R in TPS_ROWS:
+                x = randn(R, q.shape[0]).to(bf)
+                info = {"phase": "tp_serve", "tp": tp, "launch": launch, "rows": R,
+                        "shape": list(q.shape)}
+                got = _twice("K10", lambda: quant.int8_gemv(x, q, sc, b), **info)
+                errs["K10"] = max(errs.get("K10", 0.0), _ulp_check(
+                    "K10", got, quant.int8_matmul_plain(x, q, sc, b), **info))
+        emb = model.decoder.embed_tokens
+        for R in TPS_ROWS:
+            x = randn(R, emb.embedding_q.shape[1]).to(bf)
+            info = {"phase": "tp_serve", "tp": tp, "rows": R, "vocab_rows":
+                    emb.embedding_q.shape[0], "split": emb.tp is not None}
+            got = _twice("K11", lambda: quant.int8_logits(x, emb.embedding_q, emb.scale), **info)
+            errs["K11"] = max(errs.get("K11", 0.0), _rel_check(
+                "K11", got, quant.int8_tied_logits_plain(x, emb.embedding_q, emb.scale), **info))
+        B = eng.slots
+        for kind, horizon in (("self", TPS_MAX_LEN), ("cross", eng._enc_all.shape[1])):
+            c = eng._caches["block_0"][kind]
+            H, dh = c["k"].shape[1], c["k"].shape[3]
+            qh = randn(B, H, 1, dh).to(bf)
+            lens = torch.tensor(([horizon, horizon - 1, horizon // 2, 1] * B)[:B],
+                                dtype=torch.int32, device="cuda")
+            args = (qh, c["k"], c["k_scale"], c["v"], c["v_scale"], lens)
+            info = {"phase": "tp_serve", "tp": tp, "cache": kind, "heads": H,
+                    "Tk": c["k"].shape[2]}
+            got = _twice("K9-int8", lambda: quant.int8_decode_attention(*args), **info)
+            errs["K9-int8"] = max(errs.get("K9-int8", 0.0), _ulp_check(
+                "K9-int8", got, quant.int8_decode_attention(*args, kernels=False), **info))
+
+
+def tps_timing(ranks_by_tp) -> dict:
+    """K10's row partial (fc2's rows at tp 2, the pool's 16 rows), K11 on a
+    rank's vocab rows (tp 2) and K9-int8 on a rank's heads of the engine's
+    cross caches (tp 2 and 4), each by device time over inputs cycled past
+    twice the L2, beside its bound, its library call (device time) and its
+    plain version (CUDA events: a sequence of library calls, tens to
+    hundreds of us)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    bf = torch.bfloat16
+    randn = _card_randn(31)
+
+    def cycle(fns):
+        it = itertools.cycle(fns)
+        return lambda: next(it)()
+
+    def copies(nbytes):
+        return max(2, math.ceil(2 * L2_BYTES / nbytes))
+
+    rows = {}
+    with torch.inference_mode():
+        fc2 = ranks_by_tp[2][0][0].decoder.blocks[0].mlp.fc2
+        q, sc = fc2.kernel_q, fc2.scale
+        K, N = q.shape
+        R = TPS_SLOTS
+        x = randn(R, K).to(bf)
+        sets = [(q.clone(), sc.clone()) for _ in range(copies(K * N))]
+        wb = [(qq.float() * ss).to(bf) for qq, ss in sets]
+        kern = cycle([lambda qq=qq, ss=ss: quant.int8_row_partial(x, qq, ss) for qq, ss in sets])
+        plain = cycle([lambda qq=qq, ss=ss: quant.int8_row_partial_plain(x, qq, ss)
+                       for qq, ss in sets])
+
+        def mm_f32(a, w2):
+            try:
+                return torch.mm(a, w2, out_dtype=torch.float32)
+            except (TypeError, RuntimeError):
+                return torch.mm(a, w2)
+
+        lib = cycle([lambda w2=w2: mm_f32(x, w2) for w2 in wb])
+        b_ms, b_by = bound(K * N + 4 * N + 2 * R * K + 4 * R * N, {"bf16": 2.0 * R * K * N})
+        rows["K10-row"] = {"ms": device_ms(kern, TPS_TIMED_ITERS),
+                           "plain_ms": cuda_ms(plain, TPS_TIMED_ITERS),
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": device_ms(lib, TPS_TIMED_ITERS),
+                           "library": "torch.mm of the dequantized bf16 rows, f32 out",
+                           "shape": [R, K, N], "tp": 2}
+        k11 = []
+        for tp in (2,):  # at tp 4 the table is whole: phase 9's K11 row
+            emb = ranks_by_tp[tp][0][0].decoder.embed_tokens
+            tq, ts = emb.embedding_q, emb.scale
+            V, D = tq.shape
+            xs = randn(R, D).to(bf)
+            sets = [(tq.clone(), ts.clone()) for _ in range(copies(V * D))]
+            kern = cycle([lambda qq=qq, ss=ss: quant.int8_logits(xs, qq, ss) for qq, ss in sets])
+            plain = cycle([lambda qq=qq, ss=ss: quant.int8_tied_logits_plain(xs, qq, ss)
+                           for qq, ss in sets])
+            # the full-V row's library call (cuBLAS bf16 tied logits on the
+            # dequantized table); the f32-out product read beside it
+            wt = [(qq.float() * ss[:, None]).to(bf).t() for qq, ss in sets]
+            lib = cycle([lambda w2=w2: torch.matmul(xs, w2) for w2 in wt])
+            lib_f32 = cycle([lambda w2=w2: mm_f32(xs, w2) for w2 in wt])
+            b_ms, b_by = bound(V * D + 4 * V + 2 * R * D + 4 * R * V, {"bf16": 2.0 * R * V * D})
+            k11.append({"tp": tp, "vocab_rows": V, "rows": R,
+                        "ms": device_ms(kern, TPS_TIMED_ITERS),
+                        "plain_ms": cuda_ms(plain, TPS_TIMED_ITERS), "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": device_ms(lib, TPS_TIMED_ITERS),
+                        "library": "cuBLAS bf16 tied logits on the dequantized table rows",
+                        "library_f32_out_ms": device_ms(lib_f32, TPS_TIMED_ITERS)})
+        rows["K11"] = k11
+        k9 = []
+        for tp in (2, 4):
+            eng = ranks_by_tp[tp][0][1]
+            c, t_enc = eng._caches["block_0"]["cross"], eng._enc_all.shape[1]
+            B, H, Tk, dh = c["k"].shape
+            qh = randn(B, H, 1, dh).to(bf)
+            lens = torch.full((B,), t_enc, dtype=torch.int32, device="cuda")
+            nbytes = 2 * B * H * Tk * (dh + 4)
+            sets = [{n: t.clone() for n, t in c.items()} for _ in range(copies(nbytes))]
+
+            def call(cc, kernels):
+                return quant.int8_decode_attention(qh, cc["k"], cc["k_scale"], cc["v"],
+                                                   cc["v_scale"], lens, kernels)
+
+            kern = cycle([lambda cc=cc: call(cc, True) for cc in sets])
+            plain = cycle([lambda cc=cc: call(cc, False) for cc in sets])
+            b_ms, b_by = bound(2 * B * H * t_enc * (dh + 4) + 4 * B * H * dh,
+                               {"bf16": 4.0 * B * H * t_enc * dh})
+            k9.append({"tp": tp, "heads": H, "Tk": Tk, "rows": B,
+                       "ms": device_ms(kern, TPS_TIMED_ITERS),
+                       "plain_ms": cuda_ms(plain, TPS_TIMED_ITERS), "bound_ms": b_ms,
+                       "bound_by": b_by})
+        rows["K9-int8"] = k9
+    emit({"phase": "tp_serve", "timing": rows})
+    return rows
+
+
+def whisper_beam_scores(model, gen, lens, enc, prompt):
+    """Each beam hypothesis gen [B, K, L] (after the prompt; `lens` tokens,
+    then EOT) fed through `model`'s cached steps as beam_from_enc runs them
+    (init_cache(..., beams=K)) -> its summed f32 log-probs [B, K], the
+    forced prompt's included, added a step at a time as the beam adds them."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode.whisper_generate import log_softmax_f32
+
+    B, K, L = gen.shape
+    P = len(prompt)
+    toks = torch.cat([torch.tensor(prompt, device=gen.device).expand(B * K, P),
+                      gen.reshape(B * K, L)], 1)
+    caches = model.init_cache(B, enc, P + L, None, beams=K)
+    last = (P - 1 + lens + 1).clamp(max=P + L - 2).reshape(B * K)  # the EOT's step
+    acc = torch.zeros(B * K, device=gen.device)
+    for pos in range(P + L - 1):
+        logits, caches = model.decode_step(toks[:, pos:pos + 1], pos, enc, caches)
+        lp = log_softmax_f32(logits).gather(1, toks[:, pos + 1, None])[:, 0]
+        acc = acc + torch.where(pos <= last, lp, 0.0)
+    return acc.view(B, K)
+
+
+def tps_requests():
+    """TPS_SLOTS seeded requests of 1-30 s, tones and noise."""
+    rng = np.random.RandomState(21)
+    out = []
+    for i in range(TPS_SLOTS):
+        t = np.arange(int(rng.uniform(1.0, 30.0) * SAMPLE_RATE)) / SAMPLE_RATE
+        out.append((0.2 * np.sin(2 * np.pi * rng.uniform(150, 2000) * t)
+                    + 0.05 * rng.randn(len(t))).astype(np.float32))
+    return out
+
+
+def phase_tp_serving(counters, card: str):
+    """Phase 21 (main path 30; see the module docstring) -> (launches,
+    errors by kernel key, timing rows)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch, pad_or_trim
+    from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle
+    from jiao_liao_speech_recognition_torch.models.layers import cast_for_serving
+    from jiao_liao_speech_recognition_torch.models.whisper import WhisperModel
+    from jiao_liao_speech_recognition_torch.serve.engine import ServingEngine
+
+    t0 = time.monotonic()
+    cfg = whisper_config()
+    w = cfg.whisper = dataclasses.replace(cfg.whisper, encoder_layers=TPS_LAYERS,
+                                          decoder_layers=TPS_LAYERS)
+    cfg.decode.max_decode_len = TPS_MAX_LEN
+    model = WhisperModel(w, device="cuda", seed=21)
+    cast_for_serving(model, torch.bfloat16)
+    bundle = ModelBundle(cfg, model.eval(),
+                         CharTokenizer([chr(0x4E00 + i) for i in range(w.vocab_size - 2)]))
+    whole = bundle.quantize()
+    groups = {tp: TurnGroup(tp) for tp in (2, 4)}
+    ranks = {}  # tp -> [(model, engine)] by rank
+    for tp in (2, 4):
+        qbs = tps_split(bundle, tp, groups[tp])
+        engines = groups[tp].run([lambda b=b: ServingEngine(
+            b, slots=TPS_SLOTS, steps_per_dispatch=TPS_STEPS, max_len=TPS_MAX_LEN,
+            graph=False) for b in qbs])
+        ranks[tp] = [(b.model, e) for b, e in zip(qbs, engines)]
+    requests = tps_requests()
+
+    def serve(eng):  # every request in one wave, then dispatches until done
+        def fn():
+            rids = [eng.submit(a, admit=False) for a in requests]
+            done = {}
+            while eng.in_flight:
+                done.update((r.rid, r) for r in eng.step())
+            return [done[rid] for rid in rids]
+        return fn
+
+    def main_path():
+        return {tp: groups[tp].run([serve(e) for _, e in ranks[tp]]) for tp in (2, 4)}
+
+    served, launches = drive(counters, "tp_serve", main_path)
+    L = TPS_LAYERS
+    want = {k: 0 for k in counters}
+    for tp in (2, 4):
+        eng = ranks[tp][0][1]
+        for _, e in ranks[tp]:
+            check(e.stats.decode_steps == eng.stats.decode_steps
+                  and e.stats.waves == eng.stats.waves, f"tp {tp}: the ranks stepped apart")
+        steps, waves = eng.stats.decode_steps, eng.stats.waves
+        # a wave: K1, then each encoder block's K5, K6, ln_fc1 and two row
+        # partials; a step: each decoder block's five column products (q, k,
+        # v, cross q, fc1), three row partials (both out-projections, fc2),
+        # two K9-int8 (int8 self caches at 16 lanes, and the cross caches),
+        # then K11 once
+        for key, n in (("K1", waves), ("K5", L * waves), ("K6", L * waves),
+                       ("K3-tp", L * waves), ("row-partial", 2 * L * waves),
+                       ("K10", 5 * L * steps), ("K10-row", 3 * L * steps),
+                       ("K9-int8", 2 * L * steps), ("K11", steps)):
+            want[key] += n * tp
+        for r in range(1, tp):
+            check([(q.text, q.ids) for q in served[tp][r]] ==
+                  [(q.text, q.ids) for q in served[tp][0]],
+                  f"tp {tp}: rank {r}'s results differ from rank 0's")
+    emit({"phase": "tp_serve", "launches": {k: v for k, v in launches.items() if v},
+          "want": {k: v for k, v in want.items() if v}})
+    check(launches == want, f"tp_serve launch counts {launches} != {want}")
+
+    # the split engines' tokens against the unsplit int8 decoder's
+    # teacher-forced steps (the margin rule)
+    prompt, eot = wg.resolve_specials(w)
+    P = len(prompt)
+    with torch.inference_mode():
+        wav = torch.from_numpy(np.stack([pad_or_trim(a, cfg.frontend)
+                                         for a in requests])).cuda()
+        enc = whole.model.encode(featurize_batch(wav, cfg.frontend))
+        for tp in (2, 4):
+            eng, done = ranks[tp][0][1], served[tp][0]
+            toks = torch.full((len(done), TPS_MAX_LEN), eot, dtype=torch.long, device="cuda")
+            toks[:, :P] = torch.tensor(prompt, device="cuda")
+            for i, req in enumerate(done):
+                toks[i, P:P + len(req.ids)] = torch.tensor(req.ids, device="cuda")
+            lens = torch.tensor([len(r.ids) for r in done], device="cuda")
+            logits = forced_logits(whole.model, toks, enc, True)
+            coverage, mismatch, scored, agree = margin_check(logits, toks, lens, P)
+            emit({"phase": "tp_serve", "engine": tp, "heads_a_rank": w.num_heads // tp,
+                  "vocab_split": w.vocab_size % tp == 0, "requests": len(done),
+                  "decode_steps": eng.stats.decode_steps, "coverage": coverage,
+                  "mismatched_positions": mismatch, "positions": scored,
+                  "agree_all_positions": agree})
+            check(mismatch == 0, f"tp {tp} engine: {mismatch} clear argmaxes differ from the "
+                  "unsplit int8 decoder's")
+            check(coverage >= MIN_COVERAGE, f"tp {tp} engine: coverage {coverage} too low")
+
+    errs = {}
+    for tp in (2, 4):
+        tps_kernel_checks(ranks[tp], errs)
+    rows = tps_timing(ranks)
+    with torch.inference_mode():
+        # the AR beam and timestamps on the split int8 models against the
+        # unsplit one: equal on every rank and to one card
+        n, K = TPS_BEAM
+        want_beam = wg.beam_from_enc(whole.model, enc[:n], None, K, TPS_MAX_LEN, prompt, eot)
+        want_timed = whole.transcribe_timed(requests[:TPS_TIMED])
+    for tp in (2, 4):
+        def beam_and_timed(m):
+            def fn():
+                with torch.inference_mode():
+                    e = m.encode(featurize_batch(wav[:n], cfg.frontend))
+                    beam = wg.beam_from_enc(m, e, None, K, TPS_MAX_LEN, prompt, eot)
+                b = ModelBundle(cfg, m, bundle.tokenizer)
+                return beam, b.transcribe_timed(requests[:TPS_TIMED])
+            return fn
+
+        got = groups[tp].run([beam_and_timed(m) for m, _ in ranks[tp]])
+        same_ranks = all(all(torch.equal(a, b) for a, b in zip(g[0], got[0][0])) and
+                         g[1] == got[0][1] for g in got[1:])
+        gen, lens, scores = got[0][0]
+        with torch.inference_mode():
+            one = whisper_beam_scores(whole.model, gen, lens, enc[:n], prompt)
+        own = float(((one - scores).abs() / scores.abs()).max())
+        # the split's pick against one card's best, both scored by one card
+        behind = float(((want_beam[2][:, 0] - one[:, 0]) / want_beam[2][:, 0].abs()).max())
+        beam_tokens = bool(torch.equal(gen, want_beam[0]))
+        spans = [(a, b) for ua, ub in zip(got[0][1], want_timed) for a, b in zip(ua, ub)]
+        timed_tokens = [[t["token"] for t in u] for u in got[0][1]] == [
+            [t["token"] for t in u] for u in want_timed]
+        shift = max((round(abs(a[k] - b[k]) / 0.02) for a, b in spans for k in ("start", "end")),
+                    default=0)  # encoder frames of 20 ms
+        emit({"phase": "tp_serve", "beam": tp, "utterances": n, "beams": K,
+              "ranks_equal": same_ranks, "tokens_equal_one_card": beam_tokens,
+              "lengths_equal_one_card": bool(torch.equal(lens, want_beam[1])),
+              "scores_rel_err_one_card_steps": own, "best_rel_behind_one_card": behind,
+              "bar_rel": TPS_BEAM_REL_BAR, "timed_tokens_equal_one_card": timed_tokens,
+              "spans": len(spans), "spans_equal_one_card": sum(a == b for a, b in spans),
+              "span_max_shift_frames": shift, "bar_shift_frames": TPS_SPAN_BAR_FRAMES})
+        check(same_ranks, f"tp {tp}: the ranks' beams or timestamps differ")
+        check(own <= TPS_BEAM_REL_BAR and behind <= TPS_BEAM_REL_BAR,
+              f"tp {tp}: the split beam is off one card's scores ({own}, {behind})")
+        check(timed_tokens and shift <= TPS_SPAN_BAR_FRAMES,
+              f"tp {tp}: the split timestamps differ from one card's (shift {shift} frames)")
+
+    # the beam bar's upper reading: the split beam again with a fault that
+    # this script puts in (the package untouched); each must read above it
+    def ungathered(m):
+        """m.decode_step with each block's self caches put back as the step
+        before left them: the beam's gather along the winning beams undone."""
+        real, kept = m.decode_step, {}
+
+        def step(tok, pos, enc_, caches, *rest):
+            for name, c in caches.items():
+                c["self"] = kept.get(name, c["self"])
+            logits, caches = real(tok, pos, enc_, caches, *rest)
+            kept.update((name, c["self"]) for name, c in caches.items())
+            return logits, caches
+        return step
+
+    faults = {}
+    for tp in (2, 4):
+        for fault in ("self_caches_ungathered", "last_share_dropped"):
+            def faulty_beam(m, fault=fault):
+                def fn():
+                    if fault == "self_caches_ungathered":
+                        m.decode_step = ungathered(m)
+                    try:
+                        with torch.inference_mode():
+                            e = m.encode(featurize_batch(wav[:n], cfg.frontend))
+                            return wg.beam_from_enc(m, e, None, K, TPS_MAX_LEN, prompt, eot)
+                    finally:
+                        m.__dict__.pop("decode_step", None)
+                return fn
+
+            groups[tp].drop_last = fault == "last_share_dropped"
+            try:
+                gen, lens, scores = groups[tp].run([faulty_beam(m) for m, _ in ranks[tp]])[0]
+            finally:
+                groups[tp].drop_last = False
+            with torch.inference_mode():
+                one = whisper_beam_scores(whole.model, gen, lens, enc[:n], prompt)
+            own = float(((one - scores).abs() / scores.abs()).max())
+            behind = float(((want_beam[2][:, 0] - one[:, 0]) / want_beam[2][:, 0].abs()).max())
+            faults[f"tp{tp} {fault}"] = max(own, behind)
+    emit({"phase": "tp_serve", "beam_faults_rel": faults, "bar_rel": TPS_BEAM_REL_BAR})
+    check(min(faults.values()) > TPS_BEAM_REL_BAR,
+          f"the beam bar {TPS_BEAM_REL_BAR} passes a faulty split beam: {faults}")
+    emit({"phase": "tp_serve", "seconds": round(time.monotonic() - t0, 1)})
+    return launches, errs, rows
+
+
 def fl_flops(B, T, lens, H, dh) -> float:
     """The attention core's products (S and P.V) over each row's valid keys."""
     return 4.0 * H * dh * T * float(sum(min(int(n), T) for n in lens.tolist()))
@@ -6686,6 +7163,12 @@ def main() -> int:
     by_path["tp"], tp_errs, tp_rows = phase_tp(counters, card)
     for key, err in tp_errs.items():
         errs[key] = max(errs.get(key, 0.0), err)
+    by_path["tp_serve"], tps_errs, tps_rows = phase_tp_serving(counters, card)
+    for key, err in tps_errs.items():
+        errs[key] = max(errs.get(key, 0.0), err)
+    rec["K10-row"] = tps_rows["K10-row"]
+    rec["K11"] = {**rec["K11"], "tp_shapes": tps_rows["K11"]}
+    rec["K9-int8"] = {**rec["K9-int8"], "tp_shapes": tps_rows["K9-int8"]}
     for key in ("K2-tp", "K3-tp", "row-partial"):
         rec[key] = tp_rows[key]
     rec["K5"] = {**rec["K5"], **tp_rows["K5"]}

@@ -14,7 +14,16 @@ Under the process group (``parallel/multihost.initialize``, NCCL):
    2); the encoder seconds of the B=16 batch, decode ms a step over
    TIMED_STEPS greedy steps and tokens/s, each card's peak memory, and on
    rank 0 one profiled encoder call and decode step (the all-reduce's share
-   of the device time: NCCL's kernels);
+   of the device time: NCCL's kernels); then ``ServingEngine`` on the split
+   bundle, bf16 and ``quantize()``d (ENGINE_SLOTS lanes, the B=16 chunks in
+   one wave, ENGINE_STEPS steps a dispatch, ENGINE_MAX_LEN tokens): its
+   decode step captured with the NCCL all-reduces and the vocab all-gather
+   inside (a capture that fails raises: the run exits 1, nothing replays
+   eagerly in its place), one dispatch replayed against the same dispatch
+   stepped eagerly from the same state (every rank: tokens, positions,
+   done flags and caches bitwise), ms a step of each, tokens/s over the
+   whole drain, each card's peak and on rank 0 a profiled replay (NCCL's
+   share of its device time);
 2. training: configs/whisper_large_v3_adapters.yaml at fsdp 2 x model 2
    and configs/adapter_finetune.yaml (the flagship, dropout off) at data 2
    x model 2, ``--steps`` steps of B=16 x 30 s from chip_smoke's seeded
@@ -25,7 +34,8 @@ Then the group ends and rank 0 alone runs everything on one card: the
 one-card bundle's encoder output on the same B=16 batch (each sharded
 run's within ENC_REL_BAR, relative L2) and its decoder's logits over each
 sharded run's tokens (the margin rule: no clear argmax may differ), the
-same timings; both training configs in one process on the same batches
+same timings, and its own engines (bf16 and int8, captured) timed the same
+way, the split engines' tokens held to its decoders by the margin rule; both training configs in one process on the same batches
 (losses within FLAGSHIP_REL_BAR / WHISPER_REL_BAR), and large-v3's
 four-process checkpoint restored in this process (torch_multigpu's
 restore check). One JSON line a case, then a summary; exits 1 when a bar
@@ -60,6 +70,7 @@ from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer  # n
 from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg  # noqa: E402
 from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel import multihost as mh  # noqa: E402
+from jiao_liao_speech_recognition_torch.serve.engine import ServingEngine  # noqa: E402
 from jiao_liao_speech_recognition_torch.train import engine  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils.config import MeshConfig  # noqa: E402
 
@@ -67,6 +78,8 @@ SERVE_MESHES = {"data2_model2": dict(data_axis=2, model_axis=2), "model4": dict(
 BATCH = 16
 TIMED_STEPS = chip_smoke.WHISPER_TIMED_LEN
 ENC_ITERS = 3
+# the engine as chip_smoke's phase 12 serves large-v3 on one card
+ENGINE_SLOTS, ENGINE_STEPS, ENGINE_MAX_LEN = 16, 32, chip_smoke.WHISPER_MAX_LEN
 TINY_WHISPER = dict(d_model=64, encoder_layers=2, decoder_layers=2, num_heads=4, mlp_dim=128,
                     vocab_size=64, max_source_positions=50, max_target_positions=40,
                     dtype="float32", prompt_ids=(1, 2), eot_id=0, suppress_ids=(),
@@ -127,6 +140,15 @@ def all_reduce_share(prof) -> dict:
             total += e.device_time_total / 1e3
             nccl += e.device_time_total / 1e3 if "nccl" in e.key.lower() else 0.0
     return {"device_ms": total, "nccl_ms": nccl, "nccl_share": nccl / total if total else None}
+
+
+def gathered(obj):
+    """Every process's `obj`, in rank order (a list of one without a group)."""
+    if mh.process_count() == 1:
+        return [obj]
+    out = [None] * mh.process_count()
+    torch.distributed.all_gather_object(out, obj)
+    return out
 
 
 def serve_measure(bundle, args, tag: str, work: Path) -> dict:
@@ -190,17 +212,78 @@ def serve_measure(bundle, args, tag: str, work: Path) -> dict:
         r = rows.start // max(rows.stop - rows.start, 1)
         torch.save({"enc": enc.cpu(), "ids": ids.cpu(), "lens": lens.cpu()},
                    work / f"serve_{tag}_{r}.pt")
-    peaks = [None] * mh.process_count()
-    if mh.process_count() > 1:
-        torch.distributed.all_gather_object(peaks, peak_gb(dev))
-    else:
-        peaks = [peak_gb(dev)]
+    peaks = gathered(peak_gb(dev))
     mh.barrier()
     return {"case": f"serve_{tag}",
             "mesh": None if bundle.mesh is None else list(bundle.mesh.shape),
             "texts6": texts6, "texts16": texts16, "encoder_s_per_batch": enc_s,
             "decode_ms_per_step": step_s * 1e3, "rows_per_rank": enc.shape[0],
             "tokens_per_s": BATCH / step_s, "peak_gb_per_card": peaks, "profile": prof}
+
+
+def engine_measure(bundle, args, tag: str, work: Path) -> dict:
+    """ServingEngine on `bundle`, bf16 then int8: the B=16 chunks in one
+    wave; one dispatch replayed from the captured step against the same
+    dispatch stepped eagerly (on the card: bitwise on every rank), ms a
+    step of each; the drain's tokens/s; each card's peak; on rank 0 a
+    profiled replay; each request's ids written to `work` by the primary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = args.device
+    counters = chip_smoke.load_counters()
+    wavs = batch_wavs(args)
+    out = {}
+    for dtype in ("bf16", "int8"):
+        mg.free()
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        b = bundle if dtype == "bf16" else bundle.quantize()
+        max_len = 12 if args.tiny else ENGINE_MAX_LEN
+        t0 = time.perf_counter()
+        eng = ServingEngine(b, slots=ENGINE_SLOTS, steps_per_dispatch=ENGINE_STEPS,
+                            max_len=max_len)
+        build_s = time.perf_counter() - t0
+        rids = [eng.submit(w, admit=False) for w in wavs]
+        eng._fill_free_slots()  # one admission wave: every lane
+        rec = {"capture_s": eng.capture_s, "engine_build_s": build_s,
+               "graph": eng._graph is not None, "max_len": max_len}
+        if eng._graph is not None:
+            cmp, graph_s, eager_s = chip_smoke.graph_against_eager(eng, counters)
+            rec.update(graph_ms_per_step=graph_s * 1e3 / ENGINE_STEPS,
+                       eager_ms_per_step=eager_s * 1e3 / ENGINE_STEPS,
+                       bitwise=cmp["bitwise"], cache_max_ulps=cmp["cache_max_ulps"])
+            if mh.is_primary():  # one replay, profiled (the lanes are mid-flight)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    eng._graph.replay()
+                    torch.cuda.synchronize()
+                rec["replay_profile"] = all_reduce_share(prof)
+            else:
+                eng._graph.replay()
+                torch.cuda.synchronize()
+        sync(dev)
+        mh.barrier()
+        t0 = time.perf_counter()
+        steps0 = eng.stats.decode_steps
+        done = {}
+        while eng.in_flight:
+            done.update((r.rid, r) for r in eng.step())
+        sync(dev)
+        drain_s = time.perf_counter() - t0
+        steps = eng.stats.decode_steps - steps0
+        ids = [done[r].ids for r in rids]
+        rec.update(drain_steps=steps, drain_s=drain_s, ms_per_step_drain=drain_s * 1e3 / steps,
+                   tokens_per_s=ENGINE_SLOTS * steps / drain_s, replays=eng.replays,
+                   step_launches=sum(eng.step_launches.values()),
+                   generated_tokens=sum(len(x) for x in ids),
+                   peak_gb_per_card=gathered(peak_gb(dev)))
+        bitwise = gathered(rec.get("bitwise"))
+        rec["bitwise_every_rank"] = bitwise
+        if mh.is_primary():
+            torch.save({"ids": ids}, work / f"engine_{tag}_{dtype}.pt")
+        out[dtype] = rec
+        del eng, b
+        mh.barrier()
+    return out
 
 
 def group_serve(args, work: Path) -> dict:
@@ -216,6 +299,7 @@ def group_serve(args, work: Path) -> dict:
         rec = serve_measure(bundle, args, tag, work)
         rec.update(load_s=load_s, load_peak_gb_rank0=load_peak,
                    heads_a_rank=bundle.model.encoder.blocks[0].self_attn.num_heads)
+        rec["engine"] = engine_measure(bundle, args, tag, work)
         emit(rec)
         out[tag] = rec
         del bundle
@@ -259,11 +343,7 @@ def train_case(cfg, name: str, args) -> dict:
            "seconds_incl_init_and_checkpoint": time.perf_counter() - t0}
     if name.startswith("large") and args.device == "cuda":
         rec.update(mg.rate_and_idle(cfg, state, tok, manifest, args.rate_steps))
-    peaks = [peak_gb(args.device)]
-    if mh.process_count() > 1:
-        peaks = [None] * mh.process_count()
-        torch.distributed.all_gather_object(peaks, peak_gb(args.device))
-    rec["peak_gb_per_card"] = peaks
+    rec["peak_gb_per_card"] = gathered(peak_gb(args.device))
     del state, tok, manifest
     mg.free()
     return rec
@@ -311,8 +391,10 @@ def one_card_serve(args, work: Path, grouped: dict) -> dict:
     load_peak = peak_gb(args.device)
     rec = serve_measure(bundle, args, "one_card", work)
     rec["load_peak_gb_rank0"] = load_peak
+    rec["engine"] = engine_measure(bundle, args, "one_card", work)
     ref = torch.load(work / "serve_one_card_0.pt")
     model, dev = bundle.model, args.device
+    quantized = bundle.quantize()
     prompt, _ = wg.resolve_specials(bundle.config.whisper)
     P = len(prompt)
     checks = {}
@@ -336,9 +418,37 @@ def one_card_serve(args, work: Path, grouped: dict) -> dict:
                 a == b for a, b in zip(grouped[tag]["texts16"], rec["texts16"])),
             "texts6_equal": sum(a == b for a, b in zip(grouped[tag]["texts6"], rec["texts6"])),
             "ok": ok}
+        for dtype in ("bf16", "int8"):
+            checks[f"engine_{tag}_{dtype}"] = engine_check(
+                bundle if dtype == "bf16" else quantized, work, tag, dtype, ref["enc"].to(dev),
+                grouped[tag]["engine"][dtype], args)
     del bundle
     mg.free()
     return rec, checks
+
+
+def engine_check(bundle, work: Path, tag: str, dtype: str, enc, rec: dict, args) -> dict:
+    """A split engine's tokens through this one card's decoder (the margin
+    rule), and its captured dispatch bitwise its eager one on every rank."""
+    dev = args.device
+    ids = torch.load(work / f"engine_{tag}_{dtype}.pt")["ids"]
+    prompt, eot = wg.resolve_specials(bundle.config.whisper)
+    P = len(prompt)
+    L = rec["max_len"]  # a lane cut at the length holds no EOT to score
+    toks = torch.full((len(ids), L), eot, dtype=torch.long, device=dev)
+    toks[:, :P] = torch.tensor(prompt, device=dev)
+    for i, x in enumerate(ids):
+        toks[i, P:P + len(x)] = torch.tensor(x, dtype=torch.long, device=dev)
+    lens = torch.tensor([len(x) for x in ids], device=dev)
+    with torch.inference_mode():
+        logits = chip_smoke.forced_logits(bundle.model, toks, enc, True)
+    coverage, mismatch, scored, agree = chip_smoke.margin_check(logits, toks, lens, P)
+    bitwise = rec["bitwise_every_rank"]
+    ok = mismatch == 0 and (args.tiny or coverage >= chip_smoke.MIN_COVERAGE)
+    if dev == "cuda":
+        ok = ok and all(b is True for b in bitwise)
+    return {"coverage": coverage, "mismatched_positions": mismatch, "positions": scored,
+            "agree_all_positions": agree, "bitwise_every_rank": bitwise, "ok": ok}
 
 
 def main(argv=None) -> int:
@@ -359,7 +469,7 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
     work = Path(args.workdir)
     work.mkdir(parents=True, exist_ok=True)
-    mh.initialize(device=args.device)
+    mh.initialize(device=args.device, graph_collectives=args.part in ("serve", "all"))
     cards = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             timeout=60).stdout.strip().splitlines()

@@ -62,6 +62,7 @@ SIGNATURES = {
     "jl_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
     "jl_decode_attention_int8": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     "jl_int8_matmul": [P, P, P, P, P, I, I, I, P],
+    "jl_int8_row_partial": [P, P, P, P, I, I, I, P],
     "jl_int8_tied_logits": [P, P, P, P, I, I, I, P],
     "jl_int8_tied_logits_ragged": [P, P, P, P, I, I, I, P],
     # the A/B probes of examples/ (ops/probes.py)

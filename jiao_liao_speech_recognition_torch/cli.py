@@ -12,6 +12,8 @@ subcommands, flags and JSON output:
         --checkpoint ckpt/final --per-utt per_utt.jsonl
     python -m jiao_liao_speech_recognition_torch.cli serve a.wav b.wav --checkpoint ckpt \\
         --slots 16 [--stdin] [--int8] [--timestamps]
+    python -m torch.distributed.run --nproc-per-node 4 -m jiao_liao_speech_recognition_torch.cli \
+        serve --multihost --int8 a.wav --config split.yaml   (mesh: model_axis: 4)
     python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav --checkpoint ckpt \\
         --stream [--stream-window 10 --stream-hop 0.4 --stream-lookahead 0.64]
     python -m jiao_liao_speech_recognition_torch.cli transcribe a.wav \\
@@ -30,11 +32,13 @@ subcommands, flags and JSON output:
 (a ``torch.profiler`` trace of the run, utils/profiling.py). Audio is
 WAV (8/16/24/32-bit PCM or float) or FLAC at any rate, resampled to the
 frontend's. Every subcommand that computes takes one flag the JAX CLI
-lacks, ``--device`` (default ``cuda``). ``train --multihost`` joins the
-process group (parallel/multihost.py: ``torch.distributed.run``'s
-variables or ``JL_COORDINATOR`` / ``JL_NUM_PROCESSES`` / ``JL_PROCESS_ID``)
-before any CUDA use and trains on the mesh of the config's mesh section;
-the primary process alone prints and writes the bundle. A flag whose
+lacks, ``--device`` (default ``cuda``). ``train``, ``transcribe`` and ``serve`` take
+``--multihost``: join the process group (parallel/multihost.py:
+``torch.distributed.run``'s variables or ``JL_COORDINATOR`` /
+``JL_NUM_PROCESSES`` / ``JL_PROCESS_ID``) before any CUDA use, then train
+on, or load the bundle split over, the mesh of the config's mesh section
+(``mesh.model_axis`` > 1: tensor parallelism, ``--int8`` quantizing the
+split bundle); the primary process alone prints and writes. A flag whose
 module is not ported yet is refused with exit code 2 and the ROADMAP item
 that brings it (none is left).
 """
@@ -42,6 +46,7 @@ that brings it (none is left).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -75,20 +80,31 @@ def _load_config(args):
     return cfg
 
 
-def cmd_train(args) -> int:
+@contextlib.contextmanager
+def _process_group(args, graph_collectives: bool = False):
+    """With --multihost, inside the process group (joined before any CUDA
+    use, so that a config's mesh shards the model at load) -> whether this
+    process is the primary, which alone prints and writes.
+    `graph_collectives` for a command that captures NCCL collectives in a
+    CUDA graph (multihost.initialize)."""
     from .parallel import multihost
 
-    if args.multihost:  # before any CUDA use
-        multihost.initialize(device=args.device)
-    from .utils.profiling import trace
-
+    if args.multihost:
+        multihost.initialize(device=args.device, graph_collectives=graph_collectives)
     try:
-        cfg = _load_config(args)
-        with trace(args.profile):
-            return _train_body(args, cfg, multihost.is_primary())
+        yield multihost.is_primary()
     finally:
         if args.multihost:
             multihost.shutdown()
+
+
+def cmd_train(args) -> int:
+    from .utils.profiling import trace
+
+    with _process_group(args) as primary:
+        cfg = _load_config(args)
+        with trace(args.profile):
+            return _train_body(args, cfg, primary)
 
 
 def _train_body(args, cfg, primary: bool) -> int:
@@ -138,14 +154,16 @@ def _decode_config(bundle, strategy, beam_size, lm_path, lm_weight):
 def cmd_transcribe(args) -> int:
     from .utils.profiling import trace
 
-    bundle = _load_bundle(args)
-    if bundle is None:
-        return 2
-    with trace(args.profile):
-        return _transcribe_body(bundle, args)
+    with _process_group(args) as primary:
+        bundle = _load_bundle(args)
+        if bundle is None:
+            return 2
+        with trace(args.profile):
+            return _transcribe_body(bundle, args, primary)
 
 
-def _transcribe_body(bundle, args) -> int:
+def _transcribe_body(bundle, args, primary: bool = True) -> int:
+    """Every process computes; the primary alone prints and writes."""
     from .api import transcribe
     from .utils.captions import format_srt, format_vtt, group_cues, group_words
 
@@ -153,24 +171,29 @@ def _transcribe_body(bundle, args) -> int:
                                 args.lm_weight)
     if args.stream:
         return _transcribe_streaming(bundle, args)
+
+    def say(rec) -> None:
+        if primary:
+            print(json.dumps(rec, ensure_ascii=False))
+
     if args.caption:
         fmt = format_srt if args.caption == "srt" else format_vtt
         for path, toks in zip(args.audio, bundle.transcribe_timed(args.audio)):
             units = [{"token": w["word"], "start": w["start"], "end": w["end"]}
                      for w in group_words(toks)]
             out_path = os.path.splitext(path)[0] + "." + args.caption
-            with open(out_path, "w", encoding="utf-8") as f:
-                f.write(fmt(group_cues(units)))
-            print(json.dumps({"audio": path, "caption": out_path,
-                              "text": "".join(t["token"] for t in toks)}, ensure_ascii=False))
+            if primary:
+                with open(out_path, "w", encoding="utf-8") as f:
+                    f.write(fmt(group_cues(units)))
+            say({"audio": path, "caption": out_path, "text": "".join(t["token"] for t in toks)})
         return 0
     if args.timestamps:
         for path, toks in zip(args.audio, bundle.transcribe_timed(args.audio)):
-            print(json.dumps({"audio": path, "text": "".join(t["token"] for t in toks),
-                              "tokens": toks, "words": group_words(toks)}, ensure_ascii=False))
+            say({"audio": path, "text": "".join(t["token"] for t in toks), "tokens": toks,
+                 "words": group_words(toks)})
         return 0
     for path, text in zip(args.audio, transcribe(bundle, args.audio, decode_cfg=decode_cfg)):
-        print(json.dumps({"audio": path, "text": text}, ensure_ascii=False))
+        say({"audio": path, "text": text})
     return 0
 
 
@@ -201,12 +224,34 @@ def cmd_serve(args) -> int:
     from argv and, with --stdin, one a line from standard input: one JSONL
     line a request in completion order (short utterances come back while
     long ones still decode), the stats on standard error."""
+    with _process_group(args, graph_collectives=True) as primary:
+        bundle = _load_bundle(args)
+        if bundle is None:
+            return 2
+        return _serve_body(bundle, args, primary)
+
+
+def _stdin_paths(multihost: bool):
+    """Audio paths from standard input, one a line; under a process group
+    the primary reads them and every process takes each line in turn."""
+    from .parallel import multihost as mh
+
+    while True:
+        line = sys.stdin.readline() if mh.is_primary() else None
+        if multihost:
+            line = mh.broadcast_object(line)
+        if not line:
+            return
+        if line.strip():
+            yield line.strip()
+
+
+def _serve_body(bundle, args, primary: bool) -> int:
+    """Every process serves the same requests (a split model's ranks step
+    together); the primary alone prints."""
     from .serve import ServingEngine
     from .utils.captions import group_words
 
-    bundle = _load_bundle(args)
-    if bundle is None:
-        return 2
     try:
         eng = ServingEngine(bundle, slots=args.slots, steps_per_dispatch=args.steps_per_dispatch,
                             timestamps=args.timestamps)
@@ -222,7 +267,8 @@ def cmd_serve(args) -> int:
             if r.timed is not None:
                 rec["tokens"] = r.timed
                 rec["words"] = group_words(r.timed)
-            print(json.dumps(rec, ensure_ascii=False), flush=True)
+            if primary:
+                print(json.dumps(rec, ensure_ascii=False), flush=True)
 
     def feed(path):
         paths[eng.submit(path)] = path
@@ -232,15 +278,15 @@ def cmd_serve(args) -> int:
     for a in args.audio:
         feed(a)
     if args.stdin:
-        for line in sys.stdin:
-            if line.strip():
-                feed(line.strip())
+        for path in _stdin_paths(args.multihost):
+            feed(path)
     while eng.in_flight:
         emit(eng.step())
     s = eng.stats
-    print(f"served {s.completed} utterances in {s.dispatches} dispatches ({s.decode_steps} "
-          f"decode steps); latency mean {s.mean_latency_s:.3f}s p95 {s.p95_latency_s:.3f}s",
-          file=sys.stderr)
+    if primary:
+        print(f"served {s.completed} utterances in {s.dispatches} dispatches ({s.decode_steps} "
+              f"decode steps); latency mean {s.mean_latency_s:.3f}s p95 "
+              f"{s.p95_latency_s:.3f}s", file=sys.stderr)
     return 0
 
 
@@ -406,6 +452,14 @@ def _device(p) -> None:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
+def _multihost(p, what: str) -> None:
+    p.add_argument("--multihost", action="store_true",
+                   help=f"join the process group before {what} (one process per card; launch "
+                   "under python -m torch.distributed.run, or set JL_COORDINATOR / "
+                   "JL_NUM_PROCESSES / JL_PROCESS_ID); the config's mesh section splits "
+                   "the model")
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .utils.config import STRATEGIES
 
@@ -416,10 +470,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--config", required=True)
     pt.add_argument("--resume", action="store_true")
     pt.add_argument("--profile", metavar="LOGDIR", help="write a torch.profiler trace")
-    pt.add_argument("--multihost", action="store_true",
-                    help="join the process group before training (one process per card; "
-                    "launch under python -m torch.distributed.run, or set JL_COORDINATOR / "
-                    "JL_NUM_PROCESSES / JL_PROCESS_ID)")
+    _multihost(pt, "training")
     pt.add_argument("override", nargs="*", help="key.subkey=value overrides")
     _device(pt)
     pt.set_defaults(fn=cmd_train)
@@ -451,6 +502,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="streaming hop seconds (default 0.4)")
     pr.add_argument("--stream-lookahead", type=float, default=0.64,
                     help="right context before a frame commits (default 0.64)")
+    _multihost(pr, "transcribing")
     _device(pr)
     pr.set_defaults(fn=cmd_transcribe)
 
@@ -485,6 +537,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8-quantize the decoder weights before serving")
     ps.add_argument("--timestamps", action="store_true",
                     help="per-token and word spans in each result (alignment at harvest)")
+    _multihost(ps, "serving")
     _device(ps)
     ps.set_defaults(fn=cmd_serve)
 

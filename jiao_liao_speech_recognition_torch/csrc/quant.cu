@@ -33,6 +33,13 @@
 // Every row count takes the tensor cores (R <= 8 fills half of the 16-row
 // tile): the products are not what bounds the kernel, the bytes are.
 //
+// K10's row-parallel partial, jl_int8_row_partial: the same kernel with an
+// epilogue that stores the scaled sum a * s as f32, neither rounded nor
+// biased: a tensor-parallel rank's share of a row-parallel layer (its k rows
+// of q, the whole column's scale). The ranks' partials are summed by the
+// caller's all-reduce, then rounded once and the bias added once, as the
+// unsplit layer rounds.
+//
 // K11, jl_int8_tied_logits, replaces ops/quant.py::int8_tied_logits
 // (_int8_tied_logits_pallas / _int8_logits_kernel): logits = (x . q^T) * s
 // for x bf16 [R <= 64, D], q int8 row-major [V, D] (per-vocab-row), s f32
@@ -116,11 +123,12 @@ __device__ inline uint32_t ld_u32(const void* p) { return *reinterpret_cast<cons
 
 // one block of the cluster owning columns [n0, n0 + kStrip): rows [k0, k0 +
 // ks) of q in nc chunks of kc rows; MT 16-row tiles of x
-template <int MT>
+// kF32: y is f32 and takes a * s (the row partial); else bf16 with the bias
+template <int MT, bool kF32>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kMatmulThreads)
 int8_matmul_kernel(const __grid_constant__ CUtensorMap tq, const bf16* __restrict__ x,
                    const float* __restrict__ s, const bf16* __restrict__ bias,
-                   bf16* __restrict__ y, int R, int d_in, int d_out, int kc, int nc) {
+                   void* __restrict__ y, int R, int d_in, int d_out, int kc, int nc) {
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to 128 below
   constexpr int kRows = MT * 16;
@@ -237,26 +245,30 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap tq, const bf16* __restric
 #pragma unroll
     for (int q = 0; q < kRanks; ++q) a += recv[(q * kRows + row) * kRankCols + c];
     if (n_out < d_out) {
-      float v = round_bf16(a * s_out);
-      if (bias != nullptr) v += b_out;
-      y[(size_t)row * d_out + n_out] = __float2bfloat16(v);
+      if constexpr (kF32) {
+        static_cast<float*>(y)[(size_t)row * d_out + n_out] = a * s_out;
+      } else {
+        float v = round_bf16(a * s_out);
+        if (bias != nullptr) v += b_out;
+        static_cast<bf16*>(y)[(size_t)row * d_out + n_out] = __float2bfloat16(v);
+      }
     }
   }
 }
 
-template <int MT>
-int matmul(const CUtensorMap& tq, const bf16* x, const float* s, const bf16* bias, bf16* y,
+template <int MT, bool kF32>
+int matmul(const CUtensorMap& tq, const bf16* x, const float* s, const bf16* bias, void* y,
            int R, int d_in, int d_out, int kc, int nc, cudaStream_t stream) {
   const int ks = kc * nc;
   const size_t smem = 128 + (size_t)ks * kStrip + align128((size_t)MT * 16 * (ks + kPad) * 2) +
                       (size_t)(kParities + 1) * MT * 16 * kStrip * 4 + (size_t)nc * 8;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(int8_matmul_kernel<MT>,
+  cudaError_t err = cudaFuncSetAttribute(int8_matmul_kernel<MT, kF32>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(kRanks, ceil_div(d_out, kStrip));
-  int8_matmul_kernel<MT><<<grid, kMatmulThreads, smem, stream>>>(tq, x, s, bias, y, R, d_in,
-                                                                 d_out, kc, nc);
+  int8_matmul_kernel<MT, kF32><<<grid, kMatmulThreads, smem, stream>>>(tq, x, s, bias, y, R,
+                                                                       d_in, d_out, kc, nc);
   return (int)cudaGetLastError();
 }
 
@@ -539,12 +551,10 @@ int logits_tma(const CUtensorMap& tq, const bf16* x, const float* s, float* out,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// bias: bf16 [d_out] or null. d_in % 8 == 0, d_out % 16 == 0 (the TMA row
-// pitch), d_in at most 8 x 8 x 160 (less at large R: shared memory).
-extern "C" int jl_int8_matmul(const bf16* x, const int8_t* q, const float* s, const bf16* bias,
-                              bf16* y, int R, int d_in, int d_out, cudaStream_t stream) {
+// the k slices of the cluster, the tensor map, then the row-tile instance
+template <bool kF32>
+int int8_matmul_launch(const bf16* x, const int8_t* q, const float* s, const bf16* bias,
+                       void* y, int R, int d_in, int d_out, cudaStream_t stream) {
   if (R <= 0 || R > 64 || d_in <= 0 || d_in % 8 || d_out <= 0 || d_out % 16)
     return (int)cudaErrorInvalidValue;
   const int per_rank = ceil_div(ceil_div(d_in, kRanks), 16) * 16;
@@ -555,9 +565,24 @@ extern "C" int jl_int8_matmul(const bf16* x, const int8_t* q, const float* s, co
   if (!make_tmap_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, d_out, d_in, d_out, kStrip, kc,
                     CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
-  if (R <= 16) return matmul<1>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
-  if (R <= 32) return matmul<2>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
-  return matmul<4>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
+  if (R <= 16) return matmul<1, kF32>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
+  if (R <= 32) return matmul<2, kF32>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
+  return matmul<4, kF32>(tq, x, s, bias, y, R, d_in, d_out, kc, nc, stream);
+}
+
+}  // namespace
+
+// bias: bf16 [d_out] or null. d_in % 8 == 0, d_out % 16 == 0 (the TMA row
+// pitch), d_in at most 8 x 8 x 160 (less at large R: shared memory).
+extern "C" int jl_int8_matmul(const bf16* x, const int8_t* q, const float* s, const bf16* bias,
+                              bf16* y, int R, int d_in, int d_out, cudaStream_t stream) {
+  return int8_matmul_launch<false>(x, q, s, bias, y, R, d_in, d_out, stream);
+}
+
+// y f32 [R, d_out] = (x . q) * s, unrounded, no bias; jl_int8_matmul's shape rule
+extern "C" int jl_int8_row_partial(const bf16* x, const int8_t* q, const float* s, float* y,
+                                   int R, int d_in, int d_out, cudaStream_t stream) {
+  return int8_matmul_launch<true>(x, q, s, nullptr, y, R, d_in, d_out, stream);
 }
 
 // D % 16 == 0 (the table's row pitch in a tensor map); x 16-byte aligned

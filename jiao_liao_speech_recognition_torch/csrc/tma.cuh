@@ -184,6 +184,18 @@ template <int RANK>
 inline bool make_tmap(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
                       const cuuint64_t (&dims)[RANK], const cuuint64_t (&stride_bytes)[RANK - 1],
                       const cuuint32_t (&box)[RANK], CUtensorMapSwizzle swizzle) {
+  // cuTensorMapEncodeTiled needs the thread's current context, which the
+  // runtime binds at a thread's first runtime call: a host thread
+  // whose first CUDA work is one of these launches has none yet, and the
+  // encoder refuses (a model group's ranks played by threads of one
+  // process). cudaSetDevice binds the device's primary context (CUDA 12),
+  // once a thread, and is no stream work, so it is legal during capture.
+  thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
+    bound = true;
+  }
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint32_t elem[RANK];

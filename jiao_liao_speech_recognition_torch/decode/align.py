@@ -11,6 +11,10 @@ attention probabilities are recomputed in f32 from those q and k
 it names none, and a monotonic DTW over each utterance's [tokens x encoder
 frames] matrix gives contiguous per-token frame spans. One encoder frame is
 2 mel hops (20 ms at 16 kHz).
+
+On a tensor-parallel model (parallel/tp.py) a rank's projections hold its
+heads' columns: the hooks join them over the group, so every rank reduces
+the whole layer's q and k as one card does and takes the same spans.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.numerics import full_f32
+from ..parallel.tp import model_tp
 
 
 def _decoder_cross_qk(model, mel: torch.Tensor, tokens, layers=None) -> Dict[int, tuple]:
@@ -31,9 +36,12 @@ def _decoder_cross_qk(model, mel: torch.Tensor, tokens, layers=None) -> Dict[int
     [B, mels, frames] features the ids were decoded from."""
     captured: Dict[int, dict] = {}
     hooks = []
+    tp = model_tp(model)
 
     def keep(i, name):
-        def hook(_module, _args, out):
+        def hook(module, _args, out):
+            if module.tp is not None and module.tp_mode == "column":
+                out = tp.gather(out, -1)  # this rank's heads -> every head
             captured.setdefault(i, {})[name] = out
         return hook
 

@@ -17,7 +17,9 @@ On a tensor-parallel model (parallel/tp.py) every rank of a model group
 runs the same steps on the same rows: its logits are the group's joined
 vocab columns, so each rank takes the same tokens, and the greedy loop's
 host read of "every row done" is agreed over the group before it stops.
-The beam loops refuse such a model (``parallel.tp.refuse``).
+The beam loop needs no collective of its own: its log-probs, top-K
+bookkeeping and host reads are the same bytes on every rank, and the self
+caches it gathers along the winning beams hold the rank's heads.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..parallel.tp import model_tp, refuse
+from ..parallel.tp import model_tp
 from ..utils.config import DecodeConfig
 
 # Whisper multilingual special tokens (vocab 51865; large-v3 shifts by one)
@@ -220,7 +222,6 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
     at log-prob 0 only; only beam 0 starts alive. ``lm_bigram`` [V, V]
     (``load_bigram_matrix``) with lm_weight > 0 adds lm_weight * log
     P_LM(next | current token) to each step's log-probs."""
-    refuse(model, "the AR beam search")
     B, dev = enc.shape[0], enc.device
     K, P, V = beam_size, len(prompt), model.cfg.vocab_size
     always, begin = suppression_masks(V, suppress_ids, begin_suppress_ids, dev)

@@ -35,9 +35,10 @@ or model > 1 under a process group): the model is split over the mesh's
 model axis (parallel/tp.py) and ``transcribe`` takes its (data, fsdp)
 rank's share of the batch's chunks, the same share on every rank of a
 model group, and returns every chunk's text on every rank. CTC greedy and
-Whisper greedy run split; int8 serving, the beams, Whisper timestamps, the
-joint family, the serving engine and streaming refuse a split model by
-name (ROADMAP queue 1 item 12).
+Whisper serving run split: greedy, ``quantize()`` (before or after the
+split), the AR beam, timestamps and the serving engine; the CTC prefix
+beams, the joint family and streaming refuse a split model by name
+(ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ from ..frontend import audio_io, features
 from ..frontend.resample import resample
 from ..parallel import multihost as mh
 from ..parallel.tp import ITEM as TP_ITEM
-from ..parallel.tp import apply_tp, refuse
+from ..parallel.tp import apply_tp, model_tp, refuse, role_dims
 from ..utils.config import STRATEGIES, DecodeConfig, ExperimentConfig, load_yaml, save_yaml
 from .convert import (
     joint_params_to_state_dict,
@@ -193,7 +194,8 @@ class ModelBundle:
         columns and the all-reduces are the layers' own. Over 'fsdp' the
         weights stay whole (JAX shards them there too, and XLA gathers each
         layer at use; here a rank holds its model-axis part). The model is
-        split in place; returns self. Refuses an int8 bundle and the joint
+        split in place; returns self. An int8 bundle (``quantize()``)
+        splits to the bits of quantizing after the split. Refuses the joint
         family on a model axis (ROADMAP queue 1 item 12)."""
         from ..parallel import mesh as pmesh
 
@@ -244,15 +246,20 @@ class ModelBundle:
         vocab.json (char or unigram), or a BPE tokenizer's vocab.json and
         merges.txt (``load_tokenizer`` reads either back). A split bundle
         (``shard``) writes the whole weights, joined over the model axis: a
-        collective every rank calls, after which the primary writes."""
+        collective every process calls, after which the primary writes; it
+        returns on every process once the files are written."""
         state = self.model.state_dict()
-        if getattr(self.model, "tp", None) is not None:
-            from ..parallel.mesh import gather_split
+        if getattr(self.model, "tp", None) is None:
+            self._write(state, Path(path))
+            return
+        from ..parallel.mesh import gather_split
 
-            state = gather_split(state, self.model)
-            if not mh.is_primary():
-                return
-        p = Path(path)
+        state = gather_split(state, self.model)
+        if mh.is_primary():
+            self._write(state, Path(path))
+        mh.barrier()
+
+    def _write(self, state, p: Path) -> None:
         p.mkdir(parents=True, exist_ok=True)
         save_yaml(self.config, str(p / "config.yaml"))
         if hasattr(self.tokenizer, "save_hf_dir"):
@@ -270,16 +277,20 @@ class ModelBundle:
         are int8 per output channel (cross k/v included) and whose tied
         table is int8 per vocab row, made on the bundle's device. The
         encoder is the same module (its tensors shared); this bundle is
-        left as it is. Whisper only."""
+        left as it is. Whisper only. A split bundle (``shard``) quantizes
+        each rank's part to the bits of the unsplit quantization's part (a
+        row layer's scales are its columns' max over the group: a
+        collective) and keeps its mesh."""
         if not self.is_whisper:
             raise NotImplementedError(
                 "int8 decode serving targets the whisper family; the CTC/joint encoders "
                 "are compute-bound, not weight-read-bound")
-        refuse(self.model, "int8 serving (quantize())")
         model = copy.copy(self.model)
         model._modules = dict(self.model._modules)
         model.decoder = quantized_copy(self.model.decoder)
-        return ModelBundle(self.config, model, self.tokenizer)
+        if model_tp(model) is not None:  # split: its int8 leaves are split too
+            model.tp_dims = role_dims(model)
+        return ModelBundle(self.config, model, self.tokenizer, self.mesh)
 
     # ------------------------------------------------------------- inference
     def transcribe(
@@ -351,7 +362,6 @@ class ModelBundle:
     def _transcribe_timed_whisper(self, audio, sample_rate) -> List[List[dict]]:
         """Greedy ids of every chunk in one batch (as transcribe), then the
         spans of whisper_token_spans over the same features."""
-        refuse(self.model, "Whisper timestamps")
         from ..decode.align import whisper_token_spans
         from ..decode.whisper_generate import generate, resolve_specials
 

@@ -82,7 +82,14 @@ from ..ops.fused_mlp import (
     qkv_gemm_plain,
 )
 from ..ops.numerics import full_f32, layer_norm
-from ..ops.quant import int8_decode_attention, int8_matmul, quantize_int8, quantize_kv
+from ..ops.quant import (
+    int8_decode_attention,
+    int8_finish,
+    int8_matmul,
+    int8_row_product,
+    quantize_int8,
+    quantize_kv,
+)
 from ..utils.config import AdapterConfig
 
 FUSED_MIN_T = 64  # decoder blocks fuse their MLP from this many query rows
@@ -237,22 +244,14 @@ class Dense(nn.Module):
             y = torch.matmul(x, kernel.to(dt))
             if bias is not None:
                 y = y + bias.to(dt)
-            if wf is not None:
-                z = torch.matmul(x, tp.enter(wf.a).to(dt)) * tp.enter(wf.g).to(dt)
-                b = self._part(tp.enter(wf.b), 1, kernel.shape[1])
-                y = y + wf.scale * torch.matmul(z, b.to(dt))
-            return y
+            return y if wf is None else split_wf(tp, "column", wf, x, y, kernel.shape[1])
         n = kernel.shape[0]
         if self.tp_input == "replicated":
             x = self._part(tp.enter(x), -1, n)
         y = tp.reduce(row_parallel_product(x, kernel, kernels)).to(dt)
         if bias is not None:
             y = y + bias.to(dt)
-        if wf is not None:
-            a = self._part(tp.enter(wf.a), 0, n)
-            z = tp.reduce(row_parallel_product(x, a, False)).to(dt) * wf.g.to(dt)
-            y = y + wf.scale * torch.matmul(z, wf.b.to(dt))
-        return y
+        return y if wf is None else split_wf(tp, "row", wf, x, y, n)
 
     def insert(self) -> dict:
         """The WF insert {a, g, b} in the K7 wrappers' layout, cut to this
@@ -269,11 +268,33 @@ class Dense(nn.Module):
 
     def quantized(self) -> "Int8Dense":
         """The int8 form; a WF insert stays beside it as it is (the JAX
-        tree's ``adapter_wf`` beside ``dense_q``)."""
+        tree's ``adapter_wf`` beside ``dense_q``). A split layer keeps its
+        role: a column layer quantizes its columns; a row layer its rows
+        with each column's scale taken over the whole column (the group's
+        largest |w|), so the ranks hold the unsplit layer's int8 rows."""
         with torch.no_grad():
-            q, scale = quantize_int8(self.kernel)
-            return Int8Dense(q, scale, None if self.bias is None else self.bias.detach().clone(),
-                             getattr(self, "adapter_wf", None))
+            amax = None
+            if self.tp is not None and self.tp_mode == "row":
+                amax = self.tp.gather(self.kernel.abs().amax(dim=0)[None], 0).amax(dim=0)
+            q, scale = quantize_int8(self.kernel, amax)
+            out = Int8Dense(q, scale, None if self.bias is None else self.bias.detach().clone(),
+                            getattr(self, "adapter_wf", None))
+            out.tp, out.tp_mode, out.tp_input = self.tp, self.tp_mode, self.tp_input
+            return out
+
+
+def split_wf(tp, mode: str, wf, x: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
+    """y plus a whole WF insert's term on a split layer's rank (`n` its
+    columns or rows): B's columns of this rank in a column layer; in a row
+    layer A's rows, the low-rank projection x A summed over the group."""
+    dt = x.dtype
+    if mode == "column":
+        z = torch.matmul(x, tp.enter(wf.a).to(dt)) * tp.enter(wf.g).to(dt)
+        b = tp.enter(wf.b).narrow(1, tp.rank * n, n)
+        return y + wf.scale * torch.matmul(z, b.to(dt))
+    a = tp.enter(wf.a).narrow(0, tp.rank * n, n)
+    z = tp.reduce(row_parallel_product(x, a, False)).to(dt) * wf.g.to(dt)
+    return y + wf.scale * torch.matmul(z, wf.b.to(dt))
 
 
 class Int8Dense(nn.Module):
@@ -283,7 +304,18 @@ class Int8Dense(nn.Module):
     y = int8_matmul(x, kernel_q, scale, bias) (K10 at decode-step row
     counts, the bias, kept as a serving copy in x's dtype, added in its
     epilogue; x's dtype out), then a WF insert's low-rank term when the
-    layer was adapted (``adapter_wf``, its f32 parameters kept)."""
+    layer was adapted (``adapter_wf``, its f32 parameters kept).
+
+    Split (``tp``, ``tp_mode``, ``tp_input`` as Dense's): a column layer
+    runs K10 on its columns with its part of the bias; a row layer's
+    rank takes K10's row partial (``int8_row_product``: f32, unrounded,
+    no bias), the group sums the partials, and the sum is rounded as
+    int8_matmul rounds, then the bias is added once (``int8_finish``). A
+    WF insert takes Dense's split route (``split_wf``)."""
+
+    tp = None
+    tp_mode = None
+    tp_input = "local"
 
     def __init__(self, kernel_q: torch.Tensor, scale: torch.Tensor,
                  bias: Optional[torch.Tensor], adapter_wf: Optional[nn.Module] = None):
@@ -296,12 +328,23 @@ class Int8Dense(nn.Module):
         self._bias = ServingCopy()
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        dt = x.dtype
         bias = None if self.bias is None else self._bias.get(
-            x.dtype, (self.bias,), lambda: self.bias.to(x.dtype))
-        y = int8_matmul(x, self.kernel_q, self.scale, kernels, bias)
-        if hasattr(self, "adapter_wf"):
-            y = self.adapter_wf(x, y)
-        return y
+            dt, (self.bias,), lambda: self.bias.to(dt))
+        wf = getattr(self, "adapter_wf", None)
+        tp = self.tp
+        if tp is None or self.tp_mode == "column":
+            y = int8_matmul(x, self.kernel_q, self.scale, kernels, bias)
+            if wf is None:
+                return y
+            return wf(x, y) if tp is None else split_wf(tp, "column", wf, x, y,
+                                                       self.kernel_q.shape[1])
+        n = self.kernel_q.shape[0]
+        if self.tp_input == "replicated":
+            x = x.narrow(-1, tp.rank * n, n)
+        y = int8_finish(tp.reduce(int8_row_product(x, self.kernel_q, self.scale, kernels)),
+                        dt, bias)
+        return y if wf is None else split_wf(tp, "row", wf, x, y, n)
 
 
 def quantized_copy(module: nn.Module) -> nn.Module:

@@ -113,11 +113,8 @@ class TiedEmbedding(nn.Module):
         if self.tp is None:
             return self.table(dtype)[tokens.long()]
         table = self.table(dtype)
-        n = table.shape[0]
-        local = tokens.long() - self.tp.rank * n
-        inside = (local >= 0) & (local < n)
-        rows = table[local.clamp(0, n - 1)] * inside[..., None].to(dtype)
-        return self.tp.reduce(rows)
+        rows, inside = masked_rows(lambda t: table[t], tokens, table.shape[0], self.tp.rank)
+        return self.tp.reduce(rows * inside[..., None].to(dtype))
 
     def attend(self, x: torch.Tensor, dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
         """Logits [..., V] in `dtype` (f32 accumulation). `kernels` is
@@ -129,30 +126,57 @@ class TiedEmbedding(nn.Module):
         return logits if self.tp is None else self.tp.gather(logits, -1)
 
     def quantized(self) -> "Int8TiedEmbedding":
-        """Per-vocab-row int8 (quantize_int8 of the transposed table)."""
+        """Per-vocab-row int8 (quantize_int8 of the transposed table); a
+        vocab-split table quantizes its own rows and stays split."""
         with torch.no_grad():
             q, scale = quantize_int8(self.embedding.t())
-            return Int8TiedEmbedding(q.t().contiguous(), scale)
+            out = Int8TiedEmbedding(q.t().contiguous(), scale)
+            out.tp = self.tp
+            return out
+
+
+def masked_rows(table_rows, tokens: torch.Tensor, n: int, rank: int):
+    """(rows, inside): `table_rows(i)` at each token's index among this
+    rank's `n` vocab rows (row 0 where the token is another rank's), and
+    whether it is this rank's."""
+    local = tokens.long() - rank * n
+    inside = (local >= 0) & (local < n)
+    return table_rows(local.clamp(0, n - 1)), inside
 
 
 class Int8TiedEmbedding(nn.Module):
     """The int8 serving form of TiedEmbedding (the JAX package's
     ``{embedding_q, scale}`` tree): buffers ``embedding_q`` int8 [V, D] and
     ``scale`` f32 [V]. A lookup dequantizes its rows in f32, then casts;
-    ``attend`` streams the row-major table through K11 and returns f32."""
+    ``attend`` streams the row-major table through K11 and returns f32.
+
+    Vocab-parallel as TiedEmbedding (``tp`` set): a rank holds rows
+    [r V / tp, (r + 1) V / tp) and their scales; a lookup dequantizes its
+    rows where the token falls in them, zeros elsewhere, summed over the
+    group; the logits are K11 over its rows, joined over the group."""
+
+    tp = None
 
     def __init__(self, embedding_q: torch.Tensor, scale: torch.Tensor):
         super().__init__()
         self.register_buffer("embedding_q", embedding_q)
         self.register_buffer("scale", scale)
 
-    def forward(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        t = tokens.long()
+    def _rows(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return (self.embedding_q[t].float() * self.scale[t][..., None]).to(dtype)
+
+    def forward(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.tp is None:
+            return self._rows(tokens.long(), dtype)
+        rows, inside = masked_rows(lambda t: self._rows(t, dtype), tokens,
+                                   self.embedding_q.shape[0], self.tp.rank)
+        return self.tp.reduce(rows * inside[..., None].to(dtype))
 
     def attend(self, x: torch.Tensor, dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
         """f32 logits [..., V] (`dtype` is the bf16 table's, unused here)."""
         out = int8_tied_logits(x.reshape(-1, x.shape[-1]), self.embedding_q, self.scale, kernels)
+        if self.tp is not None:
+            out = self.tp.gather(out, -1)
         return out.reshape(*x.shape[:-1], out.shape[-1])
 
 

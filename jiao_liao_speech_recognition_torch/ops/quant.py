@@ -12,6 +12,15 @@
   ``_int8_matmul_pallas`` and the caller's bias add); longer inputs take
   the JAX package's XLA function (bf16 operands, an f32 product, * s, one
   rounding), then the bias, as ``int8_matmul_plain`` does.
+* K10's row-parallel partial, ``int8_row_product``: a tensor-parallel
+  rank's f32 share (x_r . q_r) * s of a row-parallel layer (its input
+  rows of q, the whole column's scale), neither rounded nor biased; the
+  group's all-reduce sums the shares, then the layer rounds once and adds
+  its bias once (``int8_finish``, K10's rounding rule, which
+  ``int8_matmul`` also takes; ``models/layers.Int8Dense``). At most
+  ``MAX_KERNEL_ROWS`` rows take ``int8_row_partial``
+  (``jl_int8_row_partial``: K10's kernel with an f32 epilogue); longer
+  inputs, and ``kernels=False``, take ``int8_row_partial_plain``.
 * K11, ``int8_tied_logits``: f32 logits (x . q^T) * s against a row-major
   int8 [V, D] table with per-vocab-row scales. At most ``MAX_KERNEL_ROWS``
   rows take ``int8_logits`` (``jl_int8_tied_logits``, replacing
@@ -47,17 +56,20 @@ from .decode_attention import (
 from .numerics import full_f32
 
 MATMUL_COUNTER = LaunchCounter("int8_matmul")  # K10
+ROW_PARTIAL_COUNTER = LaunchCounter("int8_row_partial")  # K10's row-parallel partial
 LOGITS_COUNTER = LaunchCounter("int8_tied_logits")  # K11
 # rows beyond this take the dequantizing product: long (teacher-forced)
 # inputs are compute-bound, where reading the weights once more is cheap
 MAX_KERNEL_ROWS = 64
 
 
-def quantize_int8(w: torch.Tensor):
+def quantize_int8(w: torch.Tensor, amax: torch.Tensor | None = None):
     """Per-output-channel int8: w [d_in, d_out] -> (q int8 [d_in, d_out],
-    scale f32 [d_out]) with w ~= q * scale[None, :]."""
+    scale f32 [d_out]) with w ~= q * scale[None, :]. `amax` [d_out], when
+    given, is each channel's max |w| over rows that `w` holds only part of
+    (a tensor-parallel rank's rows of a row-parallel layer)."""
     w = w.float()
-    scale = w.abs().amax(dim=0) / 127.0
+    scale = (w.abs().amax(dim=0) if amax is None else amax.float()) / 127.0
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(w / safe[None, :]), -127, 127).to(torch.int8)
     return q, scale
@@ -94,12 +106,23 @@ def _scaled_product(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
     return _mm_f32(x2.to(torch.bfloat16), q.to(torch.bfloat16)) * scale.float()
 
 
+def int8_finish(y: torch.Tensor, dtype: torch.dtype,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """K10's rounding rule, stated once: the f32 scaled product y [..., d_out]
+    (a split row layer's summed partials too) -> `dtype` as int8_matmul
+    gives it: at most MAX_KERNEL_ROWS rows rounded to bf16 first (K10's
+    epilogue), then cast to `dtype`, then + bias in `dtype`."""
+    if _rows(y) <= MAX_KERNEL_ROWS:
+        y = y.to(torch.bfloat16)
+    y = y.to(dtype)
+    return y if bias is None else y + bias.to(dtype)
+
+
 def int8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor | None = None) -> torch.Tensor:
     """x2 [R, d_in] -> bf16 [R, d_out]: the scaled f32 product rounded to
     bf16 once, then + bias (bf16) and rounded again."""
-    y = _scaled_product(x2, q, scale).to(torch.bfloat16)
-    return y if bias is None else y + bias.to(torch.bfloat16)
+    return int8_finish(_scaled_product(x2, q, scale), torch.bfloat16, bias)
 
 
 def int8_gemv(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -138,16 +161,58 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     folded into it for a bf16 x; longer inputs take the plain product."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if _rows(x) > MAX_KERNEL_ROWS:
-        y = _scaled_product(x2, q, scale).to(x.dtype)  # rounded once, to x's dtype
+    if not kernels or _rows(x) > MAX_KERNEL_ROWS:
+        y = int8_finish(_scaled_product(x2, q, scale), x.dtype, bias)
     elif x.dtype == torch.bfloat16:  # the bias folds into K10's epilogue
-        y = (int8_gemv if kernels else int8_matmul_plain)(x2, q, scale, bias)
-        bias = None
+        y = int8_gemv(x2, q, scale, bias)
     else:
-        y = (int8_gemv if kernels else int8_matmul_plain)(x2, q, scale).to(x.dtype)
-    if bias is not None:
-        y = y + bias.to(x.dtype)
+        y = int8_finish(int8_gemv(x2, q, scale), x.dtype, bias)
     return y.reshape(*lead, q.shape[1])
+
+
+# --- K10's row-parallel partial ------------------------------------------------
+
+
+def int8_row_partial_plain(x2: torch.Tensor, q: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """x2 [R, d_in] -> f32 [R, d_out]: (x_bf16 . q_bf16) * scale, neither
+    rounded nor biased."""
+    return _scaled_product(x2, q, scale)
+
+
+def int8_row_partial(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Wrapper of jl_int8_row_partial -> f32 [R, d_out]. CPU tensors take
+    int8_row_partial_plain; CUDA tensors launch the kernel (K10's shape
+    rule: R <= MAX_KERNEL_ROWS, d_in % 8 == 0, d_out % 16 == 0) or raise.
+    Allocates only the output."""
+    if x2.device.type == "cpu":
+        return int8_row_partial_plain(x2, q, scale)
+    refuse_grad("int8_row_partial", x2)
+    x2 = x2.to(torch.bfloat16).contiguous()
+    if x2.data_ptr() % 16:  # the kernel reads x in 16-byte vectors
+        x2 = x2.clone()
+    check_cuda("q", q, torch.int8, 2)
+    check_cuda("scale", scale, torch.float32, 1)
+    R, d_in = x2.shape
+    d_out = q.shape[1]
+    if (not 0 < R <= MAX_KERNEL_ROWS or q.shape[0] != d_in or d_in % 8 or d_out % 16
+            or scale.shape[0] != d_out):
+        raise ValueError(f"unsupported int8 row partial shape R={R} q={tuple(q.shape)}")
+    y = torch.empty(R, d_out, device=x2.device, dtype=torch.float32)
+    launch("jl_int8_row_partial", x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+           R, d_in, d_out)
+    ROW_PARTIAL_COUNTER.launches += 1
+    return y
+
+
+def int8_row_product(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                     kernels: bool = True) -> torch.Tensor:
+    """A row-parallel int8 layer's f32 partial for x [..., d_in] ->
+    [..., d_out]: the kernel (its plain version with kernels=False) for at
+    most MAX_KERNEL_ROWS rows, the plain product beyond."""
+    x2 = x.reshape(-1, x.shape[-1])
+    fn = int8_row_partial if kernels and _rows(x) <= MAX_KERNEL_ROWS else int8_row_partial_plain
+    return fn(x2, q, scale).reshape(*x.shape[:-1], q.shape[1])
 
 
 # --- K11 --------------------------------------------------------------------

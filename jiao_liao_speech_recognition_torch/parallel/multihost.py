@@ -36,11 +36,17 @@ def initialize(
     process_id: Optional[int] = None,
     local_device_ids: Optional[list] = None,
     device: str = "cuda",
+    graph_collectives: bool = False,
 ) -> None:
     """Join the process group (idempotent). `device` "cuda" binds this
     process to its card (``local_device_ids[0]``, else ``LOCAL_RANK``, else
     the process id modulo the visible cards) and raises without one; "cpu"
-    takes gloo."""
+    takes gloo. `graph_collectives` says that NCCL collectives will be
+    captured in CUDA graphs (the serving engine's step on a split model):
+    it sets ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` before the group starts,
+    as PyTorch's CUDA-graph notes on whole-network capture ask, which also
+    turns off NCCL's watchdog abort of a stuck or failed rank. Training
+    leaves it False."""
     if is_initialized():
         return
     env = os.environ
@@ -73,6 +79,8 @@ def initialize(
     else:
         local = process_id % torch.cuda.device_count()
     torch.cuda.set_device(local)
+    if graph_collectives:
+        os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "0"
     dist.init_process_group("nccl", init_method=init, world_size=num_processes,
                             rank=process_id, device_id=torch.device("cuda", local))
 

@@ -22,6 +22,12 @@ gradients of replicated parameters come out whole and equal on each, save
 the WF inserts that a split layer reads in part: they pass through
 ``enter`` too, which sums their gradients over the group.
 
+An int8 serving model (``ModelBundle.quantize``) splits by the same rules
+(``kernel_q`` as its kernel, a column layer's scale with its columns, the
+int8 table by vocab rows), before or after the quantization, to the same
+bits: a split row layer quantizes its rows with the whole column's scale
+(``Dense.quantized``).
+
 Outside autograd (serving), ``reduce`` all-reduces the partial in place
 and ``enter`` is the tensor itself. A group may also be a stand-in object
 with ``all_reduce(t)`` (-> the sum) and ``all_gather(t)`` (-> the ranks'
@@ -31,6 +37,7 @@ chip_smoke.py's phase 20 does on one card.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional
 
 import torch
@@ -158,13 +165,38 @@ def refuse(model: torch.nn.Module, what: str) -> None:
 
 
 def split_dims(model: torch.nn.Module, tp: int) -> Dict[str, int]:
-    """name -> the dim the model axis splits, for each parameter of the
-    whole `model` that the rules split at model-axis size `tp`."""
+    """name -> the dim the model axis splits, for each parameter (or int8
+    buffer) of the whole `model` that the rules split at model-axis size
+    `tp`."""
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in itertools.chain(model.named_parameters(), model.named_buffers()):
         d = model_dim(tp_placement(name, tuple(p.shape), tp))
         if d is not None:
             out[name] = d
+    return out
+
+
+def role_dims(model: torch.nn.Module) -> Dict[str, int]:
+    """name -> split dim of each split tensor of a split `model`, read off
+    its layers' roles (``model.tp_dims`` of a model quantized after its
+    split, whose int8 leaves the split never saw)."""
+    from ..models.layers import Dense, Int8Dense
+    from ..models.whisper import Int8TiedEmbedding, TiedEmbedding
+
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, (Dense, Int8Dense)) and m.tp is not None:
+            col = m.tp_mode == "column"
+            leaves = {"kernel": 1 if col else 0, "kernel_q": 1 if col else 0}
+            if col:
+                leaves.update(bias=0, scale=0)
+        elif isinstance(m, (TiedEmbedding, Int8TiedEmbedding)) and m.tp is not None:
+            leaves = {"embedding": 0, "embedding_q": 0, "scale": 0}
+        else:
+            continue
+        for leaf, d in leaves.items():
+            if getattr(m, leaf, None) is not None:
+                out[f"{name}.{leaf}"] = d
     return out
 
 
@@ -172,23 +204,22 @@ def apply_tp(model: torch.nn.Module, tp: TPGroup) -> torch.nn.Module:
     """Split a whole `model` in place into rank ``tp.rank``'s part: every
     parameter the rules split is replaced by its rank's slice, and the
     layers learn their role (column or row, their heads, the vocab rows
-    of a tied embedding, the hidden columns of a dropout). A model split
-    already, or `tp.size` 1, is returned as it is. Raises ValueError where
-    a split layer's heads do not divide by the group size, and
-    NotImplementedError for an int8 model (``ModelBundle.quantize``)."""
+    of a tied embedding, the hidden columns of a dropout), an int8 model's
+    buffers and layers alike. A model split already, or `tp.size` 1, is
+    returned as it is. Raises ValueError where a split layer's heads do
+    not divide by the group size."""
     from ..models.adapters import AttAdapter
     from ..models.layers import MLP, Dense, Int8Dense, MultiHeadAttention
     from ..models.whisper import Int8TiedEmbedding, TiedEmbedding
 
     if model_tp(model) is not None or tp.size == 1:
         return model
-    if any(isinstance(m, (Int8Dense, Int8TiedEmbedding)) for m in model.modules()):
-        raise NotImplementedError(f"an int8 model (quantize()) cannot be split: {ITEM}")
     dims = split_dims(model, tp.size)
-    owner = {}  # id(Dense) -> its kernel's split dim
+    owner = {}  # id(Dense or Int8Dense) -> its kernel's split dim
     for name, m in model.named_modules():
-        if isinstance(m, Dense) and f"{name}.kernel" in dims:
-            owner[id(m)] = dims[f"{name}.kernel"]
+        for leaf in ("kernel", "kernel_q"):
+            if isinstance(m, (Dense, Int8Dense)) and f"{name}.{leaf}" in dims:
+                owner[id(m)] = dims[f"{name}.{leaf}"]
     for name, m in model.named_modules():
         if isinstance(m, MultiHeadAttention) and id(m.q_proj) in owner:
             if m.num_heads % tp.size:
@@ -201,7 +232,9 @@ def apply_tp(model: torch.nn.Module, tp: TPGroup) -> torch.nn.Module:
             m.out_proj.tp_input = "replicated"
         elif isinstance(m, TiedEmbedding) and f"{name}.embedding" in dims:
             m.tp = tp
-        if isinstance(m, Dense) and id(m) in owner:
+        elif isinstance(m, Int8TiedEmbedding) and f"{name}.embedding_q" in dims:
+            m.tp = tp
+        if isinstance(m, (Dense, Int8Dense)) and id(m) in owner:
             m.tp = tp
             m.tp_mode = "column" if owner[id(m)] == 1 else "row"
     with torch.no_grad():
@@ -209,8 +242,10 @@ def apply_tp(model: torch.nn.Module, tp: TPGroup) -> torch.nn.Module:
             mod_name, _, leaf = name.rpartition(".")
             mod = model.get_submodule(mod_name)
             old = getattr(mod, leaf)
-            setattr(mod, leaf, torch.nn.Parameter(shard_tensor(old.detach(), d, tp.rank, tp.size),
-                                                  requires_grad=old.requires_grad))
+            part = shard_tensor(old.detach(), d, tp.rank, tp.size)
+            if isinstance(old, torch.nn.Parameter):
+                part = torch.nn.Parameter(part, requires_grad=old.requires_grad)
+            setattr(mod, leaf, part)  # a buffer stays a buffer
     model.tp = tp
     model.tp_dims = dims
     return model

@@ -11,6 +11,11 @@ suffix and shape alone:
   columns (``(None, "model")``), and their biases (``("model",)``);
 * ``out_proj`` / ``fc2`` kernels: the rows (``("model", None)``);
 * ``embed_tokens.embedding`` [V, d] (any ``embedding``): the vocab rows;
+* the int8 serving leaves (``ModelBundle.quantize``), as JAX's
+  ``bundle.shard(mesh).quantize()`` places them: ``kernel_q`` as its
+  ``kernel``; a column layer's per-column ``scale`` with its columns, a row
+  layer's ``scale`` whole; ``embedding_q`` [V, d] and the tied table's
+  per-row ``scale`` [V] by vocab rows;
 * replication where tp does not divide that dim, and for everything else
   (LayerNorms, convolutions, the CTC head, the row layers' biases, every
   WF insert ``a`` / ``g`` / ``b``, the Att adapter's ``qkv_proj``; its
@@ -55,16 +60,20 @@ def tp_placement(name: str, shape: Sequence[int], tp: int) -> Placement:
     repl = (None,) * nd
     if tp == 1 or nd == 0:
         return repl
-    leaf, mod = name.split(".")[-1], _module(name)
-    if leaf == "kernel" and nd == 2:
+    parts = name.split(".")
+    leaf, mod = parts[-1], _module(name)
+    if leaf in ("kernel", "kernel_q") and nd == 2:
         if mod in COLUMN_KERNELS and shape[1] % tp == 0:
             return (None, "model")
         if mod in ROW_KERNELS and shape[0] % tp == 0:
             return ("model", None)
-    if leaf == "bias" and mod in COLUMN_KERNELS and nd == 1 and shape[0] % tp == 0:
+    if leaf in ("bias", "scale") and mod in COLUMN_KERNELS and nd == 1 and shape[0] % tp == 0:
         return ("model",)
-    if leaf == "embedding" and nd == 2 and shape[0] % tp == 0:
+    if leaf in ("embedding", "embedding_q") and nd == 2 and shape[0] % tp == 0:
         return ("model", None)
+    if (leaf == "scale" and nd == 1 and len(parts) > 1 and parts[-2] == "embed_tokens"
+            and shape[0] % tp == 0):
+        return ("model",)
     return repl
 
 

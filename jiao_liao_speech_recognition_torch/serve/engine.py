@@ -35,17 +35,34 @@ is: WF inserts sit in the Dense layers (K7 in the admission's encoder);
 an Att adapter's slot caches are lanes of the pool like the self caches,
 written at each lane's position.
 
+A split bundle (``ModelBundle.shard``, a model axis over a process group)
+serves as one card's: every rank of a model group makes the same engine,
+takes the same submissions, admits and harvests the same lanes (its
+logits are the group's joined vocab columns, so its tokens, done flags
+and texts are the same bytes on each rank) and holds its heads' caches.
+The captured step holds the row layers' NCCL all-reduces and the vocab
+all-gather; the warm-up runs them first, so the communicators exist before
+the capture (NCCL capture also wants ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``
+before the group starts, which ``parallel/multihost.initialize`` sets when
+asked for ``graph_collectives``; the engine refuses to capture without
+it). A
+stand-in group (parallel/tp.py: ranks played in one process) cannot be
+captured: the engine refuses one on a card unless ``graph=False`` asks
+for the eager step.
+
 Greedy only, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import _build
 from ..decode.whisper_generate import (
@@ -56,7 +73,7 @@ from ..decode.whisper_generate import (
 from ..frontend import features
 from ..models.ctc_model import DTYPES
 from ..models.whisper import HEAD_MAJOR_MIN_BATCH
-from ..parallel.tp import refuse
+from ..parallel.tp import model_tp
 
 
 @dataclass
@@ -112,15 +129,29 @@ class ServingEngine:
         rid = eng.submit(wav)          # queues, and admits at once if a lane is free
         texts = eng.drain()            # {rid: text} once every request is done
         texts = eng.transcribe([wav1, wav2, ...])  # in order, long-form re-joined
+
+    On a card the step is captured at construction; ``graph=False`` runs
+    it eagerly instead (the comparisons of a captured step with its eager
+    self, and a model group played in one process).
     """
 
     def __init__(self, bundle, slots: int = 8, steps_per_dispatch: int = 32,
-                 max_len: Optional[int] = None, timestamps: bool = False):
-        refuse(bundle.model, "the serving engine")
+                 max_len: Optional[int] = None, timestamps: bool = False, graph: bool = True):
         if not bundle.is_whisper:
             raise ValueError(
                 "ServingEngine drives AR decode; the CTC family is a single forward pass "
                 "per batch: use bundle.transcribe")
+        tp = model_tp(bundle.model)
+        stand_in = tp is not None and not isinstance(tp.group, (dist.ProcessGroup, type(None)))
+        if graph and stand_in and bundle.device.type == "cuda":
+            raise ValueError("ServingEngine: a stand-in model group (ranks played in one "
+                             "process) cannot be captured in a CUDA graph; graph=False runs "
+                             "the step eagerly")
+        if (graph and bundle.device.type == "cuda" and tp is not None and not stand_in
+                and os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING") != "0"):
+            raise ValueError("ServingEngine: capturing a split model's NCCL collectives needs "
+                             "TORCH_NCCL_ASYNC_ERROR_HANDLING=0 before the group starts: "
+                             "multihost.initialize(graph_collectives=True)")
         self.bundle = bundle
         self.cfg = bundle.config
         wcfg = self.cfg.whisper
@@ -168,7 +199,7 @@ class ServingEngine:
         self.step_launches: Dict[str, int] = {}
         self.replays = 0
         self.capture_s = 0.0
-        self._graph = self._capture() if dev.type == "cuda" else None
+        self._graph = self._capture() if dev.type == "cuda" and graph else None
 
     # ------------------------------------------------------------- public API
     def submit(self, audio, sample_rate: Optional[int] = None, admit: bool = True) -> int:
@@ -306,7 +337,7 @@ class ServingEngine:
     @torch.no_grad()
     def _dispatch(self) -> None:
         """steps_per_dispatch decode steps: graph replays on the card, the
-        eager step on the CPU."""
+        eager step on the CPU or with graph=False."""
         for _ in range(self.steps_per_dispatch):
             if self._graph is None:
                 self._step()

@@ -8,8 +8,13 @@ results at JAX's own bars (tests/test_tp.py, tests/test_mesh_train.py):
 one train step at data 2 x model 2, sharded greedy tokens, sharded
 transcribe texts, train_loop at fsdp 2 x model 2, the dry run's TP cases
 and checkpoints crossing between a TP run and one process, equal dropout
-masks in a model group; and, on the CPU alone, the padded K5 pack and
-the paths refused on a split model."""
+masks in a model group; split Whisper serving: int8 buffers in both orders
+of quantize and shard (bitwise JAX's quantize(), placed as JAX's
+shard().quantize()), int8 greedy tokens (and a WF-adapted model's), the
+row partials' sum against JAX's K10, the engine's texts (bf16 and int8), the AR beam, timestamps,
+and the CLI's serve and transcribe under --multihost against one
+process; and, on the CPU alone, the padded K5 pack and the paths refused
+on a split model."""
 
 import dataclasses
 import json
@@ -28,15 +33,19 @@ from jiao_liao_speech_recognition_tpu.data import CharTokenizer as JTok  # noqa:
 from jiao_liao_speech_recognition_tpu.data import Manifest, ManifestRow  # noqa: E402
 from jiao_liao_speech_recognition_tpu.data import write_manifest  # noqa: E402
 from jiao_liao_speech_recognition_tpu.data.pipeline import Batch as JBatch  # noqa: E402
+from jiao_liao_speech_recognition_tpu.decode.whisper_generate import beam_from_enc  # noqa: E402
 from jiao_liao_speech_recognition_tpu.decode.whisper_generate import greedy_generate  # noqa: E402
 from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav  # noqa: E402
 from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle as JBundle  # noqa: E402
 from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel as JWhisper  # noqa: E402
+from jiao_liao_speech_recognition_tpu.ops import quant as jq  # noqa: E402
 from jiao_liao_speech_recognition_tpu.parallel import mesh as jmesh  # noqa: E402
 from jiao_liao_speech_recognition_tpu.parallel.tp_rules import fsdp_tp_sharding  # noqa: E402
 from jiao_liao_speech_recognition_tpu.parallel.tp_rules import tp_param_sharding  # noqa: E402
+from jiao_liao_speech_recognition_tpu.serve import ServingEngine as JEngine  # noqa: E402
 from jiao_liao_speech_recognition_tpu.train import engine as jeng  # noqa: E402
 from jiao_liao_speech_recognition_tpu.utils import config as jcfg  # noqa: E402
+from jiao_liao_speech_recognition_torch import cli  # noqa: E402
 from jiao_liao_speech_recognition_torch.models import convert  # noqa: E402
 from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle  # noqa: E402
 from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel  # noqa: E402
@@ -58,6 +67,15 @@ LOOP_BAR = 1e-4
 BAR = dict(rtol=2e-4, atol=1e-6)
 WORLD = 4
 DRYRUN_STEPS = 2
+# the AR beam's summed log-probs, split against one device (f32 sums
+# reordered by the row layers' all-reduce)
+BEAM_SCORE_BAR = 1e-5
+# the split int8 model's f32 decode-step logits against the same model
+# quantized whole (tests/test_torch_quant.py's bar for int8 logits: bf16
+# roundings flip by one ulp in different places), relative to the largest
+LOGIT_REL_BAR = 0.01
+BEAM = dict(beam_size=3, max_len=10, prompt=(1, 2), eot_id=0)  # the worker's
+ENGINE = dict(slots=2, steps_per_dispatch=4, max_len=12)  # the worker's
 
 JCFG = jcfg.ExperimentConfig(
     model_family="whisper",
@@ -67,6 +85,10 @@ JCFG = jcfg.ExperimentConfig(
                                max_source_positions=64),
     specaugment=jcfg.SpecAugmentConfig(enabled=False),
 )
+# the same model with WF inserts (the worker's case_int8_wf)
+WF_CFG = dataclasses.replace(JCFG, whisper=dataclasses.replace(
+    JCFG.whisper, adapter=jcfg.AdapterConfig(kind="wf", wf_rank=4)))
+WF_B_SCALE = 0.1  # the inserts' B, drawn off its zero init so they move the output
 
 
 def _np(tree):
@@ -100,7 +122,16 @@ def _mesh_cfg():
     return cfg
 
 
-def _jax_refs(src, manifest, out):
+def _wf_params():
+    """JAX's init of WF_CFG with each insert's B drawn (seeded)."""
+    noise = np.random.RandomState(9)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, v: (np.asarray(v) + WF_B_SCALE * noise.randn(*v.shape)).astype(np.float32)
+        if [str(getattr(k, "key", k)) for k in path][-2:] == ["adapter_wf", "b"]
+        else np.asarray(v), JBundle._init_params(WF_CFG))
+
+
+def _jax_refs(src, manifest, wf_params, out):
     """The JAX package's one-device results, at "highest" matmul precision
     (the port computes in full f32)."""
     with jax.default_matmul_precision("highest"):
@@ -125,7 +156,31 @@ def _jax_refs(src, manifest, out):
         tcfg_ = dataclasses.replace(JCFG)
         tcfg_.frontend = dataclasses.replace(tcfg_.frontend, chunk_seconds=0.5)
         bundle = JBundle(config=tcfg_, params=params, tokenizer=JTok.build(["abc def"]))
-        out["texts"] = bundle.transcribe(sorted(str(p) for p in src.glob("u*.wav")))
+        wavs = sorted(str(p) for p in src.glob("u*.wav"))
+        out["texts"] = bundle.transcribe(wavs)
+        scfg = dataclasses.replace(tcfg_, whisper=dataclasses.replace(
+            JCFG.whisper, prompt_ids=(1, 2), eot_id=0))  # the worker's serving config
+        scfg.decode = dataclasses.replace(scfg.decode, max_decode_len=ENGINE["max_len"])
+        bundle = JBundle(config=scfg, params=params, tokenizer=JTok(
+            [chr(0x4E00 + i) for i in range(JCFG.whisper.vocab_size - 2)]))
+        out["timed"] = bundle.transcribe_timed(wavs)
+        qbundle = bundle.quantize()
+        out["int8_state"] = convert.whisper_params_to_state_dict(_np(qbundle.params))
+        gen, lens = jax.jit(lambda p, m: greedy_generate(
+            JWhisper(JCFG.whisper), p, m, max_len=10, prompt=(1, 2), eot_id=0))(
+            qbundle.params, mel)
+        out["int8_tokens"], out["int8_lengths"] = np.asarray(gen).tolist(), np.asarray(
+            lens).tolist()
+        wf = JBundle(config=WF_CFG, params=wf_params, tokenizer=None).quantize()
+        gen, lens = jax.jit(lambda p, m: greedy_generate(
+            JWhisper(WF_CFG.whisper), p, m, max_len=10, prompt=(1, 2), eot_id=0))(wf.params, mel)
+        out["int8_wf_tokens"], out["int8_wf_lengths"] = np.asarray(gen).tolist(), np.asarray(
+            lens).tolist()
+        for name, b in (("bf16", bundle), ("int8", qbundle)):
+            out[f"engine_{name}"] = JEngine(b, **ENGINE).transcribe(wavs)
+        enc = jnp.asarray(np.load(src / "beam_enc.npy"))
+        out["beam"] = [np.asarray(a).tolist() for a in beam_from_enc(
+            JWhisper(JCFG.whisper), params, enc, None, **BEAM)]
 
         mcfg = _mesh_cfg()
         mcfg.train.checkpoint_dir = str(src / "jax_ck")
@@ -144,10 +199,17 @@ def runs(tmp_path_factory):
     src = tmp_path_factory.mktemp("tp_in")
     dst = tmp_path_factory.mktemp("tp_out")
     work = dst / "dryrun"
+    mel = np.random.RandomState(1).randn(4, 80, 64).astype(np.float32) * 0.3
     with jax.default_matmul_precision("highest"):
-        convert.write_npz_params(_np(JBundle._init_params(JCFG)), src / "whisper.npz")
+        params = JBundle._init_params(JCFG)
+        convert.write_npz_params(_np(params), src / "whisper.npz")
+        wf_params = _wf_params()
+        convert.write_npz_params(wf_params, src / "whisper_wf.npz")
+        jm = JWhisper(JCFG.whisper)
+        np.save(src / "beam_enc.npy", np.asarray(jm.apply({"params": params}, jnp.asarray(mel),
+                                                          method=jm.encode)))
     np.savez(src / "step_batch.npz", **_step_batch())
-    np.save(src / "mel.npy", np.random.RandomState(1).randn(4, 80, 64).astype(np.float32) * 0.3)
+    np.save(src / "mel.npy", mel)
     for i, f in enumerate((300, 700, 1100, 1500)):
         wav = (0.2 * np.sin(2 * np.pi * f * np.arange(8000) / 16000)).astype(np.float32)
         write_wav(str(src / f"u{i}.wav"), wav, 16000)
@@ -172,7 +234,7 @@ def runs(tmp_path_factory):
     ref["ctc_resumed"] = dryrun.run_case("ctc", 1, work, steps=DRYRUN_STEPS, resume_from=ckpt1,
                                          tag="_resumed")
     jax_out = {}
-    thread = threading.Thread(target=_jax_refs, args=(src, manifest, jax_out))
+    thread = threading.Thread(target=_jax_refs, args=(src, manifest, wf_params, jax_out))
     thread.start()
     try:
         results = spawn(["tests/torch_tp_worker.py", "--in", str(src), "--out", str(dst),
@@ -427,6 +489,141 @@ def test_cli_train_multihost_takes_a_model_axis(runs):
     assert len(bundle.transcribe([str(runs["src"] / "r0.wav")])) == 1
 
 
+# ------------------------------------------------- split Whisper serving
+
+
+def test_int8_split_in_both_orders_is_jax_quantize(runs):
+    """At model 4, quantize() then shard() and shard() then quantize() give
+    every rank the same buffers bit for bit (a row layer's scales taken
+    over the whole column), and the int8 decoder joined over the group is
+    JAX's quantize() of the same weights bit for bit."""
+    for rank in runs["ranks"]:
+        rec = rank["int8"]
+        assert rec["orders_bitwise"] and rec["tp_dims"] == rec["tp_dims_before"]
+        assert rec["heads"] == 1 and rec["local_vocab"] == 16 and rec["fc2_rows"] == 32
+    want = {k: v for k, v in runs["jax"]["int8_state"].items() if k.startswith("decoder.")}
+    with np.load(runs["dst"] / "int8_joined.npz") as got:
+        assert sorted(got.files) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.numpy().dtype, k
+            np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_int8_placements_are_jax_shard_then_quantize(runs, tp):
+    """Each int8 leaf of JAX's bundle.shard(mesh).quantize() on the CPU-8
+    mesh is split over model where the port's rules split it (kernel_q as
+    its kernel, a column layer's scale and bias with its columns, a row
+    layer's scale whole, the int8 table and its scales by vocab rows); at
+    model 4 the worker's split int8 model holds those dims."""
+    mesh = jmesh.build_mesh(jcfg.MeshConfig(model_axis=tp), jax.devices())
+    jb = JBundle(config=JCFG, params=JBundle._init_params(JCFG), tokenizer=None)
+    qparams = jb.shard(mesh).quantize().params
+    want = {}
+    for kp, leaf in jax.tree_util.tree_leaves_with_path(qparams):
+        path = tuple(str(getattr(k, "key", k)) for k in kp)
+        spec = _spec(leaf.sharding, leaf.ndim)
+        name = convert.whisper_torch_key(path)
+        dim = spec.index("model") if "model" in spec else None
+        assert tp_rules.model_dim(tp_rules.tp_placement(name, leaf.shape, tp)) == dim, name
+        if dim is not None:
+            want[name] = dim
+    assert any(k.endswith("kernel_q") for k in want) and "decoder.embed_tokens.scale" in want
+    assert not any(k.endswith("fc2.scale") or k.endswith("out_proj.scale") for k in want)
+    if tp == 4:
+        assert runs["ranks"][0]["int8"]["tp_dims"] == want
+
+
+def test_int8_split_greedy_and_row_partials_match_jax(runs):
+    """The split int8 model's greedy tokens (model 4, every rank) are JAX's
+    quantized greedy_generate's; block 0's fc2 row partials summed over the
+    four ranks and rounded once are within 1 bf16 ulp of JAX's K10 (its
+    Pallas kernel in interpret mode) on the same input."""
+    from test_torch_quant import _ulps
+
+    for rank in runs["ranks"]:
+        assert rank["int8"]["tokens"] == runs["jax"]["int8_tokens"]
+        assert rank["int8"]["lengths"] == runs["jax"]["int8_lengths"]
+    st = runs["jax"]["int8_state"]
+    q = jnp.asarray(st["decoder.blocks.0.mlp.fc2.kernel_q"].numpy())
+    scale = jnp.asarray(st["decoder.blocks.0.mlp.fc2.scale"].numpy())
+    x = np.random.RandomState(23).randn(8, 128).astype(np.float32)
+    want = np.asarray(jq._int8_matmul_pallas(jnp.asarray(x, jnp.bfloat16), q, scale), np.float32)
+    for rank in runs["ranks"]:
+        assert _ulps(rank["int8"]["fc2_summed"], want) <= 1.0
+
+
+def test_split_int8_wf_layers_take_the_split_wf_route(runs):
+    """A WF-adapted model quantized after a data 2 x model 2 split (its
+    inserts whole beside each split Int8Dense): its greedy tokens on every
+    rank are JAX's quantized greedy_generate's of the same weights (JAX's
+    quantize() keeps each adapter_wf beside its dense_q), as
+    tests/test_torch_whisper_train.py holds the unsplit model; and its
+    decode-step logits are those of the same model quantized whole, within
+    LOGIT_REL_BAR of their largest (bf16 roundings of the row layers' sums
+    flip by an ulp where the split sums in another order), while the
+    inserts move the logits far more than that."""
+    want = runs["jax"]["int8_wf_tokens"]
+    assert len({t for row in want for t in row}) > 1
+    for rank in runs["ranks"]:
+        rec = rank["int8_wf"]
+        assert rec["tokens"] == want and rec["lengths"] == runs["jax"]["int8_wf_lengths"]
+        assert rec["rel_err"] <= LOGIT_REL_BAR < rec["inserts_move"], rec
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_split_engine_texts_are_the_jax_engines(runs, dtype):
+    """ServingEngine on a data 2 x model 2 bundle (bf16, and quantized after
+    the split): every rank's texts are the JAX engine's on one device."""
+    want = runs["jax"][f"engine_{dtype}"]
+    assert len(set(want)) > 1
+    for rank in runs["ranks"]:
+        assert rank["serving"][f"engine_{dtype}"] == want
+
+
+def test_split_beam_matches_jax(runs):
+    """beam_from_enc on the split model over JAX's encoder output: JAX's
+    tokens and lengths on every rank, scores within 1e-5."""
+    tokens, lengths, scores = runs["jax"]["beam"]
+    for rank in runs["ranks"]:
+        got = rank["serving"]["beam"]
+        assert got["tokens"] == tokens and got["lengths"] == lengths
+        np.testing.assert_allclose(got["scores"], scores, rtol=0, atol=BEAM_SCORE_BAR)
+
+
+def test_split_transcribe_timed_matches_jax(runs):
+    """transcribe_timed on the split bundle (q and k joined at the hooks):
+    JAX's tokens and times on every rank."""
+    want = runs["jax"]["timed"]
+    assert any(want)
+    for rank in runs["ranks"]:
+        assert rank["serving"]["timed"] == want
+
+
+@pytest.mark.parametrize("name", ["serve_int8", "transcribe_timestamps"])
+def test_cli_multihost_serving_matches_one_process(runs, name, capsys):
+    """`cli serve --multihost --int8` and `cli transcribe --multihost
+    --timestamps` of the split bundle (data 2 x model 2): rc 0 on every
+    rank, the primary alone prints, and its lines (latency aside) are the
+    one-process run's."""
+    ranks = [r["cli_serve"][name] for r in runs["ranks"]]
+    assert [r["rc"] for r in ranks] == [0] * WORLD
+    assert all(r["lines"] == [] for r in ranks[1:])
+    wavs = sorted(str(p) for p in runs["src"].glob("u*.wav"))
+    ckpt = str(runs["dst"] / "serve_bundle")
+    argv = (["serve", *wavs, "--checkpoint", ckpt, "--slots", "2", "--steps-per-dispatch", "3",
+             "--int8"] if name == "serve_int8"
+            else ["transcribe", *wavs, "--checkpoint", ckpt, "--timestamps"])
+    capsys.readouterr()
+    with pytest.warns(UserWarning, match="no process group"):
+        assert cli.main([*argv, "--device", "cpu"]) == 0
+    want = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    got = [json.loads(x) for x in ranks[0]["lines"]]
+    for rec in want + got:
+        rec.pop("latency_s", None)
+    assert len(got) == len(wavs) and sorted(got, key=str) == sorted(want, key=str)
+
+
 # ------------------------------------------------------------ CPU only
 
 
@@ -478,25 +675,27 @@ def test_split_wf_block_keeps_its_folds_until_an_insert_changes():
 
 
 def test_split_model_refuses_the_paths_not_ported():
-    """On a split model (here rank 1 of 2, no collective run), int8
-    serving, the AR beam, Whisper timestamps, the CTC beams, the serving
-    engine and streaming raise, naming the ROADMAP item; heads that do not
-    divide raise ValueError."""
-    from jiao_liao_speech_recognition_torch.decode.whisper_generate import beam_from_enc
-    from jiao_liao_speech_recognition_torch.serve.engine import ServingEngine
+    """On a split model (here rank 0 of 2, no collective run), streaming,
+    the CTC beams and the joint family raise, naming the ROADMAP item;
+    heads that do not divide raise ValueError."""
+    from jiao_liao_speech_recognition_torch.models.joint import JointCTCAttentionModel
     from jiao_liao_speech_recognition_torch.serve.streaming import StreamingTranscriber
 
-    model = _port_model("whisper", "none")
-    bundle = ModelBundle(tcfg.ExperimentConfig(model_family="whisper", whisper=model.cfg),
-                         model, None)
-    ttp.apply_tp(bundle.model, ttp.TPGroup(1, 2))
-    assert bundle.model.decoder.blocks[0].cross_attn.num_heads == 2
-    assert bundle.model.decoder.embed_tokens.embedding.shape == (32, 64)
-    for call in (bundle.quantize, lambda: ServingEngine(bundle),
-                 lambda: bundle.transcribe_timed(np.zeros(800, np.float32)),
-                 lambda: beam_from_enc(bundle.model, torch.zeros(1, 4, 64))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            call()
+    class Mesh:  # data 1 x fsdp 1 x model 2, rank 0, no process group
+        def size(self, dim):
+            return (1, 1, 2)[dim]
+
+        def get_coordinate(self):
+            return [0, 0, 0]
+
+        def get_group(self, dim):
+            return None
+
+    joint = ModelBundle(tcfg.ExperimentConfig(model_family="joint"), JointCTCAttentionModel(
+        tcfg.JointModelConfig(vocab_size=24, d_model=64, num_layers=1, decoder_layers=1,
+                              num_heads=4, mlp_dim=128, conv_channels=32)), None)
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        joint.shard(Mesh())
     ctc = ModelBundle(tcfg.ExperimentConfig(), CTCEncoderModel(tcfg.CTCModelConfig(
         vocab_size=24, d_model=64, num_layers=1, num_heads=4, mlp_dim=128, conv_channels=32)),
         None)

@@ -15,6 +15,18 @@ Cases, in order, each on its own mesh of the world:
   fsdp 2 x model 2, 4 steps; the losses and the joined weights;
 * dropout: a CTC model with dropout 0.1 in training at data 2 x model 2:
   each rank's log-probs, and the one-process model's with the same seed;
+* int8: at model 4, ``quantize()`` before and after ``shard()`` (each
+  rank's buffers in both orders, the joined int8 decoder on rank 0),
+  greedy tokens of the split int8 model, and block 0's fc2 row partials
+  summed over the group on a seeded input;
+* int8_wf: the test's WF-adapted weights quantized after a data 2 x
+  model 2 split: greedy tokens, and the decode steps against the same
+  model quantized whole;
+* serving at data 2 x model 2: the engine's texts (bf16 and int8), the AR
+  beam over JAX's encoder output, ``transcribe_timed``;
+* cli_serve: ``cli serve --multihost --int8`` and ``cli transcribe
+  --multihost --timestamps`` of the split bundle ``transcribe`` saved
+  (its mesh data 2 x model 2), each rank's standard output;
 * dryrun: the dry run's ``ctc:2x2`` (with a checkpoint), ``whisper:1x2``
   and ``ctc:2x2`` resumed from the one-process checkpoint ``--resume``;
 * cli: ``cli train --multihost`` of configs/adapter_finetune.yaml cut to
@@ -22,7 +34,9 @@ Cases, in order, each on its own mesh of the world:
 """
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import sys
 from pathlib import Path
@@ -36,7 +50,10 @@ from jiao_liao_speech_recognition_torch import cli  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.manifest import read_manifest  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.pipeline import Batch  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer  # noqa: E402
-from jiao_liao_speech_recognition_torch.decode.whisper_generate import greedy_generate  # noqa: E402
+from jiao_liao_speech_recognition_torch.decode.whisper_generate import (  # noqa: E402
+    beam_from_enc,
+    greedy_generate,
+)
 from jiao_liao_speech_recognition_torch.models import convert  # noqa: E402
 from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle  # noqa: E402
 from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel  # noqa: E402
@@ -44,7 +61,9 @@ from jiao_liao_speech_recognition_torch.models.whisper import WhisperModel  # no
 from jiao_liao_speech_recognition_torch.parallel import dryrun  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel import mesh as pmesh  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel import multihost as mh  # noqa: E402
+from jiao_liao_speech_recognition_torch.ops.quant import int8_row_product  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel.tp import apply_tp  # noqa: E402
+from jiao_liao_speech_recognition_torch.serve.engine import ServingEngine  # noqa: E402
 from jiao_liao_speech_recognition_torch.train import engine  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils import config as c  # noqa: E402
 
@@ -185,6 +204,128 @@ def case_dropout(src: Path, dst: Path) -> dict:
     return out
 
 
+BEAM = dict(beam_size=3, max_len=10, prompt=(1, 2), eot_id=0)
+ROW_X_ROWS = 8  # rows of the seeded input to the summed fc2 row partials
+# the serving cases' specials and characters (every id past the two
+# specials a character, so that each generated id shows in the text)
+SERVE_SPECIALS = dict(prompt_ids=(1, 2), eot_id=0)
+SERVE_VOCAB = [chr(0x4E00 + i) for i in range(WHISPER.vocab_size - 2)]
+SERVE_MAX_LEN = 12
+
+
+def _bundle(src: Path, **mesh) -> ModelBundle:
+    cfg = whisper_cfg(**mesh)
+    cfg.whisper = dataclasses.replace(cfg.whisper, **SERVE_SPECIALS)
+    cfg.frontend = dataclasses.replace(cfg.frontend, chunk_seconds=0.5)
+    cfg.decode.max_decode_len = SERVE_MAX_LEN
+    return ModelBundle(cfg, whisper_model(src), CharTokenizer(SERVE_VOCAB))
+
+
+def case_int8(src: Path, dst: Path) -> dict:
+    """Model 4: quantize then shard, shard then quantize."""
+    after = _bundle(src, model_axis=4).shard().quantize()
+    before = _bundle(src, model_axis=4).quantize().shard()
+    sa, sb = after.model.state_dict(), before.model.state_dict()
+    same = sorted(sa) == sorted(sb) and all(
+        sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+    joined = pmesh.gather_split(sa, after.model)
+    if mh.is_primary():
+        np.savez(dst / "int8_joined.npz", **{k: v.numpy() for k, v in joined.items()
+                                              if k.startswith("decoder.")})
+    mel = torch.from_numpy(np.load(src / "mel.npy"))
+    gen, lens = greedy_generate(after.model, mel, max_len=10, prompt=(1, 2), eot_id=0)
+    fc2 = after.model.decoder.blocks[0].mlp.fc2
+    x = torch.from_numpy(np.random.RandomState(23).randn(ROW_X_ROWS, 128).astype(np.float32))
+    with torch.no_grad():
+        n = fc2.kernel_q.shape[0]
+        part = int8_row_product(x[:, fc2.tp.rank * n:(fc2.tp.rank + 1) * n], fc2.kernel_q,
+                                fc2.scale)
+        summed = fc2.tp.reduce(part).to(torch.bfloat16)
+    return {"orders_bitwise": same, "tp_dims": after.model.tp_dims,
+            "tp_dims_before": before.model.tp_dims, "heads": after.model.decoder.blocks[0]
+            .self_attn.num_heads, "local_vocab": int(after.model.decoder.embed_tokens
+                                                     .embedding_q.shape[0]),
+            "fc2_rows": n, "fc2_summed": summed.float().tolist(),
+            "tokens": gen.tolist(), "lengths": lens.tolist()}
+
+
+def case_int8_wf(src: Path, dst: Path) -> dict:
+    """Data 2 x model 2: the test's WF-adapted weights (B drawn, so the
+    inserts move the output) quantized after the split: greedy tokens, and
+    the decode-step logits against the same model quantized whole in this
+    process; and the whole model's steps with the inserts' B zeroed, which
+    must differ."""
+    wcfg = dataclasses.replace(WHISPER, adapter=c.AdapterConfig(kind="wf", wf_rank=4))
+    cfg = whisper_cfg(data_axis=2, model_axis=2)
+    cfg.whisper = wcfg
+    state = convert.whisper_params_to_state_dict(convert.read_npz_params(src / "whisper_wf.npz"))
+
+    def make(inserts: bool):
+        m = WhisperModel(wcfg)
+        m.load_state_dict({k: v if inserts or not k.endswith("adapter_wf.b") else
+                           torch.zeros_like(v) for k, v in state.items()})
+        return ModelBundle(cfg, m.eval(), None)
+
+    mel = torch.from_numpy(np.load(src / "mel.npy"))
+    split = make(True).shard().quantize().model
+    gen, lens = greedy_generate(split, mel, max_len=10, prompt=(1, 2), eot_id=0)
+    toks = torch.from_numpy(np.random.RandomState(24).randint(0, WHISPER.vocab_size, (2, 6)))
+
+    def steps(model):
+        with torch.no_grad():
+            enc = model.encode(mel[:2])
+            caches = model.init_cache(2, enc, 8)
+            return torch.stack([model.decode_step(toks[:, p:p + 1], p, enc, caches)[0]
+                                for p in range(6)], 1)
+
+    whole = steps(make(True).quantize().model)
+    plain = steps(make(False).quantize().model)
+    scale = float(whole.abs().max())
+    return {"tokens": gen.tolist(), "lengths": lens.tolist(),
+            "rel_err": float((steps(split) - whole).abs().max()) / scale,
+            "inserts_move": float((plain - whole).abs().max()) / scale}
+
+
+def case_serving(src: Path, dst: Path) -> dict:
+    """Data 2 x model 2: the engine (bf16, int8), the beam, timestamps."""
+    wavs = sorted(str(p) for p in src.glob("u*.wav"))
+    bundle = _bundle(src, data_axis=2, model_axis=2).shard()
+    out = {}
+    for name, b in (("bf16", bundle), ("int8", bundle.quantize())):
+        eng = ServingEngine(b, slots=2, steps_per_dispatch=4)
+        out[f"engine_{name}"] = eng.transcribe(wavs)
+    enc = torch.from_numpy(np.load(src / "beam_enc.npy"))
+    gen, lens, scores = beam_from_enc(bundle.model, enc, None, BEAM["beam_size"],
+                                      BEAM["max_len"], BEAM["prompt"], BEAM["eot_id"])
+    out["beam"] = {"tokens": gen.tolist(), "lengths": lens.tolist(), "scores": scores.tolist()}
+    out["timed"] = bundle.transcribe_timed(wavs)
+    bundle.save(str(dst / "serve_bundle"))  # whole weights, the split mesh in its config
+    return out
+
+
+def case_cli_serve(src: Path, dst: Path) -> dict:
+    """The CLI on the bundle case_serving saved (loaded split over its
+    config's mesh); the group stays up (its shutdown is the worker's)."""
+    ckpt = str(dst / "serve_bundle")
+    wavs = sorted(str(p) for p in src.glob("u*.wav"))
+    runs = {"serve_int8": ["serve", *wavs, "--checkpoint", ckpt, "--slots", "2",
+                           "--steps-per-dispatch", "3", "--int8"],
+            "transcribe_timestamps": ["transcribe", *wavs, "--checkpoint", ckpt,
+                                      "--timestamps"]}
+    out = {}
+    keep = mh.shutdown
+    mh.shutdown = lambda: None
+    try:
+        for name, argv in runs.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([*argv, "--multihost", "--device", "cpu"])
+            out[name] = {"rc": rc, "lines": buf.getvalue().splitlines()}
+    finally:
+        mh.shutdown = keep
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--in", dest="src", required=True)
@@ -197,7 +338,8 @@ def main(argv=None) -> int:
     out = {"rank": mh.process_index()}
     for name, fn in (("step", case_step), ("greedy", case_greedy),
                      ("transcribe", case_transcribe), ("train_loop", case_train_loop),
-                     ("dropout", case_dropout)):
+                     ("dropout", case_dropout), ("int8", case_int8), ("int8_wf", case_int8_wf),
+                     ("serving", case_serving), ("cli_serve", case_cli_serve)):
         out[name] = fn(src, dst)
     work = dst / "dryrun"
     out["dryrun"] = {
