@@ -378,6 +378,33 @@ non-zero and prints no result line):
               reading: the split beam with the self caches not gathered
               along the winning beams, and with the last rank's share left
               out of every all-reduce, each above TPS_BEAM_REL_BAR.
+22. tp_ctc  - main path 31, the CTC and joint paths on a split model
+              (phase_tp_ctc_joint): the flagship (CTCModelConfig's widths)
+              and configs/joint_ctc_attention.yaml (WF inserts drawn), each
+              stack cut to TPC_LAYERS blocks, every rank of a model group a
+              copy split as its rank, the ranks TurnGroup threads at tp 2
+              and 4 (2 and 1 heads of 128), eager: a StreamingPool of
+              TPC_SLOTS streams over TPC_STEPS ring steps, the device CTC
+              beam (beam 8) through transcribe, and the joint greedy,
+              spec_greedy (64-position teacher passes) and beam through
+              transcribe; exact launch counts (from the decode steps and
+              teacher passes the ranks took); every rank's results equal;
+              held to the unsplit models on the same card: the pool's rings
+              bitwise and its ids where one card's top-2 margin passes
+              ARGMAX_MARGIN, the beam's best NLL within NLL_REL_BAR of one
+              card's under one card's log-probs, the joint greedy and
+              spec_greedy tokens by the margin rule, the joint beam's
+              scores within TPS_BEAM_REL_BAR of one card's steps fed them
+              (an EOS-only hypothesis's within ULP_BAR ulps of its logit);
+              then every bar's upper reading, the same paths with the last
+              rank's share left out of every all-reduce (tp 2), each of
+              which must fail its bar; then K2-tp, ln_fc1 and the row
+              partials at the ring's, the joint's and the beam's rows, the
+              teacher pass's ln_fc1 and fc2 partial, K9 on a rank's self
+              and cross caches, each twice bitwise against its plain
+              version; K2-tp, ln_fc1 and the row partials timed at the
+              ring's rows, K9 at 2 and 1 heads, K6 and K8 at the joint's
+              training shape on 2 and 1 heads (held and timed).
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
@@ -547,6 +574,7 @@ PATHS = {
     "multigpu": ("K1", "K6", "K8"),
     "tp": ("K5", "K6", "K9", "K2-tp", "K3-tp", "row-partial"),
     "tp_serve": ("K1", "K5", "K6", "K3-tp", "row-partial", "K9-int8", "K10", "K10-row", "K11"),
+    "tp_ctc": ("K1", "K2-tp", "K3-tp", "row-partial", "K4", "K6", "K9"),
 }
 # phase 19: the launcher's limit (its start, ~10 s to reach the card, and
 # 3 steps of phase 5's fine-tune)
@@ -3792,17 +3820,18 @@ def stream_texts(bundle, sc, audios):
     return out
 
 
-def replay_vs_eager(bundle, sc, audios):
-    """The streams through two fresh pools in lockstep: one replaying its
-    captured step, one built with graph=False (the eager ring step). Every
-    step must leave the same ring and read back the same frames and ids,
-    and give the same results. -> (the report, the eager pool)."""
+def replay_vs_eager(bundle, sc, audios, slots: int = STREAM_SLOTS):
+    """The streams through two fresh pools of `slots` in lockstep: one
+    replaying its captured step, one built with graph=False (the eager ring
+    step). Every step must leave the same ring and read back the same
+    frames and ids, and give the same results. -> (the report, the eager
+    pool)."""
     import torch
 
     from jiao_liao_speech_recognition_torch.serve import StreamingPool
 
-    pools = [StreamingPool(bundle, slots=STREAM_SLOTS, stream_cfg=sc),
-             StreamingPool(bundle, slots=STREAM_SLOTS, stream_cfg=sc, graph=False)]
+    pools = [StreamingPool(bundle, slots=slots, stream_cfg=sc),
+             StreamingPool(bundle, slots=slots, stream_cfg=sc, graph=False)]
     rep = {"steps_compared": 0, "rows_advanced": 0, "differ_at_steps": []}
 
     def compare(ps, results, step):
@@ -4529,27 +4558,28 @@ def joint_k6(rng):
     return err, row
 
 
-def joint_k9_timing(rng):
-    """K9 alone at the joint beam's decode shapes (B*K = 128 rows, 4 x 128,
-    Tq 1): cross over Tk 768 with lengths 750 and self over Tk 128 with
-    lengths 1-64, caches cycled past twice the L2, by device time, beside
-    plain (CUDA events), bound and masked SDPA (device time) -> rows."""
+def joint_k9_timing(rng, H: int = 4):
+    """K9 alone at the joint beam's decode shapes (B*K = 128 rows, H heads
+    of 128: 4, or a split rank's, Tq 1): cross over Tk 768 with lengths 750
+    and self over Tk 128 with lengths 1-64, caches cycled past twice the
+    L2, by device time, beside plain (CUDA events), bound and masked SDPA
+    (device time) -> rows."""
     import torch
 
     from jiao_liao_speech_recognition_torch.ops import decode_attention as da
     from jiao_liao_speech_recognition_torch.utils.timing import cycling
 
-    R, H, dh = JOINT_B * JOINT_BEAM, 4, 128
+    R, dh = JOINT_B * JOINT_BEAM, 128
     bf = torch.bfloat16
     rows = []
     with torch.inference_mode():
-        qh = torch.from_numpy(rng.randn(R, H, 1, dh).astype(np.float32)).cuda().to(bf)
+        randn = _card_randn(int(rng.randint(1 << 30)))
+        qh = randn(R, H, 1, dh).to(bf)
         for tk, lens, what in ((da.round_tk(750), np.full(R, 750), "cross"),
                                (da.round_tk(JOINT_MAX_LEN), rng.randint(1, JOINT_MAX_LEN + 1, R),
                                 "self")):
             sets = max(2, math.ceil(2 * L2_BYTES / (4 * R * H * tk * dh)))
-            caches = [[torch.from_numpy(rng.randn(R, H, tk, dh).astype(np.float32)).cuda().to(bf)
-                       for _ in range(2)] for _ in range(sets)]
+            caches = [[randn(R, H, tk, dh).to(bf) for _ in range(2)] for _ in range(sets)]
             lt = torch.from_numpy(lens.astype(np.int32)).cuda()
             kern = cycling(lambda kv: da.grouped_decode_attention(qh, *kv, lt), caches)
             plain = cycling(lambda kv: da.decode_attention_plain(qh, *kv, lt), caches)
@@ -4564,7 +4594,7 @@ def joint_k9_timing(rng):
                    "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
                    "bound_by": bound_by,
                    "library_ms": device_ms(cycling(lambda call: call(), lib_calls), 10)}
-            emit({"phase": "timing", "kernel": "K9", "joint": True, **row,
+            emit({"phase": "timing", "kernel": "K9", "joint": True, "heads": H, **row,
                   "turns_ms": [p1, k1, k2, p2]})
             rows.append(row)
             del caches
@@ -6314,7 +6344,8 @@ def tp_rank_checks(block, x, lens, tag: str, errs: dict) -> None:
 
     sa, ln, m, mln = block.self_attn, block.self_attn_ln, block.mlp, block.mlp_ln
     H, D = sa.num_heads, sa.num_heads * sa.head_dim
-    info = {"case": tag, "rank": block.tp.rank, "tp": block.tp.size, "heads": H}
+    tp = sa.q_proj.tp
+    info = {"case": tag, "rank": tp.rank, "tp": tp.size, "heads": H}
     w_qkv, b_qkv, wo = block._attention_weights(torch.bfloat16)
     with torch.inference_mode():
         if block._k2_route(x):
@@ -7062,6 +7093,527 @@ def phase_tp_serving(counters, card: str):
     return launches, errs, rows
 
 
+# phase 22: the CTC and joint paths on a split model, each rank of a model
+# group a copy of the unsplit model split as its rank (TurnGroup threads,
+# eager), at tp 2 and 4: the flagship (CTCModelConfig's widths: 4 heads of
+# 128, mlp 2048, V 4336) with its head scaled by TPC_HEAD_SCALE (peakier
+# eager: the flagship (CTCModelConfig's widths: 4 heads of 128, mlp 2048, V
+# 4336) and configs/joint_ctc_attention.yaml (its WF inserts' B drawn),
+# each stack cut to TPC_LAYERS blocks; the pool's TPC_SLOTS streams over
+# TPC_STEPS ring steps of TPC_STREAM (window, hop, lookahead seconds); the
+# device CTC beam (beam CTC_BEAM_K, top-k CTC_BEAM_TOPK, phase 15's) over
+# TPC_BEAM_B chunks of TPC_BEAM_SECONDS (the beam is ~80 launches a frame
+# whatever the rows, and each rank runs it); the joint greedy over
+# TPC_JOINT_B 30 s chunks, TPC_JOINT_LEN tokens; spec_greedy at the
+# config's 64 (teacher passes of 64 positions: the split ln_fc1); the joint
+# beam over TPC_BEAM = (utterances, beams), TPC_JOINT_LEN tokens. The fault
+# readings (TurnGroup.drop_last) run at TPC_FAULT_TP. The random flagship's
+# posteriors are near flat (a row's best-path NLL ~1,200 nats at 250
+# frames), so the beam's pick moves with the split's rounding: at 2 blocks
+# (log-probs within 0.02 of one card's) no row picked one card's
+# hypothesis on an H100, and the best NLLs parted by up to 1.32e-3
+# relative at 10 s chunks (tp 2; 7.5e-4 at 30 s); at 1 block 6.4e-5 at
+# 30 s, two rows of four the same hypothesis
+TPC_LAYERS = 1
+TPC_SLOTS, TPC_STEPS, TPC_STREAM = 32, 3, (10.0, 0.4, 0.64)
+TPC_BEAM_B, TPC_BEAM_SECONDS = 4, 10.0
+TPC_JOINT_B, TPC_JOINT_LEN, TPC_SPEC_LEN = 2, 16, 64
+TPC_BEAM = (2, 4)
+# a hypothesis that ends at its first step (EOS, the blank, first) scores
+# one log-prob of a bf16 logit, so TPS_BEAM_REL_BAR holds the scores of
+# hypotheses with tokens, and an EOS-only score is held within ULP_BAR
+# bf16 ulps of its EOS logit (one card's): a logit in [2, 4) one ulp
+# apart moves a -5.7 score by 2^-6, 2.7e-3 of it (an H100 read 0.0154 and
+# 0.0155 at tp 2 and 4 against 2^-6 = 0.0156)
+TPC_FAULT_TP = 2
+TPC_TIMED_ITERS = 3
+# the kernels at the split paths' rows (B, T'): the ring step's, the
+# joint's 30 s chunks (training's B=16) and phase 15's beam batch
+TPC_KERNEL_ROWS = {"ring": (32, 250), "joint": (16, 750), "beam": (128, 750)}
+
+
+def tpc_bundles():
+    """The flagship and the joint config on the card, cut to TPC_LAYERS
+    blocks a stack (random init, seed 0, bf16 serving copies): (flagship
+    bundle, joint bundle)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.models.adapters import WFAdapter
+    from jiao_liao_speech_recognition_torch.utils.config import (CTCModelConfig,
+                                                                 ExperimentConfig, load_yaml)
+
+    cfg = ExperimentConfig(ctc_model=dataclasses.replace(CTCModelConfig(),
+                                                         num_layers=TPC_LAYERS))
+    cfg.frontend = dataclasses.replace(cfg.frontend, chunk_seconds=TPC_BEAM_SECONDS)
+    check((cfg.ctc_model.d_model, cfg.ctc_model.num_heads, cfg.ctc_model.mlp_dim,
+           cfg.ctc_model.vocab_size) == (512, 4, 2048, 4336), f"the flagship changed: {cfg}")
+    flag = api.load(config=cfg, device="cuda")
+    jcfg = load_yaml(str(Path(__file__).resolve().parent / JOINT_CONFIG))
+    jcfg.joint = dataclasses.replace(jcfg.joint, num_layers=TPC_LAYERS,
+                                     decoder_layers=TPC_LAYERS)
+    joint = api.load(config=jcfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for m in joint.model.modules():
+            if isinstance(m, WFAdapter):
+                m.b.normal_(0.0, JOINT_WF_B_STD, generator=gen)
+    for b in (flag, joint):
+        b.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(4334)])
+    return flag, joint
+
+
+def tpc_split(whole, tp: int, group):
+    """`tp` rank bundles of `whole`, each a copy split as its rank over
+    `group` (a TurnGroup) in bf16 serving form."""
+    from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle
+
+    return [ModelBundle(whole.config, m, whole.tokenizer)
+            for m in tp_ranks(whole.model, tp, group)]
+
+
+def tpc_decoders():
+    """(module, function name) of each decoder that tpc_paths watches, by
+    the key it records under."""
+    from jiao_liao_speech_recognition_torch.decode import ctc as dctc
+    from jiao_liao_speech_recognition_torch.decode import joint_generate as jg
+    from jiao_liao_speech_recognition_torch.decode import speculative as sp
+
+    return {"beam_device": (dctc, "ctc_prefix_beam_search"), "greedy": (jg, "joint_greedy"),
+            "spec": (sp, "joint_spec_greedy"), "beam": (jg, "beam_from_enc")}
+
+
+class Watching:
+    """Inside the block, each decoder of tpc_decoders() records its calls'
+    results by calling thread (a model group's ranks are threads) and key:
+    the held checks read what the entry points decoded."""
+
+    def __enter__(self):
+        import threading
+
+        self.seen, self.real = {}, {}
+        for key, (module, name) in tpc_decoders().items():
+            real = self.real[key] = getattr(module, name)
+
+            def wrapper(*args, key=key, real=real, **kwargs):
+                out = real(*args, **kwargs)
+                self.seen.setdefault(threading.get_ident(), {}).setdefault(key, []).append(
+                    (args, out))
+                return out
+
+            setattr(module, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for key, (module, name) in tpc_decoders().items():
+            setattr(module, name, self.real[key])
+
+    def mine(self) -> dict:
+        import threading
+
+        return self.seen.get(threading.get_ident(), {})
+
+
+def tpc_paths(bundle, audio, watch: Watching):
+    """One rank's (or one card's) split paths through the entry points,
+    inside `watch` -> {"pool": [each step's output [slots, 1 + T'], its ring
+    and its mel frames], "beam_device": (ids, lens), "greedy": (tokens,
+    lengths), "spec": (tokens, lengths), "beam": (hyps, lengths, scores)}
+    for `bundle`, a (flagship, joint) pair."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.serve.streaming import StreamingConfig, StreamingPool
+    from jiao_liao_speech_recognition_torch.utils.config import DecodeConfig
+
+    flag, joint = bundle
+    out = {"pool": []}
+    pool = StreamingPool(flag, slots=TPC_SLOTS, stream_cfg=StreamingConfig(*TPC_STREAM),
+                         graph=False)
+    for a in audio["streams"]:
+        pool.feed(pool.open(), a)
+    for _ in range(TPC_STEPS):
+        pool.step()
+        out["pool"].append((pool._out.clone(), pool._ring.clone(), pool._ctrl[3].clone()))
+    del pool
+    calls = {"beam_device": (flag, audio["beam"], DecodeConfig(
+                 strategy="beam_device", beam_size=CTC_BEAM_K, beam_topk=CTC_BEAM_TOPK)),
+             "greedy": (joint, audio["joint"], DecodeConfig(strategy="greedy",
+                                                            max_decode_len=TPC_JOINT_LEN)),
+             "spec": (joint, audio["joint"], DecodeConfig(strategy="spec_greedy",
+                                                          max_decode_len=TPC_SPEC_LEN)),
+             "beam": (joint, audio["joint"][:TPC_BEAM[0]], DecodeConfig(
+                 strategy="beam", beam_size=TPC_BEAM[1], max_decode_len=TPC_JOINT_LEN))}
+    for key, (b, wavs, dc) in calls.items():
+        b.transcribe(wavs, decode_cfg=dc)
+        seen = watch.mine().get(key, [])
+        check(len(seen) == 1, f"tp_ctc {key}: the transcription decoded {len(seen)} times")
+        args, out[key] = seen[0]
+        if key == "beam_device":  # the log-probs the beam searched, and their frames
+            out["beam_lp"] = args[:2]
+    torch.cuda.synchronize()
+    return out
+
+
+def tpc_audio():
+    """The paths' inputs: TPC_SLOTS streams of TPC_STEPS hops, the beam's
+    chunks and the joint's 30 s chunks (tones and noise, seeded)."""
+    hop = int(TPC_STREAM[1] * SAMPLE_RATE)
+    return {"streams": [a[:TPC_STEPS * hop] for a in stream_audio(TPC_SLOTS, 22, 3.0)],
+            "beam": stream_audio(TPC_BEAM_B, 23, TPC_BEAM_SECONDS),
+            "joint": stream_audio(TPC_JOINT_B, 24, 30.0)}
+
+
+def tpc_reference(flag, joint, audio, one):
+    """One card's (`flag`, `joint` unsplit) readings for the split paths'
+    bars beside its own paths' (`one`): the log-probs of the pool's windows
+    at each step, and the joint encoder's output on its chunks."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+
+    ref = {"pool_lp": []}
+    with torch.inference_mode():
+        for _, ring, nframes in one["pool"]:
+            lp, _ = flag.model(featurize_batch(ring, flag.config.frontend), nframes,
+                               head_mode="log_probs")
+            ref["pool_lp"].append(lp.float())
+        wavs, alens, _ = joint._prepare_audio_chunked(audio["joint"], None)
+        ref["enc"], ref["el"] = joint.model.encode(*joint._features(wavs, alens))
+    return ref
+
+
+def tpc_readings(got, one, ref, joint_model) -> dict:
+    """The split paths' readings against one card's (the bars' quantities):
+    the pool's clear argmaxes apart (frames whose one-card top-2 margin
+    passes ARGMAX_MARGIN) and coverage; the device beam's best NLL (each
+    row's best hypothesis under the log-probs its search read) against one
+    card's, worst relative gap, and beside it each split best scored by one
+    card's log-probs; the joint greedy's and spec_greedy's clear argmaxes
+    apart under one card's decoder steps (the margin rule) and coverage;
+    the joint beam's worst relative gap of each hypothesis's score (of those
+    with tokens; an EOS-only one's absolute gap apart) from one card's steps
+    fed it, and of its best from one card's best."""
+    import torch
+
+    r = {"pool_mismatch": 0, "pool_clear": 0, "pool_frames": 0, "pool_rings_equal": True}
+    for (out_s, ring_s, _), (out_1, ring_1, _), lp in zip(got["pool"], one["pool"],
+                                                          ref["pool_lp"]):
+        r["pool_rings_equal"] &= bool(torch.equal(ring_s, ring_1))
+        lens = out_1[:, 0].long()
+        valid = torch.arange(out_1.shape[1] - 1, device=lens.device)[None] < lens[:, None]
+        clear = valid & (margins(lp[:, :valid.shape[1]]) > ARGMAX_MARGIN)
+        r["pool_mismatch"] += int(((out_s[:, 1:] != out_1[:, 1:]) & clear).sum())
+        r["pool_clear"] += int(clear.sum())
+        r["pool_frames"] += int(valid.sum())
+    r["pool_coverage"] = r["pool_clear"] / max(r["pool_frames"], 1)
+    lp, olens = one["beam_lp"]
+    rows = np.arange(lp.shape[0])
+    best = {name: [t.cpu() for t in rec["beam_device"]] for name, rec in (("split", got),
+                                                                         ("one", one))}
+    n_1 = ctc_nll(lp, olens, *best["one"], rows)
+    n_s = ctc_nll(*got["beam_lp"], *best["split"], rows)
+    n_x = ctc_nll(lp, olens, *best["split"], rows)
+    r["beam_nll_rel"] = float(np.max(np.abs(n_s - n_1) / np.abs(n_1)))
+    r["beam_nll_rel_one_card_lp"] = float(np.max(np.abs(n_x - n_1) / np.abs(n_1)))
+    r["beam_rows_equal_one_card"] = int(sum(
+        torch.equal(a, b) for a, b in zip(best["split"][0], best["one"][0])))
+    r["beam_nll_one_card"] = [round(float(x), 3) for x in n_1]
+    r["beam_nll_split"] = [round(float(x), 3) for x in n_s]
+    r["beam_nll_split_one_card_lp"] = [round(float(x), 3) for x in n_x]
+    with torch.inference_mode():
+        for key in ("greedy", "spec"):
+            ids, lens = got[key][:2]
+            toks = with_sos(ids)
+            logits = forced_logits(joint_model, toks, ref["enc"], True)
+            cov, mism, scored, agree = margin_check(logits, toks, lens, 1)
+            r[f"{key}_mismatch"], r[f"{key}_coverage"] = mism, cov
+            r[f"{key}_positions"], r[f"{key}_agree"] = scored, agree
+        gen, lens, att = got["beam"]
+        n = gen.shape[0]
+        enc, el = ref["enc"][:n], ref["el"][:n]
+        lp_k = beam_forced_logp(joint_model, gen, enc, el, True)
+        L = gen.shape[2]
+        keep = torch.arange(L, device=gen.device)[None, None] < (lens + 1).clamp(max=L)[..., None]
+        mine = torch.where(keep, lp_k, 0.0).sum(2)
+        best = one["beam"][2][:, 0]
+        g1, l1, a1 = one["beam"]
+        lp_1 = beam_forced_logp(joint_model, g1, enc, el, True)
+        keep1 = torch.arange(L, device=g1.device)[None, None] < (l1 + 1).clamp(max=L)[..., None]
+        r["beam_one_card_self_rel"] = float(((torch.where(keep1, lp_1, 0.0).sum(2) - a1).abs()
+                                             / a1.abs()).max())
+        r["beam_scores"] = [[round(float(v), 4) for v in row] for row in att]
+        r["beam_scores_one_card_steps"] = [[round(float(v), 4) for v in row] for row in mine]
+        r["beam_lengths"] = lens.tolist()
+        tokens = lens > 0
+        r["beam_score_rel"] = float(((mine - att).abs() / att.abs())[tokens].max())
+        caches = joint_model.init_cache(n, enc, 2)
+        eos = joint_model.decode_step(torch.zeros(n, 1, dtype=torch.long, device=gen.device), 0,
+                                      enc, caches, el)[0][:, 0].float()
+        ulp = torch.exp2(torch.floor(torch.log2(eos.abs())) - 7)  # bf16: 8 significant bits
+        ulps = (mine - att).abs() / ulp[:, None]
+        r["beam_eos_only_ulps"] = float(ulps[~tokens].max()) if (~tokens).any() else 0.0
+        r["beam_behind_rel"] = float(((best - mine[:, 0]) / best.abs()).max())
+        r["beam_tokens_equal_one_card"] = bool(torch.equal(gen, one["beam"][0]))
+    return r
+
+
+def tpc_bars_pass(r) -> dict:
+    """Each path bar on readings `r` -> {bar: passed}."""
+    return {"pool": r["pool_mismatch"] == 0,
+            "beam_device": r["beam_nll_rel"] <= NLL_REL_BAR,
+            "greedy": r["greedy_mismatch"] == 0, "spec": r["spec_mismatch"] == 0,
+            "beam": (max(r["beam_score_rel"], r["beam_behind_rel"]) <= TPS_BEAM_REL_BAR
+                     and r["beam_eos_only_ulps"] <= ULP_BAR)}
+
+
+def tpc_want(counters, steps: int, passes: int, tp: int) -> dict:
+    """The exact launches of one model group's split paths (tpc_paths),
+    its ranks' decode steps and spec passes summed (`steps`, `passes`, as
+    whisper_generate.STEPS counts them) -> {kernel key: launches}."""
+    L = TPC_LAYERS
+    want = {k: 0 for k in counters}
+    # an encoder pass a rank: K1, then each block's K2-tp (attention_core_tp
+    # on its heads), ln_fc1 and two row partials (out_proj, fc2)
+    encodes = TPC_STEPS + 4  # the ring steps; the beam, greedy, spec, beam transcribes
+    want["K1"] += encodes * tp
+    want["K2-tp"] += L * encodes * tp
+    want["K3-tp"] += L * encodes * tp
+    want["row-partial"] += 2 * L * encodes * tp
+    want["K4"] += (TPC_STEPS + 1) * tp  # the ring steps' ids, spec's CTC draft
+    # a decode step a block: K9 on its self and cross caches, three row
+    # partials (both out-projections, fc2); a 64-position teacher pass a
+    # block: K6 (the cross-attention), ln_fc1 and three row partials
+    want["K9"] += 2 * L * steps
+    want["row-partial"] += 3 * L * (steps + passes)
+    want["K6"] += L * passes
+    want["K3-tp"] += L * passes
+    return want
+
+
+def tpc_kernel_checks(ranks, errs: dict) -> None:
+    """Each split launch of the paths at their new shapes against its plain
+    version, twice bitwise, on rank 0 of each model group (the serving
+    copies: bf16 weights, as the paths read them): tp_rank_checks (K2-tp
+    within ULP_BAR, the row partials within ROW_REL_BAR, ln_fc1 within
+    ULP_BAR) on a flagship block at the ring's and the beam's rows and a
+    joint encoder block (WF folded) at the joint's; a joint decoder block's
+    ln_fc1 and fc2 row partial at the teacher pass's 64 positions; K9 on its
+    self (64 positions) and cross caches (750 frames) at ragged lengths."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import decode_attention as da
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    randn = _card_randn(22)
+    bf = torch.bfloat16
+    B = TPC_JOINT_B
+    with torch.inference_mode():
+        for tp, pairs in ranks.items():
+            flag, joint = pairs[0]
+            for tag, (R, T) in TPC_KERNEL_ROWS.items():
+                block = joint.model.enc_blocks[0] if tag == "joint" else flag.model.blocks[0]
+                lens = torch.tensor(([T, T - 37, T // 3, 1] * R)[:R], dtype=torch.int32,
+                                    device="cuda")
+                tp_rank_checks(block, randn(R, T, 512).to(bf), lens, f"tp_ctc {tag}", errs)
+            dec = joint.model.dec_blocks[0]
+            m, mln = dec.mlp, dec.mlp_ln
+            info = {"case": "tp_ctc teacher pass", "rank": 0, "tp": tp}
+            (w1, w2), b1 = dec._mlp_weights(bf), m.fc1.weights(bf)[1]
+            args = (randn(B, TPC_SPEC_LEN, 512).to(bf), mln.scale, mln.bias, w1, b1, mln.eps,
+                    m.gelu_form)
+            h = _twice("K3-tp", lambda: fm.ln_fc1(*args), **info)
+            errs["K3-tp"] = max(errs.get("K3-tp", 0.0), _ulp_check(
+                "K3-tp", h, fm.ln_fc1_plain(*args), mlp=w1.shape[1], **info))
+            part = _twice("row-partial", lambda: fa.row_partial(h, w2), **info)
+            errs["row-partial"] = max(errs.get("row-partial", 0.0), _rel_check(
+                "row-partial", part, fa.row_partial_plain(h, w2), launch="fc2", **info))
+            caches = joint.model.init_cache(B, randn(B, 750, 512).to(bf),
+                                            TPC_SPEC_LEN)["block_0"]
+            caches["self"] = {n: randn(*t.shape).to(bf) for n, t in caches["self"].items()}
+            H, dh = dec.self_attn.num_heads, dec.self_attn.head_dim
+            qh = randn(B, H, 1, dh).to(bf)
+            for kind, full in (("self", TPC_SPEC_LEN), ("cross", 750)):
+                k, v = caches[kind]["k"], caches[kind]["v"]
+                kl = torch.tensor(([full, full - 1, full // 2, 1] * B)[:B], dtype=torch.int32,
+                                  device="cuda")
+                got = _twice("K9", lambda: da.grouped_decode_attention(qh, k, v, kl),
+                             cache=kind, **info)
+                errs["K9"] = max(errs.get("K9", 0.0), _ulp_check(
+                    "K9", got, da.decode_attention_plain(qh, k, v, kl), cache=kind, heads=H,
+                    Tk=k.shape[2], **info))
+
+
+def tpc_timing(ranks, rng) -> dict:
+    """K2-tp at the ring's and the beam's rows (tp 2 and 4), the row
+    partials (out_proj 256 -> 512, fc2 1024 -> 512) and ln_fc1 at the
+    ring's rows (tp 2), beside their plain versions, bounds and torch.mm;
+    K9 on 2 and 1 heads of 128 at the joint beam's rows (joint_k9_timing);
+    K6 and K8 alone at the joint's training shape on 2 and 1 heads
+    (flash_train_rows, which also holds them) -> (rows, errors)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    randn = _card_randn(23)
+    bf = torch.bfloat16
+    rows = {"K2-tp": [], "row-partial": [], "K3-tp": [], "K9": [], "K6": [], "K8": []}
+    errs = {}
+    with torch.inference_mode():
+        for tp in (2, 4):
+            blk = ranks[tp][0][0].model.blocks[0]
+            ln, Hl = blk.self_attn_ln, blk.self_attn.num_heads
+            w_qkv, b_qkv, wo = blk._attention_weights(bf)
+            for tag in ("ring", "beam"):
+                B, T = TPC_KERNEL_ROWS[tag]
+                x = randn(B, T, 512).to(bf)
+                lens = torch.tensor(([T, T - 37, T // 3, 1] * B)[:B], dtype=torch.int32,
+                                    device="cuda")
+                core = (x, ln.scale, ln.bias, w_qkv, b_qkv, lens, Hl, ln.eps)
+                ms, ms_p = (cuda_ms(f, TPC_TIMED_ITERS) for f in (
+                    lambda: fa.attention_core_tp(*core),
+                    lambda: fa.attention_core_plain(fm.qkv_gemm_plain(
+                        fm.ln_rows_plain(x, ln.scale, ln.bias, ln.eps), w_qkv, b_qkv), lens, Hl)))
+                M, Nq = B * T, w_qkv.shape[1]
+                Dl = Nq // 3
+                ops = 2.0 * M * 512 * Nq + fl_flops(B, T, lens, Hl, Dl // Hl)
+                b_ms, b_by = bound(M * 512 * 2 + 512 * Nq * 2 + M * Dl * 2, {"bf16": ops})
+                rows["K2-tp"].append({"rows": tag, "shape": [B, T, 512, Hl, Dl // Hl], "tp": tp,
+                                      "ms": ms, "plain_ms": ms_p, "bound_ms": b_ms,
+                                      "bound_by": b_by, "library_ms": None})
+                if tp != 2 or tag != "ring":
+                    continue
+                mlp, mln = blk.mlp, blk.mlp_ln
+                w1, b1 = mlp.fc1.weights(bf)
+                w2 = mlp.fc2.weights(bf)[0]
+                args = (x, mln.scale, mln.bias, w1, b1, mln.eps, mlp.gelu_form)
+                ms, ms_p = (cuda_ms(f, TPC_TIMED_ITERS) for f in (
+                    lambda: fm.ln_fc1(*args), lambda: fm.ln_fc1_plain(*args)))
+                n1 = w1.shape[1]
+                b_ms, b_by = bound(M * 512 * 2 + 512 * n1 * 2 + M * n1 * 2 + 8 * 512,
+                                   {"bf16": 2.0 * M * 512 * n1})
+                rows["K3-tp"].append({"rows": tag, "shape": [M, 512, n1], "tp": tp, "ms": ms,
+                                      "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                                      "library_ms": None})
+                h = fm.ln_fc1(*args)
+                a = randn(B, T, wo.shape[0]).to(bf)
+                for launch, inp, w in (("out_proj", a, wo), ("fc2", h, w2)):
+                    K, N = w.shape
+
+                    def lib(inp=inp, w=w, K=K):
+                        try:
+                            return torch.mm(inp.view(M, K), w, out_dtype=torch.float32)
+                        except (TypeError, RuntimeError):
+                            return torch.mm(inp.view(M, K), w)
+
+                    ms, ms_p, ms_l = (cuda_ms(f, TPC_TIMED_ITERS) for f in (
+                        lambda: fa.row_partial(inp, w), lambda: fa.row_partial_plain(inp, w),
+                        lib))
+                    b_ms, b_by = bound(M * K * 2 + K * N * 2 + M * N * 4,
+                                       {"bf16": 2.0 * M * N * K})
+                    rows["row-partial"].append({
+                        "rows": tag, "launch": launch, "shape": [M, K, N], "tp": tp, "ms": ms,
+                        "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": b_ms,
+                        "bound_by": b_by, "library": "torch.mm (f32 out where taken)"})
+    for H in (2, 1):
+        rows["K9"] += joint_k9_timing(rng, H)
+        e, r = flash_train_rows(rng, JOINT_B, 750, H, 128, [750, 517, 129, 1],
+                                f"tp_ctc_{H}_heads", f"a joint rank's {H} heads", plain_iters=2)
+        for key in ("K6", "K8"):
+            errs[key] = max(errs.get(key, 0.0), e[key])
+            rows[key].append({"heads": H, **r[key]})
+    emit({"phase": "tp_ctc", "timing": rows})
+    return rows, errs
+
+
+def phase_tp_ctc_joint(counters, card: str):
+    """Phase 22 (main path 31; see the module docstring) -> (launches,
+    errors by kernel key, timing rows)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode.whisper_generate import STEPS
+
+    t0 = time.monotonic()
+    flag, joint = tpc_bundles()
+    audio = tpc_audio()
+    groups = {tp: TurnGroup(tp) for tp in (2, 4)}
+    ranks = {tp: tuple(zip(tpc_split(flag, tp, groups[tp]), tpc_split(joint, tp, groups[tp])))
+             for tp in (2, 4)}
+
+    def main_path():
+        out, counts = {}, {}
+        for tp in (2, 4):
+            STEPS.reset()
+            with Watching() as watch:
+                out[tp] = groups[tp].run([lambda pair=pair: tpc_paths(pair, audio, watch)
+                                          for pair in ranks[tp]])
+            counts[tp] = (STEPS.steps, STEPS.passes)
+        return out, counts
+
+    (split, counts), launches = drive(counters, "tp_ctc", main_path)
+    want = {k: 0 for k in counters}
+    for tp, (steps, passes) in counts.items():
+        for k, n in tpc_want(counters, steps, passes, tp).items():
+            want[k] += n
+    emit({"phase": "tp_ctc", "launches": {k: v for k, v in launches.items() if v},
+          "want": {k: v for k, v in want.items() if v},
+          "decode_steps_and_passes": {str(tp): c for tp, c in counts.items()}})
+    check(launches == want, f"tp_ctc launch counts {launches} != {want}")
+    def tensors(rec):
+        return [t for key in sorted(rec) for part in (rec[key] if key == "pool" else [rec[key]])
+                for t in part]
+
+    for tp, per_rank in split.items():
+        for r in range(1, tp):
+            same = all(torch.equal(a, b) for a, b in zip(tensors(per_rank[0]),
+                                                         tensors(per_rank[r])))
+            check(same, f"tp_ctc tp {tp}: rank {r}'s results differ from rank 0's")
+
+    with Watching() as watch:
+        one = tpc_paths((flag, joint), audio, watch)
+    ref = tpc_reference(flag, joint, audio, one)
+    readings = {}
+    for tp in (2, 4):
+        r = tpc_readings(split[tp][0], one, ref, joint.model)
+        bars = tpc_bars_pass(r)
+        readings[tp] = r
+        emit({"phase": "tp_ctc", "tp": tp, "heads_a_rank": 4 // tp, **r, "bars_pass": bars,
+              "bars": {"argmax_margin": ARGMAX_MARGIN, "nll_rel": NLL_REL_BAR,
+                       "beam_rel": TPS_BEAM_REL_BAR, "eos_only_ulps": ULP_BAR,
+                       "min_coverage": MIN_COVERAGE}})
+        check(all(bars.values()) and r["pool_rings_equal"], f"tp_ctc tp {tp}: a bar fails "
+              f"({bars}, rings equal {r['pool_rings_equal']})")
+        check(min(r["pool_coverage"], r["greedy_coverage"], r["spec_coverage"]) >= MIN_COVERAGE,
+              f"tp_ctc tp {tp}: coverage too low ({r})")
+
+    # each bar's upper reading: the same split paths with the last rank's
+    # share left out of every all-reduce (TurnGroup.drop_last)
+    g = groups[TPC_FAULT_TP]
+    g.drop_last = True
+    try:
+        with Watching() as watch:
+            faulty = g.run([lambda pair=pair: tpc_paths(pair, audio, watch)
+                            for pair in ranks[TPC_FAULT_TP]])
+    finally:
+        g.drop_last = False
+    r = tpc_readings(faulty[0], one, ref, joint.model)
+    bars = tpc_bars_pass(r)
+    emit({"phase": "tp_ctc", "fault": "last_share_dropped", "tp": TPC_FAULT_TP, **r,
+          "bars_pass": bars, "sound_readings": readings})
+    check(not any(bars.values()), f"tp_ctc: a bar passes a faulty split path ({bars})")
+
+    errs = {}
+    tpc_kernel_checks(ranks, errs)
+    del split, one, ref, faulty
+    rows, t_errs = tpc_timing(ranks, np.random.RandomState(22))
+    for k, e in t_errs.items():
+        errs[k] = max(errs.get(k, 0.0), e)
+    emit({"phase": "tp_ctc", "seconds": round(time.monotonic() - t0, 1)})
+    return launches, errs, rows
+
+
 def fl_flops(B, T, lens, H, dh) -> float:
     """The attention core's products (S and P.V) over each row's valid keys."""
     return 4.0 * H * dh * T * float(sum(min(int(n), T) for n in lens.tolist()))
@@ -7166,11 +7718,14 @@ def main() -> int:
     by_path["tp_serve"], tps_errs, tps_rows = phase_tp_serving(counters, card)
     for key, err in tps_errs.items():
         errs[key] = max(errs.get(key, 0.0), err)
+    by_path["tp_ctc"], tpc_errs, tpc_rows = phase_tp_ctc_joint(counters, card)
+    for key, err in tpc_errs.items():
+        errs[key] = max(errs.get(key, 0.0), err)
     rec["K10-row"] = tps_rows["K10-row"]
     rec["K11"] = {**rec["K11"], "tp_shapes": tps_rows["K11"]}
     rec["K9-int8"] = {**rec["K9-int8"], "tp_shapes": tps_rows["K9-int8"]}
     for key in ("K2-tp", "K3-tp", "row-partial"):
-        rec[key] = tp_rows[key]
+        rec[key] = {**tp_rows[key], "tp_ctc_shapes": tpc_rows[key]}
     rec["K5"] = {**rec["K5"], **tp_rows["K5"]}
     rec["K6"] = {**rec["K6"], "joint_shapes": [joint_rows["K6"], train_rows["K6"]],
                  "whisper_finetune_shapes": [ft_rows["K6"]]}
@@ -7178,7 +7733,9 @@ def main() -> int:
                  "whisper_finetune_shapes": [ft_rows["K8"]]}
     for key in ("K7-attn", "K7-mlp"):
         rec[key] = {**rec[key], "d1280_shapes": [ft_rows[key]]}
-    rec["K9"] = {**rec["K9"], "joint_shapes": joint_rows["K9"]}
+    rec["K9"] = {**rec["K9"], "joint_shapes": joint_rows["K9"], "tp_ctc_shapes": tpc_rows["K9"]}
+    for key in ("K6", "K8"):
+        rec[key]["tp_ctc_shapes"] = tpc_rows[key]
     table = []
     for key, name, _, _, src, replaces in KERNELS:
         table.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

@@ -2,7 +2,7 @@
 """Tensor parallelism on four cards, held to one card.
 
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 examples/torch_tp.py \\
-        [--part serve|train|all] [--steps 3] [--rate-steps 4] [--out tp.json]
+        [--part serve|train|ctc|all] [--steps 3] [--rate-steps 4] [--out tp.json]
 
 Under the process group (``parallel/multihost.initialize``, NCCL):
 
@@ -28,7 +28,23 @@ Under the process group (``parallel/multihost.initialize``, NCCL):
    and configs/adapter_finetune.yaml (the flagship, dropout off) at data 2
    x model 2, ``--steps`` steps of B=16 x 30 s from chip_smoke's seeded
    corpora, each card's peak, and large-v3's steps/s over ``--rate-steps``
-   more steps with a profiled step's idle share (examples/torch_multigpu.py).
+   more steps with a profiled step's idle share (examples/torch_multigpu.py);
+3. the CTC and joint paths (``--part ctc``, not in ``all``): the flagship
+   (CTCModelConfig's widths and depth) and configs/joint_ctc_attention.yaml
+   (random init, seed 0) loaded split by ``api.load`` at data 2 x model 2,
+   then model 4: a StreamingPool of POOL_SLOTS slots (10 s windows, 0.4 s
+   hops, 0.64 s lookahead) whose ring step is captured with the NCCL
+   all-reduces inside, driven in lockstep with a pool stepping eagerly
+   over chip_smoke's staggered streams (every step's ring and output
+   bitwise the eager pool's on every rank; a capture that fails raises and
+   the run exits 1), the ring step's ms replayed and eager and NCCL's share
+   of a replay (rank 0 profiled); the BEAM_B x 30 s beam-8 batch through
+   ``transcribe`` (the device beam and the native engine, seconds, each
+   data rank its rows); the joint greedy's ms a decode step on B=16 30 s
+   chunks (each data rank its rows); then the joint config trained at fsdp
+   2 x model 2 (dropout off: its masks are drawn per data rank), ``--steps``
+   steps, its steps/s and idle share over ``--rate-steps`` more, each
+   card's peak.
 
 Then the group ends and rank 0 alone runs everything on one card: the
 one-card bundle's encoder output on the same B=16 batch (each sharded
@@ -38,7 +54,10 @@ same timings, and its own engines (bf16 and int8, captured) timed the same
 way, the split engines' tokens held to its decoders by the margin rule; both training configs in one process on the same batches
 (losses within FLAGSHIP_REL_BAR / WHISPER_REL_BAR), and large-v3's
 four-process checkpoint restored in this process (torch_multigpu's
-restore check). One JSON line a case, then a summary; exits 1 when a bar
+restore check); with ``--part ctc`` the same CTC and joint readings on one
+card (its own pool captured against eager), and the joint config trained in
+one process on the same batches (losses within FLAGSHIP_REL_BAR). One JSON
+line a case, then a summary; exits 1 when a bar
 fails. Needs CUDA cards, one per process; ``--tiny --device cpu`` runs the
 same flow at tiny widths on gloo (a rehearsal, no bars on timing).
 """
@@ -451,9 +470,177 @@ def engine_check(bundle, work: Path, tag: str, dtype: str, enc, rec: dict, args)
             "agree_all_positions": agree, "bitwise_every_rank": bitwise, "ok": ok}
 
 
+# --part ctc: the pool's slots and geometry (chip_smoke phase 13's), the
+# beam batch (chip_smoke phase 15's B at 30 s, beam 8, top-k 16), the joint
+# greedy's batch and timed steps
+JOINT = "configs/joint_ctc_attention.yaml"
+POOL_SLOTS, POOL_GEOMETRY = chip_smoke.STREAM_SLOTS, chip_smoke.STREAM_GEOMETRY
+BEAM_B = chip_smoke.CTC_BEAM_B
+TINY_CTC = dict(d_model=64, num_layers=2, num_heads=4, mlp_dim=128, conv_channels=32,
+                vocab_size=36, dtype="float32")
+TINY_JOINT = dict(d_model=64, num_layers=2, decoder_layers=2, num_heads=4, mlp_dim=128,
+                  conv_channels=32, vocab_size=36, dtype="float32", max_target_positions=40)
+TINY_JOINT_FLAG = ["joint.d_model=64", "joint.num_layers=2", "joint.decoder_layers=2",
+                   "joint.num_heads=4", "joint.mlp_dim=128", "joint.conv_channels=32",
+                   "joint.dtype=float32", "frontend.chunk_seconds=1.0", "data.batch_size=8",
+                   "data.max_audio_seconds=1.0", "data.min_audio_seconds=0.1",
+                   "data.bucket_boundaries_seconds=[1.0]", "data.num_host_workers=1",
+                   "data.max_text_len=8"]
+
+
+def ctc_configs(args, mesh=None):
+    """(flagship config, joint config) of --part ctc on `mesh`."""
+    from jiao_liao_speech_recognition_torch.utils.config import (CTCModelConfig,
+                                                                 ExperimentConfig, load_yaml)
+
+    flag = ExperimentConfig(ctc_model=CTCModelConfig(**(TINY_CTC if args.tiny else {})))
+    joint = load_yaml(str(ROOT / JOINT))
+    if args.tiny:
+        joint.joint = dataclasses.replace(joint.joint, **TINY_JOINT)
+    for cfg in (flag, joint):
+        cfg.mesh = MeshConfig(**(mesh or {}))
+        if args.tiny:
+            cfg.frontend = dataclasses.replace(cfg.frontend, chunk_seconds=1.0)
+    return flag, joint
+
+
+def ctc_load(args, mesh=None):
+    """The flagship and joint bundles (split when `mesh` asks and a group is
+    up), a character a non-special id."""
+    out = []
+    for cfg in ctc_configs(args, mesh):
+        b = api.load(config=cfg, device=args.device)
+        V = (cfg.ctc_model if cfg.model_family == "ctc" else cfg.joint).vocab_size
+        b.tokenizer = CharTokenizer([chr(0x4E00 + i) for i in range(V - 2)])
+        out.append(b)
+    return out
+
+
+def ctc_measure(flag, joint, args, tag: str) -> dict:
+    """--part ctc's readings on one mesh (or one card): the captured pool
+    against the eager one in lockstep, the ring step's ms replayed and
+    eager with NCCL's share of a replay, the beam batch's seconds by route,
+    the joint greedy's ms a decode step. Every rank runs the same calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jiao_liao_speech_recognition_torch.serve import StreamingConfig, StreamingPool
+    from jiao_liao_speech_recognition_torch.utils.config import DecodeConfig
+
+    dev, fe = args.device, flag.config.frontend
+    secs = 1.0 if args.tiny else 30.0
+    if args.tiny:
+        geometry, count, slots, beam_b = (1.28, 0.32, 0.16), 6, 4, 8
+    else:
+        geometry, count, slots, beam_b = POOL_GEOMETRY, chip_smoke.STREAM_COUNT, POOL_SLOTS, BEAM_B
+    sc = StreamingConfig(*geometry)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    audios = chip_smoke.stream_audio(count, seed=16, secs=(2.0 if args.tiny else None))
+    rep, eager = chip_smoke.replay_vs_eager(flag, sc, audios, slots)
+    rec = {"case": f"ctc_{tag}", "pool": rep,
+           "mesh": None if flag.mesh is None else list(flag.mesh.shape),
+           "heads_a_rank": flag.model.blocks[0].self_attn.num_heads}
+    rec["pool_bitwise_every_rank"] = gathered(not rep["differ_at_steps"] and rep["texts_equal"])
+    pool = StreamingPool(flag, slots=slots, stream_cfg=sc)
+    rec["capture_s"], rec["captured"] = pool.capture_s, pool._graph is not None
+    if pool._graph is not None:
+        with torch.no_grad():
+            rec["ring_step_ms_replayed"] = chip_smoke.cuda_ms(pool._graph.replay, 20)
+            rec["ring_step_ms_eager"] = chip_smoke.cuda_ms(eager._ring_step, 10)
+            if mh.is_primary():
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    pool._graph.replay()
+                    torch.cuda.synchronize()
+                rec["replay_profile"] = all_reduce_share(prof)
+            else:
+                pool._graph.replay()
+                torch.cuda.synchronize()
+    del pool, eager
+    mg.free()
+    rng = np.random.RandomState(15)
+    t = np.arange(int(secs * chip_smoke.SAMPLE_RATE)) / chip_smoke.SAMPLE_RATE
+    wavs = [(0.2 * np.sin(2 * np.pi * rng.uniform(150, 2000) * t)
+             + 0.05 * rng.randn(len(t))).astype(np.float32) for _ in range(beam_b)]
+    beams = {}
+    for route in ("beam_device", "beam"):
+        dc = DecodeConfig(strategy=route, beam_size=chip_smoke.CTC_BEAM_K,
+                          beam_topk=chip_smoke.CTC_BEAM_TOPK)
+        flag.transcribe(wavs[:8], decode_cfg=dc)  # warm
+        sync(dev)
+        mh.barrier()
+        t0 = time.perf_counter()
+        texts = flag.transcribe(wavs, decode_cfg=dc)
+        sync(dev)
+        beams[route] = {"seconds": time.perf_counter() - t0, "rows": beam_b,
+                        "texts_nonempty": sum(bool(x) for x in texts)}
+    rec["ctc_beam"] = beams
+    jw = [wavs[i % beam_b] for i in range(BATCH)]
+    rows = joint._rows(BATCH) or slice(0, BATCH)
+    model = joint.model
+    with torch.inference_mode():
+        feats = featurize_batch(torch.from_numpy(np.stack(jw)).to(dev), joint.config.frontend)
+        enc, el = model.encode(feats[rows])
+        steps = 4 if args.tiny else TIMED_STEPS
+        tok = torch.zeros((enc.shape[0], 1), dtype=torch.long, device=dev)
+        caches = model.init_cache(enc.shape[0], enc, steps + 1)
+        logits, caches = model.decode_step(tok, 0, enc, caches, el)
+        sync(dev)
+        mh.barrier()
+        t0 = time.perf_counter()
+        for pos in range(1, steps + 1):
+            tok = logits.argmax(-1, keepdim=True)
+            logits, caches = model.decode_step(tok, pos, enc, caches, el)
+        sync(dev)
+        rec["joint_greedy_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
+        rec["joint_rows_per_rank"] = enc.shape[0]
+        del caches
+    rec["peak_gb_per_card"] = gathered(peak_gb(dev))
+    mh.barrier()
+    return rec
+
+
+def group_ctc(args) -> dict:
+    out = {}
+    for tag, mesh in SERVE_MESHES.items():
+        flag, joint = ctc_load(args, mesh)
+        assert flag.mesh is not None and flag.model.tp.size == mesh["model_axis"], flag.mesh
+        assert joint.model.tp.size == mesh["model_axis"]
+        out[f"ctc_{tag}"] = ctc_measure(flag, joint, args, tag)
+        emit(out[f"ctc_{tag}"])
+        del flag, joint
+        mg.free()
+    return out
+
+
+def joint_train_cases(work: Path, args) -> dict:
+    extra = [f"data.train_manifest={work / 'flag' / 'train.jsonl'}", "joint.dropout=0.0",
+             *(TINY_JOINT_FLAG if args.tiny else [])]
+    return {"joint_fsdp2_model2": mg.config(JOINT, work, "joint_fsdp2_model2", args.steps, *extra,
+                                            "mesh.fsdp_axis=2", "mesh.model_axis=2"),
+            "joint_one_card": mg.config(JOINT, work, "joint_one_card", args.steps, *extra,
+                                        "mesh.fsdp_axis=1")}
+
+
+def joint_train_case(cfg, name: str, args) -> dict:
+    """train_case for the joint config, with its steps/s and idle share."""
+    if args.device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, info, tok, manifest = train(cfg, args.device)
+    rec = {"case": name, "mesh": info["mesh"], "losses": info["losses"],
+           "loop_steps_per_sec": info["steps_per_sec"],
+           "seconds_incl_init_and_checkpoint": time.perf_counter() - t0}
+    if args.device == "cuda":
+        rec.update(mg.rate_and_idle(cfg, state, tok, manifest, args.rate_steps))
+    rec["peak_gb_per_card"] = gathered(peak_gb(args.device))
+    del state, tok, manifest
+    mg.free()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("serve", "train", "all"), default="all")
+    ap.add_argument("--part", choices=("serve", "train", "ctc", "all"), default="all")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--rate-steps", type=int, default=4)
     ap.add_argument("--workdir", default=str(Path(tempfile.gettempdir()) / "jl_tp"))
@@ -469,7 +656,7 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
     work = Path(args.workdir)
     work.mkdir(parents=True, exist_ok=True)
-    mh.initialize(device=args.device, graph_collectives=args.part in ("serve", "all"))
+    mh.initialize(device=args.device, graph_collectives=args.part in ("serve", "ctc", "all"))
     cards = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             timeout=60).stdout.strip().splitlines()
@@ -487,6 +674,12 @@ def main(argv=None) -> int:
         for name in ("large_v3_fsdp2_model2", "flagship_data2_model2"):
             grouped[name] = train_case(train_cfgs[name], name, args)
             emit(grouped[name])
+    joint_cfgs = joint_train_cases(work, args)
+    if args.part == "ctc":
+        grouped.update(group_ctc(args))
+        grouped["joint_fsdp2_model2"] = joint_train_case(joint_cfgs["joint_fsdp2_model2"],
+                                                         "joint_fsdp2_model2", args)
+        emit(grouped["joint_fsdp2_model2"])
     group_s = time.perf_counter() - t0
     primary = mh.is_primary()
     mh.shutdown()
@@ -517,6 +710,30 @@ def main(argv=None) -> int:
                               train_cfgs["large_v3_one_card"], args.device)
         summary["checks"]["large_v3_fsdp2_model2_restored_in_one_process"] = rc
         ok &= rc["ok"]
+    if args.part == "ctc":
+        flag, joint = ctc_load(args)
+        one = ctc_measure(flag, joint, args, "one_card")
+        del flag, joint
+        mg.free()
+        print(json.dumps(one), flush=True)
+        summary["cases"]["ctc_one_card"] = one
+        for tag in SERVE_MESHES:
+            rec = grouped[f"ctc_{tag}"]
+            good = (all(b is True for b in rec["pool_bitwise_every_rank"])
+                    and (args.device != "cuda" or rec["captured"]))
+            summary["checks"][f"ctc_{tag}_pool_captured_bitwise_eager"] = {
+                "every_rank": rec["pool_bitwise_every_rank"], "captured": rec["captured"],
+                "ok": good}
+            ok &= good
+        ref = joint_train_case(joint_cfgs["joint_one_card"], "joint_one_card", args)
+        print(json.dumps(ref), flush=True)
+        summary["cases"]["joint_one_card"] = ref
+        got = grouped["joint_fsdp2_model2"]["losses"]
+        err = mg.rel(got, ref["losses"])
+        good = err <= mg.FLAGSHIP_REL_BAR and all(math.isfinite(x) for x in got)
+        summary["checks"]["joint_fsdp2_model2"] = {"loss_rel_err": err,
+                                                   "bar": mg.FLAGSHIP_REL_BAR, "ok": good}
+        ok &= good
     summary["ok"] = ok
     print(json.dumps(summary["checks"]), flush=True)
     if args.out:

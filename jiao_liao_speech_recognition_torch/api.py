@@ -82,7 +82,9 @@ def stream(bundle, chunks: Iterable[np.ndarray], stream_cfg=None):
     the joint family's CTC branch): yields
     a StreamingResult after every fed chunk (``res.text`` the committed
     text, ``res.preview`` the unstable tail) and a final one
-    (``is_final=True``) once `chunks` is exhausted (serve/streaming.py)."""
+    (``is_final=True``) once `chunks` is exhausted (serve/streaming.py).
+    On a split bundle every rank of the model group iterates the same
+    chunks (each window step holds the group's all-reduces)."""
     from .serve.streaming import StreamingTranscriber
 
     st = StreamingTranscriber(bundle, stream_cfg)

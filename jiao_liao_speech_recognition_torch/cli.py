@@ -170,7 +170,7 @@ def _transcribe_body(bundle, args, primary: bool = True) -> int:
     decode_cfg = _decode_config(bundle, args.strategy, args.beam_size, args.lm_path,
                                 args.lm_weight)
     if args.stream:
-        return _transcribe_streaming(bundle, args)
+        return _transcribe_streaming(bundle, args, primary)
 
     def say(rec) -> None:
         if primary:
@@ -197,10 +197,12 @@ def _transcribe_body(bundle, args, primary: bool = True) -> int:
     return 0
 
 
-def _transcribe_streaming(bundle, args) -> int:
+def _transcribe_streaming(bundle, args, primary: bool = True) -> int:
     """A live stream simulated: each file fed hop by hop through the
     sliding-window transcriber (serve/streaming.py), one JSON line a hop
-    (committed text and the unstable preview), then a final line a file."""
+    (committed text and the unstable preview), then a final line a file.
+    On a split bundle every process feeds the same hops; the primary
+    alone prints."""
     from .serve.streaming import StreamingConfig, StreamingTranscriber
 
     sc = StreamingConfig(window_seconds=args.stream_window, hop_seconds=args.stream_hop,
@@ -212,10 +214,13 @@ def _transcribe_streaming(bundle, args) -> int:
         hop = int(sc.hop_seconds * sr)
         for s in range(0, len(pcm), hop):
             res = st.feed(pcm[s:s + hop])
-            print(json.dumps({"audio": path, "t": round((s + hop) / sr, 2),
-                              "partial": res.text, "preview": res.preview},
-                             ensure_ascii=False), flush=True)
-        print(json.dumps({"audio": path, "text": st.finish().text}, ensure_ascii=False))
+            if primary:
+                print(json.dumps({"audio": path, "t": round((s + hop) / sr, 2),
+                                  "partial": res.text, "preview": res.preview},
+                                 ensure_ascii=False), flush=True)
+        text = st.finish().text
+        if primary:
+            print(json.dumps({"audio": path, "text": text}, ensure_ascii=False))
     return 0
 
 

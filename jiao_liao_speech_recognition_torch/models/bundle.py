@@ -34,11 +34,12 @@ Several cards (``shard``, or ``load`` of a config whose mesh asks for fsdp
 or model > 1 under a process group): the model is split over the mesh's
 model axis (parallel/tp.py) and ``transcribe`` takes its (data, fsdp)
 rank's share of the batch's chunks, the same share on every rank of a
-model group, and returns every chunk's text on every rank. CTC greedy and
-Whisper serving run split: greedy, ``quantize()`` (before or after the
-split), the AR beam, timestamps and the serving engine; the CTC prefix
-beams, the joint family and streaming refuse a split model by name
-(ROADMAP queue 1 item 12).
+model group, and returns every chunk's text on every rank. Every path runs
+split: CTC greedy and the CTC prefix beams (the head is whole on every
+rank, so a model group's ranks search the same log-probs), Whisper's
+greedy, ``quantize()`` (before or after the split), AR beam, timestamps
+and serving engine, the joint family's strategies, and streaming
+(serve/streaming.py).
 """
 
 from __future__ import annotations
@@ -59,8 +60,7 @@ from ..decode.ctc import ctc_collapse_with_times, ctc_greedy_collapse, ids_to_te
 from ..frontend import audio_io, features
 from ..frontend.resample import resample
 from ..parallel import multihost as mh
-from ..parallel.tp import ITEM as TP_ITEM
-from ..parallel.tp import apply_tp, model_tp, refuse, role_dims
+from ..parallel.tp import apply_tp, model_tp, role_dims
 from ..utils.config import STRATEGIES, DecodeConfig, ExperimentConfig, load_yaml, save_yaml
 from .convert import (
     joint_params_to_state_dict,
@@ -195,16 +195,15 @@ class ModelBundle:
         weights stay whole (JAX shards them there too, and XLA gathers each
         layer at use; here a rank holds its model-axis part). The model is
         split in place; returns self. An int8 bundle (``quantize()``)
-        splits to the bits of quantizing after the split. Refuses the joint
-        family on a model axis (ROADMAP queue 1 item 12)."""
+        splits to the bits of quantizing after the split. Every family
+        splits by the same rules (a joint model's encoder and decoder blocks
+        as the CTC model's and Whisper's, its tied table by vocab rows, its
+        CTC head whole)."""
         from ..parallel import mesh as pmesh
 
         if mesh is None:
             mesh = pmesh.build_mesh(self.config.mesh)
-        tp = pmesh.tp_group(mesh)
-        if self.is_joint and tp.size > 1:
-            raise NotImplementedError(f"the joint family on a model axis: {TP_ITEM}")
-        apply_tp(self.model, tp)
+        apply_tp(self.model, pmesh.tp_group(mesh))
         if self.model.cfg.dtype == "bfloat16":
             cast_for_serving(self.model, torch.bfloat16)
         self.mesh = mesh
@@ -442,12 +441,13 @@ class ModelBundle:
         engine over the device's top-k (``beam_topk``, ``beam_prune_logp``).
         The JAX bundle falls back to the host searcher when the engine's
         library is missing; here it is built at first use and a failed
-        build raises (the same results either way)."""
+        build raises (the same results either way). On a split model every
+        rank of a model group searches its (data, fsdp) rank's rows
+        (``transcribe``'s ``_rows``) over the same whole log-probs."""
         from ..decode.ctc import (ctc_prefix_beam_search, ctc_prefix_beam_search_host,
                                   ctc_prefix_beam_search_native)
 
         dc = decode_cfg
-        refuse(self.model, "the CTC prefix beam search")
         log_probs, out_lens = self.model(*self._features(wavs, alens), head_mode="log_probs")
         if dc.strategy == "beam_device":
             return ctc_prefix_beam_search(log_probs, out_lens, dc.beam_size, dc.ctc_blank_id,

@@ -38,14 +38,13 @@ chip_smoke.py's phase 20 does on one card.
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 
 from .tp_rules import model_dim, shard_tensor, tp_placement
-
-ITEM = "ROADMAP queue 1 item 12 (paths refused under tensor parallelism)"
 
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
@@ -155,13 +154,23 @@ def model_tp(model: torch.nn.Module) -> Optional[TPGroup]:
     return getattr(model, "tp", None)
 
 
-def refuse(model: torch.nn.Module, what: str) -> None:
-    """Raise NotImplementedError naming `what` when `model` is split over a
-    model axis larger than 1."""
+def check_capturable(model: torch.nn.Module, device: torch.device, who: str) -> None:
+    """Raise ValueError where `who` cannot capture a step of `model` on
+    `device` in a CUDA graph: a stand-in group (ranks played in one
+    process) on a card, or an NCCL group started without
+    ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` (``multihost.initialize(
+    graph_collectives=True)`` sets it). The caller asks for the eager step
+    with ``graph=False``; nothing drops to it on its own."""
     tp = model_tp(model)
-    if tp is not None and tp.size > 1:
-        raise NotImplementedError(f"{what} on a tensor-parallel model (model_axis={tp.size}): "
-                                  f"{ITEM}")
+    if tp is None or torch.device(device).type != "cuda":
+        return
+    if not isinstance(tp.group, (dist.ProcessGroup, type(None))):
+        raise ValueError(f"{who}: a stand-in model group (ranks played in one process) cannot "
+                         "be captured in a CUDA graph; graph=False runs the step eagerly")
+    if os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING") != "0":
+        raise ValueError(f"{who}: capturing a split model's NCCL collectives needs "
+                         "TORCH_NCCL_ASYNC_ERROR_HANDLING=0 before the group starts: "
+                         "multihost.initialize(graph_collectives=True)")
 
 
 def split_dims(model: torch.nn.Module, tp: int) -> Dict[str, int]:

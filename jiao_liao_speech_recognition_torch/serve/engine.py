@@ -55,14 +55,12 @@ Greedy only, as in the JAX package.
 
 from __future__ import annotations
 
-import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from .. import _build
 from ..decode.whisper_generate import (
@@ -73,7 +71,7 @@ from ..decode.whisper_generate import (
 from ..frontend import features
 from ..models.ctc_model import DTYPES
 from ..models.whisper import HEAD_MAJOR_MIN_BATCH
-from ..parallel.tp import model_tp
+from ..parallel.tp import check_capturable
 
 
 @dataclass
@@ -141,17 +139,8 @@ class ServingEngine:
             raise ValueError(
                 "ServingEngine drives AR decode; the CTC family is a single forward pass "
                 "per batch: use bundle.transcribe")
-        tp = model_tp(bundle.model)
-        stand_in = tp is not None and not isinstance(tp.group, (dist.ProcessGroup, type(None)))
-        if graph and stand_in and bundle.device.type == "cuda":
-            raise ValueError("ServingEngine: a stand-in model group (ranks played in one "
-                             "process) cannot be captured in a CUDA graph; graph=False runs "
-                             "the step eagerly")
-        if (graph and bundle.device.type == "cuda" and tp is not None and not stand_in
-                and os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING") != "0"):
-            raise ValueError("ServingEngine: capturing a split model's NCCL collectives needs "
-                             "TORCH_NCCL_ASYNC_ERROR_HANDLING=0 before the group starts: "
-                             "multihost.initialize(graph_collectives=True)")
+        if graph:
+            check_capturable(bundle.model, bundle.device, "ServingEngine")
         self.bundle = bundle
         self.cfg = bundle.config
         wcfg = self.cfg.whisper

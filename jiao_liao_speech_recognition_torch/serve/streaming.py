@@ -32,6 +32,23 @@ replayed by every ``step()``. Its buffers are allocated once and written in
 place, so the addresses the graph recorded stay valid; a pool serves the
 weights it was made with. ``graph=False`` runs that step eagerly on a card
 (on the CPU it always runs eagerly); a capture that fails raises.
+
+A split bundle (``ModelBundle.shard``, a model axis over a process group)
+streams as one card's: every rank of a model group runs the whole window
+batch through its heads and hidden columns, the blocks' row layers sum
+their partials over the group, and the head is whole on every rank, so
+each rank's ids and texts are the same. Both classes are then SPMD: every
+rank of the group must be fed the same audio and call ``feed`` / ``open``
+/ ``step`` / ``finish`` in the same order (as the JAX package's
+multi-controller programs are), since each window step holds collectives
+that every rank must enter. Every host branch that decides whether a step
+runs reads only the streams' sample counts, which are then equal on every
+rank. The pool's captured ring step holds the blocks' NCCL all-reduces:
+the group must start with ``multihost.initialize(graph_collectives=True)``,
+and the side-stream warm-up runs the collectives first, so that NCCL's
+communicators exist before the capture. A stand-in group (parallel/tp.py:
+ranks played in one process) cannot be captured: the pool refuses one on a
+card unless ``graph=False`` asks for the eager step.
 """
 
 from __future__ import annotations
@@ -45,7 +62,7 @@ import torch
 
 from .. import _build
 from ..frontend import features
-from ..parallel.tp import refuse
+from ..parallel.tp import check_capturable
 
 
 @dataclass
@@ -113,7 +130,6 @@ class StreamingTranscriber:
 
     def __init__(self, bundle, stream_cfg: Optional[StreamingConfig] = None,
                  blank_id: Optional[int] = None):
-        refuse(bundle.model, "streaming")
         self.bundle = bundle
         self.cfg = stream_cfg or StreamingConfig()
         config = bundle.config
@@ -309,12 +325,15 @@ class StreamingPool:
     the ring step is a CUDA graph unless ``graph=False``; the launch
     counters count its capture, whose launches are kept as
     ``step_launches`` (by counter name) and taken back off the counters,
-    and ``replays`` counts its replays.
+    and ``replays`` counts its replays. On a split bundle every rank of the
+    model group makes the same pool and drives it alike (the module
+    docstring).
     """
 
     def __init__(self, bundle, slots: int = 8, stream_cfg: Optional[StreamingConfig] = None,
                  device_ring: bool = True, graph: bool = True):
-        refuse(bundle.model, "the streaming pool")
+        if graph and device_ring:
+            check_capturable(bundle.model, bundle.device, "StreamingPool")
         self.bundle = bundle
         self.cfg = stream_cfg or StreamingConfig()
         if slots < 1:
@@ -452,7 +471,8 @@ class StreamingPool:
     def _capture(self) -> torch.cuda.CUDAGraph:
         """Warm the ring step on a side stream (the kernels' library,
         cuDNN's and cuBLAS's handles, the serving copies, the position
-        table, K1's constants), then capture it. Every row is idle then,
+        table, K1's constants, a split model's NCCL communicators), then
+        capture it. Every row is idle then,
         so the ring is left as it was."""
         t0 = time.perf_counter()
         side = torch.cuda.Stream()
@@ -477,7 +497,7 @@ class StreamingPool:
         """Stage the jobs' hop samples and control rows, copy them in (two
         host-to-device copies), run the ring step (a graph replay on a
         card), read the frames and ids back in one copy, absorb."""
-        if not jobs:
+        if not jobs:  # equal on every rank of a split model's group (SPMD)
             return {}
         proto = self._proto
         W, H = proto._W, proto._hop

@@ -578,10 +578,6 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     mesh = None
     rows_of = {}  # the loader's (data, fsdp) rank and count
     if mh.is_initialized():
-        if config.model_family == "joint" and config.mesh.model_axis > 1:
-            from ..parallel.tp import ITEM
-
-            raise NotImplementedError(f"the joint family on a model axis: {ITEM}")
         mesh = pmesh.build_mesh_for_batch(config.mesh, config.data.batch_size)
         pmesh.shard_model(mesh, model)
         rows_of = {"process_index": pmesh.dp_rank(mesh),

@@ -13,8 +13,13 @@ of quantize and shard (bitwise JAX's quantize(), placed as JAX's
 shard().quantize()), int8 greedy tokens (and a WF-adapted model's), the
 row partials' sum against JAX's K10, the engine's texts (bf16 and int8), the AR beam, timestamps,
 and the CLI's serve and transcribe under --multihost against one
-process; and, on the CPU alone, the padded K5 pack and the paths refused
-on a split model."""
+process; the split CTC and joint families: streaming (one stream after
+every feed at data 2 x model 2, at model 4 and banded; the pool after every
+step), the three CTC prefix beam routes, the joint greedy, spec_greedy and
+AR beam with CTC rescoring, the joint pool and the joint train_loop at
+fsdp 2 x model 2, and the CLI's --stream and CTC beam under --multihost
+against one process; and, on the CPU alone, the padded K5 pack, heads
+that do not divide and the capture refused to a stand-in group."""
 
 import dataclasses
 import json
@@ -27,28 +32,39 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import torch_tp_worker as tw  # noqa: E402
 from torch_ranks import spawn  # noqa: E402
 
 from jiao_liao_speech_recognition_tpu.data import CharTokenizer as JTok  # noqa: E402
 from jiao_liao_speech_recognition_tpu.data import Manifest, ManifestRow  # noqa: E402
 from jiao_liao_speech_recognition_tpu.data import write_manifest  # noqa: E402
 from jiao_liao_speech_recognition_tpu.data.pipeline import Batch as JBatch  # noqa: E402
+from jiao_liao_speech_recognition_tpu.decode import ctc as jctc  # noqa: E402
+from jiao_liao_speech_recognition_tpu.decode import joint_generate as jjg  # noqa: E402
+from jiao_liao_speech_recognition_tpu.decode import whisper_generate as jwg  # noqa: E402
+from jiao_liao_speech_recognition_tpu.decode.lm import NGramCharLM as JLM  # noqa: E402
+from jiao_liao_speech_recognition_tpu.decode.speculative import joint_spec_greedy  # noqa: E402
 from jiao_liao_speech_recognition_tpu.decode.whisper_generate import beam_from_enc  # noqa: E402
 from jiao_liao_speech_recognition_tpu.decode.whisper_generate import greedy_generate  # noqa: E402
 from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav  # noqa: E402
+from jiao_liao_speech_recognition_tpu.frontend import features as jfeatures  # noqa: E402
 from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle as JBundle  # noqa: E402
+from jiao_liao_speech_recognition_tpu.models import joint as jjoint  # noqa: E402
 from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel as JWhisper  # noqa: E402
 from jiao_liao_speech_recognition_tpu.ops import quant as jq  # noqa: E402
 from jiao_liao_speech_recognition_tpu.parallel import mesh as jmesh  # noqa: E402
 from jiao_liao_speech_recognition_tpu.parallel.tp_rules import fsdp_tp_sharding  # noqa: E402
 from jiao_liao_speech_recognition_tpu.parallel.tp_rules import tp_param_sharding  # noqa: E402
 from jiao_liao_speech_recognition_tpu.serve import ServingEngine as JEngine  # noqa: E402
+from jiao_liao_speech_recognition_tpu.serve import streaming as jstreaming  # noqa: E402
+from jiao_liao_speech_recognition_tpu.ops.ctc_loss import ctc_loss as jctc_loss  # noqa: E402
 from jiao_liao_speech_recognition_tpu.train import engine as jeng  # noqa: E402
 from jiao_liao_speech_recognition_tpu.utils import config as jcfg  # noqa: E402
 from jiao_liao_speech_recognition_torch import cli  # noqa: E402
 from jiao_liao_speech_recognition_torch.models import convert  # noqa: E402
 from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle  # noqa: E402
 from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel  # noqa: E402
+from jiao_liao_speech_recognition_torch.models.joint import JointCTCAttentionModel  # noqa: E402
 from jiao_liao_speech_recognition_torch.models.whisper import WhisperModel  # noqa: E402
 from jiao_liao_speech_recognition_torch.ops import fused_mlp as tfm  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel import dryrun  # noqa: E402
@@ -189,6 +205,116 @@ def _jax_refs(src, manifest, wf_params, out):
         state, info = jeng.train_loop(mcfg, manifest, tok, JBundle._init_params(mcfg))
         out["loop_loss"] = info["last_metrics"]["loss"]
         out["loop_params"] = convert.params_to_state_dict(_np(state.params))
+    _jax_split_refs(src, manifest, out)
+
+
+def _split_inputs(src, manifest):
+    """The split CTC and joint cases' inputs: the CTC weights (the port's
+    seeded init, as the bridge writes them; the head scaled for peakier
+    rows, as tests/test_torch_ctc_beam.py does), an n-gram LM, the streams'
+    audio, the joint weights (moved off their init, WF inserts included),
+    its features and its train_loop's initial weights."""
+    ctc = CTCEncoderModel(tw.ctc_config(tcfg).ctc_model, seed=5)
+    params = convert.state_dict_to_params(ctc.state_dict())
+    params["ctc_head"]["kernel"] = params["ctc_head"]["kernel"] * 8.0
+    convert.write_npz_params(params, src / "ctc_split.npz")
+    JLM.train_from_texts(["".join(tw.CTC_VOCAB[i] for i in row) for row in
+                          ((1, 2, 3), (2, 3, 4, 5), (3, 1))], JTok(tw.CTC_VOCAB),
+                         order=2).save(str(src / "lm.npz"))
+    rng = np.random.RandomState(40)
+    one = (0.1 * rng.randn(int(16000 * 2.4))).astype(np.float32)
+    np.savez(src / "stream.npz", one=one, cuts=np.sort(rng.randint(1, len(one), size=5)),
+             **{f"pool{i}": (0.1 * rng.randn(int(16000 * t))).astype(np.float32)
+                for i, t in enumerate((1.6, 0.7, 1.2))})
+    noise = np.random.RandomState(41)
+    joint = JointCTCAttentionModel(tw.joint_config(tcfg).joint, seed=6).state_dict()
+    convert.write_npz_params(convert.joint_state_dict_to_params(
+        {k: v + 0.05 * torch.from_numpy(noise.randn(*v.shape).astype(np.float32))
+         for k, v in joint.items()}), src / "joint.npz")
+    np.save(src / "joint_feats.npy", rng.randn(4, 80, 64).astype(np.float32))
+    np.save(src / "joint_flens.npy", np.array([64, 32, 55, 64], np.int32))
+    jt = tw.joint_config(tcfg).joint
+    jt.vocab_size = len(JTok.build(manifest.texts()))
+    convert.write_npz_params(convert.joint_state_dict_to_params(
+        JointCTCAttentionModel(jt, seed=7).state_dict()), src / "joint_train.npz")
+
+
+def _joint_loop_cfg(vocab_size: int):
+    """The worker's joint train_loop config in the JAX package's terms."""
+    cfg = tw.joint_config(jcfg)
+    cfg.joint.vocab_size = vocab_size
+    cfg.data = jcfg.DataConfig(batch_size=8, bucket_boundaries_seconds=(1.5,),
+                               min_audio_seconds=0.1, max_text_len=8)
+    cfg.train.optimizer = jcfg.OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
+                                               total_steps=4, schedule="constant")
+    cfg.train.train_adapters_only = True
+    return cfg
+
+
+def _jax_split_refs(src, manifest, out):
+    """JAX's one-device results for the worker's ctc_split and joint_split
+    cases (called inside _jax_refs's "highest" precision)."""
+    sc = jstreaming.StreamingConfig(*tw.STREAM)
+    hop = int(tw.STREAM[1] * 16000)
+    with np.load(src / "stream.npz") as z:
+        one, cuts, pool_audio = z["one"], z["cuts"], [z[f"pool{i}"] for i in range(3)]
+    params = convert.read_npz_params(src / "ctc_split.npz")
+    for banded in (True, False):
+        jb = JBundle(config=tw.ctc_config(jcfg, banded), params=params,
+                     tokenizer=JTok(tw.CTC_VOCAB))
+        out[f"stream_banded_{banded}"] = tw.stream_states(
+            jstreaming.StreamingTranscriber(jb, sc), one, cuts)
+    out["pool"] = tw.drive_pool(jstreaming.StreamingPool(jb, slots=4, stream_cfg=sc),
+                                pool_audio, hop)
+    wavs, alens, _ = jb._prepare_audio_chunked(sorted(str(p) for p in src.glob("r*.wav"))[:4],
+                                               None)
+    fe = jb.config.frontend
+    lp, ol = jb.encode(jfeatures.featurize_batch(jnp.asarray(wavs), fe),
+                       jnp.asarray(alens // fe.hop_length, jnp.int32))
+    for name in tw.BEAM_ROUTES:
+        dc = tw.beam_config(jcfg, name, str(src / "lm.npz"))
+        if name == "beam_device":
+            ids, lens = jctc.ctc_prefix_beam_search(lp, ol, dc.beam_size, dc.ctc_blank_id,
+                                                    topk_tokens=min(dc.beam_topk, 16))
+        else:
+            ids, lens = jctc.ctc_prefix_beam_search_host(
+                np.asarray(lp), np.asarray(ol), dc.beam_size, dc.ctc_blank_id,
+                topk_tokens=dc.beam_topk, lm=JLM.load(dc.lm_path) if dc.lm_path else None,
+                lm_weight=dc.lm_weight)
+        out[f"ctc_{name}"] = {"ids": np.asarray(ids).tolist(),
+                              "lens": np.asarray(lens).tolist()}
+
+    jc = tw.joint_config(jcfg)
+    jm, jp = jjoint.JointCTCAttentionModel(jc.joint), convert.read_npz_params(src / "joint.npz")
+    feats = jnp.asarray(np.load(src / "joint_feats.npy"))
+    flens = jnp.asarray(np.load(src / "joint_flens.npy"))
+    L, K = tw.JOINT_MAX_LEN, tw.JOINT_BEAM
+    for name, fn in (("joint_greedy", jjg.joint_greedy), ("spec_greedy", joint_spec_greedy)):
+        gen, lens = fn(jm, jp, feats, flens, max_len=L)
+        out[name] = {"tokens": np.asarray(gen).tolist(), "lengths": np.asarray(lens).tolist()}
+    enc, el = jm.apply({"params": jp}, feats, flens, method=jm.encode)
+    gen, lens, scores = jwg.beam_from_enc(jm, jp, enc, el, beam_size=K, max_len=L, prompt=(0,),
+                                          eot_id=0)
+    lp = jm.apply({"params": jp}, enc, method=jm.ctc_log_probs)
+    B, _, Lg = gen.shape
+    nll = jctc_loss(jnp.repeat(lp, K, axis=0), jnp.repeat(el, K, axis=0),
+                    jnp.reshape(gen, (B * K, Lg)), jnp.reshape(lens, (B * K,)))
+    out["joint_hyps"] = {"tokens": np.asarray(gen).tolist(),
+                         "lengths": np.asarray(lens).tolist(),
+                         "scores": np.asarray(scores).tolist(),
+                         "nll": np.asarray(nll).reshape(B, K).tolist()}
+    gen, lens = jjg.joint_beam(jm, jp, feats, flens, beam_size=K, max_len=L)
+    out["joint_beam"] = {"tokens": np.asarray(gen).tolist(), "lengths": np.asarray(lens).tolist()}
+    jb = JBundle(config=jc, params=jp, tokenizer=JTok(tw.JOINT_VOCAB))
+    out["joint_pool"] = tw.drive_pool(jstreaming.StreamingPool(jb, slots=4, stream_cfg=sc),
+                                      pool_audio, hop)
+    tok = JTok.build(manifest.texts())
+    jt = _joint_loop_cfg(len(tok))
+    jt.train.checkpoint_dir = str(src / "jax_joint_ck")
+    state, info = jeng.train_loop(jt, manifest, tok, convert.read_npz_params(
+        src / "joint_train.npz"))
+    out["joint_loop_loss"] = info["last_metrics"]["loss"]
+    out["joint_loop_params"] = convert.joint_params_to_state_dict(_np(state.params))
 
 
 @pytest.fixture(scope="module")
@@ -228,6 +354,7 @@ def runs(tmp_path_factory):
     convert.write_npz_params(_np(JBundle._init_params(mcfg)), src / "ctc.npz")
     (src / "train_loop.json").write_text(json.dumps({
         "manifest": str(src / "train.jsonl"), "vocab": tok.vocab, "vocab_size": len(tok)}))
+    _split_inputs(src, manifest)
 
     ref = {fam: dryrun.run_case(fam, 1, work, steps=DRYRUN_STEPS) for fam in ("ctc", "whisper")}
     ckpt1 = work / "ctc_w1_f1" / "ckpt"
@@ -253,6 +380,9 @@ def runs(tmp_path_factory):
 # ------------------------------------------------------------------ rules
 
 _PARAMS = {}
+# a joint model whose vocab (32) divides by 2 and 4, as the published 4,336
+JOINT_PLACED = dict(vocab_size=32, d_model=64, num_layers=2, decoder_layers=1, num_heads=4,
+                    mlp_dim=128, conv_channels=32, dtype="float32")
 
 
 def _jax_params(family: str, adapter: str):
@@ -261,6 +391,9 @@ def _jax_params(family: str, adapter: str):
         ad = jcfg.AdapterConfig(kind=adapter, wf_rank=4, att_num_heads=2, att_key_dim=16)
         if family == "whisper":
             cfg = dataclasses.replace(JCFG, whisper=dataclasses.replace(JCFG.whisper, adapter=ad))
+        elif family == "joint":
+            cfg = jcfg.ExperimentConfig(model_family="joint", joint=jcfg.JointModelConfig(
+                **JOINT_PLACED, adapter=ad))
         else:
             cfg = jcfg.ExperimentConfig(ctc_model=jcfg.CTCModelConfig(
                 vocab_size=24, d_model=64, num_layers=2, num_heads=4, mlp_dim=128,
@@ -277,14 +410,15 @@ def _spec(sharding, nd):
 @pytest.mark.parametrize("fsdp", [1, 2])
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("adapter", ["none", "wf", "att"])
-@pytest.mark.parametrize("family", ["whisper", "ctc"])
+@pytest.mark.parametrize("family", ["whisper", "ctc", "joint"])
 def test_placement_of_every_parameter_matches_jax(family, adapter, tp, fsdp):
     """Every parameter's placement by the port's rules (its name and JAX's
     shape) equals tp_param_sharding's and fsdp_tp_sharding's spec; the
     port model's own split set is the parameters JAX splits over model."""
     params = _jax_params(family, adapter)
     mesh = jmesh.build_mesh(jcfg.MeshConfig(fsdp_axis=fsdp, model_axis=tp), jax.devices())
-    to_key = convert.whisper_torch_key if family == "whisper" else convert.torch_key
+    to_key = {"whisper": convert.whisper_torch_key,
+              "joint": convert.joint_torch_key}.get(family, convert.torch_key)
     tp_sh = jax.tree_util.tree_leaves_with_path(tp_param_sharding(mesh, params))
     both = jax.tree_util.tree_leaves_with_path(fsdp_tp_sharding(mesh, params))
     leaves = {tuple(str(getattr(k, "key", k)) for k in kp): v
@@ -307,6 +441,8 @@ def _port_model(family, adapter):
     if family == "whisper":
         return WhisperModel(tcfg.WhisperConfig(**{**dataclasses.asdict(JCFG.whisper),
                                                   "adapter": ad}))
+    if family == "joint":
+        return JointCTCAttentionModel(tcfg.JointModelConfig(**JOINT_PLACED, adapter=ad))
     return CTCEncoderModel(tcfg.CTCModelConfig(vocab_size=24, d_model=64, num_layers=2,
                                                num_heads=4, mlp_dim=128, conv_channels=32,
                                                dtype="float32", adapter=ad))
@@ -624,6 +760,129 @@ def test_cli_multihost_serving_matches_one_process(runs, name, capsys):
     assert len(got) == len(wavs) and sorted(got, key=str) == sorted(want, key=str)
 
 
+# -------------------------------------------- split CTC and joint paths
+
+
+@pytest.mark.parametrize("tag", ["data2_model2", "model4", "banded"])
+def test_split_streaming_transcriber_matches_jax_after_every_feed(runs, tag):
+    """StreamingTranscriber on the split CTC bundle (data 2 x model 2, model
+    4, and a banded model's module-path attention on its heads): after every
+    feed and at finish, every rank's committed tokens, spans, texts,
+    preview, frames and silence are JAX's one-device transcriber's."""
+    want = runs["jax"][f"stream_banded_{tag == 'banded'}"]
+    assert want[-1][0] and want[-1][7]  # tokens committed, and the final result
+    for rank in runs["ranks"]:
+        assert rank["ctc_split"][f"stream_{tag}"] == want
+
+
+def test_split_streaming_pool_matches_jax_pool_after_every_step(runs):
+    """StreamingPool on the split CTC bundle (the device ring, stepped
+    eagerly on the CPU): every rank's results after every step and final
+    texts are JAX's one-device pool's."""
+    want = runs["jax"]["pool"]
+    assert any(want["texts"]) and len(want["steps"]) > 5
+    for rank in runs["ranks"]:
+        assert rank["ctc_split"]["heads"] == 2 and rank["ctc_split"]["pool_ring"]
+        assert rank["ctc_split"]["pool"] == want
+
+
+@pytest.mark.parametrize("route", list(tw.BEAM_ROUTES))
+def test_split_ctc_beams_match_jax(runs, route):
+    """The three CTC prefix beam routes on the split CTC bundle: each rank's
+    ids and lengths for its data rank's rows are JAX's (its device beam,
+    and its host searcher, bare and with the n-gram LM fused) on those
+    rows of the whole batch."""
+    want = runs["jax"][f"ctc_{route}"]
+    assert any(want["lens"])
+    for rank in runs["ranks"]:
+        rec = rank["ctc_split"]
+        a, b = rec["beam_rows"]
+        assert b - a == 2
+        assert rec[route]["ids"] == want["ids"][a:b], route
+        assert rec[route]["lens"] == want["lens"][a:b], route
+
+
+@pytest.mark.parametrize("case", ["greedy_data2_model2", "greedy_model4", "spec_greedy"])
+def test_split_joint_greedy_and_spec_greedy_match_jax(runs, case):
+    """The split joint model's greedy (data 2 x model 2: 2 heads and 16 vocab
+    rows a rank; model 4: 1 and 8) and spec_greedy tokens and lengths are
+    JAX's on every rank."""
+    want = runs["jax"]["spec_greedy" if case == "spec_greedy" else "joint_greedy"]
+    assert len({t for row in want["tokens"] for t in row}) > 1
+    for rank in runs["ranks"]:
+        got = rank["joint_split"][case]
+        assert got["tokens"] == want["tokens"] and got["lengths"] == want["lengths"]
+        if case != "spec_greedy":
+            tp = 4 if case.endswith("model4") else 2
+            assert got["heads"] == 4 // tp and got["vocab_rows"] == 32 // tp
+
+
+def test_split_joint_beam_matches_jax(runs):
+    """The split joint model's AR beam: every hypothesis and length is JAX's,
+    the summed log-probs and the CTC rescoring's NLLs within 1e-5, and
+    joint_beam's picks are JAX's, on every rank."""
+    want = runs["jax"]["joint_hyps"]
+    for rank in runs["ranks"]:
+        got = rank["joint_split"]["hyps"]
+        assert got["tokens"] == want["tokens"] and got["lengths"] == want["lengths"]
+        np.testing.assert_allclose(got["scores"], want["scores"], rtol=0, atol=BEAM_SCORE_BAR)
+        np.testing.assert_allclose(got["nll"], want["nll"], rtol=0, atol=BEAM_SCORE_BAR)
+        assert rank["joint_split"]["joint_beam"] == runs["jax"]["joint_beam"]
+
+
+def test_split_joint_pool_matches_jax_pool(runs):
+    """The split joint bundle's CTC branch through StreamingPool: every
+    rank's results after every step are JAX's joint pool's."""
+    want = runs["jax"]["joint_pool"]
+    assert any(want["texts"])
+    for rank in runs["ranks"]:
+        assert rank["joint_split"]["pool"] == want
+
+
+def test_joint_train_loop_at_fsdp_and_model_axes_matches_jax(runs):
+    """The joint family's train_loop at fsdp 2 x model 2 (WF adapters
+    trained, the hybrid loss): the last loss within 1e-4 of JAX's
+    one-device train_loop on every rank, the CTC head and every adapter
+    within 1e-4 (the bars of the CTC family's case)."""
+    want = runs["jax"]
+    for rank in runs["ranks"]:
+        rec = rank["joint_split"]["train_loop"]
+        assert rec["mesh"] == [1, 2, 2] and len(rec["losses"]) == 4
+        assert abs(rec["losses"][-1] - want["joint_loop_loss"]) < LOOP_BAR
+        assert {"enc_blocks.0.self_attn.q_proj.kernel", "dec_blocks.0.cross_attn.k_proj.kernel",
+                "embed_tokens.embedding"} <= set(rec["split"])
+    checked = 0
+    with np.load(runs["dst"] / "joint_loop_params.npz") as got:
+        for k in got.files:
+            if "adapter" in k or k.startswith("ctc_head"):
+                want_k = want["joint_loop_params"][k].numpy()
+                assert np.abs(got[k] - want_k).max() < LOOP_BAR, k
+                checked += 1
+    assert checked > 10
+
+
+@pytest.mark.parametrize("name", ["stream", "beam"])
+def test_cli_multihost_ctc_matches_one_process(runs, name, capsys):
+    """`cli transcribe --multihost --stream` and `--strategy beam` of the
+    split CTC bundle (data 2 x model 2): rc 0 on every rank, the primary
+    alone prints, and its lines are the one-process run's."""
+    ranks = [r["cli_ctc"][name] for r in runs["ranks"]]
+    assert [r["rc"] for r in ranks] == [0] * WORLD
+    assert all(r["lines"] == [] for r in ranks[1:])
+    wavs = sorted(str(p) for p in runs["src"].glob("r*.wav"))[:2]
+    ckpt = str(runs["dst"] / "ctc_bundle")
+    argv = (["transcribe", *wavs, "--checkpoint", ckpt, "--stream", "--stream-window",
+             str(tw.STREAM[0]), "--stream-hop", str(tw.STREAM[1]), "--stream-lookahead",
+             str(tw.STREAM[2])] if name == "stream"
+            else ["transcribe", *wavs, "--checkpoint", ckpt, "--strategy", "beam",
+                  "--beam-size", "4"])
+    capsys.readouterr()
+    with pytest.warns(UserWarning, match="no process group"):
+        assert cli.main([*argv, "--device", "cpu"]) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert len(want) >= len(wavs) and ranks[0]["lines"] == want
+
+
 # ------------------------------------------------------------ CPU only
 
 
@@ -674,12 +933,18 @@ def test_split_wf_block_keeps_its_folds_until_an_insert_changes():
         assert torch.equal(mlp2[1], block._folded(block.mlp.fc2, bf))
 
 
-def test_split_model_refuses_the_paths_not_ported():
-    """On a split model (here rank 0 of 2, no collective run), streaming,
-    the CTC beams and the joint family raise, naming the ROADMAP item;
-    heads that do not divide raise ValueError."""
+def test_split_model_refuses_only_what_cannot_run():
+    """A split joint bundle (rank 0 of 2, no collective run) is split like
+    the other families; heads that do not divide raise ValueError; and a
+    model group played in one process (a stand-in group) is refused by name
+    where a card would capture its step in a CUDA graph (the streaming
+    pool's ring step, the serving engine's decode step) until graph=False
+    asks for the eager step."""
+    from types import SimpleNamespace
+
     from jiao_liao_speech_recognition_torch.models.joint import JointCTCAttentionModel
-    from jiao_liao_speech_recognition_torch.serve.streaming import StreamingTranscriber
+    from jiao_liao_speech_recognition_torch.serve.engine import ServingEngine
+    from jiao_liao_speech_recognition_torch.serve.streaming import StreamingPool
 
     class Mesh:  # data 1 x fsdp 1 x model 2, rank 0, no process group
         def size(self, dim):
@@ -694,18 +959,28 @@ def test_split_model_refuses_the_paths_not_ported():
     joint = ModelBundle(tcfg.ExperimentConfig(model_family="joint"), JointCTCAttentionModel(
         tcfg.JointModelConfig(vocab_size=24, d_model=64, num_layers=1, decoder_layers=1,
                               num_heads=4, mlp_dim=128, conv_channels=32)), None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        joint.shard(Mesh())
-    ctc = ModelBundle(tcfg.ExperimentConfig(), CTCEncoderModel(tcfg.CTCModelConfig(
-        vocab_size=24, d_model=64, num_layers=1, num_heads=4, mlp_dim=128, conv_channels=32)),
-        None)
-    ttp.apply_tp(ctc.model, ttp.TPGroup(0, 2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        StreamingTranscriber(ctc)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        ctc._ctc_beam_ids(np.zeros((1, 1600), np.float32), np.array([1600]),
-                          tcfg.DecodeConfig(strategy="beam_device"))
+    joint.shard(Mesh())
+    assert joint.model.enc_blocks[0].self_attn.num_heads == 2
+    assert joint.model.embed_tokens.embedding.shape == (12, 64)
+    assert "ctc_head.kernel" not in joint.model.tp_dims
     odd = CTCEncoderModel(tcfg.CTCModelConfig(vocab_size=24, d_model=96, num_layers=1,
                                               num_heads=3, mlp_dim=128, conv_channels=32))
     with pytest.raises(ValueError, match="heads do not divide"):
         ttp.apply_tp(odd, ttp.TPGroup(0, 2))
+
+    class StandIn:  # one process's stand-in for the group's collectives
+        def all_reduce(self, t):
+            return t
+
+        def all_gather(self, t):
+            return [t, t]
+
+    ctc = CTCEncoderModel(tcfg.CTCModelConfig(vocab_size=24, d_model=64, num_layers=1,
+                                              num_heads=4, mlp_dim=128, conv_channels=32))
+    ttp.apply_tp(ctc, ttp.TPGroup(0, 2, StandIn()))
+    on_card = SimpleNamespace(model=ctc, device=torch.device("cuda"), is_whisper=True,
+                              config=tcfg.ExperimentConfig())
+    for cls in (StreamingPool, ServingEngine):
+        with pytest.raises(ValueError, match="stand-in model group"):
+            cls(on_card, graph=True)
+    ttp.check_capturable(ctc, torch.device("cpu"), "StreamingPool")  # the CPU steps eagerly

@@ -27,6 +27,18 @@ Cases, in order, each on its own mesh of the world:
 * cli_serve: ``cli serve --multihost --int8`` and ``cli transcribe
   --multihost --timestamps`` of the split bundle ``transcribe`` saved
   (its mesh data 2 x model 2), each rank's standard output;
+* ctc_split: the test's CTC weights split at data 2 x model 2:
+  StreamingTranscriber's state after every feed (and at model 4, and a
+  banded model's), StreamingPool's results after every step (the device
+  ring, eager on the CPU), and each (data) rank's rows through the three
+  CTC prefix beam routes (the device beam, the native engine, the host
+  searcher with the test's n-gram LM); then saved (its mesh in its config);
+* joint_split: the test's joint weights split at data 2 x model 2: greedy
+  (and at model 4), spec_greedy, the AR beam's hypotheses and scores with
+  their CTC NLLs, joint_beam's picks, the CTC branch's pool; and
+  train_loop at fsdp 2 x model 2 (its losses, the joined weights);
+* cli_ctc: ``cli transcribe --multihost --stream`` and ``--strategy beam``
+  of the bundle ctc_split saved, each rank's standard output;
 * dryrun: the dry run's ``ctc:2x2`` (with a checkpoint), ``whisper:1x2``
   and ``ctc:2x2`` resumed from the one-process checkpoint ``--resume``;
 * cli: ``cli train --multihost`` of configs/adapter_finetune.yaml cut to
@@ -50,6 +62,7 @@ from jiao_liao_speech_recognition_torch import cli  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.manifest import read_manifest  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.pipeline import Batch  # noqa: E402
 from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer  # noqa: E402
+from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg  # noqa: E402
 from jiao_liao_speech_recognition_torch.decode.whisper_generate import (  # noqa: E402
     beam_from_enc,
     greedy_generate,
@@ -326,6 +339,216 @@ def case_cli_serve(src: Path, dst: Path) -> dict:
     return out
 
 
+# the split CTC and joint cases (the test writes their weights from the
+# same constants)
+CTC_SPLIT = dict(vocab_size=17, d_model=64, num_layers=1, num_heads=4, mlp_dim=128,
+                 conv_channels=32, dtype="float32", use_flash_attention=False)
+CTC_VOCAB = [chr(0x4E00 + i) for i in range(CTC_SPLIT["vocab_size"] - 2)]
+BANDED = dict(attention_left_context=4, attention_right_context=2)
+JOINT_SPLIT = dict(vocab_size=32, d_model=64, num_layers=1, decoder_layers=1, num_heads=4,
+                   mlp_dim=128, conv_channels=16, dropout=0.0, use_flash_attention=False,
+                   max_target_positions=32, dtype="float32")
+JOINT_VOCAB = [chr(0x4E00 + i) for i in range(JOINT_SPLIT["vocab_size"] - 2)]
+STREAM = (1.28, 0.32, 0.16)  # window, hop, lookahead seconds
+CHUNK_SECONDS = 1.0
+JOINT_MAX_LEN = 12
+JOINT_BEAM = 3
+BEAM_ROUTES = {"beam_device": dict(strategy="beam_device"), "beam": dict(strategy="beam"),
+               "beam_lm": dict(strategy="beam", lm_weight=0.8)}
+
+
+def ctc_config(m, banded: bool = False, **mesh):
+    """The split CTC case's config in config module `m` (the port's or the
+    JAX package's)."""
+    cfg = m.ExperimentConfig(model_family="ctc", ctc_model=m.CTCModelConfig(
+        **CTC_SPLIT, **(BANDED if banded else {})), mesh=m.MeshConfig(**mesh))
+    cfg.frontend = dataclasses.replace(cfg.frontend, chunk_seconds=CHUNK_SECONDS)
+    return cfg
+
+
+def joint_config(m, **mesh):
+    """The split joint case's config (WF inserts, as the published joint
+    config) in config module `m`."""
+    cfg = m.ExperimentConfig(model_family="joint", joint=m.JointModelConfig(
+        **JOINT_SPLIT, adapter=m.AdapterConfig(kind="wf", wf_rank=2)), mesh=m.MeshConfig(**mesh))
+    cfg.frontend = dataclasses.replace(cfg.frontend, chunk_seconds=CHUNK_SECONDS)
+    cfg.specaugment = m.SpecAugmentConfig(enabled=False)
+    return cfg
+
+
+def beam_config(m, name: str, lm_path: str):
+    kw = dict(BEAM_ROUTES[name], beam_size=4)
+    if "lm_weight" in kw:
+        kw["lm_path"] = lm_path
+    return m.DecodeConfig(**kw)
+
+
+def stream_states(transcriber, audio, cuts) -> list:
+    """A transcriber fed `audio` cut at `cuts`, then finished -> its state
+    after each call (either package's StreamingTranscriber)."""
+    def state(res):
+        return [list(map(int, transcriber._tokens)), [list(map(int, s)) for s in
+                                                      transcriber._spans],
+                res.text, res.new_text, res.preview, int(res.committed_frames),
+                float(res.trailing_silence), bool(res.is_final)]
+
+    out = [state(transcriber.feed(c)) for c in np.split(audio, cuts)]
+    return out + [state(transcriber.finish())]
+
+
+def drive_pool(pool, audios, hop: int) -> dict:
+    """Streams arriving a hop at a time, one step() between (either
+    package's StreamingPool) -> {"steps": each step's results, "texts":
+    the streams' final texts}."""
+    sids = [pool.open() for _ in audios]
+    offs = [0] * len(audios)
+    done, steps = {}, []
+    while len(done) < len(audios):
+        for k, sid in enumerate(sids):
+            if sid in done:
+                continue
+            if offs[k] < len(audios[k]):
+                pool.feed(sid, audios[k][offs[k]:offs[k] + hop])
+                offs[k] += hop
+            else:
+                done[sid] = pool.finish(sid).text
+        steps.append([[int(sid), r.text, r.new_text, r.preview, int(r.committed_frames),
+                       float(r.trailing_silence), bool(r.is_final)]
+                      for sid, r in sorted(pool.step().items())])
+    return {"steps": steps, "texts": [done[s] for s in sids]}
+
+
+def _ctc_bundle(src: Path, banded: bool = False, **mesh) -> ModelBundle:
+    cfg = ctc_config(c, banded, **mesh)
+    model = CTCEncoderModel(cfg.ctc_model)
+    model.load_state_dict(convert.params_to_state_dict(
+        convert.read_npz_params(src / "ctc_split.npz")))
+    return ModelBundle(cfg, model.eval(), CharTokenizer(CTC_VOCAB)).shard()
+
+
+def case_ctc_split(src: Path, dst: Path) -> dict:
+    """Split CTC streaming and the CTC prefix beams (see the docstring)."""
+    from jiao_liao_speech_recognition_torch.serve.streaming import (StreamingConfig,
+                                                                      StreamingPool,
+                                                                      StreamingTranscriber)
+
+    sc = StreamingConfig(*STREAM)
+    with np.load(src / "stream.npz") as z:
+        one, cuts, pool_audio = z["one"], z["cuts"], [z[f"pool{i}"] for i in range(3)]
+    out = {}
+    for tag, banded, mesh in (("data2_model2", False, dict(data_axis=2, model_axis=2)),
+                              ("model4", False, dict(model_axis=4)),
+                              ("banded", True, dict(data_axis=2, model_axis=2))):
+        bundle = _ctc_bundle(src, banded, **mesh)
+        out[f"stream_{tag}"] = stream_states(StreamingTranscriber(bundle, sc), one, cuts)
+    bundle = _ctc_bundle(src, data_axis=2, model_axis=2)
+    out["heads"] = bundle.model.blocks[0].self_attn.num_heads
+    pool = StreamingPool(bundle, slots=4, stream_cfg=sc)
+    out["pool"] = drive_pool(pool, pool_audio, int(STREAM[1] * 16000))
+    out["pool_ring"] = pool._graph is None and pool._ring is not None
+    wavs, alens, _ = bundle._prepare_audio_chunked(
+        sorted(str(p) for p in src.glob("r*.wav"))[:4], None)
+    rows = bundle._rows(len(wavs))
+    out["beam_rows"] = [rows.start, rows.stop]
+    for name in BEAM_ROUTES:
+        ids, lens = bundle._ctc_beam_ids(wavs[rows], alens[rows],
+                                         beam_config(c, name, str(src / "lm.npz")))
+        out[name] = {"ids": np.asarray(ids).tolist(), "lens": np.asarray(lens).tolist()}
+    bundle.save(str(dst / "ctc_bundle"))  # whole weights, the split mesh in its config
+    return out
+
+
+def case_joint_split(src: Path, dst: Path) -> dict:
+    """The split joint family (see the docstring)."""
+    from jiao_liao_speech_recognition_torch.decode import joint_generate as jg
+    from jiao_liao_speech_recognition_torch.decode.speculative import joint_spec_greedy
+    from jiao_liao_speech_recognition_torch.models.joint import JointCTCAttentionModel
+    from jiao_liao_speech_recognition_torch.serve.streaming import StreamingConfig, StreamingPool
+
+    state = convert.joint_params_to_state_dict(convert.read_npz_params(src / "joint.npz"))
+    feats = torch.from_numpy(np.load(src / "joint_feats.npy"))
+    flens = torch.from_numpy(np.load(src / "joint_flens.npy"))
+    L, K = JOINT_MAX_LEN, JOINT_BEAM
+
+    def bundle(**mesh):
+        cfg = joint_config(c, **mesh)
+        model = JointCTCAttentionModel(cfg.joint)
+        model.load_state_dict(state)
+        return ModelBundle(cfg, model.eval(), CharTokenizer(JOINT_VOCAB)).shard()
+
+    out = {}
+    for tag, mesh in (("data2_model2", dict(data_axis=2, model_axis=2)),
+                      ("model4", dict(model_axis=4))):
+        m = bundle(**mesh).model
+        gen, lens = jg.joint_greedy(m, feats, flens, max_len=L)
+        out[f"greedy_{tag}"] = {"tokens": gen.tolist(), "lengths": lens.tolist(),
+                                "heads": m.dec_blocks[0].cross_attn.num_heads,
+                                "vocab_rows": int(m.embed_tokens.embedding.shape[0])}
+    b = bundle(data_axis=2, model_axis=2)
+    m = b.model
+    gen, lens = joint_spec_greedy(m, feats, flens, max_len=L)
+    out["spec_greedy"] = {"tokens": gen.tolist(), "lengths": lens.tolist()}
+    with torch.inference_mode():
+        enc, el = m.encode(feats, flens)
+        gen, lens, scores = wg.beam_from_enc(m, enc, el, K, L, (0,), 0)
+        nll = jg.ctc_rescore(m, enc, el, gen, lens)
+    out["hyps"] = {"tokens": gen.tolist(), "lengths": lens.tolist(), "scores": scores.tolist(),
+                   "nll": nll.tolist()}
+    gen, lens = jg.joint_beam(m, feats, flens, beam_size=K, max_len=L)
+    out["joint_beam"] = {"tokens": gen.tolist(), "lengths": lens.tolist()}
+    with np.load(src / "stream.npz") as z:
+        pool_audio = [z[f"pool{i}"] for i in range(3)]
+    pool = StreamingPool(b, slots=4, stream_cfg=StreamingConfig(*STREAM))
+    out["pool"] = drive_pool(pool, pool_audio, int(STREAM[1] * 16000))
+
+    spec = json.loads((src / "train_loop.json").read_text())
+    cfg = joint_config(c, fsdp_axis=2, model_axis=2)
+    cfg.joint.vocab_size = spec["vocab_size"]
+    cfg.data = c.DataConfig(batch_size=8, bucket_boundaries_seconds=(1.5,), min_audio_seconds=0.1,
+                            max_text_len=8, train_manifest=spec["manifest"])
+    cfg.train.optimizer = c.OptimizerConfig(learning_rate=1e-3, warmup_steps=0, total_steps=4,
+                                            schedule="constant")
+    cfg.train.train_adapters_only = True
+    cfg.train.checkpoint_dir = str(dst / "ck_joint_loop")
+    cfg.train.checkpoint_every_steps = 100
+    model = JointCTCAttentionModel(cfg.joint)
+    model.load_state_dict(convert.joint_params_to_state_dict(
+        convert.read_npz_params(src / "joint_train.npz")))
+    _, info = engine.train_loop(cfg, read_manifest(spec["manifest"]),
+                                CharTokenizer(spec["vocab"]), model)
+    full = pmesh.full_model(model, lambda: JointCTCAttentionModel(cfg.joint))
+    if mh.is_primary():
+        np.savez(dst / "joint_loop_params.npz", **{k: v.detach().numpy()
+                                                    for k, v in full.state_dict().items()})
+    out["train_loop"] = {"losses": info["losses"], "mesh": info["mesh"],
+                         "split": sorted(model.tp_dims)}
+    return out
+
+
+def case_cli_ctc(src: Path, dst: Path) -> dict:
+    """The CLI's streaming and CTC beam on the bundle case_ctc_split saved
+    (loaded split over its config's mesh); the group stays up."""
+    ckpt = str(dst / "ctc_bundle")
+    wavs = sorted(str(p) for p in src.glob("r*.wav"))[:2]
+    runs = {"stream": ["transcribe", *wavs, "--checkpoint", ckpt, "--stream",
+                       "--stream-window", str(STREAM[0]), "--stream-hop", str(STREAM[1]),
+                       "--stream-lookahead", str(STREAM[2])],
+            "beam": ["transcribe", *wavs, "--checkpoint", ckpt, "--strategy", "beam",
+                     "--beam-size", "4"]}
+    out = {}
+    keep = mh.shutdown
+    mh.shutdown = lambda: None
+    try:
+        for name, argv in runs.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([*argv, "--multihost", "--device", "cpu"])
+            out[name] = {"rc": rc, "lines": buf.getvalue().splitlines()}
+    finally:
+        mh.shutdown = keep
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--in", dest="src", required=True)
@@ -339,7 +562,9 @@ def main(argv=None) -> int:
     for name, fn in (("step", case_step), ("greedy", case_greedy),
                      ("transcribe", case_transcribe), ("train_loop", case_train_loop),
                      ("dropout", case_dropout), ("int8", case_int8), ("int8_wf", case_int8_wf),
-                     ("serving", case_serving), ("cli_serve", case_cli_serve)):
+                     ("serving", case_serving), ("cli_serve", case_cli_serve),
+                     ("ctc_split", case_ctc_split), ("joint_split", case_joint_split),
+                     ("cli_ctc", case_cli_ctc)):
         out[name] = fn(src, dst)
     work = dst / "dryrun"
     out["dryrun"] = {
