@@ -404,13 +404,38 @@ non-zero and prints no result line):
               and cross caches, each twice bitwise against its plain
               version; K2-tp, ln_fc1 and the row partials timed at the
               ring's rows, K9 at 2 and 1 heads, K6 and K8 at the joint's
-              training shape on 2 and 1 heads (held and timed).
+              training shape on 2 and 1 heads (held and timed);
+23. decode_graphs - main path 32, the offline decode loops on captured
+              CUDA graphs (phase_decode_graphs; utils/graphs.py): the
+              forced prompt steps and the first generated one eagerly as
+              the warm-up, then a chunk of 8 steps captured and replayed,
+              one host read of "every row done" a replay. Whisper
+              large-v3 greedy at B=16 x 30 s, bf16 and quantize()d int8,
+              captured against graph=False bitwise over DG_EAGER_LEN, int8
+              also captured with the plain int8 write (the kernels a step
+              jl_int8_kv_write saves); the captured loops alone over 224
+              (exact launches) with ms a step, tokens/s, the capture's
+              seconds, kernels a replayed step and the replays' idle
+              share; jl_int8_kv_write (the port's own kernel: the int8
+              self-cache write in one launch) bitwise its plain version
+              at large-v3's self caches and a joint rank's beam rows
+              (ragged positions with 0 and the last rows, rows of zeros),
+              timed with its bound; the Whisper AR beam at WHISPER_BEAM,
+              the joint greedy and beam of 8 (16 x 30 s) and the device
+              CTC beam (128 x 30 s, beam 8, f32 and f64), each captured
+              against eager, bitwise, with both routes' times.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
-launch replayed from the engine's CUDA graph is not counted by its wrapper
-(the wrapper ran once, at capture): main paths 10's, 11's and 18's launches
-are their counted ones plus the captured step's launches times its replays.
+launch replayed from a CUDA graph is not counted by its wrapper (the
+wrapper ran once, at capture): main paths 10's, 11's and 18's launches are
+their counted ones plus the captured step's launches times its replays,
+and every path's launches include the offline decode loops' replays
+(utils/graphs.TALLY, added by drive()). The offline loops (greedy, the
+AR beam, the device CTC beam) capture on the card, so a captured loop's
+steps run in whole chunks of 8: phase 8's AR beam takes captured_steps()
+steps; the eager decode readings of phases 8, 9, 14 and 15, kept for
+comparison with earlier runs, pass graph=False.
 Every JSON line carries t_s, the seconds since the script started. Then a
 line {"kernels": [...]} and, last, {"ok": true, "device": {...}}. There is
 no CPU path: without CUDA the script exits non-zero at once.
@@ -537,6 +562,11 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
     # f32 epilogue, a rank's unrounded share of an int8 row layer
     ("K10-row", "K10 int8_row_partial", "ops.quant", "ROW_PARTIAL_COUNTER", "csrc/quant.cu",
      TPU + "ops/quant.py:248"),
+    # the port's own kernel (phase 23): the int8 self-cache write, which the
+    # JAX package leaves to XLA (quantize_kv + the cache update, fused in
+    # its decode loop); no Pallas kernel stands behind it
+    ("KVW", "jl_int8_kv_write", "ops.quant", "KV_WRITE_COUNTER", "csrc/quant.cu",
+     TPU + "ops/quant.py:61"),
 ]
 # main path -> the kernels it must launch
 PATHS = {
@@ -545,13 +575,13 @@ PATHS = {
     "adapted_serve": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
     "whisper_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
     "whisper_int8_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9", "K9-int8", "K10", "K11"),
-    "whisper_int8_b16": ("K9-int8", "K10", "K11"),
+    "whisper_int8_b16": ("K9-int8", "K10", "K11", "KVW"),
     "probes": ("K1", "K3", "K4", "P1", "P2", "P4"),
     "prepare": ("K1",),
     "transfer": ("K1", "K6", "K8"),
     "transfer_serve": ("K1", "K2", "K3", "K4", "K6"),
     "whisper_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
-    "whisper_int8_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9-int8", "K10", "K11"),
+    "whisper_int8_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9-int8", "K10", "K11", "KVW"),
     "streaming": ("K1", "K2", "K3", "K4"),
     "streaming_banded": ("K1", "K3", "K4"),
     "whisper_beam": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
@@ -573,8 +603,10 @@ PATHS = {
     "augmented_train": ("K1", "K6", "K8"),
     "multigpu": ("K1", "K6", "K8"),
     "tp": ("K5", "K6", "K9", "K2-tp", "K3-tp", "row-partial"),
-    "tp_serve": ("K1", "K5", "K6", "K3-tp", "row-partial", "K9-int8", "K10", "K10-row", "K11"),
+    "tp_serve": ("K1", "K5", "K6", "K3-tp", "row-partial", "K9-int8", "K10", "K10-row", "K11",
+                 "KVW"),
     "tp_ctc": ("K1", "K2-tp", "K3-tp", "row-partial", "K4", "K6", "K9"),
+    "decode_graphs": ("K9", "K9-int8", "K10", "K11", "KVW"),
 }
 # phase 19: the launcher's limit (its start, ~10 s to reach the card, and
 # 3 steps of phase 5's fine-tune)
@@ -1239,14 +1271,22 @@ def make_requests(seed: int = 0):
 
 def drive(counters, path, fn):
     """Run one main path with every launch count at 0 -> (fn's result,
-    launches by kernel key); every kernel of the path must have launched."""
+    launches by kernel key); every kernel of the path must have launched.
+    A path's launches are the counted ones plus those of the offline decode
+    loops' graph replays (utils/graphs.TALLY: a captured chunk's launches,
+    counted once at capture and taken back off the counters, times its
+    replays)."""
     import torch
+
+    from jiao_liao_speech_recognition_torch.utils import graphs
 
     for c in counters.values():
         c.reset()
+    graphs.TALLY.reset()
     result = fn()
     torch.cuda.synchronize()
-    launches = {key: c.launches for key, c in counters.items()}
+    launches = {key: c.launches + graphs.TALLY.launches.get(c.name, 0)
+                for key, c in counters.items()}
     missing = [key for key in PATHS[path] if launches[key] == 0]
     check(not missing, f"{path}: kernels never launched: {missing} ({launches})")
     return result, launches
@@ -2628,7 +2668,8 @@ def phase_whisper_beam(counters, bundle, workdir: Path):
                torch.equal(a, b) for a, b in zip(fused0, (ids, lens))),
            "beam_of_one_equals_greedy": all(torch.equal(a, b) for a, b in zip(one, greedy))}
     emit({"phase": "whisper", "beam": rec})
-    check(steps == max_len - 1 and launches["K9"] == 2 * w.decoder_layers * steps,
+    check(steps == captured_steps(max_len, len(prompt))
+          and launches["K9"] == 2 * w.decoder_layers * steps,
           f"whisper beam: {steps} steps, K9 launched {launches['K9']} times")
     check(rec["determinism_lm_weight_0_run_equals_first"] and rec["beam_of_one_equals_greedy"],
           f"whisper beam: {rec}")
@@ -2685,13 +2726,15 @@ def phase_whisper_timing(bundle):
             torch.cuda.synchronize()
             init_s.append(time.perf_counter() - t0)
         init_cache_s = statistics.median(init_s)
-        dec = {True: [], False: []}
-        for kernels in DECODE_TURNS:
+        # eager steps (graph=False), the readings earlier PRs kept; the
+        # captured loop's reading beside them (phase 23 reads it at 224)
+        dec = {True: [], False: [], "graph": []}
+        for kernels in (*DECODE_TURNS, "graph"):
             wg.STEPS.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ids, lens = wg.greedy_from_enc(model, enc[True], None, WHISPER_TIMED_LEN, prompt, eot,
-                                           kernels=kernels)
+                                           kernels=bool(kernels), graph=kernels == "graph")
             torch.cuda.synchronize()
             s = time.perf_counter() - t0
             dec[kernels].append((s, wg.STEPS.steps, int((lens + 1).clamp(max=ids.shape[1]).sum())))
@@ -2700,7 +2743,7 @@ def phase_whisper_timing(bundle):
                                    "samples_kernels": secs[True], "samples_plain": secs[False]},
            "encoder_peak_gb_kernels": peak_gb}
     out["init_cache_s"] = {"median": init_cache_s, "samples": init_s}
-    for kernels, name in ((True, "kernels"), (False, "plain")):
+    for kernels, name in ((True, "kernels"), (False, "plain"), ("graph", "kernels_graph")):
         runs = dec[kernels]
         out[f"decode_{name}"] = {
             "ms_per_step": statistics.median(1e3 * (s - init_cache_s) / n for s, n, _ in runs),
@@ -2710,7 +2753,9 @@ def phase_whisper_timing(bundle):
             "generated_incl_eot": [g for _, _, g in runs]}
     emit({"phase": "timing", "whisper": f"B={B} x 30 s, max_len {WHISPER_TIMED_LEN}",
           "note": "random init rarely emits EOT, so every row decodes ~max_len tokens; "
-                  "ms_per_step leaves out building the caches, tokens_per_s includes it",
+                  "ms_per_step leaves out building the caches, tokens_per_s includes it; "
+                  "decode_kernels / decode_plain step eagerly (graph=False), "
+                  "decode_kernels_graph replays the captured loop (its capture included)",
           **out})
 
     blk = model.encoder.blocks[0]
@@ -2944,7 +2989,8 @@ def phase_whisper_int8(counters, bundle):
           "one non-empty transcript per request")
     want = {"K1": 1, "K5": w.encoder_layers, "K6": w.encoder_layers,
             "K2h-out": w.encoder_layers, "K3c": w.encoder_layers, "K2": 0, "K3": 0,
-            "K9-int8": L * steps, "K9": L * steps, "K10": 8 * L * steps, "K11": steps}
+            "K9-int8": L * steps, "K9": L * steps, "K10": 8 * L * steps, "K11": steps,
+            "KVW": 0}  # bf16 self caches below B=16
     wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     check(not wrong, f"int8 serving launch counts (got, want): {wrong}")
 
@@ -2989,7 +3035,8 @@ def phase_whisper_int8(counters, bundle):
         ids.shape[0], toks.shape[1] - 1, w.vocab_size), "plain int8 logits not finite [N, L, V]")
     check(coverage >= MIN_COVERAGE and mismatch == 0,
           f"int8 tokens disagree with the plain int8 decoder ({mismatch}, coverage {coverage})")
-    want16 = {"K9-int8": 2 * L * steps16, "K9": 0, "K10": 8 * L * steps16, "K11": steps16}
+    want16 = {"K9-int8": 2 * L * steps16, "K9": 0, "K10": 8 * L * steps16, "K11": steps16,
+              "KVW": L * steps16}
     wrong = {k: (launches16[k], n) for k, n in want16.items() if launches16[k] != n}
     check(not wrong, f"B=16 int8 launch counts (got, want): {wrong}")
     return {"whisper_int8_serve": launches, "whisper_int8_b16": launches16}, qb
@@ -3019,7 +3066,7 @@ def phase_int8_timing(qbundle):
                 torch.cuda.synchronize()
                 init_s.append(time.perf_counter() - t0)
             init_cache_s = statistics.median(init_s)
-            wg.greedy_from_enc(model, enc, None, 8, prompt, eot)  # warm
+            wg.greedy_from_enc(model, enc, None, 8, prompt, eot, graph=False)  # warm
             runs = {True: [], False: []}
             for kernels in DECODE_TURNS:
                 wg.STEPS.reset()
@@ -3027,7 +3074,7 @@ def phase_int8_timing(qbundle):
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 ids, lens = wg.greedy_from_enc(model, enc, None, max_len, prompt, eot,
-                                               kernels=kernels)
+                                               kernels=kernels, graph=False)
                 torch.cuda.synchronize()
                 s = time.perf_counter() - t0
                 runs[kernels].append((s, wg.STEPS.steps, torch.cuda.max_memory_allocated()))
@@ -3040,7 +3087,8 @@ def phase_int8_timing(qbundle):
                 "steps": [n for _, n, _ in r], "seconds": [s for s, _, _ in r],
                 "peak_hbm_gb": max(m for _, _, m in r) / 1e9}
         emit({"phase": "timing", "whisper_int8": f"B={B} x 30 s, max_len {max_len}",
-              "note": "ms_per_step leaves out building the caches, tokens_per_s includes it; "
+              "note": "eager steps (graph=False; phase 23 reads the captured loop); "
+                      "ms_per_step leaves out building the caches, tokens_per_s includes it; "
                       "peak_hbm_gb: torch.cuda.max_memory_allocated over the decode call, "
                       "the process's weights included", **out})
         del enc
@@ -3573,7 +3621,8 @@ def phase_engine(counters, bundle, path):
     torch.cuda.synchronize()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     want_step = ({"grouped_decode_attention_int8": 2 * L, "int8_matmul": 8 * L,
-                  "int8_tied_logits": 1} if int8 else {"grouped_decode_attention": 2 * L})
+                  "int8_tied_logits": 1, "int8_kv_write": L} if int8
+                 else {"grouped_decode_attention": 2 * L})
     check(eng.step_launches == want_step,
           f"{path}: the captured step's launches {eng.step_launches}, not {want_step}")
     held = {}
@@ -4770,10 +4819,13 @@ def phase_joint(counters, workdir: Path, card: str):
             torch.cuda.synchronize()
             tm["encoder_s_per_batch"].setdefault("kernels" if kernels else "plain", []).append(
                 time.perf_counter() - t0)
+        # eager steps (graph=False), the readings earlier PRs kept; phase 23
+        # reads the captured loops
         for name, fn in (("greedy", lambda: wg.greedy_from_enc(model, enc_k, el, JOINT_MAX_LEN,
-                                                                (0,), 0)),
+                                                                (0,), 0, graph=False)),
                          ("beam", lambda: wg.beam_from_enc(model, enc_k, el, JOINT_BEAM,
-                                                           JOINT_MAX_LEN, (0,), 0))):
+                                                           JOINT_MAX_LEN, (0,), 0,
+                                                           graph=False))):
             wg.STEPS.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4782,8 +4834,8 @@ def phase_joint(counters, workdir: Path, card: str):
             tm[f"{name}_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / wg.STEPS.steps
             tm[f"{name}_steps"] = wg.STEPS.steps
         beam_prof = device_profile(lambda i: wg.beam_from_enc(
-            model, enc_k, el, JOINT_BEAM, JOINT_PROFILE_STEPS + 1, (0,), 0), 1, "joint beam",
-            top=12)
+            model, enc_k, el, JOINT_BEAM, JOINT_PROFILE_STEPS + 1, (0,), 0, graph=False), 1,
+            "joint beam", top=12)
     tm["beam_rows"] = JOINT_B * JOINT_BEAM
     tm["spec_passes"] = spec[2]
     tm["beam_profile"] = {**beam_prof, "steps": JOINT_PROFILE_STEPS,
@@ -5038,11 +5090,11 @@ def phase_ctc_beam(counters, workdir: Path, card: str):
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dev = ctc.ctc_prefix_beam_search(lp, olens, K, 0, topk_tokens=min(k, 16))
+        dev = ctc.ctc_prefix_beam_search(lp, olens, K, 0, topk_tokens=min(k, 16), graph=False)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
         profs = [device_profile(lambda i, n=n: ctc.ctc_prefix_beam_search(
-            lp[:, :n], olens.clamp(max=n), K, 0, topk_tokens=min(k, 16)), 1,
+            lp[:, :n], olens.clamp(max=n), K, 0, topk_tokens=min(k, 16), graph=False), 1,
             f"ctc device beam, {n} frames", top=6) for n in CTC_BEAM_PROFILE_FRAMES]
     (n1, n2), (c1, c2) = CTC_BEAM_PROFILE_FRAMES, (p["launches_per_call"] for p in profs)
     per_frame = (c2 - c1) / (n2 - n1)
@@ -6958,11 +7010,11 @@ def phase_tp_serving(counters, card: str):
         # partials; a step: each decoder block's five column products (q, k,
         # v, cross q, fc1), three row partials (both out-projections, fc2),
         # two K9-int8 (int8 self caches at 16 lanes, and the cross caches),
-        # then K11 once
+        # the int8 self-cache write, then K11 once
         for key, n in (("K1", waves), ("K5", L * waves), ("K6", L * waves),
                        ("K3-tp", L * waves), ("row-partial", 2 * L * waves),
                        ("K10", 5 * L * steps), ("K10-row", 3 * L * steps),
-                       ("K9-int8", 2 * L * steps), ("K11", steps)):
+                       ("K9-int8", 2 * L * steps), ("K11", steps), ("KVW", L * steps)):
             want[key] += n * tp
         for r in range(1, tp):
             check([(q.text, q.ids) for q in served[tp][r]] ==
@@ -7013,9 +7065,10 @@ def phase_tp_serving(counters, card: str):
             def fn():
                 with torch.inference_mode():
                     e = m.encode(featurize_batch(wav[:n], cfg.frontend))
-                    beam = wg.beam_from_enc(m, e, None, K, TPS_MAX_LEN, prompt, eot)
+                    beam = wg.beam_from_enc(m, e, None, K, TPS_MAX_LEN, prompt, eot,
+                                            graph=False)  # a stand-in group is not captured
                 b = ModelBundle(cfg, m, bundle.tokenizer)
-                return beam, b.transcribe_timed(requests[:TPS_TIMED])
+                return beam, b.transcribe_timed(requests[:TPS_TIMED], graph=False)
             return fn
 
         got = groups[tp].run([beam_and_timed(m) for m, _ in ranks[tp]])
@@ -7049,15 +7102,19 @@ def phase_tp_serving(counters, card: str):
     # the beam bar's upper reading: the split beam again with a fault that
     # this script puts in (the package untouched); each must read above it
     def ungathered(m):
-        """m.decode_step with each block's self caches put back as the step
-        before left them: the beam's gather along the winning beams undone."""
+        """m.decode_step with each block's self caches put back, in place,
+        as the step before left them: the beam's gather along the winning
+        beams (written into the same tensors) undone."""
         real, kept = m.decode_step, {}
 
         def step(tok, pos, enc_, caches, *rest):
             for name, c in caches.items():
-                c["self"] = kept.get(name, c["self"])
+                for n, t in c["self"].items():
+                    if (name, n) in kept:
+                        t.copy_(kept[name, n])
             logits, caches = real(tok, pos, enc_, caches, *rest)
-            kept.update((name, c["self"]) for name, c in caches.items())
+            kept.update(((name, n), t.clone()) for name, c in caches.items()
+                        for n, t in c["self"].items())
             return logits, caches
         return step
 
@@ -7071,7 +7128,8 @@ def phase_tp_serving(counters, card: str):
                     try:
                         with torch.inference_mode():
                             e = m.encode(featurize_batch(wav[:n], cfg.frontend))
-                            return wg.beam_from_enc(m, e, None, K, TPS_MAX_LEN, prompt, eot)
+                            return wg.beam_from_enc(m, e, None, K, TPS_MAX_LEN, prompt, eot,
+                                                    graph=False)
                     finally:
                         m.__dict__.pop("decode_step", None)
                 return fn
@@ -7245,7 +7303,7 @@ def tpc_paths(bundle, audio, watch: Watching):
              "beam": (joint, audio["joint"][:TPC_BEAM[0]], DecodeConfig(
                  strategy="beam", beam_size=TPC_BEAM[1], max_decode_len=TPC_JOINT_LEN))}
     for key, (b, wavs, dc) in calls.items():
-        b.transcribe(wavs, decode_cfg=dc)
+        b.transcribe(wavs, decode_cfg=dc, graph=False)  # a stand-in group is not captured
         seen = watch.mine().get(key, [])
         check(len(seen) == 1, f"tp_ctc {key}: the transcription decoded {len(seen)} times")
         args, out[key] = seen[0]
@@ -7614,6 +7672,309 @@ def phase_tp_ctc_joint(counters, card: str):
     return launches, errs, rows
 
 
+# --- phase 23: the offline decode loops on captured graphs ---------------------
+
+DG_EAGER_LEN = 40  # max_len of the captured-against-eager large-v3 greedy runs
+DG_TIMED_REPLAYS = 4  # replays of a kept graph timed and profiled
+# the int8 write's checks: large-v3's self caches at B=16 (20 heads of 64,
+# 224 positions padded to 256) and a joint rank's beam rows (16 x 8 beams,
+# 4 heads of 128, 64 positions padded to 128)
+DG_KV_CASES = ((16, 20, 256, 64, (0, 223, 255)), (128, 4, 128, 128, (0, 63, 127)))
+DG_KV_ITERS = (50, 10)  # timed calls of the kernel, of its plain version
+
+
+def captured_steps(max_len: int, prompt_len: int) -> int:
+    """Decode steps of a captured loop whose rows never end: the prompt's
+    steps eagerly, then whole chunks of STOP_CHECK_EVERY (the last one
+    masked past max_len - 1 on the device)."""
+    from jiao_liao_speech_recognition_torch.decode.whisper_generate import STOP_CHECK_EVERY
+
+    n = max_len - 1
+    first = min(prompt_len, n)
+    return n if first >= n else first + STOP_CHECK_EVERY * -(-(n - first) // STOP_CHECK_EVERY)
+
+
+class KeptGraphs:
+    """Inside the block every graphs.CapturedStep made is kept, with its
+    step (whose closure holds the state tensors the graph reads and
+    writes; the decode loops drop both when they return), so a loop's
+    graph can be replayed, timed and profiled after its call."""
+
+    def __enter__(self):
+        from jiao_liao_speech_recognition_torch.utils import graphs
+
+        self.kept, self.real = [], graphs.CapturedStep
+        kept = self.kept
+
+        class Kept(graphs.CapturedStep):
+            def __init__(self, step, *args, **kwargs):
+                super().__init__(step, *args, **kwargs)
+                self.step = step  # the graph's state, alive as long as it is
+                kept.append(self)
+
+        graphs.CapturedStep = Kept
+        return self
+
+    def __exit__(self, *exc):
+        from jiao_liao_speech_recognition_torch.utils import graphs
+
+        graphs.CapturedStep = self.real
+
+
+def graph_kernels(cap) -> int:
+    """Kernels of one replay of `cap` by the profiler's events: a replay as
+    the lead-in, a spin kernel as the marker, then the replay counted (as
+    replay_profile counts the engine's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cap.graph.replay()
+        torch.cuda._sleep(1_000_000)
+        cap.graph.replay()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    marks = [e.time_range.start for e in events if "spin_kernel" in e.name]
+    check(bool(marks), "the profiler saw no marker kernel")
+    return sum(e.time_range.start > max(marks) for e in events)
+
+
+def replay_readings(cap, steps_per_replay: int, name: str) -> dict:
+    """ms a step of `cap`'s replays (CUDA events over DG_TIMED_REPLAYS),
+    kernels a replayed step (graph_kernels: device_profile's sums over a
+    long window have dropped a few events), and the replays' idle share
+    (device_profile over two replays)."""
+    ms = cuda_ms(cap.graph.replay, DG_TIMED_REPLAYS)
+    kernels = graph_kernels(cap)
+    prof = device_profile(lambda i: cap.graph.replay(), 2, name, top=6)
+    return {"ms_per_step_replayed": ms / steps_per_replay, "kernels_per_replay": kernels,
+            "kernels_per_step": kernels / steps_per_replay, "capture_s": cap.capture_s,
+            "replay_idle_share": prof["device_idle_share"], "replay_profile": prof}
+
+
+def timed(fn):
+    """-> (fn's result, wall seconds), synchronized on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dg_kv_write_rows() -> tuple:
+    """jl_int8_kv_write against its plain version (quantize_kv + four
+    update_cache_rows) at DG_KV_CASES: ragged positions with 0 and the
+    cache's last rows, rows of zeros, random prior cache contents; bitwise.
+    Then timed alone (queued_ms) beside the plain write, with its bound.
+    -> (worst difference, the kernel's row)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    randn = _card_randn(25)
+    worst, cases = 0.0, []
+    for B, H, T, dh, edges in DG_KV_CASES:
+        k = (randn(B, H, 1, dh) * 2).to(torch.bfloat16)
+        v = (randn(B, H, 1, dh) * 0.05).to(torch.bfloat16)
+        k[1], v[2, 3] = 0, 0  # a row of zeros: scale 0, codes 0
+        pos = torch.randint(0, T, (B,), device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(B))
+        pos[:len(edges)] = torch.tensor(edges, device="cuda")
+        base = {"k": torch.randint(-127, 128, (B, H, T, dh), dtype=torch.int8, device="cuda"),
+                "v": torch.randint(-127, 128, (B, H, T, dh), dtype=torch.int8, device="cuda"),
+                "k_scale": randn(B, H, T).abs(), "v_scale": randn(B, H, T).abs()}
+        got, want = ({n: t.clone() for n, t in base.items()} for _ in range(2))
+        with torch.inference_mode():
+            quant.int8_kv_write(k, v, got, pos)
+            quant.int8_kv_write_plain(k, v, want, pos)
+            again = {n: t.clone() for n, t in base.items()}
+            quant.int8_kv_write(k, v, again, pos)
+        torch.cuda.synchronize()
+        diff = max(float((got[n].float() - want[n].float()).abs().max()) for n in base)
+        bitwise = all(torch.equal(got[n], want[n]) and torch.equal(again[n], got[n])
+                      for n in base)
+        worst = max(worst, diff)
+        cases.append({"B": B, "H": H, "T": T, "dh": dh, "positions_edges": list(edges),
+                      "bitwise_plain": bitwise, "max_abs_diff": diff})
+        check(bitwise, f"jl_int8_kv_write differs from its plain version at {cases[-1]}")
+        if len(cases) == 1:  # timed at large-v3's shape
+            with torch.inference_mode():  # queued behind a spin kernel: a launch's few us
+                ms = queued_ms(lambda: quant.int8_kv_write(k, v, got, pos), DG_KV_ITERS[0])
+                plain_ms = queued_ms(lambda: quant.int8_kv_write_plain(k, v, want, pos),
+                                     DG_KV_ITERS[1])
+            nbytes = 2 * B * H * dh * 2 + B * 8 + 2 * B * H * (dh + 4)
+            bound_ms, bound_by = bound(nbytes, {"f32": 2.0 * B * H * dh * 6})
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "shape": f"B={B}, {H} x {dh}, T={T}",
+                   "bytes": nbytes}
+    emit({"phase": "decode_graphs", "kernel": "KVW", "cases": cases, **row})
+    return worst, {**row, "cases": cases}
+
+
+def both_routes(fn, name: str) -> dict:
+    """fn(graph) with graph=False, then graph=True, each after a reset of
+    the step counter and the graph tally -> the two results bitwise equal
+    (checked), each route's seconds and steps (decode steps, or the frames
+    of the longest row for the CTC beam: fn may return them third), and
+    the captured call's capture seconds."""
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.utils import graphs
+
+    runs = {}
+    for graph in (False, True):
+        wg.STEPS.reset()
+        graphs.TALLY.reset()
+        out, s = timed(lambda: fn(graph))
+        runs[graph] = (out, s, wg.STEPS.steps, graphs.TALLY.capture_s, graphs.TALLY.replays)
+    (a, a_s, a_n, _, _), (b, b_s, b_n, cap_s, replays) = runs[False], runs[True]
+    r = {"bitwise_eager": len(a) == len(b) and all(
+            x.shape == y.shape and bool((x == y).all()) for x, y in zip(a, b)),
+         "eager_s": a_s, "graph_s": b_s, "capture_s": cap_s, "replays": replays,
+         "eager_steps": a_n, "graph_steps": b_n}
+    if a_n and b_n:
+        r.update(eager_ms_per_step=1e3 * a_s / a_n, graph_ms_per_step=1e3 * b_s / b_n,
+                 graph_ms_per_step_after_capture=1e3 * (b_s - cap_s) / b_n)
+    check(r["bitwise_eager"], f"decode_graphs {name}: the captured loop differs from eager: {r}")
+    return r
+
+
+def phase_decode_graphs(counters, card: str):
+    """Phase 23, main path 23: the offline decode loops on captured graphs
+    (utils/graphs.py) at full width, each against its eager self
+    (graph=False) on the same inputs, bitwise: Whisper large-v3 greedy at
+    B=16 x 30 s (random init, bf16 and quantize()d int8, one encoder
+    output) over DG_EAGER_LEN, int8 also captured with the plain int8 write
+    (the kernels a step it saves); the captured loops alone over
+    WHISPER_MAX_LEN (the main path, exact launches by the captured
+    accounting) with ms a step, tokens/s, the capture's seconds, kernels a
+    replayed step and the replays' idle share; jl_int8_kv_write against
+    its plain version, and timed; the Whisper AR beam at WHISPER_BEAM; the
+    joint family's greedy and beam of JOINT_BEAM
+    (configs/joint_ctc_attention.yaml, JOINT_B x 30 s); the device CTC
+    beam (configs/ctc_batched_beam.yaml, CTC_BEAM_B x 30 s, beam
+    CTC_BEAM_K) in f32 and f64. -> (launches, worst KVW difference, KVW's
+    row)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.decode import ctc
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.models import layers
+    from jiao_liao_speech_recognition_torch.ops import quant
+
+    t_phase = time.perf_counter()
+    kv_err, kv_row = dg_kv_write_rows()
+    bundle = api.load(config=whisper_config(), device="cuda")
+    qb = bundle.quantize()
+    w, fe = bundle.config.whisper, bundle.config.frontend
+    prompt, eot = wg.resolve_specials(w)
+    P, L, B = len(prompt), w.decoder_layers, WHISPER_B
+    sup = dict(suppress_ids=w.suppress_ids, begin_suppress_ids=w.begin_suppress_ids)
+    rng = np.random.RandomState(26)
+    with torch.inference_mode():
+        wav = torch.from_numpy((0.1 * rng.randn(B, 30 * SAMPLE_RATE)).astype(np.float32))
+        enc = bundle.model.encode(featurize_batch(wav.cuda(), fe))
+    models = {"bf16": bundle.model, "int8": qb.model}
+
+    def greedy(model, n, graph):
+        return wg.greedy_from_enc(model, enc, None, n, prompt, eot, graph=graph, **sup)
+
+    # captured against eager; int8 also captured with the plain write
+    for name, model in models.items():
+        r = both_routes(lambda g, model=model: greedy(model, DG_EAGER_LEN, g), f"greedy {name}")
+        if name == "int8":
+            with KeptGraphs() as kg:
+                want = greedy(model, DG_EAGER_LEN, True)
+                layers.int8_kv_write = quant.int8_kv_write_plain
+                try:
+                    got = greedy(model, DG_EAGER_LEN, True)
+                finally:
+                    layers.int8_kv_write = quant.int8_kv_write
+            k_kern, k_plain = (graph_kernels(c) / wg.STOP_CHECK_EVERY for c in kg.kept)
+            saved = k_plain - k_kern
+            r.update(plain_write_bitwise=all(torch.equal(a, b) for a, b in zip(want, got)),
+                     kernels_per_step_kernel_write=k_kern,
+                     kernels_per_step_plain_write=k_plain,
+                     plain_write_launches_per_self_attention=saved / L + 1)
+            del kg
+            check(r["plain_write_bitwise"] and saved > 0 and saved % L == 0,
+                  f"decode_graphs int8: the capture with the plain write: {r}")
+        emit({"phase": "decode_graphs", "greedy": name, "B": B, "max_len": DG_EAGER_LEN, **r})
+
+    # the main path: the captured loops alone over WHISPER_MAX_LEN
+    kept = {}
+
+    def main_path():
+        for name, model in models.items():
+            with KeptGraphs() as kg:
+                wg.STEPS.reset()
+                (ids, lens), s = timed(lambda: greedy(model, WHISPER_MAX_LEN, True))
+            kept[name] = (kg.kept[-1], s, wg.STEPS.steps, ids, lens)
+
+    _, launches = drive(counters, "decode_graphs", main_path)
+    steps = {name: v[2] for name, v in kept.items()}
+    want = {key: 0 for key in counters} | {
+        "K9": 2 * L * steps["bf16"], "K9-int8": 2 * L * steps["int8"],
+        "K10": 8 * L * steps["int8"], "K11": steps["int8"], "KVW": L * steps["int8"]}
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    check(not wrong, f"decode_graphs: launches (got, want): {wrong}")
+    for name, (cap, s, n, ids, lens) in kept.items():
+        r = {"steps": n, "call_s": s, "tokens_per_s": B * n / s, "launches": launches,
+             "generated_incl_eot": int((lens + 1).clamp(max=ids.shape[1]).sum()),
+             **replay_readings(cap, wg.STOP_CHECK_EVERY, f"decode_graphs {name}")}
+        emit({"phase": "decode_graphs", "greedy_full": name, "B": B, "max_len": WHISPER_MAX_LEN,
+              **r})
+        check(tuple(ids.shape) == (B, WHISPER_MAX_LEN - P) and bool(
+            ((ids >= 0) & (ids < w.vocab_size)).all()), f"decode_graphs {name}: ids out of range")
+    del kept
+
+    # the Whisper AR beam at phase_whisper_beam's shapes
+    nb, K, max_len = WHISPER_BEAM
+    wavs, _, _ = bundle._prepare_audio_chunked(make_requests()[3:3 + nb], None)
+    with torch.inference_mode():
+        enc_b = bundle.model.encode(featurize_batch(torch.from_numpy(wavs).cuda(), fe))
+    r = both_routes(lambda g: wg.beam_from_enc(bundle.model, enc_b, None, K, max_len, prompt,
+                                               eot, graph=g, **sup), "whisper beam")
+    emit({"phase": "decode_graphs", "whisper_beam": {"rows": nb, "beam": K, "max_len": max_len},
+          **r})
+    del bundle, qb, models, enc, enc_b
+
+    # the joint family: greedy and the beam of JOINT_BEAM
+    joint = joint_bundle()
+    with torch.inference_mode():
+        jw, ja, _ = joint._prepare_audio_chunked(stream_audio(JOINT_B, seed=21, secs=30.0), None)
+        enc_j, el = joint.model.encode(*joint._features(jw, ja))
+    for name, fn in (("greedy", lambda g: wg.greedy_from_enc(joint.model, enc_j, el,
+                                                             JOINT_MAX_LEN, (0,), 0, graph=g)),
+                     ("beam", lambda g: wg.beam_from_enc(joint.model, enc_j, el, JOINT_BEAM,
+                                                         JOINT_MAX_LEN, (0,), 0, graph=g))):
+        r = both_routes(fn, f"joint {name}")
+        emit({"phase": "decode_graphs", "joint": name, "config": JOINT_CONFIG, "rows": JOINT_B,
+              "beam": JOINT_BEAM if name == "beam" else 1, "max_len": JOINT_MAX_LEN, **r})
+    del joint, enc_j, el
+
+    # the device CTC beam, f32 and f64: seconds a batch both ways
+    cb = ctc_beam_bundle()
+    with torch.inference_mode():
+        cw, ca, _ = cb._prepare_audio_chunked(stream_audio(CTC_BEAM_B, seed=31, secs=30.0), None)
+        lp, olens = cb.model(*cb._features(cw, ca))
+    for dt in (torch.float32, torch.float64):
+        x = lp.to(dt)
+        r = both_routes(lambda g: ctc.ctc_prefix_beam_search(
+            x, olens, CTC_BEAM_K, 0, topk_tokens=min(CTC_BEAM_TOPK, 16), graph=g),
+            f"ctc beam {dt}")
+        emit({"phase": "decode_graphs", "ctc_beam": str(dt), "config": CTC_BEAM_CONFIG,
+              "rows": CTC_BEAM_B, "beam": CTC_BEAM_K, "frames": int(olens.max()),
+              "frames_per_replay": ctc.FRAMES_PER_REPLAY, **r})
+    del cb, lp, x
+    emit({"phase": "decode_graphs", "phase_s": time.perf_counter() - t_phase})
+    return launches, kv_err, kv_row
+
+
 def fl_flops(B, T, lens, H, dh) -> float:
     """The attention core's products (S and P.V) over each row's valid keys."""
     return 4.0 * H * dh * T * float(sum(min(int(n), T) for n in lens.tolist()))
@@ -7721,6 +8082,7 @@ def main() -> int:
     by_path["tp_ctc"], tpc_errs, tpc_rows = phase_tp_ctc_joint(counters, card)
     for key, err in tpc_errs.items():
         errs[key] = max(errs.get(key, 0.0), err)
+    by_path["decode_graphs"], errs["KVW"], rec["KVW"] = phase_decode_graphs(counters, card)
     rec["K10-row"] = tps_rows["K10-row"]
     rec["K11"] = {**rec["K11"], "tp_shapes": tps_rows["K11"]}
     rec["K9-int8"] = {**rec["K9-int8"], "tp_shapes": tps_rows["K9-int8"]}

@@ -61,6 +61,7 @@ def transcribe(
     sample_rate: Optional[int] = None,
     decode_cfg=None,
     timestamps: bool = False,
+    graph: bool = True,
 ):
     """Audio -> one transcript per input, by ``decode_cfg.strategy`` (the
     bundle's config when None). CTC: greedy; ``beam``, the C++ prefix beam
@@ -71,10 +72,11 @@ def transcribe(
     ctc_greedy, greedy, beam with CTC rescoring or spec_greedy. With
     ``timestamps=True``, one ``[{"token", "start", "end"}, ...]`` list per
     input instead (the CTC frame alignment of the ctc and joint families,
-    or Whisper cross-attention DTW)."""
+    or Whisper cross-attention DTW). On a card the decode loops replay a
+    CUDA graph; ``graph=False`` steps them eagerly."""
     if timestamps:
-        return bundle.transcribe_timed(audio, sample_rate=sample_rate)
-    return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg)
+        return bundle.transcribe_timed(audio, sample_rate=sample_rate, graph=graph)
+    return bundle.transcribe(audio, sample_rate=sample_rate, decode_cfg=decode_cfg, graph=graph)
 
 
 def stream(bundle, chunks: Iterable[np.ndarray], stream_cfg=None):

@@ -154,7 +154,8 @@ def _decode_config(bundle, strategy, beam_size, lm_path, lm_weight):
 def cmd_transcribe(args) -> int:
     from .utils.profiling import trace
 
-    with _process_group(args) as primary:
+    # a split model's decode loops are captured with their collectives
+    with _process_group(args, graph_collectives=True) as primary:
         bundle = _load_bundle(args)
         if bundle is None:
             return 2

@@ -40,6 +40,23 @@
 // caller's all-reduce, then rounded once and the bias added once, as the
 // unsplit layer rounds.
 //
+// jl_int8_kv_write, the port's own kernel (no TPU kernel: the JAX package's
+// ops/quant.py::quantize_kv plus lax.dynamic_update_slice, which XLA fuses
+// into its decode loop): one decode step's K and V rows of an int8 self
+// cache quantized per position and written at each row's position, in one
+// launch for both. For k, v [B, H, 1, dh] (bf16 or f32; rows of dh
+// contiguous, batch and head strides given), the head-major int8 caches
+// [B, H, T, dh], their f32 scale planes [B, H, T] and positions int64 [B]:
+// scale = max|a| * f32(1 / 127) (PyTorch's a / 127.0 on the card), q =
+// clamp(rint(a / safe), -127, 127) with safe = scale > 0 ? scale : 1, an
+// IEEE division (__fdiv_rn) rounded half to even (rintf, as torch.round),
+// so q and scale are the bits of quantize_kv followed by the cache writes.
+// A warp a (row, K or V): each lane loads dh / 32 values, the max is
+// reduced by shuffles, each lane writes its codes and lane 0 the scale.
+// It moves ~2 x B H dh x (2 + 1) bytes (125 KB at large-v3's B=16, 20 x 64:
+// ~0.04 us at 3.35 TB/s), so it is a launch, not bandwidth: what it buys is
+// one launch a self-attention in place of the plain write's launches.
+//
 // K11, jl_int8_tied_logits, replaces ops/quant.py::int8_tied_logits
 // (_int8_tied_logits_pallas / _int8_logits_kernel): logits = (x . q^T) * s
 // for x bf16 [R <= 64, D], q int8 row-major [V, D] (per-vocab-row), s f32
@@ -606,4 +623,81 @@ extern "C" int jl_int8_tied_logits_ragged(const bf16* x, const int8_t* q, const 
   if (R <= 16) return logits_ragged<1>(x, q, s, out, R, V, D, stream);
   if (R <= 32) return logits_ragged<2>(x, q, s, out, R, V, D, stream);
   return logits_ragged<4>(x, q, s, out, R, V, D, stream);
+}
+
+namespace {
+
+constexpr int kKvThreads = 256;  // 8 warps, a warp a (row, K or V)
+constexpr int kKvMaxPerLane = 8;  // dh <= 256
+constexpr float kKvInv127 = 1.0f / 127.0f;  // f32(1 / 127), as PyTorch's x / 127.0 on the card
+
+__device__ __forceinline__ float kv_load(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float kv_load(const float* p) { return *p; }
+
+template <typename T>
+__global__ void __launch_bounds__(kKvThreads)
+int8_kv_write_kernel(const T* __restrict__ k, const T* __restrict__ v, long long sb,
+                     long long sh, int8_t* __restrict__ kq, float* __restrict__ ks,
+                     int8_t* __restrict__ vq, float* __restrict__ vs,
+                     const long long* __restrict__ pos, int B, int H, int T_cache, int dh) {
+  const int warp = blockIdx.x * (kKvThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int rows = B * H;
+  if (warp >= 2 * rows) return;
+  const bool is_v = warp >= rows;
+  const int r = is_v ? warp - rows : warp;
+  const int b = r / H, h = r % H;
+  const long long p = pos[b];
+  if (p < 0 || p >= T_cache) return;  // no row past the cache (the loops never ask)
+  const T* a = (is_v ? v : k) + b * sb + h * sh;
+  const int n = dh / 32;
+  float x[kKvMaxPerLane];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKvMaxPerLane; ++i) {
+    if (i < n) {
+      x[i] = kv_load(a + lane + 32 * i);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = __fmul_rn(amax, kKvInv127);
+  const float safe = scale > 0.f ? scale : 1.f;
+  const long long row = ((long long)b * H + h) * T_cache + p;
+  int8_t* q = (is_v ? vq : kq) + row * dh;
+#pragma unroll
+  for (int i = 0; i < kKvMaxPerLane; ++i) {
+    if (i < n) {
+      const float c = fminf(fmaxf(rintf(__fdiv_rn(x[i], safe)), -127.f), 127.f);
+      q[lane + 32 * i] = (int8_t)c;
+    }
+  }
+  if (lane == 0) (is_v ? vs : ks)[row] = scale;
+}
+
+template <typename T>
+int kv_write(const void* k, const void* v, long long sb, long long sh, int8_t* kq, float* ks,
+             int8_t* vq, float* vs, const long long* pos, int B, int H, int T_cache, int dh,
+             cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T_cache <= 0 || dh <= 0 || dh % 32 || dh > 32 * kKvMaxPerLane)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = ceil_div(2 * B * H, kKvThreads / 32);
+  int8_kv_write_kernel<T><<<blocks, kKvThreads, 0, stream>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), sb, sh, kq, ks, vq, vs, pos, B, H,
+      T_cache, dh);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// k, v [B, H, 1, dh] (f32 when is_f32, else bf16; element strides sb, sh of
+// a batch and a head, dh contiguous); kq, vq int8 [B, H, T, dh]; ks, vs f32
+// [B, H, T]; pos int64 [B]. dh % 32 == 0, dh <= 256.
+extern "C" int jl_int8_kv_write(const void* k, const void* v, long long sb, long long sh,
+                                int8_t* kq, float* ks, int8_t* vq, float* vs,
+                                const long long* pos, int B, int H, int T_cache, int dh,
+                                int is_f32, cudaStream_t stream) {
+  return is_f32 ? kv_write<float>(k, v, sb, sh, kq, ks, vq, vs, pos, B, H, T_cache, dh, stream)
+                : kv_write<bf16>(k, v, sb, sh, kq, ks, vq, vs, pos, B, H, T_cache, dh, stream);
 }

@@ -7,9 +7,13 @@ Prefix beam search, three searchers with one merge rule (the sum over the
 alignments of each collapsed prefix):
 
 * ``ctc_prefix_beam_search``: a fixed-width beam on the device, one step of
-  tensor ops a frame (JAX's ``lax.scan`` body, run eagerly): each beam
-  expands by blank, its last token repeated and the frame's top-k tokens;
-  identical prefixes merge by a rolling uint32 hash; the K best go on.
+  tensor ops a frame (JAX's ``lax.scan`` body) with the frame index in a
+  device tensor and the state written in place: each beam expands by
+  blank, its last token repeated and the frame's top-k tokens; identical
+  prefixes merge by a rolling uint32 hash; the K best go on. On a card a
+  chunk of ``FRAMES_PER_REPLAY`` frames is a CUDA graph (utils/graphs.py),
+  replayed up to the longest row; on the CPU and with ``graph=False`` the
+  frames run eagerly.
 * ``ctc_prefix_beam_search_host``: the exact dict-based searcher in numpy,
   with n-gram shallow fusion (``lm`` + ``lm_weight``, decode/lm.py).
 * ``ctc_prefix_beam_search_native``: the production route. The device
@@ -29,6 +33,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import graphs
 
 
 def ctc_greedy_collapse(
@@ -125,6 +131,9 @@ def _masked_logsumexp(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return m + torch.log(torch.exp(xm - m[..., None]).sum(dim=2) + 1e-37)
 
 
+FRAMES_PER_REPLAY = 8  # frames in the device beam's captured chunk
+
+
 @torch.inference_mode()
 def ctc_prefix_beam_search(
     log_probs: torch.Tensor,  # [B, T, V]
@@ -132,6 +141,7 @@ def ctc_prefix_beam_search(
     beam_size: int = 8,
     blank_id: int = 0,
     topk_tokens: int = 16,
+    graph: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-width CTC prefix beam search on the log-probs' device -> (ids
     [B, T] int32 of the best beam, zero-padded; lengths [B] int32).
@@ -143,11 +153,12 @@ def ctc_prefix_beam_search(
     equal hash into their first occurrence (the others die), and keeps the
     K best by lax.top_k's tie order: dead candidates at -1e30 tie, and which
     of them is kept decides the prefixes carried forward. A row past its
-    length is frozen; frames past the longest row are not run. With
-    beam_size=1 this is greedy decoding. The scores are f32, or f64 for f64
-    log-probs (as JAX computes in its input's dtype): the host searcher and
-    the C++ engine sum in f64, and on flat rows an f32 beam can part from
-    them where candidates' scores meet within f32's rounding."""
+    length is frozen; frames past the longest row are not run (on a card
+    the last captured chunk runs them frozen). With beam_size=1 this is
+    greedy decoding. The scores are f32, or f64 for f64 log-probs (as JAX
+    computes in its input's dtype): the host searcher and the C++ engine
+    sum in f64, and on flat rows an f32 beam can part from them where
+    candidates' scores meet within f32's rounding."""
     B, T, V = log_probs.shape
     K, k = beam_size, min(topk_tokens, V)
     dev = log_probs.device
@@ -162,14 +173,17 @@ def ctc_prefix_beam_search(
     pb[:, 0] = 0.0  # only beam 0 alive
     pnb = torch.full((B, K), NEG, dtype=lp_all.dtype, device=dev)
     ph = torch.zeros(B, K, dtype=torch.int64, device=dev)
+    t = torch.zeros(1, dtype=torch.int64, device=dev)  # the frame
     C = K * (k + 1)
     cols = torch.arange(C, device=dev)
     src_beam = torch.arange(K, device=dev).repeat_interleave(k + 1).expand(B, C)
     pos = torch.arange(T, device=dev)
     no_app = torch.full((B, K, 1), -1, dtype=torch.int64, device=dev)
-    for t in range(min(T, int(lengths.max()) if B else 0)):
-        lp = lp_all[:, t]
-        topv, topi = topv_all[:, t], topi_all[:, t]
+
+    def frame() -> None:
+        ti = t.clamp(max=T - 1)
+        lp = lp_all.index_select(1, ti)[:, 0]
+        topv, topi = topv_all.index_select(1, ti)[:, 0], topi_all.index_select(1, ti)[:, 0]
         p_total = torch.logaddexp(pb, pnb)
         last = prefixes.gather(2, (plen - 1).clamp_min(0)[..., None])[..., 0].long()
         has_last = plen > 0
@@ -202,12 +216,26 @@ def ctc_prefix_beam_search(
         n_pref = prefixes.gather(1, n_src[..., None].expand(B, K, T))
         write = (n_app >= 0)[..., None] & (pos == plen.gather(1, n_src)[..., None])
         n_pref = torch.where(write, n_app[..., None].to(torch.int32), n_pref)
-        active = (t < lengths)[:, None]
-        prefixes = torch.where(active[..., None], n_pref, prefixes)
-        plen = torch.where(active, clen.gather(1, top), plen)
-        pb = torch.where(active, ctot_pb.gather(1, top), pb)
-        pnb = torch.where(active, ctot_pnb.gather(1, top), pnb)
-        ph = torch.where(active, chash.gather(1, top), ph)
+        active = ((t < lengths) & (t < T))[:, None]
+        prefixes.copy_(torch.where(active[..., None], n_pref, prefixes))
+        plen.copy_(torch.where(active, clen.gather(1, top), plen))
+        pb.copy_(torch.where(active, ctot_pb.gather(1, top), pb))
+        pnb.copy_(torch.where(active, ctot_pnb.gather(1, top), pnb))
+        ph.copy_(torch.where(active, chash.gather(1, top), ph))
+        t.add_(1)
+
+    n = min(T, int(lengths.max()) if B else 0)
+    if graphs.capturing(dev, graph) and n > 1:
+        def chunk():
+            for _ in range(FRAMES_PER_REPLAY):
+                frame()
+
+        cap = graphs.CapturedStep(chunk, warm=frame, tally=True)  # the warm-up is frame 0
+        for _ in range(-(-(n - 1) // FRAMES_PER_REPLAY)):
+            cap.replay()
+    else:
+        for _ in range(n):
+            frame()
     best = torch.argmax(torch.logaddexp(pb, pnb), dim=1)
     rows = torch.arange(B, device=dev)
     return prefixes[rows, best], plen[rows, best].to(torch.int32)

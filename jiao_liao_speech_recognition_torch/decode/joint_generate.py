@@ -2,7 +2,8 @@
 package's ``decode/joint_generate.py``:
 
 * greedy - the shared AR loop (``whisper_generate.greedy_from_enc``) over
-  the encoder output, sos = eos = the CTC blank (0);
+  the encoder output, sos = eos = the CTC blank (0), captured on a card
+  unless graph=False;
 * beam   - the shared beam (``whisper_generate.beam_from_enc``) returns all
   K hypotheses; each is rescored with the CTC branch's exact sequence
   log-probability (``ops/ctc_loss.py`` over the CTC log-probs already
@@ -22,17 +23,19 @@ from .whisper_generate import beam_from_enc, best_beam, greedy_from_enc, length_
 
 @torch.inference_mode()
 def joint_greedy(model, feats: torch.Tensor, feat_lengths: Optional[torch.Tensor] = None,
-                 max_len: int = 64, bos_eos_id: int = 0, kernels: bool = True):
+                 max_len: int = 64, bos_eos_id: int = 0, kernels: bool = True,
+                 graph: bool = True):
     """feats [B, mels, T] -> (tokens [B, max_len - 1], lengths [B])."""
     enc, enc_lengths = model.encode(feats, feat_lengths, kernels)
     return greedy_from_enc(model, enc, enc_lengths, max_len, (bos_eos_id,), bos_eos_id,
-                           kernels=kernels)
+                           kernels=kernels, graph=graph)
 
 
 @torch.inference_mode()
 def joint_beam(model, feats: torch.Tensor, feat_lengths: Optional[torch.Tensor] = None,
                beam_size: int = 4, max_len: int = 64, length_penalty: float = 1.0,
-               ctc_weight: Optional[float] = None, bos_eos_id: int = 0, kernels: bool = True):
+               ctc_weight: Optional[float] = None, bos_eos_id: int = 0, kernels: bool = True,
+               graph: bool = True):
     """Attention beam with CTC rescoring -> (tokens [B, max_len - 1],
     lengths [B]). ctc_weight=None takes model.cfg.ctc_weight; 0 drops the
     CTC term (the attention beam alone)."""
@@ -40,7 +43,7 @@ def joint_beam(model, feats: torch.Tensor, feat_lengths: Optional[torch.Tensor] 
         ctc_weight = model.cfg.ctc_weight
     enc, enc_lengths = model.encode(feats, feat_lengths, kernels)
     gen, lengths, att = beam_from_enc(model, enc, enc_lengths, beam_size, max_len,
-                                      (bos_eos_id,), bos_eos_id, kernels=kernels)
+                                      (bos_eos_id,), bos_eos_id, kernels=kernels, graph=graph)
     norm = length_norm(lengths, length_penalty)
     ranking = att / norm
     if ctc_weight > 0.0:

@@ -5,13 +5,21 @@ sampling) and the batched beam search, generic over any model with
 model through ``decode/joint_generate.py``), with the n-gram LM's bigram
 matrix as on-device shallow fusion.
 
-The JAX loops are each one ``lax.while_loop`` on the device; here the host
-drives ``decode_step`` on device tensors and reads the stop condition every
-``STOP_CHECK_EVERY`` steps. A greedy step past the point where every row is
-done only appends EOT to rows that already end in EOT; a beam step there
-is masked to leave the state as it is (the JAX loop has stopped). So the
-tokens equal the JAX loops': the prompt is forced, finished rows emit EOT,
-and ``lengths`` counts the tokens before the first EOT after the prompt.
+The JAX loops are each one ``lax.while_loop`` on the device. Here each
+loop's step body keeps its state in tensors written in place (tokens,
+scores, done flags, the caches) and its position in a device tensor, so
+on a card the loop is a CUDA graph (utils/graphs.py): the forced prompt
+steps and the first generated step run eagerly as the warm-up, then a
+chunk of ``STOP_CHECK_EVERY`` steps is captured and replayed, with one host
+read of "every row done" after each replay, the counterpart of the JAX
+loop's ``cond_fn``. A step past the point where every row is done, or past
+the last position (``max_len - 1``), is masked on the device: it writes
+only EOT, or nothing, and leaves the beam as it is. So the tokens equal
+the JAX loops': the prompt is forced, finished rows emit EOT, and
+``lengths`` counts the tokens before the first EOT after the prompt. On the
+CPU, with ``graph=False`` and for temperature sampling, the same steps run
+eagerly. ``greedy_step`` is also the serving engine's step
+(serve/engine.py), at each lane's own position.
 
 On a tensor-parallel model (parallel/tp.py) every rank of a model group
 runs the same steps on the same rows: its logits are the group's joined
@@ -19,7 +27,8 @@ vocab columns, so each rank takes the same tokens, and the greedy loop's
 host read of "every row done" is agreed over the group before it stops.
 The beam loop needs no collective of its own: its log-probs, top-K
 bookkeeping and host reads are the same bytes on every rank, and the self
-caches it gathers along the winning beams hold the rank's heads.
+caches it gathers along the winning beams hold the rank's heads. A split
+model's loop is captured with its collectives (``check_capturable``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..parallel.tp import model_tp
+from ..utils import graphs
 from ..utils.config import DecodeConfig
 
 # Whisper multilingual special tokens (vocab 51865; large-v3 shifts by one)
@@ -37,12 +47,13 @@ EOT = 50257
 TRANSCRIBE = 50359
 NO_TIMESTAMPS = 50363
 LANG_ZH = 50260
-STOP_CHECK_EVERY = 8  # decode steps between host reads of "every row done"
+STOP_CHECK_EVERY = 8  # decode steps between host reads of "every row done": a captured chunk
 
 
 class StepCounter:
-    """Decode steps, and teacher-forced verification passes of speculative
-    greedy, taken by the last generate calls (reset by callers)."""
+    """Decode steps (eager or replayed), and teacher-forced verification
+    passes of speculative greedy, taken by the last generate calls (reset
+    by callers)."""
 
     def __init__(self):
         self.steps = 0
@@ -101,13 +112,75 @@ def greedy_generate(model, mel: torch.Tensor, max_len: int = 224,
                     prompt: Optional[Tuple[int, ...]] = None, eot_id: int = EOT,
                     temperature: float = 0.0, generator: Optional[torch.Generator] = None,
                     suppress_ids: Tuple[int, ...] = (), begin_suppress_ids: Tuple[int, ...] = (),
-                    layout: Optional[str] = None, kernels: bool = True):
+                    layout: Optional[str] = None, kernels: bool = True, graph: bool = True):
     """mel [B, mels, T] -> (tokens [B, max_len - P], lengths [B])."""
     prompt = prompt or default_prompt(model.cfg.vocab_size)
     with torch.inference_mode():
         enc = model.encode(mel, kernels)
     return greedy_from_enc(model, enc, None, max_len, prompt, eot_id, temperature, generator,
-                           suppress_ids, begin_suppress_ids, layout, kernels)
+                           suppress_ids, begin_suppress_ids, layout, kernels, graph)
+
+
+def greedy_step(model, tokens: torch.Tensor, pos: torch.Tensor, done: torch.Tensor,
+                enc: torch.Tensor, caches, enc_lengths: Optional[torch.Tensor], prompt_len: int,
+                max_len: int, eot_id: int, always, begin, kernels: bool = True,
+                pick=None) -> None:
+    """One greedy decode step of every row, in place on tokens [B, max_len],
+    pos [B] int64 (each row's position) and done [B] (the JAX loop's body;
+    the serving engine's step at its lanes' positions): the token at pos is
+    fed, prompt tokens are forced (pos + 1 < prompt_len), finished rows
+    write EOT and stay at their position, and a row at its last position
+    writes nothing and is done. ``pick`` maps the logits to the next ids
+    (argmax when None). Nothing here reads the device from the host, so a
+    CUDA graph captures it."""
+    logits, _ = model.decode_step(tokens.gather(1, pos[:, None]), pos, enc, caches,
+                                  enc_lengths, kernels)
+    logits = apply_suppression_rows(logits, pos, prompt_len, always, begin)
+    nxt = torch.argmax(logits, dim=-1) if pick is None else pick(logits)
+    in_row = pos + 1 < max_len
+    at = torch.where(in_row, pos + 1, pos)
+    cur_next = tokens.gather(1, at[:, None])[:, 0]
+    is_prompt = pos + 1 < prompt_len
+    nxt = torch.where(done, eot_id, torch.where(is_prompt, cur_next, nxt))
+    nxt = torch.where(in_row, nxt, cur_next)
+    tokens.scatter_(1, at[:, None], nxt[:, None])
+    active = ~done
+    done |= (active & ~is_prompt & (nxt == eot_id)) | (pos + 1 >= max_len - 1)
+    pos.copy_(torch.where(active, pos + 1, pos))
+
+
+def _run_loop(step, n: int, first: int, stop, capture: bool) -> None:
+    """Drive `step(p)` (p the host's step index) for up to n steps: the
+    first `first` steps eagerly (with capture, as the warm-up on a side
+    stream), then chunks of STOP_CHECK_EVERY steps while stop() is false
+    before the chunk: captured once and replayed with capture (each chunk
+    runs all STOP_CHECK_EVERY steps, the last one masked on the device past
+    the end), else eagerly up to n."""
+    p = 0
+
+    def eager(k: int) -> None:
+        nonlocal p
+        for _ in range(k):
+            step(p)
+            p += 1
+        STEPS.steps += k
+
+    cap = None
+    if capture and first < n:
+        def chunk():
+            for i in range(STOP_CHECK_EVERY):
+                step(first + i)  # steps past the prompt: one body for every position
+
+        cap = graphs.CapturedStep(chunk, warm=lambda: eager(first), tally=True)
+    else:
+        eager(first)
+    while p < n and not stop():
+        if cap is None:
+            eager(min(STOP_CHECK_EVERY, n - p))
+        else:
+            cap.replay()
+            p += STOP_CHECK_EVERY
+            STEPS.steps += STOP_CHECK_EVERY
 
 
 @torch.inference_mode()
@@ -115,39 +188,38 @@ def greedy_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor
                     max_len: int = 224, prompt: Tuple[int, ...] = (), eot_id: int = EOT,
                     temperature: float = 0.0, generator: Optional[torch.Generator] = None,
                     suppress_ids: Tuple[int, ...] = (), begin_suppress_ids: Tuple[int, ...] = (),
-                    layout: Optional[str] = None, kernels: bool = True):
-    """The greedy loop over an encoder output [B, T, d]. temperature > 0
-    samples softmax(logits / T) with `generator` (a torch.Generator on the
-    encoder's device; the JAX loop's jax.random draws differ)."""
+                    layout: Optional[str] = None, kernels: bool = True, graph: bool = True):
+    """The greedy loop over an encoder output [B, T, d], every row at one
+    position (``greedy_step``); captured on a card unless graph=False.
+    temperature > 0 samples softmax(logits / T) with `generator` (a
+    torch.Generator on the encoder's device; the JAX loop's jax.random
+    draws differ), eagerly: a route of its own, never captured."""
     B, dev = enc.shape[0], enc.device
     P = len(prompt)
+    capture = temperature <= 0 and graphs.capturing(dev, graph, model, "greedy_from_enc")
     always, begin = suppression_masks(model.cfg.vocab_size, suppress_ids, begin_suppress_ids, dev)
     caches = model.init_cache(B, enc, max_len, layout)
     tokens = torch.full((B, max_len), eot_id, dtype=torch.long, device=dev)
     tokens[:, :P] = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    pos = torch.zeros(B, dtype=torch.long, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     tp = model_tp(model)
-    for pos in range(max_len - 1):
-        if pos % STOP_CHECK_EVERY == 0 and pos > 0:
-            stop = bool(done.all())
-            if tp is not None and tp.size > 1:
-                stop = tp.agree(stop)
-            if stop:
-                break
-        logits, caches = model.decode_step(tokens[:, pos:pos + 1], pos, enc, caches,
-                                           enc_lengths, kernels)
-        STEPS.steps += 1
-        if pos + 1 < P:  # forced prompt token
-            continue
-        logits = apply_suppression(logits, pos, P, always, begin)
-        if temperature > 0:
-            probs = torch.softmax(logits.float() / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        else:
-            nxt = torch.argmax(logits, dim=-1)
-        nxt = torch.where(done, torch.full_like(nxt, eot_id), nxt)
-        tokens[:, pos + 1] = nxt
-        done |= nxt == eot_id
+
+    def sample(logits):
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    def step(p: int) -> None:
+        pick = sample if temperature > 0 and p + 1 >= P else None
+        greedy_step(model, tokens, pos, done, enc, caches, enc_lengths, P, max_len, eot_id,
+                    always, begin, kernels, pick)
+
+    def stop() -> bool:
+        flag = bool(done.all())
+        return tp.agree(flag) if tp is not None and tp.size > 1 else flag
+
+    n = max_len - 1  # the JAX loop's steps when no row ends
+    _run_loop(step, n, min(P, n), stop, capture)
     gen = tokens[:, P:]
     is_eot = gen == eot_id
     first = torch.argmax(is_eot.to(torch.int32), dim=1)
@@ -178,7 +250,7 @@ def beam_generate(model, mel: torch.Tensor, beam_size: int = 4, max_len: int = 2
                   eot_id: int = EOT, lm_bigram: Optional[torch.Tensor] = None,
                   lm_weight: float = 0.0, suppress_ids: Tuple[int, ...] = (),
                   begin_suppress_ids: Tuple[int, ...] = (), layout: Optional[str] = None,
-                  kernels: bool = True):
+                  kernels: bool = True, graph: bool = True):
     """Beam search -> the best beam per utterance (tokens [B, max_len - P],
     lengths [B]): the highest score / max(length, 1) ** length_penalty,
     the first beam among equals."""
@@ -187,7 +259,7 @@ def beam_generate(model, mel: torch.Tensor, beam_size: int = 4, max_len: int = 2
         enc = model.encode(mel, kernels)
     gen, lengths, scores = beam_from_enc(model, enc, None, beam_size, max_len, prompt, eot_id,
                                          lm_bigram, lm_weight, suppress_ids, begin_suppress_ids,
-                                         layout, kernels)
+                                         layout, kernels, graph)
     return best_beam(gen, lengths, scores / length_norm(lengths, length_penalty))
 
 
@@ -209,7 +281,7 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
                   eot_id: int = EOT, lm_bigram: Optional[torch.Tensor] = None,
                   lm_weight: float = 0.0, suppress_ids: Tuple[int, ...] = (),
                   begin_suppress_ids: Tuple[int, ...] = (), layout: Optional[str] = None,
-                  kernels: bool = True):
+                  kernels: bool = True, graph: bool = True):
     """The beam loop over an encoder output [B, T, d] -> every beam:
     (tokens [B, K, max_len - P], lengths [B, K], scores [B, K] f32, summed
     log-probs). Beams fold into the batch (row b * K + k); each step scores
@@ -221,9 +293,15 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
     are, as the self caches). Finished beams continue with EOT
     at log-prob 0 only; only beam 0 starts alive. ``lm_bigram`` [V, V]
     (``load_bigram_matrix``) with lm_weight > 0 adds lm_weight * log
-    P_LM(next | current token) to each step's log-probs."""
+    P_LM(next | current token) to each step's log-probs.
+
+    The state is written in place (each gather goes through a new tensor
+    and ``copy_``), so on a card the steps after the forced prompt are
+    captured (``_run_loop``) unless graph=False. A step once every beam is
+    finished, or past the last position, leaves the state as it is."""
     B, dev = enc.shape[0], enc.device
     K, P, V = beam_size, len(prompt), model.cfg.vocab_size
+    capture = graphs.capturing(dev, graph, model, "beam_from_enc")
     always, begin = suppression_masks(V, suppress_ids, begin_suppress_ids, dev)
     caches = model.init_cache(B, enc, max_len, layout, beams=K)
     lens_k = None if enc_lengths is None else enc_lengths.to(dev).repeat_interleave(K, 0)
@@ -232,44 +310,52 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
     scores = torch.full((B, K), NEG, dtype=torch.float32, device=dev)
     scores[:, 0] = 0.0
     finished = torch.zeros(B, K, dtype=torch.bool, device=dev)
+    pos = torch.zeros(B * K, dtype=torch.long, device=dev)  # every beam at one position
     eot_only = torch.full((V,), NEG, dtype=torch.float32, device=dev)
     eot_only[eot_id] = 0.0
     beams = torch.arange(K, device=dev).expand(B, K)
     row0 = torch.arange(B, device=dev)[:, None] * K
     fuse = lm_bigram is not None and lm_weight > 0.0
-    for pos in range(max_len - 1):
-        if pos % STOP_CHECK_EVERY == 0 and pos > 0 and bool(finished.all()):
-            break
+    leaves = [t for c in caches.values() for t in c["self"].values()]
+    for c in caches.values():  # an Att adapter's caches follow their beams too
+        leaves += [t for slot in c.get("slots", {}).values() for t in slot.values()]
+
+    def step(p: int) -> None:
+        forced = p + 1 < P  # forced decoding: every beam continues with the prompt token
         live = ~finished.all()  # on the device: once every beam is done a step changes nothing
-        tok = tokens[:, :, pos].reshape(B * K, 1)
-        logits, caches = model.decode_step(tok, pos, enc, caches, lens_k, kernels)
-        STEPS.steps += 1
-        logp = log_softmax_f32(apply_suppression(logits, pos, P, always, begin)).reshape(B, K, V)
+        in_row = pos[:1] + 1 < max_len  # [1]: past the last position nothing is written
+        tok = tokens.gather(2, pos.view(B, K, 1)).reshape(B * K, 1)
+        logits, _ = model.decode_step(tok, pos, enc, caches, lens_k, kernels)
+        logp = log_softmax_f32(apply_suppression_rows(logits, pos, P, always, begin))
+        logp = logp.reshape(B, K, V)
         if fuse:
             logp = logp + lm_weight * lm_bigram[tok[:, 0]].reshape(B, K, V)
         logp = torch.where(finished[..., None], eot_only, logp)
-        in_prompt = pos + 1 < P
-        if in_prompt:  # forced decoding: every beam continues with the prompt token
-            new_tok = tokens[:, :, pos + 1]
+        at = torch.where(in_row, pos + 1, pos).view(B, K, 1)
+        if forced:
+            new_tok = tokens.gather(2, at)[..., 0]
             new_scores = scores + logp.gather(2, new_tok[..., None])[..., 0]
             src = beams
         else:
             new_scores, idx = top_k_stable((scores[..., None] + logp).reshape(B, K * V), K)
             src, new_tok = idx // V, idx % V
-        src = torch.where(live, src, beams)
-        scores = torch.where(live, new_scores, scores)
-        tokens = tokens.gather(1, src[..., None].expand(B, K, max_len))
-        finished = finished.gather(1, src)
+        go = live & in_row
+        src = torch.where(go, src, beams)
+        scores.copy_(torch.where(go, new_scores, scores))
+        tokens.copy_(tokens.gather(1, src[..., None].expand(B, K, max_len)))
+        finished.copy_(finished.gather(1, src))
         new_tok = torch.where(finished | ~live, eot_id, new_tok)
-        tokens[:, :, pos + 1] = new_tok
-        if not in_prompt:
-            finished = finished | (new_tok == eot_id)
+        new_tok = torch.where(in_row, new_tok, tokens.gather(2, at)[..., 0])
+        tokens.scatter_(2, at, new_tok[..., None])
+        if not forced:
+            finished.logical_or_(in_row & (new_tok == eot_id))
         rows = (row0 + src).reshape(-1)
-        for c in caches.values():
-            c["self"] = {n: t.index_select(0, rows) for n, t in c["self"].items()}
-            if "slots" in c:  # an Att adapter's caches follow their beams too
-                c["slots"] = {s: {n: t.index_select(0, rows) for n, t in slot.items()}
-                              for s, slot in c["slots"].items()}
+        for t in leaves:
+            t.copy_(t.index_select(0, rows))
+        pos.copy_(torch.where(in_row, pos + 1, pos))
+
+    n = max_len - 1
+    _run_loop(step, n, min(P, n), lambda: bool(finished.all()), capture)
     gen = tokens[:, :, P:]
     is_eot = gen == eot_id
     first = torch.argmax(is_eot.to(torch.int32), dim=2)
@@ -304,12 +390,13 @@ def resolve_specials(wcfg) -> Tuple[Tuple[int, ...], int]:
 
 
 def generate(bundle, mel: torch.Tensor, decode_cfg: DecodeConfig,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, graph: bool = True):
     """The whisper branch of ModelBundle.transcribe, up to
     min(max_decode_len, max_target_positions): greedy (or temperature
     sampling), or for "beam" / "beam_device" at beam_size > 1 the beam
     search with the bigram LM's shallow fusion when decode_cfg names an LM
-    with lm_weight > 0. A beam of one is greedy, as in the JAX package."""
+    with lm_weight > 0. A beam of one is greedy, as in the JAX package.
+    graph=False steps eagerly on a card."""
     wcfg = bundle.config.whisper
     if decode_cfg.strategy not in ("greedy", "beam", "beam_device"):
         raise ValueError(f"unknown whisper decode strategy {decode_cfg.strategy!r}")
@@ -321,6 +408,6 @@ def generate(bundle, mel: torch.Tensor, decode_cfg: DecodeConfig,
             lm = load_bigram_matrix(decode_cfg.lm_path, wcfg.vocab_size, mel.device)
         return beam_generate(bundle.model, mel, decode_cfg.beam_size, max_len,
                              decode_cfg.length_penalty, prompt, eot, lm, decode_cfg.lm_weight,
-                             wcfg.suppress_ids, wcfg.begin_suppress_ids)
+                             wcfg.suppress_ids, wcfg.begin_suppress_ids, graph=graph)
     return greedy_generate(bundle.model, mel, max_len, prompt, eot, decode_cfg.temperature,
-                           generator, wcfg.suppress_ids, wcfg.begin_suppress_ids)
+                           generator, wcfg.suppress_ids, wcfg.begin_suppress_ids, graph=graph)

@@ -297,10 +297,14 @@ class ModelBundle:
         audio: Union[str, np.ndarray, Sequence],
         sample_rate: Optional[int] = None,
         decode_cfg: Optional[DecodeConfig] = None,
+        graph: bool = True,
     ) -> List[str]:
         """Audio -> text by ``decode_cfg.strategy`` (the config's when None).
         Recordings longer than chunk_seconds are split into consecutive
-        chunks, decoded in one batch and re-joined."""
+        chunks, decoded in one batch and re-joined. On a card the decode
+        loops (greedy, the AR beam, the device CTC beam) replay a CUDA
+        graph; graph=False steps them eagerly (a split model whose group
+        cannot be captured needs it)."""
         decode_cfg = decode_cfg or self.config.decode
         family = self.config.model_family
         if family == "ctc" and decode_cfg.strategy not in ("greedy", "ctc_greedy", "beam",
@@ -313,11 +317,11 @@ class ModelBundle:
         if rows is not None:
             wavs, alens = wavs[rows], alens[rows]
         if self.is_whisper:
-            ids, lens = self._whisper_ids(wavs, decode_cfg)
+            ids, lens = self._whisper_ids(wavs, decode_cfg, graph)
         elif self.is_joint and decode_cfg.strategy != "ctc_greedy":
-            ids, lens = self._joint_ids(wavs, alens, decode_cfg)
+            ids, lens = self._joint_ids(wavs, alens, decode_cfg, graph)
         elif decode_cfg.strategy in ("beam", "beam_device"):
-            ids, lens = self._ctc_beam_ids(wavs, alens, decode_cfg)
+            ids, lens = self._ctc_beam_ids(wavs, alens, decode_cfg, graph)
         else:
             ids, lens = self._frame_ids(wavs, alens)
             ids, lens = ctc_greedy_collapse(ids, lens, decode_cfg.ctc_blank_id)
@@ -330,6 +334,7 @@ class ModelBundle:
         self,
         audio: Union[str, np.ndarray, Sequence],
         sample_rate: Optional[int] = None,
+        graph: bool = True,
     ) -> List[List[dict]]:
         """Greedy transcription with per-token times: per utterance a list
         of {"token", "start", "end"} (seconds) whose tokens concatenate to
@@ -337,7 +342,7 @@ class ModelBundle:
         CTC and joint: the frame alignment of the CTC greedy path; Whisper:
         cross-attention DTW over one teacher-forced pass (decode/align.py)."""
         if self.is_whisper:
-            return self._transcribe_timed_whisper(audio, sample_rate)
+            return self._transcribe_timed_whisper(audio, sample_rate, graph)
         fe = self.config.frontend
         frame_s = fe.hop_length * self.model.cfg.subsample_factor / fe.sample_rate
         blank = self.config.decode.ctc_blank_id
@@ -358,7 +363,7 @@ class ModelBundle:
             out.append(utt)
         return out
 
-    def _transcribe_timed_whisper(self, audio, sample_rate) -> List[List[dict]]:
+    def _transcribe_timed_whisper(self, audio, sample_rate, graph: bool) -> List[List[dict]]:
         """Greedy ids of every chunk in one batch (as transcribe), then the
         spans of whisper_token_spans over the same features."""
         from ..decode.align import whisper_token_spans
@@ -369,7 +374,8 @@ class ModelBundle:
         wavs, alens, owners = self._prepare_audio_chunked(audio, sample_rate)
         with torch.inference_mode():
             feats = features.featurize_batch(torch.from_numpy(wavs).to(self.device), fe)
-            ids, lens = generate(self, feats, replace(self.config.decode, strategy="greedy"))
+            ids, lens = generate(self, feats, replace(self.config.decode, strategy="greedy"),
+                                 graph=graph)
         ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
         prompt, eot = resolve_specials(wcfg)
         # one encoder frame = 2 mel hops (conv2's stride) = 20 ms at 16 kHz
@@ -392,13 +398,14 @@ class ModelBundle:
         return out
 
     @torch.inference_mode()
-    def _whisper_ids(self, wavs: np.ndarray, decode_cfg: DecodeConfig):
+    def _whisper_ids(self, wavs: np.ndarray, decode_cfg: DecodeConfig, graph: bool = True):
         """Padded chunks [N, samples] -> generated ids [N, L] and lengths [N]
         (decode/whisper_generate.py), on the model's device."""
         from ..decode.whisper_generate import generate
 
         wav = torch.from_numpy(wavs).to(self.device)
-        return generate(self, features.featurize_batch(wav, self.config.frontend), decode_cfg)
+        return generate(self, features.featurize_batch(wav, self.config.frontend), decode_cfg,
+                        graph=graph)
 
     def _features(self, wavs: np.ndarray, alens: np.ndarray):
         """Padded chunks [N, samples] -> (log-mel [N, mels, T], valid mel
@@ -415,7 +422,8 @@ class ModelBundle:
         return self.model.frame_ids(*self._features(wavs, alens))
 
     @torch.inference_mode()
-    def _joint_ids(self, wavs: np.ndarray, alens: np.ndarray, decode_cfg: DecodeConfig):
+    def _joint_ids(self, wavs: np.ndarray, alens: np.ndarray, decode_cfg: DecodeConfig,
+                   graph: bool = True):
         """Padded chunks -> the attention branch's ids [N, max_len - 1] and
         lengths [N] by decode_cfg.strategy: greedy, beam / beam_device (CTC
         rescoring at the config's ctc_weight) or spec_greedy."""
@@ -425,14 +433,15 @@ class ModelBundle:
         feats, flens = self._features(wavs, alens)
         L = decode_cfg.max_decode_len
         if decode_cfg.strategy == "greedy":
-            return joint_greedy(self.model, feats, flens, max_len=L)
+            return joint_greedy(self.model, feats, flens, max_len=L, graph=graph)
         if decode_cfg.strategy == "spec_greedy":
             return joint_spec_greedy(self.model, feats, flens, max_len=L)
         return joint_beam(self.model, feats, flens, beam_size=decode_cfg.beam_size, max_len=L,
-                          length_penalty=decode_cfg.length_penalty)
+                          length_penalty=decode_cfg.length_penalty, graph=graph)
 
     @torch.inference_mode()
-    def _ctc_beam_ids(self, wavs: np.ndarray, alens: np.ndarray, decode_cfg: DecodeConfig):
+    def _ctc_beam_ids(self, wavs: np.ndarray, alens: np.ndarray, decode_cfg: DecodeConfig,
+                      graph: bool = True):
         """Padded chunks -> CTC prefix beam ids [N, T'] and lengths [N] (the
         JAX bundle's dispatch) over the log-probs of K1, the blocks (K2, K3)
         and the head with log_softmax: ``beam_device`` the device beam
@@ -451,7 +460,7 @@ class ModelBundle:
         log_probs, out_lens = self.model(*self._features(wavs, alens), head_mode="log_probs")
         if dc.strategy == "beam_device":
             return ctc_prefix_beam_search(log_probs, out_lens, dc.beam_size, dc.ctc_blank_id,
-                                          topk_tokens=min(dc.beam_topk, 16))
+                                          topk_tokens=min(dc.beam_topk, 16), graph=graph)
         if dc.lm_path and dc.lm_weight > 0.0:
             from ..decode.lm import NGramCharLM
 

@@ -85,10 +85,11 @@ from ..ops.numerics import full_f32, layer_norm
 from ..ops.quant import (
     int8_decode_attention,
     int8_finish,
+    int8_kv_write,
+    int8_kv_write_plain,
     int8_matmul,
     int8_row_product,
     quantize_int8,
-    quantize_kv,
 )
 from ..utils.config import AdapterConfig
 
@@ -561,10 +562,9 @@ class MultiHeadAttention(nn.Module):
         else:
             kh = self.k_proj(x, kernels).reshape(B, Tq, H, dh).transpose(1, 2)
             vh = self.v_proj(x, kernels).reshape(B, Tq, H, dh).transpose(1, 2)
-            if "k_scale" in kv_cache:  # int8 self cache: this step's rows quantized
-                (kq, ks), (vq, vs) = quantize_kv(kh), quantize_kv(vh)
-                for name, new in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
-                    update_cache_rows(kv_cache[name], new, cache_index, 2)
+            if "k_scale" in kv_cache:  # int8 self cache: this step's rows quantized (one launch)
+                write = int8_kv_write if kernels else int8_kv_write_plain
+                write(kh, vh, kv_cache, cache_index)
             else:
                 update_cache_rows(kv_cache["k"], kh, cache_index, 2)
                 update_cache_rows(kv_cache["v"], vh, cache_index, 2)

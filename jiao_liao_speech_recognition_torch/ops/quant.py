@@ -31,6 +31,11 @@
   scales after it).
 * ``int8_decode_attention``: the shim over K9's int8 half
   (``ops/decode_attention.py``).
+* ``int8_kv_write``: one decode step's K and V rows of an int8 self cache
+  quantized (``quantize_kv``) and written at each row's position, in one
+  launch of ``jl_int8_kv_write`` (the port's own kernel: the JAX package's
+  XLA fuses ``quantize_kv`` and the cache update inside its loop);
+  ``int8_kv_write_plain`` is quantize_kv plus four ``update_cache_rows``.
 
 A wrapper takes its kernel's plain version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. ``kernels=False`` picks the plain
@@ -58,6 +63,7 @@ from .numerics import full_f32
 MATMUL_COUNTER = LaunchCounter("int8_matmul")  # K10
 ROW_PARTIAL_COUNTER = LaunchCounter("int8_row_partial")  # K10's row-parallel partial
 LOGITS_COUNTER = LaunchCounter("int8_tied_logits")  # K11
+KV_WRITE_COUNTER = LaunchCounter("int8_kv_write")  # the int8 self-cache write
 # rows beyond this take the dequantizing product: long (teacher-forced)
 # inputs are compute-bound, where reading the weights once more is cheap
 MAX_KERNEL_ROWS = 64
@@ -271,6 +277,53 @@ def int8_tied_logits(x: torch.Tensor, q_vd: torch.Tensor, scale_v: torch.Tensor,
     if x.shape[0] > MAX_KERNEL_ROWS:
         return int8_tied_logits_dequant(x, q_vd, scale_v)
     return (int8_logits if kernels else int8_tied_logits_plain)(x, q_vd, scale_v)
+
+
+# --- the int8 self-cache write --------------------------------------------------
+
+
+def int8_kv_write_plain(k: torch.Tensor, v: torch.Tensor, cache: dict, index) -> None:
+    """quantize_kv of one step's rows k, v [B, H, 1, dh], written into the
+    int8 head-major self cache (``k``, ``v`` int8 [B, H, T, dh], ``k_scale``,
+    ``v_scale`` f32 [B, H, T]) at `index` (an int or [B] positions) by
+    update_cache_rows."""
+    from ..models.layers import update_cache_rows
+
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    for name, new in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
+        update_cache_rows(cache[name], new, index, 2)
+
+
+def int8_kv_write(k: torch.Tensor, v: torch.Tensor, cache: dict, index) -> None:
+    """Wrapper of jl_int8_kv_write: int8_kv_write_plain in one launch, the
+    same bits. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (k, v bf16 or f32 [B, H, 1, dh] with dh contiguous and equal
+    strides, dh % 32 == 0, dh <= 256; contiguous caches) or raise. An int
+    `index` is filled on the device; a tensor one is read there, so a CUDA
+    graph captures the call."""
+    if k.device.type == "cpu":
+        return int8_kv_write_plain(k, v, cache, index)
+    refuse_grad("int8_kv_write", k, v)
+    B, H, Tq, dh = k.shape
+    kq, ks, vq, vs = cache["k"], cache["k_scale"], cache["v"], cache["v_scale"]
+    for name, t, dt, nd in (("k", kq, torch.int8, 4), ("v", vq, torch.int8, 4),
+                            ("k_scale", ks, torch.float32, 3), ("v_scale", vs, torch.float32, 3)):
+        check_cuda(name, t, dt, nd)
+    T = kq.shape[2]
+    if (Tq != 1 or v.shape != k.shape or v.dtype != k.dtype or v.stride() != k.stride()
+            or k.stride(3) != 1 or k.dtype not in (torch.bfloat16, torch.float32)
+            or dh % 32 or dh > 256 or tuple(kq.shape) != (B, H, T, dh)
+            or vq.shape != kq.shape or tuple(ks.shape) != (B, H, T) or vs.shape != ks.shape):
+        raise ValueError(f"unsupported int8 cache write k={tuple(k.shape)} {k.dtype} "
+                         f"cache={tuple(kq.shape)}")
+    if torch.is_tensor(index):
+        pos = index.to(k.device, torch.int64).reshape(-1).expand(B).contiguous()
+    else:
+        pos = torch.full((B,), int(index), dtype=torch.int64, device=k.device)
+    launch("jl_int8_kv_write", k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
+           kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), pos.data_ptr(),
+           B, H, T, dh, int(k.dtype == torch.float32))
+    KV_WRITE_COUNTER.launches += 1
 
 
 # --- K9, int8 half ------------------------------------------------------------

@@ -62,16 +62,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import _build
-from ..decode.whisper_generate import (
-    apply_suppression_rows,
-    resolve_specials,
-    suppression_masks,
-)
+from ..decode.whisper_generate import greedy_step, resolve_specials, suppression_masks
 from ..frontend import features
 from ..models.ctc_model import DTYPES
 from ..models.whisper import HEAD_MAJOR_MIN_BATCH
 from ..parallel.tp import check_capturable
+from ..utils.graphs import CapturedStep
 
 
 @dataclass
@@ -188,7 +184,12 @@ class ServingEngine:
         self.step_launches: Dict[str, int] = {}
         self.replays = 0
         self.capture_s = 0.0
-        self._graph = self._capture() if dev.type == "cuda" and graph else None
+        self._graph = None
+        if dev.type == "cuda" and graph:
+            # warming steps idle lanes only, which admission overwrites
+            with torch.no_grad():
+                cap = CapturedStep(self._step)
+            self._graph, self.step_launches, self.capture_s = cap, cap.launches, cap.capture_s
 
     # ------------------------------------------------------------- public API
     def submit(self, audio, sample_rate: Optional[int] = None, admit: bool = True) -> int:
@@ -279,49 +280,12 @@ class ServingEngine:
 
     def _step(self) -> None:
         """One decode step of every lane, in place on the state (the JAX
-        engine's loop body): prompt tokens are forced, finished lanes write
-        EOT (nothing past the row's end) and stay at their position."""
-        tokens, pos, done = self._tokens, self._pos, self._done
-        logits, _ = self.model.decode_step(tokens.gather(1, pos[:, None]), pos, self._enc_all,
-                                           self._caches)
-        logits = apply_suppression_rows(logits, pos, self._P, self._always, self._begin)
-        nxt = torch.argmax(logits, dim=-1)
-        in_row = pos + 1 < self.max_len
-        at = torch.where(in_row, pos + 1, pos)
-        cur_next = tokens.gather(1, at[:, None])[:, 0]
-        is_prompt = pos + 1 < self._P
-        nxt = torch.where(done, self.eot, torch.where(is_prompt, cur_next, nxt))
-        nxt = torch.where(in_row, nxt, cur_next)
-        tokens.scatter_(1, at[:, None], nxt[:, None])
-        active = ~done
-        done |= (active & ~is_prompt & (nxt == self.eot)) | (pos + 1 >= self.max_len - 1)
-        pos.copy_(torch.where(active, pos + 1, pos))
-
-    @torch.no_grad()
-    def _capture(self) -> torch.cuda.CUDAGraph:
-        """Warm the step on a side stream (the kernels' library, cuBLAS's
-        handles and workspaces, the serving copies), then capture it. The
-        launch counters count the capture's launches, which run nothing:
-        they are kept as ``step_launches`` and taken back off the counters.
-        Warming steps idle lanes only, which admission overwrites."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._step()
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        before = {c: c.launches for c in _build.COUNTERS}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._step()
-        for c, n in before.items():
-            if c.launches != n:
-                self.step_launches[c.name] = c.launches - n
-                c.launches = n
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
-        return graph
+        engine's loop body, ``greedy_step`` at each lane's position): prompt
+        tokens are forced, finished lanes write EOT (nothing past the row's
+        end) and stay at their position."""
+        greedy_step(self.model, self._tokens, self._pos, self._done, self._enc_all,
+                    self._caches, None, self._P, self.max_len, self.eot, self._always,
+                    self._begin)
 
     @torch.no_grad()
     def _dispatch(self) -> None:

@@ -53,16 +53,15 @@ card unless ``graph=False`` asks for the eager step.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from .. import _build
 from ..frontend import features
 from ..parallel.tp import check_capturable
+from ..utils.graphs import CapturedStep
 
 
 @dataclass
@@ -468,30 +467,15 @@ class StreamingPool:
         return torch.cat([lens[:, None], ids], 1)
 
     @torch.no_grad()
-    def _capture(self) -> torch.cuda.CUDAGraph:
+    def _capture(self) -> CapturedStep:
         """Warm the ring step on a side stream (the kernels' library,
         cuDNN's and cuBLAS's handles, the serving copies, the position
         table, K1's constants, a split model's NCCL communicators), then
-        capture it. Every row is idle then,
-        so the ring is left as it was."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._ring_step()
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        before = {c: c.launches for c in _build.COUNTERS}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._out = self._ring_step()
-        for c, n in before.items():
-            if c.launches != n:
-                self.step_launches[c.name] = c.launches - n
-                c.launches = n
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
-        return graph
+        capture it (utils/graphs.py). Every row is idle then, so the ring
+        is left as it was."""
+        cap = CapturedStep(self._ring_step)
+        self._out, self.step_launches, self.capture_s = cap.out, cap.launches, cap.capture_s
+        return cap
 
     def _dispatch_ring(self, jobs) -> dict:
         """Stage the jobs' hop samples and control rows, copy them in (two

@@ -1,0 +1,108 @@
+"""CUDA graph capture of a decode step: the one rule that the serving engine
+(serve/engine.py), the streaming pool (serve/streaming.py) and the offline
+decode loops (decode/whisper_generate.py, decode/ctc.py) share.
+
+A step is warmed first: run eagerly on a side stream, so the kernels'
+library, cuBLAS's handles and workspaces, the serving copies, the position
+tables and a split model's NCCL communicators exist before the capture
+(the warm-up may be real work: the offline loops warm with their forced
+prompt steps and their first generated step). Then the step is captured
+on that stream. The launch counters (``_build.COUNTERS``) count the
+capture's launches, which run nothing: they are kept as the step's
+``launches`` by counter name and taken back off the counters, so a path's
+launches are the counted ones plus ``launches`` x ``replays``. The offline
+loops also add every replay's launches to ``TALLY``, which the phases of
+chip_smoke.py read beside the counters. A capture or replay that fails
+raises; nothing falls back to the eager step.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .. import _build
+from ..parallel.tp import check_capturable
+
+
+class GraphTally:
+    """The offline loops' replays since the last ``reset``: the launches
+    they made by counter name, the replays, and the seconds the warm-ups
+    and captures took."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s = 0.0
+
+
+TALLY = GraphTally()
+_WARM_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _warm_stream() -> "torch.cuda.Stream":
+    """The current device's warm-up stream, made once: cuBLAS keeps a
+    workspace (32 MiB on the H100) for every stream it runs on, so a new
+    stream a capture would hold that much a call until the process ends."""
+    dev = torch.cuda.current_device()
+    if dev not in _WARM_STREAMS:
+        _WARM_STREAMS[dev] = torch.cuda.Stream()
+    return _WARM_STREAMS[dev]
+
+
+def capturing(device: torch.device, graph: bool, model=None, who: str = "") -> bool:
+    """Whether a loop on `device` captures its steps: on a card unless
+    graph=False. A split `model` that cannot be captured raises
+    (``parallel/tp.check_capturable``, naming graph=False)."""
+    if not graph or torch.device(device).type != "cuda":
+        return False
+    if model is not None:
+        check_capturable(model, device, who)
+    return True
+
+
+class CapturedStep:
+    """``step`` captured in a CUDA graph after ``warm`` (``step`` itself
+    when None) ran once on a side stream. ``out`` is what the captured call
+    returned (tensors the replays rewrite), ``launches`` the kernel launches
+    of one replay by counter name, ``capture_s`` the seconds the warm-up and
+    the capture took. With ``tally`` every replay is also added to
+    ``TALLY``. The graph reads and writes the addresses of the state
+    tensors `step` touched: their owner (the loop, the engine, the pool)
+    keeps them alive while it replays; the object holds no reference to
+    them, so an owner that holds it forms no cycle."""
+
+    def __init__(self, step: Callable, warm: Optional[Callable] = None, tally: bool = False):
+        t0 = time.perf_counter()
+        side = _warm_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            (warm or step)()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        before = {c: c.launches for c in _build.COUNTERS}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = step()
+        self.launches: Dict[str, int] = {}
+        for c, n in before.items():
+            if c.launches != n:
+                self.launches[c.name] = c.launches - n
+                c.launches = n
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+        self.tally = tally
+        if tally:
+            TALLY.capture_s += self.capture_s
+
+    def replay(self) -> None:
+        self.graph.replay()
+        if self.tally:
+            TALLY.replays += 1
+            for name, n in self.launches.items():
+                TALLY.launches[name] = TALLY.launches.get(name, 0) + n
