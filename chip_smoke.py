@@ -217,7 +217,8 @@ non-zero and prints no result line):
               rescoring) and spec_greedy, each with exact launches (K1,
               K7 through K2 and K3 a block, K4 for the CTC ids, K9 twice a
               decoder block a step, K7-mlp and K6 a decoder block a
-              teacher-forced pass) and run twice to the same texts; the
+              teacher-forced pass, spec's passes after the first replayed
+              from one captured pass) and run twice to the same texts; the
               kernel path against the plain one: log-mel, the encoder
               (relative L2), CTC ids by the margin rule, greedy and spec
               tokens through the plain decoder's steps by the margin rule,
@@ -423,7 +424,18 @@ non-zero and prints no result line):
               timed with its bound; the Whisper AR beam at WHISPER_BEAM,
               the joint greedy and beam of 8 (16 x 30 s) and the device
               CTC beam (128 x 30 s, beam 8, f32 and f64), each captured
-              against eager, bitwise, with both routes' times.
+              against eager, bitwise, with both routes' times;
+              temperature sampling (T 1.0, one seeded CUDA generator
+              registered with the graph) on large-v3 bf16 and int8 over
+              DG_EAGER_LEN, bitwise eager, a replayed sampled step timed
+              beside the replayed greedy one; spec_greedy on the joint
+              config (16 x 30 s, the CTC draft): its first pass eagerly,
+              then one captured pass a replay, tokens, lengths and passes
+              bitwise eager, ms a pass both ways; then a process of its
+              own (`--cold-capture-worker`) whose first decode work is
+              greedy and the beam under prompt=() captured, on the joint
+              config and a quantize()d large-v3 cut to 2 + 2 blocks, twice
+              on new encoder outputs, each bitwise its graph=False run.
 
 Each main path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that never launched fails the run. A
@@ -4736,6 +4748,7 @@ def phase_joint(counters, workdir: Path, card: str):
     from jiao_liao_speech_recognition_torch.decode.speculative import joint_spec_greedy
     from jiao_liao_speech_recognition_torch.frontend.audio_io import write_wav
     from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
+    from jiao_liao_speech_recognition_torch.utils import graphs
 
     t_phase = time.perf_counter()
     bundle = joint_bundle()
@@ -4763,6 +4776,9 @@ def phase_joint(counters, workdir: Path, card: str):
             "K4": int(strategy in ("ctc_greedy", "spec_greedy"))}
         wrong = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
         check(not wrong, f"{path}: launches (got, want): {wrong}")
+        if strategy == "spec_greedy":  # the first pass eagerly, then one a replay
+            check(graphs.TALLY.replays == n - 1,
+                  f"{path}: {graphs.TALLY.replays} replays of the captured pass, {n} passes")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         again = bundle.transcribe(utts, decode_cfg=dc)
@@ -6655,6 +6671,42 @@ def phase_tp(counters, card: str):
     return launches, errs, rows
 
 
+def k2tp_core_readings(core) -> dict:
+    """attention_core_tp's device time, its three launches queued behind a
+    spin kernel (its cuda_ms, a host loop of three launches, times the
+    dispatch at the smaller shapes), its attention core alone (queued)
+    beside the library's masked SDPA forward on the same q, k, v (queued;
+    the core's only library counterpart, context: it rounds P at another
+    point), and the host microseconds of the wrapper's per-call conversions
+    (weights and lengths .to(device, dtype).contiguous()), with whether any
+    of them copies."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import fused_attention as fa
+    from jiao_liao_speech_recognition_torch.ops import fused_mlp as fm
+
+    x, g, bl, w_qkv, b_qkv, lens, H, eps = core
+    B, T, _ = x.shape
+    D = w_qkv.shape[1] // 3
+    qkv = fm.ln_qkv_launch(x, g, bl, w_qkv, b_qkv, eps)
+    q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, T, H, D // H) for i in range(3))
+
+    def conversions():
+        return ([t.to(x.device, torch.bfloat16).contiguous() for t in (w_qkv, b_qkv)]
+                + [lens.to(x.device, torch.int32).contiguous()])
+
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        conversions()
+    conv_us = (time.perf_counter() - t0) * 1e3
+    return {"core_ms": queued_ms(lambda: fa.attention_core_launch(qkv, lens, H), 20),
+            "core_library_ms": _yardsticks().sdpa_forward_ms(q, k, v, lens),
+            "queued_ms": queued_ms(lambda: fa.attention_core_tp(*core), 20),
+            "wrapper_conversions_us": conv_us,
+            "wrapper_conversions_copy": any(
+                a.data_ptr() != b.data_ptr() for a, b in zip(conversions(), (w_qkv, b_qkv, lens)))}
+
+
 def tp_timing(split, cases) -> dict:
     """The row-parallel GEMM, ln_fc1 and attention_core_tp on rank 0's
     operands (the large-v3 encoder's B=16 x 1500 rows at tp 2, the
@@ -6719,8 +6771,10 @@ def tp_timing(split, cases) -> dict:
         dh = Dl // Hl
         ops = 2.0 * Mf * df * Nq + fl_flops(Bf, Tf, lf, Hl, dh)
         b_ms, b_by = bound(Mf * df * 2 + df * Nq * 2 + Mf * Dl * 2, {"bf16": ops})
-        rows["K2-tp"] = {"ms": ms, "plain_ms": ms_p, "library_ms": None, "bound_ms": b_ms,
-                         "bound_by": b_by, "shape": [Bf, Tf, df, Hl, dh], "tp": 2}
+        r = k2tp_core_readings(core)
+        rows["K2-tp"] = {"ms": r.pop("queued_ms"), "host_loop_ms": ms, "plain_ms": ms_p,
+                         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                         "shape": [Bf, Tf, df, Hl, dh], "tp": 2, **r}
         k5 = []
         for tp in (2, 4):
             rb = split[("large_v3", tp)][0]
@@ -7538,9 +7592,11 @@ def tpc_timing(ranks, rng) -> dict:
                 Dl = Nq // 3
                 ops = 2.0 * M * 512 * Nq + fl_flops(B, T, lens, Hl, Dl // Hl)
                 b_ms, b_by = bound(M * 512 * 2 + 512 * Nq * 2 + M * Dl * 2, {"bf16": ops})
+                r = k2tp_core_readings(core)
                 rows["K2-tp"].append({"rows": tag, "shape": [B, T, 512, Hl, Dl // Hl], "tp": tp,
-                                      "ms": ms, "plain_ms": ms_p, "bound_ms": b_ms,
-                                      "bound_by": b_by, "library_ms": None})
+                                      "ms": r.pop("queued_ms"), "host_loop_ms": ms,
+                                      "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                                      "library_ms": None, **r})
                 if tp != 2 or tag != "ring":
                     continue
                 mlp, mln = blk.mlp, blk.mlp_ln
@@ -7681,16 +7737,23 @@ DG_TIMED_REPLAYS = 4  # replays of a kept graph timed and profiled
 # 4 heads of 128, 64 positions padded to 128)
 DG_KV_CASES = ((16, 20, 256, 64, (0, 223, 255)), (128, 4, 128, 128, (0, 63, 127)))
 DG_KV_ITERS = (50, 10)  # timed calls of the kernel, of its plain version
+DG_SAMPLE_T, DG_SAMPLE_SEED = 1.0, 26  # temperature sampling: T, the CUDA generator's seed
+DG_TIMED_PAIRS = 2  # interleaved timings of the sampled and the greedy replays
+# the fresh-process worker: prompt=() loops at DG_COLD_LEN, beams of DG_COLD_BEAM,
+# DG_COLD_B rows, on the joint config and on a quantize()d large-v3 cut to
+# DG_COLD_LAYERS + DG_COLD_LAYERS blocks (phase 21's cut)
+DG_COLD_LEN, DG_COLD_BEAM, DG_COLD_B, DG_COLD_LAYERS = 24, 4, 16, 2
+DG_COLD_TIMEOUT_S = 300
 
 
 def captured_steps(max_len: int, prompt_len: int) -> int:
     """Decode steps of a captured loop whose rows never end: the prompt's
-    steps eagerly, then whole chunks of STOP_CHECK_EVERY (the last one
-    masked past max_len - 1 on the device)."""
+    steps eagerly (step 0 under an empty prompt), then whole chunks of
+    STOP_CHECK_EVERY (the last one masked past max_len - 1 on the device)."""
     from jiao_liao_speech_recognition_torch.decode.whisper_generate import STOP_CHECK_EVERY
 
     n = max_len - 1
-    first = min(prompt_len, n)
+    first = max(min(prompt_len, n), min(1, n))
     return n if first >= n else first + STOP_CHECK_EVERY * -(-(n - first) // STOP_CHECK_EVERY)
 
 
@@ -7814,12 +7877,12 @@ def dg_kv_write_rows() -> tuple:
     return worst, {**row, "cases": cases}
 
 
-def both_routes(fn, name: str) -> dict:
+def both_routes(fn, name: str, unit: str = "step") -> dict:
     """fn(graph) with graph=False, then graph=True, each after a reset of
     the step counter and the graph tally -> the two results bitwise equal
-    (checked), each route's seconds and steps (decode steps, or the frames
-    of the longest row for the CTC beam: fn may return them third), and
-    the captured call's capture seconds."""
+    (checked), each route's seconds and units (decode steps, or spec
+    passes with unit="pass"; none for the CTC beam), and the captured
+    call's capture seconds."""
     from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
     from jiao_liao_speech_recognition_torch.utils import graphs
 
@@ -7828,15 +7891,17 @@ def both_routes(fn, name: str) -> dict:
         wg.STEPS.reset()
         graphs.TALLY.reset()
         out, s = timed(lambda: fn(graph))
-        runs[graph] = (out, s, wg.STEPS.steps, graphs.TALLY.capture_s, graphs.TALLY.replays)
+        n = wg.STEPS.passes if unit == "pass" else wg.STEPS.steps
+        runs[graph] = (out, s, n, graphs.TALLY.capture_s, graphs.TALLY.replays)
     (a, a_s, a_n, _, _), (b, b_s, b_n, cap_s, replays) = runs[False], runs[True]
+    units = {"step": "steps", "pass": "passes"}[unit]
     r = {"bitwise_eager": len(a) == len(b) and all(
             x.shape == y.shape and bool((x == y).all()) for x, y in zip(a, b)),
          "eager_s": a_s, "graph_s": b_s, "capture_s": cap_s, "replays": replays,
-         "eager_steps": a_n, "graph_steps": b_n}
+         f"eager_{units}": a_n, f"graph_{units}": b_n}
     if a_n and b_n:
-        r.update(eager_ms_per_step=1e3 * a_s / a_n, graph_ms_per_step=1e3 * b_s / b_n,
-                 graph_ms_per_step_after_capture=1e3 * (b_s - cap_s) / b_n)
+        r.update({f"eager_ms_per_{unit}": 1e3 * a_s / a_n, f"graph_ms_per_{unit}": 1e3 * b_s / b_n,
+                  f"graph_ms_per_{unit}_after_capture": 1e3 * (b_s - cap_s) / b_n})
     check(r["bitwise_eager"], f"decode_graphs {name}: the captured loop differs from eager: {r}")
     return r
 
@@ -7862,6 +7927,8 @@ def phase_decode_graphs(counters, card: str):
     from jiao_liao_speech_recognition_torch import api
     from jiao_liao_speech_recognition_torch.decode import ctc
     from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+    from jiao_liao_speech_recognition_torch.decode.ctc import ctc_greedy_collapse
+    from jiao_liao_speech_recognition_torch.decode.speculative import spec_greedy_from_enc
     from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
     from jiao_liao_speech_recognition_torch.models import layers
     from jiao_liao_speech_recognition_torch.ops import quant
@@ -7883,9 +7950,24 @@ def phase_decode_graphs(counters, card: str):
     def greedy(model, n, graph):
         return wg.greedy_from_enc(model, enc, None, n, prompt, eot, graph=graph, **sup)
 
-    # captured against eager; int8 also captured with the plain write
+    # captured against eager (each captured graph kept for the sampled
+    # step's comparison); int8 also captured with the plain write
+    def keeping(outs, fn):
+        """fn, its results appended to outs (both_routes runs the captured
+        route last)."""
+        def run(graph):
+            outs.append(fn(graph))
+            return outs[-1]
+        return run
+
+    greedy_caps, greedy_ids = {}, {}
     for name, model in models.items():
-        r = both_routes(lambda g, model=model: greedy(model, DG_EAGER_LEN, g), f"greedy {name}")
+        outs = []
+        with KeptGraphs() as kg:
+            r = both_routes(keeping(outs, lambda g, model=model: greedy(model, DG_EAGER_LEN, g)),
+                            f"greedy {name}")
+        greedy_caps[name], greedy_ids[name] = kg.kept[0], outs[-1][0]
+        del outs
         if name == "int8":
             with KeptGraphs() as kg:
                 want = greedy(model, DG_EAGER_LEN, True)
@@ -7904,6 +7986,35 @@ def phase_decode_graphs(counters, card: str):
             check(r["plain_write_bitwise"] and saved > 0 and saved % L == 0,
                   f"decode_graphs int8: the capture with the plain write: {r}")
         emit({"phase": "decode_graphs", "greedy": name, "B": B, "max_len": DG_EAGER_LEN, **r})
+
+    # temperature sampling, one seeded CUDA generator a call (registered with
+    # the graph): the captured loop bitwise eager; a replayed sampled step
+    # against a replayed greedy step of the same shape, interleaved
+    def sampled(model, graph):
+        gen = torch.Generator(device="cuda").manual_seed(DG_SAMPLE_SEED)
+        return wg.greedy_from_enc(model, enc, None, DG_EAGER_LEN, prompt, eot,
+                                  temperature=DG_SAMPLE_T, generator=gen, graph=graph, **sup)
+
+    for name, model in models.items():
+        outs = []
+        with KeptGraphs() as kg:
+            r = both_routes(keeping(outs, lambda g, model=model: sampled(model, g)),
+                            f"sampled {name}")
+        cap, g_cap, ids = kg.kept[0], greedy_caps.pop(name), outs[-1][0]
+        del outs
+        ms = {"sampled": [], "greedy": []}
+        for _ in range(DG_TIMED_PAIRS):
+            for key, c in (("sampled", cap), ("greedy", g_cap)):
+                ms[key].append(cuda_ms(c.graph.replay, DG_TIMED_REPLAYS) / wg.STOP_CHECK_EVERY)
+        r.update(replayed_ms_per_step=ms["sampled"], greedy_replayed_ms_per_step=ms["greedy"],
+                 sampled_over_greedy=statistics.median(ms["sampled"])
+                 / statistics.median(ms["greedy"]),
+                 tokens_differing_from_greedy=int((ids != greedy_ids.pop(name)).sum()))
+        del kg, cap, g_cap, ids
+        emit({"phase": "decode_graphs", "sampled": name, "B": B, "max_len": DG_EAGER_LEN,
+              "temperature": DG_SAMPLE_T, "seed": DG_SAMPLE_SEED, **r})
+        check(r["tokens_differing_from_greedy"] > 0,
+              f"decode_graphs sampled {name}: the draws gave greedy's tokens")
 
     # the main path: the captured loops alone over WHISPER_MAX_LEN
     kept = {}
@@ -7955,7 +8066,23 @@ def phase_decode_graphs(counters, card: str):
         r = both_routes(fn, f"joint {name}")
         emit({"phase": "decode_graphs", "joint": name, "config": JOINT_CONFIG, "rows": JOINT_B,
               "beam": JOINT_BEAM if name == "beam" else 1, "max_len": JOINT_MAX_LEN, **r})
-    del joint, enc_j, el
+
+    # spec_greedy over the CTC branch's draft: one captured pass a replay
+    with torch.inference_mode():
+        draft, dlens = ctc_greedy_collapse(joint.model.ctc_argmax_ids(enc_j), el, 0)
+
+    def spec(graph):
+        ids, lens, passes = spec_greedy_from_enc(joint.model, enc_j, el, draft, dlens,
+                                                 max_len=JOINT_MAX_LEN, return_passes=True,
+                                                 graph=graph)
+        return ids, lens, torch.tensor(passes)
+
+    r = both_routes(spec, "joint spec_greedy", unit="pass")
+    emit({"phase": "decode_graphs", "joint": "spec_greedy", "config": JOINT_CONFIG,
+          "rows": JOINT_B, "max_len": JOINT_MAX_LEN, "draft_tokens": int(dlens.sum()), **r})
+    check(r["replays"] == r["graph_passes"] - 1 and r["eager_passes"] == r["graph_passes"],
+          f"decode_graphs spec_greedy: a replay is not one pass: {r}")
+    del joint, enc_j, el, draft, dlens
 
     # the device CTC beam, f32 and f64: seconds a batch both ways
     cb = ctc_beam_bundle()
@@ -7971,8 +8098,91 @@ def phase_decode_graphs(counters, card: str):
               "rows": CTC_BEAM_B, "beam": CTC_BEAM_K, "frames": int(olens.max()),
               "frames_per_replay": ctc.FRAMES_PER_REPLAY, **r})
     del cb, lp, x
+    gc.collect()
+    torch.cuda.empty_cache()  # the worker's process shares this card
+    cold_capture_check()
     emit({"phase": "decode_graphs", "phase_s": time.perf_counter() - t_phase})
     return launches, kv_err, kv_row
+
+
+def cold_models():
+    """The fresh-process worker's models: the joint config's decoder
+    (joint_bundle) and a quantize()d large-v3 cut to DG_COLD_LAYERS +
+    DG_COLD_LAYERS blocks (phase 21's cut), each with its encoder width
+    and frames -> {name: (model, d_model, encoder frames)}."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
+    from jiao_liao_speech_recognition_torch.models.bundle import ModelBundle
+    from jiao_liao_speech_recognition_torch.models.layers import cast_for_serving
+    from jiao_liao_speech_recognition_torch.models.whisper import WhisperModel
+
+    joint = joint_bundle()
+    cfg = whisper_config()
+    w = cfg.whisper = dataclasses.replace(cfg.whisper, encoder_layers=DG_COLD_LAYERS,
+                                          decoder_layers=DG_COLD_LAYERS)
+    model = WhisperModel(w, device="cuda", seed=21)
+    cast_for_serving(model, torch.bfloat16)
+    qb = ModelBundle(cfg, model.eval(), CharTokenizer(
+        [chr(0x4E00 + i) for i in range(w.vocab_size - 2)])).quantize()
+    jc = joint.config.joint
+    return {"joint": (joint.model, jc.d_model, 750),
+            "large-v3 2+2 int8": (qb.model, w.d_model, WHISPER_T)}
+
+
+def cold_capture_worker() -> int:
+    """Phase 23's fresh process (`--cold-capture-worker`): the loops' first
+    decode work on each model is a captured call under prompt=(), so no
+    step, serving copy, position table or cuBLAS workspace of the decoder
+    exists before it (the encoder output is drawn, not computed). Per
+    model, two calls on new encoder outputs, each greedy and the beam of
+    DG_COLD_BEAM captured first (greedy first on the joint model, the beam
+    first on the int8 one), then with graph=False; every captured result
+    must be bitwise its eager one. Prints one JSON line -> 0 when all are."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
+
+    load_counters()  # the port beside this script on the path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    results = {}
+    for m, (name, (model, d, frames)) in enumerate(cold_models().items()):
+        eot = 0 if name == "joint" else wg.resolve_specials(model.cfg)[1]
+        for call in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(100 * m + call)
+            enc = torch.randn(DG_COLD_B, frames, d, device="cuda", generator=gen).to(
+                getattr(torch, model.cfg.dtype))
+            lens = torch.randint(1, frames + 1, (DG_COLD_B,), device="cuda", generator=gen,
+                                 dtype=torch.int32) if name == "joint" else None
+            loops = {"greedy": lambda g: wg.greedy_from_enc(model, enc, lens, DG_COLD_LEN, (),
+                                                            eot, graph=g),
+                     "beam": lambda g: wg.beam_from_enc(model, enc, lens, DG_COLD_BEAM,
+                                                        DG_COLD_LEN, (), eot, graph=g)}
+            order = ("greedy", "beam") if name == "joint" else ("beam", "greedy")
+            captured = {k: loops[k](True) for k in order}
+            for k in order:
+                eager = loops[k](False)
+                results[f"{name}/call {call}/{k}"] = all(
+                    torch.equal(a, b) for a, b in zip(captured[k], eager))
+    torch.cuda.synchronize()
+    print(json.dumps({"cold_capture": results, "seconds": time.perf_counter() - t0}), flush=True)
+    return 0 if all(results.values()) else 1
+
+
+def cold_capture_check() -> None:
+    """Run cold_capture_worker in a process of its own; fail the run when it
+    fails or a captured loop differs from its eager self."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--cold-capture-worker"],
+                          capture_output=True, text=True, timeout=DG_COLD_TIMEOUT_S, cwd=root)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith('{"cold_capture"')]
+    check(proc.returncode == 0 and len(lines) == 1, f"the cold-capture worker exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    emit({"phase": "decode_graphs", **json.loads(lines[0]),
+          "process_s": time.perf_counter() - t0})
 
 
 def fl_flops(B, T, lens, H, dh) -> float:
@@ -8006,6 +8216,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--multigpu-worker"]:
         return multigpu_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--cold-capture-worker"]:
+        return cold_capture_worker()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

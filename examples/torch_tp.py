@@ -2,7 +2,7 @@
 """Tensor parallelism on four cards, held to one card.
 
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 examples/torch_tp.py \\
-        [--part serve|train|ctc|all] [--steps 3] [--rate-steps 4] [--out tp.json]
+        [--part serve|train|ctc|loops|all] [--steps 3] [--rate-steps 4] [--out tp.json]
 
 Under the process group (``parallel/multihost.initialize``, NCCL):
 
@@ -29,7 +29,13 @@ Under the process group (``parallel/multihost.initialize``, NCCL):
    x model 2, ``--steps`` steps of B=16 x 30 s from chip_smoke's seeded
    corpora, each card's peak, and large-v3's steps/s over ``--rate-steps``
    more steps with a profiled step's idle share (examples/torch_multigpu.py);
-3. the CTC and joint paths (``--part ctc``, not in ``all``): the flagship
+3. the offline decode loops (``--part loops``, not in ``all``): on the
+   split bundles of both meshes, Whisper large-v3 greedy, temperature
+   sampling and the beam, the joint config's greedy, beam and spec_greedy,
+   and the flagship's device CTC beam, each captured (its collectives in
+   the graph) against the same call with graph=False on every rank,
+   bitwise, with both routes' ms a step (``loops_measure``);
+4. the CTC and joint paths (``--part ctc``, not in ``all``): the flagship
    (CTCModelConfig's widths and depth) and configs/joint_ctc_attention.yaml
    (random init, seed 0) loaded split by ``api.load`` at data 2 x model 2,
    then model 4: a StreamingPool of POOL_SLOTS slots (10 s windows, 0.4 s
@@ -612,6 +618,103 @@ def group_ctc(args) -> dict:
     return out
 
 
+# --part loops: the offline decode loops on the serve and ctc parts' split
+# bundles, each captured against graph=False on every rank; Whisper's at
+# chip_smoke phase 23's lengths, its beam over two rows of four
+LOOP_BEAM = (2, 4)
+LOOP_TIMED_REPLAYS = 4  # replays of a loop's kept graph timed
+LOOP_SAMPLE_T, LOOP_SAMPLE_SEED = chip_smoke.DG_SAMPLE_T, chip_smoke.DG_SAMPLE_SEED
+
+
+def loops_measure(args, tag: str, mesh) -> dict:
+    """Every offline decode loop on `mesh`'s split bundles (large-v3 bf16,
+    the joint config, the flagship), each on this data rank's rows of the
+    B=16 batch: Whisper greedy, temperature sampling (one seeded generator
+    a call) and the beam; the joint greedy, beam and spec_greedy over the
+    CTC draft; the device CTC beam. Each through chip_smoke.both_routes: the
+    captured call against graph=False, bitwise on this rank (a difference
+    is recorded as False, and the run exits 1; on a card every loop must
+    also have replayed its graph), with both routes' ms a step (a pass for
+    spec) and the kept graph's replays timed a unit (a step, a pass or a
+    frame). Every rank runs the same calls."""
+    from jiao_liao_speech_recognition_torch.decode import ctc
+    from jiao_liao_speech_recognition_torch.decode.speculative import spec_greedy_from_enc
+
+    dev = args.device
+    wb = api.load(config=serve_config(args, mesh), device=dev)
+    flag, joint = ctc_load(args, mesh)
+    w = wb.config.whisper
+    prompt, eot = wg.resolve_specials(w)
+    sup = dict(suppress_ids=w.suppress_ids, begin_suppress_ids=w.begin_suppress_ids)
+    rows = wb._rows(BATCH) or slice(0, BATCH)
+    wavs = batch_wavs(args)
+    L = 12 if args.tiny else chip_smoke.DG_EAGER_LEN
+    JL = 12 if args.tiny else chip_smoke.JOINT_MAX_LEN
+    with torch.inference_mode():
+        x = torch.from_numpy(np.stack(wavs)).to(dev)
+        enc = wb.model.encode(featurize_batch(x, wb.config.frontend)[rows])
+        jw, ja, _ = joint._prepare_audio_chunked(wavs, None)
+        enc_j, el = joint.model.encode(*joint._features(jw[rows], ja[rows]))
+        draft, dlens = ctc.ctc_greedy_collapse(joint.model.ctc_argmax_ids(enc_j), el, 0)
+        fw, fa, _ = flag._prepare_audio_chunked(wavs, None)
+        lp, olens = flag.encode(*flag._features(fw[rows], fa[rows]))
+
+    def sampled(g):
+        gen = torch.Generator(device=dev).manual_seed(LOOP_SAMPLE_SEED)
+        return wg.greedy_from_enc(wb.model, enc, None, L, prompt, eot, temperature=LOOP_SAMPLE_T,
+                                  generator=gen, graph=g, **sup)
+
+    def spec(g):
+        ids, lens, passes = spec_greedy_from_enc(joint.model, enc_j, el, draft, dlens, max_len=JL,
+                                                 return_passes=True, graph=g)
+        return ids, lens, torch.tensor(passes)
+
+    nb, K = LOOP_BEAM
+    loops = {
+        "whisper_greedy": lambda g: wg.greedy_from_enc(wb.model, enc, None, L, prompt, eot,
+                                                       graph=g, **sup),
+        "whisper_sampled": sampled,
+        "whisper_beam": lambda g: wg.beam_from_enc(wb.model, enc[:nb], None, K, L, prompt, eot,
+                                                   graph=g, **sup),
+        "joint_greedy": lambda g: wg.greedy_from_enc(joint.model, enc_j, el, JL, (0,), 0,
+                                                     graph=g),
+        "joint_beam": lambda g: wg.beam_from_enc(joint.model, enc_j, el, chip_smoke.JOINT_BEAM,
+                                                 JL, (0,), 0, graph=g),
+        "joint_spec": spec,
+        "ctc_beam_device": lambda g: ctc.ctc_prefix_beam_search(
+            lp, olens, chip_smoke.CTC_BEAM_K, 0, topk_tokens=16, graph=g)}
+    rec = {"case": f"loops_{tag}", "mesh": None if wb.mesh is None else list(wb.mesh.shape),
+           "rows_per_rank": enc.shape[0],
+           "heads_a_rank": wb.model.decoder.blocks[0].self_attn.num_heads}
+    per_replay = {"joint_spec": 1, "ctc_beam_device": ctc.FRAMES_PER_REPLAY}
+    for name, fn in loops.items():
+        mh.barrier()
+        with chip_smoke.KeptGraphs() as kg:
+            try:
+                r = chip_smoke.both_routes(fn, f"{tag} {name}",
+                                           unit="pass" if name == "joint_spec" else "step")
+            except AssertionError as e:  # recorded: every rank reaches the gather
+                r = {"bitwise_eager": False, "error": str(e)[:500]}
+        if kg.kept:  # every rank replays the kept graph alike (its collectives)
+            r["replayed_ms_per_unit"] = chip_smoke.cuda_ms(
+                kg.kept[-1].graph.replay, LOOP_TIMED_REPLAYS) / per_replay.get(
+                    name, wg.STOP_CHECK_EVERY)
+        del kg
+        rec[name] = {**r, "bitwise_every_rank": gathered(r["bitwise_eager"]),
+                     "replayed_every_rank": gathered(r.get("replays", 0) > 0)}
+    del wb, flag, joint
+    return rec
+
+
+def group_loops(args) -> dict:
+    out = {}
+    for tag, mesh in SERVE_MESHES.items():
+        out[f"loops_{tag}"] = loops_measure(args, tag, mesh)
+        emit(out[f"loops_{tag}"])
+        mg.free()
+    return out
+
+
 def joint_train_cases(work: Path, args) -> dict:
     extra = [f"data.train_manifest={work / 'flag' / 'train.jsonl'}", "joint.dropout=0.0",
              *(TINY_JOINT_FLAG if args.tiny else [])]
@@ -640,7 +743,7 @@ def joint_train_case(cfg, name: str, args) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("serve", "train", "ctc", "all"), default="all")
+    ap.add_argument("--part", choices=("serve", "train", "ctc", "loops", "all"), default="all")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--rate-steps", type=int, default=4)
     ap.add_argument("--workdir", default=str(Path(tempfile.gettempdir()) / "jl_tp"))
@@ -656,15 +759,30 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
     work = Path(args.workdir)
     work.mkdir(parents=True, exist_ok=True)
-    mh.initialize(device=args.device, graph_collectives=args.part in ("serve", "ctc", "all"))
+    mh.initialize(device=args.device,
+                  graph_collectives=args.part in ("serve", "ctc", "loops", "all"))
     cards = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             timeout=60).stdout.strip().splitlines()
              if args.device == "cuda" else ["cpu"])
-    write_corpora(work, args)
-    mh.barrier()
     emit({"world": mh.process_count(), "cards": cards, "torch": torch.__version__,
           "part": args.part})
+    if args.part == "loops":
+        grouped = group_loops(args)
+        checks = {tag: {name: r["bitwise_every_rank"] + (
+                            r["replayed_every_rank"] if args.device == "cuda" else [])
+                        for name, r in rec.items() if isinstance(r, dict)}
+                  for tag, rec in grouped.items()}
+        ok = all(all(v) for c in checks.values() for v in c.values())
+        emit({"checks": checks, "ok": ok})
+        if args.out and mh.is_primary():
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"cards": cards, "cases": grouped,
+                                                  "checks": checks, "ok": ok}, indent=1))
+        mh.shutdown()
+        return 0 if ok else 1
+    write_corpora(work, args)
+    mh.barrier()
     t0 = time.perf_counter()
     grouped = {}
     if args.part in ("serve", "all"):

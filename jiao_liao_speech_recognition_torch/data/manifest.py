@@ -43,6 +43,10 @@ class Manifest:
     def texts(self) -> List[str]:
         return [r.text for r in self.rows]
 
+    def dialects(self) -> List[str]:
+        """The rows' dialect names, each once, sorted."""
+        return sorted({r.dialect for r in self.rows})
+
 
 def read_manifest(path: str | Path) -> Manifest:
     rows = []

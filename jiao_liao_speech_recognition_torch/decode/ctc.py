@@ -230,7 +230,8 @@ def ctc_prefix_beam_search(
             for _ in range(FRAMES_PER_REPLAY):
                 frame()
 
-        cap = graphs.CapturedStep(chunk, warm=frame, tally=True)  # the warm-up is frame 0
+        graphs.warm(frame, tally=True)  # frame 0 is the warm-up
+        cap = graphs.CapturedStep(chunk, tally=True, warmed=True)
         for _ in range(-(-(n - 1) // FRAMES_PER_REPLAY)):
             cap.replay()
     else:

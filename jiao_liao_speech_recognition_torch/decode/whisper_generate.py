@@ -9,17 +9,18 @@ The JAX loops are each one ``lax.while_loop`` on the device. Here each
 loop's step body keeps its state in tensors written in place (tokens,
 scores, done flags, the caches) and its position in a device tensor, so
 on a card the loop is a CUDA graph (utils/graphs.py): the forced prompt
-steps and the first generated step run eagerly as the warm-up, then a
-chunk of ``STOP_CHECK_EVERY`` steps is captured and replayed, with one host
-read of "every row done" after each replay, the counterpart of the JAX
-loop's ``cond_fn``. A step past the point where every row is done, or past
-the last position (``max_len - 1``), is masked on the device: it writes
-only EOT, or nothing, and leaves the beam as it is. So the tokens equal
-the JAX loops': the prompt is forced, finished rows emit EOT, and
-``lengths`` counts the tokens before the first EOT after the prompt. On the
-CPU, with ``graph=False`` and for temperature sampling, the same steps run
-eagerly. ``greedy_step`` is also the serving engine's step
-(serve/engine.py), at each lane's own position.
+steps and the first generated step (step 0 under an empty prompt) run
+eagerly as the warm-up, then a chunk of ``STOP_CHECK_EVERY`` steps is
+captured and replayed, with one host read of "every row done" after each
+replay, the counterpart of the JAX loop's ``cond_fn``. Temperature
+sampling is captured too, its generator registered with the graph. A step
+past the point where every row is done, or past the last position
+(``max_len - 1``), is masked on the device: it writes only EOT, or
+nothing, and leaves the beam as it is. So the tokens equal the JAX loops':
+the prompt is forced, finished rows emit EOT, and ``lengths`` counts the
+tokens before the first EOT after the prompt. On the CPU, and with
+``graph=False``, the same steps run eagerly. ``greedy_step`` is also the
+serving engine's step (serve/engine.py), at each lane's own position.
 
 On a tensor-parallel model (parallel/tp.py) every rank of a model group
 runs the same steps on the same rows: its logits are the group's joined
@@ -149,13 +150,26 @@ def greedy_step(model, tokens: torch.Tensor, pos: torch.Tensor, done: torch.Tens
     pos.copy_(torch.where(active, pos + 1, pos))
 
 
-def _run_loop(step, n: int, first: int, stop, capture: bool) -> None:
-    """Drive `step(p)` (p the host's step index) for up to n steps: the
-    first `first` steps eagerly (with capture, as the warm-up on a side
-    stream), then chunks of STOP_CHECK_EVERY steps while stop() is false
-    before the chunk: captured once and replayed with capture (each chunk
-    runs all STOP_CHECK_EVERY steps, the last one masked on the device past
-    the end), else eagerly up to n."""
+def sample_ids(logits: torch.Tensor, temperature: float,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One draw a row from softmax(logits / temperature) [.., V] -> ids, with
+    `generator` (the default generator of the logits' device when None).
+    torch.multinomial reads nothing back to the host, so a captured step
+    draws with it too."""
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+
+
+def _run_loop(step, n: int, first: int, stop, capture: bool, per_replay: int = STOP_CHECK_EVERY,
+              generator: Optional[torch.Generator] = None) -> int:
+    """Drive `step(p)` (p the host's step index) for up to n steps -> the
+    steps run. The first `first` steps run eagerly (with capture, as the
+    warm-up on the side stream, and at least one: under an empty prompt
+    step 0, which the JAX loop runs too). Then, while stop() is false,
+    chunks of `per_replay` steps: with capture, the chunk is captured at
+    the first one needed and replayed (each replay runs all `per_replay`
+    steps, masked on the device past the end); else eagerly up to n.
+    `generator` is registered with the graph (``CapturedStep``)."""
     p = 0
 
     def eager(k: int) -> None:
@@ -163,24 +177,28 @@ def _run_loop(step, n: int, first: int, stop, capture: bool) -> None:
         for _ in range(k):
             step(p)
             p += 1
-        STEPS.steps += k
 
-    cap = None
-    if capture and first < n:
-        def chunk():
-            for i in range(STOP_CHECK_EVERY):
-                step(first + i)  # steps past the prompt: one body for every position
-
-        cap = graphs.CapturedStep(chunk, warm=lambda: eager(first), tally=True)
+    if capture:
+        first = max(first, min(1, n))
+        graphs.warm(lambda: eager(first), tally=True)
     else:
         eager(first)
+    cap = None
     while p < n and not stop():
+        if not capture:
+            eager(min(per_replay, n - p))
+            continue
         if cap is None:
-            eager(min(STOP_CHECK_EVERY, n - p))
-        else:
-            cap.replay()
-            p += STOP_CHECK_EVERY
-            STEPS.steps += STOP_CHECK_EVERY
+            start = p
+
+            def chunk():
+                for i in range(per_replay):
+                    step(start + i)  # steps past the warm-up: one body for every position
+
+            cap = graphs.CapturedStep(chunk, tally=True, warmed=True, generator=generator)
+        cap.replay()
+        p += per_replay
+    return p
 
 
 @torch.inference_mode()
@@ -192,11 +210,16 @@ def greedy_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor
     """The greedy loop over an encoder output [B, T, d], every row at one
     position (``greedy_step``); captured on a card unless graph=False.
     temperature > 0 samples softmax(logits / T) with `generator` (a
-    torch.Generator on the encoder's device; the JAX loop's jax.random
-    draws differ), eagerly: a route of its own, never captured."""
+    torch.Generator on the encoder's device, or its default generator;
+    ``sample_ids``), captured as greedy is, the generator registered with
+    the graph: a replayed chunk draws what its eager steps would. The
+    masked steps of the last chunk draw too, so the generator may end
+    ahead of where the eager route leaves it; the tokens are the same. The
+    JAX loop's jax.random draws differ: the bar against it is the
+    distribution."""
     B, dev = enc.shape[0], enc.device
     P = len(prompt)
-    capture = temperature <= 0 and graphs.capturing(dev, graph, model, "greedy_from_enc")
+    capture = graphs.capturing(dev, graph, model, "greedy_from_enc")
     always, begin = suppression_masks(model.cfg.vocab_size, suppress_ids, begin_suppress_ids, dev)
     caches = model.init_cache(B, enc, max_len, layout)
     tokens = torch.full((B, max_len), eot_id, dtype=torch.long, device=dev)
@@ -206,8 +229,7 @@ def greedy_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor
     tp = model_tp(model)
 
     def sample(logits):
-        probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return sample_ids(logits, temperature, generator)
 
     def step(p: int) -> None:
         pick = sample if temperature > 0 and p + 1 >= P else None
@@ -219,7 +241,9 @@ def greedy_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor
         return tp.agree(flag) if tp is not None and tp.size > 1 else flag
 
     n = max_len - 1  # the JAX loop's steps when no row ends
-    _run_loop(step, n, min(P, n), stop, capture)
+    steps = _run_loop(step, n, min(P, n), stop, capture,
+                      generator=generator if temperature > 0 else None)
+    STEPS.steps += steps  # read after the loop: a split model's ranks may be threads
     gen = tokens[:, P:]
     is_eot = gen == eot_id
     first = torch.argmax(is_eot.to(torch.int32), dim=1)
@@ -355,7 +379,8 @@ def beam_from_enc(model, enc: torch.Tensor, enc_lengths: Optional[torch.Tensor] 
         pos.copy_(torch.where(in_row, pos + 1, pos))
 
     n = max_len - 1
-    _run_loop(step, n, min(P, n), lambda: bool(finished.all()), capture)
+    steps = _run_loop(step, n, min(P, n), lambda: bool(finished.all()), capture)
+    STEPS.steps += steps
     gen = tokens[:, :, P:]
     is_eot = gen == eot_id
     first = torch.argmax(is_eot.to(torch.int32), dim=2)

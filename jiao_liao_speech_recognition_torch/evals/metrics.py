@@ -1,17 +1,18 @@
 """Corpus CER / WER, the twin of the JAX package's ``evals/metrics.py``
 (which the port may not import): the same normalization, the same jieba
 segmentation with the same character/Latin-run fallback, and plain
-Levenshtein distance. Corpus error rate = sum(edit distances) /
-sum(reference lengths), as jiwer computes it on lists; ``cer`` / ``wer``
-score one utterance (an empty reference scores 0, or inf against a
-non-empty hypothesis)."""
+Levenshtein distance (``edit_ops`` splits it into hits, substitutions,
+deletions and insertions along JAX's backtrace). Corpus error rate =
+sum(edit distances) / sum(reference lengths), as jiwer computes it on
+lists; ``cer`` / ``wer`` score one utterance (an empty reference scores 0,
+or inf against a non-empty hypothesis)."""
 
 from __future__ import annotations
 
 import re
 import unicodedata
 from functools import lru_cache
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -49,11 +50,16 @@ def segment_words(text: str) -> List[str]:
     return [t for t in re.findall(r"[a-z0-9]+|[^a-z0-9]", text) if t.strip()]
 
 
+def _encode_pair(ref: Sequence, hyp: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+    """Two token sequences on one integer alphabet."""
+    vocab: dict = {}
+    return tuple(np.array([vocab.setdefault(t, len(vocab)) for t in seq], np.int32)
+                 for seq in (ref, hyp))
+
+
 def edit_distance(ref: Sequence, hyp: Sequence) -> int:
     """Levenshtein distance, two-row DP vectorised over the hypothesis."""
-    vocab: dict = {}
-    r = np.array([vocab.setdefault(t, len(vocab)) for t in ref], np.int32)
-    h = np.array([vocab.setdefault(t, len(vocab)) for t in hyp], np.int32)
+    r, h = _encode_pair(ref, hyp)
     if len(r) == 0:
         return len(h)
     if len(h) == 0:
@@ -65,6 +71,43 @@ def edit_distance(ref: Sequence, hyp: Sequence) -> int:
         c = np.concatenate((np.array([i], dtype=np.int32), t))
         prev = idx + np.minimum.accumulate(c - idx)
     return int(prev[-1])
+
+
+def edit_ops(ref: Sequence, hyp: Sequence) -> Tuple[int, int, int, int]:
+    """(hits, substitutions, deletions, insertions) of an optimal unit-cost
+    alignment: the full DP table, then the JAX function's backtrace from
+    the end (a diagonal move first, then a deletion, else an insertion), so
+    ties split the same way; S + D + I is the edit distance."""
+    r, h = _encode_pair(ref, hyp)
+    n, m = len(r), len(h)
+    if n == 0:
+        return 0, 0, 0, m
+    if m == 0:
+        return 0, 0, n, 0
+    dp = np.zeros((n + 1, m + 1), dtype=np.int32)
+    dp[0, :] = np.arange(m + 1)
+    dp[:, 0] = np.arange(n + 1)
+    idx = np.arange(m + 1, dtype=np.int32)
+    for i in range(1, n + 1):
+        t = np.minimum(dp[i - 1, :-1] + (h != r[i - 1]), dp[i - 1, 1:] + 1)
+        c = np.concatenate((np.array([i], dtype=np.int32), t))
+        dp[i] = idx + np.minimum.accumulate(c - idx)  # the insertion chain in closed form
+    i, j = n, m
+    hits = subs = dels = ins = 0
+    while i > 0 or j > 0:
+        if i > 0 and j > 0 and dp[i, j] == dp[i - 1, j - 1] + (r[i - 1] != h[j - 1]):
+            if r[i - 1] == h[j - 1]:
+                hits += 1
+            else:
+                subs += 1
+            i, j = i - 1, j - 1
+        elif i > 0 and dp[i, j] == dp[i - 1, j] + 1:
+            dels += 1
+            i -= 1
+        else:
+            ins += 1
+            j -= 1
+    return hits, subs, dels, ins
 
 
 def _rate(ref_tokens: Sequence, hyp_tokens: Sequence) -> float:

@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.numerics import full_f32
 from ..utils.config import FrontendConfig
 
 
@@ -90,6 +91,22 @@ def _dft_basis(n_fft: int) -> np.ndarray:
     ang = 2.0 * np.pi * k * n[None, :] / n_fft
     basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=0) * window[None, :]
     return basis.astype(np.float32)
+
+
+def stft_power(wav: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """Centered power STFT of [B, L] -> [B, n_freqs, 1 + L // hop_length] f32:
+    reflect-padded by n_fft // 2 on both sides (torch / librosa
+    ``center=True``), the windowed DFT as one full-f32 product over the hop
+    frames (the JAX function's HIGHEST-precision convolution)."""
+    pad = n_fft // 2
+    x = torch.nn.functional.pad(wav.to(torch.float32)[:, None, :], (pad, pad),
+                                mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop_length)  # [B, 1 + L // hop, n_fft]
+    basis = torch.from_numpy(_dft_basis(n_fft)).to(wav.device)
+    n_freqs = n_fft // 2 + 1
+    with full_f32():
+        y = (frames @ basis.T).transpose(1, 2)  # [B, 2 n_freqs, T]
+    return y[:, :n_freqs] ** 2 + y[:, n_freqs:] ** 2
 
 
 def pad_or_trim(wav: np.ndarray, cfg: FrontendConfig) -> np.ndarray:

@@ -407,6 +407,22 @@ class ModelBundle:
         return generate(self, features.featurize_batch(wav, self.config.frontend), decode_cfg,
                         graph=graph)
 
+    @torch.inference_mode()
+    def encode(self, feats: torch.Tensor, feat_lengths: torch.Tensor):
+        """Features [B, mels, T] and valid frames [B] -> (CTC log-probs
+        [B, T', V] f32, valid encoder frames [B]) on the bundle's device:
+        the encoder and CTC head as ``transcribe`` runs them before a beam
+        (the JAX bundle's ``encode``). A Whisper bundle has no CTC head:
+        its encoder is ``model.encode``."""
+        if self.is_whisper:
+            raise ValueError("ModelBundle.encode: a Whisper bundle has no CTC log-probs; "
+                             "call bundle.model.encode(mel) for its encoder output")
+        feats, feat_lengths = feats.to(self.device), feat_lengths.to(self.device)
+        if self.is_joint:
+            log_probs, lengths, _ = self.model(feats, feat_lengths)
+            return log_probs, lengths
+        return self.model(feats, feat_lengths, head_mode="log_probs")
+
     def _features(self, wavs: np.ndarray, alens: np.ndarray):
         """Padded chunks [N, samples] -> (log-mel [N, mels, T], valid mel
         frames [N]) on the model's device."""
@@ -435,7 +451,7 @@ class ModelBundle:
         if decode_cfg.strategy == "greedy":
             return joint_greedy(self.model, feats, flens, max_len=L, graph=graph)
         if decode_cfg.strategy == "spec_greedy":
-            return joint_spec_greedy(self.model, feats, flens, max_len=L)
+            return joint_spec_greedy(self.model, feats, flens, max_len=L, graph=graph)
         return joint_beam(self.model, feats, flens, beam_size=decode_cfg.beam_size, max_len=L,
                           length_penalty=decode_cfg.length_penalty, graph=graph)
 
@@ -457,7 +473,7 @@ class ModelBundle:
                                   ctc_prefix_beam_search_native)
 
         dc = decode_cfg
-        log_probs, out_lens = self.model(*self._features(wavs, alens), head_mode="log_probs")
+        log_probs, out_lens = self.encode(*self._features(wavs, alens))
         if dc.strategy == "beam_device":
             return ctc_prefix_beam_search(log_probs, out_lens, dc.beam_size, dc.ctc_blank_id,
                                           topk_tokens=min(dc.beam_topk, 16), graph=graph)

@@ -47,3 +47,11 @@ def ctc_loss(log_probs: torch.Tensor, logit_lengths: torch.Tensor, labels: torch
         nll = nll - (mass - mass.detach())
     return torch.where(infeasible, torch.full_like(nll, INFEASIBLE_NLL), nll)
 
+
+
+def ctc_loss_mean(log_probs: torch.Tensor, logit_lengths: torch.Tensor, labels: torch.Tensor,
+                  label_lengths: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
+    """The batch mean of each NLL over its label length (at least 1): the
+    JAX function, ``F.ctc_loss(reduction="mean")``'s normalisation."""
+    nll = ctc_loss(log_probs, logit_lengths, labels, label_lengths, blank_id)
+    return (nll / label_lengths.to(nll.device).clamp_min(1).float()).mean()

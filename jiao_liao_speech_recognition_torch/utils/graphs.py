@@ -1,19 +1,25 @@
 """CUDA graph capture of a decode step: the one rule that the serving engine
 (serve/engine.py), the streaming pool (serve/streaming.py) and the offline
-decode loops (decode/whisper_generate.py, decode/ctc.py) share.
+decode loops (decode/whisper_generate.py, decode/speculative.py,
+decode/ctc.py) share.
 
-A step is warmed first: run eagerly on a side stream, so the kernels'
-library, cuBLAS's handles and workspaces, the serving copies, the position
-tables and a split model's NCCL communicators exist before the capture
-(the warm-up may be real work: the offline loops warm with their forced
-prompt steps and their first generated step). Then the step is captured
-on that stream. The launch counters (``_build.COUNTERS``) count the
-capture's launches, which run nothing: they are kept as the step's
-``launches`` by counter name and taken back off the counters, so a path's
-launches are the counted ones plus ``launches`` x ``replays``. The offline
-loops also add every replay's launches to ``TALLY``, which the phases of
-chip_smoke.py read beside the counters. A capture or replay that fails
-raises; nothing falls back to the eager step.
+A step is warmed first: run eagerly on a side stream (``warm``), so the
+kernels' library, cuBLAS's handles and workspaces, the serving copies, the
+position tables and a split model's NCCL communicators exist before the
+capture. The warm-up is real work: the engine and the pool warm with their
+step on idle rows, the offline loops with their forced prompt steps and
+their first generated step (one step at least, also under an empty
+prompt), speculative greedy with its first pass, the CTC beam with its
+first frame. Then the step is captured. The launch counters
+(``_build.COUNTERS``) count the capture's launches, which run nothing:
+they are kept as the step's ``launches`` by counter name and taken back
+off the counters, so a path's launches are the counted ones plus
+``launches`` x ``replays``. The offline loops also add every replay's
+launches to ``TALLY``, which the phases of chip_smoke.py read beside the
+counters. A step that draws from a generator other than the default CUDA
+one registers it with the graph, so each replay advances it as the eager
+draws would. A capture or replay that fails raises; nothing falls back to
+the eager step.
 """
 
 from __future__ import annotations
@@ -66,27 +72,46 @@ def capturing(device: torch.device, graph: bool, model=None, who: str = "") -> b
     return True
 
 
-class CapturedStep:
-    """``step`` captured in a CUDA graph after ``warm`` (``step`` itself
-    when None) ran once on a side stream. ``out`` is what the captured call
-    returned (tensors the replays rewrite), ``launches`` the kernel launches
-    of one replay by counter name, ``capture_s`` the seconds the warm-up and
-    the capture took. With ``tally`` every replay is also added to
-    ``TALLY``. The graph reads and writes the addresses of the state
-    tensors `step` touched: their owner (the loop, the engine, the pool)
-    keeps them alive while it replays; the object holds no reference to
-    them, so an owner that holds it forms no cycle."""
+def warm(fn: Callable, tally: bool = False):
+    """Run fn() once on the device's warm-up stream, ordered after the work
+    queued so far and before the work queued next -> fn's result. With
+    ``tally`` its seconds, to its end on the device, are added to
+    ``TALLY.capture_s``."""
+    t0 = time.perf_counter()
+    side = _warm_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    if tally:
+        torch.cuda.synchronize()
+        TALLY.capture_s += time.perf_counter() - t0
+    return out
 
-    def __init__(self, step: Callable, warm: Optional[Callable] = None, tally: bool = False):
+
+class CapturedStep:
+    """``step`` captured in a CUDA graph, after one eager run of it on the
+    warm-up stream unless the caller ran its work there already
+    (``warmed``: ``warm`` above). ``out`` is what the captured call returned
+    (tensors the replays rewrite), ``launches`` the kernel launches of one
+    replay by counter name, ``capture_s`` the seconds the warm-up and the
+    capture took. ``generator``, a CUDA generator the step draws from, is
+    registered with the graph (the default one always is). With ``tally``
+    every replay is also added to ``TALLY``. The graph reads and writes the
+    addresses of the state tensors `step` touched: their owner (the loop,
+    the engine, the pool) keeps them alive while it replays; the object
+    holds no reference to them, so an owner that holds it forms no cycle."""
+
+    def __init__(self, step: Callable, tally: bool = False, warmed: bool = False,
+                 generator: Optional[torch.Generator] = None):
         t0 = time.perf_counter()
-        side = _warm_stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            (warm or step)()
-        torch.cuda.current_stream().wait_stream(side)
+        if not warmed:
+            warm(step)
         torch.cuda.synchronize()
         before = {c: c.launches for c in _build.COUNTERS}
         self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph):
             self.out = step()
         self.launches: Dict[str, int] = {}

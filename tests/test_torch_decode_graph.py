@@ -5,17 +5,23 @@ place (bigram LM fusion, an Att adapter's slot caches), the device CTC
 prefix beam with its frame index on the device (f32 and f64), and the int8
 self-cache write's plain version against JAX's ``quantize_kv`` and cache
 update. Each loop runs on two routes: eager, and chunked as a captured
-graph replays it (``graphs.CapturedStep`` stood in by a CPU twin that runs
-the chunk on each replay, so the last chunk runs past the end, masked on
-the device, as on the card). Ids exact; beam scores within SCORE_BAR; f32
-with the JAX side at HIGHEST matmul precision. Also: what cannot be
-captured raises naming graph=False, and ``cli transcribe`` asks for graph
+graph replays it (``graphs.CapturedStep`` stood in by the CPU twin of
+tests/torch_graph_twin.py, which runs the chunk on each replay, so the
+last chunk runs past the end, masked on the device, as on the card). Ids
+exact; beam scores within SCORE_BAR; f32 with the JAX side at HIGHEST
+matmul precision. Under an empty prompt
+greedy and the beam warm with a real step (step 0) before the capture.
+Temperature sampling's chunked route draws what its eager route draws
+from one generator seed, and both packages' samplers are held to
+softmax(logits / T) by a chi-square test. Also: what cannot be captured
+raises naming graph=False, and ``cli transcribe`` asks for graph
 collectives."""
 
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from scipy import stats
 
 torch = pytest.importorskip("torch")
 
@@ -42,6 +48,7 @@ from jiao_liao_speech_recognition_torch.parallel import multihost  # noqa: E402
 from jiao_liao_speech_recognition_torch.parallel import tp as ttp  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils import config as tcfg  # noqa: E402
 from jiao_liao_speech_recognition_torch.utils import graphs  # noqa: E402
+from torch_graph_twin import ReplayedOnCPU, chunked  # noqa: E402
 
 WHISPER = dict(vocab_size=50, d_model=64, encoder_layers=2, decoder_layers=2, num_heads=4,
                mlp_dim=128, max_target_positions=24, use_flash_attention=False)
@@ -69,23 +76,10 @@ def _jax_once(key, fn):
     return _JAX[key]
 
 
-class ReplayedOnCPU:
-    """graphs.CapturedStep's CPU twin: warms as the card does, and each
-    replay runs the captured chunk eagerly."""
-
-    def __init__(self, step, warm=None, tally=False):
-        (warm or step)()
-        self.step, self.launches, self.capture_s = step, {}, 0.0
-
-    def replay(self):
-        self.step()
-
-
 @pytest.fixture(params=["eager", "chunked"])
 def route(request, monkeypatch):
     if request.param == "chunked":
-        monkeypatch.setattr(graphs, "capturing", lambda *a, **k: True)
-        monkeypatch.setattr(graphs, "CapturedStep", ReplayedOnCPU)
+        chunked(monkeypatch)
     return request.param
 
 
@@ -155,6 +149,110 @@ def test_greedy_on_the_step_body_is_jaxs(family, B, route, request):
         assert len(set(lens)) == 3, lens
     # the prefix's 4 steps, then the chunk's 8 unless every row ended in the prefix
     assert twg.STEPS.steps == (len(PROMPT4) if max(lens) == 0 else MAX_LEN - 1)
+
+
+def _counting_steps(model, monkeypatch):
+    """Count model.decode_step's calls (every decode step runs one)."""
+    calls = []
+    real = model.decode_step
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(model, "decode_step", counted)
+    monkeypatch.setattr(ReplayedOnCPU, "calls", calls)
+    return calls
+
+
+@pytest.mark.parametrize("family", ["whisper", "joint"])
+@pytest.mark.parametrize("loop", ["greedy", "beam"])
+def test_empty_prompt_loops_are_jaxs_and_warm_with_a_step(family, loop, route, request,
+                                                          monkeypatch):
+    """prompt=() (the JAX loops' default) at max_len 13: greedy (3 rows) and
+    the beam of 3 (2 rows) equal JAX's on both routes (beam scores within
+    SCORE_BAR); on the chunked route step 0 runs as the warm-up before the
+    capture, and the captured chunk starts at step 1, so its last replay
+    runs 4 steps past the end, masked."""
+    jm, params, tm, enc, el = request.getfixturevalue(family)
+    eot = GREEDY_EOT[family]
+    if loop == "greedy":
+        want = _jax_once(("greedy0", family), lambda: jwg.greedy_from_enc(
+            jm, params, enc, el, max_len=MAX_LEN, prompt=(), eot_id=eot))
+    else:
+        enc, el = enc[:2], None if el is None else el[:2]
+        want = _jax_once(("beam0", family), lambda: jwg.beam_from_enc(
+            jm, params, enc, el, beam_size=3, max_len=MAX_LEN, prompt=(), eot_id=eot))
+    calls = _counting_steps(tm, monkeypatch)
+    args = (tm, _t(enc), None if el is None else _t(el))
+    if loop == "greedy":
+        got = twg.greedy_from_enc(*args, MAX_LEN, (), eot)
+    else:
+        got = twg.beam_from_enc(*args, 3, MAX_LEN, (), eot)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if loop == "beam":
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=SCORE_BAR, rtol=0)
+    if route == "chunked":
+        assert [t.steps_before_capture for t in ReplayedOnCPU.made] == [1]  # step 0 first
+        # step 0, then whole chunks from step 1 (the last masked past step 11)
+        assert len(calls) in (1 + 8, 1 + 16)
+    else:
+        assert len(calls) <= MAX_LEN - 1
+
+
+def test_sampling_chunked_draws_the_eager_draws(whisper, monkeypatch):
+    """Temperature 1.0 at max_len 16 behind the 4-token prompt: the prompt's
+    steps and the first drawn step eagerly, then chunks of 8 from step 4,
+    the second one masked past step 14. From one CPU generator seed the
+    chunked route gives the eager route's tokens and lengths, with the
+    caller's generator handed to the capture; and a different seed gives
+    other tokens (the draws are not fixed)."""
+    _, _, tm, enc, _ = whisper
+    max_len, eot = 16, GREEDY_EOT["whisper"]
+
+    def run(seed):
+        g = torch.Generator().manual_seed(seed)
+        return twg.greedy_from_enc(tm, _t(enc), None, max_len, PROMPT4, eot, temperature=1.0,
+                                   generator=g), g
+
+    (eager, eager_len), _ = run(7)
+    chunked(monkeypatch)
+    calls = _counting_steps(tm, monkeypatch)
+    (replayed, replayed_len), g = run(7)
+    np.testing.assert_array_equal(replayed.numpy(), eager.numpy())
+    np.testing.assert_array_equal(replayed_len.numpy(), eager_len.numpy())
+    assert [t.generator for t in ReplayedOnCPU.made] == [g]
+    assert len(calls) == 4 + 16  # the last chunk ran past the end
+    (other, _), _ = run(8)
+    assert not torch.equal(other, replayed)
+
+
+SAMPLE_DRAWS, SAMPLE_T, CHI2_P_BAR = 20000, 0.7, 1e-3
+
+
+def test_sampling_distribution_is_softmax_over_t():
+    """At fixed logits (V=12) and T=0.7, 20,000 draws of the port's sampler
+    (``sample_ids``, one CPU generator seed) and of jax.random.categorical
+    (the JAX loop's draw, one key) each pass a chi-square test against
+    softmax(logits / T) at p > CHI2_P_BAR; the port's draws fail it against
+    softmax(logits), the test's power at this N."""
+    # every bin expects at least 63 draws
+    logits = np.random.RandomState(11).randn(12).astype(np.float32) * 0.8
+    x = logits.astype(np.float64)
+    want = np.exp(x / SAMPLE_T - (x / SAMPLE_T).max())
+    want /= want.sum()
+    ids = twg.sample_ids(_t(logits).expand(SAMPLE_DRAWS, -1), SAMPLE_T,
+                         torch.Generator().manual_seed(3)).numpy()
+    jids = np.asarray(jax.random.categorical(jax.random.PRNGKey(3), jnp.asarray(logits) / SAMPLE_T,
+                                             shape=(SAMPLE_DRAWS,)))
+    for draws in (ids, jids):
+        counts = np.bincount(draws, minlength=12)
+        assert stats.chisquare(counts, SAMPLE_DRAWS * want).pvalue > CHI2_P_BAR
+    plain = np.exp(x - x.max())
+    plain /= plain.sum()
+    counts = np.bincount(ids, minlength=12)
+    assert stats.chisquare(counts, SAMPLE_DRAWS * plain).pvalue < CHI2_P_BAR
 
 
 @pytest.fixture(scope="module")
@@ -269,7 +367,7 @@ def test_what_cannot_be_captured_raises_naming_graph_false():
     model = WhisperModel(tcfg.WhisperConfig(dtype="float32", **WHISPER))
     ttp.apply_tp(model, ttp.TPGroup(0, 2, StandIn()))
     card = torch.device("cuda")
-    for who in ("greedy_from_enc", "beam_from_enc"):
+    for who in ("greedy_from_enc", "beam_from_enc", "spec_greedy_from_enc"):
         with pytest.raises(ValueError, match="graph=False"):
             ttp.check_capturable(model, card, who)
         with pytest.raises(ValueError, match=f"{who}: a stand-in model group"):
