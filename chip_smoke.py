@@ -33,6 +33,17 @@ non-zero and prints no result line):
               4 of 128, plus a causal case, each launched twice and
               bitwise equal;
               K7 (both WF-folded sublayers);
+3b. ctc_loss - jl_ctc_loss (csrc/ctc_loss.cu, the port's own kernel: the
+              JAX package's CTC loss is XLA's scan) at B=16, T'=750,
+              V=4336, S=128, logit lengths spread over 1..T', repeats, an
+              empty label and infeasible rows: the NLL within
+              CTC_NLL_REL_BAR of the plain recursion (an infeasible row
+              1e30 exactly, with a zero gradient), the dense gradient
+              within CTC_GRAD_BAR of its largest value, both launched
+              twice and bitwise equal; forward and backward timed beside
+              their bounds (the dense gradient's write), their plain
+              versions and the library's aten._ctc_loss /
+              _ctc_loss_backward;
 4. e2e      - main path 1, serving: api.load of the full-width flagship
               (12 x d512, 4 heads of 128, mlp 2048, V 4336, random init
               from seed 0) and api.transcribe of six requests (0.5 s to
@@ -43,15 +54,25 @@ non-zero and prints no result line):
               heads of 64) over a synthetic manifest of sixteen 30 s WAVs
               whose transcripts use 4334 distinct characters (V = 4336), B=16
               from the 30 s bucket (T'=750, so K6/K8 run), a few steps and
-              the checkpoint; the backbone must stay bitwise frozen; then one
-              step without dropout or SpecAugment on the kernel path against
-              the plain path (loss and adapter gradients);
+              the checkpoint, each bucket's step captured once as a CUDA
+              graph and replayed (K1, K6, K8 and jl_ctc_loss a step, the
+              replays' included); the backbone must stay bitwise frozen;
+              GRAPH_STEPS captured steps against GRAPH_STEPS graph=False
+              steps from one state (every step's metrics, the trainable
+              tensors and the AdamW state bit for bit, or within the
+              spread of two graph=False runs), and the same across two
+              bucket shapes (B=4 of 10 s and of 30 s: two graphs); then
+              one step without dropout or SpecAugment on the kernel path
+              against the plain path (loss and adapter gradients);
 6. adapted  - main path 3, serving the fine-tuned checkpoint: api.load +
               api.transcribe of the six requests through K7, held against
               the plain path;
 7. timing   - seconds per batch of 32 x 30 s through the kernel path and the
               plain path; train steps/s at B=16 x 30 s (this config) and
-              B=16 x 10 s (flagship defaults + WF rank 8) on both paths; each
+              B=16 x 10 s (flagship defaults + WF rank 8) on both paths, and
+              this config's captured step against graph=False in
+              GRAPH_TURNS (steps/s, each route's idle share and kernels a
+              step, the capture's seconds, counted launches a replay); each
               kernel alone against its plain version with its bound-counted
               TFLOP/s (K2, K3 and K7 run on K5's and K3c's launches; K2
               and K3 on the block's kept bf16 serving copies), the four
@@ -152,18 +173,21 @@ non-zero and prints no result line):
               moving every Dense kernel, the subsampler and the head, stage
               2 leaving the backbone bitwise and moving every adapter
               tensor, and `train --resume` taking no step; one stage-1 step
-              with every parameter trainable, kernel path against plain;
+              with every parameter trainable, kernel path against plain,
+              and stage 1's captured step against graph=False (bit for bit
+              over GRAPH_STEPS);
               the bundle serving the six requests and `cli evaluate
               --per-utt` (K1, K2 at 8 x 64, K3, K4, K6 24 a batch), held
-              against the plain path; steps/s of each stage on both paths,
-              stage 1's device idle share under the profiler, peak device
-              memory, and the bundle's greedy RTFx at B=32 x 30 s;
+              against the plain path; each stage's captured step against
+              graph=False in turns (steps/s, idle shares, the capture,
+              launches a replay), peak device memory, and the bundle's
+              greedy RTFx at B=32 x 30 s;
 12. engine  - run after phase 9: main path 10, Whisper continuous-batching
               serving (serve/engine.py) on phase 8's large-v3 bundle and on
               phase 9's quantize()d one: ServingEngine(16 lanes, 32 steps a
               dispatch, max_len 224), its decode step captured once as a
-              CUDA graph and replayed; 24 windows (the six requests' seven
-              and 17 seeded ones of 1-30 s) in staggered waves of 8, so
+              CUDA graph and replayed; 16 windows (the six requests' seven
+              and 9 seeded ones of 1-30 s) in staggered waves of 8, so
               lanes sit at different positions in one step. Exact launches:
               K1, K5, K6, K2h-out and K3c a wave, the captured step's K9 64
               (bf16) or K9-int8 64, K10 256 and K11 1 (int8) times its
@@ -273,9 +297,12 @@ non-zero and prints no result line):
               encoder's shape (B 16, T' 750, 4 x 128, lengths 750 / 517 /
               129 / 1) against plain, twice bitwise, timed beside bound and
               SDPA, with ptxas's dh=128 report; the saved bundle through
-              api.load with ctc_greedy and greedy (exact launches); steps/s
-              in turns and the step's idle share;
-17. whisper_finetune - main paths 23-25 (phase_whisper_finetune);
+              api.load with ctc_greedy and greedy (exact launches); the
+              captured step against graph=False (bit for bit over
+              GRAPH_STEPS), steps/s in turns and each route's idle share;
+17. whisper_finetune - main paths 23-25 (phase_whisper_finetune; its
+              captured step against graph=False bit for bit, then steps/s
+              of both routes in turns);
 18. real_audio - main paths 26 and 27, real recordings in: 32 seeded
               utterances of 30 s, eight each of 44.1 kHz 16-bit FLAC (the
               script's own encoder), 48 kHz 24-bit, 22.05 kHz float and
@@ -300,7 +327,9 @@ non-zero and prints no result line):
               --nproc-per-node 1` (a 1 x 1 x 1 mesh: NCCL, the FSDP2 wrap
               and the kernels under it), 3 steps of B=16 x 30 s: the
               losses bitwise phase 5's (the one-process loop on the same
-              batches), K1, K6 and K8 launched as often as in phase 5 (the
+              batches; under a process group the step runs eagerly by
+              rule, on the same capturable AdamW), K1, K6, K8 and
+              jl_ctc_loss launched as often as in phase 5 (the
               launcher's process counts them, `--multigpu-worker`), and
               its step-3 checkpoint restored into this process, which has
               no process group: the step and every tensor bitwise phase
@@ -442,8 +471,8 @@ just after; a kernel of that path that never launched fails the run. A
 launch replayed from a CUDA graph is not counted by its wrapper (the
 wrapper ran once, at capture): main paths 10's, 11's and 18's launches are
 their counted ones plus the captured step's launches times its replays,
-and every path's launches include the offline decode loops' replays
-(utils/graphs.TALLY, added by drive()). The offline loops (greedy, the
+and every path's launches include the offline decode loops' and the train
+step's replays (utils/graphs.TALLY, added by drive()). The offline loops (greedy, the
 AR beam, the device CTC beam) capture on the card, so a captured loop's
 steps run in whole chunks of 8: phase 8's AR beam takes captured_steps()
 steps; the eager decode readings of phases 8, 9, 14 and 15, kept for
@@ -579,18 +608,25 @@ KERNELS = [  # key, name, wrapper module, counter, CUDA source, TPU kernel it re
     # its decode loop); no Pallas kernel stands behind it
     ("KVW", "jl_int8_kv_write", "ops.quant", "KV_WRITE_COUNTER", "csrc/quant.cu",
      TPU + "ops/quant.py:61"),
+    # the port's own kernel (phase 3b): the CTC loss of a train step, which
+    # the JAX package leaves to XLA (a lax.scan); forward, and backward in
+    # two launches counted as one call
+    ("CTC", "jl_ctc_loss forward", "ops.ctc_loss", "COUNTER", "csrc/ctc_loss.cu",
+     TPU + "ops/ctc_loss.py:34"),
+    ("CTC-bwd", "jl_ctc_loss backward", "ops.ctc_loss", "BWD_COUNTER", "csrc/ctc_loss.cu",
+     TPU + "ops/ctc_loss.py:34"),
 ]
 # main path -> the kernels it must launch
 PATHS = {
     "serve": ("K1", "K2", "K3", "K4"),
-    "finetune": ("K1", "K6", "K8"),
+    "finetune": ("K1", "K6", "K8", "CTC", "CTC-bwd"),
     "adapted_serve": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
     "whisper_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
     "whisper_int8_serve": ("K1", "K5", "K6", "K2h-out", "K3c", "K9", "K9-int8", "K10", "K11"),
     "whisper_int8_b16": ("K9-int8", "K10", "K11", "KVW"),
     "probes": ("K1", "K3", "K4", "P1", "P2", "P4"),
     "prepare": ("K1",),
-    "transfer": ("K1", "K6", "K8"),
+    "transfer": ("K1", "K6", "K8", "CTC", "CTC-bwd"),
     "transfer_serve": ("K1", "K2", "K3", "K4", "K6"),
     "whisper_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9"),
     "whisper_int8_engine": ("K1", "K5", "K6", "K2h-out", "K3c", "K9-int8", "K10", "K11", "KVW"),
@@ -604,7 +640,7 @@ PATHS = {
     "joint_stream": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
     "ctc_beam": ("K1", "K2", "K3"),
     "ctc_beam_device": ("K1", "K2", "K3"),
-    "joint_train": ("K1", "K6", "K8"),
+    "joint_train": ("K1", "K6", "K8", "CTC", "CTC-bwd"),
     "joint_trained_ctc_greedy": ("K1", "K2", "K3", "K4", "K7-attn", "K7-mlp"),
     "joint_trained_greedy": ("K1", "K2", "K3", "K7-attn", "K7-mlp", "K9"),
     "whisper_finetune": ("K1", "K6", "K8"),
@@ -612,14 +648,35 @@ PATHS = {
     "whisper_adapted_int8": ("K1", "K5", "K6", "K2h-out", "K3c", "K7-attn", "K7-mlp", "K9",
                              "K9-int8", "K10", "K11"),
     "real_audio": ("K1", "K2", "K3", "K4"),
-    "augmented_train": ("K1", "K6", "K8"),
-    "multigpu": ("K1", "K6", "K8"),
+    "augmented_train": ("K1", "K6", "K8", "CTC", "CTC-bwd"),
+    "multigpu": ("K1", "K6", "K8", "CTC", "CTC-bwd"),
     "tp": ("K5", "K6", "K9", "K2-tp", "K3-tp", "row-partial"),
     "tp_serve": ("K1", "K5", "K6", "K3-tp", "row-partial", "K9-int8", "K10", "K10-row", "K11",
                  "KVW"),
     "tp_ctc": ("K1", "K2-tp", "K3-tp", "row-partial", "K4", "K6", "K9"),
     "decode_graphs": ("K9", "K9-int8", "K10", "K11", "KVW"),
 }
+# phase 3b: jl_ctc_loss at the fine-tune's training shape (B, T', V, S),
+# against its plain version: the NLL within CTC_NLL_REL_BAR (relative; an
+# infeasible row's 1e30 exactly) and the gradient within CTC_GRAD_BAR of its
+# largest value (the recursions in the same f32 order; the plain gradient
+# sums a label's states by a scatter in another order)
+CTC_SHAPE = (16, 750, 4336, 128)
+CTC_NLL_REL_BAR = 1e-5
+CTC_GRAD_BAR = 1e-5
+CTC_TIMED_ITERS = 10
+# the captured train step (phases 5, 7, 11, 16, 17): GRAPH_STEPS steps on
+# graph=False and on the captured route from one state, held bit for bit;
+# then steps/s in GRAPH_TURNS of GRAPH_RATE_STEPS (True = captured; each
+# captured turn captures anew, untimed, and releases its graph), and
+# GRAPH_PROFILE_STEPS steps of each route under the profiler
+GRAPH_STEPS = 3
+GRAPH_TURNS = (False, True, True, False)
+GRAPH_RATE_STEPS = 3
+GRAPH_PROFILE_STEPS = 1
+# phase 5's run across two bucket shapes: B=4 of 10 s and of 30 s
+BUCKET_B, BUCKET_SECONDS, BUCKET_STEPS = 4, (10.0, 30.0), 4
+WHISPER_GRAPH_RATE_STEPS = 2  # large-v3's timed steps a turn
 # phase 19: the launcher's limit (its start, ~10 s to reach the card, and
 # 3 steps of phase 5's fine-tune)
 MULTIGPU_TIMEOUT_S = 300
@@ -632,9 +689,6 @@ WHISPER_FT_REMAT = False
 WHISPER_FT_EOT = 50257  # ordinary BPE ids below it, large-v3's specials from it
 WHISPER_FT_CHECK_B = 2  # the kernel-vs-plain step: plain attention keeps [B, 20, T, T] f32
 WHISPER_FT_LENS = (1500, 1033, 257, 1)  # key lengths of K6 / K8 alone at the training shape
-WHISPER_FT_RATE_STEPS = 2  # steps a timed turn
-WHISPER_FT_RATE_TURNS = (True, True)  # timed turns, kernel path only
-WHISPER_FT_PROFILE_STEPS = 1
 FT_STEP_LOSS_BAR = 1e-3  # relative
 # the Whisper configuration and the shapes of its kernel checks
 WHISPER_PRESET = "large-v3"
@@ -653,7 +707,7 @@ INT8_BENCH = (8, 64)  # bench.py::bench_large_v3_decode: B=8, max_len 64
 # the serving engine (main path 10): lanes, decode steps a dispatch, the
 # windows served, and the max_decode_len of the `cli serve` runs
 ENGINE_SLOTS, ENGINE_SPD = 16, 32
-ENGINE_WINDOWS = 24
+ENGINE_WINDOWS = 16  # 24 before PR 27, cut to keep the run under its limit
 ENGINE_CLI_LEN = 32
 PROFILE_ATTEMPTS = 2  # profiles of a replay read before a kernel-name count fails
 # CTC streaming (main paths 11 and 12): the pool's slots and geometry
@@ -726,8 +780,6 @@ CTC_BEAM_RTFX_BATCHES = 4
 # joint CTC/attention training (main paths 21-22): `cli train` steps of the
 # published config, and the kernel-path steps timed under the profiler
 JOINT_TRAIN_STEPS = 3
-JOINT_TRAIN_PROFILE_STEPS = 2
-JOINT_TRAIN_RATE_STEPS = 2  # steps a timed turn
 # the probes' profilers in examples/ and their main()'s arguments at the
 # flagship's B=32 (the probes' own defaults are B=128)
 PROBES = {
@@ -759,8 +811,6 @@ TRANSFER_UTTS = 18
 TRANSFER_STEPS = 3
 # steps a timed turn of each stage: the host clock spreads by tens of
 # percent over four steps on a shared host
-TRANSFER_RATE_STEPS = 2  # steps a timed turn
-TRANSFER_PROFILE_STEPS = 2  # stage steps under the profiler
 # published H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM_BYTES_S and its operations over
 # the peak rate of their type
@@ -1231,6 +1281,91 @@ def phase_flash():
     return errs
 
 
+def ctc_inputs(seed: int = 17):
+    """CTC_SHAPE's log-probs (a log-softmax of noise), labels with repeats,
+    logit lengths spread over 1..T' and label lengths that leave some rows
+    infeasible, all on the card."""
+    import torch
+
+    B, T, V, S = CTC_SHAPE
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(B, T, V, generator=g), -1)
+    labels = torch.randint(1, V, (B, S), generator=g, dtype=torch.int32)
+    labels[:, 1::7] = labels[:, 0::7][:, :labels[:, 1::7].shape[1]]  # repeated pairs
+    tl = torch.linspace(1, T, B).round().to(torch.int32)
+    ll = torch.randint(0, S + 1, (B,), generator=g, dtype=torch.int32)
+    ll[0], ll[1] = 0, S  # an empty label; a full one on few frames (infeasible)
+    return [t.cuda() for t in (lp, tl, labels, ll)]
+
+
+def phase_ctc_loss():
+    """Phase 3b: jl_ctc_loss (csrc/ctc_loss.cu) against its plain version
+    at CTC_SHAPE, forward and backward, each launched twice and bitwise
+    equal; each alone timed beside its bound, its plain version and the
+    library's CTC (aten._ctc_loss and _ctc_loss_backward, the calls under
+    F.ctc_loss, which read the lengths on the host). -> (errors, rows)."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.ops import ctc_loss as C
+
+    B, T, V, S = CTC_SHAPE
+    lp, tl, labels, ll = ctc_inputs()
+    gout = torch.rand(B, generator=torch.Generator().manual_seed(18)).cuda()
+    runs = []
+    for _ in range(2):
+        nll, alpha, lik = C.ctc_forward(lp, tl, labels, ll)
+        grad = C.ctc_backward(lp, tl, labels, ll, alpha, lik, gout)
+        runs.append((nll, grad))
+    nll_p, alpha_p, lik_p = C.ctc_forward_plain(lp, tl, labels, ll)
+    grad_p = C.ctc_backward_plain(lp, tl, labels, ll, alpha_p, lik_p, gout)
+    torch.cuda.synchronize()
+    (nll, grad), (nll2, grad2) = runs
+    feasible = nll_p < C.INFEASIBLE_NLL
+    nll_rel = float(((nll - nll_p).abs() / nll_p.abs().clamp_min(1e-30))[feasible].max())
+    grad_err = float((grad - grad_p).abs().max() / grad_p.abs().max())
+    bitwise = bool(torch.equal(nll, nll2) and torch.equal(grad, grad2))
+    infeasible_same = bool(torch.equal(nll[~feasible], nll_p[~feasible]))
+    zero_rows = bool((grad[~feasible] == 0).all())
+
+    # the bound: the emissions each row's frames and states need (read once),
+    # the NLL written; the backward also writes the dense gradient
+    tlen, llen = tl.long().clamp(1, T), ll.long().clamp(0, S)
+    need = float((tlen * (2 * llen + 1)).sum()) * 4
+    fwd_bound, fwd_by = bound(need + 4 * B, {"f32": 12.0 * float((tlen * (2 * llen + 1)).sum())})
+    bwd_bound, bwd_by = bound(need + 4.0 * B * T * V, {"f32": 14.0 * float(
+        (tlen * (2 * llen + 1)).sum())})
+    alpha_t = alpha.clone()
+    ms_f = cuda_ms(lambda: C.ctc_forward(lp, tl, labels, ll), CTC_TIMED_ITERS)
+    ms_b = cuda_ms(lambda: C.ctc_backward(lp, tl, labels, ll, alpha_t, lik, gout),
+                   CTC_TIMED_ITERS)
+    plain_f = cuda_ms(lambda: C.ctc_forward_plain(lp, tl, labels, ll), 2)
+    plain_b = cuda_ms(lambda: C.ctc_backward_plain(lp, tl, labels, ll, alpha_p, lik_p, gout), 2)
+    lpt, tgt = lp.transpose(0, 1), labels.long()
+    il, tgl = tl.tolist(), ll.tolist()
+    lib_nll, lib_alpha = torch.ops.aten._ctc_loss(lpt, tgt, il, tgl, 0, True)
+    lib_f = cuda_ms(lambda: torch.ops.aten._ctc_loss(lpt, tgt, il, tgl, 0, True),
+                    CTC_TIMED_ITERS)
+    lib_b = cuda_ms(lambda: torch.ops.aten._ctc_loss_backward(
+        gout, lpt, tgt, il, tgl, lib_nll, lib_alpha, 0, True), CTC_TIMED_ITERS)
+    rows = {"CTC": {"ms": ms_f, "plain_ms": plain_f, "bound_ms": fwd_bound, "bound_by": fwd_by,
+                    "library_ms": lib_f, "shape": list(CTC_SHAPE)},
+            "CTC-bwd": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bwd_bound,
+                        "bound_by": bwd_by, "library_ms": lib_b, "shape": list(CTC_SHAPE),
+                        "launches_a_call": 2}}
+    emit({"phase": "ctc_loss", "shape_B_T_V_S": list(CTC_SHAPE), "nll_rel_err": nll_rel,
+          "nll_bar": CTC_NLL_REL_BAR, "grad_err_of_max": grad_err, "grad_bar": CTC_GRAD_BAR,
+          "infeasible_rows": int((~feasible).sum()), "infeasible_1e30": infeasible_same,
+          "infeasible_grad_zero": zero_rows, "bitwise_twice": bitwise,
+          "library": "aten._ctc_loss / aten._ctc_loss_backward (F.ctc_loss's calls)", **{
+              f"{k}_{f}": v[f] for k, v in rows.items() for f in ("ms", "plain_ms", "bound_ms",
+                                                                   "library_ms")}})
+    check(nll_rel <= CTC_NLL_REL_BAR and grad_err <= CTC_GRAD_BAR,
+          f"jl_ctc_loss off its plain version: nll {nll_rel}, grad {grad_err}")
+    check(bitwise and infeasible_same and zero_rows and 0 < int((~feasible).sum()) < B,
+          "jl_ctc_loss: two launches differ, or an infeasible row is not 1e30 with zero gradient")
+    return {"CTC": nll_rel, "CTC-bwd": grad_err}, rows
+
+
 def phase_wf():
     """K7: both WF-folded sublayers against their plain versions at B=4,
     T'=750, d=512 (8 heads of 64, mlp 2048), with nonzero inserts."""
@@ -1458,6 +1593,24 @@ def phase_finetune(counters, workdir: Path):
     check(n_b > 0 and b_moved == n_b, "an adapter B insert did not move")
     check(all((final / f).exists() for f in ("params.npz", "config.yaml", "vocab.json")),
           "the final bundle is incomplete")
+
+    # the captured step against graph=False from one state, in this bucket
+    # and across two bucket shapes
+    from jiao_liao_speech_recognition_torch.data.manifest import read_manifest, write_manifest
+    from jiao_liao_speech_recognition_torch.train import engine
+
+    rows = read_manifest(manifest)
+    routes_held("finetune", cfg, rows, engine.build_tokenizer_for(cfg, rows), workdir)
+    parts = [read_manifest(write_corpus(workdir / f"b{int(sec)}", n=BUCKET_B, secs=sec,
+                                        seed=61 + i)).rows
+             for i, sec in enumerate(BUCKET_SECONDS)]
+    (workdir / "buckets").mkdir()
+    write_manifest(parts[0] + parts[1], workdir / "buckets" / "train.jsonl")
+    two = finetune_config(workdir / "buckets", workdir / "buckets" / "train.jsonl")
+    two.data.batch_size = BUCKET_B
+    rows2 = read_manifest(two.data.train_manifest)
+    routes_held("finetune_buckets", two, rows2, engine.build_tokenizer_for(two, rows2),
+                workdir / "buckets", steps=BUCKET_STEPS, graphs=len(BUCKET_SECONDS))
     return launches, cfg, final, losses
 
 
@@ -1946,6 +2099,161 @@ def tflops(flops: float, ms: float) -> float:
 TRAIN_RATE_STEPS = 2  # phase 7's steps a timed turn
 
 
+def route_run(cfg, manifest, tok, graph: bool, workdir: Path, steps: int) -> dict:
+    """train_loop of a fresh model from cfg's seed for `steps` steps on one
+    route, writing no checkpoint -> its per-step metrics (a MetricsLogger
+    record a step, the timing left out), its trainable tensors and
+    optimizer state on the host, info["graph"], peak device GB, the device
+    memory held before it and seconds."""
+    import copy
+    import io
+
+    import torch
+
+    from jiao_liao_speech_recognition_torch.train import checkpoints, engine
+    from jiao_liao_speech_recognition_torch.utils.logging import MetricsLogger
+
+    cfg = copy.deepcopy(cfg)
+    cfg.train.log_every_steps = 1
+    cfg.train.checkpoint_dir = str(workdir / f"route_{'graph' if graph else 'eager'}")
+    model = engine.make_model(cfg, "cuda")
+    buf = io.StringIO()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    save = checkpoints.TrainCheckpointer.save
+    checkpoints.TrainCheckpointer.save = lambda *a, **k: None  # the comparison reads no file
+    try:
+        (state, info), seconds = timed(lambda: engine.train_loop(
+            cfg, manifest, tok, model, logger=MetricsLogger(stream=buf), graph=graph,
+            max_steps=steps))
+    finally:
+        checkpoints.TrainCheckpointer.save = save
+    records = [{k: v for k, v in json.loads(line).items()
+                if k not in ("ts", "steps_per_sec")} for line in buf.getvalue().splitlines()]
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {"records": records, "graph": info["graph"], "seconds": seconds,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_before_gb": held_gb,
+           "tensors": {n: p.detach().cpu() for n, p in model.named_parameters()
+                       if p.requires_grad}}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            out["tensors"][f"{names[id(p)]}/{k}"] = v.detach().cpu()
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_diffs(a: dict, b: dict) -> dict:
+    """Largest |a - b| of each metric of each step and of each tensor."""
+    out = {f"{i}/{k}": abs(ra[k] - rb[k]) for i, (ra, rb) in enumerate(
+        zip(a["records"], b["records"])) for k in ra if k != "step"}
+    for k, t in a["tensors"].items():
+        out[k] = float((t.double() - b["tensors"][k].double()).abs().max()) if t.numel() else 0.0
+    return out
+
+
+def routes_held(name: str, cfg, manifest, tok, workdir: Path, steps: int = GRAPH_STEPS,
+                graphs: int = 1) -> dict:
+    """`steps` captured steps against `steps` graph=False steps from one
+    state: every step's metrics, the trainable tensors and the optimizer
+    state bit for bit. Where they differ, a second graph=False run gives the
+    spread two eager runs show (an atomic in a backward), and the captured
+    route must stay within it, tensor by tensor. -> the readings."""
+    eager = route_run(cfg, manifest, tok, False, workdir, steps)
+    graph = route_run(cfg, manifest, tok, True, workdir, steps)
+    diffs = route_diffs(graph, eager)
+    over = {k: v for k, v in diffs.items() if v}
+    spread = None
+    if over:
+        spread = route_diffs(route_run(cfg, manifest, tok, False, workdir, steps), eager)
+        over = {k: (v, spread[k]) for k, v in over.items() if v > spread[k]}
+    g = graph["graph"]
+    out = {"steps": steps, "bitwise": not any(diffs.values()),
+           "differing": sum(bool(v) for v in diffs.values()), "compared": len(diffs),
+           "eager_spread_nonzero": None if spread is None else sum(bool(v) for v in
+                                                                    spread.values()),
+           "over_spread": dict(list(over.items())[:6]), "losses": [
+               r["loss"] for r in graph["records"]], "route": g["route"],
+           "graphs": g["graphs"], "replays": g["replays"], "capture_s": g["capture_s"],
+           "replay_launches": g["replay_launches"], "peak_gb": {
+               "eager": eager["peak_gb"], "captured": graph["peak_gb"]},
+           "held_before_gb": {"eager": eager["held_before_gb"],
+                              "captured": graph["held_before_gb"]},
+           "seconds": {"eager": eager["seconds"], "captured": graph["seconds"]}}
+    emit({"phase": name, "graph_vs_eager": out})
+    check(len(graph["records"]) == steps and g["route"].startswith("captured")
+          and g["graphs"] == graphs and g["replays"] == steps - graphs,
+          f"{name}: not {steps} steps on {graphs} captured graph(s): {g}")
+    check(not over, f"{name}: the captured steps differ from graph=False beyond the eager "
+          f"spread: {out['over_spread']}")
+    return out
+
+
+def route_rates(name: str, cfg, model, host_batches, rate_steps: int = GRAPH_RATE_STEPS,
+                profile_steps: int = GRAPH_PROFILE_STEPS) -> dict:
+    """Steps/s of `model` on the two routes in GRAPH_TURNS (a TrainStep a
+    turn over one optimizer; the captured turn's capture, and the eager
+    turn's first step, untimed), each route's idle share and kernels a
+    step over `profile_steps` steps (device_profile), and of the captured
+    step its capture seconds and counted launches a replay."""
+    import torch
+
+    from jiao_liao_speech_recognition_torch.train import engine
+
+    state = engine.init_state(cfg, model)
+    secs = {False: [], True: []}
+    out = {"steps_a_turn": rate_steps, "turns": list(GRAPH_TURNS)}
+    for graph in GRAPH_TURNS:
+        runner = engine.TrainStep(cfg, state, True, graph=graph)
+        runner(host_batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(rate_steps):
+            loss = runner(host_batches[i % 2])["loss"]
+        torch.cuda.synchronize()
+        secs[graph].append((time.perf_counter() - t0) / rate_steps)
+        check(math.isfinite(float(loss)), f"{name}: loss not finite")
+        key = "captured" if graph else "eager"
+        if f"{key}_profile" not in out:
+            out[f"{key}_profile"] = prof = device_profile(
+                lambda i: runner(host_batches[i % 2]), profile_steps, f"{name} {key}")
+            if graph:
+                cap = next(iter(runner.buckets.values())).captured
+                out.update(capture_s=runner.capture_s[0], launches_per_replay=cap.launches,
+                           kernels_per_replay=prof["launches_per_call"])
+                del cap  # the graph goes with the runner
+            else:
+                out["eager_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        runner.release()
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update({"eager_steps_s": 1.0 / statistics.median(secs[False]),
+                "captured_steps_s": 1.0 / statistics.median(secs[True]),
+                "eager_s_per_step": secs[False], "captured_s_per_step": secs[True],
+                "eager_idle_share": out["eager_profile"]["device_idle_share"],
+                "captured_idle_share": out["captured_profile"]["device_idle_share"]})
+    emit({"phase": "timing", "train_routes": name, **out})
+    return out
+
+
+def host_batches(cfg, manifest, tok, n: int = 2) -> list:
+    """The first n batches of `manifest` as a train step takes them (host
+    tensors, the family's teacher-forcing inputs built)."""
+    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
+    from jiao_liao_speech_recognition_torch.decode.whisper_generate import resolve_specials
+    from jiao_liao_speech_recognition_torch.train import engine
+
+    kw = {"family": cfg.model_family}
+    if cfg.model_family == "whisper":
+        kw["whisper_prompt"], kw["eot_id"] = resolve_specials(cfg.whisper)
+    it = BatchIterator(manifest, tok, cfg.data, sample_rate=cfg.frontend.sample_rate)
+    return [engine.batch_to_device(next(it), "cpu", **kw) for _ in range(n)]
+
+
 def phase_train_rate(ft_cfg):
     """Train steps/s on the kernel path and the plain path (turns: plain,
     kernels, kernels, plain; two distinct batches): the fine-tune config at
@@ -1974,9 +2282,14 @@ def phase_train_rate(ft_cfg):
             rng.randint(1, cfg10.ctc_model.vocab_size, (B, 24)).astype(np.int32)).cuda(),
         "label_lengths": torch.full((B,), 24, dtype=torch.int32, device="cuda"),
     } for _ in range(2)]
-    return {name: train_rate(name, cfg, batches, steps=TRAIN_RATE_STEPS)
-            for name, cfg, batches in (("B16x30s_adapter_finetune_yaml", ft_cfg, batches30),
-                                       ("B16x10s_flagship_wf8", cfg10, batches10))}
+    out = {name: train_rate(name, cfg, batches, steps=TRAIN_RATE_STEPS)
+           for name, cfg, batches in (("B16x30s_adapter_finetune_yaml", ft_cfg, batches30),
+                                      ("B16x10s_flagship_wf8", cfg10, batches10))}
+    tok = CharTokenizer.build(manifest.texts())
+    out["routes"] = route_rates("B16x30s_adapter_finetune_yaml", ft_cfg,
+                                engine.make_model(ft_cfg, "cuda"),
+                                host_batches(ft_cfg, manifest, tok))
+    return out
 
 
 def train_rate(name: str, cfg, batches, profile_steps: int = 0, steps: int = 4,
@@ -2147,6 +2460,7 @@ def phase_transfer(counters, workdir: Path, manifests: dict):
     from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
     from jiao_liao_speech_recognition_torch.models.ctc_model import CTCEncoderModel
     from jiao_liao_speech_recognition_torch.train import schedules
+    from jiao_liao_speech_recognition_torch.utils import graphs
     from jiao_liao_speech_recognition_torch.utils.config import load_yaml
 
     path = transfer_config(workdir, manifests)
@@ -2155,14 +2469,18 @@ def phase_transfer(counters, workdir: Path, manifests: dict):
     stages = []
     real = schedules.train_loop
 
+    def counts():  # counted launches plus the captured steps' replayed ones
+        return {k: c.launches + graphs.TALLY.launches.get(c.name, 0)
+                for k, c in counters.items()}
+
     def counted(*args, **kw):  # launches and seconds of each stage's loop
-        before = {k: c.launches for k, c in counters.items()}
+        before = counts()
         t0 = time.perf_counter()
         state, info = real(*args, **kw)
         torch.cuda.synchronize()
         stages.append({"seconds": time.perf_counter() - t0, "steps": len(info["losses"]),
-                       "losses": info["losses"], "launches": {
-                           k: c.launches - before[k] for k, c in counters.items()}})
+                       "losses": info["losses"], "graph": info["graph"], "launches": {
+                           k: n - before[k] for k, n in counts().items()}})
         return state, info
 
     schedules.train_loop = counted
@@ -2184,7 +2502,7 @@ def phase_transfer(counters, workdir: Path, manifests: dict):
         again = [json.loads(line) for line in cli_run(["train", "--config", path, "--resume"])[:-1]]
         resumed = stages[n_before:]
         torch.cuda.synchronize()
-        resume_launches = {k: c.launches for k, c in counters.items()}
+        resume_launches = {k: sum(st["launches"][k] for st in resumed) for k in counters}
     finally:
         schedules.train_loop = real
     with np.load(final / "params.npz") as f:
@@ -2207,8 +2525,9 @@ def phase_transfer(counters, workdir: Path, manifests: dict):
     moved2 = [k for k in adapters if not torch.equal(end2[k], end1[k])]
     final_is_end2 = all(torch.equal(final_sd[k], end2[k]) for k in init)
     per_stage = [{"stage": s.name, "steps": st["steps"], "seconds": st["seconds"],
-                  "losses": st["losses"], **{f"{k}_launches": st["launches"][k]
-                                             for k in ("K1", "K6", "K8")}}
+                  "losses": st["losses"], "graph": st["graph"],
+                  **{f"{k}_launches": st["launches"][k]
+                     for k in ("K1", "K6", "K8", "CTC", "CTC-bwd")}}
                  for s, st in zip(cfg.stages, stages)]
     emit({"phase": "transfer", "config": "configs/multi_dialect_transfer.yaml",
           "layers": m.num_layers, "d_model": m.d_model, "heads": m.num_heads, "mlp": m.mlp_dim,
@@ -2232,11 +2551,14 @@ def phase_transfer(counters, workdir: Path, manifests: dict):
           and all(math.isfinite(x) for st in stages[:2] for x in st["losses"]),
           "a stage did not take its steps with finite losses")
     n_attn = m.num_layers * (1 + ad.after_attention + ad.after_mlp)
-    want = ({"K1": 1, "K6": n_attn, "K8": n_attn}, {"K1": 1, "K6": n_attn, "K8": n_attn - 1})
+    want = ({"K1": 1, "K6": n_attn, "K8": n_attn, "CTC": 1, "CTC-bwd": 1},
+            {"K1": 1, "K6": n_attn, "K8": n_attn - 1, "CTC": 1, "CTC-bwd": 1})
     for st, w in zip(stages, want):
         got = {k: st["launches"][k] for k in w}
         check(got == {k: v * TRANSFER_STEPS for k, v in w.items()},
               f"stage launches {got}, not {TRANSFER_STEPS} x {w}")
+    check(all(st["graph"]["route"].startswith("captured") and st["graph"]["graphs"] == 1
+              for st in stages[:2]), "a stage's steps were not captured")
     check(len(moved1) == len(dense), f"stage 1 left {set(dense) - set(moved1)} as initialised")
     check(len(still2) == len(backbone), "stage 2 moved the backbone")
     check(len(moved2) == len(adapters), f"stage 2 left {set(adapters) - set(moved2)} unmoved")
@@ -2258,8 +2580,17 @@ def phase_transfer_vs_plain(cfg, final: Path):
     tok = CharTokenizer.load(final / "vocab.json")
     cfg = dataclasses.replace(cfg, ctc_model=dataclasses.replace(
         cfg.ctc_model, vocab_size=len(tok)))
-    step_vs_plain("transfer", cfg, build_stage_manifest(cfg.stages[0]), tok,
-                  adapters_only=cfg.stages[0].train_adapters_only)
+    stage = cfg.stages[0]
+    manifest = build_stage_manifest(stage)
+    step_vs_plain("transfer", cfg, manifest, tok, adapters_only=stage.train_adapters_only)
+    # stage 1's step (every parameter trainable) on both routes
+    from jiao_liao_speech_recognition_torch.train import engine
+
+    stage_cfg = dataclasses.replace(cfg, stages=[], train=dataclasses.replace(
+        cfg.train, train_adapters_only=stage.train_adapters_only,
+        optimizer=dataclasses.replace(cfg.train.optimizer, total_steps=stage.steps)))
+    with tempfile.TemporaryDirectory() as tmp:
+        routes_held("transfer_stage1", stage_cfg, manifest, tok, Path(tmp))
 
 
 def phase_transfer_serve(counters, final: Path, manifests: dict, workdir: Path):
@@ -2346,26 +2677,23 @@ def adapters_perturbed(bundle, requests) -> dict:
 
 
 def phase_transfer_timing(cfg, final: Path, bundle):
-    """Steps/s of each stage on both paths (TRANSFER_RATE_STEPS steps a
-    turn; then TRANSFER_PROFILE_STEPS kernel-path steps profiled: the
-    device's busy and idle share, its kernels by time), and the transferred bundle's greedy RTFx
-    at B=32 x 30 s (and four of its batches profiled)."""
+    """Steps/s of each stage's captured step against graph=False in turns
+    (route_rates: each route's idle share, the capture, launches a
+    replay), and the transferred bundle's greedy RTFx at B=32 x 30 s (and
+    four of its batches profiled)."""
 
-    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
     from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
     from jiao_liao_speech_recognition_torch.train import engine
     from jiao_liao_speech_recognition_torch.train.schedules import build_stage_manifest
 
     tok = CharTokenizer.load(final / "vocab.json")
     for i, stage in enumerate(cfg.stages):
-        it = BatchIterator(build_stage_manifest(stage), tok, cfg.data)
-        batches = [engine.batch_to_device(next(it), "cuda") for _ in range(2)]
         scfg = dataclasses.replace(
-            cfg, ctc_model=dataclasses.replace(cfg.ctc_model, vocab_size=len(tok)),
+            cfg, stages=[], ctc_model=dataclasses.replace(cfg.ctc_model, vocab_size=len(tok)),
             train=dataclasses.replace(cfg.train, train_adapters_only=stage.train_adapters_only))
-        train_rate(f"transfer_stage_{i}_{stage.name}", scfg, batches,
-                   profile_steps=TRANSFER_PROFILE_STEPS, steps=TRANSFER_RATE_STEPS)
-        del batches
+        manifest = build_stage_manifest(stage)
+        route_rates(f"transfer_stage_{i}_{stage.name}", scfg, engine.make_model(scfg, "cuda"),
+                    host_batches(scfg, manifest, tok))
     rtfx, bufs, infer = greedy_rtfx(bundle, np.random.RandomState(1))
     rtfx["profile"] = device_profile(lambda i: infer(bufs[i % 2], True), 4, "greedy")
     emit({"phase": "timing", "greedy": "transferred bundle", **rtfx})
@@ -4773,7 +5101,8 @@ def phase_joint(counters, workdir: Path, card: str):
         want = {key: 0 for key in counters} | {
             "K1": 1, "K7-attn": L, "K2": L, "K7-mlp": L + D * n, "K3": L + D * n,
             "K6": D * n, "K9": 2 * D * steps,
-            "K4": int(strategy in ("ctc_greedy", "spec_greedy"))}
+            "K4": int(strategy in ("ctc_greedy", "spec_greedy")),
+            "CTC": int(strategy == "beam")}  # the beam's CTC rescoring
         wrong = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
         check(not wrong, f"{path}: launches (got, want): {wrong}")
         if strategy == "spec_greedy":  # the first pass eagerly, then one a replay
@@ -5299,7 +5628,6 @@ def phase_joint_train(counters, workdir: Path, card: str):
 
     from jiao_liao_speech_recognition_torch import api
     from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
-    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
     from jiao_liao_speech_recognition_torch.data.tokenizer import CharTokenizer
     from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
     from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
@@ -5321,7 +5649,7 @@ def phase_joint_train(counters, workdir: Path, card: str):
     jc, n = cfg.joint, JOINT_TRAIN_STEPS
     records = [json.loads(s) for s in (workdir / "m.jsonl").read_text().splitlines()]
     want = {key: 0 for key in counters} | {"K1": n, "K6": jc.num_layers * n,
-                                           "K8": jc.num_layers * n}
+                                           "K8": jc.num_layers * n, "CTC": n, "CTC-bwd": n}
     wrong = {key: (launches[key], w) for key, w in want.items() if launches[key] != w}
     final = ckpt / "final"
     trained = api.load(str(final), device="cuda")
@@ -5381,12 +5709,13 @@ def phase_joint_train(counters, workdir: Path, card: str):
     check(all(len(v) == 2 and all(isinstance(t, str) for t in v) for v in served.values()),
           "the trained joint bundle did not transcribe")
 
-    it = BatchIterator(m, tok, cfg.data)
-    batches = [engine.batch_to_device(next(it), "cuda", family="joint") for _ in range(2)]
-    rate = train_rate("B16x30s_joint_ctc_attention_yaml", cfg, batches,
-                      profile_steps=JOINT_TRAIN_PROFILE_STEPS, steps=JOINT_TRAIN_RATE_STEPS)
+    # the captured step against graph=False, then steps/s on both routes
+    del trained
+    routes_held("joint_train", cfg, m, tok, workdir)
+    rate = route_rates("B16x30s_joint_ctc_attention_yaml", cfg, engine.make_model(cfg, "cuda"),
+                       host_batches(cfg, m, tok))
     emit({"phase": "joint_train", "phase_s": time.perf_counter() - t_phase,
-          "kernel_path_steps_s": rate["kernel_path_steps_s"]})
+          "captured_steps_s": rate["captured_steps_s"], "eager_steps_s": rate["eager_steps_s"]})
     return paths, errs, rows
 
 
@@ -5695,8 +6024,8 @@ def phase_whisper_finetune(counters, workdir: Path, card: str):
     import torch
 
     from jiao_liao_speech_recognition_torch import api
+    from jiao_liao_speech_recognition_torch.data.bpe import ByteLevelBPE
     from jiao_liao_speech_recognition_torch.data.manifest import read_manifest
-    from jiao_liao_speech_recognition_torch.data.pipeline import BatchIterator
     from jiao_liao_speech_recognition_torch.decode import whisper_generate as wg
     from jiao_liao_speech_recognition_torch.frontend.features import featurize_batch
     from jiao_liao_speech_recognition_torch.models.adapters import param_is_adapter
@@ -5723,6 +6052,19 @@ def phase_whisper_finetune(counters, workdir: Path, card: str):
     cfg = apply_overrides(load_yaml(str(config)), overrides)
     w, n = cfg.whisper, WHISPER_FT_STEPS
     records = [json.loads(s) for s in (workdir / "m.jsonl").read_text().splitlines()]
+    # the captured step against graph=False and steps/s of both routes, first,
+    # while nothing else holds the card's memory (a step peaks at 72 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bpe_tok = ByteLevelBPE.from_hf_dir(str(bpe))
+    routes_held("whisper_finetune", cfg, m, bpe_tok, workdir)
+    torch.cuda.reset_peak_memory_stats()
+    rate = route_rates("B16x30s_whisper_large_v3_adapters_yaml", cfg,
+                       engine.make_model(cfg, "cuda"), host_batches(cfg, m, bpe_tok),
+                       rate_steps=WHISPER_GRAPH_RATE_STEPS, profile_steps=1)
+    peak_rate = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
     remat = 2 if WHISPER_FT_REMAT else 1
     want = {key: 0 for key in counters} | {"K1": n, "K6": remat * w.encoder_layers * n,
                                            "K8": w.encoder_layers * n}
@@ -5852,18 +6194,9 @@ def phase_whisper_finetune(counters, workdir: Path, card: str):
 
     whisper_step_vs_plain(model, cfg, m, tok)
     del trained, model
-    prompt_kw = {"family": "whisper", "whisper_prompt": prompt, "eot_id": eot}
-    it = BatchIterator(m, tok, cfg.data)
-    batches = [engine.batch_to_device(next(it), "cuda", **prompt_kw) for _ in range(2)]
-    gc.collect()  # the trained model's last references before a fresh 72 GB step
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    rate = train_rate("B16x30s_whisper_large_v3_adapters_yaml", cfg, batches,
-                      profile_steps=WHISPER_FT_PROFILE_STEPS, steps=WHISPER_FT_RATE_STEPS,
-                      turns=WHISPER_FT_RATE_TURNS)
     emit({"phase": "whisper_finetune", "phase_s": time.perf_counter() - t_phase,
-          "kernel_path_steps_s": rate["kernel_path_steps_s"],
-          "peak_gb_rate": torch.cuda.max_memory_allocated() / 2**30})
+          "captured_steps_s": rate["captured_steps_s"], "eager_steps_s": rate["eager_steps_s"],
+          "peak_gb_rate": peak_rate})
     return paths, errs, rows
 
 
@@ -7500,6 +7833,7 @@ def tpc_want(counters, steps: int, passes: int, tp: int) -> dict:
     want["row-partial"] += 3 * L * (steps + passes)
     want["K6"] += L * passes
     want["K3-tp"] += L * passes
+    want["CTC"] += tp  # the joint beam's CTC rescoring, once a rank
     return want
 
 
@@ -8225,6 +8559,8 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     errs.update(phase_flash())
+    ctc_errs, ctc_rows = phase_ctc_loss()
+    errs.update(ctc_errs)
     errs.update(phase_wf())
     errs.update(phase_whisper_kernels())
     by_path = {}
@@ -8295,6 +8631,7 @@ def main() -> int:
     for key, err in tpc_errs.items():
         errs[key] = max(errs.get(key, 0.0), err)
     by_path["decode_graphs"], errs["KVW"], rec["KVW"] = phase_decode_graphs(counters, card)
+    rec.update(ctc_rows)
     rec["K10-row"] = tps_rows["K10-row"]
     rec["K11"] = {**rec["K11"], "tp_shapes": tps_rows["K11"]}
     rec["K9-int8"] = {**rec["K9-int8"], "tp_shapes": tps_rows["K9-int8"]}

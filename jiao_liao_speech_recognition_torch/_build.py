@@ -66,6 +66,8 @@ SIGNATURES = {
     "jl_int8_tied_logits": [P, P, P, P, I, I, I, P],
     "jl_int8_tied_logits_ragged": [P, P, P, P, I, I, I, P],
     "jl_int8_kv_write": [P, P, L, L, P, P, P, P, P, I, I, I, I, I, P],
+    "jl_ctc_loss_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "jl_ctc_loss_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # the A/B probes of examples/ (ops/probes.py)
     "jl_w8a8_ln_mlp_residual": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "jl_log_mel_bf16x3": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],

@@ -96,7 +96,7 @@ def stream(bundle, chunks: Iterable[np.ndarray], stream_cfg=None):
 
 
 def fine_tune(config: Union[str, ExperimentConfig], resume: bool = False, device="cuda",
-              max_steps: Optional[int] = None):
+              max_steps: Optional[int] = None, graph: bool = True):
     """Run the (adapter) fine-tuning loop that `config` describes (the ctc
     family, the joint CTC/attention family on its hybrid loss, or Whisper on
     its teacher-forced CE, e.g. configs/whisper_large_v3_adapters.yaml with
@@ -105,10 +105,12 @@ def fine_tune(config: Union[str, ExperimentConfig], resume: bool = False, device
     early (with a checkpoint) without changing the schedule. The final
     bundle is also saved to ``<train.checkpoint_dir>/final``, which ``load``
     reads back. Under a process group (``parallel.multihost.initialize``)
-    the run trains on ``config.mesh``'s mesh and the primary saves."""
+    the run trains on ``config.mesh``'s mesh and the primary saves. On one
+    card each bucket's train step is captured as a CUDA graph and replayed;
+    ``graph=False`` runs the same step eagerly."""
     from .train.engine import run_experiment
     from .utils.config import load_yaml
 
     if isinstance(config, str):
         config = load_yaml(config)
-    return run_experiment(config, resume=resume, device=device, max_steps=max_steps)
+    return run_experiment(config, resume=resume, device=device, max_steps=max_steps, graph=graph)

@@ -113,7 +113,8 @@ def _train_body(args, cfg, primary: bool) -> int:
         from .models.bundle import ModelBundle
         from .train.schedules import run_stages
 
-        model, tokenizer, history = run_stages(cfg, resume=args.resume, device=args.device)
+        model, tokenizer, history = run_stages(cfg, resume=args.resume, device=args.device,
+                                               graph=args.graph)
         if primary:
             for h in history:
                 print(json.dumps(h, ensure_ascii=False))
@@ -122,7 +123,8 @@ def _train_body(args, cfg, primary: bool) -> int:
     else:
         from .api import fine_tune
 
-        state, _ = fine_tune(cfg, resume=args.resume, device=args.device)  # saves `out`
+        state, _ = fine_tune(cfg, resume=args.resume, device=args.device,
+                             graph=args.graph)  # saves `out`
         if primary:
             print(f"saved final bundle to {out} (step {int(state.step)})")
     return 0
@@ -476,6 +478,9 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--config", required=True)
     pt.add_argument("--resume", action="store_true")
     pt.add_argument("--profile", metavar="LOGDIR", help="write a torch.profiler trace")
+    pt.add_argument("--no-graph", dest="graph", action="store_false",
+                    help="run every train step eagerly (default on one card: each bucket's step "
+                    "captured once as a CUDA graph and replayed)")
     _multihost(pt, "training")
     pt.add_argument("override", nargs="*", help="key.subkey=value overrides")
     _device(pt)

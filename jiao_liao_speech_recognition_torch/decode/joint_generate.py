@@ -47,20 +47,22 @@ def joint_beam(model, feats: torch.Tensor, feat_lengths: Optional[torch.Tensor] 
     norm = length_norm(lengths, length_penalty)
     ranking = att / norm
     if ctc_weight > 0.0:
-        nll = ctc_rescore(model, enc, enc_lengths, gen, lengths, bos_eos_id)
+        nll = ctc_rescore(model, enc, enc_lengths, gen, lengths, bos_eos_id, kernels=kernels)
         ranking = ctc_weight * (-nll / norm) + (1.0 - ctc_weight) * ranking
     return best_beam(gen, lengths, ranking)
 
 
 def ctc_rescore(model, enc: torch.Tensor, enc_lengths: torch.Tensor, gen: torch.Tensor,
-                lengths: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
+                lengths: torch.Tensor, blank_id: int = 0, kernels: bool = True) -> torch.Tensor:
     """-log P_ctc of every hypothesis [B, K] (f32) in one batched pass:
     the CTC log-probs of enc, repeated K times, against the B * K label
-    rows."""
+    rows (jl_ctc_loss's forward on the card; kernels=False its plain
+    version)."""
     from ..ops.ctc_loss import ctc_loss
 
     B, K, L = gen.shape
     lp = model.ctc_log_probs(enc)
     nll = ctc_loss(lp.repeat_interleave(K, 0), enc_lengths.repeat_interleave(K, 0),
-                   gen.reshape(B * K, L), lengths.reshape(B * K), blank_id=blank_id)
+                   gen.reshape(B * K, L), lengths.reshape(B * K), blank_id=blank_id,
+                   kernels=kernels)
     return nll.reshape(B, K)

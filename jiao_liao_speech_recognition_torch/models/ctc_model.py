@@ -26,8 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.fused_head import fused_head_argmax, head_argmax_plain, head_logits, serving_kernel
 from ..ops.numerics import full_f32
 from ..utils.config import CTCModelConfig
-from .layers import (Dropout, LayerNorm, ServingCopy, TransformerBlock, banded_length_mask,
-                     lecun_normal_, sinusoidal_positions)
+from .layers import (Dropout, LayerNorm, ServingCopy, TransformerBlock, arm_dropout,
+                     banded_length_mask, lecun_normal_, sinusoidal_positions)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -147,8 +147,7 @@ class CTCEncoderModel(nn.Module):
         cfg = self.cfg
         if head_mode not in ("log_probs", "argmax_ids"):
             raise ValueError(f"unknown head_mode {head_mode!r}")
-        for m in self._dropouts:
-            m.seed = dropout_seed
+        arm_dropout(self._dropouts, dropout_seed)
         remat = cfg.remat and self.training and torch.is_grad_enabled()
         x, out_lengths = encoder_trunk(cfg, self.subsample, self.blocks, features,
                                        feature_lengths, kernels, self.dropout, remat)
@@ -201,7 +200,10 @@ def encoder_trunk(cfg, subsample: ConvSubsampler, blocks, features: torch.Tensor
         attn_lens, mask = out_lengths, None
     for block in blocks:
         if remat:
-            x = checkpoint(block, x, attn_lens, kernels, mask, use_reentrant=False)
+            # the dropout sites keep their own generators (layers.Dropout):
+            # no default generator state to save, which a capture refuses
+            x = checkpoint(block, x, attn_lens, kernels, mask, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = block(x, attn_lens, kernels, mask)
     return x, out_lengths

@@ -39,7 +39,7 @@ from torch import nn
 
 from ..utils.config import JointModelConfig
 from .ctc_model import DTYPES, CTCHead, ConvSubsampler, encoder_trunk
-from .layers import Dropout, LayerNorm, TransformerBlock, sinusoidal_positions
+from .layers import Dropout, LayerNorm, TransformerBlock, arm_dropout, sinusoidal_positions
 from .whisper import TiedEmbedding, decoder_caches, decoder_step, teacher_forced
 
 
@@ -127,8 +127,7 @@ class JointCTCAttentionModel(nn.Module):
     def forward(self, features: torch.Tensor, feature_lengths: Optional[torch.Tensor] = None,
                 tokens: Optional[torch.Tensor] = None, kernels: bool = True,
                 dropout_seed: Optional[int] = None):  # needed in training when dropout > 0
-        for m in self._dropouts:
-            m.seed = dropout_seed
+        arm_dropout(self._dropouts, dropout_seed)
         enc, out_lengths = self.encode(features, feature_lengths, kernels)
         dec_logits = None
         if tokens is not None:

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -388,29 +388,76 @@ class LayerNorm(nn.Module):
 
 class Dropout(nn.Module):
     """flax nn.Dropout: in training keep each value with probability 1 - p
-    and scale it by 1 / (1 - p). The mask comes from a generator seeded by
-    the step's seed (``seed``, set by the model for each forward) and this
-    site's index (``site``), so a forward recomputed for the backward
-    (remat) draws the same mask. On a tensor-parallel rank's hidden
-    columns (``tp`` set by ``parallel/tp.apply_tp``) it draws the whole
-    layer's mask and keeps its rank's columns, so every topology drops the
-    same units."""
+    and scale it by 1 / (1 - p). The masks come from generators on the
+    input's device that live across steps, one for each draw the site
+    makes in a step: the forward's and, under remat, the recompute's.
+    Setting ``seed`` (the step's seed, on the host) or ``site`` (the site's
+    index, set by the model) seeds all of them with (seed x 1,000,003 +
+    site), so every draw of a step, and a forward recomputed for the
+    backward, gives the same mask, as a generator made and seeded for each
+    draw would. ``rewind`` starts a step's draws over without seeding:
+    inside a CUDA graph capture nothing is made or seeded (the step's eager
+    warm-up made the generators; every replay reads the seeds the host set
+    since, ``seed_dropout``). On a tensor-parallel rank's hidden columns
+    (``tp`` set by ``parallel/tp.apply_tp``) it draws the whole layer's
+    mask and keeps its rank's columns, so every topology drops the same
+    units."""
 
     tp = None
 
     def __init__(self, p: float):
         super().__init__()
         self.p = float(p)
-        self.site = 0
-        self.seed: Optional[int] = None
+        self.generators: List[torch.Generator] = []
+        self._site = 0
+        self._seed: Optional[int] = None
+        self.draws = 0
+
+    @property
+    def seed(self) -> Optional[int]:
+        return self._seed
+
+    @seed.setter
+    def seed(self, value: Optional[int]) -> None:
+        self._seed = value
+        self._reseed()
+
+    @property
+    def site(self) -> int:
+        return self._site
+
+    @site.setter
+    def site(self, value: int) -> None:
+        self._site = value
+        self._reseed()
+
+    def _value(self) -> int:
+        return (self._seed * 1_000_003 + self._site) % (2**63 - 1)
+
+    def _reseed(self) -> None:
+        self.draws = 0
+        if self._seed is not None:
+            for gen in self.generators:
+                gen.manual_seed(self._value())
+
+    def rewind(self) -> None:
+        self.draws = 0
+
+    def _generator(self, device: torch.device) -> torch.Generator:
+        if self.generators and self.generators[0].device != device:
+            self.generators = []
+        if self.draws == len(self.generators):
+            self.generators.append(torch.Generator(device=device).manual_seed(self._value()))
+        gen = self.generators[self.draws]
+        self.draws += 1
+        return gen
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p <= 0.0:
             return x
-        if self.seed is None:
+        if self._seed is None:
             raise RuntimeError("dropout in training needs a step seed (model(..., dropout_seed=s))")
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed((self.seed * 1_000_003 + self.site) % (2**63 - 1))
+        gen = self._generator(x.device)
         if self.tp is None:
             keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.p
         else:
@@ -418,6 +465,31 @@ class Dropout(nn.Module):
             whole = torch.rand(*x.shape[:-1], n * self.tp.size, generator=gen, device=x.device)
             keep = whole.narrow(-1, self.tp.rank * n, n) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def arm_dropout(sites, seed: Optional[int]) -> None:
+    """A model forward's dropout: with a seed, seed every site on the host;
+    without one (a train step seeded them, ``seed_dropout``), start each
+    site's draws over."""
+    for m in sites:
+        if seed is None:
+            m.rewind()
+        else:
+            m.seed = seed
+
+
+def seed_dropout(model: nn.Module, seed: int) -> None:
+    """Seed every dropout site of `model` for one train step (host side,
+    before the step runs or replays)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.seed = seed
+
+
+def dropout_generators(model: nn.Module) -> List[torch.Generator]:
+    """Every generator the model's dropout sites draw from (after a step
+    made them), to register with a captured step."""
+    return [g for m in model.modules() if isinstance(m, Dropout) for g in m.generators]
 
 
 def dot_product_attention(q, k, v, mask=None, use_flash: bool = False, kv_lengths=None,

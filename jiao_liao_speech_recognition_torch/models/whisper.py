@@ -53,6 +53,7 @@ from .layers import (
     LayerNorm,
     ServingCopy,
     TransformerBlock,
+    arm_dropout,
     is_quantized,
     length_mask,
     sinusoidal_positions,
@@ -213,7 +214,8 @@ class WhisperEncoder(nn.Module):
         remat = cfg.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
-                x = checkpoint(block, x, None, kernels, use_reentrant=False)
+                x = checkpoint(block, x, None, kernels, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = block(x, None, kernels)
         return self.ln_post(x)
@@ -403,8 +405,7 @@ class WhisperModel(nn.Module):
 
     def forward(self, mel, tokens, enc_lengths=None, kernels: bool = True,
                 dropout_seed: Optional[int] = None):  # needed in training when dropout > 0
-        for m in self._dropouts:
-            m.seed = dropout_seed
+        arm_dropout(self._dropouts, dropout_seed)
         return self.decoder(tokens, self.encoder(mel, kernels), enc_lengths, kernels)
 
     def encode(self, mel, kernels: bool = True):

@@ -5,7 +5,11 @@ of the model and optimizer state dicts, the micro-step count, the seed
 generator's state, any gradients accumulated mid-way through
 ``grad_accum_steps``, and host extras such as the data-iterator state) and
 deletes all but the newest ``keep``; restoring into a fresh ``TrainState``
-continues bit for bit. Under a process group (the model wrapped by FSDP2,
+continues bit for bit. A file of the captured train step (a capturable
+optimizer: step counts on the card, the learning rate a device scalar)
+and one of the eager or CPU step load into either; the restore comes
+before the step is captured (``train_loop``), so a graph reads the restored
+tensors. Under a process group (the model wrapped by FSDP2,
 parallel/mesh.py) ``save`` gathers the full model, optimizer and gradient
 state (``get_state_dict`` with full state dicts offloaded to the CPU) and
 the primary writes the same ``state.pt`` one process writes; ``restore``
@@ -57,7 +61,10 @@ class TrainCheckpointer:
             model_sd, optim_sd, grads = _gather(state)
         else:
             model_sd, optim_sd = state.model.state_dict(), state.optimizer.state_dict()
-            grads = {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None}
+            grads = {}
+            if state.step % state.accum:  # a partial sum between updates
+                grads = {n: p.grad for n, p in state.model.named_parameters()
+                         if p.grad is not None}
         if mh.is_primary():
             d.mkdir(parents=True, exist_ok=True)
             blob = {"step": state.step, "model": model_sd, "optimizer": optim_sd,
@@ -84,13 +91,29 @@ class TrainCheckpointer:
         blob = torch.load(self.dir / f"{step:08d}" / "state.pt", map_location="cpu",
                           weights_only=False)
         state.model.load_state_dict(blob["model"])
-        state.optimizer.load_state_dict(blob["optimizer"])
+        state.optimizer.load_state_dict(_as_this_route(state.optimizer, blob["optimizer"]))
         state.generator.set_state(blob["generator"])
         state.step = int(blob["step"])
         params = dict(state.model.named_parameters())
         for n, g in blob["grads"].items():
             params[n].grad = g.to(params[n].device)
         return blob["extra"]
+
+
+def _as_this_route(optimizer, saved: Dict) -> Dict:
+    """A saved optimizer state dict with this optimizer's own route: its
+    groups' ``capturable`` flag (so the step counts load onto the card or
+    stay on the host as this optimizer keeps them) and learning-rate form (a
+    device scalar the train step writes, or a float). Either route's file
+    loads into either."""
+    groups = []
+    for group, saved_group in zip(optimizer.param_groups, saved["param_groups"]):
+        saved_group = dict(saved_group)
+        for key in ("capturable", "lr"):
+            if key in group:
+                saved_group[key] = group[key]
+        groups.append(saved_group)
+    return {**saved, "param_groups": groups}
 
 
 def _sharded(model) -> bool:
@@ -194,10 +217,11 @@ def _scatter(state, path: Path) -> Dict:
     model_sd = {n: part(n, d, blob["model"][n] if blob else None)
                 for n, d in meta["model"].items()}
     ids = {n: i for i, n in enumerate(names)}
-    optim_sd = {"state": {n: {k: part(n, d, blob["optimizer"]["state"][ids[n]][k] if blob
-                                      else None) for k, d in st.items()}
-                          for n, st in meta["optim"].items()},
-                "param_groups": meta["groups"]}
+    optim_sd = _as_this_route(state.optimizer, {
+        "state": {n: {k: part(n, d, blob["optimizer"]["state"][ids[n]][k] if blob else None)
+                      for k, d in st.items()}
+                  for n, st in meta["optim"].items()},
+        "param_groups": meta["groups"]})
     opts = StateDictOptions(full_state_dict=True)
     set_model_state_dict(state.model, model_sd, options=opts)
     set_optimizer_state_dict(state.model, state.optimizer, optim_sd, options=opts)

@@ -33,6 +33,13 @@ in JAX; Whisper's takes none); its state is checkpointed, so resume is
 exact. The data order is
 the JAX package's seeded epoch plan (``data/pipeline.py``).
 
+One process on a card trains through ``TrainStep``, the JAX package's
+jitted step: each bucket's step (one (audio samples, label length)
+shape) is captured once as a CUDA graph and replayed, the host doing only
+what ``TrainStep`` lists between replays; ``graph=False`` runs the same
+operations eagerly, bit for bit. ``step_route`` keeps the plain path, sgd
+and a process group eager by rule.
+
 Several processes (one per card, ``cli train --multihost``): under a
 process group ``train_loop`` builds the mesh of ``config.mesh``, splits
 the model over its model axis and wraps it with FSDP2 (parallel/mesh.py);
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import math
 import signal
+import sys
 import threading
 import time
 import warnings
@@ -70,8 +78,9 @@ import torch
 
 from ..frontend.augment import augment_waveform
 from ..frontend.features import dequantize_pcm, featurize_batch
-from ..frontend.specaugment import spec_augment
+from ..frontend.specaugment import apply_masks, draw_masks, spec_augment
 from ..models.adapters import param_is_adapter
+from ..models.layers import seed_dropout
 from ..ops.ctc_loss import ctc_loss
 from ..parallel import multihost as mh
 from ..utils.config import ExperimentConfig, OptimizerConfig
@@ -122,8 +131,18 @@ def adapter_mask(model: torch.nn.Module) -> Dict[str, bool]:
 
 def make_optimizer(cfg: OptimizerConfig, params) -> torch.optim.Optimizer:
     """The base optimizer over the trainable parameters; the learning rate
-    is set from the schedule before each update (``apply_update``)."""
+    is set from the schedule before each update (``apply_update``, or
+    ``TrainStep``). On a card adamw and adam are capturable: the step count
+    lives on the device and the learning rate is a device scalar the host
+    writes, so the update can be captured in a CUDA graph (eager steps,
+    also under a process group, take the same arithmetic)."""
     params = list(params)
+    if cfg.name in ("adamw", "adam") and params[0].device.type == "cuda":
+        lr = torch.zeros((), dtype=torch.float32, device=params[0].device)
+        kw = dict(lr=lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8, capturable=True, foreach=True)
+        if cfg.name == "adamw":
+            return torch.optim.AdamW(params, weight_decay=cfg.weight_decay, **kw)
+        return torch.optim.Adam(params, **kw)
     if cfg.name == "adamw":
         return torch.optim.AdamW(params, lr=0.0, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
                                  weight_decay=cfg.weight_decay)
@@ -203,6 +222,9 @@ class TrainState:
     # on a model axis: the ids of the split parameters and the model group
     tp_split: frozenset = frozenset()
     tp_group: Any = None
+    # micro-steps an update (grad_accum_steps): between updates the
+    # gradients hold a partial sum a checkpoint keeps
+    accum: int = 1
 
     def trainable(self) -> List[torch.nn.Parameter]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
@@ -212,7 +234,7 @@ def init_state(config: ExperimentConfig, model: torch.nn.Module) -> TrainState:
     params = set_trainable(model, config.train.train_adapters_only)
     opt = make_optimizer(config.train.optimizer, params)
     gen = torch.Generator().manual_seed(config.train.seed)
-    state = TrainState(0, model, opt, gen)
+    state = TrainState(0, model, opt, gen, accum=max(config.train.optimizer.grad_accum_steps, 1))
     tp = getattr(model, "tp", None)  # split over a model axis (parallel/tp.py)
     if tp is not None and tp.size > 1:
         state.tp_group = tp.group
@@ -221,10 +243,10 @@ def init_state(config: ExperimentConfig, model: torch.nn.Module) -> TrainState:
     return state
 
 
-def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str, float]:
-    """Clip the trainable gradients, set the scheduled learning rate, take
-    the optimizer step and clear the gradients -> {"grad_norm": the norm
-    before clipping}, the metric the JAX step adds to its loss's."""
+def clip_and_step(state: TrainState, cfg: OptimizerConfig) -> torch.Tensor:
+    """Average the gradients of grad_accum_steps micro-steps, clip them,
+    take the optimizer step -> the norm before clipping. Device work only
+    (the learning rate is set before)."""
     params = [p for p in state.trainable() if p.grad is not None]
     k = max(cfg.grad_accum_steps, 1)
     grads = [p.grad for p in params]
@@ -232,10 +254,28 @@ def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str,
         torch._foreach_mul_(grads, 1.0 / k)
     norm = clip_by_global_norm_(grads, cfg.grad_clip_norm,
                                 [id(p) in state.tp_split for p in params], state.tp_group)
-    lr = schedule(state.step // k - 1)  # updates taken before this one
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
     state.optimizer.step()
+    return norm
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Write the scheduled rate: into the device scalar of a capturable
+    optimizer (in place: a captured update reads it), else into the groups."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def apply_update(state: TrainState, cfg: OptimizerConfig, schedule) -> Dict[str, float]:
+    """Clip the trainable gradients (summed over grad_accum_steps
+    micro-steps), set the scheduled learning rate, take the optimizer step
+    and clear the gradients -> {"grad_norm": the norm before clipping}, the
+    metric the JAX step adds to its loss's."""
+    k = max(cfg.grad_accum_steps, 1)
+    set_learning_rate(state.optimizer, schedule(state.step // k - 1))  # updates taken before
+    norm = clip_and_step(state, cfg)
     state.optimizer.zero_grad(set_to_none=True)
     return {"grad_norm": norm}
 
@@ -257,11 +297,36 @@ def augmented_audio(config: ExperimentConfig, batch, seeds, train: bool) -> torc
     return audio
 
 
-def _specaugment(config: ExperimentConfig, feats, batch, seeds, train: bool):
-    if train and config.specaugment.enabled:
-        return spec_augment(torch.Generator().manual_seed(seeds[0]), feats, config.specaugment,
-                            batch.get("rows"))
-    return feats
+def _features(config: ExperimentConfig, batch, seeds, train: bool, kernels: bool,
+              augment: bool = True):
+    """K1 under ``no_grad`` (after the waveform augmentation where
+    `augment`), then SpecAugment -> (features, valid frames). With
+    ``seeds=None`` the batch is a train step's prepared one
+    (``step_inputs``): the augmented audio in ``audio_aug`` and the
+    SpecAugment draws in ``spec:*``."""
+    fe = config.frontend
+    with torch.no_grad():
+        if seeds is None:
+            audio = batch.get("audio_aug", batch["audio"])
+        elif augment:
+            audio = augmented_audio(config, batch, seeds, train)
+        else:
+            audio = dequantize_pcm(batch["audio"])
+        feats = featurize_batch(audio, fe, kernels=kernels)
+    sa = config.specaugment
+    if train and sa.enabled and seeds is None:
+        feats = apply_masks(feats, {k[5:]: v for k, v in batch.items() if k.startswith("spec:")},
+                            sa)
+    elif train and sa.enabled:
+        feats = spec_augment(torch.Generator().manual_seed(seeds[0]), feats, sa,
+                             batch.get("rows"))
+    return feats, batch["audio_lengths"] // fe.hop_length
+
+
+def _dropout_seed(seeds, train: bool):
+    """The model's dropout_seed: the step's, or None where a train step
+    seeded the sites on the host (prepared batch) or outside training."""
+    return seeds[1] if train and seeds is not None else None
 
 
 def data_parallel_world(batch) -> int:
@@ -300,19 +365,16 @@ def ctc_mean_loss(nll: torch.Tensor, label_lengths: torch.Tensor, batch):
 def make_ctc_loss_fn(config: ExperimentConfig, model) -> Callable:
     """loss_fn(batch, seeds, train, kernels) -> (loss, metrics); batch is
     a dict of tensors on the model's device, seeds = (specaugment, dropout,
-    waveform augmentation)."""
-    fe = config.frontend
+    waveform augmentation), or None for a train step's prepared batch
+    (``step_inputs``: the sites seeded, the draws made on the host)."""
 
     def loss_fn(batch, seeds, train: bool, kernels: bool = True):
-        with torch.no_grad():
-            audio = augmented_audio(config, batch, seeds, train)
-            feats = featurize_batch(audio, fe, kernels=kernels)
-        feat_lengths = batch["audio_lengths"] // fe.hop_length
-        feats = _specaugment(config, feats, batch, seeds, train)
+        feats, feat_lengths = _features(config, batch, seeds, train, kernels)
         model.train(train)
         log_probs, out_lens = model(feats, feat_lengths, kernels=kernels,
-                                    dropout_seed=seeds[1] if train else None)
-        nll = ctc_loss(log_probs, out_lens, batch["labels"], batch["label_lengths"])
+                                    dropout_seed=_dropout_seed(seeds, train))
+        nll = ctc_loss(log_probs, out_lens, batch["labels"], batch["label_lengths"],
+                       kernels=kernels)
         return ctc_mean_loss(nll, batch["label_lengths"], batch)
 
     return loss_fn
@@ -337,20 +399,16 @@ def make_joint_loss_fn(config: ExperimentConfig, model) -> Callable:
     the positions whose target is not -100, both off one encoder pass. The
     CE is in the decoder logits' dtype (``cross_entropy_like_optax``), so
     with a bf16 decoder loss_att is a bf16 number, as in the JAX step."""
-    fe = config.frontend
     w = config.joint.ctc_weight
 
     def loss_fn(batch, seeds, train: bool, kernels: bool = True):
-        with torch.no_grad():
-            audio = augmented_audio(config, batch, seeds, train)
-            feats = featurize_batch(audio, fe, kernels=kernels)
-        feat_lengths = batch["audio_lengths"] // fe.hop_length
-        feats = _specaugment(config, feats, batch, seeds, train)
+        feats, feat_lengths = _features(config, batch, seeds, train, kernels)
         model.train(train)
         ctc_lp, out_lens, dec_logits = model(feats, feat_lengths, batch["tokens"],
                                              kernels=kernels,
-                                             dropout_seed=seeds[1] if train else None)
-        nll = ctc_loss(ctc_lp, out_lens, batch["labels"], batch["label_lengths"])
+                                             dropout_seed=_dropout_seed(seeds, train))
+        nll = ctc_loss(ctc_lp, out_lens, batch["labels"], batch["label_lengths"],
+                       kernels=kernels)
         loss_ctc, ctc_m = ctc_mean_loss(nll, batch["label_lengths"], batch)
         loss_att, att_value = global_masked_mean_ce(dec_logits, batch["targets"], batch)
         loss = w * loss_ctc + (1.0 - w) * loss_att
@@ -395,15 +453,12 @@ def make_whisper_loss_fn(config: ExperimentConfig, model) -> Callable:
     padding) and the mean CE over batch["targets"] (``masked_mean_ce``;
     bf16 for a bf16 decoder). Like the JAX loss it applies no waveform
     augmentation."""
-    fe = config.frontend
 
     def loss_fn(batch, seeds, train: bool, kernels: bool = True):
-        with torch.no_grad():
-            feats = featurize_batch(dequantize_pcm(batch["audio"]), fe, kernels=kernels)
-        feats = _specaugment(config, feats, batch, seeds, train)
+        feats, _ = _features(config, batch, seeds, train, kernels, augment=False)
         model.train(train)
         logits = model(feats, batch["tokens"], kernels=kernels,
-                       dropout_seed=seeds[1] if train else None)
+                       dropout_seed=_dropout_seed(seeds, train))
         loss, value = global_masked_mean_ce(logits, batch["targets"], batch)
         return loss, {"loss": value}
 
@@ -436,27 +491,201 @@ def make_model(config: ExperimentConfig, device="cuda"):
     raise ValueError(f"unknown model family {config.model_family!r}")
 
 
+def step_seeds(state: TrainState, batch) -> List[int]:
+    """The step's three seeds (SpecAugment, dropout, waveform
+    augmentation) from the checkpointed CPU generator; the dropout seed has
+    the (data, fsdp) rank folded in: independent masks on each such rank,
+    equal ones within a model group."""
+    seeds = torch.randint(0, 2**62, (3,), generator=state.generator).tolist()
+    rank = batch["dp"][2] if "dp" in batch else mh.process_index()
+    if rank:
+        seeds[1] = (seeds[1] + rank * 0x9E3779B97F4A7C15) % 2**62
+    return seeds
+
+
 def make_train_step(loss_fn: Callable, cfg: OptimizerConfig) -> Callable:
     """train_step(state, batch, kernels=True) -> metrics (tensors and
-    floats). One micro-step; every grad_accum_steps-th applies the update."""
+    floats): one micro-step, eagerly, on a batch of device tensors; every
+    grad_accum_steps-th applies the update. The step under a process group
+    (FSDP2) and of the callers that time single steps; one process on one
+    card trains through ``TrainStep``."""
     schedule = make_schedule(cfg)
     k = max(cfg.grad_accum_steps, 1)
 
     def train_step(state: TrainState, batch, kernels: bool = True):
-        seeds = torch.randint(0, 2**62, (3,), generator=state.generator).tolist()
-        # independent dropout masks on each (data, fsdp) rank, equal ones
-        # within a model group
-        rank = batch["dp"][2] if "dp" in batch else mh.process_index()
-        if rank:
-            seeds[1] = (seeds[1] + rank * 0x9E3779B97F4A7C15) % 2**62
-        loss, metrics = loss_fn(batch, seeds, True, kernels)
-        (loss / k if k > 1 else loss).backward()
+        loss, metrics = loss_fn(batch, step_seeds(state, batch), True, kernels)
+        loss.backward()  # summed over the micro-steps; the update averages
         state.step += 1
         if state.step % k == 0:
             metrics.update(apply_update(state, cfg, schedule))
         return metrics
 
     return train_step
+
+
+def step_inputs(config: ExperimentConfig, model, batch, seeds) -> Dict[str, torch.Tensor]:
+    """The host's part of a train step: seed every dropout site of `model`
+    with seeds[1], and draw SpecAugment's masks from seeds[0] for the
+    batch's shape -> the draws as CPU tensors under ``spec:*`` (empty with
+    SpecAugment off), which the loss reads with ``seeds=None``."""
+    seed_dropout(model, seeds[1])
+    sa = config.specaugment
+    if not sa.enabled:
+        return {}
+    B, samples = batch["audio"].shape
+    draws = draw_masks(torch.Generator().manual_seed(seeds[0]), B, config.frontend.num_mels,
+                       samples // config.frontend.hop_length, sa, batch.get("rows"))
+    return {f"spec:{k}": v for k, v in draws.items()}
+
+
+class _Bucket:
+    """One batch shape's static device buffers, the pinned staging they are
+    filled from (on a card) and the step's graph once captured."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor], device: torch.device, augment: bool):
+        self.static = {k: torch.empty_like(v, device=device) for k, v in inputs.items()}
+        if augment:
+            self.static["audio_aug"] = torch.empty(inputs["audio"].shape, dtype=torch.float32,
+                                                   device=device)
+        self.staging = self.copied = None
+        if device.type == "cuda":
+            self.staging = {k: torch.empty_like(v).pin_memory() for k, v in inputs.items()}
+            self.copied = torch.cuda.Event()
+        self.captured = None
+
+    def fill(self, inputs: Dict[str, torch.Tensor]) -> None:
+        """Copy the host tensors in: through the pinned staging, once the
+        previous copy out of it has run (a wait, no read back)."""
+        if self.staging is None:
+            for k, v in inputs.items():
+                self.static[k].copy_(v)
+            return
+        self.copied.synchronize()
+        for k, v in inputs.items():
+            self.staging[k].copy_(v)
+            self.static[k].copy_(self.staging[k], non_blocking=True)
+        self.copied.record()
+
+
+class TrainStep:
+    """The JAX package's jitted train step on one process: ``step(host)``
+    takes a batch of host tensors (``batch_to_device(..., "cpu")``) and
+    returns its metrics, cloned. Between steps the host only copies the
+    batch into its shape's static buffers, draws the seeds and SpecAugment's
+    masks (``step_inputs``), seeds the dropout generators, writes the
+    scheduled learning rate into the optimizer's device scalar, runs the
+    waveform augmentation's eager head (``augment.enabled``: it reads its
+    draws back) and clones the metrics out.
+
+    With ``graph`` (``utils/graphs.capturing``: a card) each bucket's step
+    is captured once as a CUDA graph and replayed: the bucket's first step
+    runs eagerly on the warm-up stream (a real step), the cache is emptied,
+    and the step is captured into a pool that every bucket's graph shares
+    (they never run at once; what a replay leaves there is cloned out before
+    the next). With grad_accum_steps k > 1 a micro-step graph a bucket
+    accumulates into the persistent gradients and an update graph (average,
+    clip, optimizer step, zero) replays every k-th micro-step; with k = 1
+    the update is inside the bucket's graph. Without ``graph`` the same
+    operations run eagerly, so the two routes agree bit for bit. The
+    gradients are allocated once, before any capture, and zeroed in place
+    by the update; a restore after a capture needs ``release`` (the graphs
+    hold the optimizer's tensors)."""
+
+    def __init__(self, config: ExperimentConfig, state: TrainState, kernels: bool = True,
+                 graph: bool = False):
+        from ..parallel.mesh import is_sharded
+
+        if graph and is_sharded(state.model):
+            raise ValueError("TrainStep: an FSDP2-wrapped model's hooks and collectives are not "
+                             "captured; graph=False runs the step eagerly")
+        self.config, self.state, self.kernels, self.graph = config, state, kernels, graph
+        self.opt_cfg = config.train.optimizer
+        self.k = max(self.opt_cfg.grad_accum_steps, 1)
+        self.schedule = make_schedule(self.opt_cfg)
+        self.loss_fn = make_loss_fn(config, state.model)
+        self.device = next(state.model.parameters()).device
+        self.augment = config.augment.enabled and config.model_family != "whisper"
+        for p in state.trainable():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.buckets: Dict[tuple, _Bucket] = {}
+        self.update_graph = None
+        self.pool = torch.cuda.graph_pool_handle() if graph and self.device.type == "cuda" else None
+        self.capture_s: List[float] = []
+        self.replays = 0
+        self.replay_launches: Dict[str, int] = {}
+
+    def release(self) -> None:
+        """Drop the captured graphs and their pool."""
+        self.buckets.clear()
+        self.update_graph = None
+        if self.pool is not None:
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def __call__(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        state = self.state
+        seeds = step_seeds(state, host)
+        inputs = {**host, **step_inputs(self.config, state.model, host, seeds)}
+        key = tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        bucket = self.buckets.get(key)
+        if bucket is None:
+            bucket = self.buckets[key] = _Bucket(inputs, self.device, self.augment)
+        bucket.fill(inputs)
+        if self.augment:
+            bucket.static["audio_aug"].copy_(
+                augmented_audio(self.config, bucket.static, seeds, True))
+        update = (state.step + 1) % self.k == 0
+        if update:  # the updates taken before this one
+            set_learning_rate(state.optimizer, self.schedule((state.step + 1) // self.k - 1))
+        if self.k == 1:
+            metrics = self._run(bucket, "captured", lambda: self._micro(bucket) | self._update())
+        else:
+            metrics = dict(self._run(bucket, "captured", lambda: self._micro(bucket)))
+            if update:
+                metrics.update(self._run(self, "update_graph", self._update))
+        state.step += 1
+        return {k: v.detach().clone() for k, v in metrics.items()}
+
+    def _micro(self, bucket: _Bucket) -> Dict[str, torch.Tensor]:
+        loss, metrics = self.loss_fn(bucket.static, None, True, self.kernels)
+        loss.backward()  # accumulates into the persistent gradients
+        return metrics
+
+    def _update(self) -> Dict[str, torch.Tensor]:
+        norm = clip_and_step(self.state, self.opt_cfg)
+        torch._foreach_zero_([p.grad for p in self.state.trainable()])
+        return {"grad_norm": norm}
+
+    def _run(self, owner, attr: str, body: Callable) -> Dict[str, torch.Tensor]:
+        """body() eagerly, or its graph (``owner.<attr>``): captured after
+        an eager warm-up the first time, replayed after that."""
+        if not self.graph:
+            return body()
+        from ..models.layers import dropout_generators
+        from ..utils import graphs
+
+        cap = getattr(owner, attr)
+        if cap is None:
+            t0 = time.perf_counter()
+            out = graphs.warm(body)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()  # the warm-up's blocks back for the pool
+            cap = graphs.CapturedStep(body, tally=True, warmed=True,
+                                      generators=dropout_generators(self.state.model),
+                                      pool=self.pool)
+            setattr(owner, attr, cap)
+            self.capture_s.append(time.perf_counter() - t0)
+            return out
+        cap.replay()
+        self.replays += 1
+        for name, n in cap.launches.items():
+            self.replay_launches[name] = self.replay_launches.get(name, 0) + n
+        return cap.out
+
+    def info(self) -> Dict[str, Any]:
+        return {"captured": self.graph, "graphs": len(self.capture_s), "replays": self.replays,
+                "capture_s": list(self.capture_s), "replay_launches": dict(self.replay_launches)}
 
 
 def batch_to_device(batch, device, family: str = "ctc", whisper_prompt=None,
@@ -548,9 +777,32 @@ def build_tokenizer_for(config: ExperimentConfig, manifest):
 # ---------------------------------------------------------------------------
 
 
+def step_route(config: ExperimentConfig, device, graph: bool, kernels: bool) -> tuple:
+    """-> (capture, why): whether ``train_loop`` captures its steps, by
+    rule. Under a process group the step is eager (FSDP2's hooks and
+    collectives are not captured); so is the plain path (kernels=False:
+    its frontend builds host tables each call), sgd (its update reads the
+    learning rate on the host) and graph=False. Otherwise
+    ``utils/graphs.capturing``: on a card."""
+    from ..utils import graphs
+
+    if mh.is_initialized():
+        return False, "eager: under a process group (FSDP2) the step runs eagerly"
+    if not graph:
+        return False, "eager: graph=False"
+    if not kernels:
+        return False, "eager: the plain path (kernels=False)"
+    if config.train.optimizer.name == "sgd":
+        return False, "eager: sgd keeps its learning rate on the host"
+    if graphs.capturing(device, True):
+        return True, "captured: one CUDA graph a bucket"
+    return False, f"eager: no card ({torch.device(device).type})"
+
+
 def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: bool = False,
                checkpoint_dir: Optional[str] = None, logger: Optional[MetricsLogger] = None,
-               eval_manifest=None, kernels: bool = True, max_steps: Optional[int] = None):
+               eval_manifest=None, kernels: bool = True, max_steps: Optional[int] = None,
+               graph: bool = True):
     """Train until ``optimizer.total_steps`` micro-steps (or ``max_steps``
     more in this call): host batches from a prefetch thread, per-step
     losses, steps/s every ``log_every_steps``, a checkpoint every
@@ -565,10 +817,15 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     mesh of ``config.mesh`` (parallel/mesh.py) and each (data, fsdp) rank
     runs its rows of every batch; without one, a mesh section that asks for ``fsdp_axis`` or
     ``model_axis`` > 1 is noted in one warning and the loop runs on this
-    card alone. Returns (state, info) with info = {"terminated",
-    "last_metrics", "losses", "steps_per_sec", "mesh"}; losses are the
-    global batch's on every process, mesh the (data, fsdp, model) shape
-    (None without a process group)."""
+    card alone. One process on a card captures each bucket's step as a CUDA
+    graph (``TrainStep``) unless ``graph=False`` or a rule of
+    ``step_route`` keeps it eager; the primary logs the route in one line
+    on stderr. Returns (state, info) with info =
+    {"terminated", "last_metrics", "losses", "steps_per_sec", "mesh",
+    "graph"}; losses are the global batch's on every process, mesh the
+    (data, fsdp, model) shape (None without a process group), graph
+    {"route", "captured", "graphs", "replays", "capture_s",
+    "replay_launches"}."""
     from ..data.pipeline import BatchIterator, PrefetchIterator
     from ..parallel import mesh as pmesh
     from .checkpoints import TrainCheckpointer
@@ -593,8 +850,8 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
         from ..decode.whisper_generate import resolve_specials
 
         batch_kw["whisper_prompt"], batch_kw["eot_id"] = resolve_specials(config.whisper)
+    capture, route = step_route(config, device, graph, kernels)
     state = init_state(config, model)
-    step_fn = make_train_step(make_loss_fn(config, model), tc.optimizer)
     it = PrefetchIterator(BatchIterator(manifest, tokenizer, config.data,
                                         sample_rate=config.frontend.sample_rate, **rows_of),
                           depth=max(config.data.num_host_workers, 1))
@@ -603,12 +860,18 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
         extra = ckpt.restore(state)
         if extra is not None:
             it.load_state_dict(extra.get("data_iter", it.state_dict()))
+    if mesh is None:  # after the restore: the graphs read the restored tensors
+        runner = TrainStep(config, state, kernels, graph=capture)
+    else:
+        step_fn = make_train_step(make_loss_fn(config, model), tc.optimizer)
 
     own_logger = logger is None and mh.is_primary()
     if not mh.is_primary():
         logger = None
     if own_logger:
         logger = MetricsLogger(tc.metrics_path, use_wandb=tc.use_wandb)
+    if mh.is_primary():
+        print(f"train_loop: train step {route}", file=sys.stderr, flush=True)
     terminated = {"flag": False}
     old_handler = None
     if threading.current_thread() is threading.main_thread():
@@ -624,10 +887,12 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
     try:
         while state.step < total:
             host = next(it)
-            batch = batch_to_device(host, device, **batch_kw)
-            if mesh is not None:
-                batch = pmesh.shard_batch(mesh, batch, host.global_rows)
-            metrics = step_fn(state, batch, kernels)
+            if mesh is None:
+                metrics = runner(batch_to_device(host, "cpu", **batch_kw))
+            else:
+                batch = pmesh.shard_batch(mesh, batch_to_device(host, device, **batch_kw),
+                                          host.global_rows)
+                metrics = step_fn(state, batch, kernels)
             losses.append(metrics["loss"])
             if t_first is None:  # steps/s counts from the end of the first step
                 if device.type == "cuda":
@@ -658,6 +923,11 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
             logger.close()
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
+    if mesh is None:
+        runner.release()
+        if state.step % state.accum == 0:  # no partial sum pending: drop the gradients
+            for p in state.trainable():
+                p.grad = None
     if device.type == "cuda":
         torch.cuda.synchronize()
     steps = state.step - first_step
@@ -667,6 +937,7 @@ def train_loop(config: ExperimentConfig, manifest, tokenizer, model, resume: boo
         "losses": [float(x) for x in losses],
         "steps_per_sec": (steps - 1) / (time.perf_counter() - t_first) if steps > 1 else None,
         "mesh": None if mesh is None else list(mesh.shape),
+        "graph": {"route": route, **(runner.info() if mesh is None else {"captured": False})},
     }
     state.info = info
     model.eval()
@@ -686,11 +957,12 @@ def mix_by_dialect(manifest, dialect_weights):
 
 
 def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda",
-                   kernels: bool = True, max_steps: Optional[int] = None):
+                   kernels: bool = True, max_steps: Optional[int] = None, graph: bool = True):
     """The fine-tune run (ctc, joint or whisper family): read the manifest
     (mixed by ``data.dialect_weights`` when set), build the tokenizer
     (``build_tokenizer_for``), init the model from ``train.seed``,
-    train, and save the bundle (params.npz, config.yaml, vocab.json) to
+    train (``graph``: train_loop's), and save the bundle (params.npz,
+    config.yaml, vocab.json) to
     ``<checkpoint_dir>/final``. ``config.stages`` is not read here: the
     schedule is ``train/schedules.run_stages``. Under a process group the
     bundle holds a plain model with the trained weights on every process
@@ -709,7 +981,8 @@ def run_experiment(config: ExperimentConfig, resume: bool = False, device="cuda"
     if config.data.eval_manifest and Path(config.data.eval_manifest).exists():
         eval_manifest = read_manifest(config.data.eval_manifest)
     state, _ = train_loop(config, manifest, tokenizer, model, resume=resume,
-                          eval_manifest=eval_manifest, kernels=kernels, max_steps=max_steps)
+                          eval_manifest=eval_manifest, kernels=kernels, max_steps=max_steps,
+                          graph=graph)
     model = full_model(model, lambda: make_model(config, device))
     for p in model.parameters():
         p.requires_grad_(False)

@@ -7,7 +7,9 @@ Each ``DialectStage`` is one ``engine.train_loop`` run over its own
 manifests (mixed by weight when it names several) with its own trainable
 set and a fresh optimizer, checkpointed under
 ``<checkpoint_dir>/stage_<i>_<name>``; the model carries from stage to
-stage. With ``resume=True`` a finished stage restores its last checkpoint
+stage. On one card a stage's steps are captured anew (its own graphs over
+its trainable set); the previous stage's graphs and their pool are
+released when its ``train_loop`` returns. With ``resume=True`` a finished stage restores its last checkpoint
 and takes no step, and the stage in progress continues exactly. Under a
 process group every stage runs on the mesh (the model is wrapped once,
 by the first stage), and the metrics are the primary process's.
@@ -43,7 +45,7 @@ def build_stage_manifest(stage: DialectStage) -> Manifest:
 
 
 def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTokenizer] = None,
-               resume: bool = False, device="cuda", kernels: bool = True):
+               resume: bool = False, device="cuda", kernels: bool = True, graph: bool = True):
     """Run ``config.stages`` in order on `device`, carrying the model.
 
     The char vocabulary is built over the union of all stages' texts and
@@ -80,7 +82,8 @@ def run_stages(config: ExperimentConfig, model=None, tokenizer: Optional[CharTok
             stage_cfg = dataclasses.replace(config, train=train)
             stage_dir = str(base_dir / f"stage_{si}_{stage.name or 'stage'}")
             _, info = train_loop(stage_cfg, manifest, tokenizer, model, resume=resume,
-                                 checkpoint_dir=stage_dir, logger=logger, kernels=kernels)
+                                 checkpoint_dir=stage_dir, logger=logger, kernels=kernels,
+                                 graph=graph)
             history.append({"stage": stage.name, **info["last_metrics"]})
             if logger is not None:
                 logger.log(stage.steps, stage=stage.name, stage_index=si,

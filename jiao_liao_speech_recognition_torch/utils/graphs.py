@@ -1,7 +1,7 @@
-"""CUDA graph capture of a decode step: the one rule that the serving engine
-(serve/engine.py), the streaming pool (serve/streaming.py) and the offline
+"""CUDA graph capture of a step: the one rule that the serving engine
+(serve/engine.py), the streaming pool (serve/streaming.py), the offline
 decode loops (decode/whisper_generate.py, decode/speculative.py,
-decode/ctc.py) share.
+decode/ctc.py) and the train step (train/engine.TrainStep) share.
 
 A step is warmed first: run eagerly on a side stream (``warm``), so the
 kernels' library, cuBLAS's handles and workspaces, the serving copies, the
@@ -10,22 +10,24 @@ capture. The warm-up is real work: the engine and the pool warm with their
 step on idle rows, the offline loops with their forced prompt steps and
 their first generated step (one step at least, also under an empty
 prompt), speculative greedy with its first pass, the CTC beam with its
-first frame. Then the step is captured. The launch counters
+first frame, the train step with a bucket's first step. Then the step is captured. The launch counters
 (``_build.COUNTERS``) count the capture's launches, which run nothing:
 they are kept as the step's ``launches`` by counter name and taken back
 off the counters, so a path's launches are the counted ones plus
 ``launches`` x ``replays``. The offline loops also add every replay's
 launches to ``TALLY``, which the phases of chip_smoke.py read beside the
-counters. A step that draws from a generator other than the default CUDA
-one registers it with the graph, so each replay advances it as the eager
-draws would. A capture or replay that fails raises; nothing falls back to
-the eager step.
+counters. A step that draws from generators other than the default CUDA
+one registers them with the graph, so each replay advances them as the
+eager draws would, or reads the seeds the host set before it. Graphs that
+never run at once (the train step's, one a bucket) share one memory pool;
+what one of them leaves in the pool is read before another replays. A
+capture or replay that fails raises; nothing falls back to the eager step.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -95,24 +97,28 @@ class CapturedStep:
     (``warmed``: ``warm`` above). ``out`` is what the captured call returned
     (tensors the replays rewrite), ``launches`` the kernel launches of one
     replay by counter name, ``capture_s`` the seconds the warm-up and the
-    capture took. ``generator``, a CUDA generator the step draws from, is
-    registered with the graph (the default one always is). With ``tally``
-    every replay is also added to ``TALLY``. The graph reads and writes the
-    addresses of the state tensors `step` touched: their owner (the loop,
-    the engine, the pool) keeps them alive while it replays; the object
-    holds no reference to them, so an owner that holds it forms no cycle."""
+    capture took. ``generator`` and ``generators``, CUDA generators the step
+    draws from, are registered with the graph (the default one always is).
+    ``pool``, a ``torch.cuda.graph_pool_handle()`` or another graph's
+    ``pool()``, is the memory pool the capture allocates from (a private one
+    when None). With ``tally`` every replay is also added to ``TALLY``. The
+    graph reads and writes the addresses of the state tensors `step`
+    touched: their owner (the loop, the engine, the pool) keeps them alive
+    while it replays; the object holds no reference to them, so an owner
+    that holds it forms no cycle."""
 
     def __init__(self, step: Callable, tally: bool = False, warmed: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 generators: Sequence[torch.Generator] = (), pool=None):
         t0 = time.perf_counter()
         if not warmed:
             warm(step)
         torch.cuda.synchronize()
         before = {c: c.launches for c in _build.COUNTERS}
         self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
+        for gen in ([generator] if generator is not None else []) + list(generators):
+            self.graph.register_generator_state(gen)
+        with torch.cuda.graph(self.graph, pool=pool):
             self.out = step()
         self.launches: Dict[str, int] = {}
         for c, n in before.items():

@@ -75,8 +75,8 @@ def test_kernel_sources_target_sm90a_only_through_nvcc():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     cus = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cus == ["decode_attention.cu", "flash_attention.cu", "head.cu", "ln_gemm.cu",
-                   "log_mel_tf32.cu", "quant.cu", "w8a8_mlp.cu"]
+    assert cus == ["ctc_loss.cu", "decode_attention.cu", "flash_attention.cu", "head.cu",
+                   "ln_gemm.cu", "log_mel_tf32.cu", "quant.cu", "w8a8_mlp.cu"]
     for p in _build.CSRC.glob("*.cu"):
         text = p.read_text()
         for name in ("cublas", "cudnn", "cutlass"):
